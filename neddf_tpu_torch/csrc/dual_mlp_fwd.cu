@@ -1,0 +1,54 @@
+// Dual-MLP trunk forward (NeDDF distance trunk) for sm_90a.
+//
+// Replaces the Pallas forward neddf_tpu/kernels/dual_mlp.py::_run_forward
+// (kernel body _fwd_kernel, public dual_mlp_seg) in its trunk
+// configuration: K=3 tangent planes, one input segment with tangents,
+// tanhExp, and a post-skip layer that consumes [seg0, h]. The value v
+// [M, C0] and planes j [K, M, C0] go through every layer inside one block
+// per row tile (mlp_tile.cuh); only the last layer's v [M, C] and
+// j [K, M, C] reach device memory.
+//
+// K is a template parameter: the colour trunk's K=1 training
+// configuration is another instantiation of launch_mlp_tile, not a
+// rewrite. Bound and design: see mlp_tile.cuh.
+#include "mlp_tile.cuh"
+
+using neddf::TileArgs;
+
+extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
+                                  int n_seg, const void* const* seg_v,
+                                  const void* const* seg_j, const int* seg_w,
+                                  int n_layers, const void* const* w,
+                                  const void* const* b, const int* split,
+                                  void* v_out, void* j_out, void* stream) {
+  if (n_seg < 1 || n_seg > neddf::kMaxSeg || n_layers < 1 ||
+      n_layers > neddf::kMaxLayers)
+    return (int)cudaErrorInvalidValue;
+  TileArgs a = {};
+  for (int s = 0; s < n_seg; ++s) {
+    a.seg_v[s] = seg_v[s];
+    a.seg_j[s] = seg_j[s];
+    a.seg_w[s] = seg_w[s];
+  }
+  a.n_seg = n_seg;
+  for (int l = 0; l < n_layers; ++l) {
+    a.w[l] = w[l];
+    a.b[l] = static_cast<const float*>(b[l]);
+    a.split[l] = split[l];
+  }
+  a.n_layers = n_layers;
+  a.M = M;
+  a.v_out = v_out;
+  a.j_out = j_out;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_tan == 3 && width == 256) {
+    return (int)(dtype == 1
+                     ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256>(a, st)
+                     : neddf::launch_mlp_tile<float, 3, 256>(a, st));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* neddf_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

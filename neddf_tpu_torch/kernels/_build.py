@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` into one shared library with a plain
+C interface, loaded with ``ctypes``. The build happens at first use, never
+at import, into ``neddf_tpu_torch/_build/<hash>/`` (listed in
+``.gitignore``), where ``<hash>`` covers the sources and the flags: an
+edit to any ``.cu``/``.cuh`` file builds a fresh library.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB_NAME = "libneddf_kernels.so"
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME): cannot build the CUDA kernels")
+
+
+def build_dir() -> Path:
+    """Directory of the library for the current sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet."""
+    out_dir = build_dir()
+    lib = out_dir / _LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    log += f"\n[build] {time.perf_counter() - start:.1f} s, exit {proc.returncode}\n"
+    (out_dir / "build.log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log[-6000:]}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+_VOIDP = ctypes.c_void_p
+_VOIDPP = ctypes.POINTER(ctypes.c_void_p)
+_INTP = ctypes.POINTER(ctypes.c_int)
+_INT = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call, with argtypes."""
+    lib = ctypes.CDLL(str(build()))
+    lib.neddf_dual_mlp_fwd.argtypes = [
+        _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
+        _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDP, _VOIDP, _VOIDP,
+    ]
+    lib.neddf_dual_mlp_fwd.restype = _INT
+    lib.neddf_mlp_seg_fwd.argtypes = [
+        _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
+        _INT, _VOIDPP, _VOIDPP, _VOIDP, _VOIDP,
+    ]
+    lib.neddf_mlp_seg_fwd.restype = _INT
+    lib.neddf_cuda_error_string.argtypes = [_INT]
+    lib.neddf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().neddf_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def pointers(values) -> "ctypes.Array":
+    """A C array of ``void*`` (tensors by data_ptr, None as NULL)."""
+    return (ctypes.c_void_p * len(values))(
+        *[None if v is None else v.data_ptr() for v in values]
+    )
+
+
+def ints(values) -> "ctypes.Array":
+    return (ctypes.c_int * len(values))(*[int(v) for v in values])
