@@ -22,7 +22,29 @@ Phases (any failure stops the script with a non-zero exit code):
 5. one more full-resolution render of cam 0 under ``torch.profiler``:
    the device's busy share and the kernels by device time, also written
    to ``chiprun_out/chip_smoke/profile.txt``;
-6. one JSON line of per-kernel results, the card line, and the final
+6. the training path's kernel routes against their plain versions at the
+   train step's shapes (M = 512 rays x 194 fine samples, and the coarse
+   pass's 512 x 65 plus a ragged 7), in f32 and bf16, with times: the
+   trunk forward with its stash, the K=1 colour forward, the dual-MLP
+   backward (trunk and colour configurations) and the epilogue forward
+   and backward; two backward runs must give bitwise-equal dW / db;
+7. one train step of ``pretrained/machine_neddf`` at full width (its
+   ``.hydra`` config on ``data/machine``, params of epoch 1000, iteration
+   100,000, camera 0, ``MACHINE_BATCH`` rays from ``machine_step_draws``):
+   in f32 through the kernels, its loss dict and every parameter's
+   gradient norm against the JAX package's numbers on the CPU
+   (``JAX_STEP``); in bf16 through the kernels and the plain versions,
+   against each other;
+8. the main path, ``python -m neddf_tpu_torch.scripts.run
+   trainer.epoch_max=2 hydra.run.dir=chiprun_out/chip_smoke/train`` on
+   the default config (bunny_smoke, bf16, 300 steps of 512 rays), driven
+   in this process through that module's ``main``: every loss finite,
+   train PSNR of the last 50 steps above the first 50, every kernel of
+   the path launched and no plain version called; ms/step and rays/s;
+   then the first 100 steps again through the plain versions
+   (``network.fused=off``), which must track the kernel run; and a
+   ``torch.profiler`` table of a few more steps in ``profile_train.txt``;
+9. one JSON line of per-kernel results, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 Outputs go to ``chiprun_out/chip_smoke/``.
@@ -58,6 +80,85 @@ PSNR_FULL_TPU = 30.16
 # value next to a rounding boundary may round the other way and carry
 # one bf16 step (2^-8 relative) on through the later layers
 REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+
+# phase 6: rows of the train step's fine and coarse passes (512 rays)
+M_TRAIN = 512 * 194
+M_TRAIN_RAGGED = 512 * 65 + 7
+# the dual-MLP backward sums dW over ~4 x 10^5 stacked rows in another
+# order than torch's matmul (f32); in bf16 both round the stacked
+# cotangent, where a flip moves one bf16 step (2^-8) of one row
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+
+# the full-width train step of pretrained/machine_neddf (phase 7)
+MACHINE_CAMERA = 0
+MACHINE_ITERATION = 100_000  # epoch 1000 x 100 train views (the checkpoint holds params only)
+MACHINE_BATCH = 64  # rays; the JAX reference below runs on a CPU and must fit its memory
+
+
+def machine_step_draws(width: int, height: int, n_strat: int, n_pdf: int, seed: int = 0):
+    """Pixel columns/rows and sample uniforms of the phase-7 step (numpy),
+    shared with tools/train_step_reference.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    us = rng.integers(0, width - 1, MACHINE_BATCH)
+    vs = rng.integers(0, height - 1, MACHINE_BATCH)
+    u_strat = rng.random((MACHINE_BATCH, n_strat), dtype=np.float32)
+    u_pdf = rng.random((MACHINE_BATCH, n_pdf), dtype=np.float32)
+    return us, vs, u_strat, u_pdf
+
+
+# The JAX package's numbers for the phase-7 step, made once on a CPU with
+#   JAX_PLATFORMS=cpu python tools/train_step_reference.py
+# (f32, network.fused=off, the draws of machine_step_draws).
+JAX_STEP = {
+    "loss": 0.0013547701528295875,
+    "mse": 0.0005737819010391831,
+    "losses": {
+        "color": 0.0005737819010391831,
+        "color_coarse": 7.981861563166603e-05,
+        "fields_penalty": 7.665925659239292e-05,
+        "fields_penalty_coarse": 7.612659828737378e-05,
+        "mask": 0.0004969337023794651,
+        "mask_coarse": 5.144994065631181e-05
+    },
+    "grad_norms": {
+        "network_fine.layer_aux_out.b": 3.109806857537478e-05,
+        "network_fine.layer_aux_out.w": 0.00024105420743580908,
+        "network_fine.layer_col_out.b": 0.008281256072223186,
+        "network_fine.layer_col_out.w": 0.025889305397868156,
+        "network_fine.layer_ddf_out.b": 0.001219598576426506,
+        "network_fine.layer_ddf_out.w": 0.009699663147330284,
+        "network_fine.layers_col.0.b": 0.00045613813563250005,
+        "network_fine.layers_col.0.w": 0.004541441332548857,
+        "network_fine.layers_col.1.b": 0.0004439102776814252,
+        "network_fine.layers_col.1.w": 0.003714929334819317,
+        "network_fine.layers_col.2.b": 0.0010617395164445043,
+        "network_fine.layers_col.2.w": 0.00642088009044528,
+        "network_fine.layers_ddf.0.b": 0.0023002377711236477,
+        "network_fine.layers_ddf.0.w": 0.008921648375689983,
+        "network_fine.layers_ddf.1.b": 0.0008418082143180072,
+        "network_fine.layers_ddf.1.w": 0.0018240236677229404,
+        "network_fine.layers_ddf.2.b": 0.0004552035534288734,
+        "network_fine.layers_ddf.2.w": 0.0020261395256966352,
+        "network_fine.layers_ddf.3.b": 0.00030857548699714243,
+        "network_fine.layers_ddf.3.w": 0.002669532084837556,
+        "network_fine.layers_ddf.4.b": 0.00028954504523426294,
+        "network_fine.layers_ddf.4.w": 0.0035387263633310795,
+        "network_fine.layers_ddf.5.b": 0.0004389485402498394,
+        "network_fine.layers_ddf.5.w": 0.00551997497677803,
+        "network_fine.layers_ddf.6.b": 0.0005343757220543921,
+        "network_fine.layers_ddf.6.w": 0.005504352506250143
+    }
+}
+# f32 port on the card vs the JAX package on a CPU: sums in another
+# order, amplified by 1/D in the density and moving the inverse-CDF
+# samples continuously: 1e-3 relative on each loss term and gradient norm
+JAX_STEP_TOL = 1e-3
+# bf16 step, kernels vs plain versions: a flipped bf16 rounding (2^-8)
+# moves a fine sample and the losses with it; each loss term within 2%,
+# each gradient norm within 5%
+BF16_STEP_TOL = {"loss": 0.02, "grad_norm": 0.05}
 
 
 def log(msg: str) -> None:
@@ -130,6 +231,351 @@ def profile_render(torch, trainer, eval_dir: Path, card: str, untraced_s: float)
     (OUT / "profile.txt").write_text("\n".join(lines) + "\n")
     for line in lines[:8]:
         log(f"[5] {line}")
+
+
+# phase 8: the main path's run and its checks
+TRAIN_EPOCHS = 2  # trainer.epoch_max: epochs 0..2 of 100 steps
+# dB, train PSNR of the last 50 steps over the first 50; the card shows
+# +5.26 dB (20.90 -> 26.15 dB on NVIDIA H100 80GB HBM3, 700 W)
+PSNR_GAIN_MIN = 3.0
+# plain versions vs kernels over the first 100 steps (bf16, the same
+# seed and draws): a flipped bf16 rounding moves samples, so the runs
+# drift apart slowly; mean relative loss gap and the gap of the mean
+# train PSNR over steps 50-99 (the card shows 0.0030 and 0.002 dB)
+TRACK_LOSS_REL, TRACK_PSNR_DB = 0.02, 0.2
+
+
+def check_close(name: str, got: float, ref: float, tol: float, floor: float = 0.0) -> float:
+    rel = abs(got - ref) / max(abs(ref), floor, 1e-30)
+    if not rel <= tol:
+        fail(f"{name}: {got!r} vs {ref!r}, relative {rel:.3g} > {tol}")
+    return rel
+
+
+def phase_train_kernels(torch, sd, card: str) -> dict:
+    """Phase 6: the training path's kernel routes against their plain
+    versions at the train step's shapes; returns results per route."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+    from neddf_tpu_torch.ops.dual import pe_dual_directional_mip, pe_dual_planes_mip
+    from neddf_tpu_torch.ops.pe import pe_grad_scale, positional_encoding_mip
+
+    dev = torch.device("cuda", 0)
+    n_ddf = sum(1 for k in sd if k.startswith("network_fine.layers_ddf.") and k.endswith(".w"))
+    n_col = sum(1 for k in sd if k.startswith("network_fine.layers_col.") and k.endswith(".w"))
+    ddf_w = [sd[f"network_fine.layers_ddf.{i}.w"].to(dev) for i in range(n_ddf)]
+    ddf_b = [sd[f"network_fine.layers_ddf.{i}.b"].to(dev) for i in range(n_ddf)]
+    col_w = [sd[f"network_fine.layers_col.{i}.w"].to(dev) for i in range(n_col)]
+    col_b = [sd[f"network_fine.layers_col.{i}.b"].to(dev) for i in range(n_col)]
+    wd = sd["network_fine.layer_ddf_out.w"][:, 0].to(dev).contiguous()
+    wa = sd["network_fine.layer_aux_out.w"][:, 0].to(dev).contiguous()
+    b2 = torch.cat([sd["network_fine.layer_ddf_out.b"], sd["network_fine.layer_aux_out.b"]]).to(dev)
+    # d_near, aux_grad_scale, distance_range_max and the shipped penalty weights
+    scal = torch.tensor([0.001, 1.1, 2.0, 0.05, 1.0, 1.0, 1.0, 0.0], device=dev)
+    layout = tuple(li == 5 for li in range(n_ddf))
+    c_layout = (False,) * n_col
+    has_j = (True, False, False, True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+
+    def check(route, m, dtype_name, pairs, tol):
+        worst_abs, worst_rel = 0.0, 0.0
+        for got, ref in pairs:
+            if not torch.isfinite(got.float()).all():
+                fail(f"{route} {dtype_name} M={m}: non-finite output")
+            a, r = rel_err(torch, got, ref)
+            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        if worst_rel > tol:
+            fail(f"{route} {dtype_name} M={m}: rel err {worst_rel:.3g} > {tol}")
+        results.setdefault(route, {})[f"{m}/{dtype_name}"] = {
+            "max_abs_err": worst_abs, "rel_err": worst_rel}
+        return results[route][f"{m}/{dtype_name}"]
+
+    for m in (M_TRAIN, M_TRAIN_RAGGED):
+        pos = torch.rand((m, 3), generator=gen, device=dev) * 2.0 - 1.0
+        var = torch.rand((m, 3), generator=gen, device=dev) * 1e-5
+        dirs = torch.randn((m, 3), generator=gen, device=dev)
+        dirs = dirs / dirs.norm(dim=1, keepdim=True)
+        emb_v, emb_j = pe_dual_planes_mip(pos, 10, var=var, chan_scale=pe_grad_scale(10, dev))
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tol, btol = REL_TOL[dtype_name], BWD_REL_TOL[dtype_name]
+            w = [x.to(dtype).contiguous() for x in ddf_w]
+            cw = [x.to(dtype).contiguous() for x in col_w]
+            v0, j0 = emb_v.to(dtype).contiguous(), emb_j.to(dtype).contiguous()
+            # trunk forward with its stash
+            tk = dm.dual_mlp_trunk(v0, j0, w, ddf_b, layout, stash=True)
+            tp = dm.dual_mlp_seg_plain([v0], [j0], w, ddf_b, layout, "tanhExp", (True,), 3,
+                                       stash=True)
+            torch.cuda.synchronize()
+            check("dual_mlp_trunk_stash", m, dtype_name,
+                  [(tk[0], tp[0]), (tk[1], tp[1])] + list(zip(tk[2], tp[2])), tol)
+            v_feat, j_feat, t_pres = tp
+            del tk
+            # epilogue forward and backward on the trunk's streams
+            ek = epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal)
+            ep = epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal)
+            check("neddf_epilogue", m, dtype_name, [(ek[0], ep[0]), (ek[1], ep[1])], tol)
+            g_out = torch.randn((10, m), generator=gen, device=dev)
+            g_tf = (torch.randn((m, 256), generator=gen, device=dev) * 0.1).to(dtype)
+            ebk = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
+            ebp = epi.neddf_epilogue_bwd_plain(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
+            check("neddf_epilogue_bwd", m, dtype_name, list(zip(ebk, ebp)), btol)
+            again = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
+            if not all(torch.equal(a, b) for a, b in zip(ebk, again)):
+                fail(f"neddf_epilogue_bwd {dtype_name} M={m}: two runs differ")
+            # the K=1 colour forward on [PE dual(pos) along grad D, PE(dir), n, features]
+            t_dir = ep[0][6:9].T.contiguous()
+            ep_v, ep_t = pe_dual_directional_mip(pos, 10, t_dir, var=var)
+            segs = [ep_v.to(dtype).contiguous(), positional_encoding_mip(dirs, 4).to(dtype),
+                    ep[0][3:6].T.to(dtype).contiguous(), v_feat]
+            js = [ep_t.to(dtype)[None].contiguous(), ep[1][None].contiguous()]
+            ck = dm.dual_mlp_seg(segs, js, cw, col_b, c_layout, "tanhExp", has_j, 1, stash=True)
+            cp = dm.dual_mlp_seg_plain(segs, js, cw, col_b, c_layout, "tanhExp", has_j, 1,
+                                       stash=True)
+            check("dual_mlp_color_k1", m, dtype_name,
+                  [(ck[0], cp[0]), (ck[1], cp[1])] + list(zip(ck[2], cp[2])), tol)
+            # the dual-MLP backward, trunk and colour configurations
+            bwd_args = {}
+            for cfg, vs_, js_, ws_, lay, hj, k, pres in (
+                    ("trunk", [v0], [j0], w, layout, (True,), 3, t_pres),
+                    ("color", segs, js, cw, c_layout, has_j, 1, cp[2])):
+                gv = (torch.randn((m, 256), generator=gen, device=dev) * 0.01).to(dtype)
+                gj = (torch.randn((k, m, 256), generator=gen, device=dev) * 0.01).to(dtype)
+                args = (vs_, js_, ws_, lay, "tanhExp", hj, pres, gv, gj)
+                bk = dm.dual_mlp_seg_bwd(*args)
+                bp = dm.dual_mlp_seg_bwd_plain(*args)
+                torch.cuda.synchronize()
+                check(f"dual_mlp_seg_bwd_{cfg}", m, dtype_name,
+                      list(zip(sum(bk, []), sum(bp, []))), btol)
+                again = dm.dual_mlp_seg_bwd(*args)
+                if not all(torch.equal(a, b) for a, b in zip(bk[2] + bk[3], again[2] + again[3])):
+                    fail(f"dual_mlp_seg_bwd {cfg} {dtype_name} M={m}: dW/db differ between runs")
+                bwd_args[cfg] = args
+                del bk, bp, again
+            if m == M_TRAIN:
+                timings = {
+                    "neddf_epilogue": (
+                        lambda: epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal),
+                        lambda: epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal)),
+                    "neddf_epilogue_bwd": (
+                        lambda: epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal,
+                                                       g_out, g_tf),
+                        lambda: epi.neddf_epilogue_bwd_plain(v_feat, j_feat, wd, wa, b2, scal,
+                                                             g_out, g_tf)),
+                    "dual_mlp_color_k1": (
+                        lambda: dm.dual_mlp_seg(segs, js, cw, col_b, c_layout, "tanhExp",
+                                                has_j, 1, stash=True),
+                        lambda: dm.dual_mlp_seg_plain(segs, js, cw, col_b, c_layout, "tanhExp",
+                                                      has_j, 1, stash=True)),
+                    "dual_mlp_trunk_stash": (
+                        lambda: dm.dual_mlp_trunk(v0, j0, w, ddf_b, layout, stash=True),
+                        lambda: dm.dual_mlp_seg_plain([v0], [j0], w, ddf_b, layout, "tanhExp",
+                                                      (True,), 3, stash=True)),
+                    "dual_mlp_seg_bwd_trunk": (
+                        lambda: dm.dual_mlp_seg_bwd(*bwd_args["trunk"]),
+                        lambda: dm.dual_mlp_seg_bwd_plain(*bwd_args["trunk"])),
+                    "dual_mlp_seg_bwd_color": (
+                        lambda: dm.dual_mlp_seg_bwd(*bwd_args["color"]),
+                        lambda: dm.dual_mlp_seg_bwd_plain(*bwd_args["color"])),
+                }
+                for route, (fk, fp) in timings.items():
+                    ms, plain_ms = time_pair(torch, fk, fp, reps=3)
+                    results[route][f"{m}/{dtype_name}"].update(ms=ms, plain_ms=plain_ms)
+            for route in results:
+                if f"{m}/{dtype_name}" in results[route]:
+                    log(f"[6] {route} M={m} {dtype_name}: "
+                        f"{json.dumps(results[route][f'{m}/{dtype_name}'])} | card: {card}")
+            del tp, v_feat, j_feat, t_pres, ek, ep, ebk, ebp, ck, cp, bwd_args
+            torch.cuda.empty_cache()
+    return results
+
+
+def machine_trainer(torch):
+    """The trainer of pretrained/machine_neddf on its train split (f32,
+    kernels), epoch-1000 params, at the phase-7 iteration."""
+    from neddf_tpu_torch import config as config_lib
+
+    cfg = config_lib.load_snapshot(RUN)
+    cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
+    cfg["network"]["compute_dtype"] = "float32"
+    cfg["trainer"]["device"] = "cuda"
+    trainer = config_lib.instantiate(cfg["trainer"], global_config=cfg)
+    trainer.load_pretrained_model(RUN / "models" / f"model_{EPOCH:05}.ckpt")
+    trainer.iteration = MACHINE_ITERATION
+    return trainer
+
+
+def machine_step(torch, trainer) -> dict:
+    """Phase 7's step on the shared draws: loss dict and gradient norms."""
+    render = trainer.neural_render
+    draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                               render.sample_coarse + 1, render.sample_fine + 1)
+    us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+    loss, loss_dict, mse = trainer.step_grads(MACHINE_CAMERA, us.long(), vs.long(),
+                                              u_strat, u_pdf)
+    return {"loss": loss.item(), "mse": mse.item(),
+            "losses": {k: v.item() for k, v in loss_dict.items()},
+            "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
+
+
+def phase_machine_step(torch, card: str) -> dict:
+    trainer = machine_trainer(torch)
+    net = trainer.neural_render.network_fine
+    got = machine_step(torch, trainer)
+    worst = 0.0
+    for k in ("loss", "mse"):
+        worst = max(worst, check_close(k, got[k], JAX_STEP[k], JAX_STEP_TOL))
+    for k, ref in JAX_STEP["losses"].items():
+        worst = max(worst, check_close(f"loss {k}", got["losses"][k], ref, JAX_STEP_TOL))
+    for k, ref in JAX_STEP["grad_norms"].items():
+        worst = max(worst, check_close(f"grad norm {k}", got["grad_norms"][k], ref, JAX_STEP_TOL))
+    log(f"[7] f32 step vs the JAX package: loss {got['loss']:.8g} (JAX {JAX_STEP['loss']:.8g}), "
+        f"worst relative gap {worst:.3g} over {2 + len(JAX_STEP['losses'])} losses and "
+        f"{len(JAX_STEP['grad_norms'])} gradient norms (bar {JAX_STEP_TOL}) | card: {card}")
+    net.compute_dtype = torch.bfloat16
+    kern = machine_step(torch, trainer)
+    net.fused = "off"
+    plain = machine_step(torch, trainer)
+    worst_loss = max(check_close(f"bf16 loss {k}", kern["losses"][k], plain["losses"][k],
+                                 BF16_STEP_TOL["loss"]) for k in plain["losses"])
+    worst_grad = max(check_close(f"bf16 grad norm {k}", kern["grad_norms"][k],
+                                 plain["grad_norms"][k], BF16_STEP_TOL["grad_norm"])
+                     for k in plain["grad_norms"])
+    log(f"[7] bf16 step, kernels vs plain versions: loss {kern['loss']:.8g} vs "
+        f"{plain['loss']:.8g}; worst relative gap {worst_loss:.3g} (losses, bar "
+        f"{BF16_STEP_TOL['loss']}), {worst_grad:.3g} (gradient norms, bar "
+        f"{BF16_STEP_TOL['grad_norm']})")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"f32": got, "bf16_kernels": kern, "bf16_plain": plain, "jax": JAX_STEP,
+            "worst_rel_vs_jax": worst}
+
+
+def run_main_path(torch, run_dir: Path, extra=()):
+    """``python -m neddf_tpu_torch.scripts.run`` in this process."""
+    import os
+
+    from neddf_tpu_torch.scripts import run as run_script
+
+    if run_dir.exists():
+        shutil.rmtree(run_dir)
+    cwd = os.getcwd()
+    try:
+        trainer = run_script.main([f"trainer.epoch_max={TRAIN_EPOCHS}",
+                                   f"hydra.run.dir={run_dir}", *extra])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    return trainer
+
+
+def profile_train(torch, trainer, card: str, steps: int = 5) -> None:
+    """Device time by kernel over a few more train steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for cam in range(2):
+        trainer.run_train_step(cam)
+    trainer.flush_logs()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for cam in range(steps):
+            trainer.run_train_step(cam)
+        trainer.flush_logs()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    lines = [f"card: {card}",
+             f"{steps} train steps (512 rays, bf16): traced wall {wall:.3f} s, device busy "
+             f"{busy:.3f} s, busy share {busy / wall:.3f} of the traced wall"]
+    for e in kernels[:40]:
+        t = e.self_device_time_total / 1e6
+        lines.append(f"{t:9.4f} s {100 * t / busy:6.2f}% n={e.count:6d}  {e.key[:110]}")
+    (OUT / "profile_train.txt").write_text("\n".join(lines) + "\n")
+    for line in lines[:12]:
+        log(f"[8] {line}")
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
+def phase_train_run(torch, card: str) -> dict:
+    """Phase 8: the main path (the default config's training run)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+
+    kernels = {"dual_mlp_trunk": dm.dual_mlp_trunk, "mlp_seg": mlp.mlp_seg,
+               "dual_mlp_seg": dm.dual_mlp_seg, "dual_mlp_seg_bwd": dm.dual_mlp_seg_bwd,
+               "neddf_epilogue": epi.neddf_epilogue, "neddf_epilogue_bwd": epi.neddf_epilogue_bwd}
+    plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
+              mlp.mlp_seg_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain]
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    trainer = run_main_path(torch, OUT / "train")
+    wall = time.perf_counter() - start
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    log(f"[8] main path run: {trainer.iteration} steps in {wall:.1f} s (load, hooks and "
+        f"checkpoint included), peak device memory {peak_gib:.2f} GiB; launches "
+        f"{launches}; plain calls {plain_calls}")
+    if min(launches.values()) < 1 or plain_calls:
+        fail("the main path did not run through every kernel alone")
+    hist = trainer.history
+    if len(hist) != 100 * (TRAIN_EPOCHS + 1):
+        fail(f"{len(hist)} logged steps")
+    if not all(math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+               for r in hist):
+        fail("a non-finite loss in the main path run")
+    first, last = mean([r["psnr"] for r in hist[:50]]), mean([r["psnr"] for r in hist[-50:]])
+    log(f"[8] train PSNR: first 50 steps {first:.3f} dB, last 50 {last:.3f} dB "
+        f"(gain bar {PSNR_GAIN_MIN} dB); loss {mean([r['loss'] for r in hist[:50]]):.5f} -> "
+        f"{mean([r['loss'] for r in hist[-50:]]):.5f}")
+    if not last - first >= PSNR_GAIN_MIN:
+        fail("train PSNR did not rise")
+    # steady steps: epoch 1 has no hook inside it
+    steady = [r["seconds"] for r in hist if 100 <= r["iteration"] < 200]
+    ms_step = 1000.0 * mean(steady)
+    rays_s = trainer.batch_size / mean(steady)
+    render = trainer.neural_render
+    samples = 2 * (render.sample_coarse + 1) + render.sample_fine + 1
+    log(f"[8] {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, bf16, "
+        f"{trainer.batch_size} rays x {samples} samples) | card: {card}")
+    profile_train(torch, trainer, card)
+    kernel_hist = [dict(r) for r in hist[:100]]
+    del trainer
+    torch.cuda.empty_cache()
+
+    start = time.perf_counter()
+    plain_trainer = run_main_path(torch, OUT / "train_plain",
+                                  ["network.fused=off", "trainer.epoch_max=0"])
+    plain_wall = time.perf_counter() - start
+    ph = plain_trainer.history
+    gaps = [abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(kernel_hist, ph)]
+    psnr_gap = abs(mean([r["psnr"] for r in kernel_hist[50:]])
+                   - mean([r["psnr"] for r in ph[50:100]]))
+    plain_steady = 1000.0 * mean([r["seconds"] for r in ph[10:100]])
+    log(f"[8] plain versions, first 100 steps ({plain_wall:.1f} s, {plain_steady:.2f} ms/step "
+        f"steps 10-99): mean relative loss gap {mean(gaps):.4f} (bar {TRACK_LOSS_REL}), max "
+        f"{max(gaps):.4f}; PSNR gap steps 50-99 {psnr_gap:.3f} dB (bar {TRACK_PSNR_DB})")
+    if len(ph) != 100 or not mean(gaps) <= TRACK_LOSS_REL or not psnr_gap <= TRACK_PSNR_DB:
+        fail("the plain versions do not track the kernel run")
+    return {"launches": launches, "plain_calls": plain_calls, "ms_per_step": ms_step,
+            "peak_memory_gib": peak_gib,
+            "rays_per_s": rays_s, "psnr_first50": first, "psnr_last50": last,
+            "wall_s": wall, "plain_ms_per_step": plain_steady,
+            "track_mean_loss_gap": mean(gaps), "track_max_loss_gap": max(gaps),
+            "track_psnr_gap_db": psnr_gap,
+            "loss_curve": [r["loss"] for r in hist], "psnr_curve": [r["psnr"] for r in hist],
+            "plain_loss_curve": [r["loss"] for r in ph]}
 
 
 def main() -> int:
@@ -330,27 +776,57 @@ def main() -> int:
     # ---- phase 5: device profile of one render
     profile_render(torch, trainer, eval_dir, card, secs)
 
-    # ---- phase 6: results
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the training path's kernel routes against their plain versions
+    train_kernels = phase_train_kernels(torch, sd, card)
+
+    # ---- phase 7: the full-width machine_neddf step against the JAX package
+    machine = phase_machine_step(torch, card)
+
+    # ---- phase 8: the main path, the default config's training run
+    train = phase_train_run(torch, card)
+
+    # ---- phase 9: results
     bf16 = results[(M_FULL, "bfloat16")]
+    key = f"{M_TRAIN}/bfloat16"
+
+    def entry(name, source, replaces, launch_key, route):
+        r = train_kernels[route][key]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"]}
+
+    bwd = entry("dual_mlp_seg_bwd (trunk K=3)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+                "neddf_tpu/kernels/dual_mlp.py:935", "dual_mlp_seg_bwd",
+                "dual_mlp_seg_bwd_trunk")
+    bwd["max_abs_err"] = max(bwd["max_abs_err"],
+                             train_kernels["dual_mlp_seg_bwd_color"][key]["max_abs_err"])
     kernels = [
-        {"name": "dual_mlp_trunk", "route": "cuda",
-         "source": "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
-         "replaces": "neddf_tpu/kernels/dual_mlp.py:635",
-         "launches": launches["dual_mlp_trunk"],
-         "max_abs_err": bf16["trunk_max_abs_err"],
-         "ms": bf16["trunk_ms"], "plain_ms": bf16["trunk_plain_ms"]},
+        entry("dual_mlp_trunk (K=3, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
+              "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_trunk", "dual_mlp_trunk_stash"),
         {"name": "mlp_seg", "route": "cuda",
          "source": "neddf_tpu_torch/csrc/mlp_fwd.cu",
          "replaces": "neddf_tpu/kernels/mlp.py:192",
-         "launches": launches["mlp_seg"],
+         "launches": train["launches"]["mlp_seg"],
          "max_abs_err": bf16["col_max_abs_err"],
          "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"]},
+        entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
+              "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
+        bwd,
+        entry("neddf_epilogue", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+              "neddf_tpu/kernels/neddf_epilogue.py:329", "neddf_epilogue", "neddf_epilogue"),
+        entry("neddf_epilogue_bwd", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+              "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_bwd",
+              "neddf_epilogue_bwd"),
     ]
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
         "kernel_checks": {f"{m}/{d}": v for (m, d), v in results.items()},
-        "render_check": render_check,
+        "render_check": render_check, "eval_launches": launches,
+        "train_kernel_checks": train_kernels, "machine_step": machine, "train_run": train,
     }
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 The JAX package ``neddf_tpu`` stays the reference; this package mirrors
 its layout and names and imports neither it nor JAX. Ported so far: the
-NeDDF eval render (``scripts/run_eval.py``) with two hand-written CUDA
-kernels (``csrc/``), built with nvcc at first use (``kernels/_build.py``).
+NeDDF train step of the default config (``scripts/run.py``) and the eval
+render (``scripts/run_eval.py``), with hand-written CUDA kernels
+(``csrc/``) built with nvcc at first use (``kernels/_build.py``).
 """
 
 __version__ = "0.1.0"

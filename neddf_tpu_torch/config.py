@@ -1,9 +1,11 @@
 """Config composition and instantiation for the PyTorch port.
 
 The same user-facing surface as ``neddf_tpu/config.py`` (Hydra-style
-``compose``, ``instantiate`` and ``load_snapshot``), with two changes:
+``compose``, ``instantiate``, ``save_snapshot`` and ``load_snapshot``),
+with two changes:
 
-* YAML is read by ``utils/yaml_subset.py``, so no PyYAML is needed.
+* YAML is read and written by ``utils/yaml_subset.py``, so no PyYAML is
+  needed.
 * ``_target_`` paths are remapped onto this package: ``neddf_tpu.*``
   (this repo's snapshots, e.g. ``pretrained/machine_neddf/.hydra``) and
   the upstream reference's ``neddf.*`` both resolve to
@@ -25,6 +27,10 @@ _REFERENCE_ALIASES: Dict[str, str] = {
     "neddf.network.NeDDF": "fields.NeDDF",
     "neddf.render.NeRFRender": "render.NeRFRender",
     "neddf.trainer.NeRFTrainer": "training.NeRFTrainer",
+    "neddf.loss.ColorLoss": "training.ColorLoss",
+    "neddf.loss.MaskBCELoss": "training.MaskBCELoss",
+    "neddf.loss.MaskMSELoss": "training.MaskMSELoss",
+    "neddf.loss.FieldsConstraintLoss": "training.FieldsConstraintLoss",
 }
 
 ConfigDict = Dict[str, Any]
@@ -104,6 +110,16 @@ def instantiate(node: ConfigDict, **extra: Any) -> Any:
     kwargs = {k: v for k, v in node.items() if not k.startswith("_")}
     kwargs.update(extra)
     return resolve_target(node["_target_"])(**kwargs)
+
+
+def save_snapshot(cfg: ConfigDict, overrides: List[str], run_dir: Union[str, Path]) -> None:
+    """Write ``.hydra/{config,overrides}.yaml`` into the run directory
+    (``neddf_tpu/config.py::save_snapshot``); targets stay as composed,
+    so both packages recompose the snapshot."""
+    hydra_dir = Path(run_dir) / ".hydra"
+    hydra_dir.mkdir(parents=True, exist_ok=True)
+    (hydra_dir / "config.yaml").write_text(yaml_subset.dumps(cfg))
+    (hydra_dir / "overrides.yaml").write_text(yaml_subset.dumps(list(overrides)))
 
 
 def load_snapshot(run_dir: Union[str, Path]) -> ConfigDict:

@@ -9,8 +9,12 @@
 // j [K, M, C] reach device memory.
 //
 // K is a template parameter: the colour trunk's K=1 training
-// configuration is another instantiation of launch_mlp_tile, not a
-// rewrite. Bound and design: see mlp_tile.cuh.
+// configuration (four segments 60/24/3/256, tangents on the first and
+// the last, no post-skip layer) is the K=1 instantiation of the same
+// tile kernel. Under a differentiated call the kernel also writes each
+// layer's pre-activation stack (the Pallas forward's stash,
+// dual_mlp.py:570-580) for csrc/dual_mlp_bwd.cu. Bound and design: see
+// mlp_tile.cuh.
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;
@@ -20,7 +24,8 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
                                   const void* const* seg_j, const int* seg_w,
                                   int n_layers, const void* const* w,
                                   const void* const* b, const int* split,
-                                  void* v_out, void* j_out, void* stream) {
+                                  void* const* stash, void* v_out, void* j_out,
+                                  void* stream) {
   if (n_seg < 1 || n_seg > neddf::kMaxSeg || n_layers < 1 ||
       n_layers > neddf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
@@ -35,6 +40,7 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
     a.w[l] = w[l];
     a.b[l] = static_cast<const float*>(b[l]);
     a.split[l] = split[l];
+    a.stash[l] = stash != nullptr ? stash[l] : nullptr;
   }
   a.n_layers = n_layers;
   a.M = M;
@@ -45,6 +51,11 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
     return (int)(dtype == 1
                      ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256>(a, st)
                      : neddf::launch_mlp_tile<float, 3, 256>(a, st));
+  }
+  if (n_tan == 1 && width == 256) {
+    return (int)(dtype == 1
+                     ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256>(a, st)
+                     : neddf::launch_mlp_tile<float, 1, 256>(a, st));
   }
   return (int)cudaErrorInvalidValue;
 }

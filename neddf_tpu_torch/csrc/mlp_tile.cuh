@@ -8,8 +8,13 @@
 //
 // * the block stacks S = K+1 streams (the values and K tangent planes)
 //   as kRows = S*TM rows, stream-major: row st*TM + i is stream st of
-//   sample i. K=3 is the NeDDF distance trunk (d/dxyz planes), K=0 the
-//   value-only colour trunk.
+//   sample i. K=3 is the NeDDF distance trunk (d/dxyz planes), K=1 the
+//   colour trunk's directional tangent (training), K=0 the value-only
+//   colour trunk (eval). A segment without tangents stages zeros in its
+//   tangent rows.
+// * optionally (stash[l] != null) each layer's pre-activation stack
+//   [S, M, C] (z with the bias on the value rows, before the activation)
+//   is written rounded to T, for the backward (dual_mlp_bwd.cu).
 // * the layer-0 input is staged once into shared memory as the concat of
 //   the input segments (x0); its weight rows are read in place, so no
 //   concat ever exists in device memory. A post-skip layer reads segment
@@ -54,6 +59,7 @@ struct TileArgs {
   const void* w[kMaxLayers];   // [fan_in, C] row-major, type T
   const float* b[kMaxLayers];  // [C]
   int split[kMaxLayers];       // layer consumes [seg0, h]
+  void* stash[kMaxLayers];     // [S, M, C] pre-activations, type T, or null
   int n_layers;
   int M;
   void* v_out;                 // [M, C], type T
@@ -266,6 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
     const bool last = (l == a.n_layers - 1);
     T* vout = static_cast<T*>(a.v_out);
     T* jout = static_cast<T*>(a.j_out);
+    T* pre = static_cast<T*>(a.stash[l]);
 #pragma unroll
     for (int p = 0; p < SPT; ++p) {
       const int i = tr + p * RG;
@@ -273,6 +280,11 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         const int col = q * 4 * kColGroups + tc * 4;
+        if (pre != nullptr && m < M) {
+#pragma unroll
+          for (int st = 0; st < S; ++st)
+            store4(pre + ((size_t)st * M + m) * C + col, &acc[st][p][q * 4]);
+        }
         float out[S][4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {

@@ -1,11 +1,9 @@
-"""NeDDF field, eval path: distance trunk with spatial Jacobian, density
-from the distance gradient, value-only colour trunk.
+"""NeDDF field: distance trunk with spatial Jacobian, density from the
+distance gradient, colour trunk; the eval path and the training path.
 
-Counterpart of ``neddf_tpu/fields/neddf.py`` for ``need_aux=False``
-(``:496-655``). The training path (``need_aux=True``: penalties, the
-directional colour tangent, gradients) is not ported yet.
+Counterpart of ``neddf_tpu/fields/neddf.py``.
 
-Per sample, with the eval schedule:
+Per sample, both paths:
 
 * the DDF trunk runs on the PE-with-Jacobian of the position, scaled by
   grad_scale * lowpass * mip weights, as K=3 tangent planes
@@ -13,12 +11,29 @@ Per sample, with the eval schedule:
   skip s;
 * D = softplus(h_d) + d_near and its gradient, aux = s * sigmoid(h_a),
   density = relu((1/D) * (1 - sqrt(|grad D|^2 + aux^2))), and the normal
-  grad D / (|grad D| + 1e-7);
-* the colour trunk runs on ``[PE_mip(pos) * lowpass, PE(dir), normal,
-  trunk features]`` (``kernels/mlp.py``), then the colour head.
+  grad D / (|grad D| + 1e-7).
+
+Eval (``need_aux=False``, ``:596-655``): the heads run in f32 here and the
+colour trunk runs value-only on ``[PE_mip(pos) * lowpass, PE(dir),
+normal, trunk features]`` (``kernels/mlp.py``), then the colour head;
+``fields_penalty`` is zeros.
+
+Training (``need_aux=True``, the JAX package's fused-epilogue path
+``_apply_fused_epilogue:397-486``): the trunk, ``kernels/
+neddf_epilogue.py`` (heads, density, the four trunk penalties and the
+colour tangent seed t_feat), then the colour trunk as a K=1 dual MLP on
+``[PE dual(pos) along sg(grad D), PE(dir), sg(normal), features]`` with
+``has_j=(T, F, F, T)`` (``_directional_color:356-395``), the colour head
+on value and tangent, and the range_color / constraints_color
+penalties. Every stage is an autograd op with a hand-written backward;
+the weights stay attached to autograd on this path.
+
+Penalty weights: ``penalty_weight=None`` means the JAX package's
+defaults (``_DEFAULT_PENALTY_WEIGHT``); a penalty missing from a given
+map enters the sum unweighted (the reference's quirk, ``:743-745``).
 
 ``compute_dtype`` sets the trunks' operand and storage dtype (bf16 in
-the shipped configs); the heads and the density run in f32. ``fused``
+the shipped configs); heads, density and penalties run in f32. ``fused``
 selects the trunk implementation: ``auto`` runs the CUDA kernels on CUDA
 tensors and their plain versions on CPU tensors, ``on`` requires CUDA
 tensors, ``off`` always runs the plain versions.
@@ -32,15 +47,21 @@ from torch import nn
 
 from neddf_tpu_torch.fields.base import Linear, Schedule
 from neddf_tpu_torch.geometry.rays import Sampling
-from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_trunk, dual_mlp_trunk_plain
+from neddf_tpu_torch.kernels.dual_mlp import (
+    dual_mlp_apply,
+    dual_mlp_trunk,
+    dual_mlp_trunk_plain,
+)
 from neddf_tpu_torch.kernels.mlp import mlp_seg, mlp_seg_plain
+from neddf_tpu_torch.kernels.neddf_epilogue import NeDDFEpilogue
 from neddf_tpu_torch.ops.activations import (
     ACTIVATIONS,
+    relu,
     sigmoid,
     softplus,
     softplus_deriv,
 )
-from neddf_tpu_torch.ops.dual import pe_dual_planes_mip
+from neddf_tpu_torch.ops.dual import pe_dual_directional_mip, pe_dual_planes_mip
 from neddf_tpu_torch.ops.pe import (
     pe_grad_scale,
     pe_lowpass_scale,
@@ -50,6 +71,15 @@ from neddf_tpu_torch.ops.pe import (
 Tensor = torch.Tensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# neddf_tpu/fields/neddf.py::_DEFAULT_PENALTY_WEIGHT (penalty_weight=None)
+_DEFAULT_PENALTY_WEIGHT = {
+    "constraints_aux_grad": 0.05,
+    "constraints_dDdt": 0.05,
+    "constraints_color": 0.01,
+    "range_distance": 1.0,
+    "range_aux_grad": 1.0,
+}
 
 
 class NeDDF(nn.Module):
@@ -85,8 +115,9 @@ class NeDDF(nn.Module):
         self.lowpass_alpha_offset = lowpass_alpha_offset
         self.lowpass_alpha_rate = lowpass_alpha_rate
         self.skips = tuple(skips)
-        # training-only (the penalties); kept so snapshots instantiate
-        self.penalty_weight = dict(penalty_weight or {})
+        self.penalty_weight = dict(
+            _DEFAULT_PENALTY_WEIGHT if penalty_weight is None else penalty_weight
+        )
         self.compute_dtype = _DTYPES[compute_dtype]
         self.fused = fused
 
@@ -144,9 +175,10 @@ class NeDDF(nn.Module):
         self, sampling: Sampling, sched: Schedule, *, need_aux: bool = False
     ) -> Dict[str, Tensor]:
         """The JAX package's ``NeDDF.apply``; outputs are [B, S] tensors
-        (``color`` [B, S, 3]) and ``fields_penalty`` is zeros."""
+        (``color`` [B, S, 3]). ``need_aux=True`` is the training path;
+        without it ``fields_penalty`` is zeros."""
         if need_aux:
-            raise NotImplementedError("NeDDF training path (need_aux=True) is not ported")
+            return self._forward_train(sampling, sched)
         batch_size, sampling_size = sampling.sample_pos.shape[:2]
         act = self.activation_type
         density_act, _ = ACTIVATIONS[self.density_activation_type]
@@ -206,4 +238,76 @@ class NeDDF(nn.Module):
                 (batch_size, sampling_size), dtype=torch.float32, device=device
             ),
             "aux_grad": aux_grad.reshape(batch_size, sampling_size),
+        }
+
+    def _forward_train(self, sampling: Sampling, sched: Schedule) -> Dict[str, Tensor]:
+        """Training path (``_apply_fused_epilogue`` + ``_directional_color``)."""
+        if self.density_activation_type != "ReLU":
+            raise NotImplementedError("the epilogue computes a ReLU density")
+        batch_size, sampling_size = sampling.sample_pos.shape[:2]
+        act = self.activation_type
+        cd = self.compute_dtype
+        pos = sampling.sample_pos.reshape(-1, 3)
+        direction = sampling.sample_dir.reshape(-1, 3)
+        var = sampling.diag_variance.reshape(-1, 3)
+        device = pos.device
+        use_kernels = self._use_kernels(device)
+        rank = self.embed_pos_rank
+        wm = self.penalty_weight
+
+        lowpass = pe_lowpass_scale(rank, sched.lowpass_alpha, device)
+        emb_v, emb_j = pe_dual_planes_mip(
+            pos, rank, var=var, chan_scale=pe_grad_scale(rank, device) * lowpass
+        )
+        v_feat, j_feat = dual_mlp_apply(
+            [emb_v.to(cd).contiguous()], [emb_j.to(cd).contiguous()],
+            [layer.w for layer in self.layers_ddf], [layer.b for layer in self.layers_ddf],
+            self.trunk_layout, act, (True,), 3, cd, use_kernels,
+        )
+
+        b2 = torch.cat([self.layer_ddf_out.b, self.layer_aux_out.b])
+        scal = torch.tensor(
+            [self.d_near, sched.aux_grad_scale, sched.distance_range_max,
+             wm.get("constraints_aux_grad", 1.0), wm.get("constraints_dDdt", 1.0),
+             wm.get("range_distance", 1.0), wm.get("range_aux_grad", 1.0), 0.0],
+            dtype=torch.float32, device=device,
+        )
+        out, t_feat = NeDDFEpilogue.apply(
+            use_kernels, v_feat, j_feat, self.layer_ddf_out.w[:, 0],
+            self.layer_aux_out.w[:, 0], b2, scal,
+        )
+        density, distance, aux_grad, pen4 = out[0], out[1], out[2], out[9]
+        norm_dir = out[3:6].T.detach()  # [M, 3]
+        t_dir = out[6:9].T.detach()  # [M, 3], the tangent direction sg(grad D)
+
+        # ---- K=1 directional colour branch
+        embed_dir = positional_encoding_mip(direction, self.embed_dir_rank)
+        ep_v, ep_t = pe_dual_directional_mip(pos, rank, t_dir, var=var, chan_scale=lowpass)
+        hc_v, hc_t = dual_mlp_apply(
+            [ep_v.to(cd).contiguous(), embed_dir.to(cd).contiguous(),
+             norm_dir.to(cd).contiguous(), v_feat],
+            [ep_t.to(cd)[None].contiguous(), t_feat[None]],
+            [layer.w for layer in self.layers_col], [layer.b for layer in self.layers_col],
+            (False,) * len(self.layers_col), act, (True, False, False, True), 1, cd,
+            use_kernels,
+        )
+        w_co = self.layer_col_out.w.to(cd).float()
+        b_co = self.layer_col_out.b.to(cd).float()
+        color = hc_v.float() @ w_co + b_co  # [M, 3]
+        color_t = hc_t[0].float() @ w_co  # [M, 3], the directional derivative
+
+        p_range_color = torch.sum(torch.square(relu(-color) + relu(color - 1.0)), dim=1)
+        p_constraints_color = torch.sum(torch.square(color_t), dim=1)
+        fields_penalty = (
+            pen4
+            + wm.get("range_color", 1.0) * p_range_color
+            + wm.get("constraints_color", 1.0) * p_constraints_color
+        )
+        shape = (batch_size, sampling_size)
+        return {
+            "distance": distance.reshape(shape),
+            "density": density.reshape(shape),
+            "color": color.reshape(*shape, 3),
+            "fields_penalty": fields_penalty.reshape(shape),
+            "aux_grad": aux_grad.reshape(shape),
         }

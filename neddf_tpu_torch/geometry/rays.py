@@ -1,7 +1,7 @@
 """Ray and Sampling records + mip-NeRF cone sampling.
 
 Counterpart of ``neddf_tpu/geometry/rays.py`` (cone casting only: the
-eval path of the NeDDF configs samples cones).
+NeDDF configs sample cones).
 """
 from __future__ import annotations
 

@@ -72,22 +72,48 @@ _VOIDP = ctypes.c_void_p
 _VOIDPP = ctypes.POINTER(ctypes.c_void_p)
 _INTP = ctypes.POINTER(ctypes.c_int)
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call, with argtypes."""
     lib = ctypes.CDLL(str(build()))
-    lib.neddf_dual_mlp_fwd.argtypes = [
-        _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
-        _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDP, _VOIDP, _VOIDP,
-    ]
-    lib.neddf_dual_mlp_fwd.restype = _INT
-    lib.neddf_mlp_seg_fwd.argtypes = [
-        _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
-        _INT, _VOIDPP, _VOIDPP, _VOIDP, _VOIDP,
-    ]
-    lib.neddf_mlp_seg_fwd.restype = _INT
+    signatures = {
+        # csrc/dual_mlp_fwd.cu
+        "neddf_dual_mlp_fwd": [
+            _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
+            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP, _VOIDP,
+        ],
+        # csrc/mlp_fwd.cu
+        "neddf_mlp_seg_fwd": [
+            _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
+            _INT, _VOIDPP, _VOIDPP, _VOIDP, _VOIDP,
+        ],
+        # csrc/dual_mlp_bwd.cu
+        "neddf_dual_bwd_gstack": [
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+        ],
+        "neddf_dual_act": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
+        "neddf_gemm_f32acc": [
+            _INT, _INT, _INT, _INT, _VOIDP, _LL, _LL, _VOIDP, _LL, _LL, _INT,
+            _VOIDP, _VOIDP,
+        ],
+        "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],
+        # csrc/neddf_epilogue.cu
+        "neddf_epilogue_fwd": [
+            _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP,
+        ],
+        "neddf_epilogue_bwd": [
+            _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+        ],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _INT
     lib.neddf_cuda_error_string.argtypes = [_INT]
     lib.neddf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,32 +1,94 @@
-"""Dual-MLP trunk forward: CUDA kernel wrapper and its plain version.
+"""Dual-MLP: CUDA kernel wrappers, their plain versions and the autograd op.
 
-``dual_mlp_trunk`` is the port of ``neddf_tpu/kernels/dual_mlp.py::
-dual_mlp_seg`` in its trunk configuration (K tangent planes, one input
-segment, a post-skip layer consuming ``[seg0, h]``), forward only. For a
-CUDA tensor it launches ``csrc/dual_mlp_fwd.cu``; for a CPU tensor it
-runs ``dual_mlp_trunk_plain``, which does the same arithmetic with torch
-ops. There is no fallback from one to the other.
+Port of ``neddf_tpu/kernels/dual_mlp.py::dual_mlp_seg``: a value stream
+``v [M, C]`` and K tangent planes ``j [K, M, C]`` go through L dense
+layers; layer 0 reads several input segments as split weight rows
+(segments without tangents contribute zeros to the tangent rows), and a
+post-skip layer consumes ``[seg0, h]`` (NeDDF order). Each layer
+computes ``z = h W + b`` on the stacked streams, then ``f(z_v)`` for the
+values and ``f'(z_v) * z_t`` for the tangents.
 
-Numerics of both: operands in the input dtype (bf16 or f32), products
-summed in f32, the f32 bias on the value rows, activations in f32 and
-rounded to the input dtype between layers and at the output.
+* ``dual_mlp_trunk`` (K=3, one segment: the distance trunk) and
+  ``dual_mlp_seg`` (K in {1, 3}, up to 4 segments: the colour trunk's
+  K=1 training configuration) launch ``csrc/dual_mlp_fwd.cu`` for CUDA
+  tensors. With ``stash=True`` they also return every layer's
+  pre-activation stack ``[K+1, M, C]`` rounded to the compute dtype, as
+  the Pallas forward stashes it for its backward (``dual_mlp.py:570-580``).
+* ``dual_mlp_seg_bwd`` launches ``csrc/dual_mlp_bwd.cu``: the dual chain
+  rule in reverse, with the f'' coupling, from the stash.
+* ``DualMLPSeg`` is the ``torch.autograd.Function`` over both: it takes
+  f32 master weights, casts them to the compute dtype inside, and
+  returns f32 dW/db (``_seg_bwd:1224-1225``).
+
+For a CPU tensor each wrapper runs its plain version (``*_plain``), the
+same arithmetic in torch ops; for a CUDA tensor it launches its kernel
+or raises. There is no fallback from one to the other.
+
+Numerics (the Pallas kernels' under their matmul dtype): operands in
+the compute dtype T (bf16 or f32), products summed in f32, the f32 bias
+on the value rows, activations in f32 and rounded to T between layers;
+the stash is T; the backward rounds its stacked cotangent to T before
+both products, recomputes a layer's input as f(T(z)) rounded to T, and
+sums in f32.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.ops.activations import ACTIVATIONS
-from neddf_tpu_torch.ops.dual import act_dual, linear_dual
+from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_N_TAN = (3,)
+_SEG_N_TAN = (1, 3)
 _KERNEL_WIDTHS = (256,)
 _KERNEL_MAX_LAYERS = 8
+_KERNEL_MAX_SEGMENTS = 4
+_ACT_CODES = {"tanhExp": 0}
+
+
+# ---------------------------------------------------------------- plain math
+def _stack(v: Tensor, j: Optional[Tensor], n_tan: int) -> Tensor:
+    """[M, w] value + [K, M, w] tangents (zeros if None) -> [K+1, M, w]."""
+    if j is None:
+        j = torch.zeros((n_tan,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+    return torch.cat([v[None], j], dim=0)
+
+
+def _dual_act(z: Tensor, f, df) -> Tensor:
+    """Stacked pre-activation [K+1, M, C] -> (f(z_v), f'(z_v) z_t)."""
+    return torch.cat([f(z[:1]), df(z[:1]) * z[1:]], dim=0)
+
+
+def _seg_js(js: Sequence[Tensor], has_j: Sequence[bool]) -> List[Optional[Tensor]]:
+    """Per-segment tangent planes (None where a segment has none)."""
+    if len(js) != sum(bool(h) for h in has_j):
+        raise ValueError(f"{len(js)} tangent inputs for has_j {tuple(has_j)}")
+    it = iter(js)
+    return [next(it) if hj else None for hj in has_j]
+
+
+def _forward_math(vs, js, weights, biases, layout, act_name, has_j, n_tan, stash):
+    f, df, _ = ACTIVATION_TRIPLES[act_name]
+    dtype = vs[0].dtype
+    seg_j = _seg_js(js, has_j)
+    x0 = torch.cat([_stack(v, j, n_tan) for v, j in zip(vs, seg_j)], dim=-1).float()
+    seg0 = x0[..., : vs[0].shape[1]]
+    h, pres = x0, []
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        if li > 0 and layout[li]:
+            h = torch.cat([seg0, h], dim=-1)
+        z = h @ w.float()
+        z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
+        if stash:
+            pres.append(z.to(dtype))
+        h = _dual_act(z, f, df).to(dtype).float()
+    h = h.to(dtype)
+    return h[0], h[1:], pres
 
 
 def dual_mlp_trunk_plain(
@@ -49,21 +111,129 @@ def dual_mlp_trunk_plain(
         (v [M, C], j [K, M, C]) in v0's dtype.
     """
     dual_mlp_trunk_plain.calls += 1
-    f, df = ACTIVATIONS[act_name]
-    dtype = v0.dtype
-    hv, hj = v0, j0
-    for li, (w, b) in enumerate(zip(weights, biases)):
-        if li > 0 and layout[li]:
-            hv, hj = torch.cat([v0, hv], dim=-1), torch.cat([j0, hj], dim=-1)
-        zv, zj = linear_dual(hv.float(), hj.float(), w.float(), b.float())
-        av, aj = act_dual(zv, zj, f, df)
-        hv, hj = av.to(dtype), aj.to(dtype)
-    return hv, hj
+    v, j, _ = _forward_math([v0], [j0], weights, biases, layout, act_name, (True,),
+                            j0.shape[0], False)
+    return v, j
 
 
 dual_mlp_trunk_plain.calls = 0
 
 
+def dual_mlp_seg_plain(
+    vs: Sequence[Tensor],
+    js: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    has_j: Sequence[bool],
+    n_tan: int,
+    stash: bool = False,
+):
+    """Plain version of ``dual_mlp_seg`` (same arguments and results).
+
+    Args:
+        vs: per-segment values [M, w_i], one dtype T (bf16 or f32).
+        js: tangent planes [K, M, w_i] of the segments with ``has_j``.
+        weights: per layer [fan_in, C] in T; biases: [C] f32.
+        layout: per layer, True if it consumes ``[seg0, h]``.
+        act_name: activation of every layer; has_j: per segment.
+        n_tan: K; stash: also return the per-layer pre-activations.
+
+    Returns:
+        (v [M, C], j [K, M, C]) in T, plus the list of stashes
+        ``[K+1, M, C]`` (T) when ``stash``.
+    """
+    dual_mlp_seg_plain.calls += 1
+    v, j, pres = _forward_math(vs, js, weights, biases, layout, act_name, has_j,
+                               n_tan, stash)
+    return (v, j, pres) if stash else (v, j)
+
+
+dual_mlp_seg_plain.calls = 0
+
+
+def dual_mlp_seg_bwd_plain(
+    vs: Sequence[Tensor],
+    js: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    has_j: Sequence[bool],
+    pres: Sequence[Tensor],
+    gv: Tensor,
+    gj: Tensor,
+):
+    """Plain version of ``dual_mlp_seg_bwd`` (``_bwd_kernel:835-932``).
+
+    Args:
+        vs, js, weights, layout, act_name, has_j: as in the forward
+            (weights in the compute dtype T).
+        pres: the forward's stash, per layer [K+1, M, C] in T.
+        gv: [M, C] and gj: [K, M, C] output cotangents.
+
+    Returns:
+        (dvs per segment [M, w_i] in T, djs per tangent input
+        [K, M, w_i] in T, dW per layer [fan_in, C] f32, db per layer
+        [C] f32).
+    """
+    dual_mlp_seg_bwd_plain.calls += 1
+    f, df, ddf = ACTIVATION_TRIPLES[act_name]
+    dtype = vs[0].dtype
+    n_tan = gj.shape[0]
+    seg_j = _seg_js(js, has_j)
+    widths = [v.shape[1] for v in vs]
+    c0 = widths[0]
+    g = torch.cat([gv[None], gj], dim=0).float()
+    g_skip = None
+    stack0 = _stack(vs[0], seg_j[0], n_tan).float()
+    dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dvs: List[Tensor] = []
+    djs: List[Tensor] = []
+    for li in reversed(range(len(weights))):
+        w = weights[li].float()
+        z = pres[li].float()
+        d1, d2 = df(z[0]), ddf(z[0])
+        gpre_v = g[0] * d1 + d2 * torch.sum(g[1:] * z[1:], dim=0)
+        gs = torch.cat([gpre_v[None], g[1:] * d1], dim=0).to(dtype).float()
+        dbs[li] = gpre_v.sum(dim=0)
+        flat_g = gs.reshape(-1, gs.shape[-1])
+        if li == 0:
+            blocks, off = [], 0
+            for i, (v, j, wi) in enumerate(zip(vs, seg_j, widths)):
+                rows = w[off : off + wi]
+                off += wi
+                if has_j[i]:
+                    d_in = gs @ rows.T
+                    if i == 0 and g_skip is not None:
+                        d_in = d_in + g_skip
+                    dvs.append(d_in[0].to(dtype))
+                    djs.append(d_in[1:].to(dtype))
+                    seg = _stack(v, j, n_tan).float()
+                    blocks.append(seg.reshape(-1, wi).T @ flat_g)
+                else:
+                    dvs.append((gs[0] @ rows.T).to(dtype))
+                    blocks.append(v.float().T @ gs[0])
+            dws[0] = torch.cat(blocks, dim=0)
+            continue
+        h_in = _dual_act(pres[li - 1].float(), f, df).to(dtype).float()
+        flat_h = h_in.reshape(-1, h_in.shape[-1])
+        if layout[li]:
+            skip = gs @ w[:c0].T
+            g_skip = skip if g_skip is None else g_skip + skip
+            g = gs @ w[c0:].T
+            dws[li] = torch.cat([stack0.reshape(-1, c0).T @ flat_g, flat_h.T @ flat_g], 0)
+        else:
+            g = gs @ w.T
+            dws[li] = flat_h.T @ flat_g
+    return dvs, djs, dws, dbs
+
+
+dual_mlp_seg_bwd_plain.calls = 0
+
+
+# ------------------------------------------------------------ CUDA wrappers
 def _check_kernel_args(v0, j0, weights, biases, layout, act_name) -> None:
     if act_name != "tanhExp":
         raise NotImplementedError(f"CUDA trunk kernel: activation {act_name!r}")
@@ -73,30 +243,78 @@ def _check_kernel_args(v0, j0, weights, biases, layout, act_name) -> None:
         raise ValueError(f"CUDA trunk kernel: shapes {tuple(v0.shape)} / {tuple(j0.shape)}")
     if j0.shape[0] not in _KERNEL_N_TAN:
         raise NotImplementedError(f"CUDA trunk kernel: K={j0.shape[0]}")
+    _check_layers([v0], weights, biases, layout, "CUDA trunk kernel")
+
+
+def _check_layers(vs, weights, biases, layout, what) -> None:
     if not 1 <= len(weights) <= _KERNEL_MAX_LAYERS or len(biases) != len(weights):
-        raise ValueError(f"CUDA trunk kernel: {len(weights)} layers")
+        raise ValueError(f"{what}: {len(weights)} layers")
     if len(layout) != len(weights) or layout[0]:
-        raise ValueError(f"CUDA trunk kernel: layout {tuple(layout)}")
-    c0 = v0.shape[1]
+        raise ValueError(f"{what}: layout {tuple(layout)}")
+    c0 = vs[0].shape[1]
+    x0w = sum(v.shape[1] for v in vs)
     width = weights[0].shape[1]
     if width not in _KERNEL_WIDTHS:
-        raise NotImplementedError(f"CUDA trunk kernel: width {width}")
+        raise NotImplementedError(f"{what}: width {width}")
     for li, (w, b) in enumerate(zip(weights, biases)):
-        fan_in = c0 if li == 0 else (c0 + width if layout[li] else width)
+        fan_in = x0w if li == 0 else (c0 + width if layout[li] else width)
         if tuple(w.shape) != (fan_in, width) or tuple(b.shape) != (width,):
             raise ValueError(
-                f"CUDA trunk kernel: layer {li} w {tuple(w.shape)} b {tuple(b.shape)}, "
+                f"{what}: layer {li} w {tuple(w.shape)} b {tuple(b.shape)}, "
                 f"expected ({fan_in}, {width})"
             )
-        if w.dtype != v0.dtype or b.dtype != torch.float32:
-            raise TypeError(f"CUDA trunk kernel: layer {li} dtypes {w.dtype}/{b.dtype}")
+        if w.dtype != vs[0].dtype or b.dtype != torch.float32:
+            raise TypeError(f"{what}: layer {li} dtypes {w.dtype}/{b.dtype}")
         if w.data_ptr() % 16:
-            raise ValueError(f"CUDA trunk kernel: layer {li} weight not 16-byte aligned")
-    for t in (v0, j0, *weights, *biases):
-        if t.device != v0.device:
-            raise ValueError("CUDA trunk kernel: tensors on different devices")
+            raise ValueError(f"{what}: layer {li} weight not 16-byte aligned")
+    for t in (*vs, *weights, *biases):
+        if t.device != vs[0].device:
+            raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
-            raise ValueError("CUDA trunk kernel: non-contiguous input")
+            raise ValueError(f"{what}: non-contiguous input")
+
+
+def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> None:
+    what = "CUDA dual_mlp_seg kernel"
+    if act_name not in _ACT_CODES:
+        raise NotImplementedError(f"{what}: activation {act_name!r}")
+    if n_tan not in _SEG_N_TAN:
+        raise NotImplementedError(f"{what}: K={n_tan}")
+    if not 1 <= len(vs) <= _KERNEL_MAX_SEGMENTS or len(has_j) != len(vs):
+        raise ValueError(f"{what}: {len(vs)} segments, has_j {tuple(has_j)}")
+    dtype, m = vs[0].dtype, vs[0].shape[0]
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: dtype {dtype}")
+    for v, j in zip(vs, _seg_js(js, has_j)):
+        if v.dim() != 2 or v.shape[0] != m or v.dtype != dtype:
+            raise ValueError(f"{what}: segment {tuple(v.shape)} {v.dtype}")
+        if j is not None and (tuple(j.shape) != (n_tan,) + tuple(v.shape) or j.dtype != dtype
+                              or not j.is_contiguous() or j.device != v.device):
+            raise ValueError(f"{what}: tangent {tuple(j.shape)} {j.dtype}")
+    _check_layers(vs, weights, biases, layout, what)
+
+
+def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
+    m, device, dtype = vs[0].shape[0], vs[0].device, vs[0].dtype
+    width = weights[0].shape[1]
+    v_out = torch.empty((m, width), dtype=dtype, device=device)
+    j_out = torch.empty((n_tan, m, width), dtype=dtype, device=device)
+    pres = [torch.empty((n_tan + 1, m, width), dtype=dtype, device=device)
+            for _ in weights] if stash else []
+    if m == 0:
+        return v_out, j_out, pres
+    lib = _build.library()
+    with torch.cuda.device(device):
+        code = lib.neddf_dual_mlp_fwd(
+            _KERNEL_DTYPES[dtype], n_tan, width, m, len(vs),
+            _build.pointers(vs), _build.pointers(seg_j), _build.ints([v.shape[1] for v in vs]),
+            len(weights), _build.pointers(weights), _build.pointers(biases),
+            _build.ints(layout), _build.pointers(pres) if stash else None,
+            v_out.data_ptr(), j_out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(code, what)
+    return v_out, j_out, pres
 
 
 def dual_mlp_trunk(
@@ -106,33 +324,264 @@ def dual_mlp_trunk(
     biases: Sequence[Tensor],
     layout: Sequence[bool],
     act_name: str = "tanhExp",
-) -> Tuple[Tensor, Tensor]:
+    stash: bool = False,
+):
     """Trunk forward: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see ``dual_mlp_trunk_plain`` for the arguments)."""
+    for CPU tensors (see ``dual_mlp_trunk_plain`` for the arguments).
+    With ``stash`` it also returns the per-layer pre-activations."""
     if v0.device.type == "cpu":
+        if stash:
+            return dual_mlp_seg_plain([v0], [j0], weights, biases, layout, act_name,
+                                      (True,), j0.shape[0], stash=True)
         return dual_mlp_trunk_plain(v0, j0, weights, biases, layout, act_name)
     if v0.device.type != "cuda":
         raise ValueError(f"dual_mlp_trunk: unsupported device {v0.device}")
     _check_kernel_args(v0, j0, weights, biases, layout, act_name)
-    m = v0.shape[0]
-    n_tan = j0.shape[0]
-    width = weights[0].shape[1]
-    v_out = torch.empty((m, width), dtype=v0.dtype, device=v0.device)
-    j_out = torch.empty((n_tan, m, width), dtype=v0.dtype, device=v0.device)
-    if m == 0:
-        return v_out, j_out
-    lib = _build.library()
-    with torch.cuda.device(v0.device):
-        code = lib.neddf_dual_mlp_fwd(
-            _KERNEL_DTYPES[v0.dtype], n_tan, width, m, 1,
-            _build.pointers([v0]), _build.pointers([j0]), _build.ints([v0.shape[1]]),
-            len(weights), _build.pointers(weights), _build.pointers(biases),
-            _build.ints(layout), v_out.data_ptr(), j_out.data_ptr(),
-            torch.cuda.current_stream(v0.device).cuda_stream,
-        )
-    _build.check(code, "dual_mlp_trunk")
-    dual_mlp_trunk.launches += 1
-    return v_out, j_out
+    v, j, pres = _launch_fwd([v0], [j0], weights, biases, layout, j0.shape[0], stash,
+                             "dual_mlp_trunk")
+    if v0.shape[0]:
+        dual_mlp_trunk.launches += 1
+    return (v, j, pres) if stash else (v, j)
 
 
 dual_mlp_trunk.launches = 0
+
+
+def dual_mlp_seg(
+    vs: Sequence[Tensor],
+    js: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    has_j: Sequence[bool],
+    n_tan: int,
+    stash: bool = False,
+):
+    """Multi-segment dual-MLP forward (the colour trunk's K=1 training
+    configuration): the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors (see ``dual_mlp_seg_plain`` for the arguments)."""
+    device = vs[0].device
+    if device.type == "cpu":
+        return dual_mlp_seg_plain(vs, js, weights, biases, layout, act_name, has_j,
+                                  n_tan, stash)
+    if device.type != "cuda":
+        raise ValueError(f"dual_mlp_seg: unsupported device {device}")
+    _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan)
+    v, j, pres = _launch_fwd(list(vs), _seg_js(js, has_j), weights, biases, layout,
+                             n_tan, stash, "dual_mlp_seg")
+    if vs[0].shape[0]:
+        dual_mlp_seg.launches += 1
+    return (v, j, pres) if stash else (v, j)
+
+
+dual_mlp_seg.launches = 0
+
+# split-K products: one partial per 8192 reduced rows, at most 64
+_ROWS_PER_SPLIT = 8192
+_MAX_SPLITS = 64
+_DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
+
+
+class _Bwd:
+    """Launchers of ``csrc/dual_mlp_bwd.cu`` for one backward call."""
+
+    def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
+        self.lib = _build.library()
+        self.dt = _KERNEL_DTYPES[dtype]
+        self.device = device
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
+        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
+        range split into a fixed number of partials summed in order."""
+        splits = max(1, min(_MAX_SPLITS, -(-k // _ROWS_PER_SPLIT)))
+        out = torch.empty((m, n), dtype=torch.float32, device=self.device)
+        parts = out if splits == 1 else torch.empty(
+            (splits, m, n), dtype=torch.float32, device=self.device)
+        _build.check(self.lib.neddf_gemm_f32acc(
+            self.dt, m, n, k, a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn,
+            splits, parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
+        if splits > 1:
+            self.sum_splits(parts, out)
+        return out
+
+    def sum_splits(self, parts: Tensor, out: Tensor) -> None:
+        _build.check(self.lib.neddf_sum_splits(
+            out.numel(), parts.shape[0], parts.data_ptr(), out.data_ptr(), self.stream),
+            "dual_mlp_seg_bwd sum")
+
+    def nt(self, a: Tensor, w_rows: Tensor) -> Tensor:
+        """a [R, C] (T) times w_rows [n, C]^T (T) -> [R, n] f32."""
+        r, c = a.shape
+        n = w_rows.shape[0]
+        return self.gemm(r, n, c, a, c, 1, w_rows, 1, w_rows.stride(0))
+
+    def tn(self, a: Tensor, g: Tensor) -> Tensor:
+        """a [R, m]^T (T) times g [R, n] (T) -> [m, n] f32, over R rows."""
+        r, m = a.shape
+        n = g.shape[1]
+        return self.gemm(m, n, r, a, 1, a.stride(0), g, g.stride(0), 1)
+
+
+def dual_mlp_seg_bwd(
+    vs: Sequence[Tensor],
+    js: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    has_j: Sequence[bool],
+    pres: Sequence[Tensor],
+    gv: Tensor,
+    gj: Tensor,
+):
+    """Dual-MLP backward: the CUDA kernels for CUDA tensors, the plain
+    version for CPU tensors (see ``dual_mlp_seg_bwd_plain``).
+
+    Per layer, in reverse: ``csrc/dual_mlp_bwd.cu`` forms the stacked
+    cotangent of the pre-activation (with the f'' coupling) and the
+    per-block db partials, recomputes the layer input from the stash,
+    and runs dx = g W^T and dW = h_in^T g as tiled f32-accumulating
+    products; dW and db are split into a fixed number of partials summed
+    in a fixed order, so two runs give bitwise-equal results.
+    """
+    device = vs[0].device
+    if device.type == "cpu":
+        return dual_mlp_seg_bwd_plain(vs, js, weights, layout, act_name, has_j, pres, gv, gj)
+    if device.type != "cuda":
+        raise ValueError(f"dual_mlp_seg_bwd: unsupported device {device}")
+    n_tan = gj.shape[0]
+    biases = [torch.empty(w.shape[1], device=device) for w in weights]
+    _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan)
+    dtype = vs[0].dtype
+    m, width = gv.shape
+    s = n_tan + 1
+    for t in (*pres, gv, gj):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
+            raise ValueError("dual_mlp_seg_bwd: stash/cotangent dtype, layout or device")
+    if tuple(gj.shape) != (n_tan, m, width) or any(
+            tuple(p.shape) != (s, m, width) for p in pres) or len(pres) != len(weights):
+        raise ValueError("dual_mlp_seg_bwd: stash/cotangent shapes")
+    seg_j = _seg_js(js, has_j)
+    widths = [v.shape[1] for v in vs]
+    c0 = widths[0]
+    k = _Bwd(dtype, device)
+    act = _ACT_CODES[act_name]
+    n_db = -(-m // _DB_ROWS)
+
+    with torch.cuda.device(device):
+        g = torch.cat([gv[None], gj], dim=0).float()
+        g_skip = None
+        stack0 = None
+        dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+        dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+        dvs: List[Tensor] = []
+        djs: List[Tensor] = []
+        for li in reversed(range(len(weights))):
+            w = weights[li]
+            gs = torch.empty((s, m, width), dtype=dtype, device=device)
+            db_parts = torch.empty((n_db, width), dtype=torch.float32, device=device)
+            _build.check(k.lib.neddf_dual_bwd_gstack(
+                k.dt, act, n_tan, width, m, _DB_ROWS, g.data_ptr(), pres[li].data_ptr(),
+                gs.data_ptr(), db_parts.data_ptr(), k.stream), "dual_mlp_seg_bwd gstack")
+            dbs[li] = torch.empty(width, dtype=torch.float32, device=device)
+            k.sum_splits(db_parts, dbs[li])
+            flat_g = gs.view(s * m, width)
+            if li == 0:
+                blocks, off = [], 0
+                for i, (v, j, wi) in enumerate(zip(vs, seg_j, widths)):
+                    rows = w[off : off + wi]
+                    off += wi
+                    if has_j[i]:
+                        d_in = k.nt(flat_g, rows)
+                        if i == 0 and g_skip is not None:
+                            d_in += g_skip
+                        d_in = d_in.view(s, m, wi).to(dtype)
+                        dvs.append(d_in[0])
+                        djs.append(d_in[1:])
+                        seg = torch.cat([v[None], j], dim=0).view(s * m, wi)
+                        blocks.append(k.tn(seg, flat_g))
+                    else:
+                        dvs.append(k.nt(gs[0], rows).to(dtype))
+                        blocks.append(k.tn(v, gs[0]))
+                dws[0] = torch.cat(blocks, dim=0)
+                continue
+            h_in = torch.empty((s, m, width), dtype=dtype, device=device)
+            _build.check(k.lib.neddf_dual_act(
+                k.dt, act, n_tan, width, m, pres[li - 1].data_ptr(), h_in.data_ptr(),
+                k.stream), "dual_mlp_seg_bwd act")
+            flat_h = h_in.view(s * m, width)
+            if layout[li]:
+                if stack0 is None:
+                    stack0 = _stack(vs[0], seg_j[0], n_tan).view(s * m, c0)
+                skip = k.nt(flat_g, w[:c0])
+                g_skip = skip if g_skip is None else g_skip + skip
+                g = k.nt(flat_g, w[c0:]).view(s, m, width)
+                dws[li] = torch.cat([k.tn(stack0, flat_g), k.tn(flat_h, flat_g)], dim=0)
+            else:
+                g = k.nt(flat_g, w).view(s, m, width)
+                dws[li] = k.tn(flat_h, flat_g)
+    dual_mlp_seg_bwd.launches += 1
+    return dvs, djs, dws, dbs
+
+
+dual_mlp_seg_bwd.launches = 0
+
+
+# ------------------------------------------------------------- autograd op
+class DualMLPSeg(torch.autograd.Function):
+    """``dual_mlp_seg`` with its hand-written backward (``_seg_fwd`` /
+    ``_seg_bwd:1175-1227``).
+
+    ``apply(config, *vs, *js, *weights, *biases)`` with ``config =
+    (layout, act_name, has_j, n_tan, compute_dtype, use_kernels)``.
+    ``weights``/``biases`` are the f32 master parameters: the weights are
+    cast to ``compute_dtype`` inside, dW and db come back in f32.
+    ``use_kernels=False`` runs the plain versions on any device;
+    ``True`` lets the wrappers choose by device (kernels on CUDA).
+    Returns ``(v [M, C], j [K, M, C])`` in the compute dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, config, *args):
+        layout, act_name, has_j, n_tan, cd, use_kernels = config
+        n_seg, n_j, n_l = len(has_j), sum(has_j), len(layout)
+        vs = args[:n_seg]
+        js = args[n_seg : n_seg + n_j]
+        weights = [w.to(cd).contiguous() for w in args[n_seg + n_j : n_seg + n_j + n_l]]
+        biases = [b.float().contiguous() for b in args[n_seg + n_j + n_l :]]
+        stash = any(ctx.needs_input_grad[1:])
+        if not use_kernels:
+            out = dual_mlp_seg_plain(vs, js, weights, biases, layout, act_name, has_j,
+                                     n_tan, stash)
+        elif n_seg == 1 and tuple(has_j) == (True,):
+            out = dual_mlp_trunk(vs[0], js[0], weights, biases, layout, act_name, stash)
+        else:
+            out = dual_mlp_seg(vs, js, weights, biases, layout, act_name, has_j, n_tan,
+                               stash)
+        if stash:
+            ctx.config = config
+            ctx.save_for_backward(*vs, *js, *weights, *out[2])
+        return out[0], out[1]
+
+    @staticmethod
+    def backward(ctx, gv, gj):
+        layout, act_name, has_j, n_tan, cd, use_kernels = ctx.config
+        saved = ctx.saved_tensors
+        n_seg, n_j, n_l = len(has_j), sum(has_j), len(layout)
+        vs = saved[:n_seg]
+        js = saved[n_seg : n_seg + n_j]
+        weights = saved[n_seg + n_j : n_seg + n_j + n_l]
+        pres = saved[n_seg + n_j + n_l :]
+        gv = gv.to(cd).contiguous()
+        gj = gj.to(cd).contiguous()
+        bwd = dual_mlp_seg_bwd if use_kernels else dual_mlp_seg_bwd_plain
+        dvs, djs, dws, dbs = bwd(vs, js, weights, layout, act_name, has_j, pres, gv, gj)
+        return (None, *dvs, *djs, *dws, *dbs)
+
+
+def dual_mlp_apply(vs, js, weights, biases, layout, act_name, has_j, n_tan,
+                   compute_dtype, use_kernels):
+    """Differentiable ``dual_mlp_seg`` (see ``DualMLPSeg``)."""
+    config = (tuple(layout), act_name, tuple(has_j), n_tan, compute_dtype, use_kernels)
+    return DualMLPSeg.apply(config, *vs, *js, *weights, *biases)

@@ -1,0 +1,302 @@
+"""NeDDF head/density/penalty epilogue: CUDA kernel wrappers, plain
+versions and the autograd op.
+
+Port of ``neddf_tpu/kernels/neddf_epilogue.py::neddf_epilogue``. From the
+distance trunk's streams ``v [M, C]`` and ``j [3, M, C]`` one pass gives,
+per sample row:
+
+* the two 1-wide heads on all four streams (h1 = stack . wd, h2 =
+  stack . wa, the stream and the head weights rounded to the compute
+  dtype, sums in f32), plus the f32 biases b2 on the value row;
+* D = softplus(h1_v) + d_near and grad D = sigmoid(h1_v) h1_t;
+  aux = s sigmoid(h2_v) and its gradient; density = relu((1/D)(1 -
+  sqrt(|grad D|^2 + aux^2))); the normal grad D / (|grad D| + 1e-7);
+* the weighted sum of the four trunk penalties (constraints_aux_grad,
+  constraints_dDdt, range_distance, range_aux_grad) with the reference's
+  stop-gradient placements;
+* t_feat = sum_a j[a] sg(grad D)_a, the seed of the colour trunk's K=1
+  directional tangent.
+
+Outputs: ``out [10, M]`` f32, rows 0 density, 1 distance, 2 aux_grad,
+3:6 normal, 6:9 grad D, 9 penalty sum (one row per quantity, so each is
+a contiguous [M] vector; the Pallas kernel's lane-packed [M, 16] was a
+TPU layout), and ``t_feat [M, C]`` in the compute dtype. Rows 3:9 carry
+no gradient: the field consumes them only under stop-gradient
+(``neddf_epilogue.py:42-44``).
+
+The backward is the hand-written second-order VJP of ``_bwd_kernel``
+(``:183-326``): it recomputes the heads, reads the cotangents of rows
+0, 1, 2 and 9 and of t_feat (which flows into j alone), and returns dv,
+dj, dwd, dwa [C] and db2 [2] (f32, summed across rows in a fixed order).
+
+For CPU tensors the wrappers run the plain versions (``*_plain``); for
+CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from neddf_tpu_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+N_OUT = 10
+_EPS_NORM = 1e-7
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_WIDTH = 256
+_ROWS_PER_BLOCK = 64  # backward: rows per block (one dwd/dwa/db2 partial each)
+
+
+def _relu(x: Tensor) -> Tensor:
+    return torch.clamp(x, min=0.0)
+
+
+def _step(x: Tensor) -> Tensor:
+    return (x > 0).to(x.dtype)
+
+
+def _math(v, j, wd, wa, b2, scal):
+    """Forward math on f32 [M] rows (``_epilogue_math:115``)."""
+    cd = v.dtype
+    stack = torch.cat([v[None], j], dim=0).float()  # [4, M, C]
+    h1 = stack @ wd.to(cd).float()  # [4, M]
+    h2 = stack @ wa.to(cd).float()
+    d_near, ags, drmax, w_ag, w_ddt, w_rd, w_ra = (scal[i] for i in range(7))
+    ddf_out = h1[0] + b2[0]
+    aux_out = h2[0] + b2[1]
+    hj1, hj2 = h1[1:], h2[1:]
+    spd = torch.sigmoid(ddf_out)
+    distance = F.softplus(ddf_out) + d_near
+    dg = spd * hj1  # [3, M]
+    sig_a = torch.sigmoid(aux_out)
+    aux = ags * sig_a
+    auxd = ags * sig_a * (1.0 - sig_a)
+    agg = auxd * hj2
+    grad_sq = torch.sum(dg * dg, dim=0)
+    dgn = torch.sqrt(grad_sq)
+    d_ddt = torch.sqrt(grad_sq + aux * aux)
+    dinv = 1.0 / distance
+    density = _relu(dinv * (1.0 - d_ddt))
+    inv_dgn_eps = 1.0 / (dgn + _EPS_NORM)
+    norm = dg * inv_dgn_eps
+    d2 = torch.sum(agg * norm, dim=0)
+    rest = 3.0 * aux * dinv
+    ag_scale = aux * dgn * distance
+    p1 = ag_scale * torch.square(d2 - rest)
+    p2 = torch.square(_relu(d_ddt - 1.0))
+    p3 = torch.square(_relu(-4.6 - ddf_out) + _relu(ddf_out - drmax))
+    p4 = torch.square(_relu(-4.6 - aux_out) + _relu(aux_out - 4.6))
+    pen = w_ag * p1 + w_ddt * p2 + w_rd * p3 + w_ra * p4
+    return dict(stack=stack, ddf_out=ddf_out, aux_out=aux_out, hj1=hj1, hj2=hj2,
+                spd=spd, distance=distance, dg=dg, sig_a=sig_a, aux=aux, auxd=auxd,
+                agg=agg, dgn=dgn, d_ddt=d_ddt, dinv=dinv, density=density,
+                norm=norm, inv_dgn_eps=inv_dgn_eps, d2=d2, rest=rest,
+                ag_scale=ag_scale, pen=pen)
+
+
+def neddf_epilogue_plain(
+    v: Tensor, j: Tensor, wd: Tensor, wa: Tensor, b2: Tensor, scal: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the epilogue kernel.
+
+    Args:
+        v: [M, C] and j: [3, M, C] trunk streams in the compute dtype.
+        wd, wa: [C] f32 head weights (rounded to v's dtype here).
+        b2: [2] f32 (distance bias, aux bias).
+        scal: [8] f32 (d_near, aux_grad_scale, distance_range_max,
+            w_constraints_aux_grad, w_constraints_dDdt,
+            w_range_distance, w_range_aux_grad, unused).
+
+    Returns:
+        (out [10, M] f32, t_feat [M, C] in v's dtype).
+    """
+    neddf_epilogue_plain.calls += 1
+    m = _math(v, j, wd, wa, b2, scal)
+    out = torch.stack([m["density"], m["distance"], m["aux"], *m["norm"], *m["dg"],
+                       m["pen"]], dim=0)
+    t_feat = torch.sum(m["stack"][1:] * m["dg"][:, :, None], dim=0).to(v.dtype)
+    return out, t_feat
+
+
+neddf_epilogue_plain.calls = 0
+
+
+def neddf_epilogue_bwd_plain(
+    v: Tensor, j: Tensor, wd: Tensor, wa: Tensor, b2: Tensor, scal: Tensor,
+    g_out: Tensor, g_tfeat: Tensor,
+):
+    """Plain version of the epilogue backward (``_bwd_kernel:183-326``).
+
+    Args:
+        v, j, wd, wa, b2, scal: the forward's inputs.
+        g_out: [10, M] f32 cotangent of ``out`` (rows 3:9 are ignored).
+        g_tfeat: [M, C] cotangent of t_feat.
+
+    Returns:
+        (dv [M, C], dj [3, M, C] in v's dtype, dwd [C], dwa [C], db2 [2]
+        f32).
+    """
+    neddf_epilogue_bwd_plain.calls += 1
+    m = _math(v, j, wd, wa, b2, scal)
+    ags, drmax, w_ag, w_ddt, w_rd, w_ra = (scal[i] for i in range(1, 7))
+    g_out = g_out.float()
+    g_dens, g_dist_ext, g_aux_ext, g_pen = g_out[0], g_out[1], g_out[2], g_out[9]
+    ddf_out, aux_out = m["ddf_out"], m["aux_out"]
+    dg, agg, norm = m["dg"], m["agg"], m["norm"]
+    dgn, d_ddt, dinv = m["dgn"], m["d_ddt"], m["dinv"]
+    aux, auxd, sig_a, spd = m["aux"], m["auxd"], m["sig_a"], m["spd"]
+    inv = m["inv_dgn_eps"]
+
+    g_diff = g_pen * w_ag * m["ag_scale"] * 2.0 * (m["d2"] - m["rest"])
+    g_agg = g_diff * norm
+    g_norm_int = g_diff * agg
+    g_aux = -g_diff * 3.0 * dinv
+    g_dddt = g_pen * w_ddt * 2.0 * _relu(d_ddt - 1.0)
+    r3 = _relu(-4.6 - ddf_out) + _relu(ddf_out - drmax)
+    g_ddf_out = g_pen * w_rd * 2.0 * r3 * (_step(ddf_out - drmax) - _step(-4.6 - ddf_out))
+    r4 = _relu(-4.6 - aux_out) + _relu(aux_out - 4.6)
+    g_aux_out = g_pen * w_ra * 2.0 * r4 * (_step(aux_out - 4.6) - _step(-4.6 - aux_out))
+
+    u = dinv * (1.0 - d_ddt)
+    g_u = g_dens * _step(u)
+    g_dinv = g_u * (1.0 - d_ddt)
+    g_dddt = g_dddt - g_u * dinv
+    g_aux = g_aux + g_aux_ext
+    inv_dddt = 1.0 / torch.clamp(d_ddt, min=1e-12)
+    g_grad_sq = g_dddt * 0.5 * inv_dddt
+    g_aux = g_aux + g_dddt * aux * inv_dddt
+    g_dg = g_norm_int * inv
+    g_dgn = -torch.sum(g_norm_int * dg, dim=0) * inv * inv
+    g_grad_sq = g_grad_sq + g_dgn * 0.5 / torch.clamp(dgn, min=1e-12)
+    g_dg = g_dg + 2.0 * dg * g_grad_sq
+    g_dist = g_dist_ext - g_dinv * dinv * dinv
+    g_hj2 = g_agg * auxd
+    g_auxd = torch.sum(g_agg * m["hj2"], dim=0)
+    g_aux_out = g_aux_out + g_auxd * ags * sig_a * (1.0 - sig_a) * (1.0 - 2.0 * sig_a)
+    g_aux_out = g_aux_out + g_aux * auxd
+    g_hj1 = g_dg * spd
+    g_spd = torch.sum(g_dg * m["hj1"], dim=0)
+    g_ddf_out = g_ddf_out + g_spd * spd * (1.0 - spd)
+    g_ddf_out = g_ddf_out + g_dist * spd
+
+    g_h1 = torch.cat([g_ddf_out[None], g_hj1], dim=0)  # [4, M]
+    g_h2 = torch.cat([g_aux_out[None], g_hj2], dim=0)
+    d_stream = g_h1[:, :, None] * wd.float() + g_h2[:, :, None] * wa.float()
+    d_stream[1:] += g_tfeat.float()[None] * dg[:, :, None]
+    stack = m["stack"]
+    dwd = torch.einsum("smc,sm->c", stack, g_h1)
+    dwa = torch.einsum("smc,sm->c", stack, g_h2)
+    db2 = torch.stack([g_ddf_out.sum(), g_aux_out.sum()])
+    return d_stream[0].to(v.dtype), d_stream[1:].to(j.dtype), dwd, dwa, db2
+
+
+neddf_epilogue_bwd_plain.calls = 0
+
+
+def _check_kernel_args(v, j, wd, wa, b2, scal) -> None:
+    what = "CUDA neddf_epilogue kernel"
+    if v.dtype not in _KERNEL_DTYPES or j.dtype != v.dtype:
+        raise TypeError(f"{what}: dtypes {v.dtype}/{j.dtype}")
+    if v.dim() != 2 or v.shape[1] != _KERNEL_WIDTH or tuple(j.shape) != (3,) + tuple(v.shape):
+        raise ValueError(f"{what}: shapes {tuple(v.shape)} / {tuple(j.shape)}")
+    for t, n in ((wd, _KERNEL_WIDTH), (wa, _KERNEL_WIDTH), (b2, 2), (scal, 8)):
+        if tuple(t.shape) != (n,) or t.dtype != torch.float32:
+            raise ValueError(f"{what}: parameter {tuple(t.shape)} {t.dtype}")
+    for t in (v, j, wd, wa, b2, scal):
+        if t.device != v.device or not t.is_contiguous():
+            raise ValueError(f"{what}: device or layout")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def neddf_epilogue(v, j, wd, wa, b2, scal):
+    """Epilogue forward: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see ``neddf_epilogue_plain``)."""
+    if v.device.type == "cpu":
+        return neddf_epilogue_plain(v, j, wd, wa, b2, scal)
+    if v.device.type != "cuda":
+        raise ValueError(f"neddf_epilogue: unsupported device {v.device}")
+    _check_kernel_args(v, j, wd, wa, b2, scal)
+    m = v.shape[0]
+    out = torch.empty((N_OUT, m), dtype=torch.float32, device=v.device)
+    t_feat = torch.empty_like(v)
+    if m == 0:
+        return out, t_feat
+    lib = _build.library()
+    with torch.cuda.device(v.device):
+        code = lib.neddf_epilogue_fwd(
+            _KERNEL_DTYPES[v.dtype], m, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+            wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), out.data_ptr(),
+            t_feat.data_ptr(), _stream(v.device))
+    _build.check(code, "neddf_epilogue")
+    neddf_epilogue.launches += 1
+    return out, t_feat
+
+
+neddf_epilogue.launches = 0
+
+
+def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat):
+    """Epilogue backward: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see ``neddf_epilogue_bwd_plain``)."""
+    if v.device.type == "cpu":
+        return neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat)
+    if v.device.type != "cuda":
+        raise ValueError(f"neddf_epilogue_bwd: unsupported device {v.device}")
+    _check_kernel_args(v, j, wd, wa, b2, scal)
+    m, c = v.shape
+    g_out = g_out.float().contiguous()
+    g_tfeat = g_tfeat.to(v.dtype).contiguous()
+    if tuple(g_out.shape) != (N_OUT, m) or tuple(g_tfeat.shape) != (m, c):
+        raise ValueError("neddf_epilogue_bwd: cotangent shapes")
+    dv, dj = torch.empty_like(v), torch.empty_like(j)
+    n_blk = max(1, -(-m // _ROWS_PER_BLOCK))
+    parts = torch.empty((n_blk, 2 * c + 2), dtype=torch.float32, device=v.device)
+    red = torch.empty(2 * c + 2, dtype=torch.float32, device=v.device)
+    if m == 0:
+        red.zero_()
+    else:
+        lib = _build.library()
+        with torch.cuda.device(v.device):
+            code = lib.neddf_epilogue_bwd(
+                _KERNEL_DTYPES[v.dtype], m, _ROWS_PER_BLOCK, v.data_ptr(), j.data_ptr(),
+                wd.data_ptr(), wa.data_ptr(), b2.data_ptr(), scal.data_ptr(),
+                g_out.data_ptr(), g_tfeat.data_ptr(), dv.data_ptr(), dj.data_ptr(),
+                parts.data_ptr(), _stream(v.device))
+            _build.check(code, "neddf_epilogue_bwd")
+            _build.check(lib.neddf_sum_splits(red.numel(), n_blk, parts.data_ptr(),
+                                              red.data_ptr(), _stream(v.device)),
+                         "neddf_epilogue_bwd sum")
+        neddf_epilogue_bwd.launches += 1
+    return dv, dj, red[:c], red[c : 2 * c], red[2 * c :]
+
+
+neddf_epilogue_bwd.launches = 0
+
+
+class NeDDFEpilogue(torch.autograd.Function):
+    """``neddf_epilogue`` with its hand-written backward (``_epi_fwd`` /
+    ``_epi_bwd``). ``apply(use_kernels, v, j, wd, wa, b2, scal)``;
+    ``use_kernels=False`` runs the plain versions on any device. The
+    scalars ``scal`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, use_kernels, v, j, wd, wa, b2, scal):
+        args = (v, j, wd.float().contiguous(), wa.float().contiguous(),
+                b2.float().contiguous(), scal)
+        ctx.use_kernels = use_kernels
+        ctx.save_for_backward(*args)
+        fwd = neddf_epilogue if use_kernels else neddf_epilogue_plain
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g_out, g_tfeat):
+        args = ctx.saved_tensors
+        bwd = neddf_epilogue_bwd if ctx.use_kernels else neddf_epilogue_bwd_plain
+        dv, dj, dwd, dwa, db2 = bwd(*args, g_out, g_tfeat)
+        return None, dv, dj, dwd, dwa, db2, None

@@ -1,9 +1,10 @@
-"""Activation functions and their first derivatives, on tensors.
+"""Activation functions and their first and second derivatives, on tensors.
 
-Counterpart of ``neddf_tpu/ops/activations.py``. The derivatives are
-written out by hand (not taken from autograd), with the same thresholds:
-tanhExp and softplus pass ``x`` through above 20, where the derivative
-is exactly 1 (``neddf_tpu/kernels/dual_mlp.py::_act_fns``).
+Counterpart of ``neddf_tpu/ops/activations.py`` and of the kernels'
+``(f, f', f'')`` triples (``neddf_tpu/kernels/dual_mlp.py::_act_fns``).
+The derivatives are written out by hand (not taken from autograd), with
+the same thresholds: tanhExp and softplus pass ``x`` through above 20,
+where f' is exactly 1 and f'' exactly 0; ReLU has f' = 0 at 0.
 """
 from __future__ import annotations
 
@@ -30,12 +31,24 @@ def tanh_exp_deriv(x: Tensor) -> Tensor:
     return torch.where(x > _THRESHOLD, torch.ones_like(x), d)
 
 
+def tanh_exp_deriv2(x: Tensor) -> Tensor:
+    xs = torch.clamp(x, max=_THRESHOLD)
+    ex = torch.exp(xs)
+    tx = torch.tanh(ex)
+    d2 = ex * (1.0 - tx * tx) * (2.0 + x - 2.0 * x * ex * tx)
+    return torch.where(x > _THRESHOLD, torch.zeros_like(x), d2)
+
+
 def relu(x: Tensor) -> Tensor:
     return torch.clamp(x, min=0.0)
 
 
 def relu_deriv(x: Tensor) -> Tensor:
     return (x > 0.0).to(x.dtype)
+
+
+def zeros_deriv2(x: Tensor) -> Tensor:
+    return torch.zeros_like(x)
 
 
 def softplus(x: Tensor) -> Tensor:
@@ -49,6 +62,11 @@ def softplus_deriv(x: Tensor) -> Tensor:
     return torch.where(x > _THRESHOLD, torch.ones_like(x), torch.sigmoid(x))
 
 
+def softplus_deriv2(x: Tensor) -> Tensor:
+    s = torch.sigmoid(x)
+    return torch.where(x > _THRESHOLD, torch.zeros_like(x), s * (1.0 - s))
+
+
 def sigmoid(x: Tensor) -> Tensor:
     return torch.sigmoid(x)
 
@@ -58,8 +76,22 @@ def sigmoid_deriv(x: Tensor) -> Tensor:
     return s * (1.0 - s)
 
 
-# name -> (f, df/dx); names match the configs' activation_type strings
-ACTIVATIONS: Dict[str, Tuple[Callable[[Tensor], Tensor], Callable[[Tensor], Tensor]]] = {
-    "ReLU": (relu, relu_deriv),
-    "tanhExp": (tanh_exp, tanh_exp_deriv),
+def sigmoid_deriv2(x: Tensor) -> Tensor:
+    s = torch.sigmoid(x)
+    return s * (1.0 - s) * (1.0 - 2.0 * s)
+
+
+Fn = Callable[[Tensor], Tensor]
+
+# name -> (f, df/dx, d2f/dx2); names match the configs' activation_type strings
+ACTIVATION_TRIPLES: Dict[str, Tuple[Fn, Fn, Fn]] = {
+    "ReLU": (relu, relu_deriv, zeros_deriv2),
+    "tanhExp": (tanh_exp, tanh_exp_deriv, tanh_exp_deriv2),
+    "Softplus": (softplus, softplus_deriv, softplus_deriv2),
+    "Sigmoid": (sigmoid, sigmoid_deriv, sigmoid_deriv2),
+}
+
+# name -> (f, df/dx)
+ACTIVATIONS: Dict[str, Tuple[Fn, Fn]] = {
+    name: (f, df) for name, (f, df, _) in ACTIVATION_TRIPLES.items()
 }

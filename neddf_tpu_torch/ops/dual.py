@@ -62,3 +62,31 @@ def pe_dual_planes_mip(
 ) -> Tuple[Tensor, Tensor]:
     """``pe_dual_planes(x, rank, chan_scale * pe_weights(var, rank))``."""
     return pe_dual_planes(x, rank, mip_scale(rank, var, chan_scale))
+
+
+def pe_dual_directional_mip(
+    x: Tensor,
+    rank: int,
+    direction: Tensor,
+    var: Optional[Tensor] = None,
+    chan_scale: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """PE value and its ONE directional tangent along ``direction [M, 3]``.
+
+    Returns ``(val [M, 6R], tan [M, 6R])`` with
+    ``tan = sum_a pe_dual_planes_mip(x, ...)[1][a] * direction[:, a]``:
+    each channel depends on one input axis, so the contraction is a
+    channel-wise multiply by the direction tiled ``rank`` times
+    (``neddf_tpu/ops/dual.py::pe_dual_directional_mip``).
+    """
+    _, d = x.shape
+    freq = pe_frequencies(rank, x.device, x.dtype).repeat_interleave(d)[None, :]
+    p = freq * x.repeat(1, rank)
+    scale = mip_scale(rank, var, chan_scale)
+    if scale is None:
+        scale = torch.ones((1, rank * d), dtype=x.dtype, device=x.device)
+    sin_p, cos_p = torch.sin(p), torch.cos(p)
+    val = torch.cat([scale * sin_p, scale * cos_p], dim=-1)
+    v_rep = direction.to(x.dtype).repeat(1, rank)
+    tan = torch.cat([scale * freq * cos_p * v_rep, -scale * freq * sin_p * v_rep], dim=-1)
+    return val, tan

@@ -1,11 +1,14 @@
-"""Volume renderer, eval path: stratified coarse + inverse-CDF fine.
+"""Volume renderer: stratified coarse + inverse-CDF fine.
 
-Counterpart of ``neddf_tpu/render/renderer.py::render_rays`` and
-``render_image`` for the NeDDF configs: cone sampling (radius
-1/1111/sqrt(12)) and ONE network shared by the coarse and fine passes.
-Per ray, the coarse pass takes ``sample_coarse + 1`` stratified
-distances, the fine pass ``sample_fine + 1`` inverse-CDF draws sorted
-together with the coarse distances.
+Counterpart of ``neddf_tpu/render/renderer.py::render_rays``,
+``render_image`` and ``render_field_slice`` for the NeDDF configs: cone
+sampling (radius 1/1111/sqrt(12)) and ONE network shared by the coarse
+and fine passes. Per ray, the coarse pass takes ``sample_coarse + 1``
+stratified distances, the fine pass ``sample_fine + 1`` inverse-CDF
+draws sorted together with the coarse distances. As in the JAX package
+(``renderer.py:168-192``) the fine distances and both passes' interval
+lengths carry no gradient: no gradient flows from the fine pass back
+through the inverse CDF into the coarse weights.
 
 The uniform draws come from a ``torch.Generator`` unless the caller
 passes ``draws(uv) -> (u_strat, u_pdf)``, which the parity tests use to
@@ -22,9 +25,10 @@ from torch import nn
 
 from neddf_tpu_torch import config as config_lib
 from neddf_tpu_torch.geometry.camera import PinholeCalib, create_rays
-from neddf_tpu_torch.geometry.rays import get_sampling_cones
+from neddf_tpu_torch.geometry.rays import Sampling, get_sampling_cones
 from neddf_tpu_torch.ops.compositing import integrate_volume_render
 from neddf_tpu_torch.ops.sampling import sample_pdf, stratified_dists
+from neddf_tpu_torch.utils.colormap import apply_jet
 
 Tensor = torch.Tensor
 Draws = Callable[[Tensor], Tuple[Tensor, Tensor]]
@@ -90,7 +94,7 @@ class NeRFRender(nn.Module):
             out = integrate_volume_render(
                 dists, values["density"], values["color"], self.max_dist
             )
-            delta = dists[:, 1:] - dists[:, :-1]
+            delta = (dists[:, 1:] - dists[:, :-1]).detach()
             out["fields_penalty"] = torch.sum(
                 delta * values["fields_penalty"][:, :-1], dim=1
             )
@@ -100,7 +104,8 @@ class NeRFRender(nn.Module):
             u_strat, self.sample_coarse, self.dist_near, self.dist_far
         )
         coarse = one_pass(dists_coarse)
-        integrate = one_pass(sample_pdf(dists_coarse, coarse["weight"], u_pdf))
+        # no gradient through the inverse CDF (stop_gradient in the JAX renderer)
+        integrate = one_pass(sample_pdf(dists_coarse.detach(), coarse["weight"].detach(), u_pdf))
         for k, v in coarse.items():
             integrate[f"{k}_coarse"] = v
         return integrate
@@ -152,3 +157,38 @@ class NeRFRender(nn.Module):
         return {
             k: torch.cat(outs[k]).cpu().numpy().reshape(h, w, -1) for k in target_types
         }
+
+    @torch.no_grad()
+    def render_field_slice(
+        self,
+        slice_t: float = 0.0,
+        render_size: float = 1.1,
+        render_resolution: int = 128,
+    ) -> Dict[str, np.ndarray]:
+        """XY slice images of the fine field at z = ``slice_t`` (eval
+        schedule): per-field scales, JET for one-channel fields
+        (``neddf_tpu/render/renderer.py::render_field_slice:514``).
+        Returns uint8 BGR images [res, res, 3] by field name."""
+        device = next(self.network_fine.parameters()).device
+        res = render_resolution
+        line = np.linspace(-render_size, render_size, res, dtype=np.float32)
+        pos = np.stack([np.broadcast_to(line[None, :], (res, res)),
+                        np.broadcast_to(-line[:, None], (res, res)),
+                        np.full((res, res), slice_t, np.float32)], axis=2)
+        direction = np.zeros((res, res, 3), np.float32)
+        direction[:, :, 2] = 1.0
+        sampling = Sampling(
+            torch.as_tensor(pos, device=device), torch.as_tensor(direction, device=device),
+            torch.zeros((res, res, 3), dtype=torch.float32, device=device),
+        )
+        net = self.network_fine
+        values = net(sampling, net.schedule(-1), need_aux=False)
+        scales = {"distance": 256.0, "density": 12.8, "color": 256.0, "aux_grad": 256.0}
+        fields: Dict[str, np.ndarray] = {}
+        for name, value in values.items():
+            if name not in scales:
+                continue
+            img = scales[name] * value.float().cpu().numpy().reshape(res, res, -1)
+            img = img.clip(0, 255).astype(np.uint8)
+            fields[name] = apply_jet(img[:, :, 0]) if img.shape[2] == 1 else img
+        return fields

@@ -1,4 +1,4 @@
-"""Checkpoint loading: flax msgpack params -> a PyTorch state_dict.
+"""Checkpoints: flax msgpack params <-> a PyTorch state_dict.
 
 ``params_from_jax`` is the one carry-over from the JAX parameter tree
 (``{"network_fine": {"layers_ddf": [{"w", "b"}, ...], ...}}``, lists
@@ -6,7 +6,8 @@ either as lists or as the ``"0"``, ``"1"``, ... maps that a msgpack
 restore gives) to this package's module names
 (``network_fine.layers_ddf.0.w``). Both layouts store weights
 ``[in, out]``, so no tensor is transposed. The tests and the trainer's
-loader share it.
+loader share it; ``params_to_jax`` is its inverse, which
+``NeRFTrainer.save_checkpoint`` writes in the flax layout.
 """
 from __future__ import annotations
 
@@ -45,3 +46,16 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Nest a state_dict into the JAX parameter tree of numpy f32 arrays,
+    lists as ``"0"``, ``"1"``, ... maps (flax's ``to_state_dict``)."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in state_dict.items():
+        node = tree
+        *parents, leaf = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = tensor.detach().float().cpu().numpy()
+    return tree

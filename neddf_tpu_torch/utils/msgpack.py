@@ -1,11 +1,14 @@
-"""Minimal msgpack decoder for flax checkpoints (no msgpack package).
+"""Minimal msgpack reader and writer for flax checkpoints (no msgpack
+package).
 
 ``flax.serialization.to_bytes`` writes a msgpack map whose leaves are
 arrays in extension type 1: the ext payload is itself a msgpack array
 ``[shape, dtype-name, raw bytes]`` (C order). Extension type 3 is a numpy
 scalar with the same payload. Python lists in the saved tree were turned
 into maps keyed ``"0"``, ``"1"``, ... before writing, so they come back
-as such maps; ``training/checkpoint.py`` handles both forms.
+as such maps; ``training/checkpoint.py`` handles both forms. The writer
+(``packb``) produces the same layout, so ``flax.serialization.
+msgpack_restore`` and this reader both load what it writes.
 """
 from __future__ import annotations
 
@@ -117,3 +120,84 @@ def unpackb(data: bytes) -> Any:
 
 def load_msgpack(path: Union[str, Path]) -> Any:
     return unpackb(Path(path).read_bytes())
+
+
+def _ext_header(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        head = bytes([fixext[n]])
+    elif n < 1 << 8:
+        head = struct.pack(">BB", 0xC7, n)
+    elif n < 1 << 16:
+        head = struct.pack(">BH", 0xC8, n)
+    else:
+        head = struct.pack(">BI", 0xC9, n)
+    return head + struct.pack(">b", code) + payload
+
+
+def _sized(n: int, fix_base: int, fix_max: int, codes: Tuple[int, int, int]) -> bytes:
+    if n < fix_max:
+        return bytes([fix_base | n])
+    if codes[0] and n < 1 << 8:
+        return struct.pack(">BB", codes[0], n)
+    if n < 1 << 16:
+        return struct.pack(">BH", codes[1], n)
+    return struct.pack(">BI", codes[2], n)
+
+
+def _pack(obj: Any, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        if 0 <= obj < 128:
+            out.append(bytes([obj]))
+        elif -32 <= obj < 0:
+            out.append(struct.pack(">b", obj))
+        elif obj >= 0:
+            out.append(struct.pack(">BQ", 0xCF, obj))
+        else:
+            out.append(struct.pack(">Bq", 0xD3, obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        out.append(_sized(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + data)
+    elif isinstance(obj, (bytes, bytearray)):
+        out.append(_sized(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj))
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        out.append(_ext_header(_EXT_NDARRAY, payload))
+    elif isinstance(obj, np.generic):
+        arr = np.asarray(obj)
+        out.append(_ext_header(_EXT_NPSCALAR, packb([[], arr.dtype.name, arr.tobytes("C")])))
+    elif isinstance(obj, dict):
+        out.append(_sized(len(obj), 0x80, 16, (0, 0xDE, 0xDF)))
+        for key, value in obj.items():
+            _pack(str(key), out)
+            _pack(value, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_sized(len(obj), 0x90, 16, (0, 0xDC, 0xDD)))
+        for value in obj:
+            _pack(value, out)
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode maps, lists, scalars, bytes and numpy arrays (flax's array
+    extension types) as one msgpack document."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def save_msgpack(path: Union[str, Path], obj: Any) -> None:
+    """Write ``packb(obj)`` atomically (a reader never sees half a file)."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(packb(obj))
+    tmp.replace(path)

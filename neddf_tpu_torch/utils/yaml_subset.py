@@ -1,4 +1,5 @@
-"""A small YAML reader for the subset the repo's configs use (no PyYAML).
+"""A small YAML reader and writer for the subset the repo's configs use
+(no PyYAML).
 
 Supported: block mappings and block sequences (including a sequence at
 the same indentation as its key, and ``- key: value`` items), flow
@@ -6,7 +7,9 @@ mappings/sequences of scalars (``{a: 1, b: [2, 3]}``), full-line and
 trailing comments, single/double-quoted strings, and PyYAML's
 (YAML 1.1) resolution of plain scalars into null, bool, int and float.
 Anchors, tags, multi-document streams and block scalars (``|``, ``>``)
-are not supported and raise.
+are not supported and raise. ``dumps`` writes block mappings and
+sequences of scalars, quoting every string that would not read back as
+itself, so ``loads(dumps(x)) == x`` and PyYAML reads the same values.
 """
 from __future__ import annotations
 
@@ -246,3 +249,68 @@ def loads(text: str) -> Any:
 
 def load(path: Union[str, Path]) -> Any:
     return loads(Path(path).read_text())
+
+
+def _scalar_text(value: Any) -> str:
+    if value is None:
+        return "null"
+    if value is True or value is False:
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return "-.inf" if value < 0 else ".inf"
+        text = repr(value)
+        if "e" in text and "." not in text:  # YAML 1.1 floats need a dot
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        if "e" in text and text.split("e")[1][0] not in "+-":
+            mant, exp = text.split("e")
+            text = f"{mant}e+{exp}"
+        return text
+    if isinstance(value, str):
+        plain = value and value == value.strip() and not any(
+            ch in value for ch in ":#{}[],&*!|>'\"%@`\n") and value[0] not in "-?"
+        if plain and _plain_scalar(value) == value:
+            return value
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"yaml_subset: cannot write {type(value).__name__}")
+
+
+def _dump(value: Any, indent: int, lines: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(value, dict):
+        for key, item in value.items():
+            head = f"{pad}{_scalar_text(key)}:"
+            if isinstance(item, (dict, list)) and item:
+                lines.append(head)
+                _dump(item, indent + 2, lines)
+            elif isinstance(item, (dict, list)):
+                lines.append(f"{head} {'{}' if isinstance(item, dict) else '[]'}")
+            else:
+                lines.append(f"{head} {_scalar_text(item)}")
+    elif isinstance(value, list):
+        for item in value:
+            if isinstance(item, dict) and item:
+                sub: List[str] = []
+                _dump(item, indent + 2, sub)
+                lines.append(f"{pad}- {sub[0].lstrip()}")
+                lines.extend(sub[1:])
+            elif isinstance(item, list) and item:
+                raise ValueError("yaml_subset: nested sequences are not supported")
+            else:
+                lines.append(f"{pad}- {_scalar_text(item)}")
+    else:
+        lines.append(pad + _scalar_text(value))
+
+
+def dumps(value: Any) -> str:
+    """Write a mapping / sequence / scalar tree as block YAML."""
+    if isinstance(value, (dict, list)) and not value:
+        return "{}\n" if isinstance(value, dict) else "[]\n"
+    lines: List[str] = []
+    _dump(value, 0, lines)
+    return "\n".join(lines) + "\n"
