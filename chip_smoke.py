@@ -44,8 +44,27 @@ Phases (any failure stops the script with a non-zero exit code):
    then the first 100 steps again through the plain versions
    (``network.fused=off``), which must track the kernel run; and a
    ``torch.profiler`` table of a few more steps in ``profile_train.txt``;
-9. one JSON line of per-kernel results, the card line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+9. the NeRF and NeuS routes against their plain versions, with times:
+   ``mlp_seg`` with the ``[h, seg0]`` post-skip layer, ReLU and its stash
+   at the NeRF step's shapes (1024 rays x 194 fine and 65 coarse samples,
+   bf16 and f32) and with the 3-wide last layer at the NeuS colour
+   trunk's (1024 x 259 rows, f32), its backward, and ``sdf_mlp`` forward
+   and backward at the NeuS step's rows and a ragged M, ReLU and tanhExp;
+   two backward runs must give bitwise-equal dW / db;
+10. one full-width f32 train step of each family (``FAMILY_OVERRIDES``)
+   from the seeded parameters of ``family_params``, against the JAX
+   package's numbers on the CPU (``FAMILY_STEP``, made by
+   ``tools/family_step_reference.py``);
+11. a 300-step run of each configuration through ``scripts/run.py``
+   (NeRF: separate coarse network, point samples, bf16; NeuS: f32):
+   every loss finite, train PSNR of the last 50 steps at least 3 dB above
+   the first 50, every new kernel launched and no plain version called;
+   ms/step, rays/s and the device's busy share over five traced steps
+   (``profile_train_{nerf,neus}.txt``);
+12. ``run_eval`` of each run dir at downsampling 8, through the kernels
+   and through the plain versions: PSNR within 0.05 dB;
+13. one JSON line of per-kernel results (with each route's bound), the
+   card line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Outputs go to ``chiprun_out/chip_smoke/``.
 """
@@ -95,17 +114,64 @@ MACHINE_ITERATION = 100_000  # epoch 1000 x 100 train views (the checkpoint hold
 MACHINE_BATCH = 64  # rays; the JAX reference below runs on a CPU and must fit its memory
 
 
-def machine_step_draws(width: int, height: int, n_strat: int, n_pdf: int, seed: int = 0):
-    """Pixel columns/rows and sample uniforms of the phase-7 step (numpy),
-    shared with tools/train_step_reference.py."""
+def machine_step_draws(width: int, height: int, n_strat: int, n_pdf: int, seed: int = 0,
+                       batch: int = MACHINE_BATCH):
+    """Pixel columns/rows and sample uniforms of the phase-7 and phase-10
+    steps (numpy), shared with tools/train_step_reference.py and
+    tools/family_step_reference.py."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    us = rng.integers(0, width - 1, MACHINE_BATCH)
-    vs = rng.integers(0, height - 1, MACHINE_BATCH)
-    u_strat = rng.random((MACHINE_BATCH, n_strat), dtype=np.float32)
-    u_pdf = rng.random((MACHINE_BATCH, n_pdf), dtype=np.float32)
+    us = rng.integers(0, width - 1, batch)
+    vs = rng.integers(0, height - 1, batch)
+    u_strat = rng.random((batch, n_strat), dtype=np.float32)
+    u_pdf = rng.random((batch, n_pdf), dtype=np.float32)
     return us, vs, u_strat, u_pdf
+
+
+# phases 9-12: the NeRF and NeuS configurations, as
+# ``scripts/run.py`` overrides of config/config.yaml
+FAMILY_OVERRIDES = {
+    "nerf": ["network=nerf", "render=nerf_render", "loss=nerf_loss", "trainer=nerf_trainer"],
+    "neus": ["network=neus", "loss=nerf_loss", "trainer.batch_size=1024"],
+}
+FAMILY_CAMERA = 0
+FAMILY_DRAW_SEED = 1
+# rays of the phase-10 step; its JAX reference runs on a CPU. The early
+# layers' gradient norms of the 8-layer ReLU trunk are small sums that a
+# few ReLU-mask flips between two f32 summation orders move; their share
+# falls as 1/sqrt(rays)
+FAMILY_BATCH = 256
+# an se3 camera delta of ~1e-7 (the f32 rounding by which two
+# implementations' rays differ): the reference tool records how far each
+# number of the step moves under it (FAMILY_STEP[...]["spread"])
+FAMILY_SHIFT = (1e-7, -1e-7, 1e-7, 1e-7, 1e-7, -1e-7)
+# the bar of a number that moves more than JAX_STEP_TOL / SPREAD_FACTOR
+# under that shift: SPREAD_FACTOR times its spread (the port's rays on the
+# card differ from the JAX package's on the CPU by rounding of that size
+# at every step of the ray and sample arithmetic, not by one shift)
+SPREAD_FACTOR = 5.0
+# a seed at which neither NeRF network starts dead (a ReLU density head
+# that is negative at every sample passes no gradient at all)
+FAMILY_PARAM_SEED = 2
+
+
+def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
+    """Seeded parameters (numpy f32) by the port's parameter name, drawn
+    like PyTorch's ``nn.Linear`` default (w and b uniform in
+    +-1/sqrt(fan_in)) in sorted name order; NeuS's ``variance`` is its
+    init value 0.3. Shared with tools/family_step_reference.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(shapes):
+        if name.endswith("variance"):
+            out[name] = np.array(0.3, np.float32)
+            continue
+        bound = 1.0 / math.sqrt(shapes[name[:-1] + "w"][0])
+        out[name] = rng.uniform(-bound, bound, size=shapes[name]).astype(np.float32)
+    return out
 
 
 # The JAX package's numbers for the phase-7 step, made once on a CPU with
@@ -469,8 +535,10 @@ def run_main_path(torch, run_dir: Path, extra=()):
     return trainer
 
 
-def profile_train(torch, trainer, card: str, steps: int = 5) -> None:
-    """Device time by kernel over a few more train steps."""
+def profile_train(torch, trainer, card: str, name: str = "profile_train.txt",
+                  what: str = "512 rays, bf16", tag: str = "8", steps: int = 5) -> float:
+    """Device time by kernel over a few more train steps, into
+    ``OUT/name``; returns the device's busy share of the traced wall."""
     from torch.profiler import ProfilerActivity, profile
 
     for cam in range(2):
@@ -488,14 +556,15 @@ def profile_train(torch, trainer, card: str, steps: int = 5) -> None:
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     lines = [f"card: {card}",
-             f"{steps} train steps (512 rays, bf16): traced wall {wall:.3f} s, device busy "
+             f"{steps} train steps ({what}): traced wall {wall:.3f} s, device busy "
              f"{busy:.3f} s, busy share {busy / wall:.3f} of the traced wall"]
     for e in kernels[:40]:
         t = e.self_device_time_total / 1e6
         lines.append(f"{t:9.4f} s {100 * t / busy:6.2f}% n={e.count:6d}  {e.key[:110]}")
-    (OUT / "profile_train.txt").write_text("\n".join(lines) + "\n")
+    (OUT / name).write_text("\n".join(lines) + "\n")
     for line in lines[:12]:
-        log(f"[8] {line}")
+        log(f"[{tag}] {line}")
+    return busy / wall
 
 
 def mean(xs):
@@ -576,6 +645,582 @@ def phase_train_run(torch, card: str) -> dict:
             "track_psnr_gap_db": psnr_gap,
             "loss_curve": [r["loss"] for r in hist], "psnr_curve": [r["psnr"] for r in hist],
             "plain_loss_curve": [r["loss"] for r in ph]}
+
+
+# The JAX package's numbers for the phase-10 steps, made once on a CPU with
+#   JAX_PLATFORMS=cpu python tools/family_step_reference.py
+# (f32, network.fused=off, the parameters of family_params and the draws of
+# machine_step_draws(seed=FAMILY_DRAW_SEED, batch=FAMILY_BATCH)); held at
+# JAX_STEP_TOL like phase 7's step.
+FAMILY_STEP = {
+ "nerf": {
+  "loss": 0.07272379100322723,
+  "mse": 0.012628795579075813,
+  "losses": {
+   "color": 0.012628795579075813,
+   "color_coarse": 0.0012153348652645946,
+   "mask": 0.04297208786010742,
+   "mask_coarse": 0.015907572582364082
+  },
+  "grad_norms": {
+   "network_coarse.layers.0.b": 0.00021642321371473372,
+   "network_coarse.layers.0.w": 0.0010082325898110867,
+   "network_coarse.layers.1.b": 0.0005932954954914749,
+   "network_coarse.layers.1.w": 0.002336723729968071,
+   "network_coarse.layers.2.b": 0.001566355931572616,
+   "network_coarse.layers.2.w": 0.0028038532473146915,
+   "network_coarse.layers.3.b": 0.00404606806114316,
+   "network_coarse.layers.3.w": 0.003762252861633897,
+   "network_coarse.layers.4.b": 0.009944715537130833,
+   "network_coarse.layers.4.w": 0.005273424554616213,
+   "network_coarse.layers.5.b": 0.027658987790346146,
+   "network_coarse.layers.5.w": 0.0997622013092041,
+   "network_coarse.layers.6.b": 0.07830952852964401,
+   "network_coarse.layers.6.w": 0.1373198926448822,
+   "network_coarse.layers.7.b": 0.2326049953699112,
+   "network_coarse.layers.7.w": 0.19407057762145996,
+   "network_coarse.outL_color.0.b": 2.1401106664598046e-07,
+   "network_coarse.outL_color.0.w": 7.135423061299662e-07,
+   "network_coarse.outL_color.1.b": 5.675591410181369e-07,
+   "network_coarse.outL_color.1.w": 5.048278808317264e-07,
+   "network_coarse.outL_density.b": 0.653171718120575,
+   "network_coarse.outL_density.w": 0.3662753403186798,
+   "network_fine.layers.0.b": 0.00012371683260425925,
+   "network_fine.layers.0.w": 0.0002496445085853338,
+   "network_fine.layers.1.b": 0.0004579228116199374,
+   "network_fine.layers.1.w": 0.0014011700404807925,
+   "network_fine.layers.2.b": 0.0013850490795448422,
+   "network_fine.layers.2.w": 0.002093283925205469,
+   "network_fine.layers.3.b": 0.003804202890023589,
+   "network_fine.layers.3.w": 0.0028712935745716095,
+   "network_fine.layers.4.b": 0.010396725498139858,
+   "network_fine.layers.4.w": 0.005758058745414019,
+   "network_fine.layers.5.b": 0.03289446607232094,
+   "network_fine.layers.5.w": 0.058088887482881546,
+   "network_fine.layers.6.b": 0.1043478399515152,
+   "network_fine.layers.6.w": 0.1296025663614273,
+   "network_fine.layers.7.b": 0.3238949775695801,
+   "network_fine.layers.7.w": 0.21931642293930054,
+   "network_fine.outL_color.0.b": 0.0010659921681508422,
+   "network_fine.outL_color.0.w": 0.0034757673274725676,
+   "network_fine.outL_color.1.b": 0.0030849208123981953,
+   "network_fine.outL_color.1.w": 0.0029864166863262653,
+   "network_fine.outL_density.b": 0.9229459166526794,
+   "network_fine.outL_density.w": 0.4799703061580658
+  },
+  "spread": {
+   "loss": 1.946557369860858e-06,
+   "mse": 0.0,
+   "loss color": 0.0,
+   "loss color_coarse": 0.0,
+   "loss mask": 1.7338186176056103e-07,
+   "loss mask_coarse": 8.547696085611851e-06,
+   "network_coarse.layers.0.b": 0.002354481327605532,
+   "network_coarse.layers.0.w": 0.0025505008167976267,
+   "network_coarse.layers.1.b": 0.0018201192044650608,
+   "network_coarse.layers.1.w": 0.0019492530603362724,
+   "network_coarse.layers.2.b": 0.0017789808095863995,
+   "network_coarse.layers.2.w": 0.0019741816828424893,
+   "network_coarse.layers.3.b": 0.0017828565641197095,
+   "network_coarse.layers.3.w": 0.002085185657581374,
+   "network_coarse.layers.4.b": 0.0016797999860836104,
+   "network_coarse.layers.4.w": 0.0018618770670168897,
+   "network_coarse.layers.5.b": 0.0018027778537259586,
+   "network_coarse.layers.5.w": 0.0023477474290985656,
+   "network_coarse.layers.6.b": 0.0015643364029225176,
+   "network_coarse.layers.6.w": 0.0021178720534862257,
+   "network_coarse.layers.7.b": 0.0015549790110184866,
+   "network_coarse.layers.7.w": 0.0019127207794680777,
+   "network_coarse.outL_color.0.b": 3.5525299657562676e-05,
+   "network_coarse.outL_color.0.w": 3.640631003406499e-05,
+   "network_coarse.outL_color.1.b": 3.5254270423890534e-05,
+   "network_coarse.outL_color.1.w": 3.6482271305139745e-05,
+   "network_coarse.outL_density.b": 0.0015523247319887761,
+   "network_coarse.outL_density.w": 0.0017443221451696198,
+   "network_fine.layers.0.b": 6.598636799268292e-05,
+   "network_fine.layers.0.w": 4.3135005572576396e-05,
+   "network_fine.layers.1.b": 2.1418436939672717e-05,
+   "network_fine.layers.1.w": 1.6783041550739745e-05,
+   "network_fine.layers.2.b": 2.4290856190482674e-05,
+   "network_fine.layers.2.w": 2.280162828095966e-05,
+   "network_fine.layers.3.b": 9.914971772626195e-06,
+   "network_fine.layers.3.w": 1.1190297331065433e-05,
+   "network_fine.layers.4.b": 1.3884660039473641e-05,
+   "network_fine.layers.4.w": 1.3667237698414528e-05,
+   "network_fine.layers.5.b": 7.92748300942204e-06,
+   "network_fine.layers.5.w": 8.72179693129988e-06,
+   "network_fine.layers.6.b": 8.425363772221005e-06,
+   "network_fine.layers.6.w": 8.393234776827911e-06,
+   "network_fine.layers.7.b": 4.6006150838342484e-07,
+   "network_fine.layers.7.w": 7.473802961745816e-07,
+   "network_fine.outL_color.0.b": 7.644589492642793e-07,
+   "network_fine.outL_color.0.w": 8.708288220492786e-07,
+   "network_fine.outL_color.1.b": 7.547378289845591e-07,
+   "network_fine.outL_color.1.w": 8.575953556377773e-07,
+   "network_fine.outL_density.b": 1.097874688970486e-06,
+   "network_fine.outL_density.w": 9.934722046036135e-07
+  }
+ },
+ "neus": {
+  "loss": 0.1333521604537964,
+  "mse": 0.010037576779723167,
+  "losses": {
+   "color": 0.010037576779723167,
+   "color_coarse": 0.001003757701255381,
+   "mask": 0.11119160801172256,
+   "mask_coarse": 0.011119218543171883
+  },
+  "grad_norms": {
+   "network_fine.layers_col.0.b": 1.4293711501522921e-05,
+   "network_fine.layers_col.0.w": 5.983127630315721e-05,
+   "network_fine.layers_col.1.b": 3.3315962355118245e-05,
+   "network_fine.layers_col.1.w": 6.0413352912291884e-05,
+   "network_fine.layers_col.2.b": 8.135303505696356e-05,
+   "network_fine.layers_col.2.w": 6.901117012603208e-05,
+   "network_fine.layers_col.3.b": 0.00018257762712892145,
+   "network_fine.layers_col.3.w": 0.00010134344483958557,
+   "network_fine.layers_col.4.b": 0.00047696492401883006,
+   "network_fine.layers_col.4.w": 0.000212166050914675,
+   "network_fine.layers_col.5.b": 0.0012070550583302975,
+   "network_fine.layers_col.5.w": 0.00046837012632749975,
+   "network_fine.layers_col.6.b": 0.002770537044852972,
+   "network_fine.layers_col.6.w": 0.0012408980401232839,
+   "network_fine.layers_col.7.b": 0.006318370811641216,
+   "network_fine.layers_col.7.w": 0.0028957442846149206,
+   "network_fine.layers_col.8.b": 0.015432468615472317,
+   "network_fine.layers_col.8.w": 0.007265223655849695,
+   "network_fine.layers_sdf.0.b": 1.431039891031105e-06,
+   "network_fine.layers_sdf.0.w": 2.705468432395719e-06,
+   "network_fine.layers_sdf.1.b": 4.774637545779115e-06,
+   "network_fine.layers_sdf.1.w": 1.5842215361772105e-05,
+   "network_fine.layers_sdf.2.b": 1.371204143651994e-05,
+   "network_fine.layers_sdf.2.w": 2.2354157408699393e-05,
+   "network_fine.layers_sdf.3.b": 4.277220432413742e-05,
+   "network_fine.layers_sdf.3.w": 3.292840119684115e-05,
+   "network_fine.layers_sdf.4.b": 0.0001238036493305117,
+   "network_fine.layers_sdf.4.w": 6.208521517692134e-05,
+   "network_fine.layers_sdf.5.b": 0.0003064531774725765,
+   "network_fine.layers_sdf.5.w": 0.0005115928361192346,
+   "network_fine.layers_sdf.6.b": 0.0009686918347142637,
+   "network_fine.layers_sdf.6.w": 0.0010849080281332135,
+   "network_fine.layers_sdf.7.b": 0.0028427974320948124,
+   "network_fine.layers_sdf.7.w": 0.00179282168392092,
+   "network_fine.variance": 0.39704278111457825
+  },
+  "spread": {
+   "loss": 0.0,
+   "mse": 0.0,
+   "loss color": 0.0,
+   "loss color_coarse": 0.0,
+   "loss mask": 0.0,
+   "loss mask_coarse": 8.375791617005202e-08,
+   "network_fine.layers_col.0.b": 1.4634672134349853e-06,
+   "network_fine.layers_col.0.w": 2.1889427260703564e-06,
+   "network_fine.layers_col.1.b": 1.0373645611369165e-05,
+   "network_fine.layers_col.1.w": 1.0056426791380811e-05,
+   "network_fine.layers_col.2.b": 2.77254174821815e-06,
+   "network_fine.layers_col.2.w": 3.900968947970879e-06,
+   "network_fine.layers_col.3.b": 4.144536237951853e-06,
+   "network_fine.layers_col.3.w": 4.3794980047078884e-06,
+   "network_fine.layers_col.4.b": 9.152820990957623e-07,
+   "network_fine.layers_col.4.w": 8.916360423979796e-07,
+   "network_fine.layers_col.5.b": 1.928914858083947e-07,
+   "network_fine.layers_col.5.w": 2.485541141143007e-07,
+   "network_fine.layers_col.6.b": 1.6807618153773908e-07,
+   "network_fine.layers_col.6.w": 9.381538052503402e-08,
+   "network_fine.layers_col.7.b": 0.0,
+   "network_fine.layers_col.7.w": 8.040442137480786e-08,
+   "network_fine.layers_col.8.b": 6.034825651171266e-08,
+   "network_fine.layers_col.8.w": 6.409455639164056e-08,
+   "network_fine.layers_sdf.0.b": 3.4955146191954596e-06,
+   "network_fine.layers_sdf.0.w": 3.02552128050818e-06,
+   "network_fine.layers_sdf.1.b": 3.6192065194481398e-06,
+   "network_fine.layers_sdf.1.w": 3.4445739349090346e-06,
+   "network_fine.layers_sdf.2.b": 1.5255480547968902e-06,
+   "network_fine.layers_sdf.2.w": 1.8715425286069344e-06,
+   "network_fine.layers_sdf.3.b": 1.1907663891557245e-06,
+   "network_fine.layers_sdf.3.w": 8.838519150308961e-07,
+   "network_fine.layers_sdf.4.b": 2.1157249849019515e-06,
+   "network_fine.layers_sdf.4.w": 1.9922823668830168e-06,
+   "network_fine.layers_sdf.5.b": 1.2346088203683105e-06,
+   "network_fine.layers_sdf.5.w": 1.2515505004040233e-06,
+   "network_fine.layers_sdf.6.b": 1.2017787045895147e-07,
+   "network_fine.layers_sdf.6.w": 1.07304323323378e-07,
+   "network_fine.layers_sdf.7.b": 1.638038933236973e-07,
+   "network_fine.layers_sdf.7.w": 1.948023992642703e-07,
+   "network_fine.variance": 0.0
+  }
+ }
+}
+
+
+# ---- bounds (H100 SXM datasheet peaks, 700 W)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor-core bf16; f32 off them
+MEM_RATE = 3.35e12  # bytes/s of HBM3
+
+
+def bound(flops: float, nbytes: float, dtype_name: str) -> dict:
+    """Least time the card could take: operations over the peak rate of
+    their type or bytes (inputs read once, outputs written once) over the
+    memory rate, whichever is larger."""
+    ops_ms = 1e3 * flops / PEAK_FLOPS[dtype_name]
+    mem_ms = 1e3 * nbytes / MEM_RATE
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def mlp_work(m, fan_ins, outs, dtype_name, in_width, streams=1, stash=False):
+    """(flops, bytes) of an MLP forward over ``streams`` stacked streams
+    of M rows: products 2 M S fan_in C per layer; bytes of the inputs,
+    the weights (T) and biases (f32), the output and the stash."""
+    t = 2 if dtype_name == "bfloat16" else 4
+    flops = 2.0 * m * streams * sum(f * o for f, o in zip(fan_ins, outs))
+    weights = sum(f * o * t + 4 * o for f, o in zip(fan_ins, outs))
+    acts = m * streams * (in_width + outs[-1] + (sum(outs) if stash else 0)) * t
+    return flops, weights + acts
+
+
+def mlp_bwd_work(m, fan_ins, outs, dtype_name, in_width, streams=1):
+    """(flops, bytes) of the backward from the stash: dx and dW products
+    per layer; bytes of the stash, g, the inputs, dx, the weights and the
+    f32 dW/db."""
+    t = 2 if dtype_name == "bfloat16" else 4
+    flops = 2.0 * 2.0 * m * streams * sum(f * o for f, o in zip(fan_ins, outs))
+    params = sum(f * o * (t + 4) + 4 * o for f, o in zip(fan_ins, outs))
+    acts = m * streams * (sum(outs) + outs[-1] + 2 * in_width) * t
+    return flops, params + acts
+
+
+def slice12_bounds(n_ddf: int, n_col: int) -> dict:
+    """Bounds of the earlier slices' routes at the shapes phases 3 and 6
+    time them (bf16)."""
+    bf = "bfloat16"
+    ddf_fans = [60] + [316 if li == 5 else 256 for li in range(1, n_ddf)]
+    out = {}
+    f, b = mlp_work(M_TRAIN, ddf_fans, [256] * n_ddf, bf, 60, streams=4, stash=True)
+    out["dual_mlp_trunk_stash"] = bound(f, b, bf)
+    col_fans = [343] + [256] * (n_col - 1)
+    f, b = mlp_work(M_FULL, col_fans, [256] * n_col, bf, 343)
+    out["mlp_seg_eval"] = bound(f, b, bf)
+    # K=1 colour: layer 0's tangent stream reads only the segments with tangents
+    f, b = mlp_work(M_TRAIN, col_fans, [256] * n_col, bf, 343, streams=2, stash=True)
+    f -= 2.0 * M_TRAIN * (343 - 316) * 256
+    out["dual_mlp_color_k1"] = bound(f, b, bf)
+    f, b = mlp_bwd_work(M_TRAIN, ddf_fans, [256] * n_ddf, bf, 60, streams=4)
+    out["dual_mlp_seg_bwd_trunk"] = bound(f, b, bf)
+    # epilogue: 8 head dots of 256 per row; the 4 streams in, 10 rows and t_feat out
+    out["neddf_epilogue"] = bound(2.0 * 8 * 256 * M_TRAIN,
+                                  M_TRAIN * (4 * 256 * 2 + 10 * 4 + 256 * 2), bf)
+    out["neddf_epilogue_bwd"] = bound(4.0 * 8 * 256 * M_TRAIN,
+                                      M_TRAIN * (4 * 256 * 2 * 2 + 10 * 4 + 256 * 2), bf)
+    return out
+
+
+# ---- phases 9-12: the NeRF and NeuS configurations
+M_NERF_FINE = 1024 * 194  # rows of a NeRF fine pass (1024 rays)
+M_NERF_COARSE = 1024 * 65
+M_NEUS = 1024 * (65 + 194)  # rows of a NeuS step (both passes, one network)
+M_SDF_RAGGED = 20_011  # not a multiple of the 128-row tile
+NERF_FANS = [60] + [316 if li == 5 else 256 for li in range(1, 8)]
+NEUS_COL_FANS = [286] + [256] * 8
+NEUS_COL_OUTS = [256] * 8 + [3]
+SDF_FANS = [36] + [292 if li == 5 else 256 for li in range(1, 8)]
+
+
+def phase_family_kernels(torch, card: str) -> dict:
+    """Phase 9: the mlp_seg forward with [h, seg0] / 3-wide last layer
+    and its backward, and the sdf_mlp forward and backward, against their
+    plain versions at the NeRF and NeuS steps' shapes, with times."""
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+    from neddf_tpu_torch.ops.pe import positional_encoding_mip
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+
+    def uniform(shape, scale=1.0):
+        return (torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0) * scale
+
+    def layers(fans, outs):
+        ws = [uniform((f, o), f ** -0.5) for f, o in zip(fans, outs)]
+        bs = [uniform((o,), f ** -0.5) for f, o in zip(fans, outs)]
+        return ws, bs
+
+    def check(route, key, pairs, tol):
+        worst_abs, worst_rel = 0.0, 0.0
+        for got, ref in pairs:
+            if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+                fail(f"{route} {key}: shape {tuple(got.shape)} or non-finite output")
+            a, r = rel_err(torch, got, ref)
+            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        if worst_rel > tol:
+            fail(f"{route} {key}: rel err {worst_rel:.3g} > {tol}")
+        results.setdefault(route, {})[key] = {"max_abs_err": worst_abs, "rel_err": worst_rel}
+        return results[route][key]
+
+    def bitwise(route, key, first, again):
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"{route} {key}: dW/db differ between two runs")
+
+    # mlp_seg: the NeRF trunk ([h, seg0], ReLU, stash) and the NeuS colour trunk
+    cases = [("nerf", m, d) for m in (M_NERF_FINE, M_NERF_COARSE)
+             for d in ("bfloat16", "float32")] + [("neus_color", M_NEUS, "float32")]
+    for name, m, dtype_name in cases:
+        dtype = getattr(torch, dtype_name)
+        if name == "nerf":
+            widths, fans, outs = (60,), NERF_FANS, [256] * 8
+            layout = tuple(li == 5 for li in range(8))
+        else:
+            widths, fans, outs, layout = (3, 24, 3, 256), NEUS_COL_FANS, NEUS_COL_OUTS, (False,) * 9
+        ws, bs = layers(fans, outs)
+        ws = [w.to(dtype).contiguous() for w in ws]
+        vs = [uniform((m, w)).to(dtype).contiguous() for w in widths]
+        g = (uniform((m, outs[-1])) * 0.01).to(dtype)
+        key = f"{name}/{m}/{dtype_name}"
+        fk = mlp.mlp_seg(vs, ws, bs, layout, "ReLU", stash=True)
+        fp = mlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU", stash=True)
+        torch.cuda.synchronize()
+        check("mlp_seg", key, [(fk[0], fp[0])] + list(zip(fk[1], fp[1])), REL_TOL[dtype_name])
+        args = (vs, ws, layout, "ReLU", fp[1], g)
+        bk = mlp.mlp_seg_bwd(*args)
+        bp = mlp.mlp_seg_bwd_plain(*args)
+        torch.cuda.synchronize()
+        check("mlp_seg_bwd", key, list(zip(sum(bk, []), sum(bp, []))), BWD_REL_TOL[dtype_name])
+        again = mlp.mlp_seg_bwd(*args)
+        bitwise("mlp_seg_bwd", key, bk[1] + bk[2], again[1] + again[2])
+        if m in (M_NERF_FINE, M_NEUS):
+            ms, plain_ms = time_pair(torch, lambda: mlp.mlp_seg(vs, ws, bs, layout, "ReLU",
+                                                                stash=True),
+                                     lambda: mlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU",
+                                                               stash=True), reps=3)
+            results["mlp_seg"][key].update(
+                ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_work(m, fans, outs, dtype_name, sum(widths), stash=True),
+                        dtype_name))
+            ms, plain_ms = time_pair(torch, lambda: mlp.mlp_seg_bwd(*args),
+                                     lambda: mlp.mlp_seg_bwd_plain(*args), reps=3)
+            results["mlp_seg_bwd"][key].update(
+                ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_bwd_work(m, fans, outs, dtype_name, sum(widths)), dtype_name))
+        for route in ("mlp_seg", "mlp_seg_bwd"):
+            log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
+        del fk, fp, bk, bp, again, args, vs, ws
+        torch.cuda.empty_cache()
+
+    # sdf_mlp: the NeuS SDF trunk with its channel-0 gradient (f32)
+    layout = tuple(li == 5 for li in range(8))
+    for act in ("ReLU", "tanhExp"):
+        for m in (M_NEUS, M_SDF_RAGGED):
+            key = f"{act}/{m}/float32"
+            e = positional_encoding_mip(uniform((m, 3)), 6).contiguous()
+            ws, bs = layers(SDF_FANS, [256] * 8)
+            fk = sk.sdf_mlp(e, ws, bs, layout, act, stash=True)
+            fp = sdf_grad.sdf_trunk_with_grad(e, ws, bs, layout, act, stash=True)
+            torch.cuda.synchronize()
+            # gE depends on f'(z) (ReLU: a step): where a z lies within an f32
+            # rounding of 0 the two passes may take different sides, so the
+            # kernel's sweep is held to the plain sweep over its own z, and
+            # the rows where it left the all-plain gE are counted
+            ge_ref = sdf_grad.channel0_sweep(ws, layout, act, fk[2], e.shape[1])
+            r = check("sdf_mlp", key, [(fk[0], fp[0]), (fk[1], ge_ref)]
+                      + list(zip(fk[2], fp[2])), REL_TOL["float32"])
+            r["rows_off_plain_ge"] = int(((fk[1] - fp[1]).abs().amax(dim=1)
+                                          > 1e-4 * fp[1].abs().max()).sum().item())
+            ch = uniform((m, 256)) * 0.01
+            cg = uniform((m, 36)) * 0.01
+            args = (e, ws, layout, act, fp[2], ch, cg)
+            bk = sk.sdf_mlp_bwd(*args)
+            bp = sdf_grad.sdf_trunk_with_grad_vjp(*args)
+            torch.cuda.synchronize()
+            check("sdf_mlp_bwd", key, [(bk[0], bp[0])] + list(zip(bk[1] + bk[2], bp[1] + bp[2])),
+                  BWD_REL_TOL["float32"])
+            again = sk.sdf_mlp_bwd(*args)
+            bitwise("sdf_mlp_bwd", key, bk[1] + bk[2], again[1] + again[2])
+            if m == M_NEUS and act == "ReLU":
+                trunk_flops, _ = mlp_work(m, SDF_FANS, [256] * 8, "float32", 36)
+                weights = sum(f * 256 * 4 + 4 * 256 for f in SDF_FANS)
+                ms, plain_ms = time_pair(
+                    torch, lambda: sk.sdf_mlp(e, ws, bs, layout, act, stash=True),
+                    lambda: sdf_grad.sdf_trunk_with_grad(e, ws, bs, layout, act, stash=True),
+                    reps=3)
+                # trunk + sweep; e in, h, gE and the stash out
+                results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms, **bound(
+                    2 * trunk_flops, weights + m * 4 * (36 + 256 + 36 + 8 * 256), "float32"))
+                ms, plain_ms = time_pair(torch, lambda: sk.sdf_mlp_bwd(*args),
+                                         lambda: sdf_grad.sdf_trunk_with_grad_vjp(*args),
+                                         reps=3)
+                # the replayed sweep (hidden rows of layers 1..7), then four
+                # products per layer; e, the stash, ch, cg in, de and dW/db out
+                replay = 2.0 * m * 256 * 256 * 7
+                results["sdf_mlp_bwd"][key].update(ms=ms, plain_ms=plain_ms, **bound(
+                    4 * trunk_flops + replay,
+                    2 * weights + m * 4 * (36 + 8 * 256 + 256 + 36 + 36), "float32"))
+            for route in ("sdf_mlp", "sdf_mlp_bwd"):
+                log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
+            del fk, fp, bk, bp, again, args, e
+            torch.cuda.empty_cache()
+    return results
+
+
+def family_trainer(torch, family: str, extra=()):
+    """The trainer of a family's configuration on the card, built from
+    config/ as ``scripts/run.py`` composes it."""
+    from neddf_tpu_torch import config as config_lib
+
+    cfg = config_lib.compose(REPO / "config", overrides=[*FAMILY_OVERRIDES[family], *extra])
+    cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
+    cfg["trainer"]["device"] = "cuda"
+    return config_lib.instantiate(cfg["trainer"], global_config=cfg)
+
+
+def phase_family_step(torch, card: str) -> dict:
+    """Phase 10: one full-width f32 step of each family from the seeded
+    parameters, against the JAX package's numbers on the CPU."""
+    out = {}
+    for family in FAMILY_OVERRIDES:
+        extra = ["network.compute_dtype=float32"] if family == "nerf" else []
+        trainer = family_trainer(torch, family, extra)
+        render = trainer.neural_render
+        shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+        render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
+        draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                                   render.sample_coarse + 1, render.sample_fine + 1,
+                                   seed=FAMILY_DRAW_SEED, batch=FAMILY_BATCH)
+        us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+        loss, loss_dict, mse = trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(),
+                                                  u_strat, u_pdf)
+        got = {"loss": loss.item(), "mse": mse.item(),
+               "losses": {k: v.item() for k, v in loss_dict.items()},
+               "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
+        ref = FAMILY_STEP[family]
+        # each number within JAX_STEP_TOL, or within SPREAD_FACTOR times its
+        # own spread under a ~1e-7 camera shift where the function moves more
+        pairs = [(k, got[k], ref[k], k) for k in ("loss", "mse")]
+        pairs += [(f"loss {k}", got["losses"][k], v, f"loss {k}")
+                  for k, v in ref["losses"].items()]
+        pairs += [(f"grad norm {k}", got["grad_norms"][k], v, k)
+                  for k, v in ref["grad_norms"].items()]
+        worst, wider = 0.0, {}
+        for name, value, want, spread_key in pairs:
+            tol = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["spread"][spread_key])
+            if tol > JAX_STEP_TOL:
+                wider[name] = tol
+            rel = check_close(f"{family} {name}", value, want, tol)
+            if tol == JAX_STEP_TOL:
+                worst = max(worst, rel)
+        log(f"[10] {family} f32 step vs the JAX package: loss {got['loss']:.8g} (JAX "
+            f"{ref['loss']:.8g}), worst relative gap {worst:.3g} over the "
+            f"{len(pairs) - len(wider)} of {len(pairs)} numbers held to {JAX_STEP_TOL}; "
+            f"{len(wider)} held to {SPREAD_FACTOR:g}x their spread under a 1e-7 camera shift "
+            f"{json.dumps({k: round(v, 5) for k, v in wider.items()})} | card: {card}")
+        out[family] = {"got": got, "worst_rel_vs_jax": worst, "wider_bars": wider}
+        del trainer, render
+        torch.cuda.empty_cache()
+    return out
+
+
+FAMILY_RUN_KERNELS = {"nerf": ("mlp_seg", "mlp_seg_bwd"),
+                      "neus": ("sdf_mlp", "sdf_mlp_bwd", "mlp_seg", "mlp_seg_bwd")}
+# run_eval at downsampling 8, kernels vs plain versions: PSNR gap (dB)
+EVAL_PSNR_GAP_DB = 0.05
+
+
+def phase_family_runs(torch, card: str) -> dict:
+    """Phases 11 and 12: a 300-step run of each configuration through
+    ``scripts/run.py``, then a ``run_eval`` render of its run dir through
+    the kernels and through the plain versions."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+    from neddf_tpu_torch.scripts.run_eval import evaluate
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    kernels = {"mlp_seg": mlp.mlp_seg, "mlp_seg_bwd": mlp.mlp_seg_bwd,
+               "sdf_mlp": sk.sdf_mlp, "sdf_mlp_bwd": sk.sdf_mlp_bwd}
+    plains = [mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, sdf_grad.sdf_trunk_with_grad,
+              sdf_grad.sdf_trunk_with_grad_vjp, dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain,
+              dm.dual_mlp_seg_bwd_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain]
+    out = {}
+    for family, needed in FAMILY_RUN_KERNELS.items():
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        run_dir = OUT / f"train_{family}"
+        start = time.perf_counter()
+        trainer = run_main_path(torch, run_dir, [*FAMILY_OVERRIDES[family],
+                                                 f"trainer.epoch_save_model={TRAIN_EPOCHS}"])
+        wall = time.perf_counter() - start
+        launches = {k: kernels[k].launches for k in needed}
+        plain_calls = sum(fn.calls for fn in plains)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[11] {family} run: {trainer.iteration} steps in {wall:.1f} s (load, hooks and "
+            f"checkpoints included), peak device memory {peak_gib:.2f} GiB; launches "
+            f"{launches}; plain calls {plain_calls}")
+        if min(launches.values()) < 1 or plain_calls:
+            fail(f"the {family} run did not go through every kernel alone")
+        hist = trainer.history
+        if len(hist) != 100 * (TRAIN_EPOCHS + 1):
+            fail(f"{family}: {len(hist)} logged steps")
+        if not all(math.isfinite(r["loss"]) and all(math.isfinite(v)
+                                                    for v in r["losses"].values())
+                   for r in hist):
+            fail(f"{family}: a non-finite loss")
+        first, last = mean([r["psnr"] for r in hist[:50]]), mean([r["psnr"] for r in hist[-50:]])
+        log(f"[11] {family} train PSNR: first 50 steps {first:.3f} dB, last 50 {last:.3f} dB "
+            f"(gain bar {PSNR_GAIN_MIN} dB); loss {mean([r['loss'] for r in hist[:50]]):.5f} -> "
+            f"{mean([r['loss'] for r in hist[-50:]]):.5f}")
+        if not last - first >= PSNR_GAIN_MIN:
+            fail(f"{family}: train PSNR did not rise")
+        steady = [r["seconds"] for r in hist if 100 <= r["iteration"] < 200]
+        ms_step = 1000.0 * mean(steady)
+        rays_s = trainer.batch_size / mean(steady)
+        dtype = str(trainer.neural_render.network_fine.compute_dtype).replace("torch.", "") \
+            if hasattr(trainer.neural_render.network_fine, "compute_dtype") else "float32"
+        log(f"[11] {family}: {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, "
+            f"{dtype}, {trainer.batch_size} rays) | card: {card}")
+        busy = profile_train(torch, trainer, card, f"profile_train_{family}.txt",
+                             f"{trainer.batch_size} rays, {dtype}", "11")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # phase 12: run_eval of the run dir, kernels then plain versions
+        for fn in kernels.values():
+            fn.launches = 0
+        ev = evaluate(run_dir, TRAIN_EPOCHS, cameras=[0], downsampling=8)
+        eval_launches = {k: kernels[k].launches for k in needed if not k.endswith("_bwd")}
+        gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
+        psnrs = {}
+        for mode in ("kernels", "plain"):
+            nets = [ev.neural_render.network_fine]
+            if ev.neural_render.use_coarse_network:
+                nets.append(ev.neural_render.network_coarse)
+            for net in nets:
+                net.fused = "auto" if mode == "kernels" else "off"
+            ev.generator.manual_seed(ev.seed)
+            rgb = ev.render_test(run_dir / f"eval_{mode}", 0, 8)
+            psnrs[mode] = peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
+        gap = abs(psnrs["kernels"] - psnrs["plain"])
+        log(f"[12] {family} run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB through "
+            f"the kernels (launches {eval_launches}), {psnrs['plain']:.4f} dB through the plain "
+            f"versions, gap {gap:.4f} dB (bar {EVAL_PSNR_GAP_DB})")
+        if min(eval_launches.values()) < 1 or not gap <= EVAL_PSNR_GAP_DB:
+            fail(f"{family}: run_eval through the kernels and the plain versions disagree")
+        del ev
+        torch.cuda.empty_cache()
+        out[family] = {"launches": launches, "plain_calls": plain_calls, "wall_s": wall,
+                       "ms_per_step": ms_step, "rays_per_s": rays_s, "busy_share": busy,
+                       "peak_memory_gib": peak_gib, "psnr_first50": first, "psnr_last50": last,
+                       "eval_psnr": psnrs, "eval_launches": eval_launches,
+                       "loss_curve": [r["loss"] for r in hist],
+                       "psnr_curve": [r["psnr"] for r in hist]}
+    return out
 
 
 def main() -> int:
@@ -788,30 +1433,53 @@ def main() -> int:
     # ---- phase 8: the main path, the default config's training run
     train = phase_train_run(torch, card)
 
-    # ---- phase 9: results
+    # ---- phases 9-12: the NeRF and NeuS configurations
+    family_kernels = phase_family_kernels(torch, card)
+    family_steps = phase_family_step(torch, card)
+    family_runs = phase_family_runs(torch, card)
+
+    # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
     key = f"{M_TRAIN}/bfloat16"
+    bounds = slice12_bounds(n_ddf, n_col)
+
+    def bound_keys(b):
+        # no single PyTorch call computes any of these routes (a whole MLP
+        # with its stash, its backward, the epilogue): library_ms is null
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
     def entry(name, source, replaces, launch_key, route):
         r = train_kernels[route][key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"]}
+                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route])}
+
+    def family_entry(name, source, replaces, family, route, fkey):
+        r = family_kernels[route][fkey]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": family_runs[family]["launches"][route],
+                "max_abs_err": max(v["max_abs_err"] for k, v in family_kernels[route].items()
+                                   if k.split("/")[0] == fkey.split("/")[0]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r)}
 
     bwd = entry("dual_mlp_seg_bwd (trunk K=3)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
                 "neddf_tpu/kernels/dual_mlp.py:935", "dual_mlp_seg_bwd",
                 "dual_mlp_seg_bwd_trunk")
     bwd["max_abs_err"] = max(bwd["max_abs_err"],
                              train_kernels["dual_mlp_seg_bwd_color"][key]["max_abs_err"])
+    nerf_key = f"nerf/{M_NERF_FINE}/bfloat16"
+    neus_key = f"neus_color/{M_NEUS}/float32"
+    sdf_key = f"ReLU/{M_NEUS}/float32"
     kernels = [
         entry("dual_mlp_trunk (K=3, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
               "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_trunk", "dual_mlp_trunk_stash"),
-        {"name": "mlp_seg", "route": "cuda",
+        {"name": "mlp_seg (NeDDF eval colour)", "route": "cuda",
          "source": "neddf_tpu_torch/csrc/mlp_fwd.cu",
          "replaces": "neddf_tpu/kernels/mlp.py:192",
          "launches": train["launches"]["mlp_seg"],
          "max_abs_err": bf16["col_max_abs_err"],
-         "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"]},
+         "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"],
+         **bound_keys(bounds["mlp_seg_eval"])},
         entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
               "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
         bwd,
@@ -820,6 +1488,20 @@ def main() -> int:
         entry("neddf_epilogue_bwd", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
               "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_bwd",
               "neddf_epilogue_bwd"),
+        family_entry("mlp_seg (NeRF trunk, [h, seg0], ReLU, stash)",
+                     "neddf_tpu_torch/csrc/mlp_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
+                     "nerf", "mlp_seg", nerf_key),
+        family_entry("mlp_seg_bwd (NeRF trunk)", "neddf_tpu_torch/csrc/mlp_bwd.cu",
+                     "neddf_tpu/kernels/mlp.py:248", "nerf", "mlp_seg_bwd", nerf_key),
+        family_entry("mlp_seg (NeuS colour, 3-wide last layer, stash)",
+                     "neddf_tpu_torch/csrc/mlp_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
+                     "neus", "mlp_seg", neus_key),
+        family_entry("mlp_seg_bwd (NeuS colour)", "neddf_tpu_torch/csrc/mlp_bwd.cu",
+                     "neddf_tpu/kernels/mlp.py:248", "neus", "mlp_seg_bwd", neus_key),
+        family_entry("sdf_mlp (NeuS trunk + channel-0 sweep)", "neddf_tpu_torch/csrc/sdf_mlp.cu",
+                     "neddf_tpu/kernels/sdf_mlp.py:257", "neus", "sdf_mlp", sdf_key),
+        family_entry("sdf_mlp_bwd", "neddf_tpu_torch/csrc/sdf_mlp.cu",
+                     "neddf_tpu/kernels/sdf_mlp.py:304", "neus", "sdf_mlp_bwd", sdf_key),
     ]
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
@@ -827,6 +1509,8 @@ def main() -> int:
         "kernel_checks": {f"{m}/{d}": v for (m, d), v in results.items()},
         "render_check": render_check, "eval_launches": launches,
         "train_kernel_checks": train_kernels, "machine_step": machine, "train_run": train,
+        "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
+        "family_steps": family_steps, "family_runs": family_runs,
     }
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,8 @@ _PACKAGE = "neddf_tpu_torch"
 _REFERENCE_ALIASES: Dict[str, str] = {
     "neddf.dataset.NeRFSyntheticDataset": "data.NeRFSyntheticDataset",
     "neddf.network.NeDDF": "fields.NeDDF",
+    "neddf.network.NeRF": "fields.NeRF",
+    "neddf.network.NeuS": "fields.NeuS",
     "neddf.render.NeRFRender": "render.NeRFRender",
     "neddf.trainer.NeRFTrainer": "training.NeRFTrainer",
     "neddf.loss.ColorLoss": "training.ColorLoss",

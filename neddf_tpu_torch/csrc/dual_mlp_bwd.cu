@@ -32,11 +32,11 @@
 // ~(3 * 4 + 4 * 2) bytes per stacked element in bf16 and are bound by
 // device memory. Tensor-core (mma.sync / wgmma) products are the next
 // step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mlp_tile.cuh"
 
 namespace {
+
+using neddf::grid_1d;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
@@ -45,23 +45,6 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
 __device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
-}
-
-// tanhExp and its first two derivatives, passing x through above 20
-// (neddf_tpu/kernels/dual_mlp.py::_act_fns)
-__device__ __forceinline__ void tanh_exp3(float x, float& f, float& df,
-                                          float& ddf) {
-  if (x > 20.f) {
-    f = x;
-    df = 1.f;
-    ddf = 0.f;
-    return;
-  }
-  const float ex = expf(x);
-  const float tx = tanhf(ex);
-  f = x * tx;
-  df = tx - x * ex * (tx * tx - 1.f);
-  ddf = ex * (1.f - tx * tx) * (2.f + x - 2.f * x * ex * tx);
 }
 
 constexpr int kMaxStreams = 4;
@@ -80,7 +63,7 @@ __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
   for (int m = m0; m < m1; ++m) {
     const size_t i = (size_t)m * C + c;
     float f, d1, d2;
-    tanh_exp3(ld(z, i), f, d1, d2);
+    neddf::act_fn3<neddf::kTanhExp>(ld(z, i), f, d1, d2);
     float coupling = 0.f;
     float gt[kMaxStreams];
     for (int a = 1; a < S; ++a) {
@@ -102,7 +85,7 @@ __global__ void dual_act_kernel(int S, int C, int M, const T* __restrict__ z,
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < plane;
        i += (size_t)gridDim.x * blockDim.x) {
     float f, d1, d2;
-    tanh_exp3(ld(z, i), f, d1, d2);
+    neddf::act_fn3<neddf::kTanhExp>(ld(z, i), f, d1, d2);
     st(h, i, f);
     for (int a = 1; a < S; ++a) st(h, a * plane + i, d1 * ld(z, a * plane + i));
   }
@@ -188,11 +171,6 @@ __global__ void sum_splits_kernel(long long n, int splits,
     for (int z = 0; z < splits; ++z) s += parts[z * n + i];
     out[i] = s;
   }
-}
-
-int grid_1d(size_t n, int threads) {
-  const size_t blocks = (n + threads - 1) / threads;
-  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
 }
 
 }  // namespace

@@ -49,13 +49,13 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_tan == 3 && width == 256) {
     return (int)(dtype == 1
-                     ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256>(a, st)
-                     : neddf::launch_mlp_tile<float, 3, 256>(a, st));
+                     ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256, neddf::kTanhExp>(a, st)
+                     : neddf::launch_mlp_tile<float, 3, 256, neddf::kTanhExp>(a, st));
   }
   if (n_tan == 1 && width == 256) {
     return (int)(dtype == 1
-                     ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256>(a, st)
-                     : neddf::launch_mlp_tile<float, 1, 256>(a, st));
+                     ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256, neddf::kTanhExp>(a, st)
+                     : neddf::launch_mlp_tile<float, 1, 256, neddf::kTanhExp>(a, st));
   }
   return (int)cudaErrorInvalidValue;
 }

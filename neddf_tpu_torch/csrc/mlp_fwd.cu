@@ -1,25 +1,42 @@
-// Value-only multi-segment MLP forward (NeDDF eval colour trunk) for
-// sm_90a.
+// Value-only multi-segment MLP forward (mlp_seg) for sm_90a.
 //
 // Replaces the Pallas forward neddf_tpu/kernels/mlp.py::_run_forward
-// (kernel body _fwd_kernel, public mlp_seg) for layouts without a
-// post-skip layer: layer 0 reads the segments (PE(pos), PE(dir), normal,
-// trunk features: widths 60/24/3/256) as split weight rows of one
-// [343, C] matrix, staged side by side in shared memory, and the whole
-// trunk runs inside one block per row tile (mlp_tile.cuh with K=0).
-// NeRF's post-skip order [h, seg0] is not implemented here; the Python
-// wrapper refuses it. Bound and design: see mlp_tile.cuh.
+// (kernel body _fwd_kernel, public mlp_seg): layer 0 reads the segments
+// as split weight rows of one [sum(seg_w), C] matrix, staged side by side
+// in shared memory, and the whole trunk runs inside one block per row
+// tile (mlp_tile.cuh with K=0). Its configurations:
+//
+// * the NeDDF eval colour trunk: segments PE(pos), PE(dir), normal, trunk
+//   features (60/24/3/256), tanhExp, no post-skip layer;
+// * the NeRF trunk: one segment PE(pos) (60), ReLU, 8 layers, the layer
+//   after the skip consuming [h, seg0] (the Pallas _layer_pre split
+//   order, mlp_tile.cuh's kSplitHiddenFirst);
+// * the NeuS colour trunk: segments pos, PE(dir), grad sdf, features
+//   (3/24/3/256), ReLU, 8 layers of 256 and a last layer of 3 columns,
+//   which the Python wrapper pads to 256 zero columns (exact: the padded
+//   columns never feed a real one) and slices off again.
+//
+// Under a differentiated call (stash != null) every layer's
+// pre-activation [M, C] is written rounded to T for the backward
+// (mlp_bwd.cu), as the Pallas forward's stash variant does. Bound and
+// design: see mlp_tile.cuh.
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;
 
-extern "C" int neddf_mlp_seg_fwd(int dtype, int width, int M, int n_seg,
+template <int ACT>
+static cudaError_t launch(int dtype, const TileArgs& a, cudaStream_t st) {
+  return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 0, 256, ACT>(a, st)
+                    : neddf::launch_mlp_tile<float, 0, 256, ACT>(a, st);
+}
+
+extern "C" int neddf_mlp_seg_fwd(int dtype, int act, int width, int M, int n_seg,
                                  const void* const* seg_v, const int* seg_w,
                                  int n_layers, const void* const* w,
-                                 const void* const* b, void* out,
-                                 void* stream) {
+                                 const void* const* b, const int* split,
+                                 void* const* stash, void* out, void* stream) {
   if (n_seg < 1 || n_seg > neddf::kMaxSeg || n_layers < 1 ||
-      n_layers > neddf::kMaxLayers)
+      n_layers > neddf::kMaxLayers || width != 256)
     return (int)cudaErrorInvalidValue;
   TileArgs a = {};
   for (int s = 0; s < n_seg; ++s) {
@@ -29,19 +46,19 @@ extern "C" int neddf_mlp_seg_fwd(int dtype, int width, int M, int n_seg,
   }
   a.n_seg = n_seg;
   for (int l = 0; l < n_layers; ++l) {
+    if (split[l] != 0 && split[l] != neddf::kSplitHiddenFirst)
+      return (int)cudaErrorInvalidValue;
     a.w[l] = w[l];
     a.b[l] = static_cast<const float*>(b[l]);
-    a.split[l] = 0;
+    a.split[l] = split[l];
+    a.stash[l] = stash != nullptr ? stash[l] : nullptr;
   }
   a.n_layers = n_layers;
   a.M = M;
   a.v_out = out;
   a.j_out = nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (width == 256) {
-    return (int)(dtype == 1
-                     ? neddf::launch_mlp_tile<__nv_bfloat16, 0, 256>(a, st)
-                     : neddf::launch_mlp_tile<float, 0, 256>(a, st));
-  }
+  if (act == neddf::kTanhExp) return (int)launch<neddf::kTanhExp>(dtype, a, st);
+  if (act == neddf::kReLU) return (int)launch<neddf::kReLU>(dtype, a, st);
   return (int)cudaErrorInvalidValue;
 }

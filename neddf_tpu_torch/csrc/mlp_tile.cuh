@@ -1,5 +1,6 @@
 // Row-tile MLP forward shared by the trunk kernels (dual_mlp_fwd.cu,
-// mlp_fwd.cu). Built by neddf_tpu_torch/kernels/_build.py with
+// mlp_fwd.cu, sdf_mlp.cu), and the activations the backward kernels share
+// (mlp_bwd.cu, dual_mlp_bwd.cu, sdf_mlp.cu). Built by neddf_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 //
 // One block owns a tile of samples and runs EVERY layer of the MLP on it
@@ -18,13 +19,18 @@
 // * the layer-0 input is staged once into shared memory as the concat of
 //   the input segments (x0); its weight rows are read in place, so no
 //   concat ever exists in device memory. A post-skip layer reads segment
-//   0 again from x0 and the hidden state from h ([seg0, h], NeDDF order).
+//   0 again from x0 and the hidden state from h, in either order:
+//   kSplitSegFirst ([seg0, h], NeDDF) or kSplitHiddenFirst ([h, seg0],
+//   NeRF/NeuS), each piece against its own rows of W.
 // * the hidden state h [kRows, C] lives in shared memory; weights stream
 //   through shared memory kKTile rows at a time. Each thread keeps its
 //   output sub-tile (SPT samples x S streams x 16 columns) in registers
 //   for the whole K-loop, then all threads sync and write f(z) for the
 //   value rows and f'(z_value) * z_tangent for the tangent rows back over
 //   h, rounded to the storage type T (bf16 or f32).
+// * the activation is a template parameter: tanhExp (kTanhExp) or ReLU
+//   (kReLU, with f'(0) = 0 as neddf_tpu/kernels/dual_mlp.py::_act_fns
+//   defines it).
 // * arithmetic is plain FMA in f32 on the CUDA cores: operands are T
 //   converted to f32, sums and activations are f32, the bias (f32) seeds
 //   the value accumulators only.
@@ -45,11 +51,19 @@
 namespace neddf {
 
 constexpr int kMaxSeg = 4;
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 12;
 constexpr int kThreads = 512;
 constexpr int kRows = 128;      // stacked rows (streams x samples) per block
 constexpr int kColGroups = 16;  // threads across the output columns
 constexpr int kKTile = 16;      // weight rows staged per step
+
+// post-skip layer inputs (TileArgs::split)
+constexpr int kSplitSegFirst = 1;     // [seg0, h]
+constexpr int kSplitHiddenFirst = 2;  // [h, seg0]
+
+// activations (template parameter ACT)
+constexpr int kTanhExp = 0;
+constexpr int kReLU = 1;
 
 struct TileArgs {
   const void* seg_v[kMaxSeg];  // [M, seg_w] values, type T
@@ -58,7 +72,7 @@ struct TileArgs {
   int n_seg;
   const void* w[kMaxLayers];   // [fan_in, C] row-major, type T
   const float* b[kMaxLayers];  // [C]
-  int split[kMaxLayers];       // layer consumes [seg0, h]
+  int split[kMaxLayers];       // 0, kSplitSegFirst or kSplitHiddenFirst
   void* stash[kMaxLayers];     // [S, M, C] pre-activations, type T, or null
   int n_layers;
   int M;
@@ -121,6 +135,37 @@ __device__ __forceinline__ void tanh_exp(float x, float& f, float& df) {
   df = tx - x * ex * (tx * tx - 1.f);
 }
 
+template <int ACT>
+__device__ __forceinline__ void act_fn(float x, float& f, float& df) {
+  if constexpr (ACT == kReLU) {
+    f = fmaxf(x, 0.f);
+    df = x > 0.f ? 1.f : 0.f;
+  } else {
+    tanh_exp(x, f, df);
+  }
+}
+
+// f, f' and f'' for the backward kernels (dual_mlp_bwd.cu, sdf_mlp.cu)
+template <int ACT>
+__device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf) {
+  act_fn<ACT>(x, f, df);
+  if constexpr (ACT == kReLU) {
+    ddf = 0.f;
+  } else if (x > 20.f) {
+    ddf = 0.f;
+  } else {
+    const float ex = expf(x);
+    const float tx = tanhf(ex);
+    ddf = ex * (1.f - tx * tx) * (2.f + x - 2.f * x * ex * tx);
+  }
+}
+
+// blocks of a grid-stride elementwise launch: at most 32 per SM of the H100
+inline int grid_1d(size_t n, int threads) {
+  const size_t blocks = (n + threads - 1) / threads;
+  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
+}
+
 __host__ __device__ inline int x0_width(const TileArgs& a) {
   int s = 0;
   for (int i = 0; i < a.n_seg; ++i) s += a.seg_w[i];
@@ -148,8 +193,10 @@ inline size_t smem_bytes(const TileArgs& a) {
   return (act_elems<C>(a) + (size_t)kKTile * C) * sizeof(T);
 }
 
-template <typename T, int K, int C>
-__global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
+// The whole trunk on one row tile: x0, h and wt are the block's shared
+// buffers (smem_bytes); the last layer goes to a.v_out / a.j_out.
+template <typename T, int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward(const TileArgs& a, T* x0, T* h, T* wt) {
   constexpr int S = K + 1;
   constexpr int TM = kRows / S;             // samples per block
   constexpr int RG = kThreads / kColGroups; // thread rows
@@ -159,13 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
   static_assert(kRows % S == 0 && TM % RG == 0, "row tile");
   static_assert(C % (4 * kColGroups) == 0, "column tile");
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   const int x0w = x0_width(a);
-  T* x0 = smem;
-  T* h = has_split(a) ? smem + (size_t)kRows * x0w : smem;
-  T* wt = smem + act_elems<C>(a);
-
   const int tid = threadIdx.x;
   const int tr = tid / kColGroups;
   const int tc = tid % kColGroups;
@@ -222,9 +263,13 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
     int n_pieces = 1;
     if (l == 0) {
       src[0] = x0; stride[0] = x0w; width[0] = x0w; wrow[0] = 0;
-    } else if (a.split[l]) {
+    } else if (a.split[l] == kSplitSegFirst) {
       src[0] = x0; stride[0] = x0w; width[0] = a.seg_w[0]; wrow[0] = 0;
       src[1] = h; stride[1] = C; width[1] = C; wrow[1] = a.seg_w[0];
+      n_pieces = 2;
+    } else if (a.split[l] == kSplitHiddenFirst) {
+      src[0] = h; stride[0] = C; width[0] = C; wrow[0] = 0;
+      src[1] = x0; stride[1] = x0w; width[1] = a.seg_w[0]; wrow[1] = C;
       n_pieces = 2;
     } else {
       src[0] = h; stride[0] = C; width[0] = C; wrow[0] = 0;
@@ -289,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float f, df;
-          tanh_exp(acc[0][p][q * 4 + e], f, df);
+          act_fn<ACT>(acc[0][p][q * 4 + e], f, df);
           out[0][e] = f;
 #pragma unroll
           for (int st = 1; st < S; ++st) out[st][e] = df * acc[st][p][q * 4 + e];
@@ -310,17 +355,35 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
   }
 }
 
-template <typename T, int K, int C>
+// the block's shared buffers: x0, then h (or h over x0), then wt
+template <typename T, int C>
+__device__ __forceinline__ void tile_buffers(const TileArgs& a, unsigned char* raw,
+                                             T*& x0, T*& h, T*& wt) {
+  T* smem = reinterpret_cast<T*>(raw);
+  x0 = smem;
+  h = has_split(a) ? smem + (size_t)kRows * x0_width(a) : smem;
+  wt = smem + act_elems<C>(a);
+}
+
+template <typename T, int K, int C, int ACT>
+__global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T *x0, *h, *wt;
+  tile_buffers<T, C>(a, smem_raw, x0, h, wt);
+  tile_forward<T, K, C, ACT>(a, x0, h, wt);
+}
+
+template <typename T, int K, int C, int ACT>
 cudaError_t launch_mlp_tile(const TileArgs& a, cudaStream_t stream) {
   if (a.M <= 0) return cudaSuccess;
   const size_t smem = smem_bytes<T, C>(a);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_tile_fwd<T, K, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_tile_fwd<T, K, C, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int TM = kRows / (K + 1);
   const int grid = (a.M + TM - 1) / TM;
-  mlp_tile_fwd<T, K, C><<<grid, kThreads, smem, stream>>>(a);
+  mlp_tile_fwd<T, K, C, ACT><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

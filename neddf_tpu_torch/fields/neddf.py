@@ -45,7 +45,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from neddf_tpu_torch.fields.base import Linear, Schedule
+from neddf_tpu_torch.fields.base import Linear, Schedule, check_fused, use_kernels
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.kernels.dual_mlp import (
     dual_mlp_apply,
@@ -103,10 +103,7 @@ class NeDDF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if isinstance(fused, bool):  # YAML 1.1 reads a bare on/off as a bool
-            fused = "on" if fused else "off"
-        if fused not in ("auto", "on", "off"):
-            raise ValueError(f"fused must be auto/on/off, got {fused!r}")
+        fused = check_fused(fused)
         self.embed_pos_rank = embed_pos_rank
         self.embed_dir_rank = embed_dir_rank
         self.activation_type = activation_type
@@ -151,13 +148,7 @@ class NeDDF(nn.Module):
         )
 
     def _use_kernels(self, device: torch.device) -> bool:
-        if self.fused == "off":
-            return False
-        if device.type == "cuda":
-            return True
-        if self.fused == "on":
-            raise ValueError(f"NeDDF(fused='on') needs CUDA tensors, got {device}")
-        return False
+        return use_kernels(self.fused, device, "NeDDF")
 
     def _trunk_params(self, layers: nn.ModuleList):
         cd = self.compute_dtype

@@ -1,7 +1,6 @@
-"""Ray and Sampling records + mip-NeRF cone sampling.
+"""Ray and Sampling records + point and mip-NeRF cone sampling.
 
-Counterpart of ``neddf_tpu/geometry/rays.py`` (cone casting only: the
-NeDDF configs sample cones).
+Counterpart of ``neddf_tpu/geometry/rays.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +21,14 @@ class Sampling(NamedTuple):
     sample_pos: Tensor  # [B, S, 3]
     sample_dir: Tensor  # [B, S, 3]
     diag_variance: Tensor  # [B, S, 3]
+
+
+def get_sampling_points(rays: Rays, dists: Tensor) -> Sampling:
+    """Point samples ``o + d * t`` with zero variance (so the mip PE
+    weights are 1)."""
+    sample_dir = rays.ray_dir[:, None, :].expand(*dists.shape, 3)
+    sample_pos = rays.ray_orig[:, None, :] + rays.ray_dir[:, None, :] * dists[..., None]
+    return Sampling(sample_pos, sample_dir, torch.zeros_like(sample_pos))
 
 
 def get_sampling_cones(rays: Rays, dists: Tensor, ray_radius: float) -> Sampling:

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain
-C interface, loaded with ``ctypes``. The build happens at first use, never
-at import, into ``neddf_tpu_torch/_build/<hash>/`` (listed in
-``.gitignore``), where ``<hash>`` covers the sources and the flags: an
-edit to any ``.cu``/``.cuh`` file builds a fresh library.
+Each source is compiled by its own ``nvcc`` process (all started
+together) into an object file, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, never at import, into
+``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
+``<hash>`` covers the sources and the flags: an edit to any
+``.cu``/``.cuh`` file builds a fresh library.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libneddf_kernels.so"
 
@@ -55,15 +57,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    log += f"\n[build] {time.perf_counter() - start:.1f} s, exit {proc.returncode}\n"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{src.stem}.{os.getpid()}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", 0
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log += f"$ {' '.join(cmd)}\n{out}[exit {proc.returncode}]\n"
+        failed = failed or proc.returncode
+    if not failed:
+        tmp = out_dir / f"{_LIB_NAME}.{tag}"
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *[c[c.index("-o") + 1] for c, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}[exit {proc.returncode}]\n"
+        failed = proc.returncode
+    log += f"\n[build] {time.perf_counter() - start:.1f} s, exit {failed}\n"
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log[-6000:]}")
+    if failed:
+        raise RuntimeError(f"nvcc failed (exit {failed}):\n{log[-6000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
@@ -87,9 +105,24 @@ def library() -> ctypes.CDLL:
         ],
         # csrc/mlp_fwd.cu
         "neddf_mlp_seg_fwd": [
-            _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
-            _INT, _VOIDPP, _VOIDPP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
+            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP,
         ],
+        # csrc/mlp_bwd.cu
+        "neddf_mlp_bwd_gpre": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                               _VOIDP],
+        "neddf_mlp_act": [_INT, _INT, _LL, _VOIDP, _VOIDP, _VOIDP],
+        # csrc/sdf_mlp.cu
+        "neddf_sdf_fwd": [
+            _INT, _INT, _INT, _INT, _VOIDP, _VOIDPP, _VOIDPP, _INTP, _VOIDPP,
+            _VOIDP, _VOIDP, _VOIDP,
+        ],
+        "neddf_sdf_sweep_p": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
+        "neddf_sdf_adjoint": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                              _VOIDP],
+        "neddf_sdf_zbar": [_INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                           _VOIDP],
+        "neddf_sdf_act": [_INT, _LL, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
             _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

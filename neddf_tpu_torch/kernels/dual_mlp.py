@@ -383,8 +383,10 @@ _MAX_SPLITS = 64
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
 
 
-class _Bwd:
-    """Launchers of ``csrc/dual_mlp_bwd.cu`` for one backward call."""
+class Products:
+    """Launchers of the hand-written products of ``csrc/dual_mlp_bwd.cu``
+    (``neddf_gemm_f32acc``, ``neddf_sum_splits``) for one backward call;
+    shared by the backwards of ``kernels/mlp.py`` and ``kernels/sdf_mlp.py``."""
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
@@ -422,6 +424,12 @@ class _Bwd:
         r, m = a.shape
         n = g.shape[1]
         return self.gemm(m, n, r, a, 1, a.stride(0), g, g.stride(0), 1)
+
+    def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
+        """a [R, k] (T) times w_rows [k, n] (T) -> [R, n] f32."""
+        r, k = a.shape
+        n = w_rows.shape[1]
+        return self.gemm(r, n, k, a, a.stride(0), 1, w_rows, w_rows.stride(0), 1)
 
 
 def dual_mlp_seg_bwd(
@@ -465,7 +473,7 @@ def dual_mlp_seg_bwd(
     seg_j = _seg_js(js, has_j)
     widths = [v.shape[1] for v in vs]
     c0 = widths[0]
-    k = _Bwd(dtype, device)
+    k = Products(dtype, device)
     act = _ACT_CODES[act_name]
     n_db = -(-m // _DB_ROWS)
 

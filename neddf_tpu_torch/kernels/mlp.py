@@ -1,30 +1,51 @@
-"""Multi-segment value-only MLP forward: CUDA kernel wrapper and plain version.
+"""Multi-segment value-only MLP: CUDA kernel wrappers, their plain
+versions and the autograd op.
 
-``mlp_seg`` is the port of ``neddf_tpu/kernels/mlp.py::mlp_seg``, forward
-only: layer 0 consumes ``concat(vs)`` as split weight rows, every layer is
-dense + activation. For a CUDA tensor it launches ``csrc/mlp_fwd.cu``; for
-a CPU tensor it runs ``mlp_seg_plain`` (concat, matmul, activation). Same
-numerics as ``kernels/dual_mlp.py``: operands in the input dtype, f32
-sums, f32 bias and activations, rounded to the input dtype per layer.
+Port of ``neddf_tpu/kernels/mlp.py::mlp_seg``: layer 0 consumes
+``concat(vs)`` as split weight rows, every layer is dense + activation,
+and a post-skip layer (``layout[l]``) consumes ``[h, seg0]`` (NeRF/NeuS
+order: the hidden rows of W first, then segment 0's).
 
-A post-skip layer (NeRF's ``[h, seg0]`` order) is implemented in the
-plain version only; the CUDA wrapper refuses it.
+* ``mlp_seg`` launches ``csrc/mlp_fwd.cu`` for CUDA tensors: the NeDDF
+  eval colour trunk (tanhExp), the NeRF trunk (ReLU, one post-skip layer)
+  and the NeuS colour trunk (ReLU, a 3-wide last layer, which the wrapper
+  pads to 256 zero columns and slices off). With ``stash=True`` it also
+  returns every layer's pre-activation ``[M, C_l]`` rounded to the
+  compute dtype, as the Pallas forward's stash variant does.
+* ``mlp_seg_bwd`` launches ``csrc/mlp_bwd.cu`` and the hand-written
+  products of ``csrc/dual_mlp_bwd.cu``: the Pallas ``_bwd_kernel`` from
+  the stash, with dW and db summed in a fixed order.
+* ``MLPSeg`` is the ``torch.autograd.Function`` over both: f32 master
+  weights cast to the compute dtype inside, f32 dW/db back.
+
+For a CPU tensor each wrapper runs its plain version (``*_plain``); for a
+CUDA tensor it launches its kernels or raises. There is no fallback.
+
+Numerics (the Pallas kernels' under their matmul dtype T): operands in T,
+products summed in f32, f32 bias and activations, rounded to T between
+layers; the stash is T; the backward rounds gpre = g f'(z) to T before
+both products, recomputes a layer's input as f(T(z)) rounded to T, and
+keeps the cotangent between layers in f32.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.ops.activations import ACTIVATIONS
+from neddf_tpu_torch.kernels.dual_mlp import Products
+from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTHS = (256,)
+_KERNEL_WIDTH = 256
 _KERNEL_MAX_SEGMENTS = 4
-_KERNEL_MAX_LAYERS = 8
+_KERNEL_MAX_LAYERS = 12
+_ACT_CODES = {"tanhExp": 0, "ReLU": 1}
+_SPLIT_HIDDEN_FIRST = 2  # csrc/mlp_tile.cuh kSplitHiddenFirst
+_DB_ROWS = 64  # rows per block of the gpre kernel (one db partial each)
 
 
 def mlp_seg_plain(
@@ -33,69 +54,146 @@ def mlp_seg_plain(
     biases: Sequence[Tensor],
     layout: Sequence[bool],
     act_name: str = "tanhExp",
-) -> Tensor:
+    stash: bool = False,
+):
     """Plain PyTorch version of the kernel (same signature).
 
     Args:
-        vs: input segments, each [M, w_i], one dtype (bf16 or f32).
-        weights: per layer [fan_in, C] in that dtype; biases: [C] f32.
+        vs: input segments, each [M, w_i], one dtype T (bf16 or f32).
+        weights: per layer [fan_in, C_l] in T; biases: [C_l] f32.
         layout: per layer, True if it consumes ``[h, seg0]`` (post-skip).
-        act_name: activation of every layer.
+        act_name: activation of every layer, the last one included.
+        stash: also return the per-layer pre-activations [M, C_l] in T.
 
     Returns:
-        [M, C] in the inputs' dtype.
+        [M, C_last] in T, and the list of stashes when ``stash``.
     """
     mlp_seg_plain.calls += 1
-    f, _ = ACTIVATIONS[act_name]
+    f = ACTIVATION_TRIPLES[act_name][0]
     dtype = vs[0].dtype
-    h = torch.cat(list(vs), dim=-1)
+    seg0 = vs[0].float()
+    h = torch.cat(list(vs), dim=-1).float()
+    pres = []
     for li, (w, b) in enumerate(zip(weights, biases)):
         if li > 0 and layout[li]:
-            h = torch.cat([h, vs[0]], dim=-1)
-        h = f(h.float() @ w.float() + b.float()).to(dtype)
-    return h
+            h = torch.cat([h, seg0], dim=-1)
+        z = h @ w.float() + b.float()
+        if stash:
+            pres.append(z.to(dtype))
+        h = f(z).to(dtype).float()
+    out = h.to(dtype)
+    return (out, pres) if stash else out
 
 
 mlp_seg_plain.calls = 0
 
 
+def mlp_seg_bwd_plain(
+    vs: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    pres: Sequence[Tensor],
+    g: Tensor,
+):
+    """Plain version of ``mlp_seg_bwd`` (``_bwd_kernel:103-182``).
+
+    Args:
+        vs, weights, layout, act_name: as in the forward (weights in T).
+        pres: the forward's stash, per layer [M, C_l] in T.
+        g: [M, C_last] output cotangent.
+
+    Returns:
+        (dvs per segment [M, w_i] in T, dW per layer [fan_in, C_l] f32,
+        db per layer [C_l] f32).
+    """
+    mlp_seg_bwd_plain.calls += 1
+    f, df, _ = ACTIVATION_TRIPLES[act_name]
+    dtype = vs[0].dtype
+    seg0 = vs[0].float()
+    g = g.float()
+    g_skip = None
+    dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dvs: List[Tensor] = []
+    for li in reversed(range(len(weights))):
+        w = weights[li].float()
+        gpre = g * df(pres[li].float())
+        dbs[li] = gpre.sum(dim=0)
+        gq = gpre.to(dtype).float()
+        if li == 0:
+            blocks, off = [], 0
+            for i, v in enumerate(vs):
+                rows = w[off : off + v.shape[1]]
+                off += v.shape[1]
+                d_in = gq @ rows.T
+                if i == 0 and g_skip is not None:
+                    d_in = d_in + g_skip
+                dvs.append(d_in.to(dtype))
+                blocks.append(v.float().T @ gq)
+            dws[0] = torch.cat(blocks, dim=0)
+            continue
+        h_in = f(pres[li - 1].float()).to(dtype).float()
+        c = h_in.shape[1]
+        if layout[li]:
+            skip = gq @ w[c:].T
+            g_skip = skip if g_skip is None else g_skip + skip
+            dws[li] = torch.cat([h_in.T @ gq, seg0.T @ gq], dim=0)
+            g = gq @ w[:c].T
+        else:
+            dws[li] = h_in.T @ gq
+            g = gq @ w.T
+    return dvs, dws, dbs
+
+
+mlp_seg_bwd_plain.calls = 0
+
+
 def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
-    if act_name != "tanhExp":
-        raise NotImplementedError(f"CUDA mlp_seg kernel: activation {act_name!r}")
-    if any(layout):
-        raise NotImplementedError("CUDA mlp_seg kernel: post-skip layers ([h, seg0])")
+    what = "CUDA mlp_seg kernel"
+    if act_name not in _ACT_CODES:
+        raise NotImplementedError(f"{what}: activation {act_name!r}")
     if not 1 <= len(vs) <= _KERNEL_MAX_SEGMENTS:
-        raise ValueError(f"CUDA mlp_seg kernel: {len(vs)} segments")
+        raise ValueError(f"{what}: {len(vs)} segments")
     if not 1 <= len(weights) <= _KERNEL_MAX_LAYERS or len(biases) != len(weights):
-        raise ValueError(f"CUDA mlp_seg kernel: {len(weights)} layers")
-    if len(layout) != len(weights):
-        raise ValueError(f"CUDA mlp_seg kernel: layout {tuple(layout)}")
+        raise ValueError(f"{what}: {len(weights)} layers")
+    if len(layout) != len(weights) or layout[0]:
+        raise ValueError(f"{what}: layout {tuple(layout)}")
     dtype, m = vs[0].dtype, vs[0].shape[0]
     if dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"CUDA mlp_seg kernel: dtype {dtype}")
+        raise TypeError(f"{what}: dtype {dtype}")
     for v in vs:
         if v.dim() != 2 or v.shape[0] != m or v.dtype != dtype:
-            raise ValueError(f"CUDA mlp_seg kernel: segment {tuple(v.shape)} {v.dtype}")
+            raise ValueError(f"{what}: segment {tuple(v.shape)} {v.dtype}")
     width = weights[0].shape[1]
-    if width not in _KERNEL_WIDTHS:
-        raise NotImplementedError(f"CUDA mlp_seg kernel: width {width}")
-    fan_in = sum(v.shape[1] for v in vs)
+    if width != _KERNEL_WIDTH:
+        raise NotImplementedError(f"{what}: width {width}")
+    c0 = vs[0].shape[1]
     for li, (w, b) in enumerate(zip(weights, biases)):
-        if tuple(w.shape) != (fan_in, width) or tuple(b.shape) != (width,):
+        fan_in = sum(v.shape[1] for v in vs) if li == 0 else width + c0 * bool(layout[li])
+        # every layer is 256 wide but the last, which may be narrower
+        out_ok = w.shape[1] == width or (li == len(weights) - 1 and 1 <= w.shape[1] < width)
+        if w.dim() != 2 or w.shape[0] != fan_in or not out_ok or tuple(b.shape) != (w.shape[1],):
             raise ValueError(
-                f"CUDA mlp_seg kernel: layer {li} w {tuple(w.shape)} b {tuple(b.shape)}, "
+                f"{what}: layer {li} w {tuple(w.shape)} b {tuple(b.shape)}, "
                 f"expected ({fan_in}, {width})"
             )
         if w.dtype != dtype or b.dtype != torch.float32:
-            raise TypeError(f"CUDA mlp_seg kernel: layer {li} dtypes {w.dtype}/{b.dtype}")
+            raise TypeError(f"{what}: layer {li} dtypes {w.dtype}/{b.dtype}")
         if w.data_ptr() % 16:
-            raise ValueError(f"CUDA mlp_seg kernel: layer {li} weight not 16-byte aligned")
-        fan_in = width
+            raise ValueError(f"{what}: layer {li} weight not 16-byte aligned")
     for t in (*vs, *weights, *biases):
         if t.device != vs[0].device:
-            raise ValueError("CUDA mlp_seg kernel: tensors on different devices")
+            raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
-            raise ValueError("CUDA mlp_seg kernel: non-contiguous input")
+            raise ValueError(f"{what}: non-contiguous input")
+
+
+def _pad_columns(t: Tensor, width: int) -> Tensor:
+    """[..., n] -> [..., width] with zero columns n.. (exact)."""
+    out = torch.zeros((*t.shape[:-1], width), dtype=t.dtype, device=t.device)
+    out[..., : t.shape[-1]] = t
+    return out
 
 
 def mlp_seg(
@@ -104,31 +202,174 @@ def mlp_seg(
     biases: Sequence[Tensor],
     layout: Sequence[bool],
     act_name: str = "tanhExp",
-) -> Tensor:
+    stash: bool = False,
+):
     """MLP forward: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (see ``mlp_seg_plain`` for the arguments)."""
     device = vs[0].device
     if device.type == "cpu":
-        return mlp_seg_plain(vs, weights, biases, layout, act_name)
+        return mlp_seg_plain(vs, weights, biases, layout, act_name, stash)
     if device.type != "cuda":
         raise ValueError(f"mlp_seg: unsupported device {device}")
     _check_kernel_args(vs, weights, biases, layout, act_name)
-    m = vs[0].shape[0]
-    width = weights[0].shape[1]
-    out = torch.empty((m, width), dtype=vs[0].dtype, device=device)
-    if m == 0:
-        return out
-    lib = _build.library()
-    with torch.cuda.device(device):
-        code = lib.neddf_mlp_seg_fwd(
-            _KERNEL_DTYPES[vs[0].dtype], width, m, len(vs),
-            _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
-            len(weights), _build.pointers(weights), _build.pointers(biases),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check(code, "mlp_seg")
-    mlp_seg.launches += 1
-    return out
+    m, dtype = vs[0].shape[0], vs[0].dtype
+    n_out = weights[-1].shape[1]
+    weights, biases = list(weights), list(biases)
+    if n_out < _KERNEL_WIDTH:
+        weights[-1] = _pad_columns(weights[-1], _KERNEL_WIDTH)
+        biases[-1] = _pad_columns(biases[-1], _KERNEL_WIDTH)
+    out = torch.empty((m, _KERNEL_WIDTH), dtype=dtype, device=device)
+    pres = [torch.empty((m, _KERNEL_WIDTH), dtype=dtype, device=device)
+            for _ in weights] if stash else []
+    if m:
+        lib = _build.library()
+        split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
+        with torch.cuda.device(device):
+            code = lib.neddf_mlp_seg_fwd(
+                _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], _KERNEL_WIDTH, m, len(vs),
+                _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
+                len(weights), _build.pointers(weights), _build.pointers(biases),
+                _build.ints(split), _build.pointers(pres) if stash else None,
+                out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            )
+        _build.check(code, "mlp_seg")
+        mlp_seg.launches += 1
+    if n_out < _KERNEL_WIDTH:
+        out = out[:, :n_out].contiguous()
+        if stash:
+            pres[-1] = pres[-1][:, :n_out].contiguous()
+    return (out, pres) if stash else out
 
 
 mlp_seg.launches = 0
+
+
+def mlp_seg_bwd(
+    vs: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    layout: Sequence[bool],
+    act_name: str,
+    pres: Sequence[Tensor],
+    g: Tensor,
+):
+    """MLP backward: the CUDA kernels for CUDA tensors, the plain version
+    for CPU tensors (see ``mlp_seg_bwd_plain``).
+
+    Per layer, in reverse: ``csrc/mlp_bwd.cu`` forms gpre = g f'(z) from
+    the stash (rounded to T) with per-block db partials and recomputes
+    the layer input f(z_{l-1}); dx = gpre W^T and dW = h_in^T gpre run as
+    the hand-written f32-accumulating products, split into a fixed
+    number of partials summed in a fixed order (bitwise reproducible).
+    """
+    device = vs[0].device
+    if device.type == "cpu":
+        return mlp_seg_bwd_plain(vs, weights, layout, act_name, pres, g)
+    if device.type != "cuda":
+        raise ValueError(f"mlp_seg_bwd: unsupported device {device}")
+    biases = [torch.empty(w.shape[1], device=device) for w in weights]
+    _check_kernel_args(vs, weights, biases, layout, act_name)
+    dtype = vs[0].dtype
+    m = vs[0].shape[0]
+    if len(pres) != len(weights) or tuple(g.shape) != (m, weights[-1].shape[1]) or any(
+            tuple(p.shape) != (m, w.shape[1]) for p, w in zip(pres, weights)):
+        raise ValueError("mlp_seg_bwd: stash/cotangent shapes")
+    for t in pres:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
+            raise ValueError("mlp_seg_bwd: stash dtype, layout or device")
+    k = Products(dtype, device)
+    act = _ACT_CODES[act_name]
+    n_db = -(-m // _DB_ROWS)
+    dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
+    dvs: List[Tensor] = []
+    with torch.cuda.device(device):
+        g = g.float().contiguous()
+        g_skip = None
+        for li in reversed(range(len(weights))):
+            w = weights[li]
+            width = w.shape[1]
+            gs = torch.empty((m, width), dtype=dtype, device=device)
+            db_parts = torch.empty((n_db, width), dtype=torch.float32, device=device)
+            _build.check(k.lib.neddf_mlp_bwd_gpre(
+                k.dt, act, width, m, _DB_ROWS, g.data_ptr(), pres[li].data_ptr(),
+                gs.data_ptr(), db_parts.data_ptr(), k.stream), "mlp_seg_bwd gpre")
+            dbs[li] = torch.empty(width, dtype=torch.float32, device=device)
+            k.sum_splits(db_parts, dbs[li])
+            if li == 0:
+                blocks, off = [], 0
+                for i, v in enumerate(vs):
+                    rows = w[off : off + v.shape[1]]
+                    off += v.shape[1]
+                    d_in = k.nt(gs, rows)
+                    if i == 0 and g_skip is not None:
+                        d_in += g_skip
+                    dvs.append(d_in.to(dtype))
+                    blocks.append(k.tn(v, gs))
+                dws[0] = torch.cat(blocks, dim=0)
+                continue
+            h_in = torch.empty_like(pres[li - 1])
+            _build.check(k.lib.neddf_mlp_act(
+                k.dt, act, h_in.numel(), pres[li - 1].data_ptr(), h_in.data_ptr(),
+                k.stream), "mlp_seg_bwd act")
+            c = h_in.shape[1]
+            if layout[li]:
+                skip = k.nt(gs, w[c:])
+                g_skip = skip if g_skip is None else g_skip + skip
+                dws[li] = torch.cat([k.tn(h_in, gs), k.tn(vs[0], gs)], dim=0)
+                g = k.nt(gs, w[:c])
+            else:
+                dws[li] = k.tn(h_in, gs)
+                g = k.nt(gs, w)
+    mlp_seg_bwd.launches += 1
+    return dvs, dws, dbs
+
+
+mlp_seg_bwd.launches = 0
+
+
+class MLPSeg(torch.autograd.Function):
+    """``mlp_seg`` with its hand-written backward (``_mlp_fwd`` /
+    ``_mlp_bwd:331-352``).
+
+    ``apply(config, *vs, *weights, *biases)`` with ``config = (layout,
+    act_name, compute_dtype, use_kernels)``. ``weights``/``biases`` are
+    the f32 master parameters: the weights are cast to ``compute_dtype``
+    inside, dW and db come back in f32. ``use_kernels=False`` runs the
+    plain versions on any device; ``True`` lets the wrappers choose by
+    device (kernels on CUDA). Returns [M, C_last] in the compute dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, config, *args):
+        layout, act_name, cd, use_kernels = config
+        n_l = len(layout)
+        n_seg = len(args) - 2 * n_l
+        vs = args[:n_seg]
+        weights = [w.to(cd).contiguous() for w in args[n_seg : n_seg + n_l]]
+        biases = [b.float().contiguous() for b in args[n_seg + n_l :]]
+        fwd = mlp_seg if use_kernels else mlp_seg_plain
+        if not any(ctx.needs_input_grad[1:]):
+            return fwd(vs, weights, biases, layout, act_name)
+        out, pres = fwd(vs, weights, biases, layout, act_name, stash=True)
+        ctx.config = config
+        ctx.n_seg = n_seg
+        ctx.save_for_backward(*vs, *weights, *pres)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        layout, act_name, cd, use_kernels = ctx.config
+        saved = ctx.saved_tensors
+        n_seg, n_l = ctx.n_seg, len(layout)
+        vs = saved[:n_seg]
+        weights = saved[n_seg : n_seg + n_l]
+        pres = saved[n_seg + n_l :]
+        bwd = mlp_seg_bwd if use_kernels else mlp_seg_bwd_plain
+        dvs, dws, dbs = bwd(vs, weights, layout, act_name, pres, g.to(cd).contiguous())
+        return (None, *dvs, *dws, *dbs)
+
+
+def mlp_apply(vs, weights, biases, layout, act_name, compute_dtype, use_kernels):
+    """Differentiable ``mlp_seg`` (see ``MLPSeg``)."""
+    config = (tuple(layout), act_name, compute_dtype, use_kernels)
+    return MLPSeg.apply(config, *vs, *weights, *biases)

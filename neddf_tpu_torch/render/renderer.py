@@ -1,12 +1,17 @@
 """Volume renderer: stratified coarse + inverse-CDF fine.
 
-Counterpart of ``neddf_tpu/render/renderer.py::render_rays``,
-``render_image`` and ``render_field_slice`` for the NeDDF configs: cone
-sampling (radius 1/1111/sqrt(12)) and ONE network shared by the coarse
-and fine passes. Per ray, the coarse pass takes ``sample_coarse + 1``
-stratified distances, the fine pass ``sample_fine + 1`` inverse-CDF
-draws sorted together with the coarse distances. As in the JAX package
-(``renderer.py:168-192``) the fine distances and both passes' interval
+Counterpart of ``neddf_tpu/render/renderer.py::render_rays:113-201``,
+``render_image`` and ``render_field_slice`` (without NDC, occupancy
+culling or ray culling). Per ray, the coarse pass takes ``sample_coarse +
+1`` stratified distances, the fine pass ``sample_fine + 1`` inverse-CDF
+draws sorted together with the coarse distances. Samples are points
+(``sampling_type="point"``, zero variance) or cone frustums (``"cone"``,
+radius 1/1111/sqrt(12)). ``use_coarse_network=True`` gives the coarse
+pass a network of its own (``network_coarse``, the NeRF configs);
+otherwise the fine network serves both passes (the NeDDF and NeuS
+configs). Every field output whose key contains ``penalty`` is
+integrated over the interval lengths (``:171-175``). As in the JAX
+package (``:168-192``) the fine distances and both passes' interval
 lengths carry no gradient: no gradient flows from the fine pass back
 through the inverse CDF into the coarse weights.
 
@@ -25,7 +30,12 @@ from torch import nn
 
 from neddf_tpu_torch import config as config_lib
 from neddf_tpu_torch.geometry.camera import PinholeCalib, create_rays
-from neddf_tpu_torch.geometry.rays import Sampling, get_sampling_cones
+from neddf_tpu_torch.geometry.rays import (
+    Rays,
+    Sampling,
+    get_sampling_cones,
+    get_sampling_points,
+)
 from neddf_tpu_torch.ops.compositing import integrate_volume_render
 from neddf_tpu_torch.ops.sampling import sample_pdf, stratified_dists
 from neddf_tpu_torch.utils.colormap import apply_jet
@@ -51,21 +61,27 @@ class NeRFRender(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if use_coarse_network:
-            raise NotImplementedError("a separate coarse network is not ported")
-        if sampling_type != "cone":
-            raise NotImplementedError(f"sampling_type {sampling_type!r} is not ported")
+        if sampling_type not in ("point", "cone"):
+            raise ValueError(f"unknown sampling_type {sampling_type!r}")
         self.network_fine = config_lib.instantiate(network_config, generator=generator)
+        self.use_coarse_network = bool(use_coarse_network)
+        if self.use_coarse_network:
+            self.network_coarse = config_lib.instantiate(network_config, generator=generator)
+        self.sampling_type = sampling_type
         self.sample_coarse = sample_coarse
         self.sample_fine = sample_fine
         self.dist_near = dist_near
         self.dist_far = dist_far
         self.max_dist = max_dist
 
-    @property
-    def network_coarse(self) -> nn.Module:
-        """The coarse pass shares the fine network."""
-        return self.network_fine
+    def coarse_network(self) -> nn.Module:
+        """The coarse pass's network: its own, or the fine one."""
+        return self.network_coarse if self.use_coarse_network else self.network_fine
+
+    def _make_sampling(self, rays: Rays, dists: Tensor) -> Sampling:
+        if self.sampling_type == "point":
+            return get_sampling_points(rays, dists)
+        return get_sampling_cones(rays, dists, _CONE_RAY_RADIUS)
 
     def render_rays(
         self,
@@ -85,27 +101,26 @@ class NeRFRender(nn.Module):
         fine pass's integrals plus ``*_coarse`` copies of the coarse ones.
         """
         rays = create_rays(calib, pose_r, pose_t, uv)
-        net = self.network_fine
-        sched = net.schedule(iteration)
 
-        def one_pass(dists: Tensor) -> Dict[str, Tensor]:
-            values = net(get_sampling_cones(rays, dists, _CONE_RAY_RADIUS), sched,
+        def one_pass(net: nn.Module, dists: Tensor) -> Dict[str, Tensor]:
+            values = net(self._make_sampling(rays, dists), net.schedule(iteration),
                          need_aux=need_aux)
             out = integrate_volume_render(
                 dists, values["density"], values["color"], self.max_dist
             )
             delta = (dists[:, 1:] - dists[:, :-1]).detach()
-            out["fields_penalty"] = torch.sum(
-                delta * values["fields_penalty"][:, :-1], dim=1
-            )
+            for k, v in values.items():
+                if "penalty" in k:
+                    out[k] = torch.sum(delta * v.reshape(uv.shape[0], -1)[:, :-1], dim=1)
             return out
 
         dists_coarse = stratified_dists(
             u_strat, self.sample_coarse, self.dist_near, self.dist_far
         )
-        coarse = one_pass(dists_coarse)
+        coarse = one_pass(self.coarse_network(), dists_coarse)
         # no gradient through the inverse CDF (stop_gradient in the JAX renderer)
-        integrate = one_pass(sample_pdf(dists_coarse.detach(), coarse["weight"].detach(), u_pdf))
+        integrate = one_pass(self.network_fine, sample_pdf(
+            dists_coarse.detach(), coarse["weight"].detach(), u_pdf))
         for k, v in coarse.items():
             integrate[f"{k}_coarse"] = v
         return integrate
@@ -166,8 +181,9 @@ class NeRFRender(nn.Module):
         render_resolution: int = 128,
     ) -> Dict[str, np.ndarray]:
         """XY slice images of the fine field at z = ``slice_t`` (eval
-        schedule): per-field scales, JET for one-channel fields
-        (``neddf_tpu/render/renderer.py::render_field_slice:514``).
+        schedule): per-field scales, a mid-gray offset for the signed
+        ``sdf``, JET for one-channel fields
+        (``neddf_tpu/render/renderer.py::render_field_slice:514-560``).
         Returns uint8 BGR images [res, res, 3] by field name."""
         device = next(self.network_fine.parameters()).device
         res = render_resolution
@@ -184,11 +200,13 @@ class NeRFRender(nn.Module):
         net = self.network_fine
         values = net(sampling, net.schedule(-1), need_aux=False)
         scales = {"distance": 256.0, "density": 12.8, "color": 256.0, "aux_grad": 256.0}
+        offsets = {"sdf": (128.0, 128.0)}  # signed: around mid-gray
         fields: Dict[str, np.ndarray] = {}
         for name, value in values.items():
-            if name not in scales:
+            if name not in scales and name not in offsets:
                 continue
-            img = scales[name] * value.float().cpu().numpy().reshape(res, res, -1)
+            off, scale = offsets.get(name, (0.0, scales.get(name)))
+            img = off + scale * value.float().cpu().numpy().reshape(res, res, -1)
             img = img.clip(0, 255).astype(np.uint8)
             fields[name] = apply_jet(img[:, :, 0]) if img.shape[2] == 1 else img
         return fields

@@ -79,7 +79,9 @@ def resolve_device(device: str) -> torch.device:
 
 
 class NeRFTrainer:
-    """NeDDF trainer (reference: nerf_trainer.py, base_trainer.py)."""
+    """Trainer of every field family (reference: nerf_trainer.py,
+    base_trainer.py): Adam over all of the renderer's parameters (both
+    networks of a NeRF config, NeuS's ``variance``)."""
 
     def __init__(
         self,

@@ -219,8 +219,11 @@ def test_mlp_kernel_checks_refuse_post_skip_and_accept_the_eval_trunk():
     ws = [torch.zeros((343, 256)), torch.zeros((256, 256)), torch.zeros((256, 256))]
     bs = [torch.zeros(256)] * 3
     tmlp._check_kernel_args(vs, ws, bs, (False,) * 3, "tanhExp")
-    with pytest.raises(NotImplementedError):
+    # a post-skip layer ([h, seg0]) needs the 60 skip rows in its weight
+    with pytest.raises(ValueError):
         tmlp._check_kernel_args(vs, ws, bs, (False, True, False), "tanhExp")
+    tmlp._check_kernel_args(vs, [ws[0], torch.zeros((316, 256)), ws[2]], bs,
+                            (False, True, False), "tanhExp")
     v0, j0, tws, tbs, layout = _kernel_trunk_args()
     tdual_mlp._check_kernel_args(v0, j0, tws, tbs, layout, "tanhExp")
 
