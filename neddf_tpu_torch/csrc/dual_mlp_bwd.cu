@@ -14,9 +14,11 @@
 //   f32 partial of db = sum_rows G_v per block of rows;
 // * neddf_dual_act: the layer's input h_in = (f(z_v), f'(z_v) z_a)
 //   recomputed from the stash of layer l-1, rounded to T;
-// * neddf_gemm_f32acc twice: dx = G W^T and dW = h_in^T G (for layer 0
-//   and a post-skip layer, per input block of rows of W);
+// * two products: dx = G W^T and dW = h_in^T G (for layer 0 and a
+//   post-skip layer, per input block of rows of W): neddf_gemm_bf16_tc
+//   (tensor cores) for bf16 operands, neddf_gemm_f32acc (FMA) for f32;
 // * neddf_sum_splits: the fixed-order sum of the dW / db partials.
+// The same products serve the backwards of mlp_bwd.cu and sdf_mlp.cu.
 //
 // Determinism. The Pallas kernel accumulates dW/db across its sequential
 // TPU grid; blocks here run concurrently, so every cross-block reduction
@@ -25,14 +27,26 @@
 //
 // What bounds it on the H100: the two products per layer are
 // 2 * S*M * C * fan_in FLOPs each (about 0.1 TFLOP per trunk layer at
-// the training batch), done here as a plain tiled FMA product on the
-// CUDA cores (64x64 output tile, 4x4 per thread, f32 accumulators,
-// operands converted from T in shared memory): bound by the CUDA cores'
-// FMA rate and shared-memory loads. The elementwise kernels move
-// ~(3 * 4 + 4 * 2) bytes per stacked element in bf16 and are bound by
-// device memory. Tensor-core (mma.sync / wgmma) products are the next
-// step.
+// the training batch). In bf16 they run on the tensor cores
+// (tc_gemm_kernel): a 128x128 output tile per block of 8 warps, each warp
+// 64x32 as 4x4 mma.sync m16n8k16 tiles with f32 accumulators in
+// registers; both operands stream through a ring of 3 shared-memory
+// stages of depth 64 filled by cp.async, so the copy of stage k+2
+// overlaps the products of stage k; rows padded by 16 bytes keep
+// ldmatrix (.trans for an operand whose M or N side is contiguous) free
+// of bank conflicts. dx (M = S*M rows, N = fan-in, K = C) then writes
+// 4 bytes of f32 per output against 2*K FLOPs: about 130 FLOP per byte,
+// below the 295 at which the tensor cores, and not device memory, are
+// the limit, so its tile leaves through shared memory in coalesced
+// streaming stores. dW reduces over S*M rows in fixed-order split
+// partials.
+// The elementwise kernels (gstack, dual_act, sum_splits) and the f32
+// round trip of g move ~(3 * 4 + 4 * 2) bytes per stacked element and are
+// bound by device memory; with the products on the tensor cores they
+// take most of the backward (fusing gstack into the product is next).
+// f32 operands keep the FMA product (gemm_kernel, CUDA cores).
 #include "mlp_tile.cuh"
+#include "tc_ops.cuh"
 
 namespace {
 
@@ -96,12 +110,12 @@ constexpr int kDepth = 16;
 constexpr int kGemmThreads = 256;
 
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n), with
-// A(m, k) = A[m*sam + k*sak] and B(k, n) = B[k*sbk + n*sbn] (type T),
-// f32 accumulators. Loads follow the unit stride of each operand.
-template <typename T>
+// A(m, k) = A[m*sam + k*sak] and B(k, n) = B[k*sbk + n*sbn] (f32; bf16
+// operands go to tc_gemm_kernel), f32 accumulators. Loads follow the
+// unit stride of each operand.
 __global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(int M, int N, int K, int k_chunk, const T* __restrict__ A,
-                long long sam, long long sak, const T* __restrict__ B,
+    gemm_kernel(int M, int N, int K, int k_chunk, const float* __restrict__ A,
+                long long sam, long long sak, const float* __restrict__ B,
                 long long sbk, long long sbn, float* __restrict__ out) {
   __shared__ float As[kDepth][kTile + 1];
   __shared__ float Bs[kDepth][kTile + 1];
@@ -162,6 +176,218 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
+// ---- the bf16 product on the tensor cores
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcBM = 128;  // output rows per block
+constexpr int kTcBN = 128;  // output columns per block
+constexpr int kTcBK = 64;   // depth of one stage
+constexpr int kTcStages = 3;
+constexpr int kTcThreads = 256;
+// shared tiles: [rows][64] when K is the operand's contiguous side,
+// [64][128] when M (or N) is; rows padded by 8 elements (16 bytes)
+constexpr int kPitchK = kTcBK + 8;
+constexpr int kPitchMN = kTcBM + 8;
+constexpr int kTcOpElems = kTcBM * kPitchK;  // >= kTcBK * kPitchMN
+constexpr int kTcSmem = 2 * kTcStages * kTcOpElems * (int)sizeof(bf16);
+static_assert(kTcBK * kPitchMN <= kTcOpElems, "stage size");
+
+// one operand: element (outer o, inner i) at p[o * ld + i], the inner
+// side contiguous, copied `vec` elements (2*vec bytes) at a time
+struct TcOperand {
+  const bf16* p;
+  long long ld;
+  int vec;
+};
+
+// the OUTER x INNER tile at (o0, i0) into shared s (row pitch P), zeros
+// past (olim, ilim)
+template <int OUTER, int INNER, int P, int V>
+__device__ __forceinline__ void tc_copy_tile(bf16* s, const TcOperand& op, int o0, int olim,
+                                             int i0, int ilim, int tid) {
+  constexpr int CPR = INNER / V;
+#pragma unroll 1
+  for (int idx = tid; idx < OUTER * CPR; idx += kTcThreads) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * V;
+    const int go = o0 + r, gi = i0 + c;
+    const int valid = go < olim ? max(0, min(V, ilim - gi)) : 0;
+    const bf16* src = valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p;
+    if constexpr (V == 1) {
+      s[r * P + c] = valid > 0 ? *src : __float2bfloat16_rn(0.f);
+    } else {
+      neddf::cp_async<2 * V>(neddf::smem_u32(s + r * P + c), src, 2 * valid);
+    }
+  }
+}
+
+template <int OUTER, int INNER, int P>
+__device__ __forceinline__ void tc_load_tile(bf16* s, const TcOperand& op, int o0, int olim,
+                                             int i0, int ilim, int tid) {
+  switch (op.vec) {
+    case 8: tc_copy_tile<OUTER, INNER, P, 8>(s, op, o0, olim, i0, ilim, tid); break;
+    case 4: tc_copy_tile<OUTER, INNER, P, 4>(s, op, o0, olim, i0, ilim, tid); break;
+    case 2: tc_copy_tile<OUTER, INNER, P, 2>(s, op, o0, olim, i0, ilim, tid); break;
+    default: tc_copy_tile<OUTER, INNER, P, 1>(s, op, o0, olim, i0, ilim, tid);
+  }
+}
+
+// out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
+// [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
+// with K contiguous (else [K, N], N contiguous).
+template <bool A_K, bool B_K>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    tc_gemm_kernel(int M, int N, int K, int k_chunk, const TcOperand A, const TcOperand B,
+                   float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* sA = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sB = sA + kTcStages * kTcOpElems;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 2) * 64;  // 2 x 4 warps of 64 rows x 32 columns
+  const int wn = (warp & 3) * 32;
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  const int kb = blockIdx.z * k_chunk;
+  const int ke = min(K, kb + k_chunk);
+  const int nk = ke > kb ? (ke - kb + kTcBK - 1) / kTcBK : 0;
+
+  auto load = [&](int t) {
+    const int k0 = kb + t * kTcBK;
+    bf16* a = sA + (t % kTcStages) * kTcOpElems;
+    bf16* b = sB + (t % kTcStages) * kTcOpElems;
+    if constexpr (A_K) {
+      tc_load_tile<kTcBM, kTcBK, kPitchK>(a, A, m0, M, k0, ke, tid);
+    } else {
+      tc_load_tile<kTcBK, kTcBM, kPitchMN>(a, A, k0, ke, m0, M, tid);
+    }
+    if constexpr (B_K) {
+      tc_load_tile<kTcBN, kTcBK, kPitchK>(b, B, n0, N, k0, ke, tid);
+    } else {
+      tc_load_tile<kTcBK, kTcBN, kPitchMN>(b, B, k0, ke, n0, N, tid);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nk) load(s);
+    neddf::cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    neddf::cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // stage t has landed; stage t-1 is free for refill
+    if (t + kTcStages - 1 < nk) load(t + kTcStages - 1);
+    neddf::cp_async_commit();
+    const bf16* a = sA + (t % kTcStages) * kTcOpElems;
+    const bf16* b = sB + (t % kTcStages) * kTcOpElems;
+    const int k_left = ke - (kb + t * kTcBK);  // zeros past it: skip their mma
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      if (kk >= k_left) break;
+      // the warp's B fragments first (8 registers), then one A fragment
+      // at a time (4): fewer live registers than all of A first
+      uint32_t bfr[2][4];  // [nj]: b0, b1 of column tile 2nj, then of 2nj+1
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        const int n = wn + nj * 16;
+        if constexpr (B_K) {
+          neddf::ldsm_x4(bfr[nj], neddf::smem_u32(
+              b + (n + (lane & 7) + (lane >> 4) * 8) * kPitchK + kk + ((lane >> 3) & 1) * 8));
+        } else {
+          neddf::ldsm_x4_t(bfr[nj], neddf::smem_u32(
+              b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitchMN + n + (lane >> 4) * 8));
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int m = wm + mi * 16;
+        uint32_t af[4];
+        if constexpr (A_K) {
+          neddf::ldsm_x4(af, neddf::smem_u32(
+              a + (m + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitchK + kk + (lane >> 4) * 8));
+        } else {
+          neddf::ldsm_x4_t(af, neddf::smem_u32(
+              a + (kk + (lane & 7) + (lane >> 4) * 8) * kPitchMN + m + ((lane >> 3) & 1) * 8));
+        }
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          neddf::mma_bf16_16816(acc[mi][2 * nj], af, bfr[nj][0], bfr[nj][1]);
+          neddf::mma_bf16_16816(acc[mi][2 * nj + 1], af, bfr[nj][2], bfr[nj][3]);
+        }
+      }
+    }
+  }
+  neddf::cp_async_wait<0>();
+
+  float* o = out + (size_t)blockIdx.z * M * N;
+  const int g = lane >> 2, tq = lane & 3;
+  if constexpr (A_K && B_K) {
+    // dx (nt, N of a whole tile or more): its f32 output is most of the
+    // bytes, so the tile goes through the free ring in shared memory and
+    // out in coalesced 16-byte rows, streaming (nothing reads it again
+    // here); the other layouts keep their partials in L2 for the split sum
+    if (N >= kTcBN && (N & 3) == 0) {
+      constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
+      static_assert(kTcBM * kOP * (int)sizeof(float) <= kTcSmem, "staged tile");
+      float* so = reinterpret_cast<float*>(tc_smem);
+      __syncthreads();  // every warp is done with the ring
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(so + (wm + mi * 16 + g + 8 * hh) * kOP + wn + ni * 8 +
+                                       2 * tq) =
+                make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      __syncthreads();
+      for (int idx = tid; idx < kTcBM * (kTcBN / 4); idx += kTcThreads) {
+        const int r = idx / (kTcBN / 4);
+        const int c = (idx - r * (kTcBN / 4)) * 4;
+        if (m0 + r >= M || n0 + c >= N) continue;
+        __stcs(reinterpret_cast<float4*>(o + (size_t)(m0 + r) * N + n0 + c),
+               *reinterpret_cast<const float4*>(so + r * kOP + c));
+      }
+      return;
+    }
+  }
+  const bool pairs = (N & 1) == 0;  // then (r*N + c) is even: 8-byte stores
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + wm + mi * 16 + g + 8 * hh;
+        const int c = n0 + wn + ni * 8 + 2 * tq;
+        if (r >= M || c >= N) continue;
+        float* p = o + (size_t)r * N + c;
+        if (pairs) {
+          *reinterpret_cast<float2*>(p) = make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+        } else {
+          p[0] = acc[mi][ni][2 * hh];
+          if (c + 1 < N) p[1] = acc[mi][ni][2 * hh + 1];
+        }
+      }
+}
+
+template <bool A_K, bool B_K>
+cudaError_t launch_tc_gemm(dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
+                           const TcOperand& a, const TcOperand& b, float* out) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      tc_gemm_kernel<A_K, B_K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return err;
+  tc_gemm_kernel<A_K, B_K><<<grid, kTcThreads, kTcSmem, s>>>(M, N, K, k_chunk, a, b, out);
+  return cudaGetLastError();
+}
+
 __global__ void sum_splits_kernel(long long n, int splits,
                                   const float* __restrict__ parts,
                                   float* __restrict__ out) {
@@ -213,10 +439,11 @@ extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
   return (int)cudaGetLastError();
 }
 
-extern "C" int neddf_gemm_f32acc(int dtype, int M, int N, int K, const void* A,
-                                 long long sam, long long sak, const void* B,
-                                 long long sbk, long long sbn, int splits,
-                                 void* out, void* stream) {
+// The f32 product (FMA), out[z] = A B over split z of K; bf16 products
+// run on the tensor cores (neddf_gemm_bf16_tc).
+extern "C" int neddf_gemm_f32acc(int M, int N, int K, const void* A, long long sam,
+                                 long long sak, const void* B, long long sbk, long long sbn,
+                                 int splits, void* out, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -224,16 +451,46 @@ extern "C" int neddf_gemm_f32acc(int dtype, int M, int N, int K, const void* A,
   k_chunk = (k_chunk + kDepth - 1) / kDepth * kDepth;
   const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  float* o = static_cast<float*>(out);
-  if (dtype == 1)
-    gemm_kernel<__nv_bfloat16><<<grid, kGemmThreads, 0, s>>>(
-        M, N, K, k_chunk, static_cast<const __nv_bfloat16*>(A), sam, sak,
-        static_cast<const __nv_bfloat16*>(B), sbk, sbn, o);
-  else
-    gemm_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-        M, N, K, k_chunk, static_cast<const float*>(A), sam, sak,
-        static_cast<const float*>(B), sbk, sbn, o);
+  gemm_kernel<<<grid, kGemmThreads, 0, s>>>(
+      M, N, K, k_chunk, static_cast<const float*>(A), sam, sak,
+      static_cast<const float*>(B), sbk, sbn, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// The bf16 product on the tensor cores, out[z] = A B over split z of K
+// (f32 partials [splits, M, N]). layout 0 (nt): A [M, K] and B [N, K],
+// K contiguous in both; 1 (tn): A [K, M] and B [K, N]; 2 (nn): A [M, K]
+// and B [K, N]. lda / ldb: elements between rows; vec_a / vec_b: elements
+// per copy (8, 4, 2 or 1), which the row stride and the pointer must
+// allow. Any other layout, or a misaligned vector width, is refused.
+extern "C" int neddf_gemm_bf16_tc(int layout, int M, int N, int K, const void* A,
+                                  long long lda, int vec_a, const void* B, long long ldb,
+                                  int vec_b, int splits, void* out, void* stream) {
+  if (layout < 0 || layout > 2 || M <= 0 || N <= 0 || K <= 0 || splits < 1 ||
+      splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto misaligned = [](const void* ptr, long long ld, int vec) {
+    return (vec != 1 && vec != 2 && vec != 4 && vec != 8) || ld < 1 || ld % vec != 0 ||
+           reinterpret_cast<uintptr_t>(ptr) % (2 * vec) != 0;
+  };
+  if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b))
+    return (int)cudaErrorInvalidValue;
+  int k_chunk = (K + splits - 1) / splits;
+  k_chunk = (k_chunk + kTcBK - 1) / kTcBK * kTcBK;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const TcOperand a{static_cast<const bf16*>(A), lda, vec_a};
+  const TcOperand b{static_cast<const bf16*>(B), ldb, vec_b};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  cudaError_t err;
+  if (layout == 0)
+    err = launch_tc_gemm<true, true>(grid, s, M, N, K, k_chunk, a, b, o);
+  else if (layout == 1)
+    err = launch_tc_gemm<false, false>(grid, s, M, N, K, k_chunk, a, b, o);
+  else
+    err = launch_tc_gemm<true, false>(grid, s, M, N, K, k_chunk, a, b, o);
+  return (int)err;
 }
 
 extern "C" int neddf_sum_splits(long long n, int splits, const void* parts,

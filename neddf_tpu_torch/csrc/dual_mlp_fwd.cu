@@ -13,8 +13,16 @@
 // the last, no post-skip layer) is the K=1 instantiation of the same
 // tile kernel. Under a differentiated call the kernel also writes each
 // layer's pre-activation stack (the Pallas forward's stash,
-// dual_mlp.py:570-580) for csrc/dual_mlp_bwd.cu. Bound and design: see
-// mlp_tile.cuh.
+// dual_mlp.py:570-580) for csrc/dual_mlp_bwd.cu.
+//
+// What bounds it on the H100, and the design (mlp_tile.cuh): in bf16 the
+// layers' products run on the tensor cores (mma.sync, weights through a
+// cp.async ring), so the training trunk with its stash, which writes
+// 2*C bytes per stacked row and layer (about 1.6 GB per step for the
+// fine trunk), is held by those stash bytes and the epilogue's
+// activations rather than by the products; the eval trunk (no stash) by
+// the products and the epilogue. In f32 it keeps the FMA body, bound by
+// the CUDA cores' 67 TFLOP/s.
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;

@@ -19,7 +19,8 @@
 // Under a differentiated call (stash != null) every layer's
 // pre-activation [M, C] is written rounded to T for the backward
 // (mlp_bwd.cu), as the Pallas forward's stash variant does. Bound and
-// design: see mlp_tile.cuh.
+// design: see mlp_tile.cuh (bf16 on the tensor cores, f32 on the FMA
+// body).
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;

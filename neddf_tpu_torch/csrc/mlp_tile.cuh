@@ -3,16 +3,19 @@
 // (mlp_bwd.cu, dual_mlp_bwd.cu, sdf_mlp.cu). Built by neddf_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 //
-// One block owns a tile of samples and runs EVERY layer of the MLP on it
-// without writing an activation to device memory, as the Pallas kernels
-// it replaces keep a row tile in VMEM across the layers:
+// Replaces the row tile of the Pallas forwards neddf_tpu/kernels/
+// dual_mlp.py::_fwd_kernel and neddf_tpu/kernels/mlp.py::_fwd_kernel (and
+// the trunk part of sdf_mlp.py::_fwd_kernel). One block owns a tile of
+// samples and runs EVERY layer of the MLP on it without writing an
+// activation to device memory, as the Pallas kernels keep a row tile in
+// VMEM across the layers:
 //
 // * the block stacks S = K+1 streams (the values and K tangent planes)
 //   as kRows = S*TM rows, stream-major: row st*TM + i is stream st of
 //   sample i. K=3 is the NeDDF distance trunk (d/dxyz planes), K=1 the
 //   colour trunk's directional tangent (training), K=0 the value-only
-//   colour trunk (eval). A segment without tangents stages zeros in its
-//   tangent rows.
+//   trunks (eval colour, NeRF, NeuS). A segment without tangents stages
+//   zeros in its tangent rows.
 // * optionally (stash[l] != null) each layer's pre-activation stack
 //   [S, M, C] (z with the bias on the value rows, before the activation)
 //   is written rounded to T, for the backward (dual_mlp_bwd.cu).
@@ -22,40 +25,70 @@
 //   0 again from x0 and the hidden state from h, in either order:
 //   kSplitSegFirst ([seg0, h], NeDDF) or kSplitHiddenFirst ([h, seg0],
 //   NeRF/NeuS), each piece against its own rows of W.
-// * the hidden state h [kRows, C] lives in shared memory; weights stream
-//   through shared memory kKTile rows at a time. Each thread keeps its
-//   output sub-tile (SPT samples x S streams x 16 columns) in registers
-//   for the whole K-loop, then all threads sync and write f(z) for the
-//   value rows and f'(z_value) * z_tangent for the tangent rows back over
-//   h, rounded to the storage type T (bf16 or f32).
-// * the activation is a template parameter: tanhExp (kTanhExp) or ReLU
+// * the hidden state h [kRows, C] lives in shared memory and is written
+//   back after each layer as f(z) on the value rows and f'(z_value) *
+//   z_tangent on the tangent rows, rounded to the storage type T; the
+//   activation is a template parameter: tanhExp (kTanhExp) or ReLU
 //   (kReLU, with f'(0) = 0 as neddf_tpu/kernels/dual_mlp.py::_act_fns
-//   defines it).
-// * arithmetic is plain FMA in f32 on the CUDA cores: operands are T
-//   converted to f32, sums and activations are f32, the bias (f32) seeds
-//   the value accumulators only.
+//   defines it). Sums and activations are f32; the f32 bias is added to
+//   the value rows only.
+//
+// Two bodies, chosen by T:
+//
+// * bf16 (tile_forward_tc): each layer's product [kRows x fan_in] x
+//   [fan_in x C] runs on the tensor cores, mma.sync m16n8k16 with f32
+//   accumulators in registers: 128 per thread, so the block has 8 warps
+//   (256 threads, up to 255 registers each; 512 threads would leave 64
+//   registers beside the accumulators, and spill). Each warp owns one
+//   sample slice (16 samples, 32 for K=0) of EVERY stream and a band of
+//   columns, so the value and the tangents of one sample and column sit
+//   in the same thread and the epilogue f'(z_v) * z_t needs no exchange.
+//   x0 is staged in 16- or 8-byte loads where a segment's rows allow
+//   them. A operands come from x0 / h
+//   by ldmatrix (rows padded by 16 bytes: no bank conflicts), B from a
+//   ring of 3 weight tiles of 32 rows filled by cp.async, walked as one
+//   schedule across pieces and layers, so the copy of the next tiles
+//   (the next layer's too) overlaps the products. A fan-in that is not a
+//   multiple of 32 (60, 343, 256+60) reads zero-padded x0 columns against
+//   weight rows zero-filled in shared memory past the piece; no padded
+//   weight exists in device memory.
+// * f32 (tile_forward_fma): plain FMA on the CUDA cores, weights through
+//   shared memory kKTile rows at a time, each thread an output sub-tile
+//   (SPT samples x S streams x 16 columns) in registers. f32 keeps this
+//   body: its gates hold f32 to 1e-4, which TF32 products would not.
 //
 // What bounds it on the H100: at C = 256 a stacked row costs
 // 2*C*fan_in FLOPs per layer against 2*(C0 + C) bytes of input and output
-// per sample stream, i.e. over a thousand FLOPs per byte of device
-// memory: the kernel is bound by the FMA issue rate (67 TFLOP/s of f32 on
-// the CUDA cores at 700 W) and by shared-memory loads (one 4-column weight
-// vector and one activation per 4 FMAs of each accumulator group). The
-// tensor cores (wgmma / mma.sync on bf16) are the next step.
+// per sample stream, i.e. over a thousand FLOPs per byte without a stash:
+// in bf16 the tensor cores' rate (989 TFLOP/s) is the bound, with the
+// stash (2*C bytes per stacked row and layer) the bytes come within a
+// factor of a few of it. The kernel runs far from both: per layer each
+// block waits on one barrier per 32 weight rows, its epilogue (tanhExp:
+// two transcendentals per value element, the stash's 4-byte stores) does
+// not overlap the products, and one block of 8 warps per SM hides little
+// latency. In f32 the bound is the FMA issue rate (67 TFLOP/s at 700 W).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "tc_ops.cuh"
+
 namespace neddf {
 
 constexpr int kMaxSeg = 4;
 constexpr int kMaxLayers = 12;
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;        // threads of a block (FMA body)
+constexpr int kTcTileThreads = 256;  // threads of a block (tensor-core body)
 constexpr int kRows = 128;      // stacked rows (streams x samples) per block
-constexpr int kColGroups = 16;  // threads across the output columns
-constexpr int kKTile = 16;      // weight rows staged per step
+constexpr int kColGroups = 16;  // threads across the output columns (FMA body)
+constexpr int kKTile = 16;      // weight rows staged per step (FMA body)
+constexpr int kTcKTile = 32;    // weight rows per ring stage (tensor-core body)
+constexpr int kTcWStages = 3;   // weight ring stages (tensor-core body)
+constexpr int kTcPad = 8;       // elements (16 bytes) of row padding in shared memory
 
 // post-skip layer inputs (TileArgs::split)
 constexpr int kSplitSegFirst = 1;     // [seg0, h]
@@ -178,25 +211,391 @@ __host__ __device__ inline bool has_split(const TileArgs& a) {
   return false;
 }
 
+// the layer's input pieces: (from x0 or h, width, first weight row)
+__host__ __device__ __forceinline__ int layer_pieces(const TileArgs& a, int l, int C,
+                                                     bool from_x0[2], int width[2],
+                                                     int wrow[2]) {
+  const int w0 = a.seg_w[0];
+  if (l == 0) {
+    from_x0[0] = true; width[0] = x0_width(a); wrow[0] = 0;
+    return 1;
+  }
+  if (a.split[l] == kSplitSegFirst) {
+    from_x0[0] = true; width[0] = w0; wrow[0] = 0;
+    from_x0[1] = false; width[1] = C; wrow[1] = w0;
+    return 2;
+  }
+  if (a.split[l] == kSplitHiddenFirst) {
+    from_x0[0] = false; width[0] = C; wrow[0] = 0;
+    from_x0[1] = true; width[1] = w0; wrow[1] = C;
+    return 2;
+  }
+  from_x0[0] = false; width[0] = C; wrow[0] = 0;
+  return 1;
+}
+
+// weight tiles of the tensor-core body's schedule: every layer, each
+// layer's pieces, kTcKTile rows at a time
+__host__ __device__ inline int weight_tile_count(const TileArgs& a, int C) {
+  int n = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    bool from_x0[2];
+    int width[2], wrow[2];
+    const int np = layer_pieces(a, l, C, from_x0, width, wrow);
+    for (int pc = 0; pc < np; ++pc) n += (width[pc] + kTcKTile - 1) / kTcKTile;
+  }
+  return n;
+}
+
+// one entry of that schedule, kept in shared memory: the tile's first
+// weight row in device memory and its rows inside the piece
+struct __align__(16) WeightTile {
+  const __nv_bfloat16* src;
+  int rows;
+};
+
+// row pitches in shared memory: the FMA body packs rows; the tensor-core
+// body pads x0 to whole weight tiles (zeros) and every row by kTcPad
+template <typename T>
+__host__ __device__ inline int x0_pitch(const TileArgs& a) {
+  if constexpr (std::is_same_v<T, float>) return x0_width(a);
+  return (x0_width(a) + kTcKTile - 1) / kTcKTile * kTcKTile + kTcPad;
+}
+
+template <typename T, int C>
+__host__ __device__ constexpr int h_pitch() {
+  return std::is_same_v<T, float> ? C : C + kTcPad;
+}
+
 // elements of the x0 + h region; without a post-skip layer h reuses x0,
 // which is dead once layer 0 has read it
-template <int C>
+template <typename T, int C>
 __host__ __device__ inline size_t act_elems(const TileArgs& a) {
-  const size_t x0 = (size_t)kRows * x0_width(a);
-  const size_t h = (size_t)kRows * C;
+  const size_t x0 = (size_t)kRows * x0_pitch<T>(a);
+  const size_t h = (size_t)kRows * h_pitch<T, C>();
   if (has_split(a)) return x0 + h;
   return x0 > h ? x0 : h;
 }
 
+// elements of the weight tiles: one kKTile x C tile (FMA body), a ring of
+// kTcWStages tiles of kTcKTile padded rows (tensor-core body)
 template <typename T, int C>
-inline size_t smem_bytes(const TileArgs& a) {
-  return (act_elems<C>(a) + (size_t)kKTile * C) * sizeof(T);
+__host__ __device__ constexpr size_t wt_elems() {
+  return std::is_same_v<T, float> ? (size_t)kKTile * C
+                                  : (size_t)kTcWStages * kTcKTile * h_pitch<T, C>();
 }
 
+// bytes of the block's shared buffers: x0 and h, the weight tiles and
+// (tensor-core body) the weight schedule
+template <typename T, int C>
+inline size_t smem_bytes(const TileArgs& a) {
+  const size_t bytes = (act_elems<T, C>(a) + wt_elems<T, C>()) * sizeof(T);
+  if constexpr (std::is_same_v<T, float>) return bytes;
+  return bytes + weight_tile_count(a, C) * sizeof(WeightTile);
+}
+
+template <typename T, int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward_fma(const TileArgs& a, T* x0, T* h, T* wt);
+template <int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16* x0,
+                                                __nv_bfloat16* h, __nv_bfloat16* wt);
+
 // The whole trunk on one row tile: x0, h and wt are the block's shared
-// buffers (smem_bytes); the last layer goes to a.v_out / a.j_out.
+// buffers (tile_buffers, smem_bytes); the last layer goes to a.v_out /
+// a.j_out. bf16 runs on the tensor cores, f32 on the CUDA cores.
 template <typename T, int K, int C, int ACT>
 __device__ __forceinline__ void tile_forward(const TileArgs& a, T* x0, T* h, T* wt) {
+  if constexpr (std::is_same_v<T, float>) {
+    tile_forward_fma<T, K, C, ACT>(a, x0, h, wt);
+  } else {
+    tile_forward_tc<K, C, ACT>(a, x0, h, wt);
+  }
+}
+
+// tile t of the tensor-core body's weight schedule (every layer, each
+// layer's pieces, kTcKTile rows at a time): its first row and its rows
+// inside the piece; false past the last tile
+template <int C>
+__device__ __forceinline__ bool weight_tile(const TileArgs& a, int t,
+                                            const __nv_bfloat16*& src, int& rows) {
+  for (int l = 0; l < a.n_layers; ++l) {
+    bool from_x0[2];
+    int width[2], wrow[2];
+    const int n = layer_pieces(a, l, C, from_x0, width, wrow);
+    for (int pc = 0; pc < n; ++pc) {
+      const int tiles = (width[pc] + kTcKTile - 1) / kTcKTile;
+      if (t < tiles) {
+        src = static_cast<const __nv_bfloat16*>(a.w[l]) +
+              (size_t)(wrow[pc] + t * kTcKTile) * C;
+        rows = min(kTcKTile, width[pc] - t * kTcKTile);
+        return true;
+      }
+      t -= tiles;
+    }
+  }
+  return false;
+}
+
+// copy weight tile t of the schedule into ring slot dst (rows past the
+// piece are zeros); nothing past the last tile
+template <int C>
+__device__ __forceinline__ void load_weight_tile(const WeightTile* sched, int n_tiles, int t,
+                                                 __nv_bfloat16* dst) {
+  if (t >= n_tiles) return;
+  const __nv_bfloat16* src = sched[t].src;
+  const int rows = sched[t].rows;
+  constexpr int WP = C + kTcPad;
+  constexpr int CPR = C / 8;  // 16-byte chunks per row
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < kTcKTile * CPR; idx += kTcTileThreads) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * 8;
+    const bool ok = r < rows;
+    cp_async<16>(smem_u32(dst + r * WP + c), ok ? src + (size_t)r * C + c : src,
+                 ok ? 16 : 0);
+  }
+}
+
+// stage segment s of the layer-0 input into x0's columns at dst (row pitch
+// xp) for the tensor-core body, V elements per load (the rows' alignment
+// allows it); tangent rows of a segment without tangents, and rows past
+// M, are zeros
+template <int V, int K>
+__device__ __forceinline__ void stage_segment(const TileArgs& a, int s, __nv_bfloat16* dst,
+                                              int xp, int m0, int M) {
+  using T = __nv_bfloat16;
+  using Vec = std::conditional_t<V == 8, uint4, std::conditional_t<V == 4, uint2, uint16_t>>;
+  constexpr int TM = kRows / (K + 1);
+  const int w = a.seg_w[s];
+  const int cpr = w / V;  // loads per row
+  const T* sv = static_cast<const T*>(a.seg_v[s]);
+  const T* sj = static_cast<const T*>(a.seg_j[s]);
+  uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+  for (int idx = threadIdx.x; idx < kRows * cpr; idx += kTcTileThreads) {
+    const int r = idx / cpr;
+    const int c = (idx - r * cpr) * V;
+    const int st = r / TM;
+    const int m = m0 + (r - st * TM);
+    union {
+      Vec v;
+      uint16_t e[V];
+    } u;
+    u.v = Vec{};
+    if (m < M) {
+      if (st == 0) {
+        u.v = *reinterpret_cast<const Vec*>(sv + (size_t)m * w + c);
+      } else if (sj != nullptr) {
+        u.v = *reinterpret_cast<const Vec*>(sj + ((size_t)(st - 1) * M + m) * w + c);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) d16[(size_t)r * xp + c + e] = u.e[e];
+  }
+}
+
+template <int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16* x0,
+                                                __nv_bfloat16* h, __nv_bfloat16* wt) {
+  using T = __nv_bfloat16;
+  constexpr int S = K + 1;
+  constexpr int TM = kRows / S;          // samples per block
+  constexpr int MT = S == 1 ? 2 : 1;     // m16 tiles per stream and warp
+  constexpr int RT = S * MT;             // m16 tiles per warp
+  constexpr int NSL = TM / (16 * MT);    // sample slices
+  constexpr int NCG = (kTcTileThreads / 32) / NSL;  // column bands
+  constexpr int WC = C / NCG;            // columns per warp
+  constexpr int NI = WC / 8;             // n8 tiles per warp
+  constexpr int HP = C + kTcPad;         // h and weight-tile row pitch
+  constexpr int WSLOT = kTcKTile * HP;
+  static_assert(kRows % S == 0 && TM % (16 * MT) == 0 && (kTcTileThreads / 32) % NSL == 0,
+                "row tile");
+  static_assert(WC % 16 == 0 && RT * NI * 4 == 128, "column band");
+
+  const int x0w = x0_width(a);
+  const int xp = x0_pitch<T>(a);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q = warp / NCG;   // sample slice
+  const int cg = warp % NCG;  // column band
+  const int m0 = blockIdx.x * TM;
+  const int M = a.M;
+
+  // the weight schedule (after the ring), one entry per tile
+  WeightTile* sched = reinterpret_cast<WeightTile*>(wt + wt_elems<T, C>());
+  const int n_tiles = weight_tile_count(a, C);
+  for (int i = tid; i < n_tiles; i += kTcTileThreads) {
+    const __nv_bfloat16* src;
+    int rows;
+    weight_tile<C>(a, i, src, rows);
+    sched[i].src = src;
+    sched[i].rows = rows;
+  }
+  __syncthreads();
+  // the first weight tiles start loading while x0 is staged
+  for (int s = 0; s < kTcWStages - 1; ++s) {
+    load_weight_tile<C>(sched, n_tiles, s, wt + s * WSLOT);
+    cp_async_commit();
+  }
+
+  // stage the layer-0 input, each segment in loads of as many elements as
+  // its rows' alignment allows; rows past M (the ragged edge) and the
+  // padding columns are zeros
+  {
+    int off = 0;
+    for (int s = 0; s < a.n_seg; ++s) {
+      const int w = a.seg_w[s];
+      const uintptr_t align = reinterpret_cast<uintptr_t>(a.seg_v[s]) |
+                              reinterpret_cast<uintptr_t>(a.seg_j[s]) | (uintptr_t)(2 * w);
+      T* dst = x0 + off;
+      if (align % 16 == 0) {
+        stage_segment<8, K>(a, s, dst, xp, m0, M);
+      } else if (align % 8 == 0) {
+        stage_segment<4, K>(a, s, dst, xp, m0, M);
+      } else {
+        stage_segment<1, K>(a, s, dst, xp, m0, M);
+      }
+      off += w;
+    }
+    const int pad = xp - x0w;
+    for (int idx = tid; idx < kRows * pad; idx += kTcTileThreads) {
+      const int r = idx / pad;
+      x0[(size_t)r * xp + x0w + (idx - r * pad)] = from_f32<T>(0.f);
+    }
+  }
+  // (the first wait below is followed by a barrier, which publishes x0)
+
+  const int g = lane >> 2, tq = lane & 3;
+  // this lane's ldmatrix row of a weight tile (B, .trans: k rows 0-15 of
+  // the column band; lanes 16-31 eight columns on), in ring slot 0
+  const uint32_t w_lane = smem_u32(wt) + 2u * (((lane & 7) + ((lane >> 3) & 1) * 8) * HP +
+                                               cg * WC + (lane >> 4) * 8);
+  // first row of the warp's m16 tile rt (stream rt / MT) over its slice's
+  auto tile_row = [](int rt) { return (rt / MT) * TM + (rt % MT) * 16; };
+  int t = 0;  // weight tile of the schedule
+  // acc[st * MT + mt]: stream st, m16 tile mt of the warp's sample slice
+  float acc[RT][NI][4];
+  for (int l = 0; l < a.n_layers; ++l) {
+#pragma unroll
+    for (int st = 0; st < RT; ++st)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[st][ni][e] = 0.f;
+
+    bool from_x0[2];
+    int width[2], wrow[2];
+    const int n_pieces = layer_pieces(a, l, C, from_x0, width, wrow);
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      const int pitch = from_x0[pc] ? xp : HP;
+      // this lane's ldmatrix row of stream 0 (A: rows of 16 samples,
+      // lanes 0-15 at column 0, lanes 16-31 at column 8), as a 32-bit
+      // shared-memory address
+      const uint32_t a_lane =
+          smem_u32(from_x0[pc] ? x0 : h) +
+          2u * ((q * 16 * MT + (lane & 15)) * pitch + (lane >> 4) * 8);
+      for (int k0 = 0; k0 < width[pc]; k0 += kTcKTile, ++t) {
+        cp_async_wait<kTcWStages - 2>();
+        __syncthreads();  // tile t has landed; slot t-1 is free
+        load_weight_tile<C>(sched, n_tiles, t + kTcWStages - 1,
+                            wt + ((t + kTcWStages - 1) % kTcWStages) * WSLOT);
+        cp_async_commit();
+        const uint32_t w_tile = w_lane + 2u * (t % kTcWStages) * WSLOT;
+#pragma unroll
+        for (int kk = 0; kk < kTcKTile; kk += 16) {
+          const uint32_t a_k = a_lane + 2u * (k0 + kk);
+          const uint32_t w_k = w_tile + 2u * kk * HP;
+          if constexpr (RT * 4 > NI * 2) {
+            // more A than B registers: all of B, then A per m16 tile
+            uint32_t bfr[NI / 2][4];
+#pragma unroll
+            for (int nj = 0; nj < NI / 2; ++nj) ldsm_x4_t(bfr[nj], w_k + 32u * nj);
+#pragma unroll
+            for (int st = 0; st < RT; ++st) {
+              uint32_t af[4];
+              ldsm_x4(af, a_k + 2u * tile_row(st) * pitch);
+#pragma unroll
+              for (int nj = 0; nj < NI / 2; ++nj) {
+                mma_bf16_16816(acc[st][2 * nj], af, bfr[nj][0], bfr[nj][1]);
+                mma_bf16_16816(acc[st][2 * nj + 1], af, bfr[nj][2], bfr[nj][3]);
+              }
+            }
+          } else {
+            // all of A (one fragment per m16 tile), then B per pair of n8 tiles
+            uint32_t af[RT][4];
+#pragma unroll
+            for (int st = 0; st < RT; ++st) ldsm_x4(af[st], a_k + 2u * tile_row(st) * pitch);
+#pragma unroll
+            for (int nj = 0; nj < NI / 2; ++nj) {
+              uint32_t bfr[4];
+              ldsm_x4_t(bfr, w_k + 32u * nj);
+#pragma unroll
+              for (int st = 0; st < RT; ++st) {
+                mma_bf16_16816(acc[st][2 * nj], af[st], bfr[0], bfr[1]);
+                mma_bf16_16816(acc[st][2 * nj + 1], af[st], bfr[2], bfr[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp has read this layer's input: h may be overwritten
+
+    // epilogue: bias on the values, stash, values f(z), tangents f'(z_v) z_t
+    const bool last = (l == a.n_layers - 1);
+    T* vout = static_cast<T*>(a.v_out);
+    T* jout = static_cast<T*>(a.j_out);
+    T* pre = static_cast<T*>(a.stash[l]);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int col = cg * WC + ni * 8 + 2 * tq;
+      const float b0 = a.b[l][col], b1 = a.b[l][col + 1];
+#pragma unroll
+      for (int r = 0; r < 2 * MT; ++r) {
+        // in place: z (bias on the values), then f(z_v) and f'(z_v) z_t;
+        // acc[st * MT + mt][ni][e0, e0 + 1] holds stream st of sample i
+        const int mt = r >> 1, hh = r & 1;
+        const int e0 = 2 * hh;
+        acc[mt][ni][e0] += b0;
+        acc[mt][ni][e0 + 1] += b1;
+        const int i = (q * MT + mt) * 16 + g + 8 * hh;
+        const int m = m0 + i;
+        if (pre != nullptr && m < M) {
+#pragma unroll
+          for (int st = 0; st < S; ++st)
+            *reinterpret_cast<__nv_bfloat162*>(pre + ((size_t)st * M + m) * C + col) =
+                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+        }
+#pragma unroll
+        for (int e = e0; e < e0 + 2; ++e) {
+          float f, df;
+          act_fn<ACT>(acc[mt][ni][e], f, df);
+          acc[mt][ni][e] = f;
+#pragma unroll
+          for (int st = 1; st < S; ++st) acc[st * MT + mt][ni][e] *= df;
+        }
+        if (!last) {
+#pragma unroll
+          for (int st = 0; st < S; ++st)
+            *reinterpret_cast<__nv_bfloat162*>(h + (size_t)(st * TM + i) * HP + col) =
+                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+        } else if (m < M) {
+          *reinterpret_cast<__nv_bfloat162*>(vout + (size_t)m * C + col) =
+              __floats2bfloat162_rn(acc[mt][ni][e0], acc[mt][ni][e0 + 1]);
+#pragma unroll
+          for (int st = 1; st < S; ++st)
+            *reinterpret_cast<__nv_bfloat162*>(jout + ((size_t)(st - 1) * M + m) * C + col) =
+                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+        }
+      }
+    }
+    if (!last) __syncthreads();  // h is complete before the next layer reads it
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward_fma(const TileArgs& a, T* x0, T* h, T* wt) {
   constexpr int S = K + 1;
   constexpr int TM = kRows / S;             // samples per block
   constexpr int RG = kThreads / kColGroups; // thread rows
@@ -361,12 +760,17 @@ __device__ __forceinline__ void tile_buffers(const TileArgs& a, unsigned char* r
                                              T*& x0, T*& h, T*& wt) {
   T* smem = reinterpret_cast<T*>(raw);
   x0 = smem;
-  h = has_split(a) ? smem + (size_t)kRows * x0_width(a) : smem;
-  wt = smem + act_elems<C>(a);
+  h = has_split(a) ? smem + (size_t)kRows * x0_pitch<T>(a) : smem;
+  wt = smem + act_elems<T, C>(a);
+}
+
+template <typename T>
+__host__ __device__ constexpr int tile_threads() {
+  return std::is_same_v<T, float> ? kThreads : kTcTileThreads;
 }
 
 template <typename T, int K, int C, int ACT>
-__global__ void __launch_bounds__(kThreads, 1) mlp_tile_fwd(const TileArgs a) {
+__global__ void __launch_bounds__(tile_threads<T>(), 1) mlp_tile_fwd(const TileArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T *x0, *h, *wt;
   tile_buffers<T, C>(a, smem_raw, x0, h, wt);
@@ -383,7 +787,7 @@ cudaError_t launch_mlp_tile(const TileArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   constexpr int TM = kRows / (K + 1);
   const int grid = (a.M + TM - 1) / TM;
-  mlp_tile_fwd<T, K, C, ACT><<<grid, kThreads, smem, stream>>>(a);
+  mlp_tile_fwd<T, K, C, ACT><<<grid, tile_threads<T>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -129,7 +129,10 @@ def library() -> ctypes.CDLL:
         ],
         "neddf_dual_act": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
         "neddf_gemm_f32acc": [
-            _INT, _INT, _INT, _INT, _VOIDP, _LL, _LL, _VOIDP, _LL, _LL, _INT,
+            _INT, _INT, _INT, _VOIDP, _LL, _LL, _VOIDP, _LL, _LL, _INT, _VOIDP, _VOIDP,
+        ],
+        "neddf_gemm_bf16_tc": [
+            _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
             _VOIDP, _VOIDP,
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],

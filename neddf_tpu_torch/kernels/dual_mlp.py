@@ -294,6 +294,15 @@ def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> 
     _check_layers(vs, weights, biases, layout, what)
 
 
+# launches of the row-tile forward (csrc/mlp_tile.cuh) by body: "tc" (bf16,
+# tensor cores) and "fma" (f32, CUDA cores), over every wrapper that runs it
+TILE_LAUNCHES = {"tc": 0, "fma": 0}
+
+
+def count_tile_launch(dtype: torch.dtype) -> None:
+    TILE_LAUNCHES["tc" if dtype == torch.bfloat16 else "fma"] += 1
+
+
 def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
     m, device, dtype = vs[0].shape[0], vs[0].device, vs[0].dtype
     width = weights[0].shape[1]
@@ -314,6 +323,7 @@ def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(code, what)
+    count_tile_launch(dtype)
     return v_out, j_out, pres
 
 
@@ -377,19 +387,81 @@ def dual_mlp_seg(
 
 dual_mlp_seg.launches = 0
 
-# split-K products: one partial per 8192 reduced rows, at most 64
+# split-K products: one partial per 8192 reduced rows, at most 64 (f32,
+# FMA); the tensor-core product (bf16) splits finer, one partial per 2048
+# rows, at most 64: the four 128x128 tiles of a 256x256 dW in 64 splits
+# are one wave of two blocks per SM
 _ROWS_PER_SPLIT = 8192
 _MAX_SPLITS = 64
+_TC_ROWS_PER_SPLIT = 2048
+_TC_MAX_SPLITS = 64
+_TC_DEPTH = 64  # csrc/dual_mlp_bwd.cu kTcBK: a split covers whole stages
+_TC_LAYOUTS = {"nt": 0, "tn": 1, "nn": 2}
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
+
+
+def _vec_width(ptr: int, ld: int) -> int:
+    """Elements per copy (8, 4, 2 or 1 bf16) that a row stride of ``ld``
+    elements from the byte address ``ptr`` keeps aligned."""
+    for vec in (8, 4, 2):
+        if ptr % (2 * vec) == 0 and ld % vec == 0:
+            return vec
+    return 1
+
+
+def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
+            a_ptr: int = 0, b_ptr: int = 0) -> dict:
+    """How the tensor-core product takes ``sum_k A(m, k) B(k, n)`` with
+    ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) = b[k*sbk + n*sbn]``.
+
+    Returns the layout (``nt``: K contiguous in both operands; ``tn``: M
+    and N contiguous; ``nn``: K contiguous in A, N in B), each operand's
+    row stride and copy width from its byte address, and the split of K
+    into fixed-order partials with the rows each split covers (a
+    multiple of the kernel's stage depth). Raises ValueError for any
+    other layout.
+    """
+    if sak == 1 and sbk == 1:
+        layout, lda, ldb = "nt", sam, sbn
+    elif sam == 1 and sbn == 1:
+        layout, lda, ldb = "tn", sak, sbk
+    elif sak == 1 and sbn == 1:
+        layout, lda, ldb = "nn", sam, sbk
+    else:
+        raise ValueError(f"tensor-core product: strides ({sam}, {sak}) x ({sbk}, {sbn})")
+    lda, ldb = max(int(lda), 1), max(int(ldb), 1)
+    splits = max(1, min(_TC_MAX_SPLITS, -(-k // _TC_ROWS_PER_SPLIT)))
+    per_split = -(-k // splits)
+    k_chunk = -(-per_split // _TC_DEPTH) * _TC_DEPTH
+    return {"layout": layout, "lda": lda, "ldb": ldb, "vec_a": _vec_width(a_ptr, lda),
+            "vec_b": _vec_width(b_ptr, ldb), "splits": splits, "k_chunk": k_chunk}
+
+
+def products_plain(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
+    """Plain version of the products: ``sum_k A(m, k) B(k, n)`` over the
+    same strided views (``a``/``b`` flat or not, read through their
+    storage offset), as one f32 ``torch.matmul`` of the operands (TF32 as
+    the caller set it). bf16 operands multiply exactly in f32, so it
+    differs from the split kernel only in the order of the f32 sums."""
+    av = torch.as_strided(a, (m, k), (sam, sak), a.storage_offset()).float()
+    bv = torch.as_strided(b, (k, n), (sbk, sbn), b.storage_offset()).float()
+    return av @ bv
 
 
 class Products:
     """Launchers of the hand-written products of ``csrc/dual_mlp_bwd.cu``
-    (``neddf_gemm_f32acc``, ``neddf_sum_splits``) for one backward call;
-    shared by the backwards of ``kernels/mlp.py`` and ``kernels/sdf_mlp.py``."""
+    for one backward call: ``neddf_gemm_bf16_tc`` (tensor cores) for bf16
+    operands, ``neddf_gemm_f32acc`` (FMA) for f32, and
+    ``neddf_sum_splits``; shared by the backwards of ``kernels/mlp.py``
+    and ``kernels/sdf_mlp.py``. ``tc_launches`` / ``fma_launches`` count
+    the launches of each product kernel."""
+
+    tc_launches = 0
+    fma_launches = 0
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
+        self.dtype = dtype
         self.dt = _KERNEL_DTYPES[dtype]
         self.device = device
         self.stream = torch.cuda.current_stream(device).cuda_stream
@@ -397,13 +469,28 @@ class Products:
     def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
         """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
         range split into a fixed number of partials summed in order."""
-        splits = max(1, min(_MAX_SPLITS, -(-k // _ROWS_PER_SPLIT)))
+        if a.dtype != self.dtype or b.dtype != self.dtype:
+            raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
+        tensor_cores = self.dtype == torch.bfloat16
+        if tensor_cores:
+            plan = tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr())
+            splits = plan["splits"]
+        else:
+            splits = max(1, min(_MAX_SPLITS, -(-k // _ROWS_PER_SPLIT)))
         out = torch.empty((m, n), dtype=torch.float32, device=self.device)
         parts = out if splits == 1 else torch.empty(
             (splits, m, n), dtype=torch.float32, device=self.device)
-        _build.check(self.lib.neddf_gemm_f32acc(
-            self.dt, m, n, k, a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn,
-            splits, parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
+        if tensor_cores:
+            _build.check(self.lib.neddf_gemm_bf16_tc(
+                _TC_LAYOUTS[plan["layout"]], m, n, k, a.data_ptr(), plan["lda"],
+                plan["vec_a"], b.data_ptr(), plan["ldb"], plan["vec_b"], splits,
+                parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm (tensor cores)")
+            Products.tc_launches += 1
+        else:
+            _build.check(self.lib.neddf_gemm_f32acc(
+                m, n, k, a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn,
+                splits, parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
+            Products.fma_launches += 1
         if splits > 1:
             self.sum_splits(parts, out)
         return out
@@ -449,9 +536,10 @@ def dual_mlp_seg_bwd(
     Per layer, in reverse: ``csrc/dual_mlp_bwd.cu`` forms the stacked
     cotangent of the pre-activation (with the f'' coupling) and the
     per-block db partials, recomputes the layer input from the stash,
-    and runs dx = g W^T and dW = h_in^T g as tiled f32-accumulating
-    products; dW and db are split into a fixed number of partials summed
-    in a fixed order, so two runs give bitwise-equal results.
+    and runs dx = g W^T and dW = h_in^T g as f32-accumulating products
+    (on the tensor cores in bf16); dW and db are split into a fixed number
+    of partials summed in a fixed order, so two runs give bitwise-equal
+    results.
     """
     device = vs[0].device
     if device.type == "cpu":

@@ -34,7 +34,7 @@ from typing import List, Sequence
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import Products
+from neddf_tpu_torch.kernels.dual_mlp import Products, count_tile_launch
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
@@ -234,6 +234,7 @@ def mlp_seg(
             )
         _build.check(code, "mlp_seg")
         mlp_seg.launches += 1
+        count_tile_launch(dtype)
     if n_out < _KERNEL_WIDTH:
         out = out[:, :n_out].contiguous()
         if stash:

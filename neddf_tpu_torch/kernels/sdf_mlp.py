@@ -28,7 +28,7 @@ from typing import List, Sequence
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import Products
+from neddf_tpu_torch.kernels.dual_mlp import Products, count_tile_launch
 from neddf_tpu_torch.kernels.mlp import _ACT_CODES, _DB_ROWS, _SPLIT_HIDDEN_FIRST
 from neddf_tpu_torch.ops.sdf_grad import sdf_trunk_with_grad, sdf_trunk_with_grad_vjp
 
@@ -97,6 +97,7 @@ def sdf_mlp(
             )
         _build.check(code, "sdf_mlp")
         sdf_mlp.launches += 1
+        count_tile_launch(torch.float32)
     return (h, g_e, pres) if stash else (h, g_e)
 
 

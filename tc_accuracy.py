@@ -1,0 +1,237 @@
+"""How closely the bf16 tensor-core routes of neddf_tpu_torch round.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 tc_accuracy.py [--tree DIR] [--out FILE] [--params P ...]
+                           [--batches N ...] [--seeds S ...]
+
+``--tree DIR`` imports ``neddf_tpu_torch`` from DIR instead of this
+checkout (for instance an unpacked ``git archive`` of another commit),
+with this checkout's data, checkpoint and inputs, so that two commits
+are compared on one card in one call. Prints one JSON object (also
+written to FILE):
+
+* ``step``: the bf16 train step of ``chip_smoke.py`` phase 7
+  (``pretrained/machine_neddf``, full width; with the checkpoint's
+  parameters or with ``chip_smoke.family_params`` of a seed) on each
+  batch of rays and draw seed, kernels against the plain versions: the worst relative gap
+  over the losses and over the gradient norms, and the gaps of the aux
+  head's two norms; for the first seed also how far the plain step
+  itself moves the same numbers under a +-1e-7 camera shift;
+* ``layers``: each layer of the K=3 trunk alone (the checkpoint's bf16
+  weights; inputs: the PE of seeded points for layer 0, the plain
+  version's output of the layer before for the others), through the
+  kernel and the plain version. Against the pre-activation z computed in
+  f64 from the same bf16 inputs and weights and then rounded to bf16:
+  the share of elements whose bf16 z differs (a flip) and the share of
+  those flips that lie nearer zero than the f64 value;
+* ``trunk``: the whole trunk forward, kernel and plain, against the same
+  trunk in f64 without any rounding: max error over the largest
+  magnitude and mean signed error over the mean magnitude (negative: a
+  bias toward zero);
+* ``products``: the bf16 products at the fine trunk's shapes (dx: nt, dW:
+  tn) against f64, the same two measures;
+* ``ms``: median CUDA-event times of the trunk forward with its stash and
+  of the two products.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+
+def tanh_exp64(x):
+    """tanhExp and its derivative in f64, passing x through above 20."""
+    import torch
+
+    ex = torch.exp(torch.clamp(x, max=20.0))
+    tx = torch.tanh(ex)
+    f = torch.where(x > 20.0, x, x * tx)
+    df = torch.where(x > 20.0, torch.ones_like(x), tx - x * ex * (tx * tx - 1.0))
+    return f, df
+
+
+def flips(z, z64):
+    """Share of bf16 elements of z that differ from z64 rounded to bf16,
+    and the share of those nearer zero."""
+    ref = z64.float().bfloat16()
+    diff = z != ref
+    n = int(diff.sum())
+    toward = int((diff & (z.float().abs() < ref.float().abs())).sum())
+    return {"flip_share": n / z.numel(), "toward_zero_share": toward / max(n, 1)}
+
+
+def signed_err(got, ref):
+    """Max error over the largest |ref|, and the mean of (got - ref) *
+    sign(ref) over the mean |ref| (negative: nearer zero)."""
+    d = got.double() - ref
+    return {"max_rel": (d.abs().max() / ref.abs().max()).item(),
+            "mean_signed_rel": ((d * ref.sign()).mean() / ref.abs().mean()).item()}
+
+
+def step_gaps(a: dict, b: dict) -> dict:
+    """Relative gap of every loss and gradient norm of step a against b."""
+    out = {f"loss {k}": abs(a["losses"][k] - v) / abs(v) for k, v in b["losses"].items()}
+    out.update({k: abs(a["grad_norms"][k] - v) / abs(v) for k, v in b["grad_norms"].items()})
+    return out
+
+
+def summary(gaps: dict) -> dict:
+    """Worst gap over the losses, over the gradient norms, and the two aux
+    head norms (the numbers the density's relu kink makes jumpy)."""
+    return {"loss": max(v for k, v in gaps.items() if k.startswith("loss ")),
+            "grad_norm": max(v for k, v in gaps.items() if not k.startswith("loss ")),
+            "aux_w": gaps["network_fine.layer_aux_out.w"],
+            "aux_b": gaps["network_fine.layer_aux_out.b"]}
+
+
+def measure_step(torch, smoke, params: str, batches, seeds) -> dict:
+    """For each batch of rays and draw seed: the bf16 step's kernels vs
+    plain versions; for the first seed also the plain step's own spread
+    under a +-1e-7 camera shift (chip_smoke.FAMILY_SHIFT). ``params``:
+    "checkpoint" (epoch 1000) or the seed of chip_smoke.family_params."""
+    trainer = smoke.machine_trainer(torch)
+    if params != "checkpoint":
+        render = trainer.neural_render
+        shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+        render.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                smoke.family_params(shapes, int(params)).items()})
+    net = trainer.neural_render.network_fine
+    net.compute_dtype = torch.bfloat16
+    cam = smoke.MACHINE_CAMERA
+    delta = trainer.camera_deltas[cam].clone()
+    shift = torch.tensor(smoke.FAMILY_SHIFT, dtype=delta.dtype, device=delta.device)
+    out = {}
+    for batch in batches:
+        for seed in seeds:
+            net.fused = "auto"
+            kern = smoke.machine_step(torch, trainer, batch, seed)
+            net.fused = "off"
+            plain = smoke.machine_step(torch, trainer, batch, seed)
+            row = {"kernel_vs_plain": summary(step_gaps(kern, plain))}
+            if seed == seeds[0]:
+                moved = []
+                for sign in (1.0, -1.0):
+                    trainer.camera_deltas[cam] = delta + sign * shift
+                    moved.append(summary(step_gaps(smoke.machine_step(torch, trainer, batch, seed),
+                                                   plain)))
+                trainer.camera_deltas[cam] = delta
+                row["plain_shift_spread"] = {k: max(m[k] for m in moved) for k in moved[0]}
+            out[f"{batch} rays, seed {seed}"] = row
+            print(f"step, params {params}, {batch} rays, seed {seed}: {json.dumps(row)}",
+                  flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_trunk(torch, smoke, sd, dev) -> tuple:
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.ops.dual import pe_dual_planes_mip
+    from neddf_tpu_torch.ops.pe import pe_grad_scale
+
+    n = sum(1 for k in sd if k.startswith("network_fine.layers_ddf.") and k.endswith(".w"))
+    ws = [sd[f"network_fine.layers_ddf.{i}.w"].to(dev).bfloat16() for i in range(n)]
+    bs = [sd[f"network_fine.layers_ddf.{i}.b"].to(dev) for i in range(n)]
+    skip = tuple(i == 5 for i in range(n))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    m = smoke.M_TRAIN
+    pos = torch.rand((m, 3), generator=gen, device=dev) * 2.0 - 1.0
+    var = torch.rand((m, 3), generator=gen, device=dev) * 1e-5
+    ev, ej = pe_dual_planes_mip(pos, 10, var=var, chan_scale=pe_grad_scale(10, dev))
+    v0, j0 = ev.bfloat16().contiguous(), ej.bfloat16().contiguous()
+
+    # each layer alone, on the plain version's input to it
+    layers, v, j = [], v0, j0
+    for i in range(n):
+        if skip[i]:
+            v, j = torch.cat([v0, v], 1).contiguous(), torch.cat([j0, j], 2).contiguous()
+        args = ([ws[i]], [bs[i]], (False,))
+        _, _, zk = dm.dual_mlp_trunk(v, j, *args, stash=True)
+        pv, pj, zp = dm.dual_mlp_seg_plain([v], [j], *args, "tanhExp", (True,), 3, stash=True)
+        x = torch.cat([v[None], j]).double()
+        z64 = x @ ws[i].double()
+        z64[0] += bs[i].double()
+        layers.append({"kernel": flips(zk[0], z64), "plain": flips(zp[0], z64)})
+        v, j = pv, pj
+        del x, z64, zk, zp
+    # the whole trunk against f64 without rounding
+    vk, jk = dm.dual_mlp_trunk(v0, j0, ws, bs, skip)
+    vp, jp = dm.dual_mlp_seg_plain([v0], [j0], ws, bs, skip, "tanhExp", (True,), 3)
+    h64v, h64j = v0.double(), j0.double()
+    for i in range(n):
+        xv, xj = h64v, h64j
+        if skip[i]:
+            xv, xj = torch.cat([v0.double(), xv], 1), torch.cat([j0.double(), xj], 2)
+        zv = xv @ ws[i].double() + bs[i].double()
+        f, df = tanh_exp64(zv)
+        h64v, h64j = f, df[None] * (xj @ ws[i].double())
+    ref = torch.cat([h64v[None], h64j])
+    trunk = {"kernel": signed_err(torch.cat([vk[None], jk]), ref),
+             "plain": signed_err(torch.cat([vp[None], jp]), ref)}
+    timed = (lambda: dm.dual_mlp_trunk(v0, j0, ws, bs, skip, stash=True))
+    return layers, trunk, timed
+
+
+def measure_products(torch, smoke, dev) -> tuple:
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    prod = dm.Products(torch.bfloat16, dev)
+    r = 4 * smoke.M_TRAIN
+    g = (torch.randn((r, 256), generator=gen, device=dev) * 0.1).bfloat16()
+    h = (torch.randn((r, 256), generator=gen, device=dev) * 0.1).bfloat16()
+    w = (torch.randn((256, 256), generator=gen, device=dev) * 0.1).bfloat16()
+    out = {"nt": signed_err(prod.nt(g, w), g.double() @ w.double().T),
+           "tn": signed_err(prod.tn(h, g), h.double().T @ g.double())}
+    return out, {"nt": lambda: prod.nt(g, w), "tn": lambda: prod.tn(h, g)}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tree", type=Path, default=REPO)
+    parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--batches", type=int, nargs="+", default=[64])
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0])
+    parser.add_argument("--params", nargs="+", default=["checkpoint"],
+                        help="'checkpoint' and/or seeds of chip_smoke.family_params")
+    args = parser.parse_args()
+    sys.path.insert(0, str(args.tree.resolve()))
+    sys.path.insert(1, str(REPO))
+    import torch
+
+    import chip_smoke as smoke
+    from neddf_tpu_torch.kernels import _build
+    from neddf_tpu_torch.training.checkpoint import load_msgpack_params, params_from_jax
+
+    if not torch.cuda.is_available():
+        print("tc_accuracy.py: no CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda", 0)
+    sd = params_from_jax(load_msgpack_params(smoke.RUN / "models" / f"model_{smoke.EPOCH:05}.ckpt"))
+    result = {"tree": str(args.tree), "card": smoke.card_line(),
+              "build": str(_build.build_dir())}
+    result["step"] = {p: measure_step(torch, smoke, p, args.batches, args.seeds)
+                      for p in args.params}
+    result["layers"], result["trunk"], trunk_fn = measure_trunk(torch, smoke, sd, dev)
+    result["products"], product_fns = measure_products(torch, smoke, dev)
+    result["ms"] = {"trunk_fwd_stash": smoke.time_pair(torch, trunk_fn, trunk_fn, reps=3)[0]}
+    for name, fn in product_fns.items():
+        result["ms"][f"product_{name}"] = smoke.time_pair(torch, fn, fn, reps=3, inner=10)[0]
+    text = json.dumps(result)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
