@@ -9,9 +9,10 @@ Phases (any failure stops the script with a non-zero exit code):
 
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. build the CUDA kernels from ``neddf_tpu_torch/csrc`` (timed); in the
-   built library's SASS every bf16 product kernel and bf16 tile forward
-   has HMMA (tensor-core) instructions, and ptxas reports no spills in
-   them;
+   built library's SASS every product kernel, tile forward and NeuS
+   sweep has HMMA (tensor-core) instructions, on TF32 operands
+   in the f32 instantiations (the 3xTF32 split) and not in the bf16
+   ones, and ptxas reports no spills in them;
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -31,11 +32,14 @@ Phases (any failure stops the script with a non-zero exit code):
    trunk forward with its stash, the K=1 colour forward, the dual-MLP
    backward (trunk and colour configurations) and the epilogue forward
    and backward; two backward runs must give bitwise-equal dW / db;
-6b. the bf16 tensor-core product of the backwards alone at the fine
+6b. the tensor-core product of the backwards alone, bf16 at the fine
    trunk's shapes (dx and dW over 4 x 99,328 rows, layer 0's fan-in 60,
-   NeRF's 3-wide last layer, a ragged row count) against its plain
-   version, with the times of both, of ``torch.matmul`` on the same bf16
-   operands and the bound, and TFLOP/s;
+   NeRF's 3-wide last layer, a ragged row count) and f32 (3xTF32) at the
+   NeuS backward's (dx, dW and the sweep adjoint over 265,216 rows, the
+   36-wide PE side, the colour trunk's 3-wide last layer, a ragged row
+   count), against its plain version, with the times of both, of
+   ``torch.matmul`` on the same operands (f32: TF32 off) and the bound,
+   and TFLOP/s;
 7. one train step of ``pretrained/machine_neddf`` at full width (its
    ``.hydra`` config on ``data/machine``, params of epoch 1000, iteration
    100,000, camera 0, ``MACHINE_BATCH`` rays from ``machine_step_draws``):
@@ -60,8 +64,9 @@ Phases (any failure stops the script with a non-zero exit code):
    at the NeRF step's shapes (1024 rays x 194 fine and 65 coarse samples,
    bf16 and f32) and with the 3-wide last layer at the NeuS colour
    trunk's (1024 x 259 rows, f32), its backward, and ``sdf_mlp`` forward
-   and backward at the NeuS step's rows and a ragged M, ReLU and tanhExp;
-   two backward runs must give bitwise-equal dW / db;
+   and backward at the NeuS step's rows and a ragged M, ReLU and tanhExp,
+   with the count of ReLU rows whose gE took the other side of f'(0)
+   beside PR 4's; two backward runs must give bitwise-equal dW / db;
 10. one full-width f32 train step of each family (``FAMILY_OVERRIDES``)
    from the seeded parameters of ``family_params``, against the JAX
    package's numbers on the CPU (``FAMILY_STEP``, made by
@@ -69,8 +74,9 @@ Phases (any failure stops the script with a non-zero exit code):
 11. a 300-step run of each configuration through ``scripts/run.py``
    (NeRF: separate coarse network, point samples, bf16; NeuS: f32):
    every loss finite, train PSNR of the last 50 steps at least 3 dB above
-   the first 50, every new kernel launched (NeRF, bf16: on the tensor
-   cores) and no plain version called;
+   the first 50, every new kernel launched, every product and tile
+   forward on the tensor cores (NeRF: bf16 mma; NeuS: f32 by the 3xTF32
+   split) and no plain version called;
    ms/step, rays/s and the device's busy share over five traced steps
    (``profile_train_{nerf,neus}.txt``);
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
@@ -263,34 +269,37 @@ def card_line() -> str:
 
 # phase 2: the kernels that must run on the tensor cores (by the mangled
 # names in the library) and how many instantiations each has
-TC_FUNCTIONS = {"tc_gemm_kernel": 3,  # nt, tn, nn
-                "mlp_tile_fwd": 4}    # bf16: K=3, K=1, K=0 tanhExp, K=0 ReLU
+TC_FUNCTIONS = {"tc_gemm_kernel": 6,  # bf16 and f32 x nt, tn, nn
+                "mlp_tile_fwd": 8,    # bf16 and f32 x K=3, K=1, K=0 tanhExp, K=0 ReLU
+                "sdf_sweep_kernel": 2}  # f32: ReLU, tanhExp
 
 
 def _is_tc_function(name: str) -> bool:
-    return "tc_gemm_kernel" in name or ("mlp_tile_fwd" in name and "nv_bfloat16" in name)
+    return any(key in name for key in TC_FUNCTIONS)
 
 
 def check_tensor_core_build(build_dir: Path) -> dict:
     """Phase 2's checks of the built library: ``cuobjdump -sass`` counts
-    the HMMA/HGMMA instructions of every tensor-core function (the bf16
-    product and the bf16 tile forwards), and ptxas's ``-v`` lines in the
-    build log show their spills; fails on a count of 0, a missing
+    the HMMA/HGMMA instructions of every tensor-core function (the
+    products, the tile forwards and the NeuS sweep), the f32 ones
+    on TF32 operands (3xTF32) and the bf16 ones not; ptxas's ``-v`` lines
+    in the build log show their spills; fails on a count of 0, a missing
     instantiation or a spill."""
     from neddf_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(build_dir / _build._LIB_NAME)],
                           capture_output=True, text=True, check=True).stdout
-    hmma, name = {}, None
+    hmma, tf32, name = {}, {}, None
     for line in sass.splitlines():
         text = line.strip()
         if text.startswith("Function :"):
             name = text.split(":", 1)[1].strip()
             if _is_tc_function(name):
-                hmma[name] = 0
+                hmma[name] = tf32[name] = 0
         elif name in hmma and ("HMMA" in text or "HGMMA" in text):
             hmma[name] += 1
+            tf32[name] += "TF32" in text
     spills, name = {}, None
     for line in (build_dir / "build.log").read_text().splitlines():
         if "Function properties for" in line:
@@ -304,9 +313,13 @@ def check_tensor_core_build(build_dir: Path) -> dict:
             fail(f"SASS: {len(found)} tensor-core instantiations of {key}, expected {count}")
     if min(hmma.values()) < 1:
         fail(f"SASS: a tensor-core function without HMMA: {hmma}")
+    for fn in hmma:
+        is_f32 = "nv_bfloat16" not in fn
+        if is_f32 != (tf32[fn] > 0) or (is_f32 and tf32[fn] != hmma[fn]):
+            fail(f"SASS: {fn}: {tf32[fn]} of {hmma[fn]} HMMA on TF32 operands")
     if set(spills) != set(hmma) or max(spills.values()) > 0:
         fail(f"ptxas: spills in the tensor-core functions (or missing -v lines): {spills}")
-    return {"hmma": hmma, "spill_bytes": spills}
+    return {"hmma": hmma, "tf32_hmma": tf32, "spill_bytes": spills}
 
 
 def time_pair(torch, fn_kernel, fn_plain, reps: int = 5, inner: int = 1):
@@ -524,22 +537,32 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
     return results
 
 
-# phase 6b: the bf16 product of the backwards alone. The operands are
-# bf16, so every product is exact in f32 and the kernel differs from its
-# plain version (f32 torch.matmul of the same operands, TF32 off) only in
-# the order of the f32 sums, within and across the split partials
+# phase 6b: the products of the backwards alone. bf16 operands multiply
+# exactly in f32, so the kernel differs from its plain version (f32
+# torch.matmul of the same operands, TF32 off) only in the order of the
+# f32 sums, within and across the split partials; f32 operands (3xTF32)
+# also by the dropped lo*lo term and the rounding of lo, ~2^-21 of each
+# product
 PRODUCT_REL_TOL = 1e-4
 
 
 def product_cases(torch, gen, dev):
-    """(name, layout, a, b) at the shapes the main paths give the product:
-    the fine trunk's dx and dW (4 streams x 99,328 rows, C = 256), layer
-    0's narrow side (fan-in 60), NeRF's 3-wide last layer (K = 3 in nt,
-    N = 3 in tn) and a ragged row count."""
+    """(name, layout, a, b) at the shapes the main paths give the product.
+    bf16: the fine trunk's dx and dW (4 streams x 99,328 rows, C = 256),
+    layer 0's narrow side (fan-in 60), NeRF's 3-wide last layer (K = 3 in
+    nt, N = 3 in tn) and a ragged row count. f32 (the NeuS backward, one
+    network over both passes' 265,216 rows): the trunk's dx, dW and the
+    sweep adjoint's pbar = qbar W (nn), the PE side (E = 36: dW of layer
+    0, cg W_0, the post-skip layer's e rows), the colour trunk's 3-wide
+    last layer and a ragged row count."""
     def bf(*shape):
         return (torch.randn(shape, generator=gen, device=dev) * 0.1).bfloat16()
 
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.1
+
     r, rr, rn = 4 * M_TRAIN, 4 * M_TRAIN_RAGGED, M_NERF_FINE
+    rs, rsr, e = M_NEUS, M_NEUS - 1001, SDF_FANS[0]
     return [
         ("nt fine trunk dx", "nt", bf(r, 256), bf(256, 256)),
         ("tn fine trunk dW", "tn", bf(r, 256), bf(r, 256)),
@@ -549,29 +572,51 @@ def product_cases(torch, gen, dev):
         ("tn NeRF last layer dW (N=3)", "tn", bf(rn, 256), bf(rn, 3)),
         (f"nt ragged ({rr} rows)", "nt", bf(rr, 256), bf(256, 256)),
         (f"tn ragged ({rr} rows)", "tn", bf(rr, 256), bf(rr, 256)),
+        ("f32 nt NeuS trunk dx", "nt", f32(rs, 256), f32(256, 256)),
+        ("f32 tn NeuS trunk dW", "tn", f32(rs, 256), f32(rs, 256)),
+        ("f32 nn NeuS sweep adjoint", "nn", f32(rs, 256), f32(256, 256)),
+        (f"f32 tn NeuS layer 0 dW (m={e})", "tn", f32(rs, e), f32(rs, 256)),
+        (f"f32 nn NeuS cg W0 (K={e})", "nn", f32(rs, e), f32(e, 256)),
+        (f"f32 nt NeuS e rows dx (N={e})", "nt", f32(rs, 256), f32(e, 256)),
+        ("f32 nt NeuS colour last layer dx (K=3)", "nt", f32(rs, 3), f32(256, 3)),
+        ("f32 tn NeuS colour last layer dW (N=3)", "tn", f32(rs, 256), f32(rs, 3)),
+        (f"f32 tn ragged ({rsr} rows)", "tn", f32(rsr, 256), f32(rsr, 256)),
     ]
 
 
+def product_call(layout, a, b):
+    """The strided call ``(m, n, k, a, sam, sak, b, sbk, sbn)`` of one case
+    and the PyTorch call that computes the same product (the yardstick)."""
+    import torch
+
+    if layout == "nt":  # a [R, k] times b [n, k]^T
+        (m, k), n = a.shape, b.shape[0]
+        return (m, n, k, a, k, 1, b, 1, k), lambda: torch.matmul(a, b.T)
+    if layout == "tn":  # a [R, m]^T times b [R, n], over R rows
+        (k, m), n = a.shape, b.shape[1]
+        return (m, n, k, a, 1, m, b, n, 1), lambda: torch.matmul(a.T, b)
+    (m, k), n = a.shape, b.shape[1]  # nn: a [R, k] times b [k, n]
+    return (m, n, k, a, k, 1, b, n, 1), lambda: torch.matmul(a, b)
+
+
 def phase_products(torch, card: str) -> dict:
-    """Phase 6b: the bf16 tensor-core product (``neddf_gemm_bf16_tc``
-    through ``Products``) against its plain version, with the times of
-    both, of ``torch.matmul`` on the same bf16 operands (the yardstick;
-    the port never calls it) and the bound, and TFLOP/s per shape."""
+    """Phase 6b: the tensor-core product (``neddf_gemm_tc`` through
+    ``Products``) against its plain version, with the times of both, of
+    ``torch.matmul`` on the same operands (the yardstick, bf16 out for
+    bf16 operands, f32 with TF32 off for f32 ones; the port never calls
+    it) and the bound, and TFLOP/s per shape."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
-    prod = dm.Products(torch.bfloat16, dev)
     results = {}
     for name, layout, a, b in product_cases(torch, gen, dev):
-        if layout == "nt":  # a [R, k] times b [n, k]^T
-            (m, k), n = a.shape, b.shape[0]
-            call = (m, n, k, a, k, 1, b, 1, k)
-            kernel, library = (lambda: prod.nt(a, b)), (lambda: torch.matmul(a, b.T))
-        else:  # a [R, m]^T times b [R, n], over R rows
-            (k, m), n = a.shape, b.shape[1]
-            call = (m, n, k, a, 1, m, b, n, 1)
-            kernel, library = (lambda: prod.tn(a, b)), (lambda: torch.matmul(a.T, b))
+        prod = dm.Products(a.dtype, dev)
+        call, library = product_call(layout, a, b)
+        m, n, k = call[:3]
+
+        def kernel():
+            return getattr(prod, layout)(a, b)
 
         def plain():
             return dm.products_plain(*call)
@@ -588,37 +633,44 @@ def phase_products(torch, card: str) -> dict:
         ms, plain_ms = time_pair(torch, kernel, plain, reps=3, inner=10)
         library_ms, _ = time_pair(torch, library, library, reps=3, inner=10)
         flops = 2.0 * m * n * k
-        r = {"layout": layout, "m": m, "n": n, "k": k, "max_abs_err": err, "rel_err": rel,
-             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-             "tflops": flops / ms / 1e9,
-             **bound(flops, 2 * (m * k + k * n) + 4 * m * n, "bfloat16")}
+        f32 = a.dtype == torch.float32
+        t = a.element_size()
+        r = {"layout": layout, "dtype": str(a.dtype).replace("torch.", ""), "m": m, "n": n,
+             "k": k, "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "tflops": flops / ms / 1e9,
+             **bound(flops, t * (m * k + k * n) + 4 * m * n, "tf32x3" if f32 else "bfloat16")}
+        if f32:
+            r["fma_bound_ms"] = bound(flops, 0, "float32")["bound_ms"]
         results[name] = r
         log(f"[6b] product {name}: {r['tflops']:.1f} TFLOP/s, {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"torch.matmul bf16 {library_ms:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}), "
-            f"rel err {rel:.2e} | card: {card}")
+            f"torch.matmul {r['dtype']} {library_ms:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), rel err {rel:.2e} | card: {card}")
         del got, ref
     torch.cuda.empty_cache()
     return results
 
 
 def route_counts(dm) -> dict:
-    """Launches of the product kernels and of the tile forward's bodies."""
-    return {"products": {"tc": dm.Products.tc_launches, "fma": dm.Products.fma_launches},
+    """Launches of the product kernel and of the tile forward by operand
+    type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split)."""
+    return {"products": {"tc": dm.Products.tc_launches, "tf32x3": dm.Products.tf32x3_launches},
             "tile_forward": dict(dm.TILE_LAUNCHES)}
 
 
 def reset_route_counts(dm) -> None:
-    dm.Products.tc_launches = dm.Products.fma_launches = 0
-    dm.TILE_LAUNCHES.update(tc=0, fma=0)
+    dm.Products.tc_launches = dm.Products.tf32x3_launches = 0
+    dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
 
 
-def check_bf16_routes(what: str, counts: dict, backward: bool = True) -> None:
-    """A bf16 run: every product on the tensor cores, every tile forward
-    on the tensor-core body, and both launched."""
-    if counts["tile_forward"]["fma"] or counts["tile_forward"]["tc"] < 1:
-        fail(f"{what}: tile forward routes {counts['tile_forward']}")
-    if backward and (counts["products"]["fma"] or counts["products"]["tc"] < 1):
-        fail(f"{what}: product routes {counts['products']}")
+def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> None:
+    """A run in one compute dtype: every product and every tile forward on
+    its route ("tc" for bf16, "tf32x3" for f32), none on the other, and
+    both launched."""
+    other = {"tc": "tf32x3", "tf32x3": "tc"}[route]
+    if counts["tile_forward"][other] or counts["tile_forward"][route] < 1:
+        fail(f"{what}: tile forward routes {counts['tile_forward']}, expected {route} only")
+    if backward and (counts["products"][other] or counts["products"][route] < 1):
+        fail(f"{what}: product routes {counts['products']}, expected {route} only")
 
 
 def machine_trainer(torch):
@@ -789,7 +841,7 @@ def phase_train_run(torch, card: str) -> dict:
         f"{launches}; routes {routes}; plain calls {plain_calls}")
     if min(launches.values()) < 1 or plain_calls:
         fail("the main path did not run through every kernel alone")
-    check_bf16_routes("main path", routes)
+    check_routes("main path", routes, "tc")
     hist = trainer.history
     if len(hist) != 100 * (TRAIN_EPOCHS + 1):
         fail(f"{len(hist)} logged steps")
@@ -1047,7 +1099,9 @@ FAMILY_STEP = {
 
 
 # ---- bounds (H100 SXM datasheet peaks, 700 W)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor-core bf16; f32 off them
+# tensor-core bf16; f32 off them (FMA); f32 by the 3xTF32 split: three
+# TF32 operations (495 TFLOP/s dense) per f32 one
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 MEM_RATE = 3.35e12  # bytes/s of HBM3
 
 
@@ -1118,6 +1172,42 @@ NERF_FANS = [60] + [316 if li == 5 else 256 for li in range(1, 8)]
 NEUS_COL_FANS = [286] + [256] * 8
 NEUS_COL_OUTS = [256] * 8 + [3]
 SDF_FANS = [36] + [292 if li == 5 else 256 for li in range(1, 8)]
+SDF_LAYOUT = tuple(li == 5 for li in range(8))
+# phase 9's count of ReLU rows whose gE took the other side of f'(0) from
+# the all-plain pass, with PR 4's FMA kernels on the same inputs (measured
+# by `python3 tc_accuracy.py --f32 --tree <PR 4's tree>`, NVIDIA H100 80GB
+# HBM3, 700 W)
+PR4_ROWS_OFF_PLAIN_GE = {f"ReLU/{M_NEUS}": 0, f"ReLU/{M_SDF_RAGGED}": 0}
+
+
+def f32_bound(flops: float, nbytes: float) -> dict:
+    """The bound of an f32 route on the 3xTF32 split, with the FMA units'
+    bound beside it (``fma_bound_ms``)."""
+    return {**bound(flops, nbytes, "tf32x3"),
+            "fma_bound_ms": bound(flops, nbytes, "float32")["bound_ms"]}
+
+
+def sdf_inputs(torch, dev, act: str, m: int):
+    """Phase 9's inputs of the NeuS trunk, seeded by the case: e = PE(6)
+    of uniform points, weights and biases uniform in +-1/sqrt(fan_in), and
+    the cotangents ch [M, 256] and cg [M, E] of h and gE."""
+    from neddf_tpu_torch.ops.pe import positional_encoding_mip
+
+    gen = torch.Generator(device=dev).manual_seed(m + 7 * (act == "ReLU"))
+
+    def uniform(shape, scale=1.0):
+        return (torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0) * scale
+
+    e = positional_encoding_mip(uniform((m, 3)), 6).contiguous()
+    ws = [uniform((f, 256), f ** -0.5) for f in SDF_FANS]
+    bs = [uniform((256,), f ** -0.5) for f in SDF_FANS]
+    return e, ws, bs, uniform((m, 256)) * 0.01, uniform((m, e.shape[1])) * 0.01
+
+
+def ge_rows_off_plain(fk, fp) -> int:
+    """Rows whose gE from the kernel's forward ``fk`` leaves the all-plain
+    pass's ``fp`` by more than 1e-4 of its largest magnitude."""
+    return int(((fk[1] - fp[1]).abs().amax(dim=1) > 1e-4 * fp[1].abs().max()).sum().item())
 
 
 def phase_family_kernels(torch, card: str) -> dict:
@@ -1127,7 +1217,6 @@ def phase_family_kernels(torch, card: str) -> dict:
     from neddf_tpu_torch.kernels import mlp
     from neddf_tpu_torch.kernels import sdf_mlp as sk
     from neddf_tpu_torch.ops import sdf_grad
-    from neddf_tpu_torch.ops.pe import positional_encoding_mip
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1188,42 +1277,39 @@ def phase_family_kernels(torch, card: str) -> dict:
                                                                 stash=True),
                                      lambda: mlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU",
                                                                stash=True), reps=3)
+            work = mlp_work(m, fans, outs, dtype_name, sum(widths), stash=True)
             results["mlp_seg"][key].update(
                 ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_work(m, fans, outs, dtype_name, sum(widths), stash=True),
-                        dtype_name))
+                **(f32_bound(*work) if dtype_name == "float32" else bound(*work, dtype_name)))
             ms, plain_ms = time_pair(torch, lambda: mlp.mlp_seg_bwd(*args),
                                      lambda: mlp.mlp_seg_bwd_plain(*args), reps=3)
+            work = mlp_bwd_work(m, fans, outs, dtype_name, sum(widths))
             results["mlp_seg_bwd"][key].update(
                 ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_bwd_work(m, fans, outs, dtype_name, sum(widths)), dtype_name))
+                **(f32_bound(*work) if dtype_name == "float32" else bound(*work, dtype_name)))
         for route in ("mlp_seg", "mlp_seg_bwd"):
             log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
         del fk, fp, bk, bp, again, args, vs, ws
         torch.cuda.empty_cache()
 
     # sdf_mlp: the NeuS SDF trunk with its channel-0 gradient (f32)
-    layout = tuple(li == 5 for li in range(8))
     for act in ("ReLU", "tanhExp"):
         for m in (M_NEUS, M_SDF_RAGGED):
             key = f"{act}/{m}/float32"
-            e = positional_encoding_mip(uniform((m, 3)), 6).contiguous()
-            ws, bs = layers(SDF_FANS, [256] * 8)
-            fk = sk.sdf_mlp(e, ws, bs, layout, act, stash=True)
-            fp = sdf_grad.sdf_trunk_with_grad(e, ws, bs, layout, act, stash=True)
+            e, ws, bs, ch, cg = sdf_inputs(torch, dev, act, m)
+            fk = sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True)
+            fp = sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True)
             torch.cuda.synchronize()
             # gE depends on f'(z) (ReLU: a step): where a z lies within an f32
             # rounding of 0 the two passes may take different sides, so the
             # kernel's sweep is held to the plain sweep over its own z, and
             # the rows where it left the all-plain gE are counted
-            ge_ref = sdf_grad.channel0_sweep(ws, layout, act, fk[2], e.shape[1])
+            ge_ref = sdf_grad.channel0_sweep(ws, SDF_LAYOUT, act, fk[2], e.shape[1])
             r = check("sdf_mlp", key, [(fk[0], fp[0]), (fk[1], ge_ref)]
                       + list(zip(fk[2], fp[2])), REL_TOL["float32"])
-            r["rows_off_plain_ge"] = int(((fk[1] - fp[1]).abs().amax(dim=1)
-                                          > 1e-4 * fp[1].abs().max()).sum().item())
-            ch = uniform((m, 256)) * 0.01
-            cg = uniform((m, 36)) * 0.01
-            args = (e, ws, layout, act, fp[2], ch, cg)
+            r["rows_off_plain_ge"] = ge_rows_off_plain(fk, fp)
+            r["rows_off_plain_ge_pr4"] = PR4_ROWS_OFF_PLAIN_GE.get(f"{act}/{m}")
+            args = (e, ws, SDF_LAYOUT, act, fp[2], ch, cg)
             bk = sk.sdf_mlp_bwd(*args)
             bp = sdf_grad.sdf_trunk_with_grad_vjp(*args)
             torch.cuda.synchronize()
@@ -1232,26 +1318,33 @@ def phase_family_kernels(torch, card: str) -> dict:
             again = sk.sdf_mlp_bwd(*args)
             bitwise("sdf_mlp_bwd", key, bk[1] + bk[2], again[1] + again[2])
             if m == M_NEUS and act == "ReLU":
-                trunk_flops, _ = mlp_work(m, SDF_FANS, [256] * 8, "float32", 36)
+                e_dim = SDF_FANS[0]
+                trunk_flops, _ = mlp_work(m, SDF_FANS, [256] * 8, "float32", e_dim)
                 weights = sum(f * 256 * 4 + 4 * 256 for f in SDF_FANS)
                 ms, plain_ms = time_pair(
-                    torch, lambda: sk.sdf_mlp(e, ws, bs, layout, act, stash=True),
-                    lambda: sdf_grad.sdf_trunk_with_grad(e, ws, bs, layout, act, stash=True),
+                    torch, lambda: sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True),
+                    lambda: sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True),
                     reps=3)
                 # trunk + sweep; e in, h, gE and the stash out
-                results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms, **bound(
-                    2 * trunk_flops, weights + m * 4 * (36 + 256 + 36 + 8 * 256), "float32"))
+                fwd = (2 * trunk_flops, weights + m * 4 * (e_dim + 256 + e_dim + 8 * 256))
+                results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms,
+                                               **f32_bound(*fwd))
                 ms, plain_ms = time_pair(torch, lambda: sk.sdf_mlp_bwd(*args),
                                          lambda: sdf_grad.sdf_trunk_with_grad_vjp(*args),
                                          reps=3)
                 # the replayed sweep (hidden rows of layers 1..7), then four
                 # products per layer; e, the stash, ch, cg in, de and dW/db out
                 replay = 2.0 * m * 256 * 256 * 7
-                results["sdf_mlp_bwd"][key].update(ms=ms, plain_ms=plain_ms, **bound(
-                    4 * trunk_flops + replay,
-                    2 * weights + m * 4 * (36 + 8 * 256 + 256 + 36 + 36), "float32"))
+                bwd = (4 * trunk_flops + replay,
+                       2 * weights + m * 4 * (e_dim + 8 * 256 + 256 + e_dim + e_dim))
+                results["sdf_mlp_bwd"][key].update(ms=ms, plain_ms=plain_ms,
+                                                   **f32_bound(*bwd))
             for route in ("sdf_mlp", "sdf_mlp_bwd"):
                 log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
+            if act == "ReLU":
+                log(f"[9] sdf_mlp {key}: {r['rows_off_plain_ge']} rows whose gE took the other "
+                    f"side of f'(0) from the all-plain pass (PR 4's FMA kernel on the same "
+                    f"inputs: {r['rows_off_plain_ge_pr4']})")
             del fk, fp, bk, bp, again, args, e
             torch.cuda.empty_cache()
     return results
@@ -1316,9 +1409,9 @@ def phase_family_step(torch, card: str) -> dict:
 
 FAMILY_RUN_KERNELS = {"nerf": ("mlp_seg", "mlp_seg_bwd"),
                       "neus": ("sdf_mlp", "sdf_mlp_bwd", "mlp_seg", "mlp_seg_bwd")}
-# the configurations that train in bf16 (NeuS trains in f32, on the FMA
-# bodies of the tile forward and the product)
-BF16_FAMILIES = ("nerf",)
+# the route of every product and tile forward of each configuration's run:
+# NeRF trains in bf16 ("tc"), NeuS in f32 (the 3xTF32 split)
+FAMILY_ROUTES = {"nerf": "tc", "neus": "tf32x3"}
 # run_eval at downsampling 8, kernels vs plain versions: PSNR gap (dB)
 EVAL_PSNR_GAP_DB = 0.05
 
@@ -1362,8 +1455,7 @@ def phase_family_runs(torch, card: str) -> dict:
             f"{launches}; routes {routes}; plain calls {plain_calls}")
         if min(launches.values()) < 1 or plain_calls:
             fail(f"the {family} run did not go through every kernel alone")
-        if family in BF16_FAMILIES:
-            check_bf16_routes(f"the {family} run", routes)
+        check_routes(f"the {family} run", routes, FAMILY_ROUTES[family])
         hist = trainer.history
         if len(hist) != 100 * (TRAIN_EPOCHS + 1):
             fail(f"{family}: {len(hist)} logged steps")
@@ -1589,7 +1681,7 @@ def main() -> int:
         f"plain calls: {plain_calls}")
     if min(launches.values()) < 1 or plain_calls:
         fail("the main path did not run through both kernels alone")
-    check_bf16_routes("eval render", eval_routes, backward=False)
+    check_routes("eval render", eval_routes, "tc", backward=False)
 
     # the same rays rendered with the kernels and with the plain versions:
     # in f32 only the order of the sums differs (amplified by 1/D in the
@@ -1712,18 +1804,25 @@ def main() -> int:
         family_entry("sdf_mlp_bwd", "neddf_tpu_torch/csrc/sdf_mlp.cu",
                      "neddf_tpu/kernels/sdf_mlp.py:304", "neus", "sdf_mlp_bwd", sdf_key),
     ]
-    # the bf16 product of the backwards alone (the products inside the
-    # Pallas _bwd_kernel), at the fine trunk's dx; library_ms is
-    # torch.matmul on the same bf16 operands (bf16 out)
-    nt = products["nt fine trunk dx"]
-    kernels.append({
-        "name": "tc_gemm_kernel (bf16 products of the backwards, tensor cores)",
-        "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
-        "replaces": "neddf_tpu/kernels/dual_mlp.py:728",
-        "launches": train["routes"]["products"]["tc"],
-        "max_abs_err": max(r["max_abs_err"] for r in products.values()),
-        "ms": nt["ms"], "plain_ms": nt["plain_ms"], "bound_ms": nt["bound_ms"],
-        "bound_by": nt["bound_by"], "library_ms": nt["library_ms"]})
+    # the products of the backwards alone (the products inside the Pallas
+    # _bwd_kernel): bf16 at the fine trunk's dx, library_ms torch.matmul on
+    # the same bf16 operands (bf16 out);
+    # and the f32 product (3xTF32) at the NeuS trunk's dx; library_ms is
+    # torch.matmul on the same f32 operands, TF32 off
+    for name, case, dtype, launches in (
+            ("tc_gemm_kernel (bf16 products of the backwards, tensor cores)",
+             "nt fine trunk dx", "bfloat16", train["routes"]["products"]["tc"]),
+            ("tc_gemm_kernel (f32 products of the backwards, 3xTF32 on the tensor cores)",
+             "f32 nt NeuS trunk dx", "float32",
+             family_runs["neus"]["routes"]["products"]["tf32x3"])):
+        r = products[case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+            "replaces": "neddf_tpu/kernels/dual_mlp.py:728", "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for v in products.values()
+                               if v["dtype"] == dtype),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,

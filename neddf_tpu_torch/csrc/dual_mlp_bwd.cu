@@ -15,8 +15,8 @@
 // * neddf_dual_act: the layer's input h_in = (f(z_v), f'(z_v) z_a)
 //   recomputed from the stash of layer l-1, rounded to T;
 // * two products: dx = G W^T and dW = h_in^T G (for layer 0 and a
-//   post-skip layer, per input block of rows of W): neddf_gemm_bf16_tc
-//   (tensor cores) for bf16 operands, neddf_gemm_f32acc (FMA) for f32;
+//   post-skip layer, per input block of rows of W): neddf_gemm_tc, on
+//   the tensor cores for bf16 and for f32 operands;
 // * neddf_sum_splits: the fixed-order sum of the dW / db partials.
 // The same products serve the backwards of mlp_bwd.cu and sdf_mlp.cu.
 //
@@ -27,24 +27,30 @@
 //
 // What bounds it on the H100: the two products per layer are
 // 2 * S*M * C * fan_in FLOPs each (about 0.1 TFLOP per trunk layer at
-// the training batch). In bf16 they run on the tensor cores
-// (tc_gemm_kernel): a 128x128 output tile per block of 8 warps, each warp
-// 64x32 as 4x4 mma.sync m16n8k16 tiles with f32 accumulators in
-// registers; both operands stream through a ring of 3 shared-memory
-// stages of depth 64 filled by cp.async, so the copy of stage k+2
-// overlaps the products of stage k; rows padded by 16 bytes keep
-// ldmatrix (.trans for an operand whose M or N side is contiguous) free
-// of bank conflicts. dx (M = S*M rows, N = fan-in, K = C) then writes
-// 4 bytes of f32 per output against 2*K FLOPs: about 130 FLOP per byte,
-// below the 295 at which the tensor cores, and not device memory, are
-// the limit, so its tile leaves through shared memory in coalesced
-// streaming stores. dW reduces over S*M rows in fixed-order split
-// partials.
+// the training batch). They run on the tensor cores (tc_gemm_kernel): a
+// 128x128 output tile per block of 8 warps, each warp 64x32 as 4x4 mma
+// tiles with f32 accumulators in registers; both operands stream through
+// a ring of 3 shared-memory stages of 128 bytes per row (64 bf16 or 32
+// f32) filled by cp.async, so the copy of stage k+2 overlaps the
+// products of stage k. bf16 operands: mma.sync m16n8k16, fragments by
+// ldmatrix (.trans for an operand whose M or N side is contiguous), rows
+// padded by 16 bytes against bank conflicts. f32 operands (NeuS, and the
+// f32 reference steps): the 3xTF32 split of tc_ops.cuh, three mma.sync
+// m16n8k8 tf32 per f32 multiply-add, each fragment split into hi/lo as
+// it is read from shared memory; a K-contiguous tile gives its
+// fragments by the same ldmatrix byte addresses as bf16, an M- or
+// N-contiguous one (dW = in^T G, the NeuS sweep's pbar = qbar W) by
+// element loads whose lanes fall on distinct banks. The f32 bound is
+// then 3 TF32 FLOPs per FLOP at 495 TFLOP/s (165 TFLOP/s of f32 work),
+// or the bytes. dx (M = S*M rows, N = fan-in, K = C) writes 4 bytes of
+// f32 per output against 2*K FLOPs: about 130 FLOP per byte, below the
+// 295 at which the bf16 tensor cores, and not device memory, are the
+// limit, so its tile leaves through shared memory in coalesced streaming
+// stores. dW reduces over S*M rows in fixed-order split partials.
 // The elementwise kernels (gstack, dual_act, sum_splits) and the f32
 // round trip of g move ~(3 * 4 + 4 * 2) bytes per stacked element and are
 // bound by device memory; with the products on the tensor cores they
-// take most of the backward (fusing gstack into the product is next).
-// f32 operands keep the FMA product (gemm_kernel, CUDA cores).
+// take most of the bf16 backward (fusing gstack into the product is next).
 #include "mlp_tile.cuh"
 #include "tc_ops.cuh"
 
@@ -105,166 +111,115 @@ __global__ void dual_act_kernel(int S, int C, int M, const T* __restrict__ z,
   }
 }
 
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kGemmThreads = 256;
-
-// out[z][m][n] = sum over k in split z of A(m, k) B(k, n), with
-// A(m, k) = A[m*sam + k*sak] and B(k, n) = B[k*sbk + n*sbn] (f32; bf16
-// operands go to tc_gemm_kernel), f32 accumulators. Loads follow the
-// unit stride of each operand.
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(int M, int N, int K, int k_chunk, const float* __restrict__ A,
-                long long sam, long long sak, const float* __restrict__ B,
-                long long sbk, long long sbn, float* __restrict__ out) {
-  __shared__ float As[kDepth][kTile + 1];
-  __shared__ float Bs[kDepth][kTile + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int kb = blockIdx.z * k_chunk;
-  const int ke = min(K, kb + k_chunk);
-  float acc[4][4] = {};
-  for (int k0 = kb; k0 < ke; k0 += kDepth) {
-    for (int idx = tid; idx < kTile * kDepth; idx += kGemmThreads) {
-      int mm, kk;
-      if (sak == 1) {
-        mm = idx / kDepth;
-        kk = idx % kDepth;
-      } else {
-        mm = idx % kTile;
-        kk = idx / kTile;
-      }
-      const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < M && k < ke) ? ld(A, (size_t)m * sam + (size_t)k * sak) : 0.f;
-      int nn;
-      if (sbk == 1) {
-        nn = idx / kDepth;
-        kk = idx % kDepth;
-      } else {
-        nn = idx % kTile;
-        kk = idx / kTile;
-      }
-      const int n = n0 + nn, k2 = k0 + kk;
-      Bs[kk][nn] = (n < N && k2 < ke) ? ld(B, (size_t)k2 * sbk + (size_t)n * sbn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) o[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
-// ---- the bf16 product on the tensor cores
+// ---- the products on the tensor cores: bf16 operands by mma.sync
+// m16n8k16, f32 operands by the 3xTF32 split (tc_ops.cuh: mma_3xtf32)
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcBM = 128;  // output rows per block
 constexpr int kTcBN = 128;  // output columns per block
-constexpr int kTcBK = 64;   // depth of one stage
 constexpr int kTcStages = 3;
 constexpr int kTcThreads = 256;
-// shared tiles: [rows][64] when K is the operand's contiguous side,
-// [64][128] when M (or N) is; rows padded by 8 elements (16 bytes)
-constexpr int kPitchK = kTcBK + 8;
-constexpr int kPitchMN = kTcBM + 8;
-constexpr int kTcOpElems = kTcBM * kPitchK;  // >= kTcBK * kPitchMN
-constexpr int kTcSmem = 2 * kTcStages * kTcOpElems * (int)sizeof(bf16);
-static_assert(kTcBK * kPitchMN <= kTcOpElems, "stage size");
+
+// the shared tiles of operand type T. A stage is 128 bytes deep (64 bf16
+// or 32 f32) and one mma 32 bytes (k16 bf16, k8 tf32), so the byte
+// addresses of the ldmatrix fragments are the same for both types.
+// Tiles are [rows][BK] when K is the operand's contiguous side (rows
+// padded by 16 bytes: ldmatrix without bank conflicts) and [BK][128] when
+// M (or N) is (padded by 8 elements: conflict-free for ldmatrix .trans in
+// bf16, and for the element loads of f32, whose lanes (k t, m g) then
+// fall on banks 8t + g).
+template <typename T>
+struct TcShape {
+  static constexpr int BK = 128 / (int)sizeof(T);   // depth of one stage
+  static constexpr int KSTEP = 32 / (int)sizeof(T);  // depth of one mma
+  static constexpr int PK = BK + 16 / (int)sizeof(T);
+  static constexpr int PMN = kTcBM + 8;
+  static constexpr int OP = kTcBM * PK;  // elements of one operand's stage
+  static_assert(BK * PMN <= OP, "stage size");
+};
+constexpr int kTcSmem = 2 * kTcStages * TcShape<bf16>::OP * (int)sizeof(bf16);
+static_assert(kTcSmem == 2 * kTcStages * TcShape<float>::OP * (int)sizeof(float), "stages");
 
 // one operand: element (outer o, inner i) at p[o * ld + i], the inner
-// side contiguous, copied `vec` elements (2*vec bytes) at a time
+// side contiguous, copied `vec` elements at a time
+template <typename T>
 struct TcOperand {
-  const bf16* p;
+  const T* p;
   long long ld;
   int vec;
 };
 
 // the OUTER x INNER tile at (o0, i0) into shared s (row pitch P), zeros
-// past (olim, ilim)
-template <int OUTER, int INNER, int P, int V>
-__device__ __forceinline__ void tc_copy_tile(bf16* s, const TcOperand& op, int o0, int olim,
+// past (olim, ilim); copies of V elements (cp.async from 4 bytes up)
+template <typename T, int OUTER, int INNER, int P, int V>
+__device__ __forceinline__ void tc_copy_tile(T* s, const TcOperand<T>& op, int o0, int olim,
                                              int i0, int ilim, int tid) {
   constexpr int CPR = INNER / V;
+  constexpr int BYTES = V * (int)sizeof(T);
 #pragma unroll 1
   for (int idx = tid; idx < OUTER * CPR; idx += kTcThreads) {
     const int r = idx / CPR;
     const int c = (idx - r * CPR) * V;
     const int go = o0 + r, gi = i0 + c;
     const int valid = go < olim ? max(0, min(V, ilim - gi)) : 0;
-    const bf16* src = valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p;
-    if constexpr (V == 1) {
-      s[r * P + c] = valid > 0 ? *src : __float2bfloat16_rn(0.f);
+    const T* src = valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p;
+    if constexpr (BYTES < 4) {
+      s[r * P + c] = valid > 0 ? *src : neddf::from_f32<T>(0.f);
     } else {
-      neddf::cp_async<2 * V>(neddf::smem_u32(s + r * P + c), src, 2 * valid);
+      neddf::cp_async<BYTES>(neddf::smem_u32(s + r * P + c), src, (int)sizeof(T) * valid);
     }
   }
 }
 
-template <int OUTER, int INNER, int P>
-__device__ __forceinline__ void tc_load_tile(bf16* s, const TcOperand& op, int o0, int olim,
+template <typename T, int OUTER, int INNER, int P>
+__device__ __forceinline__ void tc_load_tile(T* s, const TcOperand<T>& op, int o0, int olim,
                                              int i0, int ilim, int tid) {
-  switch (op.vec) {
-    case 8: tc_copy_tile<OUTER, INNER, P, 8>(s, op, o0, olim, i0, ilim, tid); break;
-    case 4: tc_copy_tile<OUTER, INNER, P, 4>(s, op, o0, olim, i0, ilim, tid); break;
-    case 2: tc_copy_tile<OUTER, INNER, P, 2>(s, op, o0, olim, i0, ilim, tid); break;
-    default: tc_copy_tile<OUTER, INNER, P, 1>(s, op, o0, olim, i0, ilim, tid);
+  constexpr int E = (int)sizeof(T);
+  switch (op.vec * E) {
+    case 16: tc_copy_tile<T, OUTER, INNER, P, 16 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    case 8: tc_copy_tile<T, OUTER, INNER, P, 8 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    case 4: tc_copy_tile<T, OUTER, INNER, P, 4 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    default: tc_copy_tile<T, OUTER, INNER, P, 1>(s, op, o0, olim, i0, ilim, tid);
   }
 }
 
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
 // [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
 // with K contiguous (else [K, N], N contiguous).
-template <bool A_K, bool B_K>
+template <typename T, bool A_K, bool B_K>
 __global__ void __launch_bounds__(kTcThreads, 2)
-    tc_gemm_kernel(int M, int N, int K, int k_chunk, const TcOperand A, const TcOperand B,
-                   float* __restrict__ out) {
+    tc_gemm_kernel(int M, int N, int K, int k_chunk, const TcOperand<T> A,
+                   const TcOperand<T> B, float* __restrict__ out) {
+  using Sh = TcShape<T>;
+  constexpr int BK = Sh::BK, PK = Sh::PK, PMN = Sh::PMN, OP = Sh::OP;
+  constexpr bool kF32 = std::is_same_v<T, float>;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* sA = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sB = sA + kTcStages * kTcOpElems;
+  T* sA = reinterpret_cast<T*>(tc_smem);
+  T* sB = sA + kTcStages * OP;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int wm = (warp >> 2) * 64;  // 2 x 4 warps of 64 rows x 32 columns
   const int wn = (warp & 3) * 32;
   const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
   const int kb = blockIdx.z * k_chunk;
   const int ke = min(K, kb + k_chunk);
-  const int nk = ke > kb ? (ke - kb + kTcBK - 1) / kTcBK : 0;
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
 
   auto load = [&](int t) {
-    const int k0 = kb + t * kTcBK;
-    bf16* a = sA + (t % kTcStages) * kTcOpElems;
-    bf16* b = sB + (t % kTcStages) * kTcOpElems;
+    const int k0 = kb + t * BK;
+    T* a = sA + (t % kTcStages) * OP;
+    T* b = sB + (t % kTcStages) * OP;
     if constexpr (A_K) {
-      tc_load_tile<kTcBM, kTcBK, kPitchK>(a, A, m0, M, k0, ke, tid);
+      tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, ke, tid);
     } else {
-      tc_load_tile<kTcBK, kTcBM, kPitchMN>(a, A, k0, ke, m0, M, tid);
+      tc_load_tile<T, BK, kTcBM, PMN>(a, A, k0, ke, m0, M, tid);
     }
     if constexpr (B_K) {
-      tc_load_tile<kTcBN, kTcBK, kPitchK>(b, B, n0, N, k0, ke, tid);
+      tc_load_tile<T, kTcBN, BK, PK>(b, B, n0, N, k0, ke, tid);
     } else {
-      tc_load_tile<kTcBK, kTcBN, kPitchMN>(b, B, k0, ke, n0, N, tid);
+      tc_load_tile<T, BK, kTcBN, PMN>(b, B, k0, ke, n0, N, tid);
     }
   };
 
@@ -285,41 +240,71 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     __syncthreads();  // stage t has landed; stage t-1 is free for refill
     if (t + kTcStages - 1 < nk) load(t + kTcStages - 1);
     neddf::cp_async_commit();
-    const bf16* a = sA + (t % kTcStages) * kTcOpElems;
-    const bf16* b = sB + (t % kTcStages) * kTcOpElems;
-    const int k_left = ke - (kb + t * kTcBK);  // zeros past it: skip their mma
+    const T* a = sA + (t % kTcStages) * OP;
+    const T* b = sB + (t % kTcStages) * OP;
+    const int k_left = ke - (kb + t * BK);  // zeros past it: skip their mma
 #pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += Sh::KSTEP) {
       if (kk >= k_left) break;
-      // the warp's B fragments first (8 registers), then one A fragment
-      // at a time (4): fewer live registers than all of A first
-      uint32_t bfr[2][4];  // [nj]: b0, b1 of column tile 2nj, then of 2nj+1
+      // the warp's B fragments first, then one A fragment at a time: fewer
+      // live registers than all of A first.
+      // bfr[nj]: b0, b1 of column tile 2nj, then of 2nj+1
+      uint32_t bfr[2][4];
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
         const int n = wn + nj * 16;
         if constexpr (B_K) {
-          neddf::ldsm_x4(bfr[nj], neddf::smem_u32(
-              b + (n + (lane & 7) + (lane >> 4) * 8) * kPitchK + kk + ((lane >> 3) & 1) * 8));
-        } else {
+          neddf::ldsm_x4(bfr[nj], neddf::smem_u32(b + (n + (lane & 7) + (lane >> 4) * 8) * PK +
+                                                  kk) + ((lane >> 3) & 1) * 16);
+        } else if constexpr (!kF32) {
           neddf::ldsm_x4_t(bfr[nj], neddf::smem_u32(
-              b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitchMN + n + (lane >> 4) * 8));
+              b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * PMN + n + (lane >> 4) * 8));
+        } else {
+          const T* p = b + (kk + tq) * PMN + n + g;  // (k t, n g)
+          bfr[nj][0] = __float_as_uint(p[0]);
+          bfr[nj][1] = __float_as_uint(p[4 * PMN]);
+          bfr[nj][2] = __float_as_uint(p[8]);
+          bfr[nj][3] = __float_as_uint(p[4 * PMN + 8]);
         }
+      }
+      uint32_t blo[2][4];
+      if constexpr (kF32) {
+        neddf::split_tf32(bfr[0], blo[0]);
+        neddf::split_tf32(bfr[1], blo[1]);
       }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
         const int m = wm + mi * 16;
         uint32_t af[4];
         if constexpr (A_K) {
-          neddf::ldsm_x4(af, neddf::smem_u32(
-              a + (m + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitchK + kk + (lane >> 4) * 8));
-        } else {
+          neddf::ldsm_x4(af, neddf::smem_u32(a + (m + (lane & 7) + ((lane >> 3) & 1) * 8) * PK +
+                                             kk) + (lane >> 4) * 16);
+        } else if constexpr (!kF32) {
           neddf::ldsm_x4_t(af, neddf::smem_u32(
-              a + (kk + (lane & 7) + (lane >> 4) * 8) * kPitchMN + m + ((lane >> 3) & 1) * 8));
+              a + (kk + (lane & 7) + (lane >> 4) * 8) * PMN + m + ((lane >> 3) & 1) * 8));
+        } else {
+          const T* p = a + (kk + tq) * PMN + m + g;  // (row g, k t)
+          af[0] = __float_as_uint(p[0]);
+          af[1] = __float_as_uint(p[8]);
+          af[2] = __float_as_uint(p[4 * PMN]);
+          af[3] = __float_as_uint(p[4 * PMN + 8]);
         }
+        if constexpr (kF32) {
+          uint32_t alo[4];
+          neddf::split_tf32(af, alo);
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          neddf::mma_bf16_16816(acc[mi][2 * nj], af, bfr[nj][0], bfr[nj][1]);
-          neddf::mma_bf16_16816(acc[mi][2 * nj + 1], af, bfr[nj][2], bfr[nj][3]);
+          for (int nj = 0; nj < 2; ++nj) {
+            neddf::mma_3xtf32(acc[mi][2 * nj], af, alo, bfr[nj][0], bfr[nj][1], blo[nj][0],
+                              blo[nj][1]);
+            neddf::mma_3xtf32(acc[mi][2 * nj + 1], af, alo, bfr[nj][2], bfr[nj][3],
+                              blo[nj][2], blo[nj][3]);
+          }
+        } else {
+#pragma unroll
+          for (int nj = 0; nj < 2; ++nj) {
+            neddf::mma_bf16_16816(acc[mi][2 * nj], af, bfr[nj][0], bfr[nj][1]);
+            neddf::mma_bf16_16816(acc[mi][2 * nj + 1], af, bfr[nj][2], bfr[nj][3]);
+          }
         }
       }
     }
@@ -327,7 +312,6 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   neddf::cp_async_wait<0>();
 
   float* o = out + (size_t)blockIdx.z * M * N;
-  const int g = lane >> 2, tq = lane & 3;
   if constexpr (A_K && B_K) {
     // dx (nt, N of a whole tile or more): its f32 output is most of the
     // bytes, so the tile goes through the free ring in shared memory and
@@ -378,14 +362,37 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       }
 }
 
-template <bool A_K, bool B_K>
+template <typename T, bool A_K, bool B_K>
 cudaError_t launch_tc_gemm(dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
-                           const TcOperand& a, const TcOperand& b, float* out) {
+                           const TcOperand<T>& a, const TcOperand<T>& b, float* out) {
   const cudaError_t err = cudaFuncSetAttribute(
-      tc_gemm_kernel<A_K, B_K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+      tc_gemm_kernel<T, A_K, B_K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return err;
-  tc_gemm_kernel<A_K, B_K><<<grid, kTcThreads, kTcSmem, s>>>(M, N, K, k_chunk, a, b, out);
+  tc_gemm_kernel<T, A_K, B_K><<<grid, kTcThreads, kTcSmem, s>>>(M, N, K, k_chunk, a, b, out);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t gemm_tc(int layout, int M, int N, int K, const void* A, long long lda, int vec_a,
+                    const void* B, long long ldb, int vec_b, int splits, void* out,
+                    cudaStream_t s) {
+  constexpr int E = (int)sizeof(T);
+  auto misaligned = [](const void* ptr, long long ld, int vec) {
+    return (vec != 1 && vec != 2 && vec != 4 && vec * E != 16) || ld < 1 || ld % vec != 0 ||
+           reinterpret_cast<uintptr_t>(ptr) % (E * vec) != 0;
+  };
+  if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b)) return cudaErrorInvalidValue;
+  constexpr int BK = TcShape<T>::BK;
+  int k_chunk = (K + splits - 1) / splits;
+  k_chunk = (k_chunk + BK - 1) / BK * BK;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const TcOperand<T> a{static_cast<const T*>(A), lda, vec_a};
+  const TcOperand<T> b{static_cast<const T*>(B), ldb, vec_b};
+  float* o = static_cast<float*>(out);
+  if (layout == 0) return launch_tc_gemm<T, true, true>(grid, s, M, N, K, k_chunk, a, b, o);
+  if (layout == 1) return launch_tc_gemm<T, false, false>(grid, s, M, N, K, k_chunk, a, b, o);
+  return launch_tc_gemm<T, true, false>(grid, s, M, N, K, k_chunk, a, b, o);
 }
 
 __global__ void sum_splits_kernel(long long n, int splits,
@@ -439,58 +446,24 @@ extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
   return (int)cudaGetLastError();
 }
 
-// The f32 product (FMA), out[z] = A B over split z of K; bf16 products
-// run on the tensor cores (neddf_gemm_bf16_tc).
-extern "C" int neddf_gemm_f32acc(int M, int N, int K, const void* A, long long sam,
-                                 long long sak, const void* B, long long sbk, long long sbn,
-                                 int splits, void* out, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || splits > 65535)
+// The products on the tensor cores, out[z] = A B over split z of K (f32
+// partials [splits, M, N]): dtype 1 bf16 operands (mma m16n8k16), 0 f32
+// operands (3xTF32). layout 0 (nt): A [M, K] and B [N, K], K contiguous in
+// both; 1 (tn): A [K, M] and B [K, N]; 2 (nn): A [M, K] and B [K, N].
+// lda / ldb: elements between rows; vec_a / vec_b: elements per copy (8,
+// 4, 2 or 1 bf16; 4, 2 or 1 f32), which the row stride and the pointer
+// must allow. Any other layout, or a misaligned vector width, is refused.
+extern "C" int neddf_gemm_tc(int dtype, int layout, int M, int N, int K, const void* A,
+                             long long lda, int vec_a, const void* B, long long ldb, int vec_b,
+                             int splits, void* out, void* stream) {
+  if (dtype < 0 || dtype > 1 || layout < 0 || layout > 2 || M <= 0 || N <= 0 || K <= 0 ||
+      splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int k_chunk = (K + splits - 1) / splits;
-  k_chunk = (k_chunk + kDepth - 1) / kDepth * kDepth;
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  gemm_kernel<<<grid, kGemmThreads, 0, s>>>(
-      M, N, K, k_chunk, static_cast<const float*>(A), sam, sak,
-      static_cast<const float*>(B), sbk, sbn, static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
-// The bf16 product on the tensor cores, out[z] = A B over split z of K
-// (f32 partials [splits, M, N]). layout 0 (nt): A [M, K] and B [N, K],
-// K contiguous in both; 1 (tn): A [K, M] and B [K, N]; 2 (nn): A [M, K]
-// and B [K, N]. lda / ldb: elements between rows; vec_a / vec_b: elements
-// per copy (8, 4, 2 or 1), which the row stride and the pointer must
-// allow. Any other layout, or a misaligned vector width, is refused.
-extern "C" int neddf_gemm_bf16_tc(int layout, int M, int N, int K, const void* A,
-                                  long long lda, int vec_a, const void* B, long long ldb,
-                                  int vec_b, int splits, void* out, void* stream) {
-  if (layout < 0 || layout > 2 || M <= 0 || N <= 0 || K <= 0 || splits < 1 ||
-      splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  auto misaligned = [](const void* ptr, long long ld, int vec) {
-    return (vec != 1 && vec != 2 && vec != 4 && vec != 8) || ld < 1 || ld % vec != 0 ||
-           reinterpret_cast<uintptr_t>(ptr) % (2 * vec) != 0;
-  };
-  if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b))
-    return (int)cudaErrorInvalidValue;
-  int k_chunk = (K + splits - 1) / splits;
-  k_chunk = (k_chunk + kTcBK - 1) / kTcBK * kTcBK;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const TcOperand a{static_cast<const bf16*>(A), lda, vec_a};
-  const TcOperand b{static_cast<const bf16*>(B), ldb, vec_b};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  cudaError_t err;
-  if (layout == 0)
-    err = launch_tc_gemm<true, true>(grid, s, M, N, K, k_chunk, a, b, o);
-  else if (layout == 1)
-    err = launch_tc_gemm<false, false>(grid, s, M, N, K, k_chunk, a, b, o);
-  else
-    err = launch_tc_gemm<true, false>(grid, s, M, N, K, k_chunk, a, b, o);
-  return (int)err;
+  return (int)(dtype == 1
+                   ? gemm_tc<bf16>(layout, M, N, K, A, lda, vec_a, B, ldb, vec_b, splits, out, s)
+                   : gemm_tc<float>(layout, M, N, K, A, lda, vec_a, B, ldb, vec_b, splits, out,
+                                    s));
 }
 
 extern "C" int neddf_sum_splits(long long n, int splits, const void* parts,

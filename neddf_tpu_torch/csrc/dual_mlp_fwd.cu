@@ -21,8 +21,8 @@
 // 2*C bytes per stacked row and layer (about 1.6 GB per step for the
 // fine trunk), is held by those stash bytes and the epilogue's
 // activations rather than by the products; the eval trunk (no stash) by
-// the products and the epilogue. In f32 it keeps the FMA body, bound by
-// the CUDA cores' 67 TFLOP/s.
+// the products and the epilogue. In f32 the same body runs its products
+// by the 3xTF32 split, bound by 165 TFLOP/s of f32 work.
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;

@@ -12,7 +12,7 @@
 //   db = sum_rows gpre per block of rows;
 // * neddf_mlp_act: the layer's input f(z_{l-1}) recomputed from the stash
 //   of layer l-1, rounded to T;
-// * neddf_gemm_f32acc (dual_mlp_bwd.cu): dx = gpre W^T and dW = h_in^T
+// * neddf_gemm_tc (dual_mlp_bwd.cu): dx = gpre W^T and dW = h_in^T
 //   gpre, per input segment of layer 0 and per block of rows of a
 //   post-skip layer's W ([h, seg0]: the seg0 rows' cotangent goes to
 //   layer 0's first segment);
@@ -20,7 +20,8 @@
 //   db partials, so that two runs give bitwise-equal dW and db.
 //
 // What bounds it on the H100: the two products per layer, 2 * M * C *
-// fan_in FLOPs each, on the CUDA cores (see dual_mlp_bwd.cu); the two
+// fan_in FLOPs each, on the tensor cores (bf16, or f32 by the 3xTF32
+// split; see dual_mlp_bwd.cu); the two
 // elementwise kernels here move ~(4 + 2 * sizeof(T)) bytes per element
 // and are bound by device memory.
 #include "mlp_tile.cuh"

@@ -14,13 +14,16 @@
 // * the NeuS colour trunk: segments pos, PE(dir), grad sdf, features
 //   (3/24/3/256), ReLU, 8 layers of 256 and a last layer of 3 columns,
 //   which the Python wrapper pads to 256 zero columns (exact: the padded
-//   columns never feed a real one) and slices off again.
+//   columns never feed a real one) and slices off again;
+// * the NeuS SDF trunk: one segment PE(pos) (36), ReLU, 8 layers, [h, e]
+//   after layer 4, always with its stash, which sdf_mlp.cu's sweep reads
+//   (kernels/sdf_mlp.py launches the two in turn).
 //
 // Under a differentiated call (stash != null) every layer's
 // pre-activation [M, C] is written rounded to T for the backward
 // (mlp_bwd.cu), as the Pallas forward's stash variant does. Bound and
-// design: see mlp_tile.cuh (bf16 on the tensor cores, f32 on the FMA
-// body).
+// design: see mlp_tile.cuh (the tensor cores: bf16 mma, f32 by the 3xTF32
+// split).
 #include "mlp_tile.cuh"
 
 using neddf::TileArgs;

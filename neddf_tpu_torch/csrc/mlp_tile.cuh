@@ -33,40 +33,53 @@
 //   defines it). Sums and activations are f32; the f32 bias is added to
 //   the value rows only.
 //
-// Two bodies, chosen by T:
+// One body for both operand types, tile_forward_tc: each layer's product
+// [kRows x fan_in] x [fan_in x C] runs on the tensor cores with f32
+// accumulators in registers: 128 per thread, so the block has 8 warps
+// (256 threads, up to 255 registers each; 512 threads would leave 64
+// registers beside the accumulators, and spill). Each warp owns one sample
+// slice (16 samples, 32 for K=0) of EVERY stream and a band of columns, so
+// the value and the tangents of one sample and column sit in the same
+// thread and the epilogue f'(z_v) * z_t needs no exchange. x0 is staged in
+// 16- or 8-byte loads where a segment's rows allow them. A operands come
+// from x0 / h by ldmatrix (rows padded to an odd multiple of 16 bytes: no
+// bank conflicts), B from a ring of 3 weight tiles filled by cp.async,
+// walked as one schedule across pieces and layers, so the copy of the next
+// tiles (the next layer's too) overlaps the products. A fan-in that is not
+// a multiple of the mma depth (60, 343, 256+60, 39, 286) reads zero-padded
+// x0 columns against weight rows zero-filled in shared memory past the
+// piece; no padded weight exists in device memory.
 //
-// * bf16 (tile_forward_tc): each layer's product [kRows x fan_in] x
-//   [fan_in x C] runs on the tensor cores, mma.sync m16n8k16 with f32
-//   accumulators in registers: 128 per thread, so the block has 8 warps
-//   (256 threads, up to 255 registers each; 512 threads would leave 64
-//   registers beside the accumulators, and spill). Each warp owns one
-//   sample slice (16 samples, 32 for K=0) of EVERY stream and a band of
-//   columns, so the value and the tangents of one sample and column sit
-//   in the same thread and the epilogue f'(z_v) * z_t needs no exchange.
-//   x0 is staged in 16- or 8-byte loads where a segment's rows allow
-//   them. A operands come from x0 / h
-//   by ldmatrix (rows padded by 16 bytes: no bank conflicts), B from a
-//   ring of 3 weight tiles of 32 rows filled by cp.async, walked as one
-//   schedule across pieces and layers, so the copy of the next tiles
-//   (the next layer's too) overlaps the products. A fan-in that is not a
-//   multiple of 32 (60, 343, 256+60) reads zero-padded x0 columns against
-//   weight rows zero-filled in shared memory past the piece; no padded
-//   weight exists in device memory.
-// * f32 (tile_forward_fma): plain FMA on the CUDA cores, weights through
-//   shared memory kKTile rows at a time, each thread an output sub-tile
-//   (SPT samples x S streams x 16 columns) in registers. f32 keeps this
-//   body: its gates hold f32 to 1e-4, which TF32 products would not.
+// * bf16: mma.sync m16n8k16, weight tiles of 32 rows, B fragments by
+//   ldmatrix .trans.
+// * f32 (NeuS, and the f32 reference steps): the 3xTF32 split of
+//   tc_ops.cuh, three mma.sync m16n8k8 tf32 per f32 multiply-add, each
+//   fragment split into hi and lo as it is read from shared memory. TF32
+//   alone keeps about three decimal digits, which the f32 gates (1e-4
+//   kernel vs plain version, 1e-3 against the JAX package) would not
+//   hold; the split leaves about 2^-21 of each product, the order of an
+//   f32 FMA sum's own rounding over a fan-in of 256. A fragments come by
+//   the same ldmatrix byte addresses as in bf16 (a stage row of 32-bit
+//   elements is read as pairs of b16), B fragments by element loads (no
+//   32-bit ldmatrix .trans) from weight rows padded by 8 elements, so the
+//   lanes (k t, column g) fall on banks 8t + g. Shared memory doubles per
+//   element, so f32 weight tiles hold 16 rows, x0 is padded only to the
+//   mma depth of 8 (the loop stops at a piece's last mma) and h by 4
+//   elements: the largest f32 configuration, the K=1 colour trunk with
+//   its 343-wide x0, takes 229,728 of the 232,448 bytes a block may use.
 //
 // What bounds it on the H100: at C = 256 a stacked row costs
 // 2*C*fan_in FLOPs per layer against 2*(C0 + C) bytes of input and output
 // per sample stream, i.e. over a thousand FLOPs per byte without a stash:
 // in bf16 the tensor cores' rate (989 TFLOP/s) is the bound, with the
 // stash (2*C bytes per stacked row and layer) the bytes come within a
-// factor of a few of it. The kernel runs far from both: per layer each
-// block waits on one barrier per 32 weight rows, its epilogue (tanhExp:
-// two transcendentals per value element, the stash's 4-byte stores) does
-// not overlap the products, and one block of 8 warps per SM hides little
-// latency. In f32 the bound is the FMA issue rate (67 TFLOP/s at 700 W).
+// factor of a few of it; in f32 the 3xTF32 rate (165 TFLOP/s of f32 work
+// at 700 W; 67 on the FMA units). The kernel runs far from both: per
+// layer each block waits on one barrier per weight tile, its epilogue
+// (tanhExp: two transcendentals per value element, the stash's stores)
+// does not overlap the products, and one block of 8 warps per SM hides
+// little latency; in f32 the split adds three ALU operations per
+// fragment element read.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,14 +94,21 @@ namespace neddf {
 
 constexpr int kMaxSeg = 4;
 constexpr int kMaxLayers = 12;
-constexpr int kThreads = 512;        // threads of a block (FMA body)
-constexpr int kTcTileThreads = 256;  // threads of a block (tensor-core body)
+constexpr int kTcTileThreads = 256;  // threads of a block
 constexpr int kRows = 128;      // stacked rows (streams x samples) per block
-constexpr int kColGroups = 16;  // threads across the output columns (FMA body)
-constexpr int kKTile = 16;      // weight rows staged per step (FMA body)
-constexpr int kTcKTile = 32;    // weight rows per ring stage (tensor-core body)
-constexpr int kTcWStages = 3;   // weight ring stages (tensor-core body)
-constexpr int kTcPad = 8;       // elements (16 bytes) of row padding in shared memory
+constexpr int kTcWStages = 3;   // weight ring stages
+
+// the tile body's shapes by operand type: weight rows per ring stage (two
+// mma depths), the mma depth, x0's column alignment and the row paddings
+// of x0, h and the weight tiles in shared memory (see above)
+template <typename T>
+struct TileShape {
+  static constexpr int KT = 32, KSTEP = 16, X_ALIGN = 32, X_PAD = 8, H_PAD = 8, W_PAD = 8;
+};
+template <>
+struct TileShape<float> {
+  static constexpr int KT = 16, KSTEP = 8, X_ALIGN = 8, X_PAD = 4, H_PAD = 4, W_PAD = 8;
+};
 
 // post-skip layer inputs (TileArgs::split)
 constexpr int kSplitSegFirst = 1;     // [seg0, h]
@@ -127,31 +147,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ void load4(const float* p, float o[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  o[0] = lo.x;
-  o[1] = lo.y;
-  o[2] = hi.x;
-  o[3] = hi.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v[0], v[1]);
-  q[1] = __floats2bfloat162_rn(v[2], v[3]);
 }
 
 // tanhExp and its derivative, passing x through above 20
@@ -234,37 +229,45 @@ __host__ __device__ __forceinline__ int layer_pieces(const TileArgs& a, int l, i
   return 1;
 }
 
-// weight tiles of the tensor-core body's schedule: every layer, each
-// layer's pieces, kTcKTile rows at a time
+// weight tiles of the body's schedule: every layer, each layer's pieces,
+// KT rows at a time
+template <typename T>
 __host__ __device__ inline int weight_tile_count(const TileArgs& a, int C) {
+  constexpr int KT = TileShape<T>::KT;
   int n = 0;
   for (int l = 0; l < a.n_layers; ++l) {
     bool from_x0[2];
     int width[2], wrow[2];
     const int np = layer_pieces(a, l, C, from_x0, width, wrow);
-    for (int pc = 0; pc < np; ++pc) n += (width[pc] + kTcKTile - 1) / kTcKTile;
+    for (int pc = 0; pc < np; ++pc) n += (width[pc] + KT - 1) / KT;
   }
   return n;
 }
 
 // one entry of that schedule, kept in shared memory: the tile's first
 // weight row in device memory and its rows inside the piece
+template <typename T>
 struct __align__(16) WeightTile {
-  const __nv_bfloat16* src;
+  const T* src;
   int rows;
 };
 
-// row pitches in shared memory: the FMA body packs rows; the tensor-core
-// body pads x0 to whole weight tiles (zeros) and every row by kTcPad
+// row pitches in shared memory: x0 padded with zeros to X_ALIGN columns,
+// every row padded (TileShape)
 template <typename T>
 __host__ __device__ inline int x0_pitch(const TileArgs& a) {
-  if constexpr (std::is_same_v<T, float>) return x0_width(a);
-  return (x0_width(a) + kTcKTile - 1) / kTcKTile * kTcKTile + kTcPad;
+  using Sh = TileShape<T>;
+  return (x0_width(a) + Sh::X_ALIGN - 1) / Sh::X_ALIGN * Sh::X_ALIGN + Sh::X_PAD;
 }
 
 template <typename T, int C>
 __host__ __device__ constexpr int h_pitch() {
-  return std::is_same_v<T, float> ? C : C + kTcPad;
+  return C + TileShape<T>::H_PAD;
+}
+
+template <typename T, int C>
+__host__ __device__ constexpr int w_pitch() {
+  return C + TileShape<T>::W_PAD;
 }
 
 // elements of the x0 + h region; without a post-skip layer h reuses x0,
@@ -277,57 +280,36 @@ __host__ __device__ inline size_t act_elems(const TileArgs& a) {
   return x0 > h ? x0 : h;
 }
 
-// elements of the weight tiles: one kKTile x C tile (FMA body), a ring of
-// kTcWStages tiles of kTcKTile padded rows (tensor-core body)
+// elements of the weight ring: kTcWStages tiles of KT padded rows
 template <typename T, int C>
 __host__ __device__ constexpr size_t wt_elems() {
-  return std::is_same_v<T, float> ? (size_t)kKTile * C
-                                  : (size_t)kTcWStages * kTcKTile * h_pitch<T, C>();
+  return (size_t)kTcWStages * TileShape<T>::KT * w_pitch<T, C>();
 }
 
-// bytes of the block's shared buffers: x0 and h, the weight tiles and
-// (tensor-core body) the weight schedule
+// bytes of the block's shared buffers: x0 and h, the weight ring and the
+// weight schedule
 template <typename T, int C>
-inline size_t smem_bytes(const TileArgs& a) {
-  const size_t bytes = (act_elems<T, C>(a) + wt_elems<T, C>()) * sizeof(T);
-  if constexpr (std::is_same_v<T, float>) return bytes;
-  return bytes + weight_tile_count(a, C) * sizeof(WeightTile);
+__host__ __device__ inline size_t smem_bytes(const TileArgs& a) {
+  return (act_elems<T, C>(a) + wt_elems<T, C>()) * sizeof(T) +
+         weight_tile_count<T>(a, C) * sizeof(WeightTile<T>);
 }
 
-template <typename T, int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward_fma(const TileArgs& a, T* x0, T* h, T* wt);
-template <int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16* x0,
-                                                __nv_bfloat16* h, __nv_bfloat16* wt);
-
-// The whole trunk on one row tile: x0, h and wt are the block's shared
-// buffers (tile_buffers, smem_bytes); the last layer goes to a.v_out /
-// a.j_out. bf16 runs on the tensor cores, f32 on the CUDA cores.
-template <typename T, int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward(const TileArgs& a, T* x0, T* h, T* wt) {
-  if constexpr (std::is_same_v<T, float>) {
-    tile_forward_fma<T, K, C, ACT>(a, x0, h, wt);
-  } else {
-    tile_forward_tc<K, C, ACT>(a, x0, h, wt);
-  }
-}
-
-// tile t of the tensor-core body's weight schedule (every layer, each
-// layer's pieces, kTcKTile rows at a time): its first row and its rows
-// inside the piece; false past the last tile
-template <int C>
-__device__ __forceinline__ bool weight_tile(const TileArgs& a, int t,
-                                            const __nv_bfloat16*& src, int& rows) {
+// tile t of the weight schedule (every layer, each layer's pieces, KT rows
+// at a time): its first row and its rows inside the piece; false past the
+// last tile
+template <typename T, int C>
+__device__ __forceinline__ bool weight_tile(const TileArgs& a, int t, const T*& src,
+                                            int& rows) {
+  constexpr int KT = TileShape<T>::KT;
   for (int l = 0; l < a.n_layers; ++l) {
     bool from_x0[2];
     int width[2], wrow[2];
     const int n = layer_pieces(a, l, C, from_x0, width, wrow);
     for (int pc = 0; pc < n; ++pc) {
-      const int tiles = (width[pc] + kTcKTile - 1) / kTcKTile;
+      const int tiles = (width[pc] + KT - 1) / KT;
       if (t < tiles) {
-        src = static_cast<const __nv_bfloat16*>(a.w[l]) +
-              (size_t)(wrow[pc] + t * kTcKTile) * C;
-        rows = min(kTcKTile, width[pc] - t * kTcKTile);
+        src = static_cast<const T*>(a.w[l]) + (size_t)(wrow[pc] + t * KT) * C;
+        rows = min(KT, width[pc] - t * KT);
         return true;
       }
       t -= tiles;
@@ -338,18 +320,19 @@ __device__ __forceinline__ bool weight_tile(const TileArgs& a, int t,
 
 // copy weight tile t of the schedule into ring slot dst (rows past the
 // piece are zeros); nothing past the last tile
-template <int C>
-__device__ __forceinline__ void load_weight_tile(const WeightTile* sched, int n_tiles, int t,
-                                                 __nv_bfloat16* dst) {
+template <typename T, int C>
+__device__ __forceinline__ void load_weight_tile(const WeightTile<T>* sched, int n_tiles, int t,
+                                                 T* dst) {
   if (t >= n_tiles) return;
-  const __nv_bfloat16* src = sched[t].src;
+  const T* src = sched[t].src;
   const int rows = sched[t].rows;
-  constexpr int WP = C + kTcPad;
-  constexpr int CPR = C / 8;  // 16-byte chunks per row
+  constexpr int WP = w_pitch<T, C>();
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = C / EPC;              // chunks per row
 #pragma unroll 1
-  for (int idx = threadIdx.x; idx < kTcKTile * CPR; idx += kTcTileThreads) {
+  for (int idx = threadIdx.x; idx < TileShape<T>::KT * CPR; idx += kTcTileThreads) {
     const int r = idx / CPR;
-    const int c = (idx - r * CPR) * 8;
+    const int c = (idx - r * CPR) * EPC;
     const bool ok = r < rows;
     cp_async<16>(smem_u32(dst + r * WP + c), ok ? src + (size_t)r * C + c : src,
                  ok ? 16 : 0);
@@ -357,20 +340,20 @@ __device__ __forceinline__ void load_weight_tile(const WeightTile* sched, int n_
 }
 
 // stage segment s of the layer-0 input into x0's columns at dst (row pitch
-// xp) for the tensor-core body, V elements per load (the rows' alignment
-// allows it); tangent rows of a segment without tangents, and rows past
-// M, are zeros
-template <int V, int K>
-__device__ __forceinline__ void stage_segment(const TileArgs& a, int s, __nv_bfloat16* dst,
-                                              int xp, int m0, int M) {
-  using T = __nv_bfloat16;
-  using Vec = std::conditional_t<V == 8, uint4, std::conditional_t<V == 4, uint2, uint16_t>>;
+// xp), V elements per load (the rows' alignment allows it); tangent rows
+// of a segment without tangents, and rows past M, are zeros
+template <typename T, int V, int K>
+__device__ __forceinline__ void stage_segment(const TileArgs& a, int s, T* dst, int xp, int m0,
+                                              int M) {
+  using Elem = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
+  constexpr int BYTES = V * (int)sizeof(T);
+  using Vec = std::conditional_t<BYTES == 16, uint4, std::conditional_t<BYTES == 8, uint2, Elem>>;
   constexpr int TM = kRows / (K + 1);
   const int w = a.seg_w[s];
   const int cpr = w / V;  // loads per row
   const T* sv = static_cast<const T*>(a.seg_v[s]);
   const T* sj = static_cast<const T*>(a.seg_j[s]);
-  uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+  Elem* de = reinterpret_cast<Elem*>(dst);
   for (int idx = threadIdx.x; idx < kRows * cpr; idx += kTcTileThreads) {
     const int r = idx / cpr;
     const int c = (idx - r * cpr) * V;
@@ -378,7 +361,7 @@ __device__ __forceinline__ void stage_segment(const TileArgs& a, int s, __nv_bfl
     const int m = m0 + (r - st * TM);
     union {
       Vec v;
-      uint16_t e[V];
+      Elem e[V];
     } u;
     u.v = Vec{};
     if (m < M) {
@@ -389,14 +372,26 @@ __device__ __forceinline__ void stage_segment(const TileArgs& a, int s, __nv_bfl
       }
     }
 #pragma unroll
-    for (int e = 0; e < V; ++e) d16[(size_t)r * xp + c + e] = u.e[e];
+    for (int e = 0; e < V; ++e) de[(size_t)r * xp + c + e] = u.e[e];
   }
 }
 
-template <int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16* x0,
-                                                __nv_bfloat16* h, __nv_bfloat16* wt) {
-  using T = __nv_bfloat16;
+// two adjacent f32 values stored as T
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// The whole trunk on one row tile: x0, h and wt are the block's shared
+// buffers (tile_buffers, smem_bytes); the last layer goes to a.v_out /
+// a.j_out.
+template <typename T, int K, int C, int ACT>
+__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, T* wt) {
+  using Sh = TileShape<T>;
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  constexpr int E = (int)sizeof(T);
   constexpr int S = K + 1;
   constexpr int TM = kRows / S;          // samples per block
   constexpr int MT = S == 1 ? 2 : 1;     // m16 tiles per stream and warp
@@ -405,8 +400,10 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
   constexpr int NCG = (kTcTileThreads / 32) / NSL;  // column bands
   constexpr int WC = C / NCG;            // columns per warp
   constexpr int NI = WC / 8;             // n8 tiles per warp
-  constexpr int HP = C + kTcPad;         // h and weight-tile row pitch
-  constexpr int WSLOT = kTcKTile * HP;
+  constexpr int HP = h_pitch<T, C>();
+  constexpr int WP = w_pitch<T, C>();
+  constexpr int KT = Sh::KT;
+  constexpr int WSLOT = KT * WP;
   static_assert(kRows % S == 0 && TM % (16 * MT) == 0 && (kTcTileThreads / 32) % NSL == 0,
                 "row tile");
   static_assert(WC % 16 == 0 && RT * NI * 4 == 128, "column band");
@@ -422,19 +419,19 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
   const int M = a.M;
 
   // the weight schedule (after the ring), one entry per tile
-  WeightTile* sched = reinterpret_cast<WeightTile*>(wt + wt_elems<T, C>());
-  const int n_tiles = weight_tile_count(a, C);
+  WeightTile<T>* sched = reinterpret_cast<WeightTile<T>*>(wt + wt_elems<T, C>());
+  const int n_tiles = weight_tile_count<T>(a, C);
   for (int i = tid; i < n_tiles; i += kTcTileThreads) {
-    const __nv_bfloat16* src;
+    const T* src;
     int rows;
-    weight_tile<C>(a, i, src, rows);
+    weight_tile<T, C>(a, i, src, rows);
     sched[i].src = src;
     sched[i].rows = rows;
   }
   __syncthreads();
   // the first weight tiles start loading while x0 is staged
   for (int s = 0; s < kTcWStages - 1; ++s) {
-    load_weight_tile<C>(sched, n_tiles, s, wt + s * WSLOT);
+    load_weight_tile<T, C>(sched, n_tiles, s, wt + s * WSLOT);
     cp_async_commit();
   }
 
@@ -446,14 +443,14 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
     for (int s = 0; s < a.n_seg; ++s) {
       const int w = a.seg_w[s];
       const uintptr_t align = reinterpret_cast<uintptr_t>(a.seg_v[s]) |
-                              reinterpret_cast<uintptr_t>(a.seg_j[s]) | (uintptr_t)(2 * w);
+                              reinterpret_cast<uintptr_t>(a.seg_j[s]) | (uintptr_t)(E * w);
       T* dst = x0 + off;
       if (align % 16 == 0) {
-        stage_segment<8, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 16 / E, K>(a, s, dst, xp, m0, M);
       } else if (align % 8 == 0) {
-        stage_segment<4, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 8 / E, K>(a, s, dst, xp, m0, M);
       } else {
-        stage_segment<1, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 1, K>(a, s, dst, xp, m0, M);
       }
       off += w;
     }
@@ -466,10 +463,13 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
   // (the first wait below is followed by a barrier, which publishes x0)
 
   const int g = lane >> 2, tq = lane & 3;
-  // this lane's ldmatrix row of a weight tile (B, .trans: k rows 0-15 of
-  // the column band; lanes 16-31 eight columns on), in ring slot 0
-  const uint32_t w_lane = smem_u32(wt) + 2u * (((lane & 7) + ((lane >> 3) & 1) * 8) * HP +
-                                               cg * WC + (lane >> 4) * 8);
+  // bf16: this lane's ldmatrix .trans row of a weight tile (B: k rows 0-15
+  // of the column band; lanes 16-31 eight columns on), in ring slot 0
+  const uint32_t w_lane = smem_u32(wt) + E * (((lane & 7) + ((lane >> 3) & 1) * 8) * WP +
+                                              cg * WC + (lane >> 4) * 8);
+  // f32: this lane's element (k t, column g) of the band's first n8 tile,
+  // in ring slot 0
+  const uint32_t w_elem_s = smem_u32(wt + tq * WP + cg * WC + g);
   // first row of the warp's m16 tile rt (stream rt / MT) over its slice's
   auto tile_row = [](int rt) { return (rt / MT) * TM + (rt % MT) * 16; };
   int t = 0;  // weight tile of the schedule
@@ -488,43 +488,61 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
     const int n_pieces = layer_pieces(a, l, C, from_x0, width, wrow);
     for (int pc = 0; pc < n_pieces; ++pc) {
       const int pitch = from_x0[pc] ? xp : HP;
-      // this lane's ldmatrix row of stream 0 (A: rows of 16 samples,
-      // lanes 0-15 at column 0, lanes 16-31 at column 8), as a 32-bit
+      // this lane's ldmatrix row of stream 0 (A: rows of 16 samples, lanes
+      // 0-15 at column 0, lanes 16-31 16 bytes on), as a 32-bit
       // shared-memory address
-      const uint32_t a_lane =
-          smem_u32(from_x0[pc] ? x0 : h) +
-          2u * ((q * 16 * MT + (lane & 15)) * pitch + (lane >> 4) * 8);
-      for (int k0 = 0; k0 < width[pc]; k0 += kTcKTile, ++t) {
+      const uint32_t a_lane = smem_u32(from_x0[pc] ? x0 : h) +
+                              E * ((q * 16 * MT + (lane & 15)) * pitch) + (lane >> 4) * 16;
+      for (int k0 = 0; k0 < width[pc]; k0 += KT, ++t) {
         cp_async_wait<kTcWStages - 2>();
         __syncthreads();  // tile t has landed; slot t-1 is free
-        load_weight_tile<C>(sched, n_tiles, t + kTcWStages - 1,
-                            wt + ((t + kTcWStages - 1) % kTcWStages) * WSLOT);
+        load_weight_tile<T, C>(sched, n_tiles, t + kTcWStages - 1,
+                               wt + ((t + kTcWStages - 1) % kTcWStages) * WSLOT);
         cp_async_commit();
-        const uint32_t w_tile = w_lane + 2u * (t % kTcWStages) * WSLOT;
+        const int slot = t % kTcWStages;
+        // f32: one mma depth at a time (fewer live fragments: 0 spills)
+        constexpr int kUnrollK = kF32 ? 1 : KT / Sh::KSTEP;
+#pragma unroll kUnrollK
+        for (int kk = 0; kk < KT; kk += Sh::KSTEP) {
+          if (k0 + kk >= width[pc]) break;  // past the piece: zeros only
+          const uint32_t a_k = a_lane + E * (k0 + kk);
+          if constexpr (kF32) {
+            // the A fragments of AG m16 tiles, split, against every pair of
+            // n8 tiles of B (K=3: one tile at a time, B read RT times; the
+            // split fragments of all four streams beside 128 accumulators
+            // would spill)
+            constexpr int AG = RT > 2 ? 1 : RT;
+            const uint32_t w_k = w_elem_s + E * (slot * WSLOT + kk * WP);
 #pragma unroll
-        for (int kk = 0; kk < kTcKTile; kk += 16) {
-          const uint32_t a_k = a_lane + 2u * (k0 + kk);
-          const uint32_t w_k = w_tile + 2u * kk * HP;
-          if constexpr (RT * 4 > NI * 2) {
-            // more A than B registers: all of B, then A per m16 tile
-            uint32_t bfr[NI / 2][4];
+            for (int s0 = 0; s0 < RT; s0 += AG) {
+              uint32_t ah[AG][4], al[AG][4];
 #pragma unroll
-            for (int nj = 0; nj < NI / 2; ++nj) ldsm_x4_t(bfr[nj], w_k + 32u * nj);
-#pragma unroll
-            for (int st = 0; st < RT; ++st) {
-              uint32_t af[4];
-              ldsm_x4(af, a_k + 2u * tile_row(st) * pitch);
+              for (int s = 0; s < AG; ++s) {
+                ldsm_x4(ah[s], a_k + E * tile_row(s0 + s) * pitch);
+                split_tf32(ah[s], al[s]);
+              }
 #pragma unroll
               for (int nj = 0; nj < NI / 2; ++nj) {
-                mma_bf16_16816(acc[st][2 * nj], af, bfr[nj][0], bfr[nj][1]);
-                mma_bf16_16816(acc[st][2 * nj + 1], af, bfr[nj][2], bfr[nj][3]);
+                // b0 (k t), b1 (k t+4) of n8 tiles 2nj and 2nj+1
+                uint32_t bh[4] = {lds_u32(w_k + 64 * nj), lds_u32(w_k + 64 * nj + 16 * WP),
+                                  lds_u32(w_k + 64 * nj + 32),
+                                  lds_u32(w_k + 64 * nj + 32 + 16 * WP)};
+                uint32_t bl[4];
+                split_tf32(bh, bl);
+#pragma unroll
+                for (int s = 0; s < AG; ++s) {
+                  mma_3xtf32(acc[s0 + s][2 * nj], ah[s], al[s], bh[0], bh[1], bl[0], bl[1]);
+                  mma_3xtf32(acc[s0 + s][2 * nj + 1], ah[s], al[s], bh[2], bh[3], bl[2],
+                             bl[3]);
+                }
               }
             }
           } else {
             // all of A (one fragment per m16 tile), then B per pair of n8 tiles
             uint32_t af[RT][4];
 #pragma unroll
-            for (int st = 0; st < RT; ++st) ldsm_x4(af[st], a_k + 2u * tile_row(st) * pitch);
+            for (int st = 0; st < RT; ++st) ldsm_x4(af[st], a_k + E * tile_row(st) * pitch);
+            const uint32_t w_k = w_lane + E * (slot * WSLOT + kk * WP);
 #pragma unroll
             for (int nj = 0; nj < NI / 2; ++nj) {
               uint32_t bfr[4];
@@ -563,8 +581,8 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
         if (pre != nullptr && m < M) {
 #pragma unroll
           for (int st = 0; st < S; ++st)
-            *reinterpret_cast<__nv_bfloat162*>(pre + ((size_t)st * M + m) * C + col) =
-                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+            store2(pre + ((size_t)st * M + m) * C + col, acc[st * MT + mt][ni][e0],
+                   acc[st * MT + mt][ni][e0 + 1]);
         }
 #pragma unroll
         for (int e = e0; e < e0 + 2; ++e) {
@@ -577,181 +595,20 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, __nv_bfloat16
         if (!last) {
 #pragma unroll
           for (int st = 0; st < S; ++st)
-            *reinterpret_cast<__nv_bfloat162*>(h + (size_t)(st * TM + i) * HP + col) =
-                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+            store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
+                   acc[st * MT + mt][ni][e0 + 1]);
         } else if (m < M) {
-          *reinterpret_cast<__nv_bfloat162*>(vout + (size_t)m * C + col) =
-              __floats2bfloat162_rn(acc[mt][ni][e0], acc[mt][ni][e0 + 1]);
+          store2(vout + (size_t)m * C + col, acc[mt][ni][e0], acc[mt][ni][e0 + 1]);
 #pragma unroll
           for (int st = 1; st < S; ++st)
-            *reinterpret_cast<__nv_bfloat162*>(jout + ((size_t)(st - 1) * M + m) * C + col) =
-                __floats2bfloat162_rn(acc[st * MT + mt][ni][e0], acc[st * MT + mt][ni][e0 + 1]);
+            store2(jout + ((size_t)(st - 1) * M + m) * C + col, acc[st * MT + mt][ni][e0],
+                   acc[st * MT + mt][ni][e0 + 1]);
         }
       }
     }
     if (!last) __syncthreads();  // h is complete before the next layer reads it
   }
   cp_async_wait<0>();
-}
-
-template <typename T, int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward_fma(const TileArgs& a, T* x0, T* h, T* wt) {
-  constexpr int S = K + 1;
-  constexpr int TM = kRows / S;             // samples per block
-  constexpr int RG = kThreads / kColGroups; // thread rows
-  constexpr int SPT = TM / RG;              // samples per thread
-  constexpr int CPT = C / kColGroups;       // columns per thread
-  constexpr int NQ = CPT / 4;               // runs of 4 adjacent columns
-  static_assert(kRows % S == 0 && TM % RG == 0, "row tile");
-  static_assert(C % (4 * kColGroups) == 0, "column tile");
-
-  const int x0w = x0_width(a);
-  const int tid = threadIdx.x;
-  const int tr = tid / kColGroups;
-  const int tc = tid % kColGroups;
-  const int m0 = blockIdx.x * TM;
-  const int M = a.M;
-
-  // stage the layer-0 input; rows past M (the ragged edge) are zeros
-  {
-    int off = 0;
-    for (int s = 0; s < a.n_seg; ++s) {
-      const int w = a.seg_w[s];
-      const T* sv = static_cast<const T*>(a.seg_v[s]);
-      const T* sj = static_cast<const T*>(a.seg_j[s]);
-      for (int idx = tid; idx < kRows * w; idx += kThreads) {
-        const int r = idx / w;
-        const int c = idx - r * w;
-        const int st = r / TM;
-        const int m = m0 + (r - st * TM);
-        T val = from_f32<T>(0.f);
-        if (m < M) {
-          if (st == 0) {
-            val = sv[(size_t)m * w + c];
-          } else if (sj != nullptr) {
-            val = sj[((size_t)(st - 1) * M + m) * w + c];
-          }
-        }
-        x0[(size_t)r * x0w + off + c] = val;
-      }
-      off += w;
-    }
-  }
-  __syncthreads();
-
-  float acc[S][SPT][CPT];
-  for (int l = 0; l < a.n_layers; ++l) {
-    const T* W = static_cast<const T*>(a.w[l]);
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float bias = a.b[l][q * 4 * kColGroups + tc * 4 + e];
-#pragma unroll
-        for (int p = 0; p < SPT; ++p) {
-          acc[0][p][q * 4 + e] = bias;
-#pragma unroll
-          for (int st = 1; st < S; ++st) acc[st][p][q * 4 + e] = 0.f;
-        }
-      }
-    }
-
-    // the layer's input pieces: (buffer, row stride, width, first weight row)
-    const T* src[2];
-    int stride[2], width[2], wrow[2];
-    int n_pieces = 1;
-    if (l == 0) {
-      src[0] = x0; stride[0] = x0w; width[0] = x0w; wrow[0] = 0;
-    } else if (a.split[l] == kSplitSegFirst) {
-      src[0] = x0; stride[0] = x0w; width[0] = a.seg_w[0]; wrow[0] = 0;
-      src[1] = h; stride[1] = C; width[1] = C; wrow[1] = a.seg_w[0];
-      n_pieces = 2;
-    } else if (a.split[l] == kSplitHiddenFirst) {
-      src[0] = h; stride[0] = C; width[0] = C; wrow[0] = 0;
-      src[1] = x0; stride[1] = x0w; width[1] = a.seg_w[0]; wrow[1] = C;
-      n_pieces = 2;
-    } else {
-      src[0] = h; stride[0] = C; width[0] = C; wrow[0] = 0;
-    }
-
-    for (int pc = 0; pc < n_pieces; ++pc) {
-      for (int k0 = 0; k0 < width[pc]; k0 += kKTile) {
-        const int kt = min(kKTile, width[pc] - k0);
-        // weight rows [wrow + k0, wrow + k0 + kt) are contiguous
-        const uint4* g =
-            reinterpret_cast<const uint4*>(W + (size_t)(wrow[pc] + k0) * C);
-        uint4* d = reinterpret_cast<uint4*>(wt);
-        const int n16 = kt * C * (int)sizeof(T) / 16;
-        for (int idx = tid; idx < n16; idx += kThreads) d[idx] = g[idx];
-        __syncthreads();
-
-        const T* base = src[pc] + k0;
-        for (int kk = 0; kk < kt; ++kk) {
-          float av[S][SPT];
-#pragma unroll
-          for (int st = 0; st < S; ++st)
-#pragma unroll
-            for (int p = 0; p < SPT; ++p)
-              av[st][p] = to_f32(
-                  base[(size_t)(st * TM + tr + p * RG) * stride[pc] + kk]);
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            float wv[4];
-            load4(wt + kk * C + q * 4 * kColGroups + tc * 4, wv);
-#pragma unroll
-            for (int st = 0; st < S; ++st)
-#pragma unroll
-              for (int p = 0; p < SPT; ++p)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  acc[st][p][q * 4 + e] =
-                      fmaf(av[st][p], wv[e], acc[st][p][q * 4 + e]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // activation: values get f(z), tangents f'(z_value) * z_tangent
-    const bool last = (l == a.n_layers - 1);
-    T* vout = static_cast<T*>(a.v_out);
-    T* jout = static_cast<T*>(a.j_out);
-    T* pre = static_cast<T*>(a.stash[l]);
-#pragma unroll
-    for (int p = 0; p < SPT; ++p) {
-      const int i = tr + p * RG;
-      const int m = m0 + i;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int col = q * 4 * kColGroups + tc * 4;
-        if (pre != nullptr && m < M) {
-#pragma unroll
-          for (int st = 0; st < S; ++st)
-            store4(pre + ((size_t)st * M + m) * C + col, &acc[st][p][q * 4]);
-        }
-        float out[S][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float f, df;
-          act_fn<ACT>(acc[0][p][q * 4 + e], f, df);
-          out[0][e] = f;
-#pragma unroll
-          for (int st = 1; st < S; ++st) out[st][e] = df * acc[st][p][q * 4 + e];
-        }
-        if (!last) {
-#pragma unroll
-          for (int st = 0; st < S; ++st)
-            store4(h + (size_t)(st * TM + i) * C + col, out[st]);
-        } else if (m < M) {
-          store4(vout + (size_t)m * C + col, out[0]);
-#pragma unroll
-          for (int st = 1; st < S; ++st)
-            store4(jout + ((size_t)(st - 1) * M + m) * C + col, out[st]);
-        }
-      }
-    }
-    if (!last) __syncthreads();
-  }
 }
 
 // the block's shared buffers: x0, then h (or h over x0), then wt
@@ -764,17 +621,12 @@ __device__ __forceinline__ void tile_buffers(const TileArgs& a, unsigned char* r
   wt = smem + act_elems<T, C>(a);
 }
 
-template <typename T>
-__host__ __device__ constexpr int tile_threads() {
-  return std::is_same_v<T, float> ? kThreads : kTcTileThreads;
-}
-
 template <typename T, int K, int C, int ACT>
-__global__ void __launch_bounds__(tile_threads<T>(), 1) mlp_tile_fwd(const TileArgs a) {
+__global__ void __launch_bounds__(kTcTileThreads, 1) mlp_tile_fwd(const TileArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T *x0, *h, *wt;
   tile_buffers<T, C>(a, smem_raw, x0, h, wt);
-  tile_forward<T, K, C, ACT>(a, x0, h, wt);
+  tile_forward_tc<T, K, C, ACT>(a, x0, h, wt);
 }
 
 template <typename T, int K, int C, int ACT>
@@ -787,7 +639,7 @@ cudaError_t launch_mlp_tile(const TileArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   constexpr int TM = kRows / (K + 1);
   const int grid = (a.M + TM - 1) / TM;
-  mlp_tile_fwd<T, K, C, ACT><<<grid, tile_threads<T>(), smem, stream>>>(a);
+  mlp_tile_fwd<T, K, C, ACT><<<grid, kTcTileThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

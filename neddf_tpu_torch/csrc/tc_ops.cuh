@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, shared by the
-// bf16 product of the backwards (dual_mlp_bwd.cu: tc_gemm_kernel) and the
-// bf16 row-tile forward (mlp_tile.cuh: tile_forward_tc).
+// products of the backwards (dual_mlp_bwd.cu: tc_gemm_kernel), the
+// row-tile forward (mlp_tile.cuh: tile_forward_tc) and the NeuS sweep
+// (sdf_mlp.cu), in bf16 and in f32.
 //
 // * mma_bf16_16816: one warp-wide mma.sync m16n8k16, bf16 operands, f32
 //   accumulators in place. Fragment layout (g = lane / 4, t = lane % 4):
@@ -12,10 +13,39 @@
 //   as with an FMA sum, most of them toward zero (tc_accuracy.py).
 //   Summing each mma from zero and adding it with a rounded f32 add
 //   removes most of that, but needs registers the tile body lacks.
+// * mma_3xtf32: f32 operands on the tensor cores at f32 accuracy. Each
+//   operand value is split as x = hi + lo with hi = tf32(x) and lo =
+//   tf32(x - hi) (split_tf32: cvt.rna, round to nearest with ties away
+//   from zero to 10 mantissa bits; x - hi is exact in f32), and a b is
+//   taken as lo_a hi_b + hi_a lo_b + hi_a hi_b by three mma.sync m16n8k8
+//   tf32, the two small terms first. The
+//   dropped lo_a lo_b and the rounding of lo leave about 2^-21 of |a b|
+//   per term, the order of an f32 FMA sum's own rounding over K = 256.
+//   The mma does not round its f32 accumulation to nearest but toward
+//   zero, so a running sum kept in its accumulators drifts toward zero
+//   in proportion to the number of mma it went through: over the 2048-
+//   to 4144-row splits of a NeuS dW that was 2.5e-5 of the result
+//   (tc_accuracy.py --f32), and it moved an aux-head gradient norm of
+//   the f32 NeDDF step by 1.4e-3 against the JAX package. So the three
+//   products of one k8 step are summed from zero, where the truncation
+//   is relative to that step's small partial, and added to the running
+//   sum by a rounded f32 add (__fadd_rn), as an FMA sum would round.
+//   Three TF32 mma per f32 multiply-add: at the H100's 495 TFLOP/s dense
+//   TF32 that is 165 TFLOP/s of f32 work, against 67 on the FMA units.
+//   Fragment layout of m16n8k8 tf32 (g = lane / 4, t = lane % 4): A a0
+//   (row g, col t), a1 (row g+8), a2 (row g, col t+4), a3 (row g+8, col
+//   t+4); B b0 (k t of column g), b1 (k t+4); C as above. An ldmatrix of
+//   b16 matrices (below) reads 32-bit elements as pairs, so the same
+//   byte addresses that build bf16 fragments of a K-contiguous tile
+//   build tf32 ones; an M- or N-contiguous tile (no 32-bit .trans) is
+//   read element by element.
 // * ldsm_x4 / ldsm_x4_t: ldmatrix of four 8x8 b16 matrices from shared
 //   memory; lanes 8i..8i+7 give the row addresses of matrix i, register i
 //   receives it (.trans: transposed), which builds A and B fragments from
 //   tiles stored with either dimension contiguous.
+// * lds_u32: one 32-bit load from a shared-memory address (the f32 tile
+//   body's B fragments: a 32-bit address, not a generic pointer, keeps a
+//   register free beside the 128 accumulators).
 // * cp_async<BYTES>: a 4-, 8- or 16-byte copy from device to shared memory
 //   that bypasses the registers; only the first `src_bytes` are read, the
 //   rest of the destination is zero-filled (the ragged edge of a tile).
@@ -49,6 +79,54 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x (an f32 bit pattern) = hi + lo, both tf32
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+
+// a fragment of N f32 bit patterns split in place into hi (x) and lo
+template <int N>
+__device__ __forceinline__ void split_tf32(uint32_t (&x)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], x[i], lo[i]);
+}
+
+// d += a b at f32 accuracy: lo_a hi_b, hi_a lo_b, then hi_a hi_b, summed
+// from zero and added to d with a rounded f32 add
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32_1688(t, al, bh0, bh1);
+  mma_tf32_1688(t, ah, bl0, bl1);
+  mma_tf32_1688(t, ah, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
 }
 
 template <int BYTES>

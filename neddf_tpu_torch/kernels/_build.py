@@ -113,10 +113,7 @@ def library() -> ctypes.CDLL:
                                _VOIDP],
         "neddf_mlp_act": [_INT, _INT, _LL, _VOIDP, _VOIDP, _VOIDP],
         # csrc/sdf_mlp.cu
-        "neddf_sdf_fwd": [
-            _INT, _INT, _INT, _INT, _VOIDP, _VOIDPP, _VOIDPP, _INTP, _VOIDPP,
-            _VOIDP, _VOIDP, _VOIDP,
-        ],
+        "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP],
         "neddf_sdf_sweep_p": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
         "neddf_sdf_adjoint": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                               _VOIDP],
@@ -128,11 +125,8 @@ def library() -> ctypes.CDLL:
             _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
         ],
         "neddf_dual_act": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
-        "neddf_gemm_f32acc": [
-            _INT, _INT, _INT, _VOIDP, _LL, _LL, _VOIDP, _LL, _LL, _INT, _VOIDP, _VOIDP,
-        ],
-        "neddf_gemm_bf16_tc": [
-            _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
+        "neddf_gemm_tc": [
+            _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
             _VOIDP, _VOIDP,
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],

@@ -294,13 +294,14 @@ def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> 
     _check_layers(vs, weights, biases, layout, what)
 
 
-# launches of the row-tile forward (csrc/mlp_tile.cuh) by body: "tc" (bf16,
-# tensor cores) and "fma" (f32, CUDA cores), over every wrapper that runs it
-TILE_LAUNCHES = {"tc": 0, "fma": 0}
+# launches of the row-tile forward (csrc/mlp_tile.cuh) by operand type:
+# "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split), both on the
+# tensor cores, over every wrapper that runs it
+TILE_LAUNCHES = {"tc": 0, "tf32x3": 0}
 
 
 def count_tile_launch(dtype: torch.dtype) -> None:
-    TILE_LAUNCHES["tc" if dtype == torch.bfloat16 else "fma"] += 1
+    TILE_LAUNCHES["tc" if dtype == torch.bfloat16 else "tf32x3"] += 1
 
 
 def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
@@ -387,39 +388,43 @@ def dual_mlp_seg(
 
 dual_mlp_seg.launches = 0
 
-# split-K products: one partial per 8192 reduced rows, at most 64 (f32,
-# FMA); the tensor-core product (bf16) splits finer, one partial per 2048
-# rows, at most 64: the four 128x128 tiles of a 256x256 dW in 64 splits
-# are one wave of two blocks per SM
-_ROWS_PER_SPLIT = 8192
-_MAX_SPLITS = 64
+# split-K products: one partial per 2048 reduced rows, at most 64: the
+# four 128x128 tiles of a 256x256 dW in 64 splits are one wave of two
+# blocks per SM
 _TC_ROWS_PER_SPLIT = 2048
 _TC_MAX_SPLITS = 64
-_TC_DEPTH = 64  # csrc/dual_mlp_bwd.cu kTcBK: a split covers whole stages
+# csrc/dual_mlp_bwd.cu TcShape::BK, the depth of a stage (128 bytes of a
+# row) by element size: a split covers whole stages
+_TC_DEPTH = {2: 64, 4: 32}
 _TC_LAYOUTS = {"nt": 0, "tn": 1, "nn": 2}
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
 
 
-def _vec_width(ptr: int, ld: int) -> int:
-    """Elements per copy (8, 4, 2 or 1 bf16) that a row stride of ``ld``
-    elements from the byte address ``ptr`` keeps aligned."""
-    for vec in (8, 4, 2):
-        if ptr % (2 * vec) == 0 and ld % vec == 0:
+def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
+    """Elements per copy (16, 8 or 4 bytes of them, or one bf16) that a row
+    stride of ``ld`` elements from the byte address ``ptr`` keeps
+    aligned; raises ValueError for a pointer off its element size."""
+    if ptr % itemsize:
+        raise ValueError(f"tensor-core product: pointer {ptr:#x} not {itemsize}-byte aligned")
+    for nbytes in (16, 8, 4):
+        vec = nbytes // itemsize
+        if ptr % nbytes == 0 and ld % vec == 0:
             return vec
     return 1
 
 
 def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
-            a_ptr: int = 0, b_ptr: int = 0) -> dict:
+            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2) -> dict:
     """How the tensor-core product takes ``sum_k A(m, k) B(k, n)`` with
-    ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) = b[k*sbk + n*sbn]``.
+    ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) = b[k*sbk + n*sbn]``, for
+    operands of ``itemsize`` bytes (2: bf16, 4: f32 by the 3xTF32 split).
 
     Returns the layout (``nt``: K contiguous in both operands; ``tn``: M
     and N contiguous; ``nn``: K contiguous in A, N in B), each operand's
     row stride and copy width from its byte address, and the split of K
     into fixed-order partials with the rows each split covers (a
     multiple of the kernel's stage depth). Raises ValueError for any
-    other layout.
+    other layout and for a pointer off its element size.
     """
     if sak == 1 and sbk == 1:
         layout, lda, ldb = "nt", sam, sbn
@@ -429,12 +434,16 @@ def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
         layout, lda, ldb = "nn", sam, sbk
     else:
         raise ValueError(f"tensor-core product: strides ({sam}, {sak}) x ({sbk}, {sbn})")
+    if itemsize not in _TC_DEPTH:
+        raise ValueError(f"tensor-core product: {itemsize}-byte operands")
     lda, ldb = max(int(lda), 1), max(int(ldb), 1)
     splits = max(1, min(_TC_MAX_SPLITS, -(-k // _TC_ROWS_PER_SPLIT)))
     per_split = -(-k // splits)
-    k_chunk = -(-per_split // _TC_DEPTH) * _TC_DEPTH
-    return {"layout": layout, "lda": lda, "ldb": ldb, "vec_a": _vec_width(a_ptr, lda),
-            "vec_b": _vec_width(b_ptr, ldb), "splits": splits, "k_chunk": k_chunk}
+    depth = _TC_DEPTH[itemsize]
+    k_chunk = -(-per_split // depth) * depth
+    return {"layout": layout, "lda": lda, "ldb": ldb,
+            "vec_a": _vec_width(a_ptr, lda, itemsize),
+            "vec_b": _vec_width(b_ptr, ldb, itemsize), "splits": splits, "k_chunk": k_chunk}
 
 
 def products_plain(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
@@ -448,16 +457,47 @@ def products_plain(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
     return av @ bv
 
 
+def tf32_round(x: Tensor) -> Tensor:
+    """f32 -> the nearest tf32 (10 mantissa bits), ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: half a tf32 step (bit 12) is added to the
+    magnitude bits and the 13 low bits cleared. Finite values only."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(x: Tensor):
+    """x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (tc_ops.cuh's
+    split_tf32); x - hi is exact in f32."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def products_tf32x3(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
+    """Emulation of the f32 product on the tensor cores over the same
+    strided views as ``products_plain``: each operand split into tf32 hi
+    and lo, and ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` (the dropped lo_a
+    lo_b is below 2^-21 of |a b|). A product of two tf32 values is exact
+    in f32, so only the f32 sums round, in another order than the
+    kernel's."""
+    av = torch.as_strided(a, (m, k), (sam, sak), a.storage_offset()).float()
+    bv = torch.as_strided(b, (k, n), (sbk, sbn), b.storage_offset()).float()
+    ah, al = tf32_split(av)
+    bh, bl = tf32_split(bv)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 class Products:
     """Launchers of the hand-written products of ``csrc/dual_mlp_bwd.cu``
-    for one backward call: ``neddf_gemm_bf16_tc`` (tensor cores) for bf16
-    operands, ``neddf_gemm_f32acc`` (FMA) for f32, and
+    for one backward call: ``neddf_gemm_tc`` on the tensor cores (bf16
+    operands by mma m16n8k16, f32 operands by the 3xTF32 split) and
     ``neddf_sum_splits``; shared by the backwards of ``kernels/mlp.py``
-    and ``kernels/sdf_mlp.py``. ``tc_launches`` / ``fma_launches`` count
-    the launches of each product kernel."""
+    and ``kernels/sdf_mlp.py``. ``tc_launches`` (bf16) and
+    ``tf32x3_launches`` (f32) count the launches of the product kernel."""
 
     tc_launches = 0
-    fma_launches = 0
+    tf32x3_launches = 0
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
@@ -471,26 +511,20 @@ class Products:
         range split into a fixed number of partials summed in order."""
         if a.dtype != self.dtype or b.dtype != self.dtype:
             raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
-        tensor_cores = self.dtype == torch.bfloat16
-        if tensor_cores:
-            plan = tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr())
-            splits = plan["splits"]
-        else:
-            splits = max(1, min(_MAX_SPLITS, -(-k // _ROWS_PER_SPLIT)))
+        plan = tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
+                       a.element_size())
+        splits = plan["splits"]
         out = torch.empty((m, n), dtype=torch.float32, device=self.device)
         parts = out if splits == 1 else torch.empty(
             (splits, m, n), dtype=torch.float32, device=self.device)
-        if tensor_cores:
-            _build.check(self.lib.neddf_gemm_bf16_tc(
-                _TC_LAYOUTS[plan["layout"]], m, n, k, a.data_ptr(), plan["lda"],
-                plan["vec_a"], b.data_ptr(), plan["ldb"], plan["vec_b"], splits,
-                parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm (tensor cores)")
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS[plan["layout"]], m, n, k, a.data_ptr(), plan["lda"],
+            plan["vec_a"], b.data_ptr(), plan["ldb"], plan["vec_b"], splits,
+            parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
+        if self.dtype == torch.bfloat16:
             Products.tc_launches += 1
         else:
-            _build.check(self.lib.neddf_gemm_f32acc(
-                m, n, k, a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn,
-                splits, parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
-            Products.fma_launches += 1
+            Products.tf32x3_launches += 1
         if splits > 1:
             self.sum_splits(parts, out)
         return out
@@ -536,10 +570,10 @@ def dual_mlp_seg_bwd(
     Per layer, in reverse: ``csrc/dual_mlp_bwd.cu`` forms the stacked
     cotangent of the pre-activation (with the f'' coupling) and the
     per-block db partials, recomputes the layer input from the stash,
-    and runs dx = g W^T and dW = h_in^T g as f32-accumulating products
-    (on the tensor cores in bf16); dW and db are split into a fixed number
-    of partials summed in a fixed order, so two runs give bitwise-equal
-    results.
+    and runs dx = g W^T and dW = h_in^T g as f32-accumulating products on
+    the tensor cores (f32 by the 3xTF32 split); dW and db are split into a
+    fixed number of partials summed in a fixed order, so two runs give
+    bitwise-equal results.
     """
     device = vs[0].device
     if device.type == "cpu":

@@ -5,9 +5,10 @@ Port of ``neddf_tpu/kernels/sdf_mlp.py::sdf_mlp``, the NeuS trunk: the
 features ``h [M, C]`` of ``e = PE(pos) [M, E]`` and ``gE = d h[:, 0] / d e
 [M, E]`` by an explicit reverse sweep, and the VJP of that pair.
 
-* ``sdf_mlp`` launches ``csrc/sdf_mlp.cu``'s forward: one block per row
-  tile runs the trunk and then the sweep; out come ``h``, ``gE`` and the
-  stash of every layer's pre-activation ``[M, C]``.
+* ``sdf_mlp`` launches the f32 row-tile trunk of ``csrc/mlp_fwd.cu``
+  (``h`` and the stash of every layer's pre-activation ``[M, C]``), then
+  ``csrc/sdf_mlp.cu``'s sweep (``gE``), one block per row tile each, both
+  on the tensor cores by the 3xTF32 split.
 * ``sdf_mlp_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as
   launches of that file's elementwise kernels and of the hand-written
   products (``csrc/dual_mlp_bwd.cu``): the replayed sweep, the ascending
@@ -29,7 +30,12 @@ import torch
 
 from neddf_tpu_torch.kernels import _build
 from neddf_tpu_torch.kernels.dual_mlp import Products, count_tile_launch
-from neddf_tpu_torch.kernels.mlp import _ACT_CODES, _DB_ROWS, _SPLIT_HIDDEN_FIRST
+from neddf_tpu_torch.kernels.mlp import (
+    _ACT_CODES,
+    _DB_ROWS,
+    _KERNEL_DTYPES,
+    _SPLIT_HIDDEN_FIRST,
+)
 from neddf_tpu_torch.ops.sdf_grad import sdf_trunk_with_grad, sdf_trunk_with_grad_vjp
 
 Tensor = torch.Tensor
@@ -58,6 +64,8 @@ def _check_kernel_args(e, weights, biases, layout, act_name) -> None:
             )
         if w.dtype != torch.float32 or b.dtype != torch.float32:
             raise TypeError(f"{what}: layer {li} dtypes {w.dtype}/{b.dtype}")
+        if w.data_ptr() % 16:
+            raise ValueError(f"{what}: layer {li} weight not 16-byte aligned")
     for t in (e, *weights, *biases):
         if t.device != e.device:
             raise ValueError(f"{what}: tensors on different devices")
@@ -88,14 +96,17 @@ def sdf_mlp(
     pres = [torch.empty((m, _KERNEL_WIDTH), **opts) for _ in weights]
     if m:
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
+        act, lib = _ACT_CODES[act_name], _build.library()
         with torch.cuda.device(e.device):
-            code = _build.library().neddf_sdf_fwd(
-                _ACT_CODES[act_name], m, e_dim, len(weights), e.data_ptr(),
-                _build.pointers(weights), _build.pointers(biases), _build.ints(split),
-                _build.pointers(pres), h.data_ptr(), g_e.data_ptr(),
-                torch.cuda.current_stream(e.device).cuda_stream,
-            )
-        _build.check(code, "sdf_mlp")
+            stream = torch.cuda.current_stream(e.device).cuda_stream
+            _build.check(lib.neddf_mlp_seg_fwd(
+                _KERNEL_DTYPES[torch.float32], act, _KERNEL_WIDTH, m, 1, _build.pointers([e]),
+                _build.ints([e_dim]), len(weights), _build.pointers(weights),
+                _build.pointers(biases), _build.ints(split), _build.pointers(pres),
+                h.data_ptr(), stream), "sdf_mlp trunk")
+            _build.check(lib.neddf_sdf_sweep(
+                act, m, e_dim, len(weights), _build.pointers(weights), _build.ints(split),
+                _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")
         sdf_mlp.launches += 1
         count_tile_launch(torch.float32)
     return (h, g_e, pres) if stash else (h, g_e)

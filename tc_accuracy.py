@@ -1,9 +1,10 @@
-"""How closely the bf16 tensor-core routes of neddf_tpu_torch round.
+"""How closely the tensor-core routes of neddf_tpu_torch round, and how
+fast its f32 routes run.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 tc_accuracy.py [--tree DIR] [--out FILE] [--params P ...]
-                           [--batches N ...] [--seeds S ...]
+                           [--batches N ...] [--seeds S ...] [--f32]
 
 ``--tree DIR`` imports ``neddf_tpu_torch`` from DIR instead of this
 checkout (for instance an unpacked ``git archive`` of another commit),
@@ -33,6 +34,20 @@ written to FILE):
   tn) against f64, the same two measures;
 * ``ms``: median CUDA-event times of the trunk forward with its stash and
   of the two products.
+
+With ``--f32`` only the f32 routes of the NeuS step (``f32``): each f32
+product of ``chip_smoke.py`` phase 6b against f64 (the two measures
+above) and its time; the times of the NeuS colour trunk's forward with
+its stash and of its backward, and of ``sdf_mlp`` forward and backward
+(ReLU, 265,216 rows); and phase 9's count of ReLU rows whose gE took the
+other side of f'(0) from the all-plain pass.
+
+With ``--neus-run kernels|plain [--seed N]`` only the NeuS
+configuration's 300-step run of ``chip_smoke.py`` phase 11
+(``scripts/run.py``, f32; ``trainer.seed=N``) through this tree's
+kernels or through the plain versions (``network.fused=off``):
+the train PSNR of its first and last 50 steps and every 20th step's loss
+and PSNR (``neus_run``).
 """
 from __future__ import annotations
 
@@ -191,6 +206,72 @@ def measure_products(torch, smoke, dev) -> tuple:
     return out, {"nt": lambda: prod.nt(g, w), "tn": lambda: prod.tn(h, g)}
 
 
+def measure_f32(torch, smoke, dev) -> dict:
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+
+    out = {"products": {}, "ms": {}, "rows_off_plain_ge": {}}
+    prod = dm.Products(torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, layout, a, b in smoke.product_cases(torch, gen, dev):
+        if a.dtype != torch.float32:
+            continue
+        call, _ = smoke.product_call(layout, a, b)
+        m, n, k, _, sam, sak, _, sbk, sbn = call
+        ref = (torch.as_strided(a.double(), (m, k), (sam, sak))
+               @ torch.as_strided(b.double(), (k, n), (sbk, sbn)))
+        fn = (lambda: getattr(prod, layout)(a, b))
+        out["products"][name] = {**signed_err(fn(), ref),
+                                 "ms": smoke.time_pair(torch, fn, fn, reps=3, inner=10)[0]}
+        print(f"f32 product {name}: {json.dumps(out['products'][name])}", flush=True)
+        del ref
+    torch.cuda.empty_cache()
+
+    m = smoke.M_NEUS
+    rand = torch.Generator(device=dev).manual_seed(5)
+    widths = (3, 24, 3, 256)
+    vs = [torch.rand((m, w), generator=rand, device=dev) * 2 - 1 for w in widths]
+    ws = [(torch.rand((f, o), generator=rand, device=dev) * 2 - 1) * f ** -0.5
+          for f, o in zip(smoke.NEUS_COL_FANS, smoke.NEUS_COL_OUTS)]
+    bs = [torch.zeros(o, device=dev) for o in smoke.NEUS_COL_OUTS]
+    layout = (False,) * len(ws)
+    _, pres = mlp.mlp_seg(vs, ws, bs, layout, "ReLU", stash=True)
+    g = torch.rand((m, 3), generator=rand, device=dev) * 0.01
+    routes = {
+        "mlp_seg_neus_color": lambda: mlp.mlp_seg(vs, ws, bs, layout, "ReLU", stash=True),
+        "mlp_seg_bwd_neus_color": lambda: mlp.mlp_seg_bwd(vs, ws, layout, "ReLU", pres, g),
+    }
+    e, sws, sbs, ch, cg = smoke.sdf_inputs(torch, dev, "ReLU", m)
+    _, _, spres = sk.sdf_mlp(e, sws, sbs, smoke.SDF_LAYOUT, "ReLU", stash=True)
+    routes["sdf_mlp"] = lambda: sk.sdf_mlp(e, sws, sbs, smoke.SDF_LAYOUT, "ReLU", stash=True)
+    routes["sdf_mlp_bwd"] = lambda: sk.sdf_mlp_bwd(e, sws, smoke.SDF_LAYOUT, "ReLU", spres,
+                                                   ch, cg)
+    for name, fn in routes.items():
+        out["ms"][name] = smoke.time_pair(torch, fn, fn, reps=3)[0]
+    del vs, ws, pres, e, sws, spres, ch, cg
+    torch.cuda.empty_cache()
+    for rows in (smoke.M_NEUS, smoke.M_SDF_RAGGED):
+        e, sws, sbs, _, _ = smoke.sdf_inputs(torch, dev, "ReLU", rows)
+        fk = sk.sdf_mlp(e, sws, sbs, smoke.SDF_LAYOUT, "ReLU")
+        fp = sdf_grad.sdf_trunk_with_grad(e, sws, sbs, smoke.SDF_LAYOUT, "ReLU")
+        out["rows_off_plain_ge"][f"ReLU/{rows}"] = smoke.ge_rows_off_plain(fk, fp)
+    return out
+
+
+def measure_neus_run(torch, smoke, mode: str, seed) -> dict:
+    extra = [*smoke.FAMILY_OVERRIDES["neus"]] + (["network.fused=off"] if mode == "plain" else [])
+    if seed is not None:
+        extra.append(f"trainer.seed={seed}")
+    trainer = smoke.run_main_path(torch, smoke.OUT / f"tc_accuracy_neus_{mode}", extra)
+    hist = trainer.history
+    psnr = [r["psnr"] for r in hist]
+    return {"mode": mode, "seed": trainer.seed, "steps": len(hist), "psnr_first50": smoke.mean(psnr[:50]),
+            "psnr_last50": smoke.mean(psnr[-50:]),
+            "every_20": [(r["iteration"], r["loss"], r["psnr"]) for r in hist[::20]]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tree", type=Path, default=REPO)
@@ -199,6 +280,11 @@ def main() -> int:
     parser.add_argument("--seeds", type=int, nargs="+", default=[0])
     parser.add_argument("--params", nargs="+", default=["checkpoint"],
                         help="'checkpoint' and/or seeds of chip_smoke.family_params")
+    parser.add_argument("--f32", action="store_true", help="only the f32 routes")
+    parser.add_argument("--neus-run", choices=["kernels", "plain"], default=None,
+                        help="only the NeuS 300-step run, through the kernels or the plain versions")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="the trainer's seed for --neus-run (default: the config's)")
     args = parser.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     sys.path.insert(1, str(REPO))
@@ -218,13 +304,20 @@ def main() -> int:
     sd = params_from_jax(load_msgpack_params(smoke.RUN / "models" / f"model_{smoke.EPOCH:05}.ckpt"))
     result = {"tree": str(args.tree), "card": smoke.card_line(),
               "build": str(_build.build_dir())}
-    result["step"] = {p: measure_step(torch, smoke, p, args.batches, args.seeds)
-                      for p in args.params}
-    result["layers"], result["trunk"], trunk_fn = measure_trunk(torch, smoke, sd, dev)
-    result["products"], product_fns = measure_products(torch, smoke, dev)
-    result["ms"] = {"trunk_fwd_stash": smoke.time_pair(torch, trunk_fn, trunk_fn, reps=3)[0]}
-    for name, fn in product_fns.items():
-        result["ms"][f"product_{name}"] = smoke.time_pair(torch, fn, fn, reps=3, inner=10)[0]
+    if args.neus_run:
+        result["neus_run"] = measure_neus_run(torch, smoke, args.neus_run, args.seed)
+    elif args.f32:
+        result["f32"] = measure_f32(torch, smoke, dev)
+    else:
+        result["step"] = {p: measure_step(torch, smoke, p, args.batches, args.seeds)
+                          for p in args.params}
+        result["layers"], result["trunk"], trunk_fn = measure_trunk(torch, smoke, sd, dev)
+        result["products"], product_fns = measure_products(torch, smoke, dev)
+        result["ms"] = {"trunk_fwd_stash": smoke.time_pair(torch, trunk_fn, trunk_fn,
+                                                           reps=3)[0]}
+        for name, fn in product_fns.items():
+            result["ms"][f"product_{name}"] = smoke.time_pair(torch, fn, fn, reps=3,
+                                                              inner=10)[0]
     text = json.dumps(result)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -216,9 +216,9 @@ def test_cuda_tc_product_matches_plain(layout, k):
         ta = torch.from_numpy(a).to(dev, torch.bfloat16)
         tb = torch.from_numpy(b).to(dev, torch.bfloat16)
         prod = tdm.Products(torch.bfloat16, dev)
-        before = (tdm.Products.tc_launches, tdm.Products.fma_launches)
+        before = (tdm.Products.tc_launches, tdm.Products.tf32x3_launches)
         got = getattr(prod, layout)(ta, tb)
-        assert (tdm.Products.tc_launches, tdm.Products.fma_launches) == (
+        assert (tdm.Products.tc_launches, tdm.Products.tf32x3_launches) == (
             before[0] + 1, before[1])
         ref = _plain(ta, tb, call)
         assert got.shape == ref.shape and torch.isfinite(got).all()
@@ -292,7 +292,7 @@ def test_cuda_tc_tile_forward_matches_plain(name):
         got = tmlp.mlp_seg(vs, ws, bs, layout, "ReLU", stash=True)
         ref = tmlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU", stash=True)
         pairs = [(got[0], ref[0])] + list(zip(got[1], ref[1]))
-    assert tdm.TILE_LAUNCHES == {"tc": before["tc"] + 1, "fma": before["fma"]}
+    assert tdm.TILE_LAUNCHES == {"tc": before["tc"] + 1, "tf32x3": before["tf32x3"]}
     for g, r in pairs:
         assert g.shape == r.shape and torch.isfinite(g.float()).all()
         assert _err(g, r) <= 2.0**-5, _err(g, r)
