@@ -31,7 +31,10 @@ Phases (any failure stops the script with a non-zero exit code):
    pass's 512 x 65 plus a ragged 7), in f32 and bf16, with times: the
    trunk forward with its stash, the K=1 colour forward, the dual-MLP
    backward (trunk and colour configurations) and the epilogue forward
-   and backward; two backward runs must give bitwise-equal dW / db;
+   and backward; two backward runs must give bitwise-equal dW / db; then
+   the trunk and the colour trunk with ReLU and LeakyReLU (ragged rows,
+   both precisions), each forward layer held to the plain layer over the
+   kernel's own stash (f' is a step at 0 there);
 6b. the tensor-core product of the backwards alone, bf16 at the fine
    trunk's shapes (dx and dW over 4 x 99,328 rows, layer 0's fan-in 60,
    NeRF's 3-wide last layer, a ragged row count) and f32 (3xTF32) at the
@@ -66,7 +69,9 @@ Phases (any failure stops the script with a non-zero exit code):
    trunk's (1024 x 259 rows, f32), its backward, and ``sdf_mlp`` forward
    and backward at the NeuS step's rows and a ragged M, ReLU and tanhExp,
    with the count of ReLU rows whose gE took the other side of f'(0)
-   beside PR 4's; two backward runs must give bitwise-equal dW / db;
+   beside the FMA kernels' (before the tensor cores); LeakyReLU on both ``mlp_seg`` precisions and on
+   ``sdf_mlp``; two backward runs must give bitwise-equal dW / db; the
+   parallel db sum at the NeuS fine pass;
 10. one full-width f32 train step of each family (``FAMILY_OVERRIDES``)
    from the seeded parameters of ``family_params``, against the JAX
    package's numbers on the CPU (``FAMILY_STEP``, made by
@@ -79,10 +84,14 @@ Phases (any failure stops the script with a non-zero exit code):
    split) and no plain version called;
    ms/step, rays/s and the device's busy share over five traced steps
    (``profile_train_{nerf,neus}.txt``);
+11b. NeDDF, NeRF and NeuS with LeakyReLU at ``fused="auto"`` through
+   their kernels (finite, every kernel launched), and a width the kernels
+   do not take raising NotImplementedError on the card;
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
    and through the plain versions: PSNR within 0.05 dB;
-13. one JSON line of per-kernel results (with each route's bound), the
-   card line, and the final ``{"ok": true, "device": {...}}`` line.
+13. one JSON line of per-kernel results (with each route's bound; the
+   parallel db sum among them), the card line, and the final
+   ``{"ok": true, "device": {...}}`` line.
 
 Outputs go to ``chiprun_out/chip_smoke/``.
 """
@@ -269,9 +278,18 @@ def card_line() -> str:
 
 # phase 2: the kernels that must run on the tensor cores (by the mangled
 # names in the library) and how many instantiations each has
-TC_FUNCTIONS = {"tc_gemm_kernel": 6,  # bf16 and f32 x nt, tn, nn
-                "mlp_tile_fwd": 8,    # bf16 and f32 x K=3, K=1, K=0 tanhExp, K=0 ReLU
-                "sdf_sweep_kernel": 2}  # f32: ReLU, tanhExp
+# tc_gemm_kernel: bf16 and f32 x nt, tn, nn plain (6); the activation
+# prologue on tn (bf16 and f32 x tanhExp, ReLU, LeakyReLU: 6), the
+# epilogue on nt (the same 6) and on nn (f32 x 3)
+TC_FUNCTIONS = {"tc_gemm_kernel": 21,
+                "mlp_tile_fwd": 18,   # bf16 and f32 x K=3, K=1, K=0 x the 3 activations
+                "sdf_sweep_kernel": 3}  # f32 x the 3 activations
+
+
+# the elementwise passes of the sdf_mlp and mlp_seg backwards that the
+# products' epilogues and prologues took over: their entry points are gone
+REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "neddf_sdf_act",
+                  "neddf_mlp_act")
 
 
 def _is_tc_function(name: str) -> bool:
@@ -346,6 +364,38 @@ def time_pair(torch, fn_kernel, fn_plain, reps: int = 5, inner: int = 1):
         k.append(once(fn_kernel))
         p.append(once(fn_plain))
     return statistics.median(k), statistics.median(p)
+
+
+def kernel_key(name: str) -> str:
+    """A profiler kernel name without its namespaces and argument list;
+    the product keeps its template arguments (operand type, layout, what
+    it folds in)."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+    head = head.replace("neddf::", "").replace("__nv_bfloat16", "bf16").strip()
+    return head if head.startswith("tc_gemm_kernel") else head.split("<")[0]
+
+
+def profile_calls(torch, fn, calls: int = 20) -> tuple:
+    """({kernel: {"launches", "ms"}} per call of ``fn``, device ms per call
+    in all), by torch.profiler over ``calls`` calls after one warm-up (a
+    short launch back to back with others is timed by the host's launch
+    rate under CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total <= 0:
+            continue
+        r = out.setdefault(kernel_key(ev.key), {"launches": 0, "ms": 0.0})
+        r["launches"] += ev.count / calls
+        r["ms"] += ev.self_device_time_total / 1e3 / calls
+    return out, sum(r["ms"] for r in out.values())
 
 
 def rel_err(torch, got, ref):
@@ -534,6 +584,74 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                         f"{json.dumps(results[route][f'{m}/{dtype_name}'])} | card: {card}")
             del tp, v_feat, j_feat, t_pres, ek, ep, ebk, ebp, ck, cp, bwd_args
             torch.cuda.empty_cache()
+
+    # ReLU and LeakyReLU (f'' = 0: no coupling term in the backward) on the
+    # K=3 trunk and the K=1 colour trunk, inputs from their own seed. f' is
+    # a step at 0, so a tangent whose z lies within a rounding of 0 may
+    # take the other side in the kernel than in the plain pass: each layer
+    # is held to the plain layer over the kernel's own stash of the layer
+    # below (its input), and the backwards run on the plain stash
+    gen.manual_seed(5)
+    m = M_TRAIN_RAGGED
+
+    def replay(vs, js, ws, bs, lay, act, hj, k, pres):
+        f, df, _ = dm.ACTIVATION_TRIPLES[act]
+        dtype = vs[0].dtype
+        x0 = torch.cat([dm._stack(v, j, k) for v, j in zip(vs, dm._seg_js(js, hj))],
+                       dim=-1).float()
+        zs = []
+        for li, (wl, bl) in enumerate(zip(ws, bs)):
+            h = x0 if li == 0 else dm._dual_act(pres[li - 1].float(), f, df).to(dtype).float()
+            if li > 0 and lay[li]:
+                h = torch.cat([x0[..., : vs[0].shape[1]], h], dim=-1)
+            z = h @ wl.float()
+            z[0] += bl
+            zs.append(z.to(dtype))
+        out = dm._dual_act(pres[-1].float(), f, df).to(dtype)
+        return [out[0], out[1:]] + zs
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+
+    for act in ("ReLU", "LeakyReLU"):
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tol, btol = REL_TOL[dtype_name], BWD_REL_TOL[dtype_name]
+            w = [x.to(dtype).contiguous() for x in ddf_w]
+            cw = [x.to(dtype).contiguous() for x in col_w]
+            v0 = uniform(m, 60).to(dtype)
+            j0 = (uniform(3, m, 60) * 0.1).to(dtype)
+            segs = [uniform(m, 60).to(dtype), uniform(m, 24).to(dtype),
+                    uniform(m, 3).to(dtype), uniform(m, 256).to(dtype)]
+            js = [(uniform(1, m, 60) * 0.1).to(dtype), (uniform(1, m, 256) * 0.1).to(dtype)]
+            for cfg, args in (("trunk", ([v0], [j0], w, ddf_b, layout, act, (True,), 3)),
+                              ("color", (segs, js, cw, col_b, c_layout, act, has_j, 1))):
+                if cfg == "trunk":
+                    fk = dm.dual_mlp_trunk(v0, j0, w, ddf_b, layout, act, stash=True)
+                else:
+                    fk = dm.dual_mlp_seg(*args, stash=True)
+                fp = dm.dual_mlp_seg_plain(*args, stash=True)
+                torch.cuda.synchronize()
+                route = f"dual_mlp_{cfg}_{act}"
+                r = check(route, m, dtype_name,
+                          list(zip([fk[0], fk[1], *fk[2]], replay(*args, fk[2]))), tol)
+                r["tangent_sides_off_plain"] = sum(
+                    int(((a[:1] > 0) != (b[:1] > 0)).sum().item()) for a, b in zip(fk[2], fp[2]))
+                vs_, js_, ws_, _, lay, _, hj, k = args
+                gv = (uniform(m, 256) * 0.01).to(dtype)
+                gj = (uniform(k, m, 256) * 0.01).to(dtype)
+                bargs = (vs_, js_, ws_, lay, act, hj, fp[2], gv, gj)
+                bk = dm.dual_mlp_seg_bwd(*bargs)
+                bp = dm.dual_mlp_seg_bwd_plain(*bargs)
+                torch.cuda.synchronize()
+                check(f"{route}_bwd", m, dtype_name, list(zip(sum(bk, []), sum(bp, []))), btol)
+                again = dm.dual_mlp_seg_bwd(*bargs)
+                if not all(torch.equal(a, b) for a, b in zip(bk[2] + bk[3], again[2] + again[3])):
+                    fail(f"{route}_bwd {dtype_name} M={m}: dW/db differ between runs")
+                for name in (route, f"{route}_bwd"):
+                    log(f"[6] {name} M={m} {dtype_name}: "
+                        f"{json.dumps(results[name][f'{m}/{dtype_name}'])} | card: {card}")
+                del fk, fp, bk, bp, again
+            torch.cuda.empty_cache()
     return results
 
 
@@ -650,16 +768,33 @@ def phase_products(torch, card: str) -> dict:
     return results
 
 
+def _pass_counters(dm) -> list:
+    """The elementwise passes' launch counters of the three kernel modules."""
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+
+    return [mlp.PASS_LAUNCHES, sk.PASS_LAUNCHES, dm.PASS_LAUNCHES]
+
+
 def route_counts(dm) -> dict:
     """Launches of the product kernel and of the tile forward by operand
-    type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split)."""
+    type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split); of the
+    products with an activation folded in; of the elementwise passes."""
+    passes = {}
+    for counter in _pass_counters(dm):
+        passes.update(counter)
     return {"products": {"tc": dm.Products.tc_launches, "tf32x3": dm.Products.tf32x3_launches},
-            "tile_forward": dict(dm.TILE_LAUNCHES)}
+            "folded": {"prologue": dm.Products.prologue_launches,
+                       "epilogue": dm.Products.epilogue_launches},
+            "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes}
 
 
 def reset_route_counts(dm) -> None:
     dm.Products.tc_launches = dm.Products.tf32x3_launches = 0
+    dm.Products.prologue_launches = dm.Products.epilogue_launches = 0
     dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
+    for counter in _pass_counters(dm):
+        counter.update({k: 0 for k in counter})
 
 
 def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> None:
@@ -1174,10 +1309,15 @@ NEUS_COL_OUTS = [256] * 8 + [3]
 SDF_FANS = [36] + [292 if li == 5 else 256 for li in range(1, 8)]
 SDF_LAYOUT = tuple(li == 5 for li in range(8))
 # phase 9's count of ReLU rows whose gE took the other side of f'(0) from
-# the all-plain pass, with PR 4's FMA kernels on the same inputs (measured
-# by `python3 tc_accuracy.py --f32 --tree <PR 4's tree>`, NVIDIA H100 80GB
-# HBM3, 700 W)
-PR4_ROWS_OFF_PLAIN_GE = {f"ReLU/{M_NEUS}": 0, f"ReLU/{M_SDF_RAGGED}": 0}
+# the all-plain pass, with the FMA kernels that came before the tensor
+# cores on the same inputs (measured by `python3 tc_accuracy.py --f32
+# --tree <that tree>`, NVIDIA H100 80GB HBM3, 700 W)
+FMA_ROWS_OFF_PLAIN_GE = {f"ReLU/{M_NEUS}": 0, f"ReLU/{M_SDF_RAGGED}": 0}
+# the NeuS fine pass's rows (1024 rays x 194 samples), whose db the
+# epilogues leave as one partial per 128-row tile, and the device time
+# the parallel db sum may take there (its byte bound is ~0.5 us)
+M_DB_ROWS = 1024 * 194
+DB_SUM_MS_MAX = 0.015
 
 
 def f32_bound(flops: float, nbytes: float) -> dict:
@@ -1246,26 +1386,24 @@ def phase_family_kernels(torch, card: str) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             fail(f"{route} {key}: dW/db differ between two runs")
 
-    # mlp_seg: the NeRF trunk ([h, seg0], ReLU, stash) and the NeuS colour trunk
-    cases = [("nerf", m, d) for m in (M_NERF_FINE, M_NERF_COARSE)
-             for d in ("bfloat16", "float32")] + [("neus_color", M_NEUS, "float32")]
-    for name, m, dtype_name in cases:
+    def mlp_case(name, m, dtype_name, act):
         dtype = getattr(torch, dtype_name)
         if name == "nerf":
             widths, fans, outs = (60,), NERF_FANS, [256] * 8
             layout = tuple(li == 5 for li in range(8))
         else:
-            widths, fans, outs, layout = (3, 24, 3, 256), NEUS_COL_FANS, NEUS_COL_OUTS, (False,) * 9
+            widths, fans, outs = (3, 24, 3, 256), NEUS_COL_FANS, NEUS_COL_OUTS
+            layout = (False,) * 9
         ws, bs = layers(fans, outs)
         ws = [w.to(dtype).contiguous() for w in ws]
         vs = [uniform((m, w)).to(dtype).contiguous() for w in widths]
         g = (uniform((m, outs[-1])) * 0.01).to(dtype)
-        key = f"{name}/{m}/{dtype_name}"
-        fk = mlp.mlp_seg(vs, ws, bs, layout, "ReLU", stash=True)
-        fp = mlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU", stash=True)
+        key = f"{name}/{m}/{dtype_name}" + ("" if act == "ReLU" else f"/{act}")
+        fk = mlp.mlp_seg(vs, ws, bs, layout, act, stash=True)
+        fp = mlp.mlp_seg_plain(vs, ws, bs, layout, act, stash=True)
         torch.cuda.synchronize()
         check("mlp_seg", key, [(fk[0], fp[0])] + list(zip(fk[1], fp[1])), REL_TOL[dtype_name])
-        args = (vs, ws, layout, "ReLU", fp[1], g)
+        args = (vs, ws, layout, act, fp[1], g)
         bk = mlp.mlp_seg_bwd(*args)
         bp = mlp.mlp_seg_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -1273,9 +1411,9 @@ def phase_family_kernels(torch, card: str) -> dict:
         again = mlp.mlp_seg_bwd(*args)
         bitwise("mlp_seg_bwd", key, bk[1] + bk[2], again[1] + again[2])
         if m in (M_NERF_FINE, M_NEUS):
-            ms, plain_ms = time_pair(torch, lambda: mlp.mlp_seg(vs, ws, bs, layout, "ReLU",
+            ms, plain_ms = time_pair(torch, lambda: mlp.mlp_seg(vs, ws, bs, layout, act,
                                                                 stash=True),
-                                     lambda: mlp.mlp_seg_plain(vs, ws, bs, layout, "ReLU",
+                                     lambda: mlp.mlp_seg_plain(vs, ws, bs, layout, act,
                                                                stash=True), reps=3)
             work = mlp_work(m, fans, outs, dtype_name, sum(widths), stash=True)
             results["mlp_seg"][key].update(
@@ -1292,61 +1430,104 @@ def phase_family_kernels(torch, card: str) -> dict:
         del fk, fp, bk, bp, again, args, vs, ws
         torch.cuda.empty_cache()
 
+    # mlp_seg: the NeRF trunk ([h, seg0], ReLU, stash) and the NeuS colour trunk
+    relu_cases = [("nerf", m, d) for m in (M_NERF_FINE, M_NERF_COARSE)
+                  for d in ("bfloat16", "float32")] + [("neus_color", M_NEUS, "float32")]
+    for name, m, dtype_name in relu_cases:
+        mlp_case(name, m, dtype_name, "ReLU")
+
+    # the parallel db sum at the NeuS fine pass: the epilogues' 1,552 tile
+    # partials (128 rows each) of 256 columns, against the plain sum over
+    # rows and torch's own (the library call), device times by the profiler
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    parts = uniform((-(-M_DB_ROWS // 128), 256))
+    k = dm.Products(torch.float32, dev)
+    first, again = k.sum_rows(parts), k.sum_rows(parts)
+    ref = parts.double().sum(dim=0)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail("db sum: two runs differ")
+    err = (first.double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    if rel > REL_TOL["float32"]:
+        fail(f"db sum: rel err {rel:.3g} > {REL_TOL['float32']}")
+    ms = profile_calls(torch, lambda: k.sum_rows(parts))[1]
+    plain_ms = profile_calls(torch, lambda: dm.sum_rows_plain(parts))[1]
+    library_ms = profile_calls(torch, lambda: parts.sum(dim=0))[1]
+    results["db_sum"] = {"rows": parts.shape[0], "max_abs_err": err, "rel_err": rel, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         **bound(0.0, 4.0 * (parts.numel() + 256), "float32")}
+    log(f"[9] db sum of {parts.shape[0]} x 256 partials (the NeuS fine pass): "
+        f"{1e3 * ms:.2f} us of device time (plain {1e3 * plain_ms:.2f}, torch.sum "
+        f"{1e3 * library_ms:.2f}, bound {1e3 * results['db_sum']['bound_ms']:.2f} us), "
+        f"rel err {rel:.2e}, bitwise equal across two runs | card: {card}")
+    if ms > DB_SUM_MS_MAX:
+        fail(f"db sum: {ms:.4f} ms of device time > {DB_SUM_MS_MAX}")
+    del parts, first, again, ref
+
+    # LeakyReLU (slope 0.01, f'(0) = 1) on both precisions of the product's
+    # prologue and nt epilogue, inputs from their own seed
+    gen.manual_seed(17)
+    for name, m, dtype_name in (("nerf", M_NERF_COARSE, "bfloat16"),
+                                ("neus_color", M_SDF_RAGGED, "float32")):
+        mlp_case(name, m, dtype_name, "LeakyReLU")
+
     # sdf_mlp: the NeuS SDF trunk with its channel-0 gradient (f32)
-    for act in ("ReLU", "tanhExp"):
-        for m in (M_NEUS, M_SDF_RAGGED):
-            key = f"{act}/{m}/float32"
-            e, ws, bs, ch, cg = sdf_inputs(torch, dev, act, m)
-            fk = sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True)
-            fp = sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True)
-            torch.cuda.synchronize()
-            # gE depends on f'(z) (ReLU: a step): where a z lies within an f32
-            # rounding of 0 the two passes may take different sides, so the
-            # kernel's sweep is held to the plain sweep over its own z, and
-            # the rows where it left the all-plain gE are counted
-            ge_ref = sdf_grad.channel0_sweep(ws, SDF_LAYOUT, act, fk[2], e.shape[1])
-            r = check("sdf_mlp", key, [(fk[0], fp[0]), (fk[1], ge_ref)]
-                      + list(zip(fk[2], fp[2])), REL_TOL["float32"])
-            r["rows_off_plain_ge"] = ge_rows_off_plain(fk, fp)
-            r["rows_off_plain_ge_pr4"] = PR4_ROWS_OFF_PLAIN_GE.get(f"{act}/{m}")
-            args = (e, ws, SDF_LAYOUT, act, fp[2], ch, cg)
-            bk = sk.sdf_mlp_bwd(*args)
-            bp = sdf_grad.sdf_trunk_with_grad_vjp(*args)
-            torch.cuda.synchronize()
-            check("sdf_mlp_bwd", key, [(bk[0], bp[0])] + list(zip(bk[1] + bk[2], bp[1] + bp[2])),
-                  BWD_REL_TOL["float32"])
-            again = sk.sdf_mlp_bwd(*args)
-            bitwise("sdf_mlp_bwd", key, bk[1] + bk[2], again[1] + again[2])
-            if m == M_NEUS and act == "ReLU":
-                e_dim = SDF_FANS[0]
-                trunk_flops, _ = mlp_work(m, SDF_FANS, [256] * 8, "float32", e_dim)
-                weights = sum(f * 256 * 4 + 4 * 256 for f in SDF_FANS)
-                ms, plain_ms = time_pair(
-                    torch, lambda: sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True),
-                    lambda: sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True),
-                    reps=3)
-                # trunk + sweep; e in, h, gE and the stash out
-                fwd = (2 * trunk_flops, weights + m * 4 * (e_dim + 256 + e_dim + 8 * 256))
-                results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms,
-                                               **f32_bound(*fwd))
-                ms, plain_ms = time_pair(torch, lambda: sk.sdf_mlp_bwd(*args),
-                                         lambda: sdf_grad.sdf_trunk_with_grad_vjp(*args),
-                                         reps=3)
-                # the replayed sweep (hidden rows of layers 1..7), then four
-                # products per layer; e, the stash, ch, cg in, de and dW/db out
-                replay = 2.0 * m * 256 * 256 * 7
-                bwd = (4 * trunk_flops + replay,
-                       2 * weights + m * 4 * (e_dim + 8 * 256 + 256 + e_dim + e_dim))
-                results["sdf_mlp_bwd"][key].update(ms=ms, plain_ms=plain_ms,
-                                                   **f32_bound(*bwd))
-            for route in ("sdf_mlp", "sdf_mlp_bwd"):
-                log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
-            if act == "ReLU":
-                log(f"[9] sdf_mlp {key}: {r['rows_off_plain_ge']} rows whose gE took the other "
-                    f"side of f'(0) from the all-plain pass (PR 4's FMA kernel on the same "
-                    f"inputs: {r['rows_off_plain_ge_pr4']})")
-            del fk, fp, bk, bp, again, args, e
-            torch.cuda.empty_cache()
+    sdf_cases = [(act, m) for act in ("ReLU", "tanhExp") for m in (M_NEUS, M_SDF_RAGGED)]
+    for act, m in sdf_cases + [("LeakyReLU", M_SDF_RAGGED)]:
+        key = f"{act}/{m}/float32"
+        e, ws, bs, ch, cg = sdf_inputs(torch, dev, act, m)
+        fk = sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True)
+        fp = sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True)
+        torch.cuda.synchronize()
+        # gE depends on f'(z) (ReLU: a step): where a z lies within an f32
+        # rounding of 0 the two passes may take different sides, so the
+        # kernel's sweep is held to the plain sweep over its own z, and
+        # the rows where it left the all-plain gE are counted
+        ge_ref = sdf_grad.channel0_sweep(ws, SDF_LAYOUT, act, fk[2], e.shape[1])
+        r = check("sdf_mlp", key, [(fk[0], fp[0]), (fk[1], ge_ref)]
+                  + list(zip(fk[2], fp[2])), REL_TOL["float32"])
+        r["rows_off_plain_ge"] = ge_rows_off_plain(fk, fp)
+        r["rows_off_plain_ge_fma"] = FMA_ROWS_OFF_PLAIN_GE.get(f"{act}/{m}")
+        args = (e, ws, SDF_LAYOUT, act, fp[2], ch, cg)
+        bk = sk.sdf_mlp_bwd(*args)
+        bp = sdf_grad.sdf_trunk_with_grad_vjp(*args)
+        torch.cuda.synchronize()
+        check("sdf_mlp_bwd", key, [(bk[0], bp[0])] + list(zip(bk[1] + bk[2], bp[1] + bp[2])),
+              BWD_REL_TOL["float32"])
+        again = sk.sdf_mlp_bwd(*args)
+        bitwise("sdf_mlp_bwd", key, bk[1] + bk[2], again[1] + again[2])
+        if m == M_NEUS and act == "ReLU":
+            e_dim = SDF_FANS[0]
+            trunk_flops, _ = mlp_work(m, SDF_FANS, [256] * 8, "float32", e_dim)
+            weights = sum(f * 256 * 4 + 4 * 256 for f in SDF_FANS)
+            ms, plain_ms = time_pair(
+                torch, lambda: sk.sdf_mlp(e, ws, bs, SDF_LAYOUT, act, stash=True),
+                lambda: sdf_grad.sdf_trunk_with_grad(e, ws, bs, SDF_LAYOUT, act, stash=True),
+                reps=3)
+            # trunk + sweep; e in, h, gE and the stash out
+            fwd = (2 * trunk_flops, weights + m * 4 * (e_dim + 256 + e_dim + 8 * 256))
+            results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms,
+                                           **f32_bound(*fwd))
+            ms, plain_ms = time_pair(torch, lambda: sk.sdf_mlp_bwd(*args),
+                                     lambda: sdf_grad.sdf_trunk_with_grad_vjp(*args),
+                                     reps=3)
+            # the replayed sweep (hidden rows of layers 1..7), then four
+            # products per layer; e, the stash, ch, cg in, de and dW/db out
+            replay = 2.0 * m * 256 * 256 * 7
+            bwd = (4 * trunk_flops + replay,
+                   2 * weights + m * 4 * (e_dim + 8 * 256 + 256 + e_dim + e_dim))
+            results["sdf_mlp_bwd"][key].update(ms=ms, plain_ms=plain_ms,
+                                               **f32_bound(*bwd))
+        for route in ("sdf_mlp", "sdf_mlp_bwd"):
+            log(f"[9] {route} {key}: {json.dumps(results[route][key])} | card: {card}")
+        if act == "ReLU":
+            log(f"[9] sdf_mlp {key}: {r['rows_off_plain_ge']} rows whose gE took the other "
+                f"side of f'(0) from the all-plain pass (the FMA kernel before the tensor "
+                f"cores, same inputs: {r['rows_off_plain_ge_fma']})")
+        del fk, fp, bk, bp, again, args, e
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1412,6 +1593,26 @@ FAMILY_RUN_KERNELS = {"nerf": ("mlp_seg", "mlp_seg_bwd"),
 # the route of every product and tile forward of each configuration's run:
 # NeRF trains in bf16 ("tc"), NeuS in f32 (the 3xTF32 split)
 FAMILY_ROUTES = {"nerf": "tc", "neus": "tf32x3"}
+
+
+def expected_folding(family: str, launches: dict) -> dict:
+    """The elementwise launches and the products with an activation folded
+    in that a family's run must show, from its backward calls: per
+    mlp_seg_bwd of L layers one gpre (the top layer), L - 1 nt epilogues,
+    L - 1 tn prologues and L db sums; per sdf_mlp_bwd (8 layers, ReLU) one
+    sdf_top and one gpre (the top of the replay and of the trunk), 7 + 7 +
+    7 epilogues (replay, adjoint, trunk; the top adjoint is zero under
+    ReLU), 7 prologues and 8 db sums; no gstack or dual_act (NeDDF's)."""
+    col = launches["mlp_seg_bwd"]
+    layers = len(NERF_FANS) if family == "nerf" else len(NEUS_COL_FANS)
+    sdf = launches.get("sdf_mlp_bwd", 0)
+    n_sdf = len(SDF_FANS)
+    return {"passes": {"gpre": col + sdf, "sdf_top": sdf, "gstack": 0, "dual_act": 0,
+                       "db_sum": col * layers + sdf * n_sdf},
+            "folded": {"prologue": col * (layers - 1) + sdf * (n_sdf - 1),
+                       "epilogue": col * (layers - 1) + sdf * 3 * (n_sdf - 1)}}
+
+
 # run_eval at downsampling 8, kernels vs plain versions: PSNR gap (dB)
 EVAL_PSNR_GAP_DB = 0.05
 
@@ -1456,6 +1657,13 @@ def phase_family_runs(torch, card: str) -> dict:
         if min(launches.values()) < 1 or plain_calls:
             fail(f"the {family} run did not go through every kernel alone")
         check_routes(f"the {family} run", routes, FAMILY_ROUTES[family])
+        expected = expected_folding(family, launches)
+        got = {"passes": routes["passes"], "folded": routes["folded"]}
+        log(f"[11] {family} run: elementwise launches {routes['passes']} and products with an "
+            f"activation folded in {routes['folded']} (expected {expected}); no launch of "
+            f"{', '.join(REMOVED_PASSES)} (not in the library)")
+        if got != expected:
+            fail(f"the {family} run's elementwise launches {got}, expected {expected}")
         hist = trainer.history
         if len(hist) != 100 * (TRAIN_EPOCHS + 1):
             fail(f"{family}: {len(hist)} logged steps")
@@ -1515,6 +1723,76 @@ def phase_family_runs(torch, card: str) -> dict:
     return out
 
 
+# phase 11b: configurations beside the shipped ones, on a small batch of
+# points (rays x samples): every field with LeakyReLU at fused="auto"
+# launches its kernels, forward and backward, and a width the kernels do
+# not take makes them raise on the card (no plain version runs there)
+OTHER_BATCH = (64, 32)
+OTHER_REFUSED = {"ddf_layer_width": 128}
+
+
+def phase_other_configs(torch, card: str) -> dict:
+    """Phase 11b: NeDDF, NeRF and NeuS with ``activation_type=LeakyReLU``
+    through their kernels at ``fused="auto"`` (every output and gradient
+    finite, each kernel of the field launched; the gaps to ``fused="off"``
+    printed, the kernels themselves are held to their plain versions in
+    phases 6 and 9), and NeDDF at ``OTHER_REFUSED``: NotImplementedError."""
+    from neddf_tpu_torch.fields.neddf import NeDDF
+    from neddf_tpu_torch.fields.nerf import NeRF
+    from neddf_tpu_torch.fields.neus import NeuS
+    from neddf_tpu_torch.geometry.rays import Sampling
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pos = torch.rand(OTHER_BATCH + (3,), generator=gen, device=dev) - 0.5
+    dirs = torch.randn(OTHER_BATCH + (3,), generator=gen, device=dev)
+    sampling = Sampling(pos, dirs / dirs.norm(dim=-1, keepdim=True), torch.zeros_like(pos))
+    field_kernels = {NeDDF: (dm.dual_mlp_trunk, dm.dual_mlp_seg, dm.dual_mlp_seg_bwd),
+                     NeRF: (mlp.mlp_seg, mlp.mlp_seg_bwd),
+                     NeuS: (sk.sdf_mlp, sk.sdf_mlp_bwd, mlp.mlp_seg, mlp.mlp_seg_bwd)}
+    out = {}
+    for field, kernels in field_kernels.items():
+        torch.manual_seed(0)
+        net = field(activation_type="LeakyReLU").to(dev)
+        runs = {}
+        for fused in ("auto", "off"):
+            net.fused = fused
+            net.zero_grad(set_to_none=True)
+            for fn in kernels:
+                fn.launches = 0
+            res = net(sampling, net.schedule(0), need_aux=True)
+            sum(v.float().mean() for v in res.values()).backward()
+            torch.cuda.synchronize()
+            runs[fused] = ({k: v.detach().float() for k, v in res.items()},
+                           {k: p.grad.detach().clone() for k, p in net.named_parameters()
+                            if p.grad is not None},
+                           {fn.__name__: fn.launches for fn in kernels})
+        (ko, kg, launched), (po, pg, _) = runs["auto"], runs["off"]
+        finite = all(torch.isfinite(t).all().item() for t in [*ko.values(), *kg.values()])
+        gaps = {"outputs": max(rel_err(torch, ko[k], po[k])[1] for k in ko),
+                "grads": max(rel_err(torch, kg[k], pg[k])[1] for k in kg)}
+        out[field.__name__] = {"launches": launched, "finite": finite, "rel_gap_to_off": gaps}
+        log(f"[11b] {field.__name__} LeakyReLU at fused='auto': launches {launched}, finite "
+            f"{finite}, largest relative gap to fused='off' {json.dumps(gaps)} | card: {card}")
+        if not finite or min(launched.values()) < 1:
+            fail(f"phase 11b: {field.__name__} with LeakyReLU did not run through its kernels")
+        del net, runs
+    net = NeDDF(**OTHER_REFUSED).to(dev)
+    try:
+        net(sampling, net.schedule(0), need_aux=True)
+        fail(f"phase 11b: NeDDF {OTHER_REFUSED} ran on the card; its kernels do not take it")
+    except NotImplementedError as err:
+        out["refused"] = {"config": OTHER_REFUSED, "error": str(err)}
+        log(f"[11b] NeDDF {OTHER_REFUSED} at fused='auto' on the card: NotImplementedError "
+            f"({err})")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (REPO / "neddf_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1562,6 +1840,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "[build]" in line:
                 log(f"[2]   {line.strip()}")
     tc_build = check_tensor_core_build(_build.build_dir())
+    lib = _build.library()
+    left = [name for name in REMOVED_PASSES if hasattr(lib, name)]
+    if left:
+        fail(f"the library still exports the folded elementwise passes {left}")
+    log(f"[2] the elementwise passes folded into the products are gone from the library: "
+        f"{', '.join(REMOVED_PASSES)}")
     for fn_name, count in tc_build["hmma"].items():
         log(f"[2] SASS {fn_name}: {count} HMMA/HGMMA, "
             f"{tc_build['spill_bytes'][fn_name]} bytes spilled")
@@ -1738,6 +2022,7 @@ def main() -> int:
     family_kernels = phase_family_kernels(torch, card)
     family_steps = phase_family_step(torch, card)
     family_runs = phase_family_runs(torch, card)
+    other_configs = phase_other_configs(torch, card)
 
     # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
@@ -1823,6 +2108,14 @@ def main() -> int:
                                if v["dtype"] == dtype),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    db = family_kernels["db_sum"]
+    kernels.append({
+        "name": "sum_rows (the parallel fixed-order db sum of the backwards)", "route": "cuda",
+        "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+        "replaces": "neddf_tpu/kernels/sdf_mlp.py:304",
+        "launches": family_runs["neus"]["routes"]["passes"]["db_sum"],
+        "max_abs_err": db["max_abs_err"], "ms": db["ms"], "plain_ms": db["plain_ms"],
+        "bound_ms": db["bound_ms"], "bound_by": db["bound_by"], "library_ms": db["library_ms"]})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -1832,6 +2125,7 @@ def main() -> int:
         "eval_routes": eval_routes, "machine_step": machine, "train_run": train,
         "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
         "family_steps": family_steps, "family_runs": family_runs,
+        "other_configs": other_configs,
     }
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -17,9 +17,18 @@
 // * two products: dx = G W^T and dW = h_in^T G (for layer 0 and a
 //   post-skip layer, per input block of rows of W): neddf_gemm_tc, on
 //   the tensor cores for bf16 and for f32 operands;
-// * neddf_sum_splits: the fixed-order sum of the dW / db partials.
-// The same products serve the backwards of mlp_bwd.cu and sdf_mlp.cu.
-//
+// * neddf_sum_rows: the db partials summed in a fixed order over the whole
+//   card (groups of rows, then the groups); neddf_sum_splits: the dW
+//   split partials.
+// The same products serve the backwards of mlp_bwd.cu and sdf_mlp.cu,
+// which give neddf_gemm_tc an activation whose elementwise work it folds
+// in, as the prologue of a tn product (dW = f(z_{l-1})^T G: f applied to
+// the stash as its stages land in shared memory) or as the epilogue of an
+// nt / nn product of one split (the tile goes through shared memory, is
+// combined with the stash and up to one side plane, and leaves as the
+// next layer's cotangent in the operand type, with one db partial per
+// 128-row tile). So those backwards move no
+// plane through device memory between their products.
 // Determinism. The Pallas kernel accumulates dW/db across its sequential
 // TPU grid; blocks here run concurrently, so every cross-block reduction
 // writes per-block (or per-split) f32 partials that a second pass sums
@@ -47,10 +56,15 @@
 // 295 at which the bf16 tensor cores, and not device memory, are the
 // limit, so its tile leaves through shared memory in coalesced streaming
 // stores. dW reduces over S*M rows in fixed-order split partials.
-// The elementwise kernels (gstack, dual_act, sum_splits) and the f32
-// round trip of g move ~(3 * 4 + 4 * 2) bytes per stacked element and are
-// bound by device memory; with the products on the tensor cores they
-// take most of the bf16 backward (fusing gstack into the product is next).
+// The elementwise kernels (gstack, dual_act) and the f32 round trip of g
+// move ~(3 * 4 + 4 * 2) bytes per stacked element and are bound by
+// device memory; with the products on the tensor cores they take most of
+// the bf16 dual backward (folding them into the products as mlp_bwd.cu's
+// and sdf_mlp.cu's are is next: the coupling sum_a g_a z_a needs all S
+// streams of a row in one output tile). The epilogue and the prologue
+// cost the product no registers: the epilogue is a call of its own after
+// the accumulators are in shared memory, and the f32 nt product with it
+// keeps its mma depths in a loop (unrolled, ptxas spilled 4 bytes).
 #include "mlp_tile.cuh"
 #include "tc_ops.cuh"
 
@@ -69,7 +83,7 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
 
 constexpr int kMaxStreams = 4;
 
-template <typename T>
+template <typename T, int ACT>
 __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
                               const float* __restrict__ g,
                               const T* __restrict__ z, T* __restrict__ gs,
@@ -83,7 +97,7 @@ __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
   for (int m = m0; m < m1; ++m) {
     const size_t i = (size_t)m * C + c;
     float f, d1, d2;
-    neddf::act_fn3<neddf::kTanhExp>(ld(z, i), f, d1, d2);
+    neddf::act_fn3<ACT>(ld(z, i), f, d1, d2);
     float coupling = 0.f;
     float gt[kMaxStreams];
     for (int a = 1; a < S; ++a) {
@@ -98,14 +112,14 @@ __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
   db_part[(size_t)blockIdx.x * C + c] = db;
 }
 
-template <typename T>
+template <typename T, int ACT>
 __global__ void dual_act_kernel(int S, int C, int M, const T* __restrict__ z,
                                 T* __restrict__ h) {
   const size_t plane = (size_t)M * C;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < plane;
        i += (size_t)gridDim.x * blockDim.x) {
-    float f, d1, d2;
-    neddf::act_fn3<neddf::kTanhExp>(ld(z, i), f, d1, d2);
+    float f, d1;
+    neddf::act_fn<ACT>(ld(z, i), f, d1);
     st(h, i, f);
     for (int a = 1; a < S; ++a) st(h, a * plane + i, d1 * ld(z, a * plane + i));
   }
@@ -183,16 +197,245 @@ __device__ __forceinline__ void tc_load_tile(T* s, const TcOperand<T>& op, int o
   }
 }
 
+template <int ACT>
+__device__ __forceinline__ float act_f(float x) {
+  float f, df;
+  neddf::act_fn<ACT>(x, f, df);
+  return f;
+}
+
+// f over V elements in place, by vector loads and stores of V * sizeof(T)
+// bytes (the copy's own width: 16-byte lanes keep shared memory free of
+// bank conflicts), rounded to T as from_f32 rounds
+template <int ACT, int V>
+__device__ __forceinline__ void act_vec(float* e) {
+  if constexpr (V == 4) {
+    float4 x = *reinterpret_cast<float4*>(e);
+    x = make_float4(act_f<ACT>(x.x), act_f<ACT>(x.y), act_f<ACT>(x.z), act_f<ACT>(x.w));
+    *reinterpret_cast<float4*>(e) = x;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = act_f<ACT>(e[j]);
+  }
+}
+template <int ACT, int V>
+__device__ __forceinline__ void act_vec(__nv_bfloat16* e) {
+  if constexpr (V % 2 == 0) {
+    uint32_t w[V / 2];
+    if constexpr (V == 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(e);
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else if constexpr (V == 4) {
+      const uint2 x = *reinterpret_cast<const uint2*>(e);
+      w[0] = x.x; w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(e);
+    }
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+      const __nv_bfloat162 h = __floats2bfloat162_rn(act_f<ACT>(f.x), act_f<ACT>(f.y));
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint4*>(e) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(e) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(e) = w[0];
+    }
+  } else {
+    e[0] = __float2bfloat16_rn(act_f<ACT>(__bfloat162float(e[0])));
+  }
+}
+
+// f(x) in place over the elements of a tile that this thread copied with
+// tc_copy_tile<T, OUTER, INNER, P, V> (the same walk): after its own
+// cp.async group has landed they are visible to it, and zero-filled
+// elements stay 0 (f(0) = 0 for every activation), so no barrier is needed
+template <typename T, int ACT, int OUTER, int INNER, int P, int V>
+__device__ __forceinline__ void tc_act_tile(T* s, int tid) {
+  constexpr int CPR = INNER / V;
+#pragma unroll 1
+  for (int idx = tid; idx < OUTER * CPR; idx += kTcThreads) {
+    const int r = idx / CPR;
+    act_vec<ACT, V>(s + r * P + (idx - r * CPR) * V);
+  }
+}
+
+template <typename T, int ACT, int OUTER, int INNER, int P>
+__device__ __forceinline__ void tc_act_load(T* s, int vec, int tid) {
+  constexpr int E = (int)sizeof(T);
+  switch (vec * E) {
+    case 16: tc_act_tile<T, ACT, OUTER, INNER, P, 16 / E>(s, tid); break;
+    case 8: tc_act_tile<T, ACT, OUTER, INNER, P, 8 / E>(s, tid); break;
+    case 4: tc_act_tile<T, ACT, OUTER, INNER, P, 4 / E>(s, tid); break;
+    default: tc_act_tile<T, ACT, OUTER, INNER, P, 1>(s, tid);
+  }
+}
+
+// what a product does besides the sum (template parameter EPI)
+constexpr int kEpiNone = 0;  // f32 partials out
+constexpr int kProAct = 1;   // tn: operand A is f(A) (dW = f(z_{l-1})^T G)
+constexpr int kEpiAct = 2;   // nt / nn, one split: the elementwise epilogue below
+
+// the epilogue's side planes; columns [0, n_act) take the activation's
+// epilogue, [n_act, N) leave raw (f32) to `raw` [M, N - n_act]. mode
+// kModeDact: v = acc f'(z) (+ side), out = T(v), out2 = acc (the raw
+// product), db: per-tile column sums of v; kModeAdjoint (tanhExp only: the
+// others have f'' = 0):
+// out = acc f'(z), out2 = acc side f''(z), or with no side acc f''(z) in
+// column 0 and 0 elsewhere (the top of the sweep's adjoint)
+constexpr int kModeDact = 1;
+constexpr int kModeAdjoint = 2;
+template <typename T>
+struct TcEpi {
+  const T* z;          // [M, n_act] the stash
+  const float* side;   // [M, n_act] or null
+  T* out;              // [M, n_act] or null
+  float* out2;         // [M, n_act] or null
+  float* raw;          // [M, N - n_act] or null when N == n_act
+  float* db;           // [ceil(M / kTcBM), n_act] or null
+  int n_act;
+  int mode;
+};
+
+// 4 consecutive elements at a 4-element-aligned index, as f32
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<const uint32_t*>(&lo);
+  x.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
+// the epilogue of a finished 128 x 128 tile (kEpiAct), once the kernel has
+// put its accumulators in shared memory (the free ring; a call of its own,
+// so that its registers do not add to the product's): each thread takes 4
+// columns of 16 rows in coalesced 16-byte pieces, reads the side planes
+// there, writes the outputs and sums its columns; the 8 warps' column sums
+// meet in shared memory and are added in warp order (one db partial per
+// tile and column, the same on every run)
+template <typename T, int ACT>
+__device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
+  // the fields in registers once (read through the reference after every
+  // store, they would be loaded again: the stores might alias them)
+  const T* __restrict__ zp = epi.z;
+  const float* __restrict__ side = epi.side;
+  T* __restrict__ out = epi.out;
+  float* __restrict__ out2 = epi.out2;
+  float* __restrict__ raw = epi.raw;
+  float* __restrict__ db = epi.db;
+  const int n_act = epi.n_act;
+  const bool adjoint = !neddf::kZeroDeriv2<ACT> && epi.mode == kModeAdjoint;
+  constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
+  constexpr int kWarps = kTcThreads / 32;
+  constexpr int kU = 4;  // rows per pass: their loads are in flight together
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const float* so = reinterpret_cast<const float*>(tc_smem);
+  float* red = reinterpret_cast<float*>(tc_smem) + kTcBM * kOP;  // [8 warps][kTcBN]
+  const int c = (tid & 31) * 4;  // this thread's 4 columns of the tile
+  const int gc = n0 + c;
+  const bool act = gc < n_act;  // n_act % 4 == 0: all 4 columns or none
+  const int n_raw = N - n_act;
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int r0 = tid >> 5; r0 < kTcBM; r0 += kU * kWarps) {
+    float zv[kU][4], sv[kU][4];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int gr = m0 + r0 + u * kWarps;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) zv[u][j] = sv[u][j] = 0.f;
+      if (act && gr < M) {
+        const size_t i = (size_t)gr * n_act + gc;
+        load4(zp + i, zv[u]);
+        if (side != nullptr) load4(side + i, sv[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = r0 + u * kWarps;
+      const int gr = m0 + r;
+      if (gr >= M || gc >= N) continue;
+      const float4 a4 = *reinterpret_cast<const float4*>(so + r * kOP + c);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      if (!act) {  // past the activated columns: the raw product
+        float* p = raw + (size_t)gr * n_raw + (gc - n_act);
+        for (int j = 0; j < 4 && gc + j < N; ++j) p[j] = av[j];
+        continue;
+      }
+      float v[4], w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float f, d1, d2 = 0.f;
+        if constexpr (neddf::kZeroDeriv2<ACT>) {
+          neddf::act_fn<ACT>(zv[u][j], f, d1);
+        } else {
+          neddf::act_fn3<ACT>(zv[u][j], f, d1, d2);
+        }
+        if (adjoint) {
+          v[j] = av[j] * d1;
+          w[j] = av[j] * (side != nullptr ? sv[u][j] : (gc + j == 0 ? 1.f : 0.f)) * d2;
+        } else {
+          v[j] = av[j] * d1 + sv[u][j];
+          w[j] = av[j];
+          dsum[j] += v[j];
+        }
+      }
+      const size_t i = (size_t)gr * n_act + gc;
+      if (out != nullptr) store4(out + i, v);
+      if (out2 != nullptr) store4(out2 + i, w);
+    }
+  }
+  if (db == nullptr) return;
+  *reinterpret_cast<float4*>(red + (tid >> 5) * kTcBN + c) =
+      make_float4(dsum[0], dsum[1], dsum[2], dsum[3]);
+  __syncthreads();
+  if (tid < kTcBN && n0 + tid < n_act) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * kTcBN + tid];
+    db[(size_t)blockIdx.y * n_act + n0 + tid] = s;
+  }
+}
+
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
 // [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
-// with K contiguous (else [K, N], N contiguous).
-template <typename T, bool A_K, bool B_K>
+// with K contiguous (else [K, N], N contiguous). With A_K, A may come in
+// two K segments: columns k >= k_split from A2 (k_split a multiple of the
+// stage depth), so [qbar | cg] W runs as one product. EPI kProAct (tn)
+// applies f (ACT) to A as its stages land; kEpiAct (one split) hands the
+// finished tile to the epilogue (TcEpi) instead of writing it.
+template <typename T, bool A_K, bool B_K, int ACT, int EPI>
 __global__ void __launch_bounds__(kTcThreads, 2)
     tc_gemm_kernel(int M, int N, int K, int k_chunk, const TcOperand<T> A,
-                   const TcOperand<T> B, float* __restrict__ out) {
+                   const TcOperand<T> A2, int k_split, const TcOperand<T> B,
+                   float* __restrict__ out, const __grid_constant__ TcEpi<T> epi) {
   using Sh = TcShape<T>;
   constexpr int BK = Sh::BK, PK = Sh::PK, PMN = Sh::PMN, OP = Sh::OP;
   constexpr bool kF32 = std::is_same_v<T, float>;
+  // A in two K segments: only the nn epilogue (the sweep adjoint) takes them
+  constexpr bool kTwoK = EPI == kEpiAct && A_K && !B_K;
+  // the f32 nt product with the epilogue keeps its mma depths in a loop
+  // (unrolled, ptxas spilled 4 bytes of it at 128 registers)
+  constexpr bool kRollK = kF32 && EPI == kEpiAct && B_K;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   T* sA = reinterpret_cast<T*>(tc_smem);
   T* sB = sA + kTcStages * OP;
@@ -211,7 +454,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const int k0 = kb + t * BK;
     T* a = sA + (t % kTcStages) * OP;
     T* b = sB + (t % kTcStages) * OP;
-    if constexpr (A_K) {
+    if constexpr (kTwoK) {
+      if (k0 >= k_split) {
+        tc_load_tile<T, kTcBM, BK, PK>(a, A2, m0, M, k0 - k_split, ke - k_split, tid);
+      } else {
+        tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, min(ke, k_split), tid);
+      }
+    } else if constexpr (A_K) {
       tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, ke, tid);
     } else {
       tc_load_tile<T, BK, kTcBM, PMN>(a, A, k0, ke, m0, M, tid);
@@ -222,6 +471,20 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       tc_load_tile<T, BK, kTcBN, PMN>(b, B, k0, ke, n0, N, tid);
     }
   };
+
+  if constexpr (EPI == kEpiAct) {
+    // the epilogue's side planes of this tile on their way to L2 while the
+    // product runs: its loads then wait on L2, not on device memory
+    constexpr int kLines = kTcBN * (int)sizeof(T) / 128;  // 128-byte lines per row
+    for (int i = tid; i < kTcBM * kLines; i += kTcThreads) {
+      const int gr = m0 + i / kLines;
+      const int gc = n0 + (i % kLines) * (128 / (int)sizeof(T));
+      if (gr >= M || gc >= epi.n_act) continue;
+      const size_t at = (size_t)gr * epi.n_act + gc;
+      neddf::prefetch_l2(epi.z + at);
+      if (kF32 && epi.side != nullptr) neddf::prefetch_l2(epi.side + at);
+    }
+  }
 
   float acc[4][4][4];
 #pragma unroll
@@ -237,17 +500,18 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
   for (int t = 0; t < nk; ++t) {
     neddf::cp_async_wait<kTcStages - 2>();
+    if constexpr (EPI == kProAct) {
+      tc_act_load<T, ACT, BK, kTcBM, PMN>(sA + (t % kTcStages) * OP, A.vec, tid);
+    }
     __syncthreads();  // stage t has landed; stage t-1 is free for refill
     if (t + kTcStages - 1 < nk) load(t + kTcStages - 1);
     neddf::cp_async_commit();
     const T* a = sA + (t % kTcStages) * OP;
     const T* b = sB + (t % kTcStages) * OP;
     const int k_left = ke - (kb + t * BK);  // zeros past it: skip their mma
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += Sh::KSTEP) {
-      if (kk >= k_left) break;
-      // the warp's B fragments first, then one A fragment at a time: fewer
-      // live registers than all of A first.
+    // one mma depth: the warp's B fragments first, then one A fragment at
+    // a time (fewer live registers than all of A first)
+    auto step = [&](int kk) {
       // bfr[nj]: b0, b1 of column tile 2nj, then of 2nj+1
       uint32_t bfr[2][4];
 #pragma unroll
@@ -307,10 +571,42 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           }
         }
       }
+    };
+    if constexpr (kRollK) {
+#pragma unroll 1
+      for (int kk = 0; kk < BK && kk < k_left; kk += Sh::KSTEP) step(kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += Sh::KSTEP) {
+        if (kk >= k_left) break;
+        step(kk);
+      }
     }
   }
   neddf::cp_async_wait<0>();
 
+  if constexpr (EPI == kEpiAct) {
+    constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
+    static_assert(kTcBM * kOP * (int)sizeof(float) + 8 * kTcBN * (int)sizeof(float) <= kTcSmem,
+                  "staged tile and column sums");
+    // this thread's first element of the staged tile, from threadIdx again
+    // (nothing of the product's own indexing is kept live for it)
+    const int t = threadIdx.x;
+    float* so = reinterpret_cast<float*>(tc_smem) + ((t >> 7) * 64 + ((t & 31) >> 2)) * kOP +
+                ((t >> 5) & 3) * 32 + 2 * (t & 3);
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(so + (mi * 16 + 8 * hh) * kOP + ni * 8) =
+              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+    __syncthreads();
+    tc_epilogue<T, ACT>(M, N, epi);
+    return;
+  }
   float* o = out + (size_t)blockIdx.z * M * N;
   if constexpr (A_K && B_K) {
     // dx (nt, N of a whole tile or more): its f32 output is most of the
@@ -362,37 +658,85 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       }
 }
 
-template <typename T, bool A_K, bool B_K>
+template <typename T, bool A_K, bool B_K, int ACT, int EPI>
 cudaError_t launch_tc_gemm(dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
-                           const TcOperand<T>& a, const TcOperand<T>& b, float* out) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      tc_gemm_kernel<T, A_K, B_K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+                           const TcOperand<T>& a, const TcOperand<T>& a2, int k_split,
+                           const TcOperand<T>& b, float* out, const TcEpi<T>& epi) {
+  auto kernel = tc_gemm_kernel<T, A_K, B_K, ACT, EPI>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return err;
-  tc_gemm_kernel<T, A_K, B_K><<<grid, kTcThreads, kTcSmem, s>>>(M, N, K, k_chunk, a, b, out);
+  kernel<<<grid, kTcThreads, kTcSmem, s>>>(M, N, K, k_chunk, a, a2, k_split, b, out, epi);
   return cudaGetLastError();
 }
 
+template <typename T, bool A_K, bool B_K, int EPI>
+cudaError_t launch_by_act(int act, dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
+                          const TcOperand<T>& a, const TcOperand<T>& a2, int k_split,
+                          const TcOperand<T>& b, float* out, const TcEpi<T>& epi) {
+  return neddf::by_act(act, [&](auto a_) {
+    return launch_tc_gemm<T, A_K, B_K, decltype(a_)::value, EPI>(grid, s, M, N, K, k_chunk, a,
+                                                                 a2, k_split, b, out, epi);
+  });
+}
+
+// the products; act < 0: no activation (f32 partials out); with act,
+// layout 1 (tn) takes the prologue and layouts 0 / 2 the epilogue `epi`
 template <typename T>
-cudaError_t gemm_tc(int layout, int M, int N, int K, const void* A, long long lda, int vec_a,
+cudaError_t gemm_tc(int layout, int act, int M, int N, int K, const void* A, long long lda,
+                    int vec_a, const void* A2, long long lda2, int vec_a2, int k_split,
                     const void* B, long long ldb, int vec_b, int splits, void* out,
-                    cudaStream_t s) {
+                    const TcEpi<T>& epi, cudaStream_t s) {
   constexpr int E = (int)sizeof(T);
+  constexpr int BK = TcShape<T>::BK;
   auto misaligned = [](const void* ptr, long long ld, int vec) {
     return (vec != 1 && vec != 2 && vec != 4 && vec * E != 16) || ld < 1 || ld % vec != 0 ||
            reinterpret_cast<uintptr_t>(ptr) % (E * vec) != 0;
   };
   if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b)) return cudaErrorInvalidValue;
-  constexpr int BK = TcShape<T>::BK;
+  if (A2 != nullptr &&
+      (layout == 1 || misaligned(A2, lda2, vec_a2) || k_split <= 0 || k_split >= K ||
+       k_split % BK != 0 || splits != 1))
+    return cudaErrorInvalidValue;
+  if (A2 == nullptr) k_split = K;
   int k_chunk = (K + splits - 1) / splits;
   k_chunk = (k_chunk + BK - 1) / BK * BK;
   const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const TcOperand<T> a{static_cast<const T*>(A), lda, vec_a};
+  const TcOperand<T> a2{static_cast<const T*>(A2), lda2, vec_a2};
   const TcOperand<T> b{static_cast<const T*>(B), ldb, vec_b};
   float* o = static_cast<float*>(out);
-  if (layout == 0) return launch_tc_gemm<T, true, true>(grid, s, M, N, K, k_chunk, a, b, o);
-  if (layout == 1) return launch_tc_gemm<T, false, false>(grid, s, M, N, K, k_chunk, a, b, o);
-  return launch_tc_gemm<T, true, false>(grid, s, M, N, K, k_chunk, a, b, o);
+  if (act < 0) {
+    if (layout == 0)
+      return launch_tc_gemm<T, true, true, neddf::kTanhExp, kEpiNone>(grid, s, M, N, K, k_chunk,
+                                                                      a, a2, k_split, b, o, epi);
+    if (layout == 1)
+      return launch_tc_gemm<T, false, false, neddf::kTanhExp, kEpiNone>(
+          grid, s, M, N, K, k_chunk, a, a2, k_split, b, o, epi);
+    return launch_tc_gemm<T, true, false, neddf::kTanhExp, kEpiNone>(grid, s, M, N, K, k_chunk,
+                                                                     a, a2, k_split, b, o, epi);
+  }
+  if (layout == 1)
+    return launch_by_act<T, false, false, kProAct>(act, grid, s, M, N, K, k_chunk, a, a2,
+                                                   k_split, b, o, epi);
+  // the epilogue sees the finished sum: one split, and whole 4-column
+  // groups of 16-byte-aligned side planes
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool adjoint = epi.mode == kModeAdjoint;
+  if (splits != 1 || epi.z == nullptr || epi.n_act <= 0 || epi.n_act > N || epi.n_act % 4 ||
+      (epi.mode != kModeDact && !adjoint) || (adjoint && act != neddf::kTanhExp) ||
+      (adjoint && epi.db != nullptr) || (epi.n_act < N) != (epi.raw != nullptr) ||
+      !aligned(epi.z) || !aligned(epi.side) || !aligned(epi.out) || !aligned(epi.out2))
+    return cudaErrorInvalidValue;
+  if (layout == 0)
+    return launch_by_act<T, true, true, kEpiAct>(act, grid, s, M, N, K, k_chunk, a, a2, k_split,
+                                                 b, o, epi);
+  if constexpr (std::is_same_v<T, float>) {  // nn: the f32 sweep adjoint only
+    return launch_by_act<T, true, false, kEpiAct>(act, grid, s, M, N, K, k_chunk, a, a2,
+                                                  k_split, b, o, epi);
+  }
+  return cudaErrorInvalidValue;
 }
 
 __global__ void sum_splits_kernel(long long n, int splits,
@@ -406,44 +750,74 @@ __global__ void sum_splits_kernel(long long n, int splits,
   }
 }
 
+// the first level of the db sum: block (column group x, row group y) adds
+// its rows of 32 columns, warp w taking rows w, w + 8, ... in order, and
+// the 8 warps' sums in warp order; group_sums [gridDim.y, C]
+__global__ void sum_rows_kernel(int R, int C, int rows_per_group,
+                                const float* __restrict__ parts,
+                                float* __restrict__ group_sums) {
+  __shared__ float red[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int r0 = blockIdx.y * rows_per_group;
+  const int r1 = min(R, r0 + rows_per_group);
+  float s = 0.f;
+  if (c < C)
+    for (int r = r0 + warp; r < r1; r += 8) s += parts[(size_t)r * C + c];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < C) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += red[w][lane];
+    group_sums[(size_t)blockIdx.y * C + c] = t;
+  }
+}
+
 }  // namespace
 
 extern "C" int neddf_dual_bwd_gstack(int dtype, int act, int n_tan, int width,
                                      int M, int rows_per_block, const void* g,
                                      const void* z, void* gs, void* db_part,
                                      void* stream) {
-  if (act != 0 || n_tan < 1 || n_tan + 1 > kMaxStreams || M <= 0 ||
-      rows_per_block <= 0)
+  if (n_tan < 1 || n_tan + 1 > kMaxStreams || M <= 0 || rows_per_block <= 0)
     return (int)cudaErrorInvalidValue;
   const dim3 block(256);
   const dim3 grid((M + rows_per_block - 1) / rows_per_block, (width + 255) / 256);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   float* dbp = static_cast<float*>(db_part);
-  if (dtype == 1)
-    gstack_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        n_tan + 1, width, M, rows_per_block, gf,
-        static_cast<const __nv_bfloat16*>(z), static_cast<__nv_bfloat16*>(gs), dbp);
-  else
-    gstack_kernel<float><<<grid, block, 0, s>>>(
-        n_tan + 1, width, M, rows_per_block, gf, static_cast<const float*>(z),
-        static_cast<float*>(gs), dbp);
-  return (int)cudaGetLastError();
+  return (int)neddf::by_act(act, [&](auto a_) {
+    constexpr int ACT = decltype(a_)::value;
+    if (dtype == 1)
+      gstack_kernel<bf16, ACT><<<grid, block, 0, s>>>(n_tan + 1, width, M, rows_per_block, gf,
+                                                      static_cast<const bf16*>(z),
+                                                      static_cast<bf16*>(gs), dbp);
+    else
+      gstack_kernel<float, ACT><<<grid, block, 0, s>>>(n_tan + 1, width, M, rows_per_block, gf,
+                                                       static_cast<const float*>(z),
+                                                       static_cast<float*>(gs), dbp);
+    return cudaGetLastError();
+  });
 }
 
 extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
                               const void* z, void* h, void* stream) {
-  if (act != 0 || n_tan < 1 || M <= 0) return (int)cudaErrorInvalidValue;
+  if (n_tan < 1 || M <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = grid_1d((size_t)M * width, 256);
-  if (dtype == 1)
-    dual_act_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        n_tan + 1, width, M, static_cast<const __nv_bfloat16*>(z),
-        static_cast<__nv_bfloat16*>(h));
-  else
-    dual_act_kernel<float><<<grid, 256, 0, s>>>(
-        n_tan + 1, width, M, static_cast<const float*>(z), static_cast<float*>(h));
-  return (int)cudaGetLastError();
+  return (int)neddf::by_act(act, [&](auto a_) {
+    constexpr int ACT = decltype(a_)::value;
+    if (dtype == 1)
+      dual_act_kernel<bf16, ACT><<<grid, 256, 0, s>>>(n_tan + 1, width, M,
+                                                      static_cast<const bf16*>(z),
+                                                      static_cast<bf16*>(h));
+    else
+      dual_act_kernel<float, ACT><<<grid, 256, 0, s>>>(n_tan + 1, width, M,
+                                                       static_cast<const float*>(z),
+                                                       static_cast<float*>(h));
+    return cudaGetLastError();
+  });
 }
 
 // The products on the tensor cores, out[z] = A B over split z of K (f32
@@ -453,17 +827,64 @@ extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
 // lda / ldb: elements between rows; vec_a / vec_b: elements per copy (8,
 // 4, 2 or 1 bf16; 4, 2 or 1 f32), which the row stride and the pointer
 // must allow. Any other layout, or a misaligned vector width, is refused.
-extern "C" int neddf_gemm_tc(int dtype, int layout, int M, int N, int K, const void* A,
-                             long long lda, int vec_a, const void* B, long long ldb, int vec_b,
-                             int splits, void* out, void* stream) {
+// act < 0: the product alone (mode, A2 and the epilogue's planes null).
+// act >= 0 (0 tanhExp, 1 ReLU, 2 LeakyReLU) folds the activation in.
+// layout 1 (tn): the prologue, out = f(A) B as f32 partials (dW =
+// f(z_{l-1})^T G; f(A) rounded to the operand type, as the layer's input
+// was). layouts 0 (nt) and 2 (nn, f32 only), one split, out null: the
+// epilogue over columns [0, n_act) with the stash z [M, n_act] (operand
+// type) and the optional f32 side plane; mode 1: out_t = T(acc f'(z) +
+// side), out2 = acc, db = per-128-row-tile column sums of acc f'(z) + side
+// ([ceil(M / 128), n_act]); mode 2 (tanhExp): out_t = acc f'(z), out2 =
+// acc side f''(z) (no side: column 0 only); columns [n_act, N) go raw to
+// `raw` [M, N - n_act]. Null outputs are not written. A2 (nt / nn): the
+// columns k >= k_split of A come from A2 [M, K - k_split] (row stride
+// lda2, copy width vec_a2), k_split a multiple of the stage depth.
+extern "C" int neddf_gemm_tc(int dtype, int layout, int act, int mode, int M, int N, int K,
+                             const void* A, long long lda, int vec_a, const void* A2,
+                             long long lda2, int vec_a2, int k_split, const void* B,
+                             long long ldb, int vec_b, int splits, void* out, const void* z,
+                             const void* side, int n_act, void* out_t, void* out2, void* raw,
+                             void* db, void* stream) {
   if (dtype < 0 || dtype > 1 || layout < 0 || layout > 2 || M <= 0 || N <= 0 || K <= 0 ||
-      splits < 1 || splits > 65535)
+      splits < 1 || splits > 65535 || (act < 0 || layout == 1) != (out != nullptr) ||
+      (act < 0 && (A2 != nullptr || z != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1
-                   ? gemm_tc<bf16>(layout, M, N, K, A, lda, vec_a, B, ldb, vec_b, splits, out, s)
-                   : gemm_tc<float>(layout, M, N, K, A, lda, vec_a, B, ldb, vec_b, splits, out,
-                                    s));
+  const float* sd = static_cast<const float*>(side);
+  float* o2 = static_cast<float*>(out2);
+  float* rw = static_cast<float*>(raw);
+  float* d = static_cast<float*>(db);
+  if (dtype == 1) {
+    const TcEpi<bf16> e{static_cast<const bf16*>(z), sd, static_cast<bf16*>(out_t), o2, rw, d,
+                        n_act, mode};
+    return (int)gemm_tc<bf16>(layout, act, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B,
+                              ldb, vec_b, splits, out, e, s);
+  }
+  const TcEpi<float> e{static_cast<const float*>(z), sd, static_cast<float*>(out_t), o2, rw, d,
+                       n_act, mode};
+  return (int)gemm_tc<float>(layout, act, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B,
+                             ldb, vec_b, splits, out, e, s);
+}
+
+// out [C] = the sum over the R rows of parts [R, C] in a fixed order: the
+// rows in groups of rows_per_group (sum_rows_kernel, columns x groups
+// spread over the card) into scratch [ceil(R / rows_per_group), C], then
+// the groups in order (sum_splits_kernel). Two runs give the same bits.
+extern "C" int neddf_sum_rows(int R, int C, int rows_per_group, const void* parts,
+                              void* scratch, void* out, void* stream) {
+  if (R <= 0 || C <= 0 || rows_per_group <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int groups = (R + rows_per_group - 1) / rows_per_group;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(scratch);
+  sum_rows_kernel<<<dim3((C + 31) / 32, groups), 256, 0, s>>>(
+      R, C, rows_per_group, static_cast<const float*>(parts), sc);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_splits_kernel<<<grid_1d((size_t)C, 256), 256, 0, s>>>(C, groups, sc,
+                                                            static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 extern "C" int neddf_sum_splits(long long n, int splits, const void* parts,

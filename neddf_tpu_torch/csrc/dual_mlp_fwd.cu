@@ -3,7 +3,8 @@
 // Replaces the Pallas forward neddf_tpu/kernels/dual_mlp.py::_run_forward
 // (kernel body _fwd_kernel, public dual_mlp_seg) in its trunk
 // configuration: K=3 tangent planes, one input segment with tangents,
-// tanhExp, and a post-skip layer that consumes [seg0, h]. The value v
+// and a post-skip layer that consumes [seg0, h]; the activation is tanhExp
+// (the shipped NeDDF), ReLU or LeakyReLU (mlp_tile.cuh). The value v
 // [M, C0] and planes j [K, M, C0] go through every layer inside one block
 // per row tile (mlp_tile.cuh); only the last layer's v [M, C] and
 // j [K, M, C] reach device memory.
@@ -27,7 +28,7 @@
 
 using neddf::TileArgs;
 
-extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
+extern "C" int neddf_dual_mlp_fwd(int dtype, int act, int n_tan, int width, int M,
                                   int n_seg, const void* const* seg_v,
                                   const void* const* seg_j, const int* seg_w,
                                   int n_layers, const void* const* w,
@@ -55,17 +56,15 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int n_tan, int width, int M,
   a.v_out = v_out;
   a.j_out = j_out;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_tan == 3 && width == 256) {
-    return (int)(dtype == 1
-                     ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256, neddf::kTanhExp>(a, st)
-                     : neddf::launch_mlp_tile<float, 3, 256, neddf::kTanhExp>(a, st));
-  }
-  if (n_tan == 1 && width == 256) {
-    return (int)(dtype == 1
-                     ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256, neddf::kTanhExp>(a, st)
-                     : neddf::launch_mlp_tile<float, 1, 256, neddf::kTanhExp>(a, st));
-  }
-  return (int)cudaErrorInvalidValue;
+  if ((n_tan != 3 && n_tan != 1) || width != 256) return (int)cudaErrorInvalidValue;
+  return (int)neddf::by_act(act, [&](auto a_) {
+    constexpr int ACT = decltype(a_)::value;
+    if (n_tan == 3)
+      return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256, ACT>(a, st)
+                        : neddf::launch_mlp_tile<float, 3, 256, ACT>(a, st);
+    return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256, ACT>(a, st)
+                      : neddf::launch_mlp_tile<float, 1, 256, ACT>(a, st);
+  });
 }
 
 extern "C" const char* neddf_cuda_error_string(int code) {

@@ -62,7 +62,6 @@ extern "C" int neddf_mlp_seg_fwd(int dtype, int act, int width, int M, int n_seg
   a.v_out = out;
   a.j_out = nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (act == neddf::kTanhExp) return (int)launch<neddf::kTanhExp>(dtype, a, st);
-  if (act == neddf::kReLU) return (int)launch<neddf::kReLU>(dtype, a, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)neddf::by_act(
+      act, [&](auto a_) { return launch<decltype(a_)::value>(dtype, a, st); });
 }

@@ -28,10 +28,10 @@
 // * the hidden state h [kRows, C] lives in shared memory and is written
 //   back after each layer as f(z) on the value rows and f'(z_value) *
 //   z_tangent on the tangent rows, rounded to the storage type T; the
-//   activation is a template parameter: tanhExp (kTanhExp) or ReLU
-//   (kReLU, with f'(0) = 0 as neddf_tpu/kernels/dual_mlp.py::_act_fns
-//   defines it). Sums and activations are f32; the f32 bias is added to
-//   the value rows only.
+//   activation is a template parameter: tanhExp (kTanhExp), ReLU (kReLU,
+//   with f'(0) = 0) or LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1), as
+//   neddf_tpu/kernels/dual_mlp.py::_act_fns defines them. Sums and
+//   activations are f32; the f32 bias is added to the value rows only.
 //
 // One body for both operand types, tile_forward_tc: each layer's product
 // [kRows x fan_in] x [fan_in x C] runs on the tensor cores with f32
@@ -117,6 +117,24 @@ constexpr int kSplitHiddenFirst = 2;  // [h, seg0]
 // activations (template parameter ACT)
 constexpr int kTanhExp = 0;
 constexpr int kReLU = 1;
+constexpr int kLeakyReLU = 2;
+constexpr float kLeakySlope = 0.01f;
+
+// f'' is identically zero (ReLU, LeakyReLU): the backwards form no f'' term
+template <int ACT>
+constexpr bool kZeroDeriv2 = ACT != kTanhExp;
+
+// fn(std::integral_constant<int, ACT>{}) for the run-time activation code
+// act; cudaErrorInvalidValue for any other code
+template <typename F>
+cudaError_t by_act(int act, F&& fn) {
+  switch (act) {
+    case kTanhExp: return fn(std::integral_constant<int, kTanhExp>{});
+    case kReLU: return fn(std::integral_constant<int, kReLU>{});
+    case kLeakyReLU: return fn(std::integral_constant<int, kLeakyReLU>{});
+  }
+  return cudaErrorInvalidValue;
+}
 
 struct TileArgs {
   const void* seg_v[kMaxSeg];  // [M, seg_w] values, type T
@@ -168,6 +186,9 @@ __device__ __forceinline__ void act_fn(float x, float& f, float& df) {
   if constexpr (ACT == kReLU) {
     f = fmaxf(x, 0.f);
     df = x > 0.f ? 1.f : 0.f;
+  } else if constexpr (ACT == kLeakyReLU) {
+    f = x >= 0.f ? x : kLeakySlope * x;
+    df = x >= 0.f ? 1.f : kLeakySlope;
   } else {
     tanh_exp(x, f, df);
   }
@@ -177,7 +198,7 @@ __device__ __forceinline__ void act_fn(float x, float& f, float& df) {
 template <int ACT>
 __device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf) {
   act_fn<ACT>(x, f, df);
-  if constexpr (ACT == kReLU) {
+  if constexpr (kZeroDeriv2<ACT>) {
     ddf = 0.f;
   } else if (x > 20.f) {
     ddf = 0.f;

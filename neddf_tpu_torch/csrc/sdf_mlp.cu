@@ -17,19 +17,24 @@
 //   the trunk's, in one kernel, spilled registers. Out: h, gE [M, E], the
 //   stash.
 // * backward, _run_backward / _bwd_kernel:176-242, is run by the Python
-//   wrapper (kernels/sdf_mlp.py::sdf_mlp_bwd) as launches of the
-//   elementwise kernels below and of neddf_gemm_tc (f32: 3xTF32) /
-//   neddf_sum_splits (dual_mlp_bwd.cu) for every product and every
-//   cross-row sum (dW, db in a fixed order: bitwise reproducible):
-//     replay: p_l and q_l[hidden] from the stash (neddf_sdf_sweep_p);
-//     ascending adjoint of the sweep: qbar_0 = cg; for l >= 1
-//       qbar_l[hidden] = pbar_{l-1} f'(z_{l-1}), qbar_l[e] = cg,
-//       zs_{l-1} = pbar_{l-1} q_l[hidden] f''(z_{l-1}) (neddf_sdf_adjoint),
-//       dW_l += qbar_l^T p_l, pbar_l = qbar_l W_l;
-//       top: zs_{L-1} = onehot0 * pbar_{L-1} f''(z_{L-1});
-//     descending trunk backward: zbar_l = hbar_l f'(z_l) + zs_l and its db
-//       partials (neddf_sdf_zbar), dW_l += in_l^T zbar_l, hbar_{l-1} and
-//       ebar from zbar_l W_l^T, in_l = f(z_{l-1}) (neddf_sdf_act) or e.
+//   wrapper (kernels/sdf_mlp.py::sdf_mlp_bwd_route) as products of
+//   neddf_gemm_tc (dual_mlp_bwd.cu, f32: 3xTF32) whose epilogues and
+//   prologues do the elementwise work, so no [M, C] plane makes a round
+//   trip through device memory for it:
+//     replay: p_{L-1} = onehot0 f'(z_{L-1}) (neddf_sdf_top); q_l = p_l
+//       W_l[hidden]^T with the epilogue p_{l-1} = q_l f'(z_{l-1});
+//     ascending adjoint of the sweep: qbar_0 = cg; pbar_l = [qbar_l | cg]
+//       W_l (one product over both K segments) with the epilogue
+//       qbar_{l+1} = pbar_l f'(z_l), and where f'' != 0 (tanhExp) zs_l =
+//       pbar_l q_{l+1} f''(z_l); dW_l += qbar_l^T p_l;
+//     descending trunk backward: zbar_{L-1} = ch f'(z_{L-1}) + zs_{L-1}
+//       (mlp_bwd.cu's gpre); hbar = zbar_l W_l^T over all of W's rows
+//       with the epilogue zbar_{l-1} = hbar f'(z_{l-1}) + zs_{l-1} and its
+//       db partials, ebar from the e rows' columns; dW_l += f(z_{l-1})^T
+//       zbar_l (the activation as the prologue of the product).
+//   Under ReLU and LeakyReLU f'' = 0: q is not kept after the replay and zs is neither
+//   written nor read. The db partials are summed by neddf_sum_rows, the
+//   dW splits by neddf_sum_splits (fixed orders: bitwise reproducible).
 //
 // Numerics: f32 throughout (NeuS runs its trunk in f32); sums in f32; the
 // products by the 3xTF32 split (tc_ops.cuh), about 2^-21 of each product.
@@ -45,14 +50,12 @@
 // fragments too. gE += p W[e]^T stays on the FMA units: E = 36 columns
 // against the C = 256 of q, and only at layer 0 and the post-skip layer,
 // about 4% of the sweep's multiply-adds (reckoned from the shapes; not
-// timed apart). The elementwise kernels are bound by device memory.
+// timed apart). sdf_top_kernel is bound by device memory.
 #include "mlp_tile.cuh"
 
 namespace {
 
-using neddf::kReLU;
 using neddf::kRows;
-using neddf::kTanhExp;
 using neddf::TileArgs;
 
 constexpr int kC = 256;
@@ -251,68 +254,16 @@ cudaError_t launch_sweep(const TileArgs& a, float* ge, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// p = q f'(z), or onehot0 * f'(z) when q is null (the top of the sweep)
+// the top of the replayed sweep: p = onehot0 * f'(z), channel 0 only
 template <int ACT>
-__global__ void sweep_p_kernel(size_t n, int C, const float* __restrict__ q,
-                               const float* __restrict__ z, float* __restrict__ p) {
+__global__ void sdf_top_kernel(size_t n, int C, const float* __restrict__ z,
+                               float* __restrict__ p) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float d = dact<ACT>(z[i]);
-    p[i] = q != nullptr ? q[i] * d : (i % C == 0 ? d : 0.f);
-  }
-}
-
-// qbar = pbar f'(z) and zs = pbar q f''(z); with q null (the top of the
-// sweep) only zs = onehot0 * pbar f''(z)
-template <int ACT>
-__global__ void adjoint_kernel(size_t n, int C, const float* __restrict__ pbar,
-                               const float* __restrict__ q, const float* __restrict__ z,
-                               float* __restrict__ qbar, float* __restrict__ zs) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float f, d1, d2;
-    neddf::act_fn3<ACT>(z[i], f, d1, d2);
-    if (q != nullptr) {
-      qbar[i] = pbar[i] * d1;
-      zs[i] = pbar[i] * q[i] * d2;
-    } else {
-      zs[i] = i % C == 0 ? pbar[i] * d2 : 0.f;
-    }
-  }
-}
-
-// zbar = hbar f'(z) + zs, and one f32 partial of db per block of rows
-template <int ACT>
-__global__ void zbar_kernel(int C, int M, int rows_per_block, const float* __restrict__ hbar,
-                            const float* __restrict__ z, const float* __restrict__ zs,
-                            float* __restrict__ zbar, float* __restrict__ db_part) {
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int m0 = blockIdx.x * rows_per_block;
-  const int m1 = min(M, m0 + rows_per_block);
-  float db = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    const size_t i = (size_t)m * C + c;
-    const float v = hbar[i] * dact<ACT>(z[i]) + zs[i];
-    zbar[i] = v;
-    db += v;
-  }
-  db_part[(size_t)blockIdx.x * C + c] = db;
-}
-
-template <int ACT>
-__global__ void act_kernel(size_t n, const float* __restrict__ z, float* __restrict__ h) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float f, df;
-    neddf::act_fn<ACT>(z[i], f, df);
-    h[i] = f;
-  }
+       i += (size_t)gridDim.x * blockDim.x)
+    p[i] = i % C == 0 ? dact<ACT>(z[i]) : 0.f;
 }
 
 int grid_1d(size_t n) { return neddf::grid_1d(n, 256); }
-
-bool bad_act(int act) { return act != kTanhExp && act != kReLU; }
 
 }  // namespace
 
@@ -321,7 +272,7 @@ bool bad_act(int act) { return act != kTanhExp && act != kReLU; }
 extern "C" int neddf_sdf_sweep(int act, int M, int e_dim, int n_layers, const void* const* w,
                                const int* split, void* const* stash, void* ge_out,
                                void* stream) {
-  if (bad_act(act) || M <= 0 || e_dim < 1 || n_layers < 2 || n_layers > neddf::kMaxLayers ||
+  if (M <= 0 || e_dim < 1 || n_layers < 2 || n_layers > neddf::kMaxLayers ||
       stash == nullptr)
     return (int)cudaErrorInvalidValue;
   TileArgs a = {};
@@ -339,68 +290,19 @@ extern "C" int neddf_sdf_sweep(int act, int M, int e_dim, int n_layers, const vo
   a.M = M;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ge = static_cast<float*>(ge_out);
-  return (int)(act == kReLU ? launch_sweep<kReLU>(a, ge, s) : launch_sweep<kTanhExp>(a, ge, s));
+  return (int)neddf::by_act(
+      act, [&](auto a_) { return launch_sweep<decltype(a_)::value>(a, ge, s); });
 }
 
-extern "C" int neddf_sdf_sweep_p(int act, long long n, int width, const void* q,
-                                 const void* z, void* p, void* stream) {
-  if (bad_act(act) || n <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
+// p [M, width] = onehot0 * f'(z): the top of the backward's replayed sweep
+extern "C" int neddf_sdf_top(int act, long long n, int width, const void* z, void* p,
+                             void* stream) {
+  if (n <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
   const float* zf = static_cast<const float*>(z);
   float* pf = static_cast<float*>(p);
-  if (act == kReLU)
-    sweep_p_kernel<kReLU><<<grid_1d(n), 256, 0, s>>>(n, width, qf, zf, pf);
-  else
-    sweep_p_kernel<kTanhExp><<<grid_1d(n), 256, 0, s>>>(n, width, qf, zf, pf);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int neddf_sdf_adjoint(int act, long long n, int width, const void* pbar,
-                                 const void* q, const void* z, void* qbar, void* zs,
-                                 void* stream) {
-  if (bad_act(act) || n <= 0 || width <= 0 || (q != nullptr && qbar == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pb = static_cast<const float*>(pbar);
-  const float* qf = static_cast<const float*>(q);
-  const float* zf = static_cast<const float*>(z);
-  float* qb = static_cast<float*>(qbar);
-  float* zsf = static_cast<float*>(zs);
-  if (act == kReLU)
-    adjoint_kernel<kReLU><<<grid_1d(n), 256, 0, s>>>(n, width, pb, qf, zf, qb, zsf);
-  else
-    adjoint_kernel<kTanhExp><<<grid_1d(n), 256, 0, s>>>(n, width, pb, qf, zf, qb, zsf);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int neddf_sdf_zbar(int act, int width, int M, int rows_per_block,
-                              const void* hbar, const void* z, const void* zs, void* zbar,
-                              void* db_part, void* stream) {
-  if (bad_act(act) || width <= 0 || M <= 0 || rows_per_block <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((M + rows_per_block - 1) / rows_per_block, (width + 255) / 256);
-  const float* hb = static_cast<const float*>(hbar);
-  const float* zf = static_cast<const float*>(z);
-  const float* zsf = static_cast<const float*>(zs);
-  float* zb = static_cast<float*>(zbar);
-  float* dbp = static_cast<float*>(db_part);
-  if (act == kReLU)
-    zbar_kernel<kReLU><<<grid, 256, 0, s>>>(width, M, rows_per_block, hb, zf, zsf, zb, dbp);
-  else
-    zbar_kernel<kTanhExp><<<grid, 256, 0, s>>>(width, M, rows_per_block, hb, zf, zsf, zb, dbp);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int neddf_sdf_act(int act, long long n, const void* z, void* h, void* stream) {
-  if (bad_act(act) || n <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* zf = static_cast<const float*>(z);
-  float* hf = static_cast<float*>(h);
-  if (act == kReLU)
-    act_kernel<kReLU><<<grid_1d(n), 256, 0, s>>>(n, zf, hf);
-  else
-    act_kernel<kTanhExp><<<grid_1d(n), 256, 0, s>>>(n, zf, hf);
-  return (int)cudaGetLastError();
+  return (int)neddf::by_act(act, [&](auto a_) {
+    sdf_top_kernel<decltype(a_)::value><<<grid_1d(n), 256, 0, s>>>(n, width, zf, pf);
+    return cudaGetLastError();
+  });
 }

@@ -46,6 +46,8 @@
 // * lds_u32: one 32-bit load from a shared-memory address (the f32 tile
 //   body's B fragments: a 32-bit address, not a generic pointer, keeps a
 //   register free beside the 128 accumulators).
+// * prefetch_l2: a line of device memory on its way to L2 (the products'
+//   epilogue asks for its side planes so while the product runs).
 // * cp_async<BYTES>: a 4-, 8- or 16-byte copy from device to shared memory
 //   that bypasses the registers; only the first `src_bytes` are read, the
 //   rest of the destination is zero-filled (the ragged edge of a tile).
@@ -138,6 +140,11 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
                  "n"(BYTES), "r"(src_bytes));
   }
+}
+
+// a 128-byte line of device memory into L2, nothing waited for
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -61,7 +61,10 @@ class Linear(nn.Module):
 
 def use_kernels(fused: str, device: torch.device, name: str) -> bool:
     """Whether a field runs its kernels: ``off`` never, ``auto`` on CUDA
-    tensors, ``on`` on CUDA tensors and raises on others."""
+    tensors, ``on`` on CUDA tensors and raises on others. On CUDA tensors
+    a configuration the kernels do not take (a width but 256, say) makes
+    their wrappers raise NotImplementedError: nothing on the card falls
+    back to the plain versions."""
     if fused == "off":
         return False
     if device.type == "cuda":

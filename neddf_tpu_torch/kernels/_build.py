@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
     signatures = {
         # csrc/dual_mlp_fwd.cu
         "neddf_dual_mlp_fwd": [
-            _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
             _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP, _VOIDP,
         ],
         # csrc/mlp_fwd.cu
@@ -110,26 +110,22 @@ def library() -> ctypes.CDLL:
         ],
         # csrc/mlp_bwd.cu
         "neddf_mlp_bwd_gpre": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                               _VOIDP],
-        "neddf_mlp_act": [_INT, _INT, _LL, _VOIDP, _VOIDP, _VOIDP],
+                               _VOIDP, _VOIDP],
         # csrc/sdf_mlp.cu
         "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP],
-        "neddf_sdf_sweep_p": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
-        "neddf_sdf_adjoint": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                              _VOIDP],
-        "neddf_sdf_zbar": [_INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                           _VOIDP],
-        "neddf_sdf_act": [_INT, _LL, _VOIDP, _VOIDP, _VOIDP],
+        "neddf_sdf_top": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
             _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
         ],
         "neddf_dual_act": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
         "neddf_gemm_tc": [
-            _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
-            _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT,
+            _INT, _VOIDP, _LL, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP,
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],
+        "neddf_sum_rows": [_INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
         # csrc/neddf_epilogue.cu
         "neddf_epilogue_fwd": [
             _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

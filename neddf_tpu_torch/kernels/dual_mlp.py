@@ -38,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
+from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES, SECOND_DERIVATIVE_ZERO
 
 Tensor = torch.Tensor
 
@@ -48,7 +48,8 @@ _SEG_N_TAN = (1, 3)
 _KERNEL_WIDTHS = (256,)
 _KERNEL_MAX_LAYERS = 8
 _KERNEL_MAX_SEGMENTS = 4
-_ACT_CODES = {"tanhExp": 0}
+# the kernels' activations (csrc/mlp_tile.cuh: kTanhExp, kReLU, kLeakyReLU)
+_ACT_CODES = {"tanhExp": 0, "ReLU": 1, "LeakyReLU": 2}
 
 
 # ---------------------------------------------------------------- plain math
@@ -234,28 +235,46 @@ dual_mlp_seg_bwd_plain.calls = 0
 
 
 # ------------------------------------------------------------ CUDA wrappers
+def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
+                   trunk: bool = True) -> Optional[str]:
+    """What of a configuration the CUDA dual-MLP kernels do not take (None:
+    they take it): the K=3 trunk (``trunk``) or the multi-segment
+    configuration. The checks below raise NotImplementedError on it."""
+    if act_name not in _ACT_CODES:
+        return f"activation {act_name!r}"
+    if width not in _KERNEL_WIDTHS:
+        return f"width {width}"
+    if not 1 <= n_layers <= _KERNEL_MAX_LAYERS:
+        return f"{n_layers} layers"
+    if n_tan not in (_KERNEL_N_TAN if trunk else _SEG_N_TAN):
+        return f"K={n_tan}"
+    return None
+
+
+def _refuse(what: str, refusal: Optional[str]) -> None:
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
+
+
 def _check_kernel_args(v0, j0, weights, biases, layout, act_name) -> None:
-    if act_name != "tanhExp":
-        raise NotImplementedError(f"CUDA trunk kernel: activation {act_name!r}")
+    what = "CUDA trunk kernel"
     if v0.dtype not in _KERNEL_DTYPES or j0.dtype != v0.dtype:
-        raise TypeError(f"CUDA trunk kernel: dtypes {v0.dtype}/{j0.dtype}")
+        raise TypeError(f"{what}: dtypes {v0.dtype}/{j0.dtype}")
     if v0.dim() != 2 or j0.dim() != 3 or j0.shape[1:] != v0.shape:
-        raise ValueError(f"CUDA trunk kernel: shapes {tuple(v0.shape)} / {tuple(j0.shape)}")
-    if j0.shape[0] not in _KERNEL_N_TAN:
-        raise NotImplementedError(f"CUDA trunk kernel: K={j0.shape[0]}")
-    _check_layers([v0], weights, biases, layout, "CUDA trunk kernel")
+        raise ValueError(f"{what}: shapes {tuple(v0.shape)} / {tuple(j0.shape)}")
+    _refuse(what, kernel_refusal(act_name, weights[0].shape[1] if weights else 0,
+                                 len(weights), j0.shape[0]))
+    _check_layers([v0], weights, biases, layout, what)
 
 
 def _check_layers(vs, weights, biases, layout, what) -> None:
-    if not 1 <= len(weights) <= _KERNEL_MAX_LAYERS or len(biases) != len(weights):
+    if len(biases) != len(weights):
         raise ValueError(f"{what}: {len(weights)} layers")
     if len(layout) != len(weights) or layout[0]:
         raise ValueError(f"{what}: layout {tuple(layout)}")
     c0 = vs[0].shape[1]
     x0w = sum(v.shape[1] for v in vs)
     width = weights[0].shape[1]
-    if width not in _KERNEL_WIDTHS:
-        raise NotImplementedError(f"{what}: width {width}")
     for li, (w, b) in enumerate(zip(weights, biases)):
         fan_in = x0w if li == 0 else (c0 + width if layout[li] else width)
         if tuple(w.shape) != (fan_in, width) or tuple(b.shape) != (width,):
@@ -276,10 +295,8 @@ def _check_layers(vs, weights, biases, layout, what) -> None:
 
 def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> None:
     what = "CUDA dual_mlp_seg kernel"
-    if act_name not in _ACT_CODES:
-        raise NotImplementedError(f"{what}: activation {act_name!r}")
-    if n_tan not in _SEG_N_TAN:
-        raise NotImplementedError(f"{what}: K={n_tan}")
+    _refuse(what, kernel_refusal(act_name, weights[0].shape[1] if weights else 0,
+                                 len(weights), n_tan, trunk=False))
     if not 1 <= len(vs) <= _KERNEL_MAX_SEGMENTS or len(has_j) != len(vs):
         raise ValueError(f"{what}: {len(vs)} segments, has_j {tuple(has_j)}")
     dtype, m = vs[0].dtype, vs[0].shape[0]
@@ -304,7 +321,7 @@ def count_tile_launch(dtype: torch.dtype) -> None:
     TILE_LAUNCHES["tc" if dtype == torch.bfloat16 else "tf32x3"] += 1
 
 
-def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
+def _launch_fwd(vs, seg_j, weights, biases, layout, act_name, n_tan, stash, what):
     m, device, dtype = vs[0].shape[0], vs[0].device, vs[0].dtype
     width = weights[0].shape[1]
     v_out = torch.empty((m, width), dtype=dtype, device=device)
@@ -316,7 +333,7 @@ def _launch_fwd(vs, seg_j, weights, biases, layout, n_tan, stash, what):
     lib = _build.library()
     with torch.cuda.device(device):
         code = lib.neddf_dual_mlp_fwd(
-            _KERNEL_DTYPES[dtype], n_tan, width, m, len(vs),
+            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], n_tan, width, m, len(vs),
             _build.pointers(vs), _build.pointers(seg_j), _build.ints([v.shape[1] for v in vs]),
             len(weights), _build.pointers(weights), _build.pointers(biases),
             _build.ints(layout), _build.pointers(pres) if stash else None,
@@ -348,8 +365,8 @@ def dual_mlp_trunk(
     if v0.device.type != "cuda":
         raise ValueError(f"dual_mlp_trunk: unsupported device {v0.device}")
     _check_kernel_args(v0, j0, weights, biases, layout, act_name)
-    v, j, pres = _launch_fwd([v0], [j0], weights, biases, layout, j0.shape[0], stash,
-                             "dual_mlp_trunk")
+    v, j, pres = _launch_fwd([v0], [j0], weights, biases, layout, act_name, j0.shape[0],
+                             stash, "dual_mlp_trunk")
     if v0.shape[0]:
         dual_mlp_trunk.launches += 1
     return (v, j, pres) if stash else (v, j)
@@ -380,7 +397,7 @@ def dual_mlp_seg(
         raise ValueError(f"dual_mlp_seg: unsupported device {device}")
     _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan)
     v, j, pres = _launch_fwd(list(vs), _seg_js(js, has_j), weights, biases, layout,
-                             n_tan, stash, "dual_mlp_seg")
+                             act_name, n_tan, stash, "dual_mlp_seg")
     if vs[0].shape[0]:
         dual_mlp_seg.launches += 1
     return (v, j, pres) if stash else (v, j)
@@ -488,16 +505,51 @@ def products_tf32x3(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
+# csrc/dual_mlp_bwd.cu: neddf_gemm_tc's code for "no activation", the
+# epilogue's modes (kModeDact, kModeAdjoint), the rows of one db partial
+# of an epilogue (kTcBM) and of one group of the db sum's first level
+# (neddf_sum_rows)
+_NO_ACT = -1
+_MODE_DACT, _MODE_ADJOINT = 1, 2
+_EPI_ROWS = 128
+_SUM_GROUP_ROWS = 64
+
+# launches of the elementwise kernels that the dual backward runs beside
+# its products (gstack, dual_act), and of the parallel db sum of every
+# backward (db_sum, two kernels per call); kernels/mlp.py and
+# kernels/sdf_mlp.py count their own top-layer passes
+PASS_LAUNCHES = {"gstack": 0, "dual_act": 0, "db_sum": 0}
+
+
+def sum_rows_plain(parts: Tensor) -> Tensor:
+    """Plain version of ``Products.sum_rows``: [R, C] -> [C], the rows in
+    groups of 64 summed, then the groups (f32)."""
+    r, c = parts.shape
+    groups = -(-r // _SUM_GROUP_ROWS)
+    padded = torch.zeros((groups * _SUM_GROUP_ROWS, c), dtype=torch.float32,
+                         device=parts.device)
+    padded[:r] = parts
+    return padded.view(groups, _SUM_GROUP_ROWS, c).sum(dim=1).sum(dim=0)
+
+
 class Products:
     """Launchers of the hand-written products of ``csrc/dual_mlp_bwd.cu``
     for one backward call: ``neddf_gemm_tc`` on the tensor cores (bf16
-    operands by mma m16n8k16, f32 operands by the 3xTF32 split) and
-    ``neddf_sum_splits``; shared by the backwards of ``kernels/mlp.py``
-    and ``kernels/sdf_mlp.py``. ``tc_launches`` (bf16) and
-    ``tf32x3_launches`` (f32) count the launches of the product kernel."""
+    operands by mma m16n8k16, f32 operands by the 3xTF32 split), alone or
+    with an activation's elementwise work as the prologue of a tn product
+    or the epilogue of an nt / nn one, and the fixed-order sums
+    (``neddf_sum_splits``, ``neddf_sum_rows``); shared by the backwards of
+    ``kernels/mlp.py``, ``kernels/sdf_mlp.py`` and this module, which add
+    their own top-layer passes in subclasses. ``ProductsPlain`` computes
+    the same in PyTorch, so that the backwards' walks run on the CPU.
+    ``tc_launches`` (bf16) and ``tf32x3_launches`` (f32) count the
+    launches of the product kernel, ``prologue_launches`` /
+    ``epilogue_launches`` those of them with an activation folded in."""
 
     tc_launches = 0
     tf32x3_launches = 0
+    prologue_launches = 0
+    epilogue_launches = 0
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
@@ -506,25 +558,34 @@ class Products:
         self.device = device
         self.stream = torch.cuda.current_stream(device).cuda_stream
 
-    def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
-        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
-        range split into a fixed number of partials summed in order."""
-        if a.dtype != self.dtype or b.dtype != self.dtype:
-            raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
-        plan = tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
-                       a.element_size())
-        splits = plan["splits"]
-        out = torch.empty((m, n), dtype=torch.float32, device=self.device)
-        parts = out if splits == 1 else torch.empty(
-            (splits, m, n), dtype=torch.float32, device=self.device)
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS[plan["layout"]], m, n, k, a.data_ptr(), plan["lda"],
-            plan["vec_a"], b.data_ptr(), plan["ldb"], plan["vec_b"], splits,
-            parts.data_ptr(), self.stream), "dual_mlp_seg_bwd gemm")
+    def _count(self) -> None:
         if self.dtype == torch.bfloat16:
             Products.tc_launches += 1
         else:
             Products.tf32x3_launches += 1
+
+    def _empty(self, shape, dtype=torch.float32) -> Tensor:
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn) -> dict:
+        if a.dtype != self.dtype or b.dtype != self.dtype:
+            raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
+        return tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
+                       a.element_size())
+
+    def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
+        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
+        range split into a fixed number of partials summed in order."""
+        plan = self._plan(m, n, k, a, sam, sak, b, sbk, sbn)
+        splits = plan["splits"]
+        out = self._empty((m, n))
+        parts = out if splits == 1 else self._empty((splits, m, n))
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS[plan["layout"]], _NO_ACT, 0, m, n, k, a.data_ptr(),
+            plan["lda"], plan["vec_a"], None, 0, 0, 0, b.data_ptr(), plan["ldb"],
+            plan["vec_b"], splits, parts.data_ptr(), None, None, 0, None, None, None, None,
+            self.stream), "backward product")
+        self._count()
         if splits > 1:
             self.sum_splits(parts, out)
         return out
@@ -533,6 +594,18 @@ class Products:
         _build.check(self.lib.neddf_sum_splits(
             out.numel(), parts.shape[0], parts.data_ptr(), out.data_ptr(), self.stream),
             "dual_mlp_seg_bwd sum")
+
+    def sum_rows(self, parts: Tensor) -> Tensor:
+        """[R, C] f32 partials -> [C], summed over R in a fixed order over
+        the whole card (two kernels: groups of rows, then the groups)."""
+        r, c = parts.shape
+        out = self._empty((c,))
+        scratch = self._empty((-(-r // _SUM_GROUP_ROWS), c))
+        _build.check(self.lib.neddf_sum_rows(r, c, _SUM_GROUP_ROWS, parts.data_ptr(),
+                                             scratch.data_ptr(), out.data_ptr(), self.stream),
+                     "db sum")
+        PASS_LAUNCHES["db_sum"] += 1
+        return out
 
     def nt(self, a: Tensor, w_rows: Tensor) -> Tensor:
         """a [R, C] (T) times w_rows [n, C]^T (T) -> [R, n] f32."""
@@ -551,6 +624,146 @@ class Products:
         r, k = a.shape
         n = w_rows.shape[1]
         return self.gemm(r, n, k, a, a.stride(0), 1, w_rows, w_rows.stride(0), 1)
+
+    def tn_act(self, z: Tensor, g: Tensor, act_name: str) -> Tensor:
+        """f(z) [R, m]^T times g [R, n] -> [m, n] f32: dW of a layer whose
+        input is the activation of the stash z (T), f applied, and rounded
+        to T, as the product's prologue."""
+        r, m = z.shape
+        n = g.shape[1]
+        plan = self._plan(m, n, r, z, 1, z.stride(0), g, g.stride(0), 1)
+        splits = plan["splits"]
+        out = self._empty((m, n))
+        parts = out if splits == 1 else self._empty((splits, m, n))
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, m, n, r, z.data_ptr(),
+            plan["lda"], plan["vec_a"], None, 0, 0, 0, g.data_ptr(), plan["ldb"], plan["vec_b"],
+            splits, parts.data_ptr(), None, None, 0, None, None, None, None, self.stream),
+            "backward dW (activation prologue)")
+        self._count()
+        Products.prologue_launches += 1
+        if splits > 1:
+            self.sum_splits(parts, out)
+        return out
+
+    def _epilogue(self, layout, a, b, z, act_name, mode, *, a2=None, side=None, n_act=None,
+                  out=True, out2=False, db=False):
+        r = a.shape[0]
+        k = a.shape[1] + (0 if a2 is None else a2.shape[1])
+        if layout == "nt":
+            n, sbk, sbn = b.shape[0], 1, b.stride(0)
+        else:
+            n, sbk, sbn = b.shape[1], b.stride(0), 1
+        plan = self._plan(r, n, k, a, a.stride(0), 1, b, sbk, sbn)
+        if plan["splits"] != 1:
+            raise ValueError(f"an epilogue needs the whole sum in one split ({k} rows)")
+        n_act = n if n_act is None else n_act
+        vec_a2 = 0 if a2 is None else _vec_width(a2.data_ptr(), a2.stride(0), a2.element_size())
+        res = {"out": self._empty((r, n_act), self.dtype) if out else None,
+               "out2": self._empty((r, n_act)) if out2 else None,
+               "raw": self._empty((r, n - n_act)) if n_act < n else None,
+               "db": self._empty((-(-r // _EPI_ROWS), n_act)) if db else None}
+        ptr = {key: None if t is None else t.data_ptr() for key, t in res.items()}
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS[layout], _ACT_CODES[act_name], mode, r, n, k, a.data_ptr(),
+            plan["lda"], plan["vec_a"], None if a2 is None else a2.data_ptr(),
+            0 if a2 is None else a2.stride(0), vec_a2, a.shape[1], b.data_ptr(), plan["ldb"],
+            plan["vec_b"], 1, None, z.data_ptr(), None if side is None else side.data_ptr(),
+            n_act, ptr["out"], ptr["out2"], ptr["raw"], ptr["db"], self.stream),
+            "backward product (activation epilogue)")
+        self._count()
+        Products.epilogue_launches += 1
+        if db:
+            res["db"] = self.sum_rows(res["db"])
+        return res
+
+    def nt_act(self, a: Tensor, w_rows: Tensor, z: Tensor, act_name: str, *,
+               add: Optional[Tensor] = None, n_act: Optional[int] = None, keep: bool = False,
+               db: bool = False):
+        """y = a w_rows^T as in ``nt``, and in its epilogue, over the first
+        ``n_act`` columns (all by default), v = y f'(z) (+ add): returns
+        (T(v) [R, n_act], the other columns of y raw [R, n - n_act] f32 or
+        None, y's first n_act columns f32 if ``keep`` else None, the column
+        sums of v [n_act] f32 if ``db`` else None)."""
+        res = self._epilogue("nt", a, w_rows, z, act_name, _MODE_DACT, side=add, n_act=n_act,
+                             out2=keep, db=db)
+        return res["out"], res["raw"], res["out2"], res["db"]
+
+    def nn_adjoint(self, a: Tensor, w_rows: Tensor, z: Tensor, act_name: str, *,
+                   a2: Optional[Tensor] = None, q: Optional[Tensor] = None, top: bool = False):
+        """pbar = [a | a2] w_rows as in ``nn`` (``a2``, if given, is a second
+        K segment against the rows of ``w_rows`` after a's), and in its
+        epilogue the adjoint of the sweep: (qbar = pbar f'(z) or None at the
+        ``top``, zs = pbar q f''(z), or at the top onehot0 pbar f''(z);
+        None where f'' is identically zero)."""
+        if act_name in SECOND_DERIVATIVE_ZERO:
+            if top:
+                raise ValueError("the sweep's top adjoint is zero where f'' is")
+            res = self._epilogue("nn", a, w_rows, z, act_name, _MODE_DACT, a2=a2)
+            return res["out"], None
+        res = self._epilogue("nn", a, w_rows, z, act_name, _MODE_ADJOINT, a2=a2, side=q,
+                             out=not top, out2=True)
+        return res["out"], res["out2"]
+
+
+class ProductsPlain:
+    """The plain version of ``Products``: the same methods in PyTorch on any
+    device, each product one f32 matmul of the operands (as
+    ``products_plain``), the epilogues and prologues as elementwise torch
+    ops with the activations of ``ops/activations.py``. The backwards'
+    walks (``mlp.mlp_seg_bwd_route``, ``sdf_mlp.sdf_mlp_bwd_route``) run
+    over it on the CPU, where their tests hold them to the plain versions
+    and to the JAX package. ``planes`` lists the [rows, n] planes the walk
+    had the launcher write, by role, in order (the card's ``Products``
+    writes the same ones)."""
+
+    def __init__(self, dtype: torch.dtype) -> None:
+        self.dtype = dtype
+        self.planes: List[str] = []
+
+    def nt(self, a: Tensor, w_rows: Tensor) -> Tensor:
+        return a.float() @ w_rows.float().T
+
+    def tn(self, a: Tensor, g: Tensor) -> Tensor:
+        return a.float().T @ g.float()
+
+    def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
+        return a.float() @ w_rows.float()
+
+    def tn_act(self, z: Tensor, g: Tensor, act_name: str) -> Tensor:
+        f = ACTIVATION_TRIPLES[act_name][0]
+        return self.tn(f(z.float()).to(self.dtype), g)
+
+    def nt_act(self, a, w_rows, z, act_name, *, add=None, n_act=None, keep=False, db=False):
+        df = ACTIVATION_TRIPLES[act_name][1]
+        y = self.nt(a, w_rows)
+        n_act = y.shape[1] if n_act is None else n_act
+        ya = y[:, :n_act]
+        v = ya * df(z.float())
+        if add is not None:
+            v = v + add
+        raw = y[:, n_act:] if n_act < y.shape[1] else None
+        self.planes += ["act"] + ["raw"] * (raw is not None) + ["q"] * keep
+        return (v.to(self.dtype), raw, ya if keep else None, v.sum(dim=0) if db else None)
+
+    def nn_adjoint(self, a, w_rows, z, act_name, *, a2=None, q=None, top=False):
+        _, df, ddf = ACTIVATION_TRIPLES[act_name]
+        k1 = a.shape[1]
+        pbar = self.nn(a, w_rows[:k1])
+        if a2 is not None:
+            pbar = pbar + self.nn(a2, w_rows[k1:])
+        zf = z.float()
+        qbar = None if top else (pbar * df(zf)).to(self.dtype)
+        self.planes += ["qbar"] * (not top)
+        if act_name in SECOND_DERIVATIVE_ZERO:
+            if top:
+                raise ValueError("the sweep's top adjoint is zero where f'' is")
+            return qbar, None
+        if q is None:
+            q = torch.zeros_like(pbar)
+            q[:, 0] = 1.0
+        self.planes.append("zs")
+        return qbar, pbar * q * ddf(zf)
 
 
 def dual_mlp_seg_bwd(
@@ -614,8 +827,8 @@ def dual_mlp_seg_bwd(
             _build.check(k.lib.neddf_dual_bwd_gstack(
                 k.dt, act, n_tan, width, m, _DB_ROWS, g.data_ptr(), pres[li].data_ptr(),
                 gs.data_ptr(), db_parts.data_ptr(), k.stream), "dual_mlp_seg_bwd gstack")
-            dbs[li] = torch.empty(width, dtype=torch.float32, device=device)
-            k.sum_splits(db_parts, dbs[li])
+            PASS_LAUNCHES["gstack"] += 1
+            dbs[li] = k.sum_rows(db_parts)
             flat_g = gs.view(s * m, width)
             if li == 0:
                 blocks, off = [], 0
@@ -640,6 +853,7 @@ def dual_mlp_seg_bwd(
             _build.check(k.lib.neddf_dual_act(
                 k.dt, act, n_tan, width, m, pres[li - 1].data_ptr(), h_in.data_ptr(),
                 k.stream), "dual_mlp_seg_bwd act")
+            PASS_LAUNCHES["dual_act"] += 1
             flat_h = h_in.view(s * m, width)
             if layout[li]:
                 if stack0 is None:

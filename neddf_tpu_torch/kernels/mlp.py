@@ -12,9 +12,12 @@ order: the hidden rows of W first, then segment 0's).
   pads to 256 zero columns and slices off). With ``stash=True`` it also
   returns every layer's pre-activation ``[M, C_l]`` rounded to the
   compute dtype, as the Pallas forward's stash variant does.
-* ``mlp_seg_bwd`` launches ``csrc/mlp_bwd.cu`` and the hand-written
-  products of ``csrc/dual_mlp_bwd.cu``: the Pallas ``_bwd_kernel`` from
-  the stash, with dW and db summed in a fixed order.
+* ``mlp_seg_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
+  walk ``mlp_seg_bwd_route`` over the hand-written products of
+  ``csrc/dual_mlp_bwd.cu`` (``MLPProducts``): the top layer's
+  cotangent by ``csrc/mlp_bwd.cu``'s gpre, every lower one in the
+  epilogue of the nt product that forms it, each layer's input f(z) in
+  the prologue of its dW product; dW and db summed in a fixed order.
 * ``MLPSeg`` is the ``torch.autograd.Function`` over both: f32 master
   weights cast to the compute dtype inside, f32 dW/db back.
 
@@ -29,12 +32,18 @@ keeps the cotangent between layers in f32.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import Products, count_tile_launch
+from neddf_tpu_torch.kernels.dual_mlp import (
+    _ACT_CODES,
+    _DB_ROWS,
+    Products,
+    ProductsPlain,
+    count_tile_launch,
+)
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
@@ -43,9 +52,7 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTH = 256
 _KERNEL_MAX_SEGMENTS = 4
 _KERNEL_MAX_LAYERS = 12
-_ACT_CODES = {"tanhExp": 0, "ReLU": 1}
 _SPLIT_HIDDEN_FIRST = 2  # csrc/mlp_tile.cuh kSplitHiddenFirst
-_DB_ROWS = 64  # rows per block of the gpre kernel (one db partial each)
 
 
 def mlp_seg_plain(
@@ -149,13 +156,28 @@ def mlp_seg_bwd_plain(
 mlp_seg_bwd_plain.calls = 0
 
 
+def kernel_refusal(act_name: str, width: int, n_layers: int,
+                   n_segments: int = 1) -> Optional[str]:
+    """What of a configuration the CUDA kernels do not take (None: they
+    take it): ``_check_kernel_args`` raises NotImplementedError on it."""
+    if act_name not in _ACT_CODES:
+        return f"activation {act_name!r}"
+    if width != _KERNEL_WIDTH:
+        return f"width {width}"
+    if not 1 <= n_layers <= _KERNEL_MAX_LAYERS:
+        return f"{n_layers} layers"
+    if not 1 <= n_segments <= _KERNEL_MAX_SEGMENTS:
+        return f"{n_segments} segments"
+    return None
+
+
 def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
     what = "CUDA mlp_seg kernel"
-    if act_name not in _ACT_CODES:
-        raise NotImplementedError(f"{what}: activation {act_name!r}")
-    if not 1 <= len(vs) <= _KERNEL_MAX_SEGMENTS:
-        raise ValueError(f"{what}: {len(vs)} segments")
-    if not 1 <= len(weights) <= _KERNEL_MAX_LAYERS or len(biases) != len(weights):
+    refusal = kernel_refusal(act_name, weights[0].shape[1] if weights else 0, len(weights),
+                             len(vs))
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
+    if len(biases) != len(weights):
         raise ValueError(f"{what}: {len(weights)} layers")
     if len(layout) != len(weights) or layout[0]:
         raise ValueError(f"{what}: layout {tuple(layout)}")
@@ -166,8 +188,6 @@ def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
         if v.dim() != 2 or v.shape[0] != m or v.dtype != dtype:
             raise ValueError(f"{what}: segment {tuple(v.shape)} {v.dtype}")
     width = weights[0].shape[1]
-    if width != _KERNEL_WIDTH:
-        raise NotImplementedError(f"{what}: width {width}")
     c0 = vs[0].shape[1]
     for li, (w, b) in enumerate(zip(weights, biases)):
         fan_in = sum(v.shape[1] for v in vs) if li == 0 else width + c0 * bool(layout[li])
@@ -245,6 +265,80 @@ def mlp_seg(
 mlp_seg.launches = 0
 
 
+# launches of the top layer's cotangent kernel (csrc/mlp_bwd.cu), the one
+# elementwise pass the backwards of this module and of sdf_mlp.py run
+# beside their products
+PASS_LAUNCHES = {"gpre": 0}
+
+
+class MLPProducts(Products):
+    """``dual_mlp.Products`` and the top layer's cotangent ``gpre``."""
+
+    def gpre(self, g: Tensor, z: Tensor, act_name: str, add: Optional[Tensor] = None):
+        """The top layer's cotangent: (T(g f'(z) + add) [M, n], its column
+        sums [n] f32), g and add f32, z in T."""
+        m, n = z.shape
+        gs = self._empty((m, n), self.dtype)
+        parts = self._empty((-(-m // _DB_ROWS), n))
+        _build.check(self.lib.neddf_mlp_bwd_gpre(
+            self.dt, _ACT_CODES[act_name], n, m, _DB_ROWS, g.data_ptr(), z.data_ptr(),
+            None if add is None else add.data_ptr(), gs.data_ptr(), parts.data_ptr(),
+            self.stream), "backward gpre")
+        PASS_LAUNCHES["gpre"] += 1
+        return gs, self.sum_rows(parts)
+
+
+class MLPProductsPlain(ProductsPlain):
+    """The plain version of ``MLPProducts``."""
+
+    def gpre(self, g, z, act_name, add=None):
+        v = g.float() * ACTIVATION_TRIPLES[act_name][1](z.float())
+        if add is not None:
+            v = v + add
+        self.planes.append("gpre")
+        return v.to(self.dtype), v.sum(dim=0)
+
+
+def mlp_seg_bwd_route(vs, weights, layout, act_name, pres, g, k):
+    """The kernels' walk of the backward over the launcher ``k``
+    (``MLPProducts`` on the card, ``MLPProductsPlain`` in the CPU tests),
+    as ``mlp_seg_bwd_plain`` computes it: the top layer's
+    gpre = T(g f'(z)) by its own kernel; then per layer, in reverse, dW =
+    f(z_{l-1})^T gpre (the activation as the tn product's prologue) and
+    gpre W^T over all of W's rows with the epilogue gpre_{l-1} = T(. f'(z_{l-1}))
+    and its column sums (db); a post-skip layer's seg0 columns leave raw
+    for layer 0's first segment."""
+    dtype = vs[0].dtype
+    n_layers = len(weights)
+    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dvs: List[Tensor] = []
+    gs, dbs[-1] = k.gpre(g.float(), pres[-1], act_name)
+    g_skip = None
+    for li in reversed(range(n_layers)):
+        w = weights[li]
+        if li == 0:
+            blocks, off = [], 0
+            for i, v in enumerate(vs):
+                rows = w[off : off + v.shape[1]]
+                off += v.shape[1]
+                d_in = k.nt(gs, rows)
+                if i == 0 and g_skip is not None:
+                    d_in += g_skip
+                dvs.append(d_in.to(dtype))
+                blocks.append(k.tn(v, gs))
+            dws[0] = torch.cat(blocks, dim=0)
+            break
+        c = pres[li - 1].shape[1]
+        dws[li] = k.tn_act(pres[li - 1], gs, act_name)
+        if layout[li]:
+            dws[li] = torch.cat([dws[li], k.tn(vs[0], gs)], dim=0)
+        gs, skip, _, dbs[li - 1] = k.nt_act(gs, w, pres[li - 1], act_name, n_act=c, db=True)
+        if skip is not None:
+            g_skip = skip if g_skip is None else g_skip + skip
+    return dvs, dws, dbs
+
+
 def mlp_seg_bwd(
     vs: Sequence[Tensor],
     weights: Sequence[Tensor],
@@ -253,15 +347,11 @@ def mlp_seg_bwd(
     pres: Sequence[Tensor],
     g: Tensor,
 ):
-    """MLP backward: the CUDA kernels for CUDA tensors, the plain version
-    for CPU tensors (see ``mlp_seg_bwd_plain``).
-
-    Per layer, in reverse: ``csrc/mlp_bwd.cu`` forms gpre = g f'(z) from
-    the stash (rounded to T) with per-block db partials and recomputes
-    the layer input f(z_{l-1}); dx = gpre W^T and dW = h_in^T gpre run as
-    the hand-written f32-accumulating products, split into a fixed
-    number of partials summed in a fixed order (bitwise reproducible).
-    """
+    """MLP backward: the CUDA kernels for CUDA tensors
+    (``mlp_seg_bwd_route`` over ``MLPProducts``: the activations folded into
+    the f32-accumulating products, dW and db split into a fixed number of
+    partials summed in a fixed order, bitwise reproducible), the plain
+    version for CPU tensors (see ``mlp_seg_bwd_plain``)."""
     device = vs[0].device
     if device.type == "cpu":
         return mlp_seg_bwd_plain(vs, weights, layout, act_name, pres, g)
@@ -277,52 +367,11 @@ def mlp_seg_bwd(
     for t in pres:
         if t.dtype != dtype or not t.is_contiguous() or t.device != device:
             raise ValueError("mlp_seg_bwd: stash dtype, layout or device")
-    k = Products(dtype, device)
-    act = _ACT_CODES[act_name]
-    n_db = -(-m // _DB_ROWS)
-    dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
-    dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
-    dvs: List[Tensor] = []
     with torch.cuda.device(device):
-        g = g.float().contiguous()
-        g_skip = None
-        for li in reversed(range(len(weights))):
-            w = weights[li]
-            width = w.shape[1]
-            gs = torch.empty((m, width), dtype=dtype, device=device)
-            db_parts = torch.empty((n_db, width), dtype=torch.float32, device=device)
-            _build.check(k.lib.neddf_mlp_bwd_gpre(
-                k.dt, act, width, m, _DB_ROWS, g.data_ptr(), pres[li].data_ptr(),
-                gs.data_ptr(), db_parts.data_ptr(), k.stream), "mlp_seg_bwd gpre")
-            dbs[li] = torch.empty(width, dtype=torch.float32, device=device)
-            k.sum_splits(db_parts, dbs[li])
-            if li == 0:
-                blocks, off = [], 0
-                for i, v in enumerate(vs):
-                    rows = w[off : off + v.shape[1]]
-                    off += v.shape[1]
-                    d_in = k.nt(gs, rows)
-                    if i == 0 and g_skip is not None:
-                        d_in += g_skip
-                    dvs.append(d_in.to(dtype))
-                    blocks.append(k.tn(v, gs))
-                dws[0] = torch.cat(blocks, dim=0)
-                continue
-            h_in = torch.empty_like(pres[li - 1])
-            _build.check(k.lib.neddf_mlp_act(
-                k.dt, act, h_in.numel(), pres[li - 1].data_ptr(), h_in.data_ptr(),
-                k.stream), "mlp_seg_bwd act")
-            c = h_in.shape[1]
-            if layout[li]:
-                skip = k.nt(gs, w[c:])
-                g_skip = skip if g_skip is None else g_skip + skip
-                dws[li] = torch.cat([k.tn(h_in, gs), k.tn(vs[0], gs)], dim=0)
-                g = k.nt(gs, w[:c])
-            else:
-                dws[li] = k.tn(h_in, gs)
-                g = k.nt(gs, w)
+        out = mlp_seg_bwd_route(vs, weights, layout, act_name, pres, g.contiguous(),
+                                MLPProducts(dtype, device))
     mlp_seg_bwd.launches += 1
-    return dvs, dws, dbs
+    return out
 
 
 mlp_seg_bwd.launches = 0

@@ -9,11 +9,15 @@ features ``h [M, C]`` of ``e = PE(pos) [M, E]`` and ``gE = d h[:, 0] / d e
   (``h`` and the stash of every layer's pre-activation ``[M, C]``), then
   ``csrc/sdf_mlp.cu``'s sweep (``gE``), one block per row tile each, both
   on the tensor cores by the 3xTF32 split.
-* ``sdf_mlp_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as
-  launches of that file's elementwise kernels and of the hand-written
-  products (``csrc/dual_mlp_bwd.cu``): the replayed sweep, the ascending
-  adjoint of the sweep (the f'' terms), the descending trunk backward;
-  dW and db are summed in a fixed order (bitwise reproducible).
+* ``sdf_mlp_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
+  walk ``sdf_mlp_bwd_route`` over the hand-written products
+  (``csrc/dual_mlp_bwd.cu``, ``SDFProducts``): the replayed sweep,
+  the ascending adjoint of the sweep (the f'' terms), the descending
+  trunk backward, each elementwise step in the epilogue or prologue of
+  the product beside it; dW and db are summed in a fixed order (bitwise
+  reproducible). Where f'' is identically zero (ReLU, LeakyReLU) the walk keeps no
+  q plane and writes no zs plane, so a non-finite pbar q no longer turns
+  zbar into NaN through 0 * f''; on finite inputs nothing changes.
 * ``SDFMLP`` is the ``torch.autograd.Function`` over both; its backward
   takes the cotangents of both outputs, ``(ch, cg)``.
 
@@ -24,18 +28,19 @@ NeuS runs its trunk in f32.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import Products, count_tile_launch
+from neddf_tpu_torch.kernels.dual_mlp import _ACT_CODES, count_tile_launch
 from neddf_tpu_torch.kernels.mlp import (
-    _ACT_CODES,
-    _DB_ROWS,
     _KERNEL_DTYPES,
     _SPLIT_HIDDEN_FIRST,
+    MLPProducts,
+    MLPProductsPlain,
 )
+from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES, SECOND_DERIVATIVE_ZERO
 from neddf_tpu_torch.ops.sdf_grad import sdf_trunk_with_grad, sdf_trunk_with_grad_vjp
 
 Tensor = torch.Tensor
@@ -44,13 +49,27 @@ _KERNEL_WIDTH = 256
 _KERNEL_MAX_LAYERS = 12
 
 
+def kernel_refusal(act_name: str, width: int, n_layers: int) -> Optional[str]:
+    """What of a trunk configuration the CUDA kernels do not take (None:
+    they take it); ``_check_kernel_args`` raises NotImplementedError on
+    it."""
+    if act_name not in _ACT_CODES:
+        return f"activation {act_name!r}"
+    if width != _KERNEL_WIDTH:
+        return f"width {width}"
+    if not 2 <= n_layers <= _KERNEL_MAX_LAYERS:
+        return f"{n_layers} layers"
+    return None
+
+
 def _check_kernel_args(e, weights, biases, layout, act_name) -> None:
     what = "CUDA sdf_mlp kernel"
-    if act_name not in _ACT_CODES:
-        raise NotImplementedError(f"{what}: activation {act_name!r}")
+    refusal = kernel_refusal(act_name, weights[0].shape[1] if weights else 0, len(weights))
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
     if e.dtype != torch.float32 or e.dim() != 2:
         raise TypeError(f"{what}: e {tuple(e.shape)} {e.dtype} (f32 [M, E] only)")
-    if not 2 <= len(weights) <= _KERNEL_MAX_LAYERS or len(biases) != len(weights):
+    if len(biases) != len(weights):
         raise ValueError(f"{what}: {len(weights)} layers")
     if len(layout) != len(weights) or layout[0]:
         raise ValueError(f"{what}: layout {tuple(layout)}")
@@ -115,6 +134,106 @@ def sdf_mlp(
 sdf_mlp.launches = 0
 
 
+# launches of the top of the replayed sweep (csrc/sdf_mlp.cu's sdf_top),
+# the one elementwise pass of the backward besides mlp.py's gpre
+PASS_LAUNCHES = {"sdf_top": 0}
+
+
+class SDFProducts(MLPProducts):
+    """``mlp.MLPProducts`` and the top of the replayed sweep ``sdf_top``."""
+
+    def sdf_top(self, z: Tensor, act_name: str) -> Tensor:
+        """p [M, C] = onehot0 f'(z) (f32): the top of the replayed sweep."""
+        p = self._empty(tuple(z.shape))
+        _build.check(self.lib.neddf_sdf_top(_ACT_CODES[act_name], z.numel(), z.shape[1],
+                                            z.data_ptr(), p.data_ptr(), self.stream),
+                     "sdf_mlp_bwd top")
+        PASS_LAUNCHES["sdf_top"] += 1
+        return p
+
+
+class SDFProductsPlain(MLPProductsPlain):
+    """The plain version of ``SDFProducts``."""
+
+    def sdf_top(self, z, act_name):
+        p = torch.zeros(tuple(z.shape), dtype=torch.float32, device=z.device)
+        p[:, 0] = ACTIVATION_TRIPLES[act_name][1](z[:, 0].float())
+        self.planes.append("p")
+        return p
+
+
+def sdf_mlp_bwd_route(e, weights, layout, act_name, pres, ch, cg, k):
+    """The kernels' walk of the backward over the launcher ``k``
+    (``SDFProducts`` on the card, ``SDFProductsPlain`` in the CPU tests):
+    de [M, E], dW and db per layer (f32), as
+    ``sdf_trunk_with_grad_vjp`` computes them.
+
+    * replay: p_{L-1} = onehot0 f'(z_{L-1}); q_l = p_l W_l[hidden]^T with
+      the epilogue p_{l-1} = q_l f'(z_{l-1}); q_l kept where f'' != 0;
+    * ascending adjoint: pbar_l = [qbar_l | cg] W_l (qbar_0 = cg; a
+      post-skip layer's two K segments in one product) with the epilogue
+      qbar_{l+1} = pbar_l f'(z_l) and zs_l = pbar_l q_{l+1} f''(z_l) (top:
+      onehot0); dW_l = qbar_l^T p_l (and cg^T p_l for the e rows);
+    * descending trunk: zbar_{L-1} = ch f'(z_{L-1}) + zs_{L-1} (gpre);
+      dW_l += f(z_{l-1})^T zbar_l (the prologue), zbar_l W_l^T over all
+      of W's rows with the epilogue zbar_{l-1} = hbar f'(z_{l-1}) +
+      zs_{l-1} and its column sums (db), the e rows' columns raw (ebar).
+
+    Where f'' is identically zero no q is kept and no zs is formed: the
+    last pbar, which only feeds zs_{L-1}, is not computed at all.
+    """
+    n_layers = len(weights)
+    c = pres[0].shape[1]
+    keep_q = act_name not in SECOND_DERIVATIVE_ZERO
+    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+
+    # replay the sweep: p_l for every layer, q_l[hidden] for l >= 1
+    ps: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    qs: List[Tensor] = [None] * (n_layers + 1)  # type: ignore[list-item]
+    p = k.sdf_top(pres[-1], act_name)
+    for li in range(n_layers - 1, 0, -1):
+        ps[li] = p
+        p, _, qs[li], _ = k.nt_act(p, weights[li][:c], pres[li - 1], act_name, keep=keep_q)
+    ps[0] = p
+
+    # adjoint of the sweep, ascending
+    zs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dws[0] = k.tn(cg, ps[0])
+    qbar, zs[0] = k.nn_adjoint(cg, weights[0], pres[0], act_name, q=qs[1])
+    for li in range(1, n_layers):
+        dws[li] = k.tn(qbar, ps[li])
+        if layout[li]:
+            dws[li] = torch.cat([dws[li], k.tn(cg, ps[li])], dim=0)
+        ps[li] = qs[li] = None
+        a2 = cg if layout[li] else None
+        if li < n_layers - 1:
+            qbar, zs[li] = k.nn_adjoint(qbar, weights[li], pres[li], act_name, a2=a2,
+                                        q=qs[li + 1])
+        elif keep_q:
+            _, zs[li] = k.nn_adjoint(qbar, weights[li], pres[li], act_name, a2=a2, top=True)
+    del ps, qs, qbar
+
+    # trunk backward with the combined z cotangents, descending
+    zbar, dbs[-1] = k.gpre(ch, pres[-1], act_name, add=zs[-1])
+    ebar = None
+    for li in range(n_layers - 1, -1, -1):
+        w = weights[li]
+        if li == 0:
+            dw2, eb = k.tn(e, zbar), k.nt(zbar, w)
+        else:
+            dw2 = k.tn_act(pres[li - 1], zbar, act_name)
+            if layout[li]:
+                dw2 = torch.cat([dw2, k.tn(e, zbar)], dim=0)
+            zbar, eb, _, dbs[li - 1] = k.nt_act(zbar, w, pres[li - 1], act_name,
+                                                add=zs[li - 1], n_act=c, db=True)
+            zs[li - 1] = None
+        if eb is not None:
+            ebar = eb if ebar is None else ebar + eb
+        dws[li] = dws[li] + dw2
+    return ebar, dws, dbs
+
+
 def sdf_mlp_bwd(
     e: Tensor,
     weights: Sequence[Tensor],
@@ -124,9 +243,10 @@ def sdf_mlp_bwd(
     ch: Tensor,
     cg: Tensor,
 ):
-    """VJP of ``sdf_mlp``: the CUDA kernels for CUDA tensors,
-    ``sdf_trunk_with_grad_vjp`` for CPU ones (same arguments and
-    results: de [M, E], dW per layer, db per layer, f32)."""
+    """VJP of ``sdf_mlp``: the CUDA kernels for CUDA tensors
+    (``sdf_mlp_bwd_route`` over ``SDFProducts``), ``sdf_trunk_with_grad_vjp``
+    for CPU ones (same arguments and results: de [M, E], dW per layer, db
+    per layer, f32)."""
     if e.device.type == "cpu":
         return sdf_trunk_with_grad_vjp(e, weights, layout, act_name, pres, ch, cg)
     if e.device.type != "cuda":
@@ -136,93 +256,17 @@ def sdf_mlp_bwd(
     _check_kernel_args(e, weights, biases, layout, act_name)
     m, e_dim = e.shape
     c = _KERNEL_WIDTH
-    n_layers = len(weights)
     for t, shape in [(p, (m, c)) for p in pres] + [(ch, (m, c)), (cg, (m, e_dim))]:
         if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != device):
             raise ValueError("sdf_mlp_bwd: stash/cotangent shape, dtype, layout or device")
-    if len(pres) != n_layers:
+    if len(pres) != len(weights):
         raise ValueError("sdf_mlp_bwd: one stash per layer")
-    k = Products(torch.float32, device)
-    act = _ACT_CODES[act_name]
-    n = m * c
-    n_db = -(-m // _DB_ROWS)
-
-    def empty():
-        return torch.empty((m, c), dtype=torch.float32, device=device)
-
-    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
-    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
     with torch.cuda.device(device):
-        # replay the sweep: p_l for every layer, q_l[hidden] for l >= 1
-        ps: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
-        qs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
-        p = empty()
-        _build.check(k.lib.neddf_sdf_sweep_p(act, n, c, None, pres[-1].data_ptr(),
-                                             p.data_ptr(), k.stream), "sdf_mlp_bwd sweep")
-        for li in range(n_layers - 1, 0, -1):
-            ps[li] = p
-            qs[li] = k.nt(p, weights[li][:c])
-            p = empty()
-            _build.check(k.lib.neddf_sdf_sweep_p(
-                act, n, c, qs[li].data_ptr(), pres[li - 1].data_ptr(), p.data_ptr(),
-                k.stream), "sdf_mlp_bwd sweep")
-        ps[0] = p
-
-        # adjoint of the sweep, ascending: dW_l = qbar_l^T p_l, pbar_l = qbar_l W_l
-        zs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
-        dws[0] = k.tn(cg, ps[0])
-        pbar = k.nn(cg, weights[0])
-        for li in range(1, n_layers):
-            w = weights[li]
-            qbar, zs[li - 1] = empty(), empty()
-            _build.check(k.lib.neddf_sdf_adjoint(
-                act, n, c, pbar.data_ptr(), qs[li].data_ptr(), pres[li - 1].data_ptr(),
-                qbar.data_ptr(), zs[li - 1].data_ptr(), k.stream), "sdf_mlp_bwd adjoint")
-            if layout[li]:
-                dws[li] = torch.cat([k.tn(qbar, ps[li]), k.tn(cg, ps[li])], dim=0)
-                pbar = k.nn(qbar, w[:c])
-                pbar += k.nn(cg, w[c:])
-            else:
-                dws[li] = k.tn(qbar, ps[li])
-                pbar = k.nn(qbar, w)
-            ps[li] = qs[li] = None
-        zs[-1] = empty()
-        _build.check(k.lib.neddf_sdf_adjoint(
-            act, n, c, pbar.data_ptr(), None, pres[-1].data_ptr(), None, zs[-1].data_ptr(),
-            k.stream), "sdf_mlp_bwd adjoint")
-        del ps, qs, pbar
-
-        # trunk backward with the combined z cotangents, descending
-        hbar, ebar = ch, None
-        for li in range(n_layers - 1, -1, -1):
-            w = weights[li]
-            zbar = empty()
-            db_parts = torch.empty((n_db, c), dtype=torch.float32, device=device)
-            _build.check(k.lib.neddf_sdf_zbar(
-                act, c, m, _DB_ROWS, hbar.data_ptr(), pres[li].data_ptr(),
-                zs[li].data_ptr(), zbar.data_ptr(), db_parts.data_ptr(), k.stream),
-                "sdf_mlp_bwd zbar")
-            zs[li] = None
-            dbs[li] = torch.empty(c, dtype=torch.float32, device=device)
-            k.sum_splits(db_parts, dbs[li])
-            if li == 0:
-                dw2, eb = k.tn(e, zbar), k.nt(zbar, w)
-            else:
-                h_in = empty()
-                _build.check(k.lib.neddf_sdf_act(act, n, pres[li - 1].data_ptr(),
-                                                 h_in.data_ptr(), k.stream), "sdf_mlp_bwd act")
-                if layout[li]:
-                    dw2 = torch.cat([k.tn(h_in, zbar), k.tn(e, zbar)], dim=0)
-                    hbar, eb = k.nt(zbar, w[:c]), k.nt(zbar, w[c:])
-                else:
-                    dw2, eb = k.tn(h_in, zbar), None
-                    hbar = k.nt(zbar, w)
-            if eb is not None:
-                ebar = eb if ebar is None else ebar + eb
-            dws[li] = dws[li] + dw2
+        out = sdf_mlp_bwd_route(e, weights, layout, act_name, pres, ch, cg,
+                                SDFProducts(torch.float32, device))
     sdf_mlp_bwd.launches += 1
-    return ebar, dws, dbs
+    return out
 
 
 sdf_mlp_bwd.launches = 0

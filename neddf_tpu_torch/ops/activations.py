@@ -4,7 +4,9 @@ Counterpart of ``neddf_tpu/ops/activations.py`` and of the kernels'
 ``(f, f', f'')`` triples (``neddf_tpu/kernels/dual_mlp.py::_act_fns``).
 The derivatives are written out by hand (not taken from autograd), with
 the same thresholds: tanhExp and softplus pass ``x`` through above 20,
-where f' is exactly 1 and f'' exactly 0; ReLU has f' = 0 at 0.
+where f' is exactly 1 and f'' exactly 0; ReLU has f' = 0 at 0, LeakyReLU
+(slope 0.01) f' = 1 at 0 (``leaky_relu_deriv``: x >= 0), where torch's
+autograd would give the slope.
 """
 from __future__ import annotations
 
@@ -47,6 +49,17 @@ def relu_deriv(x: Tensor) -> Tensor:
     return (x > 0.0).to(x.dtype)
 
 
+_LEAKY_SLOPE = 0.01
+
+
+def leaky_relu(x: Tensor) -> Tensor:
+    return torch.where(x >= 0.0, x, _LEAKY_SLOPE * x)
+
+
+def leaky_relu_deriv(x: Tensor) -> Tensor:
+    return torch.where(x >= 0.0, torch.ones_like(x), torch.full_like(x, _LEAKY_SLOPE))
+
+
 def zeros_deriv2(x: Tensor) -> Tensor:
     return torch.zeros_like(x)
 
@@ -86,10 +99,15 @@ Fn = Callable[[Tensor], Tensor]
 # name -> (f, df/dx, d2f/dx2); names match the configs' activation_type strings
 ACTIVATION_TRIPLES: Dict[str, Tuple[Fn, Fn, Fn]] = {
     "ReLU": (relu, relu_deriv, zeros_deriv2),
+    "LeakyReLU": (leaky_relu, leaky_relu_deriv, zeros_deriv2),
     "tanhExp": (tanh_exp, tanh_exp_deriv, tanh_exp_deriv2),
     "Softplus": (softplus, softplus_deriv, softplus_deriv2),
     "Sigmoid": (sigmoid, sigmoid_deriv, sigmoid_deriv2),
 }
+
+# the activations whose f'' is identically zero: the backwards keep no
+# plane for the f'' terms (kernels/sdf_mlp.py)
+SECOND_DERIVATIVE_ZERO = frozenset({"ReLU", "LeakyReLU"})
 
 # name -> (f, df/dx)
 ACTIVATIONS: Dict[str, Tuple[Fn, Fn]] = {

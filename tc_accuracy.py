@@ -4,7 +4,7 @@ fast its f32 routes run.
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 tc_accuracy.py [--tree DIR] [--out FILE] [--params P ...]
-                           [--batches N ...] [--seeds S ...] [--f32]
+                           [--batches N ...] [--seeds S ...] [--f32] [--passes]
 
 ``--tree DIR`` imports ``neddf_tpu_torch`` from DIR instead of this
 checkout (for instance an unpacked ``git archive`` of another commit),
@@ -41,6 +41,16 @@ above) and its time; the times of the NeuS colour trunk's forward with
 its stash and of its backward, and of ``sdf_mlp`` forward and backward
 (ReLU, 265,216 rows); and phase 9's count of ReLU rows whose gE took the
 other side of f'(0) from the all-plain pass.
+
+With ``--passes`` only the backwards of ``sdf_mlp`` (ReLU) and of the NeuS
+colour trunk (f32) at the NeuS step's 265,216 rows and of the NeRF trunk
+(bf16) at its fine pass's 198,656 (``passes``): each route's median
+CUDA-event ms, and by ``torch.profiler`` over three calls every kernel it
+launches (the products by layout and by what they fold in, and each
+elementwise pass) with its launches and device ms per call and, for the
+elementwise passes, the bytes it must move; and the db sum at the NeuS
+fine pass (1,552 tile partials of 256 columns): one-block
+``neddf_sum_splits`` against ``neddf_sum_rows`` where the tree has it.
 
 With ``--neus-run kernels|plain [--seed N]`` only the NeuS
 configuration's 300-step run of ``chip_smoke.py`` phase 11
@@ -260,6 +270,91 @@ def measure_f32(torch, smoke, dev) -> dict:
     return out
 
 
+# the bytes each elementwise pass of the backwards must move per call, by
+# kernel name, in [M, C] planes of 4-byte elements (T: the operand type's
+# share of one): reads and writes once each
+PASS_PLANES = {
+    "sweep_p_kernel": 3, "adjoint_kernel": 5, "zbar_kernel": 4, "sdf_top_kernel": None,
+    "gpre_kernel": None, "act_kernel": None, "sum_splits_kernel": 0, "sum_rows_kernel": 0,
+}
+
+
+def measure_passes(torch, smoke, dev) -> dict:
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+
+    out = {"routes": {}}
+    m = smoke.M_NEUS
+    e, ws, bs, ch, cg = smoke.sdf_inputs(torch, dev, "ReLU", m)
+    _, _, pres = sk.sdf_mlp(e, ws, bs, smoke.SDF_LAYOUT, "ReLU", stash=True)
+    routes = {"sdf_mlp_bwd": (m, 4, [256] * 8, lambda: sk.sdf_mlp_bwd(
+        e, ws, smoke.SDF_LAYOUT, "ReLU", pres, ch, cg))}
+    rand = torch.Generator(device=dev).manual_seed(5)
+    cases = {"mlp_seg_bwd_neus_color": (m, (3, 24, 3, 256), smoke.NEUS_COL_FANS,
+                                        smoke.NEUS_COL_OUTS, (False,) * 9, torch.float32),
+             "mlp_seg_bwd_nerf": (smoke.M_NERF_FINE, (60,), smoke.NERF_FANS, [256] * 8,
+                                  tuple(li == 5 for li in range(8)), torch.bfloat16)}
+    keep = [e, ws, pres, ch, cg]
+    for name, (rows, widths, fans, outs, layout, dtype) in cases.items():
+        vs = [(torch.rand((rows, w), generator=rand, device=dev) * 2 - 1).to(dtype)
+              for w in widths]
+        lw = [((torch.rand((f, o), generator=rand, device=dev) * 2 - 1) * f ** -0.5).to(dtype)
+              for f, o in zip(fans, outs)]
+        lb = [torch.zeros(o, device=dev) for o in outs]
+        _, lp = mlp.mlp_seg(vs, lw, lb, layout, "ReLU", stash=True)
+        g = (torch.rand((rows, outs[-1]), generator=rand, device=dev) * 0.01).to(dtype)
+        keep += [vs, lw, lp, g]
+        routes[name] = (rows, 4 if dtype == torch.float32 else 2, list(outs),
+                        (lambda vs=vs, lw=lw, layout=layout, lp=lp, g=g:
+                         mlp.mlp_seg_bwd(vs, lw, layout, "ReLU", lp, g)))
+    for name, (rows, t, outs, fn) in routes.items():
+        kernels = smoke.profile_calls(torch, fn, calls=3)[0]
+        for key, r in kernels.items():
+            if key.startswith("tc_gemm_kernel") or key not in PASS_PLANES or key in (
+                    "sum_splits_kernel", "sum_rows_kernel"):
+                continue
+            n = round(r["launches"])
+            if key == "gpre_kernel":  # g f32 in, z and gs in T: every layer, or the top one
+                cols = sum(outs) if n == len(outs) else outs[-1] * n
+                nbytes = (4 + 2 * t) * rows * cols
+            elif key == "act_kernel":  # z in, h out, in T (layers 1..L-1's inputs)
+                nbytes = 2 * t * rows * 256 * n
+            elif key == "sdf_top_kernel":  # z's channel 0 in, p out
+                nbytes = 4 * rows * (256 + 1) * n
+            else:
+                nbytes = PASS_PLANES[key] * 4 * rows * 256 * n
+            if key == "sweep_p_kernel":  # the top launch reads z alone
+                nbytes -= 4 * rows * 256
+            r["bytes"] = nbytes
+            r["bound_ms"] = 1e3 * nbytes / smoke.MEM_RATE
+        out["routes"][name] = {
+            "rows": rows, "ms": smoke.time_pair(torch, fn, fn, reps=3)[0], "kernels": kernels}
+        print(f"passes {name}: {json.dumps(out['routes'][name])}", flush=True)
+    del keep, routes
+    torch.cuda.empty_cache()
+
+    # the db sum at the NeuS fine pass: 3,104 partials of 64 rows (the
+    # elementwise passes') or 1,552 of a 128-row tile (the epilogues'):
+    # device time per call by the profiler (back to back, the host's
+    # launches would set a CUDA-event time)
+    k = dm.Products(torch.float32, dev)
+    db = torch.empty(256, device=dev)
+    out["db_sum"] = {}
+    for rows_per_part in (64, 128):
+        parts = torch.randn((-(-198_656 // rows_per_part), 256), generator=rand, device=dev)
+        sums = {"one_block": lambda: k.sum_splits(parts, db)}
+        if hasattr(k, "sum_rows"):
+            sums["parallel"] = lambda: k.sum_rows(parts)
+        nbytes = parts.numel() * 4 + 256 * 4
+        r = out["db_sum"][parts.shape[0]] = {"bytes": nbytes,
+                                             "bound_ms": 1e3 * nbytes / smoke.MEM_RATE}
+        for name, fn in sums.items():
+            r[f"{name}_ms"] = smoke.profile_calls(torch, fn)[1]
+    print(f"passes db_sum: {json.dumps(out['db_sum'])}", flush=True)
+    return out
+
+
 def measure_neus_run(torch, smoke, mode: str, seed) -> dict:
     extra = [*smoke.FAMILY_OVERRIDES["neus"]] + (["network.fused=off"] if mode == "plain" else [])
     if seed is not None:
@@ -281,6 +376,8 @@ def main() -> int:
     parser.add_argument("--params", nargs="+", default=["checkpoint"],
                         help="'checkpoint' and/or seeds of chip_smoke.family_params")
     parser.add_argument("--f32", action="store_true", help="only the f32 routes")
+    parser.add_argument("--passes", action="store_true",
+                        help="only the elementwise passes and products of the backwards")
     parser.add_argument("--neus-run", choices=["kernels", "plain"], default=None,
                         help="only the NeuS 300-step run, through the kernels or the plain versions")
     parser.add_argument("--seed", type=int, default=None,
@@ -306,6 +403,8 @@ def main() -> int:
               "build": str(_build.build_dir())}
     if args.neus_run:
         result["neus_run"] = measure_neus_run(torch, smoke, args.neus_run, args.seed)
+    elif args.passes:
+        result["passes"] = measure_passes(torch, smoke, dev)
     elif args.f32:
         result["f32"] = measure_f32(torch, smoke, dev)
     else:

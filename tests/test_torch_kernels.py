@@ -197,7 +197,7 @@ def test_trunk_kernel_checks_refuse_unsupported_inputs(bad):
     v0, j0, ws, bs, layout = _kernel_trunk_args()
     act = "tanhExp"
     if bad == "act":
-        act = "ReLU"
+        act = "Softplus"
     elif bad == "k1":
         j0 = torch.zeros((1, 10, C0))
     elif bad == "width":

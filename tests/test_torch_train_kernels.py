@@ -375,7 +375,7 @@ def test_seg_kernel_checks_refuse_unsupported_inputs(bad):
         vs, js, ws, bs = _colour_kernel_args(n_tan=2)
         n_tan = 2
     elif bad == "act":
-        act = "ReLU"
+        act = "Softplus"
     elif bad == "segments":
         vs = vs + [torch.zeros((10, 4))]
         has_j = has_j + (False,)
