@@ -30,8 +30,11 @@ Phases (any failure stops the script with a non-zero exit code):
    train step's shapes (M = 512 rays x 194 fine samples, and the coarse
    pass's 512 x 65 plus a ragged 7), in f32 and bf16, with times: the
    trunk forward with its stash, the K=1 colour forward, the dual-MLP
-   backward (trunk and colour configurations) and the epilogue forward
-   and backward; two backward runs must give bitwise-equal dW / db; then
+   backward (trunk and colour configurations: one top-layer ``gstack``
+   per call, every layer below through the products with the stacked
+   cotangent and the layer input folded in, no ``dual_act``) and the
+   epilogue forward and backward; two backward runs must give
+   bitwise-equal dW / db; then
    the trunk and the colour trunk with ReLU and LeakyReLU (ragged rows,
    both precisions), each forward layer held to the plain layer over the
    kernel's own stash (f' is a step at 0 there);
@@ -58,7 +61,8 @@ Phases (any failure stops the script with a non-zero exit code):
    in this process through that module's ``main``: every loss finite,
    train PSNR of the last 50 steps above the first 50, every kernel of
    the path launched, every product and tile forward on the tensor cores
-   and no plain version called; ms/step and rays/s;
+   and no plain version called, the dual backward's launches as
+   ``expected_folding`` reckons them; ms/step and rays/s;
    then the first 100 steps again through the plain versions
    (``network.fused=off``), which must track the kernel run; and a
    ``torch.profiler`` table of a few more steps in ``profile_train.txt``;
@@ -280,16 +284,19 @@ def card_line() -> str:
 # names in the library) and how many instantiations each has
 # tc_gemm_kernel: bf16 and f32 x nt, tn, nn plain (6); the activation
 # prologue on tn (bf16 and f32 x tanhExp, ReLU, LeakyReLU: 6), the
-# epilogue on nt (the same 6) and on nn (f32 x 3)
-TC_FUNCTIONS = {"tc_gemm_kernel": 21,
+# epilogue on nt (the same 6) and on nn (f32 x 3); the dual backward's
+# products over rows grouped by point, its layer-input prologue on tn and
+# its stacked-cotangent epilogue on nt (bf16 and f32 x 3 activations x S =
+# 2, 4: 12 each)
+TC_FUNCTIONS = {"tc_gemm_kernel": 45,
                 "mlp_tile_fwd": 18,   # bf16 and f32 x K=3, K=1, K=0 x the 3 activations
                 "sdf_sweep_kernel": 3}  # f32 x the 3 activations
 
 
-# the elementwise passes of the sdf_mlp and mlp_seg backwards that the
-# products' epilogues and prologues took over: their entry points are gone
+# the elementwise passes of the backwards that the products' epilogues and
+# prologues took over: their entry points are gone
 REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "neddf_sdf_act",
-                  "neddf_mlp_act")
+                  "neddf_mlp_act", "neddf_dual_act")
 
 
 def _is_tc_function(name: str) -> bool:
@@ -475,6 +482,18 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     results = {}
 
+    def dual_counts():
+        return (dm.PASS_LAUNCHES["gstack"], dm.PASS_LAUNCHES["dual_act"],
+                dm.Products.epilogue_launches, dm.Products.prologue_launches)
+
+    def check_dual_counts(what, before, n_layers):
+        # the top layer's gstack alone; below it the stacked cotangent and
+        # the layer input come folded into the products (no dual_act)
+        got = tuple(a - b for a, b in zip(dual_counts(), before))
+        if got != (1, 0, n_layers - 1, n_layers - 1):
+            fail(f"{what}: gstack, dual_act, epilogue and prologue launches {got}, expected "
+                 f"(1, 0, {n_layers - 1}, {n_layers - 1})")
+
     def check(route, m, dtype_name, pairs, tol):
         worst_abs, worst_rel = 0.0, 0.0
         for got, ref in pairs:
@@ -539,7 +558,9 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                 gv = (torch.randn((m, 256), generator=gen, device=dev) * 0.01).to(dtype)
                 gj = (torch.randn((k, m, 256), generator=gen, device=dev) * 0.01).to(dtype)
                 args = (vs_, js_, ws_, lay, "tanhExp", hj, pres, gv, gj)
+                before = dual_counts()
                 bk = dm.dual_mlp_seg_bwd(*args)
+                check_dual_counts(f"dual_mlp_seg_bwd {cfg} {dtype_name} M={m}", before, len(ws_))
                 bp = dm.dual_mlp_seg_bwd_plain(*args)
                 torch.cuda.synchronize()
                 check(f"dual_mlp_seg_bwd_{cfg}", m, dtype_name,
@@ -640,7 +661,9 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                 gv = (uniform(m, 256) * 0.01).to(dtype)
                 gj = (uniform(k, m, 256) * 0.01).to(dtype)
                 bargs = (vs_, js_, ws_, lay, act, hj, fp[2], gv, gj)
+                before = dual_counts()
                 bk = dm.dual_mlp_seg_bwd(*bargs)
+                check_dual_counts(f"{route}_bwd {dtype_name}", before, len(ws_))
                 bp = dm.dual_mlp_seg_bwd_plain(*bargs)
                 torch.cuda.synchronize()
                 check(f"{route}_bwd", m, dtype_name, list(zip(sum(bk, []), sum(bp, []))), btol)
@@ -977,6 +1000,18 @@ def phase_train_run(torch, card: str) -> dict:
     if min(launches.values()) < 1 or plain_calls:
         fail("the main path did not run through every kernel alone")
     check_routes("main path", routes, "tc")
+    net = trainer.neural_render.network_fine
+    dual_layers = (len(net.layers_ddf), len(net.layers_col))
+    expected = expected_folding("neddf", launches, dual_layers)
+    folding = {"passes": routes["passes"], "folded": routes["folded"]}
+    steps = trainer.iteration
+    log(f"[8] main path: elementwise launches {routes['passes']} and products with an "
+        f"activation folded in {routes['folded']} (expected {expected}; per step: gstack "
+        f"{expected['passes']['gstack'] / steps:g}, epilogues "
+        f"{expected['folded']['epilogue'] / steps:g}, prologues "
+        f"{expected['folded']['prologue'] / steps:g}, dual_act 0)")
+    if folding != expected:
+        fail(f"the main path's elementwise launches {folding}, expected {expected}")
     hist = trainer.history
     if len(hist) != 100 * (TRAIN_EPOCHS + 1):
         fail(f"{len(hist)} logged steps")
@@ -1017,7 +1052,7 @@ def phase_train_run(torch, card: str) -> dict:
     if len(ph) != 100 or not mean(gaps) <= TRACK_LOSS_REL or not psnr_gap <= TRACK_PSNR_DB:
         fail("the plain versions do not track the kernel run")
     return {"launches": launches, "routes": routes, "plain_calls": plain_calls,
-            "ms_per_step": ms_step, "peak_memory_gib": peak_gib,
+            "folding_expected": expected, "ms_per_step": ms_step, "peak_memory_gib": peak_gib,
             "rays_per_s": rays_s, "psnr_first50": first, "psnr_last50": last,
             "wall_s": wall, "plain_ms_per_step": plain_steady,
             "track_mean_loss_gap": mean(gaps), "track_max_loss_gap": max(gaps),
@@ -1595,14 +1630,25 @@ FAMILY_RUN_KERNELS = {"nerf": ("mlp_seg", "mlp_seg_bwd"),
 FAMILY_ROUTES = {"nerf": "tc", "neus": "tf32x3"}
 
 
-def expected_folding(family: str, launches: dict) -> dict:
+def expected_folding(family: str, launches: dict, dual_layers=None) -> dict:
     """The elementwise launches and the products with an activation folded
     in that a family's run must show, from its backward calls: per
     mlp_seg_bwd of L layers one gpre (the top layer), L - 1 nt epilogues,
     L - 1 tn prologues and L db sums; per sdf_mlp_bwd (8 layers, ReLU) one
     sdf_top and one gpre (the top of the replay and of the trunk), 7 + 7 +
     7 epilogues (replay, adjoint, trunk; the top adjoint is zero under
-    ReLU), 7 prologues and 8 db sums; no gstack or dual_act (NeDDF's)."""
+    ReLU), 7 prologues and 8 db sums; no gstack or dual_act (NeDDF's).
+    NeDDF (``dual_layers``: the layers of its K=3 and K=1 trunks), whose
+    dual_mlp_seg_bwd calls come in pairs (one per trunk and pass): per
+    call of L layers one gstack (the top layer), L - 1 nt epilogues (the
+    stacked cotangent of the layer below), L - 1 tn prologues (the layer
+    input) and L db sums; no dual_act."""
+    if family == "neddf":
+        pairs = launches["dual_mlp_seg_bwd"] / 2
+        layers = sum(dual_layers)
+        return {"passes": {"gpre": 0, "sdf_top": 0, "gstack": 2 * pairs, "dual_act": 0,
+                           "db_sum": pairs * layers},
+                "folded": {"prologue": pairs * (layers - 2), "epilogue": pairs * (layers - 2)}}
     col = launches["mlp_seg_bwd"]
     layers = len(NERF_FANS) if family == "nerf" else len(NEUS_COL_FANS)
     sdf = launches.get("sdf_mlp_bwd", 0)
@@ -2048,7 +2094,8 @@ def main() -> int:
                                    if k.split("/")[0] == fkey.split("/")[0]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r)}
 
-    bwd = entry("dual_mlp_seg_bwd (trunk K=3)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+    bwd = entry("dual_mlp_seg_bwd (trunk K=3; gstack and the layer input folded into the "
+                "products over a stream-grouped row tile)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
                 "neddf_tpu/kernels/dual_mlp.py:935", "dual_mlp_seg_bwd",
                 "dual_mlp_seg_bwd_trunk")
     bwd["max_abs_err"] = max(bwd["max_abs_err"],

@@ -2,24 +2,34 @@
 //
 // Replaces the Pallas backward neddf_tpu/kernels/dual_mlp.py::
 // _run_backward (kernel body _bwd_kernel:728, stashed variant). The
-// Python wrapper (kernels/dual_mlp.py::dual_mlp_seg_bwd) walks the layers
-// in reverse and launches, per layer l with stacked streams S = K+1:
+// Python walk (kernels/dual_mlp.py::dual_mlp_seg_bwd_route) goes through
+// the layers in reverse with S = K+1 stacked streams [S, M, C]:
 //
-// * neddf_dual_bwd_gstack: from the output cotangent g [S, M, C] (f32)
-//   and the forward's stash z [S, M, C] (type T) the stacked cotangent
-//   of the pre-activation,
+// * neddf_dual_bwd_gstack, once per call (the top layer, whose cotangent
+//   (gv, gj) no product produces): from g and the stash z (type T) the
+//   stacked cotangent of the pre-activation,
 //       G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a   (the f'' coupling)
 //       G_a = g_a f'(z_v),
 //   rounded to T (the Pallas _mm casts it before both products), and one
-//   f32 partial of db = sum_rows G_v per block of rows;
-// * neddf_dual_act: the layer's input h_in = (f(z_v), f'(z_v) z_a)
-//   recomputed from the stash of layer l-1, rounded to T;
-// * two products: dx = G W^T and dW = h_in^T G (for layer 0 and a
-//   post-skip layer, per input block of rows of W): neddf_gemm_tc, on
-//   the tensor cores for bf16 and for f32 operands;
-// * neddf_sum_rows: the db partials summed in a fixed order over the whole
-//   card (groups of rows, then the groups); neddf_sum_splits: the dW
-//   split partials.
+//   f32 partial of db = sum_rows G_v per block of 64 rows;
+// * per layer l > 0, two products on the tensor cores (neddf_gemm_tc,
+//   streams = S): dW_l = h_in^T G_l with the layer input h_in =
+//   (f(z_v), f'(z_v) z_a) of the stash z_{l-1} formed as the prologue, as
+//   each stage lands in shared memory; and g_{l-1} = G_l W_l^T with
+//   G_{l-1}, rounded to T, and its db partials as the epilogue, which
+//   reads the stash z_{l-1} and writes no f32 g. The coupling needs all S
+//   streams of a point in one tile, and the planes are stream-major, so
+//   these two products take their rows grouped by point: a 128-row output
+//   tile (nt) holds the S streams of 128/S points (32 for the K=3 trunk,
+//   64 for the K=1 colour trunk), a reduction stage of BK rows (tn: 64
+//   bf16, 32 f32) the S streams of BK/S points; the planes in device
+//   memory keep their layout, only the copies' and the epilogue's
+//   addresses change (TcOperand::plane). A ragged last group masks the
+//   points past M in every stream;
+// * layer 0 (input segments, no activation) and a post-skip layer's seg0
+//   rows (dx of seg0 is raw) take plain products; neddf_sum_rows sums
+//   the db partials in a fixed order over the whole card (groups of rows,
+//   then the groups); neddf_sum_splits the dW split partials.
 // The same products serve the backwards of mlp_bwd.cu and sdf_mlp.cu,
 // which give neddf_gemm_tc an activation whose elementwise work it folds
 // in, as the prologue of a tn product (dW = f(z_{l-1})^T G: f applied to
@@ -27,8 +37,8 @@
 // nt / nn product of one split (the tile goes through shared memory, is
 // combined with the stash and up to one side plane, and leaves as the
 // next layer's cotangent in the operand type, with one db partial per
-// 128-row tile). So those backwards move no
-// plane through device memory between their products.
+// 128-row tile). So no backward moves a plane through device memory
+// between its products but the top layer's cotangent.
 // Determinism. The Pallas kernel accumulates dW/db across its sequential
 // TPU grid; blocks here run concurrently, so every cross-block reduction
 // writes per-block (or per-split) f32 partials that a second pass sums
@@ -51,20 +61,23 @@
 // N-contiguous one (dW = in^T G, the NeuS sweep's pbar = qbar W) by
 // element loads whose lanes fall on distinct banks. The f32 bound is
 // then 3 TF32 FLOPs per FLOP at 495 TFLOP/s (165 TFLOP/s of f32 work),
-// or the bytes. dx (M = S*M rows, N = fan-in, K = C) writes 4 bytes of
-// f32 per output against 2*K FLOPs: about 130 FLOP per byte, below the
-// 295 at which the bf16 tensor cores, and not device memory, are the
-// limit, so its tile leaves through shared memory in coalesced streaming
-// stores. dW reduces over S*M rows in fixed-order split partials.
-// The elementwise kernels (gstack, dual_act) and the f32 round trip of g
-// move ~(3 * 4 + 4 * 2) bytes per stacked element and are bound by
-// device memory; with the products on the tensor cores they take most of
-// the bf16 dual backward (folding them into the products as mlp_bwd.cu's
-// and sdf_mlp.cu's are is next: the coupling sum_a g_a z_a needs all S
-// streams of a row in one output tile). The epilogue and the prologue
-// cost the product no registers: the epilogue is a call of its own after
-// the accumulators are in shared memory, and the f32 nt product with it
-// keeps its mma depths in a loop (unrolled, ptxas spilled 4 bytes).
+// or the bytes. A plain dx (nt) writes 4 bytes of f32 per output
+// against 2*K FLOPs: about 130 FLOP per byte, below the 295 at which the
+// bf16 tensor cores, and not device memory, are the limit, so its tile
+// leaves through shared memory in coalesced streaming stores; with the
+// epilogue it writes 2 bytes of bf16 and reads S * 2 bytes of stash per
+// point and column instead. dW reduces over S*M rows in fixed-order split
+// partials. The folded work is elementwise and bound by device memory:
+// the epilogue's stash reads are prefetched into L2 at the block's start
+// (the product runs meanwhile), under f'' = 0 (ReLU, LeakyReLU) only the
+// value stream's; the prologue costs the product no extra pass over
+// shared memory (each thread transforms the S rows of the point it
+// copied itself). The epilogue and the prologue cost the product no
+// registers: the epilogue is a call of its own after the accumulators
+// are in shared memory, the stream count of the grouped products is a
+// template argument, and the f32 nt product with an epilogue and the f32
+// tn product with the dual prologue keep their mma depths in a loop
+// (unrolled, ptxas spilled 4 and 20 bytes).
 #include "mlp_tile.cuh"
 #include "tc_ops.cuh"
 
@@ -83,9 +96,11 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
 
 constexpr int kMaxStreams = 4;
 
+// the top layer's stacked cotangent from g = (gv [M, C], gj [K, M, C])
+// in T; the layers below get theirs from the dx product's epilogue
 template <typename T, int ACT>
 __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
-                              const float* __restrict__ g,
+                              const T* __restrict__ gv, const T* __restrict__ gj,
                               const T* __restrict__ z, T* __restrict__ gs,
                               float* __restrict__ db_part) {
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
@@ -101,28 +116,16 @@ __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
     float coupling = 0.f;
     float gt[kMaxStreams];
     for (int a = 1; a < S; ++a) {
-      gt[a] = g[a * plane + i];
-      coupling = fmaf(gt[a], ld(z, a * plane + i), coupling);
+      gt[a] = ld(gj, (a - 1) * plane + i);
+      if constexpr (!neddf::kZeroDeriv2<ACT>)
+        coupling = fmaf(gt[a], ld(z, a * plane + i), coupling);
     }
-    const float gv = g[i] * d1 + d2 * coupling;
-    db += gv;
-    st(gs, i, gv);
+    const float g0 = ld(gv, i) * d1 + d2 * coupling;
+    db += g0;
+    st(gs, i, g0);
     for (int a = 1; a < S; ++a) st(gs, a * plane + i, gt[a] * d1);
   }
   db_part[(size_t)blockIdx.x * C + c] = db;
-}
-
-template <typename T, int ACT>
-__global__ void dual_act_kernel(int S, int C, int M, const T* __restrict__ z,
-                                T* __restrict__ h) {
-  const size_t plane = (size_t)M * C;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < plane;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float f, d1;
-    neddf::act_fn<ACT>(ld(z, i), f, d1);
-    st(h, i, f);
-    for (int a = 1; a < S; ++a) st(h, a * plane + i, d1 * ld(z, a * plane + i));
-  }
 }
 
 // ---- the products on the tensor cores: bf16 operands by mma.sync
@@ -155,13 +158,27 @@ constexpr int kTcSmem = 2 * kTcStages * TcShape<bf16>::OP * (int)sizeof(bf16);
 static_assert(kTcSmem == 2 * kTcStages * TcShape<float>::OP * (int)sizeof(float), "stages");
 
 // one operand: element (outer o, inner i) at p[o * ld + i], the inner
-// side contiguous, copied `vec` elements at a time
+// side contiguous, copied `vec` elements at a time; in the products with
+// grouped rows (EPI kProDual / kEpiDual) stream a of outer row o is at
+// p[a * plane + o * ld + i]
 template <typename T>
 struct TcOperand {
   const T* p;
   long long ld;
+  long long plane;
   int vec;
 };
+
+// one copy of V elements from src (valid of them, zeros past) to s
+template <typename T, int V>
+__device__ __forceinline__ void tc_copy(T* s, const T* src, int valid) {
+  constexpr int BYTES = V * (int)sizeof(T);
+  if constexpr (BYTES < 4) {
+    *s = valid > 0 ? *src : neddf::from_f32<T>(0.f);
+  } else {
+    neddf::cp_async<BYTES>(neddf::smem_u32(s), src, (int)sizeof(T) * valid);
+  }
+}
 
 // the OUTER x INNER tile at (o0, i0) into shared s (row pitch P), zeros
 // past (olim, ilim); copies of V elements (cp.async from 4 bytes up)
@@ -169,31 +186,62 @@ template <typename T, int OUTER, int INNER, int P, int V>
 __device__ __forceinline__ void tc_copy_tile(T* s, const TcOperand<T>& op, int o0, int olim,
                                              int i0, int ilim, int tid) {
   constexpr int CPR = INNER / V;
-  constexpr int BYTES = V * (int)sizeof(T);
 #pragma unroll 1
   for (int idx = tid; idx < OUTER * CPR; idx += kTcThreads) {
     const int r = idx / CPR;
     const int c = (idx - r * CPR) * V;
     const int go = o0 + r, gi = i0 + c;
     const int valid = go < olim ? max(0, min(V, ilim - gi)) : 0;
-    const T* src = valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p;
-    if constexpr (BYTES < 4) {
-      s[r * P + c] = valid > 0 ? *src : neddf::from_f32<T>(0.f);
-    } else {
-      neddf::cp_async<BYTES>(neddf::smem_u32(s + r * P + c), src, (int)sizeof(T) * valid);
-    }
+    tc_copy<T, V>(s + r * P + c, valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p, valid);
   }
 }
 
-template <typename T, int OUTER, int INNER, int P>
+// the same tile with its OUTER rows grouped by point: S = 2^SL streams of
+// R = OUTER / S rows, tile row a * R + r holding row o0 + r of stream a
+// (zeros past olim in every stream). One thread copies the same columns
+// of one point in all S streams, so that it can transform them together
+// once its own copies have landed (tc_dual_tile). S is a template
+// argument: its shifts and trip counts cost the product no registers (a
+// run-time S spilled 24 bytes of the f32 tn product at 128 registers)
+template <typename T, int OUTER, int INNER, int P, int V, int SL>
+__device__ __forceinline__ void tc_copy_grouped(T* s, const TcOperand<T>& op, int o0, int olim,
+                                                int i0, int ilim, int tid) {
+  constexpr int CPR = INNER / V;
+  constexpr int R = OUTER >> SL;
+#pragma unroll 1
+  for (int idx = tid; idx < R * CPR; idx += kTcThreads) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * V;
+    const int go = o0 + r, gi = i0 + c;
+    const int valid = go < olim ? max(0, min(V, ilim - gi)) : 0;
+    const T* src = valid > 0 ? op.p + (size_t)go * op.ld + gi : op.p;
+    const long long step = valid > 0 ? op.plane : 0;
+#pragma unroll
+    for (int a = 0; a < (1 << SL); ++a)
+      tc_copy<T, V>(s + (a * R + r) * P + c, src + a * step, valid);
+  }
+}
+
+template <typename T, int OUTER, int INNER, int P, int SL, int V>
+__device__ __forceinline__ void tc_copy_by(T* s, const TcOperand<T>& op, int o0, int olim,
+                                           int i0, int ilim, int tid) {
+  if constexpr (SL > 0) {
+    tc_copy_grouped<T, OUTER, INNER, P, V, SL>(s, op, o0, olim, i0, ilim, tid);
+  } else {
+    tc_copy_tile<T, OUTER, INNER, P, V>(s, op, o0, olim, i0, ilim, tid);
+  }
+}
+
+// the tile at the operand's copy width; SL > 0: grouped by point
+template <typename T, int OUTER, int INNER, int P, int SL = 0>
 __device__ __forceinline__ void tc_load_tile(T* s, const TcOperand<T>& op, int o0, int olim,
                                              int i0, int ilim, int tid) {
   constexpr int E = (int)sizeof(T);
   switch (op.vec * E) {
-    case 16: tc_copy_tile<T, OUTER, INNER, P, 16 / E>(s, op, o0, olim, i0, ilim, tid); break;
-    case 8: tc_copy_tile<T, OUTER, INNER, P, 8 / E>(s, op, o0, olim, i0, ilim, tid); break;
-    case 4: tc_copy_tile<T, OUTER, INNER, P, 4 / E>(s, op, o0, olim, i0, ilim, tid); break;
-    default: tc_copy_tile<T, OUTER, INNER, P, 1>(s, op, o0, olim, i0, ilim, tid);
+    case 16: tc_copy_by<T, OUTER, INNER, P, SL, 16 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    case 8: tc_copy_by<T, OUTER, INNER, P, SL, 8 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    case 4: tc_copy_by<T, OUTER, INNER, P, SL, 4 / E>(s, op, o0, olim, i0, ilim, tid); break;
+    default: tc_copy_by<T, OUTER, INNER, P, SL, 1>(s, op, o0, olim, i0, ilim, tid);
   }
 }
 
@@ -204,37 +252,62 @@ __device__ __forceinline__ float act_f(float x) {
   return f;
 }
 
-// f over V elements in place, by vector loads and stores of V * sizeof(T)
-// bytes (the copy's own width: 16-byte lanes keep shared memory free of
-// bank conflicts), rounded to T as from_f32 rounds
-template <int ACT, int V>
-__device__ __forceinline__ void act_vec(float* e) {
+// V consecutive elements of shared memory as f32, and back rounded to T
+// as from_f32 rounds, by vector loads and stores of V * sizeof(T) bytes
+// (the copy's own width: 16-byte lanes keep shared memory free of bank
+// conflicts)
+template <int V>
+__device__ __forceinline__ void vec_load(const float* e, float (&x)[V]) {
   if constexpr (V == 4) {
-    float4 x = *reinterpret_cast<float4*>(e);
-    x = make_float4(act_f<ACT>(x.x), act_f<ACT>(x.y), act_f<ACT>(x.z), act_f<ACT>(x.w));
-    *reinterpret_cast<float4*>(e) = x;
+    const float4 v = *reinterpret_cast<const float4*>(e);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(e);
+    x[0] = v.x; x[1] = v.y;
   } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) e[j] = act_f<ACT>(e[j]);
+    x[0] = e[0];
   }
 }
-template <int ACT, int V>
-__device__ __forceinline__ void act_vec(__nv_bfloat16* e) {
+template <int V>
+__device__ __forceinline__ void vec_store(float* e, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(e) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(e) = make_float2(x[0], x[1]);
+  } else {
+    e[0] = x[0];
+  }
+}
+template <int V>
+__device__ __forceinline__ void vec_load(const __nv_bfloat16* e, float (&x)[V]) {
   if constexpr (V % 2 == 0) {
     uint32_t w[V / 2];
     if constexpr (V == 8) {
-      const uint4 x = *reinterpret_cast<const uint4*>(e);
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+      const uint4 v = *reinterpret_cast<const uint4*>(e);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
     } else if constexpr (V == 4) {
-      const uint2 x = *reinterpret_cast<const uint2*>(e);
-      w[0] = x.x; w[1] = x.y;
+      const uint2 v = *reinterpret_cast<const uint2*>(e);
+      w[0] = v.x; w[1] = v.y;
     } else {
       w[0] = *reinterpret_cast<const uint32_t*>(e);
     }
 #pragma unroll
     for (int k = 0; k < V / 2; ++k) {
       const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-      const __nv_bfloat162 h = __floats2bfloat162_rn(act_f<ACT>(f.x), act_f<ACT>(f.y));
+      x[2 * k] = f.x;
+      x[2 * k + 1] = f.y;
+    }
+  } else {
+    x[0] = __bfloat162float(e[0]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void vec_store(__nv_bfloat16* e, const float (&x)[V]) {
+  if constexpr (V % 2 == 0) {
+    uint32_t w[V / 2];
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
       w[k] = *reinterpret_cast<const uint32_t*>(&h);
     }
     if constexpr (V == 8) {
@@ -245,7 +318,7 @@ __device__ __forceinline__ void act_vec(__nv_bfloat16* e) {
       *reinterpret_cast<uint32_t*>(e) = w[0];
     }
   } else {
-    e[0] = __float2bfloat16_rn(act_f<ACT>(__bfloat162float(e[0])));
+    e[0] = __float2bfloat16_rn(x[0]);
   }
 }
 
@@ -259,18 +332,70 @@ __device__ __forceinline__ void tc_act_tile(T* s, int tid) {
 #pragma unroll 1
   for (int idx = tid; idx < OUTER * CPR; idx += kTcThreads) {
     const int r = idx / CPR;
-    act_vec<ACT, V>(s + r * P + (idx - r * CPR) * V);
+    T* e = s + r * P + (idx - r * CPR) * V;
+    float x[V];
+    vec_load<V>(e, x);
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = act_f<ACT>(x[j]);
+    vec_store<V>(e, x);
   }
 }
 
-template <typename T, int ACT, int OUTER, int INNER, int P>
+// the dual layer input in place over the elements of a grouped tile that
+// this thread copied with tc_copy_grouped (the same walk): the value row
+// z_v becomes f(z_v) and each tangent row z_a becomes f'(z_v) z_a, all
+// rounded to T as the plain version's input is; z_v is overwritten only
+// after f'(z_v) is in registers. Zero-filled points stay 0 (f(0) = 0).
+// f32 takes its 4-element copies in pairs (H): four f' of tanhExp live
+// beside the accumulators spilled 20 bytes of the f32 tn product
+template <typename T, int ACT, int OUTER, int INNER, int P, int V, int SL>
+__device__ __forceinline__ void tc_dual_tile(T* s, int tid) {
+  constexpr int CPR = INNER / V;
+  constexpr int R = OUTER >> SL;
+  constexpr int H = sizeof(T) == 4 && V > 2 ? 2 : V;
+#pragma unroll 1
+  for (int idx = tid; idx < R * CPR; idx += kTcThreads) {
+    const int r = idx / CPR;
+    T* e0 = s + r * P + (idx - r * CPR) * V;
+#pragma unroll
+    for (int h = 0; h < V; h += H) {
+      T* e = e0 + h;
+      float x[H], d1[H];
+      vec_load<H>(e, x);
+#pragma unroll
+      for (int j = 0; j < H; ++j) neddf::act_fn<ACT>(x[j], x[j], d1[j]);
+      vec_store<H>(e, x);
+#pragma unroll
+      for (int a = 1; a < (1 << SL); ++a) {
+        T* t = e + a * R * P;
+        vec_load<H>(t, x);
+#pragma unroll
+        for (int j = 0; j < H; ++j) x[j] *= d1[j];
+        vec_store<H>(t, x);
+      }
+    }
+  }
+}
+
+// the prologue's transform (tc_act_tile, or tc_dual_tile when grouped)
+template <typename T, int ACT, int OUTER, int INNER, int P, int SL, int V>
+__device__ __forceinline__ void tc_act_by(T* s, int tid) {
+  if constexpr (SL > 0) {
+    tc_dual_tile<T, ACT, OUTER, INNER, P, V, SL>(s, tid);
+  } else {
+    tc_act_tile<T, ACT, OUTER, INNER, P, V>(s, tid);
+  }
+}
+
+// ... at the copy width vec
+template <typename T, int ACT, int OUTER, int INNER, int P, int SL>
 __device__ __forceinline__ void tc_act_load(T* s, int vec, int tid) {
   constexpr int E = (int)sizeof(T);
   switch (vec * E) {
-    case 16: tc_act_tile<T, ACT, OUTER, INNER, P, 16 / E>(s, tid); break;
-    case 8: tc_act_tile<T, ACT, OUTER, INNER, P, 8 / E>(s, tid); break;
-    case 4: tc_act_tile<T, ACT, OUTER, INNER, P, 4 / E>(s, tid); break;
-    default: tc_act_tile<T, ACT, OUTER, INNER, P, 1>(s, tid);
+    case 16: tc_act_by<T, ACT, OUTER, INNER, P, SL, 16 / E>(s, tid); break;
+    case 8: tc_act_by<T, ACT, OUTER, INNER, P, SL, 8 / E>(s, tid); break;
+    case 4: tc_act_by<T, ACT, OUTER, INNER, P, SL, 4 / E>(s, tid); break;
+    default: tc_act_by<T, ACT, OUTER, INNER, P, SL, 1>(s, tid);
   }
 }
 
@@ -278,6 +403,10 @@ __device__ __forceinline__ void tc_act_load(T* s, int vec, int tid) {
 constexpr int kEpiNone = 0;  // f32 partials out
 constexpr int kProAct = 1;   // tn: operand A is f(A) (dW = f(z_{l-1})^T G)
 constexpr int kEpiAct = 2;   // nt / nn, one split: the elementwise epilogue below
+// the dual backward's, over rows grouped by point:
+constexpr int kProDual = 3;  // tn: A is the dual layer input of the stash (tc_dual_tile)
+constexpr int kEpiDual = 4;  // nt, one split: the stacked cotangent (tc_epilogue_dual)
+// (with the template argument SL: 2^SL streams)
 
 // the epilogue's side planes; columns [0, n_act) take the activation's
 // epilogue, [n_act, N) leave raw (f32) to `raw` [M, N - n_act]. mode
@@ -416,14 +545,112 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
   }
 }
 
+// the epilogue of a finished 128 x 128 tile whose rows are grouped by
+// point (kEpiDual: tile row a * P + r is point p0 + r of stream a, P =
+// 128 / S), once the kernel has put its accumulators in shared memory (a
+// call of its own, as tc_epilogue). With g the product (g_{l-1} = G_l W^T)
+// and z the stash z_{l-1} [S, M, N]:
+//     G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a,   G_a = g_a f'(z_v),
+// rounded to T into out [S, M, N]. Each thread takes 4 columns of a point
+// per pass (kU points, their S stash rows loaded together; only z_v's
+// where f'' = 0), reads the point's S rows of g from the staged tile and
+// sums G_v over its points; the 8 warps' sums are added in warp order
+// (one db partial per tile and column, the same on every run)
+template <typename T, int ACT, int SL>
+__device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi) {
+  const T* __restrict__ zp = epi.z;
+  T* __restrict__ out = epi.out;
+  float* __restrict__ db = epi.db;
+  constexpr bool kCouple = !neddf::kZeroDeriv2<ACT>;
+  constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
+  constexpr int kWarps = kTcThreads / 32;
+  constexpr int kU = 2;  // points per pass: their loads are in flight together
+  constexpr int S = 1 << SL, P = kTcBM >> SL;
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.y * P, n0 = blockIdx.x * kTcBN;
+  const size_t plane = (size_t)M * N;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const float* so = reinterpret_cast<const float*>(tc_smem);
+  float* red = reinterpret_cast<float*>(tc_smem) + kTcBM * kOP;  // [8 warps][kTcBN]
+  const int c = (tid & 31) * 4;  // this thread's 4 columns of the tile
+  const int gc = n0 + c;         // N % 4 == 0: all 4 columns or none
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int r0 = tid >> 5; r0 < P; r0 += kU * kWarps) {
+    float zv[kU][kMaxStreams][4];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int pt = p0 + r0 + u * kWarps;
+      const bool live = r0 + u * kWarps < P && pt < M && gc < N;
+      const size_t i = (size_t)pt * N + gc;
+#pragma unroll
+      for (int a = 0; a < kMaxStreams; ++a) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) zv[u][a][j] = 0.f;
+        if (live && a < S && (a == 0 || kCouple)) load4(zp + a * plane + i, zv[u][a]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = r0 + u * kWarps;
+      const int pt = p0 + r;
+      if (r >= P || pt >= M || gc >= N) continue;
+      const size_t i = (size_t)pt * N + gc;
+      float d1[4], d2[4], coupling[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float f;
+        neddf::act_fn3<ACT>(zv[u][0][j], f, d1[j], d2[j]);
+      }
+#pragma unroll
+      for (int a = 1; a < kMaxStreams; ++a) {
+        if (a >= S) break;
+        const float4 g4 = *reinterpret_cast<const float4*>(so + (a * P + r) * kOP + c);
+        const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+        float ga[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kCouple) coupling[j] = fmaf(g[j], zv[u][a][j], coupling[j]);
+          ga[j] = g[j] * d1[j];
+        }
+        store4(out + a * plane + i, ga);
+      }
+      const float4 g4 = *reinterpret_cast<const float4*>(so + r * kOP + c);
+      const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = kCouple ? g[j] * d1[j] + d2[j] * coupling[j] : g[j] * d1[j];
+        dsum[j] += v[j];
+      }
+      store4(out + i, v);
+    }
+  }
+  *reinterpret_cast<float4*>(red + (tid >> 5) * kTcBN + c) =
+      make_float4(dsum[0], dsum[1], dsum[2], dsum[3]);
+  __syncthreads();
+  if (tid < kTcBN && n0 + tid < N) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * kTcBN + tid];
+    db[(size_t)blockIdx.y * N + n0 + tid] = s;
+  }
+}
+
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
 // [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
 // with K contiguous (else [K, N], N contiguous). With A_K, A may come in
 // two K segments: columns k >= k_split from A2 (k_split a multiple of the
 // stage depth), so [qbar | cg] W runs as one product. EPI kProAct (tn)
 // applies f (ACT) to A as its stages land; kEpiAct (one split) hands the
-// finished tile to the epilogue (TcEpi) instead of writing it.
-template <typename T, bool A_K, bool B_K, int ACT, int EPI>
+// finished tile to the epilogue (TcEpi) instead of writing it. kProDual
+// (tn) and kEpiDual (nt) do the same for the dual backward over rows
+// grouped by point, S = 2^SL streams of M (nt) or K (tn) points each:
+// an output tile holds the S streams of 128 / S points (nt), a stage of
+// the reduction the S streams of BK / S points (tn, k_chunk a multiple
+// of BK / S), so the epilogue and the prologue see every stream of a
+// point in one tile.
+template <typename T, bool A_K, bool B_K, int ACT, int EPI, int SL>
 __global__ void __launch_bounds__(kTcThreads, 2)
     tc_gemm_kernel(int M, int N, int K, int k_chunk, const TcOperand<T> A,
                    const TcOperand<T> A2, int k_split, const TcOperand<T> B,
@@ -433,9 +660,15 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   constexpr bool kF32 = std::is_same_v<T, float>;
   // A in two K segments: only the nn epilogue (the sweep adjoint) takes them
   constexpr bool kTwoK = EPI == kEpiAct && A_K && !B_K;
-  // the f32 nt product with the epilogue keeps its mma depths in a loop
-  // (unrolled, ptxas spilled 4 bytes of it at 128 registers)
-  constexpr bool kRollK = kF32 && EPI == kEpiAct && B_K;
+  constexpr bool kEpi = EPI == kEpiAct || EPI == kEpiDual;
+  // rows grouped by point: the output rows (nt) or the reduction (tn)
+  constexpr bool kGroupM = EPI == kEpiDual;
+  constexpr bool kGroupK = EPI == kProDual;
+  static_assert((kGroupM || kGroupK) == (SL > 0), "streams only for the dual products");
+  // the f32 nt product with an epilogue and the f32 tn product with the
+  // dual prologue keep their mma depths in a loop (unrolled, ptxas spilled
+  // 4 and 20 bytes of them at 128 registers)
+  constexpr bool kRollK = kF32 && ((kEpi && B_K) || kGroupK);
   extern __shared__ __align__(128) unsigned char tc_smem[];
   T* sA = reinterpret_cast<T*>(tc_smem);
   T* sB = sA + kTcStages * OP;
@@ -445,13 +678,16 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int g = lane >> 2, tq = lane & 3;
   const int wm = (warp >> 2) * 64;  // 2 x 4 warps of 64 rows x 32 columns
   const int wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  // first output row (nt grouped: first point), and the reduction's
+  // advance per stage (tn grouped: points)
+  const int m0 = blockIdx.y * (kTcBM >> (kGroupM ? SL : 0)), n0 = blockIdx.x * kTcBN;
+  constexpr int kstep = BK >> (kGroupK ? SL : 0);
   const int kb = blockIdx.z * k_chunk;
   const int ke = min(K, kb + k_chunk);
-  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  const int nk = ke > kb ? (ke - kb + kstep - 1) / kstep : 0;
 
   auto load = [&](int t) {
-    const int k0 = kb + t * BK;
+    const int k0 = kb + t * kstep;
     T* a = sA + (t % kTcStages) * OP;
     T* b = sB + (t % kTcStages) * OP;
     if constexpr (kTwoK) {
@@ -461,28 +697,37 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, min(ke, k_split), tid);
       }
     } else if constexpr (A_K) {
-      tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, ke, tid);
+      tc_load_tile<T, kTcBM, BK, PK, SL>(a, A, m0, M, k0, ke, tid);
     } else {
-      tc_load_tile<T, BK, kTcBM, PMN>(a, A, k0, ke, m0, M, tid);
+      tc_load_tile<T, BK, kTcBM, PMN, SL>(a, A, k0, ke, m0, M, tid);
     }
     if constexpr (B_K) {
       tc_load_tile<T, kTcBN, BK, PK>(b, B, n0, N, k0, ke, tid);
     } else {
-      tc_load_tile<T, BK, kTcBN, PMN>(b, B, k0, ke, n0, N, tid);
+      tc_load_tile<T, BK, kTcBN, PMN, SL>(b, B, k0, ke, n0, N, tid);
     }
   };
 
-  if constexpr (EPI == kEpiAct) {
+  if constexpr (kEpi) {
     // the epilogue's side planes of this tile on their way to L2 while the
-    // product runs: its loads then wait on L2, not on device memory
+    // product runs: its loads then wait on L2, not on device memory (the
+    // dual epilogue's: the stash rows of its points, all S streams where
+    // f'' couples them, else the value stream's)
     constexpr int kLines = kTcBN * (int)sizeof(T) / 128;  // 128-byte lines per row
-    for (int i = tid; i < kTcBM * kLines; i += kTcThreads) {
-      const int gr = m0 + i / kLines;
+    constexpr int pts = kTcBM >> SL;  // rows (points) per stream
+    const int rows = kGroupM && neddf::kZeroDeriv2<ACT> ? pts : kTcBM;
+    for (int i = tid; i < rows * kLines; i += kTcThreads) {
+      const int r = i / kLines;
       const int gc = n0 + (i % kLines) * (128 / (int)sizeof(T));
+      const int gr = m0 + r % pts;
       if (gr >= M || gc >= epi.n_act) continue;
       const size_t at = (size_t)gr * epi.n_act + gc;
-      neddf::prefetch_l2(epi.z + at);
-      if (kF32 && epi.side != nullptr) neddf::prefetch_l2(epi.side + at);
+      if constexpr (kGroupM) {  // tile row r: stream r / pts
+        neddf::prefetch_l2(epi.z + (size_t)(r / pts) * M * epi.n_act + at);
+      } else {
+        neddf::prefetch_l2(epi.z + at);
+        if (kF32 && epi.side != nullptr) neddf::prefetch_l2(epi.side + at);
+      }
     }
   }
 
@@ -500,15 +745,17 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
   for (int t = 0; t < nk; ++t) {
     neddf::cp_async_wait<kTcStages - 2>();
-    if constexpr (EPI == kProAct) {
-      tc_act_load<T, ACT, BK, kTcBM, PMN>(sA + (t % kTcStages) * OP, A.vec, tid);
+    if constexpr (EPI == kProAct || kGroupK) {
+      tc_act_load<T, ACT, BK, kTcBM, PMN, SL>(sA + (t % kTcStages) * OP, A.vec, tid);
     }
     __syncthreads();  // stage t has landed; stage t-1 is free for refill
     if (t + kTcStages - 1 < nk) load(t + kTcStages - 1);
     neddf::cp_async_commit();
     const T* a = sA + (t % kTcStages) * OP;
     const T* b = sB + (t % kTcStages) * OP;
-    const int k_left = ke - (kb + t * BK);  // zeros past it: skip their mma
+    // zeros past it: skip their mma (grouped, the zeros of a ragged stage
+    // lie in every stream's group)
+    const int k_left = kGroupK ? BK : ke - (kb + t * BK);
     // one mma depth: the warp's B fragments first, then one A fragment at
     // a time (fewer live registers than all of A first)
     auto step = [&](int kk) {
@@ -585,7 +832,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
   neddf::cp_async_wait<0>();
 
-  if constexpr (EPI == kEpiAct) {
+  if constexpr (kEpi) {
     constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
     static_assert(kTcBM * kOP * (int)sizeof(float) + 8 * kTcBN * (int)sizeof(float) <= kTcSmem,
                   "staged tile and column sums");
@@ -604,7 +851,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           *reinterpret_cast<float2*>(so + (mi * 16 + 8 * hh) * kOP + ni * 8) =
               make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
     __syncthreads();
-    tc_epilogue<T, ACT>(M, N, epi);
+    if constexpr (kGroupM) {
+      tc_epilogue_dual<T, ACT, SL>(M, N, epi);
+    } else {
+      tc_epilogue<T, ACT>(M, N, epi);
+    }
     return;
   }
   float* o = out + (size_t)blockIdx.z * M * N;
@@ -658,11 +909,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       }
 }
 
-template <typename T, bool A_K, bool B_K, int ACT, int EPI>
+template <typename T, bool A_K, bool B_K, int ACT, int EPI, int SL = 0>
 cudaError_t launch_tc_gemm(dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
                            const TcOperand<T>& a, const TcOperand<T>& a2, int k_split,
                            const TcOperand<T>& b, float* out, const TcEpi<T>& epi) {
-  auto kernel = tc_gemm_kernel<T, A_K, B_K, ACT, EPI>;
+  auto kernel = tc_gemm_kernel<T, A_K, B_K, ACT, EPI, SL>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return err;
@@ -670,22 +921,36 @@ cudaError_t launch_tc_gemm(dim3 grid, cudaStream_t s, int M, int N, int K, int k
   return cudaGetLastError();
 }
 
-template <typename T, bool A_K, bool B_K, int EPI>
+template <typename T, bool A_K, bool B_K, int EPI, int SL = 0>
 cudaError_t launch_by_act(int act, dim3 grid, cudaStream_t s, int M, int N, int K, int k_chunk,
                           const TcOperand<T>& a, const TcOperand<T>& a2, int k_split,
                           const TcOperand<T>& b, float* out, const TcEpi<T>& epi) {
   return neddf::by_act(act, [&](auto a_) {
-    return launch_tc_gemm<T, A_K, B_K, decltype(a_)::value, EPI>(grid, s, M, N, K, k_chunk, a,
-                                                                 a2, k_split, b, out, epi);
+    return launch_tc_gemm<T, A_K, B_K, decltype(a_)::value, EPI, SL>(
+        grid, s, M, N, K, k_chunk, a, a2, k_split, b, out, epi);
   });
 }
 
+// the dual products (EPI kProDual / kEpiDual, A in one segment) by the
+// stream count 2^sl
+template <typename T, bool A_K, bool B_K, int EPI>
+cudaError_t launch_dual(int act, int sl, dim3 grid, cudaStream_t s, int M, int N, int K,
+                        int k_chunk, const TcOperand<T>& a, const TcOperand<T>& b, float* out,
+                        const TcEpi<T>& epi) {
+  if (sl == 1)
+    return launch_by_act<T, A_K, B_K, EPI, 1>(act, grid, s, M, N, K, k_chunk, a, a, K, b, out,
+                                              epi);
+  return launch_by_act<T, A_K, B_K, EPI, 2>(act, grid, s, M, N, K, k_chunk, a, a, K, b, out,
+                                            epi);
+}
+
 // the products; act < 0: no activation (f32 partials out); with act,
-// layout 1 (tn) takes the prologue and layouts 0 / 2 the epilogue `epi`
+// layout 1 (tn) takes the prologue and layouts 0 / 2 the epilogue `epi`;
+// streams > 1: the dual backward's products over rows grouped by point
 template <typename T>
-cudaError_t gemm_tc(int layout, int act, int M, int N, int K, const void* A, long long lda,
-                    int vec_a, const void* A2, long long lda2, int vec_a2, int k_split,
-                    const void* B, long long ldb, int vec_b, int splits, void* out,
+cudaError_t gemm_tc(int layout, int act, int streams, int M, int N, int K, const void* A,
+                    long long lda, int vec_a, const void* A2, long long lda2, int vec_a2,
+                    int k_split, const void* B, long long ldb, int vec_b, int splits, void* out,
                     const TcEpi<T>& epi, cudaStream_t s) {
   constexpr int E = (int)sizeof(T);
   constexpr int BK = TcShape<T>::BK;
@@ -693,36 +958,56 @@ cudaError_t gemm_tc(int layout, int act, int M, int N, int K, const void* A, lon
     return (vec != 1 && vec != 2 && vec != 4 && vec * E != 16) || ld < 1 || ld % vec != 0 ||
            reinterpret_cast<uintptr_t>(ptr) % (E * vec) != 0;
   };
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b)) return cudaErrorInvalidValue;
   if (A2 != nullptr &&
       (layout == 1 || misaligned(A2, lda2, vec_a2) || k_split <= 0 || k_split >= K ||
        k_split % BK != 0 || splits != 1))
     return cudaErrorInvalidValue;
   if (A2 == nullptr) k_split = K;
+  // S = streams = 2^sl planes [S, points, ld] of each grouped operand: the
+  // output rows of nt (M points), the reduction of tn (K points)
+  const int sl = streams == 1 ? 0 : streams == 2 ? 1 : streams == 4 ? 2 : -1;
+  if (sl < 0 || (sl > 0 && (act < 0 || A2 != nullptr || layout == 2)))
+    return cudaErrorInvalidValue;
+  const int kstep = layout == 1 ? BK >> sl : BK;
   int k_chunk = (K + splits - 1) / splits;
-  k_chunk = (k_chunk + BK - 1) / BK * BK;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  k_chunk = (k_chunk + kstep - 1) / kstep * kstep;
+  const int mstep = layout == 0 ? kTcBM >> sl : kTcBM;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + mstep - 1) / mstep, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  const TcOperand<T> a{static_cast<const T*>(A), lda, vec_a};
-  const TcOperand<T> a2{static_cast<const T*>(A2), lda2, vec_a2};
-  const TcOperand<T> b{static_cast<const T*>(B), ldb, vec_b};
+  const long long points = layout == 1 ? K : M;
+  const TcOperand<T> a{static_cast<const T*>(A), lda, points * lda, vec_a};
+  const TcOperand<T> a2{static_cast<const T*>(A2), lda2, 0, vec_a2};
+  const TcOperand<T> b{static_cast<const T*>(B), ldb, points * ldb, vec_b};
   float* o = static_cast<float*>(out);
+  if (sl > 0) {
+    if (layout == 1)
+      return launch_dual<T, false, false, kProDual>(act, sl, grid, s, M, N, K, k_chunk, a, b, o,
+                                                    epi);
+    // the stacked cotangent: one split, all N columns, no mode or side planes
+    if (epi.mode != 0 || splits != 1 || epi.n_act != N || N % 4 || epi.z == nullptr ||
+        epi.out == nullptr || epi.db == nullptr || epi.side != nullptr ||
+        epi.out2 != nullptr || epi.raw != nullptr || !aligned(epi.z) || !aligned(epi.out))
+      return cudaErrorInvalidValue;
+    return launch_dual<T, true, true, kEpiDual>(act, sl, grid, s, M, N, K, k_chunk, a, b, o,
+                                                epi);
+  }
   if (act < 0) {
     if (layout == 0)
-      return launch_tc_gemm<T, true, true, neddf::kTanhExp, kEpiNone>(grid, s, M, N, K, k_chunk,
-                                                                      a, a2, k_split, b, o, epi);
+      return launch_tc_gemm<T, true, true, neddf::kTanhExp, kEpiNone>(
+          grid, s, M, N, K, k_chunk, a, a2, k_split, b, o, epi);
     if (layout == 1)
       return launch_tc_gemm<T, false, false, neddf::kTanhExp, kEpiNone>(
           grid, s, M, N, K, k_chunk, a, a2, k_split, b, o, epi);
-    return launch_tc_gemm<T, true, false, neddf::kTanhExp, kEpiNone>(grid, s, M, N, K, k_chunk,
-                                                                     a, a2, k_split, b, o, epi);
+    return launch_tc_gemm<T, true, false, neddf::kTanhExp, kEpiNone>(
+        grid, s, M, N, K, k_chunk, a, a2, k_split, b, o, epi);
   }
   if (layout == 1)
     return launch_by_act<T, false, false, kProAct>(act, grid, s, M, N, K, k_chunk, a, a2,
                                                    k_split, b, o, epi);
   // the epilogue sees the finished sum: one split, and whole 4-column
   // groups of 16-byte-aligned side planes
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool adjoint = epi.mode == kModeAdjoint;
   if (splits != 1 || epi.z == nullptr || epi.n_act <= 0 || epi.n_act > N || epi.n_act % 4 ||
       (epi.mode != kModeDact && !adjoint) || (adjoint && act != neddf::kTanhExp) ||
@@ -776,46 +1061,32 @@ __global__ void sum_rows_kernel(int R, int C, int rows_per_group,
 
 }  // namespace
 
+// The top layer's stacked cotangent (gstack_kernel): gv [M, width], gj
+// [n_tan, M, width] and the stash z [n_tan + 1, M, width], all of dtype 1
+// bf16 or 0 f32, into gs (same shape and type as z) and the f32 db
+// partials [ceil(M / rows_per_block), width].
 extern "C" int neddf_dual_bwd_gstack(int dtype, int act, int n_tan, int width,
-                                     int M, int rows_per_block, const void* g,
-                                     const void* z, void* gs, void* db_part,
-                                     void* stream) {
+                                     int M, int rows_per_block, const void* gv,
+                                     const void* gj, const void* z, void* gs,
+                                     void* db_part, void* stream) {
   if (n_tan < 1 || n_tan + 1 > kMaxStreams || M <= 0 || rows_per_block <= 0)
     return (int)cudaErrorInvalidValue;
   const dim3 block(256);
   const dim3 grid((M + rows_per_block - 1) / rows_per_block, (width + 255) / 256);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* gf = static_cast<const float*>(g);
   float* dbp = static_cast<float*>(db_part);
   return (int)neddf::by_act(act, [&](auto a_) {
     constexpr int ACT = decltype(a_)::value;
     if (dtype == 1)
-      gstack_kernel<bf16, ACT><<<grid, block, 0, s>>>(n_tan + 1, width, M, rows_per_block, gf,
-                                                      static_cast<const bf16*>(z),
-                                                      static_cast<bf16*>(gs), dbp);
+      gstack_kernel<bf16, ACT><<<grid, block, 0, s>>>(
+          n_tan + 1, width, M, rows_per_block, static_cast<const bf16*>(gv),
+          static_cast<const bf16*>(gj), static_cast<const bf16*>(z), static_cast<bf16*>(gs),
+          dbp);
     else
-      gstack_kernel<float, ACT><<<grid, block, 0, s>>>(n_tan + 1, width, M, rows_per_block, gf,
-                                                       static_cast<const float*>(z),
-                                                       static_cast<float*>(gs), dbp);
-    return cudaGetLastError();
-  });
-}
-
-extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
-                              const void* z, void* h, void* stream) {
-  if (n_tan < 1 || M <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = grid_1d((size_t)M * width, 256);
-  return (int)neddf::by_act(act, [&](auto a_) {
-    constexpr int ACT = decltype(a_)::value;
-    if (dtype == 1)
-      dual_act_kernel<bf16, ACT><<<grid, 256, 0, s>>>(n_tan + 1, width, M,
-                                                      static_cast<const bf16*>(z),
-                                                      static_cast<bf16*>(h));
-    else
-      dual_act_kernel<float, ACT><<<grid, 256, 0, s>>>(n_tan + 1, width, M,
-                                                       static_cast<const float*>(z),
-                                                       static_cast<float*>(h));
+      gstack_kernel<float, ACT><<<grid, block, 0, s>>>(
+          n_tan + 1, width, M, rows_per_block, static_cast<const float*>(gv),
+          static_cast<const float*>(gj), static_cast<const float*>(z), static_cast<float*>(gs),
+          dbp);
     return cudaGetLastError();
   });
 }
@@ -840,12 +1111,20 @@ extern "C" int neddf_dual_act(int dtype, int act, int n_tan, int width, int M,
 // `raw` [M, N - n_act]. Null outputs are not written. A2 (nt / nn): the
 // columns k >= k_split of A come from A2 [M, K - k_split] (row stride
 // lda2, copy width vec_a2), k_split a multiple of the stage depth.
-extern "C" int neddf_gemm_tc(int dtype, int layout, int act, int mode, int M, int N, int K,
-                             const void* A, long long lda, int vec_a, const void* A2,
-                             long long lda2, int vec_a2, int k_split, const void* B,
-                             long long ldb, int vec_b, int splits, void* out, const void* z,
-                             const void* side, int n_act, void* out_t, void* out2, void* raw,
-                             void* db, void* stream) {
+// streams 2 or 4 (S; 1 otherwise): the dual backward's two products, act
+// >= 0, over S planes [S, points, ld] of each grouped operand. tn (dW =
+// h_in^T G over K points, split chunks a multiple of BK / S points): A is
+// the stash z_{l-1} [S, K, M], its prologue h_v = f(z_v), h_a = f'(z_v)
+// z_a; nt (M points, one split, n_act = N, out null, mode 0): out_t [S, M,
+// N] = T(G_{l-1}) (G_v = acc_v f'(z_v) + f''(z_v) sum_a acc_a z_a, G_a =
+// acc_a f'(z_v)) with z [S, M, N], db = per-tile column sums of G_v
+// ([ceil(M / (128 / S)), N]).
+extern "C" int neddf_gemm_tc(int dtype, int layout, int act, int mode, int streams, int M,
+                             int N, int K, const void* A, long long lda, int vec_a,
+                             const void* A2, long long lda2, int vec_a2, int k_split,
+                             const void* B, long long ldb, int vec_b, int splits, void* out,
+                             const void* z, const void* side, int n_act, void* out_t,
+                             void* out2, void* raw, void* db, void* stream) {
   if (dtype < 0 || dtype > 1 || layout < 0 || layout > 2 || M <= 0 || N <= 0 || K <= 0 ||
       splits < 1 || splits > 65535 || (act < 0 || layout == 1) != (out != nullptr) ||
       (act < 0 && (A2 != nullptr || z != nullptr)))
@@ -858,13 +1137,13 @@ extern "C" int neddf_gemm_tc(int dtype, int layout, int act, int mode, int M, in
   if (dtype == 1) {
     const TcEpi<bf16> e{static_cast<const bf16*>(z), sd, static_cast<bf16*>(out_t), o2, rw, d,
                         n_act, mode};
-    return (int)gemm_tc<bf16>(layout, act, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B,
-                              ldb, vec_b, splits, out, e, s);
+    return (int)gemm_tc<bf16>(layout, act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2,
+                              k_split, B, ldb, vec_b, splits, out, e, s);
   }
   const TcEpi<float> e{static_cast<const float*>(z), sd, static_cast<float*>(out_t), o2, rw, d,
                        n_act, mode};
-  return (int)gemm_tc<float>(layout, act, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B,
-                             ldb, vec_b, splits, out, e, s);
+  return (int)gemm_tc<float>(layout, act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2,
+                             k_split, B, ldb, vec_b, splits, out, e, s);
 }
 
 // out [C] = the sum over the R rows of parts [R, C] in a fixed order: the

@@ -415,6 +415,7 @@ _TC_MAX_SPLITS = 64
 _TC_DEPTH = {2: 64, 4: 32}
 _TC_LAYOUTS = {"nt": 0, "tn": 1, "nn": 2}
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
+_STREAMS = (1, 2, 4)  # S of the products' rows grouped by point (1: not grouped)
 
 
 def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
@@ -431,7 +432,7 @@ def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
 
 
 def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
-            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2) -> dict:
+            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2, streams: int = 1) -> dict:
     """How the tensor-core product takes ``sum_k A(m, k) B(k, n)`` with
     ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) = b[k*sbk + n*sbn]``, for
     operands of ``itemsize`` bytes (2: bf16, 4: f32 by the 3xTF32 split).
@@ -440,8 +441,12 @@ def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
     and N contiguous; ``nn``: K contiguous in A, N in B), each operand's
     row stride and copy width from its byte address, and the split of K
     into fixed-order partials with the rows each split covers (a
-    multiple of the kernel's stage depth). Raises ValueError for any
-    other layout and for a pointer off its element size.
+    multiple of the kernel's stage depth). With ``streams`` S > 1 (the
+    dual backward's tn product over rows grouped by point) K counts
+    points of S rows each: the splits are reckoned from S * k rows and
+    cover a multiple of the points of one stage (depth / S). Raises
+    ValueError for any other layout and for a pointer off its element
+    size.
     """
     if sak == 1 and sbk == 1:
         layout, lda, ldb = "nt", sam, sbn
@@ -454,9 +459,11 @@ def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
     if itemsize not in _TC_DEPTH:
         raise ValueError(f"tensor-core product: {itemsize}-byte operands")
     lda, ldb = max(int(lda), 1), max(int(ldb), 1)
-    splits = max(1, min(_TC_MAX_SPLITS, -(-k // _TC_ROWS_PER_SPLIT)))
+    if streams not in _STREAMS:
+        raise ValueError(f"tensor-core product: {streams} streams")
+    splits = max(1, min(_TC_MAX_SPLITS, -(-streams * k // _TC_ROWS_PER_SPLIT)))
     per_split = -(-k // splits)
-    depth = _TC_DEPTH[itemsize]
+    depth = _TC_DEPTH[itemsize] // streams
     k_chunk = -(-per_split // depth) * depth
     return {"layout": layout, "lda": lda, "ldb": ldb,
             "vec_a": _vec_width(a_ptr, lda, itemsize),
@@ -515,10 +522,26 @@ _EPI_ROWS = 128
 _SUM_GROUP_ROWS = 64
 
 # launches of the elementwise kernels that the dual backward runs beside
-# its products (gstack, dual_act), and of the parallel db sum of every
-# backward (db_sum, two kernels per call); kernels/mlp.py and
-# kernels/sdf_mlp.py count their own top-layer passes
+# its products: gstack, the top layer's stacked cotangent (one per call);
+# dual_act, the layer inputs' pass that the dW products' prologue took
+# over (none since; the phases of chip_smoke.py that hold the launches
+# check that it stays 0); and the parallel db sum of every backward
+# (db_sum, two kernels per call). kernels/mlp.py and kernels/sdf_mlp.py
+# count their own top-layer passes
 PASS_LAUNCHES = {"gstack": 0, "dual_act": 0, "db_sum": 0}
+
+
+def grouped_rows(streams: int, points: int, per: int) -> Tensor:
+    """The stream-grouped row map of the dual backward's products: the
+    rows of stacked planes ``[streams * points]`` (plane-major) in the
+    order a tile (nt: ``per`` = 128 / S points) or a reduction stage
+    (tn: ``per`` = depth / S) takes them, ``[groups, streams * per]``:
+    in group t, row ``a * per + r`` is row ``a * points + t * per + r``,
+    or -1 past the last point (a ragged last group)."""
+    groups = -(-points // per)
+    pt = torch.arange(groups * per).view(groups, 1, per)
+    rows = torch.arange(streams).view(1, streams, 1) * points + pt
+    return torch.where(pt < points, rows, -1).view(groups, streams * per)
 
 
 def sum_rows_plain(parts: Tensor) -> Tensor:
@@ -567,11 +590,11 @@ class Products:
     def _empty(self, shape, dtype=torch.float32) -> Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device)
 
-    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn) -> dict:
+    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn, streams=1) -> dict:
         if a.dtype != self.dtype or b.dtype != self.dtype:
             raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
         return tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
-                       a.element_size())
+                       a.element_size(), streams)
 
     def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
         """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
@@ -581,7 +604,7 @@ class Products:
         out = self._empty((m, n))
         parts = out if splits == 1 else self._empty((splits, m, n))
         _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS[plan["layout"]], _NO_ACT, 0, m, n, k, a.data_ptr(),
+            self.dt, _TC_LAYOUTS[plan["layout"]], _NO_ACT, 0, 1, m, n, k, a.data_ptr(),
             plan["lda"], plan["vec_a"], None, 0, 0, 0, b.data_ptr(), plan["ldb"],
             plan["vec_b"], splits, parts.data_ptr(), None, None, 0, None, None, None, None,
             self.stream), "backward product")
@@ -636,7 +659,7 @@ class Products:
         out = self._empty((m, n))
         parts = out if splits == 1 else self._empty((splits, m, n))
         _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, m, n, r, z.data_ptr(),
+            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, 1, m, n, r, z.data_ptr(),
             plan["lda"], plan["vec_a"], None, 0, 0, 0, g.data_ptr(), plan["ldb"], plan["vec_b"],
             splits, parts.data_ptr(), None, None, 0, None, None, None, None, self.stream),
             "backward dW (activation prologue)")
@@ -665,7 +688,7 @@ class Products:
                "db": self._empty((-(-r // _EPI_ROWS), n_act)) if db else None}
         ptr = {key: None if t is None else t.data_ptr() for key, t in res.items()}
         _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS[layout], _ACT_CODES[act_name], mode, r, n, k, a.data_ptr(),
+            self.dt, _TC_LAYOUTS[layout], _ACT_CODES[act_name], mode, 1, r, n, k, a.data_ptr(),
             plan["lda"], plan["vec_a"], None if a2 is None else a2.data_ptr(),
             0 if a2 is None else a2.stride(0), vec_a2, a.shape[1], b.data_ptr(), plan["ldb"],
             plan["vec_b"], 1, None, z.data_ptr(), None if side is None else side.data_ptr(),
@@ -766,6 +789,174 @@ class ProductsPlain:
         return qbar, pbar * q * ddf(zf)
 
 
+class DualProducts(Products):
+    """``Products`` and the dual backward's own launches over S = K+1
+    stacked streams [S, M, C]: the top layer's stacked cotangent
+    (``gstack``, an elementwise kernel), and the two products of every
+    layer below it over rows grouped by point (``grouped_rows``), dx with
+    the next layer's stacked cotangent as its epilogue (``nt_gstack``)
+    and dW with the layer input as its prologue (``tn_dual_act``)."""
+
+    def gstack(self, gv: Tensor, gj: Tensor, z: Tensor, act_name: str):
+        """The top layer's (T(G) [S, M, C], db [C] f32) from the output
+        cotangents gv [M, C], gj [K, M, C] and the stash z [S, M, C], all
+        in T: G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a, G_a = g_a
+        f'(z_v); db the column sums of G_v."""
+        s, m, c = z.shape
+        gs = self._empty((s, m, c), self.dtype)
+        parts = self._empty((-(-m // _DB_ROWS), c))
+        _build.check(self.lib.neddf_dual_bwd_gstack(
+            self.dt, _ACT_CODES[act_name], s - 1, c, m, _DB_ROWS, gv.data_ptr(), gj.data_ptr(),
+            z.data_ptr(), gs.data_ptr(), parts.data_ptr(), self.stream), "dual backward gstack")
+        PASS_LAUNCHES["gstack"] += 1
+        return gs, self.sum_rows(parts)
+
+    def nt_gstack(self, gs: Tensor, w_rows: Tensor, z: Tensor, act_name: str):
+        """g = gs w_rows^T over the S planes of gs [S, M, C] (T) and w_rows
+        [n, C] (T), and in its epilogue the stacked cotangent of the layer
+        below from its stash z [S, M, n]: returns (T(G) [S, M, n], the
+        column sums of G_v [n] f32), g never stored."""
+        s, m, c = gs.shape
+        n = w_rows.shape[0]
+        plan = self._plan(m, n, c, gs, c, 1, w_rows, 1, w_rows.stride(0))
+        if plan["splits"] != 1:
+            raise ValueError(f"an epilogue needs the whole sum in one split ({c} rows)")
+        out = self._empty((s, m, n), self.dtype)
+        parts = self._empty((-(-m // (_EPI_ROWS // s)), n))
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS["nt"], _ACT_CODES[act_name], 0, s, m, n, c,
+            gs.data_ptr(), plan["lda"], plan["vec_a"], None, 0, 0, 0, w_rows.data_ptr(),
+            plan["ldb"], plan["vec_b"], 1, None, z.data_ptr(), None, n, out.data_ptr(), None,
+            None, parts.data_ptr(), self.stream), "dual backward dx (stacked cotangent epilogue)")
+        self._count()
+        Products.epilogue_launches += 1
+        return out, self.sum_rows(parts)
+
+    def tn_dual_act(self, z: Tensor, gs: Tensor, act_name: str) -> Tensor:
+        """dW = h_in^T gs over the S * M rows -> [m, n] f32, with the layer
+        input h_in = (f(z_v), f'(z_v) z_a) of the stash z [S, M, m] (T)
+        formed, and rounded to T, as the product's prologue; gs [S, M, n]."""
+        s, pts, m = z.shape
+        n = gs.shape[2]
+        plan = self._plan(m, n, pts, z, 1, m, gs, n, 1, streams=s)
+        splits = plan["splits"]
+        out = self._empty((m, n))
+        parts = out if splits == 1 else self._empty((splits, m, n))
+        _build.check(self.lib.neddf_gemm_tc(
+            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, s, m, n, pts, z.data_ptr(),
+            plan["lda"], plan["vec_a"], None, 0, 0, 0, gs.data_ptr(), plan["ldb"],
+            plan["vec_b"], splits, parts.data_ptr(), None, None, 0, None, None, None, None,
+            self.stream), "dual backward dW (layer input prologue)")
+        self._count()
+        Products.prologue_launches += 1
+        if splits > 1:
+            self.sum_splits(parts, out)
+        return out
+
+
+class DualProductsPlain(ProductsPlain):
+    """The plain version of ``DualProducts``: the same methods in PyTorch,
+    with the grouped tile's bookkeeping (the reduction in grouped stages
+    and splits, the db partials per 64-row block or per tile, each summed
+    as ``sum_rows`` sums them) so that ``dual_mlp_seg_bwd_route`` runs the
+    card's call sequence on the CPU. The stacked cotangent is formed as
+    ``dual_mlp_seg_bwd_plain`` forms it, from the tangent stash only
+    where f'' is not zero."""
+
+    def _gstack(self, g: Tensor, z: Tensor, act_name: str, rows: int):
+        _, df, ddf = ACTIVATION_TRIPLES[act_name]
+        zf = z.float()
+        d1 = df(zf[0])
+        gv = g[0] * d1
+        if act_name not in SECOND_DERIVATIVE_ZERO:
+            gv = gv + ddf(zf[0]) * torch.sum(g[1:] * zf[1:], dim=0)
+        gs = torch.cat([gv[None], g[1:] * d1], dim=0).to(self.dtype)
+        m, c = gv.shape
+        parts = torch.zeros((-(-m // rows) * rows, c), dtype=torch.float32, device=gv.device)
+        parts[:m] = gv
+        return gs, sum_rows_plain(parts.view(-1, rows, c).sum(dim=1))
+
+    def gstack(self, gv, gj, z, act_name):
+        self.planes.append("gstack")
+        return self._gstack(torch.cat([gv[None], gj], dim=0).float(), z, act_name, _DB_ROWS)
+
+    def nt_gstack(self, gs, w_rows, z, act_name):
+        self.planes.append("gs")
+        return self._gstack(self.nt(gs, w_rows), z, act_name, _EPI_ROWS // gs.shape[0])
+
+    def tn_dual_act(self, z, gs, act_name):
+        f, df, _ = ACTIVATION_TRIPLES[act_name]
+        s, pts, m = z.shape
+        n = gs.shape[2]
+        plan = tc_plan(m, n, pts, 1, m, n, 1, itemsize=z.element_size(), streams=s)
+        h = _dual_act(z.float(), f, df).to(self.dtype).reshape(s * pts, m)
+        g = gs.reshape(s * pts, n)
+        per = plan["k_chunk"] // (_TC_DEPTH[z.element_size()] // s)  # stages per split
+        stages = grouped_rows(s, pts, _TC_DEPTH[z.element_size()] // s)
+        out = torch.zeros((m, n), dtype=torch.float32, device=z.device)
+        for split in range(plan["splits"]):
+            rows = stages[split * per : (split + 1) * per].reshape(-1)
+            rows = rows[rows >= 0]
+            out = out + self.tn(h[rows], g[rows])
+        return out
+
+
+def dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj, k):
+    """The kernels' walk of the dual backward over the launcher ``k``
+    (``DualProducts`` on the card, ``DualProductsPlain`` in the CPU
+    tests), as ``dual_mlp_seg_bwd_plain`` computes it: the top layer's
+    stacked cotangent G by its own kernel (``gstack``); then per layer l >
+    0, in reverse, dW_l = h_in^T G with h_in = (f(z_v), f'(z_v) z_a) of
+    the stash z_{l-1} as the tn product's prologue (``tn_dual_act``), and
+    G W_l^T with the epilogue G_{l-1} and its db (``nt_gstack``); a
+    post-skip layer's seg0 rows of W take plain products (their dx is raw:
+    it joins layer 0's first segment), and layer 0's segments too."""
+    dtype = vs[0].dtype
+    n_tan = gj.shape[0]
+    s = n_tan + 1
+    m, width = gv.shape
+    seg_j = _seg_js(js, has_j)
+    c0 = vs[0].shape[1]
+    n_layers = len(weights)
+    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dvs: List[Tensor] = []
+    djs: List[Tensor] = []
+    gs, dbs[-1] = k.gstack(gv, gj, pres[-1], act_name)
+    g_skip = None
+    for li in reversed(range(n_layers)):
+        w = weights[li]
+        flat_g = gs.view(s * m, gs.shape[2])
+        if li == 0:
+            blocks, off = [], 0
+            for i, (v, j) in enumerate(zip(vs, seg_j)):
+                wi = v.shape[1]
+                rows = w[off : off + wi]
+                off += wi
+                if has_j[i]:
+                    d_in = k.nt(flat_g, rows)
+                    if i == 0 and g_skip is not None:
+                        d_in += g_skip
+                    d_in = d_in.view(s, m, wi).to(dtype)
+                    dvs.append(d_in[0])
+                    djs.append(d_in[1:])
+                    blocks.append(k.tn(torch.cat([v[None], j], dim=0).view(s * m, wi), flat_g))
+                else:
+                    dvs.append(k.nt(gs[0], rows).to(dtype))
+                    blocks.append(k.tn(v, gs[0]))
+            dws[0] = torch.cat(blocks, dim=0)
+            break
+        dws[li] = k.tn_dual_act(pres[li - 1], gs, act_name)
+        if layout[li]:
+            skip = k.nt(flat_g, w[:c0])
+            g_skip = skip if g_skip is None else g_skip + skip
+            stack0 = _stack(vs[0], seg_j[0], n_tan).view(s * m, c0)
+            dws[li] = torch.cat([k.tn(stack0, flat_g), dws[li]], dim=0)
+            w = w[c0:]
+        gs, dbs[li - 1] = k.nt_gstack(gs, w, pres[li - 1], act_name)
+    return dvs, djs, dws, dbs
+
+
 def dual_mlp_seg_bwd(
     vs: Sequence[Tensor],
     js: Sequence[Tensor],
@@ -777,16 +968,19 @@ def dual_mlp_seg_bwd(
     gv: Tensor,
     gj: Tensor,
 ):
-    """Dual-MLP backward: the CUDA kernels for CUDA tensors, the plain
-    version for CPU tensors (see ``dual_mlp_seg_bwd_plain``).
+    """Dual-MLP backward: the CUDA kernels for CUDA tensors
+    (``dual_mlp_seg_bwd_route`` over ``DualProducts``), the plain version
+    for CPU tensors (see ``dual_mlp_seg_bwd_plain``).
 
-    Per layer, in reverse: ``csrc/dual_mlp_bwd.cu`` forms the stacked
-    cotangent of the pre-activation (with the f'' coupling) and the
-    per-block db partials, recomputes the layer input from the stash,
-    and runs dx = g W^T and dW = h_in^T g as f32-accumulating products on
-    the tensor cores (f32 by the 3xTF32 split); dW and db are split into a
-    fixed number of partials summed in a fixed order, so two runs give
-    bitwise-equal results.
+    The top layer's stacked cotangent (with the f'' coupling) comes from
+    its own kernel; below it, ``csrc/dual_mlp_bwd.cu`` folds each layer's
+    elementwise work into its two f32-accumulating products on the tensor
+    cores (f32 by the 3xTF32 split), whose rows are grouped by point so
+    that a tile holds every stream of its points: dW = h_in^T G forms the
+    layer input from the stash as its prologue, and dx = G W^T leaves as
+    the next layer's stacked cotangent and its db partials through its
+    epilogue. dW and db are split into a fixed number of partials summed
+    in a fixed order, so two runs give bitwise-equal results.
     """
     device = vs[0].device
     if device.type == "cpu":
@@ -805,68 +999,11 @@ def dual_mlp_seg_bwd(
     if tuple(gj.shape) != (n_tan, m, width) or any(
             tuple(p.shape) != (s, m, width) for p in pres) or len(pres) != len(weights):
         raise ValueError("dual_mlp_seg_bwd: stash/cotangent shapes")
-    seg_j = _seg_js(js, has_j)
-    widths = [v.shape[1] for v in vs]
-    c0 = widths[0]
-    k = Products(dtype, device)
-    act = _ACT_CODES[act_name]
-    n_db = -(-m // _DB_ROWS)
-
     with torch.cuda.device(device):
-        g = torch.cat([gv[None], gj], dim=0).float()
-        g_skip = None
-        stack0 = None
-        dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
-        dbs: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
-        dvs: List[Tensor] = []
-        djs: List[Tensor] = []
-        for li in reversed(range(len(weights))):
-            w = weights[li]
-            gs = torch.empty((s, m, width), dtype=dtype, device=device)
-            db_parts = torch.empty((n_db, width), dtype=torch.float32, device=device)
-            _build.check(k.lib.neddf_dual_bwd_gstack(
-                k.dt, act, n_tan, width, m, _DB_ROWS, g.data_ptr(), pres[li].data_ptr(),
-                gs.data_ptr(), db_parts.data_ptr(), k.stream), "dual_mlp_seg_bwd gstack")
-            PASS_LAUNCHES["gstack"] += 1
-            dbs[li] = k.sum_rows(db_parts)
-            flat_g = gs.view(s * m, width)
-            if li == 0:
-                blocks, off = [], 0
-                for i, (v, j, wi) in enumerate(zip(vs, seg_j, widths)):
-                    rows = w[off : off + wi]
-                    off += wi
-                    if has_j[i]:
-                        d_in = k.nt(flat_g, rows)
-                        if i == 0 and g_skip is not None:
-                            d_in += g_skip
-                        d_in = d_in.view(s, m, wi).to(dtype)
-                        dvs.append(d_in[0])
-                        djs.append(d_in[1:])
-                        seg = torch.cat([v[None], j], dim=0).view(s * m, wi)
-                        blocks.append(k.tn(seg, flat_g))
-                    else:
-                        dvs.append(k.nt(gs[0], rows).to(dtype))
-                        blocks.append(k.tn(v, gs[0]))
-                dws[0] = torch.cat(blocks, dim=0)
-                continue
-            h_in = torch.empty((s, m, width), dtype=dtype, device=device)
-            _build.check(k.lib.neddf_dual_act(
-                k.dt, act, n_tan, width, m, pres[li - 1].data_ptr(), h_in.data_ptr(),
-                k.stream), "dual_mlp_seg_bwd act")
-            PASS_LAUNCHES["dual_act"] += 1
-            flat_h = h_in.view(s * m, width)
-            if layout[li]:
-                if stack0 is None:
-                    stack0 = _stack(vs[0], seg_j[0], n_tan).view(s * m, c0)
-                skip = k.nt(flat_g, w[:c0])
-                g_skip = skip if g_skip is None else g_skip + skip
-                g = k.nt(flat_g, w[c0:]).view(s, m, width)
-                dws[li] = torch.cat([k.tn(stack0, flat_g), k.tn(flat_h, flat_g)], dim=0)
-            else:
-                g = k.nt(flat_g, w).view(s, m, width)
-                dws[li] = k.tn(flat_h, flat_g)
+        out = dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj,
+                                     DualProducts(dtype, device))
     dual_mlp_seg_bwd.launches += 1
-    return dvs, djs, dws, dbs
+    return out
 
 
 dual_mlp_seg_bwd.launches = 0

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 tc_accuracy.py [--tree DIR] [--out FILE] [--params P ...]
                            [--batches N ...] [--seeds S ...] [--f32] [--passes]
+                           [--train FAMILY ...]
 
 ``--tree DIR`` imports ``neddf_tpu_torch`` from DIR instead of this
 checkout (for instance an unpacked ``git archive`` of another commit),
@@ -43,14 +44,25 @@ its stash and of its backward, and of ``sdf_mlp`` forward and backward
 other side of f'(0) from the all-plain pass.
 
 With ``--passes`` only the backwards of ``sdf_mlp`` (ReLU) and of the NeuS
-colour trunk (f32) at the NeuS step's 265,216 rows and of the NeRF trunk
-(bf16) at its fine pass's 198,656 (``passes``): each route's median
-CUDA-event ms, and by ``torch.profiler`` over three calls every kernel it
-launches (the products by layout and by what they fold in, and each
-elementwise pass) with its launches and device ms per call and, for the
-elementwise passes, the bytes it must move; and the db sum at the NeuS
-fine pass (1,552 tile partials of 256 columns): one-block
+colour trunk (f32) at the NeuS step's 265,216 rows, of the NeRF trunk
+(bf16) at its fine pass's 198,656 and the dual backward of NeDDF's fine
+pass (bf16, 99,328 rows: the K=3 trunk of 7 layers and the K=1 colour
+trunk of 3 layers over four segments, tanhExp) (``passes``): each
+route's median CUDA-event ms, and by ``torch.profiler`` over three calls
+every kernel it launches (the products by layout and by what they fold
+in, and each elementwise pass) with its launches and device ms per call
+and, for the elementwise passes, the bytes it must move; and the db sum
+at the NeuS fine pass (1,552 tile partials of 256 columns): one-block
 ``neddf_sum_splits`` against ``neddf_sum_rows`` where the tree has it.
+
+With ``--train FAMILY ...`` (neddf, nerf, neus) only a 200-step run of
+each configuration through this tree's ``scripts/run.py`` (NeDDF: the
+default config of ``chip_smoke.py`` phase 8; NeRF and NeuS: phase 11's)
+(``train``): ms/step over steps 100-199, rays/s, peak device memory, and
+by ``torch.profiler`` over five more steps the device time per step, its
+busy share of the traced wall and the kernels by device time
+(``chiprun_out/chip_smoke/tc_accuracy_profile_FAMILY_TREE.txt``, TREE the
+name of the tree's directory).
 
 With ``--neus-run kernels|plain [--seed N]`` only the NeuS
 configuration's 300-step run of ``chip_smoke.py`` phase 11
@@ -276,6 +288,17 @@ def measure_f32(torch, smoke, dev) -> dict:
 PASS_PLANES = {
     "sweep_p_kernel": 3, "adjoint_kernel": 5, "zbar_kernel": 4, "sdf_top_kernel": None,
     "gpre_kernel": None, "act_kernel": None, "sum_splits_kernel": 0, "sum_rows_kernel": 0,
+    "gstack_kernel": None, "dual_act_kernel": None,
+}
+# NeDDF's fine pass: rows, and the dual backward's configurations (segment
+# widths, tangent segments, K, fan-ins, post-skip flags)
+M_NEDDF_FINE = 512 * 194
+NEDDF_DUAL = {
+    "dual_mlp_seg_bwd_trunk": ((60,), (True,), 3, [60] + [316 if li == 5 else 256
+                                                        for li in range(1, 7)],
+                               tuple(li == 5 for li in range(7))),
+    "dual_mlp_seg_bwd_color": ((60, 24, 3, 256), (True, False, False, True), 1,
+                               [343, 256, 256], (False,) * 3),
 }
 
 
@@ -308,6 +331,23 @@ def measure_passes(torch, smoke, dev) -> dict:
         routes[name] = (rows, 4 if dtype == torch.float32 else 2, list(outs),
                         (lambda vs=vs, lw=lw, layout=layout, lp=lp, g=g:
                          mlp.mlp_seg_bwd(vs, lw, layout, "ReLU", lp, g)))
+    for name, (widths, has_j, k, fans, layout) in NEDDF_DUAL.items():
+        rows = M_NEDDF_FINE
+        bf = torch.bfloat16
+        vs = [(torch.rand((rows, w), generator=rand, device=dev) * 2 - 1).to(bf) for w in widths]
+        js = [(torch.rand((k, rows, w), generator=rand, device=dev) * 0.2 - 0.1).to(bf)
+              for w, h in zip(widths, has_j) if h]
+        lw = [((torch.rand((f, 256), generator=rand, device=dev) * 2 - 1) * f ** -0.5).to(bf)
+              for f in fans]
+        lb = [torch.zeros(256, device=dev) for _ in fans]
+        _, _, lp = dm.dual_mlp_seg(vs, js, lw, lb, layout, "tanhExp", has_j, k, stash=True)
+        gv = (torch.rand((rows, 256), generator=rand, device=dev) * 0.02 - 0.01).to(bf)
+        gj = (torch.rand((k, rows, 256), generator=rand, device=dev) * 0.02 - 0.01).to(bf)
+        keep += [vs, js, lw, lp, gv, gj]
+        routes[name] = (rows, 2, (k + 1, len(fans)),
+                        (lambda vs=vs, js=js, lw=lw, layout=layout, has_j=has_j, lp=lp, gv=gv,
+                         gj=gj: dm.dual_mlp_seg_bwd(vs, js, lw, layout, "tanhExp", has_j, lp,
+                                                    gv, gj)))
     for name, (rows, t, outs, fn) in routes.items():
         kernels = smoke.profile_calls(torch, fn, calls=3)[0]
         for key, r in kernels.items():
@@ -315,7 +355,12 @@ def measure_passes(torch, smoke, dev) -> dict:
                     "sum_splits_kernel", "sum_rows_kernel"):
                 continue
             n = round(r["launches"])
-            if key == "gpre_kernel":  # g f32 in, z and gs in T: every layer, or the top one
+            if key == "gstack_kernel":  # g (f32 every layer, T at the top only), z and gs in T
+                streams, layers = outs
+                nbytes = (4 + 2 * t if n == layers else 3 * t) * streams * rows * 256 * n
+            elif key == "dual_act_kernel":  # z in, h out, in T, every stream
+                nbytes = 2 * t * outs[0] * rows * 256 * n
+            elif key == "gpre_kernel":  # g f32 in, z and gs in T: every layer, or the top one
                 cols = sum(outs) if n == len(outs) else outs[-1] * n
                 nbytes = (4 + 2 * t) * rows * cols
             elif key == "act_kernel":  # z in, h out, in T (layers 1..L-1's inputs)
@@ -355,6 +400,28 @@ def measure_passes(torch, smoke, dev) -> dict:
     return out
 
 
+def measure_train(torch, smoke, family: str, tree: str) -> dict:
+    extra = [*smoke.FAMILY_OVERRIDES.get(family, []), "trainer.epoch_max=1"]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = smoke.run_main_path(torch, smoke.OUT / f"tc_accuracy_{family}", extra)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steady = [r["seconds"] for r in trainer.history if 100 <= r["iteration"] < 200]
+    name = f"tc_accuracy_profile_{family}_{tree}.txt"
+    steps = 5
+    busy_share = smoke.profile_train(torch, trainer, smoke.card_line(), name, family, "train",
+                                     steps)
+    busy_s = float((smoke.OUT / name).read_text().splitlines()[1].split("device busy")[1]
+                   .split()[0])
+    out = {"family": family, "steps": len(trainer.history),
+           "ms_per_step": 1e3 * smoke.mean(steady),
+           "rays_per_s": trainer.batch_size / smoke.mean(steady), "peak_memory_gib": peak_gib,
+           "device_ms_per_step": 1e3 * busy_s / steps, "busy_share_traced": busy_share}
+    print(f"train {family}: {json.dumps(out)}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure_neus_run(torch, smoke, mode: str, seed) -> dict:
     extra = [*smoke.FAMILY_OVERRIDES["neus"]] + (["network.fused=off"] if mode == "plain" else [])
     if seed is not None:
@@ -378,6 +445,8 @@ def main() -> int:
     parser.add_argument("--f32", action="store_true", help="only the f32 routes")
     parser.add_argument("--passes", action="store_true",
                         help="only the elementwise passes and products of the backwards")
+    parser.add_argument("--train", nargs="+", choices=["neddf", "nerf", "neus"], default=None,
+                        help="only a 200-step run of each configuration, with its profile")
     parser.add_argument("--neus-run", choices=["kernels", "plain"], default=None,
                         help="only the NeuS 300-step run, through the kernels or the plain versions")
     parser.add_argument("--seed", type=int, default=None,
@@ -401,7 +470,10 @@ def main() -> int:
     sd = params_from_jax(load_msgpack_params(smoke.RUN / "models" / f"model_{smoke.EPOCH:05}.ckpt"))
     result = {"tree": str(args.tree), "card": smoke.card_line(),
               "build": str(_build.build_dir())}
-    if args.neus_run:
+    if args.train:
+        result["train"] = [measure_train(torch, smoke, family, args.tree.resolve().name)
+                           for family in args.train]
+    elif args.neus_run:
         result["neus_run"] = measure_neus_run(torch, smoke, args.neus_run, args.seed)
     elif args.passes:
         result["passes"] = measure_passes(torch, smoke, dev)
