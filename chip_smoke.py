@@ -12,7 +12,8 @@ Phases (any failure stops the script with a non-zero exit code):
    built library's SASS every product kernel, tile forward and NeuS
    sweep has HMMA (tensor-core) instructions, on TF32 operands
    in the f32 instantiations (the 3xTF32 split) and not in the bf16
-   ones, and ptxas reports no spills in them;
+   ones, and ptxas reports no spills in them nor in the epilogue
+   backward's 8 instantiations;
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -33,11 +34,16 @@ Phases (any failure stops the script with a non-zero exit code):
    backward (trunk and colour configurations: one top-layer ``gstack``
    per call, every layer below through the products with the stacked
    cotangent and the layer input folded in, no ``dual_act``) and the
-   epilogue forward and backward; two backward runs must give
-   bitwise-equal dW / db; then
+   epilogue forward and backward, the backward in both modes: standalone
+   (dv, dj) and the main path's top mode (the K=3 trunk's top-layer
+   stacked cotangent gs, bitwise equal to the standalone mode, torch's
+   add and ``gstack``), timed beside those three steps (the epilogue's
+   routes by their kernels' device time, ``DEVICE_TIMED``); two backward
+   runs must give bitwise-equal dW / db; then
    the trunk and the colour trunk with ReLU and LeakyReLU (ragged rows,
    both precisions), each forward layer held to the plain layer over the
-   kernel's own stash (f' is a step at 0 there);
+   kernel's own stash (f' is a step at 0 there), and the epilogue
+   backward's top mode on the K=3 trunk's outputs;
 6b. the tensor-core product of the backwards alone, bf16 at the fine
    trunk's shapes (dx and dW over 4 x 99,328 rows, layer 0's fan-in 60,
    NeRF's 3-wide last layer, a ragged row count) and f32 (3xTF32) at the
@@ -62,7 +68,9 @@ Phases (any failure stops the script with a non-zero exit code):
    train PSNR of the last 50 steps above the first 50, every kernel of
    the path launched, every product and tile forward on the tensor cores
    and no plain version called, the dual backward's launches as
-   ``expected_folding`` reckons them; ms/step and rays/s;
+   ``expected_folding`` reckons them (per step 2 ``gstack``, the colour
+   trunk's), the epilogue backward's top mode once per pass and its
+   standalone mode never; ms/step and rays/s;
    then the first 100 steps again through the plain versions
    (``network.fused=off``), which must track the kernel run; and a
    ``torch.profiler`` table of a few more steps in ``profile_train.txt``;
@@ -299,8 +307,41 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
                   "neddf_mlp_act", "neddf_dual_act")
 
 
+# phase 2: other kernels whose instantiations ptxas must build without
+# spills: the epilogue backward (bf16 and f32 x the standalone mode and the
+# top mode's 3 activations), two blocks of 256 threads per SM (128
+# registers each)
+SPILL_FUNCTIONS = {"epi_bwd_kernel": 8}
+
+
 def _is_tc_function(name: str) -> bool:
     return any(key in name for key in TC_FUNCTIONS)
+
+
+def ptxas_spills(build_dir: Path, keys) -> dict:
+    """Spilled bytes (stores + loads) of every function whose mangled name
+    holds one of ``keys``, from ptxas's ``-v`` lines in the build log."""
+    spills, name = {}, None
+    for line in (build_dir / "build.log").read_text().splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and name is not None and any(k in name for k in keys):
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills[name] = nums[1] + nums[2]  # stack frame, spill stores, spill loads
+    return spills
+
+
+def check_spill_functions(build_dir: Path) -> dict:
+    """Phase 2: every instantiation of ``SPILL_FUNCTIONS`` built, none
+    spilling."""
+    spills = ptxas_spills(build_dir, SPILL_FUNCTIONS)
+    for key, count in SPILL_FUNCTIONS.items():
+        found = [n for n in spills if key in n]
+        if len(found) != count:
+            fail(f"ptxas: {len(found)} instantiations of {key}, expected {count}")
+    if max(spills.values()) > 0:
+        fail(f"ptxas: spills in {spills}")
+    return spills
 
 
 def check_tensor_core_build(build_dir: Path) -> dict:
@@ -325,13 +366,7 @@ def check_tensor_core_build(build_dir: Path) -> dict:
         elif name in hmma and ("HMMA" in text or "HGMMA" in text):
             hmma[name] += 1
             tf32[name] += "TF32" in text
-    spills, name = {}, None
-    for line in (build_dir / "build.log").read_text().splitlines():
-        if "Function properties for" in line:
-            name = line.split("Function properties for", 1)[1].strip()
-        elif "spill stores" in line and name is not None and _is_tc_function(name):
-            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-            spills[name] = nums[1] + nums[2]  # stack frame, spill stores, spill loads
+    spills = ptxas_spills(build_dir, TC_FUNCTIONS)
     for key, count in TC_FUNCTIONS.items():
         found = [n for n in hmma if key in n]
         if len(found) != count:
@@ -456,6 +491,13 @@ def check_close(name: str, got: float, ref: float, tol: float, floor: float = 0.
     return rel
 
 
+# phase 6: routes of one or two short launches, whose CUDA-event time per
+# call is mostly the host's (its wrapper's torch and ctypes calls): timed
+# by the device time of their kernels (torch.profiler), the event times
+# kept beside it
+DEVICE_TIMED = ("neddf_epilogue", "neddf_epilogue_bwd", "neddf_epilogue_gstack")
+
+
 def phase_train_kernels(torch, sd, card: str) -> dict:
     """Phase 6: the training path's kernel routes against their plain
     versions at the train step's shapes; returns results per route."""
@@ -493,6 +535,29 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
         if got != (1, 0, n_layers - 1, n_layers - 1):
             fail(f"{what}: gstack, dual_act, epilogue and prologue launches {got}, expected "
                  f"(1, 0, {n_layers - 1}, {n_layers - 1})")
+
+    def check_top_mode(route, m, dtype_name, args, tol):
+        # the epilogue backward's top mode (the K=3 trunk's top layer folded
+        # in) against its plain version; its gs bitwise equal to the
+        # standalone mode, torch's add and the top gstack; two runs bitwise
+        v, j, wd_, wa_, b2_, scal_, g_o, g_t, g_c, z, act = args
+        before = epi.neddf_epilogue_gstack.launches
+        tk = epi.neddf_epilogue_gstack(*args)
+        tp = epi.neddf_epilogue_gstack_plain(*args)
+        torch.cuda.synchronize()
+        if epi.neddf_epilogue_gstack.launches != before + 1:
+            fail(f"{route} {dtype_name} M={m}: the top mode's kernel did not launch once")
+        r = check(route, m, dtype_name, list(zip(tk, tp)), tol)
+        dv, dj = epi.neddf_epilogue_bwd(v, j, wd_, wa_, b2_, scal_, g_o, g_t)[:2]
+        gs = dm.DualProducts(v.dtype, dev).gstack(dv + g_c, dj, z, act)[0]
+        r["gs_bitwise_vs_composition"] = torch.equal(tk[0], gs)
+        if not r["gs_bitwise_vs_composition"]:
+            fail(f"{route} {dtype_name} M={m}: gs differs from the standalone mode + add + "
+                 f"gstack in {int((tk[0] != gs).sum())} elements")
+        again = epi.neddf_epilogue_gstack(*args)
+        if not all(torch.equal(a, b) for a, b in zip(tk, again)):
+            fail(f"{route} {dtype_name} M={m}: two runs differ")
+        del tk, tp, dv, dj, gs, again
 
     def check(route, m, dtype_name, pairs, tol):
         worst_abs, worst_rel = 0.0, 0.0
@@ -539,6 +604,12 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
             again = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
             if not all(torch.equal(a, b) for a, b in zip(ebk, again)):
                 fail(f"neddf_epilogue_bwd {dtype_name} M={m}: two runs differ")
+            # the main path's mode: with the colour trunk's cotangent of
+            # v_feat and the trunk's top-layer stash
+            g_col = (torch.randn((m, 256), generator=gen, device=dev) * 0.01).to(dtype)
+            top_args = (v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf, g_col, t_pres[-1],
+                        "tanhExp")
+            check_top_mode("neddf_epilogue_gstack", m, dtype_name, top_args, btol)
             # the K=1 colour forward on [PE dual(pos) along grad D, PE(dir), n, features]
             t_dir = ep[0][6:9].T.contiguous()
             ep_v, ep_t = pe_dual_directional_mip(pos, 10, t_dir, var=var)
@@ -580,6 +651,9 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                                                        g_out, g_tf),
                         lambda: epi.neddf_epilogue_bwd_plain(v_feat, j_feat, wd, wa, b2, scal,
                                                              g_out, g_tf)),
+                    "neddf_epilogue_gstack": (
+                        lambda: epi.neddf_epilogue_gstack(*top_args),
+                        lambda: epi.neddf_epilogue_gstack_plain(*top_args)),
                     "dual_mlp_color_k1": (
                         lambda: dm.dual_mlp_seg(segs, js, cw, col_b, c_layout, "tanhExp",
                                                 has_j, 1, stash=True),
@@ -598,12 +672,29 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                 }
                 for route, (fk, fp) in timings.items():
                     ms, plain_ms = time_pair(torch, fk, fp, reps=3)
-                    results[route][f"{m}/{dtype_name}"].update(ms=ms, plain_ms=plain_ms)
+                    r = results[route][f"{m}/{dtype_name}"]
+                    r.update(ms=ms, plain_ms=plain_ms)
+                    if route in DEVICE_TIMED:
+                        r.update(event_ms=ms, event_plain_ms=plain_ms,
+                                 ms=profile_calls(torch, fk, calls=10)[1],
+                                 plain_ms=profile_calls(torch, fp, calls=3)[1])
+                # the three steps the top mode replaces, on the same inputs:
+                # the standalone mode, the add, the top layer's gstack
+                k = dm.DualProducts(dtype, dev)
+
+                def composed():
+                    dv, dj = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out,
+                                                    g_tf)[:2]
+                    return k.gstack(dv + g_col, dj, t_pres[-1], "tanhExp")
+
+                results["neddf_epilogue_gstack"][f"{m}/{dtype_name}"].update(
+                    composed_ms=profile_calls(torch, composed, calls=10)[1],
+                    composed_event_ms=time_pair(torch, composed, composed, reps=3)[0])
             for route in results:
                 if f"{m}/{dtype_name}" in results[route]:
                     log(f"[6] {route} M={m} {dtype_name}: "
                         f"{json.dumps(results[route][f'{m}/{dtype_name}'])} | card: {card}")
-            del tp, v_feat, j_feat, t_pres, ek, ep, ebk, ebp, ck, cp, bwd_args
+            del tp, v_feat, j_feat, t_pres, ek, ep, ebk, ebp, ck, cp, bwd_args, top_args
             torch.cuda.empty_cache()
 
     # ReLU and LeakyReLU (f'' = 0: no coupling term in the backward) on the
@@ -670,7 +761,14 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                 again = dm.dual_mlp_seg_bwd(*bargs)
                 if not all(torch.equal(a, b) for a, b in zip(bk[2] + bk[3], again[2] + again[3])):
                     fail(f"{route}_bwd {dtype_name} M={m}: dW/db differ between runs")
-                for name in (route, f"{route}_bwd"):
+                names = [route, f"{route}_bwd"]
+                if cfg == "trunk":  # the epilogue backward's top mode on this trunk
+                    top_args = (fp[0], fp[1], wd, wa, b2, scal, uniform(10, m),
+                                (uniform(m, 256) * 0.1).to(dtype), gv, fp[2][-1], act)
+                    names.append(f"neddf_epilogue_gstack_{act}")
+                    check_top_mode(names[-1], m, dtype_name, top_args, btol)
+                    del top_args
+                for name in names:
                     log(f"[6] {name} M={m} {dtype_name}: "
                         f"{json.dumps(results[name][f'{m}/{dtype_name}'])} | card: {card}")
                 del fk, fp, bk, bp, again
@@ -978,10 +1076,15 @@ def phase_train_run(torch, card: str) -> dict:
 
     kernels = {"dual_mlp_trunk": dm.dual_mlp_trunk, "mlp_seg": mlp.mlp_seg,
                "dual_mlp_seg": dm.dual_mlp_seg, "dual_mlp_seg_bwd": dm.dual_mlp_seg_bwd,
-               "neddf_epilogue": epi.neddf_epilogue, "neddf_epilogue_bwd": epi.neddf_epilogue_bwd}
+               "neddf_epilogue": epi.neddf_epilogue,
+               "neddf_epilogue_gstack": epi.neddf_epilogue_gstack}
     plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
-              mlp.mlp_seg_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain]
-    for fn in kernels.values():
+              mlp.mlp_seg_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain,
+              epi.neddf_epilogue_gstack_plain]
+    # the epilogue backward's standalone mode: off the main path, which runs
+    # its top mode
+    standalone = epi.neddf_epilogue_bwd
+    for fn in (*kernels.values(), standalone):
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
@@ -996,9 +1099,18 @@ def phase_train_run(torch, card: str) -> dict:
     plain_calls = sum(fn.calls for fn in plains)
     log(f"[8] main path run: {trainer.iteration} steps in {wall:.1f} s (load, hooks and "
         f"checkpoint included), peak device memory {peak_gib:.2f} GiB; launches "
-        f"{launches}; routes {routes}; plain calls {plain_calls}")
+        f"{launches}, the epilogue backward's standalone mode {standalone.launches}; routes "
+        f"{routes}; plain calls {plain_calls}")
     if min(launches.values()) < 1 or plain_calls:
         fail("the main path did not run through every kernel alone")
+    # per pass one K=3 and one K=1 dual backward; the K=3 one starts from
+    # the epilogue backward's top mode
+    if launches["neddf_epilogue_gstack"] * 2 != launches["dual_mlp_seg_bwd"] or (
+            standalone.launches):
+        fail(f"the main path's epilogue backward: top mode {launches['neddf_epilogue_gstack']}"
+             f", standalone {standalone.launches}, expected one top mode per pair of dual "
+             f"backwards ({launches['dual_mlp_seg_bwd']}) and no standalone")
+    launches["neddf_epilogue_bwd"] = standalone.launches
     check_routes("main path", routes, "tc")
     net = trainer.neural_render.network_fine
     dual_layers = (len(net.layers_ddf), len(net.layers_col))
@@ -1007,8 +1119,9 @@ def phase_train_run(torch, card: str) -> dict:
     steps = trainer.iteration
     log(f"[8] main path: elementwise launches {routes['passes']} and products with an "
         f"activation folded in {routes['folded']} (expected {expected}; per step: gstack "
-        f"{expected['passes']['gstack'] / steps:g}, epilogues "
-        f"{expected['folded']['epilogue'] / steps:g}, prologues "
+        f"{expected['passes']['gstack'] / steps:g} (the colour trunk's; the K=3 trunk's top "
+        f"layer in the epilogue backward, {launches['neddf_epilogue_gstack'] / steps:g}), "
+        f"epilogues {expected['folded']['epilogue'] / steps:g}, prologues "
         f"{expected['folded']['prologue'] / steps:g}, dual_act 0)")
     if folding != expected:
         fail(f"the main path's elementwise launches {folding}, expected {expected}")
@@ -1330,6 +1443,13 @@ def slice12_bounds(n_ddf: int, n_col: int) -> dict:
                                   M_TRAIN * (4 * 256 * 2 + 10 * 4 + 256 * 2), bf)
     out["neddf_epilogue_bwd"] = bound(4.0 * 8 * 256 * M_TRAIN,
                                       M_TRAIN * (4 * 256 * 2 * 2 + 10 * 4 + 256 * 2), bf)
+    # its top mode: the 4 streams, g_tfeat, g_col and the stash's 4 planes
+    # (1 where f'' = 0) in, gs's 4 planes out, 4 g_out values per row; the
+    # dots again, dwd/dwa and the stacked cotangent
+    for name, z_planes in (("neddf_epilogue_gstack", 4), ("neddf_epilogue_gstack_f2zero", 1)):
+        planes = 4 + 2 + z_planes + 4
+        out[name] = bound((4.0 * 8 + 16.0) * 256 * M_TRAIN,
+                          M_TRAIN * (planes * 256 * 2 + 4 * 4), bf)
     return out
 
 
@@ -1640,14 +1760,16 @@ def expected_folding(family: str, launches: dict, dual_layers=None) -> dict:
     ReLU), 7 prologues and 8 db sums; no gstack or dual_act (NeDDF's).
     NeDDF (``dual_layers``: the layers of its K=3 and K=1 trunks), whose
     dual_mlp_seg_bwd calls come in pairs (one per trunk and pass): per
-    call of L layers one gstack (the top layer), L - 1 nt epilogues (the
-    stacked cotangent of the layer below), L - 1 tn prologues (the layer
-    input) and L db sums; no dual_act."""
+    call of L layers L - 1 nt epilogues (the stacked cotangent of the
+    layer below), L - 1 tn prologues (the layer input) and L - 1 db sums
+    below the top layer; the colour trunk's top layer one gstack and one
+    db sum; the K=3 trunk's top layer none (the epilogue backward's top
+    mode forms its stacked cotangent and sums its db); no dual_act."""
     if family == "neddf":
         pairs = launches["dual_mlp_seg_bwd"] / 2
         layers = sum(dual_layers)
-        return {"passes": {"gpre": 0, "sdf_top": 0, "gstack": 2 * pairs, "dual_act": 0,
-                           "db_sum": pairs * layers},
+        return {"passes": {"gpre": 0, "sdf_top": 0, "gstack": pairs, "dual_act": 0,
+                           "db_sum": pairs * (layers - 1)},
                 "folded": {"prologue": pairs * (layers - 2), "epilogue": pairs * (layers - 2)}}
     col = launches["mlp_seg_bwd"]
     layers = len(NERF_FANS) if family == "nerf" else len(NEUS_COL_FANS)
@@ -1796,7 +1918,10 @@ def phase_other_configs(torch, card: str) -> dict:
     pos = torch.rand(OTHER_BATCH + (3,), generator=gen, device=dev) - 0.5
     dirs = torch.randn(OTHER_BATCH + (3,), generator=gen, device=dev)
     sampling = Sampling(pos, dirs / dirs.norm(dim=-1, keepdim=True), torch.zeros_like(pos))
-    field_kernels = {NeDDF: (dm.dual_mlp_trunk, dm.dual_mlp_seg, dm.dual_mlp_seg_bwd),
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+
+    field_kernels = {NeDDF: (dm.dual_mlp_trunk, dm.dual_mlp_seg, dm.dual_mlp_seg_bwd,
+                             epi.neddf_epilogue, epi.neddf_epilogue_gstack),
                      NeRF: (mlp.mlp_seg, mlp.mlp_seg_bwd),
                      NeuS: (sk.sdf_mlp, sk.sdf_mlp_bwd, mlp.mlp_seg, mlp.mlp_seg_bwd)}
     out = {}
@@ -1895,6 +2020,9 @@ def main() -> int:
     for fn_name, count in tc_build["hmma"].items():
         log(f"[2] SASS {fn_name}: {count} HMMA/HGMMA, "
             f"{tc_build['spill_bytes'][fn_name]} bytes spilled")
+    tc_build["other_spill_bytes"] = check_spill_functions(_build.build_dir())
+    for fn_name, nbytes in tc_build["other_spill_bytes"].items():
+        log(f"[2] ptxas {fn_name}: {nbytes} bytes spilled")
 
     # ---- phase 3: kernels against their plain versions
     sd = params_from_jax(load_msgpack_params(RUN / "models" / f"model_{EPOCH:05}.ckpt"))
@@ -2118,9 +2246,14 @@ def main() -> int:
         bwd,
         entry("neddf_epilogue", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
               "neddf_tpu/kernels/neddf_epilogue.py:329", "neddf_epilogue", "neddf_epilogue"),
-        entry("neddf_epilogue_bwd", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+        entry("neddf_epilogue_bwd (standalone mode: dv, dj; off the main path)",
+              "neddf_tpu_torch/csrc/neddf_epilogue.cu",
               "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_bwd",
               "neddf_epilogue_bwd"),
+        entry("neddf_epilogue_gstack (top mode: the epilogue's VJP with the K=3 trunk's "
+              "top-layer stacked cotangent)", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+              "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_gstack",
+              "neddf_epilogue_gstack"),
         family_entry("mlp_seg (NeRF trunk, [h, seg0], ReLU, stash)",
                      "neddf_tpu_torch/csrc/mlp_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
                      "nerf", "mlp_seg", nerf_key),

@@ -5,8 +5,10 @@
 // Python walk (kernels/dual_mlp.py::dual_mlp_seg_bwd_route) goes through
 // the layers in reverse with S = K+1 stacked streams [S, M, C]:
 //
-// * neddf_dual_bwd_gstack, once per call (the top layer, whose cotangent
-//   (gv, gj) no product produces): from g and the stash z (type T) the
+// * neddf_dual_bwd_gstack, once per call that starts from the output
+//   cotangent (gv, gj), which no product produces (a call given the top
+//   layer's stacked cotangent, the NeDDF trunk's from neddf_epilogue.cu's
+//   top mode, launches none): from g and the stash z (type T) the
 //   stacked cotangent of the pre-activation,
 //       G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a   (the f'' coupling)
 //       G_a = g_a f'(z_v),
@@ -120,7 +122,7 @@ __global__ void gstack_kernel(int S, int C, int M, int rows_per_block,
       if constexpr (!neddf::kZeroDeriv2<ACT>)
         coupling = fmaf(gt[a], ld(z, a * plane + i), coupling);
     }
-    const float g0 = ld(gv, i) * d1 + d2 * coupling;
+    const float g0 = neddf::dual_gv(ld(gv, i), d1, d2, coupling);
     db += g0;
     st(gs, i, g0);
     for (int a = 1; a < S; ++a) st(gs, a * plane + i, gt[a] * d1);

@@ -209,6 +209,14 @@ __device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf
   }
 }
 
+// the value row of a stacked cotangent, G_v = g_v f'(z_v) + f''(z_v) c
+// with c = sum_a g_a z_a, in one rounding order for every kernel that
+// forms it outside a product (gstack_kernel, neddf_epilogue.cu's top
+// mode), so that the two give the same bits
+__device__ __forceinline__ float dual_gv(float g, float d1, float d2, float coupling) {
+  return fmaf(g, d1, d2 * coupling);
+}
+
 // blocks of a grid-stride elementwise launch: at most 32 per SM of the H100
 inline int grid_1d(size_t n, int threads) {
   const size_t blocks = (n + threads - 1) / threads;

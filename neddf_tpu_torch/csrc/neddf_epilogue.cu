@@ -5,33 +5,84 @@
 // _bwd_kernel:183). Math and stop-gradient placements: see the Python
 // wrapper kernels/neddf_epilogue.py, whose plain versions this mirrors.
 //
-// Design: one warp per sample row. At C = 256 a lane holds 8 columns of
-// each of the 4 streams (v, j0, j1, j2) in registers; the 8 head dots
-// (4 streams x 2 heads) are warp shuffle reductions, every lane then has
-// the row's scalars and the per-row math runs redundantly in f32 on all
-// lanes (no shared memory, no divergence). The stream and the head
-// weights are rounded to the compute dtype T before the dots, sums in
-// f32 (_heads:103-112). The forward writes the 10 per-row outputs as
-// [10, M] f32 (row k = quantity k, coalesced across warps) and t_feat.
-// The backward recomputes the heads (it reads the streams anyway), forms
-// the head cotangents, writes dv / dj and accumulates dwd, dwa, db2 per
-// lane across the block's rows; the block's 8 warps are then summed in a
-// fixed order into one partial per block, and neddf_sum_splits
-// (dual_mlp_bwd.cu) sums the partials in a fixed order: no atomics, the
-// result is bitwise reproducible.
+// Forward (epi_fwd_kernel): one warp per sample row. At C = 256 a lane
+// holds 8 columns of each of the 4 streams (v, j0, j1, j2) in registers;
+// the 8 head dots (4 streams x 2 heads) are warp shuffle reductions, every
+// lane then has the row's scalars and the per-row math runs redundantly
+// in f32 on all lanes. The stream and the head weights are rounded to the
+// compute dtype T before the dots, sums in f32 (_heads:103-112). It
+// writes the 10 per-row outputs as [10, M] f32 (row k = quantity k) and
+// t_feat.
 //
-// What bounds it on the H100: ~2 KB (bf16) of stream reads per row
-// against ~4 kFLOP: device-memory bandwidth (3.35 TB/s).
+// Backward (epi_bwd_kernel), the epilogue's second-order VJP, in two
+// modes (template flag TOP):
+// * standalone (neddf_epilogue_bwd): writes dv [M, C] and dj [3, M, C] in
+//   T, for a caller of the epilogue on its own;
+// * TOP (the training path, DDFTrunkEpilogue): also finishes the K=3
+//   trunk's top layer. Per (row, column) it rounds dv and dj to T as the
+//   standalone mode writes them, adds the colour trunk's cotangent of
+//   v_feat as autograd's add in T does, gv = T(T(dv) + g_col), and applies
+//   the top layer's stacked cotangent (gstack_kernel's math, dual_mlp_bwd.cu)
+//   with the stash z [4, M, C]: G_v = gv f'(z_v) + f''(z_v) sum_a gj_a z_a,
+//   G_a = gj_a f'(z_v), written as gs [4, M, C] in T, and sums the top
+//   layer's db = sum_rows G_v. dv, dj and gv never reach device memory.
+//   Under ReLU and LeakyReLU (f'' = 0) the tangent stash is not read.
+// Both modes sum dwd, dwa [C] and db2 [2] (and TOP the top db [C]) as one
+// f32 partial per block, each summed over the block's tiles in a fixed
+// order; neddf_sum_splits (dual_mlp_bwd.cu) sums the partials in a fixed
+// order. No atomics: two runs give the same bits.
+//
+// What bounds it on the H100: device memory. Per row it must read the 4
+// streams, g_tfeat, (TOP) g_col and the 4 planes of the stash (1 under
+// f'' = 0) and write 4 planes: at 99,328 rows in bf16, 14 planes of 50.9
+// MB, 0.213 ms at 3.35 TB/s (11 planes, 0.167 ms, under ReLU); ~4 kFLOP
+// of head dots and a few hundred of scalar and activation math per row
+// are far below the card's rate. What held the one-warp-per-row version
+// back was latency: a warp loaded its row, then waited through the
+// reductions and the dependent scalar chain before its next loads, with
+// nothing else of its own in flight. The design here:
+// * persistent blocks (as many as fit on the card) walk tiles of 8 rows;
+//   a ring of 2 shared-memory stages per block is filled by 16-byte
+//   cp.async, each plane's rows of a tile one contiguous run, a commit
+//   group and a barrier guarding each stage, so the copy of tile i+1
+//   overlaps the math of tile i; two blocks per SM keep at least two
+//   tiles' loads in flight per SM. The 4 g_out values a row needs are
+//   loaded into registers one tile ahead.
+// * phase a, per row: warp w takes row w of the tile with today's lane
+//   mapping (a lane holds 8 consecutive columns; fmaf order, then the
+//   butterfly), forms the 8 head dots from the staged tile and runs the
+//   forward and backward scalar chain (row_math, row_vjp), and leaves
+//   the row's head cotangents and grad D in shared memory;
+// * phase b, per column: each thread owns 16-byte column vectors (one
+//   row, 8 bf16 or 4 f32 columns; the same columns in every tile), every
+//   access a 16-byte vector; it combines the row scalars with the head
+//   weights, g_tfeat, g_col and the stash, writes dv / dj or gs, and keeps
+//   dwd, dwa and the top db in registers across the block's tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mlp_tile.cuh"
+#include "tc_ops.cuh"
+
+extern "C" int neddf_sum_splits(long long n, int splits, const void* parts, void* out,
+                                void* stream);
 
 namespace {
 
 constexpr int kC = 256;
 constexpr int kPerLane = kC / 32;
 constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr int kOut = 10;
+// backward: rows per tile (one per warp in phase a), ring stages per block
+constexpr int kTileRows = kWarps;
+constexpr int kStages = 2;
+constexpr int kRowScalars = 12;  // g_h1[4], g_h2[4], grad D [3], a pad
+// the planes of a stage, in order: v, j0..j2, g_tfeat; TOP: g_col, z_v,
+// then (f'' != 0) z_0..z_2
+constexpr int kPlaneGt = 4, kPlaneGc = 5, kPlaneZ = 6;
+constexpr int kMaxPlanes = 10;
 
 __device__ __forceinline__ void load8(const float* p, float o[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -59,6 +110,27 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) q[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// one 16-byte vector: 8 bf16 or 4 f32 values
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / (int)sizeof(T);
+};
+__device__ __forceinline__ void load_vec(const float* p, float o[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float o[8]) { load8(p, o); }
+__device__ __forceinline__ void store_vec(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float v[8]) { store8(p, v); }
+// N f32 values (N a multiple of 4) by 16-byte loads
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float o[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) load_vec(p + i, o + i);
 }
 
 template <typename T>
@@ -134,27 +206,78 @@ __device__ __forceinline__ Row row_math(const float h1[4], const float h2[4],
   return r;
 }
 
-// loads a row's 4 streams (x), the rounded head weights, and the heads
-template <typename T>
-__device__ __forceinline__ void load_heads(int M, int m, int lane, const T* v,
-                                           const T* j, const float wdr[8],
-                                           const float war[8], float x[4][8],
-                                           float h1[4], float h2[4]) {
-  const int c0 = lane * kPerLane;
-  load8(v + (size_t)m * kC + c0, x[0]);
+// the head dots of one row from its 4 streams x[s] (a lane's 8 columns)
+// and the rounded head weights: fmaf over the lane's columns, then the
+// butterfly
+__device__ __forceinline__ void head_dots(const float x[8], const float wdr[8],
+                                          const float war[8], float& h1, float& h2) {
+  float p1 = 0.f, p2 = 0.f;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) load8(j + ((size_t)a * M + m) * kC + c0, x[1 + a]);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      p1 = fmaf(x[s][e], wdr[e], p1);
-      p2 = fmaf(x[s][e], war[e], p2);
-    }
-    h1[s] = warp_sum(p1);
-    h2[s] = warp_sum(p2);
+  for (int e = 0; e < kPerLane; ++e) {
+    p1 = fmaf(x[e], wdr[e], p1);
+    p2 = fmaf(x[e], war[e], p2);
   }
+  h1 = warp_sum(p1);
+  h2 = warp_sum(p2);
+}
+
+// the backward's scalar chain of one row (_bwd_kernel:183-326): from the
+// forward quantities and the cotangents of rows 0, 1, 2 and 9 of out, the
+// cotangents of the 8 head dots (g_h1[0] and g_h2[0] are those of the two
+// head outputs, whose sums are db2)
+__device__ __forceinline__ void row_vjp(const Row& r, float g_dens, float g_dist_ext,
+                                        float g_aux_ext, float g_pen, const float* scal,
+                                        float g_h1[4], float g_h2[4]) {
+  const float ags = scal[1], drmax = scal[2];
+  const float w_ag = scal[3], w_ddt = scal[4], w_rd = scal[5], w_ra = scal[6];
+  const float g_diff = g_pen * w_ag * r.ag_scale * 2.f * (r.d2 - r.rest);
+  float g_agg[3], g_norm_int[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    g_agg[a] = g_diff * r.norm[a];
+    g_norm_int[a] = g_diff * r.agg[a];
+  }
+  float g_aux = -g_diff * 3.f * r.dinv;
+  float g_dddt = g_pen * w_ddt * 2.f * relu(r.d_ddt - 1.f);
+  const float r3 = relu(-4.6f - r.ddf_out) + relu(r.ddf_out - drmax);
+  float g_ddf_out = g_pen * w_rd * 2.f * r3 *
+                    (step(r.ddf_out - drmax) - step(-4.6f - r.ddf_out));
+  const float r4 = relu(-4.6f - r.aux_out) + relu(r.aux_out - 4.6f);
+  float g_aux_out = g_pen * w_ra * 2.f * r4 *
+                    (step(r.aux_out - 4.6f) - step(-4.6f - r.aux_out));
+  const float u = r.dinv * (1.f - r.d_ddt);
+  const float g_u = g_dens * step(u);
+  const float g_dinv = g_u * (1.f - r.d_ddt);
+  g_dddt -= g_u * r.dinv;
+  g_aux += g_aux_ext;
+  const float inv_dddt = 1.f / fmaxf(r.d_ddt, 1e-12f);
+  float g_grad_sq = g_dddt * 0.5f * inv_dddt;
+  g_aux += g_dddt * r.aux * inv_dddt;
+  float g_dg[3];
+  float dot = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    g_dg[a] = g_norm_int[a] * r.inv;
+    dot += g_norm_int[a] * r.dg[a];
+  }
+  const float g_dgn = -dot * r.inv * r.inv;
+  g_grad_sq += g_dgn * 0.5f / fmaxf(r.dgn, 1e-12f);
+  const float g_dist = g_dist_ext - g_dinv * r.dinv * r.dinv;
+  float g_auxd = 0.f, g_spd = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    g_dg[a] += 2.f * r.dg[a] * g_grad_sq;
+    g_h2[1 + a] = g_agg[a] * r.auxd;
+    g_auxd += g_agg[a] * r.hj2[a];
+    g_h1[1 + a] = g_dg[a] * r.spd;
+    g_spd += g_dg[a] * r.hj1[a];
+  }
+  g_aux_out += g_auxd * ags * r.sig_a * (1.f - r.sig_a) * (1.f - 2.f * r.sig_a);
+  g_aux_out += g_aux * r.auxd;
+  g_ddf_out += g_spd * r.spd * (1.f - r.spd);
+  g_ddf_out += g_dist * r.spd;
+  g_h1[0] = g_ddf_out;
+  g_h2[0] = g_aux_out;
 }
 
 template <typename T>
@@ -174,7 +297,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     war[e] = round_to<T>(wa[c0 + e]);
   }
   float x[4][8], h1[4], h2[4];
-  load_heads<T>(M, m, lane, v, j, wdr, war, x, h1, h2);
+  load8(v + (size_t)m * kC + c0, x[0]);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) load8(j + ((size_t)a * M + m) * kC + c0, x[1 + a]);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) head_dots(x[s], wdr, war, h1[s], h2[s]);
   const Row r = row_math(h1, h2, b2, scal);
   if (lane == 0) {
     const float vals[kOut] = {r.density, r.distance, r.aux,    r.norm[0], r.norm[1],
@@ -189,122 +316,315 @@ __global__ void __launch_bounds__(kWarps * 32)
   store8(t_feat + (size_t)m * kC + c0, tf);
 }
 
+// the backward's operands: the staged planes' row-0 pointers (row stride
+// C, stage order above) and the outputs: out_v [M, C] and out_t [3, M, C]
+// (dv, dj; TOP: the planes of gs)
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-    epi_bwd_kernel(int M, int rows_per_block, const T* __restrict__ v,
-                   const T* __restrict__ j, const float* __restrict__ wd,
-                   const float* __restrict__ wa, const float* __restrict__ b2,
-                   const float* __restrict__ scal, const float* __restrict__ g_out,
-                   const T* __restrict__ g_tfeat, T* __restrict__ dv,
-                   T* __restrict__ dj, float* __restrict__ parts) {
-  __shared__ float red[kWarps][2 * kC + 2];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int c0 = lane * kPerLane;
-  const float ags = scal[1], drmax = scal[2];
-  const float w_ag = scal[3], w_ddt = scal[4], w_rd = scal[5], w_ra = scal[6];
-  float wdr[8], war[8], wdf[8], waf[8];
-#pragma unroll
-  for (int e = 0; e < kPerLane; ++e) {
-    wdf[e] = wd[c0 + e];
-    waf[e] = wa[c0 + e];
-    wdr[e] = round_to<T>(wdf[e]);
-    war[e] = round_to<T>(waf[e]);
-  }
-  float dwd[8] = {}, dwa[8] = {}, db0 = 0.f, db1 = 0.f;
-  const int m0 = blockIdx.x * rows_per_block;
-  const int m1 = min(M, m0 + rows_per_block);
-  for (int m = m0 + warp; m < m1; m += kWarps) {
-    float x[4][8], h1[4], h2[4];
-    load_heads<T>(M, m, lane, v, j, wdr, war, x, h1, h2);
-    const Row r = row_math(h1, h2, b2, scal);
-    const float g_dens = g_out[m], g_dist_ext = g_out[(size_t)M + m];
-    const float g_aux_ext = g_out[2 * (size_t)M + m];
-    const float g_pen = g_out[9 * (size_t)M + m];
+struct EpiBwdArgs {
+  const T* plane[kMaxPlanes];
+  T* out_v;
+  T* out_t;
+  const float* wd;
+  const float* wa;
+  const float* b2;
+  const float* scal;
+  const float* g_out;  // [10, M] f32
+  float* parts;        // [gridDim.x, width] f32
+  int M;
+};
 
-    const float g_diff = g_pen * w_ag * r.ag_scale * 2.f * (r.d2 - r.rest);
-    float g_agg[3], g_norm_int[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      g_agg[a] = g_diff * r.norm[a];
-      g_norm_int[a] = g_diff * r.agg[a];
-    }
-    float g_aux = -g_diff * 3.f * r.dinv;
-    float g_dddt = g_pen * w_ddt * 2.f * relu(r.d_ddt - 1.f);
-    const float r3 = relu(-4.6f - r.ddf_out) + relu(r.ddf_out - drmax);
-    float g_ddf_out = g_pen * w_rd * 2.f * r3 *
-                      (step(r.ddf_out - drmax) - step(-4.6f - r.ddf_out));
-    const float r4 = relu(-4.6f - r.aux_out) + relu(r.aux_out - 4.6f);
-    float g_aux_out = g_pen * w_ra * 2.f * r4 *
-                      (step(r.aux_out - 4.6f) - step(-4.6f - r.aux_out));
-    const float u = r.dinv * (1.f - r.d_ddt);
-    const float g_u = g_dens * step(u);
-    const float g_dinv = g_u * (1.f - r.d_ddt);
-    g_dddt -= g_u * r.dinv;
-    g_aux += g_aux_ext;
-    const float inv_dddt = 1.f / fmaxf(r.d_ddt, 1e-12f);
-    float g_grad_sq = g_dddt * 0.5f * inv_dddt;
-    g_aux += g_dddt * r.aux * inv_dddt;
-    float g_dg[3];
-    float dot = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      g_dg[a] = g_norm_int[a] * r.inv;
-      dot += g_norm_int[a] * r.dg[a];
-    }
-    const float g_dgn = -dot * r.inv * r.inv;
-    g_grad_sq += g_dgn * 0.5f / fmaxf(r.dgn, 1e-12f);
-    const float g_dist = g_dist_ext - g_dinv * r.dinv * r.dinv;
-    float g_h1[4], g_h2[4], g_auxd = 0.f, g_spd = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      g_dg[a] += 2.f * r.dg[a] * g_grad_sq;
-      g_h2[1 + a] = g_agg[a] * r.auxd;
-      g_auxd += g_agg[a] * r.hj2[a];
-      g_h1[1 + a] = g_dg[a] * r.spd;
-      g_spd += g_dg[a] * r.hj1[a];
-    }
-    g_aux_out += g_auxd * ags * r.sig_a * (1.f - r.sig_a) * (1.f - 2.f * r.sig_a);
-    g_aux_out += g_aux * r.auxd;
-    g_ddf_out += g_spd * r.spd * (1.f - r.spd);
-    g_ddf_out += g_dist * r.spd;
-    g_h1[0] = g_ddf_out;
-    g_h2[0] = g_aux_out;
+// planes staged per tile: v, j, g_tfeat; TOP also g_col and z_v, and the
+// tangent stash where f'' is not identically zero
+template <int ACT, bool TOP>
+constexpr int kPlanes = TOP ? (neddf::kZeroDeriv2<ACT> ? 7 : 10) : 5;
+// columns of a block's partial: dwd, dwa, db2; TOP: the top db
+template <bool TOP>
+constexpr int kPartWidth = 2 * kC + 2 + (TOP ? kC : 0);
 
-    float gt[8], o[8];
-    load8(g_tfeat + (size_t)m * kC + c0, gt);
+template <typename T, int ACT, bool TOP>
+constexpr size_t epi_bwd_smem() {
+  return (size_t)kStages * kPlanes<ACT, TOP> * kTileRows * kC * sizeof(T);
+}
+
+// one tile's rows [m0, min(M, m0 + kTileRows)) of every staged plane into
+// a stage, 16 bytes per cp.async (rows past M are not copied)
+template <typename T, int P>
+__device__ __forceinline__ void load_tile(T* stage, const EpiBwdArgs<T>& a, int m0, int tid) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int CPR = kC / V;  // copies per row
+  static_assert(kTileRows * CPR % kThreads == 0, "copies per thread");
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
+  for (int p = 0; p < P; ++p) {
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) {
-        o[e] = g_h1[s] * wdf[e] + g_h2[s] * waf[e];
-        if (s > 0) o[e] += gt[e] * r.dg[s - 1];
-        dwd[e] = fmaf(x[s][e], g_h1[s], dwd[e]);
-        dwa[e] = fmaf(x[s][e], g_h2[s], dwa[e]);
-      }
-      if (s == 0)
-        store8(dv + (size_t)m * kC + c0, o);
-      else
-        store8(dj + ((size_t)(s - 1) * M + m) * kC + c0, o);
+    for (int k = 0; k < kTileRows * CPR / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i / CPR;
+      const int c = (i - r * CPR) * V;
+      if (m0 + r < a.M)
+        neddf::cp_async<16>(neddf::smem_u32(stage + (p * kTileRows + r) * kC + c),
+                            a.plane[p] + (size_t)(m0 + r) * kC + c, 16);
     }
-    db0 += g_ddf_out;
-    db1 += g_aux_out;
   }
-#pragma unroll
-  for (int e = 0; e < kPerLane; ++e) {
-    red[warp][c0 + e] = dwd[e];
-    red[warp][kC + c0 + e] = dwa[e];
-  }
-  if (lane == 0) {
-    red[warp][2 * kC] = db0;
-    red[warp][2 * kC + 1] = db1;
+}
+
+// lanes 0-3 of a warp: the cotangents of out rows 0, 1, 2 and 9 at row m
+__device__ __forceinline__ float load_g_out(const float* g_out, int M, int m, int lane) {
+  if (lane >= 4 || m >= M) return 0.f;
+  return __ldg(g_out + (size_t)(lane == 3 ? 9 : lane) * M + m);
+}
+
+template <typename T, int ACT, bool TOP>
+__global__ void __launch_bounds__(kThreads, 2) epi_bwd_kernel(const EpiBwdArgs<T> a) {
+  constexpr int P = kPlanes<ACT, TOP>;
+  constexpr bool kCouple = TOP && !neddf::kZeroDeriv2<ACT>;
+  constexpr int V = Vec16<T>::N;
+  constexpr int CV = kC / V;                     // column vectors per row
+  constexpr int kVecs = kTileRows * CV / kThreads;  // column vectors per thread per tile
+  constexpr int kQ = kThreads / CV;              // threads per column vector
+  constexpr int W = kPartWidth<TOP>;
+  static_assert(kTileRows * CV % kThreads == 0, "vectors per thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stages = reinterpret_cast<T*>(smem_raw);
+  __shared__ float rows[kTileRows][kRowScalars];
+  __shared__ __align__(16) float head[4][kC];  // wd, wa; rounded to T: wdr, war
+  __shared__ float red_db2[kWarps][2];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int M = a.M;
+  const int n_tiles = (M + kTileRows - 1) / kTileRows;
+  for (int c = tid; c < kC; c += kThreads) {
+    head[0][c] = a.wd[c];
+    head[1][c] = a.wa[c];
+    head[2][c] = round_to<T>(a.wd[c]);
+    head[3][c] = round_to<T>(a.wa[c]);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 2 * kC + 2; i += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][i];
-    parts[(size_t)blockIdx.x * (2 * kC + 2) + i] = s;
+  // phase b's columns: the same in every tile
+  const int cb = (tid % CV) * V;
+  float dwd[V], dwa[V], dbt[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) dwd[e] = dwa[e] = dbt[e] = 0.f;
+  float db0 = 0.f, db1 = 0.f;
+
+  int tile = blockIdx.x;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    const int t = tile + s * (int)gridDim.x;
+    if (t < n_tiles) load_tile<T, P>(stages + (size_t)s * P * kTileRows * kC, a,
+                                     t * kTileRows, tid);
+    neddf::cp_async_commit();
   }
+  float g_next = load_g_out(a.g_out, M, tile * kTileRows + warp, lane);
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int m0 = tile * kTileRows;
+    const float g_cur = g_next;
+    g_next = load_g_out(a.g_out, M, (tile + (int)gridDim.x) * kTileRows + warp, lane);
+    neddf::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` landed; the stage of tile it - 1 is free
+    {
+      const int t = tile + (kStages - 1) * (int)gridDim.x;
+      if (t < n_tiles)
+        load_tile<T, P>(stages + (size_t)((it + kStages - 1) % kStages) * P * kTileRows * kC,
+                        a, t * kTileRows, tid);
+      neddf::cp_async_commit();
+    }
+    const T* st = stages + (size_t)(it % kStages) * P * kTileRows * kC;
+
+    // ---- phase a: warp w, row w of the tile
+    const int m = m0 + warp;
+    if (m < M) {
+      const int c0 = lane * kPerLane;
+      float wdr[8], war[8], h1[4], h2[4];
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) {
+        wdr[e] = head[2][c0 + e];
+        war[e] = head[3][c0 + e];
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float x[8];
+        load8(st + (s * kTileRows + warp) * kC + c0, x);
+        head_dots(x, wdr, war, h1[s], h2[s]);
+      }
+      const Row r = row_math(h1, h2, a.b2, a.scal);
+      float g_h1[4], g_h2[4];
+      row_vjp(r, __shfl_sync(0xffffffffu, g_cur, 0), __shfl_sync(0xffffffffu, g_cur, 1),
+              __shfl_sync(0xffffffffu, g_cur, 2), __shfl_sync(0xffffffffu, g_cur, 3), a.scal,
+              g_h1, g_h2);
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          rows[warp][s] = g_h1[s];
+          rows[warp][4 + s] = g_h2[s];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) rows[warp][8 + k] = r.dg[k];
+        db0 += g_h1[0];
+        db1 += g_h2[0];
+      }
+    }
+    __syncthreads();  // the row scalars
+
+    // ---- phase b: this thread's column vectors
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i / CV;
+      if (m0 + r >= M) continue;
+      const size_t row = (size_t)(m0 + r) * kC + cb;
+      const size_t plane = (size_t)M * kC;
+      auto at = [&](int p) { return st + (p * kTileRows + r) * kC + cb; };
+      float gt[V], d1[V], d2[V], coupling[V], o[V], wdf[V], waf[V];
+      load_f32<V>(&head[0][cb], wdf);  // f32 head weights, read again per vector
+      load_f32<V>(&head[1][cb], waf);  // (fewer registers across the tiles)
+      load_vec(at(kPlaneGt), gt);
+      if constexpr (TOP) {
+        float zv[V];
+        load_vec(at(kPlaneZ), zv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          float f;
+          neddf::act_fn3<ACT>(zv[e], f, d1[e], d2[e]);
+          coupling[e] = 0.f;
+        }
+      }
+      // the tangent streams: dj_a = g_h1 wd + g_h2 wa + g_tfeat grad D_a
+#pragma unroll
+      for (int s = 1; s < 4; ++s) {
+        const float g1 = rows[r][s], g2 = rows[r][4 + s], dg = rows[r][7 + s];
+        float x[V];
+        load_vec(at(s), x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          o[e] = fmaf(gt[e], dg, fmaf(g1, wdf[e], g2 * waf[e]));
+          dwd[e] = fmaf(x[e], g1, dwd[e]);
+          dwa[e] = fmaf(x[e], g2, dwa[e]);
+        }
+        if constexpr (TOP) {
+          float za[V];
+          if constexpr (kCouple) load_vec(at(kPlaneZ + s), za);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float gj = round_to<T>(o[e]);
+            if constexpr (kCouple) coupling[e] = fmaf(gj, za[e], coupling[e]);
+            o[e] = gj * d1[e];
+          }
+        }
+        store_vec(a.out_t + (s - 1) * plane + row, o);
+      }
+      // the value stream: dv = g_h1 wd + g_h2 wa
+      {
+        const float g1 = rows[r][0], g2 = rows[r][4];
+        float x[V];
+        load_vec(at(0), x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          o[e] = fmaf(g1, wdf[e], g2 * waf[e]);
+          dwd[e] = fmaf(x[e], g1, dwd[e]);
+          dwa[e] = fmaf(x[e], g2, dwa[e]);
+        }
+        if constexpr (TOP) {
+          float gc[V];
+          load_vec(at(kPlaneGc), gc);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float gv = round_to<T>(round_to<T>(o[e]) + gc[e]);
+            o[e] = kCouple ? neddf::dual_gv(gv, d1[e], d2[e], coupling[e])
+                           : neddf::dual_gv(gv, d1[e], 0.f, 0.f);
+            dbt[e] += o[e];
+          }
+        }
+        store_vec(a.out_v + row, o);
+      }
+    }
+  }
+
+  // ---- the block's partial, summed in a fixed order (threads of one
+  // column vector in thread order, the warps' db2 in warp order)
+  neddf::cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kQ][W - 2]
+  constexpr int NC = W - 2;
+  const int q = tid / CV;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    red[q * NC + cb + e] = dwd[e];
+    red[q * NC + kC + cb + e] = dwa[e];
+    if constexpr (TOP) red[q * NC + 2 * kC + cb + e] = dbt[e];
+  }
+  if (lane == 0) {
+    red_db2[warp][0] = db0;
+    red_db2[warp][1] = db1;
+  }
+  __syncthreads();
+  float* part = a.parts + (size_t)blockIdx.x * W;
+  for (int i = tid; i < NC; i += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < kQ; ++k) s += red[k * NC + i];
+    part[i < 2 * kC ? i : i + 2] = s;
+  }
+  if (tid < 2) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red_db2[w][tid];
+    part[2 * kC + tid] = s;
+  }
+}
+
+static_assert((size_t)4 * (kPartWidth<true> - 2) * (kThreads / (kC / 8)) <=
+                  epi_bwd_smem<__nv_bfloat16, neddf::kReLU, true>(),
+              "the partial's reduction fits in the stages");
+static_assert((size_t)4 * (kPartWidth<false> - 2) * (kThreads / (kC / 8)) <=
+                  epi_bwd_smem<__nv_bfloat16, neddf::kTanhExp, false>(),
+              "the partial's reduction fits in the stages");
+
+// blocks of one instantiation: as many as fit on the card at once (its
+// dynamic shared memory set once), at most one per tile
+template <typename T, int ACT, bool TOP>
+cudaError_t epi_bwd_blocks(int M, int* blocks) {
+  static int per_sm = -1, sms = 0;
+  if (per_sm < 0) {
+    auto kernel = epi_bwd_kernel<T, ACT, TOP>;
+    constexpr size_t smem = epi_bwd_smem<T, ACT, TOP>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0, n = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    per_sm = n;
+  }
+  const int tiles = (M + kTileRows - 1) / kTileRows;
+  *blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
+  return cudaSuccess;
+}
+
+template <typename T, int ACT, bool TOP>
+cudaError_t epi_bwd_launch(const EpiBwdArgs<T>& a, int blocks, cudaStream_t s) {
+  int fit = 0;  // unused: the call sets the kernel's shared memory limit once
+  const cudaError_t err = epi_bwd_blocks<T, ACT, TOP>(a.M, &fit);
+  if (err != cudaSuccess) return err;
+  epi_bwd_kernel<T, ACT, TOP>
+      <<<blocks, kThreads, epi_bwd_smem<T, ACT, TOP>(), s>>>(a);
+  return cudaGetLastError();
+}
+
+// fn(T, ACT, TOP) for the run-time dtype, activation and mode (the
+// standalone mode takes no activation)
+template <typename F>
+cudaError_t by_mode(int dtype, int act, int top, F&& fn) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  auto typed = [&](auto t_) -> cudaError_t {
+    using T = decltype(t_);
+    if (!top) return fn(T{}, std::integral_constant<int, neddf::kTanhExp>{},
+                        std::false_type{});
+    return neddf::by_act(act, [&](auto a_) {
+      return fn(T{}, a_, std::true_type{});
+    });
+  };
+  return dtype == 1 ? typed(__nv_bfloat16{}) : typed(float{});
 }
 
 }  // namespace
@@ -332,30 +652,63 @@ extern "C" int neddf_epilogue_fwd(int dtype, int M, const void* v, const void* j
   return (int)cudaGetLastError();
 }
 
-extern "C" int neddf_epilogue_bwd(int dtype, int M, int rows_per_block, const void* v,
-                                  const void* j, const void* wd, const void* wa,
-                                  const void* b2, const void* scal, const void* g_out,
-                                  const void* g_tfeat, void* dv, void* dj, void* parts,
-                                  void* stream) {
-  if (M <= 0 || rows_per_block <= 0) return (int)cudaErrorInvalidValue;
+// The backward's block count for M rows (the rows of its partials):
+// dtype 1 bf16 or 0 f32; top 0 the standalone mode, 1 the top mode with
+// act 0 tanhExp, 1 ReLU, 2 LeakyReLU.
+extern "C" int neddf_epilogue_bwd_blocks(int dtype, int act, int top, int M, int* blocks) {
+  if (M <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)by_mode(dtype, act, top, [&](auto t_, auto a_, auto top_) {
+    return epi_bwd_blocks<decltype(t_), decltype(a_)::value, decltype(top_)::value>(M, blocks);
+  });
+}
+
+// The epilogue's backward over M rows of the streams v [M, C] and j [3, M,
+// C] (C = 256, dtype 1 bf16 or 0 f32) with the f32 head weights wd, wa
+// [C], b2 [2], scal [8] and the cotangents g_out [10, M] f32 (rows 0, 1,
+// 2, 9 read) and g_tfeat [M, C]. top 0: dv into out_v [M, C], dj into
+// out_t [3, M, C]; g_col and z unused. top 1: also g_col [M, C] (the
+// colour trunk's cotangent of v_feat) and the top layer's stash z [4, M,
+// C] (only its value plane read under act 1 and 2), the stacked cotangent
+// gs into out_v (plane 0) and out_t (planes 1-3). `blocks` blocks (any
+// count; neddf_epilogue_bwd_blocks gives the one that fills the card)
+// each write one f32 partial row of parts [blocks, width], width = 2 C +
+// 2 (+ C at the top), and red [width] = their sum in block order: dwd,
+// dwa, db2 (and the top db).
+extern "C" int neddf_epilogue_bwd(int dtype, int act, int top, int M, int blocks,
+                                  const void* v, const void* j, const void* wd,
+                                  const void* wa, const void* b2, const void* scal,
+                                  const void* g_out, const void* g_tfeat, const void* g_col,
+                                  const void* z, void* out_v, void* out_t, void* parts,
+                                  void* red, void* stream) {
+  if (M <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (top && (g_col == nullptr || z == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (M + rows_per_block - 1) / rows_per_block;
-  const float* f_wd = static_cast<const float*>(wd);
-  const float* f_wa = static_cast<const float*>(wa);
-  const float* f_b2 = static_cast<const float*>(b2);
-  const float* f_sc = static_cast<const float*>(scal);
-  const float* f_g = static_cast<const float*>(g_out);
-  float* p = static_cast<float*>(parts);
-  if (dtype == 1)
-    epi_bwd_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        M, rows_per_block, static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(j), f_wd, f_wa, f_b2, f_sc, f_g,
-        static_cast<const __nv_bfloat16*>(g_tfeat), static_cast<__nv_bfloat16*>(dv),
-        static_cast<__nv_bfloat16*>(dj), p);
-  else
-    epi_bwd_kernel<float><<<grid, kWarps * 32, 0, s>>>(
-        M, rows_per_block, static_cast<const float*>(v), static_cast<const float*>(j),
-        f_wd, f_wa, f_b2, f_sc, f_g, static_cast<const float*>(g_tfeat),
-        static_cast<float*>(dv), static_cast<float*>(dj), p);
-  return (int)cudaGetLastError();
+  const int width = 2 * kC + 2 + (top ? kC : 0);
+  const cudaError_t err = by_mode(dtype, act, top, [&](auto t_, auto a_, auto top_) {
+    using T = decltype(t_);
+    const size_t plane = (size_t)M * kC;
+    const T* pv = static_cast<const T*>(v);
+    const T* pj = static_cast<const T*>(j);
+    const T* pz = static_cast<const T*>(z);
+    EpiBwdArgs<T> a{};
+    a.plane[0] = pv;
+    for (int k = 0; k < 3; ++k) a.plane[1 + k] = pj + k * plane;
+    a.plane[kPlaneGt] = static_cast<const T*>(g_tfeat);
+    if (top) {
+      a.plane[kPlaneGc] = static_cast<const T*>(g_col);
+      for (int k = 0; k < 4; ++k) a.plane[kPlaneZ + k] = pz + k * plane;
+    }
+    a.out_v = static_cast<T*>(out_v);
+    a.out_t = static_cast<T*>(out_t);
+    a.wd = static_cast<const float*>(wd);
+    a.wa = static_cast<const float*>(wa);
+    a.b2 = static_cast<const float*>(b2);
+    a.scal = static_cast<const float*>(scal);
+    a.g_out = static_cast<const float*>(g_out);
+    a.parts = static_cast<float*>(parts);
+    a.M = M;
+    return epi_bwd_launch<T, decltype(a_)::value, decltype(top_)::value>(a, blocks, s);
+  });
+  if (err != cudaSuccess) return (int)err;
+  return neddf_sum_splits(width, blocks, parts, red, stream);
 }

@@ -19,9 +19,10 @@ normal, trunk features]`` (``kernels/mlp.py``), then the colour head;
 ``fields_penalty`` is zeros.
 
 Training (``need_aux=True``, the JAX package's fused-epilogue path
-``_apply_fused_epilogue:397-486``): the trunk, ``kernels/
+``_apply_fused_epilogue:397-486``): the trunk and ``kernels/
 neddf_epilogue.py`` (heads, density, the four trunk penalties and the
-colour tangent seed t_feat), then the colour trunk as a K=1 dual MLP on
+colour tangent seed t_feat) in one autograd op (``DDFTrunkEpilogue``),
+then the colour trunk as a K=1 dual MLP on
 ``[PE dual(pos) along sg(grad D), PE(dir), sg(normal), features]`` with
 ``has_j=(T, F, F, T)`` (``_directional_color:356-395``), the colour head
 on value and tangent, and the range_color / constraints_color
@@ -53,7 +54,7 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     dual_mlp_trunk_plain,
 )
 from neddf_tpu_torch.kernels.mlp import mlp_seg, mlp_seg_plain
-from neddf_tpu_torch.kernels.neddf_epilogue import NeDDFEpilogue
+from neddf_tpu_torch.kernels.neddf_epilogue import DDFTrunkEpilogue
 from neddf_tpu_torch.ops.activations import (
     ACTIVATIONS,
     relu,
@@ -250,12 +251,6 @@ class NeDDF(nn.Module):
         emb_v, emb_j = pe_dual_planes_mip(
             pos, rank, var=var, chan_scale=pe_grad_scale(rank, device) * lowpass
         )
-        v_feat, j_feat = dual_mlp_apply(
-            [emb_v.to(cd).contiguous()], [emb_j.to(cd).contiguous()],
-            [layer.w for layer in self.layers_ddf], [layer.b for layer in self.layers_ddf],
-            self.trunk_layout, act, (True,), 3, cd, use_kernels,
-        )
-
         b2 = torch.cat([self.layer_ddf_out.b, self.layer_aux_out.b])
         scal = torch.tensor(
             [self.d_near, sched.aux_grad_scale, sched.distance_range_max,
@@ -263,9 +258,13 @@ class NeDDF(nn.Module):
              wm.get("range_distance", 1.0), wm.get("range_aux_grad", 1.0), 0.0],
             dtype=torch.float32, device=device,
         )
-        out, t_feat = NeDDFEpilogue.apply(
-            use_kernels, v_feat, j_feat, self.layer_ddf_out.w[:, 0],
-            self.layer_aux_out.w[:, 0], b2, scal,
+        # the trunk and the epilogue in one op: its backward finishes the
+        # trunk's top layer in the epilogue's kernel
+        v_feat, out, t_feat = DDFTrunkEpilogue.apply(
+            (self.trunk_layout, act, cd, use_kernels),
+            emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(),
+            self.layer_ddf_out.w[:, 0], self.layer_aux_out.w[:, 0], b2, scal,
+            *[layer.w for layer in self.layers_ddf], *[layer.b for layer in self.layers_ddf],
         )
         density, distance, aux_grad, pen4 = out[0], out[1], out[2], out[9]
         norm_dir = out[3:6].T.detach()  # [M, 3]

@@ -130,9 +130,10 @@ def library() -> ctypes.CDLL:
             _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
             _VOIDP, _VOIDP,
         ],
+        "neddf_epilogue_bwd_blocks": [_INT, _INT, _INT, _INT, _INTP],
         "neddf_epilogue_bwd": [
-            _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
         ],
     }
     for name, argtypes in signatures.items():

@@ -162,8 +162,9 @@ def dual_mlp_seg_bwd_plain(
     act_name: str,
     has_j: Sequence[bool],
     pres: Sequence[Tensor],
-    gv: Tensor,
-    gj: Tensor,
+    gv: Optional[Tensor],
+    gj: Optional[Tensor],
+    top: Optional[Tuple[Tensor, Tensor]] = None,
 ):
     """Plain version of ``dual_mlp_seg_bwd`` (``_bwd_kernel:835-932``).
 
@@ -171,7 +172,10 @@ def dual_mlp_seg_bwd_plain(
         vs, js, weights, layout, act_name, has_j: as in the forward
             (weights in the compute dtype T).
         pres: the forward's stash, per layer [K+1, M, C] in T.
-        gv: [M, C] and gj: [K, M, C] output cotangents.
+        gv: [M, C] and gj: [K, M, C] output cotangents (None with ``top``).
+        top: the top layer's stacked cotangent [K+1, M, C] in T and its db
+            [C] f32, formed by the caller (the epilogue's top mode):
+            the walk starts from them instead of from gv and gj.
 
     Returns:
         (dvs per segment [M, w_i] in T, djs per tangent input
@@ -181,11 +185,11 @@ def dual_mlp_seg_bwd_plain(
     dual_mlp_seg_bwd_plain.calls += 1
     f, df, ddf = ACTIVATION_TRIPLES[act_name]
     dtype = vs[0].dtype
-    n_tan = gj.shape[0]
+    n_tan = pres[-1].shape[0] - 1
     seg_j = _seg_js(js, has_j)
     widths = [v.shape[1] for v in vs]
     c0 = widths[0]
-    g = torch.cat([gv[None], gj], dim=0).float()
+    g = None if top is not None else torch.cat([gv[None], gj], dim=0).float()
     g_skip = None
     stack0 = _stack(vs[0], seg_j[0], n_tan).float()
     dws: List[Tensor] = [None] * len(weights)  # type: ignore[list-item]
@@ -194,11 +198,14 @@ def dual_mlp_seg_bwd_plain(
     djs: List[Tensor] = []
     for li in reversed(range(len(weights))):
         w = weights[li].float()
-        z = pres[li].float()
-        d1, d2 = df(z[0]), ddf(z[0])
-        gpre_v = g[0] * d1 + d2 * torch.sum(g[1:] * z[1:], dim=0)
-        gs = torch.cat([gpre_v[None], g[1:] * d1], dim=0).to(dtype).float()
-        dbs[li] = gpre_v.sum(dim=0)
+        if g is None:
+            gs, dbs[li] = top[0].float(), top[1]
+        else:
+            z = pres[li].float()
+            d1, d2 = df(z[0]), ddf(z[0])
+            gpre_v = g[0] * d1 + d2 * torch.sum(g[1:] * z[1:], dim=0)
+            gs = torch.cat([gpre_v[None], g[1:] * d1], dim=0).to(dtype).float()
+            dbs[li] = gpre_v.sum(dim=0)
         flat_g = gs.reshape(-1, gs.shape[-1])
         if li == 0:
             blocks, off = [], 0
@@ -901,20 +908,22 @@ class DualProductsPlain(ProductsPlain):
         return out
 
 
-def dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj, k):
+def dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj, k,
+                           top=None):
     """The kernels' walk of the dual backward over the launcher ``k``
     (``DualProducts`` on the card, ``DualProductsPlain`` in the CPU
     tests), as ``dual_mlp_seg_bwd_plain`` computes it: the top layer's
-    stacked cotangent G by its own kernel (``gstack``); then per layer l >
+    stacked cotangent G by its own kernel (``gstack``), or ``top`` = (G,
+    db) as the caller formed them (the NeDDF epilogue's top mode, which
+    then passes gv = gj = None); then per layer l >
     0, in reverse, dW_l = h_in^T G with h_in = (f(z_v), f'(z_v) z_a) of
     the stash z_{l-1} as the tn product's prologue (``tn_dual_act``), and
     G W_l^T with the epilogue G_{l-1} and its db (``nt_gstack``); a
     post-skip layer's seg0 rows of W take plain products (their dx is raw:
     it joins layer 0's first segment), and layer 0's segments too."""
     dtype = vs[0].dtype
-    n_tan = gj.shape[0]
-    s = n_tan + 1
-    m, width = gv.shape
+    s, m, _ = pres[-1].shape
+    n_tan = s - 1
     seg_j = _seg_js(js, has_j)
     c0 = vs[0].shape[1]
     n_layers = len(weights)
@@ -922,7 +931,7 @@ def dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, g
     dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
     dvs: List[Tensor] = []
     djs: List[Tensor] = []
-    gs, dbs[-1] = k.gstack(gv, gj, pres[-1], act_name)
+    gs, dbs[-1] = top if top is not None else k.gstack(gv, gj, pres[-1], act_name)
     g_skip = None
     for li in reversed(range(n_layers)):
         w = weights[li]
@@ -965,15 +974,17 @@ def dual_mlp_seg_bwd(
     act_name: str,
     has_j: Sequence[bool],
     pres: Sequence[Tensor],
-    gv: Tensor,
-    gj: Tensor,
+    gv: Optional[Tensor],
+    gj: Optional[Tensor],
+    top: Optional[Tuple[Tensor, Tensor]] = None,
 ):
     """Dual-MLP backward: the CUDA kernels for CUDA tensors
     (``dual_mlp_seg_bwd_route`` over ``DualProducts``), the plain version
-    for CPU tensors (see ``dual_mlp_seg_bwd_plain``).
+    for CPU tensors (see ``dual_mlp_seg_bwd_plain``, also for ``top``).
 
     The top layer's stacked cotangent (with the f'' coupling) comes from
-    its own kernel; below it, ``csrc/dual_mlp_bwd.cu`` folds each layer's
+    its own kernel, or from the caller (``top``: the NeDDF trunk's, from
+    the epilogue's backward, ``kernels/neddf_epilogue.py``); below it, ``csrc/dual_mlp_bwd.cu`` folds each layer's
     elementwise work into its two f32-accumulating products on the tensor
     cores (f32 by the 3xTF32 split), whose rows are grouped by point so
     that a tile holds every stream of its points: dW = h_in^T G forms the
@@ -984,24 +995,32 @@ def dual_mlp_seg_bwd(
     """
     device = vs[0].device
     if device.type == "cpu":
-        return dual_mlp_seg_bwd_plain(vs, js, weights, layout, act_name, has_j, pres, gv, gj)
+        return dual_mlp_seg_bwd_plain(vs, js, weights, layout, act_name, has_j, pres, gv, gj,
+                                      top)
     if device.type != "cuda":
         raise ValueError(f"dual_mlp_seg_bwd: unsupported device {device}")
-    n_tan = gj.shape[0]
+    if not pres or len(pres) != len(weights):
+        raise ValueError("dual_mlp_seg_bwd: one stash per layer")
+    s, m, width = pres[-1].shape
+    n_tan = s - 1
     biases = [torch.empty(w.shape[1], device=device) for w in weights]
     _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan)
     dtype = vs[0].dtype
-    m, width = gv.shape
-    s = n_tan + 1
-    for t in (*pres, gv, gj):
+    if top is None:
+        cots, shapes = (gv, gj), [(m, width), (n_tan, m, width)]
+    else:
+        cots, shapes = (top[0],), [(s, m, width)]
+        if tuple(top[1].shape) != (width,) or top[1].dtype != torch.float32:
+            raise ValueError("dual_mlp_seg_bwd: the top db")
+    for t in (*pres, *cots):
         if t.dtype != dtype or not t.is_contiguous() or t.device != device:
             raise ValueError("dual_mlp_seg_bwd: stash/cotangent dtype, layout or device")
-    if tuple(gj.shape) != (n_tan, m, width) or any(
-            tuple(p.shape) != (s, m, width) for p in pres) or len(pres) != len(weights):
+    if [tuple(t.shape) for t in cots] != shapes or any(
+            tuple(p.shape) != (s, m, width) for p in pres):
         raise ValueError("dual_mlp_seg_bwd: stash/cotangent shapes")
     with torch.cuda.device(device):
         out = dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj,
-                                     DualProducts(dtype, device))
+                                     DualProducts(dtype, device), top)
     dual_mlp_seg_bwd.launches += 1
     return out
 

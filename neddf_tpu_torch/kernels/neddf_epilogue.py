@@ -27,19 +27,34 @@ no gradient: the field consumes them only under stop-gradient
 The backward is the hand-written second-order VJP of ``_bwd_kernel``
 (``:183-326``): it recomputes the heads, reads the cotangents of rows
 0, 1, 2 and 9 and of t_feat (which flows into j alone), and returns dv,
-dj, dwd, dwa [C] and db2 [2] (f32, summed across rows in a fixed order).
+dj, dwd, dwa [C] and db2 [2] (f32, summed across rows in a fixed order)
+(``neddf_epilogue_bwd``). On the training path its kernel also finishes
+the K=3 trunk's top layer (``neddf_epilogue_gstack``): it adds the colour
+trunk's cotangent of v_feat to dv and forms the top layer's stacked
+cotangent from the trunk's stash, so dv and dj never reach device
+memory; ``DDFTrunkEpilogue`` is the autograd op of the trunk and the
+epilogue together, whose backward continues the trunk's from there.
 
 For CPU tensors the wrappers run the plain versions (``*_plain``); for
 CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from neddf_tpu_torch.kernels import _build
+from neddf_tpu_torch.kernels.dual_mlp import (
+    _ACT_CODES,
+    DualProductsPlain,
+    dual_mlp_seg_bwd,
+    dual_mlp_seg_bwd_plain,
+    dual_mlp_seg_plain,
+    dual_mlp_trunk,
+)
 
 Tensor = torch.Tensor
 
@@ -47,7 +62,6 @@ N_OUT = 10
 _EPS_NORM = 1e-7
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTH = 256
-_ROWS_PER_BLOCK = 64  # backward: rows per block (one dwd/dwa/db2 partial each)
 
 
 def _relu(x: Tensor) -> Tensor:
@@ -241,42 +255,123 @@ def neddf_epilogue(v, j, wd, wa, b2, scal):
 neddf_epilogue.launches = 0
 
 
+def _bwd_cotangents(what, v, g_out, g_tfeat):
+    m, c = v.shape
+    g_out = g_out.float().contiguous()
+    g_tfeat = g_tfeat.to(v.dtype).contiguous()
+    if tuple(g_out.shape) != (N_OUT, m) or tuple(g_tfeat.shape) != (m, c):
+        raise ValueError(f"{what}: cotangent shapes")
+    return g_out, g_tfeat
+
+
+def _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, out_v, out_t, act=0,
+                g_col=None, z=None) -> Tensor:
+    """One launch of ``csrc/neddf_epilogue.cu``'s backward (the top mode
+    when ``z`` is given) over v's M > 0 rows: its outputs into out_v and
+    out_t; returns the fixed-order sums [dwd, dwa, db2 (, the top db)]."""
+    m, c = v.shape
+    top = z is not None
+    lib = _build.library()
+    dt = _KERNEL_DTYPES[v.dtype]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(v.device):
+        _build.check(lib.neddf_epilogue_bwd_blocks(dt, act, int(top), m, ctypes.byref(blocks)),
+                     f"{what} blocks")
+        width = 2 * c + 2 + (c if top else 0)
+        parts = torch.empty((blocks.value, width), dtype=torch.float32, device=v.device)
+        red = torch.empty(width, dtype=torch.float32, device=v.device)
+        _build.check(lib.neddf_epilogue_bwd(
+            dt, act, int(top), m, blocks.value, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+            wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
+            g_tfeat.data_ptr(), None if g_col is None else g_col.data_ptr(),
+            None if z is None else z.data_ptr(), out_v.data_ptr(), out_t.data_ptr(),
+            parts.data_ptr(), red.data_ptr(), _stream(v.device)), what)
+    return red
+
+
 def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat):
-    """Epilogue backward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see ``neddf_epilogue_bwd_plain``)."""
+    """Epilogue backward: the CUDA kernel (its standalone mode) for CUDA
+    tensors, the plain version for CPU tensors (see
+    ``neddf_epilogue_bwd_plain``)."""
     if v.device.type == "cpu":
         return neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat)
     if v.device.type != "cuda":
         raise ValueError(f"neddf_epilogue_bwd: unsupported device {v.device}")
     _check_kernel_args(v, j, wd, wa, b2, scal)
     m, c = v.shape
-    g_out = g_out.float().contiguous()
-    g_tfeat = g_tfeat.to(v.dtype).contiguous()
-    if tuple(g_out.shape) != (N_OUT, m) or tuple(g_tfeat.shape) != (m, c):
-        raise ValueError("neddf_epilogue_bwd: cotangent shapes")
+    g_out, g_tfeat = _bwd_cotangents("neddf_epilogue_bwd", v, g_out, g_tfeat)
     dv, dj = torch.empty_like(v), torch.empty_like(j)
-    n_blk = max(1, -(-m // _ROWS_PER_BLOCK))
-    parts = torch.empty((n_blk, 2 * c + 2), dtype=torch.float32, device=v.device)
-    red = torch.empty(2 * c + 2, dtype=torch.float32, device=v.device)
     if m == 0:
-        red.zero_()
+        red = torch.zeros(2 * c + 2, dtype=torch.float32, device=v.device)
     else:
-        lib = _build.library()
-        with torch.cuda.device(v.device):
-            code = lib.neddf_epilogue_bwd(
-                _KERNEL_DTYPES[v.dtype], m, _ROWS_PER_BLOCK, v.data_ptr(), j.data_ptr(),
-                wd.data_ptr(), wa.data_ptr(), b2.data_ptr(), scal.data_ptr(),
-                g_out.data_ptr(), g_tfeat.data_ptr(), dv.data_ptr(), dj.data_ptr(),
-                parts.data_ptr(), _stream(v.device))
-            _build.check(code, "neddf_epilogue_bwd")
-            _build.check(lib.neddf_sum_splits(red.numel(), n_blk, parts.data_ptr(),
-                                              red.data_ptr(), _stream(v.device)),
-                         "neddf_epilogue_bwd sum")
+        red = _launch_bwd("neddf_epilogue_bwd", v, j, wd, wa, b2, scal, g_out, g_tfeat,
+                          dv, dj)
         neddf_epilogue_bwd.launches += 1
     return dv, dj, red[:c], red[c : 2 * c], red[2 * c :]
 
 
 neddf_epilogue_bwd.launches = 0
+
+
+def neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name):
+    """Plain version of the backward's top mode: the epilogue's VJP
+    (``neddf_epilogue_bwd_plain``), then the add of the colour trunk's
+    cotangent of v_feat in v's dtype, as autograd adds a tensor's two
+    cotangents, then the K=3 trunk's top-layer stacked cotangent
+    (``DualProductsPlain.gstack``).
+
+    Args:
+        v, j, wd, wa, b2, scal, g_out, g_tfeat: as ``neddf_epilogue_bwd_plain``.
+        g_col: [M, C] the colour trunk's cotangent of v_feat.
+        z: [4, M, C] the trunk's top-layer stash (v's dtype); only z[0]
+            is read where f'' is identically zero.
+        act_name: the trunk's activation.
+
+    Returns:
+        (gs [4, M, C] in v's dtype, dwd [C], dwa [C], db2 [2], the top
+        layer's db [C], f32).
+    """
+    neddf_epilogue_gstack_plain.calls += 1
+    dv, dj, dwd, dwa, db2 = neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat)
+    gv = dv + g_col.to(dv.dtype)
+    gs, db = DualProductsPlain(v.dtype).gstack(gv, dj, z, act_name)
+    return gs, dwd, dwa, db2, db
+
+
+neddf_epilogue_gstack_plain.calls = 0
+
+
+def neddf_epilogue_gstack(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name):
+    """The epilogue's backward with the K=3 trunk's top layer (the
+    kernel's top mode): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see ``neddf_epilogue_gstack_plain``)."""
+    if v.device.type == "cpu":
+        return neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z,
+                                           act_name)
+    if v.device.type != "cuda":
+        raise ValueError(f"neddf_epilogue_gstack: unsupported device {v.device}")
+    what = "neddf_epilogue_gstack"
+    _check_kernel_args(v, j, wd, wa, b2, scal)
+    if act_name not in _ACT_CODES:
+        raise NotImplementedError(f"CUDA {what} kernel: activation {act_name!r}")
+    m, c = v.shape
+    g_out, g_tfeat = _bwd_cotangents(what, v, g_out, g_tfeat)
+    g_col = g_col.to(v.dtype).contiguous()
+    if tuple(g_col.shape) != (m, c) or tuple(z.shape) != (4, m, c):
+        raise ValueError(f"{what}: g_col {tuple(g_col.shape)} / stash {tuple(z.shape)}")
+    if z.dtype != v.dtype or z.device != v.device or not z.is_contiguous():
+        raise ValueError(f"{what}: stash dtype, device or layout")
+    gs = torch.empty((4, m, c), dtype=v.dtype, device=v.device)
+    if m == 0:
+        red = torch.zeros(3 * c + 2, dtype=torch.float32, device=v.device)
+    else:
+        red = _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, gs[0], gs[1:],
+                          _ACT_CODES[act_name], g_col, z)
+        neddf_epilogue_gstack.launches += 1
+    return gs, red[:c], red[c : 2 * c], red[2 * c : 2 * c + 2], red[2 * c + 2 :]
+
+
+neddf_epilogue_gstack.launches = 0
 
 
 class NeDDFEpilogue(torch.autograd.Function):
@@ -300,3 +395,56 @@ class NeDDFEpilogue(torch.autograd.Function):
         bwd = neddf_epilogue_bwd if ctx.use_kernels else neddf_epilogue_bwd_plain
         dv, dj, dwd, dwa, db2 = bwd(*args, g_out, g_tfeat)
         return None, dv, dj, dwd, dwa, db2, None
+
+
+class DDFTrunkEpilogue(torch.autograd.Function):
+    """The NeDDF distance trunk (the K=3 dual MLP with its stash,
+    ``kernels/dual_mlp.py``) and the epilogue forward in one op, whose
+    backward runs the epilogue's VJP together with the trunk's top layer
+    (``neddf_epilogue_gstack``) and continues the trunk's backward from
+    the stacked cotangent it writes (``dual_mlp_seg_bwd`` with ``top``).
+
+    ``apply(config, emb_v, emb_j, wd, wa, b2, scal, *weights, *biases)``
+    with ``config = (layout, act_name, compute_dtype, use_kernels)``:
+    emb_v [M, C0] and emb_j [3, M, C0] the trunk's input in the compute
+    dtype, wd and wa [C] the head weights, b2 [2], scal [8] (no
+    gradient), the trunk's f32 master weights and biases (cast to the
+    compute dtype inside; dW and db come back f32). ``use_kernels=False``
+    runs the plain versions on any device; ``True`` lets the wrappers
+    choose by device. Returns (v_feat [M, C] in the compute dtype, out
+    [10, M] f32, t_feat [M, C]); v_feat's cotangent is the colour trunk's.
+    """
+
+    @staticmethod
+    def forward(ctx, config, emb_v, emb_j, wd, wa, b2, scal, *params):
+        layout, act_name, cd, use_kernels = config
+        n_l = len(layout)
+        weights = [w.to(cd).contiguous() for w in params[:n_l]]
+        biases = [b.float().contiguous() for b in params[n_l:]]
+        head = (wd.float().contiguous(), wa.float().contiguous(), b2.float().contiguous(), scal)
+        stash = any(ctx.needs_input_grad[1:])
+        if use_kernels:
+            trunk = dual_mlp_trunk(emb_v, emb_j, weights, biases, layout, act_name, stash)
+        else:
+            trunk = dual_mlp_seg_plain([emb_v], [emb_j], weights, biases, layout, act_name,
+                                       (True,), 3, stash)
+        v, j = trunk[0], trunk[1]
+        out, t_feat = (neddf_epilogue if use_kernels else neddf_epilogue_plain)(v, j, *head)
+        if stash:
+            ctx.config = config
+            ctx.save_for_backward(emb_v, emb_j, v, j, *head, *weights, *trunk[2])
+        return v, out, t_feat
+
+    @staticmethod
+    def backward(ctx, g_vfeat, g_out, g_tfeat):
+        layout, act_name, cd, use_kernels = ctx.config
+        n_l = len(layout)
+        emb_v, emb_j, v, j, wd, wa, b2, scal, *rest = ctx.saved_tensors
+        weights, pres = rest[:n_l], rest[n_l:]
+        top = neddf_epilogue_gstack if use_kernels else neddf_epilogue_gstack_plain
+        gs, dwd, dwa, db2, db_top = top(v, j, wd, wa, b2, scal, g_out, g_tfeat,
+                                        g_vfeat.to(cd).contiguous(), pres[-1], act_name)
+        bwd = dual_mlp_seg_bwd if use_kernels else dual_mlp_seg_bwd_plain
+        dvs, djs, dws, dbs = bwd([emb_v], [emb_j], weights, layout, act_name, (True,), pres,
+                                 None, None, top=(gs, db_top))
+        return (None, dvs[0], djs[0], dwd, dwa, db2, None, *dws, *dbs)

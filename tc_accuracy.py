@@ -53,9 +53,14 @@ every kernel it launches (the products by layout and by what they fold
 in, and each elementwise pass) with its launches and device ms per call
 and, for the elementwise passes, the bytes it must move; and the db sum
 at the NeuS fine pass (1,552 tile partials of 256 columns): one-block
-``neddf_sum_splits`` against ``neddf_sum_rows`` where the tree has it.
+``neddf_sum_splits`` against ``neddf_sum_rows`` where the tree has it;
+and NeDDF's fine pass from the epilogue's cotangents to the K=3 trunk's
+top-layer stacked cotangent (``measure_epilogue``): the epilogue
+backward, the add and the top ``gstack``, and the epilogue backward's top
+mode where the tree has it, kernel by kernel with their byte bounds.
 
-With ``--train FAMILY ...`` (neddf, nerf, neus) only a 200-step run of
+With ``--train FAMILY ...`` (neddf, nerf, neus; after ``--passes``
+where both are given) a 200-step run of
 each configuration through this tree's ``scripts/run.py`` (NeDDF: the
 default config of ``chip_smoke.py`` phase 8; NeRF and NeuS: phase 11's)
 (``train``): ms/step over steps 100-199, rays/s, peak device memory, and
@@ -397,6 +402,64 @@ def measure_passes(torch, smoke, dev) -> dict:
         for name, fn in sums.items():
             r[f"{name}_ms"] = smoke.profile_calls(torch, fn)[1]
     print(f"passes db_sum: {json.dumps(out['db_sum'])}", flush=True)
+    out["epilogue"] = measure_epilogue(torch, smoke, dev)
+    return out
+
+
+def measure_epilogue(torch, smoke, dev) -> dict:
+    """NeDDF's fine pass (99,328 rows, bf16, tanhExp) from the epilogue's
+    cotangents to the K=3 trunk's top-layer stacked cotangent gs: the
+    three steps (the epilogue backward writing dv and dj, autograd's add of
+    the colour trunk's cotangent of v_feat, the top layer's gstack) and,
+    where the tree has it, the epilogue backward's top mode doing all
+    three; each route's median CUDA-event ms and, by the profiler over
+    three calls, its kernels with their bytes (inputs read once, outputs
+    written once, in [M, 256] bf16 planes) and byte bounds."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+
+    rows, bf = M_NEDDF_FINE, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    v, j, z = randn(rows, 256).to(bf), randn(3, rows, 256, scale=0.3).to(bf), randn(4, rows, 256).to(bf)
+    wd, wa = randn(256, scale=1 / 16), randn(256, scale=1 / 16)
+    b2 = torch.tensor([0.3, -0.2], device=dev)
+    scal = torch.tensor([0.001, 1.1, 2.0, 0.05, 1.0, 1.0, 1.0, 0.0], device=dev)
+    g_out = randn(10, rows)
+    g_t, g_col = randn(rows, 256, scale=0.1).to(bf), randn(rows, 256, scale=0.1).to(bf)
+    k = dm.DualProducts(bf, dev)
+
+    def composed():
+        dv, dj = epi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t)[:2]
+        return k.gstack(dv + g_col, dj, z, "tanhExp")
+
+    # planes per kernel: the epilogue backward reads v, j, g_tfeat (and at
+    # the top g_col and the stash's 4 planes) and writes dv, dj (gs); the
+    # add reads 2 and writes 1; gstack reads gv, gj, z and writes gs; both
+    # epilogue modes also read 4 f32 values of g_out per row
+    routes = {"composed": (composed, {"epi_bwd_kernel": 9, "elementwise": 3,
+                                      "gstack_kernel": 12})}
+    if hasattr(epi, "neddf_epilogue_gstack"):
+        routes["top_mode"] = (lambda: epi.neddf_epilogue_gstack(
+            v, j, wd, wa, b2, scal, g_out, g_t, g_col, z, "tanhExp"), {"epi_bwd_kernel": 14})
+    plane = rows * 256 * 2
+    out = {}
+    for name, (fn, planes) in routes.items():
+        kernels, device_ms = smoke.profile_calls(torch, fn, calls=3)
+        total = 0.0
+        for key, r in kernels.items():
+            n = next((count for part, count in planes.items() if part in key), None)
+            if n is None:
+                continue
+            r["bytes"] = n * plane + (16 * rows if key == "epi_bwd_kernel" else 0)
+            r["bound_ms"] = 1e3 * r["bytes"] / smoke.MEM_RATE
+            total += r["bound_ms"]
+        out[name] = {"rows": rows, "ms": smoke.time_pair(torch, fn, fn, reps=3)[0],
+                     "device_ms": device_ms, "bound_ms": total, "kernels": kernels}
+        print(f"passes epilogue {name}: {json.dumps(out[name])}", flush=True)
     return out
 
 
@@ -470,13 +533,14 @@ def main() -> int:
     sd = params_from_jax(load_msgpack_params(smoke.RUN / "models" / f"model_{smoke.EPOCH:05}.ckpt"))
     result = {"tree": str(args.tree), "card": smoke.card_line(),
               "build": str(_build.build_dir())}
-    if args.train:
-        result["train"] = [measure_train(torch, smoke, family, args.tree.resolve().name)
-                           for family in args.train]
+    if args.passes or args.train:
+        if args.passes:
+            result["passes"] = measure_passes(torch, smoke, dev)
+        if args.train:
+            result["train"] = [measure_train(torch, smoke, family, args.tree.resolve().name)
+                               for family in args.train]
     elif args.neus_run:
         result["neus_run"] = measure_neus_run(torch, smoke, args.neus_run, args.seed)
-    elif args.passes:
-        result["passes"] = measure_passes(torch, smoke, dev)
     elif args.f32:
         result["f32"] = measure_f32(torch, smoke, dev)
     else:
