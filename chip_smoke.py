@@ -87,7 +87,8 @@ Phases (any failure stops the script with a non-zero exit code):
 10. one full-width f32 train step of each family (``FAMILY_OVERRIDES``)
    from the seeded parameters of ``family_params``, against the JAX
    package's numbers on the CPU (``FAMILY_STEP``, made by
-   ``tools/family_step_reference.py``);
+   ``tools/family_step_reference.py``), with ``optimize_camera``: the
+   camera's pose-delta gradient too;
 11. a 300-step run of each configuration through ``scripts/run.py``
    (NeRF: separate coarse network, point samples, bf16; NeuS: f32):
    every loss finite, train PSNR of the last 50 steps at least 3 dB above
@@ -101,10 +102,41 @@ Phases (any failure stops the script with a non-zero exit code):
    do not take raising NotImplementedError on the card;
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
    and through the plain versions: PSNR within 0.05 dB;
-13. one JSON line of per-kernel results (with each route's bound; the
-   parallel db sum among them), the card line, and the final
+14. resume: phase 8's run is run A; run B, the same command as a
+   subprocess, is killed by pid (``training/watchdog.py::_kill_child``)
+   as soon as its epoch-0 checkpoint is on disk (its bytes must equal
+   A's) and continued in this process by ``scripts.run --resume``; the
+   whole training state (params, Adam moments and counts, camera deltas
+   and their optimizer, iteration, the generator) and the losses of
+   epochs 1-2 must equal A's bitwise (else a second uninterrupted run A'
+   sets the spread B may show); 14b: one epoch of ``python -m
+   neddf_tpu_torch.scripts.run --watchdog`` with ``optimize_camera``,
+   ``grad_accum=2``, ``debug_nans`` and ``async_checkpoint`` (a
+   subprocess, started with run B) ends with exit code 0 and a full-state
+   checkpoint;
+15. the camera path: (a) phase 7's f32 step with ``optimize_camera``,
+   camera 0's pose-delta gradient against the JAX package's
+   (``JAX_STEP["camera_grad"]``); (b) one step of each family at 512
+   rays through the kernels and through the plain versions, the camera
+   gradients against each other, the routes counted, one
+   ``RowSparseAdam`` step moving that row only; (c) one epoch of the
+   default config with ``trainer.optimize_camera=true``: ms/step, device
+   ms/step and launches per step beside the default run's; (d) the device
+   ms per step of the products that form input cotangents the default
+   step throws away;
+16. ``grad_accum`` 2 and 4 against 1 on one default-config step (bf16 and
+   f32, then with ``optimize_camera``), and one epoch at grad_accum=2;
+17. ``export_pth`` of phase 8's run dir loaded back bitwise, an
+   ``async_checkpoint`` save equal in bytes to a synchronous one, the
+   logger's scalar names under ``log/``, ``debug_nans`` raising on a NaN
+   weight, a ``profile_trace_start=2`` trace under ``log/profile/``, and
+   the host syncs of one step under ``torch.cuda.set_sync_debug_mode``
+   (``camera_pose`` must make none);
+13. (printed last) one JSON line of per-kernel results (with each route's
+   bound; the parallel db sum among them), the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
+Each dataset split is decoded once in this process (``cache_datasets``).
 Outputs go to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
@@ -215,46 +247,56 @@ def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
 
 # The JAX package's numbers for the phase-7 step, made once on a CPU with
 #   JAX_PLATFORMS=cpu python tools/train_step_reference.py
-# (f32, network.fused=off, the draws of machine_step_draws).
+# (f32, network.fused=off, the draws of machine_step_draws); camera_grad
+# and its spread are phase 15a's.
 JAX_STEP = {
-    "loss": 0.0013547701528295875,
-    "mse": 0.0005737819010391831,
+    "loss": 0.0013547728303819895,
+    "mse": 0.0005737842293456197,
     "losses": {
-        "color": 0.0005737819010391831,
-        "color_coarse": 7.981861563166603e-05,
-        "fields_penalty": 7.665925659239292e-05,
-        "fields_penalty_coarse": 7.612659828737378e-05,
-        "mask": 0.0004969337023794651,
-        "mask_coarse": 5.144994065631181e-05
+        "color": 0.0005737842293456197,
+        "color_coarse": 7.981894304975867e-05,
+        "fields_penalty": 7.665929297218099e-05,
+        "fields_penalty_coarse": 7.61266055633314e-05,
+        "mask": 0.0004969338187947869,
+        "mask_coarse": 5.144995520822704e-05
     },
     "grad_norms": {
-        "network_fine.layer_aux_out.b": 3.109806857537478e-05,
-        "network_fine.layer_aux_out.w": 0.00024105420743580908,
-        "network_fine.layer_col_out.b": 0.008281256072223186,
-        "network_fine.layer_col_out.w": 0.025889305397868156,
-        "network_fine.layer_ddf_out.b": 0.001219598576426506,
-        "network_fine.layer_ddf_out.w": 0.009699663147330284,
-        "network_fine.layers_col.0.b": 0.00045613813563250005,
-        "network_fine.layers_col.0.w": 0.004541441332548857,
-        "network_fine.layers_col.1.b": 0.0004439102776814252,
-        "network_fine.layers_col.1.w": 0.003714929334819317,
-        "network_fine.layers_col.2.b": 0.0010617395164445043,
-        "network_fine.layers_col.2.w": 0.00642088009044528,
-        "network_fine.layers_ddf.0.b": 0.0023002377711236477,
-        "network_fine.layers_ddf.0.w": 0.008921648375689983,
-        "network_fine.layers_ddf.1.b": 0.0008418082143180072,
-        "network_fine.layers_ddf.1.w": 0.0018240236677229404,
-        "network_fine.layers_ddf.2.b": 0.0004552035534288734,
-        "network_fine.layers_ddf.2.w": 0.0020261395256966352,
-        "network_fine.layers_ddf.3.b": 0.00030857548699714243,
-        "network_fine.layers_ddf.3.w": 0.002669532084837556,
-        "network_fine.layers_ddf.4.b": 0.00028954504523426294,
-        "network_fine.layers_ddf.4.w": 0.0035387263633310795,
-        "network_fine.layers_ddf.5.b": 0.0004389485402498394,
-        "network_fine.layers_ddf.5.w": 0.00551997497677803,
-        "network_fine.layers_ddf.6.b": 0.0005343757220543921,
-        "network_fine.layers_ddf.6.w": 0.005504352506250143
-    }
+        "network_fine.layer_aux_out.b": 3.109811950707808e-05,
+        "network_fine.layer_aux_out.w": 0.00024105430929921567,
+        "network_fine.layer_col_out.b": 0.008281280286610126,
+        "network_fine.layer_col_out.w": 0.025889361277222633,
+        "network_fine.layer_ddf_out.b": 0.0012196124298498034,
+        "network_fine.layer_ddf_out.w": 0.009699746966362,
+        "network_fine.layers_col.0.b": 0.0004561395035125315,
+        "network_fine.layers_col.0.w": 0.004541456233710051,
+        "network_fine.layers_col.1.b": 0.0004439109761733562,
+        "network_fine.layers_col.1.w": 0.003714937251061201,
+        "network_fine.layers_col.2.b": 0.001061740331351757,
+        "network_fine.layers_col.2.w": 0.006420883350074291,
+        "network_fine.layers_ddf.0.b": 0.0023002305533736944,
+        "network_fine.layers_ddf.0.w": 0.008921636268496513,
+        "network_fine.layers_ddf.1.b": 0.000841807690449059,
+        "network_fine.layers_ddf.1.w": 0.0018240285571664572,
+        "network_fine.layers_ddf.2.b": 0.0004552037862595171,
+        "network_fine.layers_ddf.2.w": 0.002026146976277232,
+        "network_fine.layers_ddf.3.b": 0.00030857636011205614,
+        "network_fine.layers_ddf.3.w": 0.0026695425622165203,
+        "network_fine.layers_ddf.4.b": 0.00028954644221812487,
+        "network_fine.layers_ddf.4.w": 0.0035387391690164804,
+        "network_fine.layers_ddf.5.b": 0.0004389507230371237,
+        "network_fine.layers_ddf.5.w": 0.005519998259842396,
+        "network_fine.layers_ddf.6.b": 0.0005343801458366215,
+        "network_fine.layers_ddf.6.w": 0.0055043878965079784
+    },
+    "camera_grad": [
+        0.017266057431697845,
+        -0.0013490300625562668,
+        0.0023521985858678818,
+        0.03997461497783661,
+        0.04528425633907318,
+        -0.0573374480009079
+    ],
+    "camera_grad_spread": 1.6634530456345573e-05
 }
 # f32 port on the card vs the JAX package on a CPU: sums in another
 # order, amplified by 1/D in the density and moving the inverse-CDF
@@ -451,22 +493,19 @@ def profile_render(torch, trainer, eval_dir: Path, card: str, untraced_s: float)
     the tracing cost on the host low); write device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    from neddf_tpu_torch.utils.profiling import device_time_table
+
     torch.cuda.synchronize()
     start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.render_test(eval_dir, 0, 1)
         torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    busy, table = device_time_table(prof, 30)
     lines = [f"card: {card}",
              f"traced wall {wall:.3f} s, untraced wall {untraced_s:.3f} s, device busy "
              f"{busy:.3f} s: busy share {busy / wall:.3f} traced, "
-             f"{busy / untraced_s:.3f} of the untraced wall"]
-    for e in kernels[:30]:
-        t = e.self_device_time_total / 1e6
-        lines.append(f"{t:9.4f} s {100 * t / busy:6.2f}% n={e.count:6d}  {e.key[:110]}")
+             f"{busy / untraced_s:.3f} of the untraced wall", *table]
     (OUT / "profile.txt").write_text("\n".join(lines) + "\n")
     for line in lines[:8]:
         log(f"[5] {line}")
@@ -929,7 +968,7 @@ def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> 
         fail(f"{what}: product routes {counts['products']}, expected {route} only")
 
 
-def machine_trainer(torch):
+def machine_trainer(torch, optimize_camera: bool = False):
     """The trainer of pretrained/machine_neddf on its train split (f32,
     kernels), epoch-1000 params, at the phase-7 iteration."""
     from neddf_tpu_torch import config as config_lib
@@ -937,7 +976,7 @@ def machine_trainer(torch):
     cfg = config_lib.load_snapshot(RUN)
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["network"]["compute_dtype"] = "float32"
-    cfg["trainer"]["device"] = "cuda"
+    cfg["trainer"].update(device="cuda", optimize_camera=optimize_camera)
     trainer = config_lib.instantiate(cfg["trainer"], global_config=cfg)
     trainer.load_pretrained_model(RUN / "models" / f"model_{EPOCH:05}.ckpt")
     trainer.iteration = MACHINE_ITERATION
@@ -1033,15 +1072,21 @@ def run_main_path(torch, run_dir: Path, extra=()):
 
 
 def profile_train(torch, trainer, card: str, name: str = "profile_train.txt",
-                  what: str = "512 rays, bf16", tag: str = "8", steps: int = 5) -> float:
+                  what: str = "512 rays, bf16", tag: str = "8", steps: int = 5) -> dict:
     """Device time by kernel over a few more train steps, into
-    ``OUT/name``; returns the device's busy share of the traced wall."""
+    ``OUT/name``; returns the device's busy share of the traced wall, the
+    device ms per step and the kernel launches per step (counted over the
+    traced steps)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from neddf_tpu_torch.utils.profiling import device_time_table
 
     for cam in range(2):
         trainer.run_train_step(cam)
     trainer.flush_logs()
     torch.cuda.synchronize()
+    kernels, _ = path_counters()
+    before = {k: fn.launches for k, fn in kernels.items()}
     start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for cam in range(steps):
@@ -1049,19 +1094,17 @@ def profile_train(torch, trainer, card: str, name: str = "profile_train.txt",
         trainer.flush_logs()
         torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = {k: (fn.launches - before[k]) / steps for k, fn in kernels.items()
+                if fn.launches > before[k]}
+    busy, table = device_time_table(prof)
     lines = [f"card: {card}",
              f"{steps} train steps ({what}): traced wall {wall:.3f} s, device busy "
-             f"{busy:.3f} s, busy share {busy / wall:.3f} of the traced wall"]
-    for e in kernels[:40]:
-        t = e.self_device_time_total / 1e6
-        lines.append(f"{t:9.4f} s {100 * t / busy:6.2f}% n={e.count:6d}  {e.key[:110]}")
+             f"{busy:.3f} s, busy share {busy / wall:.3f} of the traced wall", *table]
     (OUT / name).write_text("\n".join(lines) + "\n")
     for line in lines[:12]:
         log(f"[{tag}] {line}")
-    return busy / wall
+    return {"busy_share": busy / wall, "device_ms_per_step": 1000.0 * busy / steps,
+            "launches_per_step": launches}
 
 
 def mean(xs):
@@ -1145,7 +1188,9 @@ def phase_train_run(torch, card: str) -> dict:
     samples = 2 * (render.sample_coarse + 1) + render.sample_fine + 1
     log(f"[8] {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, bf16, "
         f"{trainer.batch_size} rays x {samples} samples) | card: {card}")
-    profile_train(torch, trainer, card)
+    # run A of phase 14: its state and losses before any step beyond the run
+    run_a = {"state": trainer.checkpoint_state(), "losses": [r["loss"] for r in hist[100:300]]}
+    prof = profile_train(torch, trainer, card)
     kernel_hist = [dict(r) for r in hist[:100]]
     del trainer
     torch.cuda.empty_cache()
@@ -1169,16 +1214,19 @@ def phase_train_run(torch, card: str) -> dict:
             "rays_per_s": rays_s, "psnr_first50": first, "psnr_last50": last,
             "wall_s": wall, "plain_ms_per_step": plain_steady,
             "track_mean_loss_gap": mean(gaps), "track_max_loss_gap": max(gaps),
-            "track_psnr_gap_db": psnr_gap,
+            "track_psnr_gap_db": psnr_gap, "ms_10_99": 1000.0 * mean(
+                [r["seconds"] for r in kernel_hist[10:100]]), **prof,
             "loss_curve": [r["loss"] for r in hist], "psnr_curve": [r["psnr"] for r in hist],
-            "plain_loss_curve": [r["loss"] for r in ph]}
+            "plain_loss_curve": [r["loss"] for r in ph]}, run_a
 
 
 # The JAX package's numbers for the phase-10 steps, made once on a CPU with
 #   JAX_PLATFORMS=cpu python tools/family_step_reference.py
 # (f32, network.fused=off, the parameters of family_params and the draws of
 # machine_step_draws(seed=FAMILY_DRAW_SEED, batch=FAMILY_BATCH)); held at
-# JAX_STEP_TOL like phase 7's step.
+# JAX_STEP_TOL like phase 7's step. camera_grad is the pose-delta gradient
+# of FAMILY_CAMERA, camera_grad_spread its spread under a shift of the
+# translation part of FAMILY_SHIFT.
 FAMILY_STEP = {
  "nerf": {
   "loss": 0.07272379100322723,
@@ -1235,6 +1283,15 @@ FAMILY_STEP = {
    "network_fine.outL_density.b": 0.9229459166526794,
    "network_fine.outL_density.w": 0.4799703061580658
   },
+  "camera_grad": [
+   0.4601384997367859,
+   0.8499272465705872,
+   -0.33512601256370544,
+   -0.2180701345205307,
+   -0.20166951417922974,
+   0.08122581243515015
+  ],
+  "camera_grad_spread": 0.011343553958920886,
   "spread": {
    "loss": 1.946557369860858e-06,
    "mse": 0.0,
@@ -1334,6 +1391,15 @@ FAMILY_STEP = {
    "network_fine.layers_sdf.7.w": 0.00179282168392092,
    "network_fine.variance": 0.39704278111457825
   },
+  "camera_grad": [
+   -1.0675847079255618e-05,
+   -1.7052901966962963e-05,
+   -1.4216392628441099e-05,
+   3.857745832647197e-05,
+   2.5587623895262368e-05,
+   -1.710197284410242e-05
+  ],
+  "camera_grad_spread": 0.00019583158328965078,
   "spread": {
    "loss": 0.0,
    "mse": 0.0,
@@ -1691,7 +1757,8 @@ def family_trainer(torch, family: str, extra=()):
     config/ as ``scripts/run.py`` composes it."""
     from neddf_tpu_torch import config as config_lib
 
-    cfg = config_lib.compose(REPO / "config", overrides=[*FAMILY_OVERRIDES[family], *extra])
+    cfg = config_lib.compose(REPO / "config", overrides=[*FAMILY_OVERRIDES.get(family, []),
+                                                         *extra])
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["trainer"]["device"] = "cuda"
     return config_lib.instantiate(cfg["trainer"], global_config=cfg)
@@ -1703,7 +1770,7 @@ def phase_family_step(torch, card: str) -> dict:
     out = {}
     for family in FAMILY_OVERRIDES:
         extra = ["network.compute_dtype=float32"] if family == "nerf" else []
-        trainer = family_trainer(torch, family, extra)
+        trainer = family_trainer(torch, family, [*extra, "trainer.optimize_camera=true"])
         render = trainer.neural_render
         shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
         render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
@@ -1737,7 +1804,16 @@ def phase_family_step(torch, card: str) -> dict:
             f"{len(pairs) - len(wider)} of {len(pairs)} numbers held to {JAX_STEP_TOL}; "
             f"{len(wider)} held to {SPREAD_FACTOR:g}x their spread under a 1e-7 camera shift "
             f"{json.dumps({k: round(v, 5) for k, v in wider.items()})} | card: {card}")
-        out[family] = {"got": got, "worst_rel_vs_jax": worst, "wider_bars": wider}
+        # the pose-delta gradient (optimize_camera): the kernels' input
+        # cotangents through the position encoding into the rays
+        cam_bar = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["camera_grad_spread"])
+        cam_rel = camera_grad_check(torch, f"[10] {family} camera", trainer.camera_deltas.grad,
+                                    ref["camera_grad"], cam_bar, FAMILY_CAMERA)
+        log(f"[10] {family} camera {FAMILY_CAMERA}'s pose-delta gradient vs the JAX package: "
+            f"relative {cam_rel:.3g} of its norm (bar {cam_bar:.3g}); every other row 0")
+        out[family] = {"got": got, "worst_rel_vs_jax": worst, "wider_bars": wider,
+                       "camera_grad_rel_vs_jax": cam_rel,
+                       "camera_grad": trainer.camera_deltas.grad[FAMILY_CAMERA].tolist()}
         del trainer, render
         torch.cuda.empty_cache()
     return out
@@ -1853,7 +1929,7 @@ def phase_family_runs(torch, card: str) -> dict:
         log(f"[11] {family}: {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, "
             f"{dtype}, {trainer.batch_size} rays) | card: {card}")
         busy = profile_train(torch, trainer, card, f"profile_train_{family}.txt",
-                             f"{trainer.batch_size} rays, {dtype}", "11")
+                             f"{trainer.batch_size} rays, {dtype}", "11")["busy_share"]
         del trainer
         torch.cuda.empty_cache()
 
@@ -1964,6 +2040,688 @@ def phase_other_configs(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phases 14-17
+# the kernels that a configuration's training path launches (by the names
+# of their wrappers' counters) and the plain versions it must not call
+PATH_KERNELS = {"neddf": ("dual_mlp_trunk", "dual_mlp_seg", "dual_mlp_seg_bwd",
+                          "neddf_epilogue", "neddf_epilogue_gstack"),
+                "nerf": ("mlp_seg", "mlp_seg_bwd"),
+                "neus": ("sdf_mlp", "sdf_mlp_bwd", "mlp_seg", "mlp_seg_bwd")}
+# rays of the phase-15b and phase-16 steps: the default config's batch
+CAMERA_BATCH = 512
+# phase 14: run B's first checkpoint must land within this many seconds
+RESUME_CHILD_TIMEOUT = 300.0
+# phase 16, f32: grad_accum 2 and 4 against 1, relative (the microbatches'
+# sums in another order)
+ACCUM_F32_TOL = 1e-5
+
+
+def cache_datasets() -> None:
+    """Decode each dataset split once in this process: a later trainer of
+    the same split takes the first one's host arrays (phase 8's decode of
+    bunny_smoke serves every later phase in this process; phase 14's run
+    B, a subprocess, decodes its own). Each trainer copies them to the
+    card."""
+    from neddf_tpu_torch.data.nerf_synthetic import NeRFSyntheticDataset
+
+    load = NeRFSyntheticDataset.load_data
+    cache = {}
+
+    def load_once(self):
+        key = (str(self.dataset_dir.resolve()), self.data_split, self.use_mask)
+        if key not in cache:
+            load(self)
+            cache[key] = (self.camera_calib_params, self.camera_params, self.rgb_images,
+                          self.mask_images)
+        (self.camera_calib_params, self.camera_params, self.rgb_images,
+         self.mask_images) = cache[key]
+
+    NeRFSyntheticDataset.load_data = load_once
+
+
+def path_counters():
+    """({wrapper name: kernel wrapper}, [plain versions]) of every family's
+    training path."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+
+    kernels = {"dual_mlp_trunk": dm.dual_mlp_trunk, "mlp_seg": mlp.mlp_seg,
+               "dual_mlp_seg": dm.dual_mlp_seg, "dual_mlp_seg_bwd": dm.dual_mlp_seg_bwd,
+               "neddf_epilogue": epi.neddf_epilogue,
+               "neddf_epilogue_gstack": epi.neddf_epilogue_gstack,
+               "mlp_seg_bwd": mlp.mlp_seg_bwd, "sdf_mlp": sk.sdf_mlp,
+               "sdf_mlp_bwd": sk.sdf_mlp_bwd}
+    plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
+              mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, epi.neddf_epilogue_plain,
+              epi.neddf_epilogue_bwd_plain, epi.neddf_epilogue_gstack_plain,
+              sdf_grad.sdf_trunk_with_grad, sdf_grad.sdf_trunk_with_grad_vjp]
+    return kernels, plains
+
+
+def reset_path_counts() -> None:
+    """Every kernel wrapper's count, every plain version's calls and the
+    route counts to 0 (just before a path is driven)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    kernels, plains = path_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    reset_route_counts(dm)
+
+
+def read_path_counts(what: str, needed) -> dict:
+    """The counts just after a path was driven: every kernel of ``needed``
+    launched, no plain version called."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    kernels, plains = path_counters()
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches or k in needed}
+    plain_calls = sum(fn.calls for fn in plains)
+    if min(launches[k] for k in needed) < 1 or plain_calls:
+        fail(f"{what}: launches {launches}, plain calls {plain_calls}; every kernel of "
+             f"{needed} must launch and no plain version run")
+    return {"launches": launches, "plain_calls": plain_calls, "routes": route_counts(dm)}
+
+
+def start_run_b(run_dir: Path):
+    """Phase 14's run B: the main path's run as a subprocess (a user's
+    ``python -m neddf_tpu_torch.scripts.run``), in its own session so that
+    the watchdog's ``_kill_child`` kills it by pid."""
+    if run_dir.exists():
+        shutil.rmtree(run_dir)
+    OUT.mkdir(parents=True, exist_ok=True)
+    out = open(OUT / "resume_run_b.log", "w")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "neddf_tpu_torch.scripts.run", f"trainer.epoch_max={TRAIN_EPOCHS}",
+         f"hydra.run.dir={run_dir}"],
+        cwd=REPO, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return child, out, time.perf_counter()
+
+
+# phase 14 also runs these options through ``python -m
+# neddf_tpu_torch.scripts.run --watchdog`` (one epoch, a subprocess)
+WATCHDOG_OVERRIDES = ["trainer.epoch_max=0", "trainer.optimize_camera=true",
+                      "trainer.grad_accum=2", "trainer.debug_nans=true",
+                      "trainer.async_checkpoint=true"]
+WATCHDOG_TIMEOUT = 600.0
+
+
+def start_watchdog_run(run_dir: Path):
+    """One epoch of the default config with ``WATCHDOG_OVERRIDES`` under
+    ``--watchdog`` (the supervisor and its child are subprocesses)."""
+    if run_dir.exists():
+        shutil.rmtree(run_dir)
+    out = open(OUT / "watchdog_run.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "neddf_tpu_torch.scripts.run", "--watchdog", "600",
+         *WATCHDOG_OVERRIDES, f"hydra.run.dir={run_dir}"],
+        cwd=REPO, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def stop_process(proc) -> None:
+    """Stop a subprocess this script started: SIGINT first (a supervisor
+    then kills its own child), then the watchdog's kill by pid."""
+    import os
+    import signal
+
+    from neddf_tpu_torch.training.watchdog import _kill_child
+
+    if proc.poll() is not None:
+        return
+    try:
+        os.killpg(proc.pid, signal.SIGINT)
+        proc.wait(timeout=30)
+    except (ProcessLookupError, subprocess.TimeoutExpired):
+        pass
+    if proc.poll() is None:
+        _kill_child(proc)
+
+
+def finish_watchdog_run(torch, card: str, run) -> dict:
+    """Phase 14b: the ``--watchdog`` run ends with exit code 0, one epoch
+    of finite losses, its checkpoint (written by the async checkpointer)
+    a full training state with moved camera deltas."""
+    import numpy as np
+
+    from neddf_tpu_torch.utils.msgpack import load_msgpack
+
+    proc, out, t0 = run
+    try:
+        rc = proc.wait(timeout=max(1.0, WATCHDOG_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        fail(f"[14b] the --watchdog run did not end in {WATCHDOG_TIMEOUT} s")
+    out.close()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"[14b] the --watchdog run exited with {rc} "
+             "(chiprun_out/chip_smoke/watchdog_run.log)")
+    run_dir = OUT / "train_watchdog"
+    hist = [json.loads(x) for x in (run_dir / "train_log.jsonl").read_text().splitlines()]
+    state = load_msgpack(run_dir / "models" / "model_00000.ckpt")
+    deltas = np.asarray(state.get("camera_deltas", np.zeros(1)))
+    ok = (len(hist) == 100 and all(math.isfinite(r["loss"]) for r in hist)
+          and all(k in state for k in ("params", "opt_state", "opt_state_cam", "torch_rng"))
+          and int(state["iteration"]) == 100 and np.isfinite(deltas).all()
+          and (np.abs(deltas).sum(axis=1) > 0).all())
+    log(f"[14b] python -m neddf_tpu_torch.scripts.run --watchdog 600 "
+        f"{' '.join(WATCHDOG_OVERRIDES)}: exit {rc} after {wall:.1f} s, {len(hist)} steps "
+        f"logged, loss {hist[0]['loss'] if hist else 'n/a'} -> "
+        f"{hist[-1]['loss'] if hist else 'n/a'}; its async checkpoint holds the full state, "
+        f"every camera row moved | card: {card}")
+    if not ok:
+        fail("[14b] the --watchdog run (chiprun_out/chip_smoke/watchdog_run.log)")
+    return {"exit": rc, "wall_s": wall, "steps": len(hist)}
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def state_gaps(a: dict, b: dict) -> dict:
+    """{leaf: max |a - b|} over the leaves of two checkpoint states that
+    differ."""
+    import numpy as np
+
+    bl = dict(_leaves(b))
+    gaps = {}
+    for name, x in _leaves(a):
+        y = bl[name]
+        if isinstance(x, np.ndarray):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                d = np.abs(x.astype(np.float64) - y.astype(np.float64)) if x.shape == y.shape \
+                    else np.array([np.inf])
+                gaps[name] = float(d.max())
+        elif x != y:
+            gaps[name] = float("inf")
+    return gaps
+
+
+def phase_resume(torch, card: str, run_b, a_state: dict, a_losses: list) -> dict:
+    """Phase 14: run B is killed by pid once its epoch-0 checkpoint is on
+    disk, continued in this process with ``scripts.run --resume``, and
+    held to run A (phase 8's uninterrupted run): the whole training state
+    and the per-step losses of epochs 1-2, bitwise."""
+    import os
+
+    from neddf_tpu_torch.scripts import run as run_script
+    from neddf_tpu_torch.training.watchdog import _kill_child
+    from neddf_tpu_torch.utils.msgpack import packb
+
+    child, child_out, t0 = run_b
+    b_dir = OUT / "train_resume"
+    ckpt = b_dir / "models" / "model_00000.ckpt"
+    while not ckpt.exists():
+        if child.poll() is not None:
+            child_out.close()
+            fail(f"[14] run B exited with {child.returncode} before its first checkpoint "
+                 f"(chiprun_out/chip_smoke/resume_run_b.log)")
+        if time.perf_counter() - t0 > RESUME_CHILD_TIMEOUT:
+            _kill_child(child)
+            fail(f"[14] run B wrote no checkpoint in {RESUME_CHILD_TIMEOUT} s")
+        time.sleep(0.1)
+    waited = time.perf_counter() - t0
+    _kill_child(child)
+    child_out.close()
+    logged = len((b_dir / "train_log.jsonl").read_text().splitlines())
+    same_ckpt = ckpt.read_bytes() == (OUT / "train" / "models" / "model_00000.ckpt").read_bytes()
+    log(f"[14] run B (a subprocess) wrote models/model_00000.ckpt {waited:.1f} s after its "
+        f"start; killed by pid (watchdog._kill_child, exit {child.returncode}) with {logged} "
+        f"steps logged; its checkpoint bytes equal run A's epoch-0 checkpoint: {same_ckpt}")
+    if not same_ckpt:
+        fail("[14] run B's epoch-0 checkpoint differs from run A's")
+    reset_path_counts()
+    cwd = os.getcwd()
+    start = time.perf_counter()
+    try:
+        trainer = run_script.main(["--resume", str(b_dir)])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = read_path_counts("[14] the resumed run", PATH_KERNELS["neddf"])
+    b_state = trainer.checkpoint_state()
+    b_losses = [r["loss"] for r in trainer.history]
+    bitwise = packb(b_state) == packb(a_state) and b_losses == a_losses
+    gaps = {} if bitwise else state_gaps(a_state, b_state)
+    log(f"[14] resumed in process from iteration 100 to {trainer.iteration} ({wall:.1f} s, "
+        f"{len(b_losses)} steps; launches {counts['launches']}, plain calls "
+        f"{counts['plain_calls']}): params, Adam moments and counts, camera deltas, the "
+        f"camera optimizer, iteration and the generator state bitwise equal to run A's: "
+        f"{packb(b_state) == packb(a_state)}; the 200 losses of epochs 1-2 equal: "
+        f"{b_losses == a_losses} | card: {card}")
+    out = {"bitwise": bitwise, "child_wait_s": waited, "steps_logged_at_kill": logged,
+           "resume_wall_s": wall, "counts": counts}
+    del trainer
+    torch.cuda.empty_cache()
+    if bitwise:
+        return out
+    # not deterministic: hold B to A within the spread of a second
+    # uninterrupted run A'
+    a2 = run_main_path(torch, OUT / "train_a2")
+    a2_state = a2.checkpoint_state()
+    spread = state_gaps(a_state, a2_state)
+    loss_spread = max(abs(x - y) for x, y in zip(a_losses, [r["loss"] for r in a2.history[100:300]]))
+    loss_gap = max((abs(x - y) for x, y in zip(a_losses, b_losses)), default=float("inf"))
+    out.update(gaps=gaps, spread=spread, loss_gap=loss_gap, loss_spread=loss_spread)
+    log(f"[14] not bitwise: B - A per leaf {json.dumps(gaps)}; A' - A {json.dumps(spread)}; "
+        f"losses {loss_gap:.3g} vs {loss_spread:.3g}")
+    if len(b_losses) != len(a_losses) or loss_gap > loss_spread or any(
+            g > spread.get(k, 0.0) for k, g in gaps.items() if k != "torch_rng.state"):
+        fail("[14] the resumed run is farther from run A than a second uninterrupted run")
+    del a2
+    torch.cuda.empty_cache()
+    return out
+
+
+def camera_grad_check(torch, what: str, got, want, bar: float, cam: int) -> float:
+    """One camera row's gradient against ``want`` (relative to its norm)
+    and every other row exactly zero; returns the relative gap."""
+    row = got[cam].double().cpu()
+    want = torch.as_tensor(want, dtype=torch.float64)
+    rel = ((row - want).norm() / want.norm().clamp_min(1e-30)).item()
+    others = torch.cat([got[:cam], got[cam + 1:]]).abs().max().item()
+    if not rel <= bar or others != 0.0:
+        fail(f"{what}: camera gradient {row.tolist()} vs {want.tolist()}, relative {rel:.3g} "
+             f"(bar {bar:.3g}); largest other row {others}")
+    return rel
+
+
+def phase_camera_machine(torch, card: str) -> dict:
+    """Phase 15a: phase 7's f32 step with ``optimize_camera``: camera 0's
+    pose-delta gradient against the JAX package's."""
+    trainer = machine_trainer(torch, optimize_camera=True)
+    machine_step(torch, trainer)
+    bar = max(JAX_STEP_TOL, SPREAD_FACTOR * JAX_STEP["camera_grad_spread"])
+    grad = trainer.camera_deltas.grad
+    rel = camera_grad_check(torch, "[15a] machine_neddf f32", grad, JAX_STEP["camera_grad"], bar,
+                            MACHINE_CAMERA)
+    log(f"[15a] machine_neddf f32 step, camera {MACHINE_CAMERA}'s pose-delta gradient "
+        f"{[round(x, 8) for x in grad[MACHINE_CAMERA].tolist()]} vs the JAX package's "
+        f"{[round(x, 8) for x in JAX_STEP['camera_grad']]}: relative {rel:.3g} of its norm (bar "
+        f"{bar:.3g}); every other row 0 | card: {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"rel_vs_jax": rel, "bar": bar}
+
+
+def phase_camera_kernels(torch, card: str) -> dict:
+    """Phase 15b: one step of each family's shipped configuration at 512
+    rays with ``optimize_camera``, through the kernels and through the
+    plain versions on the same draws: the camera gradient (the kernels'
+    input cotangents through the position encoding into the pose), the
+    routes counted; then one camera-optimizer step moves only that row."""
+    out = {}
+    for family, needed in PATH_KERNELS.items():
+        trainer = family_trainer(torch, family, [f"trainer.batch_size={CAMERA_BATCH}",
+                                                 "trainer.optimize_camera=true"])
+        render = trainer.neural_render
+        nets = [render.network_fine] + ([render.network_coarse]
+                                        if render.use_coarse_network else [])
+        dtype = getattr(nets[0], "compute_dtype", torch.float32)
+        draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                                   render.sample_coarse + 1, render.sample_fine + 1,
+                                   seed=FAMILY_DRAW_SEED, batch=CAMERA_BATCH)
+        us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+        reset_path_counts()
+        trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(), u_strat, u_pdf)
+        torch.cuda.synchronize()
+        counts = read_path_counts(f"[15b] {family} kernels", needed)
+        check_routes(f"[15b] {family}", counts["routes"],
+                     "tc" if dtype == torch.bfloat16 else "tf32x3")
+        kern = trainer.camera_deltas.grad.clone()
+        for net in nets:
+            net.fused = "off"
+        trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(), u_strat, u_pdf)
+        plain = trainer.camera_deltas.grad.clone()
+        for net in nets:
+            net.fused = "auto"
+        bar = BF16_STEP_TOL["grad_norm"] if dtype == torch.bfloat16 else JAX_STEP_TOL
+        rel = camera_grad_check(torch, f"[15b] {family}", kern, plain[FAMILY_CAMERA].cpu(), bar,
+                                FAMILY_CAMERA)
+        trainer.camera_deltas.grad = kern
+        trainer.camera_optimizer.step()
+        moved = (trainer.camera_deltas.detach().abs().sum(dim=1) > 0).nonzero().flatten()
+        if moved.tolist() != [FAMILY_CAMERA]:
+            fail(f"[15b] {family}: the camera optimizer moved rows {moved.tolist()}")
+        name = str(dtype).replace("torch.", "")
+        log(f"[15b] {family} ({name}, {CAMERA_BATCH} rays): camera {FAMILY_CAMERA}'s gradient "
+            f"through the kernels vs the plain versions: relative {rel:.3g} of its norm (bar "
+            f"{bar}); kernel launches {counts['launches']}, product routes "
+            f"{counts['routes']['products']}, plain calls 0; one RowSparseAdam step moved row "
+            f"{FAMILY_CAMERA} only | card: {card}")
+        out[family] = {"rel_kernels_vs_plain": rel, "bar": bar, "dtype": name,
+                       "kernel_grad": kern[FAMILY_CAMERA].tolist(),
+                       "plain_grad": plain[FAMILY_CAMERA].tolist(), **counts}
+        del trainer, render, nets
+        torch.cuda.empty_cache()
+    return out
+
+
+def one_epoch_run(torch, card: str, name: str, extra, tag: str) -> dict:
+    """One epoch of the default config with ``extra`` overrides through
+    ``scripts/run.py`` (counts reset just before, read just after), then
+    five traced steps: ms/step (steps 10-99), device ms/step and launches
+    per step."""
+    reset_path_counts()
+    trainer = run_main_path(torch, OUT / name, ["trainer.epoch_max=0", *extra])
+    counts = read_path_counts(f"[{tag}] {' '.join(extra)}", PATH_KERNELS["neddf"])
+    hist = trainer.history
+    if len(hist) != 100 or not all(math.isfinite(r["loss"]) for r in hist):
+        fail(f"[{tag}] {name}: {len(hist)} steps, or a loss that is not finite")
+    ms = 1000.0 * mean([r["seconds"] for r in hist[10:100]])
+    prof = profile_train(torch, trainer, card, f"profile_{name}.txt",
+                         f"512 rays, bf16, {' '.join(extra)}", tag)
+    return {"trainer": trainer, "ms_per_step": ms, **prof, **counts}
+
+
+def phase_camera_run(torch, card: str, default: dict) -> dict:
+    """Phase 15c: one epoch with ``trainer.optimize_camera=true``: each
+    camera visited once, its row moved and finite, the others not."""
+    run = one_epoch_run(torch, card, "train_camera", ["trainer.optimize_camera=true"], "15c")
+    trainer = run.pop("trainer")
+    state = trainer.camera_optimizer.state[trainer.camera_deltas]
+    visits = state["t"].cpu()
+    deltas = trainer.camera_deltas.detach().cpu()
+    moved = deltas.abs().sum(dim=1) > 0
+    # the five traced steps came after the epoch: their cameras have 2 visits
+    if not (torch.isfinite(deltas).all() and torch.equal(moved, visits > 0)
+            and visits.min().item() >= 1):
+        fail(f"[15c] camera deltas: visits {visits.tolist()}, moved {moved.tolist()}")
+    log(f"[15c] optimize_camera, one epoch: {int((visits > 0).sum())} of {len(visits)} rows "
+        f"visited and moved (finite), largest |delta| {deltas.abs().max().item():.3g}; "
+        f"{run['ms_per_step']:.2f} ms/step (steps 10-99; default run {default['ms_10_99']:.2f}), "
+        f"device {run['device_ms_per_step']:.2f} ms/step (default "
+        f"{default['device_ms_per_step']:.2f}), launches per step {run['launches_per_step']} "
+        f"(default {default['launches_per_step']}) | card: {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+def step_numbers(trainer, draws, camera: bool) -> dict:
+    us, vs, u_strat, u_pdf = draws
+    loss, loss_dict, mse = trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(), u_strat,
+                                              u_pdf)
+    norms = {n: p.grad.norm().item() for n, p in trainer.neural_render.named_parameters()}
+    if camera:
+        norms["camera_deltas"] = trainer.camera_deltas.grad.norm().item()
+    return {"loss": loss.item(), "mse": mse.item(),
+            "losses": {k: v.item() for k, v in loss_dict.items()}, "grad_norms": norms}
+
+
+def phase_grad_accum(torch, card: str, default: dict) -> dict:
+    """Phase 16: one default-config step with grad_accum 2 and 4 against 1
+    on the same draws, in bf16 and f32, without and with
+    ``optimize_camera``; then one epoch at grad_accum=2."""
+    out = {}
+    for camera in (False, True):
+        extra = [f"trainer.batch_size={CAMERA_BATCH}"] + (
+            ["trainer.optimize_camera=true"] if camera else [])
+        trainer = family_trainer(torch, "neddf", extra)
+        render = trainer.neural_render
+        net = render.network_fine
+        draws = [torch.as_tensor(x, device=trainer.device) for x in machine_step_draws(
+            trainer.dataset.image_width, trainer.dataset.image_height, render.sample_coarse + 1,
+            render.sample_fine + 1, seed=FAMILY_DRAW_SEED, batch=CAMERA_BATCH)]
+        for dtype in ((torch.bfloat16, torch.float32) if not camera else (torch.bfloat16,)):
+            net.compute_dtype = dtype
+            name = str(dtype).replace("torch.", "")
+            runs = {}
+            for n in (1, 2, 4):
+                trainer.grad_accum = n
+                reset_path_counts()
+                runs[n] = step_numbers(trainer, draws, camera)
+                torch.cuda.synchronize()
+                counts = read_path_counts(f"[16] grad_accum={n} {name}", PATH_KERNELS["neddf"])
+                check_routes(f"[16] grad_accum={n} {name}", counts["routes"],
+                             "tc" if dtype == torch.bfloat16 else "tf32x3")
+            worst = {}
+            for n in (2, 4):
+                if dtype == torch.bfloat16:
+                    wl, wg = bf16_step_gaps(runs[n], runs[1])
+                else:
+                    wl = max(check_close(f"[16] f32 accum {n} loss {k}", runs[n]["losses"][k],
+                                         v, ACCUM_F32_TOL) for k, v in runs[1]["losses"].items())
+                    wg = max(check_close(f"[16] f32 accum {n} grad norm {k}",
+                                         runs[n]["grad_norms"][k], v, ACCUM_F32_TOL)
+                             for k, v in runs[1]["grad_norms"].items())
+                worst[n] = {"loss": wl, "grad_norm": wg}
+            key = f"{name}{'+camera' if camera else ''}"
+            out[key] = {"worst_rel": worst, "steps": runs}
+            log(f"[16] grad_accum 2 and 4 vs 1 ({key}, {CAMERA_BATCH} rays; microbatches of "
+                f"256 and 128 rays: rows 256 x 65, 256 x 194, 128 x 65, 128 x 194): worst "
+                f"relative gaps {json.dumps(worst)} (bar "
+                f"{BF16_STEP_TOL if dtype == torch.bfloat16 else ACCUM_F32_TOL}) | card: {card}")
+        del trainer, render, net
+        torch.cuda.empty_cache()
+    run = one_epoch_run(torch, card, "train_accum2", ["trainer.grad_accum=2"], "16")
+    del run["trainer"]
+    log(f"[16] grad_accum=2, one epoch: {run['ms_per_step']:.2f} ms/step (steps 10-99; default "
+        f"{default['ms_10_99']:.2f}), device {run['device_ms_per_step']:.2f} ms/step (default "
+        f"{default['device_ms_per_step']:.2f}), launches per step {run['launches_per_step']} "
+        f"(default {default['launches_per_step']}) | card: {card}")
+    torch.cuda.empty_cache()
+    out["run"] = run
+    return out
+
+
+def phase_rest(torch, card: str) -> dict:
+    """Phase 17: ``.pth`` export, an async checkpoint, the logger's
+    scalar names, ``debug_nans``, a profiler trace and the step's syncs."""
+    import collections
+    import contextlib
+    import io
+    import os
+    import traceback
+    import warnings
+
+    from neddf_tpu_torch.scripts import export_pth as export_script
+    from neddf_tpu_torch.training.checkpoint import (
+        load_msgpack_params,
+        params_from_jax,
+        state_dict_from_pth,
+    )
+
+    out = {}
+    run_a = OUT / "train"
+    # no --device: the snapshot's device must reach the card by default
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        pth = export_script.main([str(run_a)])
+    if "on cuda" not in printed.getvalue():
+        fail(f"[17] export_pth without --device did not run on the card: {printed.getvalue()!r}")
+    trainer = family_trainer(torch, "neddf")
+    loaded = state_dict_from_pth(pth, trainer.neural_render)
+    want = params_from_jax(load_msgpack_params(run_a / "models" / f"model_{0:05}.ckpt"))
+    if set(loaded) != set(want) or not all(torch.equal(loaded[k], want[k]) for k in want):
+        fail("[17] the exported .pth does not load back bitwise")
+    out["pth"] = str(pth.relative_to(REPO))
+    log(f"[17] export_pth with no --device: {printed.getvalue().strip()}; {len(loaded)} "
+        f"tensors, loaded back bitwise equal to the checkpoint")
+
+    names = {"loss", "PSNR", "iteration duration", "total duration", "rays per sec",
+             "objective/color", "objective/mask", "objective/fields_penalty"}
+    events = sorted((run_a / "log").glob("events.out.tfevents*"))
+    if events:
+        out["log"] = {"tensorboard": [p.name for p in events]}
+        log(f"[17] log/: TensorBoard event files {out['log']['tensorboard']}")
+    else:
+        first = json.loads((run_a / "log" / "train_log.jsonl").read_text().splitlines()[0])
+        if not names <= set(first):
+            fail(f"[17] log/train_log.jsonl records {sorted(first)} lack {sorted(names)}")
+        out["log"] = {"jsonl_keys": sorted(first)}
+        log(f"[17] log/train_log.jsonl (no tensorboard here): keys {sorted(first)}")
+
+    cwd = os.getcwd()
+    work = OUT / "rest"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    os.chdir(work)
+    try:
+        tr_async = family_trainer(torch, "neddf", ["trainer.async_checkpoint=true",
+                                                   "trainer.profile_trace_start=2",
+                                                   "trainer.profile_trace_steps=2"])
+        for cam in range(5):
+            tr_async.run_train_step(cam)
+            trainer.run_train_step(cam)
+        tr_async.flush_logs()
+        trainer.flush_logs()
+        tr_async.save_checkpoint(work / "async.ckpt")
+        tr_async.run_train_step(5)  # training goes on while it writes
+        trainer.save_checkpoint(work / "sync.ckpt")
+        tr_async.finalize_checkpoints()
+        same = (work / "async.ckpt").read_bytes() == (work / "sync.ckpt").read_bytes()
+        trace = sorted(p.name for p in (work / "log" / "profile").iterdir())
+        log(f"[17] async_checkpoint: bytes equal to the synchronous save: {same}; "
+            f"profile_trace_start=2: {trace}")
+        if not same or not any(n.startswith("trace_2-3") for n in trace):
+            fail("[17] async checkpoint bytes or the profiler trace")
+        out.update(async_bytes_equal=same, trace=trace)
+        del tr_async
+
+        trainer.run_train_step(1)
+        torch.cuda.synchronize()
+        syncs = []
+
+        def where(message, category, filename, lineno, file=None, line=None):
+            # the warning is raised inside the op's call: the stack names it
+            frames = [f for f in traceback.extract_stack() if "neddf_tpu_torch" in f.filename]
+            at = frames[-1] if frames else None
+            syncs.append(f"{Path(at.filename).relative_to(REPO)}:{at.lineno}" if at
+                         else f"{filename}:{lineno}")
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = where
+                trainer.camera_pose(3)
+                pose_syncs = len(syncs)
+                trainer.run_train_step(2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        step_syncs = collections.Counter(syncs[pose_syncs:])
+        log(f"[17] torch.cuda.set_sync_debug_mode('warn'): camera_pose {pose_syncs} syncs; one "
+            f"default step (log_interval {trainer.log_interval}, no flush) "
+            f"{sum(step_syncs.values())} syncs, at {dict(step_syncs)} | card: {card}")
+        if pose_syncs:
+            fail("[17] camera_pose synchronizes with the host")
+        out.update(pose_syncs=pose_syncs, step_syncs=dict(step_syncs))
+
+        tr_nan = family_trainer(torch, "neddf", ["trainer.debug_nans=true"])
+        tr_nan.run_train_step(0)
+        with torch.no_grad():
+            tr_nan.neural_render.network_fine.layers_ddf[2].w[0, 0] = float("nan")
+        try:
+            tr_nan.run_train_step(1)
+            fail("[17] debug_nans: a NaN parameter raised nothing")
+        except FloatingPointError as err:
+            out["debug_nans"] = str(err)
+            log(f"[17] debug_nans with a NaN weight: FloatingPointError({err})")
+        if torch.is_anomaly_enabled():
+            fail("[17] debug_nans left the anomaly mode on")
+        del tr_nan, trainer
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the products whose outputs are layer 0's input cotangents (and the
+# skip's seg0 part), by family: (rows per pass, width, calls per pass,
+# live under optimize_camera); rows of the NeDDF trunk's stacked planes
+# are 4 per point, the colour trunk's 2 (its PE segment) or 1
+def _cotangent_products(family: str):
+    if family == "neddf":
+        for m in (CAMERA_BATCH * 65, CAMERA_BATCH * 194):
+            yield ("trunk layer 0 + skip", 4 * m, 60, 2, True)
+            yield ("colour PE", 2 * m, 60, 1, True)
+            yield ("colour dir", m, 24, 1, True)
+            yield ("colour normal (detached)", m, 3, 1, False)
+    elif family == "nerf":
+        for m in (1024 * 65, 1024 * 194):
+            yield ("trunk layer 0", m, 60, 1, True)
+    else:
+        for m in (1024 * 65, 1024 * 194):
+            yield ("sdf layer 0", m, 36, 1, True)
+            yield ("colour pos", m, 3, 1, True)
+            yield ("colour dir", m, 24, 1, True)
+
+
+def phase_discarded_cotangents(torch, card: str) -> dict:
+    """The device time per step of the products that form input
+    cotangents which the default path throws away (the position
+    encoding's, the direction's, NeDDF's detached normal): each product at
+    its shapes (CUDA events, median of 5 readings of 10 launches) times its
+    calls per step."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for family, dtype in (("neddf", torch.bfloat16), ("nerf", torch.bfloat16),
+                          ("neus", torch.float32)):
+        k = dm.Products(dtype, dev)
+        total, live, rows = 0.0, 0.0, []
+        for what, m, n, calls, camera_live in _cotangent_products(family):
+            a = torch.randn((m, 256), generator=gen, device=dev).to(dtype)
+            w = torch.randn((n, 256), generator=gen, device=dev).to(dtype)
+            ms = time_one(torch, lambda: k.nt(a, w))
+            total += ms * calls
+            live += ms * calls if camera_live else 0.0
+            rows.append({"what": what, "rows": m, "width": n, "calls": calls, "ms": ms})
+            del a, w
+        out[family] = {"discarded_ms_per_step": total, "live_under_camera_ms_per_step": live,
+                       "products": rows}
+        log(f"[15d] {family}: the products of input cotangents the default step discards, "
+            f"{total:.4f} device ms per step (under optimize_camera {live:.4f} of it is live): "
+            + ", ".join(f"{r['what']} [{r['rows']}, 256] x [{r['width']}, 256]^T x{r['calls']} "
+                        f"{r['ms']:.4f} ms" for r in rows) + f" | card: {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def drop_large_outputs(limit: int = 1 << 20) -> int:
+    """Delete the checkpoints, ``.pth`` files and Chrome traces over
+    ``limit`` bytes under ``OUT`` (checked by then), so that the output
+    directory stays a few MiB; returns the bytes left."""
+    for p in OUT.rglob("*"):
+        if (p.is_file() and p.suffix in (".ckpt", ".pth", ".json") and p.name != "summary.json"
+                and p.stat().st_size > limit):
+            p.unlink()
+    return sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
+
+
+def time_one(torch, fn, reps: int = 5, inner: int = 10) -> float:
+    """Median CUDA-event ms of one call of ``fn`` (each reading the mean of
+    ``inner`` calls back to back), after a warm-up."""
+    fn()
+    readings = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        readings.append(start.elapsed_time(end) / inner)
+    return statistics.median(readings)
+
+
+
 def main() -> int:
     if not (REPO / "neddf_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1977,6 +2735,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cache_datasets()
 
     from neddf_tpu_torch.kernels import _build, dual_mlp
     from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_trunk, dual_mlp_trunk_plain
@@ -2190,13 +2949,32 @@ def main() -> int:
     machine = phase_machine_step(torch, card)
 
     # ---- phase 8: the main path, the default config's training run
-    train = phase_train_run(torch, card)
+    train, run_a = phase_train_run(torch, card)
 
     # ---- phases 9-12: the NeRF and NeuS configurations
     family_kernels = phase_family_kernels(torch, card)
     family_steps = phase_family_step(torch, card)
     family_runs = phase_family_runs(torch, card)
     other_configs = phase_other_configs(torch, card)
+
+    # ---- phases 14-17: resume, the camera path, grad_accum, the rest.
+    # Run B of phase 14 and the --watchdog run start first: they decode
+    # their dataset while phases 15a-b run here
+    run_b = start_run_b(OUT / "train_resume")
+    run_w = start_watchdog_run(OUT / "train_watchdog")
+    try:
+        camera = {"machine": phase_camera_machine(torch, card),
+                  "kernels": phase_camera_kernels(torch, card)}
+        resume = phase_resume(torch, card, run_b, run_a["state"], run_a["losses"])
+        resume["watchdog_run"] = finish_watchdog_run(torch, card, run_w)
+    finally:
+        for proc in (run_b[0], run_w[0]):
+            stop_process(proc)
+    del run_a
+    camera["run"] = phase_camera_run(torch, card, train)
+    camera["discarded_cotangents"] = phase_discarded_cotangents(torch, card)
+    accum = phase_grad_accum(torch, card, train)
+    rest = phase_rest(torch, card)
 
     # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
@@ -2305,8 +3083,12 @@ def main() -> int:
         "eval_routes": eval_routes, "machine_step": machine, "train_run": train,
         "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
         "family_steps": family_steps, "family_runs": family_runs,
-        "other_configs": other_configs,
+        "other_configs": other_configs, "resume": resume, "camera": camera,
+        "grad_accum": accum, "rest": rest,
     }
+    kept = drop_large_outputs()
+    log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "
+        f"checkpoints, .pth files and traces over 1 MiB deleted)")
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

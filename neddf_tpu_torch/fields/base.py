@@ -21,6 +21,14 @@ class Schedule(NamedTuple):
     distance_range_max: float
 
 
+def reference_name(name: str) -> str:
+    """A parameter's name in the PyTorch reference's module tree (its
+    ``.pth`` keys): a layer's ``w`` and ``b`` are ``weight`` and ``bias``;
+    any other leaf (NeuS's ``variance``) keeps its name."""
+    *module, leaf = name.split(".")
+    return ".".join(module + [{"w": "weight", "b": "bias"}.get(leaf, leaf)])
+
+
 class Linear(nn.Module):
     """Dense layer ``x @ w + b``.
 

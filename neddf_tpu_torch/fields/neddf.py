@@ -46,7 +46,13 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from neddf_tpu_torch.fields.base import Linear, Schedule, check_fused, use_kernels
+from neddf_tpu_torch.fields.base import (
+    Linear,
+    Schedule,
+    check_fused,
+    reference_name,
+    use_kernels,
+)
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.kernels.dual_mlp import (
     dual_mlp_apply,
@@ -84,6 +90,10 @@ _DEFAULT_PENALTY_WEIGHT = {
 
 
 class NeDDF(nn.Module):
+    # the reference's .pth layout (LinearGradLayer: weight [in, out])
+    pth_linear_transposed = False
+    pth_name = staticmethod(reference_name)
+
     def __init__(
         self,
         embed_pos_rank: int = 10,

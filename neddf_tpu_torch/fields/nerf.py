@@ -26,7 +26,13 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from neddf_tpu_torch.fields.base import Linear, Schedule, check_fused, use_kernels
+from neddf_tpu_torch.fields.base import (
+    Linear,
+    Schedule,
+    check_fused,
+    reference_name,
+    use_kernels,
+)
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.kernels.mlp import mlp_apply, mlp_seg, mlp_seg_plain
 from neddf_tpu_torch.ops.activations import ACTIVATIONS, relu
@@ -38,6 +44,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class NeRF(nn.Module):
+    # the reference's .pth layout (nn.Linear: weight [out, in])
+    pth_linear_transposed = True
+
+    @staticmethod
+    def pth_name(name: str) -> str:
+        """``name``'s ``.pth`` key: the colour head is the reference's
+        Sequential(Linear, ReLU, Linear), module indices 0 and 2."""
+        parts = name.split(".")
+        if parts[0] == "outL_color":
+            parts[1] = {"0": "0", "1": "2"}[parts[1]]
+        return reference_name(".".join(parts))
+
     def __init__(
         self,
         embed_pos_rank: int = 10,

@@ -33,7 +33,13 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from neddf_tpu_torch.fields.base import Linear, Schedule, check_fused, use_kernels
+from neddf_tpu_torch.fields.base import (
+    Linear,
+    Schedule,
+    check_fused,
+    reference_name,
+    use_kernels,
+)
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.kernels.mlp import mlp_apply, mlp_seg, mlp_seg_plain
 from neddf_tpu_torch.kernels.sdf_mlp import sdf_apply, sdf_mlp
@@ -44,6 +50,10 @@ Tensor = torch.Tensor
 
 
 class NeuS(nn.Module):
+    # the reference's .pth layout (nn.Linear: weight [out, in])
+    pth_linear_transposed = True
+    pth_name = staticmethod(reference_name)
+
     def __init__(
         self,
         embed_pos_rank: int = 6,

@@ -1,13 +1,19 @@
-"""The train step's math: pixel draws, ground truth, render, losses.
+"""The train step's math: pixel draws, ground truth, render, losses and
+their gradients.
 
 Counterpart of ``neddf_tpu/training/step.py`` (``draw_pixel_batch:38``,
-``construct_targets:64``, the loss of ``make_local_grads:83``) for
-``grad_accum=1`` without camera gradients. The draws are arguments, so
-the parity tests can feed the JAX package's pixel and sample draws.
+``construct_targets:64``, ``make_local_grads:83``). The draws are
+arguments, so the parity tests can feed the JAX package's pixel and
+sample draws. ``accumulate_grads`` splits the drawn batch into
+``grad_accum`` equal microbatches, as the JAX package's ``lax.scan``
+does: the pixels and both sample uniforms are drawn for the whole batch
+and then sliced, so every ray sees the same draws whatever the split.
+The camera-delta gradient comes through the pose, which the caller
+recomputes for each microbatch.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,8 +39,17 @@ def draw_pixel_batch(
 def check_target_keys(target_keys: Sequence[str]) -> None:
     unknown = [k for k in target_keys if k not in KNOWN_TARGET_KEYS]
     if unknown:
-        raise ValueError(f"loss key_target(s) {unknown} have no ground-truth constructor; "
-                         f"known targets: {KNOWN_TARGET_KEYS}")
+        raise ValueError(
+            f"loss key_target(s) {unknown} have no ground-truth "
+            f"constructor; known targets: {KNOWN_TARGET_KEYS} "
+            "(training/step.py::construct_targets)"
+        )
+
+
+def check_grad_accum(grad_accum: int, batch_size: int) -> None:
+    """``grad_accum`` must split the batch into equal microbatches."""
+    if grad_accum < 1 or batch_size % grad_accum:
+        raise ValueError(f"grad_accum={grad_accum} must divide {batch_size}")
 
 
 def construct_targets(
@@ -77,3 +92,54 @@ def train_loss(
     total = sum(loss_dict.values())
     mse = torch.mean(torch.square(result["color"] - targets["color"]))
     return total, loss_dict, mse
+
+
+def accumulate_grads(
+    renderer: Any,
+    loss_functions: Sequence[Any],
+    calib: PinholeCalib,
+    pose: Callable[[], Tuple[Tensor, Tensor]],
+    uv: Tensor,
+    targets: Dict[str, Tensor],
+    u_strat: Tensor,
+    u_pdf: Tensor,
+    iteration: int,
+    grad_accum: int = 1,
+    check_loss: Optional[Callable[[Tensor], None]] = None,
+) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
+    """Loss and gradients of one step over ``grad_accum`` microbatches.
+
+    Microbatch i takes rows [i * B/n, (i + 1) * B/n) of the drawn batch;
+    its backward adds 1/n of its gradient to ``.grad`` (of the parameters
+    and, through ``pose()``, of the camera deltas). Returns the means over
+    the microbatches of the total loss, the loss dict and the colour mse,
+    detached. ``check_loss`` sees each microbatch's loss before its
+    backward (``debug_nans``).
+    """
+    check_grad_accum(grad_accum, uv.shape[0])
+    micro = uv.shape[0] // grad_accum
+    sums: Optional[Tuple[Tensor, Dict[str, Tensor], Tensor]] = None
+    for i in range(grad_accum):
+        rows = slice(i * micro, (i + 1) * micro)
+        pose_r, pose_t = pose()
+        loss, loss_dict, mse = train_loss(
+            renderer, loss_functions, calib, pose_r, pose_t, uv[rows],
+            {k: v[rows] for k, v in targets.items()}, u_strat[rows], u_pdf[rows], iteration,
+        )
+        if check_loss is not None:
+            check_loss(loss)
+        if grad_accum == 1:
+            loss.backward()
+            return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}, mse.detach()
+        (loss / grad_accum).backward()
+        if sums is None:
+            sums = (loss.detach().clone(), {k: v.detach().clone() for k, v in loss_dict.items()},
+                    mse.detach().clone())
+        else:
+            sums[0].add_(loss.detach())
+            for k, v in loss_dict.items():
+                sums[1][k].add_(v.detach())
+            sums[2].add_(mse.detach())
+    total, total_dict, total_mse = sums
+    return (total / grad_accum, {k: v / grad_accum for k, v in total_dict.items()},
+            total_mse / grad_accum)

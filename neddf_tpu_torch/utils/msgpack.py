@@ -168,7 +168,7 @@ def _pack(obj: Any, out: list) -> None:
     elif isinstance(obj, (bytes, bytearray)):
         out.append(_sized(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj))
     elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
+        arr = obj if obj.flags.c_contiguous else np.ascontiguousarray(obj)  # keeps 0-d
         payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
         out.append(_ext_header(_EXT_NDARRAY, payload))
     elif isinstance(obj, np.generic):

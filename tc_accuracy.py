@@ -67,7 +67,10 @@ default config of ``chip_smoke.py`` phase 8; NeRF and NeuS: phase 11's)
 by ``torch.profiler`` over five more steps the device time per step, its
 busy share of the traced wall and the kernels by device time
 (``chiprun_out/chip_smoke/tc_accuracy_profile_FAMILY_TREE.txt``, TREE the
-name of the tree's directory).
+name of the tree's directory); then the device operations (kernels,
+copies, sets) per step and per ``camera_pose`` call, and the host ms of
+one step's record through the tree's TensorBoard logger, where it has
+one.
 
 With ``--neus-run kernels|plain [--seed N]`` only the NeuS
 configuration's 300-step run of ``chip_smoke.py`` phase 11
@@ -81,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -463,6 +467,38 @@ def measure_epilogue(torch, smoke, dev) -> dict:
     return out
 
 
+def device_ops(torch, fn, calls: int) -> float:
+    """Device operations (kernels, copies, sets) per call of ``fn``, by
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0) / calls
+
+
+def logger_ms_per_record(log_dir: Path, records: int = 200):
+    """Host ms of one step's record through the tree's ``NeRFTBLogger``
+    (a default NeDDF step's scalars), or None where the tree has none."""
+    try:
+        from neddf_tpu_torch.training.logger import NeRFTBLogger
+    except ImportError:
+        return None
+    logger = NeRFTBLogger(str(log_dir))
+    losses = {"color": 0.01, "mask": 0.02, "fields_penalty": 0.03}
+    start = time.perf_counter()
+    for i in range(records):
+        logger.write(0.06 + i, 20.0, losses, rays_per_sec=1e4, duration=0.02)
+        logger.next()
+    logger.flush()
+    ms = 1e3 * (time.perf_counter() - start) / records
+    logger.close()
+    return ms
+
+
 def measure_train(torch, smoke, family: str, tree: str) -> dict:
     extra = [*smoke.FAMILY_OVERRIDES.get(family, []), "trainer.epoch_max=1"]
     torch.cuda.reset_peak_memory_stats()
@@ -471,14 +507,19 @@ def measure_train(torch, smoke, family: str, tree: str) -> dict:
     steady = [r["seconds"] for r in trainer.history if 100 <= r["iteration"] < 200]
     name = f"tc_accuracy_profile_{family}_{tree}.txt"
     steps = 5
-    busy_share = smoke.profile_train(torch, trainer, smoke.card_line(), name, family, "train",
-                                     steps)
+    prof = smoke.profile_train(torch, trainer, smoke.card_line(), name, family, "train", steps)
+    # an older tree's chip_smoke.profile_train returns the busy share, a
+    # newer one a dict with it
+    busy_share = prof["busy_share"] if isinstance(prof, dict) else prof
     busy_s = float((smoke.OUT / name).read_text().splitlines()[1].split("device busy")[1]
                    .split()[0])
     out = {"family": family, "steps": len(trainer.history),
            "ms_per_step": 1e3 * smoke.mean(steady),
            "rays_per_s": trainer.batch_size / smoke.mean(steady), "peak_memory_gib": peak_gib,
-           "device_ms_per_step": 1e3 * busy_s / steps, "busy_share_traced": busy_share}
+           "device_ms_per_step": 1e3 * busy_s / steps, "busy_share_traced": busy_share,
+           "device_ops_per_step": device_ops(torch, lambda: trainer.run_train_step(0), steps),
+           "camera_pose_device_ops": device_ops(torch, lambda: trainer.camera_pose(0), 20),
+           "logger_ms_per_record": logger_ms_per_record(smoke.OUT / f"tc_accuracy_log_{tree}")}
     print(f"train {family}: {json.dumps(out)}", flush=True)
     del trainer
     torch.cuda.empty_cache()

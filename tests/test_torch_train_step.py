@@ -138,9 +138,11 @@ def test_learning_rate_is_optax_staircase(scene):
                                     staircase=True)
     for n in range(7):
         assert ttr.learning_rate(n) == pytest.approx(float(sched(n)), rel=1e-6)
-    for unported in ({"grad_accum": 2}, {"optimize_camera": True}):
+    for ported in ({"grad_accum": 2}, {"optimize_camera": True}):
+        tconfig.instantiate({**cfg["trainer"], **ported}, global_config=cfg)
+    for unported in ({"data": 2, "model": 1}, {"data": "auto", "model": 2}):
         with pytest.raises(NotImplementedError):
-            tconfig.instantiate({**cfg["trainer"], **unported}, global_config=cfg)
+            tconfig.instantiate({**cfg["trainer"], "mesh": unported}, global_config=cfg)
 
 
 def test_jet_table_equals_opencv():

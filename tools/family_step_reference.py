@@ -16,7 +16,10 @@ port's parameter names, and ``spread``: how far each of those numbers
 moves, relative, when the camera is shifted by +-``FAMILY_SHIFT`` (an se3
 delta of about 1e-7, the size of the f32 rounding by which two
 implementations' rays differ). NeRF's top PE band is sin(2^9 x), so its
-early layers' gradients move by about 1% under such a shift.
+early layers' gradients move by about 1% under such a shift. Also the
+gradient of the camera's pose delta (``camera_grad``) and its
+``camera_grad_spread``, by norm relative to its own, under a shift of
+the translation part alone (see ``tools/train_step_reference.py``).
 
 Usage (CPU, about 2 GB of memory and a minute or two):
     JAX_PLATFORMS=cpu python tools/family_step_reference.py
@@ -32,6 +35,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from flax import serialization  # noqa: E402
 
@@ -95,15 +99,17 @@ def family_step(family: str) -> dict:
         mse = jnp.mean(jnp.square(out["color"] - targets["color"]))
         return sum(loss_dict.values()), (loss_dict, mse)
 
-    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    step = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))
 
     def numbers(delta):
-        (loss, (loss_dict, mse)), grads = step(params, jnp.asarray(delta, jnp.float32))
+        (loss, (loss_dict, mse)), (grads, grad_cam) = step(params,
+                                                           jnp.asarray(delta, jnp.float32))
         norms = {name: float(g.norm()) for name, g in params_from_jax(
             jax.device_get(grads)).items()}
         return {"loss": float(loss), "mse": float(mse),
                 "losses": {k: float(v) for k, v in loss_dict.items()},
-                "grad_norms": dict(sorted(norms.items()))}
+                "grad_norms": dict(sorted(norms.items())),
+                "camera_grad": np.asarray(grad_cam, np.float64).tolist()}
 
     out = numbers(trainer.camera_deltas[cam])
     shift = jnp.asarray(FAMILY_SHIFT, jnp.float32)
@@ -112,6 +118,11 @@ def family_step(family: str) -> dict:
     def rel(key, pick):
         return max(abs(pick(out) - pick(m)) / max(abs(pick(out)), 1e-30) for m in moved)
 
+    cam_shift = jnp.asarray((0.0, 0.0, 0.0, *FAMILY_SHIFT[3:]), jnp.float32)
+    grad_cam = np.asarray(out["camera_grad"])
+    out["camera_grad_spread"] = max(
+        float(np.linalg.norm(np.asarray(numbers(trainer.camera_deltas[cam] + sign * cam_shift)[
+            "camera_grad"]) - grad_cam) / np.linalg.norm(grad_cam)) for sign in (1.0, -1.0))
     out["spread"] = {
         **{k: rel(k, lambda d, k=k: d[k]) for k in ("loss", "mse")},
         **{f"loss {k}": rel(k, lambda d, k=k: d["losses"][k]) for k in out["losses"]},

@@ -7,7 +7,15 @@ on ``data/machine``, params from ``models/model_01000.ckpt``, iteration
 (``network.fused=off``), on the pixel and sample draws of
 ``chip_smoke.py::machine_step_draws``. Prints one JSON object: the loss,
 the colour mse, the loss dict and the L2 norm of every parameter's
-gradient, keyed by the PyTorch port's parameter names.
+gradient, keyed by the PyTorch port's parameter names; the gradient of
+camera 0's pose delta (6 numbers, ``camera_grad``) and how far it moves,
+by norm relative to its own, when the delta's translation is shifted by
++-``chip_smoke.py::FAMILY_SHIFT[3:]`` (``camera_grad_spread``). The
+rotation stays 0: at |w| ~ 1e-7 the reference's V coefficients, (theta -
+sin theta) / theta^3 and (1 - cos theta) / theta^2, are f32 noise, and
+with a translation beside them their derivative moves the rotation part
+of the gradient by ~20% (a shift of the translation alone or of the
+rotation alone moves it by ~2e-5).
 
 Usage (CPU, about 2 GB of memory and a minute):
     JAX_PLATFORMS=cpu python tools/train_step_reference.py
@@ -30,6 +38,7 @@ sys.path.insert(0, str(REPO))
 
 import neddf_tpu.ops.sampling as jsampling  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    FAMILY_SHIFT,
     MACHINE_CAMERA,
     MACHINE_ITERATION,
     machine_step_draws,
@@ -64,10 +73,9 @@ def main() -> None:
         trainer.loss_types, trainer.rgb_images[cam], trainer.mask_images[cam],
         jnp.asarray(us), jnp.asarray(vs))
     uv = jnp.stack([jnp.asarray(us), jnp.asarray(vs)], axis=1)
-    pose_r, pose_t = camera_pose(trainer.camera_initials[cam],
-                                 trainer.camera_deltas[cam])
 
-    def loss_fn(params):
+    def loss_fn(params, delta):
+        pose_r, pose_t = camera_pose(trainer.camera_initials[cam], delta)
         out = render.render_rays(params, trainer.calib, pose_r, pose_t, uv,
                                  jax.random.PRNGKey(0), MACHINE_ITERATION)
         loss_dict = {}
@@ -76,15 +84,22 @@ def main() -> None:
         mse = jnp.mean(jnp.square(out["color"] - targets["color"]))
         return sum(loss_dict.values()), (loss_dict, mse)
 
-    (loss, (loss_dict, mse)), grads = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(trainer.params)
+    step = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))
+    delta = trainer.camera_deltas[cam]
+    (loss, (loss_dict, mse)), (grads, grad_cam) = step(trainer.params, delta)
     norms = {}
     for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
         name = ".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
         norms[name] = float(jnp.linalg.norm(g))
+    grad_cam = np.asarray(grad_cam, np.float64)
+    shift = jnp.asarray((0.0, 0.0, 0.0, *FAMILY_SHIFT[3:]), jnp.float32)
+    moved = [np.asarray(step(trainer.params, delta + sign * shift)[1][1], np.float64)
+             for sign in (1.0, -1.0)]
+    spread = max(np.linalg.norm(m - grad_cam) for m in moved) / np.linalg.norm(grad_cam)
     print(json.dumps({"loss": float(loss), "mse": float(mse),
                       "losses": {k: float(v) for k, v in loss_dict.items()},
-                      "grad_norms": norms}, indent=1))
+                      "grad_norms": norms, "camera_grad": grad_cam.tolist(),
+                      "camera_grad_spread": float(spread)}, indent=1))
 
 
 if __name__ == "__main__":
