@@ -132,9 +132,30 @@ Phases (any failure stops the script with a non-zero exit code):
    weight, a ``profile_trace_start=2`` trace under ``log/profile/``, and
    the host syncs of one step under ``torch.cuda.set_sync_debug_mode``
    (``camera_pose`` must make none);
+18. geometry extraction and the culled eval render, at full width on a
+   copy of ``pretrained/machine_neddf``, each path with every count at 0
+   just before it and read just after (no plain version called): (a)
+   ``python -m neddf_tpu_torch.scripts.fields_visualizer`` at 64^3
+   (voxel cache, the distance mesh at 0.0275, five slices) through #1 and
+   #3; the 64^3 volume through the plain versions (mesh vertex and
+   triangle counts within 1%); the 16^3 f32 volume against the JAX
+   package's (``tools/geometry_reference.npz``, within 1e-4 of max |v|);
+   ``voxelize`` and the host's marching tetrahedra timed at 64^3 and
+   256^3; (b) ``trainer.enable_ray_cull`` (the grid through the training
+   forward: #1 with its stash, #5, #1'): build time, occupied shares; (c)
+   ``run_eval --ray-cull`` of cam 0 at full resolution, then the dense and
+   culled renders of one call (active pixels bitwise equal, culled pixels
+   the empty composite, PSNR within 0.05 dB, one host sync more), and
+   ``render_image(occupancy=...)`` with an all-occupied grid at full
+   budgets (against the dense render, >= 40 dB) and the run's grid at
+   budgets 16/64 (s/image, PSNR); (d) ``fields_visualizer --field auto``
+   on phase 11's NeRF and NeuS runs (#3 / #7 launched; a mesh with a
+   triangle, at the family's default level or, where the short run's
+   field does not reach it, at the cached volume's mid-range);
 13. (printed last) one JSON line of per-kernel results (with each route's
-   bound; the parallel db sum among them), the card line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+   bound; the parallel db sum among them; ``launches_geometry``: each
+   forward's launches on the phase-18 paths), the card line, and the
+   final ``{"ok": true, "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
 Outputs go to ``chiprun_out/chip_smoke/``.
@@ -2693,6 +2714,293 @@ def phase_discarded_cotangents(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# geometry extraction and the culled eval render of pretrained/machine_neddf
+GEOMETRY_RES = 64  # the visualizer's default lattice
+GEOMETRY_RES_LARGE = 256
+GEOMETRY_LEVEL = 0.0275  # the distance field's iso level
+# kernels vs plain versions (bf16): a vertex or triangle count may move
+# where a rounding flips a lattice value across the level
+MESH_COUNT_TOL = 0.01
+# the JAX package's f32 volumes on the CPU (tools/geometry_reference.py):
+# the port's f32 volume through the kernels within this share of max |v|
+GEOMETRY_REF = REPO / "tools" / "geometry_reference.npz"
+GEOMETRY_REF_TOL = 1e-4
+# run_eval --ray-cull against the dense render of the same call: PSNR (dB)
+RAY_CULL_PSNR_TOL = 0.05
+# occupancy= with budgets of the whole sample axes against the dense render
+# (bf16, phase 4's bar for a bf16 render against another)
+OCCUPANCY_FULL_PSNR_MIN = 40.0
+OCCUPANCY_BUDGETS = (16, 64)
+# the fields of the NeDDF paths and the counters that must launch on them
+GEOMETRY_EVAL_KERNELS = ("dual_mlp_trunk", "mlp_seg")
+GEOMETRY_GRID_KERNELS = ("dual_mlp_trunk", "neddf_epilogue", "dual_mlp_seg")
+GEOMETRY_FAMILY_KERNELS = {"nerf": ("mlp_seg",), "neus": ("sdf_mlp", "mlp_seg")}
+
+
+def count_syncs(torch, fn) -> "collections.Counter":
+    """Host syncs of ``fn()`` under ``torch.cuda.set_sync_debug_mode``,
+    by the port's line that made each."""
+    import collections
+    import traceback
+    import warnings
+
+    syncs = []
+
+    def where(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack() if "neddf_tpu_torch" in f.filename]
+        at = frames[-1] if frames else None
+        syncs.append(f"{Path(at.filename).relative_to(REPO)}:{at.lineno}" if at
+                     else f"{filename}:{lineno}")
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = where
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(syncs)
+
+
+def timed(torch, fn):
+    """(fn(), wall seconds with the device drained before and after)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def image_psnr(color, gt) -> float:
+    """PSNR of a rendered colour image [h, w, 3] in [0, 1] against a uint8
+    image, as ``render_test`` scores it (uint8 quantisation)."""
+    import numpy as np
+
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    rgb = np.clip(color * 255, 0, 255).astype(np.uint8)
+    return peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
+
+
+def phase_geometry(torch, card: str, family_runs) -> dict:
+    """Phase 18: geometry extraction and the culled eval render through
+    the entry points, at full width on ``pretrained/machine_neddf``
+    (a copy under ``OUT``), and the visualizer on ``family_runs``
+    ({family: (run dir, epoch)}). Each path is driven with every count at
+    0 just before it and read just after."""
+    import numpy as np
+
+    from neddf_tpu_torch.fields.base import voxelize
+    from neddf_tpu_torch.ops.occupancy import coarsen_grid, make_grid
+    from neddf_tpu_torch.scripts import fields_visualizer
+    from neddf_tpu_torch.scripts.run_eval import evaluate, load_trainer
+    from neddf_tpu_torch.viz import marching_tetrahedra
+
+    out = {"launches": {}}
+    run = OUT / "geometry_machine_neddf"
+    if run.exists():
+        shutil.rmtree(run)
+    shutil.copytree(RUN, run)
+
+    # ---- 18a: fields_visualizer (voxel cache, mesh, slices) through the kernels
+    reset_path_counts()
+    (verts, tris), wall = timed(torch, lambda: fields_visualizer.main(
+        [str(run), "--epoch", str(EPOCH), "--resolution", str(GEOMETRY_RES)]))
+    counts = read_path_counts("[18a] fields_visualizer", GEOMETRY_EVAL_KERNELS)
+    out["launches"]["fields_visualizer"] = ("neddf", counts["launches"])
+    check_routes("[18a] fields_visualizer", counts["routes"], "tc", backward=False)
+    log(f"[18a] fields_visualizer {RUN.name} --resolution {GEOMETRY_RES}: {wall:.2f} s (load, "
+        f"voxelize, marching, export, 5 slices); mesh {verts.shape[0]} vertices, "
+        f"{tris.shape[0]} triangles; launches {counts['launches']}, plain calls 0")
+    if tris.shape[0] < 1:
+        fail("[18a] the distance mesh has no triangle")
+    voxel_k = np.load(run / "mesh" / f"voxel_{GEOMETRY_RES}.npy")
+
+    trainer = load_trainer(run, EPOCH)
+    net = trainer.neural_render.network_fine
+    net.fused = "off"
+    voxel_p = voxelize(net, "distance", cube_resolution=GEOMETRY_RES)
+    net.fused = "auto"
+    v_p, t_p = marching_tetrahedra(voxel_p, GEOMETRY_LEVEL)
+    gaps = {"vertices": abs(verts.shape[0] - v_p.shape[0]) / max(v_p.shape[0], 1),
+            "triangles": abs(tris.shape[0] - t_p.shape[0]) / max(t_p.shape[0], 1)}
+    diff = float(np.abs(voxel_k - voxel_p).max())
+    log(f"[18a] {GEOMETRY_RES}^3 bf16 kernels vs plain versions: max |volume diff| {diff:.4g} "
+        f"(max |v| {np.abs(voxel_p).max():.4g}); plain mesh {v_p.shape[0]} vertices, "
+        f"{t_p.shape[0]} triangles; count gaps {gaps} (bar {MESH_COUNT_TOL})")
+    if not np.isfinite(voxel_k).all() or max(gaps.values()) > MESH_COUNT_TOL:
+        fail("[18a] the kernels' mesh disagrees with the plain versions'")
+    out["kernels_vs_plain"] = {"max_abs_diff": diff, "count_gaps": gaps,
+                               "mesh": [int(verts.shape[0]), int(tris.shape[0])],
+                               "mesh_plain": [int(v_p.shape[0]), int(t_p.shape[0])]}
+
+    ref = np.load(GEOMETRY_REF)
+    net.compute_dtype = torch.float32
+    f32 = {}
+    for name in ("distance", "density"):
+        got = voxelize(net, name, cube_resolution=ref[name].shape[0])
+        f32[name] = float(np.abs(got - ref[name]).max() / np.abs(ref[name]).max())
+    net.compute_dtype = torch.bfloat16
+    log(f"[18a] {ref['distance'].shape[0]}^3 f32 through the kernels vs the JAX package on the "
+        f"CPU (tools/geometry_reference.py): max |diff| / max |v| {f32} (distance bar "
+        f"{GEOMETRY_REF_TOL})")
+    if not f32["distance"] <= GEOMETRY_REF_TOL:
+        fail("[18a] the f32 distance volume disagrees with the JAX package's")
+    out["f32_vs_jax"] = f32
+
+    times = {}
+    for res in (GEOMETRY_RES, GEOMETRY_RES_LARGE):
+        volume, secs = timed(torch, lambda: voxelize(net, "distance", cube_resolution=res))
+        (v, t), march = timed(torch, lambda: marching_tetrahedra(volume, GEOMETRY_LEVEL))
+        times[res] = {"voxelize_s": secs, "points_per_s": res ** 3 / secs, "marching_s": march,
+                      "vertices": int(v.shape[0]), "triangles": int(t.shape[0])}
+        log(f"[18a] voxelize {res}^3 (bf16, eval route, chunk 65,536): {secs:.3f} s, "
+            f"{res ** 3 / secs:.4g} points/s; marching tetrahedra on the host {march:.3f} s "
+            f"({v.shape[0]} vertices, {t.shape[0]} triangles) | card: {card}")
+        del volume
+    out["times"] = times
+
+    # ---- 18b: enable_ray_cull (the grid: 4 EMA-max updates, training route)
+    reset_path_counts()
+    _, build_s = timed(torch, trainer.enable_ray_cull)
+    counts = read_path_counts("[18b] enable_ray_cull", GEOMETRY_GRID_KERNELS)
+    out["launches"]["enable_ray_cull"] = ("neddf", counts["launches"])
+    grid = trainer.eval_ray_cull
+    occupied = (grid.values > grid.threshold).float().mean().item()
+    coarse = coarsen_grid(grid, 4).values.mean().item()
+    log(f"[18b] enable_ray_cull: {build_s:.3f} s; occupied {occupied:.4f} of the "
+        f"{grid.resolution}^3 cells, {coarse:.4f} of the coarsened and dilated "
+        f"{grid.resolution // 4}^3; launches {counts['launches']} | card: {card}")
+    out["grid"] = {"build_s": build_s, "occupied_share": occupied, "coarse_share": coarse}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- 18c: run_eval --ray-cull, camera 0 at full resolution
+    reset_path_counts()
+    trainer, wall = timed(torch, lambda: evaluate(run, EPOCH, cameras=[0], ray_cull=True))
+    counts = read_path_counts("[18c] run_eval --ray-cull",
+                              GEOMETRY_EVAL_KERNELS + GEOMETRY_GRID_KERNELS)
+    out["launches"]["run_eval_ray_cull"] = ("neddf", counts["launches"])
+    log(f"[18c] run_eval --ray-cull --cameras 0: {wall:.2f} s (load, grid, render, PNGs); "
+        f"launches {counts['launches']}")
+    render = trainer.neural_render
+    grid = trainer.eval_ray_cull
+    h, w = trainer.dataset.image_height, trainer.dataset.image_width
+    gt = trainer.dataset[0]["rgb_images"].astype("uint8")
+    with torch.no_grad():
+        cam_r, cam_t = trainer.camera_pose(0)
+    targets = ["color", "depth", "transmittance"]
+
+    def image(ds=1, **kw):
+        return render.render_image(
+            trainer.calib, cam_r, cam_t, w, h, targets, ds, trainer.chunk,
+            generator=torch.Generator(device=cam_r.device).manual_seed(0), **kw)
+
+    dense, dense_s = timed(torch, image)
+    culled, culled_s = timed(torch, lambda: image(ray_cull=grid))
+    uv = np.stack([np.tile(np.arange(w), h), np.repeat(np.arange(h), w)], axis=1)
+    active = render.rays_active(coarsen_grid(grid, 4), trainer.calib, cam_r, cam_t,
+                                torch.as_tensor(uv, device=cam_r.device), 128)
+    active = active.cpu().numpy().reshape(h, w)
+    bitwise = all(np.array_equal(culled[k][active], dense[k][active]) for k in targets)
+    empty = bool(np.all(culled["color"][~active] == 0.0)
+             and np.all(culled["depth"][~active] == render.max_dist)
+             and np.all(culled["transmittance"][~active] == 1.0))
+    psnr_dense, psnr_culled = image_psnr(dense["color"], gt), image_psnr(culled["color"], gt)
+    share = 1.0 - float(active.mean())
+    log(f"[18c] cam 0 {w}x{h}: culled share of rays {share:.4f}; active pixels bitwise equal to "
+        f"the dense render of the same call: {bitwise}; culled pixels the empty composite: "
+        f"{empty}; PSNR dense {psnr_dense:.4f} dB, culled {psnr_culled:.4f} dB (bar "
+        f"{RAY_CULL_PSNR_TOL} dB); {dense_s:.3f} s/image dense, {culled_s:.3f} s/image culled "
+        f"| card: {card}")
+    if not (bitwise and empty and abs(psnr_culled - psnr_dense) <= RAY_CULL_PSNR_TOL):
+        fail("[18c] the culled render disagrees with the dense render")
+    # the culled render runs fewer chunks, each with its field's copies of
+    # Python values (ops/pe.py), and one sync of its own: the active-ray counts
+    syncs_dense = count_syncs(torch, lambda: image(8))
+    syncs_culled = count_syncs(torch, lambda: image(8, ray_cull=grid))
+    extra = syncs_culled - syncs_dense
+    log(f"[18c] host syncs of one render at downsampling 8: dense {dict(syncs_dense)}, culled "
+        f"{dict(syncs_culled)}")
+    if sum(extra.values()) != 1:
+        fail(f"[18c] ray_cull must add one host sync (the active-ray count), added {extra}")
+
+    full = make_grid(16, 6.0, 0.0, cam_r.device)
+    budgets_full = (render.sample_coarse + 1, render.sample_fine + 1 + render.sample_coarse + 1)
+    reset_path_counts()
+    occ_full, occ_full_s = timed(torch, lambda: image(occupancy=full, budget_coarse=budgets_full[0],
+                                                      budget_fine=budgets_full[1]))
+    counts = read_path_counts("[18c] occupancy= full budgets", GEOMETRY_EVAL_KERNELS)
+    out["launches"]["occupancy_full"] = ("neddf", counts["launches"])
+    diff = occ_full["color"] - dense["color"]
+    full_psnr = -10.0 * math.log10(max(float(np.square(diff).mean()), 1e-20))
+    log(f"[18c] occupancy= all-occupied grid, budgets {budgets_full} (the whole sample axes): "
+        f"max |color - dense| {np.abs(diff).max():.4g}, {full_psnr:.2f} dB against the dense "
+        f"render (bar {OCCUPANCY_FULL_PSNR_MIN}), {occ_full_s:.3f} s/image; launches "
+        f"{counts['launches']}")
+    reset_path_counts()
+    occ, occ_s = timed(torch, lambda: image(occupancy=grid, budget_coarse=OCCUPANCY_BUDGETS[0],
+                                            budget_fine=OCCUPANCY_BUDGETS[1]))
+    counts = read_path_counts("[18c] occupancy= budgets", GEOMETRY_EVAL_KERNELS)
+    out["launches"]["occupancy_budget"] = ("neddf", counts["launches"])
+    psnr_occ = image_psnr(occ["color"], gt)
+    log(f"[18c] occupancy= the run_eval grid, budgets {OCCUPANCY_BUDGETS}: {occ_s:.3f} s/image, "
+        f"PSNR {psnr_occ:.4f} dB (dense {psnr_dense:.4f}); launches {counts['launches']} "
+        f"| card: {card}")
+    if full_psnr < OCCUPANCY_FULL_PSNR_MIN or not np.isfinite(occ["color"]).all():
+        fail("[18c] occupancy= with full budgets disagrees with the dense render")
+    out["render"] = {"culled_share": share, "bitwise_active": bitwise, "empty_culled": empty,
+                     "psnr_dense": psnr_dense, "psnr_culled": psnr_culled,
+                     "dense_s": dense_s, "culled_s": culled_s, "run_eval_s": wall,
+                     "syncs_dense": dict(syncs_dense), "syncs_culled": dict(syncs_culled),
+                     "occupancy_full_psnr_vs_dense": full_psnr,
+                     "occupancy_full_max_abs_diff": float(np.abs(diff).max()),
+                     "occupancy_full_s": occ_full_s, "occupancy_budget_s": occ_s,
+                     "occupancy_budget_psnr": psnr_occ}
+    del trainer, dense, culled, occ_full, occ
+    torch.cuda.empty_cache()
+
+    # ---- 18d: the visualizer on the NeRF and NeuS runs (--field auto)
+    for family, (run_dir, epoch) in family_runs.items():
+        reset_path_counts()
+        (v, t), wall = timed(torch, lambda: fields_visualizer.main(
+            [str(run_dir), "--epoch", str(epoch), "--resolution", str(GEOMETRY_RES)]))
+        counts = read_path_counts(f"[18d] fields_visualizer {family}",
+                                  GEOMETRY_FAMILY_KERNELS[family])
+        out["launches"][f"fields_visualizer_{family}"] = (family, counts["launches"])
+        field = "sdf" if family == "neus" else "density"
+        volume = np.load(run_dir / "mesh" / f"voxel_{field}_{GEOMETRY_RES}.npy")
+        log(f"[18d] fields_visualizer {family} --field auto ({field}, volume in "
+            f"[{volume.min():.4g}, {volume.max():.4g}]): {wall:.2f} s; mesh {v.shape[0]} "
+            f"vertices, {t.shape[0]} triangles at the default level; launches "
+            f"{counts['launches']} | card: {card}")
+        mesh = {"default_level": [int(v.shape[0]), int(t.shape[0])]}
+        if t.shape[0] < 1 and np.isfinite(volume).all():
+            # a short run's field may not reach the family's default level
+            # (density 15, sdf 0.05): mesh the cached volume at its mid-range
+            level = float(volume.min() + volume.max()) / 2.0
+            v, t = fields_visualizer.main(
+                [str(run_dir), "--epoch", str(epoch), "--resolution", str(GEOMETRY_RES),
+                 "--threshold", str(level), "--slices", "0"])
+            log(f"[18d] {family} again at level {level:.4g} (the cached volume): mesh "
+                f"{v.shape[0]} vertices, {t.shape[0]} triangles")
+            mesh[f"level_{level:.6g}"] = [int(v.shape[0]), int(t.shape[0])]
+        if t.shape[0] < 1 or not np.isfinite(volume).all():
+            fail(f"[18d] the {family} mesh has no triangle")
+        out[f"mesh_{family}"] = mesh
+    return out
+
+
+def geometry_launches(geometry: dict, counter: str, family: str) -> dict:
+    """Launches of one kernel wrapper on each phase-18 path of ``family``
+    (``launches_geometry`` in the kernels line)."""
+    return {path: counts[counter] for path, (fam, counts) in geometry["launches"].items()
+            if fam == family and counts.get(counter)}
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -2976,6 +3284,10 @@ def main() -> int:
     accum = phase_grad_accum(torch, card, train)
     rest = phase_rest(torch, card)
 
+    # ---- phase 18: geometry extraction and the culled eval render
+    geometry = phase_geometry(torch, card, {family: (OUT / f"train_{family}", TRAIN_EPOCHS)
+                                            for family in ("nerf", "neus")})
+
     # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
     key = f"{M_TRAIN}/bfloat16"
@@ -2990,7 +3302,8 @@ def main() -> int:
         r = train_kernels[route][key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route])}
+                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route]),
+                "launches_geometry": geometry_launches(geometry, launch_key, "neddf")}
 
     def family_entry(name, source, replaces, family, route, fkey):
         r = family_kernels[route][fkey]
@@ -2998,7 +3311,8 @@ def main() -> int:
                 "launches": family_runs[family]["launches"][route],
                 "max_abs_err": max(v["max_abs_err"] for k, v in family_kernels[route].items()
                                    if k.split("/")[0] == fkey.split("/")[0]),
-                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r)}
+                "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r),
+                "launches_geometry": geometry_launches(geometry, route, family)}
 
     bwd = entry("dual_mlp_seg_bwd (trunk K=3; gstack and the layer input folded into the "
                 "products over a stream-grouped row tile)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
@@ -3018,7 +3332,8 @@ def main() -> int:
          "launches": train["launches"]["mlp_seg"],
          "max_abs_err": bf16["col_max_abs_err"],
          "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"],
-         **bound_keys(bounds["mlp_seg_eval"])},
+         **bound_keys(bounds["mlp_seg_eval"]),
+         "launches_geometry": geometry_launches(geometry, "mlp_seg", "neddf")},
         entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
               "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
         bwd,
@@ -3065,7 +3380,7 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in products.values()
                                if v["dtype"] == dtype),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {}})
     db = family_kernels["db_sum"]
     kernels.append({
         "name": "sum_rows (the parallel fixed-order db sum of the backwards)", "route": "cuda",
@@ -3073,7 +3388,8 @@ def main() -> int:
         "replaces": "neddf_tpu/kernels/sdf_mlp.py:304",
         "launches": family_runs["neus"]["routes"]["passes"]["db_sum"],
         "max_abs_err": db["max_abs_err"], "ms": db["ms"], "plain_ms": db["plain_ms"],
-        "bound_ms": db["bound_ms"], "bound_by": db["bound_by"], "library_ms": db["library_ms"]})
+        "bound_ms": db["bound_ms"], "bound_by": db["bound_by"], "library_ms": db["library_ms"],
+        "launches_geometry": {}})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -3084,7 +3400,7 @@ def main() -> int:
         "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
         "family_steps": family_steps, "family_runs": family_runs,
         "other_configs": other_configs, "resume": resume, "camera": camera,
-        "grad_accum": accum, "rest": rest,
+        "grad_accum": accum, "rest": rest, "geometry": geometry,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

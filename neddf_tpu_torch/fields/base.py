@@ -1,6 +1,7 @@
 """Field building blocks: the warmup schedule, a dense layer, the kernel switch.
 
-Counterpart of ``neddf_tpu/fields/base.py``. Parameters keep the JAX
+Counterpart of ``neddf_tpu/fields/base.py``, with its lattice query
+``voxelize``. Parameters keep the JAX
 layout: a layer's weight ``w`` is ``[in, out]`` and its bias ``b`` is
 ``[out]``, so ``training/checkpoint.py::params_from_jax`` is a rename.
 """
@@ -9,8 +10,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+from neddf_tpu_torch.geometry.rays import Sampling
 
 
 class Schedule(NamedTuple):
@@ -89,3 +93,40 @@ def check_fused(fused: "str | bool") -> str:
     if fused not in ("auto", "on", "off"):
         raise ValueError(f"fused must be auto/on/off, got {fused!r}")
     return fused
+
+
+@torch.no_grad()
+def voxelize(
+    field: nn.Module,
+    field_name: str = "density",
+    cube_range: float = 1.1,
+    cube_resolution: int = 64,
+    chunk: int = 65536,
+) -> np.ndarray:
+    """One output of ``field`` (eval schedule) over a cubic lattice of
+    ``cube_resolution``^3 points in [-cube_range, cube_range]^3, as a
+    numpy f32 [R, R, R] volume.
+
+    The lattice order is the JAX package's ``np.meshgrid(ids, ids, ids)``
+    ('xy' indexing, ``neddf_tpu/fields/base.py::voxelize:121-163``):
+    ``volume[i, j, k]`` is the field at ``(x, y, z) = (ids[k], ids[i],
+    ids[j])``. Each chunk's positions are built on the field's device
+    from their flat indices, and the volume is copied to the host once.
+    The eval route (``need_aux=False``) runs unless the field asked for
+    is a penalty."""
+    device = next(field.parameters()).device
+    r = cube_resolution
+    ids = torch.as_tensor(
+        np.linspace(-cube_range, cube_range, r).astype(np.float32), device=device)
+    n = r ** 3
+    sched = field.schedule(-1)
+    need_aux = "penalty" in field_name
+    direction = torch.tensor([1.0, 0.0, 0.0], device=device)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for below in range(0, n, chunk):
+        flat = torch.arange(below, min(n, below + chunk), device=device)
+        pos = torch.stack([ids[flat % r], ids[flat // (r * r)], ids[(flat // r) % r]], dim=1)
+        sampling = Sampling(pos[None], direction.expand_as(pos)[None], torch.zeros_like(pos)[None])
+        out[below : below + pos.shape[0]] = field(
+            sampling, sched, need_aux=need_aux)[field_name].reshape(-1).float()
+    return out.cpu().numpy().reshape(r, r, r)

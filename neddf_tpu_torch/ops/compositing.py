@@ -10,7 +10,7 @@ Counterpart of ``neddf_tpu/ops/compositing.py``:
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -18,11 +18,21 @@ Tensor = torch.Tensor
 
 
 def integrate_volume_render(
-    dists: Tensor, densities: Tensor, colors: Tensor, max_dist: float
+    dists: Tensor,
+    densities: Tensor,
+    colors: Tensor,
+    max_dist: float,
+    deltas: Optional[Tensor] = None,
 ) -> Dict[str, Tensor]:
     """dists/densities [B, S], colors [B, S, 3] -> weight [B, S-1],
-    depth [B], color [B, 3], transmittance [B]."""
-    deltas = dists[:, 1:] - dists[:, :-1]
+    depth [B], color [B, 3], transmittance [B].
+
+    ``deltas`` [B, S-1] replaces the interval lengths ``diff(dists)``:
+    occupancy culling composites over the kept samples with each one's
+    own dense interval (the gaps between kept samples are empty space).
+    """
+    if deltas is None:
+        deltas = dists[:, 1:] - dists[:, :-1]
     alpha = 1.0 - torch.exp(-densities[:, :-1] * deltas)
     log_t = torch.cumsum(torch.log(1.0 - alpha + 1e-7), dim=-1)
     t = torch.cat([torch.ones_like(log_t[:, :1]), torch.exp(log_t)], dim=-1)

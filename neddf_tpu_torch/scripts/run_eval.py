@@ -2,13 +2,16 @@
 
 Usage:
     python -m neddf_tpu_torch.scripts.run_eval <run_dir> [--epoch 2000]
-        [--device cuda] [--cameras 0 12] [--downsampling 1]
+        [--device cuda] [--cameras 0 12] [--downsampling 1] [--ray-cull]
 
 Recomposes ``<run_dir>/.hydra`` with ``dataset.data_split=test``, loads
-``models/model_{epoch:05}.ckpt``, renders the test views to
+``models/model_{epoch:05}.ckpt`` (or, without it, the reference's
+``.pth``), renders the test views to
 ``<run_dir>/eval`` and prints PSNR/SSIM per view at full resolution
-(same flags as ``neddf_tpu/scripts/run_eval.py`` except ``--ray-cull``,
-which is not ported). The snapshot's device (``tpu`` in this repo's
+(the flags of ``neddf_tpu/scripts/run_eval.py``). ``--ray-cull`` builds
+an occupancy grid from the loaded field and skips the rays that cross
+no occupied cell (``trainer.enable_ray_cull``); culled pixels get the
+empty composite. The snapshot's device (``tpu`` in this repo's
 snapshots) maps to CUDA; ``--device cpu`` runs the plain versions of the
 kernels on the CPU.
 """
@@ -41,7 +44,10 @@ def load_trainer(
     if not ds_dir.is_absolute() and not ds_dir.exists() and (_REPO / ds_dir).exists():
         cfg["dataset"]["dataset_dir"] = str(_REPO / ds_dir)
     trainer = config_lib.instantiate(cfg["trainer"], global_config=cfg)
-    trainer.load_pretrained_model(run_dir / "models" / f"model_{epoch:05}.ckpt")
+    model = run_dir / "models" / f"model_{epoch:05}.ckpt"
+    if not model.exists() and model.with_suffix(".pth").exists():
+        model = model.with_suffix(".pth")  # the reference's checkpoint
+    trainer.load_pretrained_model(model)
     return trainer
 
 
@@ -52,9 +58,12 @@ def evaluate(
     cameras: Optional[Iterable[int]] = None,
     downsampling: int = 1,
     draws: Optional[Draws] = None,
+    ray_cull: bool = False,
 ) -> NeRFTrainer:
     """The run_eval path: load, then render into ``<run_dir>/eval``."""
     trainer = load_trainer(run_dir, epoch, device)
+    if ray_cull:
+        trainer.enable_ray_cull()
     save_dir = Path(run_dir).resolve() / "eval"
     save_dir.mkdir(exist_ok=True)
     ids = range(len(trainer.dataset)) if cameras is None else cameras
@@ -74,8 +83,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="test camera ids to render (default: all)")
     parser.add_argument("--downsampling", type=int, default=1,
                         help="render at 1/N resolution (PSNR/SSIM only at 1)")
+    parser.add_argument("--ray-cull", action="store_true",
+                        help="skip background rays via an occupancy grid built from the "
+                        "loaded field (trainer.enable_ray_cull)")
     args = parser.parse_args(argv)
-    evaluate(args.output_dir, args.epoch, args.device, args.cameras, args.downsampling)
+    evaluate(args.output_dir, args.epoch, args.device, args.cameras, args.downsampling,
+             ray_cull=args.ray_cull)
 
 
 if __name__ == "__main__":

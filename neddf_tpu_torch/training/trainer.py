@@ -38,7 +38,10 @@ Counterpart of ``neddf_tpu/training/trainer.py`` (``BaseTrainer`` and
   no ``key``); ``async_checkpoint`` writes from a thread and
   ``finalize_checkpoints`` waits for the writes;
 * ``load_pretrained_model`` (``.ckpt`` or the reference's ``.pth``),
-  ``render_test``, ``render_all`` for eval.
+  ``render_test``, ``render_all`` for eval; ``enable_ray_cull`` builds
+  an occupancy grid of the loaded field (from a generator seeded with
+  ``seed``), and the eval renders then skip the rays that cross no
+  occupied cell (``render/renderer.py::render_image``).
 
 The one configuration not ported: a mesh with ``data > 1`` or ``model >
 1`` (data and width parallelism) raises NotImplementedError; ``data:
@@ -59,6 +62,7 @@ import torch
 from neddf_tpu_torch import config as config_lib
 from neddf_tpu_torch.geometry.camera import PinholeCalib
 from neddf_tpu_torch.geometry.se3 import camera_pose
+from neddf_tpu_torch.ops.occupancy import OccupancyGrid
 from neddf_tpu_torch.render.renderer import Draws
 from neddf_tpu_torch.training.checkpoint import (
     AsyncCheckpointer,
@@ -256,6 +260,7 @@ class NeRFTrainer:
         self.log_path: Optional[Path] = None
         self.logger: Optional[NeRFTBLogger] = None
         self._pending: List[Tuple[Tensor, List[str], float]] = []
+        self.eval_ray_cull: Optional[OccupancyGrid] = None
 
     # ------------------------------------------------------------ train step
     def learning_rate(self, iteration: int) -> float:
@@ -471,6 +476,15 @@ class NeRFTrainer:
         of a reference-layout ``.pth``; every parameter must match."""
         load_renderer_weights(self.neural_render, model_path)
 
+    def enable_ray_cull(self, resolution: int = 64, threshold: float = 0.01) -> None:
+        """Skip background rays in eval renders: an occupancy grid of the
+        current fine field (four jittered updates, drawn from a generator
+        seeded with ``seed``, not from the trainer's own)."""
+        self.eval_ray_cull = self.neural_render.build_occupancy(
+            torch.Generator(device=self.device).manual_seed(self.seed),
+            resolution=resolution, threshold=threshold,
+        )
+
     def render_test(
         self,
         output_dir: "str | Path",
@@ -487,7 +501,7 @@ class NeRFTrainer:
             r, t = self.camera_pose(camera_id)
         images = self.neural_render.render_image(
             self.calib, r, t, w, h, ["color", "depth"], downsampling, self.chunk,
-            generator=self.generator, draws=draws,
+            generator=self.generator, draws=draws, ray_cull=self.eval_ray_cull,
         )
         rgb_np = np.clip(images["color"] * 255, 0, 255).astype(np.uint8)
         depth_np = np.clip(
