@@ -152,16 +152,43 @@ Phases (any failure stops the script with a non-zero exit code):
    on phase 11's NeRF and NeuS runs (#3 / #7 launched; a mesh with a
    triangle, at the family's default level or, where the short run's
    field does not reach it, at the cached volume's mid-range);
+19. the forward-facing path (BASELINE config #5: an LLFF capture of the
+   machine scene, ``dataset.recenter=true render.ndc=true
+   render.sampling_type=point loss=nerf_loss``, NeDDF and NeRF), each
+   path with every count at 0 just before it and read just after:
+   (a) a 9-image 64x64 capture by the port's generator, its decoded
+   pixels against the JAX package's (``tools/llff_reference.npz``: at
+   most 1 level on at most 0.1% of the pixels), and ``LLFFDataset`` on
+   the reference's files against the JAX package's, ``recenter`` false
+   and true (within 1e-6); the 24-image 400x400 capture, made by the
+   port's generator in a subprocess started at the beginning; (b) one
+   full-width f32 step of NeDDF-NDC and NeRF-NDC through the kernels
+   from the seeded parameters, against the JAX package's numbers (within
+   1e-3, or 5x their spread under a 1e-7 camera shift or a one-f32-step
+   move of each ray's final transmittance, which the mask loss's 1 / (1 -
+   T) amplifies on NeRF's nearly transparent coarse rays); (c) 15 epochs of
+   the 21 train frames of each through ``scripts/run.py`` (bf16; 512 /
+   1024 rays): every loss finite, train PSNR of the last 50 steps at
+   least 3 dB above the first 50, every kernel of the path launched on
+   the tensor cores and no plain version called; ms/step, rays/s and the
+   busy share over five traced steps (``profile_train_llff_*.txt``);
+   (d) ``run_eval`` of the 3 held-out views at full resolution, the
+   plain versions on the same draws within 0.05 dB of PSNR per view;
+   s/image; (e) ``fields_visualizer`` on the NeDDF-NDC run dir (#1 and
+   #3 launched; slices and a finite volume); (f) ``run_eval --ray-cull``,
+   ``render_rays_accel`` and ``build_occupancy`` refuse the NDC run;
 13. (printed last) one JSON line of per-kernel results (with each route's
-   bound; the parallel db sum among them; ``launches_geometry``: each
-   forward's launches on the phase-18 paths), the card line, and the
-   final ``{"ok": true, "device": {...}}`` line.
+   bound; the parallel db sum among them; ``launches_geometry`` and
+   ``launches_llff``: each kernel's launches on the phase-18 and
+   phase-19 paths), the card line, and the final ``{"ok": true,
+   "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
 Outputs go to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import shutil
@@ -264,6 +291,42 @@ def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
         bound = 1.0 / math.sqrt(shapes[name[:-1] + "w"][0])
         out[name] = rng.uniform(-bound, bound, size=shapes[name]).astype(np.float32)
     return out
+
+
+# phase 19: the forward-facing path (BASELINE config #5) on an LLFF capture
+# of the machine scene, NDC rays, as scripts/run.py overrides
+LLFF_SMALL = {"n_images": 9, "image_size": 64}  # the capture held against the JAX one
+LLFF_CAPTURE = {"n_images": 24, "image_size": 400}  # tools/llff_experiment.py's defaults
+LLFF_OVERRIDES = {
+    "neddf": ["dataset=llff", "dataset.factor=1", "dataset.recenter=true", "loss=nerf_loss",
+              "render.ndc=true", "render.sampling_type=point"],
+    "nerf": ["network=nerf", "render=nerf_render", "trainer=nerf_trainer", "dataset=llff",
+             "dataset.factor=1", "dataset.recenter=true", "loss=nerf_loss", "render.ndc=true",
+             "render.sampling_type=point"],
+}
+# the phase-19 f32 steps (rays, draws, camera); their JAX reference runs on a CPU
+LLFF_BATCH = 128
+LLFF_DRAW_SEED = 3
+LLFF_CAMERA = 0
+# decoded images, LLFFDataset's cameras and the f32 steps of the JAX package,
+# made on a CPU by tools/llff_step_reference.py
+LLFF_REF = REPO / "tools" / "llff_reference.npz"
+
+
+def llff_ndc_near(capture) -> float:
+    """The NDC near plane of a capture: 0.9 of its smallest bound, scaled as
+    LLFFDataset scales it (the mean bound at 4.0), as
+    tools/llff_experiment.py sets it."""
+    import numpy as np
+
+    bounds = np.load(Path(capture) / "poses_bounds.npy")[:, 15:17]
+    return 0.9 * float(bounds.min()) * 4.0 / float(np.mean(bounds))
+
+
+def llff_overrides(family: str, capture) -> list:
+    """A family's phase-19 overrides on ``capture``."""
+    return [*LLFF_OVERRIDES[family], f"dataset.dataset_dir={capture}",
+            f"render.ndc_near={llff_ndc_near(capture)!r}"]
 
 
 # The JAX package's numbers for the phase-7 step, made once on a CPU with
@@ -1785,6 +1848,33 @@ def family_trainer(torch, family: str, extra=()):
     return config_lib.instantiate(cfg["trainer"], global_config=cfg)
 
 
+def hold_step(tag: str, got: dict, ref: dict, card: str,
+              spread_what: str = "a 1e-7 camera shift") -> tuple:
+    """Hold a step's loss, loss dict and gradient norms (``got``) to the
+    JAX package's (``ref``): each number within JAX_STEP_TOL, or within
+    SPREAD_FACTOR times its own spread (``ref["spread"]``, under
+    ``spread_what``) where the function moves more. Returns (worst relative gap of the numbers held to
+    JAX_STEP_TOL, {name: wider bar})."""
+    pairs = [(k, got[k], ref[k], k) for k in ("loss", "mse")]
+    pairs += [(f"loss {k}", got["losses"][k], v, f"loss {k}") for k, v in ref["losses"].items()]
+    pairs += [(f"grad norm {k}", got["grad_norms"][k], v, k)
+              for k, v in ref["grad_norms"].items()]
+    worst, wider = 0.0, {}
+    for name, value, want, spread_key in pairs:
+        tol = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["spread"][spread_key])
+        if tol > JAX_STEP_TOL:
+            wider[name] = tol
+        rel = check_close(f"{tag} {name}", value, want, tol)
+        if tol == JAX_STEP_TOL:
+            worst = max(worst, rel)
+    log(f"{tag} f32 step vs the JAX package: loss {got['loss']:.8g} (JAX "
+        f"{ref['loss']:.8g}), worst relative gap {worst:.3g} over the "
+        f"{len(pairs) - len(wider)} of {len(pairs)} numbers held to {JAX_STEP_TOL}; "
+        f"{len(wider)} held to {SPREAD_FACTOR:g}x their spread under {spread_what} "
+        f"{json.dumps({k: round(v, 5) for k, v in wider.items()})} | card: {card}")
+    return worst, wider
+
+
 def phase_family_step(torch, card: str) -> dict:
     """Phase 10: one full-width f32 step of each family from the seeded
     parameters, against the JAX package's numbers on the CPU."""
@@ -1805,26 +1895,7 @@ def phase_family_step(torch, card: str) -> dict:
                "losses": {k: v.item() for k, v in loss_dict.items()},
                "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
         ref = FAMILY_STEP[family]
-        # each number within JAX_STEP_TOL, or within SPREAD_FACTOR times its
-        # own spread under a ~1e-7 camera shift where the function moves more
-        pairs = [(k, got[k], ref[k], k) for k in ("loss", "mse")]
-        pairs += [(f"loss {k}", got["losses"][k], v, f"loss {k}")
-                  for k, v in ref["losses"].items()]
-        pairs += [(f"grad norm {k}", got["grad_norms"][k], v, k)
-                  for k, v in ref["grad_norms"].items()]
-        worst, wider = 0.0, {}
-        for name, value, want, spread_key in pairs:
-            tol = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["spread"][spread_key])
-            if tol > JAX_STEP_TOL:
-                wider[name] = tol
-            rel = check_close(f"{family} {name}", value, want, tol)
-            if tol == JAX_STEP_TOL:
-                worst = max(worst, rel)
-        log(f"[10] {family} f32 step vs the JAX package: loss {got['loss']:.8g} (JAX "
-            f"{ref['loss']:.8g}), worst relative gap {worst:.3g} over the "
-            f"{len(pairs) - len(wider)} of {len(pairs)} numbers held to {JAX_STEP_TOL}; "
-            f"{len(wider)} held to {SPREAD_FACTOR:g}x their spread under a 1e-7 camera shift "
-            f"{json.dumps({k: round(v, 5) for k, v in wider.items()})} | card: {card}")
+        worst, wider = hold_step(f"[10] {family}", got, ref, card)
         # the pose-delta gradient (optimize_camera): the kernels' input
         # cotangents through the position encoding into the rays
         cam_bar = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["camera_grad_spread"])
@@ -3001,6 +3072,298 @@ def geometry_launches(geometry: dict, counter: str, family: str) -> dict:
             if fam == family and counts.get(counter)}
 
 
+# ---------------------------------------------------------------- phase 19
+# the forward-facing path's runs: 15 epochs of the 21 train frames
+LLFF_EPOCH_MAX = 14  # trainer.epoch_max: epochs 0..14
+LLFF_TRAIN_FRAMES = 21  # 24 images, every 8th held out
+# the kernels each path launches (wrapper counters); no plain version may run
+LLFF_EVAL_KERNELS = {"neddf": ("dual_mlp_trunk", "mlp_seg"), "nerf": ("mlp_seg",)}
+# the small capture's decoded pixels against the JAX generator's: another
+# numpy build may round a shade to the other level
+LLFF_IMAGE_LEVELS = 1
+LLFF_IMAGE_SHARE = 1e-3
+# LLFFDataset's cameras, intrinsics and bounds against the JAX package's
+LLFF_DATASET_TOL = 1e-6
+
+
+def start_llff_capture(capture: Path):
+    """The phase-19 capture (``LLFF_CAPTURE``) by the port's generator, in a
+    subprocess that runs while the card works on the earlier phases;
+    returns (process, log path)."""
+    if capture.exists():
+        shutil.rmtree(capture)
+    capture.parent.mkdir(parents=True, exist_ok=True)
+    log_path = capture.parent / "llff_capture.log"
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from neddf_tpu_torch.data.llff import generate_forward_facing_dataset as g; "
+            f"g(sys.argv[2], n_images={LLFF_CAPTURE['n_images']}, "
+            f"image_size={LLFF_CAPTURE['image_size']})")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(REPO), str(capture)],
+                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log_path
+
+
+def llff_reference() -> dict:
+    import numpy as np
+
+    with np.load(LLFF_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    ref["step"] = json.loads(str(ref["step"]))
+    return ref
+
+
+def phase_llff_capture(ref: dict, card: str, capture_run) -> dict:
+    """Phase 19a: the port's generator and LLFFDataset against the JAX
+    package's (``tools/llff_reference.npz``), then the 400x400 capture."""
+    import numpy as np
+
+    from neddf_tpu_torch.data import LLFFDataset
+    from neddf_tpu_torch.data.llff import generate_forward_facing_dataset
+    from neddf_tpu_torch.utils.png import read_png, write_png
+
+    small = generate_forward_facing_dataset(OUT / "llff_small", **LLFF_SMALL)
+    images = np.stack([read_png(p) for p in sorted((small / "images").iterdir())])
+    if images.shape != ref["images"].shape:
+        fail(f"[19a] generated images {images.shape}, the JAX package's {ref['images'].shape}")
+    diff = np.abs(images.astype(np.int64) - ref["images"])
+    share = float((diff.max(axis=-1) > 0).mean())
+    poses_gap = float(np.abs(np.load(small / "poses_bounds.npy") - ref["poses_bounds"]).max())
+    log(f"[19a] {LLFF_SMALL['n_images']} frames of {LLFF_SMALL['image_size']} px by the port's "
+        f"generator vs the JAX package's: max {int(diff.max())} levels, on {share:.2e} of the "
+        f"pixels (bars {LLFF_IMAGE_LEVELS}, {LLFF_IMAGE_SHARE}); poses_bounds max gap "
+        f"{poses_gap:.3g}")
+    if diff.max() > LLFF_IMAGE_LEVELS or share > LLFF_IMAGE_SHARE or poses_gap > 1e-9:
+        fail("[19a] the port's forward-facing capture differs from the JAX package's")
+
+    # LLFFDataset on the reference's own files
+    ref_dir = OUT / "llff_small_ref"
+    (ref_dir / "images").mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(ref["images"]):
+        write_png(ref_dir / "images" / f"img_{i:03}.png", img)
+    np.save(ref_dir / "poses_bounds.npy", ref["poses_bounds"])
+    worst = 0.0
+    for rc in (0, 1):
+        train = LLFFDataset(str(ref_dir), "train", factor=1, recenter=bool(rc))
+        test = LLFFDataset(str(ref_dir), "test", factor=1, recenter=bool(rc))
+        test_ids = np.flatnonzero(np.arange(len(ref["images"])) % test.hold_every == 0)
+        gaps = [np.abs(train.camera_params - ref[f"cam_train_{rc}"]).max(),
+                np.abs(test.camera_params - ref[f"cam_test_{rc}"]).max(),
+                np.abs(train.camera_calib_params - ref[f"calib_{rc}"]).max(),
+                abs(train.near - float(ref[f"near_{rc}"])), abs(train.far - float(ref[f"far_{rc}"]))]
+        worst = max(worst, *map(float, gaps))
+        same_images = np.array_equal(test.rgb_images,
+                                     ref["images"][test_ids][..., 2::-1].astype(np.float32))
+        if max(gaps) > LLFF_DATASET_TOL or not np.array_equal(test_ids, ref[f"test_ids_{rc}"]) \
+                or not same_images or (test.mask_images != 255).any():
+            fail(f"[19a] LLFFDataset recenter={bool(rc)}: gaps {gaps}, test ids {test_ids}, "
+                 f"images equal {same_images}")
+    log(f"[19a] LLFFDataset on the reference's files, recenter false and true: cameras, "
+        f"intrinsics and bounds within {worst:.3g} of the JAX package's (bar "
+        f"{LLFF_DATASET_TOL}), splits and images equal")
+
+    proc, log_path = capture_run
+    start = time.perf_counter()
+    if proc.wait() != 0:
+        fail(f"[19a] the capture's generator failed: {log_path.read_text()[-2000:]}")
+    capture = Path(proc.args[-1])
+    frames = sorted((capture / "images").iterdir())
+    log(f"[19a] {len(frames)} frames of {LLFF_CAPTURE['image_size']} px generated under "
+        f"{capture} (in a subprocess beside phases 2-18; waited "
+        f"{time.perf_counter() - start:.1f} s for it here); ndc_near "
+        f"{llff_ndc_near(capture):.6f}")
+    return {"image_max_levels": int(diff.max()), "image_share_off": share,
+            "poses_bounds_gap": poses_gap, "dataset_worst_gap": worst,
+            "capture_wait_s": time.perf_counter() - start, "capture": str(capture)}
+
+
+def llff_trainer(torch, family: str, capture: Path, extra=()):
+    """A family's phase-19 trainer on the card, composed as
+    ``scripts/run.py`` composes it."""
+    from neddf_tpu_torch import config as config_lib
+
+    cfg = config_lib.compose(REPO / "config", overrides=[*llff_overrides(family, capture),
+                                                         *extra])
+    cfg["trainer"]["device"] = "cuda"
+    return config_lib.instantiate(cfg["trainer"], global_config=cfg)
+
+
+def phase_llff_step(torch, card: str, ref: dict, capture: Path) -> dict:
+    """Phase 19b: one full-width f32 step of NeDDF-NDC and NeRF-NDC through
+    the kernels from the seeded parameters, against the JAX package's."""
+    out = {}
+    for family in LLFF_OVERRIDES:
+        trainer = llff_trainer(torch, family, capture, ["network.compute_dtype=float32"])
+        render = trainer.neural_render
+        shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+        render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
+        draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                                   render.sample_coarse + 1, render.sample_fine + 1,
+                                   seed=LLFF_DRAW_SEED, batch=LLFF_BATCH)
+        us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+        reset_path_counts()
+        loss, loss_dict, mse = trainer.step_grads(LLFF_CAMERA, us.long(), vs.long(), u_strat,
+                                                  u_pdf)
+        torch.cuda.synchronize()
+        counts = read_path_counts(f"[19b] {family} f32 step", PATH_KERNELS[family])
+        check_routes(f"[19b] {family} f32 step", counts["routes"], "tf32x3")
+        got = {"loss": loss.item(), "mse": mse.item(),
+               "losses": {k: v.item() for k, v in loss_dict.items()},
+               "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
+        worst, wider = hold_step(f"[19b] {family}-NDC", got, ref["step"][family], card,
+                                 "a 1e-7 camera shift or a one-step move of each ray's T")
+        out[family] = {"got": got, "worst_rel_vs_jax": worst, "wider_bars": wider,
+                       "launches": counts["launches"]}
+        del trainer, render
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_llff_runs(torch, card: str, capture: Path) -> dict:
+    """Phases 19c-f: each family's NDC run through ``scripts/run.py``, its
+    held-out views through ``run_eval`` (kernels and plain versions), the
+    NeDDF run's field slices through ``fields_visualizer``, and the
+    refusals of the world-space grid."""
+    import numpy as np
+
+    from neddf_tpu_torch.scripts import fields_visualizer, run_eval
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+    from neddf_tpu_torch.utils.png import read_png
+
+    out = {"launches": {}, "routes": {}}
+    for family in LLFF_OVERRIDES:
+        run_dir = OUT / f"train_llff_{family}"
+        # ---- 19c: the run
+        reset_path_counts()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        trainer = run_main_path(torch, run_dir, [
+            *llff_overrides(family, capture.relative_to(REPO)),
+            f"trainer.epoch_max={LLFF_EPOCH_MAX}", f"trainer.epoch_save_model={LLFF_EPOCH_MAX}"])
+        wall = time.perf_counter() - start
+        counts = read_path_counts(f"[19c] {family}-NDC run", PATH_KERNELS[family])
+        check_routes(f"[19c] {family}-NDC run", counts["routes"], "tc")
+        out["launches"][f"{family}_ndc_train"] = (family, counts["launches"])
+        out["routes"][f"{family}_ndc_train"] = counts["routes"]
+        hist = trainer.history
+        steps = LLFF_TRAIN_FRAMES * (LLFF_EPOCH_MAX + 1)
+        if len(trainer.dataset) != LLFF_TRAIN_FRAMES or len(hist) != steps:
+            fail(f"[19c] {family}: {len(trainer.dataset)} train frames, {len(hist)} steps")
+        if not all(math.isfinite(r["loss"]) and all(map(math.isfinite, r["losses"].values()))
+                   for r in hist):
+            fail(f"[19c] {family}: a non-finite loss")
+        first, last = mean([r["psnr"] for r in hist[:50]]), mean([r["psnr"] for r in hist[-50:]])
+        steady = [r["seconds"] for r in hist if 100 <= r["iteration"] < 200]
+        ms_step, rays_s = 1000.0 * mean(steady), trainer.batch_size / mean(steady)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[19c] {family}-NDC run: {len(hist)} steps in {wall:.1f} s (load, hooks and "
+            f"checkpoints included), launches {counts['launches']}, plain calls 0; train PSNR "
+            f"first 50 steps {first:.3f} dB, last 50 {last:.3f} dB (gain bar {PSNR_GAIN_MIN}); "
+            f"{ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, "
+            f"{trainer.batch_size} rays, bf16), peak {peak_gib:.2f} GiB | card: {card}")
+        if not last - first >= PSNR_GAIN_MIN:
+            fail(f"[19c] {family}: train PSNR did not rise")
+        prof = profile_train(torch, trainer, card, f"profile_train_llff_{family}.txt",
+                             f"{family}-NDC, {trainer.batch_size} rays, bf16", "19c")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- 19d: run_eval of the held-out views, kernels then plain versions
+        reset_path_counts()
+        (ev, wall_eval) = timed(torch, lambda: run_eval.evaluate(run_dir, LLFF_EPOCH_MAX))
+        counts = read_path_counts(f"[19d] {family}-NDC run_eval", LLFF_EVAL_KERNELS[family])
+        out["launches"][f"{family}_ndc_eval"] = (family, counts["launches"])
+        out["routes"][f"{family}_ndc_eval"] = counts["routes"]
+        views = len(ev.dataset)
+        gts = [ev.dataset[i]["rgb_images"].astype("uint8") for i in range(views)]
+        # run_eval's own images (RGB files of BGR renders), then the same
+        # draws again: view 0 through the kernels (timed), every view through
+        # the plain versions
+        psnrs = {"kernels": [peak_signal_noise_ratio(
+            read_png(run_dir / "eval" / f"{i:03}_rgb.png")[:, :, ::-1], gts[i])
+            for i in range(views)], "plain": []}
+        ev.generator.manual_seed(ev.seed)
+        _, s_kernels = timed(torch, lambda: ev.render_test(run_dir / "eval_kernels", 0, 1))
+        secs = {"kernels": [s_kernels], "plain": []}
+        for net in {ev.neural_render.network_fine, ev.neural_render.coarse_network()}:
+            net.fused = "off"
+        ev.generator.manual_seed(ev.seed)
+        for i in range(views):
+            rgb, s_plain = timed(torch, lambda i=i: ev.render_test(run_dir / "eval_plain", i, 1))
+            psnrs["plain"].append(peak_signal_noise_ratio(rgb, gts[i]))
+            secs["plain"].append(s_plain)
+        gaps = [abs(a - b) for a, b in zip(psnrs["kernels"], psnrs["plain"])]
+        h, w = gts[0].shape[:2]
+        log(f"[19d] {family}-NDC run_eval of the {views} held-out views at {w}x{h} "
+            f"({wall_eval:.2f} s with loading; launches {counts['launches']}): PSNR "
+            f"{[round(x, 4) for x in psnrs['kernels']]} dB through the kernels "
+            f"({mean(secs['kernels']):.3f} s/image), {[round(x, 4) for x in psnrs['plain']]} "
+            f"through the plain versions ({mean(secs['plain']):.3f} s/image); largest gap "
+            f"{max(gaps):.4f} dB (bar {EVAL_PSNR_GAP_DB}) | card: {card}")
+        if views != 3 or not max(gaps) <= EVAL_PSNR_GAP_DB:
+            fail(f"[19d] {family}: run_eval through the kernels and the plain versions disagree")
+        out[family] = {"steps": len(hist), "wall_s": wall, "ms_per_step": ms_step,
+                       "rays_per_s": rays_s, "busy_share": prof["busy_share"],
+                       "device_ms_per_step": prof["device_ms_per_step"],
+                       "launches_per_step": prof["launches_per_step"], "peak_memory_gib": peak_gib,
+                       "psnr_first50": first, "psnr_last50": last,
+                       "eval_psnr": psnrs, "eval_s_per_image": secs, "eval_wall_s": wall_eval,
+                       "loss_curve": [r["loss"] for r in hist],
+                       "psnr_curve": [r["psnr"] for r in hist]}
+
+        if family == "neddf":
+            # ---- 19f: the refusals of the world-space grid
+            calib, (r, t) = ev.calib, ev.camera_pose(0)
+            uv = torch.zeros((4, 2), dtype=torch.long, device=ev.device)
+            u = torch.rand((4, 65), device=ev.device), torch.rand((4, 129), device=ev.device)
+            refusals = {}
+            for what, fn in (
+                    ("run_eval --ray-cull", lambda: run_eval.main(
+                        [str(run_dir), "--epoch", str(LLFF_EPOCH_MAX), "--ray-cull"])),
+                    ("render_rays_accel", lambda: ev.neural_render.render_rays_accel(
+                        calib, r, t, uv, *u, None)),
+                    ("build_occupancy", lambda: ev.neural_render.build_occupancy())):
+                try:
+                    fn()
+                except ValueError as exc:
+                    if "does not support ndc=true" not in str(exc):
+                        raise
+                    refusals[what] = str(exc)
+                else:
+                    fail(f"[19f] {what} accepted an NDC run")
+            log(f"[19f] refused under ndc=true: {json.dumps(refusals)}")
+            out["refusals"] = refusals
+        del ev
+        torch.cuda.empty_cache()
+
+    # ---- 19e: the field slices of the NeDDF-NDC run dir
+    run_dir = OUT / "train_llff_neddf"
+    reset_path_counts()
+    (_, t), wall = timed(torch, lambda: fields_visualizer.main(
+        [str(run_dir), "--epoch", str(LLFF_EPOCH_MAX), "--resolution", str(GEOMETRY_RES)]))
+    counts = read_path_counts("[19e] fields_visualizer of the NeDDF-NDC run",
+                              GEOMETRY_EVAL_KERNELS)
+    out["launches"]["neddf_ndc_fields_visualizer"] = ("neddf", counts["launches"])
+    out["routes"]["neddf_ndc_fields_visualizer"] = counts["routes"]
+    slices = sorted(p.name for p in (run_dir / "fields").glob("slice_*.png"))
+    volume = np.load(run_dir / "mesh" / f"voxel_{GEOMETRY_RES}.npy")
+    log(f"[19e] fields_visualizer of the NeDDF-NDC run dir: {wall:.2f} s, {len(slices)} slice "
+        f"images, the {GEOMETRY_RES}^3 distance volume in [{volume.min():.4g}, "
+        f"{volume.max():.4g}] (NDC coordinates), {t.shape[0]} triangles at the default level; "
+        f"launches {counts['launches']} | card: {card}")
+    if len(slices) < 5 or not np.isfinite(volume).all():
+        fail("[19e] the NDC run's slices or volume are missing or not finite")
+    out["fields_visualizer"] = {"wall_s": wall, "slices": slices, "triangles": int(t.shape[0])}
+    return out
+
+
+def llff_launches(llff: dict, counter: str, family: str) -> dict:
+    """Launches of one kernel wrapper on each phase-19 path of ``family``
+    (``launches_llff`` in the kernels line)."""
+    return {path: counts[counter] for path, (fam, counts) in llff["launches"].items()
+            if fam == family and counts.get(counter)}
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -3044,6 +3407,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cache_datasets()
+    # phase 19's capture, made on the host while the card runs phases 2-18
+    llff_capture = start_llff_capture(OUT / "llff400")
+    atexit.register(stop_process, llff_capture[0])
 
     from neddf_tpu_torch.kernels import _build, dual_mlp
     from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_trunk, dual_mlp_trunk_plain
@@ -3288,6 +3654,16 @@ def main() -> int:
     geometry = phase_geometry(torch, card, {family: (OUT / f"train_{family}", TRAIN_EPOCHS)
                                             for family in ("nerf", "neus")})
 
+    # ---- phase 19: the forward-facing path (an LLFF capture, NDC rays)
+    start = time.perf_counter()
+    ref = llff_reference()
+    llff = {"capture": phase_llff_capture(ref, card, llff_capture)}
+    capture = Path(llff["capture"]["capture"])
+    llff["steps"] = phase_llff_step(torch, card, ref, capture)
+    llff.update(phase_llff_runs(torch, card, capture))
+    llff["wall_s"] = time.perf_counter() - start
+    log(f"[19] the forward-facing phase took {llff['wall_s']:.1f} s")
+
     # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
     key = f"{M_TRAIN}/bfloat16"
@@ -3303,7 +3679,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route]),
-                "launches_geometry": geometry_launches(geometry, launch_key, "neddf")}
+                "launches_geometry": geometry_launches(geometry, launch_key, "neddf"),
+                "launches_llff": llff_launches(llff, launch_key, "neddf")}
 
     def family_entry(name, source, replaces, family, route, fkey):
         r = family_kernels[route][fkey]
@@ -3312,7 +3689,8 @@ def main() -> int:
                 "max_abs_err": max(v["max_abs_err"] for k, v in family_kernels[route].items()
                                    if k.split("/")[0] == fkey.split("/")[0]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r),
-                "launches_geometry": geometry_launches(geometry, route, family)}
+                "launches_geometry": geometry_launches(geometry, route, family),
+                "launches_llff": llff_launches(llff, route, family)}
 
     bwd = entry("dual_mlp_seg_bwd (trunk K=3; gstack and the layer input folded into the "
                 "products over a stream-grouped row tile)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
@@ -3333,7 +3711,8 @@ def main() -> int:
          "max_abs_err": bf16["col_max_abs_err"],
          "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"],
          **bound_keys(bounds["mlp_seg_eval"]),
-         "launches_geometry": geometry_launches(geometry, "mlp_seg", "neddf")},
+         "launches_geometry": geometry_launches(geometry, "mlp_seg", "neddf"),
+         "launches_llff": llff_launches(llff, "mlp_seg", "neddf")},
         entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
               "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
         bwd,
@@ -3367,12 +3746,12 @@ def main() -> int:
     # the same bf16 operands (bf16 out);
     # and the f32 product (3xTF32) at the NeuS trunk's dx; library_ms is
     # torch.matmul on the same f32 operands, TF32 off
-    for name, case, dtype, launches in (
+    for name, case, dtype, launches, route in (
             ("tc_gemm_kernel (bf16 products of the backwards, tensor cores)",
-             "nt fine trunk dx", "bfloat16", train["routes"]["products"]["tc"]),
+             "nt fine trunk dx", "bfloat16", train["routes"]["products"]["tc"], "tc"),
             ("tc_gemm_kernel (f32 products of the backwards, 3xTF32 on the tensor cores)",
              "f32 nt NeuS trunk dx", "float32",
-             family_runs["neus"]["routes"]["products"]["tf32x3"])):
+             family_runs["neus"]["routes"]["products"]["tf32x3"], "tf32x3")):
         r = products[case]
         kernels.append({
             "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
@@ -3380,7 +3759,10 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in products.values()
                                if v["dtype"] == dtype),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {}})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {},
+            "launches_llff": {path: routes["products"][route]
+                              for path, routes in llff["routes"].items()
+                              if routes["products"][route]}})
     db = family_kernels["db_sum"]
     kernels.append({
         "name": "sum_rows (the parallel fixed-order db sum of the backwards)", "route": "cuda",
@@ -3389,7 +3771,9 @@ def main() -> int:
         "launches": family_runs["neus"]["routes"]["passes"]["db_sum"],
         "max_abs_err": db["max_abs_err"], "ms": db["ms"], "plain_ms": db["plain_ms"],
         "bound_ms": db["bound_ms"], "bound_by": db["bound_by"], "library_ms": db["library_ms"],
-        "launches_geometry": {}})
+        "launches_geometry": {}, "launches_llff": {
+            path: routes["passes"]["db_sum"] for path, routes in llff["routes"].items()
+            if routes["passes"].get("db_sum")}})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -3400,7 +3784,7 @@ def main() -> int:
         "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
         "family_steps": family_steps, "family_runs": family_runs,
         "other_configs": other_configs, "resume": resume, "camera": camera,
-        "grad_accum": accum, "rest": rest, "geometry": geometry,
+        "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -2,7 +2,7 @@
 
 Counterpart of ``neddf_tpu/render/renderer.py::render_rays:113-201``,
 ``build_occupancy``, ``render_rays_accel``, ``render_image`` and
-``render_field_slice`` (without NDC). Per ray, the coarse pass takes ``sample_coarse +
+``render_field_slice``. Per ray, the coarse pass takes ``sample_coarse +
 1`` stratified distances, the fine pass ``sample_fine + 1`` inverse-CDF
 draws sorted together with the coarse distances. Samples are points
 (``sampling_type="point"``, zero variance) or cone frustums (``"cone"``,
@@ -25,6 +25,15 @@ Eval renders can skip empty space with an occupancy grid
 ``budget`` occupied samples, ``render_rays_accel``) or per ray
 (``render_image(ray_cull=grid)``: only the rays that cross occupied
 space are rendered).
+
+``ndc=True`` (forward-facing captures; point samples only) warps the
+rays into NDC (``geometry/camera.py::ndc_rays``, near plane at
+``ndc_near``) and renders over t' in [0, 1]: ``dist_near``, ``dist_far``
+and ``max_dist`` become 0, 1 and 1. The samples' directions stay the
+unit world directions, so the view-dependent colour, and NeDDF's colour
+tangent, see no warp. The occupancy grid is built over the world-space
+cube, so ``build_occupancy``, ``render_rays_accel``, ``rays_active`` and
+``render_image(occupancy=, ray_cull=)`` refuse ``ndc=True``.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import torch
 from torch import nn
 
 from neddf_tpu_torch import config as config_lib
-from neddf_tpu_torch.geometry.camera import PinholeCalib, create_rays
+from neddf_tpu_torch.geometry.camera import PinholeCalib, create_rays, ndc_rays
 from neddf_tpu_torch.geometry.rays import (
     Rays,
     Sampling,
@@ -100,11 +109,21 @@ class NeRFRender(nn.Module):
         max_dist: float = 6.0,
         use_coarse_network: bool = True,
         sampling_type: str = "point",
+        ndc: bool = False,
+        ndc_near: float = 1.0,
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         if sampling_type not in ("point", "cone"):
             raise ValueError(f"unknown sampling_type {sampling_type!r}")
+        self.ndc = bool(ndc)
+        self.ndc_near = float(ndc_near)
+        if self.ndc:
+            if sampling_type != "point":
+                raise ValueError(
+                    "render.ndc=true requires sampling_type='point' (cone frustum moments "
+                    "are taken in world space and do not carry through the NDC warp)")
+            dist_near, dist_far, max_dist = 0.0, 1.0, 1.0
         self.network_fine = config_lib.instantiate(network_config, generator=generator)
         self.use_coarse_network = bool(use_coarse_network)
         if self.use_coarse_network:
@@ -120,10 +139,23 @@ class NeRFRender(nn.Module):
         """The coarse pass's network: its own, or the fine one."""
         return self.network_coarse if self.use_coarse_network else self.network_fine
 
-    def _make_sampling(self, rays: Rays, dists: Tensor) -> Sampling:
+    def _make_sampling(self, rays: Rays, dists: Tensor,
+                       shade_dir: Optional[Tensor] = None) -> Sampling:
         if self.sampling_type == "point":
-            return get_sampling_points(rays, dists)
-        return get_sampling_cones(rays, dists, _CONE_RAY_RADIUS)
+            sampling = get_sampling_points(rays, dists)
+        else:
+            sampling = get_sampling_cones(rays, dists, _CONE_RAY_RADIUS)
+        if shade_dir is not None:
+            # NDC: the positions are warped, the directions the fields see are not
+            sampling = sampling._replace(
+                sample_dir=shade_dir[:, None, :].expand(*dists.shape, 3))
+        return sampling
+
+    def refuse_ndc(self, what: str) -> None:
+        """Raise where ``what`` would need a world-space grid under NDC."""
+        if self.ndc:
+            raise ValueError(f"{what} does not support ndc=true (the occupancy grid is built "
+                             "over the world-space cube, not the NDC window)")
 
     def render_rays(
         self,
@@ -143,9 +175,13 @@ class NeRFRender(nn.Module):
         fine pass's integrals plus ``*_coarse`` copies of the coarse ones.
         """
         rays = create_rays(calib, pose_r, pose_t, uv)
+        shade_dir = None
+        if self.ndc:
+            shade_dir = rays.ray_dir  # unit world directions for the fields
+            rays = ndc_rays(calib, self.ndc_near, rays)
 
         def one_pass(net: nn.Module, dists: Tensor) -> Dict[str, Tensor]:
-            values = net(self._make_sampling(rays, dists), net.schedule(iteration),
+            values = net(self._make_sampling(rays, dists, shade_dir), net.schedule(iteration),
                          need_aux=need_aux)
             out = integrate_volume_render(
                 dists, values["density"], values["color"], self.max_dist
@@ -180,6 +216,7 @@ class NeRFRender(nn.Module):
         """An occupancy grid of the fine network (eval schedule):
         ``n_updates`` EMA-max updates, each on a lattice jittered by
         uniforms from ``generator`` (or by ``jitters[i]``, [R^3, 3])."""
+        self.refuse_ndc("build_occupancy")
         net = self.network_fine
         device = next(net.parameters()).device
         if generator is None and jitters is None:
@@ -211,6 +248,7 @@ class NeRFRender(nn.Module):
         sample's cone spans the gap to the next kept one, as in the JAX
         package (``renderer.py:300``). The fine pass draws its inverse CDF
         over the kept coarse samples."""
+        self.refuse_ndc("render_rays_accel")
         rays = create_rays(calib, pose_r, pose_t, uv)
 
         def culled_pass(net: nn.Module, dists: Tensor, budget: int):
@@ -334,6 +372,7 @@ class NeRFRender(nn.Module):
                     pose_t: Tensor, uv: Tensor, n_probe: int) -> Tensor:
         """bool [B]: whether the ray through each pixel ``uv`` crosses an
         occupied cell of ``grid`` on [dist_near, dist_far]."""
+        self.refuse_ndc("ray culling (rays_active)")
         rays = create_rays(calib, pose_r, pose_t, uv)
         return ray_active(grid, rays.ray_orig, rays.ray_dir, self.dist_near, self.dist_far,
                           n_probe)

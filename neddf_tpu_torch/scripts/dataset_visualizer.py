@@ -5,7 +5,9 @@ Usage:
 
 The flags and files of ``neddf_tpu/scripts/dataset_visualizer.py``. The
 dataset comes from the repository's ``config/`` with the same overrides
-as training (``dataset=bunny_smoke dataset.dataset_dir=data/bunny_smoke``)
+as training (``dataset=bunny_smoke dataset.dataset_dir=data/bunny_smoke``,
+or an LLFF capture: ``dataset=llff dataset.dataset_dir=<capture>
+dataset.factor=1``; a relative directory as ``scripts/run.py`` takes it)
 and ``./dataset_viz/`` gets:
 
 * ``cameras.obj``: a wireframe with one five-point camera pyramid per
@@ -26,6 +28,7 @@ import numpy as np
 from scipy.spatial.transform import Rotation
 
 from neddf_tpu_torch import config as config_lib
+from neddf_tpu_torch.scripts.run import dataset_path
 
 _REPO = Path(__file__).resolve().parents[2]
 
@@ -70,6 +73,7 @@ def main(argv: Optional[List[str]] = None) -> Path:
     overrides = [a for a in argv if a != "--gui"]
 
     cfg = config_lib.compose(_REPO / "config", overrides=overrides)
+    cfg["dataset"]["dataset_dir"] = str(dataset_path(cfg["dataset"]["dataset_dir"]))
     dataset = config_lib.instantiate(cfg["dataset"])
 
     out_dir = Path("dataset_viz")

@@ -8,7 +8,8 @@ Usage:
 
 Composes ``config/config.yaml`` with Hydra-style overrides (the same
 surface as ``neddf_tpu/scripts/run.py``), re-roots a relative dataset
-directory against the repository root, creates the run directory
+directory against the repository root (or the working directory, where
+only that holds it), creates the run directory
 (``outputs/{date}/{time}`` unless ``hydra.run.dir`` names one), writes
 ``.hydra/`` there for ``run_eval`` and ``--resume``, changes into it and
 trains. The configs' device ``tpu`` maps to the CUDA card;
@@ -47,6 +48,18 @@ def _default_run_dir() -> Path:
     return _REPO / "outputs" / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S")
 
 
+def dataset_path(dataset_dir: str) -> Path:
+    """The absolute dataset directory of a config: a relative one is taken
+    against the repository root (the configs' ``data/...``) or, where it
+    exists only there, against the working directory."""
+    ds_dir = Path(dataset_dir)
+    if ds_dir.is_absolute():
+        return ds_dir
+    if not (_REPO / ds_dir).exists() and ds_dir.exists():
+        return ds_dir.resolve()
+    return _REPO / ds_dir
+
+
 def prepare_run(argv: List[str]) -> "tuple[dict, Path]":
     """Compose the config and create the run directory with its snapshot."""
     run_dir: Optional[Path] = None
@@ -60,9 +73,7 @@ def prepare_run(argv: List[str]) -> "tuple[dict, Path]":
         else:
             overrides.append(ov)
     cfg = config_lib.compose(_REPO / "config", overrides=overrides)
-    ds_dir = Path(cfg["dataset"]["dataset_dir"])
-    if not ds_dir.is_absolute():
-        cfg["dataset"]["dataset_dir"] = str(_REPO / ds_dir)
+    cfg["dataset"]["dataset_dir"] = str(dataset_path(cfg["dataset"]["dataset_dir"]))
     run_dir = (run_dir or _default_run_dir()).resolve()
     run_dir.mkdir(parents=True, exist_ok=True)
     config_lib.save_snapshot(cfg, overrides, run_dir)

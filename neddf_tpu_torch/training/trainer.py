@@ -479,7 +479,9 @@ class NeRFTrainer:
     def enable_ray_cull(self, resolution: int = 64, threshold: float = 0.01) -> None:
         """Skip background rays in eval renders: an occupancy grid of the
         current fine field (four jittered updates, drawn from a generator
-        seeded with ``seed``, not from the trainer's own)."""
+        seeded with ``seed``, not from the trainer's own). Refuses an NDC
+        renderer (``render.ndc=true``): the grid is a world-space one."""
+        self.neural_render.refuse_ndc("ray culling (trainer.enable_ray_cull, run_eval --ray-cull)")
         self.eval_ray_cull = self.neural_render.build_occupancy(
             torch.Generator(device=self.device).manual_seed(self.seed),
             resolution=resolution, threshold=threshold,

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 tc_accuracy.py [--tree DIR] [--out FILE] [--params P ...]
                            [--batches N ...] [--seeds S ...] [--f32] [--passes]
-                           [--train FAMILY ...]
+                           [--train FAMILY ...] [--llff [CONFIG ...]] [--llff-step]
 
 ``--tree DIR`` imports ``neddf_tpu_torch`` from DIR instead of this
 checkout (for instance an unpacked ``git archive`` of another commit),
@@ -71,6 +71,26 @@ name of the tree's directory); then the device operations (kernels,
 copies, sets) per step and per ``camera_pose`` call, and the host ms of
 one step's record through the tree's TensorBoard logger, where it has
 one.
+
+With ``--llff [CONFIG ...]`` only the held-out quality of the
+forward-facing path (``llff``): ``tools/llff_experiment.py``'s experiment
+through this tree's ``scripts/run.py`` and ``run_eval``: a 24-image
+400x400 LLFF capture of the machine scene (the port's generator, under
+``chiprun_out/chip_smoke/llff_quality_scene``; every 8th image held out),
+600 epochs of the 21 train frames, then PSNR and SSIM of each held-out
+view at full resolution. CONFIG (default: all three) is ``neddf_ndc``
+and ``nerf_ndc`` (``chip_smoke.LLFF_OVERRIDES``: recentred poses, NDC
+rays with the near plane at 0.9 of the scaled near bound, point samples;
+NeRF at its trainer's 1024 rays) or ``neddf`` (the anchor without NDC:
+the default cone sampling over the world window [2, 6]); each run's
+ms/step over steps 100-199 too.
+
+With ``--llff-step`` only ``chip_smoke.py`` phase 19b's f32 steps of
+NeDDF-NDC and NeRF-NDC (``llff_step``) on a 24-image 400x400 capture,
+through the kernels and through the plain versions, at 128 (phase 19b's
+rays), 256 and 512 rays: the largest relative gap of the loss and the
+gradient norms between the two, and at 128 rays each one's largest gaps
+to the JAX package's numbers (``tools/llff_reference.npz``).
 
 With ``--neus-run kernels|plain [--seed N]`` only the NeuS
 configuration's 300-step run of ``chip_smoke.py`` phase 11
@@ -538,6 +558,98 @@ def measure_neus_run(torch, smoke, mode: str, seed) -> dict:
             "every_20": [(r["iteration"], r["loss"], r["psnr"]) for r in hist[::20]]}
 
 
+LLFF_EPOCHS = 600  # tools/llff_experiment.py's default
+LLFF_CONFIGS = ("neddf_ndc", "nerf_ndc", "neddf")
+
+
+def measure_llff(torch, smoke, configs) -> dict:
+    from neddf_tpu_torch.data.llff import generate_forward_facing_dataset
+    from neddf_tpu_torch.scripts.run_eval import evaluate
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio, structural_similarity
+    from neddf_tpu_torch.utils.png import read_png
+
+    capture = generate_forward_facing_dataset(smoke.OUT / "llff_quality_scene",
+                                              **smoke.LLFF_CAPTURE)
+    hooks = [f"trainer.epoch_max={LLFF_EPOCHS}",
+             f"trainer.epoch_save_model={max(LLFF_EPOCHS // 2, 1)}",
+             f"trainer.epoch_test_rendering={max(LLFF_EPOCHS // 3, 1)}",
+             "trainer.epoch_save_fields=100000"]
+    out = {"card": smoke.card_line(), "epochs": LLFF_EPOCHS, **smoke.LLFF_CAPTURE}
+    for config in configs:
+        if config == "neddf":
+            overrides = ["dataset=llff", "dataset.factor=1", "loss=nerf_loss",
+                         f"dataset.dataset_dir={capture}"]
+        else:
+            overrides = smoke.llff_overrides(config.split("_")[0], capture)
+        run_dir = smoke.OUT / f"llff_quality_{config}"
+        start = time.perf_counter()
+        trainer = smoke.run_main_path(torch, run_dir, [*overrides, *hooks])
+        wall = time.perf_counter() - start
+        steady = [r["seconds"] for r in trainer.history if 100 <= r["iteration"] < 200]
+        steady = steady or [r["seconds"] for r in trainer.history[10:]]  # a short run
+        result = {"overrides": overrides, "steps": len(trainer.history), "wall_s": wall,
+                  "batch": trainer.batch_size, "ms_per_step": 1e3 * smoke.mean(steady),
+                  "psnr_last50": smoke.mean([r["psnr"] for r in trainer.history[-50:]])}
+        del trainer
+        torch.cuda.empty_cache()
+        ev = evaluate(run_dir, LLFF_EPOCHS)
+        views = {}
+        for i in range(len(ev.dataset)):
+            gt = ev.dataset[i]["rgb_images"].astype("uint8")
+            rgb = read_png(run_dir / "eval" / f"{i:03}_rgb.png")[:, :, ::-1]
+            views[str(i)] = {"psnr": peak_signal_noise_ratio(rgb, gt),
+                             "ssim": structural_similarity(rgb, gt, channel_axis=2)}
+        result["views"] = views
+        print(f"llff {config}: {json.dumps(result)}", flush=True)
+        out[config] = result
+        del ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_llff_step(torch, smoke) -> dict:
+    from neddf_tpu_torch.data.llff import generate_forward_facing_dataset
+
+    capture = generate_forward_facing_dataset(smoke.OUT / "llff400", **smoke.LLFF_CAPTURE)
+    ref = smoke.llff_reference()["step"]
+    out = {}
+    for family in smoke.LLFF_OVERRIDES:
+        for batch in (smoke.LLFF_BATCH, 256, 512):
+            got = {}
+            for mode in ("auto", "off"):
+                trainer = smoke.llff_trainer(torch, family, capture, [
+                    "network.compute_dtype=float32", f"network.fused={mode}"])
+                render = trainer.neural_render
+                shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+                render.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                        smoke.family_params(shapes).items()})
+                draws = smoke.machine_step_draws(
+                    trainer.dataset.image_width, trainer.dataset.image_height,
+                    render.sample_coarse + 1, render.sample_fine + 1,
+                    seed=smoke.LLFF_DRAW_SEED, batch=batch)
+                us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device)
+                                          for x in draws)
+                loss, _, _ = trainer.step_grads(smoke.LLFF_CAMERA, us.long(), vs.long(),
+                                                u_strat, u_pdf)
+                got[mode] = {"loss": loss.item(), **{n: p.grad.norm().item()
+                                                     for n, p in render.named_parameters()}}
+                del trainer, render
+                torch.cuda.empty_cache()
+
+            def worst(a, b, n=3):
+                return sorted(((abs(a[k] - v) / max(abs(v), 1e-30), k) for k, v in b.items()),
+                              reverse=True)[:n]
+
+            result = {"kernels_vs_plain": worst(got["auto"], got["off"])}
+            if batch == smoke.LLFF_BATCH:
+                want = {"loss": ref[family]["loss"], **ref[family]["grad_norms"]}
+                result["kernels_vs_jax"] = worst(got["auto"], want)
+                result["plain_vs_jax"] = worst(got["off"], want)
+            print(f"llff step {family} {batch} rays: {json.dumps(result)}", flush=True)
+            out[f"{family}/{batch}"] = result
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tree", type=Path, default=REPO)
@@ -553,6 +665,11 @@ def main() -> int:
                         help="only a 200-step run of each configuration, with its profile")
     parser.add_argument("--neus-run", choices=["kernels", "plain"], default=None,
                         help="only the NeuS 300-step run, through the kernels or the plain versions")
+    parser.add_argument("--llff", nargs="*", choices=LLFF_CONFIGS, default=None,
+                        help="only the forward-facing path's held-out quality after 600 "
+                        "epochs (default: all three configurations)")
+    parser.add_argument("--llff-step", action="store_true",
+                        help="only phase 19b's f32 steps, kernels vs plain versions vs JAX")
     parser.add_argument("--seed", type=int, default=None,
                         help="the trainer's seed for --neus-run (default: the config's)")
     args = parser.parse_args()
@@ -580,6 +697,10 @@ def main() -> int:
         if args.train:
             result["train"] = [measure_train(torch, smoke, family, args.tree.resolve().name)
                                for family in args.train]
+    elif args.llff_step:
+        result["llff_step"] = measure_llff_step(torch, smoke)
+    elif args.llff is not None:
+        result["llff"] = measure_llff(torch, smoke, args.llff or LLFF_CONFIGS)
     elif args.neus_run:
         result["neus_run"] = measure_neus_run(torch, smoke, args.neus_run, args.seed)
     elif args.f32:
