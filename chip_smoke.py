@@ -177,11 +177,29 @@ Phases (any failure stops the script with a non-zero exit code):
    s/image; (e) ``fields_visualizer`` on the NeDDF-NDC run dir (#1 and
    #3 launched; slices and a finite volume); (f) ``run_eval --ray-cull``,
    ``render_rays_accel`` and ``build_occupancy`` refuse the NDC run;
+20. data parallelism (``neddf_tpu_torch/parallel``), each path with
+   every count at 0 just before it and read just after: (b) an NCCL
+   process group of world size 1 here: ``make_sharded_grads`` on the
+   default step (512 rays, bf16, seeded parameters) and
+   ``make_sharded_render`` of ``pretrained/machine_neddf`` cam 0 at
+   downsampling 8, bitwise equal to the single-process step and render;
+   (a) two ranks in processes of their own, both on the one card, in a
+   gloo group: the library-level sharded step against the single-process
+   step on the same draws (f32: every loss and gradient norm within
+   1e-5; bf16: phase 7's step bars), each rank's launches one single
+   step's (2 each of #1, #1', #5, #6 in top mode, 4 of #2) on the tensor
+   cores with no plain version called, ms per step (two ranks sharing one
+   card: not a data-parallel speed), and the sharded eval render's
+   launches per rank, its gathered image equal on both ranks and within
+   1e-3 of (b)'s single-process render; (c) ``scripts/run.py trainer.mesh.data=2`` raises
+   "needs 2 devices" before the run dir is made, and ``data: auto`` is
+   the single-process path (phase 8 checks its run made no world);
 13. (printed last) one JSON line of per-kernel results (with each route's
-   bound; the parallel db sum among them; ``launches_geometry`` and
-   ``launches_llff``: each kernel's launches on the phase-18 and
-   phase-19 paths), the card line, and the final ``{"ok": true,
-   "device": {...}}`` line.
+   bound; the parallel db sum among them; ``launches_geometry``,
+   ``launches_llff`` and ``launches_dp``: each kernel's launches on the
+   phase-18 and phase-19 paths, and per rank per sharded step and in the
+   sharded eval render of phase 20a), the card line, and the final
+   ``{"ok": true, "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
 Outputs go to ``chiprun_out/chip_smoke/``.
@@ -1220,6 +1238,8 @@ def phase_train_run(torch, card: str) -> dict:
     start = time.perf_counter()
     trainer = run_main_path(torch, OUT / "train")
     wall = time.perf_counter() - start
+    if trainer.world is not None:
+        fail(f"[8] data: auto on one card made a world of {trainer.world} ranks")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: fn.launches for k, fn in kernels.items()}
     routes = route_counts(dm)
@@ -3364,6 +3384,328 @@ def llff_launches(llff: dict, counter: str, family: str) -> dict:
             if fam == family and counts.get(counter)}
 
 
+# phase 20: data parallelism. The step's rays and draw seed; every launch
+# count of one rank's sharded step (the single-process step's counts at
+# half the rows: two passes, each one K=3 trunk, one K=1 colour trunk and
+# one epilogue forward, one epilogue backward in top mode and two dual
+# backwards); the time limit of the spawned ranks
+DP_BATCH = 512
+DP_DRAW_SEED = 4
+DP_WORLD = 2
+DP_STEP_LAUNCHES = {"dual_mlp_trunk": 2, "dual_mlp_seg": 2, "neddf_epilogue": 2,
+                    "neddf_epilogue_gstack": 2, "dual_mlp_seg_bwd": 4}
+DP_F32_TOL = 1e-5  # f32: two half-batch means summed in another order
+DP_TIMEOUT = 300.0
+DP_STEP_REPS = 5
+DP_EVAL_DOWNSAMPLING = 8
+DP_EVAL_TOL = 1e-3  # two ranks' gathered render vs one process's: chunk halves
+
+
+def dp_step_inputs(torch) -> dict:
+    """The default config's step (NeDDF on bunny_smoke, width 256) from
+    seeded parameters: its config, camera 0's images and camera, the
+    parameters and the draws of ``DP_BATCH`` rays, as host arrays (the
+    ranks take them instead of decoding the dataset again)."""
+    trainer = family_trainer(torch, "neddf")
+    render = trainer.neural_render
+    shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+    draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                               render.sample_coarse + 1, render.sample_fine + 1,
+                               seed=DP_DRAW_SEED, batch=DP_BATCH)
+    out = {"cfg": trainer.config, "params": family_params(shapes), "draws": draws,
+           "rgb": trainer.rgb_images[0].cpu().numpy(), "mask": trainer.mask_images[0].cpu().numpy(),
+           "calib": trainer.calib.params.cpu().numpy(),
+           "camera": trainer.camera_initials[0].cpu().numpy(),
+           "iteration": MACHINE_ITERATION, "device": str(trainer.device)}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_local_step(torch, inp: dict, device):
+    """(renderer, local(rows)) of the library-level step on ``inp``: the
+    step's math (``step.py::accumulate_grads``) over rows of the drawn
+    batch, as ``NeRFTrainer.local_grads`` runs it."""
+    from neddf_tpu_torch import config as config_lib
+    from neddf_tpu_torch.geometry.camera import PinholeCalib
+    from neddf_tpu_torch.geometry.se3 import camera_pose
+    from neddf_tpu_torch.training.step import accumulate_grads, construct_targets
+    from neddf_tpu_torch.training.trainer import build_renderer
+
+    cfg = inp["cfg"]
+    render = build_renderer(cfg, 0, device)
+    render.load_state_dict({k: torch.from_numpy(v) for k, v in inp["params"].items()})
+    losses = [config_lib.instantiate(fn) for fn in cfg["loss"]["functions"]]
+    us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=device) for x in inp["draws"])
+    us, vs = us.long(), vs.long()
+    targets = construct_targets([fn.key_target for fn in losses],
+                                torch.as_tensor(inp["rgb"], device=device),
+                                torch.as_tensor(inp["mask"], device=device), us, vs)
+    calib = PinholeCalib(torch.as_tensor(inp["calib"], dtype=torch.float32, device=device))
+    init = torch.as_tensor(inp["camera"], dtype=torch.float32, device=device)
+    uv = torch.stack([us, vs], dim=1)
+
+    def local(rows=slice(None)):
+        return accumulate_grads(render, losses, calib,
+                                lambda: camera_pose(init, torch.zeros_like(init)), uv, targets,
+                                u_strat, u_pdf, inp["iteration"], 1, None, rows)
+
+    return render, local
+
+
+def dp_numbers(render, loss, loss_dict, mse) -> dict:
+    return {"loss": loss.item(), "mse": mse.item(),
+            "losses": {k: v.item() for k, v in loss_dict.items()},
+            "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
+
+
+def dp_rank(rank: int, world: int, store: str, inp: dict, eval_inp: dict) -> None:
+    """One rank of phase 20a, on ``inp["device"]`` (cuda:0) beside the
+    other, in a gloo group:
+    per precision the single-process step and the library-level
+    ``make_sharded_grads`` step on the same draws (counts set to 0 just
+    before the sharded step and read just after), ms per sharded step,
+    then the sharded eval render's launches; results into
+    ``OUT/dp_rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from neddf_tpu_torch.geometry.camera import PinholeCalib
+    from neddf_tpu_torch.parallel import make_sharded_grads, make_sharded_render
+    from neddf_tpu_torch.training.trainer import build_renderer
+
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        render, local = dp_local_step(torch, inp, dev)
+        params = list(render.parameters())
+        sharded = make_sharded_grads(None, DP_BATCH, 1)
+
+        def step(fn):
+            for p in params:
+                p.grad = None
+            return fn(local, params, None)
+
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            render.network_fine.compute_dtype = dtype
+            for p in params:
+                p.grad = None
+            single = dp_numbers(render, *local())
+            reset_path_counts()
+            got = step(sharded)
+            torch.cuda.synchronize()
+            counts = read_path_counts(f"[20a] rank {rank} {name} sharded step",
+                                      tuple(DP_STEP_LAUNCHES))
+            out[name] = {"single": single, "sharded": dp_numbers(render, *got), **counts}
+        times = []
+        for _ in range(DP_STEP_REPS + 1):
+            torch.cuda.synchronize()
+            dist.barrier()
+            start = time.perf_counter()
+            step(sharded)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - start))
+        out["ms_per_step"] = times[1:]
+
+        # the sharded eval render of machine_neddf's test camera 0: gathered
+        # as host copies (gloo's all_gather takes CPU tensors)
+        eval_render = build_renderer(eval_inp["cfg"], 0, dev)
+        eval_render.load_state_dict(
+            {k: torch.from_numpy(v) for k, v in eval_inp["params"].items()})
+        shard = make_sharded_render(None)
+        r, t = (torch.as_tensor(x, device=dev) for x in eval_inp["pose"])
+        calib = PinholeCalib(torch.as_tensor(eval_inp["calib"], device=dev))
+        reset_path_counts()
+        image = eval_render.render_image(
+            calib, r, t, eval_inp["width"], eval_inp["height"], ["color", "depth"],
+            eval_inp["downsampling"], eval_inp["chunk"],
+            generator=torch.Generator(device=dev).manual_seed(0),
+            render_fn=lambda program: shard(
+                lambda *a: {k: v.cpu() for k, v in program(*a).items()}))
+        out["eval"] = read_path_counts(f"[20a] rank {rank} sharded eval render",
+                                       ("dual_mlp_trunk", "mlp_seg"))
+        out["eval_color"] = image["color"]
+    finally:
+        torch.save(out, OUT / f"dp_rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def join_ranks(context, seconds: float, what: str) -> None:
+    """Wait for spawned ranks; past ``seconds`` end them and fail."""
+    deadline = time.monotonic() + seconds
+    while not context.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in context.processes:
+                if proc.is_alive():
+                    proc.kill()
+            fail(f"{what}: the ranks did not end within {seconds:.0f} s")
+
+
+def phase_data_parallel(torch, card: str) -> dict:
+    """Phase 20: (b) NCCL at world size 1 here, bitwise against the single
+    path; (a) two gloo ranks of the library-level sharded step on the one
+    card; (c) the trainer refusing more ranks than cards."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from neddf_tpu_torch.parallel import make_sharded_grads, make_sharded_render
+    from neddf_tpu_torch.scripts import run as run_script
+    from neddf_tpu_torch.scripts.run_eval import load_trainer
+    from neddf_tpu_torch.training.checkpoint import load_msgpack_params, params_from_jax
+    from neddf_tpu_torch.training.trainer import launch_world
+
+    out = {}
+    start = time.perf_counter()
+    inp = dp_step_inputs(torch)
+    dev = torch.device(inp["device"])
+
+    # ---- (b) NCCL at world size 1: the step and the eval render, bitwise
+    store = OUT / f"dp_nccl_store_{time.time_ns()}"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        render, local = dp_local_step(torch, inp, dev)
+        params = list(render.parameters())
+        single = local()
+        single_grads = [p.grad.clone() for p in params]
+        for p in params:
+            p.grad = None
+        reset_path_counts()
+        got = make_sharded_grads(None, DP_BATCH, 1)(local, params, None)
+        torch.cuda.synchronize()
+        step_counts = read_path_counts("[20b] NCCL world-1 step", tuple(DP_STEP_LAUNCHES))
+        same = all(torch.equal(a, b) for a, b in zip(single_grads, (p.grad for p in params)))
+        same = same and torch.equal(got[0], single[0]) and torch.equal(got[2], single[2]) and all(
+            torch.equal(got[1][k], v) for k, v in single[1].items())
+        log(f"[20b] NCCL world 1, the default step ({DP_BATCH} rays, bf16, seeded params): "
+            f"bitwise equal to the single-process step: {same}; launches "
+            f"{step_counts['launches']}")
+        if not same:
+            fail("[20b] the world-1 sharded step is not bitwise the single-process step")
+        del render, local, params, single_grads
+        trainer = load_trainer(OUT / "machine_neddf", EPOCH)
+        w, h = trainer.dataset.image_width, trainer.dataset.image_height
+        with torch.no_grad():
+            r, t = trainer.camera_pose(0)
+        kwargs = dict(target_types=["color", "depth"], downsampling=DP_EVAL_DOWNSAMPLING,
+                      chunk=trainer.chunk)
+        want = trainer.neural_render.render_image(
+            trainer.calib, r, t, w, h, generator=torch.Generator(device=dev).manual_seed(0),
+            **kwargs)
+        reset_path_counts()
+        got_img = trainer.neural_render.render_image(
+            trainer.calib, r, t, w, h, generator=torch.Generator(device=dev).manual_seed(0),
+            render_fn=make_sharded_render(None), **kwargs)
+        torch.cuda.synchronize()
+        render_counts = read_path_counts("[20b] NCCL world-1 eval render",
+                                         ("dual_mlp_trunk", "mlp_seg"))
+        same_img = all(np.array_equal(got_img[k], want[k]) for k in want)
+        log(f"[20b] NCCL world 1, machine_neddf cam 0 at downsampling 8: bitwise equal to the "
+            f"single-process render: {same_img}; launches {render_counts['launches']}")
+        if not same_img:
+            fail("[20b] the world-1 sharded render is not bitwise the single-process render")
+        eval_inp = {"cfg": trainer.config, "pose": (r.cpu().numpy(), t.cpu().numpy()),
+                    "params": {k: v.numpy() for k, v in params_from_jax(load_msgpack_params(
+                        RUN / "models" / f"model_{EPOCH:05}.ckpt")).items()},
+                    "calib": trainer.calib.params.cpu().numpy(), "width": w, "height": h,
+                    "downsampling": DP_EVAL_DOWNSAMPLING, "chunk": trainer.chunk}
+        want_color = want["color"]
+        out["nccl_world1"] = {"step_bitwise": same, "render_bitwise": same_img,
+                              "step_launches": step_counts["launches"],
+                              "render_launches": render_counts["launches"]}
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    # ---- (a) two gloo ranks on the one card: the library-level sharded step
+    store = OUT / f"dp_gloo_store_{time.time_ns()}"
+    for r in range(DP_WORLD):
+        (OUT / f"dp_rank{r}.pt").unlink(missing_ok=True)
+    context = torch.multiprocessing.start_processes(
+        dp_rank, args=(DP_WORLD, f"file://{store}", inp, eval_inp), nprocs=DP_WORLD,
+        join=False, start_method="spawn")
+    try:
+        join_ranks(context, DP_TIMEOUT, "[20a]")
+    finally:
+        store.unlink(missing_ok=True)
+    ranks = [torch.load(OUT / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    for rank in ranks:
+        for name in ("float32", "bfloat16"):
+            got, ref = rank[name]["sharded"], rank[name]["single"]
+            if name == "float32":
+                worst = max([check_close(f"[20a] f32 {k}", got[k], ref[k], DP_F32_TOL)
+                             for k in ("loss", "mse")]
+                            + [check_close(f"[20a] f32 loss {k}", got["losses"][k], v, DP_F32_TOL)
+                               for k, v in ref["losses"].items()]
+                            + [check_close(f"[20a] f32 grad norm {k}", got["grad_norms"][k], v,
+                                           DP_F32_TOL) for k, v in ref["grad_norms"].items()])
+                gaps = {"worst_rel": worst}
+            else:
+                worst_loss, worst_grad = bf16_step_gaps(got, ref)
+                gaps = {"worst_loss_rel": worst_loss, "worst_grad_norm_rel": worst_grad}
+            launches = {k: rank[name]["launches"].get(k, 0) for k in DP_STEP_LAUNCHES}
+            if launches != DP_STEP_LAUNCHES:
+                fail(f"[20a] rank {rank['rank']} {name}: launches {launches}, expected "
+                     f"{DP_STEP_LAUNCHES}")
+            check_routes(f"[20a] rank {rank['rank']} {name}", rank[name]["routes"],
+                         "tc" if name == "bfloat16" else "tf32x3")
+            rank[name]["gaps"] = gaps
+            log(f"[20a] rank {rank['rank']} {name}: sharded step vs the single-process step on "
+                f"the same draws: {json.dumps(gaps)} (bars: f32 {DP_F32_TOL}, bf16 "
+                f"{json.dumps(BF16_STEP_TOL)}); launches {rank[name]['launches']}, routes "
+                f"{rank[name]['routes']['products']}, plain calls {rank[name]['plain_calls']}")
+        log(f"[20a] rank {rank['rank']}: {statistics.median(rank['ms_per_step']):.2f} ms per "
+            f"sharded bf16 step (median of {DP_STEP_REPS}: {rank['ms_per_step']}), two ranks "
+            f"sharing ONE card over gloo, not a data-parallel speed; the library's all_reduce "
+            f"of CUDA tensors over gloo | card: {card}")
+        log(f"[20a] rank {rank['rank']}: the sharded eval render (machine_neddf cam 0, "
+            f"downsampling 8, gathered over gloo): launches {rank['eval']['launches']}")
+    if not np.array_equal(ranks[0]["eval_color"], ranks[1]["eval_color"]):
+        fail("[20a] the ranks' gathered eval images differ")
+    # the gathered image against phase 20b's single-process render of the
+    # same checkpoint, camera, downsampling and generator seed (the halved
+    # chunks' products may sum in another order)
+    eval_err = float(np.abs(np.asarray(ranks[0]["eval_color"], np.float64)
+                            - np.asarray(want_color, np.float64)).max())
+    log(f"[20a] the gathered eval image vs the single-process render: max abs err "
+        f"{eval_err:.3e} (bar {DP_EVAL_TOL})")
+    if not eval_err <= DP_EVAL_TOL:
+        fail(f"[20a] the two-rank eval render is {eval_err:.3e} from the single-process "
+             f"render (bar {DP_EVAL_TOL})")
+    out["eval_vs_single_max_abs_err"] = eval_err
+    out["gloo_two_ranks"] = [{k: v for k, v in rank.items() if k != "eval_color"}
+                             for rank in ranks]
+
+    # ---- (c) more ranks than cards: refused before any training starts
+    refused = OUT / "dp_refused"
+    if refused.exists():
+        shutil.rmtree(refused)
+    try:
+        run_script.main(["trainer.mesh.data=2", f"hydra.run.dir={refused}"])
+    except ValueError as err:
+        message = str(err)
+    else:
+        fail("[20c] scripts/run.py trainer.mesh.data=2 trained on one card")
+    if "needs 2 devices" not in message or refused.exists():
+        fail(f"[20c] trainer.mesh.data=2 on one card: {message!r}, run dir made: "
+             f"{refused.exists()}")
+    auto = launch_world({"data": "auto", "model": 1}, "tpu")
+    log(f"[20c] trainer.mesh.data=2 refused before the run dir is made: {message!r}; "
+        f"data: auto resolves to {auto} (the single-process path, phase 8's run)")
+    if auto is not None:
+        fail("[20c] data: auto on one card is not the single-process path")
+    out["refused"] = message
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[20] the data-parallel phase took {out['wall_s']:.1f} s")
+    return out
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -3664,6 +4006,16 @@ def main() -> int:
     llff["wall_s"] = time.perf_counter() - start
     log(f"[19] the forward-facing phase took {llff['wall_s']:.1f} s")
 
+    # ---- phase 20: data parallelism (NCCL at world 1, two gloo ranks on the card)
+    dp = phase_data_parallel(torch, card)
+    dp_step, dp_eval = dp["gloo_two_ranks"][0]["bfloat16"], dp["gloo_two_ranks"][0]["eval"]
+    dp_f32 = dp["gloo_two_ranks"][0]["float32"]
+
+    def dp_launches(counter: str) -> dict:
+        # one rank's launches per sharded step (bf16) and in the sharded eval render
+        return {"step_per_rank": dp_step["launches"].get(counter, 0),
+                "eval_per_rank": dp_eval["launches"].get(counter, 0)}
+
     # ---- phase 13: results
     bf16 = results[(M_FULL, "bfloat16")]
     key = f"{M_TRAIN}/bfloat16"
@@ -3680,7 +4032,8 @@ def main() -> int:
                 "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route]),
                 "launches_geometry": geometry_launches(geometry, launch_key, "neddf"),
-                "launches_llff": llff_launches(llff, launch_key, "neddf")}
+                "launches_llff": llff_launches(llff, launch_key, "neddf"),
+                "launches_dp": dp_launches(launch_key)}
 
     def family_entry(name, source, replaces, family, route, fkey):
         r = family_kernels[route][fkey]
@@ -3690,7 +4043,9 @@ def main() -> int:
                                    if k.split("/")[0] == fkey.split("/")[0]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(r),
                 "launches_geometry": geometry_launches(geometry, route, family),
-                "launches_llff": llff_launches(llff, route, family)}
+                "launches_llff": llff_launches(llff, route, family),
+                # phase 20 drives the default (NeDDF) configuration only
+                "launches_dp": {}}
 
     bwd = entry("dual_mlp_seg_bwd (trunk K=3; gstack and the layer input folded into the "
                 "products over a stream-grouped row tile)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
@@ -3712,7 +4067,8 @@ def main() -> int:
          "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"],
          **bound_keys(bounds["mlp_seg_eval"]),
          "launches_geometry": geometry_launches(geometry, "mlp_seg", "neddf"),
-         "launches_llff": llff_launches(llff, "mlp_seg", "neddf")},
+         "launches_llff": llff_launches(llff, "mlp_seg", "neddf"),
+         "launches_dp": dp_launches("mlp_seg")},
         entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
               "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
         bwd,
@@ -3762,7 +4118,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {},
             "launches_llff": {path: routes["products"][route]
                               for path, routes in llff["routes"].items()
-                              if routes["products"][route]}})
+                              if routes["products"][route]},
+            "launches_dp": {"step_per_rank": (dp_step if route == "tc" else dp_f32)[
+                "routes"]["products"][route], "eval_per_rank": 0}})
     db = family_kernels["db_sum"]
     kernels.append({
         "name": "sum_rows (the parallel fixed-order db sum of the backwards)", "route": "cuda",
@@ -3773,7 +4131,9 @@ def main() -> int:
         "bound_ms": db["bound_ms"], "bound_by": db["bound_by"], "library_ms": db["library_ms"],
         "launches_geometry": {}, "launches_llff": {
             path: routes["passes"]["db_sum"] for path, routes in llff["routes"].items()
-            if routes["passes"].get("db_sum")}})
+            if routes["passes"].get("db_sum")},
+        "launches_dp": {"step_per_rank": dp_step["routes"]["passes"]["db_sum"],
+                        "eval_per_rank": 0}})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -3785,6 +4145,7 @@ def main() -> int:
         "family_steps": family_steps, "family_runs": family_runs,
         "other_configs": other_configs, "resume": resume, "camera": camera,
         "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
+        "data_parallel": dp,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -577,33 +577,40 @@ static_assert((size_t)4 * (kPartWidth<false> - 2) * (kThreads / (kC / 8)) <=
                   epi_bwd_smem<__nv_bfloat16, neddf::kTanhExp, false>(),
               "the partial's reduction fits in the stages");
 
-// blocks of one instantiation: as many as fit on the card at once (its
-// dynamic shared memory set once), at most one per tile
+// blocks of one instantiation on the current device: as many as fit on
+// the card at once (its dynamic shared memory set once per device, which
+// is where the attribute lives), at most one per tile
+constexpr int kMaxDevices = 64;
+
 template <typename T, int ACT, bool TOP>
 cudaError_t epi_bwd_blocks(int M, int* blocks) {
-  static int per_sm = -1, sms = 0;
-  if (per_sm < 0) {
+  static int per_sm[kMaxDevices] = {}, sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (per_sm[dev] < 1) {
     auto kernel = epi_bwd_kernel<T, ACT, TOP>;
     constexpr size_t smem = epi_bwd_smem<T, ACT, TOP>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int dev = 0, n = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int n = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorInvalidConfiguration;
-    per_sm = n;
+    per_sm[dev] = n;
   }
   const int tiles = (M + kTileRows - 1) / kTileRows;
-  *blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
+  const int fit = per_sm[dev] * sms[dev];
+  *blocks = tiles < fit ? tiles : fit;
   return cudaSuccess;
 }
 
 template <typename T, int ACT, bool TOP>
 cudaError_t epi_bwd_launch(const EpiBwdArgs<T>& a, int blocks, cudaStream_t s) {
-  int fit = 0;  // unused: the call sets the kernel's shared memory limit once
+  int fit = 0;  // unused: the call sets the kernel's shared memory limit on this device
   const cudaError_t err = epi_bwd_blocks<T, ACT, TOP>(a.M, &fit);
   if (err != cudaSuccess) return err;
   epi_bwd_kernel<T, ACT, TOP>

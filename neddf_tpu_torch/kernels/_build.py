@@ -7,6 +7,11 @@ happens at first use, never at import, into
 ``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
 ``<hash>`` covers the sources and the flags: an edit to any
 ``.cu``/``.cuh`` file builds a fresh library.
+
+The CUDA runtime launches on the current device, so every launch takes
+its stream from ``stream(device)``, which raises unless the tensors'
+device is the current one: a data-parallel rank on ``cuda:r`` makes
+``cuda:r`` current (``parallel/mesh.py::init_rank``) before it launches.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -150,6 +157,17 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().neddf_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, for a launch on it;
+    ``device`` must be the current device (the runtime launches there)."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel launch on {device} while cuda:{current} is the current device "
+            f"(call torch.cuda.set_device({device.index}) first)")
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def pointers(values) -> "ctypes.Array":

@@ -338,15 +338,13 @@ def _launch_fwd(vs, seg_j, weights, biases, layout, act_name, n_tan, stash, what
     if m == 0:
         return v_out, j_out, pres
     lib = _build.library()
-    with torch.cuda.device(device):
-        code = lib.neddf_dual_mlp_fwd(
-            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], n_tan, width, m, len(vs),
-            _build.pointers(vs), _build.pointers(seg_j), _build.ints([v.shape[1] for v in vs]),
-            len(weights), _build.pointers(weights), _build.pointers(biases),
-            _build.ints(layout), _build.pointers(pres) if stash else None,
-            v_out.data_ptr(), j_out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    code = lib.neddf_dual_mlp_fwd(
+        _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], n_tan, width, m, len(vs),
+        _build.pointers(vs), _build.pointers(seg_j), _build.ints([v.shape[1] for v in vs]),
+        len(weights), _build.pointers(weights), _build.pointers(biases),
+        _build.ints(layout), _build.pointers(pres) if stash else None,
+        v_out.data_ptr(), j_out.data_ptr(), _build.stream(device),
+    )
     _build.check(code, what)
     count_tile_launch(dtype)
     return v_out, j_out, pres
@@ -586,7 +584,7 @@ class Products:
         self.dtype = dtype
         self.dt = _KERNEL_DTYPES[dtype]
         self.device = device
-        self.stream = torch.cuda.current_stream(device).cuda_stream
+        self.stream = _build.stream(device)
 
     def _count(self) -> None:
         if self.dtype == torch.bfloat16:
@@ -1018,9 +1016,8 @@ def dual_mlp_seg_bwd(
     if [tuple(t.shape) for t in cots] != shapes or any(
             tuple(p.shape) != (s, m, width) for p in pres):
         raise ValueError("dual_mlp_seg_bwd: stash/cotangent shapes")
-    with torch.cuda.device(device):
-        out = dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj,
-                                     DualProducts(dtype, device), top)
+    out = dual_mlp_seg_bwd_route(vs, js, weights, layout, act_name, has_j, pres, gv, gj,
+                                 DualProducts(dtype, device), top)
     dual_mlp_seg_bwd.launches += 1
     return out
 

@@ -244,14 +244,13 @@ def mlp_seg(
     if m:
         lib = _build.library()
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
-        with torch.cuda.device(device):
-            code = lib.neddf_mlp_seg_fwd(
-                _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], _KERNEL_WIDTH, m, len(vs),
-                _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
-                len(weights), _build.pointers(weights), _build.pointers(biases),
-                _build.ints(split), _build.pointers(pres) if stash else None,
-                out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-            )
+        code = lib.neddf_mlp_seg_fwd(
+            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], _KERNEL_WIDTH, m, len(vs),
+            _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
+            len(weights), _build.pointers(weights), _build.pointers(biases),
+            _build.ints(split), _build.pointers(pres) if stash else None,
+            out.data_ptr(), _build.stream(device),
+        )
         _build.check(code, "mlp_seg")
         mlp_seg.launches += 1
         count_tile_launch(dtype)
@@ -367,9 +366,8 @@ def mlp_seg_bwd(
     for t in pres:
         if t.dtype != dtype or not t.is_contiguous() or t.device != device:
             raise ValueError("mlp_seg_bwd: stash dtype, layout or device")
-    with torch.cuda.device(device):
-        out = mlp_seg_bwd_route(vs, weights, layout, act_name, pres, g.contiguous(),
-                                MLPProducts(dtype, device))
+    out = mlp_seg_bwd_route(vs, weights, layout, act_name, pres, g.contiguous(),
+                            MLPProducts(dtype, device))
     mlp_seg_bwd.launches += 1
     return out
 

@@ -224,10 +224,6 @@ def _check_kernel_args(v, j, wd, wa, b2, scal) -> None:
             raise ValueError(f"{what}: device or layout")
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def neddf_epilogue(v, j, wd, wa, b2, scal):
     """Epilogue forward: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``neddf_epilogue_plain``)."""
@@ -242,11 +238,10 @@ def neddf_epilogue(v, j, wd, wa, b2, scal):
     if m == 0:
         return out, t_feat
     lib = _build.library()
-    with torch.cuda.device(v.device):
-        code = lib.neddf_epilogue_fwd(
-            _KERNEL_DTYPES[v.dtype], m, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
-            wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), out.data_ptr(),
-            t_feat.data_ptr(), _stream(v.device))
+    code = lib.neddf_epilogue_fwd(
+        _KERNEL_DTYPES[v.dtype], m, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+        wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), out.data_ptr(),
+        t_feat.data_ptr(), _build.stream(v.device))
     _build.check(code, "neddf_epilogue")
     neddf_epilogue.launches += 1
     return out, t_feat
@@ -274,18 +269,18 @@ def _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, out_v, out_t, act=
     lib = _build.library()
     dt = _KERNEL_DTYPES[v.dtype]
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(v.device):
-        _build.check(lib.neddf_epilogue_bwd_blocks(dt, act, int(top), m, ctypes.byref(blocks)),
-                     f"{what} blocks")
-        width = 2 * c + 2 + (c if top else 0)
-        parts = torch.empty((blocks.value, width), dtype=torch.float32, device=v.device)
-        red = torch.empty(width, dtype=torch.float32, device=v.device)
-        _build.check(lib.neddf_epilogue_bwd(
-            dt, act, int(top), m, blocks.value, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
-            wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
-            g_tfeat.data_ptr(), None if g_col is None else g_col.data_ptr(),
-            None if z is None else z.data_ptr(), out_v.data_ptr(), out_t.data_ptr(),
-            parts.data_ptr(), red.data_ptr(), _stream(v.device)), what)
+    stream = _build.stream(v.device)
+    _build.check(lib.neddf_epilogue_bwd_blocks(dt, act, int(top), m, ctypes.byref(blocks)),
+                 f"{what} blocks")
+    width = 2 * c + 2 + (c if top else 0)
+    parts = torch.empty((blocks.value, width), dtype=torch.float32, device=v.device)
+    red = torch.empty(width, dtype=torch.float32, device=v.device)
+    _build.check(lib.neddf_epilogue_bwd(
+        dt, act, int(top), m, blocks.value, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+        wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
+        g_tfeat.data_ptr(), None if g_col is None else g_col.data_ptr(),
+        None if z is None else z.data_ptr(), out_v.data_ptr(), out_t.data_ptr(),
+        parts.data_ptr(), red.data_ptr(), stream), what)
     return red
 
 

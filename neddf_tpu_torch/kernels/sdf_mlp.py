@@ -116,16 +116,15 @@ def sdf_mlp(
     if m:
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
         act, lib = _ACT_CODES[act_name], _build.library()
-        with torch.cuda.device(e.device):
-            stream = torch.cuda.current_stream(e.device).cuda_stream
-            _build.check(lib.neddf_mlp_seg_fwd(
-                _KERNEL_DTYPES[torch.float32], act, _KERNEL_WIDTH, m, 1, _build.pointers([e]),
-                _build.ints([e_dim]), len(weights), _build.pointers(weights),
-                _build.pointers(biases), _build.ints(split), _build.pointers(pres),
-                h.data_ptr(), stream), "sdf_mlp trunk")
-            _build.check(lib.neddf_sdf_sweep(
-                act, m, e_dim, len(weights), _build.pointers(weights), _build.ints(split),
-                _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")
+        stream = _build.stream(e.device)
+        _build.check(lib.neddf_mlp_seg_fwd(
+            _KERNEL_DTYPES[torch.float32], act, _KERNEL_WIDTH, m, 1, _build.pointers([e]),
+            _build.ints([e_dim]), len(weights), _build.pointers(weights),
+            _build.pointers(biases), _build.ints(split), _build.pointers(pres),
+            h.data_ptr(), stream), "sdf_mlp trunk")
+        _build.check(lib.neddf_sdf_sweep(
+            act, m, e_dim, len(weights), _build.pointers(weights), _build.ints(split),
+            _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")
         sdf_mlp.launches += 1
         count_tile_launch(torch.float32)
     return (h, g_e, pres) if stash else (h, g_e)
@@ -262,9 +261,8 @@ def sdf_mlp_bwd(
             raise ValueError("sdf_mlp_bwd: stash/cotangent shape, dtype, layout or device")
     if len(pres) != len(weights):
         raise ValueError("sdf_mlp_bwd: one stash per layer")
-    with torch.cuda.device(device):
-        out = sdf_mlp_bwd_route(e, weights, layout, act_name, pres, ch, cg,
-                                SDFProducts(torch.float32, device))
+    out = sdf_mlp_bwd_route(e, weights, layout, act_name, pres, ch, cg,
+                            SDFProducts(torch.float32, device))
     sdf_mlp_bwd.launches += 1
     return out
 

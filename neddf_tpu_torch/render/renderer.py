@@ -67,6 +67,7 @@ from neddf_tpu_torch.utils.colormap import apply_jet
 
 Tensor = torch.Tensor
 Draws = Callable[[Tensor], Tuple[Tensor, Tensor]]
+ChunkRender = Callable[[Tensor, Tensor, Tensor], Dict[str, Tensor]]
 
 # fixed-FOV cone radius for view angle 0.6911 rad
 _CONE_RAY_RADIUS = 1.0 / 1111.0 / math.sqrt(12.0)
@@ -294,6 +295,7 @@ class NeRFRender(nn.Module):
         ray_cull: Optional[OccupancyGrid] = None,
         ray_cull_factor: int = 4,
         ray_cull_probes: int = 128,
+        render_fn: Optional[Callable[[ChunkRender], ChunkRender]] = None,
     ) -> Dict[str, np.ndarray]:
         """Chunked eval render of every ``downsampling``-th pixel.
 
@@ -308,6 +310,11 @@ class NeRFRender(nn.Module):
         pixel gets the draws, and the result, it gets in the dense render
         of the same call, and the generator ends in the same state; the
         active-ray counts are the one host sync.
+        ``render_fn`` wraps the per-chunk program ``render(uv, u_strat,
+        u_pdf)`` (the dense or the re-packed chunks alike): the trainer
+        passes ``parallel/mesh.py::make_sharded_render``'s, which splits
+        each chunk over the ranks and all-gathers the tiles, as the JAX
+        package's ``render_fn`` does (``neddf_tpu/render/renderer.py:404``).
         Returns numpy images ``[h, w, C]`` per requested target.
         """
         device = pose_r.device
@@ -332,9 +339,14 @@ class NeRFRender(nn.Module):
 
         def render(uv: Tensor, u_strat: Tensor, u_pdf: Tensor) -> Dict[str, Tensor]:
             if occupancy is not None:
-                return self.render_rays_accel(calib, pose_r, pose_t, uv, u_strat, u_pdf,
-                                              occupancy, budget_coarse, budget_fine)
-            return self.render_rays(calib, pose_r, pose_t, uv, u_strat, u_pdf)
+                out = self.render_rays_accel(calib, pose_r, pose_t, uv, u_strat, u_pdf,
+                                             occupancy, budget_coarse, budget_fine)
+            else:
+                out = self.render_rays(calib, pose_r, pose_t, uv, u_strat, u_pdf)
+            return {k: out[k] for k in target_types}
+
+        if render_fn is not None:
+            render = render_fn(render)
 
         # lazily: the dense render draws each chunk's uniforms just before it renders it
         dense = ((below, *draws(uv_all[below : below + chunk])) for below in range(0, n, chunk))

@@ -8,7 +8,7 @@ Usage:
 
 The flags and files of ``neddf_tpu/scripts/fields_visualizer.py``. The run
 loads through ``run_eval.load_trainer`` (on the card unless ``--device
-cpu``), then:
+cpu``; in this one process, also for a data-parallel run), then:
 
 * the field (``--field auto``: ``distance`` for NeDDF, ``sdf`` for NeuS,
   ``density`` otherwise) is queried over a ``resolution``^3 lattice of
@@ -111,7 +111,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[np.ndarray, np.ndarray]:
     args = parser.parse_args(argv)
 
     output_dir = args.output_dir.resolve()
-    trainer = load_trainer(output_dir, args.epoch, args.device)
+    trainer = load_trainer(output_dir, args.epoch, args.device, one_process=True)
     field = default_field(trainer) if args.field == "auto" else args.field
     threshold = args.threshold
     if threshold is None:

@@ -25,6 +25,20 @@ and restarts it with ``--resume`` when the run directory sees no writes
 for ``secs`` while the child lives, or when the child fails
 (``training/watchdog.py``; the child is killed by pid). It combines with
 ``--resume``.
+
+Data parallelism (``trainer.mesh.data=N``, or ``data: auto`` on a host
+with N > 1 cards; ``parallel/mesh.py``): the world is resolved before the
+run directory is made (more ranks than cards raise there), then this
+process builds the kernels and starts N ranks (``torch.multiprocessing``,
+spawn), rank r on ``cuda:r`` (``trainer.device=cpu``: gloo ranks on the
+CPU); a rank that fails ends the others and the run exits non-zero. The
+ranks stay in this process's process group, so the watchdog's kill ends
+them all. ``--resume`` resolves the snapshot's mesh again: the same world
+on the same host. Under torchrun (``RANK`` and ``WORLD_SIZE`` set) each
+process joins the group torchrun made (``env://``) instead, on the card
+of its ``LOCAL_RANK`` (only this host's ranks, ``LOCAL_WORLD_SIZE``,
+need cards here), and rank 0 makes the run directory; across hosts it
+must be on a file system that every host mounts.
 """
 from __future__ import annotations
 
@@ -34,8 +48,11 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
+import torch.distributed as dist
+
 from neddf_tpu_torch import config as config_lib
-from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type
+from neddf_tpu_torch.parallel.mesh import launcher_world, run_world
+from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type, launch_world
 
 _REPO = Path(__file__).resolve().parents[2]
 _MODULE = "neddf_tpu_torch.scripts.run"
@@ -60,8 +77,8 @@ def dataset_path(dataset_dir: str) -> Path:
     return _REPO / ds_dir
 
 
-def prepare_run(argv: List[str]) -> "tuple[dict, Path]":
-    """Compose the config and create the run directory with its snapshot."""
+def compose_run(argv: List[str]) -> "tuple[dict, List[str], Path]":
+    """The composed config, its overrides and the run directory's path."""
     run_dir: Optional[Path] = None
     overrides = []
     for ov in argv:
@@ -74,10 +91,13 @@ def prepare_run(argv: List[str]) -> "tuple[dict, Path]":
             overrides.append(ov)
     cfg = config_lib.compose(_REPO / "config", overrides=overrides)
     cfg["dataset"]["dataset_dir"] = str(dataset_path(cfg["dataset"]["dataset_dir"]))
-    run_dir = (run_dir or _default_run_dir()).resolve()
+    return cfg, overrides, (run_dir or _default_run_dir()).resolve()
+
+
+def make_run_dir(cfg: dict, overrides: List[str], run_dir: Path) -> None:
+    """Create the run directory with its ``.hydra`` snapshot."""
     run_dir.mkdir(parents=True, exist_ok=True)
     config_lib.save_snapshot(cfg, overrides, run_dir)
-    return cfg, run_dir
 
 
 def newest_checkpoint(run_dir: Path) -> Path:
@@ -87,19 +107,46 @@ def newest_checkpoint(run_dir: Path) -> Path:
     return ckpts[-1]
 
 
-def resume(run_dir: Path) -> NeRFTrainer:
-    """``--resume``: the snapshot's trainer from the newest checkpoint,
-    trained on in ``run_dir``."""
-    run_dir = run_dir.resolve()
-    cfg = config_lib.load_snapshot(run_dir)
+def train(cfg: dict, run_dir: Path, resumed: bool = False) -> NeRFTrainer:
+    """Build the trainer in ``run_dir`` (from its newest checkpoint when
+    ``resumed``) and train; in every rank of a data-parallel run."""
+    if dist.is_initialized():
+        # every rank trains in rank 0's directory (a launcher's ranks each
+        # named a default one)
+        shared = [str(run_dir)]
+        dist.broadcast_object_list(shared, src=0)
+        run_dir = Path(shared[0])
     os.chdir(run_dir)
-    print(f"run dir: {run_dir}")
     trainer = config_lib.instantiate(cfg["trainer"], global_config=cfg)
-    latest = newest_checkpoint(run_dir)
-    trainer.load_checkpoint(latest)
-    print(f"resumed from {latest} at iteration {trainer.iteration}")
+    trainer.print_rank0(f"run dir: {run_dir}")
+    if resumed:
+        latest = newest_checkpoint(run_dir)
+        trainer.load_checkpoint(latest)
+        trainer.print_rank0(f"resumed from {latest} at iteration {trainer.iteration}")
     trainer.run_train()
     return trainer
+
+
+def start(cfg: dict, overrides: List[str], run_dir: Path,
+          resumed: bool = False) -> Optional[NeRFTrainer]:
+    """Train in this process, over the ranks it starts, or as one rank of
+    a launcher's (torchrun's) process group (``parallel/mesh.py::
+    run_world``); returns the trainer of a single-process run. The world
+    is resolved before a new run's directory is made (by rank 0 under a
+    launcher)."""
+    device = str(cfg["trainer"].get("device", "cuda:0"))
+    world = launch_world(cfg["trainer"].get("mesh"), device)
+    launched = launcher_world()
+    if not resumed and (launched is None or launched.rank == 0):
+        make_run_dir(cfg, overrides, run_dir)
+    return run_world(train, (cfg, run_dir, resumed), world, device_type(device), run_dir)
+
+
+def resume(run_dir: Path) -> Optional[NeRFTrainer]:
+    """``--resume``: the snapshot's trainer from the newest checkpoint,
+    trained on in ``run_dir`` (over the snapshot's world)."""
+    run_dir = run_dir.resolve()
+    return start(config_lib.load_snapshot(run_dir), [], run_dir, resumed=True)
 
 
 def supervised(argv: List[str], stale_seconds: float) -> None:
@@ -113,7 +160,8 @@ def supervised(argv: List[str], stale_seconds: float) -> None:
     else:
         # the composed config gives the device; the pinned run dir is
         # shared by every incarnation
-        cfg, run_dir = prepare_run(argv)
+        cfg, overrides, run_dir = compose_run(argv)
+        make_run_dir(cfg, overrides, run_dir)
         rest = [ov for ov in argv if not ov.startswith("hydra.run.dir=")]
         first_cmd = [sys.executable, "-m", _MODULE, f"hydra.run.dir={run_dir}", *rest]
 
@@ -128,7 +176,7 @@ def supervised(argv: List[str], stale_seconds: float) -> None:
                                         probe_cmd=[sys.executable, "-c", probe]))
 
 
-def main(argv: Optional[List[str]] = None) -> NeRFTrainer:
+def main(argv: Optional[List[str]] = None) -> Optional[NeRFTrainer]:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "--watchdog":
         argv = argv[1:]
@@ -141,12 +189,7 @@ def main(argv: Optional[List[str]] = None) -> NeRFTrainer:
         if len(argv) != 2:
             raise SystemExit("usage: --resume <run_dir>")
         return resume(Path(argv[1]))
-    cfg, run_dir = prepare_run(argv)
-    os.chdir(run_dir)
-    print(f"run dir: {run_dir}")
-    trainer = config_lib.instantiate(cfg["trainer"], global_config=cfg)
-    trainer.run_train()
-    return trainer
+    return start(*compose_run(argv))
 
 
 if __name__ == "__main__":

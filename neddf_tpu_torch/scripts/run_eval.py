@@ -13,7 +13,11 @@ an occupancy grid from the loaded field and skips the rays that cross
 no occupied cell (``trainer.enable_ray_cull``); culled pixels get the
 empty composite. The snapshot's device (``tpu`` in this repo's
 snapshots) maps to CUDA; ``--device cpu`` runs the plain versions of the
-kernels on the CPU.
+kernels on the CPU. A snapshot whose ``trainer.mesh`` resolves to more
+than one rank here (``data: auto`` on a host with several cards, or an
+explicit ``data``) renders over that many ranks, as ``scripts/run.py``
+trains (``parallel/mesh.py``): each chunk split over them and the tiles
+all-gathered; rank 0 writes and prints.
 """
 from __future__ import annotations
 
@@ -22,21 +26,33 @@ from pathlib import Path
 from typing import Iterable, List, Optional
 
 from neddf_tpu_torch import config as config_lib
+from neddf_tpu_torch.parallel.mesh import run_world
 from neddf_tpu_torch.render.renderer import Draws
-from neddf_tpu_torch.training.trainer import NeRFTrainer
+from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type, launch_world
 
 _REPO = Path(__file__).resolve().parents[2]
 
 
-def load_trainer(
-    run_dir: Path, epoch: int, device: Optional[str] = None, chunk: Optional[int] = None
-) -> NeRFTrainer:
-    """Build the trainer from a run snapshot and load its checkpoint."""
-    run_dir = Path(run_dir).resolve()
-    cfg = config_lib.load_snapshot(run_dir)
+def eval_config(run_dir: Path, device: Optional[str] = None) -> dict:
+    """The snapshot's config for eval: the test split, on ``device``."""
+    cfg = config_lib.load_snapshot(Path(run_dir).resolve())
     cfg["dataset"]["data_split"] = "test"
     if device:
         cfg["trainer"]["device"] = device
+    return cfg
+
+
+def load_trainer(
+    run_dir: Path, epoch: int, device: Optional[str] = None, chunk: Optional[int] = None,
+    one_process: bool = False,
+) -> NeRFTrainer:
+    """Build the trainer from a run snapshot and load its checkpoint; in
+    one process whatever the snapshot's mesh when ``one_process`` (the
+    field visualizer's), else as one rank of the snapshot's world."""
+    run_dir = Path(run_dir).resolve()
+    cfg = eval_config(run_dir, device)
+    if one_process:
+        cfg["trainer"]["mesh"] = None
     if chunk:
         cfg["trainer"]["chunk"] = chunk
     # snapshot dataset dirs are relative to the repository root
@@ -65,10 +81,9 @@ def evaluate(
     if ray_cull:
         trainer.enable_ray_cull()
     save_dir = Path(run_dir).resolve() / "eval"
-    save_dir.mkdir(exist_ok=True)
     ids = range(len(trainer.dataset)) if cameras is None else cameras
     for camera_id in ids:
-        print(f"rendering from camera {camera_id}")
+        trainer.print_rank0(f"rendering from camera {camera_id}")
         trainer.render_test(save_dir, camera_id, downsampling, draws=draws)
     return trainer
 
@@ -87,8 +102,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="skip background rays via an occupancy grid built from the "
                         "loaded field (trainer.enable_ray_cull)")
     args = parser.parse_args(argv)
-    evaluate(args.output_dir, args.epoch, args.device, args.cameras, args.downsampling,
-             ray_cull=args.ray_cull)
+    run_dir = args.output_dir.resolve()
+    trainer_cfg = eval_config(run_dir, args.device)["trainer"]
+    device = str(trainer_cfg.get("device", "cuda:0"))
+    run_world(evaluate, (run_dir, args.epoch, args.device, args.cameras, args.downsampling,
+                         None, args.ray_cull),
+              launch_world(trainer_cfg.get("mesh"), device), device_type(device), run_dir)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,13 @@ does: the pixels and both sample uniforms are drawn for the whole batch
 and then sliced, so every ray sees the same draws whatever the split.
 The camera-delta gradient comes through the pose, which the caller
 recomputes for each microbatch.
+
+Data parallelism slices the same way (the JAX package's ``ray_slice``,
+``neddf_tpu/training/step.py:126-138``): every rank draws the whole
+global batch from the same generator state and keeps its contiguous rows
+(``rank_rows``), which ``accumulate_grads`` then splits into its
+microbatches; ``parallel/mesh.py::make_sharded_grads`` averages the
+ranks' results.
 """
 from __future__ import annotations
 
@@ -50,6 +57,22 @@ def check_grad_accum(grad_accum: int, batch_size: int) -> None:
     """``grad_accum`` must split the batch into equal microbatches."""
     if grad_accum < 1 or batch_size % grad_accum:
         raise ValueError(f"grad_accum={grad_accum} must divide {batch_size}")
+
+
+def check_local_grad_accum(grad_accum: int, local_batch: int, batch_size: int) -> None:
+    """``grad_accum`` must split each rank's batch into equal microbatches
+    (the JAX step's check and text: the global batch dividing does not
+    make each rank's divide, e.g. batch 8 / data 4 / accum 8)."""
+    if grad_accum < 1 or local_batch % grad_accum:
+        raise ValueError(
+            f"grad_accum={grad_accum} must divide the per-device batch {local_batch} "
+            f"(global batch {batch_size})")
+
+
+def rank_rows(batch_size: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s rows of the global batch: [r B/n, (r + 1) B/n)."""
+    local = batch_size // world
+    return slice(rank * local, (rank + 1) * local)
 
 
 def construct_targets(
@@ -106,25 +129,30 @@ def accumulate_grads(
     iteration: int,
     grad_accum: int = 1,
     check_loss: Optional[Callable[[Tensor], None]] = None,
+    rows: slice = slice(None),
 ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
-    """Loss and gradients of one step over ``grad_accum`` microbatches.
+    """Loss and gradients of one step over ``grad_accum`` microbatches of
+    the rows ``rows`` of the drawn batch (all of it by default; a rank's
+    ``rank_rows`` under data parallelism).
 
-    Microbatch i takes rows [i * B/n, (i + 1) * B/n) of the drawn batch;
+    Microbatch i takes rows [i * B/n, (i + 1) * B/n) of those rows;
     its backward adds 1/n of its gradient to ``.grad`` (of the parameters
     and, through ``pose()``, of the camera deltas). Returns the means over
     the microbatches of the total loss, the loss dict and the colour mse,
     detached. ``check_loss`` sees each microbatch's loss before its
     backward (``debug_nans``).
     """
+    uv, u_strat, u_pdf = uv[rows], u_strat[rows], u_pdf[rows]
+    targets = {k: v[rows] for k, v in targets.items()}
     check_grad_accum(grad_accum, uv.shape[0])
     micro = uv.shape[0] // grad_accum
     sums: Optional[Tuple[Tensor, Dict[str, Tensor], Tensor]] = None
     for i in range(grad_accum):
-        rows = slice(i * micro, (i + 1) * micro)
+        mb = slice(i * micro, (i + 1) * micro)
         pose_r, pose_t = pose()
         loss, loss_dict, mse = train_loss(
-            renderer, loss_functions, calib, pose_r, pose_t, uv[rows],
-            {k: v[rows] for k, v in targets.items()}, u_strat[rows], u_pdf[rows], iteration,
+            renderer, loss_functions, calib, pose_r, pose_t, uv[mb],
+            {k: v[mb] for k, v in targets.items()}, u_strat[mb], u_pdf[mb], iteration,
         )
         if check_loss is not None:
             check_loss(loss)

@@ -43,9 +43,22 @@ Counterpart of ``neddf_tpu/training/trainer.py`` (``BaseTrainer`` and
   ``seed``), and the eval renders then skip the rays that cross no
   occupied cell (``render/renderer.py::render_image``).
 
-The one configuration not ported: a mesh with ``data > 1`` or ``model >
-1`` (data and width parallelism) raises NotImplementedError; ``data:
-auto`` trains on the one card.
+* ``mesh`` (``parallel/mesh.py``): the trainer's world is that of the
+  process group it is built in (``group_world``); out of any group, or in
+  a group of one, it is the single-process path. An explicit ``data``
+  must be the group's size. Which world to start is the entry point's
+  decision (``launch_world``: ``data: auto`` is every visible card, the
+  JAX trainer's every device, and 1 on the CPU; ``scripts/run.py`` starts
+  the ranks, or torchrun does; rank r on its host's ``cuda:r``). Every
+  rank draws the whole batch from its generator, which stays in lockstep
+  with the others', renders its rows of it and averages the gradients
+  and metrics with the others (``make_sharded_grads``); the eval renders
+  split each chunk over the ranks and all-gather the tiles
+  (``make_sharded_render``). The parameters start as rank 0's. Every
+  rank runs every hook that draws from the generator; only rank 0 writes
+  (``models/``, ``render/``, ``log/``, ``train_log.jsonl``, the printed
+  lines) and traces, and the others wait for its checkpoints. ``model >
+  1`` (width-sharded tensor parallelism) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -58,11 +71,23 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neddf_tpu_torch import config as config_lib
 from neddf_tpu_torch.geometry.camera import PinholeCalib
 from neddf_tpu_torch.geometry.se3 import camera_pose
 from neddf_tpu_torch.ops.occupancy import OccupancyGrid
+from neddf_tpu_torch.parallel.mesh import (
+    broadcast_parameters,
+    check_world_batch,
+    group_world,
+    launcher_world,
+    local_device,
+    make_sharded_grads,
+    make_sharded_render,
+    mesh_data,
+    resolve_world,
+)
 from neddf_tpu_torch.render.renderer import Draws
 from neddf_tpu_torch.training.checkpoint import (
     AsyncCheckpointer,
@@ -119,6 +144,18 @@ def resolve_device(device: str) -> torch.device:
         raise RuntimeError(f"device {device!r} asks for CUDA, which is not available")
     index = int(device.split(":")[1]) if ":" in device else torch.cuda.current_device()
     return torch.device("cuda", index)
+
+
+def launch_world(mesh: Optional[Dict[str, Any]], device: str) -> Optional[int]:
+    """The number of ranks that an entry point runs for a trainer config's
+    ``mesh`` on ``device`` (``parallel/mesh.py::resolve_world`` over the
+    visible cards and a launcher's ranks), or None for one process."""
+    kind = device_type(device)
+    n_cards = torch.cuda.device_count() if kind == "cuda" else 0
+    launched = launcher_world()
+    if launched is None:
+        return resolve_world(mesh, kind, n_cards)
+    return resolve_world(mesh, kind, n_cards, launched.world, launched.local_world)
 
 
 def build_renderer(config: Dict[str, Any], seed: int, device: torch.device) -> Any:
@@ -188,22 +225,30 @@ class NeRFTrainer:
         mesh: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.config = global_config
-        self.device = resolve_device(device)
+        # data parallelism: the world of this process's group, or None
+        # (one process); the batch checks first, with the JAX messages
+        n_data = mesh_data(mesh) or (dist.get_world_size() if dist.is_initialized() else 1)
+        local_batch = check_world_batch(batch_size, n_data)
+        if grad_accum < 1 or local_batch % grad_accum:
+            raise ValueError(
+                f"grad_accum={grad_accum} must divide the per-device batch "
+                f"{local_batch} (batch_size={batch_size} / data={n_data})"
+            )
+        self.world = group_world(mesh)
+        self.rank = 0
+        if self.world is None:
+            self.device = resolve_device(device)
+        else:
+            self.rank = dist.get_rank()
+            self.device = local_device(device_type(device))
+            # eval-render chunks split evenly over the ranks
+            chunk = -(-chunk // self.world) * self.world
         if self.device.type == "cuda":
+            # the kernels launch on the current device
+            torch.cuda.set_device(self.device)
             # f32 matmuls (the heads, f32 trunks) stay f32, as in JAX on the CPU
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        # this package trains on one card: data "auto" is that card
-        mesh = mesh or {}
-        if int(mesh.get("model", 1)) > 1:
-            raise NotImplementedError("width-sharded (model > 1) meshes are not ported")
-        if mesh.get("data", "auto") not in ("auto", "max", None, -1) and int(mesh["data"]) > 1:
-            raise NotImplementedError("data-parallel (data > 1) meshes are not ported")
-        if grad_accum < 1 or batch_size % grad_accum:
-            raise ValueError(
-                f"grad_accum={grad_accum} must divide the per-device batch "
-                f"{batch_size} (batch_size={batch_size} / data=1)"
-            )
         self.batch_size = batch_size
         self.chunk = chunk
         self.epoch_max = epoch_max
@@ -218,13 +263,14 @@ class NeRFTrainer:
         self.grad_accum = int(grad_accum)
         self.optimize_camera = bool(optimize_camera)
         self.debug_nans = bool(debug_nans)
+        # rays/s counts the global batch; only rank 0 traces and writes
         self.profiler = StepProfiler(
             rays_per_step=batch_size,
-            trace_dir="log/profile" if profile_trace_start >= 0 else None,
+            trace_dir="log/profile" if profile_trace_start >= 0 and self.rank == 0 else None,
             trace_start=profile_trace_start,
             trace_steps=profile_trace_steps,
         )
-        self._async_ckpt = AsyncCheckpointer() if async_checkpoint else None
+        self._async_ckpt = AsyncCheckpointer() if async_checkpoint and self.rank == 0 else None
 
         self.dataset = config_lib.instantiate(self.config["dataset"])
         self.calib = PinholeCalib(
@@ -250,6 +296,11 @@ class NeRFTrainer:
         check_target_keys(self.loss_types)
 
         self.neural_render = build_renderer(self.config, seed, self.device)
+        self.sharded_grads = self.render_fn = None
+        if self.world is not None:
+            broadcast_parameters(self.neural_render)
+            self.sharded_grads = make_sharded_grads(None, batch_size, self.grad_accum)
+            self.render_fn = make_sharded_render(None)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = torch.optim.Adam(
             self.neural_render.parameters(), lr=optimizer_lr, eps=1e-8,
@@ -268,6 +319,27 @@ class NeRFTrainer:
         frames = max(len(self.dataset), 1)
         return self.optimizer_lr * self.scheduler_lr ** (iteration // frames)
 
+    def local_grads(
+        self, camera_id: int, us: Tensor, vs: Tensor, u_strat: Tensor, u_pdf: Tensor,
+        rows: slice = slice(None),
+    ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
+        """The step's math on the rows ``rows`` of the given draws of the
+        whole batch (``step.py::accumulate_grads``): adds their gradients
+        to ``.grad`` and returns their (loss, loss dict, mse)."""
+        uv = torch.stack([us, vs], dim=1)
+        targets = construct_targets(self.loss_types, self.rgb_images[camera_id],
+                                    self.mask_images[camera_id], us, vs)
+        sanitizer, check_loss = contextlib.nullcontext(), None
+        if self.debug_nans:
+            sanitizer = enable_nan_debugging(True)
+            check_loss = lambda loss: raise_if_nonfinite([("loss", loss)])  # noqa: E731
+        with sanitizer:
+            return accumulate_grads(
+                self.neural_render, self.loss_functions, self.calib,
+                lambda: self.camera_pose(camera_id), uv, targets, u_strat, u_pdf,
+                self.iteration, self.grad_accum, check_loss, rows,
+            )
+
     def step_grads(
         self, camera_id: int, us: Tensor, vs: Tensor, u_strat: Tensor, u_pdf: Tensor
     ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
@@ -275,22 +347,20 @@ class NeRFTrainer:
         with its gradients left in the parameters' ``.grad`` and, under
         ``optimize_camera``, in ``camera_deltas.grad``; returns (loss,
         loss dict, mse), each the mean over the ``grad_accum``
-        microbatches."""
-        uv = torch.stack([us, vs], dim=1)
-        targets = construct_targets(self.loss_types, self.rgb_images[camera_id],
-                                    self.mask_images[camera_id], us, vs)
+        microbatches. Over a world of ranks (``sharded_grads``) this rank
+        runs its rows and the results are the means over the ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         self.camera_optimizer.zero_grad(set_to_none=True)
-        sanitizer, check_loss = contextlib.nullcontext(), None
-        if self.debug_nans:
-            sanitizer = enable_nan_debugging(True)
-            check_loss = lambda loss: raise_if_nonfinite([("loss", loss)])  # noqa: E731
-        with sanitizer:
-            loss, loss_dict, mse = accumulate_grads(
-                self.neural_render, self.loss_functions, self.calib,
-                lambda: self.camera_pose(camera_id), uv, targets, u_strat, u_pdf,
-                self.iteration, self.grad_accum, check_loss,
-            )
+
+        def local(rows: slice = slice(None)):
+            return self.local_grads(camera_id, us, vs, u_strat, u_pdf, rows)
+
+        if self.sharded_grads is None:
+            loss, loss_dict, mse = local()
+        else:
+            loss, loss_dict, mse = self.sharded_grads(
+                local, list(self.neural_render.parameters()),
+                self.camera_deltas if self.optimize_camera else None)
         if self.debug_nans:
             raise_if_nonfinite(
                 [(f"the gradient of {name}", p.grad)
@@ -360,15 +430,17 @@ class NeRFTrainer:
         """Train for ``epoch_max + 1`` epochs in the current directory
         (``models/``, ``render/``, ``log/`` and ``train_log.jsonl`` are
         written there), from the epoch that ``iteration`` has reached."""
-        Path("models").mkdir(parents=True, exist_ok=True)
+        writer = self.rank == 0
         render_dir = Path("render")
-        self.log_path = Path("train_log.jsonl")
         frame_length = len(self.dataset)
         start_epoch = self.iteration // max(frame_length, 1)
-        if self.iteration:
-            _drop_records_from(self.log_path, self.iteration)
-        self.logger = NeRFTBLogger("log")
-        self.logger.niter = self.iteration
+        if writer:
+            Path("models").mkdir(parents=True, exist_ok=True)
+            self.log_path = Path("train_log.jsonl")
+            if self.iteration:
+                _drop_records_from(self.log_path, self.iteration)
+            self.logger = NeRFTBLogger("log")
+            self.logger.niter = self.iteration
         rng = np.random.default_rng(self.seed)
         try:
             for epoch in range(self.epoch_max + 1):
@@ -376,23 +448,31 @@ class NeRFTrainer:
                 camera_ids = rng.permutation(frame_length)
                 if epoch < start_epoch:
                     continue
-                print("epoch: ", epoch)
+                self.print_rank0("epoch: ", epoch)
                 for camera_id in camera_ids:
                     self.run_train_step(int(camera_id))
                 self.flush_logs()
-                self.logger.flush()
-                if epoch % self.epoch_save_fields == 0:
+                if self.logger is not None:
+                    self.logger.flush()
+                if epoch % self.epoch_save_fields == 0 and writer:
                     self.render_field_slices(render_dir / "fields", epoch)
                 if epoch % self.epoch_test_rendering == 0:
-                    print("test rendering...")
+                    # every rank renders: the draws keep the generators in lockstep
+                    self.print_rank0("test rendering...")
                     self.render_test(render_dir / f"{epoch:04}", int(camera_ids[0]), 3)
                 if epoch % self.epoch_save_model == 0:
                     self.save_checkpoint(Path("models") / f"model_{epoch:05}.ckpt")
         finally:
             self.profiler.close()
-            self.logger.close()
+            if self.logger is not None:
+                self.logger.close()
             self.logger = None
             self.finalize_checkpoints()
+
+    def print_rank0(self, *args: Any) -> None:
+        """``print`` on rank 0 only."""
+        if self.rank == 0:
+            print(*args)
 
     def render_field_slices(self, output_field_dir: "str | Path", epoch: int = 0) -> None:
         """Write ``field_{name}_{epoch:04}.png`` XY slices of the fields."""
@@ -420,14 +500,19 @@ class NeRFTrainer:
 
     def save_checkpoint(self, path: "str | Path") -> None:
         """Write the full training state to ``path`` (atomically; from a
-        thread under ``async_checkpoint``, see ``finalize_checkpoints``)."""
-        path = Path(path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        state = self.checkpoint_state()
-        if self._async_ckpt is not None:
-            self._async_ckpt.save(path, state)
-        else:
-            save_msgpack(path, state)
+        thread under ``async_checkpoint``, see ``finalize_checkpoints``).
+        Over a world of ranks rank 0 writes (every rank holds the same
+        state) and the others wait for it."""
+        if self.rank == 0:
+            path = Path(path)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            state = self.checkpoint_state()
+            if self._async_ckpt is not None:
+                self._async_ckpt.save(path, state)
+            else:
+                save_msgpack(path, state)
+        if self.world is not None:
+            dist.barrier()
 
     def finalize_checkpoints(self) -> None:
         """Block until every checkpoint write is on disk."""
@@ -464,9 +549,9 @@ class NeRFTrainer:
         else:
             seed = (self.seed * 1_000_003 + self.iteration) % 2**63
             self.generator.manual_seed(seed)
-            print(f"[checkpoint] {path.name} holds no {self.device.type} generator state: "
-                  f"seeded the generator from (seed, iteration) = ({self.seed}, "
-                  f"{self.iteration})")
+            self.print_rank0(f"[checkpoint] {path.name} holds no {self.device.type} "
+                             "generator state: seeded the generator from (seed, iteration) "
+                             f"= ({self.seed}, {self.iteration})")
 
     def camera_pose(self, camera_id: int):
         return camera_pose(self.camera_initials[camera_id], self.camera_deltas[camera_id])
@@ -496,7 +581,9 @@ class NeRFTrainer:
     ) -> np.ndarray:
         """Render one test view, write ``{id}_rgb.png``, ``{id}_rgb_gt.png``
         and ``{id}_depth.png``, print PSNR/SSIM at full resolution, and
-        return the rendered image (uint8, BGR like the dataset)."""
+        return the rendered image (uint8, BGR like the dataset). Over a
+        world of ranks every rank renders its share of each chunk and
+        returns the whole image; rank 0 writes and prints."""
         rgb_gt = np.asarray(self.dataset[camera_id]["rgb_images"]).astype(np.uint8)
         h, w = rgb_gt.shape[:2]
         with torch.no_grad():
@@ -504,11 +591,14 @@ class NeRFTrainer:
         images = self.neural_render.render_image(
             self.calib, r, t, w, h, ["color", "depth"], downsampling, self.chunk,
             generator=self.generator, draws=draws, ray_cull=self.eval_ray_cull,
+            render_fn=self.render_fn,
         )
         rgb_np = np.clip(images["color"] * 255, 0, 255).astype(np.uint8)
         depth_np = np.clip(
             (images["depth"][:, :, 0] - 2.0) / 4.0 * 50000 / 256, 0, 255
         ).astype(np.uint8)
+        if self.rank != 0:
+            return rgb_np
 
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
@@ -525,7 +615,7 @@ class NeRFTrainer:
 
     def render_all(self, output_dir: "str | Path") -> None:
         for camera_id in range(len(self.dataset)):
-            print(f"rendering from camera {camera_id}")
+            self.print_rank0(f"rendering from camera {camera_id}")
             self.render_test(output_dir, camera_id, 1)
 
 
