@@ -13,7 +13,7 @@ Phases (any failure stops the script with a non-zero exit code):
    sweep has HMMA (tensor-core) instructions, on TF32 operands
    in the f32 instantiations (the 3xTF32 split) and not in the bf16
    ones, and ptxas reports no spills in them nor in the epilogue
-   backward's 8 instantiations;
+   backward's 48 instantiations;
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -97,9 +97,10 @@ Phases (any failure stops the script with a non-zero exit code):
    split) and no plain version called;
    ms/step, rays/s and the device's busy share over five traced steps
    (``profile_train_{nerf,neus}.txt``);
-11b. NeDDF, NeRF and NeuS with LeakyReLU at ``fused="auto"`` through
-   their kernels (finite, every kernel launched), and a width the kernels
-   do not take raising NotImplementedError on the card;
+11b. NeDDF, NeRF and NeuS with LeakyReLU, and NeDDF at width 128, at
+   ``fused="auto"`` through their kernels (finite, every kernel
+   launched), and a width the kernels do not take (576, over 512)
+   raising NotImplementedError on the card;
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
    and through the plain versions: PSNR within 0.05 dB;
 14. resume: phase 8's run is run A; run B, the same command as a
@@ -194,11 +195,34 @@ Phases (any failure stops the script with a non-zero exit code):
    1e-3 of (b)'s single-process render; (c) ``scripts/run.py trainer.mesh.data=2`` raises
    "needs 2 devices" before the run dir is made, and ``data: auto`` is
    the single-process path (phase 8 checks its run made no world);
+21. every kernel against its plain version on the same inputs beside the
+   shipped width and activations (GRID_CASES: widths 45, 64, 96, 128,
+   200, 256 and 512 under Softplus, Sigmoid and tanhExp, 96, 200 and 512
+   under ReLU and LeakyReLU, the density under another activation each
+   time), f32 and bf16 (sdf_mlp f32), at 33,287 rows: phases 6/9's bars,
+   dW/db bitwise over two runs, the tangent stash read exactly where f''
+   is not zero; under ReLU and LeakyReLU the forwards layer by layer over
+   the kernel's own stash, and a direct disagreement only where a
+   pre-activation lies across the kink (logged); 21b: each of paths (a)
+   and (b) at its own networks and rows (the passes of its step, (a)'s
+   eval colour at 198,656 rows), timed beside the bounds;
+22. the full-width f32 step of WIDE_OVERRIDES' paths, (a) NeDDF at every
+   width 512 with Softplus and a LeakyReLU density and (b) NeuS at width
+   128 with Softplus, from the seeded parameters against the JAX
+   package's numbers (WIDE_STEP; within 1e-3 or 5x their spread), and
+   their camera gradients;
+23. a 300-step run of each path through ``scripts/run.py`` (phase 11's
+   gates: every loss finite, train PSNR up >= 3 dB, every kernel
+   launched on its tensor-core route, the folded launches as
+   ``expected_folding`` counts them, no plain call; ms/step, rays/s, the
+   busy share, peak memory) and ``run_eval`` of its run dir through the
+   kernels and the plain versions within 0.05 dB;
 13. (printed last) one JSON line of per-kernel results (with each route's
    bound; the parallel db sum among them; ``launches_geometry``,
    ``launches_llff`` and ``launches_dp``: each kernel's launches on the
    phase-18 and phase-19 paths, and per rank per sharded step and in the
-   sharded eval render of phase 20a), the card line, and the final
+   sharded eval render of phase 20a; phases 21-23's kernels at paths
+   (a) and (b)), the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
@@ -291,6 +315,21 @@ SPREAD_FACTOR = 5.0
 # a seed at which neither NeRF network starts dead (a ReLU density head
 # that is negative at every sample passes no gradient at all)
 FAMILY_PARAM_SEED = 2
+# phases 21-23: the configurations beside the shipped widths and
+# activations, as scripts/run.py overrides: (a) NeDDF wide and smooth
+# (every width 512, Softplus, a LeakyReLU density; bf16, the default
+# batch), (b) NeuS narrow (width 128, Softplus, as NeuS's own paper; f32)
+WIDE_OVERRIDES = {
+    "neddf_wide": ["network.ddf_layer_width=512", "network.col_layer_width=512",
+                   "network.activation_type=Softplus",
+                   "network.density_activation_type=LeakyReLU"],
+    "neus_narrow": ["network=neus", "loss=nerf_loss", "trainer.batch_size=1024",
+                    "network.sdf_layer_width=128", "network.col_layer_width=128",
+                    "network.activation_type=Softplus"],
+}
+# rays of their f32 step against the JAX package (phase 22), whose 512-wide
+# reference runs on a CPU
+WIDE_BATCH = 64
 
 
 def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
@@ -435,14 +474,18 @@ def card_line() -> str:
 # phase 2: the kernels that must run on the tensor cores (by the mangled
 # names in the library) and how many instantiations each has
 # tc_gemm_kernel: bf16 and f32 x nt, tn, nn plain (6); the activation
-# prologue on tn (bf16 and f32 x tanhExp, ReLU, LeakyReLU: 6), the
-# epilogue on nt (the same 6) and on nn (f32 x 3); the dual backward's
-# products over rows grouped by point, its layer-input prologue on tn and
-# its stacked-cotangent epilogue on nt (bf16 and f32 x 3 activations x S =
-# 2, 4: 12 each)
-TC_FUNCTIONS = {"tc_gemm_kernel": 45,
-                "mlp_tile_fwd": 18,   # bf16 and f32 x K=3, K=1, K=0 x the 3 activations
-                "sdf_sweep_kernel": 3}  # f32 x the 3 activations
+# prologue on tn (bf16 and f32 x tanhExp, ReLU, LeakyReLU, Softplus,
+# Sigmoid: 10), the epilogue on nt (the same 10) and on nn (f32 x 5); the
+# dual backward's products over rows grouped by point, its layer-input
+# prologue on tn and its stacked-cotangent epilogue on nt (bf16 and f32 x
+# 5 activations x S = 2, 4: 20 each)
+TC_FUNCTIONS = {"tc_gemm_kernel": 71,
+                # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
+                # classes 64, 128, 256, 512
+                "mlp_tile_fwd": 120,
+                # f32 x the 5 activations x the 4 classes x rows of whole
+                # 16-byte vectors or not
+                "sdf_sweep_kernel": 40}
 
 
 # the elementwise passes of the backwards that the products' epilogues and
@@ -453,9 +496,9 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
 
 # phase 2: other kernels whose instantiations ptxas must build without
 # spills: the epilogue backward (bf16 and f32 x the standalone mode and the
-# top mode's 3 activations), two blocks of 256 threads per SM (128
-# registers each)
-SPILL_FUNCTIONS = {"epi_bwd_kernel": 8}
+# top mode's 5 activations x the width classes 64, 128, 256, 512), two
+# blocks of 256 threads per SM (128 registers each)
+SPILL_FUNCTIONS = {"epi_bwd_kernel": 48}
 
 
 def _is_tc_function(name: str) -> bool:
@@ -637,6 +680,8 @@ def check_close(name: str, got: float, ref: float, tol: float, floor: float = 0.
 # by the device time of their kernels (torch.profiler), the event times
 # kept beside it
 DEVICE_TIMED = ("neddf_epilogue", "neddf_epilogue_bwd", "neddf_epilogue_gstack")
+# the density activation of the shipped NeDDF config (phases 3 and 6)
+DENSITY = "ReLU"
 
 
 def phase_train_kernels(torch, sd, card: str) -> dict:
@@ -681,7 +726,7 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
         # the epilogue backward's top mode (the K=3 trunk's top layer folded
         # in) against its plain version; its gs bitwise equal to the
         # standalone mode, torch's add and the top gstack; two runs bitwise
-        v, j, wd_, wa_, b2_, scal_, g_o, g_t, g_c, z, act = args
+        v, j, wd_, wa_, b2_, scal_, g_o, g_t, g_c, z, act, dens = args
         before = epi.neddf_epilogue_gstack.launches
         tk = epi.neddf_epilogue_gstack(*args)
         tp = epi.neddf_epilogue_gstack_plain(*args)
@@ -689,7 +734,7 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
         if epi.neddf_epilogue_gstack.launches != before + 1:
             fail(f"{route} {dtype_name} M={m}: the top mode's kernel did not launch once")
         r = check(route, m, dtype_name, list(zip(tk, tp)), tol)
-        dv, dj = epi.neddf_epilogue_bwd(v, j, wd_, wa_, b2_, scal_, g_o, g_t)[:2]
+        dv, dj = epi.neddf_epilogue_bwd(v, j, wd_, wa_, b2_, scal_, g_o, g_t, dens)[:2]
         gs = dm.DualProducts(v.dtype, dev).gstack(dv + g_c, dj, z, act)[0]
         r["gs_bitwise_vs_composition"] = torch.equal(tk[0], gs)
         if not r["gs_bitwise_vs_composition"]:
@@ -734,22 +779,23 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
             v_feat, j_feat, t_pres = tp
             del tk
             # epilogue forward and backward on the trunk's streams
-            ek = epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal)
-            ep = epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal)
+            ek = epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal, DENSITY)
+            ep = epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal, DENSITY)
             check("neddf_epilogue", m, dtype_name, [(ek[0], ep[0]), (ek[1], ep[1])], tol)
             g_out = torch.randn((10, m), generator=gen, device=dev)
             g_tf = (torch.randn((m, 256), generator=gen, device=dev) * 0.1).to(dtype)
-            ebk = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
-            ebp = epi.neddf_epilogue_bwd_plain(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
+            ebargs = (v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf, DENSITY)
+            ebk = epi.neddf_epilogue_bwd(*ebargs)
+            ebp = epi.neddf_epilogue_bwd_plain(*ebargs)
             check("neddf_epilogue_bwd", m, dtype_name, list(zip(ebk, ebp)), btol)
-            again = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf)
+            again = epi.neddf_epilogue_bwd(*ebargs)
             if not all(torch.equal(a, b) for a, b in zip(ebk, again)):
                 fail(f"neddf_epilogue_bwd {dtype_name} M={m}: two runs differ")
             # the main path's mode: with the colour trunk's cotangent of
             # v_feat and the trunk's top-layer stash
             g_col = (torch.randn((m, 256), generator=gen, device=dev) * 0.01).to(dtype)
             top_args = (v_feat, j_feat, wd, wa, b2, scal, g_out, g_tf, g_col, t_pres[-1],
-                        "tanhExp")
+                        "tanhExp", DENSITY)
             check_top_mode("neddf_epilogue_gstack", m, dtype_name, top_args, btol)
             # the K=1 colour forward on [PE dual(pos) along grad D, PE(dir), n, features]
             t_dir = ep[0][6:9].T.contiguous()
@@ -785,13 +831,14 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
             if m == M_TRAIN:
                 timings = {
                     "neddf_epilogue": (
-                        lambda: epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal),
-                        lambda: epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal)),
+                        lambda: epi.neddf_epilogue(v_feat, j_feat, wd, wa, b2, scal, DENSITY),
+                        lambda: epi.neddf_epilogue_plain(v_feat, j_feat, wd, wa, b2, scal,
+                                                         DENSITY)),
                     "neddf_epilogue_bwd": (
                         lambda: epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal,
-                                                       g_out, g_tf),
+                                                       g_out, g_tf, DENSITY),
                         lambda: epi.neddf_epilogue_bwd_plain(v_feat, j_feat, wd, wa, b2, scal,
-                                                             g_out, g_tf)),
+                                                             g_out, g_tf, DENSITY)),
                     "neddf_epilogue_gstack": (
                         lambda: epi.neddf_epilogue_gstack(*top_args),
                         lambda: epi.neddf_epilogue_gstack_plain(*top_args)),
@@ -825,7 +872,7 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
 
                 def composed():
                     dv, dj = epi.neddf_epilogue_bwd(v_feat, j_feat, wd, wa, b2, scal, g_out,
-                                                    g_tf)[:2]
+                                                    g_tf, DENSITY)[:2]
                     return k.gstack(dv + g_col, dj, t_pres[-1], "tanhExp")
 
                 results["neddf_epilogue_gstack"][f"{m}/{dtype_name}"].update(
@@ -847,21 +894,8 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
     gen.manual_seed(5)
     m = M_TRAIN_RAGGED
 
-    def replay(vs, js, ws, bs, lay, act, hj, k, pres):
-        f, df, _ = dm.ACTIVATION_TRIPLES[act]
-        dtype = vs[0].dtype
-        x0 = torch.cat([dm._stack(v, j, k) for v, j in zip(vs, dm._seg_js(js, hj))],
-                       dim=-1).float()
-        zs = []
-        for li, (wl, bl) in enumerate(zip(ws, bs)):
-            h = x0 if li == 0 else dm._dual_act(pres[li - 1].float(), f, df).to(dtype).float()
-            if li > 0 and lay[li]:
-                h = torch.cat([x0[..., : vs[0].shape[1]], h], dim=-1)
-            z = h @ wl.float()
-            z[0] += bl
-            zs.append(z.to(dtype))
-        out = dm._dual_act(pres[-1].float(), f, df).to(dtype)
-        return [out[0], out[1:]] + zs
+    def replay(*args):
+        return dual_replay(torch, *args)
 
     def uniform(*shape):
         return torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
@@ -905,7 +939,8 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
                 names = [route, f"{route}_bwd"]
                 if cfg == "trunk":  # the epilogue backward's top mode on this trunk
                     top_args = (fp[0], fp[1], wd, wa, b2, scal, uniform(10, m),
-                                (uniform(m, 256) * 0.1).to(dtype), gv, fp[2][-1], act)
+                                (uniform(m, 256) * 0.1).to(dtype), gv, fp[2][-1], act,
+                                DENSITY)
                     names.append(f"neddf_epilogue_gstack_{act}")
                     check_top_mode(names[-1], m, dtype_name, top_args, btol)
                     del top_args
@@ -1551,6 +1586,199 @@ FAMILY_STEP = {
 }
 
 
+# The JAX package's numbers for phase 22's f32 steps of WIDE_OVERRIDES'
+# configurations, made once on a CPU with
+#   JAX_PLATFORMS=cpu python tools/family_step_reference.py --wide
+# (as FAMILY_STEP, at WIDE_BATCH rays; NeDDF through the jnp path, which
+# applies the LeakyReLU density)
+WIDE_STEP = {
+ "neddf_wide": {
+  "loss": 0.23134423792362213,
+  "mse": 0.05949636548757553,
+  "losses": {
+   "color": 0.05949636548757553,
+   "color_coarse": 0.005950195714831352,
+   "fields_penalty": 8.412722601880418e-11,
+   "fields_penalty_coarse": 4.654878218990355e-11,
+   "mask": 0.15080969035625458,
+   "mask_coarse": 0.015087983570992947
+  },
+  "grad_norms": {
+   "network_fine.layer_aux_out.b": 0.00020029701408930123,
+   "network_fine.layer_aux_out.w": 0.003409690922126174,
+   "network_fine.layer_col_out.b": 0.2832021713256836,
+   "network_fine.layer_col_out.w": 4.850977897644043,
+   "network_fine.layer_ddf_out.b": 0.11326532810926437,
+   "network_fine.layer_ddf_out.w": 1.9267598390579224,
+   "network_fine.layers_col.0.b": 0.008046722039580345,
+   "network_fine.layers_col.0.w": 0.13952766358852386,
+   "network_fine.layers_col.1.b": 0.02596273459494114,
+   "network_fine.layers_col.1.w": 0.4387803077697754,
+   "network_fine.layers_col.2.b": 0.08423485606908798,
+   "network_fine.layers_col.2.w": 1.4204460382461548,
+   "network_fine.layers_ddf.0.b": 2.148986459360458e-05,
+   "network_fine.layers_ddf.0.w": 5.677546141669154e-05,
+   "network_fine.layers_ddf.1.b": 7.824889326002449e-05,
+   "network_fine.layers_ddf.1.w": 0.0012682644883170724,
+   "network_fine.layers_ddf.2.b": 0.00025704342988319695,
+   "network_fine.layers_ddf.2.w": 0.004395011346787214,
+   "network_fine.layers_ddf.3.b": 0.0008447680156677961,
+   "network_fine.layers_ddf.3.w": 0.014108833856880665,
+   "network_fine.layers_ddf.4.b": 0.0028703073039650917,
+   "network_fine.layers_ddf.4.w": 0.048938311636447906,
+   "network_fine.layers_ddf.5.b": 0.01018065307289362,
+   "network_fine.layers_ddf.5.w": 0.1759079247713089,
+   "network_fine.layers_ddf.6.b": 0.03383360803127289,
+   "network_fine.layers_ddf.6.w": 0.5693358182907104
+  },
+  "camera_grad": [
+   -0.00023399153724312782,
+   -0.0011139470152556896,
+   0.0017227660864591599,
+   -0.0016927288379520178,
+   -0.0005670891841873527,
+   0.00030422143754549325
+  ],
+  "camera_grad_spread": 4.093406404323774e-05,
+  "spread": {
+   "loss": 0.0,
+   "mse": 6.261374569577459e-08,
+   "loss color": 6.261374569577459e-08,
+   "loss color_coarse": 7.825982700821759e-08,
+   "loss fields_penalty": 6.598476362319368e-07,
+   "loss fields_penalty_coarse": 5.962685662193137e-07,
+   "loss mask": 0.0,
+   "loss mask_coarse": 0.0,
+   "network_fine.layer_aux_out.b": 3.6325841637057475e-07,
+   "network_fine.layer_aux_out.w": 1.3656994077849372e-07,
+   "network_fine.layer_col_out.b": 0.0,
+   "network_fine.layer_col_out.w": 0.0,
+   "network_fine.layer_ddf_out.b": 1.3155977599316942e-07,
+   "network_fine.layer_ddf_out.w": 6.187034166596908e-08,
+   "network_fine.layers_col.0.b": 0.0,
+   "network_fine.layers_col.0.w": 0.0,
+   "network_fine.layers_col.1.b": 0.0,
+   "network_fine.layers_col.1.w": 6.792082930789218e-08,
+   "network_fine.layers_col.2.b": 0.0,
+   "network_fine.layers_col.2.w": 0.0,
+   "network_fine.layers_ddf.0.b": 8.464406072094055e-08,
+   "network_fine.layers_ddf.0.w": 1.2815320972529077e-07,
+   "network_fine.layers_ddf.1.b": 9.2984799031024e-08,
+   "network_fine.layers_ddf.1.w": 0.0,
+   "network_fine.layers_ddf.2.b": 0.0,
+   "network_fine.layers_ddf.2.w": 0.0,
+   "network_fine.layers_ddf.3.b": 6.890372248226487e-08,
+   "network_fine.layers_ddf.3.w": 6.600989026185794e-08,
+   "network_fine.layers_ddf.4.b": 8.111697424600961e-08,
+   "network_fine.layers_ddf.4.w": 0.0,
+   "network_fine.layers_ddf.5.b": 0.0,
+   "network_fine.layers_ddf.5.w": 8.47100050393982e-08,
+   "network_fine.layers_ddf.6.b": 1.1010620844866959e-07,
+   "network_fine.layers_ddf.6.w": 2.093830841500146e-07
+  }
+ },
+ "neus_narrow": {
+  "loss": 0.6810174584388733,
+  "mse": 0.5364684462547302,
+  "losses": {
+   "color": 0.5364684462547302,
+   "color_coarse": 0.05364613980054855,
+   "mask": 0.0826389417052269,
+   "mask_coarse": 0.008263940922915936
+  },
+  "grad_norms": {
+   "network_fine.layers_col.0.b": 2.8697835659841076e-05,
+   "network_fine.layers_col.0.w": 0.0002634006959851831,
+   "network_fine.layers_col.1.b": 0.00010348289652029052,
+   "network_fine.layers_col.1.w": 0.0008665270870551467,
+   "network_fine.layers_col.2.b": 0.0003708428412210196,
+   "network_fine.layers_col.2.w": 0.0031567788682878017,
+   "network_fine.layers_col.3.b": 0.0012662640074267983,
+   "network_fine.layers_col.3.w": 0.010746045969426632,
+   "network_fine.layers_col.4.b": 0.004650182090699673,
+   "network_fine.layers_col.4.w": 0.03823718801140785,
+   "network_fine.layers_col.5.b": 0.015021787025034428,
+   "network_fine.layers_col.5.w": 0.13568758964538574,
+   "network_fine.layers_col.6.b": 0.04786713048815727,
+   "network_fine.layers_col.6.w": 0.4112149775028229,
+   "network_fine.layers_col.7.b": 0.16818945109844208,
+   "network_fine.layers_col.7.w": 1.4186631441116333,
+   "network_fine.layers_col.8.b": 0.502193808555603,
+   "network_fine.layers_col.8.w": 4.3011040687561035,
+   "network_fine.layers_sdf.0.b": 2.599104118417017e-05,
+   "network_fine.layers_sdf.0.w": 3.016938535438385e-05,
+   "network_fine.layers_sdf.1.b": 9.10623639356345e-05,
+   "network_fine.layers_sdf.1.w": 0.000744129647500813,
+   "network_fine.layers_sdf.2.b": 0.00029663502937182784,
+   "network_fine.layers_sdf.2.w": 0.002536261221393943,
+   "network_fine.layers_sdf.3.b": 0.000993994646705687,
+   "network_fine.layers_sdf.3.w": 0.00847052875906229,
+   "network_fine.layers_sdf.4.b": 0.003587874351069331,
+   "network_fine.layers_sdf.4.w": 0.030355989933013916,
+   "network_fine.layers_sdf.5.b": 0.015085466206073761,
+   "network_fine.layers_sdf.5.w": 0.12780289351940155,
+   "network_fine.layers_sdf.6.b": 0.05204950273036957,
+   "network_fine.layers_sdf.6.w": 0.4228188395500183,
+   "network_fine.layers_sdf.7.b": 0.17350399494171143,
+   "network_fine.layers_sdf.7.w": 1.4957069158554077,
+   "network_fine.variance": 0.6689904928207397
+  },
+  "camera_grad": [
+   0.0003189236740581691,
+   -0.001171101932413876,
+   -0.0004876636667177081,
+   -0.000820403452962637,
+   0.0005429856246337295,
+   -0.0002500278933439404
+  ],
+  "camera_grad_spread": 1.0143427116401733e-06,
+  "spread": {
+   "loss": 0.0,
+   "mse": 0.0,
+   "loss color": 0.0,
+   "loss color_coarse": 6.944190788586472e-08,
+   "loss mask": 0.0,
+   "loss mask_coarse": 0.0,
+   "network_fine.layers_col.0.b": 0.0,
+   "network_fine.layers_col.0.w": 1.104926103094688e-07,
+   "network_fine.layers_col.1.b": 0.0,
+   "network_fine.layers_col.1.w": 6.717350419048472e-08,
+   "network_fine.layers_col.2.b": 7.848022725990289e-08,
+   "network_fine.layers_col.2.w": 0.0,
+   "network_fine.layers_col.3.b": 9.193605847133319e-08,
+   "network_fine.layers_col.3.w": 0.0,
+   "network_fine.layers_col.4.b": 0.0,
+   "network_fine.layers_col.4.w": 0.0,
+   "network_fine.layers_col.5.b": 0.0,
+   "network_fine.layers_col.5.w": 0.0,
+   "network_fine.layers_col.6.b": 0.0,
+   "network_fine.layers_col.6.w": 0.0,
+   "network_fine.layers_col.7.b": 0.0,
+   "network_fine.layers_col.7.w": 0.0,
+   "network_fine.layers_col.8.b": 1.1868852972684785e-07,
+   "network_fine.layers_col.8.w": 0.0,
+   "network_fine.layers_sdf.0.b": 0.0,
+   "network_fine.layers_sdf.0.w": 0.0,
+   "network_fine.layers_sdf.1.b": 0.0,
+   "network_fine.layers_sdf.1.w": 0.0,
+   "network_fine.layers_sdf.2.b": 0.0,
+   "network_fine.layers_sdf.2.w": 0.0,
+   "network_fine.layers_sdf.3.b": 0.0,
+   "network_fine.layers_sdf.3.w": 0.0,
+   "network_fine.layers_sdf.4.b": 0.0,
+   "network_fine.layers_sdf.4.w": 6.136005293654487e-08,
+   "network_fine.layers_sdf.5.b": 0.0,
+   "network_fine.layers_sdf.5.w": 1.1659486560517924e-07,
+   "network_fine.layers_sdf.6.b": 7.15720631906883e-08,
+   "network_fine.layers_sdf.6.w": 7.048484977493482e-08,
+   "network_fine.layers_sdf.7.b": 0.0,
+   "network_fine.layers_sdf.7.w": 0.0,
+   "network_fine.variance": 1.781928006901051e-07
+  }
+ }
+}
+
+
 # ---- bounds (H100 SXM datasheet peaks, 700 W)
 # tensor-core bf16; f32 off them (FMA); f32 by the 3xTF32 split: three
 # TF32 operations (495 TFLOP/s dense) per f32 one
@@ -1861,8 +2089,8 @@ def family_trainer(torch, family: str, extra=()):
     config/ as ``scripts/run.py`` composes it."""
     from neddf_tpu_torch import config as config_lib
 
-    cfg = config_lib.compose(REPO / "config", overrides=[*FAMILY_OVERRIDES.get(family, []),
-                                                         *extra])
+    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES}
+    cfg = config_lib.compose(REPO / "config", overrides=[*known.get(family, []), *extra])
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["trainer"]["device"] = "cuda"
     return config_lib.instantiate(cfg["trainer"], global_config=cfg)
@@ -1895,33 +2123,44 @@ def hold_step(tag: str, got: dict, ref: dict, card: str,
     return worst, wider
 
 
-def phase_family_step(torch, card: str) -> dict:
+# the configurations whose network has a compute_dtype (bf16 by default)
+F32_STEP_OVERRIDE = {"nerf": ["network.compute_dtype=float32"],
+                     "neddf_wide": ["network.compute_dtype=float32"]}
+
+
+def phase_family_step(torch, card: str, configs=None, refs=None, batch: int = FAMILY_BATCH,
+                      tag: str = "10") -> dict:
     """Phase 10: one full-width f32 step of each family from the seeded
-    parameters, against the JAX package's numbers on the CPU."""
+    parameters, against the JAX package's numbers on the CPU (``configs``
+    and ``refs``: FAMILY_OVERRIDES and FAMILY_STEP by default; phase 22
+    passes WIDE_OVERRIDES and WIDE_STEP)."""
+    configs = FAMILY_OVERRIDES if configs is None else configs
+    refs = FAMILY_STEP if refs is None else refs
     out = {}
-    for family in FAMILY_OVERRIDES:
-        extra = ["network.compute_dtype=float32"] if family == "nerf" else []
+    for family in configs:
+        extra = F32_STEP_OVERRIDE.get(family, [])
         trainer = family_trainer(torch, family, [*extra, "trainer.optimize_camera=true"])
         render = trainer.neural_render
         shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
         render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
         draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
                                    render.sample_coarse + 1, render.sample_fine + 1,
-                                   seed=FAMILY_DRAW_SEED, batch=FAMILY_BATCH)
+                                   seed=FAMILY_DRAW_SEED, batch=batch)
         us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
         loss, loss_dict, mse = trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(),
                                                   u_strat, u_pdf)
         got = {"loss": loss.item(), "mse": mse.item(),
                "losses": {k: v.item() for k, v in loss_dict.items()},
                "grad_norms": {n: p.grad.norm().item() for n, p in render.named_parameters()}}
-        ref = FAMILY_STEP[family]
-        worst, wider = hold_step(f"[10] {family}", got, ref, card)
+        ref = refs[family]
+        worst, wider = hold_step(f"[{tag}] {family}", got, ref, card)
         # the pose-delta gradient (optimize_camera): the kernels' input
         # cotangents through the position encoding into the rays
         cam_bar = max(JAX_STEP_TOL, SPREAD_FACTOR * ref["camera_grad_spread"])
-        cam_rel = camera_grad_check(torch, f"[10] {family} camera", trainer.camera_deltas.grad,
-                                    ref["camera_grad"], cam_bar, FAMILY_CAMERA)
-        log(f"[10] {family} camera {FAMILY_CAMERA}'s pose-delta gradient vs the JAX package: "
+        cam_rel = camera_grad_check(torch, f"[{tag}] {family} camera",
+                                    trainer.camera_deltas.grad, ref["camera_grad"], cam_bar,
+                                    FAMILY_CAMERA)
+        log(f"[{tag}] {family} camera {FAMILY_CAMERA}'s pose-delta gradient vs the JAX package: "
             f"relative {cam_rel:.3g} of its norm (bar {cam_bar:.3g}); every other row 0")
         out[family] = {"got": got, "worst_rel_vs_jax": worst, "wider_bars": wider,
                        "camera_grad_rel_vs_jax": cam_rel,
@@ -1938,7 +2177,7 @@ FAMILY_RUN_KERNELS = {"nerf": ("mlp_seg", "mlp_seg_bwd"),
 FAMILY_ROUTES = {"nerf": "tc", "neus": "tf32x3"}
 
 
-def expected_folding(family: str, launches: dict, dual_layers=None) -> dict:
+def expected_folding(family: str, launches: dict, dual_layers=None, act: str = "ReLU") -> dict:
     """The elementwise launches and the products with an activation folded
     in that a family's run must show, from its backward calls: per
     mlp_seg_bwd of L layers one gpre (the top layer), L - 1 nt epilogues,
@@ -1952,7 +2191,11 @@ def expected_folding(family: str, launches: dict, dual_layers=None) -> dict:
     layer below), L - 1 tn prologues (the layer input) and L - 1 db sums
     below the top layer; the colour trunk's top layer one gstack and one
     db sum; the K=3 trunk's top layer none (the epilogue backward's top
-    mode forms its stacked cotangent and sums its db); no dual_act."""
+    mode forms its stacked cotangent and sums its db); no dual_act. Where
+    f'' is not zero (``act`` tanhExp, Softplus, Sigmoid) each sdf_mlp_bwd
+    also runs the sweep's top adjoint: one more epilogue."""
+    from neddf_tpu_torch.ops.activations import SECOND_DERIVATIVE_ZERO
+
     if family == "neddf":
         pairs = launches["dual_mlp_seg_bwd"] / 2
         layers = sum(dual_layers)
@@ -1966,57 +2209,60 @@ def expected_folding(family: str, launches: dict, dual_layers=None) -> dict:
     return {"passes": {"gpre": col + sdf, "sdf_top": sdf, "gstack": 0, "dual_act": 0,
                        "db_sum": col * layers + sdf * n_sdf},
             "folded": {"prologue": col * (layers - 1) + sdf * (n_sdf - 1),
-                       "epilogue": col * (layers - 1) + sdf * 3 * (n_sdf - 1)}}
+                       "epilogue": col * (layers - 1) + sdf * (3 * (n_sdf - 1) + (
+                           act not in SECOND_DERIVATIVE_ZERO))}}
 
 
 # run_eval at downsampling 8, kernels vs plain versions: PSNR gap (dB)
 EVAL_PSNR_GAP_DB = 0.05
 
 
-def phase_family_runs(torch, card: str) -> dict:
+def phase_family_runs(torch, card: str, runs=None, tags=("11", "12")) -> dict:
     """Phases 11 and 12: a 300-step run of each configuration through
     ``scripts/run.py``, then a ``run_eval`` render of its run dir through
-    the kernels and through the plain versions."""
+    the kernels and through the plain versions. ``runs``: {name:
+    {overrides, train (the kernels its run launches), eval (those its
+    render launches), route, kind (the family, for expected_folding)}},
+    NeRF's and NeuS's shipped configurations by default; phase 23 passes
+    WIDE_RUNS."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
-    from neddf_tpu_torch.kernels import mlp
-    from neddf_tpu_torch.kernels import neddf_epilogue as epi
-    from neddf_tpu_torch.kernels import sdf_mlp as sk
-    from neddf_tpu_torch.ops import sdf_grad
     from neddf_tpu_torch.scripts.run_eval import evaluate
     from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
 
-    kernels = {"mlp_seg": mlp.mlp_seg, "mlp_seg_bwd": mlp.mlp_seg_bwd,
-               "sdf_mlp": sk.sdf_mlp, "sdf_mlp_bwd": sk.sdf_mlp_bwd}
-    plains = [mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, sdf_grad.sdf_trunk_with_grad,
-              sdf_grad.sdf_trunk_with_grad_vjp, dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain,
-              dm.dual_mlp_seg_bwd_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain]
+    if runs is None:
+        runs = {f: {"overrides": FAMILY_OVERRIDES[f], "train": needed,
+                    "eval": tuple(k for k in needed if not k.endswith("_bwd")),
+                    "route": FAMILY_ROUTES[f], "kind": f}
+                for f, needed in FAMILY_RUN_KERNELS.items()}
+    kernels, plains = path_counters()
+    t_run, t_eval = tags
     out = {}
-    for family, needed in FAMILY_RUN_KERNELS.items():
-        for fn in kernels.values():
-            fn.launches = 0
-        for fn in plains:
-            fn.calls = 0
-        reset_route_counts(dm)
+    for family, spec in runs.items():
+        needed = spec["train"]
+        reset_path_counts()
         torch.cuda.reset_peak_memory_stats()
         run_dir = OUT / f"train_{family}"
         start = time.perf_counter()
-        trainer = run_main_path(torch, run_dir, [*FAMILY_OVERRIDES[family],
+        trainer = run_main_path(torch, run_dir, [*spec["overrides"],
                                                  f"trainer.epoch_save_model={TRAIN_EPOCHS}"])
         wall = time.perf_counter() - start
         launches = {k: kernels[k].launches for k in needed}
         routes = route_counts(dm)
         plain_calls = sum(fn.calls for fn in plains)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[11] {family} run: {trainer.iteration} steps in {wall:.1f} s (load, hooks and "
+        log(f"[{t_run}] {family} run: {trainer.iteration} steps in {wall:.1f} s (load, hooks and "
             f"checkpoints included), peak device memory {peak_gib:.2f} GiB; launches "
             f"{launches}; routes {routes}; plain calls {plain_calls}")
         if min(launches.values()) < 1 or plain_calls:
             fail(f"the {family} run did not go through every kernel alone")
-        check_routes(f"the {family} run", routes, FAMILY_ROUTES[family])
-        expected = expected_folding(family, launches)
+        check_routes(f"the {family} run", routes, spec["route"])
+        net = trainer.neural_render.network_fine
+        dual_layers = ((len(net.layers_ddf), len(net.layers_col))
+                       if spec["kind"] == "neddf" else None)
+        expected = expected_folding(spec["kind"], launches, dual_layers, net.activation_type)
         got = {"passes": routes["passes"], "folded": routes["folded"]}
-        log(f"[11] {family} run: elementwise launches {routes['passes']} and products with an "
-            f"activation folded in {routes['folded']} (expected {expected}); no launch of "
+        log(f"[{t_run}] {family} run: elementwise launches {routes['passes']} and products with "
+            f"an activation folded in {routes['folded']} (expected {expected}); no launch of "
             f"{', '.join(REMOVED_PASSES)} (not in the library)")
         if got != expected:
             fail(f"the {family} run's elementwise launches {got}, expected {expected}")
@@ -2028,50 +2274,51 @@ def phase_family_runs(torch, card: str) -> dict:
                    for r in hist):
             fail(f"{family}: a non-finite loss")
         first, last = mean([r["psnr"] for r in hist[:50]]), mean([r["psnr"] for r in hist[-50:]])
-        log(f"[11] {family} train PSNR: first 50 steps {first:.3f} dB, last 50 {last:.3f} dB "
-            f"(gain bar {PSNR_GAIN_MIN} dB); loss {mean([r['loss'] for r in hist[:50]]):.5f} -> "
-            f"{mean([r['loss'] for r in hist[-50:]]):.5f}")
+        log(f"[{t_run}] {family} train PSNR: first 50 steps {first:.3f} dB, last 50 {last:.3f} "
+            f"dB (gain bar {PSNR_GAIN_MIN} dB); loss {mean([r['loss'] for r in hist[:50]]):.5f} "
+            f"-> {mean([r['loss'] for r in hist[-50:]]):.5f}")
         if not last - first >= PSNR_GAIN_MIN:
             fail(f"{family}: train PSNR did not rise")
         steady = [r["seconds"] for r in hist if 100 <= r["iteration"] < 200]
         ms_step = 1000.0 * mean(steady)
         rays_s = trainer.batch_size / mean(steady)
-        dtype = str(trainer.neural_render.network_fine.compute_dtype).replace("torch.", "") \
-            if hasattr(trainer.neural_render.network_fine, "compute_dtype") else "float32"
-        log(f"[11] {family}: {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, "
+        dtype = str(net.compute_dtype).replace("torch.", "") \
+            if hasattr(net, "compute_dtype") else "float32"
+        log(f"[{t_run}] {family}: {ms_step:.2f} ms/step, {rays_s:.0f} rays/s (steps 100-199, "
             f"{dtype}, {trainer.batch_size} rays) | card: {card}")
-        busy = profile_train(torch, trainer, card, f"profile_train_{family}.txt",
-                             f"{trainer.batch_size} rays, {dtype}", "11")["busy_share"]
-        del trainer
+        prof = profile_train(torch, trainer, card, f"profile_train_{family}.txt",
+                             f"{trainer.batch_size} rays, {dtype}", t_run)
+        del trainer, net
         torch.cuda.empty_cache()
 
         # phase 12: run_eval of the run dir, kernels then plain versions
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_path_counts()
         ev = evaluate(run_dir, TRAIN_EPOCHS, cameras=[0], downsampling=8)
-        eval_launches = {k: kernels[k].launches for k in needed if not k.endswith("_bwd")}
+        eval_launches = {k: kernels[k].launches for k in spec["eval"]}
         gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
         psnrs = {}
         for mode in ("kernels", "plain"):
             nets = [ev.neural_render.network_fine]
             if ev.neural_render.use_coarse_network:
                 nets.append(ev.neural_render.network_coarse)
-            for net in nets:
-                net.fused = "auto" if mode == "kernels" else "off"
+            for n in nets:
+                n.fused = "auto" if mode == "kernels" else "off"
             ev.generator.manual_seed(ev.seed)
             rgb = ev.render_test(run_dir / f"eval_{mode}", 0, 8)
             psnrs[mode] = peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
         gap = abs(psnrs["kernels"] - psnrs["plain"])
-        log(f"[12] {family} run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB through "
-            f"the kernels (launches {eval_launches}), {psnrs['plain']:.4f} dB through the plain "
-            f"versions, gap {gap:.4f} dB (bar {EVAL_PSNR_GAP_DB})")
+        log(f"[{t_eval}] {family} run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB "
+            f"through the kernels (launches {eval_launches}), {psnrs['plain']:.4f} dB through "
+            f"the plain versions, gap {gap:.4f} dB (bar {EVAL_PSNR_GAP_DB})")
         if min(eval_launches.values()) < 1 or not gap <= EVAL_PSNR_GAP_DB:
             fail(f"{family}: run_eval through the kernels and the plain versions disagree")
         del ev
         torch.cuda.empty_cache()
         out[family] = {"launches": launches, "routes": routes, "plain_calls": plain_calls,
                        "wall_s": wall,
-                       "ms_per_step": ms_step, "rays_per_s": rays_s, "busy_share": busy,
+                       "ms_per_step": ms_step, "rays_per_s": rays_s,
+                       "busy_share": prof["busy_share"],
+                       "device_ms_per_step": prof["device_ms_per_step"],
                        "peak_memory_gib": peak_gib, "psnr_first50": first, "psnr_last50": last,
                        "eval_psnr": psnrs, "eval_launches": eval_launches,
                        "loss_curve": [r["loss"] for r in hist],
@@ -2079,20 +2326,24 @@ def phase_family_runs(torch, card: str) -> dict:
     return out
 
 
+
 # phase 11b: configurations beside the shipped ones, on a small batch of
-# points (rays x samples): every field with LeakyReLU at fused="auto"
-# launches its kernels, forward and backward, and a width the kernels do
-# not take makes them raise on the card (no plain version runs there)
+# points (rays x samples): every field with LeakyReLU, and NeDDF at width
+# 128, at fused="auto" launches its kernels, forward and backward, and a
+# width the kernels do not take (over 512) makes them raise on the card
+# (no plain version runs there)
 OTHER_BATCH = (64, 32)
-OTHER_REFUSED = {"ddf_layer_width": 128}
+OTHER_TAKEN = {"ddf_layer_width": 128}
+OTHER_REFUSED = {"ddf_layer_width": 576}
 
 
 def phase_other_configs(torch, card: str) -> dict:
-    """Phase 11b: NeDDF, NeRF and NeuS with ``activation_type=LeakyReLU``
-    through their kernels at ``fused="auto"`` (every output and gradient
-    finite, each kernel of the field launched; the gaps to ``fused="off"``
-    printed, the kernels themselves are held to their plain versions in
-    phases 6 and 9), and NeDDF at ``OTHER_REFUSED``: NotImplementedError."""
+    """Phase 11b: NeDDF, NeRF and NeuS with ``activation_type=LeakyReLU``,
+    and NeDDF at ``OTHER_TAKEN``, through their kernels at ``fused="auto"``
+    (every output and gradient finite, each kernel of the field launched;
+    the gaps to ``fused="off"`` printed, the kernels themselves are held to
+    their plain versions in phases 6, 9 and 21), and NeDDF at
+    ``OTHER_REFUSED``: NotImplementedError."""
     from neddf_tpu_torch.fields.neddf import NeDDF
     from neddf_tpu_torch.fields.nerf import NeRF
     from neddf_tpu_torch.fields.neus import NeuS
@@ -2113,9 +2364,12 @@ def phase_other_configs(torch, card: str) -> dict:
                      NeRF: (mlp.mlp_seg, mlp.mlp_seg_bwd),
                      NeuS: (sk.sdf_mlp, sk.sdf_mlp_bwd, mlp.mlp_seg, mlp.mlp_seg_bwd)}
     out = {}
-    for field, kernels in field_kernels.items():
+    cases = [(field.__name__, field, {"activation_type": "LeakyReLU"}, kernels)
+             for field, kernels in field_kernels.items()]
+    cases.append((f"NeDDF {OTHER_TAKEN}", NeDDF, OTHER_TAKEN, field_kernels[NeDDF]))
+    for label, field, kwargs, kernels in cases:
         torch.manual_seed(0)
-        net = field(activation_type="LeakyReLU").to(dev)
+        net = field(**kwargs).to(dev)
         runs = {}
         for fused in ("auto", "off"):
             net.fused = fused
@@ -2133,11 +2387,11 @@ def phase_other_configs(torch, card: str) -> dict:
         finite = all(torch.isfinite(t).all().item() for t in [*ko.values(), *kg.values()])
         gaps = {"outputs": max(rel_err(torch, ko[k], po[k])[1] for k in ko),
                 "grads": max(rel_err(torch, kg[k], pg[k])[1] for k in kg)}
-        out[field.__name__] = {"launches": launched, "finite": finite, "rel_gap_to_off": gaps}
-        log(f"[11b] {field.__name__} LeakyReLU at fused='auto': launches {launched}, finite "
+        out[label] = {"launches": launched, "finite": finite, "rel_gap_to_off": gaps}
+        log(f"[11b] {label} {kwargs} at fused='auto': launches {launched}, finite "
             f"{finite}, largest relative gap to fused='off' {json.dumps(gaps)} | card: {card}")
         if not finite or min(launched.values()) < 1:
-            fail(f"phase 11b: {field.__name__} with LeakyReLU did not run through its kernels")
+            fail(f"phase 11b: {label} {kwargs} did not run through its kernels")
         del net, runs
     net = NeDDF(**OTHER_REFUSED).to(dev)
     try:
@@ -2150,6 +2404,475 @@ def phase_other_configs(torch, card: str) -> dict:
     del net
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------- phases 21-23
+# phase 21: each kernel against its plain version beside the shipped width
+# and activations, on the same inputs, at ragged rows: the (width,
+# activation) cases of GRID_CASES, each through every route (the K=3 trunk
+# forward with its stash, the epilogue forward, its top mode, the dual
+# backward from it, the K=1 colour trunk forward and backward, mlp_seg
+# with a post-skip layer and a 3-wide last layer, forward and backward,
+# and sdf_mlp in f32), bf16 and f32. Widths 96 and 200 and the odd 45 run
+# on a padded class; the density takes another activation in each case.
+GRID_M = 33_287
+GRID_CASES = ([(w, a) for w in (64, 96, 128, 200, 512) for a in ("Softplus", "Sigmoid", "tanhExp")]
+              + [(w, a) for w in (96, 200, 512) for a in ("ReLU", "LeakyReLU")]
+              + [(256, "Softplus"), (256, "Sigmoid"), (45, "Sigmoid")])
+GRID_DENSITY = {"Softplus": "LeakyReLU", "Sigmoid": "Softplus", "tanhExp": "Sigmoid",
+                "ReLU": "ReLU", "LeakyReLU": "Softplus"}
+# phases 6/9's bars: f32 1e-4 (mlp_seg 1e-5), bf16 2^-5
+GRID_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+GRID_TRUNK_LAYOUT = tuple(li == 5 for li in range(7))  # NeDDF's trunk: [embed, h] at layer 5
+GRID_MLP_LAYOUT = (False, False, True, False, False)  # [h, seg0] at layer 2
+GRID_SDF_LAYOUT = tuple(li == 5 for li in range(8))
+# Under ReLU and LeakyReLU (f' a step at 0) a pre-activation within a
+# rounding of 0 may take the other side of the kink in the kernel than in
+# the plain pass (two f32 summation orders), and the tangent planes and
+# NeuS's gE carry the step: the forwards are then held as phase 6 holds
+# them, each layer against the plain layer over the kernel's own stash of
+# the layer below, gE against the plain sweep over the kernel's stash, and
+# a direct disagreement over the bar must sit in a row where such a flip
+# happened (logged: the layer, |z| of the plain pass there, the error)
+
+
+def grid_geo(width: int) -> dict:
+    """Phase 21's networks at one width: the K=3 trunk (layout, embedding
+    width), the K=1 colour trunk (segment widths, layers), mlp_seg
+    (segments, fan-ins, outputs, layout), sdf_mlp (layout, embedding)."""
+    return {"trunk": (GRID_TRUNK_LAYOUT, 60), "color": ((60, 24, 3, width), 3),
+            "mlp": ((60,), [60, width, width + 60, width, width], [width] * 4 + [3],
+                    GRID_MLP_LAYOUT),
+            "sdf": (GRID_SDF_LAYOUT, 39)}
+
+
+def path_geo(path: str, width: int) -> dict:
+    """The networks of WIDE_OVERRIDES' configurations as the fields build
+    them: NeDDF (fields/neddf.py: an 8-layer trunk with [embed, h] at layer
+    5 on the 60-wide PE, 4 colour layers on [PE, PE(dir), normal,
+    features], the eval colour by mlp_seg over them) and NeuS
+    (fields/neus.py: an 8-layer sdf trunk with [h, e] at layer 5 on the
+    36-wide PE, 9 colour layers on [pos, PE(dir), gradient, features], the
+    last 3 wide)."""
+    if path == "neddf_wide":
+        segs = (60, 24, 3, width)
+        return {"trunk": (tuple(li == 5 for li in range(8)), 60), "color": (segs, 4),
+                "mlp": (segs, [sum(segs)] + [width] * 3, [width] * 4, (False,) * 4)}
+    segs = (3, 24, 3, width)
+    return {"mlp": (segs, [sum(segs)] + [width] * 8, [width] * 8 + [3], (False,) * 9),
+            "sdf": (tuple(li == 5 for li in range(8)), 36)}
+
+
+def dual_replay(torch, vs, js, ws, bs, lay, act, hj, k, pres):
+    """Each layer of a dual MLP in f32 over the kernel's own stash of the
+    layer below (its input), rounded as the kernel stores it: [v, j, z_0,
+    ...] to hold the kernel's outputs and stash against where f' has a
+    kink."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    f, df, _ = dm.ACTIVATION_TRIPLES[act]
+    dtype = vs[0].dtype
+    x0 = torch.cat([dm._stack(v, j, k) for v, j in zip(vs, dm._seg_js(js, hj))],
+                   dim=-1).float()
+    zs = []
+    for li, (wl, bl) in enumerate(zip(ws, bs)):
+        h = x0 if li == 0 else dm._dual_act(pres[li - 1].float(), f, df).to(dtype).float()
+        if li > 0 and lay[li]:
+            h = torch.cat([x0[..., : vs[0].shape[1]], h], dim=-1)
+        z = h @ wl.float()
+        z[0] += bl
+        zs.append(z.to(dtype))
+    out = dm._dual_act(pres[-1].float(), f, df).to(dtype)
+    return [out[0], out[1:]] + zs
+
+
+def sdf_replay(torch, e, ws, bs, lay, act, zs):
+    """sdf_mlp's trunk layer by layer over the kernel's own stash zs, and
+    gE by the plain sweep over it: [h, gE, z_0, ...]."""
+    from neddf_tpu_torch.ops import sdf_grad
+    from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
+
+    f = ACTIVATION_TRIPLES[act][0]
+    out = []
+    for li, (wl, bl) in enumerate(zip(ws, bs)):
+        h = e if li == 0 else f(zs[li - 1])
+        if li > 0 and lay[li]:
+            h = torch.cat([h, e], dim=-1)
+        out.append(h @ wl + bl)
+    return [f(zs[-1]), sdf_grad.channel0_sweep(ws, lay, act, zs, e.shape[1])] + out
+
+
+def kink_flips(torch, got, ref, zk, zp) -> dict:
+    """Where the largest |got - ref| of a forward output sits, and in that
+    row (the value rows of the stashes zk, zp: the kernel's and the plain
+    pass's) the first layer whose pre-activation lies on the other side
+    of 0, with |z| of the plain pass there; and the flips per layer."""
+    d = (got.float() - ref.float()).abs()
+    idx = int(d.argmax())
+    where = list(torch.unravel_index(torch.tensor(idx), d.shape))
+    row = int(where[-2])
+    value = [z[0] if z.dim() == 3 else z for z in zk], [z[0] if z.dim() == 3 else z for z in zp]
+    out = {"err": float(d.max()), "at": [int(i) for i in where], "flips": [], "first_flip": None}
+    for li, (a, b) in enumerate(zip(*value)):
+        flip = (a.float() > 0) != (b.float() > 0)
+        out["flips"].append(int(flip.sum()))
+        in_row = flip[row].nonzero()
+        if out["first_flip"] is None and len(in_row):
+            c = int(in_row[0])
+            scale = float(b.float().abs().max())
+            out["first_flip"] = {"layer": li, "col": c, "z_plain": float(b[row, c]),
+                                 "z_kernel": float(a[row, c]),
+                                 "abs_z_plain_over_layer_max": abs(float(b[row, c])) / scale}
+    return out
+
+
+def grid_case(torch, dev, width: int, act: str, dtype, m: int, timed: bool, geo=None,
+              sections=("dual", "color", "mlp", "sdf"), dens=None, seed=None) -> dict:
+    """Phase 21 at one (width, activation, dtype, rows): every route of
+    ``sections`` against its plain version on the same inputs, over the
+    networks of ``geo`` (``grid_geo`` by default); {route: {max_abs_err,
+    rel}} (and ms, plain_ms where ``timed``). Fails on a disagreement, a
+    non-finite output, dW/db that differ over two runs, or a tangent-stash
+    read that is not as f'' says. The tests' cuda cases call it too."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import mlp
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+    from neddf_tpu_torch.ops.activations import SECOND_DERIVATIVE_ZERO
+
+    name = str(dtype).replace("torch.", "")
+    tol = GRID_TOL[name]
+    dens = dens or GRID_DENSITY[act]
+    geo = geo or grid_geo(width)
+    kink = act in SECOND_DERIVATIVE_ZERO
+    gen = torch.Generator(device=dev).manual_seed(
+        width * 7 + len(act) if seed is None else seed)
+    tag = f"width {width} {act} {name} M={m}"
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt).contiguous()
+
+    def layers(fans, outs, dt):
+        return ([rnd(f, o, scale=1.5 * f ** -0.5, dt=dt) for f, o in zip(fans, outs)],
+                [rnd(o, scale=0.1) for o in outs])
+
+    out = {}
+
+    def hold(route, got, ref, bar=tol, direct=None):
+        got, ref = list(got), list(ref)
+        worst_abs = worst = 0.0
+        for g, r in zip(got, ref):
+            if not torch.isfinite(g).all():
+                fail(f"[21] {route} {tag}: non-finite output")
+            err, rel = rel_err(torch, g, r)
+            worst_abs, worst = max(worst_abs, err), max(worst, rel)
+        if worst > bar:
+            fail(f"[21] {route} {tag}: rel err {worst:.3g} > {bar}")
+        out[route] = {"max_abs_err": worst_abs, "rel": worst}
+        if direct is not None:  # the kink: the kernel against the plain pass itself
+            got_d, ref_d, zk, zp = direct
+            rel_d = max(rel_err(torch, g, r)[1] for g, r in zip(got_d, ref_d))
+            flips = kink_flips(torch, got_d[-1], ref_d[-1], zk, zp)
+            out[route].update(direct_rel=rel_d, kink=flips)
+            if rel_d > bar and flips["first_flip"] is None:
+                fail(f"[21] {route} {tag}: rel err {rel_d:.3g} > {bar} against the plain pass "
+                     f"with no pre-activation across the kink in its worst row")
+            if rel_d > bar:
+                log(f"[21] {route} {tag}: {rel_d:.3g} against the plain pass, a kink flip: "
+                    f"{json.dumps(flips)}")
+
+    def timing(route, fk, fp):
+        # the epilogue's short launches ten back to back per reading: the
+        # device's time without the host's between launches (the profiler,
+        # after the smoke's earlier traces, missed some of their events)
+        if timed:
+            out[route]["ms"], out[route]["plain_ms"] = time_pair(
+                torch, fk, fp, reps=3, inner=10 if route in DEVICE_TIMED else 1)
+
+    if "dual" in sections:
+        # the K=3 trunk and the epilogue, forward; the top mode; the dual backward
+        lay, c0 = geo["trunk"]
+        n_l = len(lay)
+        fans = [c0] + [width + c0 if s else width for s in lay[1:]]
+        w, b = layers(fans, [width] * n_l, dtype)
+        v0, j0 = rnd(m, c0, dt=dtype), rnd(3, m, c0, scale=0.5, dt=dtype)
+        vk, jk, pk = dm.dual_mlp_trunk(v0, j0, w, b, lay, act, stash=True)
+        vp, jp, pp = dm.dual_mlp_seg_plain([v0], [j0], w, b, lay, act, (True,), 3, stash=True)
+        if kink:
+            hold("dual_mlp_trunk", [vk, jk, *pk],
+                 dual_replay(torch, [v0], [j0], w, b, lay, act, (True,), 3, pk),
+                 direct=([vk, jk], [vp, jp], pk, pp))
+        else:
+            hold("dual_mlp_trunk", [vk, jk, *pk], [vp, jp, *pp])
+        timing("dual_mlp_trunk", lambda: dm.dual_mlp_trunk(v0, j0, w, b, lay, act, stash=True),
+               lambda: dm.dual_mlp_seg_plain([v0], [j0], w, b, lay, act, (True,), 3,
+                                             stash=True))
+        del vk, jk, pk
+        wd, wa = rnd(width, scale=2.0 * width ** -0.5), rnd(width, scale=2.0 * width ** -0.5)
+        b2 = torch.tensor([0.3, -0.2], device=dev)
+        scal = torch.tensor([0.001, 0.8, 1.5, 0.5, 1.0, 1.0, 1.0, 0.0], device=dev)
+        head = (vp, jp, wd, wa, b2, scal)
+        hold("neddf_epilogue", epi.neddf_epilogue(*head, dens),
+             epi.neddf_epilogue_plain(*head, dens))
+        timing("neddf_epilogue", lambda: epi.neddf_epilogue(*head, dens),
+               lambda: epi.neddf_epilogue_plain(*head, dens))
+        g_out = rnd(10, m)
+        g_t, g_col = rnd(m, width, scale=0.1, dt=dtype), rnd(m, width, scale=0.1, dt=dtype)
+        top_args = (*head, g_out, g_t, g_col, pp[-1], act, dens)
+        top_k = epi.neddf_epilogue_gstack(*top_args)
+        top_p = epi.neddf_epilogue_gstack_plain(*top_args)
+        hold("neddf_epilogue_gstack", top_k, top_p)
+        timing("neddf_epilogue_gstack", lambda: epi.neddf_epilogue_gstack(*top_args),
+               lambda: epi.neddf_epilogue_gstack_plain(*top_args))
+        nan_z = pp[-1].clone()
+        nan_z[1:] = float("nan")
+        read = not all(torch.isfinite(t).all().item() for t in epi.neddf_epilogue_gstack(
+            *head, g_out, g_t, g_col, nan_z, act, dens))
+        if read != (not kink):
+            fail(f"[21] neddf_epilogue_gstack {act}: the tangent stash read {read}")
+        out["tangent_stash_read"] = read
+        bwd_args = ([v0], [j0], w, lay, act, (True,), pp, None, None)
+        top = (top_p[0], top_p[4])
+        bk = dm.dual_mlp_seg_bwd(*bwd_args, top=top)
+        bp = dm.dual_mlp_seg_bwd_plain(*bwd_args, top=top)
+        flat = lambda r: [*r[0], *r[1], *r[2], *r[3]]  # noqa: E731
+        hold("dual_mlp_seg_bwd", flat(bk), flat(bp))
+        if not all(torch.equal(x, y) for x, y in zip(flat(bk)[2:], flat(
+                dm.dual_mlp_seg_bwd(*bwd_args, top=top))[2:])):
+            fail(f"[21] dual_mlp_seg_bwd {tag}: dW/db not bitwise repeatable")
+        timing("dual_mlp_seg_bwd", lambda: dm.dual_mlp_seg_bwd(*bwd_args, top=top),
+               lambda: dm.dual_mlp_seg_bwd_plain(*bwd_args, top=top))
+        del bk, bp, pp, top_k, top_p, nan_z, head, top_args, bwd_args, top, v0, j0
+
+    if "color" in sections:
+        # the K=1 colour trunk: four segments (PE(pos) with its tangent,
+        # PE(dir), the normal, the trunk features with theirs)
+        widths, n_c = geo["color"]
+        has_j = (True, False, False, True)
+        cw, cb = layers([sum(widths)] + [width] * (n_c - 1), [width] * n_c, dtype)
+        vs = [rnd(m, s, dt=dtype) for s in widths]
+        js = [rnd(1, m, s, dt=dtype) for s, h in zip(widths, has_j) if h]
+        clay = (False,) * n_c
+        ck = dm.dual_mlp_seg(vs, js, cw, cb, clay, act, has_j, 1, stash=True)
+        cp = dm.dual_mlp_seg_plain(vs, js, cw, cb, clay, act, has_j, 1, stash=True)
+        if kink:
+            hold("dual_mlp_seg", [ck[0], ck[1], *ck[2]],
+                 dual_replay(torch, vs, js, cw, cb, clay, act, has_j, 1, ck[2]),
+                 direct=([ck[0], ck[1]], [cp[0], cp[1]], ck[2], cp[2]))
+        else:
+            hold("dual_mlp_seg", [ck[0], ck[1], *ck[2]], [cp[0], cp[1], *cp[2]])
+        timing("dual_mlp_seg", lambda: dm.dual_mlp_seg(vs, js, cw, cb, clay, act, has_j, 1,
+                                                       stash=True),
+               lambda: dm.dual_mlp_seg_plain(vs, js, cw, cb, clay, act, has_j, 1, stash=True))
+        gv, gj = rnd(m, width, scale=0.1, dt=dtype), rnd(1, m, width, scale=0.1, dt=dtype)
+        cargs = (vs, js, cw, clay, act, has_j, cp[2], gv, gj)
+        flat = lambda r: [*r[0], *r[1], *r[2], *r[3]]  # noqa: E731
+        hold("dual_mlp_seg_bwd_color", flat(dm.dual_mlp_seg_bwd(*cargs)),
+             flat(dm.dual_mlp_seg_bwd_plain(*cargs)))
+        timing("dual_mlp_seg_bwd_color", lambda: dm.dual_mlp_seg_bwd(*cargs),
+               lambda: dm.dual_mlp_seg_bwd_plain(*cargs))
+        del ck, cp, cargs, vs, js
+
+    if "mlp" in sections:
+        # mlp_seg: its segments, a post-skip layer where the layout has one
+        mwidths, mfans, mouts, mlay = geo["mlp"]
+        mw, mb = layers(mfans, mouts, dtype)
+        segs = [rnd(m, s, dt=dtype) for s in mwidths]
+        mk, mpk = mlp.mlp_seg(segs, mw, mb, mlay, act, stash=True)
+        mp, mpp = mlp.mlp_seg_plain(segs, mw, mb, mlay, act, stash=True)
+        mtol = 1e-5 if name == "float32" else tol
+        hold("mlp_seg", [mk, *mpk], [mp, *mpp], mtol)
+        timing("mlp_seg", lambda: mlp.mlp_seg(segs, mw, mb, mlay, act, stash=True),
+               lambda: mlp.mlp_seg_plain(segs, mw, mb, mlay, act, stash=True))
+        g3 = rnd(m, mouts[-1], dt=dtype)
+        margs = (segs, mw, mlay, act, mpp, g3)
+        mbk = mlp.mlp_seg_bwd(*margs)
+        hold("mlp_seg_bwd", [*mbk[0], *mbk[1], *mbk[2]],
+             [t for part in mlp.mlp_seg_bwd_plain(*margs) for t in part], tol)
+        again = mlp.mlp_seg_bwd(*margs)
+        if not all(torch.equal(x, y) for x, y in zip([*mbk[1], *mbk[2]],
+                                                     [*again[1], *again[2]])):
+            fail(f"[21] mlp_seg_bwd {tag}: dW/db not bitwise repeatable")
+        timing("mlp_seg_bwd", lambda: mlp.mlp_seg_bwd(*margs),
+               lambda: mlp.mlp_seg_bwd_plain(*margs))
+        del mk, mpk, mp, mpp, mbk, again, margs, segs
+
+    if "sdf" in sections and dtype == torch.float32:  # NeuS runs its trunk in f32
+        slay, e_dim = geo["sdf"]
+        sfans = [e_dim] + [width + e_dim if s else width for s in slay[1:]]
+        sw, sb = layers(sfans, [width] * len(sfans), torch.float32)
+        e = rnd(m, e_dim)
+        hk, gk, pk = sk.sdf_mlp(e, sw, sb, slay, act, stash=True)
+        hp, gp, ps = sdf_grad.sdf_trunk_with_grad(e, sw, sb, slay, act, stash=True)
+        if kink:
+            hold("sdf_mlp", [hk, gk, *pk], sdf_replay(torch, e, sw, sb, slay, act, pk),
+                 direct=([hk, gk], [hp, gp], pk, ps))
+        else:
+            hold("sdf_mlp", [hk, gk, *pk], [hp, gp, *ps])
+        timing("sdf_mlp", lambda: sk.sdf_mlp(e, sw, sb, slay, act, stash=True),
+               lambda: sdf_grad.sdf_trunk_with_grad(e, sw, sb, slay, act, stash=True))
+        ch, cg = rnd(m, width, scale=0.1), rnd(m, e_dim, scale=0.1)
+        sargs = (e, sw, slay, act, ps, ch, cg)
+        sbk = sk.sdf_mlp_bwd(*sargs)
+        de, dws, dbs = sdf_grad.sdf_trunk_with_grad_vjp(*sargs)
+        hold("sdf_mlp_bwd", [sbk[0], *sbk[1], *sbk[2]], [de, *dws, *dbs])
+        again = sk.sdf_mlp_bwd(*sargs)
+        if not all(torch.equal(x, y) for x, y in zip([*sbk[1], *sbk[2]],
+                                                     [*again[1], *again[2]])):
+            fail(f"[21] sdf_mlp_bwd {tag}: dW/db not bitwise repeatable")
+        timing("sdf_mlp_bwd", lambda: sk.sdf_mlp_bwd(*sargs),
+               lambda: sdf_grad.sdf_trunk_with_grad_vjp(*sargs))
+        del hk, gk, pk, hp, gp, ps, sbk, again, sargs
+    return out
+
+
+def grid_bounds(width: int, m: int, dtype_name: str, geo=None) -> dict:
+    """Bounds of phase 21's routes at (width, m, operand type) over the
+    networks of ``geo``: the products on the tensor cores (bf16, or f32 by
+    the 3xTF32 split) or the bytes; sdf_mlp's in f32 (NeuS runs its trunk
+    in f32)."""
+    geo = geo or grid_geo(width)
+    t = 2 if dtype_name == "bfloat16" else 4
+    peak = "bfloat16" if dtype_name == "bfloat16" else "tf32x3"
+    out = {}
+    if "trunk" in geo:
+        lay, c0 = geo["trunk"]
+        fans = [c0] + [width + c0 if s else width for s in lay[1:]]
+        outs = [width] * len(lay)
+        out["dual_mlp_trunk"] = bound(*mlp_work(m, fans, outs, dtype_name, c0, streams=4,
+                                                stash=True), peak)
+        out["dual_mlp_seg_bwd"] = bound(*mlp_bwd_work(m, fans, outs, dtype_name, c0,
+                                                      streams=4), peak)
+        out["neddf_epilogue"] = bound(2.0 * 8 * width * m,
+                                      m * (4 * width * t + 10 * 4 + width * t), peak)
+        out["neddf_epilogue_gstack"] = bound((4.0 * 8 + 16.0) * width * m,
+                                             m * ((4 + 2 + 4 + 4) * width * t + 4 * 4), peak)
+    if "color" in geo:
+        # the K=1 colour trunk: layer 0's tangent stream reads only the segments with tangents
+        widths, n_c = geo["color"]
+        cfans, couts = [sum(widths)] + [width] * (n_c - 1), [width] * n_c
+        f, b = mlp_work(m, cfans, couts, dtype_name, sum(widths), streams=2, stash=True)
+        out["dual_mlp_seg"] = bound(f - 2.0 * m * (widths[1] + widths[2]) * width, b, peak)
+        out["dual_mlp_seg_bwd_color"] = bound(*mlp_bwd_work(m, cfans, couts, dtype_name,
+                                                            sum(widths), streams=2), peak)
+    if "mlp" in geo:
+        mwidths, mfans, mouts, _ = geo["mlp"]
+        out["mlp_seg"] = bound(*mlp_work(m, mfans, mouts, dtype_name, sum(mwidths),
+                                         stash=True), peak)
+        out["mlp_seg_bwd"] = bound(*mlp_bwd_work(m, mfans, mouts, dtype_name, sum(mwidths)),
+                                   peak)
+    if "sdf" in geo:
+        slay, e_dim = geo["sdf"]
+        sfans = [e_dim] + [width + e_dim if s else width for s in slay[1:]]
+        # the trunk and the sweep (as many products again); the backward five times the trunk's
+        f, b = mlp_work(m, sfans, [width] * len(sfans), "float32", e_dim, stash=True)
+        out["sdf_mlp"] = bound(2.0 * f, b, "tf32x3")
+        f, b = mlp_bwd_work(m, sfans, [width] * len(sfans), "float32", e_dim)
+        out["sdf_mlp_bwd"] = bound(2.5 * f, b, "tf32x3")
+    return out
+
+
+# phase 21b: each path's kernels at the path's own networks and rows (the
+# passes of its train step, and path (a)'s eval colour at run_eval's chunk
+# of 1,024 rays), timed; the kernels line's path entries come from the
+# first (the larger) rows of each
+PATH_SHAPES = {
+    "neddf_wide": {"width": 512, "act": "Softplus", "density": "LeakyReLU",
+                   "dtype": "bfloat16",
+                   "runs": ((512 * 194, ("dual", "color")), (512 * 65, ("dual", "color")),
+                            (1024 * 194, ("mlp",)))},
+    "neus_narrow": {"width": 128, "act": "Softplus", "dtype": "float32",
+                    "runs": ((1024 * (65 + 194), ("mlp", "sdf")), (1024 * 65, ("mlp", "sdf")))},
+}
+
+
+def phase_widths_acts(torch, card: str) -> dict:
+    """Phase 21: every kernel against its plain version over GRID_CASES, f32
+    and bf16 (sdf_mlp f32 only), at GRID_M ragged rows; then (21b) each of
+    PATH_SHAPES' paths at its own networks and rows, timed beside the
+    bounds."""
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    out = {}
+    for width, act in GRID_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            r = grid_case(torch, dev, width, act, dtype, GRID_M, False)
+            out[f"{width}/{act}/{name}"] = r
+            worst = max(v["rel"] for v in r.values() if isinstance(v, dict))
+            log(f"[21] width {width} {act} (density {GRID_DENSITY[act]}) {name}: every route "
+                f"within its bar, worst rel {worst:.3g}; tangent stash read "
+                f"{r['tangent_stash_read']}")
+            torch.cuda.empty_cache()
+    out["paths"] = {}
+    for path, spec in PATH_SHAPES.items():
+        width, act = spec["width"], spec["act"]
+        geo = path_geo(path, width)
+        dtype = getattr(torch, spec["dtype"])
+        for m, sections in spec["runs"]:
+            r = grid_case(torch, dev, width, act, dtype, m, True, geo, sections,
+                          spec.get("density", "ReLU"), seed=m)
+            bounds = grid_bounds(width, m, spec["dtype"], geo)
+            for route, v in r.items():
+                if isinstance(v, dict) and route in bounds:
+                    v.update(bounds[route])
+            out["paths"][f"{path}/{m}"] = r
+            log(f"[21b] {path} at its own shapes, M={m} ({spec['dtype']}): " + json.dumps(
+                {k: [round(v["rel"], 6), round(v["ms"], 4), round(v["plain_ms"], 4),
+                     round(v["bound_ms"], 4)] for k, v in r.items()
+                 if isinstance(v, dict) and "ms" in v})
+                + f" (rel, ms, plain ms, bound ms) | card: {card}")
+            torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[21] {len(GRID_CASES)} (width, activation) cases x f32 and bf16 through every "
+        f"route and the paths' shapes in {out['wall_s']:.1f} s")
+    return out
+
+
+# phase 22: the full-width f32 step of WIDE_OVERRIDES' configurations against
+# the JAX package (WIDE_STEP), as phase 10 (phase_family_step)
+def phase_wide_step(torch, card: str) -> dict:
+    return phase_family_step(torch, card, WIDE_OVERRIDES, WIDE_STEP, WIDE_BATCH, "22")
+
+
+# phase 23: their 300-step runs through scripts/run.py and run_eval of
+# their run dirs, as phases 11 and 12 (phase_family_runs)
+WIDE_RUNS = {
+    "neddf_wide": {"train": ("dual_mlp_trunk", "dual_mlp_seg", "dual_mlp_seg_bwd",
+                             "neddf_epilogue", "neddf_epilogue_gstack"),
+                   "eval": ("dual_mlp_trunk", "mlp_seg"), "route": "tc", "kind": "neddf",
+                   "tag": "(a)"},
+    "neus_narrow": {"train": ("sdf_mlp", "sdf_mlp_bwd", "mlp_seg", "mlp_seg_bwd"),
+                    "eval": ("sdf_mlp", "mlp_seg"), "route": "tf32x3", "kind": "neus",
+                    "tag": "(b)"},
+}
+
+
+def phase_wide_runs(torch, card: str) -> dict:
+    return phase_family_runs(torch, card, {
+        name: {**spec, "overrides": WIDE_OVERRIDES[name]} for name, spec in WIDE_RUNS.items()},
+        ("23", "23b"))
+
+
+# the kernels line's "source" and "replaces" of each wrapper's kernel: the
+# file that compiles its body, and the Pallas call it takes the place of
+KERNEL_SOURCES = {
+    "dual_mlp_trunk": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/dual_mlp.py:635"),
+    "dual_mlp_seg": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/dual_mlp.py:635"),
+    "dual_mlp_seg_bwd": ("neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+                         "neddf_tpu/kernels/dual_mlp.py:935"),
+    "neddf_epilogue": ("neddf_tpu_torch/csrc/neddf_epilogue.cu",
+                       "neddf_tpu/kernels/neddf_epilogue.py:329"),
+    "neddf_epilogue_bwd": ("neddf_tpu_torch/csrc/neddf_epilogue.cu",
+                           "neddf_tpu/kernels/neddf_epilogue.py:365"),
+    "neddf_epilogue_gstack": ("neddf_tpu_torch/csrc/neddf_epilogue.cu",
+                              "neddf_tpu/kernels/neddf_epilogue.py:365"),
+    "mlp_seg": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/mlp.py:192"),
+    "mlp_seg_bwd": ("neddf_tpu_torch/csrc/mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:248"),
+    "sdf_mlp": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/sdf_mlp.py:257"),
+    "sdf_mlp_bwd": ("neddf_tpu_torch/csrc/sdf_mlp.cu", "neddf_tpu/kernels/sdf_mlp.py:304"),
+}
 
 
 # ---------------------------------------------------------- phases 14-17
@@ -3973,6 +4696,13 @@ def main() -> int:
     family_runs = phase_family_runs(torch, card)
     other_configs = phase_other_configs(torch, card)
 
+    # ---- phases 21-23: every width up to 512, Softplus and Sigmoid, the
+    # density activation: the kernels against their plain versions, then
+    # paths (a) (NeDDF wide and smooth) and (b) (NeuS narrow)
+    widths_acts = phase_widths_acts(torch, card)
+    wide_steps = phase_wide_step(torch, card)
+    wide_runs = phase_wide_runs(torch, card)
+
     # ---- phases 14-17: resume, the camera path, grad_accum, the rest.
     # Run B of phase 14 and the --watchdog run start first: they decode
     # their dataset while phases 15a-b run here
@@ -4026,8 +4756,9 @@ def main() -> int:
         # with its stash, its backward, the epilogue): library_ms is null
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
-    def entry(name, source, replaces, launch_key, route):
+    def entry(name, launch_key, route):
         r = train_kernels[route][key]
+        source, replaces = KERNEL_SOURCES[launch_key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][launch_key], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_keys(bounds[route]),
@@ -4035,8 +4766,9 @@ def main() -> int:
                 "launches_llff": llff_launches(llff, launch_key, "neddf"),
                 "launches_dp": dp_launches(launch_key)}
 
-    def family_entry(name, source, replaces, family, route, fkey):
+    def family_entry(name, family, route, fkey):
         r = family_kernels[route][fkey]
+        source, replaces = KERNEL_SOURCES[route]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": family_runs[family]["launches"][route],
                 "max_abs_err": max(v["max_abs_err"] for k, v in family_kernels[route].items()
@@ -4048,8 +4780,7 @@ def main() -> int:
                 "launches_dp": {}}
 
     bwd = entry("dual_mlp_seg_bwd (trunk K=3; gstack and the layer input folded into the "
-                "products over a stream-grouped row tile)", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
-                "neddf_tpu/kernels/dual_mlp.py:935", "dual_mlp_seg_bwd",
+                "products over a stream-grouped row tile)", "dual_mlp_seg_bwd",
                 "dual_mlp_seg_bwd_trunk")
     bwd["max_abs_err"] = max(bwd["max_abs_err"],
                              train_kernels["dual_mlp_seg_bwd_color"][key]["max_abs_err"])
@@ -4057,11 +4788,9 @@ def main() -> int:
     neus_key = f"neus_color/{M_NEUS}/float32"
     sdf_key = f"ReLU/{M_NEUS}/float32"
     kernels = [
-        entry("dual_mlp_trunk (K=3, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
-              "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_trunk", "dual_mlp_trunk_stash"),
+        entry("dual_mlp_trunk (K=3, stash)", "dual_mlp_trunk", "dual_mlp_trunk_stash"),
         {"name": "mlp_seg (NeDDF eval colour)", "route": "cuda",
-         "source": "neddf_tpu_torch/csrc/mlp_fwd.cu",
-         "replaces": "neddf_tpu/kernels/mlp.py:192",
+         "source": KERNEL_SOURCES["mlp_seg"][0], "replaces": KERNEL_SOURCES["mlp_seg"][1],
          "launches": train["launches"]["mlp_seg"],
          "max_abs_err": bf16["col_max_abs_err"],
          "ms": bf16["col_ms"], "plain_ms": bf16["col_plain_ms"],
@@ -4069,33 +4798,21 @@ def main() -> int:
          "launches_geometry": geometry_launches(geometry, "mlp_seg", "neddf"),
          "launches_llff": llff_launches(llff, "mlp_seg", "neddf"),
          "launches_dp": dp_launches("mlp_seg")},
-        entry("dual_mlp_seg (colour K=1, stash)", "neddf_tpu_torch/csrc/dual_mlp_fwd.cu",
-              "neddf_tpu/kernels/dual_mlp.py:635", "dual_mlp_seg", "dual_mlp_color_k1"),
+        entry("dual_mlp_seg (colour K=1, stash)", "dual_mlp_seg", "dual_mlp_color_k1"),
         bwd,
-        entry("neddf_epilogue", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
-              "neddf_tpu/kernels/neddf_epilogue.py:329", "neddf_epilogue", "neddf_epilogue"),
+        entry("neddf_epilogue", "neddf_epilogue", "neddf_epilogue"),
         entry("neddf_epilogue_bwd (standalone mode: dv, dj; off the main path)",
-              "neddf_tpu_torch/csrc/neddf_epilogue.cu",
-              "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_bwd",
-              "neddf_epilogue_bwd"),
+              "neddf_epilogue_bwd", "neddf_epilogue_bwd"),
         entry("neddf_epilogue_gstack (top mode: the epilogue's VJP with the K=3 trunk's "
-              "top-layer stacked cotangent)", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
-              "neddf_tpu/kernels/neddf_epilogue.py:365", "neddf_epilogue_gstack",
-              "neddf_epilogue_gstack"),
-        family_entry("mlp_seg (NeRF trunk, [h, seg0], ReLU, stash)",
-                     "neddf_tpu_torch/csrc/mlp_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
-                     "nerf", "mlp_seg", nerf_key),
-        family_entry("mlp_seg_bwd (NeRF trunk)", "neddf_tpu_torch/csrc/mlp_bwd.cu",
-                     "neddf_tpu/kernels/mlp.py:248", "nerf", "mlp_seg_bwd", nerf_key),
-        family_entry("mlp_seg (NeuS colour, 3-wide last layer, stash)",
-                     "neddf_tpu_torch/csrc/mlp_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
-                     "neus", "mlp_seg", neus_key),
-        family_entry("mlp_seg_bwd (NeuS colour)", "neddf_tpu_torch/csrc/mlp_bwd.cu",
-                     "neddf_tpu/kernels/mlp.py:248", "neus", "mlp_seg_bwd", neus_key),
-        family_entry("sdf_mlp (NeuS trunk + channel-0 sweep)", "neddf_tpu_torch/csrc/sdf_mlp.cu",
-                     "neddf_tpu/kernels/sdf_mlp.py:257", "neus", "sdf_mlp", sdf_key),
-        family_entry("sdf_mlp_bwd", "neddf_tpu_torch/csrc/sdf_mlp.cu",
-                     "neddf_tpu/kernels/sdf_mlp.py:304", "neus", "sdf_mlp_bwd", sdf_key),
+              "top-layer stacked cotangent)", "neddf_epilogue_gstack", "neddf_epilogue_gstack"),
+        family_entry("mlp_seg (NeRF trunk, [h, seg0], ReLU, stash)", "nerf", "mlp_seg",
+                     nerf_key),
+        family_entry("mlp_seg_bwd (NeRF trunk)", "nerf", "mlp_seg_bwd", nerf_key),
+        family_entry("mlp_seg (NeuS colour, 3-wide last layer, stash)", "neus", "mlp_seg",
+                     neus_key),
+        family_entry("mlp_seg_bwd (NeuS colour)", "neus", "mlp_seg_bwd", neus_key),
+        family_entry("sdf_mlp (NeuS trunk + channel-0 sweep)", "neus", "sdf_mlp", sdf_key),
+        family_entry("sdf_mlp_bwd", "neus", "sdf_mlp_bwd", sdf_key),
     ]
     # the products of the backwards alone (the products inside the Pallas
     # _bwd_kernel): bf16 at the fine trunk's dx, library_ms torch.matmul on
@@ -4134,6 +4851,33 @@ def main() -> int:
             if routes["passes"].get("db_sum")},
         "launches_dp": {"step_per_rank": dp_step["routes"]["passes"]["db_sum"],
                         "eval_per_rank": 0}})
+    # phases 21-23: the same kernels beside the shipped width and
+    # activations, as paths (a) (NeDDF at width 512, Softplus, a LeakyReLU
+    # density; bf16) and (b) (NeuS at width 128, Softplus; f32) launch them:
+    # ms, plain ms and bounds of phase 21b at each path's own networks and
+    # first rows (path (a)'s mlp_seg: its eval colour), the largest error
+    # over the path's rows, the launches of the paths' runs (mlp_seg of
+    # path (a): its run_eval)
+    for path, spec in WIDE_RUNS.items():
+        shape = PATH_SHAPES[path]
+        what = (f"path {spec['tag']}: width {shape['width']}, {shape['act']}"
+                + (f", {shape['density']} density" if "density" in shape else "")
+                + f", {shape['dtype']}")
+        run = wide_runs[path]
+        runs = {route: v for m, _ in shape["runs"][::-1]
+                for route, v in widths_acts["paths"][f"{path}/{m}"].items()
+                if isinstance(v, dict)}
+        for route in dict.fromkeys((*spec["train"], *spec["eval"])):
+            r = runs[route]
+            kernels.append({
+                "name": f"{route} ({what})", "route": "cuda",
+                "source": KERNEL_SOURCES[route][0], "replaces": KERNEL_SOURCES[route][1],
+                "launches": run["launches"].get(route, run["eval_launches"].get(route, 0)),
+                "max_abs_err": max(widths_acts["paths"][f"{path}/{m}"][route]["max_abs_err"]
+                                   for m, _ in shape["runs"]
+                                   if route in widths_acts["paths"][f"{path}/{m}"]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -4145,7 +4889,8 @@ def main() -> int:
         "family_steps": family_steps, "family_runs": family_runs,
         "other_configs": other_configs, "resume": resume, "camera": camera,
         "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
-        "data_parallel": dp,
+        "data_parallel": dp, "widths_acts": widths_acts, "wide_steps": wide_steps,
+        "wide_runs": wide_runs,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -86,6 +86,10 @@
 namespace {
 
 using neddf::grid_1d;
+using neddf::load_n;
+using neddf::store_n;
+using neddf::vec_load;
+using neddf::vec_store;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
@@ -247,6 +251,26 @@ __device__ __forceinline__ void tc_load_tile(T* s, const TcOperand<T>& op, int o
   }
 }
 
+// the stage at k0 of an A in two K segments that straddles k_split: columns
+// k < k_split from A, k_split <= k < ke from A2 (at k - k_split), zeros past
+// ke and past olim, by element loads (the segments' columns meet off any
+// vector boundary)
+template <typename T, int OUTER, int INNER, int P>
+__device__ __forceinline__ void tc_load_straddle(T* s, const TcOperand<T>& a,
+                                                 const TcOperand<T>& a2, int o0, int olim,
+                                                 int k0, int k_split, int ke, int tid) {
+#pragma unroll 1
+  for (int idx = tid; idx < OUTER * INNER; idx += kTcThreads) {
+    const int r = idx / INNER;
+    const int c = idx - r * INNER;
+    const int go = o0 + r, k = k0 + c;
+    T v = neddf::from_f32<T>(0.f);
+    if (go < olim && k < ke)
+      v = k < k_split ? a.p[(size_t)go * a.ld + k] : a2.p[(size_t)go * a2.ld + (k - k_split)];
+    s[r * P + c] = v;
+  }
+}
+
 template <int ACT>
 __device__ __forceinline__ float act_f(float x) {
   float f, df;
@@ -254,80 +278,13 @@ __device__ __forceinline__ float act_f(float x) {
   return f;
 }
 
-// V consecutive elements of shared memory as f32, and back rounded to T
-// as from_f32 rounds, by vector loads and stores of V * sizeof(T) bytes
-// (the copy's own width: 16-byte lanes keep shared memory free of bank
-// conflicts)
-template <int V>
-__device__ __forceinline__ void vec_load(const float* e, float (&x)[V]) {
-  if constexpr (V == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(e);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else if constexpr (V == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(e);
-    x[0] = v.x; x[1] = v.y;
-  } else {
-    x[0] = e[0];
-  }
-}
-template <int V>
-__device__ __forceinline__ void vec_store(float* e, const float (&x)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(e) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(e) = make_float2(x[0], x[1]);
-  } else {
-    e[0] = x[0];
-  }
-}
-template <int V>
-__device__ __forceinline__ void vec_load(const __nv_bfloat16* e, float (&x)[V]) {
-  if constexpr (V % 2 == 0) {
-    uint32_t w[V / 2];
-    if constexpr (V == 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(e);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else if constexpr (V == 4) {
-      const uint2 v = *reinterpret_cast<const uint2*>(e);
-      w[0] = v.x; w[1] = v.y;
-    } else {
-      w[0] = *reinterpret_cast<const uint32_t*>(e);
-    }
-#pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-      x[2 * k] = f.x;
-      x[2 * k + 1] = f.y;
-    }
-  } else {
-    x[0] = __bfloat162float(e[0]);
-  }
-}
-template <int V>
-__device__ __forceinline__ void vec_store(__nv_bfloat16* e, const float (&x)[V]) {
-  if constexpr (V % 2 == 0) {
-    uint32_t w[V / 2];
-#pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
-      w[k] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    if constexpr (V == 8) {
-      *reinterpret_cast<uint4*>(e) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else if constexpr (V == 4) {
-      *reinterpret_cast<uint2*>(e) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<uint32_t*>(e) = w[0];
-    }
-  } else {
-    e[0] = __float2bfloat16_rn(x[0]);
-  }
-}
-
 // f(x) in place over the elements of a tile that this thread copied with
 // tc_copy_tile<T, OUTER, INNER, P, V> (the same walk): after its own
-// cp.async group has landed they are visible to it, and zero-filled
-// elements stay 0 (f(0) = 0 for every activation), so no barrier is needed
+// cp.async group has landed they are visible to it, so no barrier is
+// needed. Zero-filled elements become f(0) (log 2 for Softplus, 1/2 for
+// Sigmoid): they lie past the reduction's end, where the other operand's
+// stage is zero-filled too, or past the output's rows, which are not
+// stored, so they add nothing
 template <typename T, int ACT, int OUTER, int INNER, int P, int V>
 __device__ __forceinline__ void tc_act_tile(T* s, int tid) {
   constexpr int CPR = INNER / V;
@@ -347,14 +304,17 @@ __device__ __forceinline__ void tc_act_tile(T* s, int tid) {
 // this thread copied with tc_copy_grouped (the same walk): the value row
 // z_v becomes f(z_v) and each tangent row z_a becomes f'(z_v) z_a, all
 // rounded to T as the plain version's input is; z_v is overwritten only
-// after f'(z_v) is in registers. Zero-filled points stay 0 (f(0) = 0).
+// after f'(z_v) is in registers. A zero-filled point's value row becomes
+// f(0) and its tangent rows 0; its G rows are zero-filled too.
 // f32 takes its 4-element copies in pairs (H): four f' of tanhExp live
-// beside the accumulators spilled 20 bytes of the f32 tn product
+// beside the accumulators spilled 20 bytes of the f32 tn product; under
+// Softplus (log1p and the logistic per element) one at a time, two
+// spilled 20 bytes
 template <typename T, int ACT, int OUTER, int INNER, int P, int V, int SL>
 __device__ __forceinline__ void tc_dual_tile(T* s, int tid) {
   constexpr int CPR = INNER / V;
   constexpr int R = OUTER >> SL;
-  constexpr int H = sizeof(T) == 4 && V > 2 ? 2 : V;
+  constexpr int H = sizeof(T) == 4 && V > 2 ? (ACT == neddf::kSoftplus ? 1 : 2) : V;
 #pragma unroll 1
   for (int idx = tid; idx < R * CPR; idx += kTcThreads) {
     const int r = idx / CPR;
@@ -413,8 +373,8 @@ constexpr int kEpiDual = 4;  // nt, one split: the stacked cotangent (tc_epilogu
 // the epilogue's side planes; columns [0, n_act) take the activation's
 // epilogue, [n_act, N) leave raw (f32) to `raw` [M, N - n_act]. mode
 // kModeDact: v = acc f'(z) (+ side), out = T(v), out2 = acc (the raw
-// product), db: per-tile column sums of v; kModeAdjoint (tanhExp only: the
-// others have f'' = 0):
+// product), db: per-tile column sums of v; kModeAdjoint (tanhExp,
+// Softplus and Sigmoid: ReLU and LeakyReLU have f'' = 0):
 // out = acc f'(z), out2 = acc side f''(z), or with no side acc f''(z) in
 // column 0 and 0 elsewhere (the top of the sweep's adjoint)
 constexpr int kModeDact = 1;
@@ -431,37 +391,17 @@ struct TcEpi {
   int mode;
 };
 
-// 4 consecutive elements at a 4-element-aligned index, as f32
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 x;
-  x.x = *reinterpret_cast<const uint32_t*>(&lo);
-  x.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = x;
-}
-
 // the epilogue of a finished 128 x 128 tile (kEpiAct), once the kernel has
 // put its accumulators in shared memory (the free ring; a call of its own,
 // so that its registers do not add to the product's): each thread takes 4
-// columns of 16 rows in coalesced 16-byte pieces, reads the side planes
-// there, writes the outputs and sums its columns; the 8 warps' column sums
-// meet in shared memory and are added in warp order (one db partial per
-// tile and column, the same on every run)
-template <typename T, int ACT>
+// columns of 16 rows in coalesced 16-byte pieces (element by element where
+// n_act is not a multiple of 4, a group then straddling n_act), reads the
+// side planes there, writes the outputs and sums its columns; the 8 warps'
+// column sums meet in shared memory and are added in warp order (one db
+// partial per tile and column, the same on every run). FULL: n_act % 4
+// == 0 (the kernel picks the variant), every group all 4 columns or none,
+// by vectors as at the widths that are multiples of 4
+template <typename T, int ACT, bool FULL>
 __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
   // the fields in registers once (read through the reference after every
   // store, they would be loaded again: the stores might alias them)
@@ -483,7 +423,8 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
   float* red = reinterpret_cast<float*>(tc_smem) + kTcBM * kOP;  // [8 warps][kTcBN]
   const int c = (tid & 31) * 4;  // this thread's 4 columns of the tile
   const int gc = n0 + c;
-  const bool act = gc < n_act;  // n_act % 4 == 0: all 4 columns or none
+  const bool act = gc < n_act;  // the first of them is activated
+  const int n_in = FULL ? 4 : min(4, n_act - gc);  // activated columns of the group
   const int n_raw = N - n_act;
   float dsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
@@ -496,8 +437,8 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
       for (int j = 0; j < 4; ++j) zv[u][j] = sv[u][j] = 0.f;
       if (act && gr < M) {
         const size_t i = (size_t)gr * n_act + gc;
-        load4(zp + i, zv[u]);
-        if (side != nullptr) load4(side + i, sv[u]);
+        load_n<4>(zp + i, FULL, n_in, zv[u]);
+        if (side != nullptr) load_n<4>(side + i, FULL, n_in, sv[u]);
       }
     }
 #pragma unroll
@@ -511,6 +452,10 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
         float* p = raw + (size_t)gr * n_raw + (gc - n_act);
         for (int j = 0; j < 4 && gc + j < N; ++j) p[j] = av[j];
         continue;
+      }
+      if constexpr (!FULL) {  // a group straddling n_act: its columns past it raw
+        for (int j = n_in; j < 4 && gc + j < N; ++j)
+          raw[(size_t)gr * n_raw + (gc + j - n_act)] = av[j];
       }
       float v[4], w[4];
 #pragma unroll
@@ -531,8 +476,8 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
         }
       }
       const size_t i = (size_t)gr * n_act + gc;
-      if (out != nullptr) store4(out + i, v);
-      if (out2 != nullptr) store4(out2 + i, w);
+      if (out != nullptr) store_n<4>(out + i, FULL, n_in, v);
+      if (out2 != nullptr) store_n<4>(out2 + i, FULL, n_in, w);
     }
   }
   if (db == nullptr) return;
@@ -555,10 +500,12 @@ __device__ __noinline__ void tc_epilogue(int M, int N, const TcEpi<T>& epi) {
 //     G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a,   G_a = g_a f'(z_v),
 // rounded to T into out [S, M, N]. Each thread takes 4 columns of a point
 // per pass (kU points, their S stash rows loaded together; only z_v's
-// where f'' = 0), reads the point's S rows of g from the staged tile and
-// sums G_v over its points; the 8 warps' sums are added in warp order
-// (one db partial per tile and column, the same on every run)
-template <typename T, int ACT, int SL>
+// where f'' = 0; element by element where N is not a multiple of 4),
+// reads the point's S rows of g from the staged tile and sums G_v over
+// its points; the 8 warps' sums are added in warp order (one db partial
+// per tile and column, the same on every run). FULL: N % 4 == 0, as in
+// tc_epilogue
+template <typename T, int ACT, int SL, bool FULL>
 __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi) {
   const T* __restrict__ zp = epi.z;
   T* __restrict__ out = epi.out;
@@ -575,7 +522,8 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
   const float* so = reinterpret_cast<const float*>(tc_smem);
   float* red = reinterpret_cast<float*>(tc_smem) + kTcBM * kOP;  // [8 warps][kTcBN]
   const int c = (tid & 31) * 4;  // this thread's 4 columns of the tile
-  const int gc = n0 + c;         // N % 4 == 0: all 4 columns or none
+  const int gc = n0 + c;
+  const int n_in = FULL ? 4 : min(4, N - gc);
   float dsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
   for (int r0 = tid >> 5; r0 < P; r0 += kU * kWarps) {
@@ -589,7 +537,8 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
       for (int a = 0; a < kMaxStreams; ++a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) zv[u][a][j] = 0.f;
-        if (live && a < S && (a == 0 || kCouple)) load4(zp + a * plane + i, zv[u][a]);
+        if (live && a < S && (a == 0 || kCouple))
+          load_n<4>(zp + a * plane + i, FULL, n_in, zv[u][a]);
       }
     }
 #pragma unroll
@@ -615,7 +564,7 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
           if constexpr (kCouple) coupling[j] = fmaf(g[j], zv[u][a][j], coupling[j]);
           ga[j] = g[j] * d1[j];
         }
-        store4(out + a * plane + i, ga);
+        store_n<4>(out + a * plane + i, FULL, n_in, ga);
       }
       const float4 g4 = *reinterpret_cast<const float4*>(so + r * kOP + c);
       const float g[4] = {g4.x, g4.y, g4.z, g4.w};
@@ -625,7 +574,7 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
         v[j] = kCouple ? g[j] * d1[j] + d2[j] * coupling[j] : g[j] * d1[j];
         dsum[j] += v[j];
       }
-      store4(out + i, v);
+      store_n<4>(out + i, FULL, n_in, v);
     }
   }
   *reinterpret_cast<float4*>(red + (tid >> 5) * kTcBN + c) =
@@ -642,8 +591,8 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
 // [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
 // with K contiguous (else [K, N], N contiguous). With A_K, A may come in
-// two K segments: columns k >= k_split from A2 (k_split a multiple of the
-// stage depth), so [qbar | cg] W runs as one product. EPI kProAct (tn)
+// two K segments: columns k >= k_split from A2 (a stage that straddles
+// k_split by element loads), so [qbar | cg] W runs as one product. EPI kProAct (tn)
 // applies f (ACT) to A as its stages land; kEpiAct (one split) hands the
 // finished tile to the epilogue (TcEpi) instead of writing it. kProDual
 // (tn) and kEpiDual (nt) do the same for the dual backward over rows
@@ -695,8 +644,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     if constexpr (kTwoK) {
       if (k0 >= k_split) {
         tc_load_tile<T, kTcBM, BK, PK>(a, A2, m0, M, k0 - k_split, ke - k_split, tid);
-      } else {
+      } else if (k0 + BK <= k_split) {
         tc_load_tile<T, kTcBM, BK, PK>(a, A, m0, M, k0, min(ke, k_split), tid);
+      } else {
+        tc_load_straddle<T, kTcBM, BK, PK>(a, A, A2, m0, M, k0, k_split, ke, tid);
       }
     } else if constexpr (A_K) {
       tc_load_tile<T, kTcBM, BK, PK, SL>(a, A, m0, M, k0, ke, tid);
@@ -854,9 +805,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
               make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
     __syncthreads();
     if constexpr (kGroupM) {
-      tc_epilogue_dual<T, ACT, SL>(M, N, epi);
+      if ((N & 3) == 0) tc_epilogue_dual<T, ACT, SL, true>(M, N, epi);
+      else tc_epilogue_dual<T, ACT, SL, false>(M, N, epi);
     } else {
-      tc_epilogue<T, ACT>(M, N, epi);
+      if ((epi.n_act & 3) == 0) tc_epilogue<T, ACT, true>(M, N, epi);
+      else tc_epilogue<T, ACT, false>(M, N, epi);
     }
     return;
   }
@@ -964,7 +917,7 @@ cudaError_t gemm_tc(int layout, int act, int streams, int M, int N, int K, const
   if (misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b)) return cudaErrorInvalidValue;
   if (A2 != nullptr &&
       (layout == 1 || misaligned(A2, lda2, vec_a2) || k_split <= 0 || k_split >= K ||
-       k_split % BK != 0 || splits != 1))
+       splits != 1))
     return cudaErrorInvalidValue;
   if (A2 == nullptr) k_split = K;
   // S = streams = 2^sl planes [S, points, ld] of each grouped operand: the
@@ -988,7 +941,7 @@ cudaError_t gemm_tc(int layout, int act, int streams, int M, int N, int K, const
       return launch_dual<T, false, false, kProDual>(act, sl, grid, s, M, N, K, k_chunk, a, b, o,
                                                     epi);
     // the stacked cotangent: one split, all N columns, no mode or side planes
-    if (epi.mode != 0 || splits != 1 || epi.n_act != N || N % 4 || epi.z == nullptr ||
+    if (epi.mode != 0 || splits != 1 || epi.n_act != N || epi.z == nullptr ||
         epi.out == nullptr || epi.db == nullptr || epi.side != nullptr ||
         epi.out2 != nullptr || epi.raw != nullptr || !aligned(epi.z) || !aligned(epi.out))
       return cudaErrorInvalidValue;
@@ -1008,11 +961,11 @@ cudaError_t gemm_tc(int layout, int act, int streams, int M, int N, int K, const
   if (layout == 1)
     return launch_by_act<T, false, false, kProAct>(act, grid, s, M, N, K, k_chunk, a, a2,
                                                    k_split, b, o, epi);
-  // the epilogue sees the finished sum: one split, and whole 4-column
-  // groups of 16-byte-aligned side planes
+  // the epilogue sees the finished sum: one split, and 16-byte-aligned
+  // side planes
   const bool adjoint = epi.mode == kModeAdjoint;
-  if (splits != 1 || epi.z == nullptr || epi.n_act <= 0 || epi.n_act > N || epi.n_act % 4 ||
-      (epi.mode != kModeDact && !adjoint) || (adjoint && act != neddf::kTanhExp) ||
+  if (splits != 1 || epi.z == nullptr || epi.n_act <= 0 || epi.n_act > N ||
+      (epi.mode != kModeDact && !adjoint) || (adjoint && neddf::zero_deriv2(act)) ||
       (adjoint && epi.db != nullptr) || (epi.n_act < N) != (epi.raw != nullptr) ||
       !aligned(epi.z) || !aligned(epi.side) || !aligned(epi.out) || !aligned(epi.out2))
     return cudaErrorInvalidValue;
@@ -1063,6 +1016,47 @@ __global__ void sum_rows_kernel(int R, int C, int rows_per_group,
 
 }  // namespace
 
+// The products of one operand type (gemm_tc<T>, the arguments of
+// neddf_gemm_tc below without dtype): kernels/_build.py compiles this file
+// twice more, with -DNEDDF_GEMM_BF16 and with -DNEDDF_GEMM_F32, each object
+// holding one type's instantiations, so that they build beside the object
+// of the entry points (no define).
+extern "C" int neddf_gemm_tc_bf16(int layout, int act, int mode, int streams, int M, int N, int K,
+                                  const void* A, long long lda, int vec_a, const void* A2,
+                                  long long lda2, int vec_a2, int k_split, const void* B,
+                                  long long ldb, int vec_b, int splits, void* out,
+                                  const void* z, const void* side, int n_act, void* out_t,
+                                  void* out2, void* raw, void* db, void* stream);
+extern "C" int neddf_gemm_tc_f32(int layout, int act, int mode, int streams, int M, int N, int K,
+                                  const void* A, long long lda, int vec_a, const void* A2,
+                                  long long lda2, int vec_a2, int k_split, const void* B,
+                                  long long ldb, int vec_b, int splits, void* out,
+                                  const void* z, const void* side, int n_act, void* out_t,
+                                  void* out2, void* raw, void* db, void* stream);
+
+#if defined(NEDDF_GEMM_BF16) || defined(NEDDF_GEMM_F32)
+#ifdef NEDDF_GEMM_BF16
+using GemmT = bf16;
+#define NEDDF_GEMM_FN neddf_gemm_tc_bf16
+#else
+using GemmT = float;
+#define NEDDF_GEMM_FN neddf_gemm_tc_f32
+#endif
+extern "C" int NEDDF_GEMM_FN(int layout, int act, int mode, int streams, int M, int N, int K,
+                                  const void* A, long long lda, int vec_a, const void* A2,
+                                  long long lda2, int vec_a2, int k_split, const void* B,
+                                  long long ldb, int vec_b, int splits, void* out,
+                                  const void* z, const void* side, int n_act, void* out_t,
+                                  void* out2, void* raw, void* db, void* stream) {
+  const TcEpi<GemmT> e{static_cast<const GemmT*>(z), static_cast<const float*>(side),
+                       static_cast<GemmT*>(out_t), static_cast<float*>(out2),
+                       static_cast<float*>(raw), static_cast<float*>(db), n_act, mode};
+  return (int)gemm_tc<GemmT>(layout, act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2,
+                             k_split, B, ldb, vec_b, splits, out, e,
+                             static_cast<cudaStream_t>(stream));
+}
+#else
+
 // The top layer's stacked cotangent (gstack_kernel): gv [M, width], gj
 // [n_tan, M, width] and the stash z [n_tan + 1, M, width], all of dtype 1
 // bf16 or 0 f32, into gs (same shape and type as z) and the f32 db
@@ -1101,18 +1095,19 @@ extern "C" int neddf_dual_bwd_gstack(int dtype, int act, int n_tan, int width,
 // 4, 2 or 1 bf16; 4, 2 or 1 f32), which the row stride and the pointer
 // must allow. Any other layout, or a misaligned vector width, is refused.
 // act < 0: the product alone (mode, A2 and the epilogue's planes null).
-// act >= 0 (0 tanhExp, 1 ReLU, 2 LeakyReLU) folds the activation in.
+// act >= 0 (0 tanhExp, 1 ReLU, 2 LeakyReLU, 3 Softplus, 4 Sigmoid) folds
+// the activation in.
 // layout 1 (tn): the prologue, out = f(A) B as f32 partials (dW =
 // f(z_{l-1})^T G; f(A) rounded to the operand type, as the layer's input
 // was). layouts 0 (nt) and 2 (nn, f32 only), one split, out null: the
 // epilogue over columns [0, n_act) with the stash z [M, n_act] (operand
 // type) and the optional f32 side plane; mode 1: out_t = T(acc f'(z) +
 // side), out2 = acc, db = per-128-row-tile column sums of acc f'(z) + side
-// ([ceil(M / 128), n_act]); mode 2 (tanhExp): out_t = acc f'(z), out2 =
+// ([ceil(M / 128), n_act]); mode 2 (f'' != 0): out_t = acc f'(z), out2 =
 // acc side f''(z) (no side: column 0 only); columns [n_act, N) go raw to
 // `raw` [M, N - n_act]. Null outputs are not written. A2 (nt / nn): the
 // columns k >= k_split of A come from A2 [M, K - k_split] (row stride
-// lda2, copy width vec_a2), k_split a multiple of the stage depth.
+// lda2, copy width vec_a2).
 // streams 2 or 4 (S; 1 otherwise): the dual backward's two products, act
 // >= 0, over S planes [S, points, ld] of each grouped operand. tn (dW =
 // h_in^T G over K points, split chunks a multiple of BK / S points): A is
@@ -1131,21 +1126,9 @@ extern "C" int neddf_gemm_tc(int dtype, int layout, int act, int mode, int strea
       splits < 1 || splits > 65535 || (act < 0 || layout == 1) != (out != nullptr) ||
       (act < 0 && (A2 != nullptr || z != nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sd = static_cast<const float*>(side);
-  float* o2 = static_cast<float*>(out2);
-  float* rw = static_cast<float*>(raw);
-  float* d = static_cast<float*>(db);
-  if (dtype == 1) {
-    const TcEpi<bf16> e{static_cast<const bf16*>(z), sd, static_cast<bf16*>(out_t), o2, rw, d,
-                        n_act, mode};
-    return (int)gemm_tc<bf16>(layout, act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2,
-                              k_split, B, ldb, vec_b, splits, out, e, s);
-  }
-  const TcEpi<float> e{static_cast<const float*>(z), sd, static_cast<float*>(out_t), o2, rw, d,
-                       n_act, mode};
-  return (int)gemm_tc<float>(layout, act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2,
-                             k_split, B, ldb, vec_b, splits, out, e, s);
+  auto fn = dtype == 1 ? neddf_gemm_tc_bf16 : neddf_gemm_tc_f32;
+  return fn(layout, act, mode, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B,
+            ldb, vec_b, splits, out, z, side, n_act, out_t, out2, raw, db, stream);
 }
 
 // out [C] = the sum over the R rows of parts [R, C] in a fixed order: the
@@ -1176,3 +1159,5 @@ extern "C" int neddf_sum_splits(long long n, int splits, const void* parts,
       n, splits, static_cast<const float*>(parts), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
+
+#endif

@@ -4,7 +4,9 @@
 // (kernel body _fwd_kernel, public dual_mlp_seg) in its trunk
 // configuration: K=3 tangent planes, one input segment with tangents,
 // and a post-skip layer that consumes [seg0, h]; the activation is tanhExp
-// (the shipped NeDDF), ReLU or LeakyReLU (mlp_tile.cuh). The value v
+// (the shipped NeDDF), ReLU, LeakyReLU, Softplus or Sigmoid, and the
+// width any up to 512, on the width class's instantiation of the tile
+// body (mlp_tile.cuh, built per class by tile_fwd.cu). The value v
 // [M, C0] and planes j [K, M, C0] go through every layer inside one block
 // per row tile (mlp_tile.cuh); only the last layer's v [M, C] and
 // j [K, M, C] reach device memory.
@@ -53,18 +55,11 @@ extern "C" int neddf_dual_mlp_fwd(int dtype, int act, int n_tan, int width, int 
   }
   a.n_layers = n_layers;
   a.M = M;
+  a.width = width;
   a.v_out = v_out;
   a.j_out = j_out;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((n_tan != 3 && n_tan != 1) || width != 256) return (int)cudaErrorInvalidValue;
-  return (int)neddf::by_act(act, [&](auto a_) {
-    constexpr int ACT = decltype(a_)::value;
-    if (n_tan == 3)
-      return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 3, 256, ACT>(a, st)
-                        : neddf::launch_mlp_tile<float, 3, 256, ACT>(a, st);
-    return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 1, 256, ACT>(a, st)
-                      : neddf::launch_mlp_tile<float, 1, 256, ACT>(a, st);
-  });
+  if (n_tan != 3 && n_tan != 1) return (int)cudaErrorInvalidValue;
+  return neddf::tile_fwd(dtype, n_tan, act, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* neddf_cuda_error_string(int code) {

@@ -13,12 +13,15 @@
 //   order, mlp_tile.cuh's kSplitHiddenFirst);
 // * the NeuS colour trunk: segments pos, PE(dir), grad sdf, features
 //   (3/24/3/256), ReLU, 8 layers of 256 and a last layer of 3 columns,
-//   which the Python wrapper pads to 256 zero columns (exact: the padded
-//   columns never feed a real one) and slices off again;
+//   which the Python wrapper pads to the hidden width with zero columns
+//   (exact: the padded columns never feed a real one) and slices off
+//   again;
 // * the NeuS SDF trunk: one segment PE(pos) (36), ReLU, 8 layers, [h, e]
 //   after layer 4, always with its stash, which sdf_mlp.cu's sweep reads
 //   (kernels/sdf_mlp.py launches the two in turn).
 //
+// Every layer is `width` wide (any width up to 512, on the instantiation
+// of its width class, tile_fwd.cu) and any of the five activations.
 // Under a differentiated call (stash != null) every layer's
 // pre-activation [M, C] is written rounded to T for the backward
 // (mlp_bwd.cu), as the Pallas forward's stash variant does. Bound and
@@ -28,19 +31,13 @@
 
 using neddf::TileArgs;
 
-template <int ACT>
-static cudaError_t launch(int dtype, const TileArgs& a, cudaStream_t st) {
-  return dtype == 1 ? neddf::launch_mlp_tile<__nv_bfloat16, 0, 256, ACT>(a, st)
-                    : neddf::launch_mlp_tile<float, 0, 256, ACT>(a, st);
-}
-
 extern "C" int neddf_mlp_seg_fwd(int dtype, int act, int width, int M, int n_seg,
                                  const void* const* seg_v, const int* seg_w,
                                  int n_layers, const void* const* w,
                                  const void* const* b, const int* split,
                                  void* const* stash, void* out, void* stream) {
   if (n_seg < 1 || n_seg > neddf::kMaxSeg || n_layers < 1 ||
-      n_layers > neddf::kMaxLayers || width != 256)
+      n_layers > neddf::kMaxLayers || neddf::width_class(width) == 0)
     return (int)cudaErrorInvalidValue;
   TileArgs a = {};
   for (int s = 0; s < n_seg; ++s) {
@@ -59,9 +56,8 @@ extern "C" int neddf_mlp_seg_fwd(int dtype, int act, int width, int M, int n_seg
   }
   a.n_layers = n_layers;
   a.M = M;
+  a.width = width;
   a.v_out = out;
   a.j_out = nullptr;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)neddf::by_act(
-      act, [&](auto a_) { return launch<decltype(a_)::value>(dtype, a, st); });
+  return neddf::tile_fwd(dtype, 0, act, a, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,7 @@
 // VMEM across the layers:
 //
 // * the block stacks S = K+1 streams (the values and K tangent planes)
-//   as kRows = S*TM rows, stream-major: row st*TM + i is stream st of
+//   as S*TM rows (TileGeo), stream-major: row st*TM + i is stream st of
 //   sample i. K=3 is the NeDDF distance trunk (d/dxyz planes), K=1 the
 //   colour trunk's directional tangent (training), K=0 the value-only
 //   trunks (eval colour, NeRF, NeuS). A segment without tangents stages
@@ -25,25 +25,41 @@
 //   0 again from x0 and the hidden state from h, in either order:
 //   kSplitSegFirst ([seg0, h], NeDDF) or kSplitHiddenFirst ([h, seg0],
 //   NeRF/NeuS), each piece against its own rows of W.
-// * the hidden state h [kRows, C] lives in shared memory and is written
+// * the hidden state h [rows, C] lives in shared memory and is written
 //   back after each layer as f(z) on the value rows and f'(z_value) *
 //   z_tangent on the tangent rows, rounded to the storage type T; the
 //   activation is a template parameter: tanhExp (kTanhExp), ReLU (kReLU,
-//   with f'(0) = 0) or LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1), as
+//   with f'(0) = 0), LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1),
+//   Softplus (kSoftplus, linear above 20) or Sigmoid (kSigmoid), as
 //   neddf_tpu/kernels/dual_mlp.py::_act_fns defines them. Sums and
 //   activations are f32; the f32 bias is added to the value rows only.
 //
+// Widths. The body is instantiated for the width classes C = 64, 128,
+// 256 and 512; a layer width N (TileArgs::width) runs on the smallest
+// class C >= N (width_class). Weight rows are N wide in device memory and
+// are copied into shared memory with the columns past N zero-filled
+// (16-byte cp.async where N allows it, else 4 or 2 bytes at a time); the
+// bias past N reads as 0, so those columns of z are exactly 0 and of h
+// f(0), a finite value that the next layer multiplies by zero-filled
+// weight rows (its hidden piece is N rows). Outputs and the stash are
+// stored for the columns < N only (in pairs where N is even), so no padded
+// copy of a weight, an activation or an output exists in device memory.
+//
 // One body for both operand types, tile_forward_tc: each layer's product
-// [kRows x fan_in] x [fan_in x C] runs on the tensor cores with f32
-// accumulators in registers: 128 per thread, so the block has 8 warps
-// (256 threads, up to 255 registers each; 512 threads would leave 64
-// registers beside the accumulators, and spill). Each warp owns one sample
-// slice (16 samples, 32 for K=0) of EVERY stream and a band of columns, so
+// [rows x fan_in] x [fan_in x C] runs on the tensor cores with f32
+// accumulators in registers, the block of 8 warps (256 threads, up to 255
+// registers each; 512 threads would leave 64 registers beside 128
+// accumulators, and spill). The rows of a block follow the width class
+// (TileGeo): 32768 / C stacked rows, i.e. 128 accumulators per thread
+// (512 rows at C = 64, 64 at C = 512), but f32 below C = 256 keeps 128
+// rows (64 or 32 accumulators): 256 or 512 f32 rows of the colour
+// trunk's wide x0 do not fit in shared memory. Each warp owns one sample
+// slice of EVERY stream and a band of columns, so
 // the value and the tangents of one sample and column sit in the same
 // thread and the epilogue f'(z_v) * z_t needs no exchange. x0 is staged in
 // 16- or 8-byte loads where a segment's rows allow them. A operands come
 // from x0 / h by ldmatrix (rows padded to an odd multiple of 16 bytes: no
-// bank conflicts), B from a ring of 3 weight tiles filled by cp.async,
+// bank conflicts), B from a ring of 3 weight tiles (tile_stages) filled by cp.async,
 // walked as one schedule across pieces and layers, so the copy of the next
 // tiles (the next layer's too) overlaps the products. A fan-in that is not
 // a multiple of the mma depth (60, 343, 256+60, 39, 286) reads zero-padded
@@ -63,10 +79,11 @@
 //   elements is read as pairs of b16), B fragments by element loads (no
 //   32-bit ldmatrix .trans) from weight rows padded by 8 elements, so the
 //   lanes (k t, column g) fall on banks 8t + g. Shared memory doubles per
-//   element, so f32 weight tiles hold 16 rows, x0 is padded only to the
-//   mma depth of 8 (the loop stops at a piece's last mma) and h by 4
-//   elements: the largest f32 configuration, the K=1 colour trunk with
-//   its 343-wide x0, takes 229,728 of the 232,448 bytes a block may use.
+//   element, so f32 weight tiles hold 16 rows (in 2 ring stages at C =
+//   512, where 64 rows of h take 132 kB), x0 is padded only to the mma
+//   depth of 8 (the loop stops at a piece's last mma) and h by 4
+//   elements: at C = 256 the K=1 colour trunk with its 343-wide x0 takes
+//   229,728 of the 232,448 bytes a block may use.
 //
 // What bounds it on the H100: at C = 256 a stacked row costs
 // 2*C*fan_in FLOPs per layer against 2*(C0 + C) bytes of input and output
@@ -95,19 +112,64 @@ namespace neddf {
 constexpr int kMaxSeg = 4;
 constexpr int kMaxLayers = 12;
 constexpr int kTcTileThreads = 256;  // threads of a block
-constexpr int kRows = 128;      // stacked rows (streams x samples) per block
-constexpr int kTcWStages = 3;   // weight ring stages
+constexpr int kMaxWidth = 512;  // the widest class
 
-// the tile body's shapes by operand type: weight rows per ring stage (two
-// mma depths), the mma depth, x0's column alignment and the row paddings
-// of x0, h and the weight tiles in shared memory (see above)
+// the tile body's shapes by operand type: the mma depth, x0's column
+// alignment and the row paddings of x0, h and the weight tiles in shared
+// memory (see above)
 template <typename T>
 struct TileShape {
-  static constexpr int KT = 32, KSTEP = 16, X_ALIGN = 32, X_PAD = 8, H_PAD = 8, W_PAD = 8;
+  static constexpr int KSTEP = 16, X_ALIGN = 32, X_PAD = 8, H_PAD = 8, W_PAD = 8;
 };
 template <>
 struct TileShape<float> {
-  static constexpr int KT = 16, KSTEP = 8, X_ALIGN = 8, X_PAD = 4, H_PAD = 4, W_PAD = 8;
+  static constexpr int KSTEP = 8, X_ALIGN = 8, X_PAD = 4, H_PAD = 4, W_PAD = 8;
+};
+
+// the width class of a layer width n (0 past kMaxWidth)
+__host__ __device__ constexpr int width_class(int n) {
+  return n < 1 ? 0 : n <= 64 ? 64 : n <= 128 ? 128 : n <= 256 ? 256 : n <= kMaxWidth ? 512 : 0;
+}
+
+// stacked rows (streams x samples) of a block of width class C
+template <typename T, int C>
+__host__ __device__ constexpr int tile_rows() {
+  return std::is_same_v<T, float> && C < 256 ? 128 : 32768 / C;
+}
+
+// weight rows per ring stage: two mma depths
+template <typename T, int C>
+__host__ __device__ constexpr int tile_kt() {
+  return std::is_same_v<T, float> ? 16 : 32;
+}
+
+// stages of the weight ring: three, two for f32 at C = 512 (64 rows of h
+// take 132 kB; tiles of 8 rows in three stages spilled 24 bytes of the
+// K=3 body)
+template <typename T, int C>
+__host__ __device__ constexpr int tile_stages() {
+  return std::is_same_v<T, float> && C >= 512 ? 2 : 3;
+}
+
+// the warp tiling of a block: RT m16 tiles (MT per stream) of a sample
+// slice by WC columns (NI n8 tiles) per warp, NSL sample slices x NCG
+// column bands over the 8 warps; every warp holds all S streams of its
+// samples
+template <typename T, int K, int C>
+struct TileGeo {
+  static constexpr int S = K + 1;
+  static constexpr int ROWS = tile_rows<T, C>();
+  static constexpr int TM = ROWS / S;  // samples per block
+  static constexpr int RT_MIN = ROWS / 128 > 2 ? ROWS / 128 : 2;
+  static constexpr int RT = S > RT_MIN ? S : RT_MIN;
+  static constexpr int MT = RT / S;
+  static constexpr int WC = ROWS * C / 128 / RT;
+  static constexpr int NCG = C / WC;
+  static constexpr int NSL = (kTcTileThreads / 32) / NCG;
+  static constexpr int NI = WC / 8;
+  static_assert(ROWS % S == 0 && RT == S * MT && NSL * NCG == kTcTileThreads / 32 &&
+                    NSL * 16 * MT == TM && WC % 16 == 0 && RT * NI * 4 == ROWS * C / 256,
+                "tile geometry");
 };
 
 // post-skip layer inputs (TileArgs::split)
@@ -118,11 +180,15 @@ constexpr int kSplitHiddenFirst = 2;  // [h, seg0]
 constexpr int kTanhExp = 0;
 constexpr int kReLU = 1;
 constexpr int kLeakyReLU = 2;
+constexpr int kSoftplus = 3;
+constexpr int kSigmoid = 4;
 constexpr float kLeakySlope = 0.01f;
 
-// f'' is identically zero (ReLU, LeakyReLU): the backwards form no f'' term
+// f'' is identically zero (ReLU, LeakyReLU): the backwards form no f''
+// term; tanhExp, Softplus and Sigmoid take the f'' routes
 template <int ACT>
-constexpr bool kZeroDeriv2 = ACT != kTanhExp;
+constexpr bool kZeroDeriv2 = ACT == kReLU || ACT == kLeakyReLU;
+inline bool zero_deriv2(int act) { return act == kReLU || act == kLeakyReLU; }
 
 // fn(std::integral_constant<int, ACT>{}) for the run-time activation code
 // act; cudaErrorInvalidValue for any other code
@@ -132,6 +198,21 @@ cudaError_t by_act(int act, F&& fn) {
     case kTanhExp: return fn(std::integral_constant<int, kTanhExp>{});
     case kReLU: return fn(std::integral_constant<int, kReLU>{});
     case kLeakyReLU: return fn(std::integral_constant<int, kLeakyReLU>{});
+    case kSoftplus: return fn(std::integral_constant<int, kSoftplus>{});
+    case kSigmoid: return fn(std::integral_constant<int, kSigmoid>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// fn(std::integral_constant<int, P>{}) for the width class P of a layer
+// width n; cudaErrorInvalidValue past kMaxWidth
+template <typename F>
+cudaError_t by_class(int n, F&& fn) {
+  switch (width_class(n)) {
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    case 512: return fn(std::integral_constant<int, 512>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -147,8 +228,9 @@ struct TileArgs {
   void* stash[kMaxLayers];     // [S, M, C] pre-activations, type T, or null
   int n_layers;
   int M;
-  void* v_out;                 // [M, C], type T
-  void* j_out;                 // [K, M, C], type T
+  int width;                   // N, every layer's output width (<= the class C)
+  void* v_out;                 // [M, N], type T
+  void* j_out;                 // [K, M, N], type T
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -167,6 +249,110 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// V consecutive elements (shared or device memory, aligned to V elements)
+// as f32, and back rounded to T as from_f32 rounds, by vector loads and
+// stores of V * sizeof(T) bytes (f32 V = 8: two 16-byte vectors; in shared
+// memory the copy's own width: 16-byte lanes keep it free of bank
+// conflicts)
+template <int V>
+__device__ __forceinline__ void vec_load(const float* e, float (&x)[V]) {
+  if constexpr (V == 8) {
+    const float4 a = reinterpret_cast<const float4*>(e)[0];
+    const float4 b = reinterpret_cast<const float4*>(e)[1];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(e);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(e);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = e[0];
+  }
+}
+template <int V>
+__device__ __forceinline__ void vec_store(float* e, const float (&x)[V]) {
+  if constexpr (V == 8) {
+    reinterpret_cast<float4*>(e)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(e)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(e) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(e) = make_float2(x[0], x[1]);
+  } else {
+    e[0] = x[0];
+  }
+}
+template <int V>
+__device__ __forceinline__ void vec_load(const __nv_bfloat16* e, float (&x)[V]) {
+  if constexpr (V % 2 == 0) {
+    uint32_t w[V / 2];
+    if constexpr (V == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(e);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if constexpr (V == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(e);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(e);
+    }
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+      x[2 * k] = f.x;
+      x[2 * k + 1] = f.y;
+    }
+  } else {
+    x[0] = __bfloat162float(e[0]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void vec_store(__nv_bfloat16* e, const float (&x)[V]) {
+  if constexpr (V % 2 == 0) {
+    uint32_t w[V / 2];
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint4*>(e) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(e) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(e) = w[0];
+    }
+  } else {
+    e[0] = __float2bfloat16_rn(x[0]);
+  }
+}
+
+
+// V elements of a row at p as f32, n of them valid (zeros past n): one
+// vec_load where `whole` (the row allows aligned V-element vectors) and
+// n >= V, else element by element; store_n writes the n valid ones the
+// same way. Every masked access to a row of any width goes through these.
+template <int V, typename T>
+__device__ __forceinline__ void load_n(const T* p, bool whole, int n, float (&x)[V]) {
+  if (whole && n >= V) {
+    vec_load<V>(p, x);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = e < n ? to_f32(p[e]) : 0.f;
+  }
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_n(T* p, bool whole, int n, const float (&x)[V]) {
+  if (whole && n >= V) {
+    vec_store<V>(p, x);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (e < n) p[e] = from_f32<T>(x[e]);
+  }
+}
+
 // tanhExp and its derivative, passing x through above 20
 // (neddf_tpu/kernels/dual_mlp.py::_act_fns)
 __device__ __forceinline__ void tanh_exp(float x, float& f, float& df) {
@@ -181,6 +367,9 @@ __device__ __forceinline__ void tanh_exp(float x, float& f, float& df) {
   df = tx - x * ex * (tx * tx - 1.f);
 }
 
+// the logistic sigmoid 1 / (1 + e^-x)
+__device__ __forceinline__ float logistic(float x) { return 1.f / (1.f + expf(-x)); }
+
 template <int ACT>
 __device__ __forceinline__ void act_fn(float x, float& f, float& df) {
   if constexpr (ACT == kReLU) {
@@ -189,8 +378,34 @@ __device__ __forceinline__ void act_fn(float x, float& f, float& df) {
   } else if constexpr (ACT == kLeakyReLU) {
     f = x >= 0.f ? x : kLeakySlope * x;
     df = x >= 0.f ? 1.f : kLeakySlope;
+  } else if constexpr (ACT == kSoftplus) {
+    // log(1 + e^x) with f' = sigmoid(x) = e^x / (1 + e^x) (one exp for
+    // both), passing x through above 20
+    if (x > 20.f) {
+      f = x;
+      df = 1.f;
+    } else {
+      const float ex = expf(x);
+      f = log1pf(ex);
+      df = ex / (1.f + ex);
+    }
+  } else if constexpr (ACT == kSigmoid) {
+    f = logistic(x);
+    df = f * (1.f - f);
   } else {
     tanh_exp(x, f, df);
+  }
+}
+
+// f and f' for a run-time activation code (neddf_epilogue.cu's density,
+// one scalar per row: not worth an instantiation per code)
+__device__ __forceinline__ void act_fn_code(int act, float x, float& f, float& df) {
+  switch (act) {
+    case kReLU: act_fn<kReLU>(x, f, df); break;
+    case kLeakyReLU: act_fn<kLeakyReLU>(x, f, df); break;
+    case kSoftplus: act_fn<kSoftplus>(x, f, df); break;
+    case kSigmoid: act_fn<kSigmoid>(x, f, df); break;
+    default: act_fn<kTanhExp>(x, f, df);
   }
 }
 
@@ -200,6 +415,10 @@ __device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf
   act_fn<ACT>(x, f, df);
   if constexpr (kZeroDeriv2<ACT>) {
     ddf = 0.f;
+  } else if constexpr (ACT == kSoftplus) {
+    ddf = x > 20.f ? 0.f : df * (1.f - df);  // s (1 - s) with s = f'
+  } else if constexpr (ACT == kSigmoid) {
+    ddf = df * (1.f - 2.f * f);  // s (1 - s) (1 - 2 s)
   } else if (x > 20.f) {
     ddf = 0.f;
   } else {
@@ -235,39 +454,39 @@ __host__ __device__ inline bool has_split(const TileArgs& a) {
   return false;
 }
 
-// the layer's input pieces: (from x0 or h, width, first weight row)
-__host__ __device__ __forceinline__ int layer_pieces(const TileArgs& a, int l, int C,
-                                                     bool from_x0[2], int width[2],
-                                                     int wrow[2]) {
+// the layer's input pieces: (from x0 or h, width, first weight row); the
+// hidden piece is the N = a.width columns of h
+__host__ __device__ __forceinline__ int layer_pieces(const TileArgs& a, int l, bool from_x0[2],
+                                                     int width[2], int wrow[2]) {
   const int w0 = a.seg_w[0];
+  const int n = a.width;
   if (l == 0) {
     from_x0[0] = true; width[0] = x0_width(a); wrow[0] = 0;
     return 1;
   }
   if (a.split[l] == kSplitSegFirst) {
     from_x0[0] = true; width[0] = w0; wrow[0] = 0;
-    from_x0[1] = false; width[1] = C; wrow[1] = w0;
+    from_x0[1] = false; width[1] = n; wrow[1] = w0;
     return 2;
   }
   if (a.split[l] == kSplitHiddenFirst) {
-    from_x0[0] = false; width[0] = C; wrow[0] = 0;
-    from_x0[1] = true; width[1] = w0; wrow[1] = C;
+    from_x0[0] = false; width[0] = n; wrow[0] = 0;
+    from_x0[1] = true; width[1] = w0; wrow[1] = n;
     return 2;
   }
-  from_x0[0] = false; width[0] = C; wrow[0] = 0;
+  from_x0[0] = false; width[0] = n; wrow[0] = 0;
   return 1;
 }
 
 // weight tiles of the body's schedule: every layer, each layer's pieces,
 // KT rows at a time
-template <typename T>
-__host__ __device__ inline int weight_tile_count(const TileArgs& a, int C) {
-  constexpr int KT = TileShape<T>::KT;
+template <int KT>
+__host__ __device__ inline int weight_tile_count(const TileArgs& a) {
   int n = 0;
   for (int l = 0; l < a.n_layers; ++l) {
     bool from_x0[2];
     int width[2], wrow[2];
-    const int np = layer_pieces(a, l, C, from_x0, width, wrow);
+    const int np = layer_pieces(a, l, from_x0, width, wrow);
     for (int pc = 0; pc < np; ++pc) n += (width[pc] + KT - 1) / KT;
   }
   return n;
@@ -303,16 +522,17 @@ __host__ __device__ constexpr int w_pitch() {
 // which is dead once layer 0 has read it
 template <typename T, int C>
 __host__ __device__ inline size_t act_elems(const TileArgs& a) {
-  const size_t x0 = (size_t)kRows * x0_pitch<T>(a);
-  const size_t h = (size_t)kRows * h_pitch<T, C>();
+  constexpr size_t kRows = tile_rows<T, C>();
+  const size_t x0 = kRows * x0_pitch<T>(a);
+  const size_t h = kRows * h_pitch<T, C>();
   if (has_split(a)) return x0 + h;
   return x0 > h ? x0 : h;
 }
 
-// elements of the weight ring: kTcWStages tiles of KT padded rows
+// elements of the weight ring: tile_stages tiles of KT padded rows
 template <typename T, int C>
 __host__ __device__ constexpr size_t wt_elems() {
-  return (size_t)kTcWStages * TileShape<T>::KT * w_pitch<T, C>();
+  return (size_t)tile_stages<T, C>() * tile_kt<T, C>() * w_pitch<T, C>();
 }
 
 // bytes of the block's shared buffers: x0 and h, the weight ring and the
@@ -320,24 +540,23 @@ __host__ __device__ constexpr size_t wt_elems() {
 template <typename T, int C>
 __host__ __device__ inline size_t smem_bytes(const TileArgs& a) {
   return (act_elems<T, C>(a) + wt_elems<T, C>()) * sizeof(T) +
-         weight_tile_count<T>(a, C) * sizeof(WeightTile<T>);
+         weight_tile_count<tile_kt<T, C>()>(a) * sizeof(WeightTile<T>);
 }
 
 // tile t of the weight schedule (every layer, each layer's pieces, KT rows
 // at a time): its first row and its rows inside the piece; false past the
-// last tile
-template <typename T, int C>
+// last tile. Weight rows are N = a.width elements apart.
+template <int KT, typename T>
 __device__ __forceinline__ bool weight_tile(const TileArgs& a, int t, const T*& src,
                                             int& rows) {
-  constexpr int KT = TileShape<T>::KT;
   for (int l = 0; l < a.n_layers; ++l) {
     bool from_x0[2];
     int width[2], wrow[2];
-    const int n = layer_pieces(a, l, C, from_x0, width, wrow);
+    const int n = layer_pieces(a, l, from_x0, width, wrow);
     for (int pc = 0; pc < n; ++pc) {
       const int tiles = (width[pc] + KT - 1) / KT;
       if (t < tiles) {
-        src = static_cast<const T*>(a.w[l]) + (size_t)(wrow[pc] + t * KT) * C;
+        src = static_cast<const T*>(a.w[l]) + (size_t)(wrow[pc] + t * KT) * a.width;
         rows = min(KT, width[pc] - t * KT);
         return true;
       }
@@ -347,43 +566,67 @@ __device__ __forceinline__ bool weight_tile(const TileArgs& a, int t, const T*& 
   return false;
 }
 
+// copy the rows of one weight tile (rows of n elements from src) into dst
+// (row pitch WP, C columns), V elements per copy: 16-, 8- or 4-byte
+// cp.async (V * sizeof(T) >= 4) or single bf16 elements; rows past `rows`
+// and columns past n are zeros
+template <typename T, int C, int KT, int WP, int V>
+__device__ __forceinline__ void copy_weight_rows(const T* src, int rows, int n, T* dst) {
+  constexpr int E = (int)sizeof(T);
+  constexpr int CPR = C / V;  // copies per row
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < KT * CPR; idx += kTcTileThreads) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * V;
+    const int valid = r < rows ? max(0, min(V, n - c)) : 0;
+    if constexpr (V * E >= 4) {
+      cp_async<V * E>(smem_u32(dst + r * WP + c), valid > 0 ? src + (size_t)r * n + c : src,
+                      valid * E);
+    } else {
+      dst[r * WP + c] = valid > 0 ? src[(size_t)r * n + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
 // copy weight tile t of the schedule into ring slot dst (rows past the
-// piece are zeros); nothing past the last tile
+// piece and columns past N are zeros); nothing past the last tile. The
+// copy width follows N: 16 bytes where a row is a whole number of them
+// (the weights are 16-byte aligned), else 4 bytes (f32, or bf16 at an even
+// N), else single bf16 elements
 template <typename T, int C>
 __device__ __forceinline__ void load_weight_tile(const WeightTile<T>* sched, int n_tiles, int t,
-                                                 T* dst) {
+                                                 int n, T* dst) {
   if (t >= n_tiles) return;
+  constexpr int E = (int)sizeof(T);
+  constexpr int KT = tile_kt<T, C>();
+  constexpr int WP = w_pitch<T, C>();
   const T* src = sched[t].src;
   const int rows = sched[t].rows;
-  constexpr int WP = w_pitch<T, C>();
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = C / EPC;              // chunks per row
-#pragma unroll 1
-  for (int idx = threadIdx.x; idx < TileShape<T>::KT * CPR; idx += kTcTileThreads) {
-    const int r = idx / CPR;
-    const int c = (idx - r * CPR) * EPC;
-    const bool ok = r < rows;
-    cp_async<16>(smem_u32(dst + r * WP + c), ok ? src + (size_t)r * C + c : src,
-                 ok ? 16 : 0);
+  if ((n * E) % 16 == 0) {
+    copy_weight_rows<T, C, KT, WP, 16 / E>(src, rows, n, dst);
+  } else if ((n * E) % 4 == 0) {
+    copy_weight_rows<T, C, KT, WP, 4 / E>(src, rows, n, dst);
+  } else {
+    copy_weight_rows<T, C, KT, WP, 1>(src, rows, n, dst);
   }
 }
 
 // stage segment s of the layer-0 input into x0's columns at dst (row pitch
 // xp), V elements per load (the rows' alignment allows it); tangent rows
 // of a segment without tangents, and rows past M, are zeros
-template <typename T, int V, int K>
+template <typename T, int V, int K, int ROWS>
 __device__ __forceinline__ void stage_segment(const TileArgs& a, int s, T* dst, int xp, int m0,
                                               int M) {
   using Elem = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
   constexpr int BYTES = V * (int)sizeof(T);
   using Vec = std::conditional_t<BYTES == 16, uint4, std::conditional_t<BYTES == 8, uint2, Elem>>;
-  constexpr int TM = kRows / (K + 1);
+  constexpr int TM = ROWS / (K + 1);
   const int w = a.seg_w[s];
   const int cpr = w / V;  // loads per row
   const T* sv = static_cast<const T*>(a.seg_v[s]);
   const T* sj = static_cast<const T*>(a.seg_j[s]);
   Elem* de = reinterpret_cast<Elem*>(dst);
-  for (int idx = threadIdx.x; idx < kRows * cpr; idx += kTcTileThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * cpr; idx += kTcTileThreads) {
     const int r = idx / cpr;
     const int c = (idx - r * cpr) * V;
     const int st = r / TM;
@@ -413,32 +656,66 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// the rows of streams [st_begin, st_end) of the block's tile in h (pitch
+// HP, row st * TM + i: stream st of sample m0 + i) to device memory, row
+// (st, m) at dst + ((st - st0) * M + m) * N, the columns < N and the rows
+// < M only: a cooperative pass, 16-byte vectors where a row of N elements
+// is a whole number of them, else element by element. Per-thread stores
+// of the accumulators at a run-time row stride cost the K=3 bodies their
+// registers (ptxas spilled 300-870 bytes): the accumulators go through h
+// (compile-time pitch) and leave from there.
+template <typename T, int C, int HP, int TM>
+__device__ __forceinline__ void store_rows(const T* h, int st_begin, int st_end, T* dst,
+                                           int st0, int M, int N, int m0) {
+  constexpr int E = (int)sizeof(T);
+  constexpr int V = 16 / E;
+  constexpr int CPR = C / V;  // vectors per row
+  const bool vec = (N * E) % 16 == 0;
+  const int rows = (st_end - st_begin) * TM;
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < rows * CPR; idx += kTcTileThreads) {
+    const int rr = idx / CPR;
+    const int c = (idx - rr * CPR) * V;
+    const int st = st_begin + rr / TM;
+    const int i = rr % TM;
+    const int m = m0 + i;
+    if (m >= M || c >= N) continue;
+    const T* src = h + (size_t)(st * TM + i) * HP + c;
+    T* d = dst + ((size_t)(st - st0) * M + m) * N + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (c + e < N) d[e] = src[e];
+    }
+  }
+}
+
 // The whole trunk on one row tile: x0, h and wt are the block's shared
 // buffers (tile_buffers, smem_bytes); the last layer goes to a.v_out /
 // a.j_out.
 template <typename T, int K, int C, int ACT>
 __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, T* wt) {
   using Sh = TileShape<T>;
+  using G = TileGeo<T, K, C>;
   constexpr bool kF32 = std::is_same_v<T, float>;
   constexpr int E = (int)sizeof(T);
-  constexpr int S = K + 1;
-  constexpr int TM = kRows / S;          // samples per block
-  constexpr int MT = S == 1 ? 2 : 1;     // m16 tiles per stream and warp
-  constexpr int RT = S * MT;             // m16 tiles per warp
-  constexpr int NSL = TM / (16 * MT);    // sample slices
-  constexpr int NCG = (kTcTileThreads / 32) / NSL;  // column bands
-  constexpr int WC = C / NCG;            // columns per warp
-  constexpr int NI = WC / 8;             // n8 tiles per warp
+  constexpr int S = G::S;
+  constexpr int TM = G::TM;    // samples per block
+  constexpr int MT = G::MT;    // m16 tiles per stream and warp
+  constexpr int RT = G::RT;    // m16 tiles per warp
+  constexpr int NCG = G::NCG;  // column bands
+  constexpr int WC = G::WC;    // columns per warp
+  constexpr int NI = G::NI;    // n8 tiles per warp
   constexpr int HP = h_pitch<T, C>();
   constexpr int WP = w_pitch<T, C>();
-  constexpr int KT = Sh::KT;
+  constexpr int KT = tile_kt<T, C>();
   constexpr int WSLOT = KT * WP;
-  static_assert(kRows % S == 0 && TM % (16 * MT) == 0 && (kTcTileThreads / 32) % NSL == 0,
-                "row tile");
-  static_assert(WC % 16 == 0 && RT * NI * 4 == 128, "column band");
 
   const int x0w = x0_width(a);
   const int xp = x0_pitch<T>(a);
+  const int N = a.width;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -449,18 +726,19 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
 
   // the weight schedule (after the ring), one entry per tile
   WeightTile<T>* sched = reinterpret_cast<WeightTile<T>*>(wt + wt_elems<T, C>());
-  const int n_tiles = weight_tile_count<T>(a, C);
+  const int n_tiles = weight_tile_count<KT>(a);
   for (int i = tid; i < n_tiles; i += kTcTileThreads) {
     const T* src;
     int rows;
-    weight_tile<T, C>(a, i, src, rows);
+    weight_tile<KT>(a, i, src, rows);
     sched[i].src = src;
     sched[i].rows = rows;
   }
   __syncthreads();
   // the first weight tiles start loading while x0 is staged
-  for (int s = 0; s < kTcWStages - 1; ++s) {
-    load_weight_tile<T, C>(sched, n_tiles, s, wt + s * WSLOT);
+  constexpr int NST = tile_stages<T, C>();
+  for (int s = 0; s < NST - 1; ++s) {
+    load_weight_tile<T, C>(sched, n_tiles, s, N, wt + s * WSLOT);
     cp_async_commit();
   }
 
@@ -475,16 +753,16 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
                               reinterpret_cast<uintptr_t>(a.seg_j[s]) | (uintptr_t)(E * w);
       T* dst = x0 + off;
       if (align % 16 == 0) {
-        stage_segment<T, 16 / E, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 16 / E, K, G::ROWS>(a, s, dst, xp, m0, M);
       } else if (align % 8 == 0) {
-        stage_segment<T, 8 / E, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 8 / E, K, G::ROWS>(a, s, dst, xp, m0, M);
       } else {
-        stage_segment<T, 1, K>(a, s, dst, xp, m0, M);
+        stage_segment<T, 1, K, G::ROWS>(a, s, dst, xp, m0, M);
       }
       off += w;
     }
     const int pad = xp - x0w;
-    for (int idx = tid; idx < kRows * pad; idx += kTcTileThreads) {
+    for (int idx = tid; idx < G::ROWS * pad; idx += kTcTileThreads) {
       const int r = idx / pad;
       x0[(size_t)r * xp + x0w + (idx - r * pad)] = from_f32<T>(0.f);
     }
@@ -514,7 +792,7 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
 
     bool from_x0[2];
     int width[2], wrow[2];
-    const int n_pieces = layer_pieces(a, l, C, from_x0, width, wrow);
+    const int n_pieces = layer_pieces(a, l, from_x0, width, wrow);
     for (int pc = 0; pc < n_pieces; ++pc) {
       const int pitch = from_x0[pc] ? xp : HP;
       // this lane's ldmatrix row of stream 0 (A: rows of 16 samples, lanes
@@ -523,12 +801,12 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
       const uint32_t a_lane = smem_u32(from_x0[pc] ? x0 : h) +
                               E * ((q * 16 * MT + (lane & 15)) * pitch) + (lane >> 4) * 16;
       for (int k0 = 0; k0 < width[pc]; k0 += KT, ++t) {
-        cp_async_wait<kTcWStages - 2>();
+        cp_async_wait<NST - 2>();
         __syncthreads();  // tile t has landed; slot t-1 is free
-        load_weight_tile<T, C>(sched, n_tiles, t + kTcWStages - 1,
-                               wt + ((t + kTcWStages - 1) % kTcWStages) * WSLOT);
+        load_weight_tile<T, C>(sched, n_tiles, t + NST - 1, N,
+                               wt + ((t + NST - 1) % NST) * WSLOT);
         cp_async_commit();
-        const int slot = t % kTcWStages;
+        const int slot = t % NST;
         // f32: one mma depth at a time (fewer live fragments: 0 spills)
         constexpr int kUnrollK = kF32 ? 1 : KT / Sh::KSTEP;
 #pragma unroll kUnrollK
@@ -588,31 +866,45 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
     }
     __syncthreads();  // every warp has read this layer's input: h may be overwritten
 
-    // epilogue: bias on the values, stash, values f(z), tangents f'(z_v) z_t
+    // epilogue: bias on the values; the stash z through h (store_rows);
+    // values f(z), tangents f'(z_v) z_t into h, and from there the last
+    // layer's outputs. The columns past N have z = 0 (zero weights and
+    // bias) and are not stored
     const bool last = (l == a.n_layers - 1);
-    T* vout = static_cast<T*>(a.v_out);
-    T* jout = static_cast<T*>(a.j_out);
     T* pre = static_cast<T*>(a.stash[l]);
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       const int col = cg * WC + ni * 8 + 2 * tq;
-      const float b0 = a.b[l][col], b1 = a.b[l][col + 1];
+      const float b0 = col < N ? a.b[l][col] : 0.f;
+      const float b1 = col + 1 < N ? a.b[l][col + 1] : 0.f;
 #pragma unroll
       for (int r = 0; r < 2 * MT; ++r) {
-        // in place: z (bias on the values), then f(z_v) and f'(z_v) z_t;
         // acc[st * MT + mt][ni][e0, e0 + 1] holds stream st of sample i
-        const int mt = r >> 1, hh = r & 1;
-        const int e0 = 2 * hh;
+        const int mt = r >> 1, e0 = 2 * (r & 1);
         acc[mt][ni][e0] += b0;
         acc[mt][ni][e0 + 1] += b1;
-        const int i = (q * MT + mt) * 16 + g + 8 * hh;
-        const int m = m0 + i;
-        if (pre != nullptr && m < M) {
+        if (pre != nullptr) {
+          const int i = (q * MT + mt) * 16 + g + 8 * (r & 1);
 #pragma unroll
           for (int st = 0; st < S; ++st)
-            store2(pre + ((size_t)st * M + m) * C + col, acc[st * MT + mt][ni][e0],
+            store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
                    acc[st * MT + mt][ni][e0 + 1]);
         }
+      }
+    }
+    if (pre != nullptr) {
+      __syncthreads();  // z is in h
+      store_rows<T, C, HP, TM>(h, 0, S, pre, 0, M, N, m0);
+      __syncthreads();  // every z has left before h takes f(z)
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int col = cg * WC + ni * 8 + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2 * MT; ++r) {
+        // in place: f(z_v) and f'(z_v) z_t
+        const int mt = r >> 1, e0 = 2 * (r & 1);
+        const int i = (q * MT + mt) * 16 + g + 8 * (r & 1);
 #pragma unroll
         for (int e = e0; e < e0 + 2; ++e) {
           float f, df;
@@ -621,21 +913,17 @@ __device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, 
 #pragma unroll
           for (int st = 1; st < S; ++st) acc[st * MT + mt][ni][e] *= df;
         }
-        if (!last) {
 #pragma unroll
-          for (int st = 0; st < S; ++st)
-            store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
-                   acc[st * MT + mt][ni][e0 + 1]);
-        } else if (m < M) {
-          store2(vout + (size_t)m * C + col, acc[mt][ni][e0], acc[mt][ni][e0 + 1]);
-#pragma unroll
-          for (int st = 1; st < S; ++st)
-            store2(jout + ((size_t)(st - 1) * M + m) * C + col, acc[st * MT + mt][ni][e0],
-                   acc[st * MT + mt][ni][e0 + 1]);
-        }
+        for (int st = 0; st < S; ++st)
+          store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
+                 acc[st * MT + mt][ni][e0 + 1]);
       }
     }
-    if (!last) __syncthreads();  // h is complete before the next layer reads it
+    __syncthreads();  // h is complete before the next layer (or the output pass) reads it
+    if (last) {
+      store_rows<T, C, HP, TM>(h, 0, 1, static_cast<T*>(a.v_out), 0, M, N, m0);
+      if (S > 1) store_rows<T, C, HP, TM>(h, 1, S, static_cast<T*>(a.j_out), 1, M, N, m0);
+    }
   }
   cp_async_wait<0>();
 }
@@ -646,7 +934,7 @@ __device__ __forceinline__ void tile_buffers(const TileArgs& a, unsigned char* r
                                              T*& x0, T*& h, T*& wt) {
   T* smem = reinterpret_cast<T*>(raw);
   x0 = smem;
-  h = has_split(a) ? smem + (size_t)kRows * x0_pitch<T>(a) : smem;
+  h = has_split(a) ? smem + (size_t)tile_rows<T, C>() * x0_pitch<T>(a) : smem;
   wt = smem + act_elems<T, C>(a);
 }
 
@@ -661,15 +949,46 @@ __global__ void __launch_bounds__(kTcTileThreads, 1) mlp_tile_fwd(const TileArgs
 template <typename T, int K, int C, int ACT>
 cudaError_t launch_mlp_tile(const TileArgs& a, cudaStream_t stream) {
   if (a.M <= 0) return cudaSuccess;
+  if (width_class(a.width) != C) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T, C>(a);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_tile_fwd<T, K, C, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  constexpr int TM = kRows / (K + 1);
+  constexpr int TM = TileGeo<T, K, C>::TM;
   const int grid = (a.M + TM - 1) / TM;
   mlp_tile_fwd<T, K, C, ACT><<<grid, kTcTileThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The row-tile forward of operand type T (dtype 1 bf16, 0 f32) over the
+// width class of a.width, K = n_tan tangent planes (3, 1 or 0) and the
+// activation code act: csrc/tile_fwd.cu, compiled once per (type, class)
+// (kernels/_build.py) so that the instantiations build in parallel.
+extern "C" int neddf_tile_fwd_bf16_64(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_bf16_128(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_bf16_256(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_bf16_512(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_f32_64(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_f32_128(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_f32_256(int n_tan, int act, const TileArgs* a, void* stream);
+extern "C" int neddf_tile_fwd_f32_512(int n_tan, int act, const TileArgs* a, void* stream);
+
+inline int tile_fwd(int dtype, int n_tan, int act, const TileArgs& a, cudaStream_t stream) {
+  void* s = static_cast<void*>(stream);
+  const bool bf16 = dtype == 1;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (width_class(a.width)) {
+    case 64: return bf16 ? neddf_tile_fwd_bf16_64(n_tan, act, &a, s)
+                         : neddf_tile_fwd_f32_64(n_tan, act, &a, s);
+    case 128: return bf16 ? neddf_tile_fwd_bf16_128(n_tan, act, &a, s)
+                          : neddf_tile_fwd_f32_128(n_tan, act, &a, s);
+    case 256: return bf16 ? neddf_tile_fwd_bf16_256(n_tan, act, &a, s)
+                          : neddf_tile_fwd_f32_256(n_tan, act, &a, s);
+    case 512: return bf16 ? neddf_tile_fwd_bf16_512(n_tan, act, &a, s)
+                          : neddf_tile_fwd_f32_512(n_tan, act, &a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace neddf

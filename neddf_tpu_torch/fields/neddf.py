@@ -10,7 +10,8 @@ Per sample, both paths:
   (``kernels/dual_mlp.py``); layer s+1 consumes ``[embed, h]`` for each
   skip s;
 * D = softplus(h_d) + d_near and its gradient, aux = s * sigmoid(h_a),
-  density = relu((1/D) * (1 - sqrt(|grad D|^2 + aux^2))), and the normal
+  density = act((1/D) * (1 - sqrt(|grad D|^2 + aux^2))) with
+  ``density_activation_type`` (ReLU by default), and the normal
   grad D / (|grad D| + 1e-7).
 
 Eval (``need_aux=False``, ``:596-655``): the heads run in f32 here and the
@@ -243,9 +244,10 @@ class NeDDF(nn.Module):
         }
 
     def _forward_train(self, sampling: Sampling, sched: Schedule) -> Dict[str, Tensor]:
-        """Training path (``_apply_fused_epilogue`` + ``_directional_color``)."""
-        if self.density_activation_type != "ReLU":
-            raise NotImplementedError("the epilogue computes a ReLU density")
+        """Training path (``_apply_fused_epilogue`` + ``_directional_color``),
+        the density through ``density_activation_type`` as the JAX
+        package's jnp path applies it (``neddf.py:591``; its Pallas
+        epilogue hard-codes ReLU, the port's epilogue takes the activation)."""
         batch_size, sampling_size = sampling.sample_pos.shape[:2]
         act = self.activation_type
         cd = self.compute_dtype
@@ -271,7 +273,7 @@ class NeDDF(nn.Module):
         # the trunk and the epilogue in one op: its backward finishes the
         # trunk's top layer in the epilogue's kernel
         v_feat, out, t_feat = DDFTrunkEpilogue.apply(
-            (self.trunk_layout, act, cd, use_kernels),
+            (self.trunk_layout, act, cd, use_kernels, self.density_activation_type),
             emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(),
             self.layer_ddf_out.w[:, 0], self.layer_aux_out.w[:, 0], b2, scal,
             *[layer.w for layer in self.layers_ddf], *[layer.b for layer in self.layers_ddf],

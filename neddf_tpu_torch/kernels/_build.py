@@ -2,7 +2,12 @@
 
 Each source is compiled by its own ``nvcc`` process (all started
 together) into an object file, and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The build
+library with a plain C interface, loaded with ``ctypes``. A source listed
+in ``VARIANTS`` is compiled once per set of macro definitions there, each
+its own process and object: ``tile_fwd.cu`` per operand type and width
+class of the row-tile forward, ``dual_mlp_bwd.cu`` per operand type of
+the products and ``neddf_epilogue.cu`` per operand type of the epilogue
+backward, so that their instantiations build side by side. The build
 happens at first use, never at import, into
 ``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
 ``<hash>`` covers the sources and the flags: an edit to any
@@ -34,6 +39,24 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libneddf_kernels.so"
+# source -> the macro definitions of each of its objects (a source not
+# listed builds one object with none)
+VARIANTS = {
+    "tile_fwd.cu": [(f"NEDDF_TILE_F32={f32}", f"NEDDF_TILE_C={c}")
+                    for f32 in (0, 1) for c in (64, 128, 256, 512)],
+    "dual_mlp_bwd.cu": [(), ("NEDDF_GEMM_BF16",), ("NEDDF_GEMM_F32",)],
+    "neddf_epilogue.cu": [(), ("NEDDF_EPI_BF16",), ("NEDDF_EPI_F32",)],
+}
+
+
+def objects():
+    """(source, object stem, -D flags) of every object of the library."""
+    out = []
+    for src in sorted(CSRC.glob("*.cu")):
+        for defs in VARIANTS.get(src.name, [()]):
+            stem = "_".join([src.stem, *[d.split("=")[-1].lower() for d in defs]])
+            out.append((src, stem, [f"-D{d}" for d in defs]))
+    return out
 
 
 def _nvcc() -> str:
@@ -51,6 +74,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """Directory of the library for the current sources and flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(VARIANTS.items())).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -68,9 +92,9 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     start = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{src.stem}.{os.getpid()}.o"),
-               str(src)]
+    for src, stem, defs in objects():
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-c", "-o",
+               str(out_dir / f"{stem}.{os.getpid()}.o"), str(src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     log, failed = "", 0
@@ -119,7 +143,8 @@ def library() -> ctypes.CDLL:
         "neddf_mlp_bwd_gpre": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                _VOIDP, _VOIDP],
         # csrc/sdf_mlp.cu
-        "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP],
+        "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP,
+                            _VOIDP],
         "neddf_sdf_top": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
@@ -134,13 +159,13 @@ def library() -> ctypes.CDLL:
         "neddf_sum_rows": [_INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
         # csrc/neddf_epilogue.cu
         "neddf_epilogue_fwd": [
-            _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
             _VOIDP, _VOIDP,
         ],
-        "neddf_epilogue_bwd_blocks": [_INT, _INT, _INT, _INT, _INTP],
+        "neddf_epilogue_bwd_blocks": [_INT, _INT, _INT, _INT, _INT, _INTP],
         "neddf_epilogue_bwd": [
-            _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
         ],
     }
     for name, argtypes in signatures.items():

@@ -45,11 +45,24 @@ Tensor = torch.Tensor
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_N_TAN = (3,)
 _SEG_N_TAN = (1, 3)
-_KERNEL_WIDTHS = (256,)
+# the widest layer the kernels take: csrc/mlp_tile.cuh instantiates the
+# width classes 64, 128, 256 and 512, a width runs on the next class up
+KERNEL_MAX_WIDTH = 512
 _KERNEL_MAX_LAYERS = 8
 _KERNEL_MAX_SEGMENTS = 4
-# the kernels' activations (csrc/mlp_tile.cuh: kTanhExp, kReLU, kLeakyReLU)
-_ACT_CODES = {"tanhExp": 0, "ReLU": 1, "LeakyReLU": 2}
+# the kernels' activations (csrc/mlp_tile.cuh: kTanhExp, kReLU, kLeakyReLU,
+# kSoftplus, kSigmoid)
+_ACT_CODES = {"tanhExp": 0, "ReLU": 1, "LeakyReLU": 2, "Softplus": 3, "Sigmoid": 4}
+
+
+def width_refusal(width: int) -> Optional[str]:
+    """Why the kernels do not take a layer width (None: they take it):
+    every width from 1 to ``KERNEL_MAX_WIDTH``."""
+    if width > KERNEL_MAX_WIDTH:
+        return f"width {width} > {KERNEL_MAX_WIDTH}"
+    if width < 1:
+        return f"width {width}"
+    return None
 
 
 # ---------------------------------------------------------------- plain math
@@ -249,8 +262,8 @@ def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
     configuration. The checks below raise NotImplementedError on it."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
-    if width not in _KERNEL_WIDTHS:
-        return f"width {width}"
+    if (refusal := width_refusal(width)) is not None:
+        return refusal
     if not 1 <= n_layers <= _KERNEL_MAX_LAYERS:
         return f"{n_layers} layers"
     if n_tan not in (_KERNEL_N_TAN if trunk else _SEG_N_TAN):

@@ -9,7 +9,8 @@ order: the hidden rows of W first, then segment 0's).
 * ``mlp_seg`` launches ``csrc/mlp_fwd.cu`` for CUDA tensors: the NeDDF
   eval colour trunk (tanhExp), the NeRF trunk (ReLU, one post-skip layer)
   and the NeuS colour trunk (ReLU, a 3-wide last layer, which the wrapper
-  pads to 256 zero columns and slices off). With ``stash=True`` it also
+  pads to the hidden width with zero columns and slices off), at any
+  width up to 512 and with any of the five activations. With ``stash=True`` it also
   returns every layer's pre-activation ``[M, C_l]`` rounded to the
   compute dtype, as the Pallas forward's stash variant does.
 * ``mlp_seg_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
@@ -43,13 +44,13 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     Products,
     ProductsPlain,
     count_tile_launch,
+    width_refusal,
 )
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTH = 256
 _KERNEL_MAX_SEGMENTS = 4
 _KERNEL_MAX_LAYERS = 12
 _SPLIT_HIDDEN_FIRST = 2  # csrc/mlp_tile.cuh kSplitHiddenFirst
@@ -162,8 +163,8 @@ def kernel_refusal(act_name: str, width: int, n_layers: int,
     take it): ``_check_kernel_args`` raises NotImplementedError on it."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
-    if width != _KERNEL_WIDTH:
-        return f"width {width}"
+    if (refusal := width_refusal(width)) is not None:
+        return refusal
     if not 1 <= n_layers <= _KERNEL_MAX_LAYERS:
         return f"{n_layers} layers"
     if not 1 <= n_segments <= _KERNEL_MAX_SEGMENTS:
@@ -191,7 +192,7 @@ def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
     c0 = vs[0].shape[1]
     for li, (w, b) in enumerate(zip(weights, biases)):
         fan_in = sum(v.shape[1] for v in vs) if li == 0 else width + c0 * bool(layout[li])
-        # every layer is 256 wide but the last, which may be narrower
+        # every layer is `width` wide but the last, which may be narrower
         out_ok = w.shape[1] == width or (li == len(weights) - 1 and 1 <= w.shape[1] < width)
         if w.dim() != 2 or w.shape[0] != fan_in or not out_ok or tuple(b.shape) != (w.shape[1],):
             raise ValueError(
@@ -233,19 +234,20 @@ def mlp_seg(
         raise ValueError(f"mlp_seg: unsupported device {device}")
     _check_kernel_args(vs, weights, biases, layout, act_name)
     m, dtype = vs[0].shape[0], vs[0].dtype
+    width = weights[0].shape[1]
     n_out = weights[-1].shape[1]
     weights, biases = list(weights), list(biases)
-    if n_out < _KERNEL_WIDTH:
-        weights[-1] = _pad_columns(weights[-1], _KERNEL_WIDTH)
-        biases[-1] = _pad_columns(biases[-1], _KERNEL_WIDTH)
-    out = torch.empty((m, _KERNEL_WIDTH), dtype=dtype, device=device)
-    pres = [torch.empty((m, _KERNEL_WIDTH), dtype=dtype, device=device)
+    if n_out < width:
+        weights[-1] = _pad_columns(weights[-1], width)
+        biases[-1] = _pad_columns(biases[-1], width)
+    out = torch.empty((m, width), dtype=dtype, device=device)
+    pres = [torch.empty((m, width), dtype=dtype, device=device)
             for _ in weights] if stash else []
     if m:
         lib = _build.library()
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
         code = lib.neddf_mlp_seg_fwd(
-            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], _KERNEL_WIDTH, m, len(vs),
+            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], width, m, len(vs),
             _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
             len(weights), _build.pointers(weights), _build.pointers(biases),
             _build.ints(split), _build.pointers(pres) if stash else None,
@@ -254,7 +256,7 @@ def mlp_seg(
         _build.check(code, "mlp_seg")
         mlp_seg.launches += 1
         count_tile_launch(dtype)
-    if n_out < _KERNEL_WIDTH:
+    if n_out < width:
         out = out[:, :n_out].contiguous()
         if stash:
             pres[-1] = pres[-1][:, :n_out].contiguous()

@@ -9,8 +9,10 @@ per sample row:
   stack . wa, the stream and the head weights rounded to the compute
   dtype, sums in f32), plus the f32 biases b2 on the value row;
 * D = softplus(h1_v) + d_near and grad D = sigmoid(h1_v) h1_t;
-  aux = s sigmoid(h2_v) and its gradient; density = relu((1/D)(1 -
-  sqrt(|grad D|^2 + aux^2))); the normal grad D / (|grad D| + 1e-7);
+  aux = s sigmoid(h2_v) and its gradient; density = act((1/D)(1 -
+  sqrt(|grad D|^2 + aux^2))) with the field's density activation (ReLU
+  by default; any of ``ops/activations.py``'s, a run-time code in the
+  kernel); the normal grad D / (|grad D| + 1e-7);
 * the weighted sum of the four trunk penalties (constraints_aux_grad,
   constraints_dDdt, range_distance, range_aux_grad) with the reference's
   stop-gradient placements;
@@ -36,7 +38,8 @@ memory; ``DDFTrunkEpilogue`` is the autograd op of the trunk and the
 epilogue together, whose backward continues the trunk's from there.
 
 For CPU tensors the wrappers run the plain versions (``*_plain``); for
-CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise.
+CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise. The kernels
+take any width C up to 512 (``dual_mlp.KERNEL_MAX_WIDTH``).
 """
 from __future__ import annotations
 
@@ -54,14 +57,15 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     dual_mlp_seg_bwd_plain,
     dual_mlp_seg_plain,
     dual_mlp_trunk,
+    width_refusal,
 )
+from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
 
 Tensor = torch.Tensor
 
 N_OUT = 10
 _EPS_NORM = 1e-7
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTH = 256
 
 
 def _relu(x: Tensor) -> Tensor:
@@ -72,8 +76,9 @@ def _step(x: Tensor) -> Tensor:
     return (x > 0).to(x.dtype)
 
 
-def _math(v, j, wd, wa, b2, scal):
-    """Forward math on f32 [M] rows (``_epilogue_math:115``)."""
+def _math(v, j, wd, wa, b2, scal, density_act):
+    """Forward math on f32 [M] rows (``_epilogue_math:115``), the density
+    through the activation ``density_act``."""
     cd = v.dtype
     stack = torch.cat([v[None], j], dim=0).float()  # [4, M, C]
     h1 = stack @ wd.to(cd).float()  # [4, M]
@@ -93,7 +98,7 @@ def _math(v, j, wd, wa, b2, scal):
     dgn = torch.sqrt(grad_sq)
     d_ddt = torch.sqrt(grad_sq + aux * aux)
     dinv = 1.0 / distance
-    density = _relu(dinv * (1.0 - d_ddt))
+    density = ACTIVATION_TRIPLES[density_act][0](dinv * (1.0 - d_ddt))
     inv_dgn_eps = 1.0 / (dgn + _EPS_NORM)
     norm = dg * inv_dgn_eps
     d2 = torch.sum(agg * norm, dim=0)
@@ -112,7 +117,8 @@ def _math(v, j, wd, wa, b2, scal):
 
 
 def neddf_epilogue_plain(
-    v: Tensor, j: Tensor, wd: Tensor, wa: Tensor, b2: Tensor, scal: Tensor
+    v: Tensor, j: Tensor, wd: Tensor, wa: Tensor, b2: Tensor, scal: Tensor,
+    density_act: str,
 ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the epilogue kernel.
 
@@ -123,12 +129,13 @@ def neddf_epilogue_plain(
         scal: [8] f32 (d_near, aux_grad_scale, distance_range_max,
             w_constraints_aux_grad, w_constraints_dDdt,
             w_range_distance, w_range_aux_grad, unused).
+        density_act: the density's activation (``ops/activations.py``).
 
     Returns:
         (out [10, M] f32, t_feat [M, C] in v's dtype).
     """
     neddf_epilogue_plain.calls += 1
-    m = _math(v, j, wd, wa, b2, scal)
+    m = _math(v, j, wd, wa, b2, scal, density_act)
     out = torch.stack([m["density"], m["distance"], m["aux"], *m["norm"], *m["dg"],
                        m["pen"]], dim=0)
     t_feat = torch.sum(m["stack"][1:] * m["dg"][:, :, None], dim=0).to(v.dtype)
@@ -140,12 +147,12 @@ neddf_epilogue_plain.calls = 0
 
 def neddf_epilogue_bwd_plain(
     v: Tensor, j: Tensor, wd: Tensor, wa: Tensor, b2: Tensor, scal: Tensor,
-    g_out: Tensor, g_tfeat: Tensor,
+    g_out: Tensor, g_tfeat: Tensor, density_act: str,
 ):
     """Plain version of the epilogue backward (``_bwd_kernel:183-326``).
 
     Args:
-        v, j, wd, wa, b2, scal: the forward's inputs.
+        v, j, wd, wa, b2, scal, density_act: the forward's inputs.
         g_out: [10, M] f32 cotangent of ``out`` (rows 3:9 are ignored).
         g_tfeat: [M, C] cotangent of t_feat.
 
@@ -154,7 +161,7 @@ def neddf_epilogue_bwd_plain(
         f32).
     """
     neddf_epilogue_bwd_plain.calls += 1
-    m = _math(v, j, wd, wa, b2, scal)
+    m = _math(v, j, wd, wa, b2, scal, density_act)
     ags, drmax, w_ag, w_ddt, w_rd, w_ra = (scal[i] for i in range(1, 7))
     g_out = g_out.float()
     g_dens, g_dist_ext, g_aux_ext, g_pen = g_out[0], g_out[1], g_out[2], g_out[9]
@@ -175,7 +182,7 @@ def neddf_epilogue_bwd_plain(
     g_aux_out = g_pen * w_ra * 2.0 * r4 * (_step(aux_out - 4.6) - _step(-4.6 - aux_out))
 
     u = dinv * (1.0 - d_ddt)
-    g_u = g_dens * _step(u)
+    g_u = g_dens * ACTIVATION_TRIPLES[density_act][1](u)
     g_dinv = g_u * (1.0 - d_ddt)
     g_dddt = g_dddt - g_u * dinv
     g_aux = g_aux + g_aux_ext
@@ -210,13 +217,18 @@ def neddf_epilogue_bwd_plain(
 neddf_epilogue_bwd_plain.calls = 0
 
 
-def _check_kernel_args(v, j, wd, wa, b2, scal) -> None:
+def _check_kernel_args(v, j, wd, wa, b2, scal, density_act) -> None:
     what = "CUDA neddf_epilogue kernel"
     if v.dtype not in _KERNEL_DTYPES or j.dtype != v.dtype:
         raise TypeError(f"{what}: dtypes {v.dtype}/{j.dtype}")
-    if v.dim() != 2 or v.shape[1] != _KERNEL_WIDTH or tuple(j.shape) != (3,) + tuple(v.shape):
+    if v.dim() != 2 or tuple(j.shape) != (3,) + tuple(v.shape):
         raise ValueError(f"{what}: shapes {tuple(v.shape)} / {tuple(j.shape)}")
-    for t, n in ((wd, _KERNEL_WIDTH), (wa, _KERNEL_WIDTH), (b2, 2), (scal, 8)):
+    width = v.shape[1]
+    if (refusal := width_refusal(width)) is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
+    if density_act not in _ACT_CODES:
+        raise NotImplementedError(f"{what}: density activation {density_act!r}")
+    for t, n in ((wd, width), (wa, width), (b2, 2), (scal, 8)):
         if tuple(t.shape) != (n,) or t.dtype != torch.float32:
             raise ValueError(f"{what}: parameter {tuple(t.shape)} {t.dtype}")
     for t in (v, j, wd, wa, b2, scal):
@@ -224,22 +236,23 @@ def _check_kernel_args(v, j, wd, wa, b2, scal) -> None:
             raise ValueError(f"{what}: device or layout")
 
 
-def neddf_epilogue(v, j, wd, wa, b2, scal):
+def neddf_epilogue(v, j, wd, wa, b2, scal, density_act):
     """Epilogue forward: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``neddf_epilogue_plain``)."""
     if v.device.type == "cpu":
-        return neddf_epilogue_plain(v, j, wd, wa, b2, scal)
+        return neddf_epilogue_plain(v, j, wd, wa, b2, scal, density_act)
     if v.device.type != "cuda":
         raise ValueError(f"neddf_epilogue: unsupported device {v.device}")
-    _check_kernel_args(v, j, wd, wa, b2, scal)
-    m = v.shape[0]
+    _check_kernel_args(v, j, wd, wa, b2, scal, density_act)
+    m, c = v.shape
     out = torch.empty((N_OUT, m), dtype=torch.float32, device=v.device)
     t_feat = torch.empty_like(v)
     if m == 0:
         return out, t_feat
     lib = _build.library()
     code = lib.neddf_epilogue_fwd(
-        _KERNEL_DTYPES[v.dtype], m, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+        _KERNEL_DTYPES[v.dtype], _ACT_CODES[density_act], c, m, v.data_ptr(), j.data_ptr(),
+        wd.data_ptr(),
         wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), out.data_ptr(),
         t_feat.data_ptr(), _build.stream(v.device))
     _build.check(code, "neddf_epilogue")
@@ -260,7 +273,7 @@ def _bwd_cotangents(what, v, g_out, g_tfeat):
 
 
 def _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, out_v, out_t, act=0,
-                g_col=None, z=None) -> Tensor:
+                g_col=None, z=None, *, density_act) -> Tensor:
     """One launch of ``csrc/neddf_epilogue.cu``'s backward (the top mode
     when ``z`` is given) over v's M > 0 rows: its outputs into out_v and
     out_t; returns the fixed-order sums [dwd, dwa, db2 (, the top db)]."""
@@ -270,13 +283,14 @@ def _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, out_v, out_t, act=
     dt = _KERNEL_DTYPES[v.dtype]
     blocks = ctypes.c_int(0)
     stream = _build.stream(v.device)
-    _build.check(lib.neddf_epilogue_bwd_blocks(dt, act, int(top), m, ctypes.byref(blocks)),
-                 f"{what} blocks")
+    _build.check(lib.neddf_epilogue_bwd_blocks(dt, act, int(top), c, m,
+                                               ctypes.byref(blocks)), f"{what} blocks")
     width = 2 * c + 2 + (c if top else 0)
     parts = torch.empty((blocks.value, width), dtype=torch.float32, device=v.device)
     red = torch.empty(width, dtype=torch.float32, device=v.device)
     _build.check(lib.neddf_epilogue_bwd(
-        dt, act, int(top), m, blocks.value, v.data_ptr(), j.data_ptr(), wd.data_ptr(),
+        dt, act, _ACT_CODES[density_act], int(top), c, m, blocks.value, v.data_ptr(),
+        j.data_ptr(), wd.data_ptr(),
         wa.data_ptr(), b2.data_ptr(), scal.data_ptr(), g_out.data_ptr(),
         g_tfeat.data_ptr(), None if g_col is None else g_col.data_ptr(),
         None if z is None else z.data_ptr(), out_v.data_ptr(), out_t.data_ptr(),
@@ -284,15 +298,15 @@ def _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, out_v, out_t, act=
     return red
 
 
-def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat):
+def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat, density_act):
     """Epilogue backward: the CUDA kernel (its standalone mode) for CUDA
     tensors, the plain version for CPU tensors (see
     ``neddf_epilogue_bwd_plain``)."""
     if v.device.type == "cpu":
-        return neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat)
+        return neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, density_act)
     if v.device.type != "cuda":
         raise ValueError(f"neddf_epilogue_bwd: unsupported device {v.device}")
-    _check_kernel_args(v, j, wd, wa, b2, scal)
+    _check_kernel_args(v, j, wd, wa, b2, scal, density_act)
     m, c = v.shape
     g_out, g_tfeat = _bwd_cotangents("neddf_epilogue_bwd", v, g_out, g_tfeat)
     dv, dj = torch.empty_like(v), torch.empty_like(j)
@@ -300,7 +314,7 @@ def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat):
         red = torch.zeros(2 * c + 2, dtype=torch.float32, device=v.device)
     else:
         red = _launch_bwd("neddf_epilogue_bwd", v, j, wd, wa, b2, scal, g_out, g_tfeat,
-                          dv, dj)
+                          dv, dj, density_act=density_act)
         neddf_epilogue_bwd.launches += 1
     return dv, dj, red[:c], red[c : 2 * c], red[2 * c :]
 
@@ -308,7 +322,8 @@ def neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_tfeat):
 neddf_epilogue_bwd.launches = 0
 
 
-def neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name):
+def neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name,
+                                density_act):
     """Plain version of the backward's top mode: the epilogue's VJP
     (``neddf_epilogue_bwd_plain``), then the add of the colour trunk's
     cotangent of v_feat in v's dtype, as autograd adds a tensor's two
@@ -320,14 +335,15 @@ def neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z
         g_col: [M, C] the colour trunk's cotangent of v_feat.
         z: [4, M, C] the trunk's top-layer stash (v's dtype); only z[0]
             is read where f'' is identically zero.
-        act_name: the trunk's activation.
+        act_name: the trunk's activation; density_act: the density's.
 
     Returns:
         (gs [4, M, C] in v's dtype, dwd [C], dwa [C], db2 [2], the top
         layer's db [C], f32).
     """
     neddf_epilogue_gstack_plain.calls += 1
-    dv, dj, dwd, dwa, db2 = neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat)
+    dv, dj, dwd, dwa, db2 = neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat,
+                                                     density_act)
     gv = dv + g_col.to(dv.dtype)
     gs, db = DualProductsPlain(v.dtype).gstack(gv, dj, z, act_name)
     return gs, dwd, dwa, db2, db
@@ -336,17 +352,18 @@ def neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z
 neddf_epilogue_gstack_plain.calls = 0
 
 
-def neddf_epilogue_gstack(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name):
+def neddf_epilogue_gstack(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_name,
+                          density_act):
     """The epilogue's backward with the K=3 trunk's top layer (the
     kernel's top mode): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see ``neddf_epilogue_gstack_plain``)."""
     if v.device.type == "cpu":
         return neddf_epilogue_gstack_plain(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z,
-                                           act_name)
+                                           act_name, density_act)
     if v.device.type != "cuda":
         raise ValueError(f"neddf_epilogue_gstack: unsupported device {v.device}")
     what = "neddf_epilogue_gstack"
-    _check_kernel_args(v, j, wd, wa, b2, scal)
+    _check_kernel_args(v, j, wd, wa, b2, scal, density_act)
     if act_name not in _ACT_CODES:
         raise NotImplementedError(f"CUDA {what} kernel: activation {act_name!r}")
     m, c = v.shape
@@ -361,7 +378,7 @@ def neddf_epilogue_gstack(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_
         red = torch.zeros(3 * c + 2, dtype=torch.float32, device=v.device)
     else:
         red = _launch_bwd(what, v, j, wd, wa, b2, scal, g_out, g_tfeat, gs[0], gs[1:],
-                          _ACT_CODES[act_name], g_col, z)
+                          _ACT_CODES[act_name], g_col, z, density_act=density_act)
         neddf_epilogue_gstack.launches += 1
     return gs, red[:c], red[c : 2 * c], red[2 * c : 2 * c + 2], red[2 * c + 2 :]
 
@@ -371,24 +388,26 @@ neddf_epilogue_gstack.launches = 0
 
 class NeDDFEpilogue(torch.autograd.Function):
     """``neddf_epilogue`` with its hand-written backward (``_epi_fwd`` /
-    ``_epi_bwd``). ``apply(use_kernels, v, j, wd, wa, b2, scal)``;
-    ``use_kernels=False`` runs the plain versions on any device. The
-    scalars ``scal`` get no gradient."""
+    ``_epi_bwd``). ``apply((use_kernels, density_act), v, j, wd, wa, b2,
+    scal)``; ``use_kernels=False`` runs the plain versions on any device.
+    The scalars ``scal`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, use_kernels, v, j, wd, wa, b2, scal):
+    def forward(ctx, config, v, j, wd, wa, b2, scal):
+        use_kernels, density_act = config
         args = (v, j, wd.float().contiguous(), wa.float().contiguous(),
                 b2.float().contiguous(), scal)
-        ctx.use_kernels = use_kernels
+        ctx.config = config
         ctx.save_for_backward(*args)
         fwd = neddf_epilogue if use_kernels else neddf_epilogue_plain
-        return fwd(*args)
+        return fwd(*args, density_act)
 
     @staticmethod
     def backward(ctx, g_out, g_tfeat):
         args = ctx.saved_tensors
-        bwd = neddf_epilogue_bwd if ctx.use_kernels else neddf_epilogue_bwd_plain
-        dv, dj, dwd, dwa, db2 = bwd(*args, g_out, g_tfeat)
+        use_kernels, density_act = ctx.config
+        bwd = neddf_epilogue_bwd if use_kernels else neddf_epilogue_bwd_plain
+        dv, dj, dwd, dwa, db2 = bwd(*args, g_out, g_tfeat, density_act)
         return None, dv, dj, dwd, dwa, db2, None
 
 
@@ -400,7 +419,8 @@ class DDFTrunkEpilogue(torch.autograd.Function):
     the stacked cotangent it writes (``dual_mlp_seg_bwd`` with ``top``).
 
     ``apply(config, emb_v, emb_j, wd, wa, b2, scal, *weights, *biases)``
-    with ``config = (layout, act_name, compute_dtype, use_kernels)``:
+    with ``config = (layout, act_name, compute_dtype, use_kernels,
+    density_act)`` (density_act: the density's activation):
     emb_v [M, C0] and emb_j [3, M, C0] the trunk's input in the compute
     dtype, wd and wa [C] the head weights, b2 [2], scal [8] (no
     gradient), the trunk's f32 master weights and biases (cast to the
@@ -412,7 +432,7 @@ class DDFTrunkEpilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, config, emb_v, emb_j, wd, wa, b2, scal, *params):
-        layout, act_name, cd, use_kernels = config
+        layout, act_name, cd, use_kernels, dens = config
         n_l = len(layout)
         weights = [w.to(cd).contiguous() for w in params[:n_l]]
         biases = [b.float().contiguous() for b in params[n_l:]]
@@ -424,7 +444,8 @@ class DDFTrunkEpilogue(torch.autograd.Function):
             trunk = dual_mlp_seg_plain([emb_v], [emb_j], weights, biases, layout, act_name,
                                        (True,), 3, stash)
         v, j = trunk[0], trunk[1]
-        out, t_feat = (neddf_epilogue if use_kernels else neddf_epilogue_plain)(v, j, *head)
+        out, t_feat = (neddf_epilogue if use_kernels else neddf_epilogue_plain)(v, j, *head,
+                                                                                 dens)
         if stash:
             ctx.config = config
             ctx.save_for_backward(emb_v, emb_j, v, j, *head, *weights, *trunk[2])
@@ -432,13 +453,13 @@ class DDFTrunkEpilogue(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_vfeat, g_out, g_tfeat):
-        layout, act_name, cd, use_kernels = ctx.config
+        layout, act_name, cd, use_kernels, dens = ctx.config
         n_l = len(layout)
         emb_v, emb_j, v, j, wd, wa, b2, scal, *rest = ctx.saved_tensors
         weights, pres = rest[:n_l], rest[n_l:]
         top = neddf_epilogue_gstack if use_kernels else neddf_epilogue_gstack_plain
         gs, dwd, dwa, db2, db_top = top(v, j, wd, wa, b2, scal, g_out, g_tfeat,
-                                        g_vfeat.to(cd).contiguous(), pres[-1], act_name)
+                                        g_vfeat.to(cd).contiguous(), pres[-1], act_name, dens)
         bwd = dual_mlp_seg_bwd if use_kernels else dual_mlp_seg_bwd_plain
         dvs, djs, dws, dbs = bwd([emb_v], [emb_j], weights, layout, act_name, (True,), pres,
                                  None, None, top=(gs, db_top))

@@ -15,7 +15,8 @@ features ``h [M, C]`` of ``e = PE(pos) [M, E]`` and ``gE = d h[:, 0] / d e
   the ascending adjoint of the sweep (the f'' terms), the descending
   trunk backward, each elementwise step in the epilogue or prologue of
   the product beside it; dW and db are summed in a fixed order (bitwise
-  reproducible). Where f'' is identically zero (ReLU, LeakyReLU) the walk keeps no
+  reproducible). Where f'' is identically zero (ReLU, LeakyReLU; not
+  tanhExp, Softplus, Sigmoid) the walk keeps no
   q plane and writes no zs plane, so a non-finite pbar q no longer turns
   zbar into NaN through 0 * f''; on finite inputs nothing changes.
 * ``SDFMLP`` is the ``torch.autograd.Function`` over both; its backward
@@ -33,7 +34,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import _ACT_CODES, count_tile_launch
+from neddf_tpu_torch.kernels.dual_mlp import _ACT_CODES, count_tile_launch, width_refusal
 from neddf_tpu_torch.kernels.mlp import (
     _KERNEL_DTYPES,
     _SPLIT_HIDDEN_FIRST,
@@ -45,7 +46,6 @@ from neddf_tpu_torch.ops.sdf_grad import sdf_trunk_with_grad, sdf_trunk_with_gra
 
 Tensor = torch.Tensor
 
-_KERNEL_WIDTH = 256
 _KERNEL_MAX_LAYERS = 12
 
 
@@ -55,8 +55,8 @@ def kernel_refusal(act_name: str, width: int, n_layers: int) -> Optional[str]:
     it."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
-    if width != _KERNEL_WIDTH:
-        return f"width {width}"
+    if (refusal := width_refusal(width)) is not None:
+        return refusal
     if not 2 <= n_layers <= _KERNEL_MAX_LAYERS:
         return f"{n_layers} layers"
     return None
@@ -73,7 +73,7 @@ def _check_kernel_args(e, weights, biases, layout, act_name) -> None:
         raise ValueError(f"{what}: {len(weights)} layers")
     if len(layout) != len(weights) or layout[0]:
         raise ValueError(f"{what}: layout {tuple(layout)}")
-    e_dim, width = e.shape[1], _KERNEL_WIDTH
+    e_dim, width = e.shape[1], weights[0].shape[1]
     for li, (w, b) in enumerate(zip(weights, biases)):
         fan_in = e_dim if li == 0 else width + e_dim * bool(layout[li])
         if tuple(w.shape) != (fan_in, width) or tuple(b.shape) != (width,):
@@ -108,22 +108,23 @@ def sdf_mlp(
         raise ValueError(f"sdf_mlp: unsupported device {e.device}")
     _check_kernel_args(e, weights, biases, layout, act_name)
     m, e_dim = e.shape
+    width = weights[0].shape[1]
     opts = dict(dtype=torch.float32, device=e.device)
-    h = torch.empty((m, _KERNEL_WIDTH), **opts)
+    h = torch.empty((m, width), **opts)
     g_e = torch.empty((m, e_dim), **opts)
     # the sweep reads the stash back, so the kernel always writes it
-    pres = [torch.empty((m, _KERNEL_WIDTH), **opts) for _ in weights]
+    pres = [torch.empty((m, width), **opts) for _ in weights]
     if m:
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
         act, lib = _ACT_CODES[act_name], _build.library()
         stream = _build.stream(e.device)
         _build.check(lib.neddf_mlp_seg_fwd(
-            _KERNEL_DTYPES[torch.float32], act, _KERNEL_WIDTH, m, 1, _build.pointers([e]),
+            _KERNEL_DTYPES[torch.float32], act, width, m, 1, _build.pointers([e]),
             _build.ints([e_dim]), len(weights), _build.pointers(weights),
             _build.pointers(biases), _build.ints(split), _build.pointers(pres),
             h.data_ptr(), stream), "sdf_mlp trunk")
         _build.check(lib.neddf_sdf_sweep(
-            act, m, e_dim, len(weights), _build.pointers(weights), _build.ints(split),
+            act, m, e_dim, width, len(weights), _build.pointers(weights), _build.ints(split),
             _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")
         sdf_mlp.launches += 1
         count_tile_launch(torch.float32)
@@ -254,7 +255,7 @@ def sdf_mlp_bwd(
     biases = [torch.empty(w.shape[1], device=device) for w in weights]
     _check_kernel_args(e, weights, biases, layout, act_name)
     m, e_dim = e.shape
-    c = _KERNEL_WIDTH
+    c = weights[0].shape[1]
     for t, shape in [(p, (m, c)) for p in pres] + [(ch, (m, c)), (cg, (m, e_dim))]:
         if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != device):

@@ -102,6 +102,7 @@ and PSNR (``neus_run``).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -455,9 +456,12 @@ def measure_epilogue(torch, smoke, dev) -> dict:
     g_out = randn(10, rows)
     g_t, g_col = randn(rows, 256, scale=0.1).to(bf), randn(rows, 256, scale=0.1).to(bf)
     k = dm.DualProducts(bf, dev)
+    # a tree since the density activation was added passes the shipped ReLU
+    dens = (("ReLU",) if "density_act" in inspect.signature(epi.neddf_epilogue_bwd).parameters
+            else ())
 
     def composed():
-        dv, dj = epi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t)[:2]
+        dv, dj = epi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t, *dens)[:2]
         return k.gstack(dv + g_col, dj, z, "tanhExp")
 
     # planes per kernel: the epilogue backward reads v, j, g_tfeat (and at
@@ -468,7 +472,8 @@ def measure_epilogue(torch, smoke, dev) -> dict:
                                       "gstack_kernel": 12})}
     if hasattr(epi, "neddf_epilogue_gstack"):
         routes["top_mode"] = (lambda: epi.neddf_epilogue_gstack(
-            v, j, wd, wa, b2, scal, g_out, g_t, g_col, z, "tanhExp"), {"epi_bwd_kernel": 14})
+            v, j, wd, wa, b2, scal, g_out, g_t, g_col, z, "tanhExp", *dens),
+            {"epi_bwd_kernel": 14})
     plane = rows * 256 * 2
     out = {}
     for name, (fn, planes) in routes.items():

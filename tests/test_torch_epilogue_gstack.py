@@ -117,8 +117,8 @@ def _inputs(leaves):
 def _grads_fused(leaves, scal, cots, act, cd, use_kernels=False, layout=LAYOUT):
     x = leaves
     outs = tepi.DDFTrunkEpilogue.apply(
-        (layout, act, cd, use_kernels), x["emb_v"], x["emb_j"], x["wd"], x["wa"], x["b2"],
-        scal, *x["ws"], *x["bs"])
+        (layout, act, cd, use_kernels, "ReLU"), x["emb_v"], x["emb_j"], x["wd"], x["wa"],
+        x["b2"], scal, *x["ws"], *x["bs"])
     return torch.autograd.grad(outs, _inputs(leaves), cots)
 
 
@@ -126,7 +126,8 @@ def _grads_two_ops(leaves, scal, cots, act, cd):
     x = leaves
     v, j = tdm.dual_mlp_apply([x["emb_v"]], [x["emb_j"]], x["ws"], x["bs"], LAYOUT, act,
                               (True,), 3, cd, False)
-    out, t_feat = tepi.NeDDFEpilogue.apply(False, v, j, x["wd"], x["wa"], x["b2"], scal)
+    out, t_feat = tepi.NeDDFEpilogue.apply((False, "ReLU"), v, j, x["wd"], x["wa"], x["b2"],
+                                           scal)
     return torch.autograd.grad((v, out, t_feat), _inputs(leaves), cots)
 
 
@@ -145,7 +146,7 @@ def _epilogue_args(p, cd, act, device="cpu"):
             [leaves["emb_v"]], [leaves["emb_j"]], [w.to(cd) for w in leaves["ws"]],
             leaves["bs"], LAYOUT, act, (True,), 3, stash=True)
         return (v, j, leaves["wd"].detach(), leaves["wa"].detach(), leaves["b2"].detach(),
-                scal, g_out, g_t, g_v, pres[-1], act)
+                scal, g_out, g_t, g_v, pres[-1], act, "ReLU")
 
 
 # ------------------------------------------------- the plain top mode
@@ -154,9 +155,10 @@ def _epilogue_args(p, cd, act, device="cpu"):
 def test_gstack_plain_is_the_epilogue_vjp_then_the_add_then_gstack(dtype, act):
     cd = DTYPES[dtype]
     args = _epilogue_args(_params(seed=1), cd, act)
-    v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, _ = args
+    v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, _, _ = args
     gs, dwd, dwa, db2, db = tepi.neddf_epilogue_gstack(*args)  # CPU: the plain version
-    dv, dj, rwd, rwa, rb2 = tepi.neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_t)
+    dv, dj, rwd, rwa, rb2 = tepi.neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_t,
+                                                          "ReLU")
     gv = dv + g_v  # autograd's add of v_feat's two cotangents, in the compute dtype
     assert gv.dtype == cd
     ref = tdm.DualProductsPlain(cd).gstack(gv, dj, z, act)
@@ -246,12 +248,13 @@ def test_op_forward_outputs_match_the_two_op_path():
     leaves, scal, _ = _leaves(_params(seed=7), cd)
     x = leaves
     with torch.no_grad():
-        got = tepi.DDFTrunkEpilogue.apply((LAYOUT, "tanhExp", cd, True), x["emb_v"],
+        got = tepi.DDFTrunkEpilogue.apply((LAYOUT, "tanhExp", cd, True, "ReLU"), x["emb_v"],
                                           x["emb_j"], x["wd"], x["wa"], x["b2"], scal,
                                           *x["ws"], *x["bs"])
         v, j = tdm.dual_mlp_apply([x["emb_v"]], [x["emb_j"]], x["ws"], x["bs"], LAYOUT,
                                   "tanhExp", (True,), 3, cd, False)
-        out, t_feat = tepi.NeDDFEpilogue.apply(False, v, j, x["wd"], x["wa"], x["b2"], scal)
+        out, t_feat = tepi.NeDDFEpilogue.apply((False, "ReLU"), v, j, x["wd"], x["wa"], x["b2"],
+                                           scal)
     for g, r in zip(got, (v, out, t_feat)):
         assert torch.equal(g, r)
 
@@ -320,7 +323,7 @@ def _card_args(dtype, act, m, dev, seed=0):
     scal = torch.tensor(SCAL, device=dev)
     g_out = randn(10, m)
     g_t, g_v = randn(m, 256, scale=0.1).to(cd), randn(m, 256, scale=0.1).to(cd)
-    return v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, act
+    return v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, act, "ReLU"
 
 
 @pytest.mark.cuda
@@ -339,8 +342,8 @@ def test_cuda_top_mode_matches_plain_and_the_composition(dtype, act, m):
         assert torch.isfinite(g.float()).all(), name
         assert _rel(g, r) <= BWD_REL_TOL[dtype], name
     # gs bitwise: the standalone kernel, torch's add, the top gstack
-    v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, _ = args
-    dv, dj, *_ = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t)
+    v, j, wd, wa, b2, scal, g_out, g_t, g_v, z, _, _ = args
+    dv, dj, *_ = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t, "ReLU")
     gs, _ = tdm.DualProducts(v.dtype, dev).gstack(dv + g_v, dj, z, act)
     assert torch.equal(got[0], gs)
     again = tepi.neddf_epilogue_gstack(*args)
@@ -352,11 +355,11 @@ def test_cuda_top_mode_matches_plain_and_the_composition(dtype, act, m):
 def test_cuda_standalone_mode_matches_plain_and_repeats(dtype):
     dev = _card()
     v, j, wd, wa, b2, scal, g_out, g_t, *_ = _card_args(dtype, "tanhExp", M_RAGGED, dev)
-    got = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t)
-    ref = tepi.neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_t)
+    got = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t, "ReLU")
+    ref = tepi.neddf_epilogue_bwd_plain(v, j, wd, wa, b2, scal, g_out, g_t, "ReLU")
     for g, r in zip(got, ref):
         assert _rel(g, r) <= BWD_REL_TOL[dtype]
-    again = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t)
+    again = tepi.neddf_epilogue_bwd(v, j, wd, wa, b2, scal, g_out, g_t, "ReLU")
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -19,9 +19,10 @@ prologues, and the two repairs that came with them: LeakyReLU, and
   trunks), so every field with it runs its kernels on the card.
 * ``fields.base.use_kernels`` on a CUDA device (no tensor needed) sends
   every configuration to the kernels; the kernel modules' refusal
-  predicates, which their wrappers raise NotImplementedError on, refuse
-  a width but 256 and take every activation of the configs. No plain
-  version runs on the card.
+  predicates, which their wrappers raise NotImplementedError on, take
+  every width up to 512 and every activation of the configs, and refuse
+  a width over 512, K=1 on the trunk and more layers than the kernels
+  hold. No plain version runs on the card.
 * On the card (marked ``cuda``): the fused routes against their plain
   versions, their launch counts, the dual kernels under ReLU and
   LeakyReLU, and the parallel db sum bitwise equal across two runs.
@@ -276,14 +277,21 @@ def _refusal(net):
 
 
 @pytest.mark.parametrize("field, refusal", [
-    (lambda: NeDDF(ddf_layer_width=128), "width 128"),
+    (lambda: NeDDF(ddf_layer_width=576), "width 576 > 512"),
     (lambda: NeDDF(activation_type="ReLU"), None),
     (lambda: NeDDF(activation_type="LeakyReLU"), None),
     (lambda: NeRF(activation_type="LeakyReLU"), None),
     (lambda: NeuS(activation_type="LeakyReLU"), None),
-    (lambda: NeuS(col_layer_width=128), "width 128"),
+    (lambda: NeuS(col_layer_width=128), None),
+    (lambda: NeDDF(ddf_layer_width=128), None),
+    (lambda: NeDDF(ddf_layer_width=512, col_layer_width=512, activation_type="Softplus",
+                   density_activation_type="LeakyReLU"), None),
+    (lambda: NeuS(sdf_layer_width=128, col_layer_width=128, activation_type="Softplus"), None),
+    (lambda: NeRF(layer_width=200, activation_type="Sigmoid"), None),
+    (lambda: NeRF(layer_width=576), "width 576 > 512"),
 ], ids=["neddf_width", "neddf_relu", "neddf_leaky", "nerf_leaky", "neus_leaky",
-        "neus_col_width"])
+        "neus_col_width", "neddf_width_128", "neddf_wide_softplus", "neus_narrow_softplus",
+        "nerf_200_sigmoid", "nerf_width_576"])
 def test_auto_sends_every_configuration_to_the_kernels_on_the_card(field, refusal):
     net = field()
     name = type(net).__name__
@@ -303,13 +311,19 @@ def test_shipped_configurations_take_the_kernels(field):
 
 def test_kernel_checks_raise_on_what_the_predicate_refuses():
     e = torch.zeros((10, 36))
-    ws = [torch.zeros((36, 128))] + [torch.zeros((128, 128))] * 3
-    bs = [torch.zeros(128)] * 4
-    with pytest.raises(NotImplementedError, match="width 128"):
+    ws = [torch.zeros((36, 576))] + [torch.zeros((576, 576))] * 3
+    bs = [torch.zeros(576)] * 4
+    with pytest.raises(NotImplementedError, match="width 576 > 512"):
         tsdf._check_kernel_args(e, ws, bs, (False,) * 4, "ReLU")
-    with pytest.raises(NotImplementedError, match="Softplus"):
-        tmlp._check_kernel_args([torch.zeros((10, 36))], [torch.zeros((36, 256))],
-                                [torch.zeros(256)], (False,), "Softplus")
+    # width 128 and Softplus: taken since the kernels have width classes
+    # and the Softplus / Sigmoid activations
+    tsdf._check_kernel_args(e, [torch.zeros((36, 128))] + [torch.zeros((128, 128))] * 3,
+                            [torch.zeros(128)] * 4, (False,) * 4, "Softplus")
+    with pytest.raises(NotImplementedError, match="13 layers"):
+        tmlp._check_kernel_args([torch.zeros((10, 36))], [torch.zeros((36, 256))] * 13,
+                                [torch.zeros(256)] * 13, (False,) * 13, "Softplus")
+    tmlp._check_kernel_args([torch.zeros((10, 36))], [torch.zeros((36, 256))],
+                            [torch.zeros(256)], (False,), "Softplus")
     tmlp._check_kernel_args([torch.zeros((10, 36))], [torch.zeros((36, 256))],
                             [torch.zeros(256)], (False,), "LeakyReLU")
     assert tdm.kernel_refusal("tanhExp", 256, 8, 3) is None
@@ -318,16 +332,18 @@ def test_kernel_checks_raise_on_what_the_predicate_refuses():
     assert tmlp.kernel_refusal("ReLU", 256, 13) == "13 layers"
 
 
-@pytest.mark.parametrize("act", ["ReLU", "LeakyReLU", "tanhExp"])
+@pytest.mark.parametrize("act", ["ReLU", "LeakyReLU", "tanhExp", "Softplus", "Sigmoid"])
 def test_dual_kernel_checks_take_every_activation_of_the_configs(act):
     layout = tuple(li == 5 for li in range(8))
     ws = [torch.zeros((60, 256))] + [torch.zeros((316 if s else 256, 256)) for s in layout[1:]]
     bs = [torch.zeros(256)] * 8
     tdm._check_kernel_args(torch.zeros((10, 60)), torch.zeros((3, 10, 60)), ws, bs, layout,
                            act)
-    with pytest.raises(NotImplementedError, match="Softplus"):
-        tdm._check_kernel_args(torch.zeros((10, 60)), torch.zeros((3, 10, 60)), ws, bs,
-                               layout, "Softplus")
+    wide = [torch.zeros((60, 576))] + [torch.zeros((636 if s else 576, 576))
+                                       for s in layout[1:]]
+    with pytest.raises(NotImplementedError, match="width 576 > 512"):
+        tdm._check_kernel_args(torch.zeros((10, 60)), torch.zeros((3, 10, 60)), wide,
+                               [torch.zeros(576)] * 8, layout, act)
 
 
 # ------------------------------------------------------------------ on the card

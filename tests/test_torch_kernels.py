@@ -197,11 +197,11 @@ def test_trunk_kernel_checks_refuse_unsupported_inputs(bad):
     v0, j0, ws, bs, layout = _kernel_trunk_args()
     act = "tanhExp"
     if bad == "act":
-        act = "Softplus"
+        act = "SiLU"  # none of the kernels' five activations
     elif bad == "k1":
         j0 = torch.zeros((1, 10, C0))
     elif bad == "width":
-        v0, j0, ws, bs, layout = _kernel_trunk_args(width=128)
+        v0, j0, ws, bs, layout = _kernel_trunk_args(width=576)  # over 512
     elif bad == "shape":
         ws[5] = torch.zeros((256, 256))
     elif bad == "dtype":

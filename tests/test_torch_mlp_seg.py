@@ -136,7 +136,7 @@ def test_kernel_checks_accept_nerf_and_neus_layouts_and_refuse_others():
     neus_bs = [torch.zeros(256)] * 8 + [torch.zeros(3)]
     tmlp._check_kernel_args(segs, neus_ws, neus_bs, (False,) * 9, "ReLU")
     bad = [
-        (segs, neus_ws, neus_bs, (False,) * 9, "Softplus"),  # activation
+        (segs, neus_ws, neus_bs, (False,) * 9, "SiLU"),  # not one of the five activations
         (segs, neus_ws[:-1] + [torch.zeros((256, 300))], neus_bs[:-1] + [torch.zeros(300)],
          (False,) * 9, "ReLU"),  # last layer wider than 256
         (segs, [torch.zeros((286, 3))] + neus_ws[1:], neus_bs, (False,) * 9,

@@ -128,7 +128,7 @@ def test_kernel_checks_accept_the_neus_trunk_and_refuse_others():
     tsdf._check_kernel_args(e, ws, bs, layout, "tanhExp")
     bad = [
         (e.to(torch.bfloat16), ws, bs, layout, "ReLU"),
-        (e, ws, bs, layout, "Softplus"),
+        (e, ws, bs, layout, "SiLU"),  # not one of the five activations
         (e, ws[:5] + [torch.zeros((256, 256))] + ws[6:], bs, layout, "ReLU"),
         (e, ws, bs, (True,) + layout[1:], "ReLU"),
         (e, [w[:, :128] for w in ws], [b[:128] for b in bs], layout, "ReLU"),

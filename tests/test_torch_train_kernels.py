@@ -272,8 +272,8 @@ def _jax_epi(jx, v, j, wd, wa, b2, scal, dtype):
 
 def test_epilogue_inputs_reach_every_kink():
     v, j, wd, wa, b2, scal, _, _ = _epi_inputs()
-    out, _ = tepi.neddf_epilogue_plain(*_t([v, j, wd, wa, b2, scal]))
-    h = tepi._math(*_t([v, j, wd, wa, b2, scal]))
+    out, _ = tepi.neddf_epilogue_plain(*_t([v, j, wd, wa, b2, scal]), "ReLU")
+    h = tepi._math(*_t([v, j, wd, wa, b2, scal]), "ReLU")
     ddf, aux = h["ddf_out"][:M_JAX], h["aux_out"][:M_JAX]
     dens = out[0][:M_JAX]
     for mask in (dens == 0, dens > 0, ddf < -4.6, ddf > 1.5, ddf > 20, aux < -4.6,
@@ -286,7 +286,7 @@ def test_epilogue_forward_matches_pallas_f32(jx):
     with jx.dm.matmul_dtype(jx.jnp.float32):
         args = _jax_epi(jx, v, j, wd, wa, b2, scal, "float32")
         packed, tfeat = jx.epi.neddf_epilogue(*args, "float32", True)
-    out, t_feat = tepi.neddf_epilogue_plain(*_t([v, j, wd, wa, b2, scal]))
+    out, t_feat = tepi.neddf_epilogue_plain(*_t([v, j, wd, wa, b2, scal]), "ReLU")
     assert tuple(out.shape) == (10, M_PORT)
     ref = np.asarray(packed)[:, :10].T
     for k in range(10):
@@ -312,7 +312,7 @@ def test_epilogue_backward_matches_pallas_vjp_f32(jx):
     with jx.dm.matmul_dtype(jx.jnp.float32):
         refs = _jax_epi_vjp(jx, v, j, wd, wa, b2, scal, g_out, g_tfeat, "float32")
     got = tepi.neddf_epilogue_bwd_plain(*_t([
-        v[:M_JAX], j[:, :M_JAX], wd, wa, b2, scal, g_out[:, :M_JAX], g_tfeat[:M_JAX]]))
+        v[:M_JAX], j[:, :M_JAX], wd, wa, b2, scal, g_out[:, :M_JAX], g_tfeat[:M_JAX]]), "ReLU")
     for name, g, r in zip(("dv", "dj", "dwd", "dwa", "db2"), got, refs):
         assert tuple(g.shape) == tuple(r.shape), name
         _close(g.numpy(), r, 1e-5)
@@ -331,11 +331,11 @@ def test_epilogue_bf16_tracks_pallas_bf16(jx, direction):
         else:
             refs = _jax_epi_vjp(jx, v, j, wd, wa, b2, scal, g_out, g_tfeat, "bfloat16")
     if direction == "forward":
-        out, t_feat = tepi.neddf_epilogue_plain(*args_t)
+        out, t_feat = tepi.neddf_epilogue_plain(*args_t, "ReLU")
         got = list(out) + [t_feat]
     else:
         cot = _t([g_out[:, :M_JAX], g_tfeat[:M_JAX]])
-        got = tepi.neddf_epilogue_bwd_plain(*args_t, *cot)
+        got = tepi.neddf_epilogue_bwd_plain(*args_t, *cot, "ReLU")
     for g, r in zip(got, refs):
         _close(g.float().numpy(), np.asarray(r, np.float32), 2.0**-5)
 
@@ -352,8 +352,8 @@ def test_wrappers_take_the_plain_versions_for_cpu_tensors():
     tdm.dual_mlp_seg_bwd(_t(vs), _t(js), _t(ws), cfg["layout"], "tanhExp", cfg["has_j"],
                          a[2], *_t([gv, gj]))
     ev, ej, ewd, ewa, eb2, escal, eg, et = _epi_inputs(m=100)
-    tepi.neddf_epilogue(*_t([ev, ej, ewd, ewa, eb2, escal]))
-    tepi.neddf_epilogue_bwd(*_t([ev, ej, ewd, ewa, eb2, escal, eg, et]))
+    tepi.neddf_epilogue(*_t([ev, ej, ewd, ewa, eb2, escal]), "ReLU")
+    tepi.neddf_epilogue_bwd(*_t([ev, ej, ewd, ewa, eb2, escal, eg, et]), "ReLU")
     assert before == (tdm.dual_mlp_seg.launches, tdm.dual_mlp_seg_bwd.launches,
                       tepi.neddf_epilogue.launches, tepi.neddf_epilogue_bwd.launches)
 
@@ -375,7 +375,7 @@ def test_seg_kernel_checks_refuse_unsupported_inputs(bad):
         vs, js, ws, bs = _colour_kernel_args(n_tan=2)
         n_tan = 2
     elif bad == "act":
-        act = "Softplus"
+        act = "SiLU"  # not one of the five activations
     elif bad == "segments":
         vs = vs + [torch.zeros((10, 4))]
         has_j = has_j + (False,)
@@ -392,12 +392,12 @@ def test_seg_and_epilogue_checks_accept_the_training_shapes():
     has_j = (True, False, False, True)
     tdm._check_seg_args(vs, js, ws, bs, (False,) * 3, "tanhExp", has_j, 1)
     z = torch.zeros
-    for c in (256, 128):
-        args = (z((10, c)), z((3, 10, c)), z(c), z(c), z(2), z(8))
-        if c == 256:
+    for c in (256, 128, 576):
+        args = (z((10, c)), z((3, 10, c)), z(c), z(c), z(2), z(8), "ReLU")
+        if c <= 512:  # every width up to 512
             tepi._check_kernel_args(*args)
         else:
-            with pytest.raises(ValueError):
+            with pytest.raises(NotImplementedError, match="width 576 > 512"):
                 tepi._check_kernel_args(*args)
 
 
@@ -483,10 +483,10 @@ def test_cuda_epilogue_matches_plain(dtype):
     args = [t.to(dev) for t in _t([v, j], dtype) + _t([wd, wa, b2, scal])]
     g = [t.to(dev) for t in _t([g_out]) + _t([g_tfeat], dtype)]
     tol = 1e-4 if dtype == torch.float32 else 2.0**-5
-    for a, b in zip(tepi.neddf_epilogue(*args), tepi.neddf_epilogue_plain(*args)):
+    for a, b in zip(tepi.neddf_epilogue(*args, "ReLU"), tepi.neddf_epilogue_plain(*args, "ReLU")):
         assert _err(a, b) <= tol
-    kern = tepi.neddf_epilogue_bwd(*args, *g)
-    for a, b in zip(kern, tepi.neddf_epilogue_bwd_plain(*args, *g)):
+    kern = tepi.neddf_epilogue_bwd(*args, *g, "ReLU")
+    for a, b in zip(kern, tepi.neddf_epilogue_bwd_plain(*args, *g, "ReLU")):
         assert _err(a, b) <= tol
-    again = tepi.neddf_epilogue_bwd(*args, *g)
+    again = tepi.neddf_epilogue_bwd(*args, *g, "ReLU")
     assert all(torch.equal(a, b) for a, b in zip(kern, again))

@@ -21,8 +21,13 @@ gradient of the camera's pose delta (``camera_grad``) and its
 ``camera_grad_spread``, by norm relative to its own, under a shift of
 the translation part alone (see ``tools/train_step_reference.py``).
 
-Usage (CPU, about 2 GB of memory and a minute or two):
-    JAX_PLATFORMS=cpu python tools/family_step_reference.py
+With ``--wide``, the same for the configurations of ``chip_smoke.py``'s
+``WIDE_OVERRIDES`` (``WIDE_STEP``): NeDDF at width 512 with Softplus and
+a LeakyReLU density, and NeuS at width 128 with Softplus, at
+``WIDE_BATCH`` rays (the 512-wide JAX step must fit the CPU's memory).
+
+Usage (CPU, about 2 GB of memory and a minute or two each):
+    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide]
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ from chip_smoke import (  # noqa: E402
     FAMILY_DRAW_SEED,
     FAMILY_OVERRIDES,
     FAMILY_SHIFT,
+    WIDE_BATCH,
+    WIDE_OVERRIDES,
     family_params,
     machine_step_draws,
 )
@@ -58,8 +65,8 @@ from neddf_tpu.training.step import construct_targets  # noqa: E402
 from neddf_tpu_torch.training.checkpoint import params_from_jax, params_to_jax  # noqa: E402
 
 
-def family_step(family: str) -> dict:
-    cfg = config_lib.compose(REPO / "config", overrides=FAMILY_OVERRIDES[family])
+def family_step(overrides, batch: int = FAMILY_BATCH) -> dict:
+    cfg = config_lib.compose(REPO / "config", overrides=overrides)
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["network"].update({"fused": "off"})
     if "compute_dtype" in cfg["network"]:
@@ -75,7 +82,7 @@ def family_step(family: str) -> dict:
     us, vs, u_strat, u_pdf = machine_step_draws(
         trainer.dataset.image_width, trainer.dataset.image_height,
         render.sample_coarse + 1, render.sample_fine + 1, seed=FAMILY_DRAW_SEED,
-        batch=FAMILY_BATCH)
+        batch=batch)
 
     # the renderer draws its uniforms per pixel from a key; hand it ours
     def uniforms(key, pixel_ids, n, dtype=jnp.float32):
@@ -132,7 +139,11 @@ def family_step(family: str) -> dict:
 
 
 def main() -> None:
-    print(json.dumps({family: family_step(family) for family in FAMILY_OVERRIDES}, indent=1))
+    if "--wide" in sys.argv[1:]:
+        out = {name: family_step(o, WIDE_BATCH) for name, o in WIDE_OVERRIDES.items()}
+    else:
+        out = {family: family_step(o) for family, o in FAMILY_OVERRIDES.items()}
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":
