@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --phase 24   # the build and phase 24 alone
 
 Phases (any failure stops the script with a non-zero exit code):
 
@@ -13,7 +14,7 @@ Phases (any failure stops the script with a non-zero exit code):
    sweep has HMMA (tensor-core) instructions, on TF32 operands
    in the f32 instantiations (the 3xTF32 split) and not in the bf16
    ones, and ptxas reports no spills in them nor in the epilogue
-   backward's 48 instantiations;
+   backward's 52 instantiations;
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -99,8 +100,9 @@ Phases (any failure stops the script with a non-zero exit code):
    (``profile_train_{nerf,neus}.txt``);
 11b. NeDDF, NeRF and NeuS with LeakyReLU, and NeDDF at width 128, at
    ``fused="auto"`` through their kernels (finite, every kernel
-   launched), and a width the kernels do not take (576, over 512)
-   raising NotImplementedError on the card;
+   launched), and a width the kernels do not take (2304, over the
+   per-layer route's 2048; 576 takes that route since PR 14) raising
+   NotImplementedError on the card;
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
    and through the plain versions: PSNR within 0.05 dB;
 14. resume: phase 8's run is run A; run B, the same command as a
@@ -217,6 +219,26 @@ Phases (any failure stops the script with a non-zero exit code):
    ``expected_folding`` counts them, no plain call; ms/step, rays/s, the
    busy share, peak memory) and ``run_eval`` of its run dir through the
    kernels and the plain versions within 0.05 dB;
+24. the per-layer route (tensor parallelism's column shards and widths
+   over 512), each path with every count at 0 just before it and read
+   just after: (a) each new kernel mode against its plain version at the
+   fine pass's 99,328 rows and width 1024, f32 and bf16 (the layer
+   forward of the K=3 trunk, its post-skip layer's two K segments, the
+   K=1 colour layer 0, the value-only eval colour layer 0; ``gstack`` from
+   f32 cotangents; the epilogue forward and standalone backward at 1024;
+   the K=3 trunk's whole walk forward and backward), with CUDA-event ms,
+   plain ms, ``torch.addmm`` on the same operands and the bound; (b)
+   NeDDF with both trunks 1024 wide on the card: its f32 step from the
+   seeded parameters against the JAX package (``tools/tp_step_reference.json``,
+   phase 10's bars), a 300-step run through ``scripts/run.py`` (bf16, 512
+   rays: train PSNR up >= 3 dB, every launch on the route, none of the
+   fused route's, no plain call; ms/step, busy share, peak memory) and
+   ``run_eval`` kernels vs plain within 0.05 dB; (c) two gloo ranks of
+   data 1 x model 2 on the one card, the default width and 1024: the TP
+   step against one rank's on the same draws (f32 within 1e-5, bf16 the
+   step bars), each rank's launches, and ``machine_neddf`` cam 0 at
+   downsampling 8 over the two ranks' shards within 0.05 dB of the whole
+   render;
 13. (printed last) one JSON line of per-kernel results (with each route's
    bound; the parallel db sum among them; ``launches_geometry``,
    ``launches_llff`` and ``launches_dp``: each kernel's launches on the
@@ -330,6 +352,13 @@ WIDE_OVERRIDES = {
 # rays of their f32 step against the JAX package (phase 22), whose 512-wide
 # reference runs on a CPU
 WIDE_BATCH = 64
+# phase 24: NeDDF with both trunks 1024 wide (the per-layer route at model
+# = 1; the rest as shipped: tanhExp, a ReLU density, bf16, 512 rays), its
+# f32 step's rays against the JAX package (tools/family_step_reference.py
+# --tp writes TP_STEP_REF)
+TP_OVERRIDES = {"neddf_1024": ["network.ddf_layer_width=1024", "network.col_layer_width=1024"]}
+TP_BATCH = 32
+TP_STEP_REF = REPO / "tools" / "tp_step_reference.json"
 
 
 def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
@@ -478,8 +507,9 @@ def card_line() -> str:
 # Sigmoid: 10), the epilogue on nt (the same 10) and on nn (f32 x 5); the
 # dual backward's products over rows grouped by point, its layer-input
 # prologue on tn and its stacked-cotangent epilogue on nt (bf16 and f32 x
-# 5 activations x S = 2, 4: 20 each)
-TC_FUNCTIONS = {"tc_gemm_kernel": 71,
+# 5 activations x S = 2, 4: 20 each); the per-layer route's forward on nn
+# (bf16 and f32 x 5 activations x S = 1, 2, 4: 30)
+TC_FUNCTIONS = {"tc_gemm_kernel": 101,
                 # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
                 # classes 64, 128, 256, 512
                 "mlp_tile_fwd": 120,
@@ -496,9 +526,10 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
 
 # phase 2: other kernels whose instantiations ptxas must build without
 # spills: the epilogue backward (bf16 and f32 x the standalone mode and the
-# top mode's 5 activations x the width classes 64, 128, 256, 512), two
+# top mode's 5 activations x the width classes 64, 128, 256, 512, and the
+# standalone mode at the per-layer route's classes 1024 and 2048), two
 # blocks of 256 threads per SM (128 registers each)
-SPILL_FUNCTIONS = {"epi_bwd_kernel": 48}
+SPILL_FUNCTIONS = {"epi_bwd_kernel": 52}
 
 
 def _is_tc_function(name: str) -> bool:
@@ -1090,6 +1121,7 @@ def reset_route_counts(dm) -> None:
     dm.Products.tc_launches = dm.Products.tf32x3_launches = 0
     dm.Products.prologue_launches = dm.Products.epilogue_launches = 0
     dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
+    dm.ROUTE_LAUNCHES.update(fwd=0, fwd_value=0)
     for counter in _pass_counters(dm):
         counter.update({k: 0 for k in counter})
 
@@ -2089,7 +2121,7 @@ def family_trainer(torch, family: str, extra=()):
     config/ as ``scripts/run.py`` composes it."""
     from neddf_tpu_torch import config as config_lib
 
-    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES}
+    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES, **TP_OVERRIDES}
     cfg = config_lib.compose(REPO / "config", overrides=[*known.get(family, []), *extra])
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["trainer"]["device"] = "cuda"
@@ -2125,7 +2157,8 @@ def hold_step(tag: str, got: dict, ref: dict, card: str,
 
 # the configurations whose network has a compute_dtype (bf16 by default)
 F32_STEP_OVERRIDE = {"nerf": ["network.compute_dtype=float32"],
-                     "neddf_wide": ["network.compute_dtype=float32"]}
+                     "neddf_wide": ["network.compute_dtype=float32"],
+                     "neddf_1024": ["network.compute_dtype=float32"]}
 
 
 def phase_family_step(torch, card: str, configs=None, refs=None, batch: int = FAMILY_BATCH,
@@ -2330,11 +2363,12 @@ def phase_family_runs(torch, card: str, runs=None, tags=("11", "12")) -> dict:
 # phase 11b: configurations beside the shipped ones, on a small batch of
 # points (rays x samples): every field with LeakyReLU, and NeDDF at width
 # 128, at fused="auto" launches its kernels, forward and backward, and a
-# width the kernels do not take (over 512) makes them raise on the card
-# (no plain version runs there)
+# width the kernels do not take (over the per-layer route's 2048; widths
+# over 512 take that route) makes them raise on the card (no plain
+# version runs there)
 OTHER_BATCH = (64, 32)
 OTHER_TAKEN = {"ddf_layer_width": 128}
-OTHER_REFUSED = {"ddf_layer_width": 576}
+OTHER_REFUSED = {"ddf_layer_width": 2304}
 
 
 def phase_other_configs(torch, card: str) -> dict:
@@ -2928,7 +2962,11 @@ def path_counters():
                "neddf_epilogue": epi.neddf_epilogue,
                "neddf_epilogue_gstack": epi.neddf_epilogue_gstack,
                "mlp_seg_bwd": mlp.mlp_seg_bwd, "sdf_mlp": sk.sdf_mlp,
-               "sdf_mlp_bwd": sk.sdf_mlp_bwd}
+               "sdf_mlp_bwd": sk.sdf_mlp_bwd,
+               # the per-layer route (phase 24): its calls that ran the kernels,
+               # and the epilogue's standalone backward it takes
+               "dual_mlp_layers": dm.dual_mlp_layers, "mlp_seg_layers": mlp.mlp_seg_layers,
+               "neddf_epilogue_bwd": epi.neddf_epilogue_bwd}
     plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
               mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, epi.neddf_epilogue_plain,
               epi.neddf_epilogue_bwd_plain, epi.neddf_epilogue_gstack_plain,
@@ -4429,6 +4467,523 @@ def phase_data_parallel(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 24
+# the per-layer route of the kernels (tensor parallelism's column shards,
+# widths over 512): (a) its kernel modes against their plain versions at
+# the fine pass's rows, timed; (b) NeDDF with both trunks 1024 wide on the
+# card (the route with one shard); (c) tensor parallelism over two gloo
+# ranks sharing the card (data 1 x model 2)
+TP_ROWS = 512 * 194  # the fine pass of 512 rays
+TP_WIDTH = 1024
+TP_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+TP_TRUNK_LAYOUT = tuple(li == 5 for li in range(7))  # NeDDF's trunk: [embed, h] at layer 5
+# the route's wrappers on the training path and in the eval render, and the
+# fused route's, which it never launches
+TP_RUN_KERNELS = ("dual_mlp_layers", "neddf_epilogue", "neddf_epilogue_bwd")
+TP_EVAL_KERNELS = ("mlp_seg_layers",)
+FUSED_KERNELS = ("dual_mlp_trunk", "dual_mlp_seg", "dual_mlp_seg_bwd", "neddf_epilogue_gstack",
+                 "mlp_seg")
+TP_WORLD = 2
+TP_RANK_TIMEOUT = 420.0
+TP_F32_TOL = 1e-5  # two ranks' f32 step vs one rank's: the column shards' sums
+TP_EVAL_GAP_DB = 0.05
+# phase 24c: (width, rays) of the two ranks' steps, both ranks on the one
+# card: gloo moves each layer's gather through the host (two ranks sharing
+# a card are no TP speed; a 512-ray step took 8 s), so the steps are
+# small, and the 1024-wide f32 route keeps every layer's input and stash
+TP_RANK_STEPS = ((256, 128), (TP_WIDTH, 32))
+
+
+def _route_fwd_work(s, m, ks, n, dtype_name, stash):
+    e = 2 if dtype_name == "bfloat16" else 4
+    k = sum(ks)
+    return 2.0 * s * m * k * n, (s * m * k + k * n + s * m * n * (2 if stash else 1)) * e + 4 * n
+
+
+def _route_bound(flops, nbytes, dtype_name):
+    return bound(flops, nbytes, "bfloat16" if dtype_name == "bfloat16" else "tf32x3")
+
+
+def tp_route_cases(torch, dev, dtype_name: str) -> dict:
+    """Phase 24a at one operand type: every new mode of the per-layer route
+    against its plain version at TP_ROWS rows and width TP_WIDTH, timed
+    (kernel, plain, ``torch.addmm`` on the same operands where one call
+    computes the product), with its bound; and the K=3 trunk's whole walk,
+    forward and backward."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    e = 2 if dtype_name == "bfloat16" else 4
+    g = torch.Generator(device=dev).manual_seed(24)
+    k, kp = dm.DualProducts(dtype, dev), dm.DualProductsPlain(dtype)
+    m, n = TP_ROWS, TP_WIDTH
+    tol = TP_TOL[dtype_name]
+    out = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def hold(name, got, want):
+        err, rel = rel_err(torch, got, want)
+        if not torch.isfinite(got).all() or not rel <= tol:
+            fail(f"[24a] {name} {dtype_name}: rel err {rel:.3g} > {tol}")
+        return err
+
+    # the layer forward: the K=3 trunk's hidden and post-skip layers, the K=1
+    # colour trunk's layer 0, the value-only eval colour's layer 0
+    for name, s, ks, act, stash in (("fwd_trunk", 4, (n,), "tanhExp", True),
+                                    ("fwd_trunk_skip", 4, (60, n), "tanhExp", True),
+                                    ("fwd_color", 2, (87, n), "tanhExp", True),
+                                    ("fwd_value", 1, (87, n), "tanhExp", False)):
+        xs = [rnd(s, m, kk) for kk in ks]
+        w = rnd(sum(ks), n, scale=sum(ks) ** -0.5)
+        b = torch.randn(n, generator=g, device=dev) * 0.1
+        got = k.layer_fwd(xs, w, b, act, stash)
+        want = kp.layer_fwd(xs, w, b, act, stash)
+        torch.cuda.synchronize()
+        err = max(hold(name, a, c) for a, c in zip(got, want) if a is not None)
+        ms, plain_ms = time_pair(torch, lambda: k.layer_fwd(xs, w, b, act, stash),
+                                 lambda: kp.layer_fwd(xs, w, b, act, stash))
+        x2d = torch.cat(xs, dim=-1).view(s * m, sum(ks))
+        bt = b.to(dtype)
+        library_ms = time_one(torch, lambda: torch.addmm(bt, x2d, w), inner=3)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     **_route_bound(*_route_fwd_work(s, m, ks, n, dtype_name, stash), dtype_name)}
+        del xs, w, got, want, x2d
+
+    # gstack from f32 cotangents (the cotangent after the gather's backward)
+    z = rnd(4, m, n)
+    gg = torch.randn((4, m, n), generator=g, device=dev)
+    got = k.gstack(gg[0], gg[1:], z, "tanhExp")
+    want = kp.gstack(gg[0], gg[1:], z, "tanhExp")
+    torch.cuda.synchronize()
+    err = max(hold("gstack", got[0], want[0]), hold("gstack db", got[1], want[1]))
+    ms, plain_ms = time_pair(torch, lambda: k.gstack(gg[0], gg[1:], z, "tanhExp"),
+                             lambda: kp.gstack(gg[0], gg[1:], z, "tanhExp"))
+    out["gstack_f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         **bound(10.0 * 4 * m * n, 4 * m * n * (4 + 2 * e) + 4 * n, "float32")}
+    del z, gg, got, want
+
+    # the epilogue past 512 (#5, #6's standalone mode, the route's)
+    v, j = rnd(m, n, scale=0.3), rnd(3, m, n, scale=0.3)
+    wd = torch.randn(n, generator=g, device=dev) * n ** -0.5
+    wa = torch.randn(n, generator=g, device=dev) * n ** -0.5
+    b2 = torch.tensor([0.3, -0.2], device=dev)
+    scal = torch.tensor([0.01, 0.8, 1.5, 0.05, 0.05, 1.0, 1.0, 0.0], device=dev)
+    g_out = torch.randn((10, m), generator=g, device=dev)
+    g_t = rnd(m, n, scale=0.1)
+    fwd = (v, j, wd, wa, b2, scal, DENSITY)
+    got, want = epi.neddf_epilogue(*fwd), epi.neddf_epilogue_plain(*fwd)
+    torch.cuda.synchronize()
+    err = max(hold("epilogue out", got[0], want[0]), hold("epilogue t_feat", got[1], want[1]))
+    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue(*fwd),
+                             lambda: epi.neddf_epilogue_plain(*fwd))
+    out["epilogue"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       **bound(2.0 * 8 * m * n + 3.0 * 2 * m * n,
+                               5 * m * n * e + 10 * m * 4 + 2 * n * 4, "float32")}
+    bwd = (v, j, wd, wa, b2, scal, g_out, g_t, DENSITY)
+    got, want = epi.neddf_epilogue_bwd(*bwd), epi.neddf_epilogue_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    err = max(hold(f"epilogue_bwd {i}", a, c) for i, (a, c) in enumerate(zip(got, want)))
+    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue_bwd(*bwd),
+                             lambda: epi.neddf_epilogue_bwd_plain(*bwd))
+    out["epilogue_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": None,
+                           **bound(2.0 * 2 * 8 * m * n, 9 * m * n * e + 4 * m * 4 + 4 * n * 4,
+                                   "float32")}
+    del v, j, g_t, got, want
+
+    # the K=3 trunk's whole walk at width 1024 (7 layers, [embed, h] at
+    # layer 5): the route's #1 forward with its stash and #2 backward
+    e0 = rnd(m, 60)
+    j0 = rnd(3, m, 60)
+    ws, bs, fans = [], [], []
+    for li, skip in enumerate(TP_TRUNK_LAYOUT):
+        fan = 60 if li == 0 else n + 60 * skip
+        fans.append(fan)
+        ws.append(rnd(fan, n, scale=1.5 * fan ** -0.5))
+        bs.append(torch.randn(n, generator=g, device=dev) * 0.1)
+    args = ([e0], [j0], ws, bs, TP_TRUNK_LAYOUT, "tanhExp", (True,), 3)
+
+    def walk(launcher, stash=True):
+        return dm.dual_mlp_layers_walk(*args, launcher, stash=stash)
+
+    full, ins, pres = walk(k)
+    pfull, pins, ppres = walk(kp)
+    torch.cuda.synchronize()
+    err_f = hold("walk forward", full, pfull)
+    gtop = torch.randn((4, m, n), generator=g, device=dev)
+
+    def walk_bwd(launcher, x, z):
+        return dm.dual_mlp_layers_bwd(x, ws, TP_TRUNK_LAYOUT, "tanhExp", [60], (True,), z, gtop,
+                                      launcher)
+
+    got, want = walk_bwd(k, ins, pres), walk_bwd(kp, pins, ppres)
+    torch.cuda.synchronize()
+    err_b = max(hold(f"walk backward {i}", a, c) for gs_, ws_ in zip(got, want)
+                for i, (a, c) in enumerate(zip(gs_, ws_)))
+    del got, want, pfull, pins, ppres
+    torch.cuda.empty_cache()
+    flops_f = sum(2.0 * 4 * m * f * n for f in fans)
+    bytes_f = (4 * m * 60 + 4 * m * n * 2 * len(fans) + sum(f * n for f in fans)) * e \
+        + 4 * n * len(fans)
+    ms, plain_ms = time_pair(torch, lambda: walk(k), lambda: walk(kp))
+    out["walk_fwd"] = {"max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       **_route_bound(flops_f, bytes_f, dtype_name)}
+    # the backward's inputs: every layer's input and stash, the weights, g;
+    # its outputs: dW and db (f32) and the input cotangents
+    bytes_b = (sum(4 * m * f for f in fans) + 4 * m * n * len(fans) + sum(f * n for f in fans)
+               + 4 * m * 60) * e + 4 * m * n * 4 + sum(f * n + n for f in fans) * 4
+    ms, plain_ms = time_pair(torch, lambda: walk_bwd(k, ins, pres),
+                             lambda: walk_bwd(kp, ins, pres))
+    out["walk_bwd"] = {"max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       **_route_bound(2.0 * flops_f, bytes_b, dtype_name)}
+    del full, ins, pres, gtop, ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_kernels(torch, card: str) -> dict:
+    """Phase 24a: ``tp_route_cases`` in f32 and bf16."""
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        cases = tp_route_cases(torch, dev, dtype_name)
+        for name, r in cases.items():
+            log(f"[24a] {name} {dtype_name} (rows {TP_ROWS}, width {TP_WIDTH}): max abs err "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"torch.addmm {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | card: {card}")
+        out[dtype_name] = cases
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[24a] took {out['wall_s']:.1f} s")
+    return out
+
+
+def tp_route_counts(what: str, needed) -> dict:
+    """``read_path_counts`` on the per-layer route: every kernel of
+    ``needed`` and the layer forward launched, no fused wrapper, no plain
+    version."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    counts = read_path_counts(what, needed)
+    fused = {k: counts["launches"].get(k, 0) for k in FUSED_KERNELS}
+    if any(fused.values()) or dm.ROUTE_LAUNCHES["fwd"] < 1:
+        fail(f"{what}: the fused route launched {fused}, the layer forward "
+             f"{dict(dm.ROUTE_LAUNCHES)}")
+    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
+    return counts
+
+
+def phase_tp_run(torch, card: str) -> dict:
+    """Phase 24b: NeDDF with both trunks TP_WIDTH wide on the card (the
+    per-layer route with one shard): its f32 step from the seeded
+    parameters against the JAX package (TP_STEP_REF), a 300-step run
+    through scripts/run.py (bf16, 512 rays: every loss finite, train PSNR
+    up >= 3 dB, every launch on the route and no plain call; ms/step, the
+    busy share, peak memory) and run_eval of its run dir through the
+    kernels and the plain versions within 0.05 dB."""
+    from neddf_tpu_torch.scripts.run_eval import evaluate
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    start = time.perf_counter()
+    refs = json.loads(TP_STEP_REF.read_text())
+    reset_path_counts()
+    out = {"step": phase_family_step(torch, card, TP_OVERRIDES, refs, TP_BATCH, "24b")}
+    out["step"]["counts"] = tp_route_counts("[24b] the f32 step", TP_RUN_KERNELS)
+    run_dir = OUT / "train_neddf_1024"
+    reset_path_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = run_main_path(torch, run_dir, [*TP_OVERRIDES["neddf_1024"],
+                                             f"trainer.epoch_save_model={TRAIN_EPOCHS}"])
+    wall = time.perf_counter() - t0
+    counts = tp_route_counts("[24b] the 1024-wide run", TP_RUN_KERNELS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = trainer.history
+    if len(hist) != 100 * (TRAIN_EPOCHS + 1) or not all(
+            math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+            for r in hist):
+        fail(f"[24b] {len(hist)} logged steps, or a non-finite loss")
+    first, last = mean([r["psnr"] for r in hist[:50]]), mean([r["psnr"] for r in hist[-50:]])
+    steady = [r["seconds"] for r in hist if 100 <= r["iteration"] < 200]
+    ms_step = 1000.0 * mean(steady)
+    log(f"[24b] 1024-wide NeDDF run: {trainer.iteration} steps in {wall:.1f} s, train PSNR "
+        f"{first:.3f} -> {last:.3f} dB (gain bar {PSNR_GAIN_MIN}), {ms_step:.2f} ms/step "
+        f"(steps 100-199, bf16, {trainer.batch_size} rays), peak {peak_gib:.2f} GiB; launches "
+        f"{counts['launches']}, layer forward {counts['layer_forward']}, products "
+        f"{counts['routes']['products']}, plain calls {counts['plain_calls']} | card: {card}")
+    if not last - first >= PSNR_GAIN_MIN:
+        fail("[24b] the 1024-wide run's train PSNR did not rise")
+    prof = profile_train(torch, trainer, card, "profile_train_neddf_1024.txt",
+                         f"{trainer.batch_size} rays, bf16, width {TP_WIDTH}", "24b")
+    del trainer
+    torch.cuda.empty_cache()
+    reset_path_counts()
+    ev = evaluate(run_dir, TRAIN_EPOCHS, cameras=[0], downsampling=8)
+    eval_counts = tp_route_counts("[24b] run_eval", TP_EVAL_KERNELS)
+    gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
+    psnrs = {}
+    for mode in ("kernels", "plain"):
+        ev.neural_render.network_fine.fused = "auto" if mode == "kernels" else "off"
+        ev.generator.manual_seed(ev.seed)
+        rgb = ev.render_test(run_dir / f"eval_{mode}", 0, 8)
+        psnrs[mode] = peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
+    gap = abs(psnrs["kernels"] - psnrs["plain"])
+    log(f"[24b] run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB through the "
+        f"kernels (launches {eval_counts['launches']}), {psnrs['plain']:.4f} dB plain, gap "
+        f"{gap:.4f} dB (bar {TP_EVAL_GAP_DB})")
+    if not gap <= TP_EVAL_GAP_DB:
+        fail("[24b] run_eval through the kernels and the plain versions disagree")
+    del ev
+    torch.cuda.empty_cache()
+    out.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
+                "routes": counts["routes"], "plain_calls": counts["plain_calls"],
+                "wall_s": wall, "ms_per_step": ms_step,
+                "rays_per_s": 512 / mean(steady), "busy_share": prof["busy_share"],
+                "device_ms_per_step": prof["device_ms_per_step"],
+                "launches_per_step": prof["launches_per_step"], "peak_memory_gib": peak_gib,
+                "psnr_first50": first, "psnr_last50": last, "eval_psnr": psnrs,
+                "eval_launches": eval_counts["launches"],
+                "eval_layer_forward": eval_counts["layer_forward"]})
+    out["phase_s"] = time.perf_counter() - start
+    return out
+
+
+def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
+    """One rank of phase 24c on cuda:0 beside the other, in a gloo group of
+    data 1 x model ``world``: per width of TP_RANK_STEPS, the one-rank
+    step (whole parameters) in f32 and bf16, then the TP step over the
+    rank's column shards (``shard_parameters``, ``tp_renderer``,
+    ``make_sharded_grads``; counts at 0 just before, read just after),
+    the gathered gradients' norms; then machine_neddf cam 0 at
+    downsampling 8, rendered whole and over the shards. Results into
+    ``OUT/tp_rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from neddf_tpu_torch.geometry.camera import PinholeCalib
+    from neddf_tpu_torch.parallel.mesh import (
+        gather_state,
+        make_mesh,
+        make_sharded_grads,
+        shard_parameters,
+        tp_shard_names,
+    )
+    from neddf_tpu_torch.render.renderer import tp_renderer
+    from neddf_tpu_torch.training.trainer import build_renderer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh(world)
+        for width, batch in TP_RANK_STEPS:
+            render, local = dp_local_step(torch, inp["steps"][width], dev)
+            params = list(render.parameters())
+            res = {}
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                render.network_fine.compute_dtype = dtype
+                for p in params:
+                    p.grad = None
+                res[name] = {"single": dp_numbers(render, *local())}
+            names = tp_shard_names(render, world)
+            shard_parameters(render, mesh, names)
+            tp_renderer(render, mesh.model_group)
+            sharded = make_sharded_grads(mesh, batch, 1,
+                                         [p for n, p in render.named_parameters() if n in names])
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                render.network_fine.compute_dtype = dtype
+                for p in params:
+                    p.grad = None
+                reset_path_counts()
+                loss, loss_dict, mse = sharded(local, params, None)
+                torch.cuda.synchronize()
+                counts = tp_route_counts(f"[24c] rank {rank} width {width} {name} TP step",
+                                         TP_RUN_KERNELS)
+                grads = gather_state({n: p.grad for n, p in render.named_parameters()}, mesh,
+                                     names)
+                res[name]["tp"] = {"loss": loss.item(), "mse": mse.item(),
+                                   "losses": {k: v.item() for k, v in loss_dict.items()},
+                                   "grad_norms": {k: v.norm().item() for k, v in grads.items()}}
+                res[name].update(counts)
+            times = []
+            for _ in range(3):
+                for p in params:
+                    p.grad = None
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                sharded(local, params, None)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            res["ms_per_step"] = times[1:]
+            out[width] = res
+            del render, local, params
+            torch.cuda.empty_cache()
+
+        # machine_neddf cam 0 at downsampling 8: whole, then over the shards
+        ev = inp["eval"]
+        render = build_renderer(ev["cfg"], 0, dev)
+        render.load_state_dict({k: torch.from_numpy(v) for k, v in ev["params"].items()})
+        r, t = (torch.as_tensor(x, device=dev) for x in ev["pose"])
+        calib = PinholeCalib(torch.as_tensor(ev["calib"], device=dev))
+
+        def image():
+            return render.render_image(calib, r, t, ev["width"], ev["height"], ["color"],
+                                       ev["downsampling"], ev["chunk"],
+                                       generator=torch.Generator(device=dev).manual_seed(0))
+
+        out["eval_whole"] = image()["color"]
+        names = tp_shard_names(render, world)
+        shard_parameters(render, mesh, names)
+        tp_renderer(render, mesh.model_group)
+        reset_path_counts()
+        out["eval_tp"] = image()["color"]
+        out["eval"] = tp_route_counts(f"[24c] rank {rank} TP eval render", TP_EVAL_KERNELS)
+    finally:
+        torch.save(out, OUT / f"tp_rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def phase_tp_ranks(torch, card: str) -> dict:
+    """Phase 24c: two gloo ranks of data 1 x model 2 on the one card
+    (``tp_rank``): the f32 TP step within TP_F32_TOL of the one-rank step,
+    bf16 within the step bars, each rank's launches on the route, and the
+    TP eval render of machine_neddf cam 0 within TP_EVAL_GAP_DB of the
+    whole one."""
+    import numpy as np
+
+    from neddf_tpu_torch.scripts.run_eval import load_trainer
+    from neddf_tpu_torch.training.checkpoint import load_msgpack_params, params_from_jax
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    start = time.perf_counter()
+    steps = {}
+    for width, batch in TP_RANK_STEPS:
+        extra = [] if width == 256 else TP_OVERRIDES["neddf_1024"]
+        trainer = family_trainer(torch, "neddf", extra)
+        render = trainer.neural_render
+        shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+        draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                                   render.sample_coarse + 1, render.sample_fine + 1,
+                                   seed=DP_DRAW_SEED, batch=batch)
+        steps[width] = {"cfg": trainer.config, "params": family_params(shapes), "draws": draws,
+                        "rgb": trainer.rgb_images[0].cpu().numpy(),
+                        "mask": trainer.mask_images[0].cpu().numpy(),
+                        "calib": trainer.calib.params.cpu().numpy(),
+                        "camera": trainer.camera_initials[0].cpu().numpy(),
+                        "iteration": MACHINE_ITERATION}
+        del trainer, render
+        torch.cuda.empty_cache()
+    ev_trainer = load_trainer(RUN, EPOCH)
+    with torch.no_grad():
+        pose = ev_trainer.camera_pose(0)
+    gt = ev_trainer.dataset[0]["rgb_images"].astype("uint8")
+    ev = {"cfg": ev_trainer.config, "pose": tuple(x.cpu().numpy() for x in pose),
+          "params": {k: v.numpy() for k, v in params_from_jax(load_msgpack_params(
+              RUN / "models" / f"model_{EPOCH:05}.ckpt")).items()},
+          "calib": ev_trainer.calib.params.cpu().numpy(),
+          "width": ev_trainer.dataset.image_width, "height": ev_trainer.dataset.image_height,
+          "downsampling": DP_EVAL_DOWNSAMPLING, "chunk": ev_trainer.chunk}
+    del ev_trainer
+    torch.cuda.empty_cache()
+    OUT.mkdir(parents=True, exist_ok=True)
+    store = OUT / f"tp_gloo_store_{time.time_ns()}"
+    for r in range(TP_WORLD):
+        (OUT / f"tp_rank{r}.pt").unlink(missing_ok=True)
+    context = torch.multiprocessing.start_processes(
+        tp_rank, args=(TP_WORLD, f"file://{store}", {"steps": steps, "eval": ev}),
+        nprocs=TP_WORLD, join=False, start_method="spawn")
+    try:
+        join_ranks(context, TP_RANK_TIMEOUT, "[24c]")
+    finally:
+        store.unlink(missing_ok=True)
+    ranks = [torch.load(OUT / f"tp_rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    out = {"ranks": []}
+    ds = DP_EVAL_DOWNSAMPLING
+    for rank in ranks:
+        entry = {"rank": rank["rank"]}
+        for width, batch in TP_RANK_STEPS:
+            res = rank[width]
+            for name in ("float32", "bfloat16"):
+                got, ref = res[name]["tp"], res[name]["single"]
+                if name == "float32":
+                    worst = max([check_close(f"[24c] width {width} f32 {k}", got[k], ref[k],
+                                             TP_F32_TOL) for k in ("loss", "mse")]
+                                + [check_close(f"[24c] width {width} f32 loss {k}",
+                                               got["losses"][k], v, TP_F32_TOL)
+                                   for k, v in ref["losses"].items()]
+                                + [check_close(f"[24c] width {width} f32 grad norm {k}",
+                                               got["grad_norms"][k], v, TP_F32_TOL)
+                                   for k, v in ref["grad_norms"].items()])
+                    gaps = {"worst_rel": worst}
+                else:
+                    worst_loss, worst_grad = bf16_step_gaps(got, ref)
+                    gaps = {"worst_loss_rel": worst_loss, "worst_grad_norm_rel": worst_grad}
+                log(f"[24c] rank {rank['rank']} width {width} {name}: the TP step (data 1 x "
+                    f"model 2) vs one rank's on the same draws: {json.dumps(gaps)} (bars: f32 "
+                    f"{TP_F32_TOL}, bf16 {json.dumps(BF16_STEP_TOL)}); launches "
+                    f"{res[name]['launches']}, layer forward {res[name]['layer_forward']}, "
+                    f"products {res[name]['routes']['products']}, plain calls "
+                    f"{res[name]['plain_calls']}")
+                entry[f"{width}/{name}"] = {"gaps": gaps, "launches": res[name]["launches"],
+                                            "layer_forward": res[name]["layer_forward"],
+                                            "products": res[name]["routes"]["products"],
+                                            "passes": res[name]["routes"]["passes"]}
+            entry[f"{width}/ms_per_step"] = res["ms_per_step"]
+            log(f"[24c] rank {rank['rank']} width {width}, {batch} rays: "
+                f"{statistics.median(res['ms_per_step']):.2f} ms per TP bf16 step (two ranks "
+                f"sharing ONE card over gloo: not a TP speed) | card: {card}")
+        psnr = {k: peak_signal_noise_ratio(
+            np.clip(np.asarray(rank[k]) * 255, 0, 255).astype("uint8"),
+            gt[::ds, ::ds][: rank[k].shape[0], : rank[k].shape[1]])
+            for k in ("eval_whole", "eval_tp")}
+        gap = abs(psnr["eval_tp"] - psnr["eval_whole"])
+        log(f"[24c] rank {rank['rank']} machine_neddf cam 0 at downsampling {ds}: {psnr['eval_tp']:.4f} "
+            f"dB over the two ranks' shards, {psnr['eval_whole']:.4f} dB whole, gap {gap:.4f} dB "
+            f"(bar {TP_EVAL_GAP_DB}); launches {rank['eval']['launches']}, layer forward "
+            f"{rank['eval']['layer_forward']}")
+        if not gap <= TP_EVAL_GAP_DB:
+            fail(f"[24c] the TP render is {gap:.4f} dB from the whole one")
+        entry["eval_psnr"] = psnr
+        entry["eval_launches"] = rank["eval"]["launches"]
+        entry["eval_layer_forward"] = rank["eval"]["layer_forward"]
+        out["ranks"].append(entry)
+    if not np.array_equal(np.asarray(ranks[0]["eval_tp"]), np.asarray(ranks[1]["eval_tp"])):
+        fail("[24c] the ranks' TP renders differ")
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[24c] took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_24_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase 24``: the build and phase 24 alone
+    (its results into ``OUT/phase24.json``), for work on the per-layer
+    route; the full smoke runs every phase."""
+    from neddf_tpu_torch.kernels import _build
+
+    card = card_line()
+    start = time.perf_counter()
+    _build.library()
+    log(f"[2] kernels built/loaded in {time.perf_counter() - start:.1f} s | card: {card}")
+    out = {"kernels": phase_tp_kernels(torch, card), "ranks": phase_tp_ranks(torch, card),
+           "run": phase_tp_run(torch, card)}
+    drop_large_outputs()
+    (OUT / "phase24.json").write_text(json.dumps(out, indent=1, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "phase": 24, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -4472,6 +5027,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cache_datasets()
+    if sys.argv[1:] == ["--phase", "24"]:
+        return phase_24_alone(torch)
     # phase 19's capture, made on the host while the card runs phases 2-18
     llff_capture = start_llff_capture(OUT / "llff400")
     atexit.register(stop_process, llff_capture[0])
@@ -4741,6 +5298,10 @@ def main() -> int:
     dp_step, dp_eval = dp["gloo_two_ranks"][0]["bfloat16"], dp["gloo_two_ranks"][0]["eval"]
     dp_f32 = dp["gloo_two_ranks"][0]["float32"]
 
+    # ---- phase 24: the per-layer route (tensor parallelism, widths over 512)
+    tp = {"kernels": phase_tp_kernels(torch, card), "run": phase_tp_run(torch, card),
+          "ranks": phase_tp_ranks(torch, card)}
+
     def dp_launches(counter: str) -> dict:
         # one rank's launches per sharded step (bf16) and in the sharded eval render
         return {"step_per_rank": dp_step["launches"].get(counter, 0),
@@ -4878,6 +5439,48 @@ def main() -> int:
                                    if route in widths_acts["paths"][f"{path}/{m}"]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None})
+    # phase 24: the per-layer route's modes (24a, bf16 at TP_ROWS rows and
+    # width 1024), the launches of 24b's 1024-wide run and of one TP rank's
+    # bf16 step at width 1024 (24c)
+    tp_run, tp_rank0 = tp["run"], tp["ranks"]["ranks"][0]
+    tp_step = tp_rank0[f"{TP_WIDTH}/bfloat16"]
+    for name, key, source, replaces, launches, per_rank in (
+            ("neddf_layer_fwd (per-layer route, K=3 trunk layer, 1024 -> 1024)", "fwd_trunk",
+             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/dual_mlp.py:635",
+             tp_run["layer_forward"]["fwd"], tp_step["layer_forward"]["fwd"]),
+            ("neddf_layer_fwd (per-layer route, K=1 colour layer 0, [87 | 1024] -> 1024)",
+             "fwd_color", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+             "neddf_tpu/kernels/dual_mlp.py:635", tp_run["layer_forward"]["fwd"],
+             tp_step["layer_forward"]["fwd"]),
+            ("neddf_layer_fwd (value-only per-layer route, eval colour layer 0)", "fwd_value",
+             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:192",
+             tp_run["eval_layer_forward"]["fwd_value"],
+             tp_rank0["eval_layer_forward"]["fwd_value"]),
+            ("dual_mlp_layers forward walk (K=3 trunk, 7 layers at 1024)", "walk_fwd",
+             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/dual_mlp.py:635",
+             tp_run["launches"]["dual_mlp_layers"], tp_step["launches"]["dual_mlp_layers"]),
+            ("dual_mlp_layers backward walk (K=3 trunk: gstack, tn and nt products per layer)",
+             "walk_bwd", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+             "neddf_tpu/kernels/dual_mlp.py:935", tp_run["launches"]["dual_mlp_layers"],
+             tp_step["launches"]["dual_mlp_layers"]),
+            ("gstack_kernel (f32 cotangents, the per-layer route's backward)", "gstack_f32",
+             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/dual_mlp.py:935",
+             tp_run["routes"]["passes"]["gstack"], tp_step["passes"]["gstack"]),
+            ("neddf_epilogue (width 1024)", "epilogue", "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+             "neddf_tpu/kernels/neddf_epilogue.py:329", tp_run["launches"]["neddf_epilogue"],
+             tp_step["launches"]["neddf_epilogue"]),
+            ("neddf_epilogue_bwd (standalone mode, width 1024)", "epilogue_bwd",
+             "neddf_tpu_torch/csrc/neddf_epilogue.cu", "neddf_tpu/kernels/neddf_epilogue.py:365",
+             tp_run["launches"]["neddf_epilogue_bwd"],
+             tp_step["launches"]["neddf_epilogue_bwd"])):
+        r = tp["kernels"]["bfloat16"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(
+                tp["kernels"][d][key]["max_abs_err"] for d in ("float32", "bfloat16")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches_tp_rank_step": per_rank})
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -4890,7 +5493,7 @@ def main() -> int:
         "other_configs": other_configs, "resume": resume, "camera": camera,
         "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
         "data_parallel": dp, "widths_acts": widths_acts, "wide_steps": wide_steps,
-        "wide_runs": wide_runs,
+        "wide_runs": wide_runs, "tensor_parallel": tp,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -57,6 +57,12 @@ def _set_dotted(cfg: ConfigDict, dotted: str, value: Any) -> None:
     node[keys[-1]] = value
 
 
+def compose_override(cfg: ConfigDict, dotted: str, value: str) -> None:
+    """Set the leaf ``dotted`` of a composed config to the scalar that
+    ``value`` reads as (an override ``a.b=value``)."""
+    _set_dotted(cfg, dotted, yaml_subset.parse_scalar(value))
+
+
 def compose(
     config_dir: Union[str, Path],
     config_name: str = "config",

@@ -90,9 +90,21 @@ extern "C" int neddf_sum_splits(long long n, int splits, const void* parts, void
 
 namespace {
 
-using neddf::width_class;
-
 constexpr int kChunk = 256;  // columns of one lane mapping: 8 per lane
+// the widest width: the per-layer route's (kernels/dual_mlp.py
+// ROUTE_MAX_WIDTH); past the tile forward's 512 the forward loops over
+// 256-column chunks and the backward's standalone mode has the classes
+// 1024 and 2048
+constexpr int kMaxEpiWidth = 2048;
+
+// the backward's width class of a width: the tile forward's classes up to
+// 512, then 1024 and 2048 (0 past kMaxEpiWidth)
+constexpr int epi_class(int n) {
+  return n <= neddf::kMaxWidth ? neddf::width_class(n)
+         : n <= 1024           ? 1024
+         : n <= kMaxEpiWidth   ? 2048
+                               : 0;
+}
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kOut = 10;
@@ -328,6 +340,77 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// the forward past C = 512 (the per-layer route): one warp per row as
+// above, the lane's 8 columns of each 256-column chunk in turn, so that
+// only the 8 head-dot partials stay in registers: the dots in the order
+// of head_dots (chunk by chunk, then the butterfly), then the scalar
+// chain, then t_feat chunk by chunk, the tangent streams read again (4
+// planes read, 1 read again, 1 written: the forward stays bound by device
+// memory)
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    epi_fwd_wide_kernel(int M, int C, int dact, const T* __restrict__ v,
+                        const T* __restrict__ j, const float* __restrict__ wd,
+                        const float* __restrict__ wa, const float* __restrict__ b2,
+                        const float* __restrict__ scal, float* __restrict__ out,
+                        T* __restrict__ t_feat) {
+  const int lane = threadIdx.x % 32;
+  const int m = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (m >= M) return;
+  const bool vec = C % 8 == 0;  // rows of whole 16-byte vectors (bf16; f32 two)
+  const int nch = (C + kChunk - 1) / kChunk;
+  float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int k = 0; k < nch; ++k) {
+    const int c0 = k * kChunk + lane * 8;
+    const int n = max(0, min(8, C - c0));
+    float wdr[8], war[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      wdr[e] = e < n ? round_to<T>(wd[c0 + e]) : 0.f;
+      war[e] = e < n ? round_to<T>(wa[c0 + e]) : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float x[8];
+      load_n<8>((s == 0 ? v + (size_t)m * C : j + ((size_t)(s - 1) * M + m) * C) + c0, vec, n,
+                x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p1[s] = fmaf(x[e], wdr[e], p1[s]);
+        p2[s] = fmaf(x[e], war[e], p2[s]);
+      }
+    }
+  }
+  float h1[4], h2[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    h1[s] = warp_sum(p1[s]);
+    h2[s] = warp_sum(p2[s]);
+  }
+  const Row r = row_math(h1, h2, b2, scal, dact);
+  if (lane == 0) {
+    const float vals[kOut] = {r.density, r.distance, r.aux,    r.norm[0], r.norm[1],
+                              r.norm[2], r.dg[0],    r.dg[1], r.dg[2],   r.pen};
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) out[(size_t)k * M + m] = vals[k];
+  }
+#pragma unroll 1
+  for (int k = 0; k < nch; ++k) {
+    const int c0 = k * kChunk + lane * 8;
+    const int n = max(0, min(8, C - c0));
+    float tf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float x[8];
+      load_n<8>(j + ((size_t)a * M + m) * C + c0, vec, n, x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tf[e] = a == 0 ? x[e] * r.dg[0] : fmaf(x[e], r.dg[a], tf[e]);
+    }
+    store_n<8>(t_feat + (size_t)m * C + c0, vec, n, tf);
+  }
+}
+
 // the backward's operands: the staged planes' row-0 pointers (row stride
 // C, stage order above) and the outputs: out_v [M, C] and out_t [3, M, C]
 // (dv, dj; TOP: the planes of gs)
@@ -354,7 +437,12 @@ constexpr int kPlanes = TOP ? (neddf::kZeroDeriv2<ACT> ? 7 : 10) : 5;
 
 // rows of a tile at the pitch P (C's width class)
 template <int P>
-constexpr int kTileRowsAt = P > kChunk ? 4 : kMaxTileRows;
+constexpr int kTileRowsAt = P > 1024 ? 1 : P > 512 ? 2 : P > kChunk ? 4 : kMaxTileRows;
+
+// phase b's column vector at the pitch P: 16 bytes, or 8 f32 at P = 2048
+// (so that the vectors of a row are at most one per thread)
+template <typename T, int P>
+constexpr int kVecAt = Vec16<T>::N * kThreads >= P ? Vec16<T>::N : P / kThreads;
 
 // the dynamic shared memory of a block at pitch P: the stages, or the
 // partial's reduction [kThreads / (P / V)][3 P] if that is larger
@@ -362,7 +450,7 @@ template <typename T, int ACT, bool TOP, int P>
 constexpr size_t epi_bwd_smem() {
   constexpr size_t stages = (size_t)kStages * kPlanes<ACT, TOP> * kTileRowsAt<P> * P * sizeof(T);
   constexpr size_t red =
-      (size_t)(kThreads / (P / Vec16<T>::N)) * (TOP ? 3 : 2) * P * sizeof(float);
+      (size_t)(kThreads / (P / kVecAt<T, P>)) * (TOP ? 3 : 2) * P * sizeof(float);
   return stages > red ? stages : red;
 }
 
@@ -427,7 +515,7 @@ template <typename T, int ACT, bool TOP, int P>
 __global__ void __launch_bounds__(kThreads, 2) epi_bwd_kernel(const EpiBwdArgs<T> a) {
   constexpr int NP = kPlanes<ACT, TOP>;
   constexpr bool kCouple = TOP && !neddf::kZeroDeriv2<ACT>;
-  constexpr int V = Vec16<T>::N;
+  constexpr int V = kVecAt<T, P>;
   constexpr int R = kTileRowsAt<P>;            // rows per tile
   constexpr int CV = P / V;                    // column vectors per row
   constexpr int kVecs = (R * CV + kThreads - 1) / kThreads;  // per thread per tile
@@ -677,16 +765,26 @@ cudaError_t epi_bwd_blocks(int M, int* blocks) {
 }
 
 // fn(ACT, TOP, P) for the run-time activation, mode and width (the
-// standalone mode takes no activation)
+// standalone mode takes no activation; the top mode, the fused trunk's,
+// no width past the tile forward's 512)
 template <typename F>
 cudaError_t by_mode(int act, int top, int width, F&& fn) {
-  return neddf::by_class(width, [&](auto p_) -> cudaError_t {
+  auto by_p = [&](auto p_) -> cudaError_t {
     if (!top) return fn(std::integral_constant<int, neddf::kTanhExp>{}, std::false_type{}, p_);
-    return neddf::by_act(act, [&](auto a_) { return fn(a_, std::true_type{}, p_); });
-  });
+    if constexpr (decltype(p_)::value > neddf::kMaxWidth) {
+      return cudaErrorInvalidValue;
+    } else {
+      return neddf::by_act(act, [&](auto a_) { return fn(a_, std::true_type{}, p_); });
+    }
+  };
+  switch (epi_class(width)) {
+    case 1024: return by_p(std::integral_constant<int, 1024>{});
+    case 2048: return by_p(std::integral_constant<int, 2048>{});
+  }
+  return neddf::by_class(width, by_p);
 }
 
-bool bad_width(int width) { return width_class(width) == 0; }
+bool bad_width(int width) { return epi_class(width) == 0; }
 
 }  // namespace
 
@@ -731,7 +829,7 @@ extern "C" int NEDDF_EPI_FN(int act, int top, const void* args, int blocks, int*
 #else
 
 // The forward over M rows of v [M, width] and j [3, M, width] (dtype 1
-// bf16 or 0 f32, any width up to 512) with the f32 head weights wd, wa
+// bf16 or 0 f32, any width up to 2048) with the f32 head weights wd, wa
 // [width], b2 [2], scal [8]: out [10, M] f32 and t_feat [M, width]; dact
 // the density activation's code (as the trunk's: 0 tanhExp, 1 ReLU, 2
 // LeakyReLU, 3 Softplus, 4 Sigmoid).
@@ -756,9 +854,14 @@ extern "C" int neddf_epilogue_fwd(int dtype, int dact, int width, int M, const v
                                       static_cast<T*>(t_feat));
   };
   auto shaped = [&](auto t_) {  // NCH chunks of 256 columns; FULL: width = 256 NCH
+    using T = decltype(t_);
     using One = std::integral_constant<int, 1>;
     using Two = std::integral_constant<int, 2>;
-    if (width > kChunk) {
+    if (width > 2 * kChunk) {
+      epi_fwd_wide_kernel<T><<<grid, kWarps * 32, 0, s>>>(
+          M, width, dact, static_cast<const T*>(v), static_cast<const T*>(j), f_wd, f_wa, f_b2,
+          f_sc, o, static_cast<T*>(t_feat));
+    } else if (width > kChunk) {
       if (width == 2 * kChunk) launch(t_, Two{}, std::true_type{});
       else launch(t_, Two{}, std::false_type{});
     } else {
@@ -789,7 +892,8 @@ extern "C" int neddf_epilogue_bwd_blocks(int dtype, int act, int top, int width,
 }
 
 // The epilogue's backward over M rows of the streams v [M, C] and j [3, M,
-// C] (C = width, any up to 512; dtype 1 bf16 or 0 f32) with the f32 head
+// C] (C = width, any up to 2048, the top mode up to 512; dtype 1 bf16 or 0
+// f32) with the f32 head
 // weights wd, wa [C], b2 [2], scal [8], the density activation's code dact
 // and the cotangents g_out [10, M] f32 (rows 0, 1, 2, 9 read) and g_tfeat
 // [M, C]. top 0: dv into out_v [M, C], dj into out_t [3, M, C]; g_col and

@@ -74,9 +74,12 @@ class Linear(nn.Module):
 def use_kernels(fused: str, device: torch.device, name: str) -> bool:
     """Whether a field runs its kernels: ``off`` never, ``auto`` on CUDA
     tensors, ``on`` on CUDA tensors and raises on others. On CUDA tensors
-    a configuration the kernels do not take (a width but 256, say) makes
+    a configuration the kernels do not take (a width over 2048, say) makes
     their wrappers raise NotImplementedError: nothing on the card falls
-    back to the plain versions."""
+    back to the plain versions. The rule holds on both of a field's
+    routes, the fused one and the per-layer one that a field with a
+    ``tp_group`` (tensor parallelism: NeDDF's model group, None outside
+    it) or a width over 512 takes (``fields/neddf.py``)."""
     if fused == "off":
         return False
     if device.type == "cuda":

@@ -39,6 +39,18 @@ the shipped configs); heads, density and penalties run in f32. ``fused``
 selects the trunk implementation: ``auto`` runs the CUDA kernels on CUDA
 tensors and their plain versions on CPU tensors, ``on`` requires CUDA
 tensors, ``off`` always runs the plain versions.
+
+The per-layer route (``per_layer``): under tensor parallelism
+(``tp_group``, the model group of ``parallel/mesh.py``; the JAX
+package's ``tp_axis``) the trunks' layers hold this rank's column shards
+of the weights ([fan_in, W/n], their biases [W/n]) and each layer's
+output is gathered to the full width before the next one
+(``parallel/tp.py``; JAX ``neddf.py:552, :644, :708``); a field wider
+than the tile forward's 512 takes the same route with one shard. The
+trunks run one layer at a time (``kernels/dual_mlp.py::dual_mlp_layers``,
+``kernels/mlp.py::mlp_seg_layers``), the epilogue on its own
+(``NeDDFEpilogue``) on the gathered features, replicated as the heads
+are. At ``model = 1`` and widths up to 512 the fused trunks stay.
 """
 from __future__ import annotations
 
@@ -56,12 +68,16 @@ from neddf_tpu_torch.fields.base import (
 )
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.kernels.dual_mlp import (
+    KERNEL_MAX_WIDTH,
     dual_mlp_apply,
+    dual_mlp_layers,
+    dual_mlp_layers_walk,
     dual_mlp_trunk,
     dual_mlp_trunk_plain,
+    layer_launcher,
 )
-from neddf_tpu_torch.kernels.mlp import mlp_seg, mlp_seg_plain
-from neddf_tpu_torch.kernels.neddf_epilogue import DDFTrunkEpilogue
+from neddf_tpu_torch.kernels.mlp import mlp_seg, mlp_seg_layers, mlp_seg_plain
+from neddf_tpu_torch.kernels.neddf_epilogue import DDFTrunkEpilogue, NeDDFEpilogue
 from neddf_tpu_torch.ops.activations import (
     ACTIVATIONS,
     relu,
@@ -129,6 +145,11 @@ class NeDDF(nn.Module):
         )
         self.compute_dtype = _DTYPES[compute_dtype]
         self.fused = fused
+        self.ddf_layer_width = ddf_layer_width
+        self.col_layer_width = col_layer_width
+        # tensor parallelism: the model group whose ranks hold the trunks'
+        # column shards (parallel/mesh.py::shard_parameters), or None
+        self.tp_group = None
 
         pe_dim = embed_pos_rank * 6
         w, cw = ddf_layer_width, col_layer_width
@@ -161,6 +182,13 @@ class NeDDF(nn.Module):
 
     def _use_kernels(self, device: torch.device) -> bool:
         return use_kernels(self.fused, device, "NeDDF")
+
+    @property
+    def per_layer(self) -> bool:
+        """Whether the trunks take the per-layer route: a width shard under
+        tensor parallelism, or a width over the tile forward's 512."""
+        return (self.tp_group is not None
+                or max(self.ddf_layer_width, self.col_layer_width) > KERNEL_MAX_WIDTH)
 
     def _trunk_params(self, layers: nn.ModuleList):
         cd = self.compute_dtype
@@ -200,10 +228,17 @@ class NeDDF(nn.Module):
             pos, rank, var=var, chan_scale=pe_grad_scale(rank, device) * lowpass
         )
         w_ddf, b_ddf = self._trunk_params(self.layers_ddf)
-        v_feat, j_feat = trunk(
-            emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(),
-            w_ddf, b_ddf, self.trunk_layout, act,
-        )
+        if self.per_layer:
+            feat, _, _ = dual_mlp_layers_walk(
+                [emb_v.to(cd).contiguous()], [emb_j.to(cd).contiguous()], w_ddf, b_ddf,
+                self.trunk_layout, act, (True,), 3, layer_launcher(cd, device, use_kernels),
+                self.tp_group)
+            v_feat, j_feat = feat[0], feat[1:]
+        else:
+            v_feat, j_feat = trunk(
+                emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(),
+                w_ddf, b_ddf, self.trunk_layout, act,
+            )
 
         # both 1-wide heads in one [C, 2] matmul, in f32
         wd, bd = self._head(self.layer_ddf_out)
@@ -230,7 +265,10 @@ class NeDDF(nn.Module):
             v_feat,
         ]
         w_col, b_col = self._trunk_params(self.layers_col)
-        hc = col_mlp(segs, w_col, b_col, (False,) * len(w_col), act)
+        if self.per_layer:
+            hc = mlp_seg_layers(segs, w_col, b_col, act, use_kernels, self.tp_group)
+        else:
+            hc = col_mlp(segs, w_col, b_col, (False,) * len(w_col), act)
         w_co, b_co = self._head(self.layer_col_out)
         color = hc.float() @ w_co + b_co  # [M, 3]
         return {
@@ -270,14 +308,25 @@ class NeDDF(nn.Module):
              wm.get("range_distance", 1.0), wm.get("range_aux_grad", 1.0), 0.0],
             dtype=torch.float32, device=device,
         )
-        # the trunk and the epilogue in one op: its backward finishes the
-        # trunk's top layer in the epilogue's kernel
-        v_feat, out, t_feat = DDFTrunkEpilogue.apply(
-            (self.trunk_layout, act, cd, use_kernels, self.density_activation_type),
-            emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(),
-            self.layer_ddf_out.w[:, 0], self.layer_aux_out.w[:, 0], b2, scal,
-            *[layer.w for layer in self.layers_ddf], *[layer.b for layer in self.layers_ddf],
-        )
+        heads = (self.layer_ddf_out.w[:, 0], self.layer_aux_out.w[:, 0], b2, scal)
+        if self.per_layer:
+            # the trunk one layer at a time (gathered after each), then the
+            # epilogue on the full-width features
+            feat = dual_mlp_layers(
+                [emb_v.to(cd).contiguous()], [emb_j.to(cd).contiguous()],
+                [layer.w for layer in self.layers_ddf], [layer.b for layer in self.layers_ddf],
+                self.trunk_layout, act, (True,), 3, cd, use_kernels, self.tp_group)
+            v_feat = feat[0]
+            out, t_feat = NeDDFEpilogue.apply(
+                (use_kernels, self.density_activation_type), v_feat, feat[1:], *heads)
+        else:
+            # the trunk and the epilogue in one op: its backward finishes the
+            # trunk's top layer in the epilogue's kernel
+            v_feat, out, t_feat = DDFTrunkEpilogue.apply(
+                (self.trunk_layout, act, cd, use_kernels, self.density_activation_type),
+                emb_v.to(cd).contiguous(), emb_j.to(cd).contiguous(), *heads,
+                *[layer.w for layer in self.layers_ddf], *[layer.b for layer in self.layers_ddf],
+            )
         density, distance, aux_grad, pen4 = out[0], out[1], out[2], out[9]
         norm_dir = out[3:6].T.detach()  # [M, 3]
         t_dir = out[6:9].T.detach()  # [M, 3], the tangent direction sg(grad D)
@@ -285,7 +334,7 @@ class NeDDF(nn.Module):
         # ---- K=1 directional colour branch
         embed_dir = positional_encoding_mip(direction, self.embed_dir_rank)
         ep_v, ep_t = pe_dual_directional_mip(pos, rank, t_dir, var=var, chan_scale=lowpass)
-        hc_v, hc_t = dual_mlp_apply(
+        col_args = (
             [ep_v.to(cd).contiguous(), embed_dir.to(cd).contiguous(),
              norm_dir.to(cd).contiguous(), v_feat],
             [ep_t.to(cd)[None].contiguous(), t_feat[None]],
@@ -293,6 +342,11 @@ class NeDDF(nn.Module):
             (False,) * len(self.layers_col), act, (True, False, False, True), 1, cd,
             use_kernels,
         )
+        if self.per_layer:
+            hc = dual_mlp_layers(*col_args, self.tp_group)
+            hc_v, hc_t = hc[0], hc[1:]
+        else:
+            hc_v, hc_t = dual_mlp_apply(*col_args)
         w_co = self.layer_col_out.w.to(cd).float()
         b_co = self.layer_col_out.b.to(cd).float()
         color = hc_v.float() @ w_co + b_co  # [M, 3]

@@ -148,7 +148,12 @@ def library() -> ctypes.CDLL:
         "neddf_sdf_top": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
-            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP,
+        ],
+        "neddf_layer_fwd": [
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
+            _VOIDP, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
         ],
         "neddf_gemm_tc": [
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT,

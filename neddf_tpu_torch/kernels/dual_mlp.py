@@ -19,6 +19,18 @@ values and ``f'(z_v) * z_t`` for the tangents.
 * ``DualMLPSeg`` is the ``torch.autograd.Function`` over both: it takes
   f32 master weights, casts them to the compute dtype inside, and
   returns f32 dW/db (``_seg_bwd:1224-1225``).
+* The per-layer route (``dual_mlp_layers``, ``DualMLPLayers``): the same
+  function one layer at a time, for a column shard of each layer under
+  tensor parallelism and for widths over the tile forward's 512 (up to
+  ``ROUTE_MAX_WIDTH``). Each layer is one product on the tensor cores
+  with the activation as its epilogue (``DualProducts.layer_fwd``,
+  ``csrc/dual_mlp_bwd.cu::neddf_layer_fwd``: the streams grouped by point
+  in a row tile, layer 0's segments and a post-skip ``[seg0, h]`` as two
+  K segments), its output gathered over the model group before the next
+  layer reads it (``parallel/tp.py``); the backward per layer: ``gstack``
+  from the f32 cotangent of the layer's shard, dW = x^T G (tn) over the
+  layer's saved full-width input, and G W^T (nt), whose partial sum is
+  reduce-scattered before the layer below.
 
 For a CPU tensor each wrapper runs its plain version (``*_plain``), the
 same arithmetic in torch ops; for a CUDA tensor it launches its kernel
@@ -48,6 +60,13 @@ _SEG_N_TAN = (1, 3)
 # the widest layer the kernels take: csrc/mlp_tile.cuh instantiates the
 # width classes 64, 128, 256 and 512, a width runs on the next class up
 KERNEL_MAX_WIDTH = 512
+# the widest layer of the per-layer route (``dual_mlp_layers``): its
+# products take any width, the NeDDF epilogue (csrc/neddf_epilogue.cu)
+# has the classes up to 2048
+ROUTE_MAX_WIDTH = 2048
+# stream counts S = K+1 of the per-layer forward (csrc/dual_mlp_bwd.cu
+# neddf_layer_fwd): the K=3 and K=1 dual trunks and the value-only MLP
+_ROUTE_STREAMS = (1, 2, 4)
 _KERNEL_MAX_LAYERS = 8
 _KERNEL_MAX_SEGMENTS = 4
 # the kernels' activations (csrc/mlp_tile.cuh: kTanhExp, kReLU, kLeakyReLU,
@@ -267,6 +286,20 @@ def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
     if not 1 <= n_layers <= _KERNEL_MAX_LAYERS:
         return f"{n_layers} layers"
     if n_tan not in (_KERNEL_N_TAN if trunk else _SEG_N_TAN):
+        return f"K={n_tan}"
+    return None
+
+
+def route_refusal(act_name: str, width: int, n_tan: int) -> Optional[str]:
+    """What of a configuration the per-layer route does not take (None: it
+    takes it): ``width`` is the full (gathered) width of the layer."""
+    if act_name not in _ACT_CODES:
+        return f"activation {act_name!r}"
+    if width > ROUTE_MAX_WIDTH:
+        return f"width {width} > {ROUTE_MAX_WIDTH}"
+    if width < 1:
+        return f"width {width}"
+    if n_tan + 1 not in _ROUTE_STREAMS:
         return f"K={n_tan}"
     return None
 
@@ -538,6 +571,12 @@ _NO_ACT = -1
 _MODE_DACT, _MODE_ADJOINT = 1, 2
 _EPI_ROWS = 128
 _SUM_GROUP_ROWS = 64
+
+# launches of the per-layer route's forward (csrc/dual_mlp_bwd.cu
+# neddf_layer_fwd), one per layer of a rank's column shard: "fwd" the dual
+# trunks' (K = 1, 3), "fwd_value" the value-only MLP's (kernels/mlp.py);
+# the backward counts in PASS_LAUNCHES["gstack"] and the products' counters
+ROUTE_LAUNCHES = {"fwd": 0, "fwd_value": 0}
 
 # launches of the elementwise kernels that the dual backward runs beside
 # its products: gstack, the top layer's stacked cotangent (one per call);
@@ -817,15 +856,20 @@ class DualProducts(Products):
 
     def gstack(self, gv: Tensor, gj: Tensor, z: Tensor, act_name: str):
         """The top layer's (T(G) [S, M, C], db [C] f32) from the output
-        cotangents gv [M, C], gj [K, M, C] and the stash z [S, M, C], all
-        in T: G_v = g_v f'(z_v) + f''(z_v) sum_a g_a z_a, G_a = g_a
-        f'(z_v); db the column sums of G_v."""
+        cotangents gv [M, C], gj [K, M, C] (in T, or in f32: the per-layer
+        route's) and the stash z [S, M, C] in T: G_v = g_v f'(z_v) +
+        f''(z_v) sum_a g_a z_a, G_a = g_a f'(z_v); db the column sums of
+        G_v."""
         s, m, c = z.shape
+        g_f32 = gv.dtype == torch.float32
+        if gj.dtype != gv.dtype or gv.dtype not in (self.dtype, torch.float32):
+            raise TypeError(f"gstack: cotangents {gv.dtype}/{gj.dtype}")
         gs = self._empty((s, m, c), self.dtype)
         parts = self._empty((-(-m // _DB_ROWS), c))
         _build.check(self.lib.neddf_dual_bwd_gstack(
-            self.dt, _ACT_CODES[act_name], s - 1, c, m, _DB_ROWS, gv.data_ptr(), gj.data_ptr(),
-            z.data_ptr(), gs.data_ptr(), parts.data_ptr(), self.stream), "dual backward gstack")
+            self.dt, int(g_f32), _ACT_CODES[act_name], s - 1, c, m, _DB_ROWS, gv.data_ptr(),
+            gj.data_ptr(), z.data_ptr(), gs.data_ptr(), parts.data_ptr(), self.stream),
+            "dual backward gstack")
         PASS_LAUNCHES["gstack"] += 1
         return gs, self.sum_rows(parts)
 
@@ -872,6 +916,38 @@ class DualProducts(Products):
         return out
 
 
+    def layer_fwd(self, xs: Sequence[Tensor], w: Tensor, b: Tensor, act_name: str,
+                  stash: bool):
+        """One layer of the per-layer route (``neddf_layer_fwd``): the
+        streams x [S, M, K] in one or two K segments ``xs`` (T, each a
+        contiguous [S, M, k_i]) times the weight columns w [K, N] (T, N
+        contiguous), the bias b [N] f32 on the value stream, activated:
+        returns (out [S, M, N], the stash z [S, M, N] or None), both T."""
+        s, m = xs[0].shape[:2]
+        n = w.shape[1]
+        k_split = xs[0].shape[2]
+        if len(xs) > 2 or sum(x.shape[2] for x in xs) != w.shape[0]:
+            raise ValueError(f"layer forward: segments {[tuple(x.shape) for x in xs]}, "
+                             f"weight {tuple(w.shape)}")
+        for t in (*xs, w):
+            if t.dtype != self.dtype or not t.is_contiguous():
+                raise ValueError("layer forward: operand dtype or layout")
+        out = self._empty((s, m, n), self.dtype)
+        z = self._empty((s, m, n), self.dtype) if stash else None
+        if m == 0:
+            return out, z
+        a2 = xs[1] if len(xs) == 2 else None
+        vec = [_vec_width(x.data_ptr(), x.shape[2], x.element_size()) for x in xs]
+        _build.check(self.lib.neddf_layer_fwd(
+            self.dt, _ACT_CODES[act_name], s, m, n, w.shape[0], xs[0].data_ptr(), k_split,
+            vec[0], None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.shape[2],
+            0 if a2 is None else vec[1], k_split, w.data_ptr(), n,
+            _vec_width(w.data_ptr(), n, w.element_size()), b.data_ptr(), out.data_ptr(),
+            None if z is None else z.data_ptr(), self.stream), "per-layer forward")
+        ROUTE_LAUNCHES["fwd" if s > 1 else "fwd_value"] += 1
+        return out, z
+
+
 class DualProductsPlain(ProductsPlain):
     """The plain version of ``DualProducts``: the same methods in PyTorch,
     with the grouped tile's bookkeeping (the reduction in grouped stages
@@ -901,6 +977,13 @@ class DualProductsPlain(ProductsPlain):
     def nt_gstack(self, gs, w_rows, z, act_name):
         self.planes.append("gs")
         return self._gstack(self.nt(gs, w_rows), z, act_name, _EPI_ROWS // gs.shape[0])
+
+    def layer_fwd(self, xs, w, b, act_name, stash):
+        f, df, _ = ACTIVATION_TRIPLES[act_name]
+        z = torch.cat(list(xs), dim=-1).float() @ w.float()
+        z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
+        self.planes += ["fwd"] + ["stash"] * stash
+        return _dual_act(z, f, df).to(self.dtype), z.to(self.dtype) if stash else None
 
     def tn_dual_act(self, z, gs, act_name):
         f, df, _ = ACTIVATION_TRIPLES[act_name]
@@ -1095,3 +1178,182 @@ def dual_mlp_apply(vs, js, weights, biases, layout, act_name, has_j, n_tan,
     """Differentiable ``dual_mlp_seg`` (see ``DualMLPSeg``)."""
     config = (tuple(layout), act_name, tuple(has_j), n_tan, compute_dtype, use_kernels)
     return DualMLPSeg.apply(config, *vs, *js, *weights, *biases)
+
+
+# ------------------------------------------------------- the per-layer route
+def layer_launcher(dtype: torch.dtype, device: torch.device, use_kernels: bool):
+    """The per-layer route's launcher: ``DualProducts`` (the kernels) for
+    CUDA tensors under ``use_kernels``, else ``DualProductsPlain``."""
+    if use_kernels and device.type == "cuda":
+        return DualProducts(dtype, device)
+    if use_kernels and device.type != "cpu":
+        raise ValueError(f"the per-layer route: unsupported device {device}")
+    return DualProductsPlain(dtype)
+
+
+def _layer0_segments(stacks: Sequence[Tensor]) -> List[Tensor]:
+    """Layer 0's stacked input segments as at most two K segments of the
+    per-layer forward: one, or all but the last (the narrow ones: the
+    colour trunk's PE, direction and normal) joined, and the last."""
+    if len(stacks) <= 2:
+        return [s.contiguous() for s in stacks]
+    return [torch.cat(list(stacks[:-1]), dim=-1), stacks[-1].contiguous()]
+
+
+def dual_mlp_layers_walk(vs, js, weights, biases, layout, act_name, has_j, n_tan, k,
+                         group=None, stash=False):
+    """The per-layer route's forward: a dual MLP (``dual_mlp_seg``'s
+    arguments; K = ``n_tan`` in {0, 1, 3}, 0 the value-only MLP of
+    ``kernels/mlp.py``) one layer at a time over the launcher ``k``, each
+    layer this rank's column shard of the weights ([fan_in, W/n]; the
+    whole layer where ``group`` is None), its output gathered to the full
+    width over the model group ``group`` (``parallel/tp.py``) before the
+    next layer, which reads it, and layer 0's segments and a post-skip
+    layer's ``[seg0, h]``, as two K segments.
+
+    Returns (the full-width stacked output [K+1, M, W] in the compute
+    dtype, every layer's input segments, every layer's stash [K+1, M,
+    W/n] or None)."""
+    from neddf_tpu_torch.parallel.tp import all_gather_last
+
+    if isinstance(k, DualProducts):
+        _route_checks(weights, act_name, n_tan, group, "the per-layer route")
+    seg_j = _seg_js(js, has_j)
+    stacks = [_stack(v, j, n_tan) for v, j in zip(vs, seg_j)]
+    seg0 = stacks[0].contiguous()
+    h = _layer0_segments(stacks)
+    inputs, pres = [], []
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        if li > 0:
+            h = [seg0, full] if layout[li] else [full]
+        inputs.append(h)
+        out, z = k.layer_fwd(h, w, b, act_name, stash)
+        pres.append(z)
+        full = all_gather_last(out, group)
+    return full, inputs, pres
+
+
+def dual_mlp_layers_bwd(inputs, weights, layout, act_name, seg_widths, has_j, pres, g, k,
+                        group=None):
+    """The per-layer route's backward from ``g`` [K+1, M, W], the cotangent
+    of the gathered output (any float dtype), over the launcher ``k``:
+    the sum reduce-scatter over the model group gives this rank's columns
+    in f32 (``parallel/tp.py``); then per layer, in reverse, the stacked
+    cotangent of the pre-activation from the stash (``gstack``, f32 in),
+    dW = x^T G and db over the layer's input segments (tn products), and
+    G W^T (nt), this rank's part of the cotangent of the full-width input:
+    for the layer below, reduce-scattered again; a post-skip layer's seg0
+    rows and layer 0's, this rank's cotangents of its replicated inputs.
+
+    Returns (dvs per segment [M, w_i], djs per tangent input [K, M, w_i],
+    both in the compute dtype; dW per layer [fan_in, W/n] and db [W/n],
+    f32)."""
+    from neddf_tpu_torch.parallel.tp import reduce_scatter_last
+
+    dtype = pres[0].dtype
+    s, m = g.shape[:2]
+    c0 = seg_widths[0]
+    n_layers = len(weights)
+    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    g = reduce_scatter_last(g, group).contiguous()
+    g_skip = None
+    for li in reversed(range(n_layers)):
+        w = weights[li]
+        gs, dbs[li] = k.gstack(g[0], g[1:], pres[li], act_name)
+        flat = gs.view(s * m, gs.shape[2])
+        dws[li] = torch.cat([k.tn(x.view(s * m, x.shape[2]), flat) for x in inputs[li]],
+                            dim=0)
+        if li == 0:
+            d_in = k.nt(flat, w).view(s, m, w.shape[0])
+            dvs, djs, off = [], [], 0
+            for i, wi in enumerate(seg_widths):
+                d = d_in[:, :, off : off + wi]
+                if i == 0 and g_skip is not None:
+                    d = d + g_skip
+                off += wi
+                dvs.append(d[0].to(dtype))
+                if has_j[i]:
+                    djs.append(d[1:].to(dtype))
+            return dvs, djs, dws, dbs
+        if layout[li]:
+            skip = k.nt(flat, w[:c0]).view(s, m, c0)
+            g_skip = skip if g_skip is None else g_skip + skip
+            w = w[c0:]
+        g = reduce_scatter_last(k.nt(flat, w).view(s, m, w.shape[0]), group).contiguous()
+    raise ValueError("dual_mlp_layers_bwd: no layers")
+
+
+def _route_checks(weights, act_name, n_tan, group, what: str) -> None:
+    from neddf_tpu_torch.parallel.tp import group_size
+
+    width = weights[0].shape[1] * group_size(group)
+    _refuse(what, route_refusal(act_name, width, n_tan))
+    for w in weights[1:]:
+        if w.shape[1] != weights[0].shape[1]:
+            raise ValueError(f"{what}: layer widths {[w.shape[1] for w in weights]}")
+
+
+class DualMLPLayers(torch.autograd.Function):
+    """The per-layer route of ``dual_mlp_seg`` (``dual_mlp_layers_walk`` /
+    ``dual_mlp_layers_bwd``) as an autograd op: the route of a width
+    shard under tensor parallelism and of widths over the tile forward's
+    512.
+
+    ``apply(config, *vs, *js, *weights, *biases)`` with ``config =
+    (layout, act_name, has_j, n_tan, compute_dtype, use_kernels,
+    group)``; ``weights``/``biases`` this rank's f32 master column shards
+    (cast to the compute dtype inside; dW and db come back f32),
+    ``group`` the model group (None: one shard). Returns the gathered
+    stacked output [K+1, M, W] in the compute dtype (value, then the K
+    tangent planes)."""
+
+    @staticmethod
+    def forward(ctx, config, *args):
+        layout, act_name, has_j, n_tan, cd, use_kernels, group = config
+        n_seg, n_j, n_l = len(has_j), sum(has_j), len(layout)
+        vs = args[:n_seg]
+        js = args[n_seg : n_seg + n_j]
+        weights = [w.to(cd).contiguous() for w in args[n_seg + n_j : n_seg + n_j + n_l]]
+        biases = [b.float().contiguous() for b in args[n_seg + n_j + n_l :]]
+        device = vs[0].device
+        k = layer_launcher(cd, device, use_kernels)
+        stash = any(ctx.needs_input_grad[1:])
+        full, inputs, pres = dual_mlp_layers_walk(vs, js, weights, biases, layout, act_name,
+                                                  has_j, n_tan, k, group, stash)
+        if isinstance(k, DualProducts):
+            dual_mlp_layers.launches += 1
+        if stash:
+            ctx.config = config
+            ctx.seg_widths = [v.shape[1] for v in vs]
+            ctx.n_inputs = [len(x) for x in inputs]
+            ctx.save_for_backward(*weights, *pres, *[t for x in inputs for t in x])
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        layout, act_name, has_j, n_tan, cd, use_kernels, group = ctx.config
+        n_l = len(layout)
+        saved = ctx.saved_tensors
+        weights, pres, flat = saved[:n_l], saved[n_l : 2 * n_l], list(saved[2 * n_l :])
+        inputs = []
+        for n in ctx.n_inputs:
+            inputs.append(flat[:n])
+            flat = flat[n:]
+        k = layer_launcher(cd, g.device, use_kernels)
+        dvs, djs, dws, dbs = dual_mlp_layers_bwd(inputs, weights, layout, act_name,
+                                                 ctx.seg_widths, has_j, pres, g, k, group)
+        return (None, *dvs, *djs, *dws, *dbs)
+
+
+def dual_mlp_layers(vs, js, weights, biases, layout, act_name, has_j, n_tan, compute_dtype,
+                    use_kernels, group=None):
+    """Differentiable per-layer route (see ``DualMLPLayers``): the gathered
+    stacked output [K+1, M, W]."""
+    config = (tuple(layout), act_name, tuple(has_j), n_tan, compute_dtype, use_kernels, group)
+    return DualMLPLayers.apply(config, *vs, *js, *weights, *biases)
+
+
+# calls of the per-layer route that ran its kernels (each call launches
+# ROUTE_LAUNCHES["fwd"] once per layer)
+dual_mlp_layers.launches = 0

@@ -21,6 +21,9 @@ order: the hidden rows of W first, then segment 0's).
   the prologue of its dW product; dW and db summed in a fixed order.
 * ``MLPSeg`` is the ``torch.autograd.Function`` over both: f32 master
   weights cast to the compute dtype inside, f32 dW/db back.
+* ``mlp_seg_layers``: the value-only per-layer route (the NeDDF eval
+  colour trunk under tensor parallelism or past width 512), the walk of
+  ``kernels/dual_mlp.py`` with one stream.
 
 For a CPU tensor each wrapper runs its plain version (``*_plain``); for a
 CUDA tensor it launches its kernels or raises. There is no fallback.
@@ -264,6 +267,40 @@ def mlp_seg(
 
 
 mlp_seg.launches = 0
+
+
+def mlp_seg_layers(
+    vs: Sequence[Tensor],
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    act_name: str,
+    use_kernels: bool,
+    group=None,
+) -> Tensor:
+    """The value-only per-layer route of ``mlp_seg`` (every layer dense +
+    activation, no post-skip layer: the NeDDF eval colour trunk) over a
+    width shard or a width past the tile forward's 512: the per-layer
+    walk of ``kernels/dual_mlp.py`` with no tangent planes (S = 1),
+    ``neddf_layer_fwd`` per layer for CUDA tensors under ``use_kernels``
+    (its plain version otherwise), each layer's output gathered over the
+    model group ``group`` (None: one shard). ``weights``/``biases`` are this
+    rank's column shards in the compute dtype / f32. Returns [M, W]."""
+    from neddf_tpu_torch.kernels.dual_mlp import (
+        DualProducts,
+        dual_mlp_layers_walk,
+        layer_launcher,
+    )
+
+    k = layer_launcher(vs[0].dtype, vs[0].device, use_kernels)
+    full, _, _ = dual_mlp_layers_walk(vs, [], weights, biases, (False,) * len(weights),
+                                      act_name, (False,) * len(vs), 0, k, group)
+    if isinstance(k, DualProducts):
+        mlp_seg_layers.launches += 1
+    return full[0]
+
+
+# calls of the value-only route that ran its kernels
+mlp_seg_layers.launches = 0
 
 
 # launches of the top layer's cotangent kernel (csrc/mlp_bwd.cu), the one

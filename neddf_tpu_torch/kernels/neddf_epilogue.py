@@ -38,8 +38,11 @@ memory; ``DDFTrunkEpilogue`` is the autograd op of the trunk and the
 epilogue together, whose backward continues the trunk's from there.
 
 For CPU tensors the wrappers run the plain versions (``*_plain``); for
-CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise. The kernels
-take any width C up to 512 (``dual_mlp.KERNEL_MAX_WIDTH``).
+CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise. The forward
+and the standalone backward take any width C up to 2048
+(``dual_mlp.ROUTE_MAX_WIDTH``: the per-layer route's, whose NeDDF runs
+them on the gathered full-width features), the top mode up to 512 (the
+fused trunk's ``dual_mlp.KERNEL_MAX_WIDTH``).
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ import torch.nn.functional as F
 from neddf_tpu_torch.kernels import _build
 from neddf_tpu_torch.kernels.dual_mlp import (
     _ACT_CODES,
+    ROUTE_MAX_WIDTH,
     DualProductsPlain,
     dual_mlp_seg_bwd,
     dual_mlp_seg_bwd_plain,
@@ -217,15 +221,19 @@ def neddf_epilogue_bwd_plain(
 neddf_epilogue_bwd_plain.calls = 0
 
 
-def _check_kernel_args(v, j, wd, wa, b2, scal, density_act) -> None:
+def _check_kernel_args(v, j, wd, wa, b2, scal, density_act, top=False) -> None:
     what = "CUDA neddf_epilogue kernel"
     if v.dtype not in _KERNEL_DTYPES or j.dtype != v.dtype:
         raise TypeError(f"{what}: dtypes {v.dtype}/{j.dtype}")
     if v.dim() != 2 or tuple(j.shape) != (3,) + tuple(v.shape):
         raise ValueError(f"{what}: shapes {tuple(v.shape)} / {tuple(j.shape)}")
     width = v.shape[1]
-    if (refusal := width_refusal(width)) is not None:
+    # the top mode finishes the fused trunk's top layer: its widths;
+    # the forward and the standalone backward: the per-layer route's too
+    if top and (refusal := width_refusal(width)) is not None:
         raise NotImplementedError(f"{what}: {refusal}")
+    if width > ROUTE_MAX_WIDTH or width < 1:
+        raise NotImplementedError(f"{what}: width {width} (1 to {ROUTE_MAX_WIDTH})")
     if density_act not in _ACT_CODES:
         raise NotImplementedError(f"{what}: density activation {density_act!r}")
     for t, n in ((wd, width), (wa, width), (b2, 2), (scal, 8)):
@@ -363,7 +371,7 @@ def neddf_epilogue_gstack(v, j, wd, wa, b2, scal, g_out, g_tfeat, g_col, z, act_
     if v.device.type != "cuda":
         raise ValueError(f"neddf_epilogue_gstack: unsupported device {v.device}")
     what = "neddf_epilogue_gstack"
-    _check_kernel_args(v, j, wd, wa, b2, scal, density_act)
+    _check_kernel_args(v, j, wd, wa, b2, scal, density_act, top=True)
     if act_name not in _ACT_CODES:
         raise NotImplementedError(f"CUDA {what} kernel: activation {act_name!r}")
     m, c = v.shape

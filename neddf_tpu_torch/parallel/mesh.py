@@ -1,38 +1,45 @@
-"""Data parallelism over ranks: the ``data`` axis of the JAX package's mesh.
+"""Parallelism over ranks: the ``(data, model)`` mesh of the JAX package.
 
-Counterpart of ``neddf_tpu/parallel/mesh.py`` for ``model == 1``, the
-regime of every shipped config (``mesh: {data: auto, model: 1}``). The
-JAX package shards the ray batch over a ``(data, model)`` device mesh
-with ``shard_map`` and lets XLA insert the ``pmean`` of the gradients and
-the ``all_gather`` of the eval tiles; here each card is one process (a
-rank) and those two collectives are ``torch.distributed`` calls outside
-the kernels, NCCL on the cards and gloo on the CPU:
+Counterpart of ``neddf_tpu/parallel/mesh.py``. The JAX package shards
+the ray batch over the ``data`` axis of a ``(data, model)`` device mesh
+and the trunks' widths over its ``model`` axis, with ``shard_map``; here
+each card is one process (a rank) and the collectives are
+``torch.distributed`` calls outside the kernels, NCCL on the cards and
+gloo on the CPU:
 
 * ``resolve_world`` reads the ``mesh`` config (the JAX trainer's
   ``_resolve_mesh``, ``neddf_tpu/training/trainer.py:263-287``): the
-  number of ranks an entry point starts, or None for the single-process
-  path; ``group_world`` is the world of a trainer, that of the process
-  group it is built in (the trainer starts no ranks);
+  number of ranks an entry point starts, ``data x model`` (``data:
+  auto`` is the cards divided by ``model``, 1 on the CPU), or None for the
+  single-process path; ``group_world`` is the world of a trainer, that of
+  the process group it is built in (the trainer starts no ranks);
 * ``init_rank`` joins a rank to its process group on its own card
   (``cuda:local_rank``, made the current device before anything is
   launched: the kernels launch on the current device), ``launch`` starts
   the ranks of a command on this host (``torch.multiprocessing``, spawn;
   a rank that fails ends the others and raises here);
+* ``make_mesh``: rank r is ``(r // model, r % model)`` in the row-major
+  ``(data, model)`` mesh (``mesh.py:26-40``); every rank builds every
+  data group (the ranks of one model index) and every model group (the
+  ranks of one data index) in one order;
+* ``field_param_specs`` / ``shard_parameters`` (``mesh.py:57-73``): a 2-D
+  weight shards its out-dimension and a 1-D bias its length over the
+  model group when ``model`` divides them; the rest replicates (the 1-
+  and 3-wide heads). ``gather_state`` puts the shards back together;
 * ``make_sharded_grads`` (``mesh.py:120-207``): every rank draws the
-  whole global batch from the same generator state and keeps its rows
-  ``[r B/n, (r+1) B/n)`` (``training/step.py::rank_rows``), runs the
-  local step through the kernels, and one flat ``all_reduce`` divided by
-  n averages every gradient, the camera-delta gradient and the step's
-  metrics (JAX's pmeans of ``grads``, ``grads_cam``, ``loss``,
-  ``loss_dict`` and ``mse``);
-* ``make_sharded_render`` (``mesh.py:256-300``): each rank renders its
-  contiguous rows of an eval chunk and the tiles are all-gathered in
-  rank order, so every rank holds the whole image.
-
-Width-sharded tensor parallelism (``model > 1``) is not ported: the JAX
-package runs it through its jnp layer loops with an all-gather after
-every layer (``tp_renderer``, ``fields/base.py::tp_gather``), and the
-port's kernels fuse whole trunks, which cannot take width shards.
+  whole global batch from the same generator state and keeps its data
+  group's rows ``[d B/D, (d+1) B/D)`` (``training/step.py::rank_rows``),
+  runs the local step through the kernels (under ``model > 1`` over the
+  fields' width shards, ``parallel/tp.py``), divides the sharded leaves'
+  gradients by ``model`` (every model rank computes the same loss, and
+  the gathers' backward sums their cotangents), averages the gradients
+  and metrics over the data group and the camera-delta gradient over
+  every rank (JAX's pmeans of ``grads`` over ``data``, of ``grads_cam``
+  over ``data`` and ``model``);
+* ``make_sharded_render`` (``mesh.py:256-336``): each rank of a data
+  group renders its contiguous rows of an eval chunk (the ranks of one
+  model group the same rows, through the width shards) and the tiles
+  are all-gathered in rank order, so every rank holds the whole image.
 """
 from __future__ import annotations
 
@@ -52,22 +59,34 @@ Tensor = torch.Tensor
 AUTO = ("auto", "max", None, -1)
 
 
-def mesh_data(mesh_cfg: Optional[Dict[str, Any]]) -> Optional[int]:
-    """The explicit ``data`` of a ``mesh`` config, or None for every card
-    (``AUTO``, or no mesh config). ``model > 1`` raises
-    NotImplementedError."""
+#: the network families that tensor parallelism takes (fields with a
+#: ``tp_group``); NeRF's and NeuS's wait for their slice
+TP_NETWORKS = ("NeDDF",)
+TP_REFUSAL = ("tensor parallelism (mesh model > 1) is ported for NeDDF only; {name} waits "
+              "for its slice (ROADMAP.md, Queue 1 item 7: NeRF and NeuS tensor parallelism)")
+
+
+def mesh_shape(mesh_cfg: Optional[Dict[str, Any]]) -> Tuple[Optional[int], int]:
+    """(the explicit ``data`` of a ``mesh`` config or None for ``AUTO`` /
+    no mesh config, its ``model``)."""
     mesh_cfg = mesh_cfg or {}
     model = int(mesh_cfg.get("model", 1) or 1)
-    if model > 1:
-        raise NotImplementedError(
-            f"mesh model={model}: width-sharded tensor parallelism is not ported "
-            "(ROADMAP.md, the TP item of Queue 1: the port's kernels fuse whole trunks)")
+    if model < 1:
+        raise ValueError(f"mesh model={model} must be at least 1")
     data = mesh_cfg.get("data", "auto")
     if data in AUTO:
-        return None
+        return None, model
     if int(data) < 1:
         raise ValueError(f"mesh data={data} must be at least 1")
-    return int(data)
+    return int(data), model
+
+
+def check_tp_network(network_config: Dict[str, Any], model: int) -> None:
+    """Refuse a network family that tensor parallelism does not take yet
+    (NotImplementedError naming its ROADMAP item)."""
+    name = str(network_config.get("_target_", "")).rsplit(".", 1)[-1]
+    if model > 1 and name not in TP_NETWORKS:
+        raise NotImplementedError(TP_REFUSAL.format(name=name or "this network"))
 
 
 def resolve_world(
@@ -77,52 +96,58 @@ def resolve_world(
     launched: Optional[int] = None,
     local_ranks: Optional[int] = None,
 ) -> Optional[int]:
-    """The number of data-parallel ranks that an entry point runs for a
-    ``mesh`` config, or None for the single-process path (a world of 1,
+    """The number of ranks, ``data x model``, that an entry point runs for
+    a ``mesh`` config, or None for the single-process path (a world of 1,
     or no mesh config and no launcher).
 
     ``data: auto`` (also ``max``, ``None``, ``-1``; a missing mesh config
     under a launcher) is the world a launcher made (``launched``,
-    torchrun's ``WORLD_SIZE``), else every one of the ``n_cards`` visible
-    cards on CUDA, and 1 on the CPU. An explicit ``data`` is taken as it
-    is. On CUDA each rank of this host needs a card of its own: the ranks
-    here are ``local_ranks`` (torchrun's ``LOCAL_WORLD_SIZE``) under a
-    launcher, else all of them. ``model > 1`` raises
-    NotImplementedError."""
+    torchrun's ``WORLD_SIZE``) divided by ``model``, else the ``n_cards``
+    visible cards divided by ``model`` on CUDA (at least 1), and 1 on the
+    CPU. An explicit ``data`` is taken as it is. On CUDA each rank of this
+    host needs a card of its own: the ranks here are ``local_ranks``
+    (torchrun's ``LOCAL_WORLD_SIZE``) under a launcher, else all of
+    them."""
     if not mesh_cfg and launched is None:
         return None
-    data = mesh_data(mesh_cfg)
+    data, model = mesh_shape(mesh_cfg)
     if data is None:
         if launched is not None:
-            data = launched
+            if launched % model:
+                raise ValueError(f"the launcher started {launched} ranks, not a multiple of "
+                                 f"mesh model={model}")
+            data = launched // model
         else:
-            data = max(1, n_cards) if device_type == "cuda" else 1
-    if launched is not None and data != launched:
-        raise ValueError(f"mesh data={data}, but the launcher started {launched} ranks")
-    if data == 1:
+            data = max(1, n_cards // model) if device_type == "cuda" else 1
+    world = data * model
+    if launched is not None and world != launched:
+        raise ValueError(f"mesh {data}x{model}, but the launcher started {launched} ranks")
+    if world == 1:
         return None
-    here = data if launched is None or local_ranks is None else local_ranks
+    here = world if launched is None or local_ranks is None else local_ranks
     if device_type == "cuda" and here > n_cards:
         raise ValueError(
-            f"mesh {data}x1 needs {here} devices{'' if launched is None else ' on this host'}; "
-            f"platform 'cuda' has {n_cards}")
-    return data
+            f"mesh {data}x{model} needs {here} devices"
+            f"{'' if launched is None else ' on this host'}; platform 'cuda' has {n_cards}")
+    return world
 
 
 def group_world(mesh_cfg: Optional[Dict[str, Any]]) -> Optional[int]:
-    """The data-parallel world of a trainer built in this process: the
-    size of the default process group it is in (one process when there is
-    none), or None for the single-process path. An explicit ``data`` must
-    be that size: the entry point that starts the ranks decides how many
-    (``resolve_world``), not the trainer. ``model > 1`` raises
-    NotImplementedError."""
-    data = mesh_data(mesh_cfg)
+    """The world of a trainer built in this process: the size of the
+    default process group it is in (one process when there is none), or
+    None for the single-process path. An explicit ``data`` times ``model``
+    must be that size, and ``model`` must divide it: the entry point that
+    starts the ranks decides how many (``resolve_world``), not the
+    trainer."""
+    data, model = mesh_shape(mesh_cfg)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if data is not None and data != world:
+    want = None if data is None else data * model
+    if (want is not None and want != world) or world % model:
         raise RuntimeError(
-            f"mesh data={data}: build the trainer in each rank of a process group of "
-            f"{data} (python -m neddf_tpu_torch.scripts.run starts them, or torchrun); "
-            f"this process is in a group of {world}")
+            f"mesh {data or 'auto'}x{model}: build the trainer in each rank of a process "
+            f"group of {want or f'a multiple of {model}'} (python -m "
+            "neddf_tpu_torch.scripts.run starts them, or torchrun); this process is in a "
+            f"group of {world}")
     return world if world > 1 else None
 
 
@@ -176,7 +201,9 @@ def init_rank(rank: int, world: int, device_type: str, init_method: str,
 
 def _rank_main(rank: int, world: int, device_type: str, init_method: str,
                fn: Callable[..., Any], args: Sequence[Any],
-               local_rank: Optional[int] = None) -> None:
+               local_rank: Optional[int] = None, threads: Optional[int] = None) -> None:
+    if threads is not None:
+        torch.set_num_threads(threads)
     init_rank(rank, world, device_type, init_method, local_rank)
     try:
         fn(*args)
@@ -197,9 +224,13 @@ def launch(fn: Callable[..., Any], args: Sequence[Any], world: int, device_type:
 
         _build.build()
     store = Path(rendezvous_dir).resolve() / f".rendezvous-{os.getpid()}-{time.time_ns()}"
+    # CPU ranks share this host's cores (each would take them all, and the
+    # ranks' idle threads spin while another computes between collectives)
+    threads = max(1, (os.cpu_count() or 1) // world) if device_type == "cpu" else None
     try:
         torch.multiprocessing.spawn(
-            _rank_main, args=(world, device_type, f"file://{store}", fn, tuple(args)),
+            _rank_main,
+            args=(world, device_type, f"file://{store}", fn, tuple(args), None, threads),
             nprocs=world, join=True)
     finally:
         store.unlink(missing_ok=True)
@@ -235,9 +266,99 @@ def check_world_batch(batch_size: int, world: int) -> int:
     return batch_size // world
 
 
-def make_sharded_grads(group: Optional[Any], batch_size: int, grad_accum: int = 1):
-    """The data-parallel step over the ranks of ``group`` (any process
-    group; None is the default one).
+class Mesh(NamedTuple):
+    """This rank's place in the ``(data, model)`` mesh and its two groups:
+    ``data_group`` (the ranks of its model index; None, the default group,
+    when ``model`` is 1) and ``model_group`` (the ranks of its data index;
+    None when ``model`` is 1)."""
+
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: Any
+    model_group: Any
+
+
+def make_mesh(model: int) -> Mesh:
+    """The mesh of the default process group with ``model`` ranks on the
+    width axis: rank r is ``(r // model, r % model)``; every rank builds
+    every group (``dist.new_group``), in one order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % model:
+        raise ValueError(f"{world} ranks not divisible by model={model}")
+    data = world // model
+    if model == 1:
+        return Mesh(data, 1, rank, 0, None, None)
+    data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    d, m = divmod(rank, model)
+    return Mesh(data, model, d, m, data_groups[m], model_groups[d])
+
+
+def field_param_specs(shapes: Dict[str, Sequence[int]], model: int) -> Dict[str, tuple]:
+    """The JAX package's ``field_param_specs`` over a state dict's shapes:
+    per parameter, ``(None, "model")`` for a 2-D weight whose out-dimension
+    ``model`` divides, ``("model",)`` for such a 1-D bias, else ``()``
+    (replicated), the entries of its ``PartitionSpec``s."""
+    out = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        if model > 1 and len(shape) == 2 and shape[1] % model == 0:
+            out[name] = (None, "model")
+        elif model > 1 and len(shape) == 1 and shape[0] % model == 0:
+            out[name] = ("model",)
+        else:
+            out[name] = ()
+    return out
+
+
+def tp_shard_names(module: torch.nn.Module, model: int) -> set:
+    """The parameters of a renderer whose networks take tensor parallelism
+    that shard over ``model`` ranks (their last dimension), by
+    ``field_param_specs`` of its full shapes: every trunk layer (a module
+    list named ``layers_*``) must shard and nothing else may (a ``model``
+    that does not divide a trunk's width, or that divides a head's, raises
+    ValueError)."""
+    specs = field_param_specs({n: p.shape for n, p in module.named_parameters()}, model)
+    names = {n for n, spec in specs.items() if spec}
+    trunk = {n for n, _ in module.named_parameters() if ".layers_" in f".{n}"}
+    if names != trunk:
+        raise ValueError(
+            f"mesh model={model} must divide every trunk width and no head's: it would shard "
+            f"{sorted(names - trunk)} and not {sorted(trunk - names)}")
+    return names
+
+
+def shard_tensor(full: Tensor, mesh: Mesh) -> Tensor:
+    """This rank's columns (last dimension) of a full tensor."""
+    per = full.shape[-1] // mesh.model
+    return full[..., mesh.model_rank * per : (mesh.model_rank + 1) * per].contiguous()
+
+
+def shard_parameters(module: torch.nn.Module, mesh: Mesh, names: set) -> None:
+    """Keep only this rank's shard of each parameter in ``names`` (in
+    place: the parameter objects stay, their data shrinks)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name in names:
+                p.data = shard_tensor(p.data, mesh)
+
+
+def gather_state(state: Dict[str, Tensor], mesh: Mesh, names: set) -> Dict[str, Tensor]:
+    """The full tensors of a map of this rank's ones: those in ``names``
+    all-gathered over the model group along their last dimension, the
+    rest as they are. Every rank of the model group calls it."""
+    from neddf_tpu_torch.parallel.tp import all_gather_last
+
+    return {k: all_gather_last(v.detach(), mesh.model_group) if k in names else v
+            for k, v in state.items()}
+
+
+def make_sharded_grads(mesh: Optional[Mesh], batch_size: int, grad_accum: int = 1,
+                       sharded: Sequence[Tensor] = ()):
+    """The step over the ranks of ``mesh`` (None: data parallelism over
+    the default process group).
 
     Returns ``grads_fn(local_grads, params, camera_deltas=None) -> (loss,
     loss_dict, mse)``. ``local_grads(rows)`` runs the step's math on the
@@ -245,33 +366,55 @@ def make_sharded_grads(group: Optional[Any], batch_size: int, grad_accum: int = 
     gradients in ``.grad`` and returning its (loss, loss dict, mse)
     (``training/trainer.py::NeRFTrainer.local_grads``, over
     ``step.py::accumulate_grads``). ``grads_fn`` calls it on this rank's
-    rows, then reduces, in one flat ``all_reduce`` divided by the world
-    size, the ``.grad`` of every parameter in ``params`` that has one, the
-    ``.grad`` of ``camera_deltas`` and the metrics, and writes the means
-    back. Every rank ends with the same gradients and metrics."""
+    data rows, divides the gradients of the parameters in ``sharded`` (the
+    width shards) by ``model``, then reduces, in one flat ``all_reduce``
+    over the data group divided by its size, the ``.grad`` of every
+    parameter in ``params`` that has one and the metrics, and the
+    ``.grad`` of ``camera_deltas`` over every rank (with the rest where
+    ``model`` is 1), and writes the means back. The ranks of a data group
+    end with the same gradients, every rank with the same metrics and
+    camera gradient."""
     # importing training.step runs training/__init__.py, which imports the
     # trainer, which imports this module
     from neddf_tpu_torch.training.step import check_local_grad_accum, rank_rows
 
-    world, rank = world_and_rank(group)
-    local_batch = check_world_batch(batch_size, world)
+    if mesh is None:
+        world, rank = world_and_rank(None)
+        mesh = Mesh(world, 1, rank, 0, None, None)
+    local_batch = check_world_batch(batch_size, mesh.data)
     check_local_grad_accum(grad_accum, local_batch, batch_size)
-    rows = rank_rows(batch_size, rank, world)
+    rows = rank_rows(batch_size, mesh.data_rank, mesh.data)
+    shards = {id(p) for p in sharded}
+
+    def mean(flat: Tensor, group: Any, n: int) -> None:
+        if n > 1:
+            dist.all_reduce(flat, group=group)
+            flat.div_(n)
 
     def grads_fn(local_grads: Callable[[slice], Tuple[Tensor, Dict[str, Tensor], Tensor]],
                  params: Sequence[Tensor], camera_deltas: Optional[Tensor] = None):
         loss, loss_dict, mse = local_grads(rows)
         grads = [p.grad for p in params if p.grad is not None]
+        if mesh.model > 1:
+            for p in params:
+                if id(p) in shards and p.grad is not None:
+                    p.grad.div_(mesh.model)
+        cam = None
         if camera_deltas is not None and camera_deltas.grad is not None:
-            grads.append(camera_deltas.grad)
+            cam = camera_deltas.grad
+            if mesh.model == 1:
+                grads.append(cam)
         metrics = torch.stack([loss, mse, *loss_dict.values()]).float()
         flat = torch.cat([g.reshape(-1).float() for g in grads] + [metrics])
-        dist.all_reduce(flat, group=group)
-        flat.div_(world)
+        mean(flat, mesh.data_group, mesh.data)
         at = 0
         for g in grads:
             g.copy_(flat[at : at + g.numel()].view_as(g))
             at += g.numel()
+        if cam is not None and mesh.model > 1:
+            total = cam.float().contiguous()
+            mean(total, None, mesh.data * mesh.model)
+            cam.copy_(total)
         means = flat[at:]
         return means[0], dict(zip(loss_dict, means[2:])), means[1]
 
@@ -290,6 +433,9 @@ def make_sharded_render(group: Optional[Any] = None) -> Callable[[ChunkRender], 
     world, rank = world_and_rank(group)
 
     def shard(render: ChunkRender) -> ChunkRender:
+        if world == 1:  # a data group of one rank (data 1 under model > 1)
+            return render
+
         def sharded(uv: Tensor, u_strat: Tensor, u_pdf: Tensor) -> Dict[str, Tensor]:
             n = uv.shape[0]
             per = -(-n // world)

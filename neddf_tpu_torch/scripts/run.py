@@ -39,6 +39,14 @@ process joins the group torchrun made (``env://``) instead, on the card
 of its ``LOCAL_RANK`` (only this host's ranks, ``LOCAL_WORLD_SIZE``,
 need cards here), and rank 0 makes the run directory; across hosts it
 must be on a file system that every host mounts.
+
+Tensor parallelism (``trainer.mesh.model=M``; NeDDF only, NeRF and NeuS
+raise NotImplementedError before anything starts): ``data x M`` ranks,
+``data: auto`` the cards divided by M (1 on the CPU), each holding its
+column shards of the trunks (``parallel/mesh.py``); the checkpoints hold
+the gathered parameters, so ``--resume`` may change M
+(``--resume <run_dir> trainer.mesh.model=1``; the snapshot keeps its
+mesh).
 """
 from __future__ import annotations
 
@@ -51,7 +59,12 @@ from typing import List, Optional
 import torch.distributed as dist
 
 from neddf_tpu_torch import config as config_lib
-from neddf_tpu_torch.parallel.mesh import launcher_world, run_world
+from neddf_tpu_torch.parallel.mesh import (
+    check_tp_network,
+    launcher_world,
+    mesh_shape,
+    run_world,
+)
 from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type, launch_world
 
 _REPO = Path(__file__).resolve().parents[2]
@@ -135,18 +148,28 @@ def start(cfg: dict, overrides: List[str], run_dir: Path,
     is resolved before a new run's directory is made (by rank 0 under a
     launcher)."""
     device = str(cfg["trainer"].get("device", "cuda:0"))
-    world = launch_world(cfg["trainer"].get("mesh"), device)
+    mesh = cfg["trainer"].get("mesh")
+    check_tp_network(cfg["network"], mesh_shape(mesh)[1])
+    world = launch_world(mesh, device)
     launched = launcher_world()
     if not resumed and (launched is None or launched.rank == 0):
         make_run_dir(cfg, overrides, run_dir)
     return run_world(train, (cfg, run_dir, resumed), world, device_type(device), run_dir)
 
 
-def resume(run_dir: Path) -> Optional[NeRFTrainer]:
+def resume(run_dir: Path, mesh_overrides: Optional[List[str]] = None) -> Optional[NeRFTrainer]:
     """``--resume``: the snapshot's trainer from the newest checkpoint,
-    trained on in ``run_dir`` (over the snapshot's world)."""
+    trained on in ``run_dir`` (over the snapshot's world, or the mesh that
+    ``trainer.mesh.*`` overrides give: the checkpoints hold whole
+    parameters, so a run may resume under another ``model``)."""
     run_dir = run_dir.resolve()
-    return start(config_lib.load_snapshot(run_dir), [], run_dir, resumed=True)
+    cfg = config_lib.load_snapshot(run_dir)
+    for ov in mesh_overrides or []:
+        key, _, val = ov.partition("=")
+        if not key.startswith("trainer.mesh.") or not val:
+            raise SystemExit(f"{ov}: --resume takes trainer.mesh.* overrides only")
+        config_lib.compose_override(cfg, key, val)
+    return start(cfg, [], run_dir, resumed=True)
 
 
 def supervised(argv: List[str], stale_seconds: float) -> None:
@@ -186,9 +209,9 @@ def main(argv: Optional[List[str]] = None) -> Optional[NeRFTrainer]:
             argv = argv[1:]
         supervised(argv, stale)
     if argv and argv[0] == "--resume":
-        if len(argv) != 2:
-            raise SystemExit("usage: --resume <run_dir>")
-        return resume(Path(argv[1]))
+        if len(argv) < 2:
+            raise SystemExit("usage: --resume <run_dir> [trainer.mesh.*=...]")
+        return resume(Path(argv[1]), argv[2:])
     return start(*compose_run(argv))
 
 

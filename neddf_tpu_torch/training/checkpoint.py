@@ -34,7 +34,7 @@ from __future__ import annotations
 import concurrent.futures
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,41 +83,58 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
-def adam_to_optax(optimizer: torch.optim.Adam, named_params: List[Tuple[str, torch.Tensor]],
-                  decayed: bool) -> Dict[str, Any]:
-    """torch Adam's state as the JAX trainer's optax chain state:
-    ``[add_decayed_weights (when decayed),] scale_by_adam,
-    scale_by_learning_rate``, lists as ``"0"``, ``"1"``, ... maps. Every
-    parameter takes one step per update, so ``count`` is their ``step``;
-    the schedule's count is the same number."""
+def adam_moments(optimizer: torch.optim.Adam, named_params: List[Tuple[str, torch.Tensor]]):
+    """torch Adam's (step count, first moments, second moments) by
+    parameter name (zeros before a parameter's first step). Every
+    parameter takes one step per update, so the count is their ``step``."""
     count = 0
-    mu, nu = [], []
+    mu, nu = {}, {}
     for name, p in named_params:
         state = optimizer.state.get(p, {})
         if state:
             count = max(count, int(state["step"]))
-            mu.append((name, state["exp_avg"]))
-            nu.append((name, state["exp_avg_sq"]))
+            mu[name], nu[name] = state["exp_avg"], state["exp_avg_sq"]
         else:
-            mu.append((name, torch.zeros_like(p)))
-            nu.append((name, torch.zeros_like(p)))
+            mu[name], nu[name] = torch.zeros_like(p), torch.zeros_like(p)
+    return count, mu, nu
+
+
+def optax_adam_tree(count: int, mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+                    decayed: bool) -> Dict[str, Any]:
+    """Adam's count and moments as the JAX trainer's optax chain state:
+    ``[add_decayed_weights (when decayed),] scale_by_adam,
+    scale_by_learning_rate``, lists as ``"0"``, ``"1"``, ... maps; the
+    schedule's count is Adam's."""
     chain = [{}] if decayed else []
-    chain += [{"count": np.asarray(count, np.int32), "mu": params_to_jax(dict(mu)),
-               "nu": params_to_jax(dict(nu))},
+    chain += [{"count": np.asarray(count, np.int32), "mu": params_to_jax(mu),
+               "nu": params_to_jax(nu)},
               {"count": np.asarray(count, np.int32)}]
     return {str(i): s for i, s in enumerate(chain)}
 
 
+def adam_to_optax(optimizer: torch.optim.Adam, named_params: List[Tuple[str, torch.Tensor]],
+                  decayed: bool) -> Dict[str, Any]:
+    """torch Adam's state as the JAX trainer's optax chain state
+    (``adam_moments``, ``optax_adam_tree``)."""
+    return optax_adam_tree(*adam_moments(optimizer, named_params), decayed)
+
+
 def adam_from_optax(tree: Dict[str, Any], optimizer: torch.optim.Adam,
-                    named_params: List[Tuple[str, torch.Tensor]]) -> None:
+                    named_params: List[Tuple[str, torch.Tensor]],
+                    local: Optional[Callable[[Dict[str, torch.Tensor]],
+                                             Dict[str, torch.Tensor]]] = None) -> None:
     """Set torch Adam's state from an optax chain state (either package's
-    checkpoint): the entry that holds ``mu``, whatever its chain index."""
+    checkpoint): the entry that holds ``mu``, whatever its chain index;
+    ``local`` maps the full moments to the parameters' own (a rank's width
+    shards under tensor parallelism)."""
     adams = [s for s in tree.values() if isinstance(s, dict) and "mu" in s]
     if len(adams) != 1:
         raise ValueError(f"opt_state: expected one scale_by_adam state, found {len(adams)}")
     adam = adams[0]
     count = int(np.asarray(adam["count"]))
     mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    if local is not None:
+        mu, nu = local(mu), local(nu)
     names = {name for name, _ in named_params}
     if set(mu) != names or set(nu) != names:
         raise ValueError(f"opt_state does not match the parameters: missing "

@@ -70,7 +70,9 @@ def check_local_grad_accum(grad_accum: int, local_batch: int, batch_size: int) -
 
 
 def rank_rows(batch_size: int, rank: int, world: int) -> slice:
-    """Rank ``rank``'s rows of the global batch: [r B/n, (r + 1) B/n)."""
+    """The rows of data rank ``rank`` of ``world`` data ranks in the global
+    batch: [r B/n, (r + 1) B/n); the model ranks of one data rank (tensor
+    parallelism) take the same rows."""
     local = batch_size // world
     return slice(rank * local, (rank + 1) * local)
 

@@ -46,19 +46,26 @@ Counterpart of ``neddf_tpu/training/trainer.py`` (``BaseTrainer`` and
 * ``mesh`` (``parallel/mesh.py``): the trainer's world is that of the
   process group it is built in (``group_world``); out of any group, or in
   a group of one, it is the single-process path. An explicit ``data``
-  must be the group's size. Which world to start is the entry point's
-  decision (``launch_world``: ``data: auto`` is every visible card, the
-  JAX trainer's every device, and 1 on the CPU; ``scripts/run.py`` starts
-  the ranks, or torchrun does; rank r on its host's ``cuda:r``). Every
-  rank draws the whole batch from its generator, which stays in lockstep
-  with the others', renders its rows of it and averages the gradients
-  and metrics with the others (``make_sharded_grads``); the eval renders
-  split each chunk over the ranks and all-gather the tiles
-  (``make_sharded_render``). The parameters start as rank 0's. Every
-  rank runs every hook that draws from the generator; only rank 0 writes
-  (``models/``, ``render/``, ``log/``, ``train_log.jsonl``, the printed
-  lines) and traces, and the others wait for its checkpoints. ``model >
-  1`` (width-sharded tensor parallelism) raises NotImplementedError.
+  times ``model`` must be the group's size. Which world to start is the
+  entry point's decision (``launch_world``: ``data: auto`` is every
+  visible card divided by ``model``, the JAX trainer's devices, and 1 on
+  the CPU; ``scripts/run.py`` starts the ranks, or torchrun does; rank r
+  on its host's ``cuda:r``). Every rank draws the whole batch from its
+  generator, which stays in lockstep with the others', renders its data
+  group's rows of it and averages the gradients and metrics with the
+  others (``make_sharded_grads``); the eval renders split each chunk
+  over a data group and all-gather the tiles (``make_sharded_render``).
+  The parameters start as rank 0's. Under ``model > 1`` (tensor
+  parallelism, NeDDF only) each rank holds its column shards of the
+  trunks' weights and their Adam state (``shard_parameters``), the
+  heads and the camera optimizer whole, and its fields gather each
+  layer over the model group (``render/renderer.py::tp_renderer``);
+  ``enable_ray_cull`` and the field slices run on a copy with the
+  gathered parameters, and the checkpoints hold the gathered ones, so
+  any ``model`` (and the JAX package) reads them. Every rank runs every
+  hook that draws from the generator; only rank 0 writes (``models/``,
+  ``render/``, ``log/``, ``train_log.jsonl``, the printed lines) and
+  traces, and the others wait for its checkpoints.
 """
 from __future__ import annotations
 
@@ -79,21 +86,28 @@ from neddf_tpu_torch.geometry.se3 import camera_pose
 from neddf_tpu_torch.ops.occupancy import OccupancyGrid
 from neddf_tpu_torch.parallel.mesh import (
     broadcast_parameters,
+    check_tp_network,
     check_world_batch,
+    gather_state,
     group_world,
     launcher_world,
     local_device,
+    make_mesh,
     make_sharded_grads,
     make_sharded_render,
-    mesh_data,
+    mesh_shape,
     resolve_world,
+    shard_parameters,
+    shard_tensor,
+    tp_shard_names,
 )
-from neddf_tpu_torch.render.renderer import Draws
+from neddf_tpu_torch.render.renderer import Draws, tp_renderer
 from neddf_tpu_torch.training.checkpoint import (
     AsyncCheckpointer,
     adam_from_optax,
-    adam_to_optax,
+    adam_moments,
     load_msgpack_params,
+    optax_adam_tree,
     params_from_jax,
     params_to_jax,
     row_sparse_from_tree,
@@ -225,9 +239,12 @@ class NeRFTrainer:
         mesh: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.config = global_config
-        # data parallelism: the world of this process's group, or None
-        # (one process); the batch checks first, with the JAX messages
-        n_data = mesh_data(mesh) or (dist.get_world_size() if dist.is_initialized() else 1)
+        # the mesh: the world of this process's group, or None (one
+        # process); the batch checks first, with the JAX messages
+        data, self.n_model = mesh_shape(mesh)
+        check_tp_network(self.config["network"], self.n_model)
+        n_data = data or max(1, (dist.get_world_size() if dist.is_initialized() else 1)
+                             // self.n_model)
         local_batch = check_world_batch(batch_size, n_data)
         if grad_accum < 1 or local_batch % grad_accum:
             raise ValueError(
@@ -296,11 +313,22 @@ class NeRFTrainer:
         check_target_keys(self.loss_types)
 
         self.neural_render = build_renderer(self.config, seed, self.device)
-        self.sharded_grads = self.render_fn = None
+        self.sharded_grads = self.render_fn = self.mesh = None
+        # the parameters held as width shards (tensor parallelism)
+        self.shard_names: set = set()
         if self.world is not None:
             broadcast_parameters(self.neural_render)
-            self.sharded_grads = make_sharded_grads(None, batch_size, self.grad_accum)
-            self.render_fn = make_sharded_render(None)
+            self.mesh = make_mesh(self.n_model)
+            shards = []
+            if self.n_model > 1:
+                self.shard_names = tp_shard_names(self.neural_render, self.n_model)
+                shard_parameters(self.neural_render, self.mesh, self.shard_names)
+                tp_renderer(self.neural_render, self.mesh.model_group)
+                shards = [p for n, p in self.neural_render.named_parameters()
+                          if n in self.shard_names]
+            self.sharded_grads = make_sharded_grads(
+                self.mesh if self.n_model > 1 else None, batch_size, self.grad_accum, shards)
+            self.render_fn = make_sharded_render(self.mesh.data_group)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = torch.optim.Adam(
             self.neural_render.parameters(), lr=optimizer_lr, eps=1e-8,
@@ -454,7 +482,7 @@ class NeRFTrainer:
                 self.flush_logs()
                 if self.logger is not None:
                     self.logger.flush()
-                if epoch % self.epoch_save_fields == 0 and writer:
+                if epoch % self.epoch_save_fields == 0 and (writer or self.shard_names):
                     self.render_field_slices(render_dir / "fields", epoch)
                 if epoch % self.epoch_test_rendering == 0:
                     # every rank renders: the draws keep the generators in lockstep
@@ -474,11 +502,41 @@ class NeRFTrainer:
         if self.rank == 0:
             print(*args)
 
+    def full_state(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """A map of this rank's parameter-shaped tensors with the width
+        shards gathered (every rank of the model group calls it); the map
+        itself outside tensor parallelism."""
+        if not self.shard_names:
+            return state
+        return gather_state(state, self.mesh, self.shard_names)
+
+    def local_state(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """This rank's shards of a map of full parameter-shaped tensors."""
+        return {k: shard_tensor(v, self.mesh) if k in self.shard_names else v
+                for k, v in state.items()}
+
+    def full_renderer(self) -> Any:
+        """The renderer with whole parameters: itself, or under tensor
+        parallelism a copy with the gathered ones and no model group (the
+        JAX trainer gathers to the host for the ray-cull grid and the
+        field slices, ``neddf_tpu/training/trainer.py:341-356, 411-421``);
+        every rank calls it."""
+        if not self.shard_names:
+            return self.neural_render
+        full = self.full_state(dict(self.neural_render.named_parameters()))
+        copy = build_renderer(self.config, self.seed, self.device)
+        copy.load_state_dict(full, strict=True)
+        return copy
+
     def render_field_slices(self, output_field_dir: "str | Path", epoch: int = 0) -> None:
-        """Write ``field_{name}_{epoch:04}.png`` XY slices of the fields."""
+        """Write ``field_{name}_{epoch:04}.png`` XY slices of the fields
+        (rank 0; under tensor parallelism every rank calls it)."""
+        renderer = self.full_renderer()
+        if self.rank != 0:
+            return
         output_field_dir = Path(output_field_dir)
         output_field_dir.mkdir(parents=True, exist_ok=True)
-        for name, img in self.neural_render.render_field_slice().items():
+        for name, img in renderer.render_field_slice().items():
             # the images are BGR; the PNG writer takes RGB
             write_png(output_field_dir / f"field_{name}_{epoch:04}.png", img[:, :, ::-1])
 
@@ -487,9 +545,11 @@ class NeRFTrainer:
         may go on): the JAX trainer's ``_state_dict`` layout without its
         ``key``, and this trainer's generator state."""
         named = list(self.neural_render.named_parameters())
+        count, mu, nu = adam_moments(self.optimizer, named)
         return _owned({
-            "params": params_to_jax(self.neural_render.state_dict()),
-            "opt_state": adam_to_optax(self.optimizer, named, self.optimizer_weight_decay != 0),
+            "params": params_to_jax(self.full_state(self.neural_render.state_dict())),
+            "opt_state": optax_adam_tree(count, self.full_state(mu), self.full_state(nu),
+                                         self.optimizer_weight_decay != 0),
             "iteration": int(self.iteration),
             "camera_deltas": self.camera_deltas.detach().cpu().numpy(),
             "opt_state_cam": row_sparse_to_tree(
@@ -502,11 +562,12 @@ class NeRFTrainer:
         """Write the full training state to ``path`` (atomically; from a
         thread under ``async_checkpoint``, see ``finalize_checkpoints``).
         Over a world of ranks rank 0 writes (every rank holds the same
-        state) and the others wait for it."""
+        state; under tensor parallelism every rank gathers its shards for
+        it) and the others wait for it."""
+        state = self.checkpoint_state() if self.rank == 0 or self.shard_names else None
         if self.rank == 0:
             path = Path(path)
             path.parent.mkdir(parents=True, exist_ok=True)
-            state = self.checkpoint_state()
             if self._async_ckpt is not None:
                 self._async_ckpt.save(path, state)
             else:
@@ -531,9 +592,10 @@ class NeRFTrainer:
         if missing:
             raise ValueError(f"{path}: not a full training state, missing {missing} "
                              "(load_pretrained_model reads params-only checkpoints)")
-        self.neural_render.load_state_dict(params_from_jax(state["params"]), strict=True)
+        self.neural_render.load_state_dict(self.local_state(params_from_jax(state["params"])),
+                                           strict=True)
         adam_from_optax(state["opt_state"], self.optimizer,
-                        list(self.neural_render.named_parameters()))
+                        list(self.neural_render.named_parameters()), self.local_state)
         deltas = torch.from_numpy(np.array(state["camera_deltas"], np.float32))
         if deltas.shape != self.camera_deltas.shape:
             raise ValueError(f"{path}: camera_deltas {tuple(deltas.shape)}, "
@@ -558,8 +620,14 @@ class NeRFTrainer:
 
     def load_pretrained_model(self, model_path: "str | Path") -> None:
         """Load the parameters of a flax msgpack checkpoint (``.ckpt``) or
-        of a reference-layout ``.pth``; every parameter must match."""
-        load_renderer_weights(self.neural_render, model_path)
+        of a reference-layout ``.pth``; every parameter must match (under
+        tensor parallelism this rank keeps its shards)."""
+        if not self.shard_names:
+            load_renderer_weights(self.neural_render, model_path)
+            return
+        full = self.full_renderer()
+        load_renderer_weights(full, model_path)
+        self.neural_render.load_state_dict(self.local_state(full.state_dict()), strict=True)
 
     def enable_ray_cull(self, resolution: int = 64, threshold: float = 0.01) -> None:
         """Skip background rays in eval renders: an occupancy grid of the
@@ -567,7 +635,7 @@ class NeRFTrainer:
         seeded with ``seed``, not from the trainer's own). Refuses an NDC
         renderer (``render.ndc=true``): the grid is a world-space one."""
         self.neural_render.refuse_ndc("ray culling (trainer.enable_ray_cull, run_eval --ray-cull)")
-        self.eval_ray_cull = self.neural_render.build_occupancy(
+        self.eval_ray_cull = self.full_renderer().build_occupancy(
             torch.Generator(device=self.device).manual_seed(self.seed),
             resolution=resolution, threshold=threshold,
         )

@@ -73,11 +73,18 @@ def test_trainer_over_two_ranks_tracks_the_single_process_trainer(scene, tmp_pat
 
 
 def test_trainer_needs_the_ranks_and_refuses_width_sharding(scene):
+    """A mesh needs its ranks; since tensor parallelism a NeDDF mesh of
+    ``model = 2`` needs 2 ranks too, and NeRF's width sharding is refused
+    (NotImplementedError naming its ROADMAP item) before anything is
+    built."""
     cfg = family_config(scene, "neddf", mesh=MESH2)
     with pytest.raises(RuntimeError, match="process group of 2"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
     cfg["trainer"]["mesh"] = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(RuntimeError, match="process group of 2"):
+        tconfig.instantiate(cfg["trainer"], global_config=cfg)
+    cfg = family_config(scene, "nerf", mesh={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="tensor parallelism.*ROADMAP"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
 
 
@@ -232,12 +239,20 @@ def test_resolve_world(mesh, device, cards, launched, want):
 
 
 def test_resolve_world_refuses_more_ranks_than_cards_and_width_sharding():
+    """More ranks than cards raise, width-sharded meshes too (``model``
+    ranks per data row since tensor parallelism, which made ``model > 1``
+    a world of ``data x model`` ranks instead of NotImplementedError)."""
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices; platform 'cuda' has 1"):
         resolve_world({"data": 2, "model": 1}, "cuda", 1)
     with pytest.raises(ValueError, match="the launcher started 4 ranks"):
         resolve_world({"data": 2, "model": 1}, "cuda", 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_world({"data": 1, "model": 2}, "cuda", 4)
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices; platform 'cuda' has 2"):
+        resolve_world({"data": 2, "model": 2}, "cuda", 2)
+    assert resolve_world({"data": 1, "model": 2}, "cuda", 4) == 2
+    assert resolve_world({"data": "auto", "model": 2}, "cuda", 4) == 4
+    assert resolve_world({"data": "auto", "model": 2}, "cpu", 0) == 2
+    with pytest.raises(ValueError, match="not a multiple of mesh model=2"):
+        resolve_world({"data": "auto", "model": 2}, "cuda", 4, 3)
 
 
 def test_resolve_world_across_hosts_checks_only_this_hosts_ranks():
@@ -274,5 +289,5 @@ def test_a_trainers_world_is_its_process_groups_whatever_the_cards(monkeypatch):
         assert group_world(mesh) is None
     with pytest.raises(RuntimeError, match="process group of 2.*a group of 1"):
         group_world({"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(RuntimeError, match="process group of a multiple of 2.*a group of 1"):
         group_world({"data": "auto", "model": 2})

@@ -394,11 +394,15 @@ def test_seg_and_epilogue_checks_accept_the_training_shapes():
     z = torch.zeros
     for c in (256, 128, 576):
         args = (z((10, c)), z((3, 10, c)), z(c), z(c), z(2), z(8), "ReLU")
-        if c <= 512:  # every width up to 512
-            tepi._check_kernel_args(*args)
+        # every width up to 512, and past it (up to 2048) but in the top
+        # mode, the fused trunk's: the per-layer route runs the epilogue on
+        # its own at any width it takes
+        tepi._check_kernel_args(*args)
+        if c <= 512:
+            tepi._check_kernel_args(*args, top=True)
         else:
             with pytest.raises(NotImplementedError, match="width 576 > 512"):
-                tepi._check_kernel_args(*args)
+                tepi._check_kernel_args(*args, top=True)
 
 
 # ------------------------------------------------------------------ on the card

@@ -140,11 +140,11 @@ def test_learning_rate_is_optax_staircase(scene):
         assert ttr.learning_rate(n) == pytest.approx(float(sched(n)), rel=1e-6)
     for ported in ({"grad_accum": 2}, {"optimize_camera": True}):
         tconfig.instantiate({**cfg["trainer"], **ported}, global_config=cfg)
-    # data parallelism needs the ranks' process group; width sharding is not ported
+    # data and (NeDDF's) tensor parallelism need the ranks' process group
     with pytest.raises(RuntimeError, match="process group"):
         tconfig.instantiate({**cfg["trainer"], "mesh": {"data": 2, "model": 1}},
                             global_config=cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         tconfig.instantiate({**cfg["trainer"], "mesh": {"data": "auto", "model": 2}},
                             global_config=cfg)
 

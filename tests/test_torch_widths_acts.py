@@ -411,10 +411,13 @@ def test_every_width_up_to_512_and_every_activation_is_taken():
             for refusal in (tdm.kernel_refusal(act, width, 8, 3), tmlp.kernel_refusal(
                     act, width, 8), tsdf.kernel_refusal(act, width, 8)):
                 assert refusal == f"width {width} > 512"
+    # the epilogue's top mode finishes the fused trunk's top layer: its
+    # widths; alone (the per-layer route's) it takes 576 too
+    wide = (torch.zeros((4, 576)), torch.zeros((3, 4, 576)), torch.zeros(576),
+            torch.zeros(576), torch.zeros(2), torch.zeros(8), "ReLU")
     with pytest.raises(NotImplementedError, match="width 576 > 512"):
-        tepi._check_kernel_args(torch.zeros((4, 576)), torch.zeros((3, 4, 576)),
-                                torch.zeros(576), torch.zeros(576), torch.zeros(2),
-                                torch.zeros(8), "ReLU")
+        tepi._check_kernel_args(*wide, top=True)
+    tepi._check_kernel_args(*wide)
     tepi._check_kernel_args(torch.zeros((4, 45)), torch.zeros((3, 4, 45)), torch.zeros(45),
                             torch.zeros(45), torch.zeros(2), torch.zeros(8), "Sigmoid")
 

@@ -1,5 +1,7 @@
-"""Rank programs of the port's data-parallel tests (``test_torch_parallel.py``,
-``test_torch_parallel_trainer.py``), run in a process of their own:
+"""Rank programs of the port's data- and tensor-parallel tests
+(``test_torch_parallel.py``, ``test_torch_parallel_trainer.py``,
+``test_torch_tp.py``, ``test_torch_tp_mesh4.py``), run in a process of
+their own:
 
     python -m tests.torch_parallel_ranks <task> <inputs.pt> <outputs.pt> <world>
 
@@ -99,6 +101,108 @@ def steps(inputs: dict, out: str) -> None:
         n: p.detach().numpy().copy() for n, p in trainer.neural_render.named_parameters()}})
 
 
+def _tp_trainer(cfg: dict, state=None):
+    """A trainer of ``cfg``'s mesh (tensor parallelism) with the full
+    parameters ``state``, this rank keeping its shards."""
+    trainer = tconfig.instantiate(cfg["trainer"], global_config=cfg)
+    if state is not None:
+        full = {k: torch.from_numpy(v) for k, v in state.items()}
+        trainer.neural_render.load_state_dict(trainer.local_state(full), strict=True)
+    return trainer
+
+
+def _tp_walks(inputs: dict) -> list:
+    """The per-layer walk over this rank's column shards of each case's
+    weights (its model group: the default one), forward and backward:
+    the gathered output, the input cotangents, the gathered dW and db."""
+    from neddf_tpu_torch.kernels import dual_mlp as tdm
+    from neddf_tpu_torch.parallel.tp import all_gather_last
+
+    group = dist.group.WORLD
+    n, r = dist.get_world_size(), dist.get_rank()
+    # one thread, as the test's whole walk: a multi-threaded f32 product
+    # may split its sums by shape, and these shards are half as wide
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    results = []
+    for case in inputs["walks"]:
+        vs, js, ws, bs, layout, act, has_j, n_tan, g = case
+        cd = vs[0].dtype
+        per = ws[0].shape[1] // n
+        cols = slice(r * per, (r + 1) * per)
+        k = tdm.DualProductsPlain(cd)
+        full, ins, pres = tdm.dual_mlp_layers_walk(
+            vs, js, [w[:, cols].contiguous() for w in ws], [b[cols] for b in bs], layout, act,
+            has_j, n_tan, k, group, stash=True)
+        # each rank's share of one cotangent (the gathers' backward sums them)
+        dvs, djs, dws, dbs = tdm.dual_mlp_layers_bwd(
+            ins, [w[:, cols].contiguous() for w in ws], layout, act, [v.shape[1] for v in vs],
+            has_j, pres, g / n, k, group)
+        results.append({"full": full, "dvs": dvs, "djs": djs,
+                        "dws": [all_gather_last(d, group) for d in dws],
+                        "dbs": [all_gather_last(d, group) for d in dbs]})
+    torch.set_num_threads(threads)
+    return results
+
+
+def tp(inputs: dict, out: str) -> None:
+    """Tensor parallelism over this world as one model group (data 1):
+    ``tp_gather`` forward and backward, the padded gather against the
+    gather; the per-layer walks; one step of a NeDDF trainer on the given
+    draws (loss, loss dict, mse, gathered gradients, camera gradient);
+    the TP eval render and the render of the gathered copy; two training
+    steps, then a checkpoint (its path in the inputs)."""
+    from neddf_tpu_torch.parallel.tp import gather_by_all_reduce, tp_gather
+
+    _threads()
+    group = dist.group.WORLD
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = (torch.arange(2 * 3 * 5, dtype=torch.float32).view(2, 3, 5) * (r + 1) - 7.0)
+    x[0, 0, 0] = -0.0
+    x.requires_grad_(True)
+    y = tp_gather(x, group)
+    g = torch.arange(y.numel(), dtype=torch.float32).view_as(y) * (0.5 + r)
+    y.backward(g)
+    result = {"x": x.detach(), "y": y.detach(), "g": g, "dx": x.grad,
+              "padded": gather_by_all_reduce(x.detach(), group)}
+    result["walks"] = _tp_walks(inputs)
+
+    case = inputs["step"]
+    trainer = _tp_trainer(case["cfg"], case["state"])
+    with torch.no_grad():
+        trainer.camera_deltas.copy_(torch.from_numpy(case["deltas"]))
+    trainer.iteration = case["iteration"]
+    us, vs, u_strat, u_pdf = (torch.from_numpy(a) for a in case["draws"])
+    loss, loss_dict, mse = trainer.step_grads(case["camera"], us, vs, u_strat, u_pdf)
+    grads = trainer.full_state({n_: p.grad for n_, p in trainer.neural_render.named_parameters()})
+    result["step"] = {
+        "loss": loss.item(), "mse": mse.item(),
+        "loss_dict": {k: v.item() for k, v in loss_dict.items()},
+        "grads": {k: v.numpy().copy() for k, v in grads.items()},
+        "camera": trainer.camera_deltas.grad.numpy().copy()}
+
+    render = inputs["render"]
+    calib, pose_r, pose_t = (torch.from_numpy(a) for a in render["camera"])
+    images = []
+    for renderer, render_fn in ((trainer.neural_render, trainer.render_fn),
+                                (trainer.full_renderer(), None)):
+        images.append(renderer.render_image(
+            PinholeCalib(calib), pose_r, pose_t, 24, 20, ["color", "depth"], 1,
+            trainer.chunk, generator=torch.Generator().manual_seed(3), render_fn=render_fn))
+    result["render"] = images
+
+    run = inputs["run"]
+    trainer = _tp_trainer(run["cfg"])
+    for camera_id in run["cameras"]:
+        trainer.run_train_step(camera_id)
+    trainer.flush_logs()
+    trainer.save_checkpoint(run["path"])
+    full = trainer.full_state(dict(trainer.neural_render.named_parameters()))
+    result["run"] = {"history": trainer.history,
+                     "params": {k: v.detach().numpy().copy() for k, v in full.items()}}
+    _save(out, result)
+
+
 def fail(inputs: dict, out: str) -> None:
     """Rank 1 raises while rank 0 waits for it in an all-reduce."""
     if dist.get_rank() == 1:
@@ -106,7 +210,24 @@ def fail(inputs: dict, out: str) -> None:
     dist.all_reduce(torch.zeros(1))
 
 
-TASKS = {"grads": grads, "render": render, "steps": steps, "fail": fail}
+def tp_camera(inputs: dict, out: str) -> None:
+    """One step of a NeDDF trainer of ``mesh`` data x model over this
+    world, with ``optimize_camera``, on the given draws: the camera-delta
+    gradient, the loss and mse (every rank)."""
+    _threads()
+    case = inputs["step"]
+    trainer = _tp_trainer(case["cfg"], case["state"])
+    with torch.no_grad():
+        trainer.camera_deltas.copy_(torch.from_numpy(case["deltas"]))
+    trainer.iteration = case["iteration"]
+    loss, _, mse = trainer.step_grads(case["camera"], *(torch.from_numpy(a)
+                                                        for a in case["draws"]))
+    _save(out, {"loss": loss.item(), "mse": mse.item(),
+                "camera": trainer.camera_deltas.grad.numpy().copy()})
+
+
+TASKS = {"grads": grads, "render": render, "steps": steps, "fail": fail, "tp": tp,
+         "tp_camera": tp_camera}
 
 
 def main(argv) -> None:

@@ -26,8 +26,13 @@ With ``--wide``, the same for the configurations of ``chip_smoke.py``'s
 a LeakyReLU density, and NeuS at width 128 with Softplus, at
 ``WIDE_BATCH`` rays (the 512-wide JAX step must fit the CPU's memory).
 
+With ``--tp``, the same for ``chip_smoke.py``'s ``TP_OVERRIDES`` (NeDDF
+with both trunks 1024 wide, the per-layer route's configuration) at
+``TP_BATCH`` rays, written to ``tools/tp_step_reference.json``, which
+``chip_smoke.py`` phase 24 reads.
+
 Usage (CPU, about 2 GB of memory and a minute or two each):
-    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide]
+    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide | --tp]
 """
 from __future__ import annotations
 
@@ -54,6 +59,9 @@ from chip_smoke import (  # noqa: E402
     FAMILY_DRAW_SEED,
     FAMILY_OVERRIDES,
     FAMILY_SHIFT,
+    TP_BATCH,
+    TP_OVERRIDES,
+    TP_STEP_REF,
     WIDE_BATCH,
     WIDE_OVERRIDES,
     family_params,
@@ -139,7 +147,10 @@ def family_step(overrides, batch: int = FAMILY_BATCH) -> dict:
 
 
 def main() -> None:
-    if "--wide" in sys.argv[1:]:
+    if "--tp" in sys.argv[1:]:
+        out = {name: family_step(o, TP_BATCH) for name, o in TP_OVERRIDES.items()}
+        TP_STEP_REF.write_text(json.dumps(out, indent=1) + "\n")
+    elif "--wide" in sys.argv[1:]:
         out = {name: family_step(o, WIDE_BATCH) for name, o in WIDE_OVERRIDES.items()}
     else:
         out = {family: family_step(o) for family, o in FAMILY_OVERRIDES.items()}
