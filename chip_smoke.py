@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --phase 24   # the build and phase 24 alone
+    python3 chip_smoke.py --phase 25   # the build and phase 25 alone
 
 Phases (any failure stops the script with a non-zero exit code):
 
@@ -239,6 +240,27 @@ Phases (any failure stops the script with a non-zero exit code):
    step bars), each rank's launches, and ``machine_neddf`` cam 0 at
    downsampling 8 over the two ranks' shards within 0.05 dB of the whole
    render;
+25. NeRF's and NeuS's per-layer route (their tensor parallelism and
+   widths over 512), each path with every count at 0 just before it and
+   read just after: (a) each new mode against its plain version at width
+   1024, f32 and bf16, ReLU, at NeRF's 198,656 and NeuS's 265,216 rows
+   (the layer forward of a post-skip layer reading [h | embed], hidden
+   first; NeuS colour's whole 3-wide last layer; ``gpre`` on the f32 sum
+   after the reduce-scatter, NeuS's with zs added; the sweep's top at a
+   column shard), with CUDA-event ms, plain ms, ``torch.addmm`` and the
+   bound; NeRF's trunk walk and NeuS's sdf walk (the sweep per layer)
+   forward and backward at 65,536 rows, each layer and the backward held
+   over the kernel's own stash; (b) NeRF-1024 (bf16) and NeuS-1024 (f32)
+   on the card: each f32 step from the seeded parameters against the JAX
+   package (``tools/tp_family_step_reference.json``, phase 10's bars), a
+   short run (NeRF 200 steps of 1024 rays, PSNR up >= 3 dB; NeuS 200
+   steps of 256 rays, >= 1 dB; every launch on the route, none of the fused route's, no tile
+   forward, no plain call; ms/step, busy share, peak memory) and
+   ``run_eval`` kernels vs plain within 0.05 dB; (c) NeRF and NeuS at
+   width 256 over two gloo ranks of data 1 x model 2 on the one card: the
+   TP step against one rank's on the same draws (f32 within 1e-6, NeRF's
+   bf16 the step bars; NeuS under tanhExp, where the shards' sums cannot
+   take ReLU's kink the other way), each rank's launches, no plain call;
 13. (printed last) one JSON line of per-kernel results (with each route's
    bound; the parallel db sum among them; ``launches_geometry``,
    ``launches_llff`` and ``launches_dp``: each kernel's launches on the
@@ -248,7 +270,10 @@ Phases (any failure stops the script with a non-zero exit code):
    ``{"ok": true, "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
-Outputs go to ``chiprun_out/chip_smoke/``.
+Phases 24c and 25c run while phase 14b's ``--watchdog`` subprocess ends
+(the card would wait for it otherwise; their ranks' step times, no TP
+speed in any case, share the card with it). Every log line ends with the
+seconds since the start. Outputs go to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
@@ -359,6 +384,17 @@ WIDE_BATCH = 64
 TP_OVERRIDES = {"neddf_1024": ["network.ddf_layer_width=1024", "network.col_layer_width=1024"]}
 TP_BATCH = 32
 TP_STEP_REF = REPO / "tools" / "tp_step_reference.json"
+# phase 25: NeRF and NeuS past 512 (the per-layer route of mlp_seg and
+# sdf_mlp at model = 1; the rest as shipped: NeRF bf16, NeuS f32, ReLU),
+# their f32 steps' rays against the JAX package
+# (tools/family_step_reference.py --tp-families writes TP_FAMILY_STEP_REF)
+TP_FAMILY_OVERRIDES = {
+    "nerf_1024": [*FAMILY_OVERRIDES["nerf"], "network.layer_width=1024"],
+    "neus_1024": [*FAMILY_OVERRIDES["neus"], "network.sdf_layer_width=1024",
+                  "network.col_layer_width=1024"],
+}
+TP_FAMILY_BATCH = 32
+TP_FAMILY_STEP_REF = REPO / "tools" / "tp_family_step_reference.json"
 
 
 def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
@@ -483,8 +519,12 @@ BF16_STEP_TOL = {"loss": 0.02, "grad_norm": 0.05}
 BF16_JUMPY_NORMS = ("network_fine.layer_aux_out.w", "network_fine.layer_aux_out.b")
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the log with the seconds since the script started."""
+    print(f"{msg}  [t {time.perf_counter() - _START:.0f} s]", flush=True)
 
 
 def fail(msg: str) -> "None":
@@ -2121,7 +2161,7 @@ def family_trainer(torch, family: str, extra=()):
     config/ as ``scripts/run.py`` composes it."""
     from neddf_tpu_torch import config as config_lib
 
-    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES, **TP_OVERRIDES}
+    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES, **TP_OVERRIDES, **TP_FAMILY_OVERRIDES}
     cfg = config_lib.compose(REPO / "config", overrides=[*known.get(family, []), *extra])
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["trainer"]["device"] = "cuda"
@@ -2158,7 +2198,8 @@ def hold_step(tag: str, got: dict, ref: dict, card: str,
 # the configurations whose network has a compute_dtype (bf16 by default)
 F32_STEP_OVERRIDE = {"nerf": ["network.compute_dtype=float32"],
                      "neddf_wide": ["network.compute_dtype=float32"],
-                     "neddf_1024": ["network.compute_dtype=float32"]}
+                     "neddf_1024": ["network.compute_dtype=float32"],
+                     "nerf_1024": ["network.compute_dtype=float32"]}
 
 
 def phase_family_step(torch, card: str, configs=None, refs=None, batch: int = FAMILY_BATCH,
@@ -2966,7 +3007,9 @@ def path_counters():
                # the per-layer route (phase 24): its calls that ran the kernels,
                # and the epilogue's standalone backward it takes
                "dual_mlp_layers": dm.dual_mlp_layers, "mlp_seg_layers": mlp.mlp_seg_layers,
-               "neddf_epilogue_bwd": epi.neddf_epilogue_bwd}
+               "neddf_epilogue_bwd": epi.neddf_epilogue_bwd,
+               # NeRF's and NeuS's per-layer route (phase 25)
+               "sdf_mlp_layers": sk.sdf_mlp_layers}
     plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
               mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, epi.neddf_epilogue_plain,
               epi.neddf_epilogue_bwd_plain, epi.neddf_epilogue_gstack_plain,
@@ -4984,6 +5027,595 @@ def phase_24_alone(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 25
+# NeRF's and NeuS's per-layer route (their tensor parallelism and widths
+# over 512): (a) its new kernel modes against their plain versions at the
+# paths' rows and width 1024, timed, and the two walks; (b) NeRF-1024
+# (bf16) and NeuS-1024 (f32) on one card (the route with one shard); (c)
+# NeRF and NeuS at width 256 over two gloo ranks sharing the card (data 1
+# x model 2)
+TPF_WIDTH = 1024
+# rows of the fine pass: NeRF's 1024 rays x 194 samples, NeuS's 1024 x 259
+TPF_ROWS = {"nerf": 1024 * 194, "neus": 1024 * 259}
+TPF_SEG0 = {"nerf": 60, "neus": 36}  # the skip's segment: PE(pos) of ranks 10 and 6
+TPF_LAYOUT = tuple(li == 5 for li in range(8))  # both trunks: [h, embed] at layer 5
+TPF_WALK_ROWS = 65536  # the two walks, forward and backward, at 1024 wide
+# the route's wrappers of each run (their calls that ran the kernels), and
+# the fused route's, which the route never launches
+TPF_RUN_KERNELS = {"nerf_1024": ("mlp_seg_layers",),
+                   "neus_1024": ("sdf_mlp_layers", "mlp_seg_layers")}
+TPF_FUSED = ("mlp_seg", "mlp_seg_bwd", "sdf_mlp", "sdf_mlp_bwd")
+# phase 25b's runs: rays, trainer.epoch_max (100 steps an epoch) and the
+# train PSNR gain of the last 50 steps over the first 50 (NeuS-1024 in f32
+# runs fewer rays and steps, so its bar is lower)
+TPF_RUNS = {"nerf_1024": {"rays": 1024, "epoch_max": 1, "gain_min": PSNR_GAIN_MIN},
+            "neus_1024": {"rays": 256, "epoch_max": 1, "gain_min": 1.0}}
+TPF_RANK_RAYS = 64  # phase 25c's steps at width 256 over two ranks on one card
+# NeuS's 25c step runs tanhExp: under ReLU a pre-activation within a
+# rounding of the kink may take the other side in the shards' sums, which
+# moves a gradient norm by more than the f32 bar (6.2e-6 between the
+# one-shard route and the fused one in one CPU process, 1.7e-7 under
+# tanhExp); tanhExp also drives the sweep's f'' terms over the shards
+TPF_RANK_OVERRIDES = {"nerf": [], "neus": ["network.activation_type=tanhExp"]}
+TPF_RANK_TIMEOUT = 420.0
+TPF_F32_TOL = 1e-6  # two ranks' f32 step vs one rank's
+
+
+def _tpf_nets(render):
+    nets = [render.network_fine]
+    if render.use_coarse_network:
+        nets.append(render.network_coarse)
+    return nets
+
+
+def tpf_route_counts(what: str, needed) -> dict:
+    """``read_path_counts`` on NeRF's and NeuS's per-layer route: every
+    kernel of ``needed`` and the value-only layer forward launched, no
+    fused wrapper and no tile forward, no plain version."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    counts = read_path_counts(what, needed)
+    fused = {k: counts["launches"].get(k, 0) for k in TPF_FUSED}
+    tile = counts["routes"]["tile_forward"]
+    if any(fused.values()) or any(tile.values()) or dm.ROUTE_LAUNCHES["fwd_value"] < 1:
+        fail(f"{what}: the fused route launched {fused}, tile forwards {tile}, the layer "
+             f"forward {dict(dm.ROUTE_LAUNCHES)}")
+    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
+    return counts
+
+
+def tpf_cases(torch, dev, dtype_name: str) -> dict:
+    """Phase 25a at one operand type: the route's new modes against their
+    plain versions at each path's rows (TPF_ROWS) and width 1024, ReLU,
+    timed (kernel, plain, ``torch.addmm`` on the same operands where one
+    call computes the product), with their bounds; then NeRF's trunk walk
+    and (f32) NeuS's sdf walk at TPF_WALK_ROWS, held layer by layer over
+    the kernel's own stash (a pre-activation within a rounding of ReLU's
+    kink may take the other side in the plain sums)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+    from neddf_tpu_torch.ops import sdf_grad
+
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    e = 2 if dtype_name == "bfloat16" else 4
+    g = torch.Generator(device=dev).manual_seed(25)
+    k, kp = sk.SDFProducts(dtype, dev), sk.SDFProductsPlain(dtype)
+    n, act = TPF_WIDTH, "ReLU"
+    tol = TP_TOL[dtype_name]
+    out = {}
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    def hold(name, got, want):
+        err, rel = rel_err(torch, got, want)
+        if not torch.isfinite(got).all() or not rel <= tol:
+            fail(f"[25a] {name} {dtype_name}: rel err {rel:.3g} > {tol}")
+        return err
+
+    def record(name, err, pair, library_ms, b):
+        out[name] = {"max_abs_err": err, "ms": pair[0], "plain_ms": pair[1],
+                     "library_ms": library_ms, **b}
+
+    # the layer forward: a post-skip layer reading [h | embed] (hidden
+    # first), and NeuS's colour trunk's whole 3-wide last layer
+    for name, m, ks, n_out in (("fwd_hidden_first/nerf", TPF_ROWS["nerf"], (n, 60), n),
+                               ("fwd_hidden_first/neus", TPF_ROWS["neus"], (n, 36), n),
+                               ("fwd_narrow/neus", TPF_ROWS["neus"], (n,), 3)):
+        xs = [rnd(1, m, kk) for kk in ks]
+        w = rnd(sum(ks), n_out, scale=sum(ks) ** -0.5)
+        b = torch.randn(n_out, generator=g, device=dev) * 0.1
+        got, want = k.layer_fwd(xs, w, b, act, True), kp.layer_fwd(xs, w, b, act, True)
+        torch.cuda.synchronize()
+        err = max(hold(name, a, c) for a, c in zip(got, want))
+        pair = time_pair(torch, lambda: k.layer_fwd(xs, w, b, act, True),
+                         lambda: kp.layer_fwd(xs, w, b, act, True))
+        x2d, bt = torch.cat(xs, dim=-1).view(m, sum(ks)), b.to(dtype)
+        library_ms = time_one(torch, lambda: torch.addmm(bt, x2d, w), inner=3)
+        record(name, err, pair, library_ms,
+               _route_bound(*_route_fwd_work(1, m, ks, n_out, dtype_name, True), dtype_name))
+        del xs, w, got, want, x2d
+    torch.cuda.empty_cache()
+
+    # the activation pass after the reduce-scatter (gpre on the f32 sum):
+    # NeRF's layer cotangent, and NeuS's descending trunk with zs added
+    for name, path, with_add in (("gpre_f32/nerf", "nerf", False),
+                                 ("gpre_f32/neus", "neus", True)):
+        m = TPF_ROWS[path]
+        z = rnd(m, n)
+        gg = torch.randn((m, n), generator=g, device=dev)
+        add = torch.randn((m, n), generator=g, device=dev) if with_add else None
+        got, want = k.gpre(gg, z, act, add), kp.gpre(gg, z, act, add)
+        torch.cuda.synchronize()
+        err = max(hold(name, got[0], want[0]), hold(f"{name} db", got[1], want[1]))
+        pair = time_pair(torch, lambda: k.gpre(gg, z, act, add),
+                         lambda: kp.gpre(gg, z, act, add))
+        nbytes = m * n * (4 + 2 * e + 4 * with_add) + 4 * n * -(-m // 64) + 4 * n
+        record(name, err, pair, None, bound(3.0 * m * n, nbytes, "float32"))
+        del z, gg, add, got, want
+    torch.cuda.empty_cache()
+
+    if dtype == torch.float32:
+        # the sweep's top at a column shard of 512: channel 0 on rank 0 only
+        m = TPF_ROWS["neus"]
+        z = rnd(m, n // 2)
+        err = 0.0
+        for holds0 in (True, False):
+            err = max(err, hold(f"sdf_top holds0={holds0}", k.sdf_top(z, act, holds0),
+                                kp.sdf_top(z, act, holds0)))
+        pair = time_pair(torch, lambda: k.sdf_top(z, act), lambda: kp.sdf_top(z, act))
+        # the function reads z's column 0 and writes p
+        record("sdf_top_shard", err, pair, None, bound(float(m), 4.0 * m * (n // 2 + 1),
+                                                       "float32"))
+        del z
+        torch.cuda.empty_cache()
+
+    # NeRF's trunk: the value-only walk (8 x 1024, [h | 60] at layer 5) and
+    # its backward
+    m = TPF_WALK_ROWS
+    fans = [60] + [n + 60 * s for s in TPF_LAYOUT[1:]]
+    ws = [rnd(f, n, scale=1.5 * f ** -0.5) for f in fans]
+    bs = [torch.randn(n, generator=g, device=dev) * 0.1 for _ in fans]
+    x0 = rnd(m, 60)
+    no_j = (False,)
+
+    def walk(launcher):
+        return dm.dual_mlp_layers_walk([x0], [], ws, bs, TPF_LAYOUT, act, no_j, 0, launcher,
+                                       stash=True, hidden_first=True)
+
+    full, ins, pres = walk(k)
+    torch.cuda.synchronize()
+    # each layer against its plain version on the kernel's own inputs
+    err_f = max(max(hold(f"mlp walk layer {li}", a, c) for a, c in zip(
+        (ins[li + 1][0] if li + 1 < len(ws) else full, pres[li]),
+        kp.layer_fwd(ins[li], ws[li], bs[li], act, True))) for li in range(len(ws)))
+    gtop = torch.randn((1, m, n), generator=g, device=dev)
+
+    def walk_bwd(launcher):
+        return dm.dual_mlp_layers_bwd(ins, ws, TPF_LAYOUT, act, [60], no_j, pres, gtop,
+                                      launcher, hidden_first=True)
+
+    got, want = walk_bwd(k), walk_bwd(kp)
+    torch.cuda.synchronize()
+    err_b = max(hold(f"mlp walk backward {i}", a, c) for gs_, ws_ in zip(got, want)
+                for i, (a, c) in enumerate(zip(gs_, ws_)))
+    del got, want
+    flops = sum(2.0 * m * f * n for f in fans)
+    io = (m * 60 + 2 * m * n * len(fans) + sum(f * n for f in fans)) * e + 4 * n * len(fans)
+    record("mlp_walk_fwd", err_f, time_pair(torch, lambda: walk(k), lambda: walk(kp), reps=3),
+           None, _route_bound(flops, io, dtype_name))
+    io_b = (sum(m * f for f in fans) + m * n * len(fans) + sum(f * n for f in fans)
+            + m * 60) * e + 4 * m * n + sum(f * n + n for f in fans) * 4
+    record("mlp_walk_bwd", err_b, time_pair(torch, lambda: walk_bwd(k), lambda: walk_bwd(kp),
+                                            reps=3), None, _route_bound(2.0 * flops, io_b,
+                                                                        dtype_name))
+    del full, ins, pres, gtop, ws
+    torch.cuda.empty_cache()
+
+    if dtype == torch.float32:
+        # NeuS's sdf trunk with its sweep (8 x 1024, [h | 36] at layer 5) and
+        # its second-order backward
+        fans = [36] + [n + 36 * s for s in TPF_LAYOUT[1:]]
+        ws = [rnd(f, n, scale=1.5 * f ** -0.5) for f in fans]
+        bs = [torch.randn(n, generator=g, device=dev) * 0.1 for _ in fans]
+        e0 = rnd(m, 36)
+        h, g_e, ins, pres = sk.sdf_layers_walk(e0, ws, bs, TPF_LAYOUT, act, k)
+        torch.cuda.synchronize()
+        err_f = max(max(hold(f"sdf walk layer {li}", a, c[0]) for a, c in zip(
+            (ins[li + 1][0] if li + 1 < len(ws) else h, pres[li]),
+            kp.layer_fwd([x[None] for x in ins[li]], ws[li], bs[li], act, True)))
+            for li in range(len(ws)))
+        err_f = max(err_f, hold("sdf walk gE", g_e, sdf_grad.channel0_sweep(
+            ws, TPF_LAYOUT, act, pres, 36)))
+        ch = torch.randn((m, n), generator=g, device=dev)
+        cg = torch.randn((m, 36), generator=g, device=dev)
+
+        def sdf_bwd(launcher):
+            return sk.sdf_layers_bwd(ins, ws, TPF_LAYOUT, act, pres, ch, cg, launcher)
+
+        got, want = sdf_bwd(k), sdf_bwd(kp)
+        torch.cuda.synchronize()
+        err_b = max([hold("sdf walk de", got[0], want[0])]
+                    + [hold(f"sdf walk d{kind} {i}", a, c) for kind, gs_, ws_ in
+                       (("W", got[1], want[1]), ("b", got[2], want[2]))
+                       for i, (a, c) in enumerate(zip(gs_, ws_))])
+        del got, want
+        flops = sum(2.0 * m * f * n for f in fans)
+        io = (m * 36 + 2 * m * n * len(fans) + sum(f * n for f in fans)) * 4 + 4 * m * 36
+
+        def sdf_fwd(launcher):
+            return sk.sdf_layers_walk(e0, ws, bs, TPF_LAYOUT, act, launcher)
+
+        record("sdf_walk_fwd", err_f, time_pair(torch, lambda: sdf_fwd(k), lambda: sdf_fwd(kp),
+                                                reps=3), None,
+               _route_bound(2.0 * flops, io, "float32"))
+        io_b = (2 * sum(m * f for f in fans) + m * n * len(fans) + sum(f * n for f in fans)
+                + 2 * m * 36 + m * n) * 4 + sum(f * n + n for f in fans) * 4
+        record("sdf_walk_bwd", err_b, time_pair(torch, lambda: sdf_bwd(k), lambda: sdf_bwd(kp),
+                                                reps=3), None,
+               _route_bound(5.0 * flops, io_b, "float32"))
+        del h, g_e, ins, pres, ws, ch, cg
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_family_kernels(torch, card: str) -> dict:
+    """Phase 25a: ``tpf_cases`` in f32 and bf16."""
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        cases = tpf_cases(torch, dev, dtype_name)
+        for name, r in cases.items():
+            lib = r["library_ms"]
+            log(f"[25a] {name} {dtype_name} (width {TPF_WIDTH}): max abs err "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"torch.addmm {lib if lib is None else round(lib, 4)} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | card: {card}")
+        out[dtype_name] = cases
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[25a] took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_tp_family_run(torch, card: str) -> dict:
+    """Phase 25b: NeRF-1024 (bf16) and NeuS-1024 (f32) on the card (the
+    per-layer route with one shard): each f32 step from the seeded
+    parameters against the JAX package (TP_FAMILY_STEP_REF), a short run
+    through scripts/run.py (TPF_RUNS: every loss finite, train PSNR up by
+    its bar, every launch on the route and no plain call; ms/step, the busy
+    share, peak memory) and run_eval of its run dir through the kernels and
+    the plain versions within EVAL_PSNR_GAP_DB."""
+    from neddf_tpu_torch.scripts.run_eval import evaluate
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    start = time.perf_counter()
+    refs = json.loads(TP_FAMILY_STEP_REF.read_text())
+    out = {}
+    for name, spec in TPF_RUNS.items():
+        needed = TPF_RUN_KERNELS[name]
+        reset_path_counts()
+        res = {"step": phase_family_step(torch, card, {name: TP_FAMILY_OVERRIDES[name]}, refs,
+                                         TP_FAMILY_BATCH, "25b")[name]}
+        res["step"]["counts"] = tpf_route_counts(f"[25b] {name} f32 step", needed)
+        run_dir = OUT / f"train_{name}"
+        reset_path_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = run_main_path(torch, run_dir, [
+            *TP_FAMILY_OVERRIDES[name], f"trainer.batch_size={spec['rays']}",
+            f"trainer.epoch_max={spec['epoch_max']}",
+            f"trainer.epoch_save_model={max(1, spec['epoch_max'])}"])
+        wall = time.perf_counter() - t0
+        counts = tpf_route_counts(f"[25b] the {name} run", needed)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        hist = trainer.history
+        if len(hist) != 100 * (spec["epoch_max"] + 1) or not all(
+                math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+                for r in hist):
+            fail(f"[25b] {name}: {len(hist)} logged steps, or a non-finite loss")
+        first = mean([r["psnr"] for r in hist[:50]])
+        last = mean([r["psnr"] for r in hist[-50:]])
+        steady = [r["seconds"] for r in hist[50:]]
+        ms_step = 1000.0 * mean(steady)
+        dtype = "bfloat16" if name.startswith("nerf") else "float32"
+        log(f"[25b] {name} run: {trainer.iteration} steps in {wall:.1f} s, train PSNR "
+            f"{first:.3f} -> {last:.3f} dB (gain bar {spec['gain_min']}), {ms_step:.2f} ms/step "
+            f"(steps 50-, {dtype}, {spec['rays']} rays), peak {peak_gib:.2f} GiB; launches "
+            f"{counts['launches']}, layer forward {counts['layer_forward']}, products "
+            f"{counts['routes']['products']}, passes {counts['routes']['passes']}, plain calls "
+            f"{counts['plain_calls']} | card: {card}")
+        if not last - first >= spec["gain_min"]:
+            fail(f"[25b] the {name} run's train PSNR did not rise")
+        prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
+                             f"{spec['rays']} rays, {dtype}, width {TPF_WIDTH}", "25b")
+        del trainer
+        torch.cuda.empty_cache()
+        reset_path_counts()
+        ev = evaluate(run_dir, spec["epoch_max"], cameras=[0], downsampling=8)
+        eval_counts = tpf_route_counts(f"[25b] {name} run_eval", needed)
+        gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
+        psnrs = {}
+        for mode in ("kernels", "plain"):
+            for net in _tpf_nets(ev.neural_render):
+                net.fused = "auto" if mode == "kernels" else "off"
+            ev.generator.manual_seed(ev.seed)
+            rgb = ev.render_test(run_dir / f"eval_{mode}", 0, 8)
+            psnrs[mode] = peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
+        gap = abs(psnrs["kernels"] - psnrs["plain"])
+        log(f"[25b] {name} run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB through "
+            f"the kernels (launches {eval_counts['launches']}, layer forward "
+            f"{eval_counts['layer_forward']}), {psnrs['plain']:.4f} dB plain, gap {gap:.4f} dB "
+            f"(bar {EVAL_PSNR_GAP_DB})")
+        if not gap <= EVAL_PSNR_GAP_DB:
+            fail(f"[25b] {name}: run_eval through the kernels and the plain versions disagree")
+        del ev
+        torch.cuda.empty_cache()
+        res.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
+                    "routes": counts["routes"], "plain_calls": counts["plain_calls"],
+                    "wall_s": wall, "ms_per_step": ms_step,
+                    "rays_per_s": spec["rays"] / mean(steady), "busy_share": prof["busy_share"],
+                    "device_ms_per_step": prof["device_ms_per_step"],
+                    "launches_per_step": prof["launches_per_step"], "peak_memory_gib": peak_gib,
+                    "psnr_first50": first, "psnr_last50": last, "eval_psnr": psnrs,
+                    "eval_launches": eval_counts["launches"],
+                    "eval_layer_forward": eval_counts["layer_forward"]})
+        out[name] = res
+    out["phase_s"] = time.perf_counter() - start
+    log(f"[25b] took {out['phase_s']:.1f} s")
+    return out
+
+
+def tpf_rank(rank: int, world: int, store: str, inp: dict) -> None:
+    """One rank of phase 25c on cuda:0 beside the other, in a gloo group of
+    data 1 x model ``world``: per family of ``inp`` (width 256, shipped
+    configs), the one-rank step (whole parameters) in f32 (and bf16 for
+    NeRF), then the TP step over the rank's column shards (counts at 0 just
+    before, read just after), the gathered gradients' norms and the TP
+    step's time. Results into ``OUT/tpf_rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from neddf_tpu_torch.parallel.mesh import (
+        gather_state,
+        make_mesh,
+        make_sharded_grads,
+        shard_parameters,
+        tp_shard_names,
+    )
+    from neddf_tpu_torch.render.renderer import tp_renderer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        mesh = make_mesh(world)
+        for family, step in inp.items():
+            needed = TPF_RUN_KERNELS[f"{family}_1024"]
+            dtypes = (("float32", torch.float32),) + (
+                (("bfloat16", torch.bfloat16),) if family == "nerf" else ())
+            render, local = dp_local_step(torch, step, dev)
+            params = list(render.parameters())
+
+            def set_dtype(dtype):
+                for net in _tpf_nets(render):
+                    if hasattr(net, "compute_dtype"):
+                        net.compute_dtype = dtype
+
+            res = {}
+            for name, dtype in dtypes:
+                set_dtype(dtype)
+                for p in params:
+                    p.grad = None
+                res[name] = {"single": dp_numbers(render, *local())}
+            names = tp_shard_names(render, world)
+            shard_parameters(render, mesh, names)
+            tp_renderer(render, mesh.model_group)
+            sharded = make_sharded_grads(mesh, TPF_RANK_RAYS, 1,
+                                         [p for n, p in render.named_parameters() if n in names])
+            for name, dtype in dtypes:
+                set_dtype(dtype)
+                for p in params:
+                    p.grad = None
+                reset_path_counts()
+                loss, loss_dict, mse = sharded(local, params, None)
+                torch.cuda.synchronize()
+                counts = tpf_route_counts(f"[25c] rank {rank} {family} {name} TP step", needed)
+                grads = gather_state({n: p.grad for n, p in render.named_parameters()}, mesh,
+                                     names)
+                res[name]["tp"] = {"loss": loss.item(), "mse": mse.item(),
+                                   "losses": {k: v.item() for k, v in loss_dict.items()},
+                                   "grad_norms": {k: v.norm().item() for k, v in grads.items()}}
+                res[name].update(counts)
+            times = []
+            for _ in range(2):
+                for p in params:
+                    p.grad = None
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                sharded(local, params, None)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            res["ms_per_step"] = times
+            out[family] = res
+            del render, local, params
+            torch.cuda.empty_cache()
+    finally:
+        torch.save(out, OUT / f"tpf_rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def phase_tp_family_ranks(torch, card: str) -> dict:
+    """Phase 25c: NeRF and NeuS (width 256, shipped configs but
+    TPF_RANK_OVERRIDES, seeded parameters, TPF_RANK_RAYS rays) over two
+    gloo ranks of data 1 x model 2 on the one card (``tpf_rank``): the
+    f32 TP step within TPF_F32_TOL of the one-rank step, NeRF's bf16
+    within the step bars, each rank's launches on the route and no plain
+    call."""
+    start = time.perf_counter()
+    steps = {}
+    for family, extra in TPF_RANK_OVERRIDES.items():
+        trainer = family_trainer(torch, family, extra)
+        render = trainer.neural_render
+        shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+        draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                                   render.sample_coarse + 1, render.sample_fine + 1,
+                                   seed=DP_DRAW_SEED, batch=TPF_RANK_RAYS)
+        steps[family] = {"cfg": trainer.config, "params": family_params(shapes),
+                         "draws": draws, "rgb": trainer.rgb_images[0].cpu().numpy(),
+                         "mask": trainer.mask_images[0].cpu().numpy(),
+                         "calib": trainer.calib.params.cpu().numpy(),
+                         "camera": trainer.camera_initials[0].cpu().numpy(), "iteration": 0}
+        del trainer, render
+        torch.cuda.empty_cache()
+    OUT.mkdir(parents=True, exist_ok=True)
+    store = OUT / f"tpf_gloo_store_{time.time_ns()}"
+    for r in range(TP_WORLD):
+        (OUT / f"tpf_rank{r}.pt").unlink(missing_ok=True)
+    context = torch.multiprocessing.start_processes(
+        tpf_rank, args=(TP_WORLD, f"file://{store}", steps), nprocs=TP_WORLD, join=False,
+        start_method="spawn")
+    try:
+        join_ranks(context, TPF_RANK_TIMEOUT, "[25c]")
+    finally:
+        store.unlink(missing_ok=True)
+    ranks = [torch.load(OUT / f"tpf_rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    out = {"ranks": []}
+    for rank in ranks:
+        entry = {"rank": rank["rank"]}
+        for family in steps:
+            res = rank[family]
+            for name in ("float32", "bfloat16"):
+                if name not in res:
+                    continue
+                got, ref = res[name]["tp"], res[name]["single"]
+                if name == "float32":
+                    worst = max([check_close(f"[25c] {family} f32 {k}", got[k], ref[k],
+                                             TPF_F32_TOL) for k in ("loss", "mse")]
+                                + [check_close(f"[25c] {family} f32 loss {k}",
+                                               got["losses"][k], v, TPF_F32_TOL)
+                                   for k, v in ref["losses"].items()]
+                                + [check_close(f"[25c] {family} f32 grad norm {k}",
+                                               got["grad_norms"][k], v, TPF_F32_TOL)
+                                   for k, v in ref["grad_norms"].items()])
+                    gaps = {"worst_rel": worst}
+                else:
+                    worst_loss, worst_grad = bf16_step_gaps(got, ref)
+                    gaps = {"worst_loss_rel": worst_loss, "worst_grad_norm_rel": worst_grad}
+                log(f"[25c] rank {rank['rank']} {family} width 256 {name}: the TP step (data 1 "
+                    f"x model 2) vs one rank's on the same draws: {json.dumps(gaps)} (bars: "
+                    f"f32 {TPF_F32_TOL}, bf16 {json.dumps(BF16_STEP_TOL)}); launches "
+                    f"{res[name]['launches']}, layer forward {res[name]['layer_forward']}, "
+                    f"products {res[name]['routes']['products']}, passes "
+                    f"{res[name]['routes']['passes']}, plain calls {res[name]['plain_calls']}")
+                entry[f"{family}/{name}"] = {"gaps": gaps, "launches": res[name]["launches"],
+                                             "layer_forward": res[name]["layer_forward"],
+                                             "products": res[name]["routes"]["products"],
+                                             "passes": res[name]["routes"]["passes"]}
+            entry[f"{family}/ms_per_step"] = res["ms_per_step"]
+            log(f"[25c] rank {rank['rank']} {family} width 256, {TPF_RANK_RAYS} rays: "
+                f"{min(res['ms_per_step']):.2f} ms per TP step (the last dtype; two ranks "
+                f"sharing ONE card over gloo: not a TP speed) | card: {card}")
+        out["ranks"].append(entry)
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[25c] took {out['wall_s']:.1f} s")
+    return out
+
+
+def tpf_kernel_entries(tpf: dict) -> list:
+    """The kernels line's entries of phase 25: each new mode and walk with
+    its numbers from 25a (max_abs_err over both operand types; ms, plain
+    ms, bound and library ms at the type the main path runs it: bf16 for
+    NeRF's, f32 for NeuS's), its launches in 25b's runs and per rank in
+    25c's TP steps."""
+    runs = {k: v for k, v in tpf["run"].items() if isinstance(v, dict)}
+    rank0 = tpf["ranks"]["ranks"][0]
+    per_rank = {f: rank0[f"{f}/float32"] for f in ("nerf", "neus")}
+
+    def run_sum(fn):
+        return sum(fn(r) for r in runs.values())
+
+    src = "neddf_tpu_torch/csrc/dual_mlp_bwd.cu"
+    rows = (
+        ("neddf_layer_fwd (value-only route, NeRF trunk post-skip [h 1024 | 60] -> 1024)",
+         "fwd_hidden_first/nerf", "bfloat16", src, "neddf_tpu/kernels/mlp.py:192",
+         runs["nerf_1024"]["layer_forward"]["fwd_value"],
+         per_rank["nerf"]["layer_forward"]["fwd_value"]),
+        ("neddf_layer_fwd (value-only route, NeuS sdf trunk [h 1024 | 36] -> 1024, 3xTF32)",
+         "fwd_hidden_first/neus", "float32", src, "neddf_tpu/kernels/sdf_mlp.py:257",
+         runs["neus_1024"]["layer_forward"]["fwd_value"],
+         per_rank["neus"]["layer_forward"]["fwd_value"]),
+        ("neddf_layer_fwd (NeuS colour's whole last layer 1024 -> 3)", "fwd_narrow/neus",
+         "float32", src, "neddf_tpu/kernels/mlp.py:192",
+         runs["neus_1024"]["layer_forward"]["fwd_value"],
+         per_rank["neus"]["layer_forward"]["fwd_value"]),
+        ("gpre_kernel (the f32 cotangent after the reduce-scatter, every layer of the route's "
+         "backwards and the sweep's steps)", "gpre_f32/nerf", "bfloat16",
+         "neddf_tpu_torch/csrc/mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:248",
+         run_sum(lambda r: r["routes"]["passes"]["gpre"]),
+         per_rank["neus"]["passes"]["gpre"]),
+        ("sdf_top_kernel (the sweep's top at a column shard)", "sdf_top_shard", "float32",
+         "neddf_tpu_torch/csrc/sdf_mlp.cu", "neddf_tpu/kernels/sdf_mlp.py:257",
+         runs["neus_1024"]["routes"]["passes"]["sdf_top"], per_rank["neus"]["passes"]["sdf_top"]),
+        ("MLPLayers forward walk (NeRF trunk, 8 x 1024, hidden-first skip)", "mlp_walk_fwd",
+         "bfloat16", src, "neddf_tpu/kernels/mlp.py:192",
+         runs["nerf_1024"]["launches"]["mlp_seg_layers"],
+         per_rank["nerf"]["launches"]["mlp_seg_layers"]),
+        ("MLPLayers backward walk (gpre, tn and nt products per layer)", "mlp_walk_bwd",
+         "bfloat16", src, "neddf_tpu/kernels/mlp.py:248",
+         runs["nerf_1024"]["launches"]["mlp_seg_layers"],
+         per_rank["nerf"]["launches"]["mlp_seg_layers"]),
+        ("SDFLayers forward walk (NeuS sdf trunk + the sweep per layer, 8 x 1024)",
+         "sdf_walk_fwd", "float32", src, "neddf_tpu/kernels/sdf_mlp.py:257",
+         runs["neus_1024"]["launches"]["sdf_mlp_layers"],
+         per_rank["neus"]["launches"]["sdf_mlp_layers"]),
+        ("SDFLayers backward walk (replayed sweep, ascending adjoint, descending trunk)",
+         "sdf_walk_bwd", "float32", src, "neddf_tpu/kernels/sdf_mlp.py:304",
+         runs["neus_1024"]["launches"]["sdf_mlp_layers"],
+         per_rank["neus"]["launches"]["sdf_mlp_layers"]),
+    )
+    entries = []
+    for name, key, dtype, source, replaces, launches, rank_launches in rows:
+        r = tpf["kernels"][dtype][key]
+        err = max(tpf["kernels"][d][key]["max_abs_err"] for d in ("float32", "bfloat16")
+                  if key in tpf["kernels"][d])
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "launches_tp_rank_step": rank_launches})
+    return entries
+
+
+def phase_25_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase 25``: the build and phase 25 alone
+    (its results into ``OUT/phase25.json``, its kernels line printed), for
+    work on NeRF's and NeuS's per-layer route; the full smoke runs every
+    phase."""
+    from neddf_tpu_torch.kernels import _build
+
+    card = card_line()
+    start = time.perf_counter()
+    _build.library()
+    log(f"[2] kernels built/loaded in {time.perf_counter() - start:.1f} s | card: {card}")
+    out = {"kernels": phase_tp_family_kernels(torch, card),
+           "run": phase_tp_family_run(torch, card),
+           "ranks": phase_tp_family_ranks(torch, card)}
+    drop_large_outputs()
+    (OUT / "phase25.json").write_text(json.dumps(out, indent=1, default=str))
+    print(json.dumps({"kernels": tpf_kernel_entries(out)}))
+    print(card)
+    print(json.dumps({"ok": True, "phase": 25, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -5029,9 +5661,8 @@ def main() -> int:
     cache_datasets()
     if sys.argv[1:] == ["--phase", "24"]:
         return phase_24_alone(torch)
-    # phase 19's capture, made on the host while the card runs phases 2-18
-    llff_capture = start_llff_capture(OUT / "llff400")
-    atexit.register(stop_process, llff_capture[0])
+    if sys.argv[1:] == ["--phase", "25"]:
+        return phase_25_alone(torch)
 
     from neddf_tpu_torch.kernels import _build, dual_mlp
     from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_trunk, dual_mlp_trunk_plain
@@ -5060,6 +5691,10 @@ def main() -> int:
     _build.library()
     log(f"[2] kernels built/loaded in {time.perf_counter() - start:.1f} s "
         f"({_build.build_dir()})")
+    # phase 19's capture, made on the host while the card runs phases 3-18
+    # (started after the build, whose nvcc processes take every core)
+    llff_capture = start_llff_capture(OUT / "llff400")
+    atexit.register(stop_process, llff_capture[0])
     build_log = _build.build_dir() / "build.log"
     if build_log.exists():
         for line in build_log.read_text().splitlines():
@@ -5269,6 +5904,11 @@ def main() -> int:
         camera = {"machine": phase_camera_machine(torch, card),
                   "kernels": phase_camera_kernels(torch, card)}
         resume = phase_resume(torch, card, run_b, run_a["state"], run_a["losses"])
+        # phases 24c and 25c (gloo ranks on the card: correctness, their
+        # step times no TP speed) while the --watchdog run (~200 s, anomaly
+        # mode) ends, which the card would otherwise wait for
+        tp_ranks = phase_tp_ranks(torch, card)
+        tpf_ranks = phase_tp_family_ranks(torch, card)
         resume["watchdog_run"] = finish_watchdog_run(torch, card, run_w)
     finally:
         for proc in (run_b[0], run_w[0]):
@@ -5299,8 +5939,14 @@ def main() -> int:
     dp_f32 = dp["gloo_two_ranks"][0]["float32"]
 
     # ---- phase 24: the per-layer route (tensor parallelism, widths over 512)
+    # (24c ran beside phase 14b)
     tp = {"kernels": phase_tp_kernels(torch, card), "run": phase_tp_run(torch, card),
-          "ranks": phase_tp_ranks(torch, card)}
+          "ranks": tp_ranks}
+
+    # ---- phase 25: NeRF's and NeuS's per-layer route (their tensor
+    # parallelism, widths over 512; 25c ran beside phase 14b)
+    tpf = {"kernels": phase_tp_family_kernels(torch, card),
+           "run": phase_tp_family_run(torch, card), "ranks": tpf_ranks}
 
     def dp_launches(counter: str) -> dict:
         # one rank's launches per sharded step (bf16) and in the sharded eval render
@@ -5481,6 +6127,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "launches_tp_rank_step": per_rank})
+    # phase 25: NeRF's and NeuS's per-layer route's modes and walks
+    kernels.extend(tpf_kernel_entries(tpf))
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -5493,7 +6141,7 @@ def main() -> int:
         "other_configs": other_configs, "resume": resume, "camera": camera,
         "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
         "data_parallel": dp, "widths_acts": widths_acts, "wide_steps": wide_steps,
-        "wide_runs": wide_runs, "tensor_parallel": tp,
+        "wide_runs": wide_runs, "tensor_parallel": tp, "tensor_parallel_families": tpf,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -671,9 +671,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   constexpr bool kF32 = std::is_same_v<T, float>;
   // A in two K segments: the nn epilogue of the sweep adjoint (a stage
   // that straddles k_split by element loads); the per-layer forward's
-  // [seg0, h] and [narrow segments, features] start A2 at the first stage
-  // boundary past k_split instead (kPadSplit: its stages stay aligned for
-  // vector copies; K counts the padded reduction)
+  // [seg0, h], [narrow segments, features] and NeRF's / NeuS's
+  // hidden-first [h, embed] start A2 at the first stage boundary past
+  // k_split instead (kPadSplit: its stages stay aligned for vector copies
+  // whichever segment is the narrow one; K counts the padded reduction)
   constexpr bool kTwoK = EPI == kEpiAct && A_K && !B_K;
   constexpr bool kPadSplit = EPI == kEpiFwd;
   constexpr bool kEpi = EPI == kEpiAct || EPI == kEpiDual || EPI == kEpiFwd;

@@ -4,7 +4,8 @@
 // (kernel body _bwd_kernel, stashed variant). The Python wrapper
 // (kernels/mlp.py::mlp_seg_bwd_route) walks the layers in reverse:
 //
-// * neddf_mlp_bwd_gpre, for the top layer only: from the output cotangent
+// * neddf_mlp_bwd_gpre, for the top layer (on the per-layer route, for
+//   every layer after its reduce-scatter): from the output cotangent
 //   g [M, C] (f32) and the forward's stash z [M, C] (type T) the cotangent
 //   of the pre-activation gpre = g f'(z), rounded to T (the Pallas _mm_nt
 //   / _mm_tn cast it before both products), and one f32 partial of db =
@@ -48,7 +49,7 @@ __global__ void gpre_kernel(int C, int M, int rows_per_block,
     db += gv;
     gs[i] = from_f32<T>(gv);
   }
-  db_part[(size_t)blockIdx.x * C + c] = db;
+  if (db_part != nullptr) db_part[(size_t)blockIdx.x * C + c] = db;
 }
 
 template <typename T>
@@ -71,12 +72,20 @@ cudaError_t gpre(int act, int width, int M, int rows_per_block, const void* g,
 }  // namespace
 
 // gs = T(g f'(z) + add) [M, width] and one f32 db partial per block of
-// rows_per_block rows; add (f32) may be null. The top layer's cotangent
-// only: every lower layer's runs in the epilogue of its nt product.
+// rows_per_block rows; add (f32) and db_part may be null. The top layer's
+// cotangent of the fused backwards (every lower layer's runs in the
+// epilogue of its nt product); on the per-layer route (a column shard of
+// each layer, kernels/dual_mlp.py::dual_mlp_layers_bwd and
+// kernels/sdf_mlp.py's walks) every layer's, from the f32 cotangent that
+// the reduce-scatter over the model group summed: the sum of the ranks'
+// partial products has to be whole before f'(z) multiplies it, so it
+// cannot be an nt product's epilogue there. The sdf sweep's step p = q
+// f'(z) takes it without db.
 extern "C" int neddf_mlp_bwd_gpre(int dtype, int act, int width, int M,
                                   int rows_per_block, const void* g, const void* z,
                                   const void* add, void* gs, void* db_part, void* stream) {
-  if (width <= 0 || M <= 0 || rows_per_block <= 0)
+  if (width <= 0 || M <= 0 || rows_per_block <= 0 || g == nullptr || z == nullptr ||
+      gs == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1

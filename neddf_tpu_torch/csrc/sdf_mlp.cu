@@ -60,13 +60,16 @@ namespace {
 
 using neddf::TileArgs;
 
-// the top of the replayed sweep: p = onehot0 * f'(z), channel 0 only
+// the top of the replayed sweep: p = onehot0 * f'(z), channel 0 only;
+// on a column shard of the top layer (the per-layer route under tensor
+// parallelism) channel 0 lies in one rank's shard, at its column `col0`,
+// and every other rank's p is zero (col0 = -1)
 template <int ACT>
-__global__ void sdf_top_kernel(size_t n, int C, const float* __restrict__ z,
+__global__ void sdf_top_kernel(size_t n, int C, int col0, const float* __restrict__ z,
                                float* __restrict__ p) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x)
-    p[i] = i % C == 0 ? neddf::dact<ACT>(z[i]) : 0.f;
+    p[i] = (int)(i % C) == col0 ? neddf::dact<ACT>(z[i]) : 0.f;
 }
 
 int grid_1d(size_t n) { return neddf::grid_1d(n, 256); }
@@ -105,15 +108,19 @@ extern "C" int neddf_sdf_sweep(int act, int M, int e_dim, int width, int n_layer
   return neddf::neddf_sdf_sweep_512(act, &a, ge, stream);
 }
 
-// p [M, width] = onehot0 * f'(z): the top of the backward's replayed sweep
-extern "C" int neddf_sdf_top(int act, long long n, int width, const void* z, void* p,
+// p [M, width] = onehot0 * f'(z): the top of the replayed sweep (the
+// backward's; the per-layer route's forward sweep too), channel 0 at
+// column col0 of z's columns, or nowhere (col0 = -1: a column shard
+// without it)
+extern "C" int neddf_sdf_top(int act, long long n, int width, int col0, const void* z, void* p,
                              void* stream) {
-  if (n <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || width <= 0 || col0 < -1 || col0 >= width) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* zf = static_cast<const float*>(z);
   float* pf = static_cast<float*>(p);
   return (int)neddf::by_act(act, [&](auto a_) {
-    sdf_top_kernel<decltype(a_)::value><<<grid_1d(n), 256, 0, s>>>(n, width, zf, pf);
+    sdf_top_kernel<decltype(a_)::value><<<grid_1d(n), 256, 0, s>>>(n, width, col0, zf,
+                                                                    pf);
     return cudaGetLastError();
   });
 }

@@ -78,8 +78,8 @@ def use_kernels(fused: str, device: torch.device, name: str) -> bool:
     their wrappers raise NotImplementedError: nothing on the card falls
     back to the plain versions. The rule holds on both of a field's
     routes, the fused one and the per-layer one that a field with a
-    ``tp_group`` (tensor parallelism: NeDDF's model group, None outside
-    it) or a width over 512 takes (``fields/neddf.py``)."""
+    ``tp_group`` (tensor parallelism: the model group, None outside it)
+    or a width over 512 takes (``fields/{neddf,nerf,neus}.py``)."""
     if fused == "off":
         return False
     if device.type == "cuda":

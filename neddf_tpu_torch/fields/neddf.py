@@ -183,6 +183,12 @@ class NeDDF(nn.Module):
     def _use_kernels(self, device: torch.device) -> bool:
         return use_kernels(self.fused, device, "NeDDF")
 
+    def column_shards(self):
+        """The layers whose weight and bias columns shard under tensor
+        parallelism (the JAX rule, ``field_param_specs``): both trunks."""
+        return ([f"layers_ddf.{i}" for i in range(len(self.layers_ddf))]
+                + [f"layers_col.{i}" for i in range(len(self.layers_col))])
+
     @property
     def per_layer(self) -> bool:
         """Whether the trunks take the per-layer route: a width shard under

@@ -15,6 +15,18 @@ Counterpart of ``neddf_tpu/fields/nerf.py``:
 * ``schedule``: lowpass alpha = offset + rate * iteration, and the full
   band (``embed_pos_rank``) for iteration < 0.
 
+The per-layer route (``per_layer``): under tensor parallelism
+(``tp_group``, the model group of ``parallel/mesh.py``; the JAX package's
+``tp_axis``) the trunk's layers and the colour head's first layer
+(``w // 2`` wide) hold this rank's column shards, and each of their
+outputs is gathered over the group before the next layer reads it
+(``parallel/tp.py``; JAX ``nerf.py:158-172``); the density head and the
+colour head's 3-wide last layer are whole on every rank. The trunk runs
+one layer at a time (``kernels/mlp.py::MLPLayers`` in training,
+``mlp_seg_layers`` in eval); a trunk wider than the tile forward's 512
+takes the same route with one shard. At ``model = 1`` and widths up to
+512 the fused trunk stays.
+
 ``compute_dtype`` is the trunk's operand and storage dtype (bf16 in
 ``config/network/nerf.yaml``). Parameters are initialised like PyTorch's
 ``nn.Linear`` from ``generator``.
@@ -34,9 +46,17 @@ from neddf_tpu_torch.fields.base import (
     use_kernels,
 )
 from neddf_tpu_torch.geometry.rays import Sampling
-from neddf_tpu_torch.kernels.mlp import mlp_apply, mlp_seg, mlp_seg_plain
+from neddf_tpu_torch.kernels.dual_mlp import KERNEL_MAX_WIDTH
+from neddf_tpu_torch.kernels.mlp import (
+    mlp_apply,
+    mlp_layers_apply,
+    mlp_seg,
+    mlp_seg_layers,
+    mlp_seg_plain,
+)
 from neddf_tpu_torch.ops.activations import ACTIVATIONS, relu
 from neddf_tpu_torch.ops.pe import pe_lowpass_scale, positional_encoding_mip
+from neddf_tpu_torch.parallel.tp import tp_gather
 
 Tensor = torch.Tensor
 
@@ -81,6 +101,10 @@ class NeRF(nn.Module):
         self.skips = tuple(skips)
         self.compute_dtype = _DTYPES[compute_dtype]
         self.fused = check_fused(fused)
+        self.layer_width = layer_width
+        # tensor parallelism: the model group whose ranks hold the column
+        # shards of ``column_shards()`` (parallel/mesh.py), or None
+        self.tp_group = None
 
         pe_dim, dir_dim, w = embed_pos_rank * 6, embed_dir_rank * 6, layer_width
         init = dict(generator=generator, init="torch_default")
@@ -93,6 +117,18 @@ class NeRF(nn.Module):
                                          Linear(w // 2, 3, **init)])
         # layer li consumes [h, embed] when a skip follows layer li-1
         self.trunk_layout = tuple((li - 1) in self.skips for li in range(len(layers)))
+
+    def column_shards(self):
+        """The layers whose weight and bias columns shard under tensor
+        parallelism (the JAX rule, ``field_param_specs``): the trunk and
+        the colour head's first layer."""
+        return [f"layers.{i}" for i in range(len(self.layers))] + ["outL_color.0"]
+
+    @property
+    def per_layer(self) -> bool:
+        """Whether the trunk takes the per-layer route: a width shard under
+        tensor parallelism, or a width over the tile forward's 512."""
+        return self.tp_group is not None or self.layer_width > KERNEL_MAX_WIDTH
 
     def schedule(self, iteration: int) -> Schedule:
         """Warmups at ``iteration``; a negative one selects eval values."""
@@ -121,18 +157,25 @@ class NeRF(nn.Module):
         embed_dir = positional_encoding_mip(direction, self.embed_dir_rank)
         ws = [layer.w for layer in self.layers]
         bs = [layer.b for layer in self.layers]
+        act, layout = self.activation_type, self.trunk_layout
         if torch.is_grad_enabled():
-            hx = mlp_apply([embed_pos], ws, bs, self.trunk_layout, self.activation_type, cd,
-                           kernels)
+            if self.per_layer:
+                hx = mlp_layers_apply([embed_pos], ws, bs, layout, act, cd, kernels,
+                                      self.tp_group)
+            else:
+                hx = mlp_apply([embed_pos], ws, bs, layout, act, cd, kernels)
         else:
-            trunk = mlp_seg if kernels else mlp_seg_plain
-            hx = trunk([embed_pos], [w.to(cd).contiguous() for w in ws],
-                       [b.float().contiguous() for b in bs], self.trunk_layout,
-                       self.activation_type)
+            ws = [w.to(cd).contiguous() for w in ws]
+            bs = [b.float().contiguous() for b in bs]
+            if self.per_layer:
+                hx = mlp_seg_layers([embed_pos], ws, bs, act, kernels, self.tp_group, layout)
+            else:
+                hx = (mlp_seg if kernels else mlp_seg_plain)([embed_pos], ws, bs, layout, act)
 
         density_act = ACTIVATIONS[self.density_activation_type][0]
         density = density_act(self.outL_density.apply_in(hx, cd).float())
         h = relu(self.outL_color[0].apply_in(torch.cat([hx, embed_dir.to(cd)], dim=1), cd))
+        h = tp_gather(h, self.tp_group)
         color = self.outL_color[1].apply_in(h, cd).float()
         return {
             "density": density.reshape(batch_size, sampling_size),

@@ -21,6 +21,19 @@ Counterpart of ``neddf_tpu/fields/neus.py`` on its sweep route
 * density = 10 s e / (1 + e)^2 with e = exp(-10 s sdf) and the trainable
   scalar s (``variance``).
 
+The per-layer route (``per_layer``): under tensor parallelism
+(``tp_group``, the model group of ``parallel/mesh.py``; the JAX package's
+``tp_axis``) both trunks' layers hold this rank's column shards but the
+colour trunk's 3-wide last layer, which is whole on every rank (JAX
+``neus.py:261-285, 305-313``). The sdf trunk and its sweep run one layer
+at a time over the shards (``kernels/sdf_mlp.py::SDFLayers``, eval
+``sdf_mlp_layers``), each layer gathered, and the ranks' parts of the
+normal are summed over the group; the colour trunk is
+``kernels/mlp.py::MLPLayers`` (eval ``mlp_seg_layers``). ``variance``
+stays whole. A trunk wider than the tile forward's 512 takes the same
+route with one shard. At ``model = 1`` and widths up to 512 the fused
+kernels stay.
+
 ``normals`` ``auto``, ``sweep`` and ``reverse`` all take the sweep: it is
 the reverse-mode gradient written out, equal to it in exact arithmetic;
 ``dual`` (forward mode, measured slower on the TPU) is not ported.
@@ -41,8 +54,20 @@ from neddf_tpu_torch.fields.base import (
     use_kernels,
 )
 from neddf_tpu_torch.geometry.rays import Sampling
-from neddf_tpu_torch.kernels.mlp import mlp_apply, mlp_seg, mlp_seg_plain
-from neddf_tpu_torch.kernels.sdf_mlp import sdf_apply, sdf_mlp
+from neddf_tpu_torch.kernels.dual_mlp import KERNEL_MAX_WIDTH
+from neddf_tpu_torch.kernels.mlp import (
+    mlp_apply,
+    mlp_layers_apply,
+    mlp_seg,
+    mlp_seg_layers,
+    mlp_seg_plain,
+)
+from neddf_tpu_torch.kernels.sdf_mlp import (
+    sdf_apply,
+    sdf_layers_apply,
+    sdf_mlp,
+    sdf_mlp_layers,
+)
 from neddf_tpu_torch.ops.pe import positional_encoding_mip
 from neddf_tpu_torch.ops.sdf_grad import pe_chain_to_pos, sdf_trunk_with_grad
 
@@ -79,6 +104,10 @@ class NeuS(nn.Module):
         self.activation_type = activation_type
         self.skips = tuple(skips)
         self.fused = check_fused(fused)
+        self.widths = (sdf_layer_width, col_layer_width)
+        # tensor parallelism: the model group whose ranks hold the column
+        # shards of ``column_shards()`` (parallel/mesh.py), or None
+        self.tp_group = None
 
         pe_dim, w, cw = embed_pos_rank * 6, sdf_layer_width, col_layer_width
         init = dict(generator=generator, init="torch_default")
@@ -94,6 +123,19 @@ class NeuS(nn.Module):
         self.variance = nn.Parameter(torch.tensor(float(init_variance)))
         # layer li consumes [h, e] when a skip follows layer li-1
         self.sdf_layout = tuple((li - 1) in self.skips for li in range(len(sdf)))
+
+    def column_shards(self):
+        """The layers whose weight and bias columns shard under tensor
+        parallelism (the JAX rule, ``field_param_specs``): the sdf trunk
+        and the colour trunk but its 3-wide last layer."""
+        return ([f"layers_sdf.{i}" for i in range(len(self.layers_sdf))]
+                + [f"layers_col.{i}" for i in range(len(self.layers_col) - 1)])
+
+    @property
+    def per_layer(self) -> bool:
+        """Whether the trunks take the per-layer route: a width shard under
+        tensor parallelism, or a width over the tile forward's 512."""
+        return self.tp_group is not None or max(self.widths) > KERNEL_MAX_WIDTH
 
     def schedule(self, iteration: int) -> Schedule:
         """No warmups (``neddf_tpu/fields/base.py::BaseField.schedule``)."""
@@ -117,12 +159,19 @@ class NeuS(nn.Module):
         ws = [layer.w for layer in self.layers_sdf]
         bs = [layer.b for layer in self.layers_sdf]
         grad = torch.is_grad_enabled()
-        if grad:
+        group, per_layer = self.tp_group, self.per_layer
+        if grad and per_layer:
+            feature, g_e = sdf_layers_apply(e, ws, bs, self.sdf_layout, act, kernels, group)
+        elif grad:
             feature, g_e = sdf_apply(e, ws, bs, self.sdf_layout, act, kernels)
         else:
-            trunk = sdf_mlp if kernels else sdf_trunk_with_grad
-            feature, g_e = trunk(e, [w.contiguous() for w in ws], [b.contiguous() for b in bs],
-                                 self.sdf_layout, act)
+            ws = [w.contiguous() for w in ws]
+            bs = [b.contiguous() for b in bs]
+            if per_layer:
+                feature, g_e = sdf_mlp_layers(e, ws, bs, self.sdf_layout, act, kernels, group)
+            else:
+                trunk = sdf_mlp if kernels else sdf_trunk_with_grad
+                feature, g_e = trunk(e, ws, bs, self.sdf_layout, act)
         gradients = pe_chain_to_pos(g_e, pos, self.embed_pos_rank)
         sdf = feature[:, :1]
 
@@ -131,12 +180,18 @@ class NeuS(nn.Module):
         cws = [layer.w for layer in self.layers_col]
         cbs = [layer.b for layer in self.layers_col]
         layout = (False,) * len(cws)
-        if grad:
+        if grad and per_layer:
+            color = mlp_layers_apply(segs, cws, cbs, layout, act, torch.float32, kernels, group,
+                                     whole_last=True)
+        elif grad:
             color = mlp_apply(segs, cws, cbs, layout, act, torch.float32, kernels)
         else:
-            col_mlp = mlp_seg if kernels else mlp_seg_plain
-            color = col_mlp(segs, [w.contiguous() for w in cws], [b.contiguous() for b in cbs],
-                            layout, act)
+            cws = [w.contiguous() for w in cws]
+            cbs = [b.contiguous() for b in cbs]
+            if per_layer:
+                color = mlp_seg_layers(segs, cws, cbs, act, kernels, group, whole_last=True)
+            else:
+                color = (mlp_seg if kernels else mlp_seg_plain)(segs, cws, cbs, layout, act)
 
         s10 = self.variance * 10.0
         ex = torch.exp(-s10 * sdf)

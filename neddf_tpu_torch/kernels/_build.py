@@ -145,7 +145,7 @@ def library() -> ctypes.CDLL:
         # csrc/sdf_mlp.cu
         "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP,
                             _VOIDP],
-        "neddf_sdf_top": [_INT, _LL, _INT, _VOIDP, _VOIDP, _VOIDP],
+        "neddf_sdf_top": [_INT, _LL, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

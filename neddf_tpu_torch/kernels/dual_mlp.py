@@ -23,14 +23,17 @@ values and ``f'(z_v) * z_t`` for the tangents.
   function one layer at a time, for a column shard of each layer under
   tensor parallelism and for widths over the tile forward's 512 (up to
   ``ROUTE_MAX_WIDTH``). Each layer is one product on the tensor cores
-  with the activation as its epilogue (``DualProducts.layer_fwd``,
+  with the activation as its epilogue (``Products.layer_fwd``,
   ``csrc/dual_mlp_bwd.cu::neddf_layer_fwd``: the streams grouped by point
-  in a row tile, layer 0's segments and a post-skip ``[seg0, h]`` as two
-  K segments), its output gathered over the model group before the next
-  layer reads it (``parallel/tp.py``); the backward per layer: ``gstack``
-  from the f32 cotangent of the layer's shard, dW = x^T G (tn) over the
-  layer's saved full-width input, and G W^T (nt), whose partial sum is
-  reduce-scattered before the layer below.
+  in a row tile, layer 0's segments and a post-skip layer's input as two
+  K segments: ``[seg0, h]`` for NeDDF, ``[h, seg0]`` hidden first for the
+  value-only walks of NeRF and NeuS), its output gathered over the model
+  group before the next layer reads it (``parallel/tp.py``; a narrow
+  last layer may be whole on every rank: NeuS's colour output); the
+  backward per layer: ``gstack`` (one stream: ``gpre``) from the f32
+  cotangent of the layer's shard, dW = x^T G (tn) over the layer's saved
+  full-width input, and G W^T (nt), whose partial sum is reduce-scattered
+  before the layer below.
 
 For a CPU tensor each wrapper runs its plain version (``*_plain``), the
 same arithmetic in torch ops; for a CUDA tensor it launches its kernel
@@ -734,9 +737,10 @@ class Products:
             n, sbk, sbn = b.shape[0], 1, b.stride(0)
         else:
             n, sbk, sbn = b.shape[1], b.stride(0), 1
+        # launched as one split, whatever the plan's: the epilogue needs the
+        # whole sum of a tile in its block (the per-layer sdf route's
+        # post-skip adjoint sums over 2048 + 36 rows at width 2048)
         plan = self._plan(r, n, k, a, a.stride(0), 1, b, sbk, sbn)
-        if plan["splits"] != 1:
-            raise ValueError(f"an epilogue needs the whole sum in one split ({k} rows)")
         n_act = n if n_act is None else n_act
         vec_a2 = 0 if a2 is None else _vec_width(a2.data_ptr(), a2.stride(0), a2.element_size())
         res = {"out": self._empty((r, n_act), self.dtype) if out else None,
@@ -784,6 +788,37 @@ class Products:
         res = self._epilogue("nn", a, w_rows, z, act_name, _MODE_ADJOINT, a2=a2, side=q,
                              out=not top, out2=True)
         return res["out"], res["out2"]
+
+    def layer_fwd(self, xs: Sequence[Tensor], w: Tensor, b: Tensor, act_name: str,
+                  stash: bool):
+        """One layer of the per-layer route (``neddf_layer_fwd``): the
+        streams x [S, M, K] in one or two K segments ``xs`` (T, each a
+        contiguous [S, M, k_i]) times the weight columns w [K, N] (T, N
+        contiguous), the bias b [N] f32 on the value stream, activated:
+        returns (out [S, M, N], the stash z [S, M, N] or None), both T."""
+        s, m = xs[0].shape[:2]
+        n = w.shape[1]
+        k_split = xs[0].shape[2]
+        if len(xs) > 2 or sum(x.shape[2] for x in xs) != w.shape[0]:
+            raise ValueError(f"layer forward: segments {[tuple(x.shape) for x in xs]}, "
+                             f"weight {tuple(w.shape)}")
+        for t in (*xs, w):
+            if t.dtype != self.dtype or not t.is_contiguous():
+                raise ValueError("layer forward: operand dtype or layout")
+        out = self._empty((s, m, n), self.dtype)
+        z = self._empty((s, m, n), self.dtype) if stash else None
+        if m == 0:
+            return out, z
+        a2 = xs[1] if len(xs) == 2 else None
+        vec = [_vec_width(x.data_ptr(), x.shape[2], x.element_size()) for x in xs]
+        _build.check(self.lib.neddf_layer_fwd(
+            self.dt, _ACT_CODES[act_name], s, m, n, w.shape[0], xs[0].data_ptr(), k_split,
+            vec[0], None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.shape[2],
+            0 if a2 is None else vec[1], k_split, w.data_ptr(), n,
+            _vec_width(w.data_ptr(), n, w.element_size()), b.data_ptr(), out.data_ptr(),
+            None if z is None else z.data_ptr(), self.stream), "per-layer forward")
+        ROUTE_LAUNCHES["fwd" if s > 1 else "fwd_value"] += 1
+        return out, z
 
 
 class ProductsPlain:
@@ -844,6 +879,13 @@ class ProductsPlain:
             q[:, 0] = 1.0
         self.planes.append("zs")
         return qbar, pbar * q * ddf(zf)
+
+    def layer_fwd(self, xs, w, b, act_name, stash):
+        f, df, _ = ACTIVATION_TRIPLES[act_name]
+        z = torch.cat(list(xs), dim=-1).float() @ w.float()
+        z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
+        self.planes += ["fwd"] + ["stash"] * stash
+        return _dual_act(z, f, df).to(self.dtype), z.to(self.dtype) if stash else None
 
 
 class DualProducts(Products):
@@ -916,38 +958,6 @@ class DualProducts(Products):
         return out
 
 
-    def layer_fwd(self, xs: Sequence[Tensor], w: Tensor, b: Tensor, act_name: str,
-                  stash: bool):
-        """One layer of the per-layer route (``neddf_layer_fwd``): the
-        streams x [S, M, K] in one or two K segments ``xs`` (T, each a
-        contiguous [S, M, k_i]) times the weight columns w [K, N] (T, N
-        contiguous), the bias b [N] f32 on the value stream, activated:
-        returns (out [S, M, N], the stash z [S, M, N] or None), both T."""
-        s, m = xs[0].shape[:2]
-        n = w.shape[1]
-        k_split = xs[0].shape[2]
-        if len(xs) > 2 or sum(x.shape[2] for x in xs) != w.shape[0]:
-            raise ValueError(f"layer forward: segments {[tuple(x.shape) for x in xs]}, "
-                             f"weight {tuple(w.shape)}")
-        for t in (*xs, w):
-            if t.dtype != self.dtype or not t.is_contiguous():
-                raise ValueError("layer forward: operand dtype or layout")
-        out = self._empty((s, m, n), self.dtype)
-        z = self._empty((s, m, n), self.dtype) if stash else None
-        if m == 0:
-            return out, z
-        a2 = xs[1] if len(xs) == 2 else None
-        vec = [_vec_width(x.data_ptr(), x.shape[2], x.element_size()) for x in xs]
-        _build.check(self.lib.neddf_layer_fwd(
-            self.dt, _ACT_CODES[act_name], s, m, n, w.shape[0], xs[0].data_ptr(), k_split,
-            vec[0], None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.shape[2],
-            0 if a2 is None else vec[1], k_split, w.data_ptr(), n,
-            _vec_width(w.data_ptr(), n, w.element_size()), b.data_ptr(), out.data_ptr(),
-            None if z is None else z.data_ptr(), self.stream), "per-layer forward")
-        ROUTE_LAUNCHES["fwd" if s > 1 else "fwd_value"] += 1
-        return out, z
-
-
 class DualProductsPlain(ProductsPlain):
     """The plain version of ``DualProducts``: the same methods in PyTorch,
     with the grouped tile's bookkeeping (the reduction in grouped stages
@@ -977,13 +987,6 @@ class DualProductsPlain(ProductsPlain):
     def nt_gstack(self, gs, w_rows, z, act_name):
         self.planes.append("gs")
         return self._gstack(self.nt(gs, w_rows), z, act_name, _EPI_ROWS // gs.shape[0])
-
-    def layer_fwd(self, xs, w, b, act_name, stash):
-        f, df, _ = ACTIVATION_TRIPLES[act_name]
-        z = torch.cat(list(xs), dim=-1).float() @ w.float()
-        z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
-        self.planes += ["fwd"] + ["stash"] * stash
-        return _dual_act(z, f, df).to(self.dtype), z.to(self.dtype) if stash else None
 
     def tn_dual_act(self, z, gs, act_name):
         f, df, _ = ACTIVATION_TRIPLES[act_name]
@@ -1181,14 +1184,17 @@ def dual_mlp_apply(vs, js, weights, biases, layout, act_name, has_j, n_tan,
 
 
 # ------------------------------------------------------- the per-layer route
-def layer_launcher(dtype: torch.dtype, device: torch.device, use_kernels: bool):
-    """The per-layer route's launcher: ``DualProducts`` (the kernels) for
-    CUDA tensors under ``use_kernels``, else ``DualProductsPlain``."""
+def layer_launcher(dtype: torch.dtype, device: torch.device, use_kernels: bool,
+                   kinds: tuple = (DualProducts, DualProductsPlain)):
+    """The per-layer route's launcher: the kernels' (``kinds[0]``) for CUDA
+    tensors under ``use_kernels``, else their plain version (``kinds[1]``);
+    the value-only and the sdf routes pass their own pair."""
+    kernels, plain = kinds
     if use_kernels and device.type == "cuda":
-        return DualProducts(dtype, device)
+        return kernels(dtype, device)
     if use_kernels and device.type != "cpu":
         raise ValueError(f"the per-layer route: unsupported device {device}")
-    return DualProductsPlain(dtype)
+    return plain(dtype)
 
 
 def _layer0_segments(stacks: Sequence[Tensor]) -> List[Tensor]:
@@ -1200,8 +1206,15 @@ def _layer0_segments(stacks: Sequence[Tensor]) -> List[Tensor]:
     return [torch.cat(list(stacks[:-1]), dim=-1), stacks[-1].contiguous()]
 
 
+def post_skip_input(seg0: Tensor, full: Tensor, hidden_first: bool) -> List[Tensor]:
+    """A post-skip layer's input as the per-layer forward's two K
+    segments: ``[h, seg0]`` (NeRF and NeuS, the weight's hidden rows
+    first) or ``[seg0, h]`` (NeDDF)."""
+    return [full, seg0] if hidden_first else [seg0, full]
+
+
 def dual_mlp_layers_walk(vs, js, weights, biases, layout, act_name, has_j, n_tan, k,
-                         group=None, stash=False):
+                         group=None, stash=False, hidden_first=False, whole_last=False):
     """The per-layer route's forward: a dual MLP (``dual_mlp_seg``'s
     arguments; K = ``n_tan`` in {0, 1, 3}, 0 the value-only MLP of
     ``kernels/mlp.py``) one layer at a time over the launcher ``k``, each
@@ -1209,41 +1222,48 @@ def dual_mlp_layers_walk(vs, js, weights, biases, layout, act_name, has_j, n_tan
     whole layer where ``group`` is None), its output gathered to the full
     width over the model group ``group`` (``parallel/tp.py``) before the
     next layer, which reads it, and layer 0's segments and a post-skip
-    layer's ``[seg0, h]``, as two K segments.
+    layer's input (``post_skip_input``: ``[h, seg0]`` when
+    ``hidden_first``, else ``[seg0, h]``) as two K segments. With
+    ``whole_last`` the last layer is whole on every rank (NeuS's 3-wide
+    colour output, which the JAX rule replicates) and its output is not
+    gathered.
 
     Returns (the full-width stacked output [K+1, M, W] in the compute
     dtype, every layer's input segments, every layer's stash [K+1, M,
     W/n] or None)."""
     from neddf_tpu_torch.parallel.tp import all_gather_last
 
-    if isinstance(k, DualProducts):
-        _route_checks(weights, act_name, n_tan, group, "the per-layer route")
+    if isinstance(k, Products):
+        _route_checks(weights, act_name, n_tan, group, "the per-layer route", whole_last)
     seg_j = _seg_js(js, has_j)
     stacks = [_stack(v, j, n_tan) for v, j in zip(vs, seg_j)]
     seg0 = stacks[0].contiguous()
     h = _layer0_segments(stacks)
     inputs, pres = [], []
+    last = len(weights) - 1
     for li, (w, b) in enumerate(zip(weights, biases)):
         if li > 0:
-            h = [seg0, full] if layout[li] else [full]
+            h = post_skip_input(seg0, full, hidden_first) if layout[li] else [full]
         inputs.append(h)
         out, z = k.layer_fwd(h, w, b, act_name, stash)
         pres.append(z)
-        full = all_gather_last(out, group)
+        full = out if whole_last and li == last else all_gather_last(out, group)
     return full, inputs, pres
 
 
 def dual_mlp_layers_bwd(inputs, weights, layout, act_name, seg_widths, has_j, pres, g, k,
-                        group=None):
+                        group=None, hidden_first=False, whole_last=False):
     """The per-layer route's backward from ``g`` [K+1, M, W], the cotangent
     of the gathered output (any float dtype), over the launcher ``k``:
     the sum reduce-scatter over the model group gives this rank's columns
-    in f32 (``parallel/tp.py``); then per layer, in reverse, the stacked
-    cotangent of the pre-activation from the stash (``gstack``, f32 in),
-    dW = x^T G and db over the layer's input segments (tn products), and
-    G W^T (nt), this rank's part of the cotangent of the full-width input:
-    for the layer below, reduce-scattered again; a post-skip layer's seg0
-    rows and layer 0's, this rank's cotangents of its replicated inputs.
+    in f32 (``parallel/tp.py``; a ``whole_last`` layer's own cotangent
+    stays as it is); then per layer, in reverse, the stacked cotangent of
+    the pre-activation from the stash (``gstack``, f32 in; one stream:
+    ``gpre``, the value-only MLP's), dW = x^T G and db over the layer's
+    input segments (tn products), and G W^T (nt), this rank's part of the
+    cotangent of the full-width input: for the layer below,
+    reduce-scattered again; a post-skip layer's seg0 rows and layer 0's,
+    this rank's cotangents of its replicated inputs.
 
     Returns (dvs per segment [M, w_i], djs per tangent input [K, M, w_i],
     both in the compute dtype; dW per layer [fan_in, W/n] and db [W/n],
@@ -1256,11 +1276,15 @@ def dual_mlp_layers_bwd(inputs, weights, layout, act_name, seg_widths, has_j, pr
     n_layers = len(weights)
     dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
     dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
-    g = reduce_scatter_last(g, group).contiguous()
+    g = (g.float() if whole_last else reduce_scatter_last(g, group)).contiguous()
     g_skip = None
     for li in reversed(range(n_layers)):
         w = weights[li]
-        gs, dbs[li] = k.gstack(g[0], g[1:], pres[li], act_name)
+        if s == 1:
+            gs, dbs[li] = k.gpre(g[0], pres[li][0], act_name)
+            gs = gs[None]
+        else:
+            gs, dbs[li] = k.gstack(g[0], g[1:], pres[li], act_name)
         flat = gs.view(s * m, gs.shape[2])
         dws[li] = torch.cat([k.tn(x.view(s * m, x.shape[2]), flat) for x in inputs[li]],
                             dim=0)
@@ -1277,21 +1301,38 @@ def dual_mlp_layers_bwd(inputs, weights, layout, act_name, seg_widths, has_j, pr
                     djs.append(d[1:].to(dtype))
             return dvs, djs, dws, dbs
         if layout[li]:
-            skip = k.nt(flat, w[:c0]).view(s, m, c0)
+            c = w.shape[0] - c0
+            seg_rows, w = (w[c:], w[:c]) if hidden_first else (w[:c0], w[c0:])
+            skip = k.nt(flat, seg_rows).view(s, m, c0)
             g_skip = skip if g_skip is None else g_skip + skip
-            w = w[c0:]
         g = reduce_scatter_last(k.nt(flat, w).view(s, m, w.shape[0]), group).contiguous()
     raise ValueError("dual_mlp_layers_bwd: no layers")
 
 
-def _route_checks(weights, act_name, n_tan, group, what: str) -> None:
+def saved_route(ctx, n_layers: int):
+    """(weights, stashes, every layer's input segments) that a per-layer
+    route's autograd op saved as ``*weights, *pres, *inputs`` with
+    ``ctx.n_inputs`` segments per layer."""
+    saved = ctx.saved_tensors
+    flat = list(saved[2 * n_layers :])
+    inputs = []
+    for n in ctx.n_inputs:
+        inputs.append(flat[:n])
+        flat = flat[n:]
+    return saved[:n_layers], saved[n_layers : 2 * n_layers], inputs
+
+
+def _route_checks(weights, act_name, n_tan, group, what: str, whole_last: bool = False) -> None:
     from neddf_tpu_torch.parallel.tp import group_size
 
     width = weights[0].shape[1] * group_size(group)
     _refuse(what, route_refusal(act_name, width, n_tan))
-    for w in weights[1:]:
+    sharded = weights[:-1] if whole_last else weights
+    for w in sharded[1:]:
         if w.shape[1] != weights[0].shape[1]:
             raise ValueError(f"{what}: layer widths {[w.shape[1] for w in weights]}")
+    if whole_last and not 1 <= weights[-1].shape[1] <= ROUTE_MAX_WIDTH:
+        raise ValueError(f"{what}: last layer width {weights[-1].shape[1]}")
 
 
 class DualMLPLayers(torch.autograd.Function):
@@ -1321,7 +1362,7 @@ class DualMLPLayers(torch.autograd.Function):
         stash = any(ctx.needs_input_grad[1:])
         full, inputs, pres = dual_mlp_layers_walk(vs, js, weights, biases, layout, act_name,
                                                   has_j, n_tan, k, group, stash)
-        if isinstance(k, DualProducts):
+        if isinstance(k, Products):
             dual_mlp_layers.launches += 1
         if stash:
             ctx.config = config
@@ -1333,13 +1374,7 @@ class DualMLPLayers(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         layout, act_name, has_j, n_tan, cd, use_kernels, group = ctx.config
-        n_l = len(layout)
-        saved = ctx.saved_tensors
-        weights, pres, flat = saved[:n_l], saved[n_l : 2 * n_l], list(saved[2 * n_l :])
-        inputs = []
-        for n in ctx.n_inputs:
-            inputs.append(flat[:n])
-            flat = flat[n:]
+        weights, pres, inputs = saved_route(ctx, len(layout))
         k = layer_launcher(cd, g.device, use_kernels)
         dvs, djs, dws, dbs = dual_mlp_layers_bwd(inputs, weights, layout, act_name,
                                                  ctx.seg_widths, has_j, pres, g, k, group)

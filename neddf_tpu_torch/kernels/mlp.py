@@ -21,9 +21,13 @@ order: the hidden rows of W first, then segment 0's).
   the prologue of its dW product; dW and db summed in a fixed order.
 * ``MLPSeg`` is the ``torch.autograd.Function`` over both: f32 master
   weights cast to the compute dtype inside, f32 dW/db back.
-* ``mlp_seg_layers``: the value-only per-layer route (the NeDDF eval
-  colour trunk under tensor parallelism or past width 512), the walk of
-  ``kernels/dual_mlp.py`` with one stream.
+* ``mlp_seg_layers`` / ``MLPLayers``: the value-only per-layer route (the
+  NeDDF eval colour trunk, NeRF's trunk and NeuS's colour trunk under
+  tensor parallelism or past width 512), the walk of
+  ``kernels/dual_mlp.py`` with one stream: ``neddf_layer_fwd`` per layer
+  (a post-skip layer's ``[h, seg0]`` as two K segments, a narrow last
+  layer whole on every rank), and backward ``gpre`` on the f32 cotangent
+  after each reduce-scatter, the tn and nt products per layer.
 
 For a CPU tensor each wrapper runs its plain version (``*_plain``); for a
 CUDA tensor it launches its kernels or raises. There is no fallback.
@@ -269,6 +273,15 @@ def mlp_seg(
 mlp_seg.launches = 0
 
 
+def mlp_layer_launcher(dtype: torch.dtype, device: torch.device, use_kernels: bool):
+    """The value-only per-layer route's launcher: ``MLPProducts`` (the
+    kernels) for CUDA tensors under ``use_kernels``, else
+    ``MLPProductsPlain``."""
+    from neddf_tpu_torch.kernels.dual_mlp import layer_launcher
+
+    return layer_launcher(dtype, device, use_kernels, (MLPProducts, MLPProductsPlain))
+
+
 def mlp_seg_layers(
     vs: Sequence[Tensor],
     weights: Sequence[Tensor],
@@ -276,65 +289,72 @@ def mlp_seg_layers(
     act_name: str,
     use_kernels: bool,
     group=None,
+    layout: Optional[Sequence[bool]] = None,
+    whole_last: bool = False,
 ) -> Tensor:
-    """The value-only per-layer route of ``mlp_seg`` (every layer dense +
-    activation, no post-skip layer: the NeDDF eval colour trunk) over a
-    width shard or a width past the tile forward's 512: the per-layer
-    walk of ``kernels/dual_mlp.py`` with no tangent planes (S = 1),
-    ``neddf_layer_fwd`` per layer for CUDA tensors under ``use_kernels``
-    (its plain version otherwise), each layer's output gathered over the
-    model group ``group`` (None: one shard). ``weights``/``biases`` are this
-    rank's column shards in the compute dtype / f32. Returns [M, W]."""
-    from neddf_tpu_torch.kernels.dual_mlp import (
-        DualProducts,
-        dual_mlp_layers_walk,
-        layer_launcher,
-    )
+    """The value-only per-layer route of ``mlp_seg`` over a width shard or
+    a width past the tile forward's 512, without its backward (the eval
+    trunks): the per-layer walk of ``kernels/dual_mlp.py`` with no tangent
+    planes (S = 1), ``neddf_layer_fwd`` per layer for CUDA tensors under
+    ``use_kernels`` (its plain version otherwise), each layer's output
+    gathered over the model group ``group`` (None: one shard); a post-skip
+    layer (``layout``, default none) reads ``[h, seg0]``, and a
+    ``whole_last`` layer (NeuS's 3-wide colour output) is whole on every
+    rank. ``weights``/``biases`` are this rank's column shards in the
+    compute dtype / f32. Returns [M, W]."""
+    from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_layers_walk
 
-    k = layer_launcher(vs[0].dtype, vs[0].device, use_kernels)
-    full, _, _ = dual_mlp_layers_walk(vs, [], weights, biases, (False,) * len(weights),
-                                      act_name, (False,) * len(vs), 0, k, group)
-    if isinstance(k, DualProducts):
+    layout = (False,) * len(weights) if layout is None else tuple(layout)
+    k = mlp_layer_launcher(vs[0].dtype, vs[0].device, use_kernels)
+    full, _, _ = dual_mlp_layers_walk(vs, [], weights, biases, layout, act_name,
+                                      (False,) * len(vs), 0, k, group, hidden_first=True,
+                                      whole_last=whole_last)
+    if isinstance(k, MLPProducts):
         mlp_seg_layers.launches += 1
     return full[0]
 
 
-# calls of the value-only route that ran its kernels
+# calls of the value-only route that ran its kernels (the eval walk, and
+# the forward and backward of MLPLayers: one each)
 mlp_seg_layers.launches = 0
 
 
-# launches of the top layer's cotangent kernel (csrc/mlp_bwd.cu), the one
-# elementwise pass the backwards of this module and of sdf_mlp.py run
-# beside their products
+# launches of the cotangent kernel (csrc/mlp_bwd.cu), the one elementwise
+# pass the backwards of this module and of sdf_mlp.py run beside their
+# products: the top layer's, and on the per-layer routes every layer's
+# after its reduce-scatter (and the sdf sweep's steps)
 PASS_LAUNCHES = {"gpre": 0}
 
 
 class MLPProducts(Products):
     """``dual_mlp.Products`` and the top layer's cotangent ``gpre``."""
 
-    def gpre(self, g: Tensor, z: Tensor, act_name: str, add: Optional[Tensor] = None):
-        """The top layer's cotangent: (T(g f'(z) + add) [M, n], its column
-        sums [n] f32), g and add f32, z in T."""
+    def gpre(self, g: Tensor, z: Tensor, act_name: str, add: Optional[Tensor] = None,
+             db: bool = True):
+        """The top layer's cotangent, and on the per-layer route every
+        layer's after its reduce-scatter: (T(g f'(z) + add) [M, n], its
+        column sums [n] f32, or None without ``db``), g and add f32, z in
+        T."""
         m, n = z.shape
         gs = self._empty((m, n), self.dtype)
-        parts = self._empty((-(-m // _DB_ROWS), n))
+        parts = self._empty((-(-m // _DB_ROWS), n)) if db else None
         _build.check(self.lib.neddf_mlp_bwd_gpre(
             self.dt, _ACT_CODES[act_name], n, m, _DB_ROWS, g.data_ptr(), z.data_ptr(),
-            None if add is None else add.data_ptr(), gs.data_ptr(), parts.data_ptr(),
-            self.stream), "backward gpre")
+            None if add is None else add.data_ptr(), gs.data_ptr(),
+            None if parts is None else parts.data_ptr(), self.stream), "backward gpre")
         PASS_LAUNCHES["gpre"] += 1
-        return gs, self.sum_rows(parts)
+        return gs, self.sum_rows(parts) if db else None
 
 
 class MLPProductsPlain(ProductsPlain):
     """The plain version of ``MLPProducts``."""
 
-    def gpre(self, g, z, act_name, add=None):
+    def gpre(self, g, z, act_name, add=None, db=True):
         v = g.float() * ACTIVATION_TRIPLES[act_name][1](z.float())
         if add is not None:
             v = v + add
         self.planes.append("gpre")
-        return v.to(self.dtype), v.sum(dim=0)
+        return v.to(self.dtype), v.sum(dim=0) if db else None
 
 
 def mlp_seg_bwd_route(vs, weights, layout, act_name, pres, g, k):
@@ -460,3 +480,63 @@ def mlp_apply(vs, weights, biases, layout, act_name, compute_dtype, use_kernels)
     """Differentiable ``mlp_seg`` (see ``MLPSeg``)."""
     config = (tuple(layout), act_name, compute_dtype, use_kernels)
     return MLPSeg.apply(config, *vs, *weights, *biases)
+
+
+class MLPLayers(torch.autograd.Function):
+    """The value-only per-layer route as an autograd op, beside
+    ``dual_mlp.DualMLPLayers``: the route of NeRF's trunk and NeuS's colour
+    trunk under tensor parallelism and past width 512
+    (``dual_mlp_layers_walk`` / ``dual_mlp_layers_bwd`` with one stream,
+    a post-skip layer reading ``[h, seg0]``).
+
+    ``apply(config, *vs, *weights, *biases)`` with ``config = (layout,
+    act_name, compute_dtype, use_kernels, group, whole_last)``;
+    ``weights``/``biases`` this rank's f32 master column shards (cast to
+    the compute dtype inside; dW and db come back f32), a ``whole_last``
+    layer whole on every rank, ``group`` the model group (None: one
+    shard). Returns the gathered output [M, W] in the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, config, *args):
+        from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_layers_walk
+
+        layout, act_name, cd, use_kernels, group, whole_last = config
+        n_l = len(layout)
+        n_seg = len(args) - 2 * n_l
+        vs = args[:n_seg]
+        weights = [w.to(cd).contiguous() for w in args[n_seg : n_seg + n_l]]
+        biases = [b.float().contiguous() for b in args[n_seg + n_l :]]
+        k = mlp_layer_launcher(cd, vs[0].device, use_kernels)
+        stash = any(ctx.needs_input_grad[1:])
+        full, inputs, pres = dual_mlp_layers_walk(
+            vs, [], weights, biases, layout, act_name, (False,) * n_seg, 0, k, group, stash,
+            hidden_first=True, whole_last=whole_last)
+        if isinstance(k, MLPProducts):
+            mlp_seg_layers.launches += 1
+        if stash:
+            ctx.config = config
+            ctx.seg_widths = [v.shape[1] for v in vs]
+            ctx.n_inputs = [len(x) for x in inputs]
+            ctx.save_for_backward(*weights, *pres, *[t for x in inputs for t in x])
+        return full[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_layers_bwd, saved_route
+
+        layout, act_name, cd, use_kernels, group, whole_last = ctx.config
+        weights, pres, inputs = saved_route(ctx, len(layout))
+        k = mlp_layer_launcher(cd, g.device, use_kernels)
+        dvs, _, dws, dbs = dual_mlp_layers_bwd(
+            inputs, weights, layout, act_name, ctx.seg_widths, (False,) * len(ctx.seg_widths),
+            pres, g[None], k, group, hidden_first=True, whole_last=whole_last)
+        if isinstance(k, MLPProducts):
+            mlp_seg_layers.launches += 1
+        return (None, *dvs, *dws, *dbs)
+
+
+def mlp_layers_apply(vs, weights, biases, layout, act_name, compute_dtype, use_kernels,
+                     group=None, whole_last=False):
+    """Differentiable value-only per-layer route (see ``MLPLayers``)."""
+    config = (tuple(layout), act_name, compute_dtype, use_kernels, group, whole_last)
+    return MLPLayers.apply(config, *vs, *weights, *biases)

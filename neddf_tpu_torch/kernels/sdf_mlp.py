@@ -34,7 +34,13 @@ from typing import List, Optional, Sequence
 import torch
 
 from neddf_tpu_torch.kernels import _build
-from neddf_tpu_torch.kernels.dual_mlp import _ACT_CODES, count_tile_launch, width_refusal
+from neddf_tpu_torch.kernels.dual_mlp import (
+    _ACT_CODES,
+    count_tile_launch,
+    layer_launcher,
+    saved_route,
+    width_refusal,
+)
 from neddf_tpu_torch.kernels.mlp import (
     _KERNEL_DTYPES,
     _SPLIT_HIDDEN_FIRST,
@@ -142,12 +148,13 @@ PASS_LAUNCHES = {"sdf_top": 0}
 class SDFProducts(MLPProducts):
     """``mlp.MLPProducts`` and the top of the replayed sweep ``sdf_top``."""
 
-    def sdf_top(self, z: Tensor, act_name: str) -> Tensor:
-        """p [M, C] = onehot0 f'(z) (f32): the top of the replayed sweep."""
+    def sdf_top(self, z: Tensor, act_name: str, holds0: bool = True) -> Tensor:
+        """p [M, C] = onehot0 f'(z) (f32): the top of the replayed sweep; on
+        a column shard without channel 0 (``holds0`` False) p is zero."""
         p = self._empty(tuple(z.shape))
         _build.check(self.lib.neddf_sdf_top(_ACT_CODES[act_name], z.numel(), z.shape[1],
-                                            z.data_ptr(), p.data_ptr(), self.stream),
-                     "sdf_mlp_bwd top")
+                                            0 if holds0 else -1, z.data_ptr(), p.data_ptr(),
+                                            self.stream), "sdf_mlp top")
         PASS_LAUNCHES["sdf_top"] += 1
         return p
 
@@ -155,9 +162,10 @@ class SDFProducts(MLPProducts):
 class SDFProductsPlain(MLPProductsPlain):
     """The plain version of ``SDFProducts``."""
 
-    def sdf_top(self, z, act_name):
+    def sdf_top(self, z, act_name, holds0=True):
         p = torch.zeros(tuple(z.shape), dtype=torch.float32, device=z.device)
-        p[:, 0] = ACTIVATION_TRIPLES[act_name][1](z[:, 0].float())
+        if holds0:
+            p[:, 0] = ACTIVATION_TRIPLES[act_name][1](z[:, 0].float())
         self.planes.append("p")
         return p
 
@@ -312,3 +320,215 @@ class SDFMLP(torch.autograd.Function):
 def sdf_apply(e, weights, biases, layout, act_name, use_kernels):
     """Differentiable ``sdf_mlp`` (see ``SDFMLP``)."""
     return SDFMLP.apply((tuple(layout), act_name, use_kernels), e, *weights, *biases)
+
+
+# ------------------------------------------------------- the per-layer route
+def sdf_layer_launcher(device: torch.device, use_kernels: bool):
+    """The per-layer sdf route's launcher: ``SDFProducts`` (the kernels)
+    for CUDA tensors under ``use_kernels``, else ``SDFProductsPlain``."""
+    return layer_launcher(torch.float32, device, use_kernels, (SDFProducts, SDFProductsPlain))
+
+
+def _sweep_layers(weights, layout, act_name, pres, e_dim, k, group, keep_p, keep_q):
+    """The reverse sweep of channel 0 one layer at a time over column
+    shards (the route's forward sweep and the backward's replay): p_{L-1}
+    = onehot0 f'(z_{L-1}) at this rank's columns (``sdf_top``: zero
+    without channel 0); per layer q_l = p_l W_l[hidden, cols]^T, this
+    rank's part of a sum over the ranks' columns, in f32 (nt),
+    reduce-scattered, then p_{l-1} = q_l f'(z_{l-1}) (``gpre``, no db);
+    the e rows' products (layer 0, a post-skip layer) add up this rank's
+    part of gE. Returns (p_l per layer where ``keep_p``, q_l per layer
+    where ``keep_q``, else None; this rank's part of gE [M, E])."""
+    from neddf_tpu_torch.parallel.tp import holds_column0, reduce_scatter_last
+
+    n_layers = len(weights)
+    ps: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    qs: List[Optional[Tensor]] = [None] * (n_layers + 1)
+    g_e = None
+    p = k.sdf_top(pres[-1], act_name, holds_column0(group))
+    for li in range(n_layers - 1, -1, -1):
+        ps[li] = p if keep_p else None
+        w = weights[li]
+        eb = None
+        if li == 0:
+            eb = k.nt(p, w)
+        else:
+            c = w.shape[0] - e_dim if layout[li] else w.shape[0]
+            if layout[li]:
+                eb = k.nt(p, w[c:])
+            q = reduce_scatter_last(k.nt(p, w[:c]), group)
+            qs[li] = q if keep_q else None
+            p, _ = k.gpre(q, pres[li - 1], act_name, db=False)
+        if eb is not None:
+            g_e = eb if g_e is None else g_e + eb
+    return ps, qs, g_e
+
+
+def sdf_layers_walk(e, weights, biases, layout, act_name, k, group=None):
+    """The per-layer route's forward of ``sdf_mlp`` over the launcher ``k``,
+    for this rank's column shards of the trunk ([fan_in, W/n], f32): the
+    trunk by ``dual_mlp_layers_walk`` (one stream, ``neddf_layer_fwd`` per
+    layer in 3xTF32, a post-skip layer's ``[h, e]`` as two K segments,
+    every layer's output gathered over ``group``), then the sweep one
+    layer at a time (``_sweep_layers``) and the ranks' parts of gE summed
+    over the model group, so that every rank holds the whole normal.
+
+    Returns (h [M, W], gE [M, E], every layer's input segments (gathered,
+    f32), every layer's stash z_l [M, W/n])."""
+    from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_layers_walk
+    from neddf_tpu_torch.parallel.tp import all_reduce_sum
+
+    if e.dtype != torch.float32:
+        raise TypeError(f"the per-layer sdf route: e {e.dtype} (f32 only)")
+    full, inputs, pres = dual_mlp_layers_walk([e], [], weights, biases, layout, act_name,
+                                              (False,), 0, k, group, stash=True,
+                                              hidden_first=True)
+    pres = [z[0] for z in pres]
+    inputs = [[x[0] for x in xs] for xs in inputs]
+    _, _, g_e = _sweep_layers(weights, layout, act_name, pres, e.shape[1], k, group, False,
+                              False)
+    return full[0], all_reduce_sum(g_e, group), inputs, pres
+
+
+def sdf_layers_bwd(inputs, weights, layout, act_name, pres, ch, cg, k, group=None):
+    """The VJP of ``sdf_layers_walk`` over the launcher ``k``: the three
+    walks of ``sdf_mlp_bwd_route`` over column shards.
+
+    ``ch`` [M, W] and ``cg`` [M, E] are this rank's cotangents of the
+    gathered h and of the summed gE; the adjoints of the gathers and of
+    the sum are the sum reduce-scatter of ch and the sum of cg over the
+    model group. Then:
+
+    * the replayed sweep (``_sweep_layers``), keeping q_l where f'' != 0;
+    * the ascending adjoint: pbar_l[cols] = [qbar_l | cg] W_l[:, cols], a
+      whole sum on this rank, with the epilogue qbar_{l+1} = pbar_l
+      f'(z_l) and zs_l = pbar_l q_{l+1} f''(z_l) at the shard's columns
+      (``nn_adjoint``; the top's onehot0 only on the rank that holds
+      channel 0), qbar_{l+1} gathered before the next layer; dW_l +=
+      [qbar_l | cg]^T p_l;
+    * the descending trunk: zbar_{L-1} = ch f'(z_{L-1}) + zs_{L-1}
+      (``gpre``, with db); dW_l += x_l^T zbar_l over the layer's saved
+      input; zbar_l W_l[hidden, cols]^T in f32 (nt), reduce-scattered, then
+      zbar_{l-1} = hbar f'(z_{l-1}) + zs_{l-1} and db (``gpre``); the e
+      rows' products, this rank's part of de.
+
+    Returns (de [M, E], this rank's part; dW per layer [fan_in, W/n]; db
+    per layer [W/n]; f32)."""
+    from neddf_tpu_torch.parallel.tp import (
+        all_gather_last,
+        all_reduce_sum,
+        holds_column0,
+        reduce_scatter_last,
+    )
+
+    n_layers = len(weights)
+    e_dim = inputs[0][0].shape[1]
+    keep_q = act_name not in SECOND_DERIVATIVE_ZERO
+    dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    dbs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
+    cg = all_reduce_sum(cg, group).contiguous()
+    ps, qs, _ = _sweep_layers(weights, layout, act_name, pres, e_dim, k, group, True, keep_q)
+
+    # adjoint of the sweep, ascending
+    zs: List[Optional[Tensor]] = [None] * n_layers
+    dws[0] = k.tn(cg, ps[0])
+    qbar, zs[0] = k.nn_adjoint(cg, weights[0], pres[0], act_name, q=qs[1])
+    for li in range(1, n_layers):
+        qfull = all_gather_last(qbar, group)
+        dws[li] = k.tn(qfull, ps[li])
+        if layout[li]:
+            dws[li] = torch.cat([dws[li], k.tn(cg, ps[li])], dim=0)
+        ps[li] = qs[li] = None
+        a2 = cg if layout[li] else None
+        if li < n_layers - 1:
+            qbar, zs[li] = k.nn_adjoint(qfull, weights[li], pres[li], act_name, a2=a2,
+                                        q=qs[li + 1])
+        elif keep_q and holds_column0(group):
+            _, zs[li] = k.nn_adjoint(qfull, weights[li], pres[li], act_name, a2=a2, top=True)
+    del ps, qs, qbar
+
+    # trunk backward with the combined z cotangents, descending
+    g = reduce_scatter_last(ch, group).contiguous()
+    zbar, dbs[-1] = k.gpre(g, pres[-1], act_name, add=zs[-1])
+    ebar = None
+    for li in range(n_layers - 1, -1, -1):
+        w = weights[li]
+        dw2 = torch.cat([k.tn(x, zbar) for x in inputs[li]], dim=0)
+        eb = None
+        if li == 0:
+            eb = k.nt(zbar, w)
+        else:
+            c = w.shape[0] - e_dim if layout[li] else w.shape[0]
+            if layout[li]:
+                eb = k.nt(zbar, w[c:])
+            hbar = reduce_scatter_last(k.nt(zbar, w[:c]), group).contiguous()
+            zbar, dbs[li - 1] = k.gpre(hbar, pres[li - 1], act_name, add=zs[li - 1])
+            zs[li - 1] = None
+        if eb is not None:
+            ebar = eb if ebar is None else ebar + eb
+        dws[li] = dws[li] + dw2
+    return ebar, dws, dbs
+
+
+def sdf_mlp_layers(e, weights, biases, layout, act_name, use_kernels, group=None):
+    """(h [M, W], gE [M, E]) by the per-layer route, without its backward
+    (the eval trunk): the kernels for CUDA tensors under ``use_kernels``,
+    their plain versions otherwise (see ``sdf_layers_walk``)."""
+    k = sdf_layer_launcher(e.device, use_kernels)
+    h, g_e, _, _ = sdf_layers_walk(e, weights, biases, layout, act_name, k, group)
+    if isinstance(k, SDFProducts):
+        sdf_mlp_layers.launches += 1
+    return h, g_e
+
+
+# calls of the per-layer sdf route that ran its kernels (the eval walk, and
+# SDFLayers' forward and backward: one each)
+sdf_mlp_layers.launches = 0
+
+
+class SDFLayers(torch.autograd.Function):
+    """The per-layer sdf route (``sdf_layers_walk`` / ``sdf_layers_bwd``)
+    as an autograd op: NeuS's trunk and normals under tensor parallelism
+    and past width 512.
+
+    ``apply(config, e, *weights, *biases)`` with ``config = (layout,
+    act_name, use_kernels, group)``; ``weights``/``biases`` this rank's
+    f32 column shards. Returns ``(h [M, W], gE [M, E])``, the gathered
+    features and the whole normal; its backward takes both cotangents."""
+
+    @staticmethod
+    def forward(ctx, config, e, *args):
+        layout, act_name, use_kernels, group = config
+        n_l = len(layout)
+        weights = [w.float().contiguous() for w in args[:n_l]]
+        biases = [b.float().contiguous() for b in args[n_l:]]
+        e = e.float().contiguous()
+        k = sdf_layer_launcher(e.device, use_kernels)
+        h, g_e, inputs, pres = sdf_layers_walk(e, weights, biases, layout, act_name, k, group)
+        if isinstance(k, SDFProducts):
+            sdf_mlp_layers.launches += 1
+        ctx.config = config
+        ctx.n_inputs = [len(x) for x in inputs]
+        ctx.save_for_backward(*weights, *pres, *[t for x in inputs for t in x])
+        return h, g_e
+
+    @staticmethod
+    def backward(ctx, ch, cg):
+        from neddf_tpu_torch.parallel.tp import group_size
+
+        layout, act_name, use_kernels, group = ctx.config
+        weights, pres, inputs = saved_route(ctx, len(layout))
+        m, w = pres[0].shape[0], weights[0].shape[1]
+        ch = (torch.zeros((m, w * group_size(group)), device=pres[0].device) if ch is None
+              else ch.float().contiguous())
+        cg = torch.zeros_like(inputs[0][0]) if cg is None else cg.float().contiguous()
+        k = sdf_layer_launcher(pres[0].device, use_kernels)
+        de, dws, dbs = sdf_layers_bwd(inputs, weights, layout, act_name, pres, ch, cg, k, group)
+        if isinstance(k, SDFProducts):
+            sdf_mlp_layers.launches += 1
+        return (None, de, *dws, *dbs)
+
+
+def sdf_layers_apply(e, weights, biases, layout, act_name, use_kernels, group=None):
+    """Differentiable per-layer sdf route (see ``SDFLayers``)."""
+    return SDFLayers.apply((tuple(layout), act_name, use_kernels, group), e, *weights, *biases)

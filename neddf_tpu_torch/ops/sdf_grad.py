@@ -15,6 +15,18 @@ the kernels of ``kernels/sdf_mlp.py``:
 
 ``layout[l]`` marks a post-skip layer whose input is ``[h_{l-1}, e]``
 (hidden rows of W first, as NeRF/NeuS concatenate). Everything is f32.
+
+Under tensor parallelism (``group``, the model group of
+``parallel/mesh.py``; None: the whole layers) the weights and biases are
+this rank's column shards ([fan_in, W/n], [W/n]) and the z_l its columns:
+each layer's activation is gathered over the group (``parallel/tp.py``)
+before the next layer reads it; the sweep's q_l = p_l W_l^T is this rank's
+part of a sum over the columns, reduce-scattered before f'(z_{l-1})
+multiplies it; channel 0 is in the shard of the group's rank 0; the
+ranks' parts of gE are summed, so every rank holds the whole normal. The
+VJP takes this rank's cotangents of the gathered h and of the summed gE,
+and returns this rank's part of de and its shards of dW and db. These
+are the plain versions of ``kernels/sdf_mlp.py``'s per-layer route.
 """
 from __future__ import annotations
 
@@ -23,13 +35,21 @@ from typing import List, Optional, Sequence
 import torch
 
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
+from neddf_tpu_torch.parallel.tp import (
+    all_gather_last,
+    all_reduce_sum,
+    holds_column0,
+    reduce_scatter_last,
+)
 
 Tensor = torch.Tensor
 
 
-def _onehot0(n: int, like: Tensor) -> Tensor:
+def _onehot0(n: int, like: Tensor, group=None) -> Tensor:
+    """[1, n]: 1 at column 0 (zeros on a rank whose shard lacks it)."""
     out = torch.zeros((1, n), dtype=like.dtype, device=like.device)
-    out[0, 0] = 1.0
+    if holds_column0(group):
+        out[0, 0] = 1.0
     return out
 
 
@@ -40,9 +60,11 @@ def sdf_trunk_with_grad(
     layout: Sequence[bool],
     act_name: str,
     stash: bool = False,
+    group=None,
 ):
     """(features h [M, C], gE [M, E] = d h[:, 0] / d e), plus the list of
-    pre-activations z_l [M, C] when ``stash`` (the kernel's stash).
+    pre-activations z_l [M, C] when ``stash`` (the kernel's stash; this
+    rank's columns under ``group``).
 
     The sweep is ``channel0_sweep``.
     """
@@ -60,8 +82,8 @@ def sdf_trunk_with_grad(
         else:
             z = h @ w + b
         zs.append(z)
-        h = f(z)
-    g_e = channel0_sweep(weights, layout, act_name, zs, e.shape[1])
+        h = all_gather_last(f(z), group)
+    g_e = channel0_sweep(weights, layout, act_name, zs, e.shape[1], group)
     return (h, g_e, zs) if stash else (h, g_e)
 
 
@@ -74,13 +96,14 @@ def channel0_sweep(
     act_name: str,
     zs: Sequence[Tensor],
     e_dim: int,
+    group=None,
 ) -> Tensor:
     """gE [M, E] = d h[:, 0] / d e from the pre-activations z_l alone:
     p_{L-1} = onehot0 * f'(z_{L-1}); downward q_l = p_l W_l^T, p_{l-1} =
     q_l[hidden] * f'(z_{l-1}); gE collects the e rows of layer 0 and of
     every post-skip layer."""
     df = ACTIVATION_TRIPLES[act_name][1]
-    p = df(zs[-1]) * _onehot0(zs[-1].shape[1], zs[-1])
+    p = df(zs[-1]) * _onehot0(zs[-1].shape[1], zs[-1], group)
     g_e = torch.zeros((zs[0].shape[0], e_dim), dtype=p.dtype, device=p.device)
     for li in range(len(weights) - 1, -1, -1):
         q = p @ weights[li].T
@@ -89,10 +112,10 @@ def channel0_sweep(
         elif layout[li]:
             c = weights[li].shape[0] - e_dim
             g_e = g_e + q[:, c:]
-            p = q[:, :c] * df(zs[li - 1])
+            p = reduce_scatter_last(q[:, :c], group) * df(zs[li - 1])
         else:
-            p = q * df(zs[li - 1])
-    return g_e
+            p = reduce_scatter_last(q, group) * df(zs[li - 1])
+    return all_reduce_sum(g_e, group)
 
 
 def sdf_trunk_with_grad_vjp(
@@ -103,6 +126,7 @@ def sdf_trunk_with_grad_vjp(
     pres: Sequence[Tensor],
     ch: Tensor,
     cg: Tensor,
+    group=None,
 ):
     """VJP of ``sdf_trunk_with_grad`` from its stash.
 
@@ -120,23 +144,22 @@ def sdf_trunk_with_grad_vjp(
     e = e.float()
     e_dim = e.shape[1]
     zs = [z.float() for z in pres]
-    hs = [f(z) for z in zs]
-    onehot = _onehot0(zs[-1].shape[1], e)
+    hs = [all_gather_last(f(z), group) for z in zs]
+    onehot = _onehot0(zs[-1].shape[1], e, group)
 
-    # replay the sweep
+    # replay the sweep (q_l: the sum over the ranks, at this rank's columns)
     ps: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
     qs: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
     p = df(zs[-1]) * onehot
     for li in range(n_layers - 1, -1, -1):
         ps[li] = p
-        q = p @ weights[li].T
-        qs[li] = q
         if li > 0:
             c = weights[li].shape[0] - e_dim if layout[li] else weights[li].shape[0]
-            p = q[:, :c] * df(zs[li - 1])
+            qs[li] = reduce_scatter_last((p @ weights[li].T)[:, :c], group)
+            p = qs[li] * df(zs[li - 1])
 
-    ch = ch.float()
-    cg = cg.float()
+    ch = reduce_scatter_last(ch.float(), group)
+    cg = all_reduce_sum(cg.float(), group)
     # adjoint of the sweep, ascending
     zbar_sweep: List[Optional[Tensor]] = [None] * n_layers
     dws: List[Tensor] = [None] * n_layers  # type: ignore[list-item]
@@ -147,9 +170,8 @@ def sdf_trunk_with_grad_vjp(
             qbar = cg
         else:
             d1 = df(zs[li - 1])
-            c = zs[li - 1].shape[1]
-            zb = pbar * qs[li][:, :c] * ddf(zs[li - 1])
-            qbar = pbar * d1
+            zb = pbar * qs[li] * ddf(zs[li - 1])
+            qbar = all_gather_last(pbar * d1, group)
             if layout[li]:
                 qbar = torch.cat([qbar, cg], dim=1)
             zbar_sweep[li - 1] = zb
@@ -172,11 +194,11 @@ def sdf_trunk_with_grad_vjp(
             c = hs[li - 1].shape[1]
             dw2 = torch.cat([hs[li - 1].T @ zbar, e.T @ zbar], dim=0)
             inbar = zbar @ w.T
-            hbar = inbar[:, :c]
+            hbar = reduce_scatter_last(inbar[:, :c], group)
             eb = inbar[:, c:]
         else:
             dw2 = hs[li - 1].T @ zbar
-            hbar = zbar @ w.T
+            hbar = reduce_scatter_last(zbar @ w.T, group)
             eb = None
         if eb is not None:
             ebar = eb if ebar is None else ebar + eb

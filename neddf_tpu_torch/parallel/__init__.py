@@ -1,7 +1,6 @@
 from neddf_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     broadcast_parameters,
-    check_tp_network,
     field_param_specs,
     gather_state,
     group_world,

@@ -25,7 +25,8 @@ gloo on the CPU:
 * ``field_param_specs`` / ``shard_parameters`` (``mesh.py:57-73``): a 2-D
   weight shards its out-dimension and a 1-D bias its length over the
   model group when ``model`` divides them; the rest replicates (the 1-
-  and 3-wide heads). ``gather_state`` puts the shards back together;
+  and 3-wide heads, NeuS's 3-wide colour output). ``gather_state`` puts
+  the shards back together;
 * ``make_sharded_grads`` (``mesh.py:120-207``): every rank draws the
   whole global batch from the same generator state and keeps its data
   group's rows ``[d B/D, (d+1) B/D)`` (``training/step.py::rank_rows``),
@@ -59,12 +60,6 @@ Tensor = torch.Tensor
 AUTO = ("auto", "max", None, -1)
 
 
-#: the network families that tensor parallelism takes (fields with a
-#: ``tp_group``); NeRF's and NeuS's wait for their slice
-TP_NETWORKS = ("NeDDF",)
-TP_REFUSAL = ("tensor parallelism (mesh model > 1) is ported for NeDDF only; {name} waits "
-              "for its slice (ROADMAP.md, Queue 1 item 7: NeRF and NeuS tensor parallelism)")
-
 
 def mesh_shape(mesh_cfg: Optional[Dict[str, Any]]) -> Tuple[Optional[int], int]:
     """(the explicit ``data`` of a ``mesh`` config or None for ``AUTO`` /
@@ -79,14 +74,6 @@ def mesh_shape(mesh_cfg: Optional[Dict[str, Any]]) -> Tuple[Optional[int], int]:
     if int(data) < 1:
         raise ValueError(f"mesh data={data} must be at least 1")
     return int(data), model
-
-
-def check_tp_network(network_config: Dict[str, Any], model: int) -> None:
-    """Refuse a network family that tensor parallelism does not take yet
-    (NotImplementedError naming its ROADMAP item)."""
-    name = str(network_config.get("_target_", "")).rsplit(".", 1)[-1]
-    if model > 1 and name not in TP_NETWORKS:
-        raise NotImplementedError(TP_REFUSAL.format(name=name or "this network"))
 
 
 def resolve_world(
@@ -314,15 +301,18 @@ def field_param_specs(shapes: Dict[str, Sequence[int]], model: int) -> Dict[str,
 
 
 def tp_shard_names(module: torch.nn.Module, model: int) -> set:
-    """The parameters of a renderer whose networks take tensor parallelism
-    that shard over ``model`` ranks (their last dimension), by
-    ``field_param_specs`` of its full shapes: every trunk layer (a module
-    list named ``layers_*``) must shard and nothing else may (a ``model``
-    that does not divide a trunk's width, or that divides a head's, raises
-    ValueError)."""
+    """The parameters of a renderer that shard over ``model`` ranks (their
+    last dimension), by ``field_param_specs`` of its full shapes: the
+    weight and bias of every layer that its networks' ``column_shards()``
+    name (the trunks; NeRF's colour head's first layer) must shard and
+    nothing else may (a ``model`` that does not divide such a layer's
+    width, or that divides a head's, raises ValueError)."""
     specs = field_param_specs({n: p.shape for n, p in module.named_parameters()}, model)
     names = {n for n, spec in specs.items() if spec}
-    trunk = {n for n, _ in module.named_parameters() if ".layers_" in f".{n}"}
+    trunk = set()
+    for prefix, net in module.named_modules():
+        for layer in getattr(net, "column_shards", lambda: [])():
+            trunk |= {".".join(filter(None, (prefix, layer, leaf))) for leaf in ("w", "b")}
     if names != trunk:
         raise ValueError(
             f"mesh model={model} must divide every trunk width and no head's: it would shard "

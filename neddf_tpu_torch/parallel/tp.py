@@ -1,4 +1,5 @@
-"""Tensor parallelism's collective: the gather of a width shard.
+"""Tensor parallelism's collectives: the gather of a width shard, and the
+sum of the ranks' parts of NeuS's normal.
 
 Counterpart of ``neddf_tpu/fields/base.py::tp_gather``. Under tensor
 parallelism (``mesh.model`` = n > 1, ``parallel/mesh.py``) every trunk
@@ -20,6 +21,11 @@ gathers CPU tensors only, so for CUDA tensors it takes a zero-padded
 ``all_reduce`` (each rank's slice in place, -0.0 elsewhere: adding -0.0
 leaves every value, +0.0 too, bitwise as it is) and its reduce-scatter
 is an ``all_reduce`` and a slice. Sums are taken in f32.
+
+``all_reduce_sum`` sums a tensor over the group (the per-layer sdf
+route's normal, each rank's part over its columns; its adjoint is the
+same sum), and ``holds_column0`` tells the rank whose shard holds a
+layer's column 0 (channel 0 of NeuS's sweep).
 """
 from __future__ import annotations
 
@@ -91,6 +97,24 @@ def reduce_scatter_last(g: Tensor, group: Optional[Any]) -> Tensor:
     total = g.clone(memory_format=torch.contiguous_format)  # the caller's g stays
     dist.all_reduce(total, group=group)
     return total[..., rank * width : (rank + 1) * width].contiguous()
+
+
+def all_reduce_sum(x: Tensor, group: Optional[Any]) -> Tensor:
+    """The sum over the ranks of ``group`` of each rank's ``x``, in f32 (a
+    new tensor; ``x`` as f32 for one rank): the per-layer sdf route's
+    normals, each rank's part over its columns, and their adjoint."""
+    x = x.float()
+    if group_size(group) == 1:
+        return x
+    total = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(total, group=group)
+    return total
+
+
+def holds_column0(group: Optional[Any]) -> bool:
+    """Whether this rank's column shard holds a layer's column 0 (its rank
+    in the model group is 0; one shard holds every column)."""
+    return group_size(group) == 1 or dist.get_rank(group) == 0
 
 
 class TPGather(torch.autograd.Function):

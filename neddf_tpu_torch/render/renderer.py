@@ -101,18 +101,13 @@ def pack_active_rays(active: Tensor, chunk: int) -> Tensor:
 
 def tp_renderer(renderer: "NeRFRender", group: Any) -> "NeRFRender":
     """The JAX package's ``parallel/mesh.py::tp_renderer`` in place: every
-    network of ``renderer`` (a network shared by the coarse and the fine
-    pass stays one) runs its trunks over the width shards of the model
-    group ``group`` (``fields/neddf.py``'s per-layer route). A network
-    without a ``tp_group`` (NeRF, NeuS) raises NotImplementedError."""
-    from neddf_tpu_torch.parallel.mesh import TP_REFUSAL
-
+    network of ``renderer``, the coarse and the fine one (a network shared
+    by both passes stays one), runs its layers over the width shards of
+    the model group ``group`` (the fields' per-layer route)."""
     nets = [renderer.network_fine]
     if renderer.use_coarse_network:
         nets.append(renderer.network_coarse)
     for net in nets:
-        if not hasattr(net, "tp_group"):
-            raise NotImplementedError(TP_REFUSAL.format(name=type(net).__name__))
         net.tp_group = group
     return renderer
 

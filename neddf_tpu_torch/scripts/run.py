@@ -40,8 +40,8 @@ of its ``LOCAL_RANK`` (only this host's ranks, ``LOCAL_WORLD_SIZE``,
 need cards here), and rank 0 makes the run directory; across hosts it
 must be on a file system that every host mounts.
 
-Tensor parallelism (``trainer.mesh.model=M``; NeDDF only, NeRF and NeuS
-raise NotImplementedError before anything starts): ``data x M`` ranks,
+Tensor parallelism (``trainer.mesh.model=M``; NeDDF, NeRF and NeuS):
+``data x M`` ranks,
 ``data: auto`` the cards divided by M (1 on the CPU), each holding its
 column shards of the trunks (``parallel/mesh.py``); the checkpoints hold
 the gathered parameters, so ``--resume`` may change M
@@ -60,9 +60,7 @@ import torch.distributed as dist
 
 from neddf_tpu_torch import config as config_lib
 from neddf_tpu_torch.parallel.mesh import (
-    check_tp_network,
     launcher_world,
-    mesh_shape,
     run_world,
 )
 from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type, launch_world
@@ -149,7 +147,6 @@ def start(cfg: dict, overrides: List[str], run_dir: Path,
     launcher)."""
     device = str(cfg["trainer"].get("device", "cuda:0"))
     mesh = cfg["trainer"].get("mesh")
-    check_tp_network(cfg["network"], mesh_shape(mesh)[1])
     world = launch_world(mesh, device)
     launched = launcher_world()
     if not resumed and (launched is None or launched.rank == 0):

@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Iterable, List, Optional
 
 from neddf_tpu_torch import config as config_lib
-from neddf_tpu_torch.parallel.mesh import check_tp_network, mesh_shape, run_world
+from neddf_tpu_torch.parallel.mesh import run_world
 from neddf_tpu_torch.render.renderer import Draws
 from neddf_tpu_torch.training.trainer import NeRFTrainer, device_type, launch_world
 
@@ -105,7 +105,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     run_dir = args.output_dir.resolve()
     cfg = eval_config(run_dir, args.device)
     trainer_cfg = cfg["trainer"]
-    check_tp_network(cfg["network"], mesh_shape(trainer_cfg.get("mesh"))[1])
     device = str(trainer_cfg.get("device", "cuda:0"))
     run_world(evaluate, (run_dir, args.epoch, args.device, args.cameras, args.downsampling,
                          None, args.ray_cull),

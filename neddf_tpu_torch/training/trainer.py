@@ -56,7 +56,7 @@ Counterpart of ``neddf_tpu/training/trainer.py`` (``BaseTrainer`` and
   others (``make_sharded_grads``); the eval renders split each chunk
   over a data group and all-gather the tiles (``make_sharded_render``).
   The parameters start as rank 0's. Under ``model > 1`` (tensor
-  parallelism, NeDDF only) each rank holds its column shards of the
+  parallelism) each rank holds its column shards of the
   trunks' weights and their Adam state (``shard_parameters``), the
   heads and the camera optimizer whole, and its fields gather each
   layer over the model group (``render/renderer.py::tp_renderer``);
@@ -86,7 +86,6 @@ from neddf_tpu_torch.geometry.se3 import camera_pose
 from neddf_tpu_torch.ops.occupancy import OccupancyGrid
 from neddf_tpu_torch.parallel.mesh import (
     broadcast_parameters,
-    check_tp_network,
     check_world_batch,
     gather_state,
     group_world,
@@ -242,7 +241,6 @@ class NeRFTrainer:
         # the mesh: the world of this process's group, or None (one
         # process); the batch checks first, with the JAX messages
         data, self.n_model = mesh_shape(mesh)
-        check_tp_network(self.config["network"], self.n_model)
         n_data = data or max(1, (dist.get_world_size() if dist.is_initialized() else 1)
                              // self.n_model)
         local_batch = check_world_batch(batch_size, n_data)

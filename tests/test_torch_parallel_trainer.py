@@ -73,19 +73,20 @@ def test_trainer_over_two_ranks_tracks_the_single_process_trainer(scene, tmp_pat
 
 
 def test_trainer_needs_the_ranks_and_refuses_width_sharding(scene):
-    """A mesh needs its ranks; since tensor parallelism a NeDDF mesh of
-    ``model = 2`` needs 2 ranks too, and NeRF's width sharding is refused
-    (NotImplementedError naming its ROADMAP item) before anything is
-    built."""
+    """A mesh needs its ranks; since tensor parallelism a mesh of ``model =
+    2`` needs 2 ranks too, for every family: NeRF's and NeuS's width
+    sharding is no longer refused (their slice), so their trainers at
+    ``model = 2`` ask for the process group as NeDDF's does."""
     cfg = family_config(scene, "neddf", mesh=MESH2)
     with pytest.raises(RuntimeError, match="process group of 2"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
     cfg["trainer"]["mesh"] = {"data": 1, "model": 2}
     with pytest.raises(RuntimeError, match="process group of 2"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
-    cfg = family_config(scene, "nerf", mesh={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*ROADMAP"):
-        tconfig.instantiate(cfg["trainer"], global_config=cfg)
+    for family in ("nerf", "neus"):
+        cfg = family_config(scene, family, mesh={"data": 1, "model": 2})
+        with pytest.raises(RuntimeError, match="process group of 2"):
+            tconfig.instantiate(cfg["trainer"], global_config=cfg)
 
 
 # ------------------------------------------------------ scripts/run.py over 2 ranks

@@ -145,7 +145,11 @@ def test_products_plain_match_the_jax_products(jx, layout, dtype):
 
 def test_padded_last_layer_equals_unpadded_and_jax(jx):
     """The wrapper pads a narrow last layer to 256 zero columns for the
-    tile kernel and slices it off (``mlp._pad_columns``): exact."""
+    tile kernel and slices it off (``mlp._pad_columns``): the padded
+    columns stay exactly zero, and the kept ones are the unpadded product
+    within one f32 rounding (the CPU BLAS may order a 3-column and a
+    256-column product's sums differently: 3.1e-7 of max |out| measured on
+    an AVX512 host)."""
     rng = np.random.default_rng(3)
     widths, c, m = (3, 24, 3, 32), 256, 1024  # one tile of the Pallas kernel
     layout = (False,) * 3
@@ -159,7 +163,7 @@ def test_padded_last_layer_equals_unpadded_and_jax(jx):
     tw_pad = tw[:-1] + [tmlp._pad_columns(tw[-1], c)]
     tb_pad = tb[:-1] + [tmlp._pad_columns(tb[-1], c)]
     padded = tmlp.mlp_seg_plain(tv, tw_pad, tb_pad, layout, "ReLU")
-    torch.testing.assert_close(padded[:, :3], out, rtol=0, atol=0)
+    assert _rel(padded[:, :3], out.numpy()) <= 1e-6
     assert torch.count_nonzero(padded[:, 3:]) == 0
     jnp = jx.jnp
     with jx.dm.matmul_dtype(jnp.dtype("float32")):

@@ -18,16 +18,17 @@ model)`` mesh and the port's one process.
 * Two training steps at ``model = 2``: their parameters against two
   single-process steps; the checkpoint loads in the JAX package's trainer
   and resumes at ``model = 1`` (``load_checkpoint`` in one process).
-* NeRF and NeuS at ``model = 2`` raise NotImplementedError naming the
-  ROADMAP item, in the trainer and in ``scripts/run.py``.
+* NeRF and NeuS at ``model = 2`` refuse only what every family does (a
+  trainer outside a process group of the mesh's size) and widths over
+  2048.
 
 One launch of the ranks (``tests/torch_parallel_ranks.py`` task ``tp``),
 started in the background while the JAX references compute. Tolerances:
 the step within the JAX package's own TP bar (rtol 2e-4, atol 2e-6,
 ``tests/parallel/test_mesh.py:176``) against both; the walk against the
 whole walk f32 1e-6, bf16 2^-8 of the largest magnitude (sums in another
-order; the input cotangents, each rank's part rounded to bf16 before
-their sum, 2^-7); the render within 1e-5 (``test_mesh.py:198``); the two steps'
+order; dW and db alike; the input cotangents, each rank's part rounded
+to bf16 before their sum, 2^-7); the render within 1e-5 (``test_mesh.py:198``); the two steps'
 parameters within the DP trainer test's Adam bounds (rtol 2e-3, atol
 4e-3, ``test_torch_parallel_trainer.py``).
 """
@@ -44,7 +45,6 @@ from neddf_tpu.parallel.mesh import tp_renderer as jtp_renderer
 from neddf_tpu.training.step import make_local_grads
 from neddf_tpu_torch import config as tconfig
 from neddf_tpu_torch.kernels import dual_mlp as tdm
-from neddf_tpu_torch.scripts import run as run_script
 from neddf_tpu_torch.training.checkpoint import load_msgpack_params, params_from_jax
 from tests.test_torch_parallel import (  # noqa: F401  (scene is a fixture)
     CAMERA,
@@ -137,8 +137,12 @@ def test_two_shard_walk_matches_the_whole_walk(tp_case, case):
         assert _rel(got["full"], full) <= tol, _rel(got["full"], full)
         for i, (a, b) in enumerate(zip(got["dws"], dws)):
             assert _rel(a, b) <= tol, ("dW", i, _rel(a, b))
+        # db sums a layer's f32 cotangent, which in bf16 inherits the upper
+        # layers' roundings: the shards' sums in another order take the
+        # other bf16 neighbour in some elements (98 of 597,760 of the
+        # colour trunk's layer-1 cotangent), so db has dW's bar
         for i, (a, b) in enumerate(zip(got["dbs"], dbs)):
-            assert _rel(a, b) <= 1e-6, ("db", i, _rel(a, b))
+            assert _rel(a, b) <= tol, ("db", i, _rel(a, b))
     # each rank's input cotangents are its columns' part, rounded to the
     # compute dtype; their sum the whole (two roundings in bf16)
     sum_tol = tol if dtype == torch.float32 else 2 * tol
@@ -232,13 +236,13 @@ def test_tp_checkpoint_equals_one_process_loads_in_jax_and_resumes_at_model_1(tp
 
 
 @pytest.mark.parametrize("family", ["nerf", "neus"])
-def test_nerf_and_neus_refuse_width_sharding(scene, family, tmp_path):
+def test_nerf_and_neus_refuse_width_sharding(scene, family):
+    """NeRF and NeuS take tensor parallelism since their slice
+    (``tests/test_torch_tp_families_ranks.py`` runs their steps): at
+    ``model = 2`` a trainer refuses only what it refuses for any family, a
+    process outside a group of 2 ranks, and the per-layer route refuses a
+    full width over 2048, naming it."""
     cfg = family_config(scene, family, mesh=MESH_TP)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="process group of 2"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
-    overrides = {"nerf": ["network=nerf", "render=nerf_render", "loss=nerf_loss"],
-                 "neus": ["network=neus", "loss=nerf_loss"]}[family]
-    with pytest.raises(NotImplementedError, match="NeRF and NeuS tensor parallelism"):
-        run_script.main([*overrides, "dataset=test", "trainer=test", "trainer.device=cpu",
-                         "trainer.mesh.model=2", f"hydra.run.dir={tmp_path / 'run'}"])
-    assert not (tmp_path / "run").exists()
+    assert tdm.route_refusal("ReLU", 4096, 0) == "width 4096 > 2048"

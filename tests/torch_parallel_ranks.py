@@ -1,6 +1,7 @@
 """Rank programs of the port's data- and tensor-parallel tests
 (``test_torch_parallel.py``, ``test_torch_parallel_trainer.py``,
-``test_torch_tp.py``, ``test_torch_tp_mesh4.py``), run in a process of
+``test_torch_tp.py``, ``test_torch_tp_mesh4.py``,
+``test_torch_tp_families_ranks.py``), run in a process of
 their own:
 
     python -m tests.torch_parallel_ranks <task> <inputs.pt> <outputs.pt> <world>
@@ -226,8 +227,116 @@ def tp_camera(inputs: dict, out: str) -> None:
                 "camera": trainer.camera_deltas.grad.numpy().copy()})
 
 
+def _family_walks(inputs: dict) -> list:
+    """NeRF's and NeuS's per-layer walks over this rank's column shards of
+    each case's weights (the default group), forward and backward, each
+    rank given 1/n of the cotangents (the collectives' adjoints sum them):
+    the value-only walk (``hidden_first``; NeuS's colour trunk with its
+    last layer whole), and the sdf trunk with its sweep through the
+    route's plain launcher and through ``ops/sdf_grad.py``'s plain
+    versions with the group. Returns the gathered outputs and shards."""
+    from neddf_tpu_torch.kernels import dual_mlp as tdm
+    from neddf_tpu_torch.kernels import mlp as tmlp
+    from neddf_tpu_torch.kernels import sdf_mlp as tsdf
+    from neddf_tpu_torch.ops import sdf_grad as tgrad
+    from neddf_tpu_torch.parallel.tp import all_gather_last
+
+    group = dist.group.WORLD
+    n, r = dist.get_world_size(), dist.get_rank()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the test's whole walks
+
+    def shard(ws, bs, whole_last=False):
+        per = ws[0].shape[1] // n
+        cols = slice(r * per, (r + 1) * per)
+        keep = [whole_last and i == len(ws) - 1 for i in range(len(ws))]
+        return ([w if k else w[:, cols].contiguous() for w, k in zip(ws, keep)],
+                [b if k else b[cols].contiguous() for b, k in zip(bs, keep)], keep)
+
+    def gather(ts, keep):
+        return [t if k else all_gather_last(t, group) for t, k in zip(ts, keep)]
+
+    results = []
+    for case in inputs["family_walks"]:
+        if case["kind"] == "mlp":
+            vs, ws, bs, layout, narrow, g = (case[k] for k in
+                                             ("vs", "ws", "bs", "layout", "narrow", "g"))
+            wsh, bsh, keep = shard(ws, bs, narrow)
+            k = tmlp.mlp_layer_launcher(vs[0].dtype, vs[0].device, True)
+            no_j = (False,) * len(vs)
+            full, ins, pres = tdm.dual_mlp_layers_walk(
+                vs, [], wsh, bsh, layout, "ReLU", no_j, 0, k, group, stash=True,
+                hidden_first=True, whole_last=narrow)
+            dvs, _, dws, dbs = tdm.dual_mlp_layers_bwd(
+                ins, wsh, layout, "ReLU", [v.shape[1] for v in vs], no_j, pres, (g / n)[None],
+                k, group, hidden_first=True, whole_last=narrow)
+            results.append({"full": full[0], "dvs": dvs, "dws": gather(dws, keep),
+                            "dbs": gather(dbs, keep)})
+            continue
+        e, ws, bs, layout, act, ch, cg = (case[k] for k in
+                                          ("e", "ws", "bs", "layout", "act", "ch", "cg"))
+        wsh, bsh, keep = shard(ws, bs)
+        out = {}
+        k = tsdf.sdf_layer_launcher(e.device, True)
+        h, g_e, ins, pres = tsdf.sdf_layers_walk(e, wsh, bsh, layout, act, k, group)
+        de, dws, dbs = tsdf.sdf_layers_bwd(ins, wsh, layout, act, pres, ch / n, cg / n, k, group)
+        out["route"] = {"h": h, "g_e": g_e, "de": de, "dws": gather(dws, keep),
+                        "dbs": gather(dbs, keep)}
+        h, g_e, zs = tgrad.sdf_trunk_with_grad(e, wsh, bsh, layout, act, stash=True,
+                                               group=group)
+        de, dws, dbs = tgrad.sdf_trunk_with_grad_vjp(e, wsh, layout, act, zs, ch / n, cg / n,
+                                                     group)
+        out["plain"] = {"h": h, "g_e": g_e, "de": de, "dws": gather(dws, keep),
+                        "dbs": gather(dbs, keep)}
+        results.append(out)
+    torch.set_num_threads(threads)
+    return results
+
+
+def tp_families(inputs: dict, out: str) -> None:
+    """NeRF and NeuS under tensor parallelism over this world as one model
+    group (data 1): the per-layer walks; per family one step on the given
+    draws (loss, loss dict, mse, gathered gradients, camera gradient), the
+    TP eval render and the render of the gathered copy, and two training
+    steps, then a checkpoint (its path in the inputs)."""
+    _threads()
+    result = {"walks": _family_walks(inputs)}
+    for family, case in inputs["families"].items():
+        step = case["step"]
+        trainer = _tp_trainer(step["cfg"], step["state"])
+        with torch.no_grad():
+            trainer.camera_deltas.copy_(torch.from_numpy(step["deltas"]))
+        trainer.iteration = step["iteration"]
+        us, vs, u_strat, u_pdf = (torch.from_numpy(a) for a in step["draws"])
+        loss, loss_dict, mse = trainer.step_grads(step["camera"], us, vs, u_strat, u_pdf)
+        grads = trainer.full_state({n: p.grad
+                                    for n, p in trainer.neural_render.named_parameters()})
+        res = {"step": {
+            "loss": loss.item(), "mse": mse.item(),
+            "loss_dict": {k: v.item() for k, v in loss_dict.items()},
+            "grads": {k: v.numpy().copy() for k, v in grads.items()},
+            "camera": trainer.camera_deltas.grad.numpy().copy()}}
+        calib, pose_r, pose_t = (torch.from_numpy(a) for a in inputs["render_camera"])
+        res["render"] = [renderer.render_image(
+            PinholeCalib(calib), pose_r, pose_t, 24, 20, ["color", "depth"], 1, trainer.chunk,
+            generator=torch.Generator().manual_seed(3), render_fn=render_fn)
+            for renderer, render_fn in ((trainer.neural_render, trainer.render_fn),
+                                        (trainer.full_renderer(), None))]
+        run = case["run"]
+        trainer = _tp_trainer(run["cfg"])
+        for camera_id in run["cameras"]:
+            trainer.run_train_step(camera_id)
+        trainer.flush_logs()
+        trainer.save_checkpoint(run["path"])
+        full = trainer.full_state(dict(trainer.neural_render.named_parameters()))
+        res["run"] = {"history": trainer.history,
+                      "params": {k: v.detach().numpy().copy() for k, v in full.items()}}
+        result[family] = res
+    _save(out, result)
+
+
 TASKS = {"grads": grads, "render": render, "steps": steps, "fail": fail, "tp": tp,
-         "tp_camera": tp_camera}
+         "tp_camera": tp_camera, "tp_families": tp_families}
 
 
 def main(argv) -> None:

@@ -31,8 +31,14 @@ with both trunks 1024 wide, the per-layer route's configuration) at
 ``TP_BATCH`` rays, written to ``tools/tp_step_reference.json``, which
 ``chip_smoke.py`` phase 24 reads.
 
+With ``--tp-families``, the same for ``chip_smoke.py``'s
+``TP_FAMILY_OVERRIDES`` (NeRF and NeuS 1024 wide, the per-layer route's
+configurations) at ``TP_FAMILY_BATCH`` rays, written to
+``tools/tp_family_step_reference.json``, which ``chip_smoke.py`` phase 25
+reads.
+
 Usage (CPU, about 2 GB of memory and a minute or two each):
-    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide | --tp]
+    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide | --tp | --tp-families]
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ from chip_smoke import (  # noqa: E402
     FAMILY_OVERRIDES,
     FAMILY_SHIFT,
     TP_BATCH,
+    TP_FAMILY_BATCH,
+    TP_FAMILY_OVERRIDES,
+    TP_FAMILY_STEP_REF,
     TP_OVERRIDES,
     TP_STEP_REF,
     WIDE_BATCH,
@@ -147,7 +156,10 @@ def family_step(overrides, batch: int = FAMILY_BATCH) -> dict:
 
 
 def main() -> None:
-    if "--tp" in sys.argv[1:]:
+    if "--tp-families" in sys.argv[1:]:
+        out = {name: family_step(o, TP_FAMILY_BATCH) for name, o in TP_FAMILY_OVERRIDES.items()}
+        TP_FAMILY_STEP_REF.write_text(json.dumps(out, indent=1) + "\n")
+    elif "--tp" in sys.argv[1:]:
         out = {name: family_step(o, TP_BATCH) for name, o in TP_OVERRIDES.items()}
         TP_STEP_REF.write_text(json.dumps(out, indent=1) + "\n")
     elif "--wide" in sys.argv[1:]:
