@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --phase 24   # the build and phase 24 alone
     python3 chip_smoke.py --phase 25   # the build and phase 25 alone
+    python3 chip_smoke.py --phase 26   # the build and phase 26 alone
 
 Phases (any failure stops the script with a non-zero exit code):
 
@@ -101,9 +102,10 @@ Phases (any failure stops the script with a non-zero exit code):
    (``profile_train_{nerf,neus}.txt``);
 11b. NeDDF, NeRF and NeuS with LeakyReLU, and NeDDF at width 128, at
    ``fused="auto"`` through their kernels (finite, every kernel
-   launched), and a width the kernels do not take (2304, over the
-   per-layer route's 2048; 576 takes that route since PR 14) raising
-   NotImplementedError on the card;
+   launched), and an activation the kernels do not take (GELU, which
+   neither the fused kernels nor the per-layer route have; widths over
+   512 and deeper trunks take that route) raising NotImplementedError on
+   the card;
 12. ``run_eval`` of each run dir at downsampling 8, through the kernels
    and through the plain versions: PSNR within 0.05 dB;
 14. resume: phase 8's run is run A; run B, the same command as a
@@ -231,7 +233,7 @@ Phases (any failure stops the script with a non-zero exit code):
    plain ms, ``torch.addmm`` on the same operands and the bound; (b)
    NeDDF with both trunks 1024 wide on the card: its f32 step from the
    seeded parameters against the JAX package (``tools/tp_step_reference.json``,
-   phase 10's bars), a 300-step run through ``scripts/run.py`` (bf16, 512
+   phase 10's bars), a 200-step run through ``scripts/run.py`` (bf16, 512
    rays: train PSNR up >= 3 dB, every launch on the route, none of the
    fused route's, no plain call; ms/step, busy share, peak memory) and
    ``run_eval`` kernels vs plain within 0.05 dB; (c) two gloo ranks of
@@ -261,6 +263,28 @@ Phases (any failure stops the script with a non-zero exit code):
    TP step against one rank's on the same draws (f32 within 1e-6, NeRF's
    bf16 the step bars; NeuS under tanhExp, where the shards' sums cannot
    take ReLU's kink the other way), each rank's launches, no plain call;
+26. trunks of any depth and widths over 2048, each path with every count
+   at 0 just before it and read just after: (a) the epilogue forward (#5)
+   and its standalone backward (#6; past 2048 its column-chunked kernel
+   ``epi_bwd_wide_kernel``) at widths 2056, 3072 and 4096 over 99,328
+   rows, f32 and bf16, against their plain versions (f32 1e-4, bf16 2^-5
+   of the largest), dwd, dwa and db2 bitwise over two runs, timed beside
+   their bounds; (b) each configuration of ``DEEP_OVERRIDES`` (NeDDF's
+   11- and 9-layer trunks, NeRF's 16-layer trunks, NeuS's 16- and
+   13-layer trunks, each with several post-skip layers, at the shipped
+   width 256) through the per-layer route on the card: its f32 step from
+   the seeded parameters against the JAX package
+   (``tools/deep_step_reference.json``, phase 10's bars), a 100-step run
+   through ``scripts/run.py`` (every loss finite, the mean loss of the
+   last 20 steps below the first 20's, every launch on the route's
+   tensor-core products, none of the fused route's, no plain call;
+   ms/step over steps 50-99, the busy share, peak memory) and
+   NeDDF-deep's ``run_eval`` kernels vs plain within 0.05 dB; (c) NeDDF
+   with both trunks 4096 wide: 20 bf16 steps of 128 rays (finite, on the
+   route; ms/step, peak memory), its f32 step through the kernels against
+   the plain versions at 32 rays (phase 10's 1e-3), and two gloo ranks of
+   data 1 x model 2 (shards of 2048) against one rank in f32 (1e-5; run
+   beside phase 14b's subprocess with 24c and 25c);
 13. (printed last) one JSON line of per-kernel results (with each route's
    bound; the parallel db sum among them; ``launches_geometry``,
    ``launches_llff`` and ``launches_dp``: each kernel's launches on the
@@ -270,7 +294,8 @@ Phases (any failure stops the script with a non-zero exit code):
    ``{"ok": true, "device": {...}}`` line.
 
 Each dataset split is decoded once in this process (``cache_datasets``).
-Phases 24c and 25c run while phase 14b's ``--watchdog`` subprocess ends
+Phases 24c, 25c and 26c's ranks run while phase 14b's ``--watchdog``
+subprocess ends
 (the card would wait for it otherwise; their ranks' step times, no TP
 speed in any case, share the card with it). Every log line ends with the
 seconds since the start. Outputs go to ``chiprun_out/chip_smoke/``.
@@ -284,6 +309,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -395,6 +421,22 @@ TP_FAMILY_OVERRIDES = {
 }
 TP_FAMILY_BATCH = 32
 TP_FAMILY_STEP_REF = REPO / "tools" / "tp_family_step_reference.json"
+# phase 26: trunks deeper than the fused kernels hold, at the shipped
+# widths (256), which take the per-layer route on one card: NeDDF's K=3
+# trunk of 11 layers (post-skip layers 5 and 9) and colour trunk of 9,
+# NeRF's 16-layer trunks, NeuS's 16-layer sdf trunk and 13-layer colour
+# trunk (each with three post-skip layers); their f32 steps' rays against
+# the JAX package (tools/family_step_reference.py --deep writes
+# DEEP_STEP_REF)
+DEEP_OVERRIDES = {
+    "neddf_deep": ["network.ddf_layer_count=12", "network.col_layer_count=10",
+                   "network.skips=[4,8]"],
+    "nerf_deep": [*FAMILY_OVERRIDES["nerf"], "network.layer_count=16", "network.skips=[4,8,12]"],
+    "neus_deep": [*FAMILY_OVERRIDES["neus"], "network.sdf_layer_count=16",
+                  "network.col_layer_count=12", "network.skips=[4,8,12]"],
+}
+DEEP_BATCH = 256
+DEEP_STEP_REF = REPO / "tools" / "deep_step_reference.json"
 
 
 def family_params(shapes: dict, seed: int = FAMILY_PARAM_SEED) -> dict:
@@ -568,8 +610,9 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
 # spills: the epilogue backward (bf16 and f32 x the standalone mode and the
 # top mode's 5 activations x the width classes 64, 128, 256, 512, and the
 # standalone mode at the per-layer route's classes 1024 and 2048), two
-# blocks of 256 threads per SM (128 registers each)
-SPILL_FUNCTIONS = {"epi_bwd_kernel": 52}
+# blocks of 256 threads per SM (128 registers each), and its column-chunked
+# standalone kernel past 2048 (bf16 and f32)
+SPILL_FUNCTIONS = {"epi_bwd_kernel": 52, "epi_bwd_wide_kernel": 2}
 
 
 def _is_tc_function(name: str) -> bool:
@@ -611,9 +654,21 @@ def check_tensor_core_build(build_dir: Path) -> dict:
     instantiation or a spill."""
     from neddf_tpu_torch.kernels import _build
 
+    # the SASS of the library's objects, one cuobjdump per object, all at
+    # once, each into a file of its own (the library is their link; one
+    # cuobjdump over it took ~50 s)
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build_dir / _build._LIB_NAME)],
-                          capture_output=True, text=True, check=True).stdout
+    objs = sorted(build_dir.glob("*.o")) or [build_dir / _build._LIB_NAME]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"{k}.sass" for k in range(len(objs))]
+        procs = []
+        for obj, path in zip(objs, outs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen([str(cuobjdump), "-sass", str(obj)], stdout=f))
+        failed = [str(obj) for obj, proc in zip(objs, procs) if proc.wait()]
+        if failed:
+            fail(f"cuobjdump -sass failed on {failed}")
+        sass = "".join(path.read_text() for path in outs)
     hmma, tf32, name = {}, {}, None
     for line in sass.splitlines():
         text = line.strip()
@@ -2161,7 +2216,8 @@ def family_trainer(torch, family: str, extra=()):
     config/ as ``scripts/run.py`` composes it."""
     from neddf_tpu_torch import config as config_lib
 
-    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES, **TP_OVERRIDES, **TP_FAMILY_OVERRIDES}
+    known = {**FAMILY_OVERRIDES, **WIDE_OVERRIDES, **TP_OVERRIDES, **TP_FAMILY_OVERRIDES,
+             **DEEP_OVERRIDES}
     cfg = config_lib.compose(REPO / "config", overrides=[*known.get(family, []), *extra])
     cfg["dataset"]["dataset_dir"] = str(REPO / cfg["dataset"]["dataset_dir"])
     cfg["trainer"]["device"] = "cuda"
@@ -2199,7 +2255,9 @@ def hold_step(tag: str, got: dict, ref: dict, card: str,
 F32_STEP_OVERRIDE = {"nerf": ["network.compute_dtype=float32"],
                      "neddf_wide": ["network.compute_dtype=float32"],
                      "neddf_1024": ["network.compute_dtype=float32"],
-                     "nerf_1024": ["network.compute_dtype=float32"]}
+                     "nerf_1024": ["network.compute_dtype=float32"],
+                     "neddf_deep": ["network.compute_dtype=float32"],
+                     "nerf_deep": ["network.compute_dtype=float32"]}
 
 
 def phase_family_step(torch, card: str, configs=None, refs=None, batch: int = FAMILY_BATCH,
@@ -2404,12 +2462,12 @@ def phase_family_runs(torch, card: str, runs=None, tags=("11", "12")) -> dict:
 # phase 11b: configurations beside the shipped ones, on a small batch of
 # points (rays x samples): every field with LeakyReLU, and NeDDF at width
 # 128, at fused="auto" launches its kernels, forward and backward, and a
-# width the kernels do not take (over the per-layer route's 2048; widths
-# over 512 take that route) makes them raise on the card (no plain
-# version runs there)
+# configuration the kernels do not take (an activation that neither the
+# fused kernels nor the per-layer route have; the route takes any width
+# and depth) makes them raise on the card (no plain version runs there)
 OTHER_BATCH = (64, 32)
 OTHER_TAKEN = {"ddf_layer_width": 128}
-OTHER_REFUSED = {"ddf_layer_width": 2304}
+OTHER_REFUSED = {"activation_type": "GELU"}
 
 
 def phase_other_configs(torch, card: str) -> dict:
@@ -4530,6 +4588,9 @@ TP_WORLD = 2
 TP_RANK_TIMEOUT = 420.0
 TP_F32_TOL = 1e-5  # two ranks' f32 step vs one rank's: the column shards' sums
 TP_EVAL_GAP_DB = 0.05
+# phase 24b's run: trainer.epoch_max (200 steps; 300 before phase 26 took
+# its share of the smoke's time limit: its PSNR rose 6.7 dB in 300)
+TP_RUN_EPOCHS = 1
 # phase 24c: (width, rays) of the two ranks' steps, both ranks on the one
 # card: gloo moves each layer's gather through the host (two ranks sharing
 # a card are no TP speed; a 512-ray step took 8 s), so the steps are
@@ -4547,6 +4608,55 @@ def _route_bound(flops, nbytes, dtype_name):
     return bound(flops, nbytes, "bfloat16" if dtype_name == "bfloat16" else "tf32x3")
 
 
+def epilogue_cases(torch, g, rnd, m: int, n: int, e: int, hold) -> dict:
+    """The epilogue forward (#5) and its standalone backward (#6) at width
+    ``n`` over ``m`` rows against their plain versions on the same inputs
+    (``rnd`` draws them in the operand type of ``e`` bytes from ``g``;
+    ``hold(name, got, want)`` holds each output to its bar and returns its
+    max abs error), timed (CUDA events, kernel and plain in turns), with
+    their bounds; two backward runs must give bitwise-equal dwd, dwa and
+    db2 (summed over blocks in a fixed order)."""
+    from neddf_tpu_torch.kernels import neddf_epilogue as epi
+
+    dev = g.device
+    out = {}
+    v, j = rnd(m, n, scale=0.3), rnd(3, m, n, scale=0.3)
+    wd = torch.randn(n, generator=g, device=dev) * n ** -0.5
+    wa = torch.randn(n, generator=g, device=dev) * n ** -0.5
+    b2 = torch.tensor([0.3, -0.2], device=dev)
+    scal = torch.tensor([0.01, 0.8, 1.5, 0.05, 0.05, 1.0, 1.0, 0.0], device=dev)
+    g_out = torch.randn((10, m), generator=g, device=dev)
+    g_t = rnd(m, n, scale=0.1)
+    fwd = (v, j, wd, wa, b2, scal, DENSITY)
+    got, want = epi.neddf_epilogue(*fwd), epi.neddf_epilogue_plain(*fwd)
+    torch.cuda.synchronize()
+    err = max(hold("epilogue out", got[0], want[0]), hold("epilogue t_feat", got[1], want[1]))
+    del got, want
+    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue(*fwd),
+                             lambda: epi.neddf_epilogue_plain(*fwd))
+    out["epilogue"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       **bound(2.0 * 8 * m * n + 3.0 * 2 * m * n,
+                               5 * m * n * e + 10 * m * 4 + 2 * n * 4, "float32")}
+    bwd = (v, j, wd, wa, b2, scal, g_out, g_t, DENSITY)
+    got, want = epi.neddf_epilogue_bwd(*bwd), epi.neddf_epilogue_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    err = max(hold(f"epilogue_bwd {i}", a, c) for i, (a, c) in enumerate(zip(got, want)))
+    del want
+    again = epi.neddf_epilogue_bwd(*bwd)
+    if not all(torch.equal(a, c) for a, c in zip(got[2:], again[2:])):
+        fail(f"the epilogue backward at width {n}: dwd, dwa, db2 differ over two runs")
+    del got, again
+    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue_bwd(*bwd),
+                             lambda: epi.neddf_epilogue_bwd_plain(*bwd))
+    out["epilogue_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": None,
+                           **bound(2.0 * 2 * 8 * m * n, 9 * m * n * e + 4 * m * 4 + 4 * n * 4,
+                                   "float32")}
+    del v, j, g_t, fwd, bwd
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     """Phase 24a at one operand type: every new mode of the per-layer route
     against its plain version at TP_ROWS rows and width TP_WIDTH, timed
@@ -4554,7 +4664,6 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     computes the product), with its bound; and the K=3 trunk's whole walk,
     forward and backward."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
-    from neddf_tpu_torch.kernels import neddf_epilogue as epi
 
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
     e = 2 if dtype_name == "bfloat16" else 4
@@ -4609,33 +4718,7 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     del z, gg, got, want
 
     # the epilogue past 512 (#5, #6's standalone mode, the route's)
-    v, j = rnd(m, n, scale=0.3), rnd(3, m, n, scale=0.3)
-    wd = torch.randn(n, generator=g, device=dev) * n ** -0.5
-    wa = torch.randn(n, generator=g, device=dev) * n ** -0.5
-    b2 = torch.tensor([0.3, -0.2], device=dev)
-    scal = torch.tensor([0.01, 0.8, 1.5, 0.05, 0.05, 1.0, 1.0, 0.0], device=dev)
-    g_out = torch.randn((10, m), generator=g, device=dev)
-    g_t = rnd(m, n, scale=0.1)
-    fwd = (v, j, wd, wa, b2, scal, DENSITY)
-    got, want = epi.neddf_epilogue(*fwd), epi.neddf_epilogue_plain(*fwd)
-    torch.cuda.synchronize()
-    err = max(hold("epilogue out", got[0], want[0]), hold("epilogue t_feat", got[1], want[1]))
-    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue(*fwd),
-                             lambda: epi.neddf_epilogue_plain(*fwd))
-    out["epilogue"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                       **bound(2.0 * 8 * m * n + 3.0 * 2 * m * n,
-                               5 * m * n * e + 10 * m * 4 + 2 * n * 4, "float32")}
-    bwd = (v, j, wd, wa, b2, scal, g_out, g_t, DENSITY)
-    got, want = epi.neddf_epilogue_bwd(*bwd), epi.neddf_epilogue_bwd_plain(*bwd)
-    torch.cuda.synchronize()
-    err = max(hold(f"epilogue_bwd {i}", a, c) for i, (a, c) in enumerate(zip(got, want)))
-    ms, plain_ms = time_pair(torch, lambda: epi.neddf_epilogue_bwd(*bwd),
-                             lambda: epi.neddf_epilogue_bwd_plain(*bwd))
-    out["epilogue_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": None,
-                           **bound(2.0 * 2 * 8 * m * n, 9 * m * n * e + 4 * m * 4 + 4 * n * 4,
-                                   "float32")}
-    del v, j, g_t, got, want
+    out.update(epilogue_cases(torch, g, rnd, m, n, e, hold))
 
     # the K=3 trunk's whole walk at width 1024 (7 layers, [embed, h] at
     # layer 5): the route's #1 forward with its stash and #2 backward
@@ -4723,7 +4806,7 @@ def tp_route_counts(what: str, needed) -> dict:
 def phase_tp_run(torch, card: str) -> dict:
     """Phase 24b: NeDDF with both trunks TP_WIDTH wide on the card (the
     per-layer route with one shard): its f32 step from the seeded
-    parameters against the JAX package (TP_STEP_REF), a 300-step run
+    parameters against the JAX package (TP_STEP_REF), a 200-step run
     through scripts/run.py (bf16, 512 rays: every loss finite, train PSNR
     up >= 3 dB, every launch on the route and no plain call; ms/step, the
     busy share, peak memory) and run_eval of its run dir through the
@@ -4741,12 +4824,13 @@ def phase_tp_run(torch, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = run_main_path(torch, run_dir, [*TP_OVERRIDES["neddf_1024"],
-                                             f"trainer.epoch_save_model={TRAIN_EPOCHS}"])
+                                             f"trainer.epoch_max={TP_RUN_EPOCHS}",
+                                             f"trainer.epoch_save_model={TP_RUN_EPOCHS}"])
     wall = time.perf_counter() - t0
     counts = tp_route_counts("[24b] the 1024-wide run", TP_RUN_KERNELS)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     hist = trainer.history
-    if len(hist) != 100 * (TRAIN_EPOCHS + 1) or not all(
+    if len(hist) != 100 * (TP_RUN_EPOCHS + 1) or not all(
             math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
             for r in hist):
         fail(f"[24b] {len(hist)} logged steps, or a non-finite loss")
@@ -4765,7 +4849,7 @@ def phase_tp_run(torch, card: str) -> dict:
     del trainer
     torch.cuda.empty_cache()
     reset_path_counts()
-    ev = evaluate(run_dir, TRAIN_EPOCHS, cameras=[0], downsampling=8)
+    ev = evaluate(run_dir, TP_RUN_EPOCHS, cameras=[0], downsampling=8)
     eval_counts = tp_route_counts("[24b] run_eval", TP_EVAL_KERNELS)
     gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
     psnrs = {}
@@ -4796,13 +4880,15 @@ def phase_tp_run(torch, card: str) -> dict:
 
 
 def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
-    """One rank of phase 24c on cuda:0 beside the other, in a gloo group of
-    data 1 x model ``world``: per width of TP_RANK_STEPS, the one-rank
-    step (whole parameters) in f32 and bf16, then the TP step over the
-    rank's column shards (``shard_parameters``, ``tp_renderer``,
-    ``make_sharded_grads``; counts at 0 just before, read just after),
-    the gathered gradients' norms; then machine_neddf cam 0 at
-    downsampling 8, rendered whole and over the shards. Results into
+    """One rank of phase 24c (26c) on cuda:0 beside the other, in a gloo
+    group of data 1 x model ``world``: per (width, rays) of
+    ``inp["rank_steps"]``, the one-rank step (whole parameters) in each
+    dtype of ``inp["dtypes"]``, then the TP step over the rank's column
+    shards (``shard_parameters``, ``tp_renderer``, ``make_sharded_grads``;
+    counts at 0 just before, read just after), the gathered gradients'
+    norms, and (``inp["timed"]``) three more TP steps timed; then, where
+    ``inp["eval"]`` is given, machine_neddf cam 0 at downsampling 8,
+    rendered whole and over the shards. Results into
     ``OUT/tp_rank{rank}.pt``."""
     import torch
     import torch.distributed as dist
@@ -4825,13 +4911,15 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
     out = {"rank": rank}
+    tag = inp["tag"]
+    dtypes = [(name, getattr(torch, name)) for name in inp["dtypes"]]
     try:
         mesh = make_mesh(world)
-        for width, batch in TP_RANK_STEPS:
+        for width, batch in inp["rank_steps"]:
             render, local = dp_local_step(torch, inp["steps"][width], dev)
             params = list(render.parameters())
             res = {}
-            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for name, dtype in dtypes:
                 render.network_fine.compute_dtype = dtype
                 for p in params:
                     p.grad = None
@@ -4841,14 +4929,14 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
             tp_renderer(render, mesh.model_group)
             sharded = make_sharded_grads(mesh, batch, 1,
                                          [p for n, p in render.named_parameters() if n in names])
-            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for name, dtype in dtypes:
                 render.network_fine.compute_dtype = dtype
                 for p in params:
                     p.grad = None
                 reset_path_counts()
                 loss, loss_dict, mse = sharded(local, params, None)
                 torch.cuda.synchronize()
-                counts = tp_route_counts(f"[24c] rank {rank} width {width} {name} TP step",
+                counts = tp_route_counts(f"[{tag}] rank {rank} width {width} {name} TP step",
                                          TP_RUN_KERNELS)
                 grads = gather_state({n: p.grad for n, p in render.named_parameters()}, mesh,
                                      names)
@@ -4857,7 +4945,7 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
                                    "grad_norms": {k: v.norm().item() for k, v in grads.items()}}
                 res[name].update(counts)
             times = []
-            for _ in range(3):
+            for _ in range(3 if inp["timed"] else 0):
                 for p in params:
                     p.grad = None
                 torch.cuda.synchronize()
@@ -4873,6 +4961,8 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
 
         # machine_neddf cam 0 at downsampling 8: whole, then over the shards
         ev = inp["eval"]
+        if ev is None:
+            return
         render = build_renderer(ev["cfg"], 0, dev)
         render.load_state_dict({k: torch.from_numpy(v) for k, v in ev["params"].items()})
         r, t = (torch.as_tensor(x, device=dev) for x in ev["pose"])
@@ -4889,18 +4979,29 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
         tp_renderer(render, mesh.model_group)
         reset_path_counts()
         out["eval_tp"] = image()["color"]
-        out["eval"] = tp_route_counts(f"[24c] rank {rank} TP eval render", TP_EVAL_KERNELS)
+        out["eval"] = tp_route_counts(f"[{tag}] rank {rank} TP eval render", TP_EVAL_KERNELS)
     finally:
         torch.save(out, OUT / f"tp_rank{rank}.pt")
         dist.destroy_process_group()
 
 
-def phase_tp_ranks(torch, card: str) -> dict:
+def tp_width_overrides(width: int) -> list:
+    """NeDDF's overrides for both trunks ``width`` wide (none at the
+    shipped 256)."""
+    if width == 256:
+        return []
+    return [f"network.ddf_layer_width={width}", f"network.col_layer_width={width}"]
+
+
+def phase_tp_ranks(torch, card: str, rank_steps=TP_RANK_STEPS,
+                   dtypes=("float32", "bfloat16"), with_eval: bool = True,
+                   tag: str = "24c") -> dict:
     """Phase 24c: two gloo ranks of data 1 x model 2 on the one card
     (``tp_rank``): the f32 TP step within TP_F32_TOL of the one-rank step,
     bf16 within the step bars, each rank's launches on the route, and the
     TP eval render of machine_neddf cam 0 within TP_EVAL_GAP_DB of the
-    whole one."""
+    whole one. Phase 26c passes its own (width, rays), f32 alone and no
+    render (``tag`` names the phase in the log)."""
     import numpy as np
 
     from neddf_tpu_torch.scripts.run_eval import load_trainer
@@ -4909,9 +5010,8 @@ def phase_tp_ranks(torch, card: str) -> dict:
 
     start = time.perf_counter()
     steps = {}
-    for width, batch in TP_RANK_STEPS:
-        extra = [] if width == 256 else TP_OVERRIDES["neddf_1024"]
-        trainer = family_trainer(torch, "neddf", extra)
+    for width, batch in rank_steps:
+        trainer = family_trainer(torch, "neddf", tp_width_overrides(width))
         render = trainer.neural_render
         shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
         draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
@@ -4925,27 +5025,32 @@ def phase_tp_ranks(torch, card: str) -> dict:
                         "iteration": MACHINE_ITERATION}
         del trainer, render
         torch.cuda.empty_cache()
-    ev_trainer = load_trainer(RUN, EPOCH)
-    with torch.no_grad():
-        pose = ev_trainer.camera_pose(0)
-    gt = ev_trainer.dataset[0]["rgb_images"].astype("uint8")
-    ev = {"cfg": ev_trainer.config, "pose": tuple(x.cpu().numpy() for x in pose),
-          "params": {k: v.numpy() for k, v in params_from_jax(load_msgpack_params(
-              RUN / "models" / f"model_{EPOCH:05}.ckpt")).items()},
-          "calib": ev_trainer.calib.params.cpu().numpy(),
-          "width": ev_trainer.dataset.image_width, "height": ev_trainer.dataset.image_height,
-          "downsampling": DP_EVAL_DOWNSAMPLING, "chunk": ev_trainer.chunk}
-    del ev_trainer
-    torch.cuda.empty_cache()
+    ev = None
+    if with_eval:
+        ev_trainer = load_trainer(RUN, EPOCH)
+        with torch.no_grad():
+            pose = ev_trainer.camera_pose(0)
+        gt = ev_trainer.dataset[0]["rgb_images"].astype("uint8")
+        ev = {"cfg": ev_trainer.config, "pose": tuple(x.cpu().numpy() for x in pose),
+              "params": {k: v.numpy() for k, v in params_from_jax(load_msgpack_params(
+                  RUN / "models" / f"model_{EPOCH:05}.ckpt")).items()},
+              "calib": ev_trainer.calib.params.cpu().numpy(),
+              "width": ev_trainer.dataset.image_width,
+              "height": ev_trainer.dataset.image_height,
+              "downsampling": DP_EVAL_DOWNSAMPLING, "chunk": ev_trainer.chunk}
+        del ev_trainer
+        torch.cuda.empty_cache()
     OUT.mkdir(parents=True, exist_ok=True)
     store = OUT / f"tp_gloo_store_{time.time_ns()}"
     for r in range(TP_WORLD):
         (OUT / f"tp_rank{r}.pt").unlink(missing_ok=True)
+    inp = {"steps": steps, "eval": ev, "rank_steps": rank_steps, "dtypes": dtypes,
+           "timed": "bfloat16" in dtypes, "tag": tag}
     context = torch.multiprocessing.start_processes(
-        tp_rank, args=(TP_WORLD, f"file://{store}", {"steps": steps, "eval": ev}),
-        nprocs=TP_WORLD, join=False, start_method="spawn")
+        tp_rank, args=(TP_WORLD, f"file://{store}", inp), nprocs=TP_WORLD, join=False,
+        start_method="spawn")
     try:
-        join_ranks(context, TP_RANK_TIMEOUT, "[24c]")
+        join_ranks(context, TP_RANK_TIMEOUT, f"[{tag}]")
     finally:
         store.unlink(missing_ok=True)
     ranks = [torch.load(OUT / f"tp_rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
@@ -4953,24 +5058,24 @@ def phase_tp_ranks(torch, card: str) -> dict:
     ds = DP_EVAL_DOWNSAMPLING
     for rank in ranks:
         entry = {"rank": rank["rank"]}
-        for width, batch in TP_RANK_STEPS:
+        for width, batch in rank_steps:
             res = rank[width]
-            for name in ("float32", "bfloat16"):
+            for name in dtypes:
                 got, ref = res[name]["tp"], res[name]["single"]
                 if name == "float32":
-                    worst = max([check_close(f"[24c] width {width} f32 {k}", got[k], ref[k],
+                    worst = max([check_close(f"[{tag}] width {width} f32 {k}", got[k], ref[k],
                                              TP_F32_TOL) for k in ("loss", "mse")]
-                                + [check_close(f"[24c] width {width} f32 loss {k}",
+                                + [check_close(f"[{tag}] width {width} f32 loss {k}",
                                                got["losses"][k], v, TP_F32_TOL)
                                    for k, v in ref["losses"].items()]
-                                + [check_close(f"[24c] width {width} f32 grad norm {k}",
+                                + [check_close(f"[{tag}] width {width} f32 grad norm {k}",
                                                got["grad_norms"][k], v, TP_F32_TOL)
                                    for k, v in ref["grad_norms"].items()])
                     gaps = {"worst_rel": worst}
                 else:
                     worst_loss, worst_grad = bf16_step_gaps(got, ref)
                     gaps = {"worst_loss_rel": worst_loss, "worst_grad_norm_rel": worst_grad}
-                log(f"[24c] rank {rank['rank']} width {width} {name}: the TP step (data 1 x "
+                log(f"[{tag}] rank {rank['rank']} width {width} {name}: the TP step (data 1 x "
                     f"model 2) vs one rank's on the same draws: {json.dumps(gaps)} (bars: f32 "
                     f"{TP_F32_TOL}, bf16 {json.dumps(BF16_STEP_TOL)}); launches "
                     f"{res[name]['launches']}, layer forward {res[name]['layer_forward']}, "
@@ -4980,29 +5085,34 @@ def phase_tp_ranks(torch, card: str) -> dict:
                                             "layer_forward": res[name]["layer_forward"],
                                             "products": res[name]["routes"]["products"],
                                             "passes": res[name]["routes"]["passes"]}
-            entry[f"{width}/ms_per_step"] = res["ms_per_step"]
-            log(f"[24c] rank {rank['rank']} width {width}, {batch} rays: "
-                f"{statistics.median(res['ms_per_step']):.2f} ms per TP bf16 step (two ranks "
-                f"sharing ONE card over gloo: not a TP speed) | card: {card}")
+            if res["ms_per_step"]:
+                entry[f"{width}/ms_per_step"] = res["ms_per_step"]
+                log(f"[{tag}] rank {rank['rank']} width {width}, {batch} rays: "
+                    f"{statistics.median(res['ms_per_step']):.2f} ms per TP bf16 step (two "
+                    f"ranks sharing ONE card over gloo: not a TP speed) | card: {card}")
+        if not with_eval:
+            out["ranks"].append(entry)
+            continue
         psnr = {k: peak_signal_noise_ratio(
             np.clip(np.asarray(rank[k]) * 255, 0, 255).astype("uint8"),
             gt[::ds, ::ds][: rank[k].shape[0], : rank[k].shape[1]])
             for k in ("eval_whole", "eval_tp")}
         gap = abs(psnr["eval_tp"] - psnr["eval_whole"])
-        log(f"[24c] rank {rank['rank']} machine_neddf cam 0 at downsampling {ds}: {psnr['eval_tp']:.4f} "
+        log(f"[{tag}] rank {rank['rank']} machine_neddf cam 0 at downsampling {ds}: {psnr['eval_tp']:.4f} "
             f"dB over the two ranks' shards, {psnr['eval_whole']:.4f} dB whole, gap {gap:.4f} dB "
             f"(bar {TP_EVAL_GAP_DB}); launches {rank['eval']['launches']}, layer forward "
             f"{rank['eval']['layer_forward']}")
         if not gap <= TP_EVAL_GAP_DB:
-            fail(f"[24c] the TP render is {gap:.4f} dB from the whole one")
+            fail(f"[{tag}] the TP render is {gap:.4f} dB from the whole one")
         entry["eval_psnr"] = psnr
         entry["eval_launches"] = rank["eval"]["launches"]
         entry["eval_layer_forward"] = rank["eval"]["layer_forward"]
         out["ranks"].append(entry)
-    if not np.array_equal(np.asarray(ranks[0]["eval_tp"]), np.asarray(ranks[1]["eval_tp"])):
-        fail("[24c] the ranks' TP renders differ")
+    if with_eval and not np.array_equal(np.asarray(ranks[0]["eval_tp"]),
+                                     np.asarray(ranks[1]["eval_tp"])):
+        fail(f"[{tag}] the ranks' TP renders differ")
     out["wall_s"] = time.perf_counter() - start
-    log(f"[24c] took {out['wall_s']:.1f} s")
+    log(f"[{tag}] took {out['wall_s']:.1f} s")
     return out
 
 
@@ -5616,6 +5726,317 @@ def phase_25_alone(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 26
+# trunks of any depth and widths over 2048: (a) the epilogue forward (#5)
+# and its standalone backward (#6: past 2048 its column-chunked kernel)
+# against their plain versions at the fine pass's rows, timed; (b) each
+# configuration of DEEP_OVERRIDES on one card through the per-layer route;
+# (c) NeDDF with both trunks 4096 wide on one card, and over two gloo
+# ranks sharing it (shards of 2048)
+EPI_WIDE_WIDTHS = (2056, 3072, 4096)
+# the route's wrappers of each deep run (their calls that ran the kernels)
+DEEP_RUN_KERNELS = {"neddf_deep": TP_RUN_KERNELS, "nerf_deep": ("mlp_seg_layers",),
+                    "neus_deep": ("sdf_mlp_layers", "mlp_seg_layers")}
+DEEP_LOSS_STEPS = 20  # the run's gate: the mean loss of the last 20 steps below the first 20
+WIDTH_4096 = 4096
+WIDE_4096_RAYS = 128  # the 4096-wide run's rays (each layer's input and stash stay saved)
+WIDE_4096_STEPS = 20
+WIDE_4096_STEP_RAYS = 32  # its f32 step, kernels against the plain versions
+WIDE_4096_RANK_STEPS = ((WIDTH_4096, 32),)  # 26c's two ranks: (width, rays)
+
+
+def deep_route_counts(what: str, needed, route: str, backward: bool = True) -> dict:
+    """``read_path_counts`` on the per-layer route: every kernel of
+    ``needed`` and a layer forward launched, no product on the route of
+    the other operand type than ``route`` ("tc" bf16, "tf32x3" f32) and,
+    with ``backward``, some on ``route``; no fused wrapper, no tile
+    forward, no plain version."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    counts = read_path_counts(what, needed)
+    fused = {k: counts["launches"].get(k, 0) for k in (*FUSED_KERNELS, *TPF_FUSED)}
+    routes = counts["routes"]
+    other = {"tc": "tf32x3", "tf32x3": "tc"}[route]
+    if (any(fused.values()) or any(routes["tile_forward"].values())
+            or sum(dm.ROUTE_LAUNCHES.values()) < 1 or routes["products"][other]
+            or (backward and routes["products"][route] < 1)):
+        fail(f"{what}: the fused route launched {fused}, tile forwards "
+             f"{routes['tile_forward']}, the layer forward {dict(dm.ROUTE_LAUNCHES)}, "
+             f"products {routes['products']} (expected {route} only)")
+    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
+    return counts
+
+
+def phase_epilogue_wide(torch, card: str) -> dict:
+    """Phase 26a: ``epilogue_cases`` at the widths EPI_WIDE_WIDTHS over the
+    fine pass's TP_ROWS rows, f32 and bf16 (past 2048 the backward runs
+    ``epi_bwd_wide_kernel``), within the route's bars (TP_TOL)."""
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        tol = TP_TOL[dtype_name]
+        e = 2 if dtype_name == "bfloat16" else 4
+        for n in EPI_WIDE_WIDTHS:
+            g = torch.Generator(device=dev).manual_seed(n)
+
+            def rnd(*shape, scale=1.0):
+                return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+            def hold(name, got, want):
+                err, rel = rel_err(torch, got, want)
+                if not torch.isfinite(got).all() or not rel <= tol:
+                    fail(f"[26a] {name} width {n} {dtype_name}: rel err {rel:.3g} > {tol}")
+                return err
+
+            cases = epilogue_cases(torch, g, rnd, TP_ROWS, n, e, hold)
+            for name, r in cases.items():
+                log(f"[26a] {name} {dtype_name} (rows {TP_ROWS}, width {n}): max abs err "
+                    f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); dwd, dwa, db2 bitwise "
+                    f"over two runs | card: {card}")
+                out[f"{name}/{n}/{dtype_name}"] = r
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[26a] took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_deep(torch, card: str) -> dict:
+    """Phase 26b: each configuration of DEEP_OVERRIDES (trunks deeper than
+    the fused kernels hold) on the card: its f32 step from the seeded
+    parameters against the JAX package (DEEP_STEP_REF, phase 10's bars), a
+    100-step run through scripts/run.py (every loss finite, the mean loss
+    of the last DEEP_LOSS_STEPS steps below the first's, every launch on
+    the route's tensor-core products, none of the fused route's, no plain
+    call; ms/step over steps 50-99, the busy share, the peak memory), and
+    run_eval of NeDDF-deep's run through the kernels and the plain
+    versions within EVAL_PSNR_GAP_DB."""
+    from neddf_tpu_torch.scripts.run_eval import evaluate
+    from neddf_tpu_torch.training.metrics import peak_signal_noise_ratio
+
+    start = time.perf_counter()
+    refs = json.loads(DEEP_STEP_REF.read_text())
+    out = {}
+    for name, overrides in DEEP_OVERRIDES.items():
+        needed = DEEP_RUN_KERNELS[name]
+        route = "tf32x3" if name.startswith("neus") else "tc"
+        reset_path_counts()
+        res = {"step": phase_family_step(torch, card, {name: overrides}, refs, DEEP_BATCH,
+                                         "26b")[name]}
+        res["step"]["counts"] = deep_route_counts(f"[26b] {name} f32 step", needed, "tf32x3")
+        run_dir = OUT / f"train_{name}"
+        reset_path_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = run_main_path(torch, run_dir, [*overrides, "trainer.epoch_max=0"])
+        wall = time.perf_counter() - t0
+        counts = deep_route_counts(f"[26b] the {name} run", needed, route)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        hist = trainer.history
+        if len(hist) != 100 or not all(
+                math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+                for r in hist):
+            fail(f"[26b] {name}: {len(hist)} logged steps, or a non-finite loss")
+        first = mean([r["loss"] for r in hist[:DEEP_LOSS_STEPS]])
+        last = mean([r["loss"] for r in hist[-DEEP_LOSS_STEPS:]])
+        ms_step = 1000.0 * mean([r["seconds"] for r in hist[50:]])
+        steps = len(hist)
+        per_step = {"layer_forward": {k: v / steps for k, v in counts["layer_forward"].items()},
+                    "products": {k: v / steps for k, v in counts["routes"]["products"].items()},
+                    "passes": {k: v / steps for k, v in counts["routes"]["passes"].items() if v}}
+        log(f"[26b] {name} run: {steps} steps in {wall:.1f} s, mean loss of the first "
+            f"{DEEP_LOSS_STEPS} {first:.5f} -> last {DEEP_LOSS_STEPS} {last:.5f}, "
+            f"{ms_step:.2f} ms/step (steps 50-99, {trainer.batch_size} rays), peak "
+            f"{peak_gib:.2f} GiB; launches {counts['launches']}, per step "
+            f"{json.dumps(per_step)}, plain calls {counts['plain_calls']} | card: {card}")
+        if not last < first:
+            fail(f"[26b] the {name} run's loss did not fall")
+        prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
+                             f"{trainer.batch_size} rays, {name}", "26b")
+        del trainer
+        torch.cuda.empty_cache()
+        res.update({"launches": counts["launches"], "per_step": per_step,
+                    "plain_calls": counts["plain_calls"], "wall_s": wall,
+                    "ms_per_step": ms_step, "busy_share": prof["busy_share"],
+                    "device_ms_per_step": prof["device_ms_per_step"],
+                    "launches_per_step": prof["launches_per_step"], "peak_memory_gib": peak_gib,
+                    "loss_first": first, "loss_last": last})
+        if name == "neddf_deep":
+            reset_path_counts()
+            ev = evaluate(run_dir, 0, cameras=[0], downsampling=8)
+            eval_counts = deep_route_counts(f"[26b] {name} run_eval", TP_EVAL_KERNELS, "tc",
+                                            backward=False)
+            gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
+            psnrs = {}
+            for mode in ("kernels", "plain"):
+                ev.neural_render.network_fine.fused = "auto" if mode == "kernels" else "off"
+                ev.generator.manual_seed(ev.seed)
+                rgb = ev.render_test(run_dir / f"eval_{mode}", 0, 8)
+                psnrs[mode] = peak_signal_noise_ratio(rgb, gt[: rgb.shape[0], : rgb.shape[1]])
+            gap = abs(psnrs["kernels"] - psnrs["plain"])
+            log(f"[26b] {name} run_eval cam 0 at downsampling 8: {psnrs['kernels']:.4f} dB "
+                f"through the kernels (launches {eval_counts['launches']}, layer forward "
+                f"{eval_counts['layer_forward']}), {psnrs['plain']:.4f} dB plain, gap "
+                f"{gap:.4f} dB (bar {EVAL_PSNR_GAP_DB})")
+            if not gap <= EVAL_PSNR_GAP_DB:
+                fail(f"[26b] {name}: run_eval through the kernels and the plain versions "
+                     f"disagree")
+            res.update({"eval_psnr": psnrs, "eval_launches": eval_counts["launches"],
+                        "eval_layer_forward": eval_counts["layer_forward"]})
+            del ev
+            torch.cuda.empty_cache()
+        out[name] = res
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[26b] took {out['wall_s']:.1f} s")
+    return out
+
+
+def wide_4096_step(torch, card: str) -> dict:
+    """Phase 26c's f32 step of NeDDF at width 4096 from the seeded
+    parameters, WIDE_4096_STEP_RAYS rays, through the kernels and through
+    the plain versions on the same draws: every loss and gradient norm
+    within phase 10's JAX_STEP_TOL; the kernels' counts."""
+    trainer = family_trainer(torch, "neddf", [*tp_width_overrides(WIDTH_4096),
+                                              "network.compute_dtype=float32"])
+    render = trainer.neural_render
+    shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+    render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
+    draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                               render.sample_coarse + 1, render.sample_fine + 1,
+                               seed=FAMILY_DRAW_SEED, batch=WIDE_4096_STEP_RAYS)
+    us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+    got, counts = {}, None
+    for mode in ("kernels", "plain"):
+        render.network_fine.fused = "auto" if mode == "kernels" else "off"
+        for p in render.parameters():
+            p.grad = None
+        reset_path_counts()
+        loss, loss_dict, mse = trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(),
+                                                  u_strat, u_pdf)
+        torch.cuda.synchronize()
+        if mode == "kernels":
+            counts = deep_route_counts("[26c] the 4096-wide f32 step", TP_RUN_KERNELS,
+                                       "tf32x3")
+        got[mode] = {"loss": loss.item(), "mse": mse.item(),
+                     "losses": {k: v.item() for k, v in loss_dict.items()},
+                     "grad_norms": {n: p.grad.norm().item()
+                                    for n, p in render.named_parameters()}}
+    k, p = got["kernels"], got["plain"]
+    worst = max([check_close(f"[26c] 4096 f32 {key}", k[key], p[key], JAX_STEP_TOL)
+                 for key in ("loss", "mse")]
+                + [check_close(f"[26c] 4096 f32 loss {key}", k["losses"][key], v, JAX_STEP_TOL)
+                   for key, v in p["losses"].items()]
+                + [check_close(f"[26c] 4096 f32 grad norm {key}", k["grad_norms"][key], v,
+                               JAX_STEP_TOL) for key, v in p["grad_norms"].items()])
+    log(f"[26c] NeDDF-4096 f32 step ({WIDE_4096_STEP_RAYS} rays) through the kernels vs the "
+        f"plain versions: worst relative gap {worst:.3g} (bar {JAX_STEP_TOL}); launches "
+        f"{counts['launches']}, layer forward {counts['layer_forward']} | card: {card}")
+    del trainer, render
+    torch.cuda.empty_cache()
+    return {"worst_rel_vs_plain": worst, "got": k, "launches": counts["launches"],
+            "layer_forward": counts["layer_forward"]}
+
+
+def phase_wide_4096(torch, card: str, ranks=None) -> dict:
+    """Phase 26c: NeDDF with both trunks 4096 wide on the card:
+    WIDE_4096_STEPS bf16 steps of WIDE_4096_RAYS rays (every loss finite,
+    every launch on the route, no plain call; ms/step over the last 10,
+    the peak memory), its f32 step through the kernels against the plain
+    versions (``wide_4096_step``), and two gloo ranks of data 1 x model 2
+    (shards of 2048) against one rank in f32 (``phase_tp_ranks``; the full
+    smoke runs them beside phase 14b and passes their ``ranks``)."""
+    start = time.perf_counter()
+    out = {"step": wide_4096_step(torch, card)}
+    reset_path_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = family_trainer(torch, "neddf", [*tp_width_overrides(WIDTH_4096),
+                                              f"trainer.batch_size={WIDE_4096_RAYS}"])
+    seconds = []
+    for it in range(WIDE_4096_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_train_step(it % 2)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    trainer.flush_logs()
+    counts = deep_route_counts("[26c] the 4096-wide steps", TP_RUN_KERNELS, "tc")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = trainer.history
+    if len(hist) != WIDE_4096_STEPS or not all(
+            math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+            for r in hist):
+        fail(f"[26c] NeDDF-4096: {len(hist)} logged steps, or a non-finite loss")
+    ms_step = 1000.0 * mean(seconds[-10:])
+    log(f"[26c] NeDDF-4096 ({WIDE_4096_RAYS} rays, bf16): {WIDE_4096_STEPS} steps, losses "
+        f"{hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}, all finite; {ms_step:.2f} ms/step "
+        f"(the last 10), peak {peak_gib:.2f} GiB; launches {counts['launches']}, layer "
+        f"forward {counts['layer_forward']}, plain calls {counts['plain_calls']} | card: {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    out.update({"ms_per_step": ms_step, "peak_memory_gib": peak_gib,
+                "launches": counts["launches"], "layer_forward": counts["layer_forward"],
+                "losses": [r["loss"] for r in hist]})
+    out["ranks"] = phase_wide_ranks(torch, card) if ranks is None else ranks
+    out["wall_s"] = time.perf_counter() - start
+    log(f"[26c] took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_wide_ranks(torch, card: str) -> dict:
+    """Phase 26c's two gloo ranks (shards of 2048) against one rank, f32."""
+    return phase_tp_ranks(torch, card, WIDE_4096_RANK_STEPS, ("float32",), False, "26c")
+
+
+def deep_kernel_entries(deep: dict) -> list:
+    """The kernels line's entries of phase 26: the standalone epilogue
+    backward past 2048 (the new kernel) and the forward there, each with
+    26a's numbers at 4096 in bf16 (max_abs_err over every width and both
+    types) and its launches in the 4096-wide steps of 26c."""
+    wide = deep["wide_4096"]
+    entries = []
+    for name, key, replaces in (
+            ("epi_bwd_wide_kernel (neddf_epilogue_bwd standalone mode past 2048, width 4096)",
+             "epilogue_bwd", "neddf_tpu/kernels/neddf_epilogue.py:365"),
+            ("neddf_epilogue (epi_fwd_wide_kernel past 2048, width 4096)", "epilogue",
+             "neddf_tpu/kernels/neddf_epilogue.py:329")):
+        r = deep["epilogue"][f"{key}/{WIDTH_4096}/bfloat16"]
+        err = max(v["max_abs_err"] for k, v in deep["epilogue"].items()
+                  if isinstance(v, dict) and k.startswith(f"{key}/"))
+        counter = "neddf_epilogue_bwd" if key == "epilogue_bwd" else "neddf_epilogue"
+        entries.append({"name": name, "route": "cuda",
+                        "source": "neddf_tpu_torch/csrc/neddf_epilogue.cu",
+                        "replaces": replaces, "launches": wide["launches"][counter],
+                        "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    return entries
+
+
+def phase_26_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase 26``: the build and phase 26 alone
+    (its results into ``OUT/phase26.json``, its kernels line printed), for
+    work on deep trunks and widths over 2048; the full smoke runs every
+    phase."""
+    from neddf_tpu_torch.kernels import _build
+
+    card = card_line()
+    start = time.perf_counter()
+    _build.library()
+    log(f"[2] kernels built/loaded in {time.perf_counter() - start:.1f} s | card: {card}")
+    check_spill_functions(_build.build_dir())
+    out = {"epilogue": phase_epilogue_wide(torch, card), "deep": phase_deep(torch, card),
+           "wide_4096": phase_wide_4096(torch, card)}
+    drop_large_outputs()
+    (OUT / "phase26.json").write_text(json.dumps(out, indent=1, default=str))
+    print(json.dumps({"kernels": deep_kernel_entries(out)}))
+    print(card)
+    print(json.dumps({"ok": True, "phase": 26, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def drop_large_outputs(limit: int = 1 << 20) -> int:
     """Delete the checkpoints, ``.pth`` files and Chrome traces over
     ``limit`` bytes under ``OUT`` (checked by then), so that the output
@@ -5663,6 +6084,8 @@ def main() -> int:
         return phase_24_alone(torch)
     if sys.argv[1:] == ["--phase", "25"]:
         return phase_25_alone(torch)
+    if sys.argv[1:] == ["--phase", "26"]:
+        return phase_26_alone(torch)
 
     from neddf_tpu_torch.kernels import _build, dual_mlp
     from neddf_tpu_torch.kernels.dual_mlp import dual_mlp_trunk, dual_mlp_trunk_plain
@@ -5909,6 +6332,7 @@ def main() -> int:
         # mode) ends, which the card would otherwise wait for
         tp_ranks = phase_tp_ranks(torch, card)
         tpf_ranks = phase_tp_family_ranks(torch, card)
+        wide_ranks = phase_wide_ranks(torch, card)
         resume["watchdog_run"] = finish_watchdog_run(torch, card, run_w)
     finally:
         for proc in (run_b[0], run_w[0]):
@@ -5947,6 +6371,11 @@ def main() -> int:
     # parallelism, widths over 512; 25c ran beside phase 14b)
     tpf = {"kernels": phase_tp_family_kernels(torch, card),
            "run": phase_tp_family_run(torch, card), "ranks": tpf_ranks}
+
+    # ---- phase 26: trunks of any depth and widths over 2048 (26c's ranks
+    # ran beside phase 14b)
+    deep = {"epilogue": phase_epilogue_wide(torch, card), "deep": phase_deep(torch, card),
+            "wide_4096": phase_wide_4096(torch, card, wide_ranks)}
 
     def dp_launches(counter: str) -> dict:
         # one rank's launches per sharded step (bf16) and in the sharded eval render
@@ -6129,6 +6558,8 @@ def main() -> int:
             "launches_tp_rank_step": per_rank})
     # phase 25: NeRF's and NeuS's per-layer route's modes and walks
     kernels.extend(tpf_kernel_entries(tpf))
+    # phase 26: the epilogue past 2048 (#6's column-chunked kernel, #5)
+    kernels.extend(deep_kernel_entries(deep))
     summary = {
         "card": card, "psnr_ds8": psnr8, "ssim_ds8": ssim8, "psnr_full": psnr1,
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
@@ -6142,6 +6573,7 @@ def main() -> int:
         "grad_accum": accum, "rest": rest, "geometry": geometry, "llff": llff,
         "data_parallel": dp, "widths_acts": widths_acts, "wide_steps": wide_steps,
         "wide_runs": wide_runs, "tensor_parallel": tp, "tensor_parallel_families": tpf,
+        "deep_and_wide": deep,
     }
     kept = drop_large_outputs()
     log(f"[13] {kept / 2**20:.1f} MiB of outputs kept under {OUT.relative_to(REPO)} (the "

@@ -73,11 +73,14 @@
 // C zero-filled (16-byte cp.async where a row of C elements allows it, else
 // 4 bytes or single bf16 elements), in tiles of 8 rows (4 at P = 512, so
 // that a stage stays within the shared memory of today's f32 tiles);
-// phase b's vectors cover the P columns, its stores masked at C. The
-// density activation (ReLU, LeakyReLU, Softplus, Sigmoid or tanhExp, the
-// field's density_activation_type) is a run-time code: one scalar per
-// row, applied in row_math and differentiated in row_vjp, so it does not
-// multiply the instantiations.
+// phase b's vectors cover the P columns, its stores masked at C. Past
+// C = 2048 (the per-layer route of a wider NeDDF) the staged row of the
+// standalone mode (5 planes x C) outgrows shared memory, and the backward
+// runs epi_bwd_wide_kernel instead: the forward's wide design, nothing
+// staged (see there). The density activation (ReLU, LeakyReLU, Softplus,
+// Sigmoid or tanhExp, the field's density_activation_type) is a run-time
+// code: one scalar per row, applied in row_math and differentiated in
+// row_vjp, so it does not multiply the instantiations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,10 +94,10 @@ extern "C" int neddf_sum_splits(long long n, int splits, const void* parts, void
 namespace {
 
 constexpr int kChunk = 256;  // columns of one lane mapping: 8 per lane
-// the widest width: the per-layer route's (kernels/dual_mlp.py
-// ROUTE_MAX_WIDTH); past the tile forward's 512 the forward loops over
-// 256-column chunks and the backward's standalone mode has the classes
-// 1024 and 2048
+// the widest class of the backward's staged kernel: past the tile
+// forward's 512 its standalone mode has the classes 1024 and 2048, and
+// past 2048 it runs epi_bwd_wide_kernel; the forward loops over
+// 256-column chunks past 512, at any width
 constexpr int kMaxEpiWidth = 2048;
 
 // the backward's width class of a width: the tile forward's classes up to
@@ -764,6 +767,187 @@ cudaError_t epi_bwd_blocks(int M, int* blocks) {
   return cudaSuccess;
 }
 
+// the standalone backward past C = 2048 (the per-layer route of a wider
+// NeDDF), where a staged row of its 5 planes no longer fits a stage of
+// shared memory. The forward's wide design, with nothing staged:
+// persistent blocks of 8 warps walk tiles of 8 rows;
+// * phase a, warp w and row w of the tile: the 8 head dots chunk by chunk
+//   from device memory (a lane's 8 columns of each 256-column chunk, the
+//   order of epi_fwd_wide_kernel, so the recomputed scalars are the
+//   forward's), the row's scalar chain (row_math, row_vjp); the head
+//   cotangents and grad D into shared memory;
+// * phase b, per column: thread t owns the 8-column vectors t, t + 256, ...
+//   of every row; it writes dv and dj of the tile's rows (streams 1-3,
+//   then 0, as epi_bwd_kernel) and adds their dwd and dwa terms, rows in
+//   order, to its columns of the block's partial row in `parts`, which
+//   only it reads and writes (2 C f32 per block, small beside the planes
+//   and mostly served by L2), so no width bounds the partial. db2: lane 0 of each warp over its rows, the warps
+//   in order at the end.
+// neddf_sum_splits sums the blocks' partials in block order: no atomics,
+// two runs give the same bits. Bound by device memory as the staged
+// kernel: 4 planes read twice (phase a, then b), g_tfeat once, 4 planes
+// written, and 2 C f32 read and written per block and tile (at 8 rows
+// and bf16 C = 4096: 13 plane-rows of 8 KB and 64 KB of partials).
+constexpr int kWideBlocksPerSm = 4;  // the persistent grid: at most 4 blocks an SM
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) epi_bwd_wide_kernel(const EpiBwdArgs<T> a) {
+  __shared__ float rows_s[kWarps][kRowScalars];
+  __shared__ float red_db2[kWarps][2];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int M = a.M, C = a.C;
+  const bool vec = C % 8 == 0;  // rows of whole 16-byte vectors (bf16; f32 two)
+  const size_t plane = (size_t)M * C;
+  const int n_tiles = (M + kWarps - 1) / kWarps;
+  float* part = a.parts + (size_t)blockIdx.x * (2 * C + 2);
+  for (int c = tid; c < 2 * C; c += kThreads) part[c] = 0.f;  // read back by its owner only
+  float db0 = 0.f, db1 = 0.f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = tile * kWarps;
+    // ---- phase a: warp w, row w of the tile
+    const int m = m0 + warp;
+    if (m < M) {
+      const float g_row = load_g_out(a.g_out, M, m, lane);
+      float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+      for (int c0 = lane * 8; c0 < C; c0 += kChunk) {
+        const int n = min(8, C - c0);
+        float wdr[8], war[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          wdr[e] = e < n ? round_to<T>(a.wd[c0 + e]) : 0.f;
+          war[e] = e < n ? round_to<T>(a.wa[c0 + e]) : 0.f;
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          float x[8];
+          load_n<8>(a.plane[s] + (size_t)m * C + c0, vec, n, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            p1[s] = fmaf(x[e], wdr[e], p1[s]);
+            p2[s] = fmaf(x[e], war[e], p2[s]);
+          }
+        }
+      }
+      float h1[4], h2[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        h1[s] = warp_sum(p1[s]);
+        h2[s] = warp_sum(p2[s]);
+      }
+      const Row r = row_math(h1, h2, a.b2, a.scal, a.dact);
+      float g_h1[4], g_h2[4];
+      row_vjp(r, __shfl_sync(0xffffffffu, g_row, 0), __shfl_sync(0xffffffffu, g_row, 1),
+              __shfl_sync(0xffffffffu, g_row, 2), __shfl_sync(0xffffffffu, g_row, 3), a.scal,
+              g_h1, g_h2);
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          rows_s[warp][s] = g_h1[s];
+          rows_s[warp][4 + s] = g_h2[s];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) rows_s[warp][8 + k] = r.dg[k];
+        db0 += g_h1[0];
+        db1 += g_h2[0];
+      }
+    }
+    __syncthreads();  // the row scalars
+
+    // ---- phase b: this thread's 8-column vectors of the tile's rows
+    const int rows = min(kWarps, M - m0);
+#pragma unroll 1
+    for (int c0 = tid * 8; c0 < C; c0 += kThreads * 8) {
+      const int n = min(8, C - c0);
+      float wdf[8], waf[8], dwd[8], dwa[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool in = e < n;
+        wdf[e] = in ? a.wd[c0 + e] : 0.f;
+        waf[e] = in ? a.wa[c0 + e] : 0.f;
+        dwd[e] = in ? part[c0 + e] : 0.f;
+        dwa[e] = in ? part[C + c0 + e] : 0.f;
+      }
+#pragma unroll 1
+      for (int r = 0; r < rows; ++r) {
+        const size_t row = (size_t)(m0 + r) * C + c0;
+        float gt[8], x[8], o[8];
+        load_n<8>(a.plane[kPlaneGt] + row, vec, n, gt);
+        // the tangent streams: dj_a = g_h1 wd + g_h2 wa + g_tfeat grad D_a
+#pragma unroll
+        for (int s = 1; s < 4; ++s) {
+          const float g1 = rows_s[r][s], g2 = rows_s[r][4 + s], dg = rows_s[r][7 + s];
+          load_n<8>(a.plane[s] + row, vec, n, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            o[e] = fmaf(gt[e], dg, fmaf(g1, wdf[e], g2 * waf[e]));
+            dwd[e] = fmaf(x[e], g1, dwd[e]);
+            dwa[e] = fmaf(x[e], g2, dwa[e]);
+          }
+          store_n<8>(a.out_t + (s - 1) * plane + row, vec, n, o);
+        }
+        // the value stream: dv = g_h1 wd + g_h2 wa
+        const float g1 = rows_s[r][0], g2 = rows_s[r][4];
+        load_n<8>(a.plane[0] + row, vec, n, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[e] = fmaf(g1, wdf[e], g2 * waf[e]);
+          dwd[e] = fmaf(x[e], g1, dwd[e]);
+          dwa[e] = fmaf(x[e], g2, dwa[e]);
+        }
+        store_n<8>(a.out_v + row, vec, n, o);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e < n) {
+          part[c0 + e] = dwd[e];
+          part[C + c0 + e] = dwa[e];
+        }
+      }
+    }
+    __syncthreads();  // phase a of the next tile rewrites the row scalars
+  }
+  if (lane == 0) {
+    red_db2[warp][0] = db0;
+    red_db2[warp][1] = db1;
+  }
+  __syncthreads();
+  if (tid < 2) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red_db2[w][tid];
+    part[2 * C + tid] = s;
+  }
+}
+
+// the wide kernel's block count for M rows (its occupancy, at most
+// kWideBlocksPerSm an SM, at most one per tile), or its launch over
+// `blocks` blocks
+template <typename T>
+cudaError_t epi_bwd_wide(const EpiBwdArgs<T>& a, int blocks, int* fit, cudaStream_t s) {
+  static int per_sm[kMaxDevices] = {}, sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (per_sm[dev] < 1) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, epi_bwd_wide_kernel<T>, kThreads,
+                                                          0);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    per_sm[dev] = n < kWideBlocksPerSm ? n : kWideBlocksPerSm;
+  }
+  if (blocks == 0) {
+    const int tiles = (a.M + kWarps - 1) / kWarps, most = per_sm[dev] * sms[dev];
+    if (fit != nullptr) *fit = tiles < most ? tiles : most;
+    return cudaSuccess;
+  }
+  epi_bwd_wide_kernel<T><<<blocks, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
 // fn(ACT, TOP, P) for the run-time activation, mode and width (the
 // standalone mode takes no activation; the top mode, the fused trunk's,
 // no width past the tile forward's 512)
@@ -784,17 +968,17 @@ cudaError_t by_mode(int act, int top, int width, F&& fn) {
   return neddf::by_class(width, by_p);
 }
 
-bool bad_width(int width) { return epi_class(width) == 0; }
-
 }  // namespace
 
 // The backward of one operand type (EpiBwdArgs<bf16> or <float> at `args`):
 // with blocks = 0 the block count that fills the card into *fit (args: M
 // and C), else the launch over `blocks` blocks. kernels/_build.py compiles
 // this file twice more, with -DNEDDF_EPI_BF16 and with -DNEDDF_EPI_F32,
-// each object holding one type's 24 instantiations (the trunk activation
-// or the standalone mode x the 4 width classes), so that they build
-// beside the object of the entry points (no define).
+// each object holding one type's 26 instantiations of epi_bwd_kernel (the
+// trunk activation or the standalone mode x the 4 width classes, and the
+// standalone mode at 1024 and 2048) and its epi_bwd_wide_kernel (the
+// standalone mode past 2048), so that they build beside the object of
+// the entry points (no define).
 extern "C" int neddf_epi_bwd_bf16(int act, int top, const void* args, int blocks, int* fit,
                                   void* stream);
 extern "C" int neddf_epi_bwd_f32(int act, int top, const void* args, int blocks, int* fit,
@@ -812,6 +996,7 @@ extern "C" int NEDDF_EPI_FN(int act, int top, const void* args, int blocks, int*
                             void* stream) {
   const EpiBwdArgs<EpiT>& a = *static_cast<const EpiBwdArgs<EpiT>*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!top && a.C > kMaxEpiWidth) return (int)epi_bwd_wide(a, blocks, fit, s);
   return (int)by_mode(act, top, a.C, [&](auto a_, auto top_, auto p_) -> cudaError_t {
     constexpr int ACT = decltype(a_)::value, P = decltype(p_)::value;
     constexpr bool TOP = decltype(top_)::value;
@@ -829,7 +1014,7 @@ extern "C" int NEDDF_EPI_FN(int act, int top, const void* args, int blocks, int*
 #else
 
 // The forward over M rows of v [M, width] and j [3, M, width] (dtype 1
-// bf16 or 0 f32, any width up to 2048) with the f32 head weights wd, wa
+// bf16 or 0 f32, any width) with the f32 head weights wd, wa
 // [width], b2 [2], scal [8]: out [10, M] f32 and t_feat [M, width]; dact
 // the density activation's code (as the trunk's: 0 tanhExp, 1 ReLU, 2
 // LeakyReLU, 3 Softplus, 4 Sigmoid).
@@ -837,7 +1022,7 @@ extern "C" int neddf_epilogue_fwd(int dtype, int dact, int width, int M, const v
                                   const void* j, const void* wd, const void* wa,
                                   const void* b2, const void* scal, void* out, void* t_feat,
                                   void* stream) {
-  if (M <= 0 || bad_width(width) || dact < 0 || dact > neddf::kSigmoid)
+  if (M <= 0 || width < 1 || dact < 0 || dact > neddf::kSigmoid)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (M + kWarps - 1) / kWarps;
@@ -879,7 +1064,7 @@ extern "C" int neddf_epilogue_fwd(int dtype, int dact, int width, int M, const v
 // 3 Softplus, 4 Sigmoid).
 extern "C" int neddf_epilogue_bwd_blocks(int dtype, int act, int top, int width, int M,
                                          int* blocks) {
-  if (M <= 0 || blocks == nullptr || bad_width(width) || (dtype != 0 && dtype != 1))
+  if (M <= 0 || blocks == nullptr || width < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   auto fn = dtype == 1 ? neddf_epi_bwd_bf16 : neddf_epi_bwd_f32;
   auto count = [&](auto t_) {
@@ -892,8 +1077,8 @@ extern "C" int neddf_epilogue_bwd_blocks(int dtype, int act, int top, int width,
 }
 
 // The epilogue's backward over M rows of the streams v [M, C] and j [3, M,
-// C] (C = width, any up to 2048, the top mode up to 512; dtype 1 bf16 or 0
-// f32) with the f32 head
+// C] (C = width, any, the top mode up to 512; dtype 1 bf16 or 0 f32) with
+// the f32 head
 // weights wd, wa [C], b2 [2], scal [8], the density activation's code dact
 // and the cotangents g_out [10, M] f32 (rows 0, 1, 2, 9 read) and g_tfeat
 // [M, C]. top 0: dv into out_v [M, C], dj into out_t [3, M, C]; g_col and
@@ -910,7 +1095,7 @@ extern "C" int neddf_epilogue_bwd(int dtype, int act, int dact, int top, int wid
                                   const void* g_out, const void* g_tfeat, const void* g_col,
                                   const void* z, void* out_v, void* out_t, void* parts,
                                   void* red, void* stream) {
-  if (M <= 0 || blocks <= 0 || bad_width(width) || dact < 0 || dact > neddf::kSigmoid ||
+  if (M <= 0 || blocks <= 0 || width < 1 || dact < 0 || dact > neddf::kSigmoid ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (top && (g_col == nullptr || z == nullptr)) return (int)cudaErrorInvalidValue;

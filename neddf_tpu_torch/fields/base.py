@@ -74,12 +74,10 @@ class Linear(nn.Module):
 def use_kernels(fused: str, device: torch.device, name: str) -> bool:
     """Whether a field runs its kernels: ``off`` never, ``auto`` on CUDA
     tensors, ``on`` on CUDA tensors and raises on others. On CUDA tensors
-    a configuration the kernels do not take (a width over 2048, say) makes
-    their wrappers raise NotImplementedError: nothing on the card falls
-    back to the plain versions. The rule holds on both of a field's
-    routes, the fused one and the per-layer one that a field with a
-    ``tp_group`` (tensor parallelism: the model group, None outside it)
-    or a width over 512 takes (``fields/{neddf,nerf,neus}.py``)."""
+    a configuration the kernels do not take (an unknown activation, say)
+    makes their wrappers raise NotImplementedError: nothing on the card
+    falls back to the plain versions. The rule holds on both of a field's
+    routes, the fused one and the per-layer one (``per_layer_route``)."""
     if fused == "off":
         return False
     if device.type == "cuda":
@@ -87,6 +85,19 @@ def use_kernels(fused: str, device: torch.device, name: str) -> bool:
     if fused == "on":
         raise ValueError(f"{name}(fused='on') needs CUDA tensors, got {device}")
     return False
+
+
+def per_layer_route(tp_group, *refusals: Optional[str]) -> bool:
+    """Whether a field's trunks take the per-layer route of the kernels
+    (``kernels/dual_mlp.py::dual_mlp_layers_walk``) rather than the fused
+    one: under tensor parallelism (``tp_group``, the model group; None
+    outside it), or where a fused kernel that the field runs refuses its
+    configuration. ``refusals`` are those kernels' own predicates
+    (``kernel_refusal`` of ``kernels/dual_mlp.py``, ``mlp.py`` or
+    ``sdf_mlp.py``; None where the kernel takes it): a width over 512 or
+    more layers than a fused kernel holds. The route takes any depth and
+    any width; what it too refuses (an unknown activation) raises there."""
+    return tp_group is not None or any(r is not None for r in refusals)
 
 
 def check_fused(fused: "str | bool") -> str:

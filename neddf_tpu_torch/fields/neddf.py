@@ -45,12 +45,15 @@ The per-layer route (``per_layer``): under tensor parallelism
 package's ``tp_axis``) the trunks' layers hold this rank's column shards
 of the weights ([fan_in, W/n], their biases [W/n]) and each layer's
 output is gathered to the full width before the next one
-(``parallel/tp.py``; JAX ``neddf.py:552, :644, :708``); a field wider
-than the tile forward's 512 takes the same route with one shard. The
-trunks run one layer at a time (``kernels/dual_mlp.py::dual_mlp_layers``,
+(``parallel/tp.py``; JAX ``neddf.py:552, :644, :708``); a field that
+one of its fused kernels refuses (wider than the tile forward's 512,
+deeper than it holds: ``fields/base.py::per_layer_route``) takes the same
+route with one shard. The trunks run one layer at a time
+(``kernels/dual_mlp.py::dual_mlp_layers``,
 ``kernels/mlp.py::mlp_seg_layers``), the epilogue on its own
 (``NeDDFEpilogue``) on the gathered features, replicated as the heads
-are. At ``model = 1`` and widths up to 512 the fused trunks stay.
+are. At ``model = 1`` and a configuration the fused kernels take, the
+fused trunks stay.
 """
 from __future__ import annotations
 
@@ -63,12 +66,13 @@ from neddf_tpu_torch.fields.base import (
     Linear,
     Schedule,
     check_fused,
+    per_layer_route,
     reference_name,
     use_kernels,
 )
 from neddf_tpu_torch.geometry.rays import Sampling
+from neddf_tpu_torch.kernels import dual_mlp, mlp
 from neddf_tpu_torch.kernels.dual_mlp import (
-    KERNEL_MAX_WIDTH,
     dual_mlp_apply,
     dual_mlp_layers,
     dual_mlp_layers_walk,
@@ -192,9 +196,15 @@ class NeDDF(nn.Module):
     @property
     def per_layer(self) -> bool:
         """Whether the trunks take the per-layer route: a width shard under
-        tensor parallelism, or a width over the tile forward's 512."""
-        return (self.tp_group is not None
-                or max(self.ddf_layer_width, self.col_layer_width) > KERNEL_MAX_WIDTH)
+        tensor parallelism, or a configuration that one of the fused
+        kernels refuses: the K=3 trunk, the K=1 colour trunk, the eval
+        colour trunk."""
+        act, n_col = self.activation_type, len(self.layers_col)
+        return per_layer_route(
+            self.tp_group,
+            dual_mlp.kernel_refusal(act, self.ddf_layer_width, len(self.layers_ddf), 3),
+            dual_mlp.kernel_refusal(act, self.col_layer_width, n_col, 1, trunk=False),
+            mlp.kernel_refusal(act, self.col_layer_width, n_col, 4))
 
     def _trunk_params(self, layers: nn.ModuleList):
         cd = self.compute_dtype

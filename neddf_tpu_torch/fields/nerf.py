@@ -23,9 +23,11 @@ outputs is gathered over the group before the next layer reads it
 (``parallel/tp.py``; JAX ``nerf.py:158-172``); the density head and the
 colour head's 3-wide last layer are whole on every rank. The trunk runs
 one layer at a time (``kernels/mlp.py::MLPLayers`` in training,
-``mlp_seg_layers`` in eval); a trunk wider than the tile forward's 512
-takes the same route with one shard. At ``model = 1`` and widths up to
-512 the fused trunk stays.
+``mlp_seg_layers`` in eval); a trunk that the fused ``mlp_seg`` refuses
+(wider than the tile forward's 512, deeper than it holds:
+``fields/base.py::per_layer_route``) takes the same route with one shard.
+At ``model = 1`` and a trunk the fused kernel takes, the fused trunk
+stays.
 
 ``compute_dtype`` is the trunk's operand and storage dtype (bf16 in
 ``config/network/nerf.yaml``). Parameters are initialised like PyTorch's
@@ -42,12 +44,13 @@ from neddf_tpu_torch.fields.base import (
     Linear,
     Schedule,
     check_fused,
+    per_layer_route,
     reference_name,
     use_kernels,
 )
 from neddf_tpu_torch.geometry.rays import Sampling
-from neddf_tpu_torch.kernels.dual_mlp import KERNEL_MAX_WIDTH
 from neddf_tpu_torch.kernels.mlp import (
+    kernel_refusal,
     mlp_apply,
     mlp_layers_apply,
     mlp_seg,
@@ -127,8 +130,9 @@ class NeRF(nn.Module):
     @property
     def per_layer(self) -> bool:
         """Whether the trunk takes the per-layer route: a width shard under
-        tensor parallelism, or a width over the tile forward's 512."""
-        return self.tp_group is not None or self.layer_width > KERNEL_MAX_WIDTH
+        tensor parallelism, or a trunk that the fused ``mlp_seg`` refuses."""
+        return per_layer_route(self.tp_group, kernel_refusal(
+            self.activation_type, self.layer_width, len(self.layers)))
 
     def schedule(self, iteration: int) -> Schedule:
         """Warmups at ``iteration``; a negative one selects eval values."""

@@ -30,9 +30,10 @@ at a time over the shards (``kernels/sdf_mlp.py::SDFLayers``, eval
 ``sdf_mlp_layers``), each layer gathered, and the ranks' parts of the
 normal are summed over the group; the colour trunk is
 ``kernels/mlp.py::MLPLayers`` (eval ``mlp_seg_layers``). ``variance``
-stays whole. A trunk wider than the tile forward's 512 takes the same
-route with one shard. At ``model = 1`` and widths up to 512 the fused
-kernels stay.
+stays whole. Trunks that a fused kernel refuses (wider than the tile
+forward's 512, deeper than it holds: ``fields/base.py::per_layer_route``)
+take the same route with one shard. At ``model = 1`` and trunks the
+fused kernels take, the fused kernels stay.
 
 ``normals`` ``auto``, ``sweep`` and ``reverse`` all take the sweep: it is
 the reverse-mode gradient written out, equal to it in exact arithmetic;
@@ -50,12 +51,13 @@ from neddf_tpu_torch.fields.base import (
     Linear,
     Schedule,
     check_fused,
+    per_layer_route,
     reference_name,
     use_kernels,
 )
 from neddf_tpu_torch.geometry.rays import Sampling
-from neddf_tpu_torch.kernels.dual_mlp import KERNEL_MAX_WIDTH
 from neddf_tpu_torch.kernels.mlp import (
+    kernel_refusal as mlp_refusal,
     mlp_apply,
     mlp_layers_apply,
     mlp_seg,
@@ -63,6 +65,7 @@ from neddf_tpu_torch.kernels.mlp import (
     mlp_seg_plain,
 )
 from neddf_tpu_torch.kernels.sdf_mlp import (
+    kernel_refusal as sdf_refusal,
     sdf_apply,
     sdf_layers_apply,
     sdf_mlp,
@@ -134,8 +137,13 @@ class NeuS(nn.Module):
     @property
     def per_layer(self) -> bool:
         """Whether the trunks take the per-layer route: a width shard under
-        tensor parallelism, or a width over the tile forward's 512."""
-        return self.tp_group is not None or max(self.widths) > KERNEL_MAX_WIDTH
+        tensor parallelism, or a trunk that its fused kernel refuses
+        (``sdf_mlp``; the colour trunk's ``mlp_seg``, four segments)."""
+        act, (w, cw) = self.activation_type, self.widths
+        return per_layer_route(
+            self.tp_group,
+            sdf_refusal(act, w, len(self.layers_sdf)),
+            mlp_refusal(act, cw, len(self.layers_col), 4))
 
     def schedule(self, iteration: int) -> Schedule:
         """No warmups (``neddf_tpu/fields/base.py::BaseField.schedule``)."""

@@ -21,8 +21,9 @@ values and ``f'(z_v) * z_t`` for the tangents.
   returns f32 dW/db (``_seg_bwd:1224-1225``).
 * The per-layer route (``dual_mlp_layers``, ``DualMLPLayers``): the same
   function one layer at a time, for a column shard of each layer under
-  tensor parallelism and for widths over the tile forward's 512 (up to
-  ``ROUTE_MAX_WIDTH``). Each layer is one product on the tensor cores
+  tensor parallelism and for the configurations the fused kernels refuse
+  (widths over the tile forward's 512, more layers than they hold), at
+  any width and depth. Each layer is one product on the tensor cores
   with the activation as its epilogue (``Products.layer_fwd``,
   ``csrc/dual_mlp_bwd.cu::neddf_layer_fwd``: the streams grouped by point
   in a row tile, layer 0's segments and a post-skip layer's input as two
@@ -63,10 +64,6 @@ _SEG_N_TAN = (1, 3)
 # the widest layer the kernels take: csrc/mlp_tile.cuh instantiates the
 # width classes 64, 128, 256 and 512, a width runs on the next class up
 KERNEL_MAX_WIDTH = 512
-# the widest layer of the per-layer route (``dual_mlp_layers``): its
-# products take any width, the NeDDF epilogue (csrc/neddf_epilogue.cu)
-# has the classes up to 2048
-ROUTE_MAX_WIDTH = 2048
 # stream counts S = K+1 of the per-layer forward (csrc/dual_mlp_bwd.cu
 # neddf_layer_fwd): the K=3 and K=1 dual trunks and the value-only MLP
 _ROUTE_STREAMS = (1, 2, 4)
@@ -295,11 +292,11 @@ def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
 
 def route_refusal(act_name: str, width: int, n_tan: int) -> Optional[str]:
     """What of a configuration the per-layer route does not take (None: it
-    takes it): ``width`` is the full (gathered) width of the layer."""
+    takes it): ``width`` is the full (gathered) width of the layer, any
+    from 1 up (its products, and the NeDDF epilogue that runs on its
+    output, take any width), at any depth."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
-    if width > ROUTE_MAX_WIDTH:
-        return f"width {width} > {ROUTE_MAX_WIDTH}"
     if width < 1:
         return f"width {width}"
     if n_tan + 1 not in _ROUTE_STREAMS:
@@ -1331,15 +1328,15 @@ def _route_checks(weights, act_name, n_tan, group, what: str, whole_last: bool =
     for w in sharded[1:]:
         if w.shape[1] != weights[0].shape[1]:
             raise ValueError(f"{what}: layer widths {[w.shape[1] for w in weights]}")
-    if whole_last and not 1 <= weights[-1].shape[1] <= ROUTE_MAX_WIDTH:
+    if whole_last and weights[-1].shape[1] < 1:
         raise ValueError(f"{what}: last layer width {weights[-1].shape[1]}")
 
 
 class DualMLPLayers(torch.autograd.Function):
     """The per-layer route of ``dual_mlp_seg`` (``dual_mlp_layers_walk`` /
     ``dual_mlp_layers_bwd``) as an autograd op: the route of a width
-    shard under tensor parallelism and of widths over the tile forward's
-    512.
+    shard under tensor parallelism and of the configurations the fused
+    kernels refuse (widths over the tile forward's 512, deeper trunks).
 
     ``apply(config, *vs, *js, *weights, *biases)`` with ``config =
     (layout, act_name, has_j, n_tan, compute_dtype, use_kernels,

@@ -23,11 +23,12 @@ order: the hidden rows of W first, then segment 0's).
   weights cast to the compute dtype inside, f32 dW/db back.
 * ``mlp_seg_layers`` / ``MLPLayers``: the value-only per-layer route (the
   NeDDF eval colour trunk, NeRF's trunk and NeuS's colour trunk under
-  tensor parallelism or past width 512), the walk of
-  ``kernels/dual_mlp.py`` with one stream: ``neddf_layer_fwd`` per layer
-  (a post-skip layer's ``[h, seg0]`` as two K segments, a narrow last
-  layer whole on every rank), and backward ``gpre`` on the f32 cotangent
-  after each reduce-scatter, the tn and nt products per layer.
+  tensor parallelism, past width 512 or past the fused kernel's depth),
+  the walk of ``kernels/dual_mlp.py`` with one stream: ``neddf_layer_fwd``
+  per layer (a post-skip layer's ``[h, seg0]`` as two K segments, a
+  narrow last layer whole on every rank), and backward ``gpre`` on the
+  f32 cotangent after each reduce-scatter, the tn and nt products per
+  layer.
 
 For a CPU tensor each wrapper runs its plain version (``*_plain``); for a
 CUDA tensor it launches its kernels or raises. There is no fallback.
@@ -293,8 +294,8 @@ def mlp_seg_layers(
     whole_last: bool = False,
 ) -> Tensor:
     """The value-only per-layer route of ``mlp_seg`` over a width shard or
-    a width past the tile forward's 512, without its backward (the eval
-    trunks): the per-layer walk of ``kernels/dual_mlp.py`` with no tangent
+    a configuration the fused kernel refuses, without its backward (the
+    eval trunks): the per-layer walk of ``kernels/dual_mlp.py`` with no tangent
     planes (S = 1), ``neddf_layer_fwd`` per layer for CUDA tensors under
     ``use_kernels`` (its plain version otherwise), each layer's output
     gathered over the model group ``group`` (None: one shard); a post-skip
@@ -485,7 +486,7 @@ def mlp_apply(vs, weights, biases, layout, act_name, compute_dtype, use_kernels)
 class MLPLayers(torch.autograd.Function):
     """The value-only per-layer route as an autograd op, beside
     ``dual_mlp.DualMLPLayers``: the route of NeRF's trunk and NeuS's colour
-    trunk under tensor parallelism and past width 512
+    trunk under tensor parallelism and past the fused kernel's width or depth
     (``dual_mlp_layers_walk`` / ``dual_mlp_layers_bwd`` with one stream,
     a post-skip layer reading ``[h, seg0]``).
 

@@ -39,9 +39,9 @@ epilogue together, whose backward continues the trunk's from there.
 
 For CPU tensors the wrappers run the plain versions (``*_plain``); for
 CUDA tensors they launch ``csrc/neddf_epilogue.cu`` or raise. The forward
-and the standalone backward take any width C up to 2048
-(``dual_mlp.ROUTE_MAX_WIDTH``: the per-layer route's, whose NeDDF runs
-them on the gathered full-width features), the top mode up to 512 (the
+and the standalone backward take any width C (the per-layer route's,
+whose NeDDF runs them on the gathered full-width features; past 2048 the
+backward runs its column-chunked kernel), the top mode up to 512 (the
 fused trunk's ``dual_mlp.KERNEL_MAX_WIDTH``).
 """
 from __future__ import annotations
@@ -55,7 +55,6 @@ import torch.nn.functional as F
 from neddf_tpu_torch.kernels import _build
 from neddf_tpu_torch.kernels.dual_mlp import (
     _ACT_CODES,
-    ROUTE_MAX_WIDTH,
     DualProductsPlain,
     dual_mlp_seg_bwd,
     dual_mlp_seg_bwd_plain,
@@ -229,11 +228,11 @@ def _check_kernel_args(v, j, wd, wa, b2, scal, density_act, top=False) -> None:
         raise ValueError(f"{what}: shapes {tuple(v.shape)} / {tuple(j.shape)}")
     width = v.shape[1]
     # the top mode finishes the fused trunk's top layer: its widths;
-    # the forward and the standalone backward: the per-layer route's too
+    # the forward and the standalone backward: any, the per-layer route's
     if top and (refusal := width_refusal(width)) is not None:
         raise NotImplementedError(f"{what}: {refusal}")
-    if width > ROUTE_MAX_WIDTH or width < 1:
-        raise NotImplementedError(f"{what}: width {width} (1 to {ROUTE_MAX_WIDTH})")
+    if width < 1:
+        raise NotImplementedError(f"{what}: width {width}")
     if density_act not in _ACT_CODES:
         raise NotImplementedError(f"{what}: density activation {density_act!r}")
     for t, n in ((wd, width), (wa, width), (b2, 2), (scal, 8)):

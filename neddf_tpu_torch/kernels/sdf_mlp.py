@@ -489,7 +489,7 @@ sdf_mlp_layers.launches = 0
 class SDFLayers(torch.autograd.Function):
     """The per-layer sdf route (``sdf_layers_walk`` / ``sdf_layers_bwd``)
     as an autograd op: NeuS's trunk and normals under tensor parallelism
-    and past width 512.
+    and past the fused kernel's width (512) or depth.
 
     ``apply(config, e, *weights, *biases)`` with ``config = (layout,
     act_name, use_kernels, group)``; ``weights``/``biases`` this rank's

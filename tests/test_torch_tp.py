@@ -8,7 +8,8 @@ model)`` mesh and the port's one process.
   gather for CUDA tensors) is bitwise the ``all_gather`` form.
 * The per-layer walk at width 640 over two column shards, with its
   collectives, against the whole walk in one process (the K=3 trunk in
-  f32, the K=1 colour trunk in bf16).
+  f32, the K=1 colour trunk in bf16), and at width 4096 (shards of 2048,
+  the K=3 trunk's layer 0 and a post-skip layer, f32).
 * One TP step of ``NeRFTrainer`` (NeDDF, f32, ``optimize_camera``, the
   JAX package's draws and weights) against the JAX package's
   ``make_sharded_grads`` on a 1 x 2 mesh (its ``tp_renderer`` route)
@@ -19,8 +20,8 @@ model)`` mesh and the port's one process.
   single-process steps; the checkpoint loads in the JAX package's trainer
   and resumes at ``model = 1`` (``load_checkpoint`` in one process).
 * NeRF and NeuS at ``model = 2`` refuse only what every family does (a
-  trainer outside a process group of the mesh's size) and widths over
-  2048.
+  trainer outside a process group of the mesh's size); the route takes
+  any width (4096 here), and refuses an unknown activation, named.
 
 One launch of the ranks (``tests/torch_parallel_ranks.py`` task ``tp``),
 started in the background while the JAX references compute. Tolerances:
@@ -70,6 +71,17 @@ def _walk_cases():
         vs, js, ws, layout, act, has_j, _, gv, gj = args
         g = torch.cat([gv[None], gj], dim=0)
         cases.append((vs, js, ws, bs, layout, act, has_j, cfg["n_tan"], g))
+    # a full width of 4096 in shards of 2048 (past the epilogue's staged
+    # classes): the K=3 trunk's layer 0 and a post-skip layer, f32, 16 rows
+    rng = np.random.default_rng(4096)
+    width, m = 4096, 16
+    vs = [torch.tensor(rng.normal(size=(m, 24)), dtype=torch.float32)]
+    js = [torch.tensor(rng.normal(size=(3, m, 24)), dtype=torch.float32)]
+    ws = [torch.tensor(rng.normal(scale=fan ** -0.5, size=(fan, width)), dtype=torch.float32)
+          for fan in (24, width + 24)]
+    bs = [torch.tensor(rng.normal(scale=0.1, size=width), dtype=torch.float32)] * 2
+    g = torch.tensor(rng.normal(size=(4, m, width)), dtype=torch.float32)
+    cases.append((vs, js, ws, bs, (False, True), "tanhExp", (True,), 3, g))
     return cases
 
 
@@ -117,7 +129,7 @@ def test_tp_gather_is_the_concat_and_its_backward_the_sum(tp_case):
         assert torch.equal(got["padded"].view(torch.int32), got["y"].view(torch.int32))
 
 
-@pytest.mark.parametrize("case", [0, 1], ids=["trunk_f32", "color_bf16"])
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["trunk_f32", "color_bf16", "trunk_4096_f32"])
 def test_two_shard_walk_matches_the_whole_walk(tp_case, case):
     vs, js, ws, bs, layout, act, has_j, n_tan, g = tp_case["inputs"]["walks"][case]
     dtype = vs[0].dtype
@@ -240,9 +252,10 @@ def test_nerf_and_neus_refuse_width_sharding(scene, family):
     """NeRF and NeuS take tensor parallelism since their slice
     (``tests/test_torch_tp_families_ranks.py`` runs their steps): at
     ``model = 2`` a trainer refuses only what it refuses for any family, a
-    process outside a group of 2 ranks, and the per-layer route refuses a
-    full width over 2048, naming it."""
+    process outside a group of 2 ranks; the per-layer route takes any full
+    width (4096: shards of 2048) and names what it refuses."""
     cfg = family_config(scene, family, mesh=MESH_TP)
     with pytest.raises(RuntimeError, match="process group of 2"):
         tconfig.instantiate(cfg["trainer"], global_config=cfg)
-    assert tdm.route_refusal("ReLU", 4096, 0) == "width 4096 > 2048"
+    assert tdm.route_refusal("ReLU", 4096, 0) is None
+    assert tdm.route_refusal("GELU", 4096, 0) == "activation 'GELU'"

@@ -18,8 +18,9 @@ take, here as whole layers (one shard).
   bf16 against the port's fused route's plain versions.
 * ``field_param_specs`` / ``tp_shard_names`` against the JAX package's
   ``field_param_specs`` tree at models 2 and 4, leaf for leaf.
-* The route refuses a full width over 2048 on the kernels' launcher,
-  naming it; the fused kernels refuse widths over 512.
+* The route takes a full width over 2048 and refuses an unknown
+  activation on the kernels' launcher, naming it; the fused kernels
+  refuse widths over 512.
 
 Tolerances: the route against the plain versions in f32 within 1e-5 of
 the largest magnitude (the post-skip layer's two K segments are one
@@ -244,14 +245,16 @@ def test_nerf_wide_matches_jax_in_f32_and_the_fused_route_in_bf16(fields):
             continue
         fused = fields.NeRF(**cfg, compute_dtype=dtype)
         fused.load_state_dict(fields.params_from_jax(params), strict=True)
-        wide = tnerf.KERNEL_MAX_WIDTH
-        tnerf.KERNEL_MAX_WIDTH = WIDE  # the fused route's plain versions take any width
+        refusal = tnerf.kernel_refusal
+        # the fused route's plain versions take any width: a predicate that
+        # takes every configuration keeps the field on the fused route
+        tnerf.kernel_refusal = lambda *args: None
         try:
             assert not fused.per_layer
             _, want, _ = fields._outputs_and_grads(jfield, params, fused, 500,
                                                    ("density", "color"))
         finally:
-            tnerf.KERNEL_MAX_WIDTH = wide
+            tnerf.kernel_refusal = refusal
         for k in ("density", "color"):
             assert _rel(got[k], want[k]) <= 2.0**-8, k
         for (name, p), q in zip(field.named_parameters(), fused.parameters()):
@@ -327,21 +330,26 @@ def test_param_specs_and_shards_follow_the_jax_rule(jx, family, model):
 
 
 @pytest.mark.parametrize("family", ["nerf", "neus"])
-def test_widths_over_2048_are_refused_and_named(family):
+def test_widths_over_2048_are_taken_and_other_refusals_named(family):
     # the kernels' launcher without a card: the route's checks run before
-    # any launch, so they refuse here as they do on the card
+    # any launch, so they take and refuse here as they do on the card
     k = object.__new__(tsdf.SDFProducts if family == "neus" else tmlp.MLPProducts)
     x = torch.zeros((4, 24))
     ws = [torch.zeros((24, 4096)), torch.zeros((4096, 4096))]
     bs = [torch.zeros(4096)] * 2
-    with pytest.raises(NotImplementedError, match="width 4096 > 2048"):
-        if family == "neus":
-            tsdf.sdf_layers_walk(x, ws, bs, (False, False), "ReLU", k)
-        else:
-            tdm.dual_mlp_layers_walk([x], [], ws, bs, (False, False), "ReLU", (False,), 0, k,
-                                     hidden_first=True)
+    # a full width of 4096 (and any other) passes the route's checks
+    tdm._route_checks(ws, "ReLU", 0, None, "the per-layer route")
     assert tdm.route_refusal("ReLU", 2048, 0) is None
-    assert tdm.route_refusal("ReLU", 2049, 0) == "width 2049 > 2048"
+    assert tdm.route_refusal("ReLU", 2049, 0) is None
+    assert tdm.route_refusal("ReLU", 8200, 0) is None
+    # what the route refuses still raises on the kernels' launcher, named
+    with pytest.raises(NotImplementedError, match="activation 'GELU'"):
+        if family == "neus":
+            tsdf.sdf_layers_walk(x, ws, bs, (False, False), "GELU", k)
+        else:
+            tdm.dual_mlp_layers_walk([x], [], ws, bs, (False, False), "GELU", (False,), 0, k,
+                                     hidden_first=True)
+    assert tdm.route_refusal("ReLU", 0, 0) == "width 0"
     # the fused kernels still stop at 512
     assert tmlp.kernel_refusal("ReLU", 513, 8) == "width 513 > 512"
     assert tsdf.kernel_refusal("ReLU", 1024, 8) == "width 1024 > 512"
@@ -407,15 +415,26 @@ def test_cuda_fields_past_512_take_the_route_and_match_plain(family, width):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["nerf", "neus"])
-def test_cuda_fields_over_2048_raise_naming_the_width(family):
+def test_cuda_fields_over_2048_run_and_unknown_activations_raise(family):
+    """Past 2048 the fields run the route's kernels (finite outputs and
+    gradients); an activation the route does not take raises, named."""
     from neddf_tpu_torch.fields.nerf import NeRF
     from neddf_tpu_torch.fields.neus import NeuS
     from neddf_tpu_torch.geometry.rays import Sampling
 
     dev = _card()
-    field = (NeRF(layer_width=2304) if family == "nerf"
-             else NeuS(sdf_layer_width=2304, col_layer_width=2304)).to(dev)
-    pos = torch.zeros((2, 4, 3), device=dev)
+
+    def make(**kw):
+        return (NeRF(layer_width=2304, **kw) if family == "nerf"
+                else NeuS(sdf_layer_width=2304, col_layer_width=2304, **kw)).to(dev)
+
+    pos = torch.rand((2, 4, 3), device=dev) - 0.5
     sampling = Sampling(pos, torch.ones_like(pos), torch.zeros_like(pos))
-    with pytest.raises(NotImplementedError, match="width 2304 > 2048"):
+    field = make()
+    out = field(sampling, field.schedule(0), need_aux=True)
+    sum(v.float().sum() for v in out.values()).backward()
+    assert all(torch.isfinite(v).all() for v in out.values())
+    assert all(torch.isfinite(p.grad).all() for p in field.parameters())
+    field = make(activation_type="GELU")
+    with pytest.raises(NotImplementedError, match="activation 'GELU'"):
         field(sampling, field.schedule(0), need_aux=True)

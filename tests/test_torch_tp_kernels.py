@@ -18,8 +18,8 @@ On the CPU (the route's plain launchers, ``DualProductsPlain``):
   640 against ``mlp_seg_plain``.
 * The epilogue's plain versions at width 640 against the Pallas
   ``neddf_epilogue`` and its VJP in interpret mode.
-* The refusals name the route's limit (2048); the epilogue's top mode
-  keeps the fused trunk's 512.
+* The route takes any width (and the epilogue's forward and standalone
+  backward with it); the epilogue's top mode keeps the fused trunk's 512.
 
 On the card (marked ``cuda``, skipped here): the per-layer forward
 (``neddf_layer_fwd``, S = 4, 2 and 1, one and two K segments, every
@@ -213,20 +213,28 @@ def test_epilogue_at_640_matches_the_pallas_epilogue(jx):
 
 
 def test_refusals_name_the_routes_limit():
+    # the route takes any width; it refuses an activation, a K, a width < 1
     assert tdm.route_refusal("tanhExp", 2048, 3) is None
     assert tdm.route_refusal("Softplus", 640, 0) is None
-    assert tdm.route_refusal("tanhExp", 2049, 1) == "width 2049 > 2048"
+    assert tdm.route_refusal("tanhExp", 2049, 1) is None
+    assert tdm.route_refusal("tanhExp", 8200, 3) is None
     assert tdm.route_refusal("tanhExp", 64, 2) == "K=2"
     assert tdm.route_refusal("GELU", 64, 3) == "activation 'GELU'"
+    assert tdm.route_refusal("tanhExp", 0, 3) == "width 0"
     args = [torch.zeros((4, 2048)), torch.zeros((3, 4, 2048)), torch.zeros(2048),
             torch.zeros(2048), torch.zeros(2), torch.zeros(8)]
     tepi._check_kernel_args(*args, "ReLU")
     with pytest.raises(NotImplementedError, match="width 2048 > 512"):
         tepi._check_kernel_args(*args, "ReLU", top=True)
+    # past 2048 the forward and the standalone backward take the width (the
+    # backward's column-chunked kernel); the top mode keeps the fused 512
     wide = [torch.zeros((4, 2050)), torch.zeros((3, 4, 2050)), torch.zeros(2050),
             torch.zeros(2050), torch.zeros(2), torch.zeros(8)]
-    with pytest.raises(NotImplementedError, match="width 2050"):
-        tepi._check_kernel_args(*wide, "ReLU")
+    tepi._check_kernel_args(*wide, "ReLU")
+    with pytest.raises(NotImplementedError, match="width 2050 > 512"):
+        tepi._check_kernel_args(*wide, "ReLU", top=True)
+    with pytest.raises(NotImplementedError, match="density activation 'GELU'"):
+        tepi._check_kernel_args(*wide, "GELU")
 
 
 # ------------------------------------------------------------------ on the card

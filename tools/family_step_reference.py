@@ -37,8 +37,14 @@ configurations) at ``TP_FAMILY_BATCH`` rays, written to
 ``tools/tp_family_step_reference.json``, which ``chip_smoke.py`` phase 25
 reads.
 
+With ``--deep``, the same for ``chip_smoke.py``'s ``DEEP_OVERRIDES``
+(NeDDF, NeRF and NeuS with trunks deeper than the fused kernels hold, at
+the shipped widths: the per-layer route's configurations) at
+``DEEP_BATCH`` rays, written to ``tools/deep_step_reference.json``, which
+``chip_smoke.py`` phase 26 reads.
+
 Usage (CPU, about 2 GB of memory and a minute or two each):
-    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide | --tp | --tp-families]
+    JAX_PLATFORMS=cpu python tools/family_step_reference.py [--wide | --tp | --tp-families | --deep]
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ sys.path.insert(0, str(REPO))
 
 import neddf_tpu.ops.sampling as jsampling  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    DEEP_BATCH,
+    DEEP_OVERRIDES,
+    DEEP_STEP_REF,
     FAMILY_BATCH,
     FAMILY_CAMERA,
     FAMILY_DRAW_SEED,
@@ -156,7 +165,10 @@ def family_step(overrides, batch: int = FAMILY_BATCH) -> dict:
 
 
 def main() -> None:
-    if "--tp-families" in sys.argv[1:]:
+    if "--deep" in sys.argv[1:]:
+        out = {name: family_step(o, DEEP_BATCH) for name, o in DEEP_OVERRIDES.items()}
+        DEEP_STEP_REF.write_text(json.dumps(out, indent=1) + "\n")
+    elif "--tp-families" in sys.argv[1:]:
         out = {name: family_step(o, TP_FAMILY_BATCH) for name, o in TP_FAMILY_OVERRIDES.items()}
         TP_FAMILY_STEP_REF.write_text(json.dumps(out, indent=1) + "\n")
     elif "--tp" in sys.argv[1:]:
