@@ -589,9 +589,11 @@ def card_line() -> str:
 # Sigmoid: 10), the epilogue on nt (the same 10) and on nn (f32 x 5); the
 # dual backward's products over rows grouped by point, its layer-input
 # prologue on tn and its stacked-cotangent epilogue on nt (bf16 and f32 x
-# 5 activations x S = 2, 4: 20 each); the per-layer route's forward on nn
-# (bf16 and f32 x 5 activations x S = 1, 2, 4: 30)
-TC_FUNCTIONS = {"tc_gemm_kernel": 101,
+# 5 activations x S = 2, 4: 20 each)
+TC_FUNCTIONS = {"tc_gemm_kernel": 71,
+                # the per-layer route's wide layer forward on wgmma (HGMMA): bf16
+                # and f32 x the 5 activations
+                "layer_fwd_wide": 10,
                 # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
                 # classes 64, 128, 256, 512
                 "mlp_tile_fwd": 120,
@@ -611,8 +613,11 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
 # top mode's 5 activations x the width classes 64, 128, 256, 512, and the
 # standalone mode at the per-layer route's classes 1024 and 2048), two
 # blocks of 256 threads per SM (128 registers each), and its column-chunked
-# standalone kernel past 2048 (bf16 and f32)
-SPILL_FUNCTIONS = {"epi_bwd_kernel": 52, "epi_bwd_wide_kernel": 2}
+# standalone kernel past 2048 (bf16 and f32); the narrow layer forward
+SPILL_FUNCTIONS = {"epi_bwd_kernel": 52, "epi_bwd_wide_kernel": 2,
+                   # the per-layer route's narrow layer forward: bf16 and f32 x
+                   # the 5 activations x S = 1, 2, 4 x the column classes 4, 32
+                   "layer_fwd_narrow": 60}
 
 
 def _is_tc_function(name: str) -> bool:
@@ -669,16 +674,17 @@ def check_tensor_core_build(build_dir: Path) -> dict:
         if failed:
             fail(f"cuobjdump -sass failed on {failed}")
         sass = "".join(path.read_text() for path in outs)
-    hmma, tf32, name = {}, {}, None
+    hmma, tf32, hgmma, name = {}, {}, {}, None
     for line in sass.splitlines():
         text = line.strip()
         if text.startswith("Function :"):
             name = text.split(":", 1)[1].strip()
             if _is_tc_function(name):
-                hmma[name] = tf32[name] = 0
+                hmma[name] = tf32[name] = hgmma[name] = 0
         elif name in hmma and ("HMMA" in text or "HGMMA" in text):
             hmma[name] += 1
             tf32[name] += "TF32" in text
+            hgmma[name] += "HGMMA" in text
     spills = ptxas_spills(build_dir, TC_FUNCTIONS)
     for key, count in TC_FUNCTIONS.items():
         found = [n for n in hmma if key in n]
@@ -686,13 +692,17 @@ def check_tensor_core_build(build_dir: Path) -> dict:
             fail(f"SASS: {len(found)} tensor-core instantiations of {key}, expected {count}")
     if min(hmma.values()) < 1:
         fail(f"SASS: a tensor-core function without HMMA: {hmma}")
+    # the wide layer forward runs on wgmma: warpgroup HGMMA, no mma.sync HMMA
+    wide = {fn: (hgmma[fn], hmma[fn]) for fn in hmma if "layer_fwd_wide" in fn}
+    if any(h < 1 or h != n for h, n in wide.values()):
+        fail(f"SASS: the wide layer forward without HGMMA (HGMMA, all): {wide}")
     for fn in hmma:
         is_f32 = "nv_bfloat16" not in fn
         if is_f32 != (tf32[fn] > 0) or (is_f32 and tf32[fn] != hmma[fn]):
             fail(f"SASS: {fn}: {tf32[fn]} of {hmma[fn]} HMMA on TF32 operands")
     if set(spills) != set(hmma) or max(spills.values()) > 0:
         fail(f"ptxas: spills in the tensor-core functions (or missing -v lines): {spills}")
-    return {"hmma": hmma, "tf32_hmma": tf32, "spill_bytes": spills}
+    return {"hmma": hmma, "tf32_hmma": tf32, "hgmma": hgmma, "spill_bytes": spills}
 
 
 def time_pair(torch, fn_kernel, fn_plain, reps: int = 5, inner: int = 1):
@@ -1209,7 +1219,10 @@ def route_counts(dm) -> dict:
     return {"products": {"tc": dm.Products.tc_launches, "tf32x3": dm.Products.tf32x3_launches},
             "folded": {"prologue": dm.Products.prologue_launches,
                        "epilogue": dm.Products.epilogue_launches},
-            "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes}
+            "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes,
+            "layer_forward_kernels": dict(dm.LAYER_FWD_LAUNCHES),
+            "layer_forward_wide_streams": dict(dm.LAYER_FWD_WIDE_STREAMS),
+            "layer_forward_host_s": dm.LAYER_FWD_HOST["s"]}
 
 
 def reset_route_counts(dm) -> None:
@@ -1217,6 +1230,9 @@ def reset_route_counts(dm) -> None:
     dm.Products.prologue_launches = dm.Products.epilogue_launches = 0
     dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
     dm.ROUTE_LAUNCHES.update(fwd=0, fwd_value=0)
+    dm.LAYER_FWD_LAUNCHES.update(narrow=0, wide=0)
+    dm.LAYER_FWD_WIDE_STREAMS.update(s1=0, s2=0, s4=0)
+    dm.LAYER_FWD_HOST["s"] = 0.0
     for counter in _pass_counters(dm):
         counter.update({k: 0 for k in counter})
 
@@ -3071,7 +3087,8 @@ def path_counters():
     plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
               mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, epi.neddf_epilogue_plain,
               epi.neddf_epilogue_bwd_plain, epi.neddf_epilogue_gstack_plain,
-              sdf_grad.sdf_trunk_with_grad, sdf_grad.sdf_trunk_with_grad_vjp]
+              sdf_grad.sdf_trunk_with_grad, sdf_grad.sdf_trunk_with_grad_vjp,
+              dm.layer_fwd_plain]
     return kernels, plains
 
 
@@ -4695,12 +4712,17 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
         want = kp.layer_fwd(xs, w, b, act, stash)
         torch.cuda.synchronize()
         err = max(hold(name, a, c) for a, c in zip(got, want) if a is not None)
+        # device time, as torch.addmm's: three launches back to back a reading;
+        # beside it one launch alone (the host's time before the kernel starts
+        # included)
         ms, plain_ms = time_pair(torch, lambda: k.layer_fwd(xs, w, b, act, stash),
-                                 lambda: kp.layer_fwd(xs, w, b, act, stash))
+                                 lambda: kp.layer_fwd(xs, w, b, act, stash), inner=3)
+        ms_one = time_one(torch, lambda: k.layer_fwd(xs, w, b, act, stash), inner=1)
         x2d = torch.cat(xs, dim=-1).view(s * m, sum(ks))
         bt = b.to(dtype)
         library_ms = time_one(torch, lambda: torch.addmm(bt, x2d, w), inner=3)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        out[name] = {"max_abs_err": err, "ms": ms, "ms_one_launch": ms_one, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
                      **_route_bound(*_route_fwd_work(s, m, ks, n, dtype_name, stash), dtype_name)}
         del xs, w, got, want, x2d
 
@@ -4770,21 +4792,134 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     return out
 
 
+# the layer forward's grid beside the main paths' shapes (24a: the dual
+# trunks' S = 2 and 4; 25a: the value-only S = 1): N = 3 (the narrow
+# kernel), 45 and 257 (the wide one at ragged column tiles) under every
+# activation, at LAYER_GRID_ROWS points of two K segments
+LAYER_GRID_ROWS = 20011
+LAYER_GRID_WIDTHS = (3, 45, 257)
+LAYER_GRID_ACTS = ("tanhExp", "ReLU", "LeakyReLU", "Softplus", "Sigmoid")
+
+
+def layer_fwd_grid(torch, dev, dtype_name: str, streams, tag: str) -> dict:
+    """Both layer-forward kernels against the plain version over the grid
+    (bf16 segments [87 | 1024], which the wide launcher pads; f32 [1024 |
+    36], which TMA takes as they are), within TP_TOL; under ReLU and
+    LeakyReLU the tangent outputs only where the plain z_v is not within
+    1e-3 of 0 (a pre-activation within a rounding of the kink may take the
+    other side in the plain sums). Returns the cases, the largest error
+    and the launches by kernel."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    ks = (87, 1024) if dtype_name == "bfloat16" else (1024, 36)
+    k, kp = dm.Products(dtype, dev), dm.ProductsPlain(dtype)
+    g = torch.Generator(device=dev).manual_seed(17)
+    before = dict(dm.LAYER_FWD_LAUNCHES)
+    worst, cases = 0.0, 0
+    for n in LAYER_GRID_WIDTHS:
+        for s in streams:
+            for act in LAYER_GRID_ACTS:
+                xs = [torch.randn((s, LAYER_GRID_ROWS, kk), generator=g, device=dev).to(dtype)
+                      for kk in ks]
+                w = (torch.randn((sum(ks), n), generator=g, device=dev)
+                     * sum(ks) ** -0.5).to(dtype)
+                b = torch.randn(n, generator=g, device=dev) * 0.5
+                out, z = k.layer_fwd(xs, w, b, act, True)
+                pout, pz = kp.layer_fwd(xs, w, b, act, True)
+                torch.cuda.synchronize()
+                pairs = [("stash", z, pz), ("value", out[0], pout[0])]
+                if s > 1:
+                    t, pt = out[1:].float(), pout[1:].float()
+                    if act in ("ReLU", "LeakyReLU"):
+                        far = (pz[0].float().abs() > 1e-3)[None]
+                        t, pt = t * far, pt * far
+                    pairs.append(("tangents", t, pt))
+                for what, a, c in pairs:
+                    err, rel = rel_err(torch, a, c)
+                    if not torch.isfinite(a).all() or not rel <= TP_TOL[dtype_name]:
+                        fail(f"[{tag}] layer forward N={n} S={s} {act} {dtype_name} {what}: "
+                             f"rel err {rel:.3g} > {TP_TOL[dtype_name]}")
+                    worst = max(worst, err)
+                cases += 1
+                del xs, w, out, z, pout, pz
+    launches = {key: dm.LAYER_FWD_LAUNCHES[key] - before[key] for key in before}
+    per = len(streams) * len(LAYER_GRID_ACTS)
+    if launches != {"narrow": per, "wide": 2 * per}:
+        fail(f"[{tag}] the layer forward's grid launched {launches}")
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": worst, "launches": launches}
+
+
+def log_layer_grid(tag: str, dtype_name: str, grid: dict, streams, card: str) -> None:
+    log(f"[{tag}] layer forward grid {dtype_name}: {grid['cases']} cases (N "
+        f"{LAYER_GRID_WIDTHS} x S {tuple(streams)} x {len(LAYER_GRID_ACTS)} activations, "
+        f"{LAYER_GRID_ROWS} points), max abs err {grid['max_abs_err']:.3g}, launches "
+        f"{grid['launches']} | card: {card}")
+
+
 def phase_tp_kernels(torch, card: str) -> dict:
-    """Phase 24a: ``tp_route_cases`` in f32 and bf16."""
+    """Phase 24a: ``tp_route_cases`` in f32 and bf16, and the layer
+    forward's grid at S = 2 and 4."""
     dev = torch.device("cuda", 0)
     start = time.perf_counter()
     out = {}
     for dtype_name in ("float32", "bfloat16"):
+        out[f"grid/{dtype_name}"] = grid = layer_fwd_grid(torch, dev, dtype_name, (2, 4), "24a")
+        log_layer_grid("24a", dtype_name, grid, (2, 4), card)
         cases = tp_route_cases(torch, dev, dtype_name)
         for name, r in cases.items():
             log(f"[24a] {name} {dtype_name} (rows {TP_ROWS}, width {TP_WIDTH}): max abs err "
-                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms{one_launch(r)}, plain "
+                f"{r['plain_ms']:.4f} ms, "
                 f"torch.addmm {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | card: {card}")
         out[dtype_name] = cases
     out["wall_s"] = time.perf_counter() - start
     log(f"[24a] took {out['wall_s']:.1f} s")
+    return out
+
+
+def layer_forward_counts(what: str, counts: dict) -> dict:
+    """``counts["layer_forward"]``, the per-layer route's layer forwards of
+    ``counts`` (read just after a path was driven): by walk ("fwd", the
+    dual trunks'; "fwd_value", the value-only ones), by kernel ("narrow",
+    "wide"; csrc/layer_fwd.cu), the wide ones by stream count ("s1",
+    "s2", "s4"), and the host seconds spent in ``Products.layer_fwd``
+    ("host_s"). Fails unless every one went through a new kernel, the
+    wide one among them (the plain layer forward's calls are
+    ``read_path_counts``'s plain calls)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    routes = counts["routes"]
+    kernels, streams = routes["layer_forward_kernels"], routes["layer_forward_wide_streams"]
+    if (sum(kernels.values()) != sum(dm.ROUTE_LAUNCHES.values()) or kernels["wide"] < 1
+            or sum(streams.values()) != kernels["wide"]):
+        fail(f"{what}: layer forwards {dict(dm.ROUTE_LAUNCHES)}, by kernel {kernels}, the "
+             f"wide ones by streams {streams}")
+    counts["layer_forward"] = {**dm.ROUTE_LAUNCHES, **kernels, **streams,
+                               "host_s": routes["layer_forward_host_s"]}
+    return counts
+
+
+def one_launch(r: dict) -> str:
+    """A layer forward's single-launch reading beside its three-launch one
+    in a log line (empty for the other modes)."""
+    return f" (one launch alone {r['ms_one_launch']:.4f} ms)" if "ms_one_launch" in r else ""
+
+
+def layer_forward_host(what: str, counts: dict, steps: int, ms_step: float) -> dict:
+    """The host's time in ``Products.layer_fwd`` over a run of ``steps``
+    steps (``layer_forward_counts``; the run's test renders' forwards in):
+    ms per call, ms per step and its share of the untraced ms/step."""
+    lf = counts["layer_forward"]
+    calls = lf["narrow"] + lf["wide"]
+    per_step = 1000.0 * lf["host_s"] / steps
+    out = {"calls_per_step": calls / steps, "ms_per_call": 1000.0 * lf["host_s"] / calls,
+           "ms_per_step": per_step, "share_of_step": per_step / ms_step}
+    log(f"{what}: the host in Products.layer_fwd {out['ms_per_call']:.4f} ms per call, "
+        f"{out['calls_per_step']:.2f} calls and {per_step:.3f} ms per step, "
+        f"{out['share_of_step']:.3f} of the {ms_step:.2f} ms step")
     return out
 
 
@@ -4799,8 +4934,7 @@ def tp_route_counts(what: str, needed) -> dict:
     if any(fused.values()) or dm.ROUTE_LAUNCHES["fwd"] < 1:
         fail(f"{what}: the fused route launched {fused}, the layer forward "
              f"{dict(dm.ROUTE_LAUNCHES)}")
-    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
-    return counts
+    return layer_forward_counts(what, counts)
 
 
 def phase_tp_run(torch, card: str) -> dict:
@@ -4844,6 +4978,7 @@ def phase_tp_run(torch, card: str) -> dict:
         f"{counts['routes']['products']}, plain calls {counts['plain_calls']} | card: {card}")
     if not last - first >= PSNR_GAIN_MIN:
         fail("[24b] the 1024-wide run's train PSNR did not rise")
+    host = layer_forward_host("[24b] 1024-wide NeDDF run", counts, trainer.iteration, ms_step)
     prof = profile_train(torch, trainer, card, "profile_train_neddf_1024.txt",
                          f"{trainer.batch_size} rays, bf16, width {TP_WIDTH}", "24b")
     del trainer
@@ -4867,6 +5002,7 @@ def phase_tp_run(torch, card: str) -> dict:
     del ev
     torch.cuda.empty_cache()
     out.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
+                "layer_forward_host": host,
                 "routes": counts["routes"], "plain_calls": counts["plain_calls"],
                 "wall_s": wall, "ms_per_step": ms_step,
                 "rays_per_s": 512 / mean(steady), "busy_share": prof["busy_share"],
@@ -5190,8 +5326,7 @@ def tpf_route_counts(what: str, needed) -> dict:
     if any(fused.values()) or any(tile.values()) or dm.ROUTE_LAUNCHES["fwd_value"] < 1:
         fail(f"{what}: the fused route launched {fused}, tile forwards {tile}, the layer "
              f"forward {dict(dm.ROUTE_LAUNCHES)}")
-    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
-    return counts
+    return layer_forward_counts(what, counts)
 
 
 def tpf_cases(torch, dev, dtype_name: str) -> dict:
@@ -5239,11 +5374,13 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
         torch.cuda.synchronize()
         err = max(hold(name, a, c) for a, c in zip(got, want))
         pair = time_pair(torch, lambda: k.layer_fwd(xs, w, b, act, True),
-                         lambda: kp.layer_fwd(xs, w, b, act, True))
+                         lambda: kp.layer_fwd(xs, w, b, act, True), inner=3)
+        ms_one = time_one(torch, lambda: k.layer_fwd(xs, w, b, act, True), inner=1)
         x2d, bt = torch.cat(xs, dim=-1).view(m, sum(ks)), b.to(dtype)
         library_ms = time_one(torch, lambda: torch.addmm(bt, x2d, w), inner=3)
         record(name, err, pair, library_ms,
                _route_bound(*_route_fwd_work(1, m, ks, n_out, dtype_name, True), dtype_name))
+        out[name]["ms_one_launch"] = ms_one
         del xs, w, got, want, x2d
     torch.cuda.empty_cache()
 
@@ -5370,17 +5507,20 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
 
 
 def phase_tp_family_kernels(torch, card: str) -> dict:
-    """Phase 25a: ``tpf_cases`` in f32 and bf16."""
+    """Phase 25a: ``tpf_cases`` in f32 and bf16, and the layer forward's
+    grid at S = 1."""
     dev = torch.device("cuda", 0)
     start = time.perf_counter()
     out = {}
     for dtype_name in ("float32", "bfloat16"):
+        out[f"grid/{dtype_name}"] = grid = layer_fwd_grid(torch, dev, dtype_name, (1,), "25a")
+        log_layer_grid("25a", dtype_name, grid, (1,), card)
         cases = tpf_cases(torch, dev, dtype_name)
         for name, r in cases.items():
             lib = r["library_ms"]
             log(f"[25a] {name} {dtype_name} (width {TPF_WIDTH}): max abs err "
-                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"torch.addmm {lib if lib is None else round(lib, 4)} ms, bound "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms{one_launch(r)}, plain "
+                f"{r['plain_ms']:.4f} ms, torch.addmm {lib if lib is None else round(lib, 4)} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | card: {card}")
         out[dtype_name] = cases
     out["wall_s"] = time.perf_counter() - start
@@ -5437,6 +5577,7 @@ def phase_tp_family_run(torch, card: str) -> dict:
             f"{counts['plain_calls']} | card: {card}")
         if not last - first >= spec["gain_min"]:
             fail(f"[25b] the {name} run's train PSNR did not rise")
+        host = layer_forward_host(f"[25b] {name} run", counts, trainer.iteration, ms_step)
         prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
                              f"{spec['rays']} rays, {dtype}, width {TPF_WIDTH}", "25b")
         del trainer
@@ -5462,6 +5603,7 @@ def phase_tp_family_run(torch, card: str) -> dict:
         del ev
         torch.cuda.empty_cache()
         res.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
+                    "layer_forward_host": host,
                     "routes": counts["routes"], "plain_calls": counts["plain_calls"],
                     "wall_s": wall, "ms_per_step": ms_step,
                     "rays_per_s": spec["rays"] / mean(steady), "busy_share": prof["busy_share"],
@@ -5651,19 +5793,20 @@ def tpf_kernel_entries(tpf: dict) -> list:
         return sum(fn(r) for r in runs.values())
 
     src = "neddf_tpu_torch/csrc/dual_mlp_bwd.cu"
+    fwd_src = "neddf_tpu_torch/csrc/layer_fwd.cu"
     rows = (
-        ("neddf_layer_fwd (value-only route, NeRF trunk post-skip [h 1024 | 60] -> 1024)",
-         "fwd_hidden_first/nerf", "bfloat16", src, "neddf_tpu/kernels/mlp.py:192",
-         runs["nerf_1024"]["layer_forward"]["fwd_value"],
-         per_rank["nerf"]["layer_forward"]["fwd_value"]),
-        ("neddf_layer_fwd (value-only route, NeuS sdf trunk [h 1024 | 36] -> 1024, 3xTF32)",
-         "fwd_hidden_first/neus", "float32", src, "neddf_tpu/kernels/sdf_mlp.py:257",
-         runs["neus_1024"]["layer_forward"]["fwd_value"],
-         per_rank["neus"]["layer_forward"]["fwd_value"]),
-        ("neddf_layer_fwd (NeuS colour's whole last layer 1024 -> 3)", "fwd_narrow/neus",
-         "float32", src, "neddf_tpu/kernels/mlp.py:192",
-         runs["neus_1024"]["layer_forward"]["fwd_value"],
-         per_rank["neus"]["layer_forward"]["fwd_value"]),
+        ("layer_fwd_wide (value-only route, NeRF trunk post-skip [h 1024 | 60] -> 1024)",
+         "fwd_hidden_first/nerf", "bfloat16", fwd_src, "neddf_tpu/kernels/mlp.py:192",
+         runs["nerf_1024"]["layer_forward"]["wide"],
+         per_rank["nerf"]["layer_forward"]["wide"]),
+        ("layer_fwd_wide (value-only route, NeuS sdf trunk [h 1024 | 36] -> 1024, 3xTF32)",
+         "fwd_hidden_first/neus", "float32", fwd_src, "neddf_tpu/kernels/sdf_mlp.py:257",
+         runs["neus_1024"]["layer_forward"]["wide"],
+         per_rank["neus"]["layer_forward"]["wide"]),
+        ("layer_fwd_narrow (NeuS colour's whole last layer 1024 -> 3)", "fwd_narrow/neus",
+         "float32", fwd_src, "neddf_tpu/kernels/mlp.py:192",
+         runs["neus_1024"]["layer_forward"]["narrow"],
+         per_rank["neus"]["layer_forward"]["narrow"]),
         ("gpre_kernel (the f32 cotangent after the reduce-scatter, every layer of the route's "
          "backwards and the sweep's steps)", "gpre_f32/nerf", "bfloat16",
          "neddf_tpu_torch/csrc/mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:248",
@@ -5673,7 +5816,7 @@ def tpf_kernel_entries(tpf: dict) -> list:
          "neddf_tpu_torch/csrc/sdf_mlp.cu", "neddf_tpu/kernels/sdf_mlp.py:257",
          runs["neus_1024"]["routes"]["passes"]["sdf_top"], per_rank["neus"]["passes"]["sdf_top"]),
         ("MLPLayers forward walk (NeRF trunk, 8 x 1024, hidden-first skip)", "mlp_walk_fwd",
-         "bfloat16", src, "neddf_tpu/kernels/mlp.py:192",
+         "bfloat16", fwd_src, "neddf_tpu/kernels/mlp.py:192",
          runs["nerf_1024"]["launches"]["mlp_seg_layers"],
          per_rank["nerf"]["launches"]["mlp_seg_layers"]),
         ("MLPLayers backward walk (gpre, tn and nt products per layer)", "mlp_walk_bwd",
@@ -5763,8 +5906,7 @@ def deep_route_counts(what: str, needed, route: str, backward: bool = True) -> d
         fail(f"{what}: the fused route launched {fused}, tile forwards "
              f"{routes['tile_forward']}, the layer forward {dict(dm.ROUTE_LAUNCHES)}, "
              f"products {routes['products']} (expected {route} only)")
-    counts["layer_forward"] = dict(dm.ROUTE_LAUNCHES)
-    return counts
+    return layer_forward_counts(what, counts)
 
 
 def phase_epilogue_wide(torch, card: str) -> dict:
@@ -5852,11 +5994,13 @@ def phase_deep(torch, card: str) -> dict:
             f"{json.dumps(per_step)}, plain calls {counts['plain_calls']} | card: {card}")
         if not last < first:
             fail(f"[26b] the {name} run's loss did not fall")
+        host = layer_forward_host(f"[26b] {name} run", counts, steps, ms_step)
         prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
                              f"{trainer.batch_size} rays, {name}", "26b")
         del trainer
         torch.cuda.empty_cache()
         res.update({"launches": counts["launches"], "per_step": per_step,
+                    "layer_forward_host": host,
                     "plain_calls": counts["plain_calls"], "wall_s": wall,
                     "ms_per_step": ms_step, "busy_share": prof["busy_share"],
                     "device_ms_per_step": prof["device_ms_per_step"],
@@ -6520,19 +6664,20 @@ def main() -> int:
     tp_run, tp_rank0 = tp["run"], tp["ranks"]["ranks"][0]
     tp_step = tp_rank0[f"{TP_WIDTH}/bfloat16"]
     for name, key, source, replaces, launches, per_rank in (
-            ("neddf_layer_fwd (per-layer route, K=3 trunk layer, 1024 -> 1024)", "fwd_trunk",
-             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/dual_mlp.py:635",
-             tp_run["layer_forward"]["fwd"], tp_step["layer_forward"]["fwd"]),
-            ("neddf_layer_fwd (per-layer route, K=1 colour layer 0, [87 | 1024] -> 1024)",
-             "fwd_color", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
-             "neddf_tpu/kernels/dual_mlp.py:635", tp_run["layer_forward"]["fwd"],
-             tp_step["layer_forward"]["fwd"]),
-            ("neddf_layer_fwd (value-only per-layer route, eval colour layer 0)", "fwd_value",
-             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:192",
-             tp_run["eval_layer_forward"]["fwd_value"],
-             tp_rank0["eval_layer_forward"]["fwd_value"]),
+            ("layer_fwd_wide (per-layer route, K=3 trunk layer, 1024 -> 1024; wgmma + TMA)",
+             "fwd_trunk", "neddf_tpu_torch/csrc/layer_fwd.cu",
+             "neddf_tpu/kernels/dual_mlp.py:635", tp_run["layer_forward"]["s4"],
+             tp_step["layer_forward"]["s4"]),
+            ("layer_fwd_wide (per-layer route, K=1 colour layer 0, [87 | 1024] -> 1024)",
+             "fwd_color", "neddf_tpu_torch/csrc/layer_fwd.cu",
+             "neddf_tpu/kernels/dual_mlp.py:635", tp_run["layer_forward"]["s2"],
+             tp_step["layer_forward"]["s2"]),
+            ("layer_fwd_wide (value-only per-layer route, eval colour layer 0)", "fwd_value",
+             "neddf_tpu_torch/csrc/layer_fwd.cu", "neddf_tpu/kernels/mlp.py:192",
+             tp_run["eval_layer_forward"]["s1"],
+             tp_rank0["eval_layer_forward"]["s1"]),
             ("dual_mlp_layers forward walk (K=3 trunk, 7 layers at 1024)", "walk_fwd",
-             "neddf_tpu_torch/csrc/dual_mlp_bwd.cu", "neddf_tpu/kernels/dual_mlp.py:635",
+             "neddf_tpu_torch/csrc/layer_fwd.cu", "neddf_tpu/kernels/dual_mlp.py:635",
              tp_run["launches"]["dual_mlp_layers"], tp_step["launches"]["dual_mlp_layers"]),
             ("dual_mlp_layers backward walk (K=3 trunk: gstack, tn and nt products per layer)",
              "walk_bwd", "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",

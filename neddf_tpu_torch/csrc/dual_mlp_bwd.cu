@@ -371,8 +371,6 @@ constexpr int kEpiAct = 2;   // nt / nn, one split: the elementwise epilogue bel
 constexpr int kProDual = 3;  // tn: A is the dual layer input of the stash (tc_dual_tile)
 constexpr int kEpiDual = 4;  // nt, one split: the stacked cotangent (tc_epilogue_dual)
 // (with the template argument SL: 2^SL streams)
-// the per-layer forward's, over rows grouped by point (SL = 0: one stream):
-constexpr int kEpiFwd = 5;  // nn, one split: z = acc + b, f(z_v), f'(z_v) z_a (tc_epilogue_fwd)
 
 // the epilogue's side planes; columns [0, n_act) take the activation's
 // epilogue, [n_act, N) leave raw (f32) to `raw` [M, N - n_act]. mode
@@ -393,7 +391,6 @@ struct TcEpi {
   float* db;           // [ceil(M / kTcBM), n_act] or null
   int n_act;
   int mode;
-  T* z_out;            // kEpiFwd: the stash [S, M, N] or null
 };
 
 // the epilogue of a finished 128 x 128 tile (kEpiAct), once the kernel has
@@ -593,61 +590,6 @@ __device__ __noinline__ void tc_epilogue_dual(int M, int N, const TcEpi<T>& epi)
   }
 }
 
-// the per-layer forward's epilogue of a finished 128 x 128 tile whose rows
-// are grouped by point (kEpiFwd: tile row a * P + r is point p0 + r of
-// stream a, P = 128 / S; S = 1 is the value-only MLP), once the kernel has
-// put its accumulators in shared memory (a call of its own, as
-// tc_epilogue). With acc the product x W[:, cols] and b = epi.side the
-// layer's f32 bias:
-//     z_v = acc_v + b,   z_a = acc_a,   out_v = f(z_v),   out_a = f'(z_v) z_a,
-// rounded to T into out [S, M, N], and z rounded to T into the stash
-// epi.z_out [S, M, N] where it is given. Each thread takes 4 columns of a
-// point per pass (element by element where N is not a multiple of 4).
-// FULL: N % 4 == 0, as in tc_epilogue
-template <typename T, int ACT, int SL, bool FULL>
-__device__ __noinline__ void tc_epilogue_fwd(int M, int N, const TcEpi<T>& epi) {
-  const float* __restrict__ bias = epi.side;
-  T* __restrict__ out = epi.out;
-  T* __restrict__ zs = epi.z_out;
-  constexpr int kOP = kTcBN + 4;  // padded row of the staged f32 tile
-  constexpr int kWarps = kTcThreads / 32;
-  constexpr int S = 1 << SL, P = kTcBM >> SL;
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.y * P, n0 = blockIdx.x * kTcBN;
-  const size_t plane = (size_t)M * N;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  const float* so = reinterpret_cast<const float*>(tc_smem);
-  const int c = (tid & 31) * 4;  // this thread's 4 columns of the tile
-  const int gc = n0 + c;
-  if (gc >= N) return;
-  const int n_in = FULL ? 4 : min(4, N - gc);
-  float b[4];
-  load_n<4>(bias + gc, FULL, n_in, b);
-#pragma unroll 1
-  for (int r = tid >> 5; r < P; r += kWarps) {
-    const int pt = p0 + r;
-    if (pt >= M) break;
-    const size_t i = (size_t)pt * N + gc;
-    const float4 g4 = *reinterpret_cast<const float4*>(so + r * kOP + c);
-    float z[4] = {g4.x + b[0], g4.y + b[1], g4.z + b[2], g4.w + b[3]};
-    float v[4], d1[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) neddf::act_fn<ACT>(z[j], v[j], d1[j]);
-    store_n<4>(out + i, FULL, n_in, v);
-    if (zs != nullptr) store_n<4>(zs + i, FULL, n_in, z);
-#pragma unroll
-    for (int a = 1; a < S; ++a) {
-      const float4 t4 = *reinterpret_cast<const float4*>(so + (a * P + r) * kOP + c);
-      const float za[4] = {t4.x, t4.y, t4.z, t4.w};
-      float ta[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ta[j] = d1[j] * za[j];
-      store_n<4>(out + a * plane + i, FULL, n_in, ta);
-      if (zs != nullptr) store_n<4>(zs + a * plane + i, FULL, n_in, za);
-    }
-  }
-}
-
 // out[z][m][n] = sum over k in split z of A(m, k) B(k, n) (f32). A_K: A is
 // [M, K] with K contiguous (else [K, M], M contiguous); B_K: B is [N, K]
 // with K contiguous (else [K, N], N contiguous). With A_K, A may come in
@@ -670,20 +612,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   constexpr int BK = Sh::BK, PK = Sh::PK, PMN = Sh::PMN, OP = Sh::OP;
   constexpr bool kF32 = std::is_same_v<T, float>;
   // A in two K segments: the nn epilogue of the sweep adjoint (a stage
-  // that straddles k_split by element loads); the per-layer forward's
-  // [seg0, h], [narrow segments, features] and NeRF's / NeuS's
-  // hidden-first [h, embed] start A2 at the first stage boundary past
-  // k_split instead (kPadSplit: its stages stay aligned for vector copies
-  // whichever segment is the narrow one; K counts the padded reduction)
+  // that straddles k_split by element loads)
   constexpr bool kTwoK = EPI == kEpiAct && A_K && !B_K;
-  constexpr bool kPadSplit = EPI == kEpiFwd;
-  constexpr bool kEpi = EPI == kEpiAct || EPI == kEpiDual || EPI == kEpiFwd;
-  // rows grouped by point: the output rows (nt; nn of the forward) or the
-  // reduction (tn)
-  constexpr bool kGroupM = EPI == kEpiDual || EPI == kEpiFwd;
+  constexpr bool kEpi = EPI == kEpiAct || EPI == kEpiDual;
+  // rows grouped by point: the output rows (nt) or the reduction (tn)
+  constexpr bool kGroupM = EPI == kEpiDual;
   constexpr bool kGroupK = EPI == kProDual;
-  static_assert(EPI == kEpiFwd || (kGroupM || kGroupK) == (SL > 0),
-                "streams only for the dual products");
+  static_assert((kGroupM || kGroupK) == (SL > 0), "streams only for the dual products");
   // the f32 nt product with an epilogue and the f32 tn product with the
   // dual prologue keep their mma depths in a loop (unrolled, ptxas spilled
   // 4 and 20 bytes of them at 128 registers)
@@ -705,25 +640,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int ke = min(K, kb + k_chunk);
   const int nk = ke > kb ? (ke - kb + kstep - 1) / kstep : 0;
 
-  // kPadSplit: the reduction index of A2's first column (k_split rounded up
-  // to a stage); past k_split and before it, A's stage and the weight rows
-  // are zero-filled
-  const int k_pad = kPadSplit ? (k_split + BK - 1) / BK * BK : k_split;
   auto load = [&](int t) {
     const int k0 = kb + t * kstep;
     T* a = sA + (t % kTcStages) * OP;
     T* b = sB + (t % kTcStages) * OP;
-    if constexpr (kPadSplit) {
-      if (k0 < k_pad) {
-        tc_load_tile<T, kTcBM, BK, PK, SL>(a, A, m0, M, k0, k_split, tid);
-        tc_load_tile<T, BK, kTcBN, PMN>(b, B, k0, k_split, n0, N, tid);
-      } else {
-        tc_load_tile<T, kTcBM, BK, PK, SL>(a, A2, m0, M, k0 - k_pad, ke - k_pad, tid);
-        tc_load_tile<T, BK, kTcBN, PMN>(b, B, k0 - k_pad + k_split, k_split + ke - k_pad, n0,
-                                        N, tid);
-      }
-      return;
-    }
     if constexpr (kTwoK) {
       if (k0 >= k_split) {
         tc_load_tile<T, kTcBM, BK, PK>(a, A2, m0, M, k0 - k_split, ke - k_split, tid);
@@ -740,8 +660,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     if constexpr (B_K) {
       tc_load_tile<T, kTcBN, BK, PK>(b, B, n0, N, k0, ke, tid);
     } else {
-      // grouped by point along K in the dual prologue's tn only (the forward's
-      // B is the weight)
+      // grouped by point along K in the dual prologue's tn only
       tc_load_tile<T, BK, kTcBN, PMN, kGroupK ? SL : 0>(b, B, k0, ke, n0, N, tid);
     }
   };
@@ -889,10 +808,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           *reinterpret_cast<float2*>(so + (mi * 16 + 8 * hh) * kOP + ni * 8) =
               make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
     __syncthreads();
-    if constexpr (EPI == kEpiFwd) {
-      if ((N & 3) == 0) tc_epilogue_fwd<T, ACT, SL, true>(M, N, epi);
-      else tc_epilogue_fwd<T, ACT, SL, false>(M, N, epi);
-    } else if constexpr (kGroupM) {
+    if constexpr (kGroupM) {
       if ((N & 3) == 0) tc_epilogue_dual<T, ACT, SL, true>(M, N, epi);
       else tc_epilogue_dual<T, ACT, SL, false>(M, N, epi);
     } else {
@@ -1067,54 +983,6 @@ cudaError_t gemm_tc(int layout, int act, int streams, int M, int N, int K, const
   return cudaErrorInvalidValue;
 }
 
-// the per-layer forward (EPI kEpiFwd): out = the layer's activated streams
-// of x [S, M, K] (S = streams, 1, 2 or 4; in one or two K segments: columns
-// k >= k_split from A2 [S, M, K - k_split]) times the weight columns B [K,
-// N] (row stride ldb, N contiguous), the bias b [N] added to the value
-// stream; one split (the whole sum of a tile in one block), the stash
-// written where `stash` is not null
-template <typename T>
-cudaError_t layer_fwd(int act, int streams, int M, int N, int K, const void* A, long long lda,
-                      int vec_a, const void* A2, long long lda2, int vec_a2, int k_split,
-                      const void* B, long long ldb, int vec_b, const float* bias, T* out,
-                      T* stash, cudaStream_t s) {
-  constexpr int E = (int)sizeof(T);
-  constexpr int BK = TcShape<T>::BK;
-  auto misaligned = [](const void* ptr, long long ld, int vec) {
-    return ptr == nullptr || (vec != 1 && vec != 2 && vec != 4 && vec * E != 16) || ld < 1 ||
-           ld % vec != 0 || reinterpret_cast<uintptr_t>(ptr) % (E * vec) != 0;
-  };
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int sl = streams == 1 ? 0 : streams == 2 ? 1 : streams == 4 ? 2 : -1;
-  if (sl < 0 || misaligned(A, lda, vec_a) || misaligned(B, ldb, vec_b) || bias == nullptr ||
-      !aligned(out) || !aligned(stash) || (A2 != nullptr && (misaligned(A2, lda2, vec_a2) ||
-                                                            k_split <= 0 || k_split >= K)))
-    return cudaErrorInvalidValue;
-  // A2 starts at the first stage boundary past k_split (the kernel's
-  // kPadSplit): the reduction counts the padding between
-  if (A2 == nullptr) k_split = K;
-  const int k_total = (k_split + BK - 1) / BK * BK + (K - k_split);
-  const int k_chunk = (k_total + BK - 1) / BK * BK;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + (kTcBM >> sl) - 1) / (kTcBM >> sl), 1);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  const TcOperand<T> a{static_cast<const T*>(A), lda, (long long)M * lda, vec_a};
-  const TcOperand<T> a2{static_cast<const T*>(A2), lda2, (long long)M * lda2, vec_a2};
-  const TcOperand<T> b{static_cast<const T*>(B), ldb, 0, vec_b};
-  TcEpi<T> epi{};
-  epi.side = bias;
-  epi.out = out;
-  epi.z_out = stash;
-  epi.n_act = N;
-  if (sl == 0)
-    return launch_by_act<T, true, false, kEpiFwd, 0>(act, grid, s, M, N, k_total, k_chunk, a,
-                                                     a2, k_split, b, nullptr, epi);
-  if (sl == 1)
-    return launch_by_act<T, true, false, kEpiFwd, 1>(act, grid, s, M, N, k_total, k_chunk, a,
-                                                     a2, k_split, b, nullptr, epi);
-  return launch_by_act<T, true, false, kEpiFwd, 2>(act, grid, s, M, N, k_total, k_chunk, a, a2,
-                                                   k_split, b, nullptr, epi);
-}
-
 __global__ void sum_splits_kernel(long long n, int splits,
                                   const float* __restrict__ parts,
                                   float* __restrict__ out) {
@@ -1170,36 +1038,14 @@ extern "C" int neddf_gemm_tc_f32(int layout, int act, int mode, int streams, int
                                   const void* z, const void* side, int n_act, void* out_t,
                                   void* out2, void* raw, void* db, void* stream);
 
-extern "C" int neddf_layer_fwd_bf16(int act, int streams, int M, int N, int K, const void* A,
-                                    long long lda, int vec_a, const void* A2, long long lda2,
-                                    int vec_a2, int k_split, const void* B, long long ldb,
-                                    int vec_b, const void* bias, void* out, void* stash,
-                                    void* stream);
-extern "C" int neddf_layer_fwd_f32(int act, int streams, int M, int N, int K, const void* A,
-                                   long long lda, int vec_a, const void* A2, long long lda2,
-                                   int vec_a2, int k_split, const void* B, long long ldb,
-                                   int vec_b, const void* bias, void* out, void* stash,
-                                   void* stream);
-
 #if defined(NEDDF_GEMM_BF16) || defined(NEDDF_GEMM_F32)
 #ifdef NEDDF_GEMM_BF16
 using GemmT = bf16;
 #define NEDDF_GEMM_FN neddf_gemm_tc_bf16
-#define NEDDF_FWD_FN neddf_layer_fwd_bf16
 #else
 using GemmT = float;
 #define NEDDF_GEMM_FN neddf_gemm_tc_f32
-#define NEDDF_FWD_FN neddf_layer_fwd_f32
 #endif
-extern "C" int NEDDF_FWD_FN(int act, int streams, int M, int N, int K, const void* A,
-                            long long lda, int vec_a, const void* A2, long long lda2, int vec_a2,
-                            int k_split, const void* B, long long ldb, int vec_b,
-                            const void* bias, void* out, void* stash, void* stream) {
-  return (int)layer_fwd<GemmT>(act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split,
-                               B, ldb, vec_b, static_cast<const float*>(bias),
-                               static_cast<GemmT*>(out), static_cast<GemmT*>(stash),
-                               static_cast<cudaStream_t>(stream));
-}
 extern "C" int NEDDF_GEMM_FN(int layout, int act, int mode, int streams, int M, int N, int K,
                                   const void* A, long long lda, int vec_a, const void* A2,
                                   long long lda2, int vec_a2, int k_split, const void* B,
@@ -1248,28 +1094,6 @@ extern "C" int neddf_dual_bwd_gstack(int dtype, int g_f32, int act, int n_tan, i
           dbp);
     return cudaGetLastError();
   });
-}
-
-// The per-layer forward (the route of kernels/dual_mlp.py's layer walk for
-// a width shard or a width over the tile forward's 512; kernels/mlp.py's
-// value-only one): one layer's column block on the tensor cores, dtype 1
-// bf16 or 0 f32 operands, act the activation code (as neddf_gemm_tc's).
-// x is S = streams (1, 2 or 4) planes [S, M, K], plane-major, in one
-// segment A (row stride lda) or two, A [S, M, k_split] and A2 [S, M, K -
-// k_split] (lda2); B [K, N] the weight columns (row stride ldb, N
-// contiguous), bias [N] f32; vec_*: elements per copy, as neddf_gemm_tc's.
-// Writes out [S, M, N] = (f(z_v), f'(z_v) z_a) with z_v = x_v B + bias and
-// z_a = x_a B, rounded to the operand type, and the stash z [S, M, N]
-// (rounded) where stash is not null; out and stash 16-byte aligned.
-extern "C" int neddf_layer_fwd(int dtype, int act, int streams, int M, int N, int K,
-                               const void* A, long long lda, int vec_a, const void* A2,
-                               long long lda2, int vec_a2, int k_split, const void* B,
-                               long long ldb, int vec_b, const void* bias, void* out,
-                               void* stash, void* stream) {
-  if (dtype < 0 || dtype > 1 || M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  auto fn = dtype == 1 ? neddf_layer_fwd_bf16 : neddf_layer_fwd_f32;
-  return fn(act, streams, M, N, K, A, lda, vec_a, A2, lda2, vec_a2, k_split, B, ldb, vec_b, bias,
-            out, stash, stream);
 }
 
 // The products on the tensor cores, out[z] = A B over split z of K (f32

@@ -35,9 +35,12 @@ forward's 512, deeper than it holds: ``fields/base.py::per_layer_route``)
 take the same route with one shard. At ``model = 1`` and trunks the
 fused kernels take, the fused kernels stay.
 
-``normals`` ``auto``, ``sweep`` and ``reverse`` all take the sweep: it is
-the reverse-mode gradient written out, equal to it in exact arithmetic;
-``dual`` (forward mode, measured slower on the TPU) is not ported.
+``normals`` ``auto``, ``sweep``, ``reverse`` and ``dual`` all take the
+sweep: it is the reverse-mode gradient written out, equal in exact
+arithmetic to the JAX package's jax.grad (``reverse``) and to its
+forward-mode tangents through the dual trunk kernel (``dual``,
+``_trunk_dual:193``, measured slower on the TPU), so every mode gives the
+same normals here.
 NeuS has no warmups: ``schedule`` returns the JAX package's defaults.
 """
 from __future__ import annotations
@@ -98,9 +101,7 @@ class NeuS(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if normals == "dual":
-            raise NotImplementedError("NeuS normals='dual' (forward mode) is not ported")
-        if normals not in ("auto", "sweep", "reverse"):
+        if normals not in ("auto", "sweep", "reverse", "dual"):
             raise ValueError(f"unknown normals mode {normals!r}")
         self.embed_pos_rank = embed_pos_rank
         self.embed_dir_rank = embed_dir_rank

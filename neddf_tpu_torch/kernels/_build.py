@@ -6,8 +6,9 @@ library with a plain C interface, loaded with ``ctypes``. A source listed
 in ``VARIANTS`` is compiled once per set of macro definitions there, each
 its own process and object: ``tile_fwd.cu`` per operand type and width
 class of the row-tile forward, ``dual_mlp_bwd.cu`` per operand type of
-the products and ``neddf_epilogue.cu`` per operand type of the epilogue
-backward, so that their instantiations build side by side. The build
+the products, ``neddf_epilogue.cu`` per operand type of the epilogue
+backward and ``layer_fwd.cu`` per operand type of the per-layer route's
+layer forward, so that their instantiations build side by side. The build
 happens at first use, never at import, into
 ``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
 ``<hash>`` covers the sources and the flags: an edit to any
@@ -27,6 +28,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -46,6 +48,7 @@ VARIANTS = {
                     for f32 in (0, 1) for c in (64, 128, 256, 512)],
     "dual_mlp_bwd.cu": [(), ("NEDDF_GEMM_BF16",), ("NEDDF_GEMM_F32",)],
     "neddf_epilogue.cu": [(), ("NEDDF_EPI_BF16",), ("NEDDF_EPI_F32",)],
+    "layer_fwd.cu": [(), ("NEDDF_FWD_BF16",), ("NEDDF_FWD_F32",)],
 }
 
 
@@ -97,10 +100,15 @@ def build() -> Path:
                str(out_dir / f"{stem}.{os.getpid()}.o"), str(src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
-    log, failed = "", 0
-    for cmd, proc in jobs:
+    def wait(proc):  # its output, and when it ended
         out, _ = proc.communicate()
-        log += f"$ {' '.join(cmd)}\n{out}[exit {proc.returncode}]\n"
+        return out, time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        ends = list(pool.map(wait, [proc for _, proc in jobs]))
+    log, failed = "", 0
+    for (cmd, proc), (out, end) in zip(jobs, ends):
+        log += f"$ {' '.join(cmd)}\n{out}[exit {proc.returncode} at {end:.1f} s]\n"
         failed = failed or proc.returncode
     if not failed:
         tmp = out_dir / f"{_LIB_NAME}.{tag}"
@@ -151,10 +159,6 @@ def library() -> ctypes.CDLL:
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
             _VOIDP,
         ],
-        "neddf_layer_fwd": [
-            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _INT,
-            _VOIDP, _LL, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-        ],
         "neddf_gemm_tc": [
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT,
             _INT, _VOIDP, _LL, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP, _VOIDP,
@@ -162,6 +166,11 @@ def library() -> ctypes.CDLL:
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         "neddf_sum_rows": [_INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
+        # csrc/layer_fwd.cu
+        "neddf_layer_fwd": [
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP, _INT, _INT, _INT, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
+        ],
         # csrc/neddf_epilogue.cu
         "neddf_epilogue_fwd": [
             _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

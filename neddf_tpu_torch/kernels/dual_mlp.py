@@ -23,11 +23,12 @@ values and ``f'(z_v) * z_t`` for the tangents.
   function one layer at a time, for a column shard of each layer under
   tensor parallelism and for the configurations the fused kernels refuse
   (widths over the tile forward's 512, more layers than they hold), at
-  any width and depth. Each layer is one product on the tensor cores
-  with the activation as its epilogue (``Products.layer_fwd``,
-  ``csrc/dual_mlp_bwd.cu::neddf_layer_fwd``: the streams grouped by point
-  in a row tile, layer 0's segments and a post-skip layer's input as two
-  K segments: ``[seg0, h]`` for NeDDF, ``[h, seg0]`` hidden first for the
+  any width and depth. Each layer is one launch with the activation as
+  its epilogue (``Products.layer_fwd``, ``csrc/layer_fwd.cu``: a
+  bytes-bound kernel for outputs up to 32 wide, else wgmma fed by TMA,
+  the streams grouped by point in a row tile; ``layer_fwd_plan``), layer
+  0's segments and a post-skip layer's input as two K segments:
+  ``[seg0, h]`` for NeDDF, ``[h, seg0]`` hidden first for the
   value-only walks of NeRF and NeuS), its output gathered over the model
   group before the next layer reads it (``parallel/tp.py``; a narrow
   last layer may be whole on every rank: NeuS's colour output); the
@@ -49,6 +50,7 @@ sums in f32.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -64,8 +66,8 @@ _SEG_N_TAN = (1, 3)
 # the widest layer the kernels take: csrc/mlp_tile.cuh instantiates the
 # width classes 64, 128, 256 and 512, a width runs on the next class up
 KERNEL_MAX_WIDTH = 512
-# stream counts S = K+1 of the per-layer forward (csrc/dual_mlp_bwd.cu
-# neddf_layer_fwd): the K=3 and K=1 dual trunks and the value-only MLP
+# stream counts S = K+1 of the per-layer forward (csrc/layer_fwd.cu): the
+# K=3 and K=1 dual trunks and the value-only MLP
 _ROUTE_STREAMS = (1, 2, 4)
 _KERNEL_MAX_LAYERS = 8
 _KERNEL_MAX_SEGMENTS = 4
@@ -572,11 +574,78 @@ _MODE_DACT, _MODE_ADJOINT = 1, 2
 _EPI_ROWS = 128
 _SUM_GROUP_ROWS = 64
 
-# launches of the per-layer route's forward (csrc/dual_mlp_bwd.cu
-# neddf_layer_fwd), one per layer of a rank's column shard: "fwd" the dual
-# trunks' (K = 1, 3), "fwd_value" the value-only MLP's (kernels/mlp.py);
-# the backward counts in PASS_LAUNCHES["gstack"] and the products' counters
+# launches of the per-layer route's forward (csrc/layer_fwd.cu), one per
+# layer of a rank's column shard: "fwd" the dual trunks' (K = 1, 3),
+# "fwd_value" the value-only MLP's (kernels/mlp.py); the backward counts in
+# PASS_LAUNCHES["gstack"] and the products' counters
 ROUTE_LAUNCHES = {"fwd": 0, "fwd_value": 0}
+# the same launches by kernel: "narrow" layer_fwd_narrow (N <= 32, the read
+# of x), "wide" layer_fwd_wide (wgmma + TMA, after its W^T pre-pass); and
+# the wide kernel's by stream count (S = 4 the K=3 trunks', 2 the K=1
+# colour trunk's, 1 the value-only walks')
+LAYER_FWD_LAUNCHES = {"narrow": 0, "wide": 0}
+LAYER_FWD_WIDE_STREAMS = {"s1": 0, "s2": 0, "s4": 0}
+# host seconds spent in Products.layer_fwd (checks, plan, padding copies,
+# W^T's buffer, the launch call), read beside the launch counts
+LAYER_FWD_HOST = {"s": 0.0}
+
+# the layer forward's launch plan (csrc/layer_fwd.cu holds the same
+# constants and works out the tensor maps and tiles): the narrow kernel
+# takes N <= 32 whose weight columns fit its shared memory, NB of them a
+# template class (4: NeuS's colour output; 32); the wide kernel's k-block
+# (128 bytes of operand) by operand bytes
+LAYER_FWD_NARROW_MAX_N = 32
+_NARROW_MAX_SMEM = 64 * 1024
+_NARROW_CLASSES = (4, 32)
+_WIDE_BK = {2: 64, 4: 32}
+
+
+def _padded(x: Tensor, width: int) -> Tensor:
+    """A fresh [S, M, width] copy of x [S, M, k] with zero columns past k:
+    a wide layer's segment as TMA takes it (16-byte rows and address)."""
+    out = x.new_zeros((*x.shape[:2], width))
+    out[..., : x.shape[2]] = x
+    return out
+
+
+def layer_fwd_plan(streams: int, m: int, n: int, ks: Sequence[int], itemsize: int,
+                   ptrs: Sequence[int] = ()) -> dict:
+    """How ``Products.layer_fwd`` launches one layer of ``streams`` planes
+    of ``m`` points, K segments of widths ``ks`` and ``n`` output columns,
+    operands of ``itemsize`` bytes (2 bf16, 4 f32); ``ptrs`` the byte
+    addresses of the operands (segments, weight, bias), which must be
+    aligned to their element size (ValueError).
+
+    ``narrow`` (n <= 32 and W's columns, NB = the next class up, in 64 KB
+    of shared memory, rows padded to 8 elements): ``nb``, ``smem`` bytes;
+    every other layer ``wide``: a segment whose rows are not whole 16-byte
+    vectors (or whose address is not 16-byte aligned) is copied first with
+    zero columns up to ``widths`` (``pad``), as TMA takes it; ``kp``, the K
+    of W^T [planes, n, kp] that the pre-pass writes (each segment's
+    k-blocks; f32: tf32 hi and lo planes), which the launcher checks.
+    Raises NotImplementedError for a stream count the kernels do not
+    take."""
+    if streams not in _ROUTE_STREAMS:
+        raise NotImplementedError(f"the layer forward: {streams} streams")
+    if itemsize not in _WIDE_BK:
+        raise ValueError(f"the layer forward: {itemsize}-byte operands")
+    if not 1 <= len(ks) <= 2 or min(ks) < 1 or m < 1 or n < 1:
+        raise ValueError(f"the layer forward: {m} points, segments {tuple(ks)}, {n} columns")
+    for ptr in ptrs:
+        if ptr % itemsize:
+            raise ValueError(f"the layer forward: pointer {ptr:#x} not {itemsize}-byte aligned")
+    if n <= LAYER_FWD_NARROW_MAX_N:
+        nb = next(c for c in _NARROW_CLASSES if n <= c)
+        smem = nb * sum(-(-k // 8) * 8 for k in ks) * itemsize
+        if smem <= _NARROW_MAX_SMEM:
+            return {"kernel": "narrow", "nb": nb, "smem": smem}
+    bk = _WIDE_BK[itemsize]
+    vec = 16 // itemsize
+    widths = [-(-k // vec) * vec for k in ks]
+    seg_ptrs = list(ptrs[: len(ks)]) or [0] * len(ks)
+    pad = [w != k or p % 16 != 0 for w, k, p in zip(widths, ks, seg_ptrs)]
+    return {"kernel": "wide", "widths": widths, "pad": pad,
+            "kp": sum(-(-w // bk) for w in widths) * bk, "planes": 2 if itemsize == 4 else 1}
 
 # launches of the elementwise kernels that the dual backward runs beside
 # its products: gstack, the top layer's stacked cotangent (one per call);
@@ -788,34 +857,66 @@ class Products:
 
     def layer_fwd(self, xs: Sequence[Tensor], w: Tensor, b: Tensor, act_name: str,
                   stash: bool):
-        """One layer of the per-layer route (``neddf_layer_fwd``): the
-        streams x [S, M, K] in one or two K segments ``xs`` (T, each a
-        contiguous [S, M, k_i]) times the weight columns w [K, N] (T, N
-        contiguous), the bias b [N] f32 on the value stream, activated:
-        returns (out [S, M, N], the stash z [S, M, N] or None), both T."""
+        """One layer of the per-layer route (``csrc/layer_fwd.cu``, the
+        kernel ``layer_fwd_plan`` picks): the streams x [S, M, K] in one or
+        two K segments ``xs`` (T, each a contiguous [S, M, k_i]) times the
+        weight columns w [K, N] (T, N contiguous), the bias b [N] f32 on
+        the value stream, activated: returns (out [S, M, N], the stash z
+        [S, M, N] or None), both T."""
+        t0 = time.perf_counter()
         s, m = xs[0].shape[:2]
         n = w.shape[1]
-        k_split = xs[0].shape[2]
         if len(xs) > 2 or sum(x.shape[2] for x in xs) != w.shape[0]:
             raise ValueError(f"layer forward: segments {[tuple(x.shape) for x in xs]}, "
                              f"weight {tuple(w.shape)}")
         for t in (*xs, w):
             if t.dtype != self.dtype or not t.is_contiguous():
                 raise ValueError("layer forward: operand dtype or layout")
+        if b.dtype != torch.float32 or not b.is_contiguous() or b.shape != (n,):
+            raise ValueError(f"layer forward: bias {b.dtype} {tuple(b.shape)}")
         out = self._empty((s, m, n), self.dtype)
         z = self._empty((s, m, n), self.dtype) if stash else None
         if m == 0:
             return out, z
-        a2 = xs[1] if len(xs) == 2 else None
-        vec = [_vec_width(x.data_ptr(), x.shape[2], x.element_size()) for x in xs]
+        ks = [x.shape[2] for x in xs]
+        plan = layer_fwd_plan(s, m, n, ks, w.element_size(),
+                              [t.data_ptr() for t in (*xs, w, b)])
+        wt, kp = [None, None], 0
+        if plan["kernel"] == "wide":
+            xs = [_padded(x, width) if pad else x
+                  for x, width, pad in zip(xs, plan["widths"], plan["pad"])]
+            kp = plan["kp"]
+            planes = self._empty((plan["planes"], n, kp), self.dtype)
+            wt = [p.data_ptr() for p in planes] + [None] * (2 - plan["planes"])
+        x1 = xs[1] if len(xs) == 2 else None
         _build.check(self.lib.neddf_layer_fwd(
-            self.dt, _ACT_CODES[act_name], s, m, n, w.shape[0], xs[0].data_ptr(), k_split,
-            vec[0], None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.shape[2],
-            0 if a2 is None else vec[1], k_split, w.data_ptr(), n,
-            _vec_width(w.data_ptr(), n, w.element_size()), b.data_ptr(), out.data_ptr(),
-            None if z is None else z.data_ptr(), self.stream), "per-layer forward")
+            self.dt, _ACT_CODES[act_name], int(plan["kernel"] == "wide"), s, m, n,
+            xs[0].data_ptr(), xs[0].shape[2], None if x1 is None else x1.data_ptr(),
+            0 if x1 is None else x1.shape[2], ks[0], ks[1] if x1 is not None else 0,
+            w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if z is None else z.data_ptr(), wt[0], wt[1], kp, self.stream),
+            f"per-layer forward ({plan['kernel']})")
+        LAYER_FWD_LAUNCHES[plan["kernel"]] += 1
+        if plan["kernel"] == "wide":
+            LAYER_FWD_WIDE_STREAMS[f"s{s}"] += 1
         ROUTE_LAUNCHES["fwd" if s > 1 else "fwd_value"] += 1
+        LAYER_FWD_HOST["s"] += time.perf_counter() - t0
         return out, z
+
+
+def layer_fwd_plain(xs, w, b, act_name: str, stash: bool, dtype: torch.dtype):
+    """Plain version of ``Products.layer_fwd`` (in ``ProductsPlain``): one
+    f32 matmul of the joined segments, the bias on the value stream, the
+    activation in f32, both outputs rounded to ``dtype``."""
+    layer_fwd_plain.calls += 1
+    f, df, _ = ACTIVATION_TRIPLES[act_name]
+    z = torch.cat(list(xs), dim=-1).float() @ w.float()
+    z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
+    return _dual_act(z, f, df).to(dtype), z.to(dtype) if stash else None
+
+
+# calls of the plain layer forward (a run through the kernels makes none)
+layer_fwd_plain.calls = 0
 
 
 class ProductsPlain:
@@ -878,11 +979,8 @@ class ProductsPlain:
         return qbar, pbar * q * ddf(zf)
 
     def layer_fwd(self, xs, w, b, act_name, stash):
-        f, df, _ = ACTIVATION_TRIPLES[act_name]
-        z = torch.cat(list(xs), dim=-1).float() @ w.float()
-        z = torch.cat([z[:1] + b.float(), z[1:]], dim=0)
         self.planes += ["fwd"] + ["stash"] * stash
-        return _dual_act(z, f, df).to(self.dtype), z.to(self.dtype) if stash else None
+        return layer_fwd_plain(xs, w, b, act_name, stash, self.dtype)
 
 
 class DualProducts(Products):

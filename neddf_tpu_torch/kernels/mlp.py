@@ -24,8 +24,8 @@ order: the hidden rows of W first, then segment 0's).
 * ``mlp_seg_layers`` / ``MLPLayers``: the value-only per-layer route (the
   NeDDF eval colour trunk, NeRF's trunk and NeuS's colour trunk under
   tensor parallelism, past width 512 or past the fused kernel's depth),
-  the walk of ``kernels/dual_mlp.py`` with one stream: ``neddf_layer_fwd``
-  per layer (a post-skip layer's ``[h, seg0]`` as two K segments, a
+  the walk of ``kernels/dual_mlp.py`` with one stream: ``Products.layer_fwd``
+  (``csrc/layer_fwd.cu``) per layer (a post-skip layer's ``[h, seg0]`` as two K segments, a
   narrow last layer whole on every rank), and backward ``gpre`` on the
   f32 cotangent after each reduce-scatter, the tn and nt products per
   layer.
@@ -296,7 +296,7 @@ def mlp_seg_layers(
     """The value-only per-layer route of ``mlp_seg`` over a width shard or
     a configuration the fused kernel refuses, without its backward (the
     eval trunks): the per-layer walk of ``kernels/dual_mlp.py`` with no tangent
-    planes (S = 1), ``neddf_layer_fwd`` per layer for CUDA tensors under
+    planes (S = 1), ``Products.layer_fwd`` per layer for CUDA tensors under
     ``use_kernels`` (its plain version otherwise), each layer's output
     gathered over the model group ``group`` (None: one shard); a post-skip
     layer (``layout``, default none) reads ``[h, seg0]``, and a

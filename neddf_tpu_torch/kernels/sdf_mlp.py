@@ -367,7 +367,7 @@ def _sweep_layers(weights, layout, act_name, pres, e_dim, k, group, keep_p, keep
 def sdf_layers_walk(e, weights, biases, layout, act_name, k, group=None):
     """The per-layer route's forward of ``sdf_mlp`` over the launcher ``k``,
     for this rank's column shards of the trunk ([fan_in, W/n], f32): the
-    trunk by ``dual_mlp_layers_walk`` (one stream, ``neddf_layer_fwd`` per
+    trunk by ``dual_mlp_layers_walk`` (one stream, ``Products.layer_fwd`` per
     layer in 3xTF32, a post-skip layer's ``[h, e]`` as two K segments,
     every layer's output gathered over ``group``), then the sweep one
     layer at a time (``_sweep_layers``) and the ranks' parts of gE summed

@@ -100,14 +100,18 @@ def test_nerf_field_outputs_and_grads_match_jax(dtype, iteration):
         _close(p.grad.numpy(), jgrads[name], grad_tol, name)
 
 
-@pytest.mark.parametrize("reference", ["reverse", "sweep_pallas"])
+@pytest.mark.parametrize("reference", ["reverse", "sweep_pallas", "dual"])
 def test_neus_field_outputs_and_grads_match_jax(reference):
     if reference == "reverse":
         jfield = JNeuS(**NEUS, fused="off", normals="reverse")
+    elif reference == "dual":
+        # forward-mode normals through the JAX package's dual trunk kernel
+        # (interpret mode), against the port's ``normals="dual"``
+        jfield = JNeuS(**NEUS, fused="off", normals="dual")
     else:
         jfield = JNeuS(**NEUS, fused="on", normals="sweep")
     params = jfield.init(jax.random.PRNGKey(5))
-    field = NeuS(**NEUS)
+    field = NeuS(**NEUS, normals="dual" if reference == "dual" else "auto")
     field.load_state_dict(params_from_jax(params), strict=True)
     assert tuple(field.variance.shape) == ()
     with matmul_dtype(jnp.float32):
@@ -121,9 +125,20 @@ def test_neus_field_outputs_and_grads_match_jax(reference):
         _close(p.grad.numpy(), jgrads[name], 1e-4, name)
 
 
-def test_neus_dual_normals_are_refused():
-    with pytest.raises(NotImplementedError):
-        NeuS(**NEUS, normals="dual")
+def test_neus_dual_normals_equal_the_sweep_and_unknown_modes_raise():
+    """``normals="dual"`` is taken (the same normals by the sweep, equal to
+    the JAX package's dual mode: test above); only an unknown mode is
+    refused."""
+    torch.manual_seed(0)
+    field = NeuS(**NEUS, normals="dual")
+    auto = NeuS(**NEUS)
+    auto.load_state_dict(field.state_dict())
+    samp = Sampling(*map(torch.from_numpy, _sampling(seed=4)))
+    got, want = field(samp, field.schedule(0)), auto(samp, auto.schedule(0))
+    for k in ("sdf", "density", "color"):
+        assert torch.equal(got[k], want[k])
+    with pytest.raises(ValueError):
+        NeuS(**NEUS, normals="forward")
 
 
 def test_nerf_render_with_coarse_network_and_points_matches_jax():

@@ -22,8 +22,10 @@ On the CPU (the route's plain launchers, ``DualProductsPlain``):
   backward with it); the epilogue's top mode keeps the fused trunk's 512.
 
 On the card (marked ``cuda``, skipped here): the per-layer forward
-(``neddf_layer_fwd``, S = 4, 2 and 1, one and two K segments, every
-activation; ReLU and LeakyReLU over the kernel's own f32 stash), ``gstack`` from f32 cotangents, and the epilogue forward and
+(``csrc/layer_fwd.cu``'s wide kernel, wgmma + TMA: S = 4, 2 and 1, one
+and two K segments, every activation; ReLU and LeakyReLU over the
+kernel's own f32 stash; ``test_torch_layer_fwd.py`` holds both of its
+kernels over a grid), ``gstack`` from f32 cotangents, and the epilogue forward and
 standalone backward, each against its plain version at the widths 640,
 1024 and 2048 and at the shards 1024/2 and 1024/4 of a 1024-wide layer.
 
@@ -267,7 +269,9 @@ def test_cuda_layer_forward_matches_plain(case, dtype):
     xs = [torch.randn((s, m, k), device=dev, generator=g).to(cd) for k in ks]
     w = (torch.randn((sum(ks), n), device=dev, generator=g) * sum(ks) ** -0.5).to(cd)
     b = torch.randn(n, device=dev, generator=g)
+    wide = tdm.LAYER_FWD_LAUNCHES["wide"]
     out, z = tdm.DualProducts(cd, dev).layer_fwd(xs, w, b, act, True)
+    assert tdm.LAYER_FWD_LAUNCHES["wide"] == wide + 1
     pout, pz = tdm.DualProductsPlain(cd).layer_fwd(xs, w, b, act, True)
     assert _rel(out.cpu(), pout.cpu()) <= CARD_TOL[dtype]
     assert _rel(z.cpu(), pz.cpu()) <= CARD_TOL[dtype]
@@ -291,7 +295,9 @@ def test_cuda_layer_forward_at_the_kink_matches_its_own_stash(act):
         xs = [torch.randn((s, 2001, k), device=dev, generator=g) for k in ks]
         w = torch.randn((sum(ks), n), device=dev, generator=g) * sum(ks) ** -0.5
         b = torch.randn(n, device=dev, generator=g)
+        wide = tdm.LAYER_FWD_LAUNCHES["wide"]
         out, z = tdm.DualProducts(torch.float32, dev).layer_fwd(xs, w, b, act, True)
+        assert tdm.LAYER_FWD_LAUNCHES["wide"] == wide + 1
         _, pz = tdm.DualProductsPlain(torch.float32).layer_fwd(xs, w, b, act, True)
         assert _rel(z.cpu(), pz.cpu()) <= CARD_TOL["float32"]
         want = torch.cat([f(z[:1]), df(z[:1]) * z[1:]], dim=0)
