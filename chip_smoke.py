@@ -594,12 +594,19 @@ TC_FUNCTIONS = {"tc_gemm_kernel": 71,
                 # the per-layer route's wide layer forward on wgmma (HGMMA): bf16
                 # and f32 x the 5 activations
                 "layer_fwd_wide": 10,
+                # the per-layer route's plain backward products on wgmma: dx
+                # (route_nt) and dW (route_tn), bf16 and f32
+                "route_nt": 2, "route_tn": 2,
                 # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
                 # classes 64, 128, 256, 512
                 "mlp_tile_fwd": 120,
                 # f32 x the 5 activations x the 4 classes x rows of whole
                 # 16-byte vectors or not
                 "sdf_sweep_kernel": 40}
+
+
+# the tensor-core functions on wgmma alone (HGMMA, no HMMA)
+WGMMA_FUNCTIONS = ("layer_fwd_wide", "route_nt", "route_tn")
 
 
 # the elementwise passes of the backwards that the products' epilogues and
@@ -692,10 +699,13 @@ def check_tensor_core_build(build_dir: Path) -> dict:
             fail(f"SASS: {len(found)} tensor-core instantiations of {key}, expected {count}")
     if min(hmma.values()) < 1:
         fail(f"SASS: a tensor-core function without HMMA: {hmma}")
-    # the wide layer forward runs on wgmma: warpgroup HGMMA, no mma.sync HMMA
-    wide = {fn: (hgmma[fn], hmma[fn]) for fn in hmma if "layer_fwd_wide" in fn}
-    if any(h < 1 or h != n for h, n in wide.values()):
-        fail(f"SASS: the wide layer forward without HGMMA (HGMMA, all): {wide}")
+    # the wide layer forward and the route's products run on wgmma:
+    # warpgroup HGMMA, no mma.sync HMMA
+    wide = {fn: (hgmma[fn], hmma[fn]) for fn in hmma
+            if any(key in fn for key in WGMMA_FUNCTIONS)}
+    if len(wide) != sum(TC_FUNCTIONS[key] for key in WGMMA_FUNCTIONS) or any(
+            h < 1 or h != n for h, n in wide.values()):
+        fail(f"SASS: a wgmma kernel without HGMMA only (HGMMA, all): {wide}")
     for fn in hmma:
         is_f32 = "nv_bfloat16" not in fn
         if is_f32 != (tf32[fn] > 0) or (is_f32 and tf32[fn] != hmma[fn]):
@@ -1105,7 +1115,9 @@ def product_cases(torch, gen, dev):
     network over both passes' 265,216 rows): the trunk's dx, dW and the
     sweep adjoint's pbar = qbar W (nn), the PE side (E = 36: dW of layer
     0, cg W_0, the post-skip layer's e rows), the colour trunk's 3-wide
-    last layer and a ragged row count."""
+    last layer and a ragged row count. The per-layer route's products at
+    width 1024 (route_nt, route_tn: the K=3 trunk's 4 x 99,328 rows in
+    bf16, NeuS's 265,216 in f32) and a tensor-parallel shard of 512."""
     def bf(*shape):
         return (torch.randn(shape, generator=gen, device=dev) * 0.1).bfloat16()
 
@@ -1132,6 +1144,13 @@ def product_cases(torch, gen, dev):
         ("f32 nt NeuS colour last layer dx (K=3)", "nt", f32(rs, 3), f32(256, 3)),
         ("f32 tn NeuS colour last layer dW (N=3)", "tn", f32(rs, 256), f32(rs, 3)),
         (f"f32 tn ragged ({rsr} rows)", "tn", f32(rsr, 256), f32(rsr, 256)),
+        ("nn fine trunk", "nn", bf(r, 256), bf(256, 256)),
+        ("nt route dx 1024", "nt", bf(r, 1024), bf(1024, 1024)),
+        ("tn route dW 1024", "tn", bf(r, 1024), bf(r, 1024)),
+        ("nt route dx shard 512", "nt", bf(r, 512), bf(1024, 512)),
+        ("tn route dW shard 512", "tn", bf(r, 1024), bf(r, 512)),
+        ("f32 nt route dx 1024", "nt", f32(rs, 1024), f32(1024, 1024)),
+        ("f32 tn route dW 1024", "tn", f32(rs, 1024), f32(rs, 1024)),
     ]
 
 
@@ -1150,12 +1169,32 @@ def product_call(layout, a, b):
     return (m, n, k, a, k, 1, b, n, 1), lambda: torch.matmul(a, b)
 
 
+def product_kernel(dm) -> tuple:
+    """The product kernels' launch counts so far: (route_nt, route_tn,
+    tc_gemm_kernel)."""
+    return (dm.ROUTE_PRODUCT_LAUNCHES["nt"], dm.ROUTE_PRODUCT_LAUNCHES["tn"],
+            dm.Products.tc_launches + dm.Products.tf32x3_launches)
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """The host's ms per call of ``fn`` (launches queued, not waited for)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = 1000.0 * (time.perf_counter() - start) / calls
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_products(torch, card: str) -> dict:
-    """Phase 6b: the tensor-core product (``neddf_gemm_tc`` through
-    ``Products``) against its plain version, with the times of both, of
-    ``torch.matmul`` on the same operands (the yardstick, bf16 out for
-    bf16 operands, f32 with TF32 off for f32 ones; the port never calls
-    it) and the bound, and TFLOP/s per shape."""
+    """Phase 6b: the products of the backwards (``Products``: the plain nt
+    and tn on the per-layer route's ``route_nt`` / ``route_tn``, NeRF's K =
+    3 dx and the nn on ``neddf_gemm_tc``) against their plain version, with
+    the times of both, of ``torch.matmul`` on the same operands (the
+    yardstick, bf16 out for bf16 operands, f32 with TF32 off for f32 ones;
+    the port never calls it) and the bound, TFLOP/s and the host's ms per
+    call, per shape; which kernel took it."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     dev = torch.device("cuda", 0)
@@ -1172,7 +1211,12 @@ def phase_products(torch, card: str) -> dict:
         def plain():
             return dm.products_plain(*call)
 
+        before = product_kernel(dm)
         got, ref = kernel(), plain()
+        ran = [new - old for new, old in zip(product_kernel(dm), before)]
+        if sorted(ran) != [0, 0, 1]:
+            fail(f"product {name}: launches (route_nt, route_tn, tc) {ran}")
+        kernel_name = ("route_nt", "route_tn", "tc_gemm_kernel")[ran.index(1)]
         torch.cuda.synchronize()
         if got.shape != (m, n) or not torch.isfinite(got).all():
             fail(f"product {name}: shape {tuple(got.shape)} or non-finite output")
@@ -1187,15 +1231,17 @@ def phase_products(torch, card: str) -> dict:
         f32 = a.dtype == torch.float32
         t = a.element_size()
         r = {"layout": layout, "dtype": str(a.dtype).replace("torch.", ""), "m": m, "n": n,
-             "k": k, "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-             "library_ms": library_ms, "tflops": flops / ms / 1e9,
+             "k": k, "kernel": kernel_name, "max_abs_err": err, "rel_err": rel, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms, "tflops": flops / ms / 1e9,
+             "host_ms": host_ms(torch, kernel),
              **bound(flops, t * (m * k + k * n) + 4 * m * n, "tf32x3" if f32 else "bfloat16")}
         if f32:
             r["fma_bound_ms"] = bound(flops, 0, "float32")["bound_ms"]
         results[name] = r
-        log(f"[6b] product {name}: {r['tflops']:.1f} TFLOP/s, {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"torch.matmul {r['dtype']} {library_ms:.4f}, bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']}), rel err {rel:.2e} | card: {card}")
+        log(f"[6b] product {name} ({kernel_name}): {r['tflops']:.1f} TFLOP/s, {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, torch.matmul {r['dtype']} {library_ms:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}), host {r['host_ms']:.4f} ms a call, rel "
+            f"err {rel:.2e} | card: {card}")
         del got, ref
     torch.cuda.empty_cache()
     return results
@@ -1222,7 +1268,9 @@ def route_counts(dm) -> dict:
             "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes,
             "layer_forward_kernels": dict(dm.LAYER_FWD_LAUNCHES),
             "layer_forward_wide_streams": dict(dm.LAYER_FWD_WIDE_STREAMS),
-            "layer_forward_host_s": dm.LAYER_FWD_HOST["s"]}
+            "layer_forward_host_s": dm.LAYER_FWD_HOST["s"],
+            "route_products": dict(dm.ROUTE_PRODUCT_LAUNCHES),
+            "route_products_host_s": dm.ROUTE_PRODUCT_HOST["s"]}
 
 
 def reset_route_counts(dm) -> None:
@@ -1233,6 +1281,8 @@ def reset_route_counts(dm) -> None:
     dm.LAYER_FWD_LAUNCHES.update(narrow=0, wide=0)
     dm.LAYER_FWD_WIDE_STREAMS.update(s1=0, s2=0, s4=0)
     dm.LAYER_FWD_HOST["s"] = 0.0
+    dm.ROUTE_PRODUCT_LAUNCHES.update(nt=0, tn=0)
+    dm.ROUTE_PRODUCT_HOST["s"] = 0.0
     for counter in _pass_counters(dm):
         counter.update({k: 0 for k in counter})
 
@@ -3088,7 +3138,7 @@ def path_counters():
               mlp.mlp_seg_plain, mlp.mlp_seg_bwd_plain, epi.neddf_epilogue_plain,
               epi.neddf_epilogue_bwd_plain, epi.neddf_epilogue_gstack_plain,
               sdf_grad.sdf_trunk_with_grad, sdf_grad.sdf_trunk_with_grad_vjp,
-              dm.layer_fwd_plain]
+              dm.layer_fwd_plain, dm.route_product_plain]
     return kernels, plains
 
 
@@ -4674,6 +4724,21 @@ def epilogue_cases(torch, g, rnd, m: int, n: int, e: int, hold) -> dict:
     return out
 
 
+def walk_route_products(fn, what: str):
+    """(fn(), the products it launched by kernel: route_nt, route_tn,
+    tc_gemm_kernel): a walk backward's plain products on route_nt and
+    route_tn (fails unless both launched; the sweep's adjoint stays on
+    tc_gemm_kernel)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    before = product_kernel(dm)
+    got = fn()
+    ran = dict(zip(("nt", "tn", "tc"), (a - b for a, b in zip(product_kernel(dm), before))))
+    if ran["nt"] < 1 or ran["tn"] < 1:
+        fail(f"{what}: products launched {ran}: route_nt and route_tn expected")
+    return got, ran
+
+
 def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     """Phase 24a at one operand type: every new mode of the per-layer route
     against its plain version at TP_ROWS rows and width TP_WIDTH, timed
@@ -4767,7 +4832,8 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
         return dm.dual_mlp_layers_bwd(x, ws, TP_TRUNK_LAYOUT, "tanhExp", [60], (True,), z, gtop,
                                       launcher)
 
-    got, want = walk_bwd(k, ins, pres), walk_bwd(kp, pins, ppres)
+    got, routed = walk_route_products(lambda: walk_bwd(k, ins, pres), "[24a] walk backward")
+    want = walk_bwd(kp, pins, ppres)
     torch.cuda.synchronize()
     err_b = max(hold(f"walk backward {i}", a, c) for gs_, ws_ in zip(got, want)
                 for i, (a, c) in enumerate(zip(gs_, ws_)))
@@ -4786,6 +4852,7 @@ def tp_route_cases(torch, dev, dtype_name: str) -> dict:
     ms, plain_ms = time_pair(torch, lambda: walk_bwd(k, ins, pres),
                              lambda: walk_bwd(kp, ins, pres))
     out["walk_bwd"] = {"max_abs_err": err_b, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       "route_products_per_call": routed,
                        **_route_bound(2.0 * flops_f, bytes_b, dtype_name)}
     del full, ins, pres, gtop, ws
     torch.cuda.empty_cache()
@@ -4923,10 +4990,41 @@ def layer_forward_host(what: str, counts: dict, steps: int, ms_step: float) -> d
     return out
 
 
-def tp_route_counts(what: str, needed) -> dict:
+def route_product_counts(what: str, counts: dict) -> dict:
+    """``counts["route_products"]``: the per-layer route's plain products of
+    a path (read just after it was driven), by kernel (route_nt, route_tn;
+    csrc/route_products.cu) and the host seconds in ``Products.nt`` /
+    ``.tn`` on them; fails unless both launched (the plain versions'
+    calls are ``read_path_counts``'s plain calls)."""
+    routes = counts["routes"]
+    launches = routes["route_products"]
+    if min(launches.values()) < 1:
+        fail(f"{what}: the route's products launched {launches}: route_nt and route_tn expected")
+    counts["route_products"] = {**launches, "host_s": routes["route_products_host_s"]}
+    return counts
+
+
+def route_product_host(what: str, counts: dict, steps: int, ms_step: float) -> dict:
+    """The host's time in ``Products.nt`` / ``.tn`` on route_nt and route_tn
+    over a run of ``steps`` steps (``route_product_counts``): calls per
+    step, ms per call, ms per step and its share of the untraced ms/step."""
+    rp = counts["route_products"]
+    calls = rp["nt"] + rp["tn"]
+    per_step = 1000.0 * rp["host_s"] / steps
+    out = {"nt_per_step": rp["nt"] / steps, "tn_per_step": rp["tn"] / steps,
+           "ms_per_call": 1000.0 * rp["host_s"] / calls, "ms_per_step": per_step,
+           "share_of_step": per_step / ms_step}
+    log(f"{what}: route_nt {out['nt_per_step']:.2f} and route_tn {out['tn_per_step']:.2f} "
+        f"launches per step; the host in Products.nt/.tn {out['ms_per_call']:.4f} ms per call, "
+        f"{per_step:.3f} ms per step, {out['share_of_step']:.3f} of the {ms_step:.2f} ms step")
+    return out
+
+
+def tp_route_counts(what: str, needed, backward: bool = True) -> dict:
     """``read_path_counts`` on the per-layer route: every kernel of
-    ``needed`` and the layer forward launched, no fused wrapper, no plain
-    version."""
+    ``needed`` and the layer forward launched (with ``backward``, route_nt
+    and route_tn too: ``route_product_counts``), no fused wrapper, no
+    plain version."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     counts = read_path_counts(what, needed)
@@ -4934,7 +5032,8 @@ def tp_route_counts(what: str, needed) -> dict:
     if any(fused.values()) or dm.ROUTE_LAUNCHES["fwd"] < 1:
         fail(f"{what}: the fused route launched {fused}, the layer forward "
              f"{dict(dm.ROUTE_LAUNCHES)}")
-    return layer_forward_counts(what, counts)
+    counts = layer_forward_counts(what, counts)
+    return route_product_counts(what, counts) if backward else counts
 
 
 def phase_tp_run(torch, card: str) -> dict:
@@ -4979,13 +5078,15 @@ def phase_tp_run(torch, card: str) -> dict:
     if not last - first >= PSNR_GAIN_MIN:
         fail("[24b] the 1024-wide run's train PSNR did not rise")
     host = layer_forward_host("[24b] 1024-wide NeDDF run", counts, trainer.iteration, ms_step)
+    route_host = route_product_host("[24b] 1024-wide NeDDF run", counts, trainer.iteration,
+                                    ms_step)
     prof = profile_train(torch, trainer, card, "profile_train_neddf_1024.txt",
                          f"{trainer.batch_size} rays, bf16, width {TP_WIDTH}", "24b")
     del trainer
     torch.cuda.empty_cache()
     reset_path_counts()
     ev = evaluate(run_dir, TP_RUN_EPOCHS, cameras=[0], downsampling=8)
-    eval_counts = tp_route_counts("[24b] run_eval", TP_EVAL_KERNELS)
+    eval_counts = tp_route_counts("[24b] run_eval", TP_EVAL_KERNELS, backward=False)
     gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
     psnrs = {}
     for mode in ("kernels", "plain"):
@@ -5002,7 +5103,8 @@ def phase_tp_run(torch, card: str) -> dict:
     del ev
     torch.cuda.empty_cache()
     out.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
-                "layer_forward_host": host,
+                "layer_forward_host": host, "route_products": counts["route_products"],
+                "route_product_host": route_host,
                 "routes": counts["routes"], "plain_calls": counts["plain_calls"],
                 "wall_s": wall, "ms_per_step": ms_step,
                 "rays_per_s": 512 / mean(steady), "busy_share": prof["busy_share"],
@@ -5115,7 +5217,8 @@ def tp_rank(rank: int, world: int, store: str, inp: dict) -> None:
         tp_renderer(render, mesh.model_group)
         reset_path_counts()
         out["eval_tp"] = image()["color"]
-        out["eval"] = tp_route_counts(f"[{tag}] rank {rank} TP eval render", TP_EVAL_KERNELS)
+        out["eval"] = tp_route_counts(f"[{tag}] rank {rank} TP eval render", TP_EVAL_KERNELS,
+                                      backward=False)
     finally:
         torch.save(out, OUT / f"tp_rank{rank}.pt")
         dist.destroy_process_group()
@@ -5314,10 +5417,11 @@ def _tpf_nets(render):
     return nets
 
 
-def tpf_route_counts(what: str, needed) -> dict:
+def tpf_route_counts(what: str, needed, backward: bool = True) -> dict:
     """``read_path_counts`` on NeRF's and NeuS's per-layer route: every
-    kernel of ``needed`` and the value-only layer forward launched, no
-    fused wrapper and no tile forward, no plain version."""
+    kernel of ``needed`` and the value-only layer forward launched (with
+    ``backward``, route_nt and route_tn too), no fused wrapper and no tile
+    forward, no plain version."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     counts = read_path_counts(what, needed)
@@ -5326,7 +5430,8 @@ def tpf_route_counts(what: str, needed) -> dict:
     if any(fused.values()) or any(tile.values()) or dm.ROUTE_LAUNCHES["fwd_value"] < 1:
         fail(f"{what}: the fused route launched {fused}, tile forwards {tile}, the layer "
              f"forward {dict(dm.ROUTE_LAUNCHES)}")
-    return layer_forward_counts(what, counts)
+    counts = layer_forward_counts(what, counts)
+    return route_product_counts(what, counts) if backward else counts
 
 
 def tpf_cases(torch, dev, dtype_name: str) -> dict:
@@ -5442,7 +5547,8 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
         return dm.dual_mlp_layers_bwd(ins, ws, TPF_LAYOUT, act, [60], no_j, pres, gtop,
                                       launcher, hidden_first=True)
 
-    got, want = walk_bwd(k), walk_bwd(kp)
+    got, routed = walk_route_products(lambda: walk_bwd(k), "[25a] mlp walk backward")
+    want = walk_bwd(kp)
     torch.cuda.synchronize()
     err_b = max(hold(f"mlp walk backward {i}", a, c) for gs_, ws_ in zip(got, want)
                 for i, (a, c) in enumerate(zip(gs_, ws_)))
@@ -5456,6 +5562,7 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
     record("mlp_walk_bwd", err_b, time_pair(torch, lambda: walk_bwd(k), lambda: walk_bwd(kp),
                                             reps=3), None, _route_bound(2.0 * flops, io_b,
                                                                         dtype_name))
+    out["mlp_walk_bwd"]["route_products_per_call"] = routed
     del full, ins, pres, gtop, ws
     torch.cuda.empty_cache()
 
@@ -5480,7 +5587,8 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
         def sdf_bwd(launcher):
             return sk.sdf_layers_bwd(ins, ws, TPF_LAYOUT, act, pres, ch, cg, launcher)
 
-        got, want = sdf_bwd(k), sdf_bwd(kp)
+        got, sdf_routed = walk_route_products(lambda: sdf_bwd(k), "[25a] sdf walk backward")
+        want = sdf_bwd(kp)
         torch.cuda.synchronize()
         err_b = max([hold("sdf walk de", got[0], want[0])]
                     + [hold(f"sdf walk d{kind} {i}", a, c) for kind, gs_, ws_ in
@@ -5501,6 +5609,7 @@ def tpf_cases(torch, dev, dtype_name: str) -> dict:
         record("sdf_walk_bwd", err_b, time_pair(torch, lambda: sdf_bwd(k), lambda: sdf_bwd(kp),
                                                 reps=3), None,
                _route_bound(5.0 * flops, io_b, "float32"))
+        out["sdf_walk_bwd"]["route_products_per_call"] = sdf_routed
         del h, g_e, ins, pres, ws, ch, cg
         torch.cuda.empty_cache()
     return out
@@ -5578,13 +5687,14 @@ def phase_tp_family_run(torch, card: str) -> dict:
         if not last - first >= spec["gain_min"]:
             fail(f"[25b] the {name} run's train PSNR did not rise")
         host = layer_forward_host(f"[25b] {name} run", counts, trainer.iteration, ms_step)
+        route_host = route_product_host(f"[25b] {name} run", counts, trainer.iteration, ms_step)
         prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
                              f"{spec['rays']} rays, {dtype}, width {TPF_WIDTH}", "25b")
         del trainer
         torch.cuda.empty_cache()
         reset_path_counts()
         ev = evaluate(run_dir, spec["epoch_max"], cameras=[0], downsampling=8)
-        eval_counts = tpf_route_counts(f"[25b] {name} run_eval", needed)
+        eval_counts = tpf_route_counts(f"[25b] {name} run_eval", needed, backward=False)
         gt = ev.dataset[0]["rgb_images"].astype("uint8")[::8, ::8]
         psnrs = {}
         for mode in ("kernels", "plain"):
@@ -5603,7 +5713,8 @@ def phase_tp_family_run(torch, card: str) -> dict:
         del ev
         torch.cuda.empty_cache()
         res.update({"launches": counts["launches"], "layer_forward": counts["layer_forward"],
-                    "layer_forward_host": host,
+                    "layer_forward_host": host, "route_products": counts["route_products"],
+                    "route_product_host": route_host,
                     "routes": counts["routes"], "plain_calls": counts["plain_calls"],
                     "wall_s": wall, "ms_per_step": ms_step,
                     "rays_per_s": spec["rays"] / mean(steady), "busy_share": prof["busy_share"],
@@ -5890,10 +6001,11 @@ WIDE_4096_RANK_STEPS = ((WIDTH_4096, 32),)  # 26c's two ranks: (width, rays)
 
 def deep_route_counts(what: str, needed, route: str, backward: bool = True) -> dict:
     """``read_path_counts`` on the per-layer route: every kernel of
-    ``needed`` and a layer forward launched, no product on the route of
-    the other operand type than ``route`` ("tc" bf16, "tf32x3" f32) and,
-    with ``backward``, some on ``route``; no fused wrapper, no tile
-    forward, no plain version."""
+    ``needed`` and a layer forward launched, no tc_gemm_kernel product on
+    the route of the other operand type than ``route`` ("tc" bf16,
+    "tf32x3" f32) and, with ``backward``, route_nt and route_tn launched
+    (``route_product_counts``); no fused wrapper, no tile forward, no
+    plain version."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     counts = read_path_counts(what, needed)
@@ -5901,12 +6013,12 @@ def deep_route_counts(what: str, needed, route: str, backward: bool = True) -> d
     routes = counts["routes"]
     other = {"tc": "tf32x3", "tf32x3": "tc"}[route]
     if (any(fused.values()) or any(routes["tile_forward"].values())
-            or sum(dm.ROUTE_LAUNCHES.values()) < 1 or routes["products"][other]
-            or (backward and routes["products"][route] < 1)):
+            or sum(dm.ROUTE_LAUNCHES.values()) < 1 or routes["products"][other]):
         fail(f"{what}: the fused route launched {fused}, tile forwards "
              f"{routes['tile_forward']}, the layer forward {dict(dm.ROUTE_LAUNCHES)}, "
              f"products {routes['products']} (expected {route} only)")
-    return layer_forward_counts(what, counts)
+    counts = layer_forward_counts(what, counts)
+    return route_product_counts(what, counts) if backward else counts
 
 
 def phase_epilogue_wide(torch, card: str) -> dict:
@@ -5995,12 +6107,14 @@ def phase_deep(torch, card: str) -> dict:
         if not last < first:
             fail(f"[26b] the {name} run's loss did not fall")
         host = layer_forward_host(f"[26b] {name} run", counts, steps, ms_step)
+        route_host = route_product_host(f"[26b] {name} run", counts, steps, ms_step)
         prof = profile_train(torch, trainer, card, f"profile_train_{name}.txt",
                              f"{trainer.batch_size} rays, {name}", "26b")
         del trainer
         torch.cuda.empty_cache()
         res.update({"launches": counts["launches"], "per_step": per_step,
-                    "layer_forward_host": host,
+                    "layer_forward_host": host, "route_products": counts["route_products"],
+                    "route_product_host": route_host,
                     "plain_calls": counts["plain_calls"], "wall_s": wall,
                     "ms_per_step": ms_step, "busy_share": prof["busy_share"],
                     "device_ms_per_step": prof["device_ms_per_step"],
@@ -6595,22 +6709,22 @@ def main() -> int:
         family_entry("sdf_mlp_bwd", "neus", "sdf_mlp_bwd", sdf_key),
     ]
     # the products of the backwards alone (the products inside the Pallas
-    # _bwd_kernel): bf16 at the fine trunk's dx, library_ms torch.matmul on
-    # the same bf16 operands (bf16 out);
-    # and the f32 product (3xTF32) at the NeuS trunk's dx; library_ms is
+    # _bwd_kernel) on tc_gemm_kernel: bf16 at the fine trunk's nn layout,
+    # library_ms torch.matmul on the same bf16 operands (bf16 out); and the
+    # f32 product (3xTF32) at the NeuS sweep adjoint's nn; library_ms is
     # torch.matmul on the same f32 operands, TF32 off
     for name, case, dtype, launches, route in (
             ("tc_gemm_kernel (bf16 products of the backwards, tensor cores)",
-             "nt fine trunk dx", "bfloat16", train["routes"]["products"]["tc"], "tc"),
+             "nn fine trunk", "bfloat16", train["routes"]["products"]["tc"], "tc"),
             ("tc_gemm_kernel (f32 products of the backwards, 3xTF32 on the tensor cores)",
-             "f32 nt NeuS trunk dx", "float32",
+             "f32 nn NeuS sweep adjoint", "float32",
              family_runs["neus"]["routes"]["products"]["tf32x3"], "tf32x3")):
         r = products[case]
         kernels.append({
             "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
             "replaces": "neddf_tpu/kernels/dual_mlp.py:728", "launches": launches,
             "max_abs_err": max(v["max_abs_err"] for v in products.values()
-                               if v["dtype"] == dtype),
+                               if v["dtype"] == dtype and v["kernel"] == "tc_gemm_kernel"),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {},
             "launches_llff": {path: routes["products"][route]
@@ -6618,6 +6732,36 @@ def main() -> int:
                               if routes["products"][route]},
             "launches_dp": {"step_per_rank": (dp_step if route == "tc" else dp_f32)[
                 "routes"]["products"][route], "eval_per_rank": 0}})
+    # the per-layer route's plain products on wgmma + TMA (phase 6b at width
+    # 1024: bf16 the K=3 trunk's 4 x 99,328 rows, f32 NeuS's 265,216);
+    # launches: the main path's (layer 0's sides, the post-skip layer's
+    # seg0 rows of the fused NeDDF backward), the NeuS run's, and those of
+    # the per-layer route's runs (24b, 25b, 26b)
+    for kname, layout in (("route_nt", "nt"), ("route_tn", "tn")):
+        for dtype, case, launches in (
+                ("bfloat16", f"{layout} route {'dx' if layout == 'nt' else 'dW'} 1024",
+                 train["routes"]["route_products"][layout]),
+                ("float32", f"f32 {layout} route {'dx' if layout == 'nt' else 'dW'} 1024",
+                 family_runs["neus"]["routes"]["route_products"][layout])):
+            r = products[case]
+            kernels.append({
+                "name": f"{kname} ({'bf16' if dtype == 'bfloat16' else 'f32 by 3xTF32'}, the "
+                        f"per-layer route's {'dx = G W^T' if layout == 'nt' else 'dW = X^T G'}"
+                        f", 1024 x 1024; wgmma + TMA)", "route": "cuda",
+                "source": "neddf_tpu_torch/csrc/route_products.cu",
+                "replaces": "neddf_tpu/kernels/dual_mlp.py:728", "launches": launches,
+                "max_abs_err": max(v["max_abs_err"] for v in products.values()
+                                   if v["dtype"] == dtype and v["kernel"] == kname),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "host_ms": r["host_ms"],
+                "launches_tp_run": tp["run"]["routes"]["route_products"][layout],
+                "launches_tpf_runs": {f: v["route_products"][layout]
+                                      for f, v in tpf["run"].items()
+                                      if isinstance(v, dict) and "route_products" in v},
+                "launches_deep_runs": {f: v["route_products"][layout]
+                                       for f, v in deep["deep"].items()
+                                       if isinstance(v, dict) and "route_products" in v}})
     db = family_kernels["db_sum"]
     kernels.append({
         "name": "sum_rows (the parallel fixed-order db sum of the backwards)", "route": "cuda",

@@ -7,8 +7,9 @@ in ``VARIANTS`` is compiled once per set of macro definitions there, each
 its own process and object: ``tile_fwd.cu`` per operand type and width
 class of the row-tile forward, ``dual_mlp_bwd.cu`` per operand type of
 the products, ``neddf_epilogue.cu`` per operand type of the epilogue
-backward and ``layer_fwd.cu`` per operand type of the per-layer route's
-layer forward, so that their instantiations build side by side. The build
+backward, ``layer_fwd.cu`` per operand type of the per-layer route's
+layer forward and ``route_products.cu`` per operand type of its backward
+products, so that their instantiations build side by side. The build
 happens at first use, never at import, into
 ``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
 ``<hash>`` covers the sources and the flags: an edit to any
@@ -49,6 +50,7 @@ VARIANTS = {
     "dual_mlp_bwd.cu": [(), ("NEDDF_GEMM_BF16",), ("NEDDF_GEMM_F32",)],
     "neddf_epilogue.cu": [(), ("NEDDF_EPI_BF16",), ("NEDDF_EPI_F32",)],
     "layer_fwd.cu": [(), ("NEDDF_FWD_BF16",), ("NEDDF_FWD_F32",)],
+    "route_products.cu": [(), ("NEDDF_ROUTE_BF16",), ("NEDDF_ROUTE_F32",)],
 }
 
 
@@ -170,6 +172,11 @@ def library() -> ctypes.CDLL:
         "neddf_layer_fwd": [
             _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _INT, _VOIDP, _INT, _INT, _INT, _VOIDP,
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
+        ],
+        # csrc/route_products.cu
+        "neddf_route_product": [
+            _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _VOIDP, _LL, _INT,
+            _INT, _VOIDP, _VOIDP,
         ],
         # csrc/neddf_epilogue.cu
         "neddf_epilogue_fwd": [

@@ -50,6 +50,7 @@ sums in f32.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -647,6 +648,118 @@ def layer_fwd_plan(streams: int, m: int, n: int, ks: Sequence[int], itemsize: in
     return {"kernel": "wide", "widths": widths, "pad": pad,
             "kp": sum(-(-w // bk) for w in widths) * bk, "planes": 2 if itemsize == 4 else 1}
 
+# launches of the per-layer route's plain products on wgmma
+# (csrc/route_products.cu, by kernel: "nt" route_nt, dx = G W^T; "tn"
+# route_tn, dW = X^T G); the host seconds spent in Products.nt / .tn on
+# them (plan, padding copies, buffers, the launch call, the split sum)
+ROUTE_PRODUCT_LAUNCHES = {"nt": 0, "tn": 0}
+ROUTE_PRODUCT_HOST = {"s": 0.0}
+
+# the route products' plan (csrc/route_products.cu holds the same tile,
+# k-block and the tensor maps): route_nt takes a depth of at least one
+# tf32 k8 step (NeRF's 3-wide last layer's dx stays on tc_gemm_kernel);
+# route_tn cuts its rows into fixed splits of a whole number of k-blocks,
+# at least _ROUTE_MIN_SPLIT_BLOCKS each, at most _ROUTE_MAX_SPLITS, the
+# fewest whose waves over the SMs take within _ROUTE_SPLIT_SLACK of the
+# best count's k-blocks
+ROUTE_NT_MIN_K = 8
+_ROUTE_TILE = 128
+_ROUTE_MIN_SPLIT_BLOCKS = 16
+_ROUTE_MAX_SPLITS = 64
+_ROUTE_SPLIT_SLACK = 1.05
+_ROUTE_LAYOUTS = {"nt": 0, "tn": 1}
+H100_SMS = 132
+
+
+def route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize: int,
+               a_ptr: int = 0, b_ptr: int = 0, sms: int = H100_SMS) -> dict:
+    """How ``Products.nt`` / ``.tn`` launch ``out [m, n] f32``: ``nt`` a [m,
+    k] b [n, k]^T, ``tn`` a [k, m]^T b [k, n] (a reduction over k rows),
+    each operand's rows ``lda`` / ``ldb`` elements apart (contiguous
+    within a row), operands of ``itemsize`` bytes (2 bf16, 4 f32) at the
+    byte addresses ``a_ptr`` / ``b_ptr`` (ValueError off the element
+    size), on a card of ``sms`` SMs.
+
+    ``kernel``: "tc" (tc_gemm_kernel, for an nt depth k under
+    ``ROUTE_NT_MIN_K``) or "route" (route_nt / route_tn), with ``pad_a`` /
+    ``pad_b``: the row length an operand is first copied to where its
+    rows or address are not whole 16-byte vectors (TMA's), 0
+    where it is taken as it is (f32 nt's b goes through the tf32 split's
+    pre-pass, which reads any rows); ``ldw``: the row length of f32 nt's
+    tf32 planes of b [2, n, ldw] (0: none); ``splits`` and ``k_chunk``:
+    tn's fixed ranges of k_chunk rows (a whole number of k-blocks), each
+    summed into its own [m, n] plane and the planes added in order (nt: 1
+    and 0). The plan is a function of the shape, the strides, the
+    addresses' offsets from 16 bytes and the SMs, cached: a step asks for
+    the same few dozen plans every time (the host leads NeRF-deep, where
+    working out tn's splits on every call cost ~10% of the step)."""
+    if layout not in _ROUTE_LAYOUTS:
+        raise ValueError(f"route products: layout {layout!r}")
+    if itemsize not in _WIDE_BK:
+        raise ValueError(f"route products: {itemsize}-byte operands")
+    for ptr in (a_ptr, b_ptr):
+        if ptr % itemsize:
+            raise ValueError(f"route products: pointer {ptr:#x} not {itemsize}-byte aligned")
+    return _route_plan(layout, m, n, k, lda, ldb, itemsize, a_ptr % 16, b_ptr % 16, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize: int,
+                a_ptr: int, b_ptr: int, sms: int) -> dict:
+    if layout == "nt" and k < ROUTE_NT_MIN_K:
+        return {"kernel": "tc"}
+    vec = 16 // itemsize
+
+    def pad(ld: int, ptr: int, width: int) -> int:
+        return 0 if (ld * itemsize) % 16 == 0 and ptr % 16 == 0 else -(-width // vec) * vec
+
+    bk = _WIDE_BK[itemsize]
+    if layout == "nt":
+        f32 = itemsize == 4
+        return {"kernel": "route", "pad_a": pad(lda, a_ptr, k),
+                "pad_b": 0 if f32 else pad(ldb, b_ptr, k),
+                "ldw": -(-k // vec) * vec if f32 else 0, "splits": 1, "k_chunk": 0}
+    tiles = -(-m // _ROUTE_TILE) * -(-n // _ROUTE_TILE)
+    blocks = max(1, -(-k // bk))
+    top = max(1, min(_ROUTE_MAX_SPLITS, blocks // _ROUTE_MIN_SPLIT_BLOCKS))
+
+    def span(s: int) -> int:  # k-blocks the busiest SM reduces
+        return -(-tiles * s // sms) * -(-blocks // s)
+
+    best = min(span(s) for s in range(1, top + 1))
+    splits = next(s for s in range(1, top + 1) if span(s) <= best * _ROUTE_SPLIT_SLACK)
+    k_chunk = -(-blocks // splits) * bk
+    return {"kernel": "route", "pad_a": pad(lda, a_ptr, m), "pad_b": pad(ldb, b_ptr, n),
+            "ldw": 0, "splits": max(1, -(-k // k_chunk)), "k_chunk": k_chunk}
+
+
+def _padded_rows(x: Tensor, width: int) -> Tensor:
+    """A fresh copy of x [R, c] with rows ``width`` elements apart (16-byte
+    rows), as TMA takes a route product's operand; the columns past c are
+    left unset: the tensor maps stop at c and fill past it with zeros."""
+    out = x.new_empty((x.shape[0], width))
+    out[:, : x.shape[1]] = x
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def route_product_plain(layout: str, a: Tensor, b: Tensor) -> Tensor:
+    """Plain version of the route's products (``ProductsPlain.nt`` /
+    ``.tn``): nt a [R, C] b [n, C]^T, tn a [R, m]^T b [R, n], one f32
+    matmul of the operands."""
+    route_product_plain.calls += 1
+    if layout == "nt":
+        return a.float() @ b.float().T
+    return a.float().T @ b.float()
+
+
+# calls of the plain route products (a run through the kernels makes none)
+route_product_plain.calls = 0
+
 # launches of the elementwise kernels that the dual backward runs beside
 # its products: gstack, the top layer's stacked cotangent (one per call);
 # dual_act, the layer inputs' pass that the dW products' prologue took
@@ -706,6 +819,8 @@ class Products:
         self.dt = _KERNEL_DTYPES[dtype]
         self.device = device
         self.stream = _build.stream(device)
+        self.sms = _sm_count(torch.cuda.current_device() if device.index is None
+                             else device.index)
 
     def _count(self) -> None:
         if self.dtype == torch.bfloat16:
@@ -757,16 +872,61 @@ class Products:
         return out
 
     def nt(self, a: Tensor, w_rows: Tensor) -> Tensor:
-        """a [R, C] (T) times w_rows [n, C]^T (T) -> [R, n] f32."""
-        r, c = a.shape
-        n = w_rows.shape[0]
-        return self.gemm(r, n, c, a, c, 1, w_rows, 1, w_rows.stride(0))
+        """a [R, C] (T) times w_rows [n, C]^T (T) -> [R, n] f32 (route_nt;
+        see ``_route``)."""
+        return self._route("nt", a, w_rows)
 
     def tn(self, a: Tensor, g: Tensor) -> Tensor:
-        """a [R, m]^T (T) times g [R, n] (T) -> [m, n] f32, over R rows."""
-        r, m = a.shape
-        n = g.shape[1]
-        return self.gemm(m, n, r, a, 1, a.stride(0), g, g.stride(0), 1)
+        """a [R, m]^T (T) times g [R, n] (T) -> [m, n] f32, over R rows
+        (route_tn; see ``_route``)."""
+        return self._route("tn", a, g)
+
+    def _route(self, layout: str, a: Tensor, b: Tensor) -> Tensor:
+        """The plain ``nt`` (a [m, k] b [n, k]^T) or ``tn`` (a [k, m]^T b [k,
+        n]) product of two row-strided 2-D operands in T -> [m, n] f32, on
+        the kernel ``route_plan`` picks: ``csrc/route_products.cu``'s
+        route_nt / route_tn (tn's splits summed in order by
+        ``neddf_sum_splits``), or tc_gemm_kernel for an nt depth under
+        ``ROUTE_NT_MIN_K``."""
+        t0 = time.perf_counter()
+        if a.dim() != 2 or b.dim() != 2 or a.stride(1) != 1 or b.stride(1) != 1:
+            raise ValueError(f"route products: operands {tuple(a.shape)} {a.stride()}, "
+                             f"{tuple(b.shape)} {b.stride()}")
+        if a.dtype != self.dtype or b.dtype != self.dtype:
+            raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
+        if layout == "nt":
+            (m, k), n = a.shape, b.shape[0]
+        else:
+            (k, m), n = a.shape, b.shape[1]
+        if (b.shape[1] if layout == "nt" else b.shape[0]) != k:
+            raise ValueError(f"route {layout}: operands {tuple(a.shape)}, {tuple(b.shape)}")
+        lda, ldb = a.stride(0), b.stride(0)
+        plan = route_plan(layout, m, n, k, lda, ldb, a.element_size(), a.data_ptr(),
+                          b.data_ptr(), self.sms)
+        if plan["kernel"] == "tc":
+            if layout == "nt":
+                return self.gemm(m, n, k, a, lda, 1, b, 1, ldb)
+            return self.gemm(m, n, k, a, 1, lda, b, ldb, 1)
+        if m == 0 or n == 0 or k == 0:
+            return torch.zeros((m, n), dtype=torch.float32, device=self.device)
+        if plan["pad_a"]:
+            a = _padded_rows(a, plan["pad_a"])
+        if plan["pad_b"]:
+            b = _padded_rows(b, plan["pad_b"])
+        splits = plan["splits"]
+        out = self._empty((m, n))
+        parts = out if splits == 1 else self._empty((splits, m, n))
+        planes = self._empty((2, n, plan["ldw"])) if plan["ldw"] else None
+        _build.check(self.lib.neddf_route_product(
+            self.dt, _ROUTE_LAYOUTS[layout], m, n, k, a.data_ptr(), a.stride(0), b.data_ptr(),
+            b.stride(0), None if planes is None else planes[0].data_ptr(),
+            None if planes is None else planes[1].data_ptr(), plan["ldw"], splits,
+            plan["k_chunk"], parts.data_ptr(), self.stream), f"route_{layout}")
+        ROUTE_PRODUCT_LAUNCHES[layout] += 1
+        if splits > 1:
+            self.sum_splits(parts, out)
+        ROUTE_PRODUCT_HOST["s"] += time.perf_counter() - t0
+        return out
 
     def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
         """a [R, k] (T) times w_rows [k, n] (T) -> [R, n] f32."""
@@ -935,10 +1095,10 @@ class ProductsPlain:
         self.planes: List[str] = []
 
     def nt(self, a: Tensor, w_rows: Tensor) -> Tensor:
-        return a.float() @ w_rows.float().T
+        return route_product_plain("nt", a, w_rows)
 
     def tn(self, a: Tensor, g: Tensor) -> Tensor:
-        return a.float().T @ g.float()
+        return route_product_plain("tn", a, g)
 
     def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
         return a.float() @ w_rows.float()

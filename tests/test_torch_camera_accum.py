@@ -50,6 +50,7 @@ from tests.test_torch_train_step import (  # noqa: F401  (scene is a fixture)
     scene,
     tiny_config,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 # a pose delta of 0.29 rad: there the reference's V coefficients, (theta -
 # sin theta) / theta^3 and (1 - cos theta) / theta^2, keep f32 precision

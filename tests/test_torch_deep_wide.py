@@ -57,6 +57,7 @@ from tests.test_torch_widths_acts import (  # noqa: F401  (jx is a fixture)
     _rel,
     jx,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 FAMILY = {"neddf": [], "nerf": ["network=nerf"], "neus": ["network=neus"]}

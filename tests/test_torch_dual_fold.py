@@ -37,6 +37,7 @@ import torch
 
 from neddf_tpu_torch.kernels import dual_mlp as tdm
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES, SECOND_DERIVATIVE_ZERO
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 C = 32
 M = 512 - 45  # ragged against every group size (128 / S, 64 / S, 32 / S points)

@@ -41,6 +41,7 @@ import torch
 from neddf_tpu_torch.kernels import dual_mlp as tdm
 from neddf_tpu_torch.kernels import neddf_epilogue as tepi
 from neddf_tpu_torch.ops.activations import SECOND_DERIVATIVE_ZERO
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 C = 32
 C0 = 24

@@ -39,6 +39,7 @@ from neddf_tpu_torch.training.metrics import (
     structural_similarity,
 )
 from neddf_tpu_torch.utils.png import read_png
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

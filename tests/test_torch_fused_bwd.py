@@ -47,6 +47,7 @@ from neddf_tpu_torch.kernels import mlp as tmlp
 from neddf_tpu_torch.kernels import sdf_mlp as tsdf
 from neddf_tpu_torch.ops import activations as tact
 from neddf_tpu_torch.ops import sdf_grad as tgrad
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 L, C, E = 4, 24, 30
 SDF_LAYOUT = (False, False, True, False)

@@ -20,6 +20,7 @@ import torch
 
 from neddf_tpu_torch.kernels import dual_mlp as tdual_mlp
 from neddf_tpu_torch.kernels import mlp as tmlp
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 C0, C, K = 60, 32, 3
 # 5 layers, the NeDDF trunk shape at narrow width: layer 3 consumes [seg0, h]

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from neddf_tpu_torch.kernels import dual_mlp as tdm
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ACTS = ["tanhExp", "ReLU", "LeakyReLU", "Softplus", "Sigmoid"]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

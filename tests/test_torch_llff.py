@@ -23,6 +23,7 @@ from neddf_tpu.data.llff import generate_forward_facing_dataset
 from neddf_tpu_torch.data import LLFFDataset
 from neddf_tpu_torch.data.llff import area_downsample, read_bgr
 from neddf_tpu_torch.scripts import dataset_visualizer
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -18,6 +18,7 @@ from neddf_tpu.data.llff import generate_forward_facing_dataset
 from neddf_tpu_torch.scripts import fields_visualizer, run_eval
 from neddf_tpu_torch.scripts import run as trun
 from neddf_tpu_torch.utils.png import read_png, write_png
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NDC = ["dataset.recenter=true", "render.ndc=true", "render.ndc_near=2.0",
        "render.sampling_type=point"]

@@ -32,6 +32,7 @@ from neddf_tpu_torch.training.logger import BaseLogger, NeRFTBLogger
 from neddf_tpu_torch.utils.profiling import StepProfiler
 from tests.test_torch_train_step import scene, tiny_config  # noqa: F401
 from tests.training.test_watchdog import _child_cmd
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _capture(base):

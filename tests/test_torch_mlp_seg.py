@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from neddf_tpu_torch.kernels import mlp as tmlp
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 C = 32
 M = 1024  # one forward tile, two backward tiles of the Pallas kernel

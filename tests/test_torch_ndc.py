@@ -24,6 +24,7 @@ from neddf_tpu_torch.geometry.camera import PinholeCalib, create_rays, ndc_rays
 from neddf_tpu_torch.ops import occupancy as occ
 from neddf_tpu_torch.render.renderer import NeRFRender
 from neddf_tpu_torch.training.checkpoint import params_from_jax
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 # tests/render/test_ndc.py's rig: a camera near the origin looking along -z
 CALIB = np.array([120.0, 120.0, 64.0, 48.0], np.float32)

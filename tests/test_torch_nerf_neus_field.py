@@ -46,6 +46,7 @@ from tests.test_torch_train_field import (
     _render_inputs,
     _sampling,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NERF = dict(embed_pos_rank=6, embed_dir_rank=2, layer_count=4, layer_width=32, skips=(1,),
             lowpass_alpha_offset=4, activation_type="ReLU", density_activation_type="ReLU")

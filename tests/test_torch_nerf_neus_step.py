@@ -32,6 +32,7 @@ from neddf_tpu_torch.training.checkpoint import params_from_jax
 from neddf_tpu_torch.utils.png import read_png
 from tests.test_torch_train_field import _close, _flat_grads
 from tests.test_torch_train_step import _jax_draws, _jax_grads
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = {

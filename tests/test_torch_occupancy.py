@@ -25,6 +25,7 @@ from neddf_tpu_torch.geometry.camera import PinholeCalib
 from neddf_tpu_torch.ops import occupancy as occ
 from neddf_tpu_torch.render.renderer import NeRFRender
 from neddf_tpu_torch.training.checkpoint import params_from_jax
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NETWORK = {
     "_target_": "neddf_tpu.fields.NeDDF",

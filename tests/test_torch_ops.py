@@ -31,6 +31,7 @@ from neddf_tpu_torch.ops import compositing as tcomp
 from neddf_tpu_torch.ops import dual as tdual
 from neddf_tpu_torch.ops import pe as tpe
 from neddf_tpu_torch.ops import sampling as tsamp
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CONE_RADIUS = 1.0 / 1111.0 / np.sqrt(12.0)
 

@@ -15,6 +15,7 @@ from neddf_tpu_torch import config as tconfig
 from neddf_tpu_torch.fields.neddf import NeDDF
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.training.trainer import resolve_device
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = sorted(

@@ -53,6 +53,7 @@ from neddf_tpu_torch.training.checkpoint import params_from_jax
 from neddf_tpu_torch.training.step import check_local_grad_accum, draw_pixel_batch, rank_rows
 from tests.test_torch_train_field import _flat_grads
 from tests.test_torch_train_step import _jax_draws
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 RANKS_TIMEOUT = 300  # seconds; a hung rank fails the test instead of the run

@@ -49,6 +49,7 @@ from tests.test_torch_parallel import (  # noqa: F401  (scene is a fixture)
     scene,
 )
 from tests.test_torch_train_field import _flat_grads
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 # ----------------------------------------------------------- the trainer

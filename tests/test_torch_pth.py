@@ -36,6 +36,7 @@ from neddf_tpu_torch.training.checkpoint import (
 )
 from tests.test_torch_train_field import FIELD
 from tests.test_torch_train_step import scene  # noqa: F401  (a fixture)
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 NETWORKS = {

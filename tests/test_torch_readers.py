@@ -12,6 +12,7 @@ from flax import serialization
 from neddf_tpu_torch.utils import yaml_subset
 from neddf_tpu_torch.utils.msgpack import load_msgpack, unpackb
 from neddf_tpu_torch.utils.png import read_png, write_png
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = REPO / "pretrained" / "machine_neddf" / "models" / "model_01000.ckpt"

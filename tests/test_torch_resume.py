@@ -42,6 +42,7 @@ from tests.test_torch_train_step import (  # noqa: F401  (scene is a fixture)
     scene,
     tiny_config,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CAMS = (0, 1, 1, 0, 1)
 

@@ -23,6 +23,7 @@ import torch
 
 from neddf_tpu_torch.kernels import sdf_mlp as tsdf
 from neddf_tpu_torch.ops import sdf_grad as tgrad
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 L, C, E = 4, 24, 30
 LAYOUT = (False, False, True, False)

@@ -18,6 +18,7 @@ from neddf_tpu.data import llff as jllff
 from neddf_tpu.data import synthetic as jsynthetic
 from neddf_tpu_torch.data import llff, synthetic
 from neddf_tpu_torch.utils.png import read_png
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 GENERATORS = {

@@ -34,6 +34,7 @@ import torch
 
 from neddf_tpu_torch.kernels import dual_mlp as tdm
 from neddf_tpu_torch.kernels import mlp as tmlp
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 R = 7003  # rows of the reduced or output side: not a multiple of any tile

@@ -38,6 +38,7 @@ from neddf_tpu_torch.kernels import mlp as tmlp
 from neddf_tpu_torch.kernels import sdf_mlp as tsdf
 from neddf_tpu_torch.ops import sdf_grad as tgrad
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 R = 2003  # rows of the reduced or output side: not a multiple of any tile
 NEUS_K = (36, 39, 256, 295)  # NeuS's PE width, the issue's E, a trunk layer, post-skip

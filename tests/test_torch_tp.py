@@ -58,6 +58,7 @@ from tests.test_torch_parallel import (  # noqa: F401  (scene is a fixture)
 from tests.test_torch_train_field import _flat_grads
 from tests.test_torch_train_step import _jax_draws
 from tests.test_torch_widths_acts import _dual_cfg, _dual_inputs, _rel
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 MESH_TP = {"data": 1, "model": 2}
 WALK_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-8}

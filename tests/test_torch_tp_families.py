@@ -43,6 +43,7 @@ from neddf_tpu_torch.kernels import mlp as tmlp
 from neddf_tpu_torch.kernels import sdf_mlp as tsdf
 from neddf_tpu_torch.ops import sdf_grad as tgrad
 from neddf_tpu_torch.parallel.mesh import field_param_specs, tp_shard_names
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 WIDE = 640
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -56,6 +56,7 @@ from tests.test_torch_parallel import (  # noqa: F401  (scene is a fixture)
 from tests.test_torch_tp_families import SMALL
 from tests.test_torch_train_field import _flat_grads
 from tests.test_torch_train_step import _jax_draws
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 MESH_TP = {"data": 1, "model": 2}
 FAMILIES = ("nerf", "neus")

@@ -59,6 +59,7 @@ from tests.test_torch_widths_acts import (  # noqa: F401  (jx is a fixture)
     _rel,
     jx,
 )
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 SMALL_NEDDF = {
     "_target_": "neddf_tpu.fields.NeDDF", "embed_pos_rank": 4, "embed_dir_rank": 2,

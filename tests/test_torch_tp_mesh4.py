@@ -35,6 +35,7 @@ from tests.test_torch_parallel import (  # noqa: F401  (scene is a fixture)
     start_ranks,
 )
 from tests.test_torch_train_step import _jax_draws
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 MESH_2X2 = {"data": 2, "model": 2}
 

@@ -24,6 +24,7 @@ from neddf_tpu_torch.geometry.camera import PinholeCalib
 from neddf_tpu_torch.geometry.rays import Sampling
 from neddf_tpu_torch.render.renderer import NeRFRender
 from neddf_tpu_torch.training.checkpoint import params_from_jax
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 FIELD = dict(embed_pos_rank=6, embed_dir_rank=2, ddf_layer_count=5, ddf_layer_width=32,
              col_layer_count=4, col_layer_width=32, d_near=0.001, skips=(1,),

@@ -29,6 +29,7 @@ from neddf_tpu_torch.kernels import dual_mlp as tdm
 from neddf_tpu_torch.kernels import neddf_epilogue as tepi
 from neddf_tpu_torch.ops import activations as tact
 from neddf_tpu_torch.ops import dual as tdual
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 C = 32
 M_JAX = 2 * 512  # two row tiles of the Pallas kernels (TILE_M = TILE = 512)

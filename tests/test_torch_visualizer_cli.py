@@ -31,6 +31,7 @@ from neddf_tpu_torch.training.checkpoint import params_to_jax
 from neddf_tpu_torch.training.trainer import build_renderer
 from neddf_tpu_torch.utils.msgpack import save_msgpack
 from neddf_tpu_torch.utils.png import read_png
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 NETWORK = {

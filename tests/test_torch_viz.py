@@ -12,6 +12,7 @@ from neddf_tpu.viz import marching as jmarching
 from neddf_tpu.viz import mesh_io as jmesh_io
 from neddf_tpu_torch.viz import geoms, gui, marching, mesh_io
 from tests.viz.test_gui import _FakeDataset, _make_fake_o3d, _mesh_fn
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _volumes():

@@ -31,6 +31,7 @@ from neddf_tpu_torch.fields.base import Schedule, voxelize
 from neddf_tpu_torch.fields.nerf import NeRF
 from neddf_tpu_torch.fields.neus import NeuS
 from neddf_tpu_torch.training.checkpoint import load_msgpack_params, params_from_jax
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 RUN = REPO / "pretrained" / "machine_neddf"

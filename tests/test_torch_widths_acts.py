@@ -60,6 +60,7 @@ from neddf_tpu_torch.kernels import neddf_epilogue as tepi
 from neddf_tpu_torch.kernels import sdf_mlp as tsdf
 from neddf_tpu_torch.ops import activations as tact
 from neddf_tpu_torch.ops import sdf_grad as tgrad
+from tests.torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NEW_ACTS = ("Softplus", "Sigmoid")
 ALL_ACTS = ("tanhExp", "ReLU", "LeakyReLU", "Softplus", "Sigmoid")
