@@ -15,8 +15,9 @@ Phases (any failure stops the script with a non-zero exit code):
    built library's SASS every product kernel, tile forward and NeuS
    sweep has HMMA (tensor-core) instructions, on TF32 operands
    in the f32 instantiations (the 3xTF32 split) and not in the bf16
-   ones, and ptxas reports no spills in them nor in the epilogue
-   backward's 52 instantiations;
+   ones (the wgmma kernels, ``WGMMA_FUNCTIONS``, HGMMA and no HMMA),
+   and ptxas reports no spills in them nor in the epilogue backward's
+   52 instantiations;
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -50,11 +51,17 @@ Phases (any failure stops the script with a non-zero exit code):
 6b. the tensor-core product of the backwards alone, bf16 at the fine
    trunk's shapes (dx and dW over 4 x 99,328 rows, layer 0's fan-in 60,
    NeRF's 3-wide last layer, a ragged row count) and f32 (3xTF32) at the
-   NeuS backward's (dx, dW and the sweep adjoint over 265,216 rows, the
-   36-wide PE side, the colour trunk's 3-wide last layer, a ragged row
-   count), against its plain version, with the times of both, of
-   ``torch.matmul`` on the same operands (f32: TF32 off) and the bound,
-   and TFLOP/s;
+   NeuS backward's (dx and dW over 265,216 rows, the 36-wide PE side,
+   the colour trunk's 3-wide last layer, a ragged row count), against
+   its plain version, with the times of both, of ``torch.matmul`` on the
+   same operands (f32: TF32 off) and the bound, and TFLOP/s; then the
+   products with an activation folded in (route_nt's epilogue:
+   ``nt_act``, ``nn_adjoint``, ``nt_gstack``; route_tn's prologue:
+   ``tn_act``, ``tn_dual_act``) at the shipped steps' shapes, timed the
+   same way, and over a grid of the five activations, bf16 and f32, S =
+   2 and 4, a ragged row count, the raw seg0 columns and the sweep
+   adjoint's two K segments, dW and db bitwise over two runs
+   (``phase_fold_products``);
 7. one train step of ``pretrained/machine_neddf`` at full width (its
    ``.hydra`` config on ``data/machine``, params of epoch 1000, iteration
    100,000, camera 0, ``MACHINE_BATCH`` rays from ``machine_step_draws``):
@@ -584,19 +591,17 @@ def card_line() -> str:
 
 # phase 2: the kernels that must run on the tensor cores (by the mangled
 # names in the library) and how many instantiations each has
-# tc_gemm_kernel: bf16 and f32 x nt, tn, nn plain (6); the activation
-# prologue on tn (bf16 and f32 x tanhExp, ReLU, LeakyReLU, Softplus,
-# Sigmoid: 10), the epilogue on nt (the same 10) and on nn (f32 x 5); the
-# dual backward's products over rows grouped by point, its layer-input
-# prologue on tn and its stacked-cotangent epilogue on nt (bf16 and f32 x
-# 5 activations x S = 2, 4: 20 each)
-TC_FUNCTIONS = {"tc_gemm_kernel": 71,
+# tc_gemm_kernel: bf16 and f32, the nt layout alone (2: an nt of a depth
+# under 8; every other product runs on route_nt / route_tn)
+TC_FUNCTIONS = {"tc_gemm_kernel": 2,
                 # the per-layer route's wide layer forward on wgmma (HGMMA): bf16
                 # and f32 x the 5 activations
                 "layer_fwd_wide": 10,
-                # the per-layer route's plain backward products on wgmma: dx
-                # (route_nt) and dW (route_tn), bf16 and f32
-                "route_nt": 2, "route_tn": 2,
+                # the backward products on wgmma: dx (route_nt) and dW (route_tn),
+                # bf16 and f32 x plain (1), with the activation's epilogue /
+                # prologue (the 5 activations) and the dual products over rows
+                # grouped by point (the 5 activations x S = 2, 4): 16 each
+                "route_nt": 32, "route_tn": 32,
                 # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
                 # classes 64, 128, 256, 512
                 "mlp_tile_fwd": 120,
@@ -857,8 +862,9 @@ def phase_train_kernels(torch, sd, card: str) -> dict:
     results = {}
 
     def dual_counts():
+        folded = dm.folded_launches()
         return (dm.PASS_LAUNCHES["gstack"], dm.PASS_LAUNCHES["dual_act"],
-                dm.Products.epilogue_launches, dm.Products.prologue_launches)
+                folded["epilogue"], folded["prologue"])
 
     def check_dual_counts(what, before, n_layers):
         # the top layer's gstack alone; below it the stacked cotangent and
@@ -1112,10 +1118,11 @@ def product_cases(torch, gen, dev):
     bf16: the fine trunk's dx and dW (4 streams x 99,328 rows, C = 256),
     layer 0's narrow side (fan-in 60), NeRF's 3-wide last layer (K = 3 in
     nt, N = 3 in tn) and a ragged row count. f32 (the NeuS backward, one
-    network over both passes' 265,216 rows): the trunk's dx, dW and the
-    sweep adjoint's pbar = qbar W (nn), the PE side (E = 36: dW of layer
-    0, cg W_0, the post-skip layer's e rows), the colour trunk's 3-wide
-    last layer and a ragged row count. The per-layer route's products at
+    network over both passes' 265,216 rows): the trunk's dx and dW, the
+    PE side (E = 36: dW of layer 0, the post-skip layer's e rows), the
+    colour trunk's 3-wide last layer and a ragged row count (the sweep
+    adjoint's nn, with its epilogue, is a folded mode:
+    ``phase_fold_products``). The per-layer route's products at
     width 1024 (route_nt, route_tn: the K=3 trunk's 4 x 99,328 rows in
     bf16, NeuS's 265,216 in f32) and a tensor-parallel shard of 512."""
     def bf(*shape):
@@ -1137,14 +1144,11 @@ def product_cases(torch, gen, dev):
         (f"tn ragged ({rr} rows)", "tn", bf(rr, 256), bf(rr, 256)),
         ("f32 nt NeuS trunk dx", "nt", f32(rs, 256), f32(256, 256)),
         ("f32 tn NeuS trunk dW", "tn", f32(rs, 256), f32(rs, 256)),
-        ("f32 nn NeuS sweep adjoint", "nn", f32(rs, 256), f32(256, 256)),
         (f"f32 tn NeuS layer 0 dW (m={e})", "tn", f32(rs, e), f32(rs, 256)),
-        (f"f32 nn NeuS cg W0 (K={e})", "nn", f32(rs, e), f32(e, 256)),
         (f"f32 nt NeuS e rows dx (N={e})", "nt", f32(rs, 256), f32(e, 256)),
         ("f32 nt NeuS colour last layer dx (K=3)", "nt", f32(rs, 3), f32(256, 3)),
         ("f32 tn NeuS colour last layer dW (N=3)", "tn", f32(rs, 256), f32(rs, 3)),
         (f"f32 tn ragged ({rsr} rows)", "tn", f32(rsr, 256), f32(rsr, 256)),
-        ("nn fine trunk", "nn", bf(r, 256), bf(256, 256)),
         ("nt route dx 1024", "nt", bf(r, 1024), bf(1024, 1024)),
         ("tn route dW 1024", "tn", bf(r, 1024), bf(r, 1024)),
         ("nt route dx shard 512", "nt", bf(r, 512), bf(1024, 512)),
@@ -1162,18 +1166,15 @@ def product_call(layout, a, b):
     if layout == "nt":  # a [R, k] times b [n, k]^T
         (m, k), n = a.shape, b.shape[0]
         return (m, n, k, a, k, 1, b, 1, k), lambda: torch.matmul(a, b.T)
-    if layout == "tn":  # a [R, m]^T times b [R, n], over R rows
-        (k, m), n = a.shape, b.shape[1]
-        return (m, n, k, a, 1, m, b, n, 1), lambda: torch.matmul(a.T, b)
-    (m, k), n = a.shape, b.shape[1]  # nn: a [R, k] times b [k, n]
-    return (m, n, k, a, k, 1, b, n, 1), lambda: torch.matmul(a, b)
+    (k, m), n = a.shape, b.shape[1]  # tn: a [R, m]^T times b [R, n], over R rows
+    return (m, n, k, a, 1, m, b, n, 1), lambda: torch.matmul(a.T, b)
 
 
 def product_kernel(dm) -> tuple:
-    """The product kernels' launch counts so far: (route_nt, route_tn,
-    tc_gemm_kernel)."""
+    """The plain product kernels' launch counts so far: (route_nt,
+    route_tn, tc_gemm_kernel)."""
     return (dm.ROUTE_PRODUCT_LAUNCHES["nt"], dm.ROUTE_PRODUCT_LAUNCHES["tn"],
-            dm.Products.tc_launches + dm.Products.tf32x3_launches)
+            sum(dm.GEMM_LAUNCHES.values()))
 
 
 def host_ms(torch, fn, calls: int = 20) -> float:
@@ -1188,9 +1189,9 @@ def host_ms(torch, fn, calls: int = 20) -> float:
 
 
 def phase_products(torch, card: str) -> dict:
-    """Phase 6b: the products of the backwards (``Products``: the plain nt
-    and tn on the per-layer route's ``route_nt`` / ``route_tn``, NeRF's K =
-    3 dx and the nn on ``neddf_gemm_tc``) against their plain version, with
+    """Phase 6b: the plain products of the backwards (``Products``: the nt
+    and tn on ``route_nt`` / ``route_tn``, NeRF's K = 3 dx on
+    ``neddf_gemm_tc``) against their plain version, with
     the times of both, of ``torch.matmul`` on the same operands (the
     yardstick, bf16 out for bf16 operands, f32 with TF32 off for f32 ones;
     the port never calls it) and the bound, TFLOP/s and the host's ms per
@@ -1247,6 +1248,220 @@ def phase_products(torch, card: str) -> dict:
     return results
 
 
+# phase 6b: the products with an activation folded in (csrc/
+# route_products.cu: route_nt with the epilogue, route_tn with the
+# prologue) at the shipped steps' shapes, timed, and over a grid of the
+# five activations at a ragged row count (against every tile: 128, 64 and
+# 32 points); bars: their f32 outputs (dW, db, the raw and the kept
+# product) PRODUCT_REL_TOL, their T outputs GRID_TOL (phase 21's)
+FOLD_GRID_ROWS = 33_287
+FOLD_ACTS = ("tanhExp", "ReLU", "LeakyReLU", "Softplus", "Sigmoid")
+
+
+def fold_shipped_cases(torch, gen, dev) -> list:
+    """(name, mode, dtype name, kernel call, plain call, torch.matmul of
+    the bare product, flops, bytes) at the shapes of the shipped steps:
+    NeDDF's K=3 trunk (S = 4) and K=1 colour trunk (S = 2) over 99,328
+    points, tanhExp, bf16; NeRF's trunk over 198,656 rows (ReLU, bf16:
+    a hidden layer, the post-skip layer's 60 raw seg0 columns, dW); NeuS
+    over 265,216 rows (ReLU, f32: the sdf trunk's descending nt with the
+    side plane, 36 raw columns and db, the sweep's replay, the adjoint's
+    [qbar | cg] W, dW)."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    cases = []
+    pts, c = M_TRAIN, 256
+    for s_, tag in ((4, "K=3 trunk"), (2, "K=1 colour")):
+        gs, z = rnd(s_, pts, c, scale=0.1), rnd(s_, pts, c)
+        w = rnd(c, c, scale=1 / 16)
+        k, kp = dm.DualProducts(torch.bfloat16, dev), dm.DualProductsPlain(torch.bfloat16)
+        rows = s_ * pts
+        cases.append((f"nt_gstack {tag} (S={s_}, {pts} points, bf16, tanhExp)", "nt_gstack",
+                      "bfloat16", lambda k=k, gs=gs, w=w, z=z: k.nt_gstack(gs, w, z, "tanhExp"),
+                      lambda kp=kp, gs=gs, w=w, z=z: kp.nt_gstack(gs, w, z, "tanhExp"),
+                      lambda gs=gs, w=w, rows=rows: torch.matmul(gs.view(rows, c), w.T),
+                      2.0 * rows * c * c, 2 * (3 * rows * c + c * c) + 4 * c))
+        cases.append((f"tn_dual_act {tag} (S={s_}, {pts} points, bf16, tanhExp)",
+                      "tn_dual_act", "bfloat16",
+                      lambda k=k, gs=gs, z=z: k.tn_dual_act(z, gs, "tanhExp"),
+                      lambda kp=kp, gs=gs, z=z: kp.tn_dual_act(z, gs, "tanhExp"),
+                      lambda gs=gs, z=z, rows=rows: torch.matmul(z.view(rows, c).T,
+                                                                 gs.view(rows, c)),
+                      2.0 * rows * c * c, 2 * 2 * rows * c + 4 * c * c))
+    r = M_NERF_FINE
+    k, kp = dm.Products(torch.bfloat16, dev), dm.ProductsPlain(torch.bfloat16)
+    g, z = rnd(r, c, scale=0.1), rnd(r, c)
+    for n in (c, c + 60):
+        w = rnd(n, c, scale=1 / 16)
+        cases.append((f"nt_act NeRF {'post-skip, 60 raw' if n > c else 'hidden'} ({r} rows, "
+                      f"bf16, ReLU, db)", "nt_act", "bfloat16",
+                      lambda k=k, g=g, w=w, z=z: k.nt_act(g, w, z, "ReLU", n_act=c, db=True),
+                      lambda kp=kp, g=g, w=w, z=z: kp.nt_act(g, w, z, "ReLU", n_act=c, db=True),
+                      lambda g=g, w=w: torch.matmul(g, w.T), 2.0 * r * c * n,
+                      2 * (r * c + n * c + r * c + r * c) + 4 * r * (n - c) + 4 * c))
+    cases.append((f"tn_act NeRF ({r} rows, bf16, ReLU)", "tn_act", "bfloat16",
+                  lambda k=k, g=g, z=z: k.tn_act(z, g, "ReLU"),
+                  lambda kp=kp, g=g, z=z: kp.tn_act(z, g, "ReLU"),
+                  lambda g=g, z=z: torch.matmul(z.T, g), 2.0 * r * c * c,
+                  2 * 2 * r * c + 4 * c * c))
+    r, e = M_NEUS, SDF_FANS[0]
+    k, kp = dm.Products(torch.float32, dev), dm.ProductsPlain(torch.float32)
+    f32 = torch.float32
+    g, z, side = rnd(r, c, dtype=f32, scale=0.1), rnd(r, c, dtype=f32), rnd(r, c, dtype=f32)
+    cg = rnd(r, e, dtype=f32)
+    w_skip = rnd(c + e, c, dtype=f32, scale=1 / 16)
+    w = w_skip[:c]
+    cases += [
+        (f"nt_act NeuS sdf trunk (post-skip, side plane, {e} raw, db; {r} rows, f32, ReLU)",
+         "nt_act", "float32",
+         lambda: k.nt_act(g, w_skip, z, "ReLU", add=side, n_act=c, db=True),
+         lambda: kp.nt_act(g, w_skip, z, "ReLU", add=side, n_act=c, db=True),
+         lambda: torch.matmul(g, w_skip.T), 2.0 * r * c * (c + e),
+         4 * (r * c + (c + e) * c + 3 * r * c + r * e + c)),
+        (f"nt_act NeuS sweep replay ({r} rows, f32, ReLU)", "nt_act", "float32",
+         lambda: k.nt_act(g, w, z, "ReLU"), lambda: kp.nt_act(g, w, z, "ReLU"),
+         lambda: torch.matmul(g, w.T), 2.0 * r * c * c, 4 * (3 * r * c + c * c)),
+        (f"nn_adjoint NeuS [qbar | cg] W ({c} + {e}; {r} rows, f32, ReLU)", "nn_adjoint",
+         "float32", lambda: k.nn_adjoint(g, w_skip, z, "ReLU", a2=cg),
+         lambda: kp.nn_adjoint(g, w_skip, z, "ReLU", a2=cg),
+         lambda: torch.matmul(torch.cat([g, cg], dim=1), w_skip), 2.0 * r * (c + e) * c,
+         4 * (r * (c + e) + (c + e) * c + 2 * r * c)),
+        (f"tn_act NeuS ({r} rows, f32, ReLU)", "tn_act", "float32",
+         lambda: k.tn_act(z, g, "ReLU"), lambda: kp.tn_act(z, g, "ReLU"),
+         lambda: torch.matmul(z.T, g), 2.0 * r * c * c, 4 * (2 * r * c + c * c)),
+    ]
+    return cases
+
+
+def _fold_outputs(out) -> list:
+    """A folded product's outputs as a list (None where not asked for)."""
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def fold_grid(torch, dev, dtype) -> dict:
+    """Each folded mode against its plain version at FOLD_GRID_ROWS rows
+    under the five activations: nt_act (the side plane, 36 raw columns and
+    db; the kept product), tn_act, nt_gstack and tn_dual_act at S = 2 and
+    4, and in f32 nn_adjoint over [qbar | cg] (with q; the top where f''
+    is not zero) and over cg alone; dW and db bitwise equal over two
+    runs. Returns the worst max abs and rel errors by mode."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+    from neddf_tpu_torch.ops.activations import SECOND_DERIVATIVE_ZERO
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    name = str(dtype).replace("torch.", "")
+    f32 = torch.float32
+
+    def rnd(*shape, t=dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(t)
+
+    r, c, e = FOLD_GRID_ROWS, 256, 36
+    k, kp = dm.DualProducts(dtype, dev), dm.DualProductsPlain(dtype)
+    g, z, side = rnd(r, c, scale=0.1), rnd(r, c), rnd(r, c, t=f32, scale=0.1)
+    w_skip = rnd(c + e, c, scale=1 / 16)
+    worst = {}
+
+    def hold(mode, act, got, ref, exact):
+        for i, (a, b) in enumerate(zip(_fold_outputs(got), _fold_outputs(ref))):
+            if (a is None) != (b is None):
+                fail(f"[6b] {mode} {name} {act}: output {i} missing")
+            if a is None:
+                continue
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                fail(f"[6b] {mode} {name} {act}: output {i} shape {tuple(a.shape)} or "
+                     f"non-finite")
+            err, rel = rel_err(torch, a, b)
+            bar = PRODUCT_REL_TOL if a.dtype == f32 else GRID_TOL[name]
+            if rel > bar:
+                fail(f"[6b] {mode} {name} {act}: output {i} rel err {rel:.3g} > {bar}")
+            old = worst.get(mode, (0.0, 0.0))
+            worst[mode] = (max(old[0], err), max(old[1], rel))
+        for i in exact:  # dW and db: the same bits on a second run
+            if not torch.equal(_fold_outputs(got)[i], _fold_outputs(exact[i]())[i]):
+                fail(f"[6b] {mode} {name} {act}: output {i} differs over two runs")
+
+    for act in FOLD_ACTS:
+        call = lambda: k.nt_act(g, w_skip, z, act, add=side, n_act=c, db=True)  # noqa: E731
+        hold("nt_act", act, call(), kp.nt_act(g, w_skip, z, act, add=side, n_act=c, db=True),
+             {3: call})
+        hold("nt_act", act, k.nt_act(g, w_skip[:c], z, act, keep=True),
+             kp.nt_act(g, w_skip[:c], z, act, keep=True), {})
+        call = lambda: k.tn_act(z, g, act)  # noqa: E731
+        hold("tn_act", act, call(), kp.tn_act(z, g, act), {0: call})
+        for s_ in (2, 4):
+            pts = r // s_
+            gs, zs = rnd(s_, pts, c, scale=0.1), rnd(s_, pts, c)
+            w = w_skip[:c]
+            call = lambda: k.nt_gstack(gs, w, zs, act)  # noqa: E731
+            hold(f"nt_gstack S={s_}", act, call(), kp.nt_gstack(gs, w, zs, act), {1: call})
+            call = lambda: k.tn_dual_act(zs, gs, act)  # noqa: E731
+            hold(f"tn_dual_act S={s_}", act, call(), kp.tn_dual_act(zs, gs, act), {0: call})
+        if dtype == f32:
+            cg, q = rnd(r, e), rnd(r, c)
+            hold("nn_adjoint [qbar | cg]", act, k.nn_adjoint(g, w_skip, z, act, a2=cg, q=q),
+                 kp.nn_adjoint(g, w_skip, z, act, a2=cg, q=q), {})
+            hold("nn_adjoint cg", act, k.nn_adjoint(cg, w_skip[c:], z, act, q=q),
+                 kp.nn_adjoint(cg, w_skip[c:], z, act, q=q), {})
+            if act not in SECOND_DERIVATIVE_ZERO:
+                hold("nn_adjoint top", act, k.nn_adjoint(g, w_skip, z, act, a2=cg, top=True),
+                     kp.nn_adjoint(g, w_skip, z, act, a2=cg, top=True), {})
+    torch.cuda.synchronize()
+    return {mode: {"max_abs_err": v[0], "rel_err": v[1]} for mode, v in worst.items()}
+
+
+def phase_fold_products(torch, card: str) -> dict:
+    """Phase 6b, the folded modes: each mode at the shipped steps' shapes
+    against its plain version, timed (kernel, plain, torch.matmul of the
+    bare product: the yardstick, which the port never calls), with its
+    bound and TFLOP/s; one launch of its own kernel a call and none of
+    tc_gemm_kernel; then the grid of ``fold_grid``."""
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {"shipped": {}, "grid": {}}
+    for name, mode, dtype_name, kernel, plain, library, flops, nbytes in fold_shipped_cases(
+            torch, gen, dev):
+        before = dict(dm.FOLD_LAUNCHES), sum(dm.GEMM_LAUNCHES.values())
+        got = _fold_outputs(kernel())
+        ran = {m: dm.FOLD_LAUNCHES[m] - before[0][m] for m in dm.FOLD_LAUNCHES}
+        if ran != {m: int(m == mode) for m in ran} or sum(dm.GEMM_LAUNCHES.values()) != before[1]:
+            fail(f"[6b] {name}: launches {ran}, tc_gemm_kernel "
+                 f"{sum(dm.GEMM_LAUNCHES.values()) - before[1]}; one {mode} expected")
+        ref = _fold_outputs(plain())
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, a, b) for a, b in zip(got, ref) if a is not None]
+        bar = max(PRODUCT_REL_TOL if a.dtype == torch.float32 else GRID_TOL[dtype_name]
+                  for a in got if a is not None)
+        if any(rel > bar for _, rel in errs):
+            fail(f"[6b] {name}: rel errs {errs} over {bar}")
+        del got, ref
+        ms, plain_ms = time_pair(torch, kernel, plain, reps=3, inner=10)
+        library_ms, _ = time_pair(torch, library, library, reps=3, inner=10)
+        r = {"mode": mode, "dtype": dtype_name, "max_abs_err": max(e for e, _ in errs),
+             "rel_err": max(rel for _, rel in errs), "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "tflops": flops / ms / 1e9,
+             "host_ms": host_ms(torch, kernel),
+             **bound(flops, nbytes, "tf32x3" if dtype_name == "float32" else "bfloat16")}
+        out["shipped"][name] = r
+        log(f"[6b] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul of the bare "
+            f"product {library_ms:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}), "
+            f"{r['tflops']:.1f} TFLOP/s, host {r['host_ms']:.4f} ms a call, rel err "
+            f"{r['rel_err']:.2e} | card: {card}")
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        out["grid"][name] = fold_grid(torch, dev, dtype)
+        log(f"[6b] folded modes {name} at {FOLD_GRID_ROWS} rows, the 5 activations, S = 2 and "
+            f"4, raw and kept columns, two K segments: dW and db bitwise over two runs; worst "
+            f"errs {json.dumps(out['grid'][name])}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _pass_counters(dm) -> list:
     """The elementwise passes' launch counters of the three kernel modules."""
     from neddf_tpu_torch.kernels import mlp
@@ -1256,26 +1471,25 @@ def _pass_counters(dm) -> list:
 
 
 def route_counts(dm) -> dict:
-    """Launches of the product kernel and of the tile forward by operand
-    type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split); of the
-    products with an activation folded in; of the elementwise passes."""
+    """Launches of tc_gemm_kernel ("products") and of the tile forward by
+    operand type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split);
+    of the products with an activation folded in, by end ("folded") and
+    by mode ("fold"); of the elementwise passes."""
     passes = {}
     for counter in _pass_counters(dm):
         passes.update(counter)
-    return {"products": {"tc": dm.Products.tc_launches, "tf32x3": dm.Products.tf32x3_launches},
-            "folded": {"prologue": dm.Products.prologue_launches,
-                       "epilogue": dm.Products.epilogue_launches},
+    return {"products": dict(dm.GEMM_LAUNCHES), "folded": dm.folded_launches(),
             "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes,
             "layer_forward_kernels": dict(dm.LAYER_FWD_LAUNCHES),
             "layer_forward_wide_streams": dict(dm.LAYER_FWD_WIDE_STREAMS),
             "layer_forward_host_s": dm.LAYER_FWD_HOST["s"],
             "route_products": dict(dm.ROUTE_PRODUCT_LAUNCHES),
-            "route_products_host_s": dm.ROUTE_PRODUCT_HOST["s"]}
+            "route_products_host_s": dm.ROUTE_PRODUCT_HOST["s"],
+            "fold": dict(dm.FOLD_LAUNCHES)}
 
 
 def reset_route_counts(dm) -> None:
-    dm.Products.tc_launches = dm.Products.tf32x3_launches = 0
-    dm.Products.prologue_launches = dm.Products.epilogue_launches = 0
+    dm.GEMM_LAUNCHES.update(tc=0, tf32x3=0)
     dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
     dm.ROUTE_LAUNCHES.update(fwd=0, fwd_value=0)
     dm.LAYER_FWD_LAUNCHES.update(narrow=0, wide=0)
@@ -1283,19 +1497,25 @@ def reset_route_counts(dm) -> None:
     dm.LAYER_FWD_HOST["s"] = 0.0
     dm.ROUTE_PRODUCT_LAUNCHES.update(nt=0, tn=0)
     dm.ROUTE_PRODUCT_HOST["s"] = 0.0
+    dm.FOLD_LAUNCHES.update({mode: 0 for mode in dm.FOLD_LAUNCHES})
     for counter in _pass_counters(dm):
         counter.update({k: 0 for k in counter})
 
 
 def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> None:
-    """A run in one compute dtype: every product and every tile forward on
-    its route ("tc" for bf16, "tf32x3" for f32), none on the other, and
-    both launched."""
+    """A run in one compute dtype: every tile forward and every launch of
+    tc_gemm_kernel (an nt of a depth under ROUTE_NT_MIN_K, all it keeps) on
+    its route ("tc" for bf16, "tf32x3" for f32), none on the other, the
+    tile forward launched; a backward's products with an activation
+    folded in launched (route_nt / route_tn on wgmma; their launchers
+    refuse an operand of another type than the run's)."""
     other = {"tc": "tf32x3", "tf32x3": "tc"}[route]
     if counts["tile_forward"][other] or counts["tile_forward"][route] < 1:
         fail(f"{what}: tile forward routes {counts['tile_forward']}, expected {route} only")
-    if backward and (counts["products"][other] or counts["products"][route] < 1):
-        fail(f"{what}: product routes {counts['products']}, expected {route} only")
+    if backward and counts["products"][other]:
+        fail(f"{what}: tc_gemm_kernel routes {counts['products']}, expected {route} only")
+    if backward and sum(counts["fold"].values()) < 1:
+        fail(f"{what}: folded products {counts['fold']} (route_nt / route_tn expected)")
 
 
 def machine_trainer(torch, optimize_camera: bool = False):
@@ -1453,7 +1673,7 @@ def phase_train_run(torch, card: str) -> dict:
                "neddf_epilogue_gstack": epi.neddf_epilogue_gstack}
     plains = [dm.dual_mlp_trunk_plain, dm.dual_mlp_seg_plain, dm.dual_mlp_seg_bwd_plain,
               mlp.mlp_seg_plain, epi.neddf_epilogue_plain, epi.neddf_epilogue_bwd_plain,
-              epi.neddf_epilogue_gstack_plain]
+              epi.neddf_epilogue_gstack_plain, dm.route_product_plain]
     # the epilogue backward's standalone mode: off the main path, which runs
     # its top mode
     standalone = epi.neddf_epilogue_bwd
@@ -4725,10 +4945,10 @@ def epilogue_cases(torch, g, rnd, m: int, n: int, e: int, hold) -> dict:
 
 
 def walk_route_products(fn, what: str):
-    """(fn(), the products it launched by kernel: route_nt, route_tn,
-    tc_gemm_kernel): a walk backward's plain products on route_nt and
-    route_tn (fails unless both launched; the sweep's adjoint stays on
-    tc_gemm_kernel)."""
+    """(fn(), the plain products it launched by kernel: route_nt,
+    route_tn, tc_gemm_kernel): a walk backward's plain products on
+    route_nt and route_tn (fails unless both launched; the sweep's
+    adjoint runs on route_nt with its epilogue, counted apart)."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     before = product_kernel(dm)
@@ -4994,8 +5214,9 @@ def route_product_counts(what: str, counts: dict) -> dict:
     """``counts["route_products"]``: the per-layer route's plain products of
     a path (read just after it was driven), by kernel (route_nt, route_tn;
     csrc/route_products.cu) and the host seconds in ``Products.nt`` /
-    ``.tn`` on them; fails unless both launched (the plain versions'
-    calls are ``read_path_counts``'s plain calls)."""
+    ``.tn`` on them; fails unless both launched (tc_gemm_kernel takes
+    nothing but an nt of a depth under 8; the plain versions' calls are
+    ``read_path_counts``'s plain calls)."""
     routes = counts["routes"]
     launches = routes["route_products"]
     if min(launches.values()) < 1:
@@ -6556,6 +6777,7 @@ def main() -> int:
     # ---- phase 6: the training path's kernel routes against their plain versions
     train_kernels = phase_train_kernels(torch, sd, card)
     products = phase_products(torch, card)
+    fold = phase_fold_products(torch, card)
 
     # ---- phase 7: the full-width machine_neddf step against the JAX package
     machine = phase_machine_step(torch, card)
@@ -6708,17 +6930,22 @@ def main() -> int:
         family_entry("sdf_mlp (NeuS trunk + channel-0 sweep)", "neus", "sdf_mlp", sdf_key),
         family_entry("sdf_mlp_bwd", "neus", "sdf_mlp_bwd", sdf_key),
     ]
-    # the products of the backwards alone (the products inside the Pallas
-    # _bwd_kernel) on tc_gemm_kernel: bf16 at the fine trunk's nn layout,
-    # library_ms torch.matmul on the same bf16 operands (bf16 out); and the
-    # f32 product (3xTF32) at the NeuS sweep adjoint's nn; library_ms is
-    # torch.matmul on the same f32 operands, TF32 off
+    # tc_gemm_kernel (the products inside the Pallas _bwd_kernel, on mma.sync),
+    # which keeps an nt of a depth under 8 (a 3-wide layer's dx): phase 6b's
+    # K = 3 cases; library_ms torch.matmul on the same operands. An entry
+    # where a run launched it (the shipped runs' and, f32, NeuS-1024's
+    # colour output on the per-layer route, phase 25b)
     for name, case, dtype, launches, route in (
-            ("tc_gemm_kernel (bf16 products of the backwards, tensor cores)",
-             "nn fine trunk", "bfloat16", train["routes"]["products"]["tc"], "tc"),
-            ("tc_gemm_kernel (f32 products of the backwards, 3xTF32 on the tensor cores)",
-             "f32 nn NeuS sweep adjoint", "float32",
-             family_runs["neus"]["routes"]["products"]["tf32x3"], "tf32x3")):
+            ("tc_gemm_kernel (bf16 plain products: an nt of a depth under 8, tensor cores "
+             "by mma.sync)", "nt NeRF last layer dx (K=3)", "bfloat16",
+             train["routes"]["products"]["tc"] + family_runs["nerf"]["routes"]["products"]["tc"],
+             "tc"),
+            ("tc_gemm_kernel (f32 plain products: an nt of a depth under 8, 3xTF32 by "
+             "mma.sync)", "f32 nt NeuS colour last layer dx (K=3)", "float32",
+             family_runs["neus"]["routes"]["products"]["tf32x3"]
+             + tpf["run"]["neus_1024"]["routes"]["products"]["tf32x3"], "tf32x3")):
+        if not launches:
+            continue
         r = products[case]
         kernels.append({
             "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
@@ -6732,6 +6959,37 @@ def main() -> int:
                               if routes["products"][route]},
             "launches_dp": {"step_per_rank": (dp_step if route == "tc" else dp_f32)[
                 "routes"]["products"][route], "eval_per_rank": 0}})
+    # the products with an activation folded in, on wgmma + TMA (route_nt
+    # with the epilogue, route_tn with the prologue; phase 6b at the shipped
+    # shapes); launches: the main path's (NeDDF: the dual modes), the NeRF
+    # run's (bf16 nt_act, tn_act) and the NeuS run's (f32 nt_act,
+    # nn_adjoint, tn_act)
+    for mode, case, run, replaces in (
+            ("nt_gstack", "nt_gstack K=3 trunk (S=4, 99328 points, bf16, tanhExp)", train,
+             "neddf_tpu/kernels/dual_mlp.py:728"),
+            ("tn_dual_act", "tn_dual_act K=3 trunk (S=4, 99328 points, bf16, tanhExp)", train,
+             "neddf_tpu/kernels/dual_mlp.py:728"),
+            ("nt_act", f"nt_act NeRF hidden ({M_NERF_FINE} rows, bf16, ReLU, db)",
+             family_runs["nerf"], "neddf_tpu/kernels/mlp.py:248"),
+            ("tn_act", f"tn_act NeRF ({M_NERF_FINE} rows, bf16, ReLU)", family_runs["nerf"],
+             "neddf_tpu/kernels/mlp.py:248"),
+            ("nt_act", f"nt_act NeuS sdf trunk (post-skip, side plane, {SDF_FANS[0]} raw, db; "
+             f"{M_NEUS} rows, f32, ReLU)", family_runs["neus"], "neddf_tpu/kernels/sdf_mlp.py:304"),
+            ("nn_adjoint", f"nn_adjoint NeuS [qbar | cg] W (256 + {SDF_FANS[0]}; {M_NEUS} rows, "
+             f"f32, ReLU)", family_runs["neus"], "neddf_tpu/kernels/sdf_mlp.py:304"),
+            ("tn_act", f"tn_act NeuS ({M_NEUS} rows, f32, ReLU)", family_runs["neus"],
+             "neddf_tpu/kernels/sdf_mlp.py:304")):
+        r = fold["shipped"][case]
+        kname = "route_tn" if mode.startswith("tn") else "route_nt"
+        kernels.append({
+            "name": f"{kname} ({mode}: {case}; wgmma + TMA)", "route": "cuda",
+            "source": "neddf_tpu_torch/csrc/route_products.cu", "replaces": replaces,
+            "launches": run["routes"]["fold"][mode],
+            "max_abs_err": max([r["max_abs_err"]] + [v["max_abs_err"] for k, v in
+                                                     fold["grid"][r["dtype"]].items()
+                                                     if k.startswith(mode)]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "host_ms": r["host_ms"]})
     # the per-layer route's plain products on wgmma + TMA (phase 6b at width
     # 1024: bf16 the K=3 trunk's 4 x 99,328 rows, f32 NeuS's 265,216);
     # launches: the main path's (layer 0's sides, the post-skip layer's
@@ -6854,7 +7112,8 @@ def main() -> int:
         "ssim_full": ssim1, "seconds_per_image": secs, "rays_per_s": h * w / secs,
         "kernel_checks": {f"{m}/{d}": v for (m, d), v in results.items()},
         "render_check": render_check, "eval_launches": launches,
-        "train_kernel_checks": train_kernels, "products": products, "tensor_core_build": tc_build,
+        "train_kernel_checks": train_kernels, "products": products, "fold_products": fold,
+        "tensor_core_build": tc_build,
         "eval_routes": eval_routes, "machine_step": machine, "train_run": train,
         "bounds_slices_1_2": bounds, "family_kernel_checks": family_kernels,
         "family_steps": family_steps, "family_runs": family_runs,

@@ -10,7 +10,7 @@
 //   of the pre-activation gpre = g f'(z), rounded to T (the Pallas _mm_nt
 //   / _mm_tn cast it before both products), and one f32 partial of db =
 //   sum_rows gpre per block of rows;
-// * per layer l, two products on the tensor cores (dual_mlp_bwd.cu):
+// * per layer l, two products on the tensor cores (route_products.cu):
 //   dW = f(z_{l-1})^T gpre with the activation applied to the stash as the
 //   prologue of the tn product (the input rounded to T, as the forward
 //   fed it), and dx = gpre W^T over all of W's rows with the epilogue
@@ -22,7 +22,7 @@
 //
 // What bounds it on the H100: the two products per layer, 2 * M * C *
 // fan_in FLOPs each, on the tensor cores (bf16, or f32 by the 3xTF32
-// split; see dual_mlp_bwd.cu); gpre moves ~(4 + 2 * sizeof(T)) bytes per
+// split; see route_products.cu); gpre moves ~(4 + 2 * sizeof(T)) bytes per
 // element of the top layer and is bound by device memory.
 #include "mlp_tile.cuh"
 

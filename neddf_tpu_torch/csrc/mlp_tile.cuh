@@ -354,17 +354,21 @@ __device__ __forceinline__ void store_n(T* p, bool whole, int n, const float (&x
 }
 
 // tanhExp and its derivative, passing x through above 20
-// (neddf_tpu/kernels/dual_mlp.py::_act_fns)
-__device__ __forceinline__ void tanh_exp(float x, float& f, float& df) {
+// (neddf_tpu/kernels/dual_mlp.py::_act_fns), and f'' where ddf is given
+// (from the same e^x and tanh)
+__device__ __forceinline__ void tanh_exp(float x, float& f, float& df,
+                                         float* ddf = nullptr) {
   if (x > 20.f) {
     f = x;
     df = 1.f;
+    if (ddf) *ddf = 0.f;
     return;
   }
   const float ex = expf(x);
   const float tx = tanhf(ex);
   f = x * tx;
   df = tx - x * ex * (tx * tx - 1.f);
+  if (ddf) *ddf = ex * (1.f - tx * tx) * (2.f + x - 2.f * x * ex * tx);
 }
 
 // the logistic sigmoid 1 / (1 + e^-x)
@@ -409,9 +413,14 @@ __device__ __forceinline__ void act_fn_code(int act, float x, float& f, float& d
   }
 }
 
-// f, f' and f'' for the backward kernels (dual_mlp_bwd.cu, sdf_mlp.cu)
+// f, f' and f'' for the backward kernels (dual_mlp_bwd.cu, sdf_mlp.cu,
+// route_products.cu); tanhExp's three from one e^x and one tanh
 template <int ACT>
 __device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf) {
+  if constexpr (ACT == kTanhExp) {
+    tanh_exp(x, f, df, &ddf);
+    return;
+  }
   act_fn<ACT>(x, f, df);
   if constexpr (kZeroDeriv2<ACT>) {
     ddf = 0.f;
@@ -419,12 +428,6 @@ __device__ __forceinline__ void act_fn3(float x, float& f, float& df, float& ddf
     ddf = x > 20.f ? 0.f : df * (1.f - df);  // s (1 - s) with s = f'
   } else if constexpr (ACT == kSigmoid) {
     ddf = df * (1.f - 2.f * f);  // s (1 - s) (1 - 2 s)
-  } else if (x > 20.f) {
-    ddf = 0.f;
-  } else {
-    const float ex = expf(x);
-    const float tx = tanhf(ex);
-    ddf = ex * (1.f - tx * tx) * (2.f + x - 2.f * x * ex * tx);
   }
 }
 

@@ -18,7 +18,7 @@
 //   stash.
 // * backward, _run_backward / _bwd_kernel:176-242, is run by the Python
 //   wrapper (kernels/sdf_mlp.py::sdf_mlp_bwd_route) as products of
-//   neddf_gemm_tc (dual_mlp_bwd.cu, f32: 3xTF32) whose epilogues and
+//   neddf_fold_nt / neddf_fold_tn (route_products.cu, f32: 3xTF32) whose epilogues and
 //   prologues do the elementwise work, so no [M, C] plane makes a round
 //   trip through device memory for it:
 //     replay: p_{L-1} = onehot0 f'(z_{L-1}) (neddf_sdf_top); q_l = p_l

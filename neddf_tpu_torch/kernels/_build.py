@@ -5,12 +5,12 @@ together) into an object file, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. A source listed
 in ``VARIANTS`` is compiled once per set of macro definitions there, each
 its own process and object: ``tile_fwd.cu`` per operand type and width
-class of the row-tile forward, ``dual_mlp_bwd.cu`` per operand type of
-the products, ``neddf_epilogue.cu`` per operand type of the epilogue
-backward, ``layer_fwd.cu`` per operand type of the per-layer route's
-layer forward and ``route_products.cu`` per operand type of its backward
-products, so that their instantiations build side by side. The build
-happens at first use, never at import, into
+class of the row-tile forward, ``neddf_epilogue.cu`` per operand type of
+the epilogue backward, ``layer_fwd.cu`` per operand type of the
+per-layer route's layer forward and ``route_products.cu`` per operand
+type of the plain backward products and per operand type and kernel
+(route_nt, route_tn) of the folded ones, so that their instantiations
+build side by side. The build happens at first use, never at import, into
 ``neddf_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where
 ``<hash>`` covers the sources and the flags: an edit to any
 ``.cu``/``.cuh`` file builds a fresh library.
@@ -47,10 +47,11 @@ _LIB_NAME = "libneddf_kernels.so"
 VARIANTS = {
     "tile_fwd.cu": [(f"NEDDF_TILE_F32={f32}", f"NEDDF_TILE_C={c}")
                     for f32 in (0, 1) for c in (64, 128, 256, 512)],
-    "dual_mlp_bwd.cu": [(), ("NEDDF_GEMM_BF16",), ("NEDDF_GEMM_F32",)],
     "neddf_epilogue.cu": [(), ("NEDDF_EPI_BF16",), ("NEDDF_EPI_F32",)],
     "layer_fwd.cu": [(), ("NEDDF_FWD_BF16",), ("NEDDF_FWD_F32",)],
-    "route_products.cu": [(), ("NEDDF_ROUTE_BF16",), ("NEDDF_ROUTE_F32",)],
+    "route_products.cu": [(), ("NEDDF_ROUTE_BF16",), ("NEDDF_ROUTE_F32",),
+                          *[(f"NEDDF_FOLD_{t}", f"NEDDF_FOLD_{k}")
+                            for t in ("BF16", "F32") for k in ("NT", "TN")]],
 }
 
 
@@ -162,9 +163,7 @@ def library() -> ctypes.CDLL:
             _VOIDP,
         ],
         "neddf_gemm_tc": [
-            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT,
-            _INT, _VOIDP, _LL, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP, _VOIDP,
-            _VOIDP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _VOIDP, _VOIDP,
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         "neddf_sum_rows": [_INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
@@ -177,6 +176,15 @@ def library() -> ctypes.CDLL:
         "neddf_route_product": [
             _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _VOIDP, _LL, _INT,
             _INT, _VOIDP, _VOIDP,
+        ],
+        "neddf_fold_nt": [
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _INT, _VOIDP,
+            _LL, _VOIDP, _VOIDP, _LL, _VOIDP, _VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP,
+        ],
+        "neddf_fold_tn": [
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _INT, _INT, _VOIDP,
+            _VOIDP,
         ],
         # csrc/neddf_epilogue.cu
         "neddf_epilogue_fwd": [

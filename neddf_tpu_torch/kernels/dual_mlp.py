@@ -459,17 +459,7 @@ def dual_mlp_seg(
 
 dual_mlp_seg.launches = 0
 
-# split-K products: one partial per 2048 reduced rows, at most 64: the
-# four 128x128 tiles of a 256x256 dW in 64 splits are one wave of two
-# blocks per SM
-_TC_ROWS_PER_SPLIT = 2048
-_TC_MAX_SPLITS = 64
-# csrc/dual_mlp_bwd.cu TcShape::BK, the depth of a stage (128 bytes of a
-# row) by element size: a split covers whole stages
-_TC_DEPTH = {2: 64, 4: 32}
-_TC_LAYOUTS = {"nt": 0, "tn": 1, "nn": 2}
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
-_STREAMS = (1, 2, 4)  # S of the products' rows grouped by point (1: not grouped)
 
 
 def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
@@ -486,42 +476,26 @@ def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
 
 
 def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
-            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2, streams: int = 1) -> dict:
-    """How the tensor-core product takes ``sum_k A(m, k) B(k, n)`` with
-    ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) = b[k*sbk + n*sbn]``, for
-    operands of ``itemsize`` bytes (2: bf16, 4: f32 by the 3xTF32 split).
+            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2) -> dict:
+    """How tc_gemm_kernel (``csrc/dual_mlp_bwd.cu``) takes ``sum_k A(m, k)
+    B(k, n)`` with ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) =
+    b[k*sbk + n*sbn]``, for operands of ``itemsize`` bytes (2: bf16, 4:
+    f32 by the 3xTF32 split): the nt layout (K contiguous in both), one
+    pass over K.
 
-    Returns the layout (``nt``: K contiguous in both operands; ``tn``: M
-    and N contiguous; ``nn``: K contiguous in A, N in B), each operand's
-    row stride and copy width from its byte address, and the split of K
-    into fixed-order partials with the rows each split covers (a
-    multiple of the kernel's stage depth). With ``streams`` S > 1 (the
-    dual backward's tn product over rows grouped by point) K counts
-    points of S rows each: the splits are reckoned from S * k rows and
-    cover a multiple of the points of one stage (depth / S). Raises
-    ValueError for any other layout and for a pointer off its element
-    size.
+    Returns each operand's row stride and its copy width from its byte
+    address. Raises ValueError for any other layout (the products with M
+    or N contiguous run on route_products.cu's wgmma kernels), for another
+    operand size and for a pointer off its element size.
     """
-    if sak == 1 and sbk == 1:
-        layout, lda, ldb = "nt", sam, sbn
-    elif sam == 1 and sbn == 1:
-        layout, lda, ldb = "tn", sak, sbk
-    elif sak == 1 and sbn == 1:
-        layout, lda, ldb = "nn", sam, sbk
-    else:
-        raise ValueError(f"tensor-core product: strides ({sam}, {sak}) x ({sbk}, {sbn})")
-    if itemsize not in _TC_DEPTH:
+    if sak != 1 or sbk != 1:
+        raise ValueError(f"tensor-core product: strides ({sam}, {sak}) x ({sbk}, {sbn}), "
+                         "K contiguous in both expected")
+    if itemsize not in (2, 4):
         raise ValueError(f"tensor-core product: {itemsize}-byte operands")
-    lda, ldb = max(int(lda), 1), max(int(ldb), 1)
-    if streams not in _STREAMS:
-        raise ValueError(f"tensor-core product: {streams} streams")
-    splits = max(1, min(_TC_MAX_SPLITS, -(-streams * k // _TC_ROWS_PER_SPLIT)))
-    per_split = -(-k // splits)
-    depth = _TC_DEPTH[itemsize] // streams
-    k_chunk = -(-per_split // depth) * depth
-    return {"layout": layout, "lda": lda, "ldb": ldb,
-            "vec_a": _vec_width(a_ptr, lda, itemsize),
-            "vec_b": _vec_width(b_ptr, ldb, itemsize), "splits": splits, "k_chunk": k_chunk}
+    lda, ldb = max(int(sam), 1), max(int(sbn), 1)
+    return {"lda": lda, "ldb": ldb, "vec_a": _vec_width(a_ptr, lda, itemsize),
+            "vec_b": _vec_width(b_ptr, ldb, itemsize)}
 
 
 def products_plain(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
@@ -566,11 +540,11 @@ def products_tf32x3(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
-# csrc/dual_mlp_bwd.cu: neddf_gemm_tc's code for "no activation", the
-# epilogue's modes (kModeDact, kModeAdjoint), the rows of one db partial
-# of an epilogue (kTcBM) and of one group of the db sum's first level
+# csrc/route_products.cu: the folded epilogue's modes (kModeDact,
+# kModeAdjoint) and the rows of one db partial of an epilogue (a tile,
+# kTileRows; over rows grouped by point 128 / S points); csrc/
+# dual_mlp_bwd.cu: the rows of one group of the db sum's first level
 # (neddf_sum_rows)
-_NO_ACT = -1
 _MODE_DACT, _MODE_ADJOINT = 1, 2
 _EPI_ROWS = 128
 _SUM_GROUP_ROWS = 64
@@ -709,18 +683,37 @@ def _route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsiz
     if layout == "nt" and k < ROUTE_NT_MIN_K:
         return {"kernel": "tc"}
     vec = 16 // itemsize
-
-    def pad(ld: int, ptr: int, width: int) -> int:
-        return 0 if (ld * itemsize) % 16 == 0 and ptr % 16 == 0 else -(-width // vec) * vec
-
     bk = _WIDE_BK[itemsize]
     if layout == "nt":
         f32 = itemsize == 4
-        return {"kernel": "route", "pad_a": pad(lda, a_ptr, k),
-                "pad_b": 0 if f32 else pad(ldb, b_ptr, k),
+        return {"kernel": "route", "pad_a": _pad_width(lda, a_ptr, k, itemsize),
+                "pad_b": 0 if f32 else _pad_width(ldb, b_ptr, k, itemsize),
                 "ldw": -(-k // vec) * vec if f32 else 0, "splits": 1, "k_chunk": 0}
-    tiles = -(-m // _ROUTE_TILE) * -(-n // _ROUTE_TILE)
-    blocks = max(1, -(-k // bk))
+    splits, k_chunk = _tn_splits(m, n, k, bk, sms)
+    return {"kernel": "route", "pad_a": _pad_width(lda, a_ptr, m, itemsize),
+            "pad_b": _pad_width(ldb, b_ptr, n, itemsize), "ldw": 0, "splits": splits,
+            "k_chunk": k_chunk}
+
+
+def _pad_width(ld: int, ptr: int, width: int, itemsize: int) -> int:
+    """The row length an operand of ``width`` columns, rows ``ld`` elements
+    apart from the byte address ``ptr``, is first copied to where its rows
+    or address are not whole 16-byte vectors (TMA's); 0 where it is taken
+    as it is."""
+    vec = 16 // itemsize
+    return 0 if (ld * itemsize) % 16 == 0 and ptr % 16 == 0 else -(-width // vec) * vec
+
+
+def _tn_splits(m: int, n: int, k: int, step: int, sms: int,
+               unit: Tuple[int, int] = (_ROUTE_TILE, _ROUTE_TILE)) -> Tuple[int, int]:
+    """route_tn's fixed splits of a reduction over k rows (points) in
+    k-blocks of ``step``, output tiles of ``unit`` (rows of m, columns of
+    n): (splits, k_chunk), k_chunk a whole number of k-blocks, at least
+    _ROUTE_MIN_SPLIT_BLOCKS each, at most _ROUTE_MAX_SPLITS, the fewest
+    whose waves over the SMs take within _ROUTE_SPLIT_SLACK of the best
+    count's k-blocks."""
+    tiles = -(-m // unit[0]) * -(-n // unit[1])
+    blocks = max(1, -(-k // step))
     top = max(1, min(_ROUTE_MAX_SPLITS, blocks // _ROUTE_MIN_SPLIT_BLOCKS))
 
     def span(s: int) -> int:  # k-blocks the busiest SM reduces
@@ -728,9 +721,110 @@ def _route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsiz
 
     best = min(span(s) for s in range(1, top + 1))
     splits = next(s for s in range(1, top + 1) if span(s) <= best * _ROUTE_SPLIT_SLACK)
-    k_chunk = -(-blocks // splits) * bk
-    return {"kernel": "route", "pad_a": pad(lda, a_ptr, m), "pad_b": pad(ldb, b_ptr, n),
-            "ldw": 0, "splits": max(1, -(-k // k_chunk)), "k_chunk": k_chunk}
+    k_chunk = -(-blocks // splits) * step
+    return max(1, -(-k // k_chunk)), k_chunk
+
+
+# launches of the folded products on wgmma (csrc/route_products.cu's
+# route_nt with an epilogue, route_tn with a prologue), by mode
+FOLD_MODES = ("nt_act", "nn_adjoint", "nt_gstack", "tn_act", "tn_dual_act")
+FOLD_LAUNCHES = {mode: 0 for mode in FOLD_MODES}
+# route_tn's output tile with a prologue (rows of m, columns of n) by
+# operand bytes: bf16 64 x 256 (each element of A transformed once a
+# split), f32 128 x 128
+_FOLD_TN_UNIT = {2: (64, 256), 4: (_ROUTE_TILE, _ROUTE_TILE)}
+# launches of tc_gemm_kernel (csrc/dual_mlp_bwd.cu, Products.gemm) by
+# operand type: "tc" bf16 by mma, "tf32x3" f32 by the 3xTF32 split
+GEMM_LAUNCHES = {"tc": 0, "tf32x3": 0}
+
+
+def folded_launches() -> dict:
+    """The folded products' launches so far, by end: "prologue" route_tn's
+    (``tn_act``, ``tn_dual_act``), "epilogue" route_nt's (the others); a
+    view of ``FOLD_LAUNCHES``."""
+    tn = sum(v for mode, v in FOLD_LAUNCHES.items() if mode.startswith("tn"))
+    return {"prologue": tn, "epilogue": sum(FOLD_LAUNCHES.values()) - tn}
+
+
+def fold_plan(mode: str, m: int, n: int, k: int, itemsize: int, *, streams: int = 1,
+              k1: Optional[int] = None, lda: Optional[int] = None, lda2: int = 0,
+              ldb: Optional[int] = None, a_ptr: int = 0, a2_ptr: int = 0, b_ptr: int = 0,
+              sms: int = H100_SMS) -> dict:
+    """How a folded product launches (csrc/route_products.cu holds the same
+    tiles, k-blocks and the tensor maps), for operands of ``itemsize``
+    bytes (2 bf16, 4 f32) at the byte addresses ``a_ptr`` / ``a2_ptr`` /
+    ``b_ptr`` (ValueError off the element size), rows ``lda`` / ``lda2`` /
+    ``ldb`` elements apart (contiguous within a row; default: dense), on a
+    card of ``sms`` SMs.
+
+    ``nt_act``, ``nn_adjoint``, ``nt_gstack`` (route_nt with the epilogue):
+    out [m, n] over a depth k, A [m, k] (``streams`` S > 1, nt_gstack: S
+    planes of m points, grouped by point: ``tile_rows`` = 128 / S points
+    of a tile), nn_adjoint's A in two K segments [m, k1] and [m, k - k1]
+    (``k1`` None: one); B = W rows [n, k] (nn_adjoint: W [k, n], f32
+    only). Returns ``tile_rows``, ``row_tiles`` (db's rows), ``tiles``,
+    ``kb1`` (A's first segment's k-blocks) and ``nk``; ``pad_a`` /
+    ``pad_a2`` / ``pad_b``: the row length a segment (bf16: B too) is
+    first copied to, 0 where it is taken as it is; ``ldw``: f32's tf32
+    planes of B [2, n, ldw] (the pre-pass reads B as it is and leaves
+    zero columns up to the second segment's first k-block).
+
+    ``tn_act``, ``tn_dual_act`` (route_tn with the prologue): out [m, n] =
+    f(A)^T B over k rows (S > 1: S planes of k points, a k-block holding
+    the S streams of ``step`` = depth / S points), A [k, m], B [k, n];
+    returns ``pad_a``, ``pad_b``, ``step`` and tn's fixed ``splits`` of
+    ``k_chunk`` rows (points). Raises ValueError for a mode, stream count
+    or operand type the kernels do not take. The plan is a function of the
+    shapes, the strides, the addresses' offsets from 16 bytes and the SMs,
+    cached as ``route_plan``'s (a step asks for the same plans every
+    time)."""
+    if mode not in FOLD_MODES:
+        raise ValueError(f"folded products: mode {mode!r}")
+    if itemsize not in _WIDE_BK:
+        raise ValueError(f"folded products: {itemsize}-byte operands")
+    dual = mode in ("nt_gstack", "tn_dual_act")
+    if (streams not in (2, 4)) if dual else streams != 1:
+        raise ValueError(f"folded products: {mode} over {streams} streams")
+    if mode == "nn_adjoint" and itemsize != 4:
+        raise ValueError("folded products: nn_adjoint takes f32 operands only")
+    for ptr in (a_ptr, a2_ptr, b_ptr):
+        if ptr % itemsize:
+            raise ValueError(f"folded products: pointer {ptr:#x} not {itemsize}-byte aligned")
+    if min(m, n, k) < 1:
+        raise ValueError(f"folded products: {mode} of {m} x {n} x {k}")
+    two = k1 is not None and k1 < k
+    if two and (k1 < 1 or mode != "nn_adjoint"):
+        raise ValueError(f"folded products: {mode} with segments {k1}, {k - k1}")
+    return _fold_plan(mode, m, n, k, itemsize, streams, k1 if two else None, lda, lda2, ldb,
+                      a_ptr % 16, a2_ptr % 16, b_ptr % 16, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fold_plan(mode: str, m: int, n: int, k: int, itemsize: int, streams: int,
+               k1: Optional[int], lda: Optional[int], lda2: int, ldb: Optional[int],
+               a_ptr: int, a2_ptr: int, b_ptr: int, sms: int) -> dict:
+    bk = _WIDE_BK[itemsize]
+    if mode.startswith("tn"):
+        step = bk // streams
+        splits, k_chunk = _tn_splits(m, n, k, step, sms, _FOLD_TN_UNIT[itemsize])
+        return {"pad_a": _pad_width(m if lda is None else lda, a_ptr, m, itemsize),
+                "pad_b": _pad_width(n if ldb is None else ldb, b_ptr, n, itemsize),
+                "step": step, "splits": splits, "k_chunk": k_chunk}
+    two = k1 is not None
+    ka = k1 if two else k
+    kb1 = -(-ka // bk)
+    nk = kb1 + (-(-(k - k1) // bk) if two else 0)
+    f32 = itemsize == 4
+    vec = 16 // itemsize
+    tile_rows = _ROUTE_TILE // streams
+    row_tiles = -(-m // tile_rows)
+    return {"tile_rows": tile_rows, "row_tiles": row_tiles,
+            "tiles": row_tiles * -(-n // _ROUTE_TILE), "kb1": kb1, "nk": nk,
+            "pad_a": _pad_width(ka if lda is None else lda, a_ptr, ka, itemsize),
+            "pad_a2": _pad_width(k - k1 if lda2 == 0 else lda2, a2_ptr, k - k1, itemsize)
+            if two else 0,
+            "pad_b": 0 if f32 else _pad_width(k if ldb is None else ldb, b_ptr, k, itemsize),
+            "ldw": -(-(kb1 * bk + k - k1 if two else k) // vec) * vec if f32 else 0}
 
 
 def _padded_rows(x: Tensor, width: int) -> Tensor:
@@ -748,12 +842,15 @@ def _sm_count(index: int) -> int:
 
 
 def route_product_plain(layout: str, a: Tensor, b: Tensor) -> Tensor:
-    """Plain version of the route's products (``ProductsPlain.nt`` /
-    ``.tn``): nt a [R, C] b [n, C]^T, tn a [R, m]^T b [R, n], one f32
-    matmul of the operands."""
+    """Plain version of the backward's products (``ProductsPlain.nt`` /
+    ``.tn`` / ``.nn``, and so of every folded mode): nt a [R, C] b [n,
+    C]^T, tn a [R, m]^T b [R, n], nn a [R, k] b [k, n], one f32 matmul of
+    the operands."""
     route_product_plain.calls += 1
     if layout == "nt":
         return a.float() @ b.float().T
+    if layout == "nn":
+        return a.float() @ b.float()
     return a.float().T @ b.float()
 
 
@@ -795,23 +892,22 @@ def sum_rows_plain(parts: Tensor) -> Tensor:
 
 
 class Products:
-    """Launchers of the hand-written products of ``csrc/dual_mlp_bwd.cu``
-    for one backward call: ``neddf_gemm_tc`` on the tensor cores (bf16
-    operands by mma m16n8k16, f32 operands by the 3xTF32 split), alone or
-    with an activation's elementwise work as the prologue of a tn product
-    or the epilogue of an nt / nn one, and the fixed-order sums
+    """Launchers of the hand-written backward products for one backward
+    call: the plain nt and tn (``csrc/route_products.cu``'s route_nt /
+    route_tn on wgmma, ``route_plan``; an nt of a depth under
+    ``ROUTE_NT_MIN_K`` on ``csrc/dual_mlp_bwd.cu``'s tc_gemm_kernel, which
+    ``gemm`` launches), the products with an activation's elementwise
+    work folded in (route_nt with the epilogue: ``nt_act``,
+    ``nn_adjoint``, ``DualProducts.nt_gstack``; route_tn with the
+    prologue: ``tn_act``, ``DualProducts.tn_dual_act``; ``fold_plan``),
+    the layer forward (``csrc/layer_fwd.cu``) and the fixed-order sums
     (``neddf_sum_splits``, ``neddf_sum_rows``); shared by the backwards of
     ``kernels/mlp.py``, ``kernels/sdf_mlp.py`` and this module, which add
     their own top-layer passes in subclasses. ``ProductsPlain`` computes
     the same in PyTorch, so that the backwards' walks run on the CPU.
-    ``tc_launches`` (bf16) and ``tf32x3_launches`` (f32) count the
-    launches of the product kernel, ``prologue_launches`` /
-    ``epilogue_launches`` those of them with an activation folded in."""
-
-    tc_launches = 0
-    tf32x3_launches = 0
-    prologue_launches = 0
-    epilogue_launches = 0
+    Launches count in ``ROUTE_PRODUCT_LAUNCHES`` (the plain route_nt /
+    route_tn), ``FOLD_LAUNCHES`` (the folded modes) and ``GEMM_LAUNCHES``
+    (tc_gemm_kernel by operand type)."""
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
@@ -822,36 +918,24 @@ class Products:
         self.sms = _sm_count(torch.cuda.current_device() if device.index is None
                              else device.index)
 
-    def _count(self) -> None:
-        if self.dtype == torch.bfloat16:
-            Products.tc_launches += 1
-        else:
-            Products.tf32x3_launches += 1
-
     def _empty(self, shape, dtype=torch.float32) -> Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device)
 
-    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn, streams=1) -> dict:
+    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn) -> dict:
         if a.dtype != self.dtype or b.dtype != self.dtype:
             raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
         return tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
-                       a.element_size(), streams)
+                       a.element_size())
 
     def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
-        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32, the k
-        range split into a fixed number of partials summed in order."""
+        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32 on
+        tc_gemm_kernel, K contiguous in both operands (``tc_plan``)."""
         plan = self._plan(m, n, k, a, sam, sak, b, sbk, sbn)
-        splits = plan["splits"]
         out = self._empty((m, n))
-        parts = out if splits == 1 else self._empty((splits, m, n))
         _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS[plan["layout"]], _NO_ACT, 0, 1, m, n, k, a.data_ptr(),
-            plan["lda"], plan["vec_a"], None, 0, 0, 0, b.data_ptr(), plan["ldb"],
-            plan["vec_b"], splits, parts.data_ptr(), None, None, 0, None, None, None, None,
-            self.stream), "backward product")
-        self._count()
-        if splits > 1:
-            self.sum_splits(parts, out)
+            self.dt, m, n, k, a.data_ptr(), plan["lda"], plan["vec_a"], b.data_ptr(),
+            plan["ldb"], plan["vec_b"], out.data_ptr(), self.stream), "backward product")
+        GEMM_LAUNCHES["tc" if self.dtype == torch.bfloat16 else "tf32x3"] += 1
         return out
 
     def sum_splits(self, parts: Tensor, out: Tensor) -> None:
@@ -886,8 +970,8 @@ class Products:
         n]) product of two row-strided 2-D operands in T -> [m, n] f32, on
         the kernel ``route_plan`` picks: ``csrc/route_products.cu``'s
         route_nt / route_tn (tn's splits summed in order by
-        ``neddf_sum_splits``), or tc_gemm_kernel for an nt depth under
-        ``ROUTE_NT_MIN_K``."""
+        ``neddf_sum_splits``), or tc_gemm_kernel (``gemm``) for an nt depth
+        under ``ROUTE_NT_MIN_K``."""
         t0 = time.perf_counter()
         if a.dim() != 2 or b.dim() != 2 or a.stride(1) != 1 or b.stride(1) != 1:
             raise ValueError(f"route products: operands {tuple(a.shape)} {a.stride()}, "
@@ -903,10 +987,8 @@ class Products:
         lda, ldb = a.stride(0), b.stride(0)
         plan = route_plan(layout, m, n, k, lda, ldb, a.element_size(), a.data_ptr(),
                           b.data_ptr(), self.sms)
-        if plan["kernel"] == "tc":
-            if layout == "nt":
-                return self.gemm(m, n, k, a, lda, 1, b, 1, ldb)
-            return self.gemm(m, n, k, a, 1, lda, b, ldb, 1)
+        if plan["kernel"] == "tc":  # an nt of a depth under ROUTE_NT_MIN_K
+            return self.gemm(m, n, k, a, lda, 1, b, 1, ldb)
         if m == 0 or n == 0 or k == 0:
             return torch.zeros((m, n), dtype=torch.float32, device=self.device)
         if plan["pad_a"]:
@@ -928,91 +1010,124 @@ class Products:
         ROUTE_PRODUCT_HOST["s"] += time.perf_counter() - t0
         return out
 
-    def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
-        """a [R, k] (T) times w_rows [k, n] (T) -> [R, n] f32."""
-        r, k = a.shape
-        n = w_rows.shape[1]
-        return self.gemm(r, n, k, a, a.stride(0), 1, w_rows, w_rows.stride(0), 1)
+    def _fold_operand(self, x: Tensor, width: int) -> Tensor:
+        """x ([R, c] with unit column stride, or [S, M, c] contiguous) as the
+        folded products' TMA takes it: a fresh copy with rows ``width``
+        elements apart where ``width`` (fold_plan's pad) is not 0."""
+        if not width:
+            return x
+        return _padded_rows(x, width) if x.dim() == 2 else _padded(x, width)
+
+    def _fold_tn(self, mode: str, z: Tensor, g: Tensor, act_name: str) -> Tensor:
+        """route_tn with the prologue: f(z)^T g over the rows of z [R, m]
+        and g [R, n] (tn_act), or over the S planes of z [S, pts, m] and g
+        [S, pts, n] with the dual layer input (tn_dual_act) -> [m, n] f32,
+        the splits added in order."""
+        if z.dtype != self.dtype or g.dtype != self.dtype:
+            raise TypeError(f"{mode}: operands {z.dtype}/{g.dtype}, expected {self.dtype}")
+        streams = 1 if z.dim() == 2 else z.shape[0]
+        if z.shape[:-1] != g.shape[:-1] or z.dim() != g.dim() or any(
+                t.stride(-1) != 1 or (t.dim() == 3 and not t.is_contiguous()) for t in (z, g)):
+            raise ValueError(f"{mode}: operands {tuple(z.shape)} {z.stride()}, "
+                             f"{tuple(g.shape)} {g.stride()}")
+        rows, m, n = z.shape[-2], z.shape[-1], g.shape[-1]
+        plan = fold_plan(mode, m, n, rows, z.element_size(), streams=streams, lda=z.stride(-2),
+                         ldb=g.stride(-2), a_ptr=z.data_ptr(), b_ptr=g.data_ptr(), sms=self.sms)
+        z, g = self._fold_operand(z, plan["pad_a"]), self._fold_operand(g, plan["pad_b"])
+        splits = plan["splits"]
+        out = self._empty((m, n))
+        parts = out if splits == 1 else self._empty((splits, m, n))
+        _build.check(self.lib.neddf_fold_tn(
+            self.dt, _ACT_CODES[act_name], streams, m, n, rows, z.data_ptr(), z.stride(-2),
+            g.data_ptr(), g.stride(-2), splits, plan["k_chunk"], parts.data_ptr(), self.stream),
+            f"backward dW ({mode} prologue)")
+        if splits > 1:
+            self.sum_splits(parts, out)
+        FOLD_LAUNCHES[mode] += 1
+        return out
+
+    def _fold_nt(self, mode: str, a: Tensor, b: Tensor, z: Tensor, act_name: str, fold_mode: int,
+                 *, a2=None, side=None, n_act=None, out=True, out2=False, db=False):
+        """route_nt with the epilogue (see ``neddf_fold_nt`` in
+        csrc/route_products.cu): acc = [a | a2] b^T (nn_adjoint: [a | a2] b)
+        over the rows of a [R, k1] (nt_gstack: the S planes of a [S, M,
+        C]), combined with the stash z; returns the outputs by name (None
+        where not asked for), db summed over the row tiles."""
+        nn = mode == "nn_adjoint"
+        for t in (a, b, z, a2, side):
+            if t is not None and t.dtype != (torch.float32 if t is side else self.dtype):
+                raise TypeError(f"{mode}: operand {t.dtype}, expected {self.dtype}")
+        streams = 1 if a.dim() == 2 else a.shape[0]
+        k1 = a.shape[-1]
+        k = k1 + (0 if a2 is None else a2.shape[1])
+        n = b.shape[1] if nn else b.shape[0]
+        if b.stride(1) != 1 or b.shape[0 if nn else 1] != k or a.stride(-1) != 1 or (
+                a.dim() == 3 and not a.is_contiguous()) or (a2 is not None and (
+                a2.dim() != 2 or a2.shape[0] != a.shape[0] or a2.stride(1) != 1)):
+            raise ValueError(f"{mode}: operands {tuple(a.shape)}, {tuple(b.shape)} {b.stride()}")
+        r = a.shape[-2]
+        plan = fold_plan(mode, r, n, k, a.element_size(), streams=streams,
+                         k1=None if a2 is None else k1, lda=a.stride(-2),
+                         lda2=0 if a2 is None else a2.stride(0), ldb=b.stride(0),
+                         a_ptr=a.data_ptr(), a2_ptr=0 if a2 is None else a2.data_ptr(),
+                         b_ptr=b.data_ptr(), sms=self.sms)
+        a, b = self._fold_operand(a, plan["pad_a"]), self._fold_operand(b, plan["pad_b"])
+        if a2 is not None:
+            a2 = self._fold_operand(a2, plan["pad_a2"])
+        planes = self._empty((2, n, plan["ldw"])) if plan["ldw"] else None
+        n_act = n if n_act is None else n_act
+        lead = (streams, r) if streams > 1 else (r,)
+        res = {"out": self._empty((*lead, n_act), self.dtype) if out else None,
+               "out2": self._empty((r, n_act)) if out2 else None,
+               "raw": self._empty((r, n - n_act)) if n_act < n else None,
+               "db": self._empty((plan["row_tiles"], n_act)) if db else None}
+        ptr = {key: None if t is None else t.data_ptr() for key, t in res.items()}
+        if not z.is_contiguous() or z.shape != (*lead, n_act):
+            raise ValueError(f"{mode}: stash {tuple(z.shape)}, expected {(*lead, n_act)}")
+        _build.check(self.lib.neddf_fold_nt(
+            self.dt, int(nn), _ACT_CODES[act_name], fold_mode, streams, r, n, k, a.data_ptr(),
+            a.stride(-2), None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.stride(0),
+            k1, b.data_ptr(), b.stride(0), None if planes is None else planes[0].data_ptr(),
+            None if planes is None else planes[1].data_ptr(), plan["ldw"], z.data_ptr(),
+            None if side is None else side.data_ptr(), n_act, ptr["out"], ptr["out2"],
+            ptr["raw"], ptr["db"], self.stream), f"backward product ({mode} epilogue)")
+        if db:
+            res["db"] = self.sum_rows(res["db"])
+        FOLD_LAUNCHES[mode] += 1
+        return res
 
     def tn_act(self, z: Tensor, g: Tensor, act_name: str) -> Tensor:
         """f(z) [R, m]^T times g [R, n] -> [m, n] f32: dW of a layer whose
         input is the activation of the stash z (T), f applied, and rounded
-        to T, as the product's prologue."""
-        r, m = z.shape
-        n = g.shape[1]
-        plan = self._plan(m, n, r, z, 1, z.stride(0), g, g.stride(0), 1)
-        splits = plan["splits"]
-        out = self._empty((m, n))
-        parts = out if splits == 1 else self._empty((splits, m, n))
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, 1, m, n, r, z.data_ptr(),
-            plan["lda"], plan["vec_a"], None, 0, 0, 0, g.data_ptr(), plan["ldb"], plan["vec_b"],
-            splits, parts.data_ptr(), None, None, 0, None, None, None, None, self.stream),
-            "backward dW (activation prologue)")
-        self._count()
-        Products.prologue_launches += 1
-        if splits > 1:
-            self.sum_splits(parts, out)
-        return out
-
-    def _epilogue(self, layout, a, b, z, act_name, mode, *, a2=None, side=None, n_act=None,
-                  out=True, out2=False, db=False):
-        r = a.shape[0]
-        k = a.shape[1] + (0 if a2 is None else a2.shape[1])
-        if layout == "nt":
-            n, sbk, sbn = b.shape[0], 1, b.stride(0)
-        else:
-            n, sbk, sbn = b.shape[1], b.stride(0), 1
-        # launched as one split, whatever the plan's: the epilogue needs the
-        # whole sum of a tile in its block (the per-layer sdf route's
-        # post-skip adjoint sums over 2048 + 36 rows at width 2048)
-        plan = self._plan(r, n, k, a, a.stride(0), 1, b, sbk, sbn)
-        n_act = n if n_act is None else n_act
-        vec_a2 = 0 if a2 is None else _vec_width(a2.data_ptr(), a2.stride(0), a2.element_size())
-        res = {"out": self._empty((r, n_act), self.dtype) if out else None,
-               "out2": self._empty((r, n_act)) if out2 else None,
-               "raw": self._empty((r, n - n_act)) if n_act < n else None,
-               "db": self._empty((-(-r // _EPI_ROWS), n_act)) if db else None}
-        ptr = {key: None if t is None else t.data_ptr() for key, t in res.items()}
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS[layout], _ACT_CODES[act_name], mode, 1, r, n, k, a.data_ptr(),
-            plan["lda"], plan["vec_a"], None if a2 is None else a2.data_ptr(),
-            0 if a2 is None else a2.stride(0), vec_a2, a.shape[1], b.data_ptr(), plan["ldb"],
-            plan["vec_b"], 1, None, z.data_ptr(), None if side is None else side.data_ptr(),
-            n_act, ptr["out"], ptr["out2"], ptr["raw"], ptr["db"], self.stream),
-            "backward product (activation epilogue)")
-        self._count()
-        Products.epilogue_launches += 1
-        if db:
-            res["db"] = self.sum_rows(res["db"])
-        return res
+        to T, as the product's prologue (route_tn)."""
+        return self._fold_tn("tn_act", z, g, act_name)
 
     def nt_act(self, a: Tensor, w_rows: Tensor, z: Tensor, act_name: str, *,
                add: Optional[Tensor] = None, n_act: Optional[int] = None, keep: bool = False,
                db: bool = False):
-        """y = a w_rows^T as in ``nt``, and in its epilogue, over the first
-        ``n_act`` columns (all by default), v = y f'(z) (+ add): returns
-        (T(v) [R, n_act], the other columns of y raw [R, n - n_act] f32 or
-        None, y's first n_act columns f32 if ``keep`` else None, the column
-        sums of v [n_act] f32 if ``db`` else None)."""
-        res = self._epilogue("nt", a, w_rows, z, act_name, _MODE_DACT, side=add, n_act=n_act,
-                             out2=keep, db=db)
+        """y = a w_rows^T as in ``nt``, and in its epilogue (route_nt), over
+        the first ``n_act`` columns (all by default), v = y f'(z) (+ add):
+        returns (T(v) [R, n_act], the other columns of y raw [R, n - n_act]
+        f32 or None, y's first n_act columns f32 if ``keep`` else None, the
+        column sums of v [n_act] f32 if ``db`` else None)."""
+        res = self._fold_nt("nt_act", a, w_rows, z, act_name, _MODE_DACT, side=add, n_act=n_act,
+                            out2=keep, db=db)
         return res["out"], res["raw"], res["out2"], res["db"]
 
     def nn_adjoint(self, a: Tensor, w_rows: Tensor, z: Tensor, act_name: str, *,
                    a2: Optional[Tensor] = None, q: Optional[Tensor] = None, top: bool = False):
-        """pbar = [a | a2] w_rows as in ``nn`` (``a2``, if given, is a second
-        K segment against the rows of ``w_rows`` after a's), and in its
-        epilogue the adjoint of the sweep: (qbar = pbar f'(z) or None at the
-        ``top``, zs = pbar q f''(z), or at the top onehot0 pbar f''(z);
-        None where f'' is identically zero)."""
+        """pbar = [a | a2] w_rows (w_rows [k, n]; ``a2``, if given, is a
+        second K segment against the rows of ``w_rows`` after a's), and in
+        its epilogue (route_nt, f32) the adjoint of the sweep: (qbar = pbar
+        f'(z) or None at the ``top``, zs = pbar q f''(z), or at the top
+        onehot0 pbar f''(z); None where f'' is identically zero)."""
         if act_name in SECOND_DERIVATIVE_ZERO:
             if top:
                 raise ValueError("the sweep's top adjoint is zero where f'' is")
-            res = self._epilogue("nn", a, w_rows, z, act_name, _MODE_DACT, a2=a2)
+            res = self._fold_nt("nn_adjoint", a, w_rows, z, act_name, _MODE_DACT, a2=a2)
             return res["out"], None
-        res = self._epilogue("nn", a, w_rows, z, act_name, _MODE_ADJOINT, a2=a2, side=q,
-                             out=not top, out2=True)
+        res = self._fold_nt("nn_adjoint", a, w_rows, z, act_name, _MODE_ADJOINT, a2=a2, side=q,
+                            out=not top, out2=True)
         return res["out"], res["out2"]
 
     def layer_fwd(self, xs: Sequence[Tensor], w: Tensor, b: Tensor, act_name: str,
@@ -1101,7 +1216,7 @@ class ProductsPlain:
         return route_product_plain("tn", a, g)
 
     def nn(self, a: Tensor, w_rows: Tensor) -> Tensor:
-        return a.float() @ w_rows.float()
+        return route_product_plain("nn", a, w_rows)
 
     def tn_act(self, z: Tensor, g: Tensor, act_name: str) -> Tensor:
         f = ACTIVATION_TRIPLES[act_name][0]
@@ -1172,45 +1287,19 @@ class DualProducts(Products):
 
     def nt_gstack(self, gs: Tensor, w_rows: Tensor, z: Tensor, act_name: str):
         """g = gs w_rows^T over the S planes of gs [S, M, C] (T) and w_rows
-        [n, C] (T), and in its epilogue the stacked cotangent of the layer
-        below from its stash z [S, M, n]: returns (T(G) [S, M, n], the
-        column sums of G_v [n] f32), g never stored."""
-        s, m, c = gs.shape
-        n = w_rows.shape[0]
-        plan = self._plan(m, n, c, gs, c, 1, w_rows, 1, w_rows.stride(0))
-        if plan["splits"] != 1:
-            raise ValueError(f"an epilogue needs the whole sum in one split ({c} rows)")
-        out = self._empty((s, m, n), self.dtype)
-        parts = self._empty((-(-m // (_EPI_ROWS // s)), n))
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS["nt"], _ACT_CODES[act_name], 0, s, m, n, c,
-            gs.data_ptr(), plan["lda"], plan["vec_a"], None, 0, 0, 0, w_rows.data_ptr(),
-            plan["ldb"], plan["vec_b"], 1, None, z.data_ptr(), None, n, out.data_ptr(), None,
-            None, parts.data_ptr(), self.stream), "dual backward dx (stacked cotangent epilogue)")
-        self._count()
-        Products.epilogue_launches += 1
-        return out, self.sum_rows(parts)
+        [n, C] (T), and in its epilogue (route_nt over rows grouped by
+        point) the stacked cotangent of the layer below from its stash z
+        [S, M, n]: returns (T(G) [S, M, n], the column sums of G_v [n]
+        f32), g never stored."""
+        res = self._fold_nt("nt_gstack", gs, w_rows, z, act_name, 0, db=True)
+        return res["out"], res["db"]
 
     def tn_dual_act(self, z: Tensor, gs: Tensor, act_name: str) -> Tensor:
         """dW = h_in^T gs over the S * M rows -> [m, n] f32, with the layer
         input h_in = (f(z_v), f'(z_v) z_a) of the stash z [S, M, m] (T)
-        formed, and rounded to T, as the product's prologue; gs [S, M, n]."""
-        s, pts, m = z.shape
-        n = gs.shape[2]
-        plan = self._plan(m, n, pts, z, 1, m, gs, n, 1, streams=s)
-        splits = plan["splits"]
-        out = self._empty((m, n))
-        parts = out if splits == 1 else self._empty((splits, m, n))
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, _TC_LAYOUTS["tn"], _ACT_CODES[act_name], 0, s, m, n, pts, z.data_ptr(),
-            plan["lda"], plan["vec_a"], None, 0, 0, 0, gs.data_ptr(), plan["ldb"],
-            plan["vec_b"], splits, parts.data_ptr(), None, None, 0, None, None, None, None,
-            self.stream), "dual backward dW (layer input prologue)")
-        self._count()
-        Products.prologue_launches += 1
-        if splits > 1:
-            self.sum_splits(parts, out)
-        return out
+        formed, and rounded to T, as the product's prologue (route_tn over
+        rows grouped by point); gs [S, M, n]."""
+        return self._fold_tn("tn_dual_act", z, gs, act_name)
 
 
 class DualProductsPlain(ProductsPlain):
@@ -1247,11 +1336,12 @@ class DualProductsPlain(ProductsPlain):
         f, df, _ = ACTIVATION_TRIPLES[act_name]
         s, pts, m = z.shape
         n = gs.shape[2]
-        plan = tc_plan(m, n, pts, 1, m, n, 1, itemsize=z.element_size(), streams=s)
+        plan = fold_plan("tn_dual_act", m, n, pts, z.element_size(), streams=s)
         h = _dual_act(z.float(), f, df).to(self.dtype).reshape(s * pts, m)
         g = gs.reshape(s * pts, n)
-        per = plan["k_chunk"] // (_TC_DEPTH[z.element_size()] // s)  # stages per split
-        stages = grouped_rows(s, pts, _TC_DEPTH[z.element_size()] // s)
+        step = plan["step"]
+        per = plan["k_chunk"] // step  # k-blocks per split
+        stages = grouped_rows(s, pts, step)
         out = torch.zeros((m, n), dtype=torch.float32, device=z.device)
         for split in range(plan["splits"]):
             rows = stages[split * per : (split + 1) * per].reshape(-1)
@@ -1336,9 +1426,10 @@ def dual_mlp_seg_bwd(
 
     The top layer's stacked cotangent (with the f'' coupling) comes from
     its own kernel, or from the caller (``top``: the NeDDF trunk's, from
-    the epilogue's backward, ``kernels/neddf_epilogue.py``); below it, ``csrc/dual_mlp_bwd.cu`` folds each layer's
-    elementwise work into its two f32-accumulating products on the tensor
-    cores (f32 by the 3xTF32 split), whose rows are grouped by point so
+    the epilogue's backward, ``kernels/neddf_epilogue.py``); below it,
+    ``csrc/route_products.cu`` folds each layer's elementwise work into
+    its two f32-accumulating products on wgmma (f32 by the 3xTF32 split),
+    whose rows are grouped by point so
     that a tile holds every stream of its points: dW = h_in^T G forms the
     layer input from the stash as its prologue, and dx = G W^T leaves as
     the next layer's stacked cotangent and its db partials through its

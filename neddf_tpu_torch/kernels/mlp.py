@@ -15,7 +15,7 @@ order: the hidden rows of W first, then segment 0's).
   compute dtype, as the Pallas forward's stash variant does.
 * ``mlp_seg_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
   walk ``mlp_seg_bwd_route`` over the hand-written products of
-  ``csrc/dual_mlp_bwd.cu`` (``MLPProducts``): the top layer's
+  ``csrc/route_products.cu`` (``MLPProducts``): the top layer's
   cotangent by ``csrc/mlp_bwd.cu``'s gpre, every lower one in the
   epilogue of the nt product that forms it, each layer's input f(z) in
   the prologue of its dW product; dW and db summed in a fixed order.

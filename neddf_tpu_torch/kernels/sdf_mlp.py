@@ -11,7 +11,7 @@ features ``h [M, C]`` of ``e = PE(pos) [M, E]`` and ``gE = d h[:, 0] / d e
   on the tensor cores by the 3xTF32 split.
 * ``sdf_mlp_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
   walk ``sdf_mlp_bwd_route`` over the hand-written products
-  (``csrc/dual_mlp_bwd.cu``, ``SDFProducts``): the replayed sweep,
+  (``csrc/route_products.cu``, ``SDFProducts``): the replayed sweep,
   the ascending adjoint of the sweep (the f'' terms), the descending
   trunk backward, each elementwise step in the epilogue or prologue of
   the product beside it; dW and db are summed in a fixed order (bitwise

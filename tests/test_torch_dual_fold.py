@@ -171,17 +171,18 @@ def test_grouped_row_map_covers_every_row_once(streams, points):
 
 
 def test_grouped_plan_splits_whole_stages_of_points():
-    depth = {2: 64, 4: 32}  # stage depth in rows by element size
+    # route_tn's k-block by element size (128 bytes of a row), S streams of
+    # depth / S points each (fold_plan plans tn_dual_act)
+    depth = {2: 64, 4: 32}
     for itemsize, streams, points in [(2, 4, 99_328), (2, 2, 99_328), (4, 4, 33_287),
                                       (4, 2, 33_287), (2, 4, 97)]:
-        plan = tdm.tc_plan(256, 256, points, 1, 256, 256, 1, itemsize=itemsize,
-                           streams=streams)
+        plan = tdm.fold_plan("tn_dual_act", 256, 256, points, itemsize, streams=streams)
         per = depth[itemsize] // streams
-        assert plan["layout"] == "tn" and plan["k_chunk"] % per == 0
-        assert plan["splits"] == max(1, min(64, -(-streams * points // 2048)))
+        assert plan["step"] == per and plan["k_chunk"] % per == 0
+        assert 1 <= plan["splits"] <= 64
         assert (plan["splits"] - 1) * plan["k_chunk"] < points <= plan["splits"] * plan["k_chunk"]
     with pytest.raises(ValueError):
-        tdm.tc_plan(256, 256, 97, 1, 256, 256, 1, streams=3)
+        tdm.fold_plan("tn_dual_act", 256, 256, 97, 2, streams=3)
 
 
 # ---------------------------------------------------------- the walk, on the CPU
@@ -302,12 +303,12 @@ def test_cuda_grouped_products_match_the_plain_launcher(dtype, act, streams, poi
     gs = (torch.randn((streams, points, 256), generator=gen, device=dev) * 0.1).to(cd)
     w = (torch.randn((256, 256), generator=gen, device=dev) / 16).to(cd)
     kern, plain = tdm.DualProducts(cd, dev), tdm.DualProductsPlain(cd)
-    counts = (tdm.Products.epilogue_launches, tdm.Products.prologue_launches)
+    counts = tdm.folded_launches()
     got_g, got_db = kern.nt_gstack(gs, w, z, act)
     got_w = kern.tn_dual_act(z, gs, act)
     torch.cuda.synchronize()
-    assert (tdm.Products.epilogue_launches, tdm.Products.prologue_launches) == (
-        counts[0] + 1, counts[1] + 1)
+    assert tdm.folded_launches() == {"epilogue": counts["epilogue"] + 1,
+                                     "prologue": counts["prologue"] + 1}
     ref_g, ref_db = plain.nt_gstack(gs, w, z, act)
     ref_w = plain.tn_dual_act(z, gs, act)
     tol = 1e-5 if dtype == "float32" else 2.0**-7

@@ -408,14 +408,12 @@ def test_cuda_fused_mlp_backward_matches_plain(name, dtype, act):
     _, pres = tmlp.mlp_seg_plain(vs, ws, bs, layout, act, stash=True)
     g = (torch.tensor(rng.normal(size=(m, outs[-1])), device=dev) * 0.01).to(cd)
     args = (vs, ws, layout, act, pres, g)
-    counts = (tmlp.PASS_LAUNCHES["gpre"], tdm.Products.epilogue_launches,
-              tdm.Products.prologue_launches)
+    counts = (tmlp.PASS_LAUNCHES["gpre"], *tdm.folded_launches().values())
     kern = tmlp.mlp_seg_bwd(*args)
     torch.cuda.synchronize()
     n_l = len(ws)
-    assert (tmlp.PASS_LAUNCHES["gpre"], tdm.Products.epilogue_launches,
-            tdm.Products.prologue_launches) == (counts[0] + 1, counts[1] + n_l - 1,
-                                                counts[2] + n_l - 1)
+    assert (tmlp.PASS_LAUNCHES["gpre"], *tdm.folded_launches().values()) == (
+        counts[0] + 1, counts[1] + n_l - 1, counts[2] + n_l - 1)
     plain = tmlp.mlp_seg_bwd_plain(*args)
     tol = MLP_TOL[dtype] if dtype == "bfloat16" else 1e-4
     for g_, r in zip(sum(kern, []), sum(plain, [])):

@@ -220,16 +220,14 @@ def _check(dev, dtype, layout, rows, width, fan, seed, offset=0):
     plan = tdm.route_plan(layout, *((rows, fan, width) if layout == "nt" else (fan, width, rows)),
                           a.stride(0), b.stride(0), a.element_size(), a.data_ptr(),
                           b.data_ptr(), k.sms)
-    before = dict(tdm.ROUTE_PRODUCT_LAUNCHES), tdm.Products.tc_launches + \
-        tdm.Products.tf32x3_launches
+    before = dict(tdm.ROUTE_PRODUCT_LAUNCHES), sum(tdm.GEMM_LAUNCHES.values())
     got = getattr(k, layout)(a, b)
     again = getattr(k, layout)(a, b)
     want = getattr(tdm.ProductsPlain(cd), layout)(a, b)
     torch.cuda.synchronize()
     route = plan["kernel"] == "route"
     assert tdm.ROUTE_PRODUCT_LAUNCHES[layout] == before[0][layout] + 2 * route
-    assert (tdm.Products.tc_launches + tdm.Products.tf32x3_launches
-            == before[1] + 2 * (not route))
+    assert sum(tdm.GEMM_LAUNCHES.values()) == before[1] + 2 * (not route)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _rel(got, want) <= PRODUCT_REL_TOL, f"{layout} {dtype}: {_rel(got, want)}"
     assert torch.equal(got, again)

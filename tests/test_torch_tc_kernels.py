@@ -2,15 +2,15 @@
 (``csrc/dual_mlp_bwd.cu``, ``neddf_gemm_bf16_tc``) and the bf16 row-tile
 forward (``csrc/mlp_tile.cuh``, ``tile_forward_tc``).
 
-On the CPU: the Python planning of the product (layout, row strides,
-copy widths, split-K) and the plain version of the products over the
-same strided views, against the JAX package's own products
+On the CPU: the Python planning of the product (the nt layout alone, row
+strides, copy widths; which products ``route_plan`` leaves to it) and the
+plain version of the products over the same strided views, against the JAX package's own products
 (``neddf_tpu.kernels.dual_mlp._mm`` / ``_mm_tn`` / ``_mm_nt``) at f32 and
 on bf16-rounded operands; the zero-padded 3-wide last layer of
 ``mlp_seg`` against the unpadded one and the JAX package.
 
 On the card (marked ``cuda``: they skip without one): the product kernel
-against its plain version in all three layouts at ragged shapes, with
+against its plain version in the nt layout at ragged shapes, with
 bitwise-equal results over two runs, and the tile forward for K = 0, 1
 and 3 against the plain versions at a ragged M, with a post-skip layer
 in each order and the stash.
@@ -18,7 +18,7 @@ in each order and the stash.
 Tolerances: the products of bf16 operands are exact in f32, so kernel,
 plain version and JAX differ only in the order of the f32 sums: 1e-5 of
 the largest magnitude on the CPU, 1e-4 on the card (a reduction over
-7,003 rows in split partials). The bf16 tile forward rounds every
+7,003 rows). The bf16 tile forward rounds every
 layer's activations to bf16, where a value on a rounding boundary may
 round the other way and carry one bf16 step on: 2^-5, as for every bf16
 route of the port.
@@ -94,14 +94,19 @@ def _jax_product(jx, layout, a, b, dtype):
 # ------------------------------------------------------------------ on the CPU
 @pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
 def test_plan_reads_the_layout_and_row_strides(layout):
+    """nt (K contiguous in both operands) gives its row strides; tn and nn,
+    whose products run on route_products.cu's wgmma kernels, are
+    refused."""
     for k in FAN_INS:
         for n in WIDTHS:
             _, _, call = _operands(layout, k, n, rows=5)
             m_, n_, k_, sam, sak, sbk, sbn = call
+            if layout != "nt":
+                with pytest.raises(ValueError):
+                    tdm.tc_plan(m_, n_, k_, sam, sak, sbk, sbn)
+                continue
             plan = tdm.tc_plan(m_, n_, k_, sam, sak, sbk, sbn)
-            assert plan["layout"] == layout
-            lda, ldb = {"nt": (sam, sbn), "tn": (sak, sbk), "nn": (sam, sbk)}[layout]
-            assert (plan["lda"], plan["ldb"]) == (lda, ldb)
+            assert (plan["lda"], plan["ldb"]) == (sam, sbn)
 
 
 def test_plan_copy_widths_follow_alignment():
@@ -120,13 +125,18 @@ def test_plan_refuses_a_fourth_layout():
         tdm.tc_plan(64, 64, 64, 1, 64, 1, 64)
 
 
-@pytest.mark.parametrize("k", [1, 31, 4096, 4097, R, 4 * 99_328, 600_000])
-def test_plan_splits_cover_the_reduction_once(k):
-    plan = tdm.tc_plan(256, 256, k, 1, 256, 256, 1)
-    splits, chunk = plan["splits"], plan["k_chunk"]
-    assert 1 <= splits <= 64 and chunk % 64 == 0
-    covered = sum(max(0, min(k, (z + 1) * chunk) - z * chunk) for z in range(splits))
-    assert covered == k
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 31, 256, 600_000])
+def test_route_plan_leaves_only_a_shallow_nt_to_the_tc_kernel(k, itemsize):
+    """tc_gemm_kernel takes an nt of a depth under ``ROUTE_NT_MIN_K`` (a
+    3-wide layer's dx) and nothing else: a deeper nt and every tn (a
+    reduction over k rows) go to route_nt / route_tn."""
+    nt = tdm.route_plan("nt", R, 256, k, k, k, itemsize)
+    assert nt["kernel"] == ("tc" if k < tdm.ROUTE_NT_MIN_K else "route")
+    assert tdm.route_plan("tn", 256, 256, k, 256, 256, itemsize)["kernel"] == "route"
+    if nt["kernel"] == "tc":
+        plan = tdm.tc_plan(R, 256, k, k, 1, 1, k, itemsize=itemsize)
+        assert (plan["lda"], plan["ldb"]) == (k, k)
 
 
 @pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
@@ -211,24 +221,23 @@ def _err(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
 @pytest.mark.parametrize("k", FAN_INS)
-def test_cuda_tc_product_matches_plain(layout, k):
+def test_cuda_tc_product_matches_plain(k):
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     for n in WIDTHS:
-        a, b, call = _operands(layout, k, n, seed=k * n)
+        a, b, call = _operands("nt", k, n, seed=k * n)
         ta = torch.from_numpy(a).to(dev, torch.bfloat16)
         tb = torch.from_numpy(b).to(dev, torch.bfloat16)
         prod = tdm.Products(torch.bfloat16, dev)
-        before = (tdm.Products.tc_launches, tdm.Products.tf32x3_launches)
-        got = getattr(prod, layout)(ta, tb)
-        assert (tdm.Products.tc_launches, tdm.Products.tf32x3_launches) == (
-            before[0] + 1, before[1])
+        before = dict(tdm.GEMM_LAUNCHES)
+        m_, n_, k_, sam, sak, sbk, sbn = call
+        got = prod.gemm(m_, n_, k_, ta, sam, sak, tb, sbk, sbn)  # tc_gemm_kernel itself
+        assert tdm.GEMM_LAUNCHES == {"tc": before["tc"] + 1, "tf32x3": before["tf32x3"]}
         ref = _plain(ta, tb, call)
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert _err(got, ref) <= 1e-4, (n, _err(got, ref))
-        again = getattr(prod, layout)(ta, tb)
+        again = prod.gemm(m_, n_, k_, ta, sam, sak, tb, sbk, sbn)
         assert torch.equal(got, again)
 
 

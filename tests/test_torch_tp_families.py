@@ -120,10 +120,74 @@ def _pallas_mlp(jx, case, vs, ws, bs, g, dtype):
     return out, [x for part in grads for x in part]
 
 
+# a pre-activation within KINK_ULPS f32 roundings (2^-24) of the sum of
+# |x_k w_k| over its row and the bias (the magnitude that the sum's
+# rounding error scales with, in any order) lies at ReLU's kink: two
+# correct f32 sums may take its two sides. At most KINK_ROWS_MAX of the
+# 1,024 rows may hold one (the cases hold 0 to 2)
+KINK_ULPS = 2.0
+KINK_ROWS_MAX = 4
+
+
+def _f64_walk(case, vs, ws, bs, g, cd, sides=None):
+    """The value-only ReLU MLP (a post-skip layer reading ``[h, seg0]``) in
+    float64 on the operands rounded to ``cd`` as the port takes them, each
+    layer's output rounded to ``cd``: (the pre-activations, their rounding
+    magnitudes sum_k |x_k w_k| + |b|, the gradients of sum(out g): dvs,
+    dWs, dbs), layer l's ReLU open where ``sides[l]`` (default where its
+    float64 pre-activation is positive)."""
+    def rnd(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(cd).double().numpy()
+
+    layout, n = case["layout"], len(ws)
+    vs, ws = [rnd(v) for v in vs], [rnd(w) for w in ws]
+    seg0, h = vs[0], np.concatenate(vs, axis=1)
+    xs, zs, mags, opens = [], [], [], []
+    for li, (w, b) in enumerate(zip(ws, bs)):
+        if li > 0 and layout[li]:
+            h = np.concatenate([h, seg0], axis=1)
+        z = h @ w + b
+        xs.append(h)
+        zs.append(z)
+        mags.append(np.abs(h) @ np.abs(w) + np.abs(b))
+        opens.append(z > 0 if sides is None else sides[li])
+        h = rnd(np.where(opens[-1], z, 0.0))
+    gz = g * opens[-1]
+    dws, dbs, d_seg0 = [None] * n, [None] * n, 0.0
+    for li in reversed(range(n)):
+        dws[li], dbs[li] = xs[li].T @ gz, gz.sum(axis=0)
+        gx = gz @ ws[li].T
+        if li == 0:
+            break
+        c = zs[li - 1].shape[1]
+        if layout[li]:
+            d_seg0 = d_seg0 + gx[:, c:]
+        gz = gx[:, :c] * opens[li - 1]
+    cuts = np.cumsum([v.shape[1] for v in vs])[:-1]
+    dvs = np.split(gx, cuts, axis=1)
+    dvs[0] = dvs[0] + d_seg0
+    return zs, mags, [*dvs, *dws, *dbs]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("width", [16, WIDE])
 @pytest.mark.parametrize("name", list(MLP_CASES))
 def test_hidden_first_walk_matches_plain_and_pallas(jx, name, width, dtype):
+    """The route against its plain versions, and against the Pallas
+    ``mlp_seg`` row by row away from ReLU's kink.
+
+    The rows at the kink: a float64 forward of the same operands (each
+    layer's output rounded to the compute dtype) finds the rows where any
+    layer's pre-activation z lies within KINK_ULPS * 2^-24 * (sum_k |x_k
+    w_k| + |b|) of 0, an f32 rounding of its sum in some order; at most
+    KINK_ROWS_MAX of them. Every other row of an input segment's gradient
+    is held to Pallas at the bars of ``test_torch_mlp_seg.py``; the kink
+    rows to a float64 backward that takes the port's own ReLU sides, read
+    from its stash (z > 0), at the same bars. The sums over the rows (dW,
+    db) are held to Pallas with the kink rows' terms moved to the float64
+    forward's sides (the port's, less the float64 backward on its sides,
+    plus the float64 backward on the float64 sides), and whole to the
+    float64 backward on the port's sides."""
     case, cd = MLP_CASES[name], DTYPES[dtype]
     m = jx.mlp.TILE_M
     vs, ws, bs, g = _mlp_inputs(case, width, m, seed=width + len(name))
@@ -140,8 +204,31 @@ def test_hidden_first_walk_matches_plain_and_pallas(jx, name, width, dtype):
     jout, jgrads = _pallas_mlp(jx, case, vs, ws, bs, g, dtype)
     fwd_tol, grad_tol = (1e-5, 1e-5) if cd == torch.float32 else (2.0**-6, 2.0**-5)
     assert _rel(out, np.asarray(jout, np.float32)) <= fwd_tol
-    for i, (a, b) in enumerate(zip(grads, jgrads)):
-        assert _rel(a, np.asarray(b, np.float32)) <= grad_tol, ("pallas", i, _rel(a, b))
+
+    # the port's ReLU sides from its stash (the route's walk, as its op runs it)
+    tvs = [torch.tensor(v).to(cd) for v in vs]
+    k = tmlp.mlp_layer_launcher(cd, tvs[0].device, False)
+    _, _, pres = tdm.dual_mlp_layers_walk(
+        tvs, [], [torch.tensor(w).to(cd) for w in ws], [torch.tensor(b) for b in bs],
+        case["layout"], "ReLU", (False,) * len(vs), 0, k, None, True, hidden_first=True,
+        whole_last=case["narrow"])
+    port_sides = [p.reshape(m, -1).float().numpy() > 0 for p in pres]
+    zs, mags, f64_grads = _f64_walk(case, vs, ws, bs, g, cd)
+    _, _, port_f64 = _f64_walk(case, vs, ws, bs, g, cd, port_sides)
+    near = np.stack([np.any(np.abs(z) <= KINK_ULPS * 2.0**-24 * r, axis=1)
+                     for z, r in zip(zs, mags)]).any(axis=0)
+    kinks, rest = np.flatnonzero(near), np.flatnonzero(~near)
+    assert len(kinks) <= KINK_ROWS_MAX, kinks
+    for i, (a, b, pf, ff) in enumerate(zip(grads, jgrads, port_f64, f64_grads)):
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert _rel(a, pf) <= grad_tol, ("float64 on the port's sides", i, _rel(a, pf))
+        if i < len(vs):  # an input segment's gradient, row by row
+            assert _rel(a[rest], b[rest]) <= grad_tol, ("pallas", i, _rel(a[rest], b[rest]))
+            if len(kinks):
+                assert _rel(a[kinks], pf[kinks]) <= grad_tol, ("kink rows", i, kinks)
+        else:
+            moved = a - pf + ff
+            assert _rel(moved, b) <= grad_tol, ("pallas", i, _rel(moved, b))
 
 
 def test_value_walk_without_grad_is_the_forward_of_the_op():

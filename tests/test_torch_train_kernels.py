@@ -456,7 +456,7 @@ def test_cuda_seg_forward_and_backward_match_plain(dtype, name):
     gj = torch.tensor(rng.normal(size=(k, m, 256)), dtype=dtype, device=dev)
     bwd_args = (vs, js, ws, cfg["layout"], "tanhExp", cfg["has_j"], ref[2], gv, gj)
     counts = (tdm.PASS_LAUNCHES["gstack"], tdm.PASS_LAUNCHES["dual_act"],
-              tdm.Products.epilogue_launches, tdm.Products.prologue_launches)
+              *tdm.folded_launches().values())
     kern = tdm.dual_mlp_seg_bwd(*bwd_args)
     torch.cuda.synchronize()
     # one stacked cotangent of its own (the top layer's); every layer below
@@ -464,7 +464,7 @@ def test_cuda_seg_forward_and_backward_match_plain(dtype, name):
     # dW product's prologue
     n_l = len(ws)
     assert (tdm.PASS_LAUNCHES["gstack"], tdm.PASS_LAUNCHES["dual_act"],
-            tdm.Products.epilogue_launches, tdm.Products.prologue_launches) == (
+            *tdm.folded_launches().values()) == (
         counts[0] + 1, counts[1], counts[2] + n_l - 1, counts[3] + n_l - 1)
     plain = tdm.dual_mlp_seg_bwd_plain(*bwd_args)
     for g, r in zip(sum(kern, []), sum(plain, [])):

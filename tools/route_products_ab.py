@@ -12,19 +12,28 @@ before the card catches up). Per walk: CUDA-event ms of one call (median
 of 3), the profiler's device ms and the kernels by name. ``torch.matmul``
 runs f32 with TF32 off.
 
-With ``--steps``, instead: each configuration whose step runs these
-products (the shipped NeDDF, NeRF and NeuS steps of phases 8 and 11 and
-the per-layer route's NeDDF-, NeRF- and NeuS-1024 and -deep of phases
-24b, 25b and 26b, at their rays) trains 100 steps through the tree's
-``scripts/run.py``; its ms/step is the mean over steps 50-99.
+With ``--fold``, instead: the products with an activation folded in
+(``Products.nt_act``, ``.nn_adjoint``, ``.tn_act``,
+``DualProducts.nt_gstack``, ``.tn_dual_act``) at the shipped steps'
+shapes (``chip_smoke.fold_shipped_cases``: NeDDF's K=3 and K=1 trunks,
+NeRF's trunk in bf16, NeuS in f32), each timed as the products above,
+with the kernels its call launches by name.
+
+With ``--steps [NAME ...]``, instead: each configuration whose step runs
+these products (by default the shipped NeDDF, NeRF and NeuS steps of
+phases 8 and 11 and NeuS-1024 and NeuS-deep of phases 25b and 26b; any of
+``STEPS`` by name, at their rays) trains 100 steps through the tree's
+``scripts/run.py``; its ms/step is the mean over steps 50-99, beside the
+backward products' launches per step (with an activation folded in, and
+of tc_gemm_kernel).
 
 Run from the root of a checkout on a machine with one CUDA card, with
 the tree to time (this checkout, or an unpacked ``git archive`` of
 another commit in a git-ignored directory, with ``config`` and ``data``
 linked into it for ``--steps``) as the argument:
 
-    python3 tools/route_products_ab.py outputs/parent [--steps]
-    python3 tools/route_products_ab.py . [--steps]
+    python3 tools/route_products_ab.py outputs/parent [--fold | --steps [NAME ...]]
+    python3 tools/route_products_ab.py . [--fold | --steps [NAME ...]]
 
 Runs of two trees in one call, in the order parent, change, change,
 parent, compare them on one card.
@@ -36,10 +45,15 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, sys.argv[1])
+import importlib.util  # noqa: E402
+
 import torch  # noqa: E402
 
-sys.path.insert(1, str(Path(__file__).resolve().parents[1]))  # chip_smoke
-import chip_smoke as smoke  # noqa: E402
+# this checkout's chip_smoke.py (a tree under test holds its own, older one)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 from neddf_tpu_torch.kernels import _build  # noqa: E402
 from neddf_tpu_torch.kernels import dual_mlp as dm  # noqa: E402
 from neddf_tpu_torch.kernels import mlp  # noqa: E402
@@ -68,6 +82,7 @@ STEPS = {"neddf": [], "nerf": smoke.FAMILY_OVERRIDES["nerf"],
          **{name: [*smoke.TP_FAMILY_OVERRIDES[name], f"trainer.batch_size={spec['rays']}"]
             for name, spec in smoke.TPF_RUNS.items()},
          **smoke.DEEP_OVERRIDES}
+STEPS_DEFAULT = ("neddf", "nerf", "neus", "neus_1024", "neus_deep")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 print("csrc", _build.CSRC, file=sys.stderr)
@@ -76,26 +91,48 @@ dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
 
 
-def steps(tree: str) -> None:
+def product_counts() -> dict:
+    """The backward products' launches so far: with an activation folded
+    in, by end ("epilogue", "prologue") and by mode where the tree counts
+    them, and of tc_gemm_kernel. A tree with ``FOLD_LAUNCHES`` counts the
+    folded modes and tc_gemm_kernel apart; in the trees before it every
+    product with an activation folded in ran on tc_gemm_kernel, counted in
+    ``Products.tc_launches`` / ``tf32x3_launches`` beside its plain
+    products, and by end in ``Products.epilogue_launches`` /
+    ``prologue_launches``."""
+    if hasattr(dm, "FOLD_LAUNCHES"):
+        return {**dm.folded_launches(), "tc_gemm_kernel": sum(dm.GEMM_LAUNCHES.values()),
+                **{f"fold_{k}": v for k, v in dm.FOLD_LAUNCHES.items()}}
+    return {"epilogue": dm.Products.epilogue_launches,
+            "prologue": dm.Products.prologue_launches,
+            "tc_gemm_kernel": dm.Products.tc_launches + dm.Products.tf32x3_launches}
+
+
+def steps(tree: str, names) -> None:
     """--steps: each configuration's 100 steps; one JSON line."""
     import shutil
 
     smoke.cache_datasets()
-    out = {"tree": tree, "card": smoke.card_line(), "steps": {}}
-    for name, overrides in STEPS.items():
+    out = {"tree": tree, "card": smoke.card_line(), "steps": {}, "launches_per_step": {}}
+    for name in names:
         run_dir = smoke.REPO / "outputs" / "ab_steps" / name
-        trainer = smoke.run_main_path(torch, run_dir, [*overrides, "trainer.epoch_max=0"])
+        before = product_counts()
+        trainer = smoke.run_main_path(torch, run_dir, [*STEPS[name], "trainer.epoch_max=0"])
         ms = 1000.0 * statistics.mean(r["seconds"] for r in trainer.history[50:])
+        after = product_counts()
+        per_step = {k: (v - before.get(k, 0)) / trainer.iteration for k, v in after.items()}
         out["steps"][name] = ms
-        print(json.dumps({"config": name, "ms_per_step": ms}), file=sys.stderr)
+        out["launches_per_step"][name] = per_step
+        print(json.dumps({"config": name, "ms_per_step": ms, "launches_per_step": per_step}),
+              file=sys.stderr)
         del trainer
         shutil.rmtree(run_dir, ignore_errors=True)
         torch.cuda.empty_cache()
     print(json.dumps(out))
 
 
-if sys.argv[2:] == ["--steps"]:
-    steps(sys.argv[1])
+if sys.argv[2:3] == ["--steps"]:
+    steps(sys.argv[1], sys.argv[3:] or STEPS_DEFAULT)
     sys.exit(0)
 
 
@@ -134,6 +171,27 @@ def host_ms(fn, calls=20):
 def rnd(*shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+
+def fold(tree: str) -> None:
+    """--fold: the folded products at the shipped shapes; one JSON line."""
+    out = {"tree": tree, "card": smoke.card_line(), "fold": []}
+    for name, mode, dtype_name, fn, _, lib, flops, nbytes in smoke.fold_shipped_cases(
+            torch, g, dev):
+        ms, lib_ms = in_turns(fn, lib)
+        per_call, device = smoke.profile_calls(torch, fn, calls=10)
+        r = {"case": name, "mode": mode, "dtype": dtype_name, "ms": ms, "device_ms": device,
+             "kernels": per_call, "host_ms_per_call": host_ms(fn), "matmul_ms": lib_ms,
+             "tflops": flops / ms / 1e9,
+             **smoke.bound(flops, nbytes, "tf32x3" if dtype_name == "float32" else "bfloat16")}
+        out["fold"].append(r)
+        print(json.dumps({k_: v for k_, v in r.items() if k_ != "kernels"}), file=sys.stderr)
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+if sys.argv[2:] == ["--fold"]:
+    fold(sys.argv[1])
+    sys.exit(0)
 
 out = {"tree": sys.argv[1], "card": smoke.card_line(), "products": [], "walks": []}
 for row, dtype_name, layout, rows, width, fan in PRODUCTS:
