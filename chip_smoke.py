@@ -13,9 +13,10 @@ Phases (any failure stops the script with a non-zero exit code):
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. build the CUDA kernels from ``neddf_tpu_torch/csrc`` (timed); in the
    built library's SASS every product kernel, tile forward and NeuS
-   sweep has HMMA (tensor-core) instructions, on TF32 operands
+   sweep has HMMA or HGMMA (tensor-core) instructions, on TF32 operands
    in the f32 instantiations (the 3xTF32 split) and not in the bf16
-   ones (the wgmma kernels, ``WGMMA_FUNCTIONS``, HGMMA and no HMMA),
+   ones (the wgmma kernels, ``WGMMA_FUNCTIONS``: the per-layer route's,
+   the backward products and the row-tile forward, HGMMA and no HMMA),
    and ptxas reports no spills in them nor in the epilogue backward's
    52 instantiations;
 3. each kernel against its plain PyTorch version at the eval render's
@@ -602,8 +603,9 @@ TC_FUNCTIONS = {"tc_gemm_kernel": 2,
                 # prologue (the 5 activations) and the dual products over rows
                 # grouped by point (the 5 activations x S = 2, 4): 16 each
                 "route_nt": 32, "route_tn": 32,
-                # bf16 and f32 x K=3, K=1, K=0 x the 5 activations x the width
-                # classes 64, 128, 256, 512
+                # the row-tile forward on wgmma (tile_hopper.cuh): bf16 and f32 x
+                # K=3, K=1, K=0 x the 5 activations x the width classes 64, 128,
+                # 256, 512
                 "mlp_tile_fwd": 120,
                 # f32 x the 5 activations x the 4 classes x rows of whole
                 # 16-byte vectors or not
@@ -611,7 +613,10 @@ TC_FUNCTIONS = {"tc_gemm_kernel": 2,
 
 
 # the tensor-core functions on wgmma alone (HGMMA, no HMMA)
-WGMMA_FUNCTIONS = ("layer_fwd_wide", "route_nt", "route_tn")
+WGMMA_FUNCTIONS = ("layer_fwd_wide", "route_nt", "route_tn", "mlp_tile_fwd")
+# the row-tile forward's mma.sync body, gone from the library (the tile
+# forward is the wgmma kernel mlp_tile_fwd alone)
+REMOVED_TILE_BODY = "tile_forward_tc"
 
 
 # the elementwise passes of the backwards that the products' epilogues and
@@ -686,6 +691,8 @@ def check_tensor_core_build(build_dir: Path) -> dict:
         if failed:
             fail(f"cuobjdump -sass failed on {failed}")
         sass = "".join(path.read_text() for path in outs)
+    if REMOVED_TILE_BODY in sass:
+        fail(f"SASS: the mma.sync tile body {REMOVED_TILE_BODY} is still in the library")
     hmma, tf32, hgmma, name = {}, {}, {}, None
     for line in sass.splitlines():
         text = line.strip()
@@ -704,8 +711,8 @@ def check_tensor_core_build(build_dir: Path) -> dict:
             fail(f"SASS: {len(found)} tensor-core instantiations of {key}, expected {count}")
     if min(hmma.values()) < 1:
         fail(f"SASS: a tensor-core function without HMMA: {hmma}")
-    # the wide layer forward and the route's products run on wgmma:
-    # warpgroup HGMMA, no mma.sync HMMA
+    # the wide layer forward, the route's products and the tile forward
+    # run on wgmma: warpgroup HGMMA, no mma.sync HMMA
     wide = {fn: (hgmma[fn], hmma[fn]) for fn in hmma
             if any(key in fn for key in WGMMA_FUNCTIONS)}
     if len(wide) != sum(TC_FUNCTIONS[key] for key in WGMMA_FUNCTIONS) or any(
@@ -3275,10 +3282,12 @@ def phase_wide_runs(torch, card: str) -> dict:
 
 
 # the kernels line's "source" and "replaces" of each wrapper's kernel: the
-# file that compiles its body, and the Pallas call it takes the place of
+# file that holds its body, and the Pallas call it takes the place of
 KERNEL_SOURCES = {
-    "dual_mlp_trunk": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/dual_mlp.py:635"),
-    "dual_mlp_seg": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/dual_mlp.py:635"),
+    "dual_mlp_trunk": ("neddf_tpu_torch/csrc/tile_hopper.cuh",
+                      "neddf_tpu/kernels/dual_mlp.py:635"),
+    "dual_mlp_seg": ("neddf_tpu_torch/csrc/tile_hopper.cuh",
+                    "neddf_tpu/kernels/dual_mlp.py:635"),
     "dual_mlp_seg_bwd": ("neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
                          "neddf_tpu/kernels/dual_mlp.py:935"),
     "neddf_epilogue": ("neddf_tpu_torch/csrc/neddf_epilogue.cu",
@@ -3287,9 +3296,11 @@ KERNEL_SOURCES = {
                            "neddf_tpu/kernels/neddf_epilogue.py:365"),
     "neddf_epilogue_gstack": ("neddf_tpu_torch/csrc/neddf_epilogue.cu",
                               "neddf_tpu/kernels/neddf_epilogue.py:365"),
-    "mlp_seg": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/mlp.py:192"),
+    "mlp_seg": ("neddf_tpu_torch/csrc/tile_hopper.cuh",
+               "neddf_tpu/kernels/mlp.py:192"),
     "mlp_seg_bwd": ("neddf_tpu_torch/csrc/mlp_bwd.cu", "neddf_tpu/kernels/mlp.py:248"),
-    "sdf_mlp": ("neddf_tpu_torch/csrc/tile_fwd.cu", "neddf_tpu/kernels/sdf_mlp.py:257"),
+    "sdf_mlp": ("neddf_tpu_torch/csrc/tile_hopper.cuh",
+               "neddf_tpu/kernels/sdf_mlp.py:257"),
     "sdf_mlp_bwd": ("neddf_tpu_torch/csrc/sdf_mlp.cu", "neddf_tpu/kernels/sdf_mlp.py:304"),
 }
 

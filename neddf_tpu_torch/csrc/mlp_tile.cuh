@@ -1,102 +1,22 @@
-// Row-tile MLP forward shared by the trunk kernels (dual_mlp_fwd.cu,
-// mlp_fwd.cu, sdf_mlp.cu), and the activations the backward kernels share
-// (mlp_bwd.cu, dual_mlp_bwd.cu, sdf_mlp.cu). Built by neddf_tpu_torch/kernels/_build.py with
+// The row-tile forward's shared definitions, and the activations and
+// helpers the other kernels share (mlp_bwd.cu, dual_mlp_bwd.cu,
+// sdf_mlp.cu and its sweep, neddf_epilogue.cu, layer_fwd.cu,
+// route_products.cu). Built by neddf_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 //
-// Replaces the row tile of the Pallas forwards neddf_tpu/kernels/
-// dual_mlp.py::_fwd_kernel and neddf_tpu/kernels/mlp.py::_fwd_kernel (and
-// the trunk part of sdf_mlp.py::_fwd_kernel). One block owns a tile of
-// samples and runs EVERY layer of the MLP on it without writing an
-// activation to device memory, as the Pallas kernels keep a row tile in
-// VMEM across the layers:
-//
-// * the block stacks S = K+1 streams (the values and K tangent planes)
-//   as S*TM rows (TileGeo), stream-major: row st*TM + i is stream st of
-//   sample i. K=3 is the NeDDF distance trunk (d/dxyz planes), K=1 the
-//   colour trunk's directional tangent (training), K=0 the value-only
-//   trunks (eval colour, NeRF, NeuS). A segment without tangents stages
-//   zeros in its tangent rows.
-// * optionally (stash[l] != null) each layer's pre-activation stack
-//   [S, M, C] (z with the bias on the value rows, before the activation)
-//   is written rounded to T, for the backward (dual_mlp_bwd.cu).
-// * the layer-0 input is staged once into shared memory as the concat of
-//   the input segments (x0); its weight rows are read in place, so no
-//   concat ever exists in device memory. A post-skip layer reads segment
-//   0 again from x0 and the hidden state from h, in either order:
-//   kSplitSegFirst ([seg0, h], NeDDF) or kSplitHiddenFirst ([h, seg0],
-//   NeRF/NeuS), each piece against its own rows of W.
-// * the hidden state h [rows, C] lives in shared memory and is written
-//   back after each layer as f(z) on the value rows and f'(z_value) *
-//   z_tangent on the tangent rows, rounded to the storage type T; the
-//   activation is a template parameter: tanhExp (kTanhExp), ReLU (kReLU,
-//   with f'(0) = 0), LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1),
-//   Softplus (kSoftplus, linear above 20) or Sigmoid (kSigmoid), as
-//   neddf_tpu/kernels/dual_mlp.py::_act_fns defines them. Sums and
-//   activations are f32; the f32 bias is added to the value rows only.
-//
-// Widths. The body is instantiated for the width classes C = 64, 128,
-// 256 and 512; a layer width N (TileArgs::width) runs on the smallest
-// class C >= N (width_class). Weight rows are N wide in device memory and
-// are copied into shared memory with the columns past N zero-filled
-// (16-byte cp.async where N allows it, else 4 or 2 bytes at a time); the
-// bias past N reads as 0, so those columns of z are exactly 0 and of h
-// f(0), a finite value that the next layer multiplies by zero-filled
-// weight rows (its hidden piece is N rows). Outputs and the stash are
-// stored for the columns < N only (in pairs where N is even), so no padded
-// copy of a weight, an activation or an output exists in device memory.
-//
-// One body for both operand types, tile_forward_tc: each layer's product
-// [rows x fan_in] x [fan_in x C] runs on the tensor cores with f32
-// accumulators in registers, the block of 8 warps (256 threads, up to 255
-// registers each; 512 threads would leave 64 registers beside 128
-// accumulators, and spill). The rows of a block follow the width class
-// (TileGeo): 32768 / C stacked rows, i.e. 128 accumulators per thread
-// (512 rows at C = 64, 64 at C = 512), but f32 below C = 256 keeps 128
-// rows (64 or 32 accumulators): 256 or 512 f32 rows of the colour
-// trunk's wide x0 do not fit in shared memory. Each warp owns one sample
-// slice of EVERY stream and a band of columns, so
-// the value and the tangents of one sample and column sit in the same
-// thread and the epilogue f'(z_v) * z_t needs no exchange. x0 is staged in
-// 16- or 8-byte loads where a segment's rows allow them. A operands come
-// from x0 / h by ldmatrix (rows padded to an odd multiple of 16 bytes: no
-// bank conflicts), B from a ring of 3 weight tiles (tile_stages) filled by cp.async,
-// walked as one schedule across pieces and layers, so the copy of the next
-// tiles (the next layer's too) overlaps the products. A fan-in that is not
-// a multiple of the mma depth (60, 343, 256+60, 39, 286) reads zero-padded
-// x0 columns against weight rows zero-filled in shared memory past the
-// piece; no padded weight exists in device memory.
-//
-// * bf16: mma.sync m16n8k16, weight tiles of 32 rows, B fragments by
-//   ldmatrix .trans.
-// * f32 (NeuS, and the f32 reference steps): the 3xTF32 split of
-//   tc_ops.cuh, three mma.sync m16n8k8 tf32 per f32 multiply-add, each
-//   fragment split into hi and lo as it is read from shared memory. TF32
-//   alone keeps about three decimal digits, which the f32 gates (1e-4
-//   kernel vs plain version, 1e-3 against the JAX package) would not
-//   hold; the split leaves about 2^-21 of each product, the order of an
-//   f32 FMA sum's own rounding over a fan-in of 256. A fragments come by
-//   the same ldmatrix byte addresses as in bf16 (a stage row of 32-bit
-//   elements is read as pairs of b16), B fragments by element loads (no
-//   32-bit ldmatrix .trans) from weight rows padded by 8 elements, so the
-//   lanes (k t, column g) fall on banks 8t + g. Shared memory doubles per
-//   element, so f32 weight tiles hold 16 rows (in 2 ring stages at C =
-//   512, where 64 rows of h take 132 kB), x0 is padded only to the mma
-//   depth of 8 (the loop stops at a piece's last mma) and h by 4
-//   elements: at C = 256 the K=1 colour trunk with its 343-wide x0 takes
-//   229,728 of the 232,448 bytes a block may use.
-//
-// What bounds it on the H100: at C = 256 a stacked row costs
-// 2*C*fan_in FLOPs per layer against 2*(C0 + C) bytes of input and output
-// per sample stream, i.e. over a thousand FLOPs per byte without a stash:
-// in bf16 the tensor cores' rate (989 TFLOP/s) is the bound, with the
-// stash (2*C bytes per stacked row and layer) the bytes come within a
-// factor of a few of it; in f32 the 3xTF32 rate (165 TFLOP/s of f32 work
-// at 700 W; 67 on the FMA units). The kernel runs far from both: per
-// layer each block waits on one barrier per weight tile, its epilogue
-// (tanhExp: two transcendentals per value element, the stash's stores)
-// does not overlap the products, and one block of 8 warps per SM hides
-// little latency; in f32 the split adds three ALU operations per
-// fragment element read.
+// * TileArgs: a trunk call of the row-tile forward (tile_hopper.cuh's
+//   mlp_tile_fwd, the Hopper design on wgmma + TMA): the input segments,
+//   every layer's weights, biases, post-skip split and stash, the outputs;
+//   tile_fwd picks the object of the call's operand type and width class
+//   (csrc/tile_fwd.cu, one per pair).
+// * Widths: every layer width N from 1 to kMaxWidth runs on the smallest
+//   class C >= N of 64, 128, 256 and 512 (width_class).
+// * The activations: tanhExp (kTanhExp), ReLU (kReLU, f'(0) = 0),
+//   LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1), Softplus (kSoftplus,
+//   linear above 20) and Sigmoid (kSigmoid), as neddf_tpu/kernels/
+//   dual_mlp.py::_act_fns defines them, with f' and f''.
+// * tile_rows / TileGeo: the row tile and warp tiling of the NeuS sweep
+//   (sdf_sweep.cuh), 8 warps of mma.sync over a block of 32768 / C rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,50 +31,23 @@ namespace neddf {
 
 constexpr int kMaxSeg = 4;
 constexpr int kMaxLayers = 12;
-constexpr int kTcTileThreads = 256;  // threads of a block
+constexpr int kTcTileThreads = 256;  // threads of a sweep block
 constexpr int kMaxWidth = 512;  // the widest class
-
-// the tile body's shapes by operand type: the mma depth, x0's column
-// alignment and the row paddings of x0, h and the weight tiles in shared
-// memory (see above)
-template <typename T>
-struct TileShape {
-  static constexpr int KSTEP = 16, X_ALIGN = 32, X_PAD = 8, H_PAD = 8, W_PAD = 8;
-};
-template <>
-struct TileShape<float> {
-  static constexpr int KSTEP = 8, X_ALIGN = 8, X_PAD = 4, H_PAD = 4, W_PAD = 8;
-};
 
 // the width class of a layer width n (0 past kMaxWidth)
 __host__ __device__ constexpr int width_class(int n) {
   return n < 1 ? 0 : n <= 64 ? 64 : n <= 128 ? 128 : n <= 256 ? 256 : n <= kMaxWidth ? 512 : 0;
 }
 
-// stacked rows (streams x samples) of a block of width class C
+// rows of a sweep block of width class C
 template <typename T, int C>
 __host__ __device__ constexpr int tile_rows() {
   return std::is_same_v<T, float> && C < 256 ? 128 : 32768 / C;
 }
 
-// weight rows per ring stage: two mma depths
-template <typename T, int C>
-__host__ __device__ constexpr int tile_kt() {
-  return std::is_same_v<T, float> ? 16 : 32;
-}
-
-// stages of the weight ring: three, two for f32 at C = 512 (64 rows of h
-// take 132 kB; tiles of 8 rows in three stages spilled 24 bytes of the
-// K=3 body)
-template <typename T, int C>
-__host__ __device__ constexpr int tile_stages() {
-  return std::is_same_v<T, float> && C >= 512 ? 2 : 3;
-}
-
-// the warp tiling of a block: RT m16 tiles (MT per stream) of a sample
-// slice by WC columns (NI n8 tiles) per warp, NSL sample slices x NCG
-// column bands over the 8 warps; every warp holds all S streams of its
-// samples
+// the sweep's warp tiling (K = 0): RT m16 tiles (MT per stream) of a
+// sample slice by WC columns (NI n8 tiles) per warp, NSL sample slices x
+// NCG column bands over the 8 warps
 template <typename T, int K, int C>
 struct TileGeo {
   static constexpr int S = K + 1;
@@ -225,12 +118,14 @@ struct TileArgs {
   const void* w[kMaxLayers];   // [fan_in, C] row-major, type T
   const float* b[kMaxLayers];  // [C]
   int split[kMaxLayers];       // 0, kSplitSegFirst or kSplitHiddenFirst
-  void* stash[kMaxLayers];     // [S, M, C] pre-activations, type T, or null
+  void* stash[kMaxLayers];     // [S, M, N_l] pre-activations, type T, or null
   int n_layers;
   int M;
-  int width;                   // N, every layer's output width (<= the class C)
-  void* v_out;                 // [M, N], type T
-  void* j_out;                 // [K, M, N], type T
+  int width;                   // N, every layer's output width (<= the class C) but the last's
+  int last_width;              // the last layer's output width N_L (<= N)
+  void* v_out;                 // [M, N_L], type T
+  void* j_out;                 // [K, M, N_L], type T
+  void* scratch;               // the plan's device scratch (f32: W^T's tf32 planes), or null
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -457,539 +352,39 @@ __host__ __device__ inline bool has_split(const TileArgs& a) {
   return false;
 }
 
-// the layer's input pieces: (from x0 or h, width, first weight row); the
-// hidden piece is the N = a.width columns of h
-__host__ __device__ __forceinline__ int layer_pieces(const TileArgs& a, int l, bool from_x0[2],
-                                                     int width[2], int wrow[2]) {
-  const int w0 = a.seg_w[0];
-  const int n = a.width;
-  if (l == 0) {
-    from_x0[0] = true; width[0] = x0_width(a); wrow[0] = 0;
-    return 1;
-  }
-  if (a.split[l] == kSplitSegFirst) {
-    from_x0[0] = true; width[0] = w0; wrow[0] = 0;
-    from_x0[1] = false; width[1] = n; wrow[1] = w0;
-    return 2;
-  }
-  if (a.split[l] == kSplitHiddenFirst) {
-    from_x0[0] = false; width[0] = n; wrow[0] = 0;
-    from_x0[1] = true; width[1] = w0; wrow[1] = n;
-    return 2;
-  }
-  from_x0[0] = false; width[0] = n; wrow[0] = 0;
-  return 1;
-}
-
-// weight tiles of the body's schedule: every layer, each layer's pieces,
-// KT rows at a time
-template <int KT>
-__host__ __device__ inline int weight_tile_count(const TileArgs& a) {
-  int n = 0;
-  for (int l = 0; l < a.n_layers; ++l) {
-    bool from_x0[2];
-    int width[2], wrow[2];
-    const int np = layer_pieces(a, l, from_x0, width, wrow);
-    for (int pc = 0; pc < np; ++pc) n += (width[pc] + KT - 1) / KT;
-  }
-  return n;
-}
-
-// one entry of that schedule, kept in shared memory: the tile's first
-// weight row in device memory and its rows inside the piece
-template <typename T>
-struct __align__(16) WeightTile {
-  const T* src;
-  int rows;
-};
-
-// row pitches in shared memory: x0 padded with zeros to X_ALIGN columns,
-// every row padded (TileShape)
-template <typename T>
-__host__ __device__ inline int x0_pitch(const TileArgs& a) {
-  using Sh = TileShape<T>;
-  return (x0_width(a) + Sh::X_ALIGN - 1) / Sh::X_ALIGN * Sh::X_ALIGN + Sh::X_PAD;
-}
-
-template <typename T, int C>
-__host__ __device__ constexpr int h_pitch() {
-  return C + TileShape<T>::H_PAD;
-}
-
-template <typename T, int C>
-__host__ __device__ constexpr int w_pitch() {
-  return C + TileShape<T>::W_PAD;
-}
-
-// elements of the x0 + h region; without a post-skip layer h reuses x0,
-// which is dead once layer 0 has read it
-template <typename T, int C>
-__host__ __device__ inline size_t act_elems(const TileArgs& a) {
-  constexpr size_t kRows = tile_rows<T, C>();
-  const size_t x0 = kRows * x0_pitch<T>(a);
-  const size_t h = kRows * h_pitch<T, C>();
-  if (has_split(a)) return x0 + h;
-  return x0 > h ? x0 : h;
-}
-
-// elements of the weight ring: tile_stages tiles of KT padded rows
-template <typename T, int C>
-__host__ __device__ constexpr size_t wt_elems() {
-  return (size_t)tile_stages<T, C>() * tile_kt<T, C>() * w_pitch<T, C>();
-}
-
-// bytes of the block's shared buffers: x0 and h, the weight ring and the
-// weight schedule
-template <typename T, int C>
-__host__ __device__ inline size_t smem_bytes(const TileArgs& a) {
-  return (act_elems<T, C>(a) + wt_elems<T, C>()) * sizeof(T) +
-         weight_tile_count<tile_kt<T, C>()>(a) * sizeof(WeightTile<T>);
-}
-
-// tile t of the weight schedule (every layer, each layer's pieces, KT rows
-// at a time): its first row and its rows inside the piece; false past the
-// last tile. Weight rows are N = a.width elements apart.
-template <int KT, typename T>
-__device__ __forceinline__ bool weight_tile(const TileArgs& a, int t, const T*& src,
-                                            int& rows) {
-  for (int l = 0; l < a.n_layers; ++l) {
-    bool from_x0[2];
-    int width[2], wrow[2];
-    const int n = layer_pieces(a, l, from_x0, width, wrow);
-    for (int pc = 0; pc < n; ++pc) {
-      const int tiles = (width[pc] + KT - 1) / KT;
-      if (t < tiles) {
-        src = static_cast<const T*>(a.w[l]) + (size_t)(wrow[pc] + t * KT) * a.width;
-        rows = min(KT, width[pc] - t * KT);
-        return true;
-      }
-      t -= tiles;
-    }
-  }
-  return false;
-}
-
-// copy the rows of one weight tile (rows of n elements from src) into dst
-// (row pitch WP, C columns), V elements per copy: 16-, 8- or 4-byte
-// cp.async (V * sizeof(T) >= 4) or single bf16 elements; rows past `rows`
-// and columns past n are zeros
-template <typename T, int C, int KT, int WP, int V>
-__device__ __forceinline__ void copy_weight_rows(const T* src, int rows, int n, T* dst) {
-  constexpr int E = (int)sizeof(T);
-  constexpr int CPR = C / V;  // copies per row
-#pragma unroll 1
-  for (int idx = threadIdx.x; idx < KT * CPR; idx += kTcTileThreads) {
-    const int r = idx / CPR;
-    const int c = (idx - r * CPR) * V;
-    const int valid = r < rows ? max(0, min(V, n - c)) : 0;
-    if constexpr (V * E >= 4) {
-      cp_async<V * E>(smem_u32(dst + r * WP + c), valid > 0 ? src + (size_t)r * n + c : src,
-                      valid * E);
-    } else {
-      dst[r * WP + c] = valid > 0 ? src[(size_t)r * n + c] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// copy weight tile t of the schedule into ring slot dst (rows past the
-// piece and columns past N are zeros); nothing past the last tile. The
-// copy width follows N: 16 bytes where a row is a whole number of them
-// (the weights are 16-byte aligned), else 4 bytes (f32, or bf16 at an even
-// N), else single bf16 elements
-template <typename T, int C>
-__device__ __forceinline__ void load_weight_tile(const WeightTile<T>* sched, int n_tiles, int t,
-                                                 int n, T* dst) {
-  if (t >= n_tiles) return;
-  constexpr int E = (int)sizeof(T);
-  constexpr int KT = tile_kt<T, C>();
-  constexpr int WP = w_pitch<T, C>();
-  const T* src = sched[t].src;
-  const int rows = sched[t].rows;
-  if ((n * E) % 16 == 0) {
-    copy_weight_rows<T, C, KT, WP, 16 / E>(src, rows, n, dst);
-  } else if ((n * E) % 4 == 0) {
-    copy_weight_rows<T, C, KT, WP, 4 / E>(src, rows, n, dst);
-  } else {
-    copy_weight_rows<T, C, KT, WP, 1>(src, rows, n, dst);
-  }
-}
-
-// stage segment s of the layer-0 input into x0's columns at dst (row pitch
-// xp), V elements per load (the rows' alignment allows it); tangent rows
-// of a segment without tangents, and rows past M, are zeros
-template <typename T, int V, int K, int ROWS>
-__device__ __forceinline__ void stage_segment(const TileArgs& a, int s, T* dst, int xp, int m0,
-                                              int M) {
-  using Elem = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
-  constexpr int BYTES = V * (int)sizeof(T);
-  using Vec = std::conditional_t<BYTES == 16, uint4, std::conditional_t<BYTES == 8, uint2, Elem>>;
-  constexpr int TM = ROWS / (K + 1);
-  const int w = a.seg_w[s];
-  const int cpr = w / V;  // loads per row
-  const T* sv = static_cast<const T*>(a.seg_v[s]);
-  const T* sj = static_cast<const T*>(a.seg_j[s]);
-  Elem* de = reinterpret_cast<Elem*>(dst);
-  for (int idx = threadIdx.x; idx < ROWS * cpr; idx += kTcTileThreads) {
-    const int r = idx / cpr;
-    const int c = (idx - r * cpr) * V;
-    const int st = r / TM;
-    const int m = m0 + (r - st * TM);
-    union {
-      Vec v;
-      Elem e[V];
-    } u;
-    u.v = Vec{};
-    if (m < M) {
-      if (st == 0) {
-        u.v = *reinterpret_cast<const Vec*>(sv + (size_t)m * w + c);
-      } else if (sj != nullptr) {
-        u.v = *reinterpret_cast<const Vec*>(sj + ((size_t)(st - 1) * M + m) * w + c);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) de[(size_t)r * xp + c + e] = u.e[e];
-  }
-}
-
-// two adjacent f32 values stored as T
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// the rows of streams [st_begin, st_end) of the block's tile in h (pitch
-// HP, row st * TM + i: stream st of sample m0 + i) to device memory, row
-// (st, m) at dst + ((st - st0) * M + m) * N, the columns < N and the rows
-// < M only: a cooperative pass, 16-byte vectors where a row of N elements
-// is a whole number of them, else element by element. Per-thread stores
-// of the accumulators at a run-time row stride cost the K=3 bodies their
-// registers (ptxas spilled 300-870 bytes): the accumulators go through h
-// (compile-time pitch) and leave from there.
-template <typename T, int C, int HP, int TM>
-__device__ __forceinline__ void store_rows(const T* h, int st_begin, int st_end, T* dst,
-                                           int st0, int M, int N, int m0) {
-  constexpr int E = (int)sizeof(T);
-  constexpr int V = 16 / E;
-  constexpr int CPR = C / V;  // vectors per row
-  const bool vec = (N * E) % 16 == 0;
-  const int rows = (st_end - st_begin) * TM;
-#pragma unroll 1
-  for (int idx = threadIdx.x; idx < rows * CPR; idx += kTcTileThreads) {
-    const int rr = idx / CPR;
-    const int c = (idx - rr * CPR) * V;
-    const int st = st_begin + rr / TM;
-    const int i = rr % TM;
-    const int m = m0 + i;
-    if (m >= M || c >= N) continue;
-    const T* src = h + (size_t)(st * TM + i) * HP + c;
-    T* d = dst + ((size_t)(st - st0) * M + m) * N + c;
-    if (vec) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        if (c + e < N) d[e] = src[e];
-    }
-  }
-}
-
-// The whole trunk on one row tile: x0, h and wt are the block's shared
-// buffers (tile_buffers, smem_bytes); the last layer goes to a.v_out /
-// a.j_out.
-template <typename T, int K, int C, int ACT>
-__device__ __forceinline__ void tile_forward_tc(const TileArgs& a, T* x0, T* h, T* wt) {
-  using Sh = TileShape<T>;
-  using G = TileGeo<T, K, C>;
-  constexpr bool kF32 = std::is_same_v<T, float>;
-  constexpr int E = (int)sizeof(T);
-  constexpr int S = G::S;
-  constexpr int TM = G::TM;    // samples per block
-  constexpr int MT = G::MT;    // m16 tiles per stream and warp
-  constexpr int RT = G::RT;    // m16 tiles per warp
-  constexpr int NCG = G::NCG;  // column bands
-  constexpr int WC = G::WC;    // columns per warp
-  constexpr int NI = G::NI;    // n8 tiles per warp
-  constexpr int HP = h_pitch<T, C>();
-  constexpr int WP = w_pitch<T, C>();
-  constexpr int KT = tile_kt<T, C>();
-  constexpr int WSLOT = KT * WP;
-
-  const int x0w = x0_width(a);
-  const int xp = x0_pitch<T>(a);
-  const int N = a.width;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q = warp / NCG;   // sample slice
-  const int cg = warp % NCG;  // column band
-  const int m0 = blockIdx.x * TM;
-  const int M = a.M;
-
-  // the weight schedule (after the ring), one entry per tile
-  WeightTile<T>* sched = reinterpret_cast<WeightTile<T>*>(wt + wt_elems<T, C>());
-  const int n_tiles = weight_tile_count<KT>(a);
-  for (int i = tid; i < n_tiles; i += kTcTileThreads) {
-    const T* src;
-    int rows;
-    weight_tile<KT>(a, i, src, rows);
-    sched[i].src = src;
-    sched[i].rows = rows;
-  }
-  __syncthreads();
-  // the first weight tiles start loading while x0 is staged
-  constexpr int NST = tile_stages<T, C>();
-  for (int s = 0; s < NST - 1; ++s) {
-    load_weight_tile<T, C>(sched, n_tiles, s, N, wt + s * WSLOT);
-    cp_async_commit();
-  }
-
-  // stage the layer-0 input, each segment in loads of as many elements as
-  // its rows' alignment allows; rows past M (the ragged edge) and the
-  // padding columns are zeros
-  {
-    int off = 0;
-    for (int s = 0; s < a.n_seg; ++s) {
-      const int w = a.seg_w[s];
-      const uintptr_t align = reinterpret_cast<uintptr_t>(a.seg_v[s]) |
-                              reinterpret_cast<uintptr_t>(a.seg_j[s]) | (uintptr_t)(E * w);
-      T* dst = x0 + off;
-      if (align % 16 == 0) {
-        stage_segment<T, 16 / E, K, G::ROWS>(a, s, dst, xp, m0, M);
-      } else if (align % 8 == 0) {
-        stage_segment<T, 8 / E, K, G::ROWS>(a, s, dst, xp, m0, M);
-      } else {
-        stage_segment<T, 1, K, G::ROWS>(a, s, dst, xp, m0, M);
-      }
-      off += w;
-    }
-    const int pad = xp - x0w;
-    for (int idx = tid; idx < G::ROWS * pad; idx += kTcTileThreads) {
-      const int r = idx / pad;
-      x0[(size_t)r * xp + x0w + (idx - r * pad)] = from_f32<T>(0.f);
-    }
-  }
-  // (the first wait below is followed by a barrier, which publishes x0)
-
-  const int g = lane >> 2, tq = lane & 3;
-  // bf16: this lane's ldmatrix .trans row of a weight tile (B: k rows 0-15
-  // of the column band; lanes 16-31 eight columns on), in ring slot 0
-  const uint32_t w_lane = smem_u32(wt) + E * (((lane & 7) + ((lane >> 3) & 1) * 8) * WP +
-                                              cg * WC + (lane >> 4) * 8);
-  // f32: this lane's element (k t, column g) of the band's first n8 tile,
-  // in ring slot 0
-  const uint32_t w_elem_s = smem_u32(wt + tq * WP + cg * WC + g);
-  // first row of the warp's m16 tile rt (stream rt / MT) over its slice's
-  auto tile_row = [](int rt) { return (rt / MT) * TM + (rt % MT) * 16; };
-  int t = 0;  // weight tile of the schedule
-  // acc[st * MT + mt]: stream st, m16 tile mt of the warp's sample slice
-  float acc[RT][NI][4];
-  for (int l = 0; l < a.n_layers; ++l) {
-#pragma unroll
-    for (int st = 0; st < RT; ++st)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[st][ni][e] = 0.f;
-
-    bool from_x0[2];
-    int width[2], wrow[2];
-    const int n_pieces = layer_pieces(a, l, from_x0, width, wrow);
-    for (int pc = 0; pc < n_pieces; ++pc) {
-      const int pitch = from_x0[pc] ? xp : HP;
-      // this lane's ldmatrix row of stream 0 (A: rows of 16 samples, lanes
-      // 0-15 at column 0, lanes 16-31 16 bytes on), as a 32-bit
-      // shared-memory address
-      const uint32_t a_lane = smem_u32(from_x0[pc] ? x0 : h) +
-                              E * ((q * 16 * MT + (lane & 15)) * pitch) + (lane >> 4) * 16;
-      for (int k0 = 0; k0 < width[pc]; k0 += KT, ++t) {
-        cp_async_wait<NST - 2>();
-        __syncthreads();  // tile t has landed; slot t-1 is free
-        load_weight_tile<T, C>(sched, n_tiles, t + NST - 1, N,
-                               wt + ((t + NST - 1) % NST) * WSLOT);
-        cp_async_commit();
-        const int slot = t % NST;
-        // f32: one mma depth at a time (fewer live fragments: 0 spills)
-        constexpr int kUnrollK = kF32 ? 1 : KT / Sh::KSTEP;
-#pragma unroll kUnrollK
-        for (int kk = 0; kk < KT; kk += Sh::KSTEP) {
-          if (k0 + kk >= width[pc]) break;  // past the piece: zeros only
-          const uint32_t a_k = a_lane + E * (k0 + kk);
-          if constexpr (kF32) {
-            // the A fragments of AG m16 tiles, split, against every pair of
-            // n8 tiles of B (K=3: one tile at a time, B read RT times; the
-            // split fragments of all four streams beside 128 accumulators
-            // would spill)
-            constexpr int AG = RT > 2 ? 1 : RT;
-            const uint32_t w_k = w_elem_s + E * (slot * WSLOT + kk * WP);
-#pragma unroll
-            for (int s0 = 0; s0 < RT; s0 += AG) {
-              uint32_t ah[AG][4], al[AG][4];
-#pragma unroll
-              for (int s = 0; s < AG; ++s) {
-                ldsm_x4(ah[s], a_k + E * tile_row(s0 + s) * pitch);
-                split_tf32(ah[s], al[s]);
-              }
-#pragma unroll
-              for (int nj = 0; nj < NI / 2; ++nj) {
-                // b0 (k t), b1 (k t+4) of n8 tiles 2nj and 2nj+1
-                uint32_t bh[4] = {lds_u32(w_k + 64 * nj), lds_u32(w_k + 64 * nj + 16 * WP),
-                                  lds_u32(w_k + 64 * nj + 32),
-                                  lds_u32(w_k + 64 * nj + 32 + 16 * WP)};
-                uint32_t bl[4];
-                split_tf32(bh, bl);
-#pragma unroll
-                for (int s = 0; s < AG; ++s) {
-                  mma_3xtf32(acc[s0 + s][2 * nj], ah[s], al[s], bh[0], bh[1], bl[0], bl[1]);
-                  mma_3xtf32(acc[s0 + s][2 * nj + 1], ah[s], al[s], bh[2], bh[3], bl[2],
-                             bl[3]);
-                }
-              }
-            }
-          } else {
-            // all of A (one fragment per m16 tile), then B per pair of n8 tiles
-            uint32_t af[RT][4];
-#pragma unroll
-            for (int st = 0; st < RT; ++st) ldsm_x4(af[st], a_k + E * tile_row(st) * pitch);
-            const uint32_t w_k = w_lane + E * (slot * WSLOT + kk * WP);
-#pragma unroll
-            for (int nj = 0; nj < NI / 2; ++nj) {
-              uint32_t bfr[4];
-              ldsm_x4_t(bfr, w_k + 32u * nj);
-#pragma unroll
-              for (int st = 0; st < RT; ++st) {
-                mma_bf16_16816(acc[st][2 * nj], af[st], bfr[0], bfr[1]);
-                mma_bf16_16816(acc[st][2 * nj + 1], af[st], bfr[2], bfr[3]);
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // every warp has read this layer's input: h may be overwritten
-
-    // epilogue: bias on the values; the stash z through h (store_rows);
-    // values f(z), tangents f'(z_v) z_t into h, and from there the last
-    // layer's outputs. The columns past N have z = 0 (zero weights and
-    // bias) and are not stored
-    const bool last = (l == a.n_layers - 1);
-    T* pre = static_cast<T*>(a.stash[l]);
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = cg * WC + ni * 8 + 2 * tq;
-      const float b0 = col < N ? a.b[l][col] : 0.f;
-      const float b1 = col + 1 < N ? a.b[l][col + 1] : 0.f;
-#pragma unroll
-      for (int r = 0; r < 2 * MT; ++r) {
-        // acc[st * MT + mt][ni][e0, e0 + 1] holds stream st of sample i
-        const int mt = r >> 1, e0 = 2 * (r & 1);
-        acc[mt][ni][e0] += b0;
-        acc[mt][ni][e0 + 1] += b1;
-        if (pre != nullptr) {
-          const int i = (q * MT + mt) * 16 + g + 8 * (r & 1);
-#pragma unroll
-          for (int st = 0; st < S; ++st)
-            store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
-                   acc[st * MT + mt][ni][e0 + 1]);
-        }
-      }
-    }
-    if (pre != nullptr) {
-      __syncthreads();  // z is in h
-      store_rows<T, C, HP, TM>(h, 0, S, pre, 0, M, N, m0);
-      __syncthreads();  // every z has left before h takes f(z)
-    }
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = cg * WC + ni * 8 + 2 * tq;
-#pragma unroll
-      for (int r = 0; r < 2 * MT; ++r) {
-        // in place: f(z_v) and f'(z_v) z_t
-        const int mt = r >> 1, e0 = 2 * (r & 1);
-        const int i = (q * MT + mt) * 16 + g + 8 * (r & 1);
-#pragma unroll
-        for (int e = e0; e < e0 + 2; ++e) {
-          float f, df;
-          act_fn<ACT>(acc[mt][ni][e], f, df);
-          acc[mt][ni][e] = f;
-#pragma unroll
-          for (int st = 1; st < S; ++st) acc[st * MT + mt][ni][e] *= df;
-        }
-#pragma unroll
-        for (int st = 0; st < S; ++st)
-          store2(h + (size_t)(st * TM + i) * HP + col, acc[st * MT + mt][ni][e0],
-                 acc[st * MT + mt][ni][e0 + 1]);
-      }
-    }
-    __syncthreads();  // h is complete before the next layer (or the output pass) reads it
-    if (last) {
-      store_rows<T, C, HP, TM>(h, 0, 1, static_cast<T*>(a.v_out), 0, M, N, m0);
-      if (S > 1) store_rows<T, C, HP, TM>(h, 1, S, static_cast<T*>(a.j_out), 1, M, N, m0);
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// the block's shared buffers: x0, then h (or h over x0), then wt
-template <typename T, int C>
-__device__ __forceinline__ void tile_buffers(const TileArgs& a, unsigned char* raw,
-                                             T*& x0, T*& h, T*& wt) {
-  T* smem = reinterpret_cast<T*>(raw);
-  x0 = smem;
-  h = has_split(a) ? smem + (size_t)tile_rows<T, C>() * x0_pitch<T>(a) : smem;
-  wt = smem + act_elems<T, C>(a);
-}
-
-template <typename T, int K, int C, int ACT>
-__global__ void __launch_bounds__(kTcTileThreads, 1) mlp_tile_fwd(const TileArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T *x0, *h, *wt;
-  tile_buffers<T, C>(a, smem_raw, x0, h, wt);
-  tile_forward_tc<T, K, C, ACT>(a, x0, h, wt);
-}
-
-template <typename T, int K, int C, int ACT>
-cudaError_t launch_mlp_tile(const TileArgs& a, cudaStream_t stream) {
-  if (a.M <= 0) return cudaSuccess;
-  if (width_class(a.width) != C) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, C>(a);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_tile_fwd<T, K, C, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  constexpr int TM = TileGeo<T, K, C>::TM;
-  const int grid = (a.M + TM - 1) / TM;
-  mlp_tile_fwd<T, K, C, ACT><<<grid, kTcTileThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // The row-tile forward of operand type T (dtype 1 bf16, 0 f32) over the
 // width class of a.width, K = n_tan tangent planes (3, 1 or 0) and the
-// activation code act: csrc/tile_fwd.cu, compiled once per (type, class)
-// (kernels/_build.py) so that the instantiations build in parallel.
-extern "C" int neddf_tile_fwd_bf16_64(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_bf16_128(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_bf16_256(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_bf16_512(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_f32_64(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_f32_128(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_f32_256(int n_tan, int act, const TileArgs* a, void* stream);
-extern "C" int neddf_tile_fwd_f32_512(int n_tan, int act, const TileArgs* a, void* stream);
+// activation code act, launched by the plan `plan` (tile_hopper.cuh's
+// plan_ints, which the launcher recomputes and refuses where it differs):
+// csrc/tile_fwd.cu, compiled once per (type, class) (kernels/_build.py) so
+// that the instantiations build in parallel.
+#define NEDDF_TILE_DECL(t, c)                                                             \
+  extern "C" int neddf_tile_fwd_##t##_##c(int n_tan, int act, const TileArgs* a,         \
+                                         const int* plan, void* stream);
+NEDDF_TILE_DECL(bf16, 64)
+NEDDF_TILE_DECL(bf16, 128)
+NEDDF_TILE_DECL(bf16, 256)
+NEDDF_TILE_DECL(bf16, 512)
+NEDDF_TILE_DECL(f32, 64)
+NEDDF_TILE_DECL(f32, 128)
+NEDDF_TILE_DECL(f32, 256)
+NEDDF_TILE_DECL(f32, 512)
+#undef NEDDF_TILE_DECL
 
-inline int tile_fwd(int dtype, int n_tan, int act, const TileArgs& a, cudaStream_t stream) {
+inline int tile_fwd(int dtype, int n_tan, int act, const TileArgs& a, const int* plan,
+                    cudaStream_t stream) {
   void* s = static_cast<void*>(stream);
   const bool bf16 = dtype == 1;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (width_class(a.width)) {
-    case 64: return bf16 ? neddf_tile_fwd_bf16_64(n_tan, act, &a, s)
-                         : neddf_tile_fwd_f32_64(n_tan, act, &a, s);
-    case 128: return bf16 ? neddf_tile_fwd_bf16_128(n_tan, act, &a, s)
-                          : neddf_tile_fwd_f32_128(n_tan, act, &a, s);
-    case 256: return bf16 ? neddf_tile_fwd_bf16_256(n_tan, act, &a, s)
-                          : neddf_tile_fwd_f32_256(n_tan, act, &a, s);
-    case 512: return bf16 ? neddf_tile_fwd_bf16_512(n_tan, act, &a, s)
-                          : neddf_tile_fwd_f32_512(n_tan, act, &a, s);
+    case 64: return bf16 ? neddf_tile_fwd_bf16_64(n_tan, act, &a, plan, s)
+                         : neddf_tile_fwd_f32_64(n_tan, act, &a, plan, s);
+    case 128: return bf16 ? neddf_tile_fwd_bf16_128(n_tan, act, &a, plan, s)
+                          : neddf_tile_fwd_f32_128(n_tan, act, &a, plan, s);
+    case 256: return bf16 ? neddf_tile_fwd_bf16_256(n_tan, act, &a, plan, s)
+                          : neddf_tile_fwd_f32_256(n_tan, act, &a, plan, s);
+    case 512: return bf16 ? neddf_tile_fwd_bf16_512(n_tan, act, &a, plan, s)
+                          : neddf_tile_fwd_f32_512(n_tan, act, &a, plan, s);
   }
   return (int)cudaErrorInvalidValue;
 }

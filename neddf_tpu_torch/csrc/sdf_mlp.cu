@@ -4,7 +4,7 @@
 //
 // * forward, _run_forward / _fwd_kernel (_trunk_and_sweep:69), as two
 //   launches: the trunk h = f(z_l), z_l = in_l W_l + b_l is mlp_fwd.cu's
-//   f32 row tile (mlp_tile.cuh's tile_forward_tc, K=0; the post-skip
+//   f32 row tile (tile_hopper.cuh's mlp_tile_fwd, K=0; the post-skip
 //   layer reads [h, e], kSplitHiddenFirst), writing the stash z_l [M, C]
 //   and h [M, C]; then sdf_sweep_kernel, one block per row tile of 128
 //   samples, runs the reverse sweep of channel 0:

@@ -51,13 +51,13 @@ __device__ __forceinline__ void sweep_load(float* dst, const float* W, int N, in
 }
 
 // the reverse sweep of channel 0 over one row tile, from the stash that
-// the trunk (mlp_tile_fwd<float, 0>) wrote; a.w, a.split, a.stash,
+// the trunk (tile_hopper.cuh's mlp_tile_fwd<float, 0>) wrote; a.w, a.split, a.stash,
 // a.n_layers, a.M, a.width = N and a.seg_w[0] = E are read; VEC: N is a
 // multiple of 4 (rows of whole 16-byte vectors)
 template <int C, int ACT, bool VEC>
 __global__ void __launch_bounds__(kTcTileThreads, 1)
     sdf_sweep_kernel(const TileArgs a, float* __restrict__ ge_out) {
-  // the K=0 f32 warp tiling of tile_forward_tc at this class
+  // the K=0 f32 warp tiling of the class (mlp_tile.cuh's TileGeo)
   using G = TileGeo<float, 0, C>;
   constexpr int TM = G::ROWS;
   constexpr int HP = C + 4;  // p's row pitch: ldmatrix without bank conflicts

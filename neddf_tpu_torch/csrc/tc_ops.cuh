@@ -1,18 +1,16 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, shared by the
-// products of the backwards (dual_mlp_bwd.cu: tc_gemm_kernel), the
-// row-tile forward (mlp_tile.cuh: tile_forward_tc) and the NeuS sweep
-// (sdf_mlp.cu), in bf16 and in f32.
+// shallow nt product (dual_mlp_bwd.cu: tc_gemm_kernel), the NeuS sweep
+// (sdf_sweep.cuh) and the wgmma kernels' tf32 split (hopper.cuh), in bf16
+// and in f32.
 //
 // * mma_bf16_16816: one warp-wide mma.sync m16n8k16, bf16 operands, f32
 //   accumulators in place. Fragment layout (g = lane / 4, t = lane % 4):
 //   A a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g, cols +8), a3
 //   (row g+8, cols +8); B b0 (k 2t, 2t+1 of column g), b1 (k +8); C c0, c1
 //   (row g, cols 2t, 2t+1), c2, c3 (row g+8). The products are exact; the
-//   f32 accumulation is not rounded to nearest: in the bf16 tile forward
-//   about twice as many pre-activations round to the other bf16 neighbour
-//   as with an FMA sum, most of them toward zero (tc_accuracy.py).
-//   Summing each mma from zero and adding it with a rounded f32 add
-//   removes most of that, but needs registers the tile body lacks.
+//   f32 accumulation is not rounded to nearest (the tile forward on
+//   wgmma, tile_hopper.cuh, sums each k-block from zero and adds it with
+//   a rounded f32 add).
 // * mma_3xtf32: f32 operands on the tensor cores at f32 accuracy. Each
 //   operand value is split as x = hi + lo with hi = tf32(x) and lo =
 //   tf32(x - hi) (split_tf32: cvt.rna, round to nearest with ties away
@@ -39,13 +37,11 @@
 //   byte addresses that build bf16 fragments of a K-contiguous tile
 //   build tf32 ones; an M- or N-contiguous tile (no 32-bit .trans) is
 //   read element by element.
-// * ldsm_x4 / ldsm_x4_t: ldmatrix of four 8x8 b16 matrices from shared
-//   memory; lanes 8i..8i+7 give the row addresses of matrix i, register i
-//   receives it (.trans: transposed), which builds A and B fragments from
-//   tiles stored with either dimension contiguous.
-// * lds_u32: one 32-bit load from a shared-memory address (the f32 tile
-//   body's B fragments: a 32-bit address, not a generic pointer, keeps a
-//   register free beside the 128 accumulators).
+// * ldsm_x4: ldmatrix of four 8x8 b16 matrices from shared memory; lanes
+//   8i..8i+7 give the row addresses of matrix i, register i receives it.
+// * lds_u32: one 32-bit load from a shared-memory address (a 32-bit
+//   address, not a generic pointer, keeps a register free beside the
+//   accumulators).
 // * prefetch_l2: a line of device memory on its way to L2 (the products'
 //   epilogue asks for its side planes so while the product runs).
 // * cp_async<BYTES>: a 4-, 8- or 16-byte copy from device to shared memory
@@ -64,12 +60,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

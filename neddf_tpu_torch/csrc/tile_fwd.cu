@@ -1,4 +1,4 @@
-// The row-tile forward (mlp_tile.cuh) of one operand type and width class,
+// The row-tile forward (tile_hopper.cuh) of one operand type and width class,
 // and for f32 the NeuS sweep (sdf_sweep.cuh) of that class: every
 // activation, and K = 3, 1 and 0 tangent planes. kernels/_build.py
 // compiles this file once per (type, class), with -DNEDDF_TILE_F32=0|1
@@ -7,7 +7,7 @@
 // entry points neddf_dual_mlp_fwd (dual_mlp_fwd.cu), neddf_mlp_seg_fwd
 // (mlp_fwd.cu) and neddf_sdf_sweep (sdf_mlp.cu) pick the object by width
 // (neddf::tile_fwd).
-#include "mlp_tile.cuh"
+#include "tile_hopper.cuh"
 
 #if !defined(NEDDF_TILE_C) || !defined(NEDDF_TILE_F32)
 #error "build with -DNEDDF_TILE_C=<64|128|256|512> -DNEDDF_TILE_F32=<0|1> (kernels/_build.py)"
@@ -27,15 +27,16 @@ using TileT = __nv_bfloat16;
 #define NEDDF_TILE_FN NEDDF_CAT3(neddf_tile_fwd_, bf16, NEDDF_TILE_C)
 #endif
 
-extern "C" int NEDDF_TILE_FN(int n_tan, int act, const neddf::TileArgs* a, void* stream) {
+extern "C" int NEDDF_TILE_FN(int n_tan, int act, const neddf::TileArgs* a, const int* plan,
+                             void* stream) {
   constexpr int C = NEDDF_TILE_C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)neddf::by_act(act, [&](auto a_) {
     constexpr int ACT = decltype(a_)::value;
     switch (n_tan) {
-      case 3: return neddf::launch_mlp_tile<TileT, 3, C, ACT>(*a, st);
-      case 1: return neddf::launch_mlp_tile<TileT, 1, C, ACT>(*a, st);
-      case 0: return neddf::launch_mlp_tile<TileT, 0, C, ACT>(*a, st);
+      case 3: return neddf::tile::launch_tile<TileT, 3, C, ACT>(*a, plan, st);
+      case 1: return neddf::tile::launch_tile<TileT, 1, C, ACT>(*a, plan, st);
+      case 0: return neddf::tile::launch_tile<TileT, 0, C, ACT>(*a, plan, st);
     }
     return cudaErrorInvalidValue;
   });

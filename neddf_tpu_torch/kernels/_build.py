@@ -143,12 +143,12 @@ def library() -> ctypes.CDLL:
         # csrc/dual_mlp_fwd.cu
         "neddf_dual_mlp_fwd": [
             _INT, _INT, _INT, _INT, _INT, _INT, _VOIDPP, _VOIDPP, _INTP,
-            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP, _VOIDP,
+            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP, _INTP, _VOIDP, _VOIDP,
         ],
         # csrc/mlp_fwd.cu
         "neddf_mlp_seg_fwd": [
-            _INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
-            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _VOIDP,
+            _INT, _INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP,
+            _INT, _VOIDPP, _VOIDPP, _INTP, _VOIDPP, _VOIDP, _INTP, _VOIDP, _VOIDP,
         ],
         # csrc/mlp_bwd.cu
         "neddf_mlp_bwd_gpre": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

@@ -72,6 +72,10 @@ KERNEL_MAX_WIDTH = 512
 _ROUTE_STREAMS = (1, 2, 4)
 _KERNEL_MAX_LAYERS = 8
 _KERNEL_MAX_SEGMENTS = 4
+# the row-tile forward's most layers (csrc/mlp_tile.cuh kMaxLayers)
+_KERNEL_MAX_LAYERS_TILE = 12
+# the SMs of an H100 SXM: the default card of the launch plans
+H100_SMS = 132
 # the kernels' activations (csrc/mlp_tile.cuh: kTanhExp, kReLU, kLeakyReLU,
 # kSoftplus, kSigmoid)
 _ACT_CODES = {"tanhExp": 0, "ReLU": 1, "LeakyReLU": 2, "Softplus": 3, "Sigmoid": 4}
@@ -367,14 +371,194 @@ def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> 
     _check_layers(vs, weights, biases, layout, what)
 
 
-# launches of the row-tile forward (csrc/mlp_tile.cuh) by operand type:
-# "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split), both on the
-# tensor cores, over every wrapper that runs it
+# launches of the row-tile forward (csrc/tile_hopper.cuh's mlp_tile_fwd,
+# wgmma fed by TMA) by operand type: "tc" bf16 and "tf32x3" f32 (by the
+# 3xTF32 split), over every wrapper that runs it
 TILE_LAUNCHES = {"tc": 0, "tf32x3": 0}
 
 
 def count_tile_launch(dtype: torch.dtype) -> None:
     TILE_LAUNCHES["tc" if dtype == torch.bfloat16 else "tf32x3"] += 1
+
+
+# the row-tile forward's plan (csrc/tile_hopper.cuh::tile_plan works out
+# the same numbers, and its launcher refuses a call whose plan differs):
+# row tiles of TILE_FWD_ROWS stacked rows (the S streams of 64 / S
+# points), one or two per block, each owned by a consumer warpgroup,
+# beside one producer warp; regions of k-blocks of [64 rows][128 bytes];
+# a ring of 2-6 weight stages; all in the shared memory a block may use
+TILE_FWD_ROWS = 64
+TILE_FWD_SMEM = 232_448
+SPLIT_SEG_FIRST = 1     # csrc/mlp_tile.cuh kSplitSegFirst: [seg0, h]
+SPLIT_HIDDEN_FIRST = 2  # kSplitHiddenFirst: [h, seg0]
+_TILE_KB = TILE_FWD_ROWS * 128
+_TILE_MAX_STAGES = 6
+# (consumer warpgroups, least ring stages, park) in the order they are tried
+_TILE_TRIES = ((2, 3, False), (1, 2, False), (1, 2, True))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_pieces(layer: int, split: int, seg_widths: Sequence[int], n: int, bk: int) -> list:
+    """The input pieces of a layer of the row-tile forward in the order of
+    W's rows: (source, width, W's first row, first k-block), the source
+    "x0" (layer 0: each segment a piece from a k-block of its own, of the
+    staged input and of W^T), "seg" (segment 0 again, a post-skip layer)
+    or "h" (the hidden state, ``n`` wide); ``bk`` the k-block's depth (64
+    bf16, 32 f32)."""
+    w0 = seg_widths[0]
+    if layer == 0:
+        rows = [sum(seg_widths[:i]) for i in range(len(seg_widths))]
+        kbs = [sum(_cdiv(w, bk) for w in seg_widths[:i]) for i in range(len(seg_widths))]
+        return [("x0", w, row, kb) for w, row, kb in zip(seg_widths, rows, kbs)]
+    if split == SPLIT_SEG_FIRST:
+        return [("seg", w0, 0, 0), ("h", n, w0, _cdiv(w0, bk))]
+    if split == SPLIT_HIDDEN_FIRST:
+        return [("h", n, 0, 0), ("seg", w0, n, _cdiv(n, bk))]
+    return [("h", n, 0, 0)]
+
+
+def tile_fwd_plan(itemsize: int, n_tan: int, width: int, seg_widths: Sequence[int],
+                  split: Sequence[int], last_width: Optional[int] = None, m: int = 1,
+                  sms: int = H100_SMS) -> dict:
+    """How the row-tile forward launches a trunk: operands of ``itemsize``
+    bytes (2 bf16, 4 f32), K = ``n_tan`` tangent planes, layers ``width``
+    wide but the last (``last_width``, default ``width``), layer 0 over the
+    segments ``seg_widths``, ``split[l]`` each layer's post-skip input (0,
+    SPLIT_SEG_FIRST or SPLIT_HIDDEN_FIRST), ``m`` points, a card of ``sms``
+    SMs.
+
+    Returns the width ``class``; ``nc`` (an N chunk's columns: wgmma
+    m64n128, m64n64 at the class 64) and ``chunks`` per layer; ``rows`` (64
+    stacked rows a tile) and ``points`` (64 / S); ``consumers`` (tiles, and
+    consumer warpgroups, of a block), ``warps`` by role (the producer's
+    warpgroup: one warp loads the weights, three idle, its registers go to
+    the consumers) and ``threads``;
+    ``stages`` of the weight ring and ``stage_bytes``; ``kb`` (k-blocks of
+    a consumer's regions: the copy of segment 0, A, B), ``f_bytes`` (S = 4:
+    z_v for the partner warp), ``park`` (a layer's output parks in
+    device memory: f32 at the class 512, where two buffers do not fit);
+    ``smem``; ``kp`` (f32: the K of W^T's tf32 planes, [L, 2, width, kp],
+    which the pre-pass writes at the start of ``scratch_bytes``);
+    ``grid``; ``tma`` (bf16: layers whose W rows are whole 16-byte vectors
+    go by TMA, the others by the producer warp's loads); ``w_l2_bytes``
+    (the bytes of W a block reads per row tile, all layers); ``ints``, the
+    numbers the launcher passes and the kernel's launcher checks.
+    Raises ValueError where no layout fits the shared memory. Cached: a
+    step asks for the same few plans every time."""
+    last = width if last_width is None else last_width
+    return _tile_fwd_plan(itemsize, n_tan, width, tuple(seg_widths),
+                          tuple(int(s) for s in split), last, m, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _tile_fwd_plan(itemsize: int, n_tan: int, width: int, seg_widths: tuple, split: tuple,
+                   last: int, m: int, sms: int) -> dict:
+    if itemsize not in _WIDE_BK or n_tan not in (0, 1, 3):
+        raise ValueError(f"the row-tile forward: {itemsize}-byte operands, K={n_tan}")
+    if width_refusal(width) is not None or not 1 <= last <= width:
+        raise ValueError(f"the row-tile forward: width {width}, last width {last}")
+    if not 1 <= len(split) <= _KERNEL_MAX_LAYERS_TILE or split[0]:
+        raise ValueError(f"the row-tile forward: split {split}")
+    cls = next(c for c in (64, 128, 256, 512) if width <= c)
+    streams, bk = n_tan + 1, 128 // itemsize
+    nc = 64 if cls == 64 else 128
+    dbl = _cdiv(width, nc) > 1
+    has_split = any(split)
+    w0 = seg_widths[0]
+    kbx = sum(_cdiv(w, bk) for w in seg_widths)  # each segment from a k-block of its own
+    kbh = _cdiv(width, bk)
+    kb_seg = _cdiv(w0, bk) if has_split else 0
+    kb_a = kbh if has_split and len(seg_widths) == 1 else max(kbx, kbh)
+    f_bytes = _cdiv(64 * (nc + 4), 1024) * 1024 if streams == 4 else 0
+    stage_bytes = 128 * nc * (2 if itemsize == 4 else 1)
+
+    def total(nw: int, st: int, park: bool) -> int:
+        wg = (kb_seg + kb_a + (kbh if dbl and not park else 0)) * _TILE_KB + f_bytes
+        return nw * wg + st * stage_bytes + (2 * st + 2) * 8
+
+    choice = None
+    for nw, least, park in _TILE_TRIES:
+        if park and not dbl:
+            break
+        st = next((st for st in range(_TILE_MAX_STAGES, least - 1, -1)
+                   if total(nw, st, park) <= TILE_FWD_SMEM), None)
+        if st is not None:
+            choice = (nw, st, park)
+            break
+    if choice is None:
+        raise ValueError(f"the row-tile forward: no layout of segments {seg_widths} at "
+                         f"width {width} fits {TILE_FWD_SMEM} bytes of shared memory")
+    nw, stages, park = choice
+    layers = len(split)
+    pieces = [tile_pieces(l, split[l], seg_widths, width, bk) for l in range(layers)]
+    kp = max((pc[-1][3] + _cdiv(pc[-1][1], bk)) * bk for pc in pieces) if itemsize == 4 else 0
+    points = TILE_FWD_ROWS // streams
+    groups = _cdiv(_cdiv(m, points), nw)
+    grid = min(groups, sms)
+    wt = layers * 2 * width * kp * 4
+    park_off = _cdiv(wt, 256) * 256
+    scratch = park_off + grid * TILE_FWD_ROWS * cls * itemsize if park else wt
+    widths = [width] * (layers - 1) + [last]
+    smem = total(nw, stages, park)
+    return {
+        "class": cls, "nc": nc, "chunks": [_cdiv(n, nc) for n in widths],
+        "rows": TILE_FWD_ROWS, "points": points, "consumers": nw,
+        "warps": {"consumer": 4 * nw, "producer": 1, "idle": 3}, "threads": 128 * (nw + 1),
+        "stages": stages, "stage_bytes": stage_bytes,
+        "kb": {"seg": kb_seg, "a": kb_a, "b": kbh if dbl and not park else 0},
+        "f_bytes": f_bytes, "park": park, "smem": smem, "kp": kp, "grid": grid,
+        "scratch_bytes": scratch,
+        "tma": [itemsize == 4 or (n * itemsize) % 16 == 0 for n in widths],
+        "w_l2_bytes": sum(_cdiv(n, nc) * sum(_cdiv(p[1], bk) for p in pc)
+                          for n, pc in zip(widths, pieces)) * stage_bytes // nw,
+        "ints": (TILE_FWD_ROWS, nw, stages, smem, int(park), kp, grid, scratch),
+    }
+
+
+def tile_row_order(streams: int) -> List[Tuple[int, int]]:
+    """(point, stream) of each of a tile's 64 rows as the row-tile forward
+    orders them: groups of 8 points, each group's S streams as blocks of 8
+    rows, so that a thread's two wgmma accumulator rows r and r + 8 are
+    streams s and s + 1 of one point (row = (p // 8) 8 S + 8 s + p % 8)."""
+    if streams not in _ROUTE_STREAMS:
+        raise ValueError(f"the row-tile forward: {streams} streams")
+    shift = 3 + streams.bit_length() - 1
+    return [((r >> shift) * 8 + (r & 7), (r >> 3) & (streams - 1))
+            for r in range(TILE_FWD_ROWS)]
+
+
+def tile_wt_planes_plain(weights: Sequence[Tensor], seg_widths: Sequence[int],
+                         split: Sequence[int]) -> Tensor:
+    """Plain version of the f32 pre-pass (csrc/tile_hopper.cuh::
+    tile_wt_prep): every layer's W^T as tf32 hi and lo planes, [L, 2,
+    width, kp], each input piece from a k-block (32) of its own, zeros
+    between the pieces, past them and past a narrower last layer's
+    columns."""
+    width = weights[0].shape[1]
+    pieces = [tile_pieces(l, split[l], seg_widths, width, 32) for l in range(len(weights))]
+    kp = max((pc[-1][3] + _cdiv(pc[-1][1], 32)) * 32 for pc in pieces)
+    wt = torch.zeros((len(weights), width, kp), dtype=torch.float32)
+    for l, (w, pc) in enumerate(zip(weights, pieces)):
+        for _, n, row, kbase in pc:
+            wt[l, : w.shape[1], kbase * 32: kbase * 32 + n] = w[row: row + n].float().T
+    hi, lo = tf32_split(wt)
+    return torch.stack([hi, lo], dim=1)
+
+
+def tile_launch(dtype: torch.dtype, n_tan: int, width: int, seg_widths: Sequence[int],
+                split: Sequence[int], last_width: int, m: int, device: torch.device):
+    """(the plan's ints as a C array, the device scratch or None) of a
+    row-tile forward call: the plan (``tile_fwd_plan``) on the device's
+    SM count, the scratch (f32: W^T's planes; a parked output) fresh from
+    the caching allocator."""
+    plan = tile_fwd_plan(torch.empty((), dtype=dtype).element_size(), n_tan, width,
+                         seg_widths, split, last_width, m, _sm_count(device.index or 0))
+    scratch = (torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
+               if plan["scratch_bytes"] else None)
+    return _build.ints(plan["ints"]), scratch
 
 
 def _launch_fwd(vs, seg_j, weights, biases, layout, act_name, n_tan, stash, what):
@@ -387,12 +571,16 @@ def _launch_fwd(vs, seg_j, weights, biases, layout, act_name, n_tan, stash, what
     if m == 0:
         return v_out, j_out, pres
     lib = _build.library()
+    seg_w = [v.shape[1] for v in vs]
+    split = [SPLIT_SEG_FIRST if s else 0 for s in layout]
+    plan, scratch = tile_launch(dtype, n_tan, width, seg_w, split, width, m, device)
     code = lib.neddf_dual_mlp_fwd(
         _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], n_tan, width, m, len(vs),
-        _build.pointers(vs), _build.pointers(seg_j), _build.ints([v.shape[1] for v in vs]),
+        _build.pointers(vs), _build.pointers(seg_j), _build.ints(seg_w),
         len(weights), _build.pointers(weights), _build.pointers(biases),
-        _build.ints(layout), _build.pointers(pres) if stash else None,
-        v_out.data_ptr(), j_out.data_ptr(), _build.stream(device),
+        _build.ints(split), _build.pointers(pres) if stash else None,
+        v_out.data_ptr(), j_out.data_ptr(), plan,
+        None if scratch is None else scratch.data_ptr(), _build.stream(device),
     )
     _build.check(code, what)
     count_tile_launch(dtype)
@@ -642,7 +830,6 @@ _ROUTE_MIN_SPLIT_BLOCKS = 16
 _ROUTE_MAX_SPLITS = 64
 _ROUTE_SPLIT_SLACK = 1.05
 _ROUTE_LAYOUTS = {"nt": 0, "tn": 1}
-H100_SMS = 132
 
 
 def route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize: int,

@@ -52,6 +52,7 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     Products,
     ProductsPlain,
     count_tile_launch,
+    tile_launch,
     width_refusal,
 )
 from neddf_tpu_torch.ops.activations import ACTIVATION_TRIPLES
@@ -218,13 +219,6 @@ def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
             raise ValueError(f"{what}: non-contiguous input")
 
 
-def _pad_columns(t: Tensor, width: int) -> Tensor:
-    """[..., n] -> [..., width] with zero columns n.. (exact)."""
-    out = torch.zeros((*t.shape[:-1], width), dtype=t.dtype, device=t.device)
-    out[..., : t.shape[-1]] = t
-    return out
-
-
 def mlp_seg(
     vs: Sequence[Tensor],
     weights: Sequence[Tensor],
@@ -243,31 +237,26 @@ def mlp_seg(
     _check_kernel_args(vs, weights, biases, layout, act_name)
     m, dtype = vs[0].shape[0], vs[0].dtype
     width = weights[0].shape[1]
-    n_out = weights[-1].shape[1]
-    weights, biases = list(weights), list(biases)
-    if n_out < width:
-        weights[-1] = _pad_columns(weights[-1], width)
-        biases[-1] = _pad_columns(biases[-1], width)
-    out = torch.empty((m, width), dtype=dtype, device=device)
-    pres = [torch.empty((m, width), dtype=dtype, device=device)
-            for _ in weights] if stash else []
+    n_out = weights[-1].shape[1]  # the last layer may be narrower (NeuS's colour output)
+    out = torch.empty((m, n_out), dtype=dtype, device=device)
+    pres = [torch.empty((m, w.shape[1]), dtype=dtype, device=device)
+            for w in weights] if stash else []
     if m:
         lib = _build.library()
+        seg_w = [v.shape[1] for v in vs]
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
+        plan, scratch = tile_launch(dtype, 0, width, seg_w, split, n_out, m, device)
         code = lib.neddf_mlp_seg_fwd(
-            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], width, m, len(vs),
-            _build.pointers(vs), _build.ints([v.shape[1] for v in vs]),
+            _KERNEL_DTYPES[dtype], _ACT_CODES[act_name], width, n_out, m, len(vs),
+            _build.pointers(vs), _build.ints(seg_w),
             len(weights), _build.pointers(weights), _build.pointers(biases),
             _build.ints(split), _build.pointers(pres) if stash else None,
-            out.data_ptr(), _build.stream(device),
+            out.data_ptr(), plan, None if scratch is None else scratch.data_ptr(),
+            _build.stream(device),
         )
         _build.check(code, "mlp_seg")
         mlp_seg.launches += 1
         count_tile_launch(dtype)
-    if n_out < width:
-        out = out[:, :n_out].contiguous()
-        if stash:
-            pres[-1] = pres[-1][:, :n_out].contiguous()
     return (out, pres) if stash else out
 
 

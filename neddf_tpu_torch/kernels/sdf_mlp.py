@@ -39,6 +39,7 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     count_tile_launch,
     layer_launcher,
     saved_route,
+    tile_launch,
     width_refusal,
 )
 from neddf_tpu_torch.kernels.mlp import (
@@ -124,11 +125,13 @@ def sdf_mlp(
         split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in layout]
         act, lib = _ACT_CODES[act_name], _build.library()
         stream = _build.stream(e.device)
+        plan, scratch = tile_launch(torch.float32, 0, width, [e_dim], split, width, m, e.device)
         _build.check(lib.neddf_mlp_seg_fwd(
-            _KERNEL_DTYPES[torch.float32], act, width, m, 1, _build.pointers([e]),
+            _KERNEL_DTYPES[torch.float32], act, width, width, m, 1, _build.pointers([e]),
             _build.ints([e_dim]), len(weights), _build.pointers(weights),
             _build.pointers(biases), _build.ints(split), _build.pointers(pres),
-            h.data_ptr(), stream), "sdf_mlp trunk")
+            h.data_ptr(), plan, None if scratch is None else scratch.data_ptr(), stream),
+            "sdf_mlp trunk")
         _build.check(lib.neddf_sdf_sweep(
             act, m, e_dim, width, len(weights), _build.pointers(weights), _build.ints(split),
             _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")

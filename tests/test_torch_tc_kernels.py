@@ -1,6 +1,6 @@
 """The tensor-core routes: the bf16 product of the backwards
 (``csrc/dual_mlp_bwd.cu``, ``neddf_gemm_bf16_tc``) and the bf16 row-tile
-forward (``csrc/mlp_tile.cuh``, ``tile_forward_tc``).
+forward (``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``).
 
 On the CPU: the Python planning of the product (the nt layout alone, row
 strides, copy widths; which products ``route_plan`` leaves to it) and the
@@ -154,13 +154,21 @@ def test_products_plain_match_the_jax_products(jx, layout, dtype):
             assert _rel(got, ref) <= 1e-5, (k, n)
 
 
+def _pad_columns(t, width):
+    """[..., n] -> [..., width] with zero columns n.. (exact)."""
+    out = torch.zeros((*t.shape[:-1], width), dtype=t.dtype)
+    out[..., : t.shape[-1]] = t
+    return out
+
+
 def test_padded_last_layer_equals_unpadded_and_jax(jx):
-    """The wrapper pads a narrow last layer to 256 zero columns for the
-    tile kernel and slices it off (``mlp._pad_columns``): the padded
-    columns stay exactly zero, and the kept ones are the unpadded product
-    within one f32 rounding (the CPU BLAS may order a 3-column and a
-    256-column product's sums differently: 3.1e-7 of max |out| measured on
-    an AVX512 host)."""
+    """The tile kernel reads a narrow last layer's weight [fan_in, 3] into
+    a chunk of 128 columns whose columns past 3 are zero-filled in shared
+    memory: the same product as the layer padded to 256 zero columns. The
+    padded columns stay exactly zero, and the kept ones are the unpadded
+    product within one f32 rounding (the CPU BLAS may order a 3-column and
+    a 256-column product's sums differently: 3.1e-7 of max |out| measured
+    on an AVX512 host)."""
     rng = np.random.default_rng(3)
     widths, c, m = (3, 24, 3, 32), 256, 1024  # one tile of the Pallas kernel
     layout = (False,) * 3
@@ -171,8 +179,8 @@ def test_padded_last_layer_equals_unpadded_and_jax(jx):
     bs = [rng.normal(scale=0.1, size=o).astype(np.float32) for o in outs]
     tv, tw, tb = ([torch.from_numpy(x) for x in xs] for xs in (vs, ws, bs))
     out = tmlp.mlp_seg_plain(tv, tw, tb, layout, "ReLU")
-    tw_pad = tw[:-1] + [tmlp._pad_columns(tw[-1], c)]
-    tb_pad = tb[:-1] + [tmlp._pad_columns(tb[-1], c)]
+    tw_pad = tw[:-1] + [_pad_columns(tw[-1], c)]
+    tb_pad = tb[:-1] + [_pad_columns(tb[-1], c)]
     padded = tmlp.mlp_seg_plain(tv, tw_pad, tb_pad, layout, "ReLU")
     assert _rel(padded[:, :3], out.numpy()) <= 1e-6
     assert torch.count_nonzero(padded[:, 3:]) == 0

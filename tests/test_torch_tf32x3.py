@@ -1,6 +1,6 @@
 """The f32 routes on the tensor cores: the 3xTF32 split of the f32
 product (``csrc/dual_mlp_bwd.cu``, ``neddf_gemm_tc`` with f32 operands),
-of the f32 row-tile forward (``csrc/mlp_tile.cuh``, ``tile_forward_tc``)
+of the f32 row-tile forward (``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``)
 and of the NeuS sweep (``csrc/sdf_mlp.cu``).
 
 On the CPU: the plain emulation beside the kernels' wrapper
