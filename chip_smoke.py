@@ -12,13 +12,14 @@ Phases (any failure stops the script with a non-zero exit code):
 
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. build the CUDA kernels from ``neddf_tpu_torch/csrc`` (timed); in the
-   built library's SASS every product kernel, tile forward and NeuS
-   sweep has HMMA or HGMMA (tensor-core) instructions, on TF32 operands
-   in the f32 instantiations (the 3xTF32 split) and not in the bf16
-   ones (the wgmma kernels, ``WGMMA_FUNCTIONS``: the per-layer route's,
-   the backward products and the row-tile forward, HGMMA and no HMMA),
-   and ptxas reports no spills in them nor in the epilogue backward's
-   52 instantiations;
+   built library's SASS every tensor-core kernel (the per-layer route's
+   layer forward, the backward products, the row-tile forward and the
+   NeuS sweep, ``TC_FUNCTIONS``) has HGMMA (warpgroup wgmma)
+   instructions and no other tensor-core ones, on TF32 operands in the
+   f32 instantiations (the 3xTF32 split) and not in the bf16 ones; no
+   mma.sync HMMA is left anywhere in the library; ptxas reports no spills
+   in them nor in the FMA kernels of ``SPILL_FUNCTIONS`` (the epilogue
+   backward, the narrow layer forward, the shallow nt);
 3. each kernel against its plain PyTorch version at the eval render's
    shapes (M = 1024 rays x 194 fine samples, and a ragged M), in f32 and
    bf16, with the median CUDA-event times of both;
@@ -92,7 +93,10 @@ Phases (any failure stops the script with a non-zero exit code):
    trunk's (1024 x 259 rows, f32), its backward, and ``sdf_mlp`` forward
    and backward at the NeuS step's rows and a ragged M, ReLU and tanhExp,
    with the count of ReLU rows whose gE took the other side of f'(0)
-   beside the FMA kernels' (before the tensor cores); LeakyReLU on both ``mlp_seg`` precisions and on
+   beside the FMA kernels' (before the tensor cores); the sweep alone
+   (``sdf_sweep_kernel``, the NeuS step's rows, ReLU) over the fused
+   call's stash against the plain sweep, timed beside #7's trunk alone
+   and its bound (operations); LeakyReLU on both ``mlp_seg`` precisions and on
    ``sdf_mlp``; two backward runs must give bitwise-equal dW / db; the
    parallel db sum at the NeuS fine pass;
 10. one full-width f32 train step of each family (``FAMILY_OVERRIDES``)
@@ -292,7 +296,11 @@ Phases (any failure stops the script with a non-zero exit code):
    route; ms/step, peak memory), its f32 step through the kernels against
    the plain versions at 32 rays (phase 10's 1e-3), and two gloo ranks of
    data 1 x model 2 (shards of 2048) against one rank in f32 (1e-5; run
-   beside phase 14b's subprocess with 24c and 25c);
+   beside phase 14b's subprocess with 24c and 25c); (d) NeDDF with both
+   trunks 512 wide in f32 at ``embed_pos_rank`` 11, whose fused plans do
+   not fit a block's shared memory: the per-layer route, its f32 step
+   through the kernels against the plain versions (phase 10's 1e-3) and
+   20 finite steps;
 13. (printed last) one JSON line of per-kernel results (with each route's
    bound; the parallel db sum among them; ``launches_geometry``,
    ``launches_llff`` and ``launches_dp``: each kernel's launches on the
@@ -591,12 +599,10 @@ def card_line() -> str:
 
 
 # phase 2: the kernels that must run on the tensor cores (by the mangled
-# names in the library) and how many instantiations each has
-# tc_gemm_kernel: bf16 and f32, the nt layout alone (2: an nt of a depth
-# under 8; every other product runs on route_nt / route_tn)
-TC_FUNCTIONS = {"tc_gemm_kernel": 2,
-                # the per-layer route's wide layer forward on wgmma (HGMMA): bf16
-                # and f32 x the 5 activations
+# names in the library) and how many instantiations each has, all on
+# wgmma (HGMMA; no mma.sync HMMA anywhere in the library)
+TC_FUNCTIONS = {# the per-layer route's wide layer forward: bf16 and f32 x the 5
+                # activations
                 "layer_fwd_wide": 10,
                 # the backward products on wgmma: dx (route_nt) and dW (route_tn),
                 # bf16 and f32 x plain (1), with the activation's epilogue /
@@ -607,16 +613,10 @@ TC_FUNCTIONS = {"tc_gemm_kernel": 2,
                 # K=3, K=1, K=0 x the 5 activations x the width classes 64, 128,
                 # 256, 512
                 "mlp_tile_fwd": 120,
-                # f32 x the 5 activations x the 4 classes x rows of whole
-                # 16-byte vectors or not
-                "sdf_sweep_kernel": 40}
+                # the NeuS sweep (sdf_sweep.cuh): f32 x the 5 activations x the 4
+                # classes
+                "sdf_sweep_kernel": 20}
 
-
-# the tensor-core functions on wgmma alone (HGMMA, no HMMA)
-WGMMA_FUNCTIONS = ("layer_fwd_wide", "route_nt", "route_tn", "mlp_tile_fwd")
-# the row-tile forward's mma.sync body, gone from the library (the tile
-# forward is the wgmma kernel mlp_tile_fwd alone)
-REMOVED_TILE_BODY = "tile_forward_tc"
 
 
 # the elementwise passes of the backwards that the products' epilogues and
@@ -634,7 +634,10 @@ REMOVED_PASSES = ("neddf_sdf_sweep_p", "neddf_sdf_adjoint", "neddf_sdf_zbar", "n
 SPILL_FUNCTIONS = {"epi_bwd_kernel": 52, "epi_bwd_wide_kernel": 2,
                    # the per-layer route's narrow layer forward: bf16 and f32 x
                    # the 5 activations x S = 1, 2, 4 x the column classes 4, 32
-                   "layer_fwd_narrow": 60}
+                   "layer_fwd_narrow": 60,
+                   # the shallow nt (an nt of a depth under 8, on the FMA units):
+                   # bf16 and f32 operands
+                   "shallow_nt_kernel": 2}
 
 
 def _is_tc_function(name: str) -> bool:
@@ -669,11 +672,12 @@ def check_spill_functions(build_dir: Path) -> dict:
 
 def check_tensor_core_build(build_dir: Path) -> dict:
     """Phase 2's checks of the built library: ``cuobjdump -sass`` counts
-    the HMMA/HGMMA instructions of every tensor-core function (the
-    products, the tile forwards and the NeuS sweep), the f32 ones
-    on TF32 operands (3xTF32) and the bf16 ones not; ptxas's ``-v`` lines
-    in the build log show their spills; fails on a count of 0, a missing
-    instantiation or a spill."""
+    the HGMMA instructions of every tensor-core function (the products,
+    the tile forwards and the NeuS sweep: wgmma alone, no mma.sync HMMA
+    in them or anywhere in the library), the f32 ones on TF32 operands
+    (3xTF32) and the bf16 ones not; ptxas's ``-v`` lines in the build log
+    show their spills; fails on a count of 0, a missing instantiation or
+    a spill."""
     from neddf_tpu_torch.kernels import _build
 
     # the SASS of the library's objects, one cuobjdump per object, all at
@@ -691,40 +695,34 @@ def check_tensor_core_build(build_dir: Path) -> dict:
         if failed:
             fail(f"cuobjdump -sass failed on {failed}")
         sass = "".join(path.read_text() for path in outs)
-    if REMOVED_TILE_BODY in sass:
-        fail(f"SASS: the mma.sync tile body {REMOVED_TILE_BODY} is still in the library")
-    hmma, tf32, hgmma, name = {}, {}, {}, None
+    # no mma.sync left in the library: HMMA only as part of HGMMA
+    mma_sync = sum(1 for line in sass.splitlines() if "HMMA" in line and "HGMMA" not in line)
+    if mma_sync:
+        fail(f"SASS: {mma_sync} mma.sync (HMMA) instructions in the library")
+    hgmma, tf32, name = {}, {}, None
     for line in sass.splitlines():
         text = line.strip()
         if text.startswith("Function :"):
             name = text.split(":", 1)[1].strip()
             if _is_tc_function(name):
-                hmma[name] = tf32[name] = hgmma[name] = 0
-        elif name in hmma and ("HMMA" in text or "HGMMA" in text):
-            hmma[name] += 1
+                hgmma[name] = tf32[name] = 0
+        elif name in hgmma and "HGMMA" in text:
+            hgmma[name] += 1
             tf32[name] += "TF32" in text
-            hgmma[name] += "HGMMA" in text
     spills = ptxas_spills(build_dir, TC_FUNCTIONS)
     for key, count in TC_FUNCTIONS.items():
-        found = [n for n in hmma if key in n]
+        found = [n for n in hgmma if key in n]
         if len(found) != count:
             fail(f"SASS: {len(found)} tensor-core instantiations of {key}, expected {count}")
-    if min(hmma.values()) < 1:
-        fail(f"SASS: a tensor-core function without HMMA: {hmma}")
-    # the wide layer forward, the route's products and the tile forward
-    # run on wgmma: warpgroup HGMMA, no mma.sync HMMA
-    wide = {fn: (hgmma[fn], hmma[fn]) for fn in hmma
-            if any(key in fn for key in WGMMA_FUNCTIONS)}
-    if len(wide) != sum(TC_FUNCTIONS[key] for key in WGMMA_FUNCTIONS) or any(
-            h < 1 or h != n for h, n in wide.values()):
-        fail(f"SASS: a wgmma kernel without HGMMA only (HGMMA, all): {wide}")
-    for fn in hmma:
+    if min(hgmma.values()) < 1:
+        fail(f"SASS: a tensor-core function without HGMMA: {hgmma}")
+    for fn in hgmma:
         is_f32 = "nv_bfloat16" not in fn
-        if is_f32 != (tf32[fn] > 0) or (is_f32 and tf32[fn] != hmma[fn]):
-            fail(f"SASS: {fn}: {tf32[fn]} of {hmma[fn]} HMMA on TF32 operands")
-    if set(spills) != set(hmma) or max(spills.values()) > 0:
+        if is_f32 != (tf32[fn] > 0) or (is_f32 and tf32[fn] != hgmma[fn]):
+            fail(f"SASS: {fn}: {tf32[fn]} of {hgmma[fn]} HGMMA on TF32 operands")
+    if set(spills) != set(hgmma) or max(spills.values()) > 0:
         fail(f"ptxas: spills in the tensor-core functions (or missing -v lines): {spills}")
-    return {"hmma": hmma, "tf32_hmma": tf32, "hgmma": hgmma, "spill_bytes": spills}
+    return {"hgmma": hgmma, "tf32_hgmma": tf32, "spill_bytes": spills}
 
 
 def time_pair(torch, fn_kernel, fn_plain, reps: int = 5, inner: int = 1):
@@ -759,7 +757,7 @@ def kernel_key(name: str) -> str:
     it folds in)."""
     head = name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
     head = head.replace("neddf::", "").replace("__nv_bfloat16", "bf16").strip()
-    return head if head.startswith("tc_gemm_kernel") else head.split("<")[0]
+    return head if head.startswith("shallow_nt_kernel") else head.split("<")[0]
 
 
 def profile_calls(torch, fn, calls: int = 20) -> tuple:
@@ -1154,6 +1152,8 @@ def product_cases(torch, gen, dev):
         (f"f32 tn NeuS layer 0 dW (m={e})", "tn", f32(rs, e), f32(rs, 256)),
         (f"f32 nt NeuS e rows dx (N={e})", "nt", f32(rs, 256), f32(e, 256)),
         ("f32 nt NeuS colour last layer dx (K=3)", "nt", f32(rs, 3), f32(256, 3)),
+        ("f32 nt NeuS-1024 colour last layer dx (K=3)", "nt", f32(M_NEUS_1024, 3),
+         f32(1024, 3)),
         ("f32 tn NeuS colour last layer dW (N=3)", "tn", f32(rs, 256), f32(rs, 3)),
         (f"f32 tn ragged ({rsr} rows)", "tn", f32(rsr, 256), f32(rsr, 256)),
         ("nt route dx 1024", "nt", bf(r, 1024), bf(1024, 1024)),
@@ -1179,9 +1179,9 @@ def product_call(layout, a, b):
 
 def product_kernel(dm) -> tuple:
     """The plain product kernels' launch counts so far: (route_nt,
-    route_tn, tc_gemm_kernel)."""
+    route_tn, shallow_nt)."""
     return (dm.ROUTE_PRODUCT_LAUNCHES["nt"], dm.ROUTE_PRODUCT_LAUNCHES["tn"],
-            sum(dm.GEMM_LAUNCHES.values()))
+            sum(dm.SHALLOW_LAUNCHES.values()))
 
 
 def host_ms(torch, fn, calls: int = 20) -> float:
@@ -1197,8 +1197,9 @@ def host_ms(torch, fn, calls: int = 20) -> float:
 
 def phase_products(torch, card: str) -> dict:
     """Phase 6b: the plain products of the backwards (``Products``: the nt
-    and tn on ``route_nt`` / ``route_tn``, NeRF's K = 3 dx on
-    ``neddf_gemm_tc``) against their plain version, with
+    and tn on ``route_nt`` / ``route_tn``, the 3-wide layers' K = 3 dx on
+    ``shallow_nt``, bound by its f32 output's bytes) against their plain
+    version, with
     the times of both, of ``torch.matmul`` on the same operands (the
     yardstick, bf16 out for bf16 operands, f32 with TF32 off for f32 ones;
     the port never calls it) and the bound, TFLOP/s and the host's ms per
@@ -1223,8 +1224,8 @@ def phase_products(torch, card: str) -> dict:
         got, ref = kernel(), plain()
         ran = [new - old for new, old in zip(product_kernel(dm), before)]
         if sorted(ran) != [0, 0, 1]:
-            fail(f"product {name}: launches (route_nt, route_tn, tc) {ran}")
-        kernel_name = ("route_nt", "route_tn", "tc_gemm_kernel")[ran.index(1)]
+            fail(f"product {name}: launches (route_nt, route_tn, shallow_nt) {ran}")
+        kernel_name = ("route_nt", "route_tn", "shallow_nt")[ran.index(1)]
         torch.cuda.synchronize()
         if got.shape != (m, n) or not torch.isfinite(got).all():
             fail(f"product {name}: shape {tuple(got.shape)} or non-finite output")
@@ -1242,8 +1243,11 @@ def phase_products(torch, card: str) -> dict:
              "k": k, "kernel": kernel_name, "max_abs_err": err, "rel_err": rel, "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms, "tflops": flops / ms / 1e9,
              "host_ms": host_ms(torch, kernel),
-             **bound(flops, t * (m * k + k * n) + 4 * m * n, "tf32x3" if f32 else "bfloat16")}
-        if f32:
+             # (shallow_nt's operations run on the FMA units, in f32)
+             **bound(flops, t * (m * k + k * n) + 4 * m * n,
+                     "float32" if kernel_name == "shallow_nt" else "tf32x3" if f32
+                     else "bfloat16")}
+        if f32 and kernel_name != "shallow_nt":
             r["fma_bound_ms"] = bound(flops, 0, "float32")["bound_ms"]
         results[name] = r
         log(f"[6b] product {name} ({kernel_name}): {r['tflops']:.1f} TFLOP/s, {ms:.4f} ms "
@@ -1424,7 +1428,7 @@ def phase_fold_products(torch, card: str) -> dict:
     against its plain version, timed (kernel, plain, torch.matmul of the
     bare product: the yardstick, which the port never calls), with its
     bound and TFLOP/s; one launch of its own kernel a call and none of
-    tc_gemm_kernel; then the grid of ``fold_grid``."""
+    shallow_nt; then the grid of ``fold_grid``."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
 
     dev = torch.device("cuda", 0)
@@ -1432,12 +1436,12 @@ def phase_fold_products(torch, card: str) -> dict:
     out = {"shipped": {}, "grid": {}}
     for name, mode, dtype_name, kernel, plain, library, flops, nbytes in fold_shipped_cases(
             torch, gen, dev):
-        before = dict(dm.FOLD_LAUNCHES), sum(dm.GEMM_LAUNCHES.values())
+        before = dict(dm.FOLD_LAUNCHES), sum(dm.SHALLOW_LAUNCHES.values())
         got = _fold_outputs(kernel())
         ran = {m: dm.FOLD_LAUNCHES[m] - before[0][m] for m in dm.FOLD_LAUNCHES}
-        if ran != {m: int(m == mode) for m in ran} or sum(dm.GEMM_LAUNCHES.values()) != before[1]:
-            fail(f"[6b] {name}: launches {ran}, tc_gemm_kernel "
-                 f"{sum(dm.GEMM_LAUNCHES.values()) - before[1]}; one {mode} expected")
+        shallow = sum(dm.SHALLOW_LAUNCHES.values()) - before[1]
+        if ran != {m: int(m == mode) for m in ran} or shallow:
+            fail(f"[6b] {name}: launches {ran}, shallow_nt {shallow}; one {mode} expected")
         ref = _fold_outputs(plain())
         torch.cuda.synchronize()
         errs = [rel_err(torch, a, b) for a, b in zip(got, ref) if a is not None]
@@ -1478,14 +1482,18 @@ def _pass_counters(dm) -> list:
 
 
 def route_counts(dm) -> dict:
-    """Launches of tc_gemm_kernel ("products") and of the tile forward by
-    operand type: "tc" (bf16 mma) and "tf32x3" (f32 by the 3xTF32 split);
+    """Launches of shallow_nt ("products") and of the tile forward by
+    operand type: "tc" (bf16) and "tf32x3" (f32 by the 3xTF32 split); of
+    the NeuS sweep ("sweep");
     of the products with an activation folded in, by end ("folded") and
     by mode ("fold"); of the elementwise passes."""
     passes = {}
     for counter in _pass_counters(dm):
         passes.update(counter)
-    return {"products": dict(dm.GEMM_LAUNCHES), "folded": dm.folded_launches(),
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+
+    return {"products": dict(dm.SHALLOW_LAUNCHES), "folded": dm.folded_launches(),
+            "sweep": sk.SWEEP_LAUNCHES["sweep"],
             "tile_forward": dict(dm.TILE_LAUNCHES), "passes": passes,
             "layer_forward_kernels": dict(dm.LAYER_FWD_LAUNCHES),
             "layer_forward_wide_streams": dict(dm.LAYER_FWD_WIDE_STREAMS),
@@ -1496,7 +1504,10 @@ def route_counts(dm) -> dict:
 
 
 def reset_route_counts(dm) -> None:
-    dm.GEMM_LAUNCHES.update(tc=0, tf32x3=0)
+    from neddf_tpu_torch.kernels import sdf_mlp as sk
+
+    dm.SHALLOW_LAUNCHES.update(tc=0, tf32x3=0)
+    sk.SWEEP_LAUNCHES["sweep"] = 0
     dm.TILE_LAUNCHES.update(tc=0, tf32x3=0)
     dm.ROUTE_LAUNCHES.update(fwd=0, fwd_value=0)
     dm.LAYER_FWD_LAUNCHES.update(narrow=0, wide=0)
@@ -1511,8 +1522,8 @@ def reset_route_counts(dm) -> None:
 
 def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> None:
     """A run in one compute dtype: every tile forward and every launch of
-    tc_gemm_kernel (an nt of a depth under ROUTE_NT_MIN_K, all it keeps) on
-    its route ("tc" for bf16, "tf32x3" for f32), none on the other, the
+    shallow_nt (an nt of a depth under ROUTE_NT_MIN_K) on its route ("tc"
+    for bf16, "tf32x3" for f32), none on the other, the
     tile forward launched; a backward's products with an activation
     folded in launched (route_nt / route_tn on wgmma; their launchers
     refuse an operand of another type than the run's)."""
@@ -1520,7 +1531,7 @@ def check_routes(what: str, counts: dict, route: str, backward: bool = True) -> 
     if counts["tile_forward"][other] or counts["tile_forward"][route] < 1:
         fail(f"{what}: tile forward routes {counts['tile_forward']}, expected {route} only")
     if backward and counts["products"][other]:
-        fail(f"{what}: tc_gemm_kernel routes {counts['products']}, expected {route} only")
+        fail(f"{what}: shallow_nt routes {counts['products']}, expected {route} only")
     if backward and sum(counts["fold"].values()) < 1:
         fail(f"{what}: folded products {counts['fold']} (route_nt / route_tn expected)")
 
@@ -2275,6 +2286,7 @@ def slice12_bounds(n_ddf: int, n_col: int) -> dict:
 M_NERF_FINE = 1024 * 194  # rows of a NeRF fine pass (1024 rays)
 M_NERF_COARSE = 1024 * 65
 M_NEUS = 1024 * (65 + 194)  # rows of a NeuS step (both passes, one network)
+M_NEUS_1024 = 256 * (65 + 194)  # NeuS-1024's step (256 rays)
 M_SDF_RAGGED = 20_011  # not a multiple of the 128-row tile
 NERF_FANS = [60] + [316 if li == 5 else 256 for li in range(1, 8)]
 NEUS_COL_FANS = [286] + [256] * 8
@@ -2321,6 +2333,57 @@ def ge_rows_off_plain(fk, fp) -> int:
     """Rows whose gE from the kernel's forward ``fk`` leaves the all-plain
     pass's ``fp`` by more than 1e-4 of its largest magnitude."""
     return int(((fk[1] - fp[1]).abs().amax(dim=1) > 1e-4 * fp[1].abs().max()).sum().item())
+
+
+def sweep_work(m: int, e_dim: int, layout) -> tuple:
+    """(flops, bytes) of the NeuS sweep alone: q_l = p_l W_l^T over every
+    row of W_l for l = L-1..1 and layer 0's e rows (2 M N fan_in each);
+    the stash read once (z_0..z_{L-2} whole, z_{L-1}'s column 0), gE
+    written, the weights read."""
+    fans = [e_dim] + [256 + e_dim * s for s in layout[1:]]
+    flops = 2.0 * m * 256 * sum(fans[1:]) + 2.0 * m * 256 * e_dim
+    nbytes = 4.0 * (m * 256 * (len(fans) - 1) + m + m * e_dim + 256 * sum(fans))
+    return flops, nbytes
+
+
+def sweep_alone(torch, sk, mlp, sdf_grad, e, ws, bs, act: str, fk) -> dict:
+    """The sweep (csrc/sdf_sweep.cuh) launched alone over the stash of the
+    forward ``fk`` = sdf_mlp(...), against the plain sweep over the same
+    stash (``channel0_sweep``), timed (CUDA events, 5 launches back to
+    back), beside #7's trunk alone (the same f32 row-tile launch through
+    mlp_seg) and the sweep's bound (operations); its gE equals the fused
+    call's bit for bit."""
+    from neddf_tpu_torch.kernels import _build
+    from neddf_tpu_torch.kernels import dual_mlp as dm
+
+    dev, (m, e_dim) = e.device, e.shape
+    split = [dm.SPLIT_HIDDEN_FIRST if s else 0 for s in SDF_LAYOUT]
+    out, stream = torch.empty_like(fk[1]), _build.stream(dev)
+
+    def sweep():
+        sk.sweep_launch(dm._ACT_CODES[act], e_dim, ws, split, fk[2], out, stream)
+
+    def plain():
+        return sdf_grad.channel0_sweep(ws, SDF_LAYOUT, act, fk[2], e_dim)
+
+    def trunk():
+        return mlp.mlp_seg([e], ws, bs, SDF_LAYOUT, act, stash=True)
+
+    before = sk.SWEEP_LAUNCHES["sweep"]
+    sweep()
+    torch.cuda.synchronize()
+    if sk.SWEEP_LAUNCHES["sweep"] != before + 1 or not torch.equal(out, fk[1]):
+        fail("[9] the sweep alone: not one launch, or gE off the fused call's")
+    err, rel = rel_err(torch, out, plain())
+    if rel > REL_TOL["float32"]:
+        fail(f"[9] the sweep alone: rel err {rel:.3g} > {REL_TOL['float32']}")
+    ms, plain_ms = time_pair(torch, sweep, plain, reps=3, inner=5)
+    trunk_ms, _ = time_pair(torch, trunk, trunk, reps=3, inner=5)
+    plan = sk.sweep_plan(256, e_dim, split, m)
+    return {"max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "trunk_ms": trunk_ms, "library_ms": None, "w_l2_bytes": plan["w_l2_bytes"] *
+            -(-m // 64), "plan": {k: plan[k] for k in ("consumers", "stages", "smem", "grid")},
+            **bound(*sweep_work(m, e_dim, SDF_LAYOUT), "tf32x3")}
 
 
 def phase_family_kernels(torch, card: str) -> dict:
@@ -2483,6 +2546,10 @@ def phase_family_kernels(torch, card: str) -> dict:
             fwd = (2 * trunk_flops, weights + m * 4 * (e_dim + 256 + e_dim + 8 * 256))
             results["sdf_mlp"][key].update(ms=ms, plain_ms=plain_ms,
                                            **f32_bound(*fwd))
+            results["sdf_sweep"] = {key: sweep_alone(torch, sk, mlp, sdf_grad, e, ws, bs, act,
+                                                     fk)}
+            log(f"[9] sdf_sweep {key} (the sweep alone, beside #7's trunk): "
+                f"{json.dumps(results['sdf_sweep'][key])} | card: {card}")
             ms, plain_ms = time_pair(torch, lambda: sk.sdf_mlp_bwd(*args),
                                      lambda: sdf_grad.sdf_trunk_with_grad_vjp(*args),
                                      reps=3)
@@ -4957,7 +5024,7 @@ def epilogue_cases(torch, g, rnd, m: int, n: int, e: int, hold) -> dict:
 
 def walk_route_products(fn, what: str):
     """(fn(), the plain products it launched by kernel: route_nt,
-    route_tn, tc_gemm_kernel): a walk backward's plain products on
+    route_tn, shallow_nt): a walk backward's plain products on
     route_nt and route_tn (fails unless both launched; the sweep's
     adjoint runs on route_nt with its epilogue, counted apart)."""
     from neddf_tpu_torch.kernels import dual_mlp as dm
@@ -5225,7 +5292,7 @@ def route_product_counts(what: str, counts: dict) -> dict:
     """``counts["route_products"]``: the per-layer route's plain products of
     a path (read just after it was driven), by kernel (route_nt, route_tn;
     csrc/route_products.cu) and the host seconds in ``Products.nt`` /
-    ``.tn`` on them; fails unless both launched (tc_gemm_kernel takes
+    ``.tn`` on them; fails unless both launched (shallow_nt takes
     nothing but an nt of a depth under 8; the plain versions' calls are
     ``read_path_counts``'s plain calls)."""
     routes = counts["routes"]
@@ -6233,7 +6300,7 @@ WIDE_4096_RANK_STEPS = ((WIDTH_4096, 32),)  # 26c's two ranks: (width, rays)
 
 def deep_route_counts(what: str, needed, route: str, backward: bool = True) -> dict:
     """``read_path_counts`` on the per-layer route: every kernel of
-    ``needed`` and a layer forward launched, no tc_gemm_kernel product on
+    ``needed`` and a layer forward launched, no shallow_nt product on
     the route of the other operand type than ``route`` ("tc" bf16,
     "tf32x3" f32) and, with ``backward``, route_nt and route_tn launched
     (``route_product_counts``); no fused wrapper, no tile forward, no
@@ -6428,6 +6495,90 @@ def wide_4096_step(torch, card: str) -> dict:
             "layer_forward": counts["layer_forward"]}
 
 
+# phase 26d: a configuration whose fused plans do not fit the shared memory
+# takes the per-layer route: NeDDF with both trunks 512 wide in f32 at
+# embed_pos_rank 11 (the colour trunks' row-tile plans, segments 66, 24, 3
+# and 512, need more than 232,448 bytes): its f32 step from the seeded
+# parameters through the kernels against the plain versions at phase 10's
+# bars, then REFUSED_STEPS steps of the shipped batch, every loss finite
+REFUSED_OVERRIDES = ["network.ddf_layer_width=512", "network.col_layer_width=512",
+                     "network.embed_pos_rank=11", "network.compute_dtype=float32"]
+REFUSED_STEP_RAYS = 64
+REFUSED_STEPS = 20
+
+
+def phase_refused_plan(torch, card: str) -> dict:
+    """Phase 26d (``REFUSED_OVERRIDES``): every network of the field takes
+    the per-layer route (``per_layer``: its fused plans raise); the f32 step
+    through the route's kernels against the plain versions on the same
+    draws within JAX_STEP_TOL, every launch on the route, none of the fused
+    kernels', no plain call; REFUSED_STEPS finite steps."""
+    start = time.perf_counter()
+    trainer = family_trainer(torch, "neddf", REFUSED_OVERRIDES)
+    render = trainer.neural_render
+    nets = [render.network_fine] + ([render.network_coarse]
+                                    if getattr(render, "use_coarse_network", False) else [])
+    if not all(net.per_layer for net in nets):
+        fail("[26d] NeDDF 512 f32 at embed_pos_rank 11 keeps the fused route")
+    shapes = {k: tuple(v.shape) for k, v in render.state_dict().items()}
+    render.load_state_dict({k: torch.from_numpy(v) for k, v in family_params(shapes).items()})
+    draws = machine_step_draws(trainer.dataset.image_width, trainer.dataset.image_height,
+                               render.sample_coarse + 1, render.sample_fine + 1,
+                               seed=FAMILY_DRAW_SEED, batch=REFUSED_STEP_RAYS)
+    us, vs, u_strat, u_pdf = (torch.as_tensor(x, device=trainer.device) for x in draws)
+    got, counts = {}, None
+    for mode in ("kernels", "plain"):
+        for net in nets:
+            net.fused = "auto" if mode == "kernels" else "off"
+        for p in render.parameters():
+            p.grad = None
+        reset_path_counts()
+        loss, loss_dict, mse = trainer.step_grads(FAMILY_CAMERA, us.long(), vs.long(),
+                                                  u_strat, u_pdf)
+        torch.cuda.synchronize()
+        if mode == "kernels":
+            counts = deep_route_counts("[26d] the refused plan's f32 step", TP_RUN_KERNELS,
+                                       "tf32x3")
+        got[mode] = {"loss": loss.item(), "mse": mse.item(),
+                     "losses": {k: v.item() for k, v in loss_dict.items()},
+                     "grad_norms": {n: p.grad.norm().item()
+                                    for n, p in render.named_parameters()}}
+    k, p = got["kernels"], got["plain"]
+    worst = max([check_close(f"[26d] {key}", k[key], p[key], JAX_STEP_TOL)
+                 for key in ("loss", "mse")]
+                + [check_close(f"[26d] loss {key}", k["losses"][key], v, JAX_STEP_TOL)
+                   for key, v in p["losses"].items()]
+                + [check_close(f"[26d] grad norm {key}", k["grad_norms"][key], v, JAX_STEP_TOL)
+                   for key, v in p["grad_norms"].items()])
+    for net in nets:
+        net.fused = "auto"
+    reset_path_counts()
+    for it in range(REFUSED_STEPS):
+        trainer.run_train_step(it % 2)
+    torch.cuda.synchronize()
+    trainer.flush_logs()
+    run_counts = deep_route_counts("[26d] the refused plan's steps", TP_RUN_KERNELS,
+                                   "tf32x3")
+    losses = [r["loss"] for r in trainer.history]
+    if len(losses) != REFUSED_STEPS or not all(
+            math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["losses"].values())
+            for r in trainer.history):
+        fail(f"[26d] {len(losses)} logged steps, or a non-finite loss")
+    out = {"worst_rel_vs_plain": worst, "step_launches": counts["launches"],
+           "layer_forward": run_counts["layer_forward"], "launches": run_counts["launches"],
+           "losses": losses, "wall_s": time.perf_counter() - start}
+    log(f"[26d] NeDDF 512 f32 at embed_pos_rank 11 (its fused plans do not fit): the "
+        f"per-layer route; the f32 step ({REFUSED_STEP_RAYS} rays) through the kernels vs "
+        f"plain: worst relative gap {worst:.3g} (bar {JAX_STEP_TOL}); {REFUSED_STEPS} steps "
+        f"({trainer.batch_size} rays), losses {losses[0]:.5f} -> {losses[-1]:.5f}, all "
+        f"finite; launches {run_counts['launches']}, layer forward "
+        f"{run_counts['layer_forward']}, plain calls {run_counts['plain_calls']}; "
+        f"{out['wall_s']:.1f} s | card: {card}")
+    del trainer, render
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_wide_4096(torch, card: str, ranks=None) -> dict:
     """Phase 26c: NeDDF with both trunks 4096 wide on the card:
     WIDE_4096_STEPS bf16 steps of WIDE_4096_RAYS rays (every loss finite,
@@ -6516,7 +6667,8 @@ def phase_26_alone(torch) -> int:
     log(f"[2] kernels built/loaded in {time.perf_counter() - start:.1f} s | card: {card}")
     check_spill_functions(_build.build_dir())
     out = {"epilogue": phase_epilogue_wide(torch, card), "deep": phase_deep(torch, card),
-           "wide_4096": phase_wide_4096(torch, card)}
+           "wide_4096": phase_wide_4096(torch, card),
+           "refused_plan": phase_refused_plan(torch, card)}
     drop_large_outputs()
     (OUT / "phase26.json").write_text(json.dumps(out, indent=1, default=str))
     print(json.dumps({"kernels": deep_kernel_entries(out)}))
@@ -6620,8 +6772,8 @@ def main() -> int:
         fail(f"the library still exports the folded elementwise passes {left}")
     log(f"[2] the elementwise passes folded into the products are gone from the library: "
         f"{', '.join(REMOVED_PASSES)}")
-    for fn_name, count in tc_build["hmma"].items():
-        log(f"[2] SASS {fn_name}: {count} HMMA/HGMMA, "
+    for fn_name, count in tc_build["hgmma"].items():
+        log(f"[2] SASS {fn_name}: {count} HGMMA, "
             f"{tc_build['spill_bytes'][fn_name]} bytes spilled")
     tc_build["other_spill_bytes"] = check_spill_functions(_build.build_dir())
     for fn_name, nbytes in tc_build["other_spill_bytes"].items():
@@ -6866,7 +7018,8 @@ def main() -> int:
     # ---- phase 26: trunks of any depth and widths over 2048 (26c's ranks
     # ran beside phase 14b)
     deep = {"epilogue": phase_epilogue_wide(torch, card), "deep": phase_deep(torch, card),
-            "wide_4096": phase_wide_4096(torch, card, wide_ranks)}
+            "wide_4096": phase_wide_4096(torch, card, wide_ranks),
+            "refused_plan": phase_refused_plan(torch, card)}
 
     def dp_launches(counter: str) -> dict:
         # one rank's launches per sharded step (bf16) and in the sharded eval render
@@ -6941,28 +7094,39 @@ def main() -> int:
         family_entry("sdf_mlp (NeuS trunk + channel-0 sweep)", "neus", "sdf_mlp", sdf_key),
         family_entry("sdf_mlp_bwd", "neus", "sdf_mlp_bwd", sdf_key),
     ]
-    # tc_gemm_kernel (the products inside the Pallas _bwd_kernel, on mma.sync),
-    # which keeps an nt of a depth under 8 (a 3-wide layer's dx): phase 6b's
-    # K = 3 cases; library_ms torch.matmul on the same operands. An entry
-    # where a run launched it (the shipped runs' and, f32, NeuS-1024's
-    # colour output on the per-layer route, phase 25b)
+    # the NeuS sweep alone (phase 9: its second launch over the stash; wgmma
+    # + TMA), launched by every sdf_mlp call of the NeuS run
+    sw = family_kernels["sdf_sweep"][sdf_key]
+    kernels.append({
+        "name": "sdf_sweep_kernel (the NeuS reverse sweep of channel 0, f32 by 3xTF32; wgmma "
+                "+ TMA)", "route": "cuda", "source": "neddf_tpu_torch/csrc/sdf_sweep.cuh",
+        "replaces": "neddf_tpu/kernels/sdf_mlp.py:69", "launches":
+        family_runs["neus"]["routes"]["sweep"], "max_abs_err": sw["max_abs_err"],
+        "ms": sw["ms"], "plain_ms": sw["plain_ms"], "bound_ms": sw["bound_ms"],
+        "bound_by": sw["bound_by"], "library_ms": None, "trunk_ms": sw["trunk_ms"],
+        "launches_geometry": {}, "launches_llff": {}, "launches_dp": {}})
+    # shallow_nt (the products inside the Pallas _bwd_kernel of a depth under
+    # 8, a 3-wide layer's dx; FMA, bound by its f32 output's bytes): phase
+    # 6b's K = 3 cases; library_ms torch.matmul on the same operands. An
+    # entry where a run launched it (the shipped runs' and, f32,
+    # NeuS-1024's colour output on the per-layer route, phase 25b)
     for name, case, dtype, launches, route in (
-            ("tc_gemm_kernel (bf16 plain products: an nt of a depth under 8, tensor cores "
-             "by mma.sync)", "nt NeRF last layer dx (K=3)", "bfloat16",
+            ("shallow_nt (bf16 operands: an nt of a depth under 8, f32 FMA, 16-byte "
+             "stores)", "nt NeRF last layer dx (K=3)", "bfloat16",
              train["routes"]["products"]["tc"] + family_runs["nerf"]["routes"]["products"]["tc"],
              "tc"),
-            ("tc_gemm_kernel (f32 plain products: an nt of a depth under 8, 3xTF32 by "
-             "mma.sync)", "f32 nt NeuS colour last layer dx (K=3)", "float32",
+            ("shallow_nt (f32 operands: an nt of a depth under 8, f32 FMA, 16-byte stores)",
+             "f32 nt NeuS colour last layer dx (K=3)", "float32",
              family_runs["neus"]["routes"]["products"]["tf32x3"]
              + tpf["run"]["neus_1024"]["routes"]["products"]["tf32x3"], "tf32x3")):
         if not launches:
             continue
         r = products[case]
         kernels.append({
-            "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/dual_mlp_bwd.cu",
+            "name": name, "route": "cuda", "source": "neddf_tpu_torch/csrc/route_products.cu",
             "replaces": "neddf_tpu/kernels/dual_mlp.py:728", "launches": launches,
             "max_abs_err": max(v["max_abs_err"] for v in products.values()
-                               if v["dtype"] == dtype and v["kernel"] == "tc_gemm_kernel"),
+                               if v["dtype"] == dtype and v["kernel"] == "shallow_nt"),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "launches_geometry": {},
             "launches_llff": {path: routes["products"][route]

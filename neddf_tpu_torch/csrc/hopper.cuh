@@ -12,7 +12,7 @@
 //   bytes apart, the next 64 M/N values `lbo` bytes on); fence, commit,
 //   wait, and a register fence that keeps the compiler's code off the
 //   accumulators of an in-flight wgmma.
-// * The 3xTF32 k8 step (tc_ops.cuh's mma_3xtf32 on wgmma): lo_a hi_b +
+// * The 3xTF32 k8 step (tc_ops.cuh's split on wgmma): lo_a hi_b +
 //   hi_a lo_b + hi_a hi_b summed from zero in a partial, waited for, and
 //   added to the running sum with a rounded f32 add (the tensor core's
 //   accumulation truncates; partials over a whole 32-deep k-block moved a
@@ -249,7 +249,7 @@ __device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64], const uint32_
 
 // acc += a b over one k8 step at f32 accuracy: a's hi and lo fragments,
 // b's hi and lo tiles (descriptors dh, dl); the three products summed from
-// zero in part, then added with a rounded add, as mma_3xtf32 does
+// zero in part, then added with a rounded add (tc_ops.cuh)
 __device__ __forceinline__ void wg_3xtf32_k8(float (&acc)[64], float (&part)[64],
                                              const uint32_t (&ah)[4], const uint32_t (&al)[4],
                                              uint64_t dh, uint64_t dl) {

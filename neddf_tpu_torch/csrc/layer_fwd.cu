@@ -603,7 +603,7 @@ extern "C" int NEDDF_FWD_FN(int act, int kernel, int streams, int M, int N, cons
 
 // The per-layer forward (kernels/dual_mlp.py::Products.layer_fwd): one
 // layer of streams (1, 2 or 4 planes, value first) of M points, dtype 1
-// bf16 or 0 f32 operands, act the activation code (as neddf_gemm_tc's).
+// bf16 or 0 f32 operands, act the activation code (mlp_tile.cuh's kTanhExp ... kSigmoid).
 // x in one segment x0 [S, M, k0] or two, x1 [S, M, k1] the columns after
 // x0's; w [wk0 + wk1, N] the weight columns (N contiguous), wk_i of them
 // for segment i (wk_i <= k_i: the segment's columns past wk_i, which the

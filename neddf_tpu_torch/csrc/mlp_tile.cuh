@@ -15,8 +15,8 @@
 //   LeakyReLU (kLeakyReLU, slope 0.01, f'(0) = 1), Softplus (kSoftplus,
 //   linear above 20) and Sigmoid (kSigmoid), as neddf_tpu/kernels/
 //   dual_mlp.py::_act_fns defines them, with f' and f''.
-// * tile_rows / TileGeo: the row tile and warp tiling of the NeuS sweep
-//   (sdf_sweep.cuh), 8 warps of mma.sync over a block of 32768 / C rows.
+// * SweepArgs: a call of the NeuS reverse sweep (sdf_sweep.cuh, on wgmma
+//   + TMA), built per width class into csrc/tile_fwd.cu's f32 objects.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,39 +31,12 @@ namespace neddf {
 
 constexpr int kMaxSeg = 4;
 constexpr int kMaxLayers = 12;
-constexpr int kTcTileThreads = 256;  // threads of a sweep block
 constexpr int kMaxWidth = 512;  // the widest class
 
 // the width class of a layer width n (0 past kMaxWidth)
 __host__ __device__ constexpr int width_class(int n) {
   return n < 1 ? 0 : n <= 64 ? 64 : n <= 128 ? 128 : n <= 256 ? 256 : n <= kMaxWidth ? 512 : 0;
 }
-
-// rows of a sweep block of width class C
-template <typename T, int C>
-__host__ __device__ constexpr int tile_rows() {
-  return std::is_same_v<T, float> && C < 256 ? 128 : 32768 / C;
-}
-
-// the sweep's warp tiling (K = 0): RT m16 tiles (MT per stream) of a
-// sample slice by WC columns (NI n8 tiles) per warp, NSL sample slices x
-// NCG column bands over the 8 warps
-template <typename T, int K, int C>
-struct TileGeo {
-  static constexpr int S = K + 1;
-  static constexpr int ROWS = tile_rows<T, C>();
-  static constexpr int TM = ROWS / S;  // samples per block
-  static constexpr int RT_MIN = ROWS / 128 > 2 ? ROWS / 128 : 2;
-  static constexpr int RT = S > RT_MIN ? S : RT_MIN;
-  static constexpr int MT = RT / S;
-  static constexpr int WC = ROWS * C / 128 / RT;
-  static constexpr int NCG = C / WC;
-  static constexpr int NSL = (kTcTileThreads / 32) / NCG;
-  static constexpr int NI = WC / 8;
-  static_assert(ROWS % S == 0 && RT == S * MT && NSL * NCG == kTcTileThreads / 32 &&
-                    NSL * 16 * MT == TM && WC % 16 == 0 && RT * NI * 4 == ROWS * C / 256,
-                "tile geometry");
-};
 
 // post-skip layer inputs (TileArgs::split)
 constexpr int kSplitSegFirst = 1;     // [seg0, h]
@@ -127,6 +100,35 @@ struct TileArgs {
   void* j_out;                 // [K, M, N_L], type T
   void* scratch;               // the plan's device scratch (f32: W^T's tf32 planes), or null
 };
+
+// a call of the NeuS reverse sweep (sdf_sweep.cuh): M rows, E = the
+// input's width (the e rows of W at layer 0 and at each post-skip layer),
+// N the width of every layer, L layers; W_l [fan_in_l, ld] (fan_in N, or
+// N + E after a post-skip layer [h, e], or E at layer 0) and the stash z_l
+// [M, ld] of the trunk's pre-activations, rows `ld` elements apart (N
+// rounded up to whole 16-byte rows, zeros past N: TMA's rows); the output
+// gE [M, E]; the plan's scratch (its parked outputs), or null
+struct SweepArgs {
+  int M, E, N, L;
+  long long ld;
+  const float* w[kMaxLayers];
+  int split[kMaxLayers];
+  const float* z[kMaxLayers];
+  float* ge;
+  void* scratch;
+};
+
+// the sweep of width class C (csrc/tile_fwd.cu's f32 objects), launched by
+// the plan `plan` (sdf_sweep.cuh's sweep_ints, which the launcher
+// recomputes and refuses where it differs)
+#define NEDDF_SWEEP_DECL(c)                                                                \
+  extern "C" int neddf_sdf_sweep_##c(int act, const SweepArgs* a, const int* plan,        \
+                                     void* stream);
+NEDDF_SWEEP_DECL(64)
+NEDDF_SWEEP_DECL(128)
+NEDDF_SWEEP_DECL(256)
+NEDDF_SWEEP_DECL(512)
+#undef NEDDF_SWEEP_DECL
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -294,6 +296,13 @@ __device__ __forceinline__ void act_fn(float x, float& f, float& df) {
   } else {
     tanh_exp(x, f, df);
   }
+}
+
+template <int ACT>
+__device__ __forceinline__ float dact(float x) {
+  float f, df;
+  act_fn<ACT>(x, f, df);
+  return df;
 }
 
 // f and f' for a run-time activation code (neddf_epilogue.cu's density,

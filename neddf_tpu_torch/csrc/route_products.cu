@@ -1307,6 +1307,116 @@ extern "C" int NEDDF_FOLD_TN_FN(NEDDF_FOLD_TN_ARGS) {
 
 #else
 
+namespace {
+
+// ---- shallow_nt: out [M, N] = A [M, K] B [N, K]^T (f32) for a depth K
+// under kernels/dual_mlp.py::ROUTE_NT_MIN_K (8), which route_nt's k8 steps
+// do not take: a 3-wide layer's dx, G [R, 3] W [N, 3]^T (NeRF's and NeuS's
+// 3-wide outputs), the product _mm_nt (neddf_tpu/kernels/dual_mlp.py:
+// 208-228) inside the Pallas backward bodies. At K <= 7 it does at most 14
+// FLOPs per 4-byte output: the tensor cores have nothing to do, and what
+// bounds it is the bytes, the f32 output above all (M N 4 + M K s + N K s
+// over 3.35 TB/s: 0.061 ms at 198,656 x 256 x 3 in bf16). So: f32 FMAs;
+// W's K x cols (a chunk of its columns, all of them up to ~1750 at K = 7)
+// in shared memory once per block, as f32 [K][cols]; each thread holds a
+// row's K values of A in registers and writes 4 adjacent outputs as one
+// 16-byte streaming store (rows of whole 16-byte vectors; else element by
+// element), consecutive threads along a row, so a warp writes whole lines;
+// a persistent grid of blocks walking rows.
+constexpr int kShallowMaxK = 7;
+constexpr int kShallowThreads = 256;
+constexpr int kShallowSmem = 48 * 1024;  // W's chunk, f32
+constexpr int kShallowBlocksPerSm = 8;
+
+// the columns of W a block holds at once (a multiple of 4)
+inline int shallow_cols(int N, int K) {
+  const int all = (N + 3) / 4 * 4;
+  const int fit = kShallowSmem / 4 / K / 4 * 4;
+  return all < fit ? all : fit;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kShallowThreads)
+    shallow_nt_kernel(int M, int N, int K, const T* __restrict__ a, long long lda,
+                      const T* __restrict__ b, long long ldb, int cols, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sw[];  // [K][cols]
+  const bool vec = (N & 3) == 0;
+  for (int c0 = 0; c0 < N; c0 += cols) {
+    const int nc = min(cols, N - c0);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int i = threadIdx.x; i < K * cols; i += kShallowThreads) {
+      const int k = i / cols, n = i - k * cols;
+      sw[i] = n < nc ? neddf::to_f32(b[(size_t)(c0 + n) * ldb + k]) : 0.f;
+    }
+    __syncthreads();
+    const int qn = (nc + 3) / 4;  // 4-column groups of the chunk
+    const int rows = max(1, kShallowThreads / qn);  // rows a block takes at once
+    const int r_in = threadIdx.x / qn, q0 = threadIdx.x % qn;
+    if (r_in >= rows) continue;
+    for (int m = blockIdx.x * rows + r_in; m < M; m += gridDim.x * rows) {
+      float av[kShallowMaxK];
+#pragma unroll
+      for (int k = 0; k < kShallowMaxK; ++k)
+        av[k] = k < K ? neddf::to_f32(a[(size_t)m * lda + k]) : 0.f;
+      for (int q = q0; q < qn; q += kShallowThreads) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < kShallowMaxK; ++k) {
+          if (k >= K) break;
+          const float4 w = *reinterpret_cast<const float4*>(sw + k * cols + 4 * q);
+          acc.x = fmaf(av[k], w.x, acc.x);
+          acc.y = fmaf(av[k], w.y, acc.y);
+          acc.z = fmaf(av[k], w.z, acc.z);
+          acc.w = fmaf(av[k], w.w, acc.w);
+        }
+        const int n = c0 + 4 * q;
+        float* o = out + (size_t)m * N + n;
+        if (vec) {
+          __stcs(reinterpret_cast<float4*>(o), acc);
+        } else {
+          const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n + e < N) o[e] = v[e];
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The shallow nt product (kernels/dual_mlp.py::Products.nt through
+// route_plan's "shallow"), dtype 1 bf16 or 0 f32 operands: out [M, N] f32
+// = a [M, K] b [N, K]^T, K from 1 to 7, a's and b's rows lda and ldb
+// elements apart (K contiguous), out dense and 16-byte aligned; `cols`
+// the columns of W a block holds (route_plan's, which the launcher
+// recomputes and refuses where it differs). Returns a cudaError_t.
+extern "C" int neddf_shallow_nt(int dtype, int M, int N, int K, const void* a, long long lda,
+                                const void* b, long long ldb, int cols, void* out,
+                                void* stream) {
+  if (dtype < 0 || dtype > 1 || M <= 0 || N <= 0 || K < 1 || K > kShallowMaxK || lda < K ||
+      ldb < K || a == nullptr || b == nullptr || out == nullptr ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || cols != shallow_cols(N, K))
+    return (int)cudaErrorInvalidValue;
+  const int sms = neddf::hopper::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int qn = (min(cols, N) + 3) / 4;
+  const int rows = max(1, kShallowThreads / qn);
+  const int grid = (int)std::min<long long>((M + rows - 1) / rows, (long long)sms * kShallowBlocksPerSm);
+  const size_t smem = (size_t)K * cols * 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (dtype == 1)
+    shallow_nt_kernel<__nv_bfloat16><<<grid, kShallowThreads, smem, s>>>(
+        M, N, K, static_cast<const __nv_bfloat16*>(a), lda, static_cast<const __nv_bfloat16*>(b),
+        ldb, cols, o);
+  else
+    shallow_nt_kernel<float><<<grid, kShallowThreads, smem, s>>>(
+        M, N, K, static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb, cols, o);
+  return (int)cudaGetLastError();
+}
+
 // The plain products (kernels/dual_mlp.py::Products.nt and .tn through
 // route_plan), dtype 1 bf16 or 0 f32 operands, f32 out: layout 0
 // (route_nt): out [M, N] = a [M, K] b [N, K]^T, a's and b's rows lda and

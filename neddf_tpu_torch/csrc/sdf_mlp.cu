@@ -6,16 +6,17 @@
 //   launches: the trunk h = f(z_l), z_l = in_l W_l + b_l is mlp_fwd.cu's
 //   f32 row tile (tile_hopper.cuh's mlp_tile_fwd, K=0; the post-skip
 //   layer reads [h, e], kSplitHiddenFirst), writing the stash z_l [M, C]
-//   and h [M, C]; then sdf_sweep_kernel, one block per row tile of 128
-//   samples, runs the reverse sweep of channel 0:
+//   and h [M, C]; then sdf_sweep.cuh's sdf_sweep_kernel (wgmma fed by TMA,
+//   persistent) runs the reverse sweep of channel 0:
 //       p_{L-1} = onehot0 * f'(z_{L-1});  q_l = p_l W_l^T;
 //       p_{l-1} = q_l[hidden] * f'(z_{l-1});  gE += q_l[e rows]
-//   (the e rows of layer 0 and of every post-skip layer). p and gE live
-//   in shared memory; z_{l-1} is read back from the stash (the trunk
-//   wrote it just before; 2.2 MB per layer at the NeuS step, inside the
-//   50 MB L2). Two kernels rather than one: the sweep's fragments beside
-//   the trunk's, in one kernel, spilled registers. Out: h, gE [M, E], the
-//   stash.
+//   (the e rows of layer 0 and of every post-skip layer). p lives in
+//   shared memory, gE in the tile's rows of the output; z_{l-1} is read
+//   back from the stash by TMA while layer l's products run (a layer's
+//   stash is M x 256 x 4 bytes, 271 MB at the NeuS step's 265,216 rows:
+//   it comes from device memory, not from L2). Two kernels rather than
+//   one: the trunk's regions and the sweep's in one block's shared memory
+//   do not fit. Out: h, gE [M, E], the stash.
 // * backward, _run_backward / _bwd_kernel:176-242, is run by the Python
 //   wrapper (kernels/sdf_mlp.py::sdf_mlp_bwd_route) as products of
 //   neddf_fold_nt / neddf_fold_tn (route_products.cu, f32: 3xTF32) whose epilogues and
@@ -46,19 +47,11 @@
 // times the trunk's products; on the tensor cores at three TF32 mma per
 // f32 multiply-add they are bound by 165 TFLOP/s of f32 work (495 TF32
 // at 700 W), not by the bytes (a few hundred bytes per row per layer).
-// The sweep's q = p W[hidden]^T runs as the trunk does (8 warps in the
-// trunk's K=0 tiling of the class, the same 3xTF32 step); its B operand W^T is read as
-// [n][k] tiles of W's rows, K contiguous, so ldmatrix builds its
-// fragments too. gE += p W[e]^T stays on the FMA units: E = 36 columns
-// against the C of q, and only at layer 0 and the post-skip layer,
-// about 4% of the sweep's multiply-adds (reckoned from the shapes; not
-// timed apart). sdf_top_kernel is bound by device memory.
+// The sweep's design is in sdf_sweep.cuh. sdf_top_kernel is bound by
+// device memory.
 #include "mlp_tile.cuh"
-#include "sdf_sweep.cuh"
 
 namespace {
-
-using neddf::TileArgs;
 
 // the top of the replayed sweep: p = onehot0 * f'(z), channel 0 only;
 // on a column shard of the top layer (the per-layer route under tensor
@@ -77,35 +70,38 @@ int grid_1d(size_t n) { return neddf::grid_1d(n, 256); }
 }  // namespace
 
 // gE [M, E] of the trunk whose per-layer pre-activations mlp_seg's
-// forward (mlp_fwd.cu, f32, [h, e] post-skip layers) wrote to stash;
-// every layer `width` wide (the sweep of its width class, tile_fwd.cu)
+// forward (mlp_fwd.cu, f32, [h, e] post-skip layers) wrote: every layer
+// `width` wide, the weights w [fan_in_l, ld] and the stash z [M, ld] with
+// rows ld elements apart (width rounded up to a multiple of 4, zeros past
+// it: the caller's padded copies where width is not); launched by the plan
+// `plan` (kernels/sdf_mlp.py::sweep_plan's ints; its scratch, or null),
+// the sweep of the width class (tile_fwd.cu's f32 objects)
 extern "C" int neddf_sdf_sweep(int act, int M, int e_dim, int width, int n_layers,
-                               const void* const* w, const int* split, void* const* stash,
-                               void* ge_out, void* stream) {
-  if (M <= 0 || e_dim < 1 || n_layers < 2 || n_layers > neddf::kMaxLayers ||
-      stash == nullptr || neddf::width_class(width) == 0)
+                               const void* const* w, const int* split, const void* const* z,
+                               long long ld, void* ge_out, const int* plan, void* scratch,
+                               void* stream) {
+  if (M <= 0 || e_dim < 1 || n_layers < 2 || n_layers > neddf::kMaxLayers || z == nullptr ||
+      w == nullptr || split == nullptr || neddf::width_class(width) == 0)
     return (int)cudaErrorInvalidValue;
-  TileArgs a = {};
-  a.seg_w[0] = e_dim;
-  a.n_seg = 1;
-  for (int l = 0; l < n_layers; ++l) {
-    if ((l == 0 && split[l] != 0) ||
-        (split[l] != 0 && split[l] != neddf::kSplitHiddenFirst) || stash[l] == nullptr)
-      return (int)cudaErrorInvalidValue;
-    a.w[l] = w[l];
-    a.split[l] = split[l];
-    a.stash[l] = stash[l];
-  }
-  a.n_layers = n_layers;
+  neddf::SweepArgs a = {};
   a.M = M;
-  a.width = width;
-  float* ge = static_cast<float*>(ge_out);
-  switch (neddf::width_class(width)) {
-    case 64: return neddf::neddf_sdf_sweep_64(act, &a, ge, stream);
-    case 128: return neddf::neddf_sdf_sweep_128(act, &a, ge, stream);
-    case 256: return neddf::neddf_sdf_sweep_256(act, &a, ge, stream);
+  a.E = e_dim;
+  a.N = width;
+  a.L = n_layers;
+  a.ld = ld;
+  for (int l = 0; l < n_layers; ++l) {
+    a.w[l] = static_cast<const float*>(w[l]);
+    a.split[l] = split[l];
+    a.z[l] = static_cast<const float*>(z[l]);
   }
-  return neddf::neddf_sdf_sweep_512(act, &a, ge, stream);
+  a.ge = static_cast<float*>(ge_out);
+  a.scratch = scratch;
+  switch (neddf::width_class(width)) {
+    case 64: return neddf::neddf_sdf_sweep_64(act, &a, plan, stream);
+    case 128: return neddf::neddf_sdf_sweep_128(act, &a, plan, stream);
+    case 256: return neddf::neddf_sdf_sweep_256(act, &a, plan, stream);
+  }
+  return neddf::neddf_sdf_sweep_512(act, &a, plan, stream);
 }
 
 // p [M, width] = onehot0 * f'(z): the top of the replayed sweep (the

@@ -3,7 +3,7 @@
 // activation, and K = 3, 1 and 0 tangent planes. kernels/_build.py
 // compiles this file once per (type, class), with -DNEDDF_TILE_F32=0|1
 // and -DNEDDF_TILE_C=64|128|256|512, each its own nvcc process, so that
-// the 120 tile instantiations (and 40 sweeps) build side by side; the
+// the 120 tile instantiations (and 20 sweeps) build side by side; the
 // entry points neddf_dual_mlp_fwd (dual_mlp_fwd.cu), neddf_mlp_seg_fwd
 // (mlp_fwd.cu) and neddf_sdf_sweep (sdf_mlp.cu) pick the object by width
 // (neddf::tile_fwd).
@@ -43,11 +43,11 @@ extern "C" int NEDDF_TILE_FN(int n_tan, int act, const neddf::TileArgs* a, const
 }
 
 #if NEDDF_TILE_F32
-extern "C" int NEDDF_CAT2(neddf_sdf_sweep_, NEDDF_TILE_C)(int act, const neddf::TileArgs* a,
-                                                      float* ge, void* stream) {
+extern "C" int NEDDF_CAT2(neddf_sdf_sweep_, NEDDF_TILE_C)(int act, const neddf::SweepArgs* a,
+                                                      const int* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)neddf::by_act(act, [&](auto a_) {
-    return neddf::launch_sweep<NEDDF_TILE_C, decltype(a_)::value>(*a, ge, st);
+    return neddf::sweep::launch_sweep<NEDDF_TILE_C, decltype(a_)::value>(*a, plan, st);
   });
 }
 #endif

@@ -197,14 +197,22 @@ class NeDDF(nn.Module):
     def per_layer(self) -> bool:
         """Whether the trunks take the per-layer route: a width shard under
         tensor parallelism, or a configuration that one of the fused
-        kernels refuses: the K=3 trunk, the K=1 colour trunk, the eval
-        colour trunk."""
+        kernels refuses (the K=3 trunk, the K=1 colour trunk, the eval
+        colour trunk), its plan in shared memory included: the widths of
+        the positional encodings and the compute dtype's size are the
+        plans' inputs."""
         act, n_col = self.activation_type, len(self.layers_col)
+        size = self.compute_dtype.itemsize
+        pe = self.embed_pos_rank * 6
+        col_segs = [pe, self.embed_dir_rank * 6, 3, self.ddf_layer_width]
         return per_layer_route(
             self.tp_group,
-            dual_mlp.kernel_refusal(act, self.ddf_layer_width, len(self.layers_ddf), 3),
-            dual_mlp.kernel_refusal(act, self.col_layer_width, n_col, 1, trunk=False),
-            mlp.kernel_refusal(act, self.col_layer_width, n_col, 4))
+            dual_mlp.kernel_refusal(act, self.ddf_layer_width, len(self.layers_ddf), 3,
+                                    itemsize=size, seg_widths=[pe], layout=self.trunk_layout),
+            dual_mlp.kernel_refusal(act, self.col_layer_width, n_col, 1, trunk=False,
+                                    itemsize=size, seg_widths=col_segs),
+            mlp.kernel_refusal(act, self.col_layer_width, n_col, 4, itemsize=size,
+                               seg_widths=col_segs))
 
     def _trunk_params(self, layers: nn.ModuleList):
         cd = self.compute_dtype

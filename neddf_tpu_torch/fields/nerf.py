@@ -130,9 +130,11 @@ class NeRF(nn.Module):
     @property
     def per_layer(self) -> bool:
         """Whether the trunk takes the per-layer route: a width shard under
-        tensor parallelism, or a trunk that the fused ``mlp_seg`` refuses."""
+        tensor parallelism, or a trunk that the fused ``mlp_seg`` refuses
+        (its plan in shared memory included)."""
         return per_layer_route(self.tp_group, kernel_refusal(
-            self.activation_type, self.layer_width, len(self.layers)))
+            self.activation_type, self.layer_width, len(self.layers), 1,
+            self.compute_dtype.itemsize, [self.embed_pos_rank * 6], self.trunk_layout))
 
     def schedule(self, iteration: int) -> Schedule:
         """Warmups at ``iteration``; a negative one selects eval values."""

@@ -139,12 +139,14 @@ class NeuS(nn.Module):
     def per_layer(self) -> bool:
         """Whether the trunks take the per-layer route: a width shard under
         tensor parallelism, or a trunk that its fused kernel refuses
-        (``sdf_mlp``; the colour trunk's ``mlp_seg``, four segments)."""
+        (``sdf_mlp``: its trunk's and its sweep's plans in shared memory;
+        the colour trunk's ``mlp_seg``, four segments, 3 wide at the end)."""
         act, (w, cw) = self.activation_type, self.widths
         return per_layer_route(
             self.tp_group,
-            sdf_refusal(act, w, len(self.layers_sdf)),
-            mlp_refusal(act, cw, len(self.layers_col), 4))
+            sdf_refusal(act, w, len(self.layers_sdf), self.embed_pos_rank * 6, self.sdf_layout),
+            mlp_refusal(act, cw, len(self.layers_col), 4, itemsize=4,
+                        seg_widths=[3, self.embed_dir_rank * 6, 3, w], last_width=3))
 
     def schedule(self, iteration: int) -> Schedule:
         """No warmups (``neddf_tpu/fields/base.py::BaseField.schedule``)."""

@@ -154,16 +154,13 @@ def library() -> ctypes.CDLL:
         "neddf_mlp_bwd_gpre": [_INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                _VOIDP, _VOIDP],
         # csrc/sdf_mlp.cu
-        "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _VOIDP,
-                            _VOIDP],
+        "neddf_sdf_sweep": [_INT, _INT, _INT, _INT, _INT, _VOIDPP, _INTP, _VOIDPP, _LL,
+                            _VOIDP, _INTP, _VOIDP, _VOIDP],
         "neddf_sdf_top": [_INT, _LL, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
         # csrc/dual_mlp_bwd.cu
         "neddf_dual_bwd_gstack": [
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
             _VOIDP,
-        ],
-        "neddf_gemm_tc": [
-            _INT, _INT, _INT, _INT, _VOIDP, _LL, _INT, _VOIDP, _LL, _INT, _VOIDP, _VOIDP,
         ],
         "neddf_sum_splits": [_LL, _INT, _VOIDP, _VOIDP, _VOIDP],
         "neddf_sum_rows": [_INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
@@ -177,6 +174,8 @@ def library() -> ctypes.CDLL:
             _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _VOIDP, _VOIDP, _LL, _INT,
             _INT, _VOIDP, _VOIDP,
         ],
+        "neddf_shallow_nt": [_INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _INT, _VOIDP,
+                             _VOIDP],
         "neddf_fold_nt": [
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOIDP, _LL, _VOIDP, _LL, _INT, _VOIDP,
             _LL, _VOIDP, _VOIDP, _LL, _VOIDP, _VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

@@ -282,10 +282,16 @@ dual_mlp_seg_bwd_plain.calls = 0
 
 # ------------------------------------------------------------ CUDA wrappers
 def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
-                   trunk: bool = True) -> Optional[str]:
+                   trunk: bool = True, *, itemsize: Optional[int] = None,
+                   seg_widths: Optional[Sequence[int]] = None,
+                   layout: Optional[Sequence[bool]] = None) -> Optional[str]:
     """What of a configuration the CUDA dual-MLP kernels do not take (None:
     they take it): the K=3 trunk (``trunk``) or the multi-segment
-    configuration. The checks below raise NotImplementedError on it."""
+    configuration. With the operand size ``itemsize`` (2 bf16, 4 f32), the
+    input segments' widths ``seg_widths`` and the post-skip ``layout``
+    ([seg0, h]) it also refuses a trunk whose row-tile forward plan
+    (``tile_fwd_plan``) does not fit the shared memory. The checks below
+    raise NotImplementedError on it."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
     if (refusal := width_refusal(width)) is not None:
@@ -294,6 +300,21 @@ def kernel_refusal(act_name: str, width: int, n_layers: int, n_tan: int,
         return f"{n_layers} layers"
     if n_tan not in (_KERNEL_N_TAN if trunk else _SEG_N_TAN):
         return f"K={n_tan}"
+    if seg_widths is None or itemsize not in _WIDE_BK:
+        return None
+    split = [SPLIT_SEG_FIRST if s else 0 for s in (layout or (False,) * n_layers)]
+    return plan_refusal(lambda: tile_fwd_plan(itemsize, n_tan, width, seg_widths, split))
+
+
+def plan_refusal(*plans) -> Optional[str]:
+    """Why a fused kernel's launch plan does not fit (None: every plan
+    fits): ``plans`` are callables that each make one plan or raise
+    ValueError (``tile_fwd_plan``, ``sdf_mlp.sweep_plan``)."""
+    for make in plans:
+        try:
+            make()
+        except ValueError as err:
+            return f"shared memory: {err}"
     return None
 
 
@@ -322,9 +343,12 @@ def _check_kernel_args(v0, j0, weights, biases, layout, act_name) -> None:
         raise TypeError(f"{what}: dtypes {v0.dtype}/{j0.dtype}")
     if v0.dim() != 2 or j0.dim() != 3 or j0.shape[1:] != v0.shape:
         raise ValueError(f"{what}: shapes {tuple(v0.shape)} / {tuple(j0.shape)}")
-    _refuse(what, kernel_refusal(act_name, weights[0].shape[1] if weights else 0,
-                                 len(weights), j0.shape[0]))
+    width = weights[0].shape[1] if weights else 0
+    _refuse(what, kernel_refusal(act_name, width, len(weights), j0.shape[0]))
     _check_layers([v0], weights, biases, layout, what)
+    _refuse(what, kernel_refusal(act_name, width, len(weights), j0.shape[0],
+                                 itemsize=v0.element_size(), seg_widths=[v0.shape[1]],
+                                 layout=layout))
 
 
 def _check_layers(vs, weights, biases, layout, what) -> None:
@@ -355,8 +379,8 @@ def _check_layers(vs, weights, biases, layout, what) -> None:
 
 def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> None:
     what = "CUDA dual_mlp_seg kernel"
-    _refuse(what, kernel_refusal(act_name, weights[0].shape[1] if weights else 0,
-                                 len(weights), n_tan, trunk=False))
+    width = weights[0].shape[1] if weights else 0
+    _refuse(what, kernel_refusal(act_name, width, len(weights), n_tan, trunk=False))
     if not 1 <= len(vs) <= _KERNEL_MAX_SEGMENTS or len(has_j) != len(vs):
         raise ValueError(f"{what}: {len(vs)} segments, has_j {tuple(has_j)}")
     dtype, m = vs[0].dtype, vs[0].shape[0]
@@ -369,6 +393,9 @@ def _check_seg_args(vs, js, weights, biases, layout, act_name, has_j, n_tan) -> 
                               or not j.is_contiguous() or j.device != v.device):
             raise ValueError(f"{what}: tangent {tuple(j.shape)} {j.dtype}")
     _check_layers(vs, weights, biases, layout, what)
+    _refuse(what, kernel_refusal(act_name, width, len(weights), n_tan, trunk=False,
+                                 itemsize=dtype.itemsize, seg_widths=[v.shape[1] for v in vs],
+                                 layout=layout))
 
 
 # launches of the row-tile forward (csrc/tile_hopper.cuh's mlp_tile_fwd,
@@ -650,42 +677,6 @@ dual_mlp_seg.launches = 0
 _DB_ROWS = 64  # rows per block of the cotangent kernel (one db partial each)
 
 
-def _vec_width(ptr: int, ld: int, itemsize: int) -> int:
-    """Elements per copy (16, 8 or 4 bytes of them, or one bf16) that a row
-    stride of ``ld`` elements from the byte address ``ptr`` keeps
-    aligned; raises ValueError for a pointer off its element size."""
-    if ptr % itemsize:
-        raise ValueError(f"tensor-core product: pointer {ptr:#x} not {itemsize}-byte aligned")
-    for nbytes in (16, 8, 4):
-        vec = nbytes // itemsize
-        if ptr % nbytes == 0 and ld % vec == 0:
-            return vec
-    return 1
-
-
-def tc_plan(m: int, n: int, k: int, sam: int, sak: int, sbk: int, sbn: int,
-            a_ptr: int = 0, b_ptr: int = 0, itemsize: int = 2) -> dict:
-    """How tc_gemm_kernel (``csrc/dual_mlp_bwd.cu``) takes ``sum_k A(m, k)
-    B(k, n)`` with ``A(m, k) = a[m*sam + k*sak]`` and ``B(k, n) =
-    b[k*sbk + n*sbn]``, for operands of ``itemsize`` bytes (2: bf16, 4:
-    f32 by the 3xTF32 split): the nt layout (K contiguous in both), one
-    pass over K.
-
-    Returns each operand's row stride and its copy width from its byte
-    address. Raises ValueError for any other layout (the products with M
-    or N contiguous run on route_products.cu's wgmma kernels), for another
-    operand size and for a pointer off its element size.
-    """
-    if sak != 1 or sbk != 1:
-        raise ValueError(f"tensor-core product: strides ({sam}, {sak}) x ({sbk}, {sbn}), "
-                         "K contiguous in both expected")
-    if itemsize not in (2, 4):
-        raise ValueError(f"tensor-core product: {itemsize}-byte operands")
-    lda, ldb = max(int(sam), 1), max(int(sbn), 1)
-    return {"lda": lda, "ldb": ldb, "vec_a": _vec_width(a_ptr, lda, itemsize),
-            "vec_b": _vec_width(b_ptr, ldb, itemsize)}
-
-
 def products_plain(m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
     """Plain version of the products: ``sum_k A(m, k) B(k, n)`` over the
     same strided views (``a``/``b`` flat or not, read through their
@@ -819,12 +810,14 @@ ROUTE_PRODUCT_HOST = {"s": 0.0}
 
 # the route products' plan (csrc/route_products.cu holds the same tile,
 # k-block and the tensor maps): route_nt takes a depth of at least one
-# tf32 k8 step (NeRF's 3-wide last layer's dx stays on tc_gemm_kernel);
+# tf32 k8 step (a shallower nt, a 3-wide layer's dx, goes to shallow_nt,
+# whose chunk of W's columns in shared memory is SHALLOW_SMEM bytes of f32);
 # route_tn cuts its rows into fixed splits of a whole number of k-blocks,
 # at least _ROUTE_MIN_SPLIT_BLOCKS each, at most _ROUTE_MAX_SPLITS, the
 # fewest whose waves over the SMs take within _ROUTE_SPLIT_SLACK of the
 # best count's k-blocks
 ROUTE_NT_MIN_K = 8
+SHALLOW_SMEM = 48 * 1024
 _ROUTE_TILE = 128
 _ROUTE_MIN_SPLIT_BLOCKS = 16
 _ROUTE_MAX_SPLITS = 64
@@ -841,8 +834,10 @@ def route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize
     byte addresses ``a_ptr`` / ``b_ptr`` (ValueError off the element
     size), on a card of ``sms`` SMs.
 
-    ``kernel``: "tc" (tc_gemm_kernel, for an nt depth k under
-    ``ROUTE_NT_MIN_K``) or "route" (route_nt / route_tn), with ``pad_a`` /
+    ``kernel``: "shallow" (shallow_nt, for an nt depth k under
+    ``ROUTE_NT_MIN_K``: ``cols``, the columns of b a block holds in shared
+    memory as f32, and ``chunks`` of them over n; any row strides) or
+    "route" (route_nt / route_tn), with ``pad_a`` /
     ``pad_b``: the row length an operand is first copied to where its
     rows or address are not whole 16-byte vectors (TMA's), 0
     where it is taken as it is (f32 nt's b goes through the tf32 split's
@@ -868,7 +863,8 @@ def route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize
 def _route_plan(layout: str, m: int, n: int, k: int, lda: int, ldb: int, itemsize: int,
                 a_ptr: int, b_ptr: int, sms: int) -> dict:
     if layout == "nt" and k < ROUTE_NT_MIN_K:
-        return {"kernel": "tc"}
+        cols = min(-(-n // 4) * 4, SHALLOW_SMEM // 4 // max(k, 1) // 4 * 4)
+        return {"kernel": "shallow", "cols": cols, "chunks": -(-n // cols)}
     vec = 16 // itemsize
     bk = _WIDE_BK[itemsize]
     if layout == "nt":
@@ -920,9 +916,10 @@ FOLD_LAUNCHES = {mode: 0 for mode in FOLD_MODES}
 # operand bytes: bf16 64 x 256 (each element of A transformed once a
 # split), f32 128 x 128
 _FOLD_TN_UNIT = {2: (64, 256), 4: (_ROUTE_TILE, _ROUTE_TILE)}
-# launches of tc_gemm_kernel (csrc/dual_mlp_bwd.cu, Products.gemm) by
-# operand type: "tc" bf16 by mma, "tf32x3" f32 by the 3xTF32 split
-GEMM_LAUNCHES = {"tc": 0, "tf32x3": 0}
+# launches of shallow_nt (csrc/route_products.cu, an nt of a depth under
+# ROUTE_NT_MIN_K) by operand type: "tc" bf16, "tf32x3" f32 (the keys of
+# TILE_LAUNCHES)
+SHALLOW_LAUNCHES = {"tc": 0, "tf32x3": 0}
 
 
 def folded_launches() -> dict:
@@ -1082,8 +1079,8 @@ class Products:
     """Launchers of the hand-written backward products for one backward
     call: the plain nt and tn (``csrc/route_products.cu``'s route_nt /
     route_tn on wgmma, ``route_plan``; an nt of a depth under
-    ``ROUTE_NT_MIN_K`` on ``csrc/dual_mlp_bwd.cu``'s tc_gemm_kernel, which
-    ``gemm`` launches), the products with an activation's elementwise
+    ``ROUTE_NT_MIN_K`` on its shallow_nt), the products with an
+    activation's elementwise
     work folded in (route_nt with the epilogue: ``nt_act``,
     ``nn_adjoint``, ``DualProducts.nt_gstack``; route_tn with the
     prologue: ``tn_act``, ``DualProducts.tn_dual_act``; ``fold_plan``),
@@ -1093,8 +1090,8 @@ class Products:
     their own top-layer passes in subclasses. ``ProductsPlain`` computes
     the same in PyTorch, so that the backwards' walks run on the CPU.
     Launches count in ``ROUTE_PRODUCT_LAUNCHES`` (the plain route_nt /
-    route_tn), ``FOLD_LAUNCHES`` (the folded modes) and ``GEMM_LAUNCHES``
-    (tc_gemm_kernel by operand type)."""
+    route_tn), ``FOLD_LAUNCHES`` (the folded modes) and ``SHALLOW_LAUNCHES``
+    (shallow_nt by operand type)."""
 
     def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
         self.lib = _build.library()
@@ -1107,23 +1104,6 @@ class Products:
 
     def _empty(self, shape, dtype=torch.float32) -> Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device)
-
-    def _plan(self, m, n, k, a, sam, sak, b, sbk, sbn) -> dict:
-        if a.dtype != self.dtype or b.dtype != self.dtype:
-            raise TypeError(f"products: operands {a.dtype}/{b.dtype}, expected {self.dtype}")
-        return tc_plan(m, n, k, sam, sak, sbk, sbn, a.data_ptr(), b.data_ptr(),
-                       a.element_size())
-
-    def gemm(self, m, n, k, a, sam, sak, b, sbk, sbn) -> Tensor:
-        """sum_k a[m*sam + k*sak] * b[k*sbk + n*sbn] -> [m, n] f32 on
-        tc_gemm_kernel, K contiguous in both operands (``tc_plan``)."""
-        plan = self._plan(m, n, k, a, sam, sak, b, sbk, sbn)
-        out = self._empty((m, n))
-        _build.check(self.lib.neddf_gemm_tc(
-            self.dt, m, n, k, a.data_ptr(), plan["lda"], plan["vec_a"], b.data_ptr(),
-            plan["ldb"], plan["vec_b"], out.data_ptr(), self.stream), "backward product")
-        GEMM_LAUNCHES["tc" if self.dtype == torch.bfloat16 else "tf32x3"] += 1
-        return out
 
     def sum_splits(self, parts: Tensor, out: Tensor) -> None:
         _build.check(self.lib.neddf_sum_splits(
@@ -1157,8 +1137,8 @@ class Products:
         n]) product of two row-strided 2-D operands in T -> [m, n] f32, on
         the kernel ``route_plan`` picks: ``csrc/route_products.cu``'s
         route_nt / route_tn (tn's splits summed in order by
-        ``neddf_sum_splits``), or tc_gemm_kernel (``gemm``) for an nt depth
-        under ``ROUTE_NT_MIN_K``."""
+        ``neddf_sum_splits``), or shallow_nt for an nt depth under
+        ``ROUTE_NT_MIN_K``."""
         t0 = time.perf_counter()
         if a.dim() != 2 or b.dim() != 2 or a.stride(1) != 1 or b.stride(1) != 1:
             raise ValueError(f"route products: operands {tuple(a.shape)} {a.stride()}, "
@@ -1174,10 +1154,16 @@ class Products:
         lda, ldb = a.stride(0), b.stride(0)
         plan = route_plan(layout, m, n, k, lda, ldb, a.element_size(), a.data_ptr(),
                           b.data_ptr(), self.sms)
-        if plan["kernel"] == "tc":  # an nt of a depth under ROUTE_NT_MIN_K
-            return self.gemm(m, n, k, a, lda, 1, b, 1, ldb)
         if m == 0 or n == 0 or k == 0:
             return torch.zeros((m, n), dtype=torch.float32, device=self.device)
+        if plan["kernel"] == "shallow":  # an nt of a depth under ROUTE_NT_MIN_K
+            out = self._empty((m, n))
+            _build.check(self.lib.neddf_shallow_nt(
+                self.dt, m, n, k, a.data_ptr(), lda, b.data_ptr(), ldb, plan["cols"],
+                out.data_ptr(), self.stream), "shallow_nt")
+            SHALLOW_LAUNCHES["tc" if self.dtype == torch.bfloat16 else "tf32x3"] += 1
+            ROUTE_PRODUCT_HOST["s"] += time.perf_counter() - t0
+            return out
         if plan["pad_a"]:
             a = _padded_rows(a, plan["pad_a"])
         if plan["pad_b"]:

@@ -52,6 +52,8 @@ from neddf_tpu_torch.kernels.dual_mlp import (
     Products,
     ProductsPlain,
     count_tile_launch,
+    plan_refusal,
+    tile_fwd_plan,
     tile_launch,
     width_refusal,
 )
@@ -167,9 +169,16 @@ mlp_seg_bwd_plain.calls = 0
 
 
 def kernel_refusal(act_name: str, width: int, n_layers: int,
-                   n_segments: int = 1) -> Optional[str]:
+                   n_segments: int = 1, itemsize: Optional[int] = None,
+                   seg_widths: Optional[Sequence[int]] = None,
+                   layout: Optional[Sequence[bool]] = None,
+                   last_width: Optional[int] = None) -> Optional[str]:
     """What of a configuration the CUDA kernels do not take (None: they
-    take it): ``_check_kernel_args`` raises NotImplementedError on it."""
+    take it): ``_check_kernel_args`` raises NotImplementedError on it. With
+    the operand size ``itemsize`` (2 bf16, 4 f32), the input segments'
+    widths ``seg_widths``, the post-skip ``layout`` ([h, seg0]) and the last
+    layer's width it also refuses a trunk whose row-tile forward plan
+    (``dual_mlp.tile_fwd_plan``) does not fit the shared memory."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
     if (refusal := width_refusal(width)) is not None:
@@ -178,7 +187,10 @@ def kernel_refusal(act_name: str, width: int, n_layers: int,
         return f"{n_layers} layers"
     if not 1 <= n_segments <= _KERNEL_MAX_SEGMENTS:
         return f"{n_segments} segments"
-    return None
+    if seg_widths is None or itemsize not in (2, 4):
+        return None
+    split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in (layout or (False,) * n_layers)]
+    return plan_refusal(lambda: tile_fwd_plan(itemsize, 0, width, seg_widths, split, last_width))
 
 
 def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
@@ -217,6 +229,11 @@ def _check_kernel_args(vs, weights, biases, layout, act_name) -> None:
             raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{what}: non-contiguous input")
+    refusal = kernel_refusal(act_name, width, len(weights), len(vs), itemsize=dtype.itemsize,
+                             seg_widths=[v.shape[1] for v in vs], layout=layout,
+                             last_width=weights[-1].shape[1])
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
 
 
 def mlp_seg(

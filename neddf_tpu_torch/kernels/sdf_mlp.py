@@ -7,8 +7,9 @@ features ``h [M, C]`` of ``e = PE(pos) [M, E]`` and ``gE = d h[:, 0] / d e
 
 * ``sdf_mlp`` launches the f32 row-tile trunk of ``csrc/mlp_fwd.cu``
   (``h`` and the stash of every layer's pre-activation ``[M, C]``), then
-  ``csrc/sdf_mlp.cu``'s sweep (``gE``), one block per row tile each, both
-  on the tensor cores by the 3xTF32 split.
+  the sweep (``gE``, ``csrc/sdf_sweep.cuh``: persistent, wgmma fed by
+  TMA, its plan ``sweep_plan``), both on the tensor cores by the 3xTF32
+  split.
 * ``sdf_mlp_bwd`` runs the Pallas ``_bwd_kernel`` from the stash as the
   walk ``sdf_mlp_bwd_route`` over the hand-written products
   (``csrc/route_products.cu``, ``SDFProducts``): the replayed sweep,
@@ -29,6 +30,7 @@ NeuS runs its trunk in f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import torch
@@ -36,9 +38,17 @@ import torch
 from neddf_tpu_torch.kernels import _build
 from neddf_tpu_torch.kernels.dual_mlp import (
     _ACT_CODES,
+    _TILE_TRIES,
+    H100_SMS,
+    TILE_FWD_ROWS,
+    TILE_FWD_SMEM,
+    _cdiv,
+    _sm_count,
     count_tile_launch,
     layer_launcher,
+    plan_refusal,
     saved_route,
+    tile_fwd_plan,
     tile_launch,
     width_refusal,
 )
@@ -56,22 +66,120 @@ Tensor = torch.Tensor
 _KERNEL_MAX_LAYERS = 12
 
 
-def kernel_refusal(act_name: str, width: int, n_layers: int) -> Optional[str]:
+def kernel_refusal(act_name: str, width: int, n_layers: int, e_dim: Optional[int] = None,
+                   layout: Optional[Sequence[bool]] = None) -> Optional[str]:
     """What of a trunk configuration the CUDA kernels do not take (None:
     they take it); ``_check_kernel_args`` raises NotImplementedError on
-    it."""
+    it. With the input's width ``e_dim`` (E) and the post-skip ``layout``
+    ([h, e]) it also refuses a trunk whose plans do not fit the shared
+    memory: the f32 row-tile forward's (``dual_mlp.tile_fwd_plan``) or
+    the sweep's (``sweep_plan``)."""
     if act_name not in _ACT_CODES:
         return f"activation {act_name!r}"
     if (refusal := width_refusal(width)) is not None:
         return refusal
     if not 2 <= n_layers <= _KERNEL_MAX_LAYERS:
         return f"{n_layers} layers"
-    return None
+    if e_dim is None:
+        return None
+    split = [_SPLIT_HIDDEN_FIRST if s else 0 for s in (layout or (False,) * n_layers)]
+    return plan_refusal(lambda: tile_fwd_plan(4, 0, width, [e_dim], split),
+                        lambda: sweep_plan(width, e_dim, split))
+
+
+# the sweep's plan (csrc/sdf_sweep.cuh::sweep_plan works out the same
+# numbers, and its launcher refuses a call whose plan differs): row tiles
+# of SWEEP_ROWS rows, one or two per block (consumer warpgroups) beside
+# the producer's warpgroup; two regions of p per tile (or, parked, one and
+# a z region of a chunk's k-blocks); a ring of 2-6 stages of W's rows, each
+# its f32 box split into tf32 hi and lo planes (NC x 128 bytes each);
+# barriers 3 per stage and 16 for the z chunks
+SWEEP_ROWS = TILE_FWD_ROWS
+_SWEEP_KB = TILE_FWD_ROWS * 128
+_SWEEP_MAX_STAGES = 6
+_SWEEP_Z_BARRIERS = 16
+
+
+def sweep_plan(width: int, e_dim: int, split: Sequence[int], m: int = 1,
+               sms: int = H100_SMS) -> dict:
+    """How the sweep launches for a trunk of layers ``width`` wide over
+    the input's ``e_dim`` columns, ``split[l]`` each layer's post-skip input
+    (0 or SPLIT_HIDDEN_FIRST: [h, e]), ``m`` rows, a card of ``sms`` SMs.
+
+    Returns the width ``class``; ``nc`` (a hidden chunk's columns: wgmma
+    m64n128, m64n64 at the class 64) and ``ne`` (an e chunk's: 64 where E
+    <= 64, else nc); ``kb`` (k-blocks of p, 32 columns each); ``rows`` (64
+    a tile); ``consumers`` (tiles, and consumer warpgroups, of a block),
+    ``warps`` by role (the producer's warpgroup: W's TMA, the stash's
+    TMA, two splitting W's stages into tf32 planes) and ``threads``;
+    ``stages`` and ``stage_bytes``; ``park`` (the class 512: a layer's
+    output parks in device memory, z comes a chunk at a time); ``smem``;
+    ``grid``; ``scratch_bytes`` (the parked outputs); ``ld`` (the row
+    length of W and of the stash as TMA reads them: ``width`` rounded up
+    to a multiple of 4; the caller copies them where it differs);
+    ``w_l2_bytes``, the bytes of W a block reads from L2 per 64-row tile
+    (one f32 plane, the rows that lie in W, shared by the consumers) and
+    ``w_l2_bytes_two_planes``, what one tile per pass over a pre-pass's
+    tf32 hi and lo planes would read; ``ints``, the numbers the launcher
+    passes and the kernel's launcher checks. Raises ValueError where no
+    layout fits the shared memory. Cached."""
+    return _sweep_plan(width, e_dim, tuple(int(s) for s in split), m, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _sweep_plan(width: int, e_dim: int, split: tuple, m: int, sms: int) -> dict:
+    if width_refusal(width) is not None or e_dim < 1:
+        raise ValueError(f"the sweep: width {width}, E {e_dim}")
+    if (not 2 <= len(split) <= _KERNEL_MAX_LAYERS or split[0]
+            or any(s not in (0, _SPLIT_HIDDEN_FIRST) for s in split)):
+        raise ValueError(f"the sweep: split {split}")
+    cls = next(c for c in (64, 128, 256, 512) if width <= c)
+    nc = 64 if cls == 64 else 128
+    ne = 64 if nc == 128 and e_dim <= 64 else nc
+    kb = _cdiv(width, 32)
+    region, zreg, stage = kb * _SWEEP_KB, nc // 32 * _SWEEP_KB, 2 * nc * 128
+
+    def total(nw: int, st: int, park: bool) -> int:
+        return (nw * (region + zreg if park else 2 * region) + st * stage
+                + (3 * st + _SWEEP_Z_BARRIERS) * 8)
+
+    choice = None
+    for nw, least, park in _TILE_TRIES:
+        st = next((st for st in range(_SWEEP_MAX_STAGES, least - 1, -1)
+                   if total(nw, st, park) <= TILE_FWD_SMEM), None)
+        if st is not None:
+            choice = (nw, st, park)
+            break
+    if choice is None:
+        raise ValueError(f"the sweep: no layout at width {width} fits {TILE_FWD_SMEM} bytes "
+                         "of shared memory")
+    nw, stages, park = choice
+    grid = min(_cdiv(_cdiv(m, SWEEP_ROWS), nw), sms)
+    scratch = grid * SWEEP_ROWS * cls * 4 if park else 0
+    smem = total(nw, stages, park)
+    ld = _cdiv(width, 4) * 4
+    rows = 0  # W's rows the stages of one tile hold, all layers
+    for layer, s in enumerate(split):
+        fan_in = e_dim if layer == 0 else width + (e_dim if s else 0)
+        starts = ([(0 if layer == 0 else width) + i * ne for i in range(_cdiv(e_dim, ne))]
+                  if layer == 0 or s else [])
+        if layer > 0:
+            starts += [c * nc for c in range(_cdiv(width, nc))]
+        rows += sum(min(nc, fan_in - r0) for r0 in starts)
+    return {
+        "class": cls, "nc": nc, "ne": ne, "kb": kb, "rows": SWEEP_ROWS, "consumers": nw,
+        "warps": {"consumer": 4 * nw, "w_tma": 1, "z_tma": 1, "split": 2},
+        "threads": 128 * (nw + 1), "stages": stages, "stage_bytes": stage, "park": park,
+        "smem": smem, "grid": grid, "scratch_bytes": scratch, "ld": ld,
+        "w_l2_bytes": rows * ld * 4 // nw, "w_l2_bytes_two_planes": rows * ld * 8,
+        "ints": (SWEEP_ROWS, nw, stages, smem, int(park), grid, scratch, ne),
+    }
 
 
 def _check_kernel_args(e, weights, biases, layout, act_name) -> None:
     what = "CUDA sdf_mlp kernel"
-    refusal = kernel_refusal(act_name, weights[0].shape[1] if weights else 0, len(weights))
+    width = weights[0].shape[1] if weights else 0
+    refusal = kernel_refusal(act_name, width, len(weights))
     if refusal is not None:
         raise NotImplementedError(f"{what}: {refusal}")
     if e.dtype != torch.float32 or e.dim() != 2:
@@ -97,6 +205,9 @@ def _check_kernel_args(e, weights, biases, layout, act_name) -> None:
             raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{what}: non-contiguous input")
+    refusal = kernel_refusal(act_name, width, len(weights), e.shape[1], layout)
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
 
 
 def sdf_mlp(
@@ -132,15 +243,46 @@ def sdf_mlp(
             _build.pointers(biases), _build.ints(split), _build.pointers(pres),
             h.data_ptr(), plan, None if scratch is None else scratch.data_ptr(), stream),
             "sdf_mlp trunk")
-        _build.check(lib.neddf_sdf_sweep(
-            act, m, e_dim, width, len(weights), _build.pointers(weights), _build.ints(split),
-            _build.pointers(pres), g_e.data_ptr(), stream), "sdf_mlp sweep")
-        sdf_mlp.launches += 1
         count_tile_launch(torch.float32)
+        sweep_launch(act, e_dim, weights, split, pres, g_e, stream)
+        sdf_mlp.launches += 1
     return (h, g_e, pres) if stash else (h, g_e)
 
 
 sdf_mlp.launches = 0
+
+# launches of the sweep (csrc/sdf_sweep.cuh's sdf_sweep_kernel), over every
+# caller of sdf_mlp (the training forward, the eval render, voxelize)
+SWEEP_LAUNCHES = {"sweep": 0}
+
+
+def _padded_columns(x: Tensor, ld: int) -> Tensor:
+    """x [R, n] as a fresh [R, ld] copy with zero columns past n (rows of
+    whole 16-byte vectors, as TMA reads them)."""
+    out = x.new_zeros((x.shape[0], ld))
+    out[:, : x.shape[1]] = x
+    return out
+
+
+def sweep_launch(act: int, e_dim: int, weights, split, pres, g_e: Tensor, stream: int) -> None:
+    """The sweep (``csrc/sdf_sweep.cuh``) of the trunk whose stash the
+    trunk's launch just wrote: gE into ``g_e`` [M, E], launched by its plan
+    (``sweep_plan``; W and the stash copied with zero columns up to ``ld``
+    where ``width`` is not a multiple of 4)."""
+    m, width = pres[0].shape
+    device = g_e.device
+    plan = sweep_plan(width, e_dim, split, m, _sm_count(device.index or 0))
+    ld = plan["ld"]
+    if ld != width:
+        weights = [_padded_columns(w, ld) for w in weights]
+        pres = [_padded_columns(z, ld) for z in pres]
+    scratch = (torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
+               if plan["scratch_bytes"] else None)
+    _build.check(_build.library().neddf_sdf_sweep(
+        act, m, e_dim, width, len(weights), _build.pointers(weights), _build.ints(split),
+        _build.pointers(pres), ld, g_e.data_ptr(), _build.ints(plan["ints"]),
+        None if scratch is None else scratch.data_ptr(), stream), "sdf_mlp sweep")
+    SWEEP_LAUNCHES["sweep"] += 1
 
 
 # launches of the top of the replayed sweep (csrc/sdf_mlp.cu's sdf_top),

@@ -381,7 +381,7 @@ def measure_passes(torch, smoke, dev) -> dict:
     for name, (rows, t, outs, fn) in routes.items():
         kernels = smoke.profile_calls(torch, fn, calls=3)[0]
         for key, r in kernels.items():
-            if key.startswith("tc_gemm_kernel") or key not in PASS_PLANES or key in (
+            if key.startswith("shallow_nt_kernel") or key not in PASS_PLANES or key in (
                     "sum_splits_kernel", "sum_rows_kernel"):
                 continue
             n = round(r["launches"])

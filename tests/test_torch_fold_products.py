@@ -24,7 +24,7 @@ runs), ragged rows, the raw seg0 columns past ``n_act``, the side plane,
 the kept product, the sweep adjoint's two K segments and its top, the
 NeuS colour trunk's 3-deep top layer, S = 2 and 4; dW and db bitwise
 equal over two runs; each call one launch of its own kernel and none of
-tc_gemm_kernel.
+shallow_nt.
 
 Tolerances. Against the plain version both sides multiply the same
 operands and differ in the order of the f32 sums (and in f32 by the
@@ -220,7 +220,7 @@ def _card():
 
 
 def _launches():
-    return dict(tdm.FOLD_LAUNCHES), sum(tdm.GEMM_LAUNCHES.values())
+    return dict(tdm.FOLD_LAUNCHES), sum(tdm.SHALLOW_LAUNCHES.values())
 
 
 def _one_launch(before, mode):

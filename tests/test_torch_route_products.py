@@ -6,7 +6,7 @@ On the CPU:
 
 * the plan: which kernel takes which shape (1024 x 1024 at the main
   path's rows, a tensor-parallel shard of 512, layer 0's 60- and 36-wide
-  sides, NeRF's K = 3 dx, which stays on tc_gemm_kernel, the N = 3 dW,
+  sides, NeRF's K = 3 dx, which goes to shallow_nt, the N = 3 dW,
   ragged rows), tn's split count (it fills the SMs; fixed ranges of whole
   k-blocks, in order), the copy of operands whose rows or address are not
   whole 16-byte vectors, and f32 nt's tf32 planes of W;
@@ -57,8 +57,8 @@ CHOICES = {
     "tn fan 60 bf16": (("tn", 60, 1024, R_MAIN, 60, 1024, 2), ("route", 64, 0)),
     "tn fan 36 f32": (("tn", 36, 1024, R_F32, 36, 1024, 4), ("route", 0, 0)),
     "tn fan 36 bf16": (("tn", 36, 1024, R_MAIN, 36, 1024, 2), ("route", 40, 0)),
-    "nt K=3": (("nt", 198_656, 256, 3, 3, 3, 2), ("tc",)),
-    "nt K=7 f32": (("nt", 1000, 256, 7, 7, 7, 4), ("tc",)),
+    "nt K=3": (("nt", 198_656, 256, 3, 3, 3, 2), ("shallow",)),
+    "nt K=7 f32": (("nt", 1000, 256, 7, 7, 7, 4), ("shallow",)),
     "nt K=8": (("nt", 1000, 256, 8, 8, 8, 2), ("route", 0, 0)),
     "tn N=3 bf16": (("tn", 1024, 3, 198_656, 1024, 3, 2), ("route", 0, 8)),
     "tn N=3 f32": (("tn", 1024, 3, R_F32, 1024, 3, 4), ("route", 0, 4)),
@@ -220,14 +220,14 @@ def _check(dev, dtype, layout, rows, width, fan, seed, offset=0):
     plan = tdm.route_plan(layout, *((rows, fan, width) if layout == "nt" else (fan, width, rows)),
                           a.stride(0), b.stride(0), a.element_size(), a.data_ptr(),
                           b.data_ptr(), k.sms)
-    before = dict(tdm.ROUTE_PRODUCT_LAUNCHES), sum(tdm.GEMM_LAUNCHES.values())
+    before = dict(tdm.ROUTE_PRODUCT_LAUNCHES), sum(tdm.SHALLOW_LAUNCHES.values())
     got = getattr(k, layout)(a, b)
     again = getattr(k, layout)(a, b)
     want = getattr(tdm.ProductsPlain(cd), layout)(a, b)
     torch.cuda.synchronize()
     route = plan["kernel"] == "route"
     assert tdm.ROUTE_PRODUCT_LAUNCHES[layout] == before[0][layout] + 2 * route
-    assert sum(tdm.GEMM_LAUNCHES.values()) == before[1] + 2 * (not route)
+    assert sum(tdm.SHALLOW_LAUNCHES.values()) == before[1] + 2 * (not route)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _rel(got, want) <= PRODUCT_REL_TOL, f"{layout} {dtype}: {_rel(got, want)}"
     assert torch.equal(got, again)
@@ -241,7 +241,7 @@ def _check(dev, dtype, layout, rows, width, fan, seed, offset=0):
 def test_cuda_route_nt_matches_plain(width, fan, dtype):
     dev = _card()
     plan = _check(dev, dtype, "nt", 20_011, width, fan, seed=width + fan)
-    assert plan["kernel"] == ("tc" if width < tdm.ROUTE_NT_MIN_K else "route")
+    assert plan["kernel"] == ("shallow" if width < tdm.ROUTE_NT_MIN_K else "route")
 
 
 @pytest.mark.cuda

@@ -1,16 +1,17 @@
-"""The tensor-core routes: the bf16 product of the backwards
-(``csrc/dual_mlp_bwd.cu``, ``neddf_gemm_bf16_tc``) and the bf16 row-tile
-forward (``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``).
+"""The tensor-core routes: the products of the backwards as
+``Products.nt`` takes them (``csrc/route_products.cu``: route_nt, and
+shallow_nt for a depth under 8) and the bf16 row-tile forward
+(``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``).
 
-On the CPU: the Python planning of the product (the nt layout alone, row
-strides, copy widths; which products ``route_plan`` leaves to it) and the
-plain version of the products over the same strided views, against the JAX package's own products
-(``neddf_tpu.kernels.dual_mlp._mm`` / ``_mm_tn`` / ``_mm_nt``) at f32 and
-on bf16-rounded operands; the zero-padded 3-wide last layer of
-``mlp_seg`` against the unpadded one and the JAX package.
+On the CPU: which products ``route_plan`` leaves to shallow_nt, and the
+plain version of the products over the same strided views, against the
+JAX package's own products (``neddf_tpu.kernels.dual_mlp._mm`` /
+``_mm_tn`` / ``_mm_nt``) at f32 and on bf16-rounded operands; the
+zero-padded 3-wide last layer of ``mlp_seg`` against the unpadded one and
+the JAX package.
 
-On the card (marked ``cuda``: they skip without one): the product kernel
-against its plain version in the nt layout at ragged shapes, with
+On the card (marked ``cuda``: they skip without one): the bf16 nt product
+through ``Products.nt`` against its plain version at ragged shapes, with
 bitwise-equal results over two runs, and the tile forward for K = 0, 1
 and 3 against the plain versions at a ragged M, with a post-skip layer
 in each order and the stash.
@@ -92,51 +93,19 @@ def _jax_product(jx, layout, a, b, dtype):
 
 
 # ------------------------------------------------------------------ on the CPU
-@pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
-def test_plan_reads_the_layout_and_row_strides(layout):
-    """nt (K contiguous in both operands) gives its row strides; tn and nn,
-    whose products run on route_products.cu's wgmma kernels, are
-    refused."""
-    for k in FAN_INS:
-        for n in WIDTHS:
-            _, _, call = _operands(layout, k, n, rows=5)
-            m_, n_, k_, sam, sak, sbk, sbn = call
-            if layout != "nt":
-                with pytest.raises(ValueError):
-                    tdm.tc_plan(m_, n_, k_, sam, sak, sbk, sbn)
-                continue
-            plan = tdm.tc_plan(m_, n_, k_, sam, sak, sbk, sbn)
-            assert (plan["lda"], plan["ldb"]) == (sam, sbn)
-
-
-def test_plan_copy_widths_follow_alignment():
-    # bf16 row strides: 256 (512 B) -> 16-byte copies; 60 (120 B) -> 8;
-    # 316 (632 B) -> 8; 3 (6 B) -> element-wise; 24 (48 B) -> 16
-    for ld, vec in ((256, 8), (60, 4), (316, 4), (3, 1), (24, 8), (6, 2)):
-        assert tdm.tc_plan(10, 256, ld, ld, 1, 1, 256, 0, 0)["vec_a"] == vec
-    # a pointer 8 bytes off a 16-byte boundary halves the copy
-    assert tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, 8, 0)["vec_a"] == 4
-    assert tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, 2, 0)["vec_a"] == 1
-
-
-def test_plan_refuses_a_fourth_layout():
-    # A with M contiguous against B with K contiguous
-    with pytest.raises(ValueError):
-        tdm.tc_plan(64, 64, 64, 1, 64, 1, 64)
-
-
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 31, 256, 600_000])
 def test_route_plan_leaves_only_a_shallow_nt_to_the_tc_kernel(k, itemsize):
-    """tc_gemm_kernel takes an nt of a depth under ``ROUTE_NT_MIN_K`` (a
+    """shallow_nt takes an nt of a depth under ``ROUTE_NT_MIN_K`` (a
     3-wide layer's dx) and nothing else: a deeper nt and every tn (a
-    reduction over k rows) go to route_nt / route_tn."""
+    reduction over k rows) go to route_nt / route_tn. Its plan holds W's
+    256 columns in shared memory in one chunk (f32, 16-byte groups)."""
     nt = tdm.route_plan("nt", R, 256, k, k, k, itemsize)
-    assert nt["kernel"] == ("tc" if k < tdm.ROUTE_NT_MIN_K else "route")
+    assert nt["kernel"] == ("shallow" if k < tdm.ROUTE_NT_MIN_K else "route")
     assert tdm.route_plan("tn", 256, 256, k, 256, 256, itemsize)["kernel"] == "route"
-    if nt["kernel"] == "tc":
-        plan = tdm.tc_plan(R, 256, k, k, 1, 1, k, itemsize=itemsize)
-        assert (plan["lda"], plan["ldb"]) == (k, k)
+    if nt["kernel"] == "shallow":
+        assert (nt["cols"], nt["chunks"]) == (256, 1)
+        assert k * nt["cols"] * 4 <= tdm.SHALLOW_SMEM
 
 
 @pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
@@ -238,14 +207,15 @@ def test_cuda_tc_product_matches_plain(k):
         ta = torch.from_numpy(a).to(dev, torch.bfloat16)
         tb = torch.from_numpy(b).to(dev, torch.bfloat16)
         prod = tdm.Products(torch.bfloat16, dev)
-        before = dict(tdm.GEMM_LAUNCHES)
-        m_, n_, k_, sam, sak, sbk, sbn = call
-        got = prod.gemm(m_, n_, k_, ta, sam, sak, tb, sbk, sbn)  # tc_gemm_kernel itself
-        assert tdm.GEMM_LAUNCHES == {"tc": before["tc"] + 1, "tf32x3": before["tf32x3"]}
+        shallow = k < tdm.ROUTE_NT_MIN_K
+        before = dict(tdm.SHALLOW_LAUNCHES), dict(tdm.ROUTE_PRODUCT_LAUNCHES)
+        got = prod.nt(ta, tb)  # shallow_nt at k = 3, route_nt past it
+        assert tdm.SHALLOW_LAUNCHES["tc"] == before[0]["tc"] + shallow
+        assert tdm.ROUTE_PRODUCT_LAUNCHES["nt"] == before[1]["nt"] + (not shallow)
         ref = _plain(ta, tb, call)
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert _err(got, ref) <= 1e-4, (n, _err(got, ref))
-        again = prod.gemm(m_, n_, k_, ta, sam, sak, tb, sbk, sbn)
+        again = prod.nt(ta, tb)
         assert torch.equal(got, again)
 
 
@@ -255,7 +225,7 @@ def test_cuda_tc_product_refuses_a_fourth_layout_and_other_dtypes():
     a = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
     prod = tdm.Products(torch.bfloat16, dev)
     with pytest.raises(ValueError):
-        prod.gemm(64, 64, 64, a, 1, 64, a, 1, 64)
+        prod.nt(a.T, a)
     with pytest.raises(TypeError):
         prod.nt(a.float(), a)
 

@@ -1,7 +1,7 @@
 """The f32 routes on the tensor cores: the 3xTF32 split of the f32
-product (``csrc/dual_mlp_bwd.cu``, ``neddf_gemm_tc`` with f32 operands),
-of the f32 row-tile forward (``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``)
-and of the NeuS sweep (``csrc/sdf_mlp.cu``).
+products (``csrc/route_products.cu``, ``Products.nt``), of the f32
+row-tile forward (``csrc/tile_hopper.cuh``, ``mlp_tile_fwd``) and of the
+NeuS sweep (``csrc/sdf_sweep.cuh``).
 
 On the CPU: the plain emulation beside the kernels' wrapper
 (``kernels/dual_mlp.py``: ``tf32_round``, ``tf32_split``,
@@ -10,11 +10,12 @@ against f64; the emulated product at the NeuS backward's narrow shapes
 in all three layouts against f64, against ``products_plain`` and against
 the JAX package's own products (``neddf_tpu.kernels.dual_mlp._mm`` /
 ``_mm_tn`` / ``_mm_nt``); the emulated forward of whole trunks against
-their plain versions; the planning of 4-byte operands (``tc_plan``).
+their plain versions.
 
-On the card (marked ``cuda``: they skip without one): the f32 product
-(tc_gemm_kernel, nt) against its plain version with ragged rows, narrow
-fan-ins and misaligned row strides, bitwise equal over two runs; the f32 tile
+On the card (marked ``cuda``: they skip without one): the f32 nt product
+(``Products.nt``: shallow_nt at a depth of 3, route_nt past it) against
+its plain version with ragged rows, narrow fan-ins and misaligned row
+strides, bitwise equal over two runs; the f32 tile
 forward for K = 0 (a 3-wide last layer, and [h, seg0]), K = 1 and K = 3,
 and the NeuS trunk with its sweep, against the plain versions.
 
@@ -195,45 +196,6 @@ def test_emulated_trunk_forward_within_the_f32_bar(name):
     assert _rel(_emulated_mlp(vs, ws, bs, layout, act), ref) <= F32_TOL
 
 
-@pytest.mark.parametrize("layout", ["nt", "tn", "nn"])
-def test_plan_for_4_byte_operands_reads_layout_and_strides(layout):
-    """nt gives its row strides; tn and nn (on route_products.cu's wgmma
-    kernels) are refused."""
-    for k in NEUS_K:
-        _, _, call = _operands(layout, k, 36, rows=5)
-        m, n, kk, sam, sak, sbk, sbn = call
-        if layout != "nt":
-            with pytest.raises(ValueError):
-                tdm.tc_plan(m, n, kk, sam, sak, sbk, sbn, itemsize=4)
-            continue
-        plan = tdm.tc_plan(m, n, kk, sam, sak, sbk, sbn, itemsize=4)
-        assert (plan["lda"], plan["ldb"]) == (sam, sbn)
-
-
-def test_plan_for_4_byte_operands_copy_widths():
-    # f32 row strides: 256 / 36 -> 16-byte copies; 42 -> 8; 39, 3 -> 4
-    for ld, vec in ((256, 4), (36, 4), (42, 2), (39, 1), (3, 1), (295, 1)):
-        assert tdm.tc_plan(10, 256, ld, ld, 1, 1, 256, 0, 0, 4)["vec_a"] == vec
-    # a pointer 8 or 4 bytes off a 16-byte boundary narrows the copy
-    assert tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, 8, 0, 4)["vec_a"] == 2
-    assert tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, 4, 0, 4)["vec_a"] == 1
-
-
-@pytest.mark.parametrize("ptr", [2, 6, 1])
-def test_plan_refuses_misaligned_4_byte_rows(ptr):
-    with pytest.raises(ValueError):
-        tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, ptr, 0, 4)
-    with pytest.raises(ValueError):
-        tdm.tc_plan(10, 256, 256, 256, 1, 1, 256, 0, ptr, 4)
-
-
-def test_plan_for_4_byte_operands_refuses_a_fourth_layout():
-    with pytest.raises(ValueError):
-        tdm.tc_plan(64, 64, 64, 1, 64, 1, 64, itemsize=4)
-    with pytest.raises(ValueError):
-        tdm.tc_plan(64, 64, 64, 64, 1, 1, 64, itemsize=8)
-
-
 # ------------------------------------------------------------------ on the card
 def _cuda():
     if not torch.cuda.is_available():
@@ -250,32 +212,34 @@ def test_cuda_tf32x3_product_matches_plain(k):
     for n in (3, 36, 256):
         a, b, call = _operands("nt", k, n, rows=7003, seed=k * n)
         ta, tb = a.to(dev), b.to(dev)
-        before = dict(tdm.GEMM_LAUNCHES)
-        strided = (*call[:3], ta, *call[3:5], tb, *call[5:])
-        got = prod.gemm(*strided)  # tc_gemm_kernel itself
-        assert tdm.GEMM_LAUNCHES == {"tc": before["tc"], "tf32x3": before["tf32x3"] + 1}
-        ref = tdm.products_plain(*strided)
+        shallow = k < tdm.ROUTE_NT_MIN_K
+        before = dict(tdm.SHALLOW_LAUNCHES), dict(tdm.ROUTE_PRODUCT_LAUNCHES)
+        got = prod.nt(ta, tb)  # shallow_nt at k = 3, route_nt past it
+        assert tdm.SHALLOW_LAUNCHES["tf32x3"] == before[0]["tf32x3"] + shallow
+        assert tdm.ROUTE_PRODUCT_LAUNCHES["nt"] == before[1]["nt"] + (not shallow)
+        ref = tdm.products_plain(*call[:3], ta, *call[3:5], tb, *call[5:])
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert _rel(got.cpu(), ref.cpu()) <= PRODUCT_REL_TOL
-        assert torch.equal(got, prod.gemm(*strided))
+        assert torch.equal(got, prod.nt(ta, tb))
 
 
 @pytest.mark.cuda
 def test_cuda_tf32x3_product_with_misaligned_rows():
     """Operands as views into wider buffers: odd row strides, 299 and 301,
-    and pointers 4 and 8 bytes off a 16-byte boundary (copies of 4 and 8
-    bytes), ragged on every side."""
+    and pointers 4 and 8 bytes off a 16-byte boundary (copied by the
+    launcher to 16-byte rows), ragged on every side."""
     dev = _cuda()
     prod = tdm.Products(torch.float32, dev)
     rng = np.random.default_rng(3)
     m, n, k = 1001, 37, 295
     buf_a = torch.tensor(rng.normal(size=(m + 1) * 300), dtype=torch.float32, device=dev)
-    buf_b = torch.tensor(rng.normal(size=(k + 1) * 300), dtype=torch.float32, device=dev)
-    call = (m, n, k, buf_a[1:], 299, 1, buf_b[2:], 1, 301)
-    got = prod.gemm(*call)
-    ref = tdm.products_plain(*call)
+    buf_b = torch.tensor(rng.normal(size=(n + 1) * 301), dtype=torch.float32, device=dev)
+    a = torch.as_strided(buf_a, (m, k), (299, 1), 1)
+    b = torch.as_strided(buf_b, (n, k), (301, 1), 2)
+    got = prod.nt(a, b)
+    ref = tdm.products_plain(m, n, k, a, 299, 1, b, 1, 301)
     assert _rel(got.cpu(), ref.cpu()) <= PRODUCT_REL_TOL
-    assert torch.equal(got, prod.gemm(*call))
+    assert torch.equal(got, prod.nt(a, b))
 
 
 def _layers(rng, fans, outs, dev):

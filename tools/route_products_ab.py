@@ -25,7 +25,7 @@ phases 8 and 11 and NeuS-1024 and NeuS-deep of phases 25b and 26b; any of
 ``STEPS`` by name, at their rays) trains 100 steps through the tree's
 ``scripts/run.py``; its ms/step is the mean over steps 50-99, beside the
 backward products' launches per step (with an activation folded in, and
-of tc_gemm_kernel).
+of the shallow nt's kernel).
 
 Run from the root of a checkout on a machine with one CUDA card, with
 the tree to time (this checkout, or an unpacked ``git archive`` of
@@ -94,12 +94,16 @@ g = torch.Generator(device=dev).manual_seed(0)
 def product_counts() -> dict:
     """The backward products' launches so far: with an activation folded
     in, by end ("epilogue", "prologue") and by mode where the tree counts
-    them, and of tc_gemm_kernel. A tree with ``FOLD_LAUNCHES`` counts the
+    them, and of the shallow nt (``SHALLOW_LAUNCHES``: shallow_nt; in the
+    trees before it tc_gemm_kernel). A tree with ``FOLD_LAUNCHES`` counts the
     folded modes and tc_gemm_kernel apart; in the trees before it every
     product with an activation folded in ran on tc_gemm_kernel, counted in
     ``Products.tc_launches`` / ``tf32x3_launches`` beside its plain
     products, and by end in ``Products.epilogue_launches`` /
     ``prologue_launches``."""
+    if hasattr(dm, "SHALLOW_LAUNCHES"):  # the shallow nt on its own kernel
+        return {**dm.folded_launches(), "shallow_nt": sum(dm.SHALLOW_LAUNCHES.values()),
+                **{f"fold_{k}": v for k, v in dm.FOLD_LAUNCHES.items()}}
     if hasattr(dm, "FOLD_LAUNCHES"):
         return {**dm.folded_launches(), "tc_gemm_kernel": sum(dm.GEMM_LAUNCHES.values()),
                 **{f"fold_{k}": v for k, v in dm.FOLD_LAUNCHES.items()}}
